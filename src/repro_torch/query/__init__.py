@@ -1,0 +1,28 @@
+"""Query subsystem of the port: logical plans -> optimizer -> cost model ->
+physical executor (batch / stream / eager).
+
+    from repro_torch.query import Q, Catalog, Executor
+
+    cat = Catalog.from_tables(lineitem, orders)        # on the card
+    ex = Executor(cat)
+    q = (Q.scan("lineitem").filter("quantity", 30, 49)
+          .join(Q.scan("orders"), on="orderkey").sum("price"))
+    total = ex.execute(q).value
+"""
+from repro_torch.query.logical import (                          # noqa: F401
+    Aggregate, Filter, FilterProject, HyperParams, Join, Node, Project, Q,
+    Scan, canonicalize, fingerprint, literals, output_columns, pformat,
+    signature, tables_of, walk,
+)
+from repro_torch.query.cost import (                             # noqa: F401
+    ColumnStats, CostModel, PhysNode, TableStats, column_placements,
+    estimate_rows, join_orientation_cost, key_is_unique, plan_physical,
+)
+from repro_torch.query.optimize import (                         # noqa: F401
+    choose_build_side, fuse_filter_project, optimize, prune_columns,
+    push_down_filters,
+)
+from repro_torch.query.pipeline import (                         # noqa: F401
+    BreakerSpec, CompiledPipeline, StreamPlan, analyze,
+)
+from repro_torch.query.exec import Catalog, Executor, Result     # noqa: F401

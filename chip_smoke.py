@@ -7,8 +7,9 @@ Phases, each of which must pass or the script exits non-zero:
 1. card: the name and power limit, as nvidia-smi reports them;
 2. build: the CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the queries below give it and at a ragged length; integer
-   outputs must be bit-identical.  Each is timed with CUDA events beside
+   the shapes the queries below give it (the bucket probe also at the
+   TPC-H join's negative-padded pass blocks) and at a ragged length with
+   keys at both ends of int32; integer outputs must be bit-identical.  Each is timed with CUDA events beside
    its bound (bytes read once and written once over the card's data-sheet
    memory rate) and, where one PyTorch call computes the same function,
    that call's time;
@@ -189,7 +190,7 @@ def phase_build():
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_kernels(dev, ssb_tables):
+def phase_kernels(dev, ssb_tables, tpch_tables):
     """Every kernel against its plain version at the main path's shapes
     (and a small ragged length), timed.  Returns the JSON rows."""
     import torch
@@ -238,17 +239,37 @@ def phase_kernels(dev, ssb_tables):
     # B2 at the fused probe's shape: the sorted date keys against every
     # lineorder row (batch mode probes the whole column)
     s_sorted, _ = join_ref.bucket_build(datekeys)
-    keys_small = torch.from_numpy(r.integers(19920000, 19990000, 100_003,
-                                             dtype=np.int32)).to(dev)
+    keys_small = r.integers(19920000, 19990000, 100_003, dtype=np.int32)
+    keys_small[-3:] = (2 ** 31 - 1, -2 ** 31, -1)
+    keys_small = torch.from_numpy(keys_small).to(dev)
     check("probe_counts", lambda: jk.probe_counts(s_sorted, keys_small),
-          lambda: jk.probe_counts_plain(s_sorted, keys_small))
+          lambda: join_ref.bucket_probe(s_sorted, keys_small))
     b2_kernel = lambda: jk.probe_counts(s_sorted, orderdate)   # noqa: E731
-    b2_plain = lambda: jk.probe_counts_plain(s_sorted,         # noqa: E731
+    b2_plain = lambda: join_ref.bucket_probe(s_sorted,         # noqa: E731
                                              orderdate)
     err = check("probe_counts", b2_kernel, b2_plain)
-    lib_err = check("probe_counts", b2_kernel,
-                    lambda: join_ref.bucket_probe(s_sorted, orderdate))
-    assert lib_err == 0
+
+    # B2 at the eager duplicate-keyed join's shape: the filtered lineitem
+    # keys cut into HT_CAPACITY pass blocks with distinct negative pads, as
+    # join_distributed_multi builds them, against every orders key
+    cap = join_core.HT_CAPACITY
+    keep = tpch_tables["lineitem"]["quantity"] == 1
+    build = torch.from_numpy(tpch_tables["lineitem"]["orderkey"][keep]).to(dev)
+    okeys = torch.from_numpy(tpch_tables["orders"]["orderkey"]).to(dev)
+    n_passes = -(-build.shape[0] // cap)
+    padded = join_core._pad_build(build, n_passes)
+    blocks = [join_ref.bucket_build(padded[p * cap:(p + 1) * cap])[0]
+              for p in range(n_passes)]
+    tpch_kernel = lambda: [t for b in blocks                  # noqa: E731
+                           for t in jk.probe_counts(b, okeys)]
+    tpch_plain = lambda: [t for b in blocks                   # noqa: E731
+                          for t in join_ref.bucket_probe(b, okeys)]
+    err = max(err, check("probe_counts", tpch_kernel, tpch_plain))
+    log(f"  probe_counts  {n_passes} TPC-H pass blocks of ({cap},) with "
+        f"{n_passes * cap - build.shape[0]} negative pads, keys="
+        f"({okeys.shape[0]},): kernel {time_ms(tpch_kernel, reps=5):.4f} ms,"
+        f" plain {time_ms(tpch_plain, reps=5):.4f} ms for all passes, "
+        "bit-identical")
 
     def library_b2():
         torch.searchsorted(s_sorted, orderdate, side="left")
@@ -461,7 +482,7 @@ def main(argv=None) -> int:
     log(f"data: made in {time.perf_counter() - t0:.2f} s (seed {args.seed})")
 
     log("kernels against their plain versions:")
-    rows = phase_kernels(dev, ssb)
+    rows = phase_kernels(dev, ssb, tpch)
     ssb_counts = phase_ssb(dev, ssb)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
@@ -470,7 +491,8 @@ def main(argv=None) -> int:
            "hash_probe": "probe"}
     for row in rows:
         row["launches"] = sum(c[key[row["name"]]]
-                              for c in ssb_counts.values())
+                              for counts in (ssb_counts, tpch_counts)
+                              for c in counts.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  "path")

@@ -2,9 +2,10 @@
 
 This is the integration layer the paper builds into MonetDB: operators take
 and return Tables; the FPGA roles are played by the card's kernels
-(core.selection / core.join), selected per operator exactly like MonetDB's
-optimizer picks the UDF implementation.  The streaming forms at the end
-are partition-granular: state that outlives one morsel is explicit.
+(core.selection / core.join).  The kernel wrappers launch on CUDA tensors
+and take their plain versions on CPU ones, so the device decides.  The
+streaming forms at the end are partition-granular: state that outlives one
+morsel is explicit.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.columnar.table import Column, Table
 from repro_torch.core import join as join_core
 from repro_torch.core import selection as sel_core
 from repro_torch.core.channels import ChannelPlan
+from repro_torch.kernels.join import join as join_kernels
 from repro_torch.kernels.join import ref as join_ref
 from repro_torch.kernels.selection import ref as sel_ref
 
@@ -46,7 +48,7 @@ def scan(table: Table, columns: Sequence[str]) -> Table:
 
 
 def select_range(table: Table, column: str, lo: int, hi: int, *,
-                 impl: str = "torch", block: int = 1024) -> Table:
+                 block: int = 1024) -> Table:
     """Range selection -> materialized index column.
 
     The selection kernel masks ragged blocks, so every row count takes the
@@ -64,13 +66,13 @@ def select_range(table: Table, column: str, lo: int, hi: int, *,
         idx = compact_positions(mask, int(mask.sum()))
         return Table(f"{table.name}.sel", {"idx": Column(idx, "idx")})
     idx, counts = sel_core.select_distributed(
-        table.column(column), lo, hi, table.plan, block=block, impl=impl)
+        table.column(column), lo, hi, table.plan, block=block)
     n = int(counts.sum())
     compacted = idx[compact_positions(idx >= 0, n)]
     return Table(f"{table.name}.sel", {"idx": Column(compacted, "idx")})
 
 
-def join(left: Table, right: Table, on: str, *, impl: str = "torch",
+def join(left: Table, right: Table, on: str, *,
          unique: Optional[bool] = None) -> Table:
     """Inner join: right is the (build) side.  Returns the full multiset of
     matched index pairs (l_idx, r_idx).  Duplicate build keys emit one
@@ -90,12 +92,12 @@ def join(left: Table, right: Table, on: str, *, impl: str = "torch",
     if unique:
         l_keys = _pad_probe(left.column(on), left.plan.n_engines)
         s_idx, total = join_core.join_distributed(
-            right.column(on), l_keys, left.plan, impl=impl)
+            right.column(on), l_keys, left.plan)
         l_idx = compact_positions(s_idx >= 0, int(total))
         r_idx = s_idx[l_idx]
     else:
         l_idx, r_idx = _join_pairs(right.column(on), left.column(on),
-                                   left.plan, impl=impl)
+                                   left.plan)
     return Table("join", {"l_idx": Column(l_idx, "l_idx"),
                           "r_idx": Column(r_idx, "r_idx")})
 
@@ -111,30 +113,30 @@ def _pad_probe(l_keys: torch.Tensor, n_engines: int) -> torch.Tensor:
 
 
 def _check_key_domain(s_keys: torch.Tensor, l_keys: torch.Tensor) -> None:
-    # the kernels reserve key values for pad sentinels (negative range for
-    # pass padding, 2**31-1 for the binary-search table pad): reject
-    # out-of-domain data instead of silently corrupting pairs
+    # the multi-pass join reserves the negative range for its pass-padding
+    # sentinels: reject negative keys instead of silently corrupting pairs.
+    # (The reference also reserves 2**31 - 1, its Pallas table pad; the
+    # counts kernel's padding is virtual, so every non-negative key joins.)
     for name, keys in (("build", s_keys), ("probe", l_keys)):
-        if keys.shape[0] and (int(keys.min()) < 0
-                              or int(keys.max()) >= 2 ** 31 - 1):
+        if keys.shape[0] and int(keys.min()) < 0:
             raise ValueError(
-                f"join {name} keys must be in [0, 2**31 - 2]: values "
-                "outside it collide with the kernel pad sentinels")
+                f"join {name} keys must be non-negative: negative values "
+                "collide with the pass-padding sentinels")
 
 
 def _join_pairs(s_keys: torch.Tensor, l_keys: torch.Tensor,
-                plan: ChannelPlan, *, impl: str = "torch"):
+                plan: ChannelPlan):
     """Compacted (l_idx, s_idx) pair columns from the multi-match join.
     The per-engine totals are exact even when a pair list overflows, so one
     retry with the measured capacity always suffices."""
     _check_key_domain(s_keys, l_keys)
     l_keys = _pad_probe(l_keys, plan.n_engines)
     l_buf, s_buf, totals, overflow = join_core.join_distributed_multi(
-        s_keys, l_keys, plan, impl=impl)
+        s_keys, l_keys, plan)
     if bool(overflow.any()):
         need = int(totals.max())
         l_buf, s_buf, totals, overflow = join_core.join_distributed_multi(
-            s_keys, l_keys, plan, impl=impl,
+            s_keys, l_keys, plan,
             max_out_per_shard=max(need, 64))
         if bool(overflow.any()):
             raise RuntimeError("multi-match join overflowed after resizing")
@@ -211,8 +213,9 @@ def join_build(right: Table, on: str, value_cols: Sequence[str] = (), *,
 
 
 def join_probe_morsel(build: JoinBuild, keys: torch.Tensor):
-    """(start, count) of each key's bucket in the sorted build side."""
-    return join_ref.bucket_probe(build.s_sorted, keys)
+    """(start, count) of each key's bucket in the sorted build side,
+    through the counts kernel on the card."""
+    return join_kernels.probe_counts(build.s_sorted, keys)
 
 
 def bucket_sums(csum: torch.Tensor, start: torch.Tensor,

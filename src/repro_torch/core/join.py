@@ -46,8 +46,7 @@ def _shards(l_keys: torch.Tensor, plan: ChannelPlan) -> int:
 def join_distributed(s_keys: torch.Tensor, l_keys: torch.Tensor,
                      plan: ChannelPlan, *,
                      table_size: int = 4 * HT_CAPACITY,
-                     probe_depth: int = 8, block: int = DEFAULT_BLOCK,
-                     impl: str = "torch"):
+                     probe_depth: int = 8, block: int = DEFAULT_BLOCK):
     """Unique-key join: s_keys (N_S,) shared, l_keys (N_L,) split over the
     engines.  Returns (s_idx per L position (N_L,), total matches)."""
     n_passes = -(-s_keys.shape[0] // HT_CAPACITY)
@@ -61,8 +60,7 @@ def join_distributed(s_keys: torch.Tensor, l_keys: torch.Tensor,
         for p in range(n_passes):                     # rescan L per S block
             res = join_ops.hash_join(
                 s_keys[p * HT_CAPACITY:(p + 1) * HT_CAPACITY], l_local,
-                table_size=table_size, probe_depth=probe_depth, block=block,
-                impl=impl)
+                table_size=table_size, probe_depth=probe_depth, block=block)
             s_idx = torch.where((s_idx < 0) & (res.s_idx >= 0),
                                 res.s_idx + p * HT_CAPACITY, s_idx)
             dropped_max = max(dropped_max, int(res.dropped))
@@ -78,15 +76,14 @@ def join_distributed(s_keys: torch.Tensor, l_keys: torch.Tensor,
 
 
 def join_distributed_multi(s_keys: torch.Tensor, l_keys: torch.Tensor,
-                           plan: ChannelPlan, *, max_out_per_shard=None,
-                           impl: str = "torch"):
+                           plan: ChannelPlan, *, max_out_per_shard=None):
     """Duplicate-capable join: s_keys (N_S,) shared (may hold duplicates),
-    l_keys (N_L,) split over the engines.  Keys must be in [0, 2**31 - 2]:
-    negative values collide with the pass-padding sentinels and 2**31 - 1
-    is the kernel's table pad (the engine layer validates this).
+    l_keys (N_L,) split over the engines.  Keys must be non-negative:
+    negative values collide with the pass-padding sentinels (the engine
+    layer validates this).
 
     Every engine probes its shard against the sorted-bucket layout of each
-    S block (``impl="cuda"``: the counts kernel) and materializes its slice
+    S block (the counts kernel on the card) and materializes its slice
     of the GLOBAL (l_idx, s_idx) pair multiset into a fixed per-engine pair
     list, appending each pass's pairs at a running offset.
 
@@ -111,10 +108,7 @@ def join_distributed_multi(s_keys: torch.Tensor, l_keys: torch.Tensor,
         s_buf = torch.full((max_out,), -1, dtype=torch.int32, device=dev)
         total = torch.zeros((), dtype=torch.int64, device=dev)
         for p, (s_sorted, order) in enumerate(builds):
-            if impl == "cuda":
-                start, counts = join_kernels.probe_counts(s_sorted, l_local)
-            else:
-                start, counts = join_ref.bucket_probe(s_sorted, l_local)
+            start, counts = join_kernels.probe_counts(s_sorted, l_local)
             l_buf, s_buf, t_p = join_ref.emit_pairs_into(
                 l_buf, s_buf, order, start, counts, out_base=total,
                 l_base=eng * shard, s_base=p * HT_CAPACITY)

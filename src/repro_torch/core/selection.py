@@ -15,7 +15,7 @@ from repro_torch.kernels.selection.selection import DEFAULT_BLOCK
 
 
 def select_distributed(x: torch.Tensor, lo, hi, plan: ChannelPlan, *,
-                       block: int = DEFAULT_BLOCK, impl: str = "torch"):
+                       block: int = DEFAULT_BLOCK):
     """x: (N,) int32 with N a multiple of the engine count.  Returns (idx
     lines (N,), per-engine counts (n_engines,)); indices are GLOBAL.
 
@@ -32,7 +32,7 @@ def select_distributed(x: torch.Tensor, lo, hi, plan: ChannelPlan, *,
     for eng in range(n_eng):
         lo_row = eng * shard if plan.placement == "partitioned" else 0
         idx, cnt = sel_ops.select(x[lo_row:lo_row + shard], lo, hi,
-                                  block=block, impl=impl)
+                                  block=block)
         lines.append(torch.where(idx >= 0, idx + eng * shard, -1))
         counts.append(cnt.sum())
     return torch.cat(lines), torch.stack(counts)

@@ -3,8 +3,8 @@
 // probe_counts_i32 replaces probe_counts_pallas / _probe_counts_kernel /
 //   _lower_bound in src/repro/kernels/join/join.py.  For every probe key it
 //   returns the bucket start (lower bound) and the exact match count (upper
-//   bound - start) over the sorted build side, padded to a power of two
-//   with PAD_SENTINEL = 2**31 - 1.
+//   bound - start) over the sorted build side: torch.searchsorted's left
+//   and right bounds, for every int32 key.
 //   Bound: device-memory bytes (4 B key read, 8 B written per probe row; the
 //   table is read once).  The two searches cost 2*(log2(ts)+1) compares a
 //   row, below the integer rate for every table the executor builds.
@@ -13,8 +13,11 @@
 //   pipeline's build side is the whole build table (millions of keys, tens
 //   of MB), so it is not tiled into shared memory the way the TPU kernel
 //   held one block in VMEM; the first levels of every search hit the same
-//   few entries, which stay cached.  The power-of-two padding is virtual:
-//   positions >= n_s read as the sentinel, so no padded copy is made.
+//   few entries, which stay cached.  The search runs over the table padded
+//   to a power of two, and the padding is virtual: positions >= n_s read as
+//   2**31 - 1, which sorts at or above every int32 key, and both bounds are
+//   clamped to n_s.  So no padded copy is made, and a key equal to
+//   2**31 - 1 counts only real entries (the TPU kernel counted its pads).
 //   Each search is a chain of dependent loads; this first version hides
 //   their latency only through occupancy, so it runs well below the byte
 //   bound (its measured share is in PERF.md).
@@ -70,8 +73,10 @@ probe_counts_kernel(const int32_t* __restrict__ s_sorted, int64_t n_s,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   const int32_t q = keys[i];
-  const int64_t lo = bound_pow2<false>(s_sorted, n_s, ts, q);
-  const int64_t hi = bound_pow2<true>(s_sorted, n_s, ts, q);
+  const int64_t lo_p = bound_pow2<false>(s_sorted, n_s, ts, q);
+  const int64_t hi_p = bound_pow2<true>(s_sorted, n_s, ts, q);
+  const int64_t lo = lo_p < n_s ? lo_p : n_s;
+  const int64_t hi = hi_p < n_s ? hi_p : n_s;
   start[i] = static_cast<int32_t>(lo);
   count[i] = static_cast<int32_t>(hi - lo);
 }

@@ -6,9 +6,11 @@ probes on the executor's path:
 
 * ``probe_counts`` (replaces ``probe_counts_pallas``): bucket (start,
   count) of every probe key over the sorted build side, by two branchless
-  binary searches over the table padded to a power of two with
-  ``PAD_SENTINEL``.  The table is read from device memory through the
+  binary searches.  The table is read from device memory through the
   caches, so the whole build side of a pipeline join is probed at once.
+  Its plain version is ``ref.bucket_probe``; the kernel equals it for
+  every int32 key (the TPU kernel padded the table with ``2**31 - 1`` and
+  so miscounted that key; the kernel's padding is virtual and clamped).
 * ``probe`` (replaces ``probe_pallas``): the open-addressing probe of the
   paper's unique-key fast path.
 
@@ -24,38 +26,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.join import ref
 
 DEFAULT_BLOCK = 4096
-PAD_SENTINEL = 2 ** 31 - 1     # sorts above every legal key, never a probe
-
-
-def _pad_table(s_sorted: torch.Tensor) -> torch.Tensor:
-    """The sorted table padded to the next power of two (at least 2) with
-    the +inf sentinel — the layout both binary searches run over."""
-    n_s = s_sorted.shape[0]
-    ts = ref.next_pow2(max(n_s, 2))
-    if ts == n_s:
-        return s_sorted
-    pad = torch.full((ts - n_s,), PAD_SENTINEL, dtype=torch.int32,
-                     device=s_sorted.device)
-    return torch.cat([s_sorted, pad])
 
 
 # ---- B2: counts-only multi-match probe ------------------------------------ #
 
-def probe_counts_plain(s_sorted: torch.Tensor, l_keys: torch.Tensor):
-    """Plain version of the counts kernel: lower and upper bound over the
-    padded table.  Equals ``ref.bucket_probe`` for every key below the
-    sentinel."""
-    a = _pad_table(s_sorted)
-    start = torch.searchsorted(a, l_keys, side="left")
-    end = torch.searchsorted(a, l_keys, side="right")
-    return start.to(torch.int32), (end - start).to(torch.int32)
-
-
 def probe_counts(s_sorted: torch.Tensor, l_keys: torch.Tensor):
-    """(start (N_L,), counts (N_L,)) of each probe key's bucket; counts are
-    exact.  Keys must be below ``PAD_SENTINEL``."""
+    """(start (N_L,), counts (N_L,)) of each probe key's bucket in the
+    sorted build side, as ``ref.bucket_probe`` gives them; counts are
+    exact."""
     if l_keys.device.type == "cpu":
-        return probe_counts_plain(s_sorted, l_keys)
+        return ref.bucket_probe(s_sorted, l_keys)
     _build.require_int32_cuda(s_sorted, "s_sorted")
     _build.require_int32_cuda(l_keys, "l_keys")
     if s_sorted.device != l_keys.device:

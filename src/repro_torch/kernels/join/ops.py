@@ -31,21 +31,18 @@ class JoinResult(NamedTuple):
 
 def hash_join(s_keys: torch.Tensor, l_keys: torch.Tensor, *,
               table_size: int, probe_depth: int = 4,
-              block: int = DEFAULT_BLOCK, impl: str = "torch") -> JoinResult:
+              block: int = DEFAULT_BLOCK) -> JoinResult:
     """Naively-partitioned hash join (Algorithm 2), unique S.
 
     The build is the vectorized sequential-equivalent build; the probe is
-    the accelerated phase (``impl="cuda"``: the hash-probe kernel).  Keys
-    the bounded build could not place take a direct-compare side path, so
-    the join is exact up to MAX_DROPPED drops; beyond that ``overflowed``
-    is set."""
+    the accelerated phase (the hash-probe kernel on the card).  Keys the
+    bounded build could not place take a direct-compare side path, so the
+    join is exact up to MAX_DROPPED drops; beyond that ``overflowed`` is
+    set."""
     ht_keys, ht_vals, placed = ref.build_table(s_keys, table_size,
                                                probe_depth)
-    if impl == "cuda":
-        s_idx, _ = join_kernels.probe(ht_keys, ht_vals, l_keys, block=block,
-                                      probe_depth=probe_depth)
-    else:
-        s_idx, _ = ref.probe_ref(ht_keys, ht_vals, l_keys, probe_depth)
+    s_idx, _ = join_kernels.probe(ht_keys, ht_vals, l_keys, block=block,
+                                  probe_depth=probe_depth)
 
     dropped = (~placed).sum()
     # slow path: up to MAX_DROPPED unplaced keys, compared directly.  With

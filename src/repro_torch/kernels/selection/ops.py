@@ -1,26 +1,16 @@
-"""Range selection with an impl switch: ``impl="cuda"`` runs the
-hand-written kernel (its plain version for CPU tensors), ``impl="torch"``
-the plain-torch oracle — the role the CPU baselines play in the paper."""
+"""Range selection: ``select`` is the kernel wrapper, which launches the
+hand-written kernel for CUDA tensors and takes its plain version for CPU
+tensors — the role the CPU baselines play in the paper."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.selection import ref
-from repro_torch.kernels.selection import selection
-from repro_torch.kernels.selection.selection import DEFAULT_BLOCK
+from repro_torch.kernels.selection.selection import DEFAULT_BLOCK, select
 
 
-def select(x: torch.Tensor, lo, hi, *, block: int = DEFAULT_BLOCK,
-           impl: str = "torch"):
-    """Range selection -> (padded index lines (N,), per-block counts)."""
-    if impl == "cuda":
-        return selection.select(x, lo, hi, block=block)
-    return ref.select_blocked(x, lo, hi, block)
-
-
-def select_count(x: torch.Tensor, lo, hi, *, block: int = DEFAULT_BLOCK,
-                 impl: str = "torch") -> torch.Tensor:
-    _, counts = select(x, lo, hi, block=block, impl=impl)
+def select_count(x: torch.Tensor, lo, hi, *,
+                 block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    _, counts = select(x, lo, hi, block=block)
     return counts.sum()
 
 

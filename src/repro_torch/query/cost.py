@@ -2,15 +2,16 @@
 alternatives, for the nodes of the select -> join -> aggregate path.
 
 The paper's lesson (Fig. 2/5) is that placement and access pattern decide
-achieved bandwidth.  This module prices each (impl, placement, pass-count)
-alternative of every physical operator so the executor can pick impl and
-placement per operator.  The impls are ``torch`` (plain tensor code) and
-``cuda`` (the hand-written kernels), and kernels are allowed exactly when
-the executor runs on a CUDA device.
+achieved bandwidth.  This module prices each (placement, pass-count)
+alternative of every physical operator so the executor can pick the
+placement per operator.  Which code runs is not priced: the kernel
+wrappers launch the hand-written kernels on a CUDA device and their plain
+versions on the CPU, so the model only carries that choice as the label
+``impl`` (``cuda`` or ``torch``) that ``explain`` shows.
 
 The bandwidth defaults to NVIDIA's data-sheet figure for the H100
-(``channels.H100_HBM_GBPS``), and the efficiencies and per-call overheads
-are placeholders: all of them wait for the port's calibration on the card.
+(``channels.H100_HBM_GBPS``), and the efficiency and per-call overhead are
+placeholders: all of them wait for the port's calibration on the card.
 Unlike the reference, the port reads no calibration file.
 """
 from __future__ import annotations
@@ -25,15 +26,10 @@ from repro_torch.query import logical as L
 
 BYTES_PER_VALUE = 4                 # int32/float32 columns
 
-# streaming efficiencies + fixed per-call overheads (sec) per impl,
-# placeholders until calibrated on the card.  ``torch`` keeps the
-# reference's XLA defaults.  A kernel call is one launch, and the plain
-# version of the same operator is a chain of several PyTorch launches, so
-# on the card the kernel's per-call overhead is not above the plain one:
-# the reference's larger Pallas overhead (a TPU grid set-up) does not carry
-# over
-STREAM_EFF = {"torch": 0.70, "cuda": 0.92}
-CALL_OVERHEAD = {"torch": 2e-6, "cuda": 2e-6}
+# streaming efficiency and fixed per-call overhead (sec): the reference's
+# defaults for its plain path, placeholders until calibrated on the card
+STREAM_EFF = 0.70
+CALL_OVERHEAD_S = 2e-6
 
 # host -> device staging for per-morsel transfers: PCIe Gen5 x16, one
 # direction, data-sheet figure
@@ -143,16 +139,14 @@ def expected_chain_length(node: L.Node, column: str,
 
 class CostModel:
     """Prices one physical operator alternative at a time on one card
-    split into ``n_engines`` contiguous shards."""
+    split into ``n_engines`` contiguous shards.  ``impl`` labels the code
+    the device runs: ``cuda`` (the kernels) or ``torch`` (plain versions)."""
 
-    def __init__(self, n_engines: int = 1, *, allow_kernels: bool = False):
+    def __init__(self, n_engines: int = 1, *, impl: str = "torch"):
+        if impl not in ("torch", "cuda"):
+            raise ValueError(f"impl must be 'torch' or 'cuda', got {impl!r}")
         self.n_engines = int(n_engines)
-        self.allow_kernels = bool(allow_kernels)
-        self.stream_eff = dict(STREAM_EFF)
-        self.call_overhead = dict(CALL_OVERHEAD)
-
-    def impls(self) -> Tuple[str, ...]:
-        return ("torch", "cuda") if self.allow_kernels else ("torch",)
+        self.impl = impl
 
     def bandwidth_gbps(self, placement: str) -> float:
         """Every engine streams the same HBM, so all placements price at
@@ -160,11 +154,11 @@ class CostModel:
         del placement
         return H100_HBM_GBPS
 
-    def stream_cost(self, n_bytes: float, *, impl: str, placement: str,
+    def stream_cost(self, n_bytes: float, *, placement: str,
                     n_passes: int = 1) -> float:
-        """Seconds to stream ``n_bytes`` under (impl, placement)."""
-        bw = self.bandwidth_gbps(placement) * 1e9 * self.stream_eff[impl]
-        return n_passes * n_bytes / bw + self.call_overhead[impl] * n_passes
+        """Seconds to stream ``n_bytes`` under ``placement``."""
+        bw = self.bandwidth_gbps(placement) * 1e9 * STREAM_EFF
+        return n_passes * (n_bytes / bw + CALL_OVERHEAD_S)
 
     def broadcast_cost(self, n_bytes: float) -> float:
         """Replicating a build side to every engine: n-1 extra copies
@@ -177,8 +171,7 @@ class CostModel:
     # -- morsel pricing (streaming pipeline) -------------------------------- #
 
     def morsel_cost(self, total_rows: float, morsel_rows: int, n_cols: int,
-                    *, impl: str = "torch",
-                    include_transfer: bool = True) -> float:
+                    *, include_transfer: bool = True) -> float:
         """Seconds to stream ``total_rows`` in double-buffered morsels: the
         next morsel's host->device copy overlaps the current morsel's
         compute, so steady state pays max(transfer, compute) per morsel.
@@ -187,11 +180,11 @@ class CostModel:
         m_bytes = morsel_rows * BYTES_PER_VALUE * n_cols
         t_x = (m_bytes / (H2D_GBPS * 1e9) + STAGE_OVERHEAD_S) \
             if include_transfer else 0.0
-        t_c = self.stream_cost(m_bytes, impl=impl, placement="partitioned")
+        t_c = self.stream_cost(m_bytes, placement="partitioned")
         return n_morsels * max(t_x, t_c) + min(t_x, t_c)
 
     def choose_morsel_rows(self, total_rows: float, n_cols: int, *,
-                           impl: str = "torch", align: Optional[int] = None,
+                           align: Optional[int] = None,
                            include_transfer: bool = True) -> int:
         """argmin of ``morsel_cost`` over power-of-two candidates (and the
         whole input), aligned to the engine count."""
@@ -205,7 +198,7 @@ class CostModel:
             k += 1
         candidates.append(-(-total // align) * align)   # whole input
         for rows in candidates:
-            c = self.morsel_cost(total, rows, n_cols, impl=impl,
+            c = self.morsel_cost(total, rows, n_cols,
                                  include_transfer=include_transfer)
             if c < best_cost:
                 best_rows, best_cost = rows, c
@@ -245,15 +238,11 @@ class PhysNode:
 
 def _choose(model: CostModel, n_bytes: float, placements: Tuple[str, ...],
             *, n_passes: int = 1):
-    """argmin over impl x placement; returns (impl, placement, cost, alts)."""
-    alts = {}
-    for impl in model.impls():
-        for pl in placements:
-            alts[f"{impl}/{pl}"] = model.stream_cost(
-                n_bytes, impl=impl, placement=pl, n_passes=n_passes)
+    """argmin over placements; returns (placement, cost, alts)."""
+    alts = {pl: model.stream_cost(n_bytes, placement=pl, n_passes=n_passes)
+            for pl in placements}
     best = min(alts, key=alts.get)
-    impl, pl = best.split("/")
-    return impl, pl, alts[best], alts
+    return best, alts[best], alts
 
 
 STREAM_PLACEMENTS = ("partitioned", "congested")
@@ -261,8 +250,8 @@ STREAM_PLACEMENTS = ("partitioned", "congested")
 
 def plan_physical(node: L.Node, stats: Dict[str, TableStats],
                   model: CostModel, *, role: str = "stream") -> PhysNode:
-    """Annotate a (logically optimized) plan with per-operator impl,
-    per-column placement, pass counts, and costs.  ``role="build"`` is
+    """Annotate a (logically optimized) plan with per-column placement,
+    pass counts, costs, and the model's impl label.  ``role="build"`` is
     the build side of a join (replicated to every engine); everything
     else streams."""
     rows = estimate_rows(node, stats)
@@ -274,12 +263,12 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
         if role == "build":
             # the source column is read once before the replication
             cost = model.broadcast_cost(n_bytes) + model.stream_cost(
-                n_bytes, impl="torch", placement="replicated")
-            return PhysNode("scan", node, "torch", "replicated", 1, rows,
+                n_bytes, placement="replicated")
+            return PhysNode("scan", node, model.impl, "replicated", 1, rows,
                             cost, model.bandwidth_gbps("replicated"),
-                            {"torch/replicated": cost}, n_bytes=n_bytes)
-        impl, pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS)
-        return PhysNode("scan", node, impl, pl, 1, rows, cost,
+                            {"replicated": cost}, n_bytes=n_bytes)
+        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS)
+        return PhysNode("scan", node, model.impl, pl, 1, rows, cost,
                         model.bandwidth_gbps(pl), alts, n_bytes=n_bytes)
 
     if isinstance(node, (L.Filter, L.FilterProject)):
@@ -291,10 +280,10 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
             * n_out_cols
         placements = ("replicated",) if role == "build" \
             else STREAM_PLACEMENTS
-        impl, pl, cost, alts = _choose(model, n_bytes, placements)
+        pl, cost, alts = _choose(model, n_bytes, placements)
         op = "filter_project" if isinstance(node, L.FilterProject) \
             else "filter"
-        return PhysNode(op, node, impl, pl, 1, rows, cost,
+        return PhysNode(op, node, model.impl, pl, 1, rows, cost,
                         model.bandwidth_gbps(pl), alts, (child,),
                         n_bytes=n_bytes)
 
@@ -326,24 +315,24 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
         # the probe runs wherever the probe stream already lives
         probe_pl = left.placement if left.placement != "replicated" \
             else STREAM_PLACEMENTS[0]
-        impl, pl, cost, alts = _choose(model, n_bytes, (probe_pl,),
-                                       n_passes=n_passes)
-        return PhysNode(op, node, impl, pl, n_passes, rows, cost,
+        pl, cost, alts = _choose(model, n_bytes, (probe_pl,),
+                                 n_passes=n_passes)
+        return PhysNode(op, node, model.impl, pl, n_passes, rows, cost,
                         model.bandwidth_gbps(pl), alts, (left, right),
                         n_bytes=n_bytes)
 
     if isinstance(node, L.Project):
         child = plan_physical(node.child, stats, model, role=role)
         n_bytes = rows * BYTES_PER_VALUE * len(node.columns)
-        impl, pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
-        return PhysNode("project", node, impl, pl, 1, rows, cost,
+        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
+        return PhysNode("project", node, model.impl, pl, 1, rows, cost,
                         model.bandwidth_gbps(pl), alts, (child,),
                         n_bytes=n_bytes)
 
     if isinstance(node, L.Aggregate):
         child = plan_physical(node.child, stats, model, role=role)
         n_bytes = estimate_rows(node.child, stats) * BYTES_PER_VALUE
-        impl, pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
+        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
         # streaming granularity for the pipeline this aggregate roots,
         # priced on the probe-spine base scan (the stream source)
         base = probe_base_scan(node.child)
@@ -352,8 +341,8 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
             n_cols = len(base.columns) if base.columns is not None \
                 else len(stats[base.table].columns)
             morsel_rows = model.choose_morsel_rows(
-                stats[base.table].num_rows, max(n_cols, 1), impl=impl)
-        return PhysNode("aggregate", node, impl, pl, 1, 1.0, cost,
+                stats[base.table].num_rows, max(n_cols, 1))
+        return PhysNode("aggregate", node, model.impl, pl, 1, 1.0, cost,
                         model.bandwidth_gbps(pl), alts, (child,),
                         morsel_rows=morsel_rows, n_bytes=n_bytes)
 

@@ -16,7 +16,8 @@ Three lowering paths, as in the reference:
   for duplicate-keyed ones.
 
 The executor runs on the CUDA card unless constructed with a ``device``;
-kernels are chosen by the cost model exactly when that device is CUDA.
+the kernels run exactly when that device is CUDA, because every kernel
+wrapper launches on CUDA tensors and takes its plain version on CPU ones.
 GLM training and scoring (TrainGLM / ScoreGLM roots), the semantic cache,
 memory-tier spilling, sharding and telemetry are not ported yet.
 """
@@ -133,7 +134,7 @@ class Executor:
         self.catalog = catalog
         self.device = resolve(device)
         self.cost_model = cost_model or CostModel(
-            n_engines, allow_kernels=self.device.type == "cuda")
+            n_engines, impl="cuda" if self.device.type == "cuda" else "torch")
         self.plans: Dict[str, ChannelPlan] = {
             p: ChannelPlan(p, int(n_engines), self.device)
             for p in ("partitioned", "replicated", "congested")}
@@ -172,7 +173,7 @@ class Executor:
         ``"stream"``: the same pipeline morsel by morsel; ``"eager"``: the
         step-by-step engine lowering under the same physical plan.
         ``optimized=False`` is the naive differential oracle (eager, no
-        optimizer, no kernels)."""
+        optimizer)."""
         node = q.node if isinstance(q, L.Q) else q
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -235,7 +236,7 @@ class Executor:
             (t, self.catalog.stats[t].num_rows)
             for t in {n.table for n in L.walk(node)
                       if isinstance(n, L.Scan)}))
-        decisions = tuple((p.op, p.impl, p.placement, p.n_passes)
+        decisions = tuple((p.op, p.placement, p.n_passes)
                           for p in _walk_phys(phys))
         return (L.signature(node), shapes, decisions,
                 self.cost_model.n_engines)
@@ -258,12 +259,9 @@ class Executor:
                                           placements.get((table, "*"),
                                                          "partitioned")))
                 for c in splan.stream_cols)
-            decisions = {p.logical: p for p in _walk_phys(phys)}
-            impls = tuple(decisions[j].impl if j in decisions else "torch"
-                          for j in splan.join_nodes)
             cp = pl.compile_pipeline(
                 splan, rows or self.catalog.stats[table].num_rows,
-                self._agg_dtype(splan), self.device, impls=impls)
+                self._agg_dtype(splan), self.device)
             self._compiled[key] = (cp, specs)
         cp, specs = self._compiled[key]
         return cp, specs, hit
@@ -326,12 +324,6 @@ class Executor:
 
     def _run_eager(self, node: L.Node, phys: Optional[PhysNode]):
         placements = column_placements(phys) if phys else {}
-        decisions = {id(p.logical): p for p in _walk_phys(phys)} \
-            if phys else {}
-
-        def impl_of(n: L.Node) -> str:
-            d = decisions.get(id(n))
-            return d.impl if d is not None else "torch"
 
         def scan_placement(n: L.Scan) -> str:
             cols = n.columns or ("*",)
@@ -346,8 +338,7 @@ class Executor:
                 t = eval_node(n.child)
                 keep = n.columns if isinstance(n, L.FilterProject) \
                     else tuple(t.columns)
-                return self._filter_table(t, n.column, n.lo, n.hi, keep,
-                                          impl=impl_of(n))
+                return self._filter_table(t, n.column, n.lo, n.hi, keep)
             if isinstance(n, L.Join):
                 lt = eval_node(n.left)
                 rt = eval_node(n.right)
@@ -357,7 +348,7 @@ class Executor:
                         else "congested"
                     lt = lt.place(self.plans[pname])
                 pairs = engine.join(
-                    lt, rt, n.on, impl=impl_of(n),
+                    lt, rt, n.on,
                     unique=key_is_unique(n.right, n.on, self.catalog.stats))
                 l_idx, r_idx = pairs.column("l_idx"), pairs.column("r_idx")
                 cols = {c: Column(lt.column(c)[l_idx], c)
@@ -386,17 +377,16 @@ class Executor:
         return eval_node(node)
 
     def _filter_table(self, t: Table, column: str, lo: int, hi: int,
-                      keep: Tuple[str, ...], *, impl: str = "torch",
-                      block: int = 1024) -> Table:
+                      keep: Tuple[str, ...], *, block: int = 1024) -> Table:
         """Selection -> gather.  Every filter goes through
-        ``engine.select_range`` (the selection kernel when ``impl`` is
-        cuda): the kernel masks ragged blocks, so the reference's guard
+        ``engine.select_range`` (the selection kernel on the card): the
+        kernel masks ragged blocks, so the reference's guard
         that sent non-dividing tables and unplaced intermediates to a
         plain mask is gone.  Intermediates take the partitioned plan; the
         index list is the same either way."""
         plan = t.plan if t.plan is not None else self.plans["partitioned"]
         sel = engine.select_range(Table(t.name, t.columns, plan), column,
-                                  lo, hi, impl=impl, block=block)
+                                  lo, hi, block=block)
         return engine.gather(t, sel.column("idx"),
                              [c for c in keep if c in t.columns],
                              name=f"{t.name}.sel")

@@ -17,8 +17,8 @@ Layout of a step's arguments::
 ``build_flat`` is the deterministic flattening of every breaker's
 ``engine.JoinBuild``; ``morsel_cols`` are the base scan's columns for one
 morsel, padded to ``rows`` with rows ``>= n_valid`` masked out.  Join
-probes binary-search the sorted-bucket build (the counts kernel when the
-join's impl is ``cuda``): per-row match counts multiply into a running
+probes binary-search the sorted-bucket build (the counts kernel on the
+card): per-row match counts multiply into a running
 weight and build-column aggregates read bucket prefix sums, so the
 streamed pair multiset matches the eager pair-list operator exactly.
 """
@@ -32,7 +32,6 @@ import torch
 
 from repro_torch.columnar import engine
 from repro_torch.kernels.join import join as join_kernels
-from repro_torch.kernels.join import ref as join_ref
 from repro_torch.query import logical as L
 from repro_torch.query.cost import TableStats, key_is_unique
 
@@ -54,23 +53,19 @@ class BreakerSpec:
 
 @dataclasses.dataclass
 class StreamPlan:
-    """Analysis product: the probe spine's stream source and breakers.
-    ``join_nodes`` parallels ``breakers`` so the compiler can look up each
-    join's physical decisions (impl) on the annotated plan."""
+    """Analysis product: the probe spine's stream source and breakers."""
     node: L.Aggregate
     base_scan: L.Scan
     stream_cols: Tuple[str, ...]
     breakers: Tuple[BreakerSpec, ...]
-    join_nodes: Tuple[L.Join, ...] = ()
 
 
 def _analyze_spine(node: L.Node, stats: Dict[str, TableStats]):
     """Probe-spine analysis: Scan -> (Filter|FilterProject|Project)* with
     Joins whose build side is a Scan.  Returns (base_scan, breakers,
-    join_nodes, dup_contributed, refs_above) or None when the shape does
-    not stream."""
+    dup_contributed, refs_above) or None when the shape does not stream."""
     table_columns = {t: s.columns for t, s in stats.items()}
-    breakers, join_nodes = [], []
+    breakers = []
     dup_contributed = set()
     refs_above: list = []               # filter/join-key columns, root-down
     base_scan: list = [None]
@@ -107,15 +102,13 @@ def _analyze_spine(node: L.Node, stats: Dict[str, TableStats]):
                 dup_contributed.update(contributed)
             breakers.append(BreakerSpec(n.right.table, n.on, contributed,
                                         unique))
-            join_nodes.append(n)
             return
         ok[0] = False
 
     visit(node)
     if not ok[0] or base_scan[0] is None or base_scan[0].table not in stats:
         return None
-    return (base_scan[0], tuple(breakers), tuple(join_nodes),
-            dup_contributed, refs_above)
+    return base_scan[0], tuple(breakers), dup_contributed, refs_above
 
 
 def analyze(node: L.Node, stats: Dict[str, TableStats]
@@ -130,12 +123,12 @@ def analyze(node: L.Node, stats: Dict[str, TableStats]
     spine = _analyze_spine(node.child, stats)
     if spine is None:
         return None
-    scan, breakers, join_nodes, dup_contributed, refs_above = spine
+    scan, breakers, dup_contributed, refs_above = spine
     if dup_contributed & set(refs_above):
         return None
     stream_cols = scan.columns if scan.columns is not None \
         else tuple(stats[scan.table].columns)
-    return StreamPlan(node, scan, tuple(stream_cols), breakers, join_nodes)
+    return StreamPlan(node, scan, tuple(stream_cols), breakers)
 
 
 @dataclasses.dataclass
@@ -151,15 +144,13 @@ class CompiledPipeline:
 
 
 def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
-                     device: torch.device, *,
-                     impls: Tuple[str, ...] = ()) -> CompiledPipeline:
+                     device: torch.device) -> CompiledPipeline:
     """Lower a streamable plan into one per-morsel step.
 
-    ``impls`` (parallel to the breakers) carries the cost model's per-join
-    impl: ``cuda`` probes go through the counts kernel, whose ragged tail
-    is masked, so every morsel size takes it (the TPU version needed
-    ``rows % 4096 == 0`` and otherwise fell back).  Both probes return the
-    same (start, count) for every key in the join-key domain.
+    Join probes go through the counts kernel on the card, whose ragged
+    tail is masked, so every morsel size takes it (the TPU version needed
+    ``rows % 4096 == 0`` and otherwise fell back to a plain probe that
+    gives the same (start, count)).
 
     Integer aggregates accumulate in int64 (the reference's int32 under
     JAX's default 32-bit mode, equal until int32 would overflow); float
@@ -167,8 +158,6 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
     exact for integer inputs below 2**24."""
     node = splan.node
     breakers = splan.breakers
-    probe_impls = tuple(impls[i] if i < len(impls) else "torch"
-                        for i in range(len(breakers)))
     agg_is_float = agg_dtype.is_floating_point
     acc = torch.float32 if agg_is_float else torch.int64
 
@@ -233,10 +222,7 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
                                 build_flat[off + 2:off + 2
                                            + len(b.value_cols)]))
                 keys = cols[n.on]
-                if probe_impls[i] == "cuda":
-                    start, cnt = join_kernels.probe_counts(s_sorted, keys)
-                else:
-                    start, cnt = join_ref.bucket_probe(s_sorted, keys)
+                start, cnt = join_kernels.probe_counts(s_sorted, keys)
                 mask = mask & (cnt > 0)
                 if b.unique:
                     # clip like the reference's gather: unmatched rows

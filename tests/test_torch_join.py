@@ -70,11 +70,9 @@ def test_join_distributed_multi_matches_reference(dist):
     s, l = make_keys(dist, r, 120, 1024)
     want = r_join_core.join_distributed_multi(
         jnp.asarray(s), jnp.asarray(l), _ref_plan())
-    for impl in ("torch", "cuda"):
-        got = join_core.join_distributed_multi(_t(s), _t(l), plan(),
-                                               impl=impl)
-        for g, w in zip(got, want):
-            _eq(g, w)
+    got = join_core.join_distributed_multi(_t(s), _t(l), plan())
+    for g, w in zip(got, want):
+        _eq(g, w)
 
 
 def test_join_distributed_multi_multipass_and_overflow_match_reference():
@@ -102,11 +100,9 @@ def test_join_distributed_matches_reference(n_s):
         warnings.simplefilter("ignore", RuntimeWarning)
         want = r_join_core.join_distributed(jnp.asarray(s), jnp.asarray(l),
                                             _ref_plan())
-        for impl in ("torch", "cuda"):
-            got = join_core.join_distributed(_t(s), _t(l), plan(),
-                                             impl=impl)
-            _eq(got[0], want[0])
-            assert int(got[1]) == int(want[1])
+        got = join_core.join_distributed(_t(s), _t(l), plan())
+        _eq(got[0], want[0])
+        assert int(got[1]) == int(want[1])
 
 
 @pytest.mark.parametrize("n_eng", [2, 3])

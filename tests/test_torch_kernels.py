@@ -51,7 +51,7 @@ def test_select_matches_select_pallas(n, block, lo, hi):
     assert _build.LAUNCHES == before          # CPU tensors: no launch
     _eq(idx, idx_r)
     _eq(cnt, cnt_r)
-    idx_o, cnt_o = sel_ops.select(_t(x), lo, hi, block=block, impl="cuda")
+    idx_o, cnt_o = sel_ops.select(_t(x), lo, hi, block=block)
     _eq(idx_o, idx_r)
     _eq(cnt_o, cnt_r)
 
@@ -99,18 +99,39 @@ def test_probe_counts_matches_probe_counts_pallas(n_s, n_l, block):
     _eq(s_sorted, rs_sorted)
     _eq(order, r_order)
     for start, cnt in (join_kernels.probe_counts(s_sorted, _t(l)),
-                       join_kernels.probe_counts_plain(s_sorted, _t(l)),
                        join_ref.bucket_probe(s_sorted, _t(l))):
         assert start.dtype == cnt.dtype == torch.int32
         _eq(start, start_r)
         _eq(cnt, cnt_r)
 
 
-def test_pad_table_matches_reference():
-    from repro.kernels.join.join import _pad_table as r_pad
-    for n in (0, 1, 2, 3, 1000, 1024):
-        s = np.arange(n, dtype=np.int32)
-        _eq(join_kernels._pad_table(_t(s)), r_pad(jnp.asarray(s)))
+def test_probe_counts_matches_reference_bucket_probe_at_int32_limits():
+    """Pass blocks padded with distinct negative sentinels (as
+    ``join_distributed_multi`` builds them) and probe keys at both ends of
+    int32, 2**31 - 1 included: the reference's Pallas kernel counts its
+    own table pads for that key, its ``bucket_probe`` does not, and B2's
+    plain version must equal ``bucket_probe`` for every int32 key."""
+    from repro_torch.core.join import HT_CAPACITY, _pad_build
+    r = np.random.default_rng(12)
+    s = np.concatenate([r.integers(0, 500, 3000),
+                        [2 ** 31 - 1] * 3]).astype(np.int32)
+    l = np.concatenate([r.integers(0, 600, 4093),
+                        [2 ** 31 - 1, -2 ** 31, -(2 ** 30)]]).astype(np.int32)
+    padded = _pad_build(_t(s), 1)       # the reference's inline pass pads
+    _eq(padded, np.concatenate([s, -(2 ** 30) - np.arange(
+        HT_CAPACITY - s.size, dtype=np.int32)]))
+    for block in (s, padded):
+        s_sorted, _ = join_ref.bucket_build(torch.as_tensor(block))
+        rs_sorted, _ = r_join_ref.bucket_build(jnp.asarray(np.asarray(block)))
+        _eq(s_sorted, rs_sorted)
+        start_r, cnt_r = r_join_ref.bucket_probe(rs_sorted, jnp.asarray(l))
+        start, cnt = join_kernels.probe_counts(s_sorted, _t(l))
+        _eq(start, start_r)
+        _eq(cnt, cnt_r)
+        # -(2**30) is the first pass pad: the reason negative keys are
+        # refused above the kernel
+        assert int(cnt[-3]) == 3 and int(cnt[-2]) == 0
+        assert int(cnt[-1]) == (block is padded)
 
 
 @pytest.mark.parametrize("out_base,l_base,s_base", [(0, 0, 0), (5, 100, 8192),
@@ -174,7 +195,7 @@ def test_hash_join_matches_pallas_hash_join(case):
                        probe_depth=depth, block=1024, impl="pallas",
                        interpret=True)
     got = hash_join(_t(s), _t(l), table_size=ts, probe_depth=depth,
-                    block=1024, impl="cuda")
+                    block=1024)
     for g, w in zip(got, want):
         _eq(g, w)
     assert bool(got.overflowed) == (case == "overflow")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import join as join_core
 from repro_torch.kernels import _build
 from repro_torch.kernels.join import join as join_kernels
 from repro_torch.kernels.join import ref as join_ref
@@ -70,12 +71,31 @@ def test_probe_counts_kernel_matches_plain(cuda, n_s, n_l):
     s_sorted, _ = join_ref.bucket_build(_i32(r.integers(0, dom, n_s), cuda))
     keys = _i32(r.integers(0, 2 * dom, n_l), cuda)
     start, count = join_kernels.probe_counts(s_sorted, keys)
-    start_p, count_p = join_kernels.probe_counts_plain(s_sorted, keys)
+    start_p, count_p = join_ref.bucket_probe(s_sorted, keys)
     _same(start, start_p)
     _same(count, count_p)
-    # the plain version is exact against the library bucket probe too
-    start_r, count_r = join_ref.bucket_probe(s_sorted, keys)
-    _same(count, count_r)
+
+
+@pytest.mark.parametrize("n_s", [5, join_core.HT_CAPACITY + 700])
+def test_probe_counts_kernel_on_negative_padded_pass_blocks(cuda, n_s):
+    """The pass blocks of ``join_distributed_multi`` (distinct negative
+    pads, as in the eager duplicate-keyed join) and probe keys at both
+    ends of int32, 2**31 - 1 included, which the table also holds."""
+    r = np.random.default_rng(n_s)
+    s = np.concatenate([r.integers(0, max(n_s // 3, 1), n_s),
+                        [2 ** 31 - 1] * 2])
+    keys = _i32(np.concatenate([r.integers(0, n_s, 50_000),
+                                [2 ** 31 - 1, 2 ** 31 - 2, -2 ** 31, -1,
+                                 -(2 ** 30), -(2 ** 30) - 1]]), cuda)
+    s_pad = join_core._pad_build(_i32(s, cuda),
+                                 -(-s.size // join_core.HT_CAPACITY))
+    for p in range(s_pad.shape[0] // join_core.HT_CAPACITY):
+        blk = s_pad[p * join_core.HT_CAPACITY:(p + 1) * join_core.HT_CAPACITY]
+        s_sorted, _ = join_ref.bucket_build(blk)
+        start, count = join_kernels.probe_counts(s_sorted, keys)
+        start_p, count_p = join_ref.bucket_probe(s_sorted, keys)
+        _same(start, start_p)
+        _same(count, count_p)
 
 
 @pytest.mark.parametrize("n_s,n_l,depth", [(1, 5000, 8), (2556, 100_003, 8),

@@ -160,18 +160,23 @@ def _walk(p):
 
 
 def test_kernels_chosen_exactly_on_cuda():
-    """The cost model offers the CUDA kernels only to a CUDA executor; on
-    a CUDA device every filter and join prices the kernel cheaper."""
+    """The plan's impl label follows the device: a CUDA executor's cost
+    model labels every operator ``cuda``, a CPU executor's ``torch``, and
+    the label changes no placement or pass count."""
     _, port = _systems(_arrays(0))
     q = (Q.scan("big").filter("v", 1, 50).join(Q.scan("small"), on="k")
          .sum("w"))
-    opt, _ = port.plan(q.node)
-    phys = plan_physical(opt, port.catalog.stats,
-                         CostModel(1, allow_kernels=True))
+    opt, cpu_phys = port.plan(q.node)
+    phys = plan_physical(opt, port.catalog.stats, CostModel(1, impl="cuda"))
     by_op = {p.op: p.impl for p in _walk(phys)}
     assert by_op["join"] == "cuda" and by_op["filter"] == "cuda"
+    assert set(by_op.values()) == {"cuda"}
+    assert [(p.op, p.placement, p.n_passes) for p in _walk(phys)] == \
+        [(p.op, p.placement, p.n_passes) for p in _walk(cpu_phys)]
     assert "impl=torch" in port.explain(q)
     assert "impl=cuda" not in port.explain(q)
+    with pytest.raises(ValueError):
+        CostModel(1, impl="pallas")
 
 
 def test_executor_without_a_device_needs_cuda(monkeypatch):

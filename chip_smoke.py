@@ -19,10 +19,22 @@ Phases, each of which must pass or the script exits non-zero:
    and each mode must have launched the kernels of its path;
 5. tpch: a duplicate-keyed join at TPC-H scale factor 1 (orders against a
    filtered lineitem, which the optimizer makes the build side) in eager
-   and batch modes, against a numpy oracle.
+   and batch modes, against a numpy oracle;
+6. glm: hyper-parameter search (8 logistic-regression jobs, 5 epochs,
+   minibatch 16) over an MNIST-shaped training set (60,000 rows, 784
+   float32 features in [0, 1], a binary label from a planted logistic
+   model) through the executor in batch, stream and eager modes: the
+   modes' weights must be bit-identical, every model's loss below ln 2,
+   and the SGD kernel's weights must equal its plain version's within
+   rtol=1e-4, atol=1e-5; then ``score_glm`` against numpy;
+7. multi_join: ``hash_join_multi`` at TPC-H scale factor 1, built on
+   lineitem's order keys and probed with orders' (chains of 1-7), and
+   built on lineitem's quantity and probed with its 50 values (chains of
+   ~120,000, nearly all from the overflow pass); pair lists must equal a
+   numpy sort-based oracle bit for bit.
 
 The data is made from ``--seed`` with numpy, with the column domains of
-the SSB and TPC-H specifications.  The second-to-last line is the kernels'
+the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
 JSON summary; the last is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits non-zero before printing any result.
 """
@@ -40,11 +52,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet (HBM3)
+FP32_FLOPS_PER_S = 67e12         # H100 SXM data sheet, outside tensor cores
 
 SSB_LINEORDER_ROWS = 59_986_214  # SSB scale factor 10
 SSB_DATE_ROWS = 2_556            # 1992-01-01 .. 1998-12-30
 TPCH_LINEITEM_ROWS = 6_001_215   # TPC-H scale factor 1
 TPCH_ORDERS_ROWS = 1_500_000
+MNIST_ROWS, MNIST_FEATURES = 60_000, 784   # MNIST's training set
+GLM_JOBS, GLM_EPOCHS, GLM_MINIBATCH = 8, 5, 16
+# the SGD kernel sums in another order than its plain version and nvcc
+# contracts multiply-adds into FMAs: weights agree within this, not bitwise
+SGD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def log(*args):
@@ -127,6 +145,44 @@ def tpch_oracle(tables, order_idx) -> int:
     lines = np.bincount(order_idx[keep], minlength=order_idx.max() + 1)
     price = tables["orders"]["totalprice"].astype(np.int64)
     return int((lines[:price.size] * price).sum())
+
+
+def make_mnist_like(rows: int, features: int, seed: int):
+    """An MNIST-shaped training set: ``features`` float32 pixel columns in
+    [0, 1], about 19% of them inked as in MNIST, and a binary label drawn
+    from a planted logistic model over the pixels."""
+    r = np.random.default_rng(seed + 2)
+    ink = r.random((rows, features), dtype=np.float32) < 0.19
+    a = np.where(ink, r.random((rows, features), dtype=np.float32),
+                 np.float32(0))
+    z = a @ r.normal(size=features)
+    z *= 3.0 / z.std()
+    label = (r.random(rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    cols = {f"px{j}": a[:, j] for j in range(features)}
+    cols["label"] = label
+    return {"mnist": cols}, a, label
+
+
+def glm_query(Q, HyperParams):
+    grid = [HyperParams(0.1 / (i + 1), 0.001 * i) for i in range(GLM_JOBS)]
+    return Q.scan("mnist").train_glm(
+        [f"px{j}" for j in range(MNIST_FEATURES)], "label", grid,
+        kind="logreg", epochs=GLM_EPOCHS)
+
+
+def multi_join_oracle(s: np.ndarray, l: np.ndarray):
+    """The (l_idx, s_idx) pair list of ``s ⋈ l`` in (probe row, bucket
+    position) order, from a stable sort of the build side: numpy's own
+    sort and searches, independent of the port."""
+    order = np.argsort(s, kind="stable")
+    ss = s[order]
+    lo = np.searchsorted(ss, l, side="left")
+    cnt = np.searchsorted(ss, l, side="right") - lo
+    total = int(cnt.sum())
+    l_idx = np.repeat(np.arange(l.size), cnt)
+    within = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    s_idx = order[np.repeat(lo, cnt) + within]
+    return l_idx.astype(np.int32), s_idx.astype(np.int32), total
 
 
 # --------------------------------------------------------------------------- #
@@ -265,10 +321,13 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
     tpch_plain = lambda: [t for b in blocks                   # noqa: E731
                           for t in join_ref.bucket_probe(b, okeys)]
     err = max(err, check("probe_counts", tpch_kernel, tpch_plain))
+    tpch_bound = n_passes * (4 * cap + 12 * okeys.shape[0]) \
+        / HBM_BYTES_PER_S * 1e3
     log(f"  probe_counts  {n_passes} TPC-H pass blocks of ({cap},) with "
         f"{n_passes * cap - build.shape[0]} negative pads, keys="
         f"({okeys.shape[0]},): kernel {time_ms(tpch_kernel, reps=5):.4f} ms,"
-        f" plain {time_ms(tpch_plain, reps=5):.4f} ms for all passes, "
+        f" bound {tpch_bound:.4f} ms, plain "
+        f"{time_ms(tpch_plain, reps=5):.4f} ms for all passes, "
         "bit-identical")
 
     def library_b2():
@@ -313,23 +372,42 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
         shape=f"table=2x({ts},), keys=({n4},) int32, depth 8"))
 
     for row in rows:
-        row["bound_ms"] = row.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        row["bound_by"] = "bytes"
-        lib = row["library_ms"]
-        log(f"  {row['name']:13s} {row['shape']}: kernel {row['ms']:.4f} ms,"
-            f" bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_ms'] / row['ms']:.0%} of the rate), plain "
-            f"{row['plain_ms']:.4f} ms"
-            + (f", library {lib:.4f} ms" if lib is not None else "")
-            + ", bit-identical")
+        finish_row(row)
     return rows
 
 
-def _run_modes(ex, q, modes, want, counts_by_mode, reps=11, **kw):
+def finish_row(row, agree: str = "bit-identical"):
+    """Turn a kernel row's ``bytes`` (and ``ops``, float32 operations) into
+    its bound — the larger of bytes over the memory rate and operations
+    over the float32 rate — and log the row."""
+    t_bytes = row.pop("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = row.pop("ops", 0) / FP32_FLOPS_PER_S * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    lib = row["library_ms"]
+    log(f"  {row['name']:13s} {row['shape']}: kernel {row['ms']:.4f} ms,"
+        f" bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({row['bound_ms'] / row['ms']:.1%} of the rate), plain "
+        f"{row['plain_ms']:.4f} ms"
+        + (f", library {lib:.4f} ms" if lib is not None else "")
+        + f", {agree}")
+
+
+def equals(want):
+    """A ``_run_modes`` check: the value must equal the oracle's."""
+    def check(mode, value):
+        if value != want:
+            raise AssertionError(f"{mode}: {value} != oracle {want}")
+        return f"value {value} (= oracle)"
+    return check
+
+
+def _run_modes(ex, q, modes, check, counts_by_mode, reps=11, **kw):
     """Run ``q`` once per mode with the launch counters zeroed just before
-    and read just after, check the value, then time ``reps`` warm runs
-    (host clock around work that ends in a synchronize).  Returns
-    mode -> (first-run seconds, sorted warm seconds)."""
+    and read just after, ``check(mode, value)`` the value (it raises, or
+    returns what to log), then time ``reps`` warm runs (host clock around
+    work that ends in a synchronize), checking each.  Returns mode ->
+    (first-run seconds, sorted warm seconds, first run's value)."""
     import torch
     from repro_torch.kernels import _build
     times = {}
@@ -343,19 +421,17 @@ def _run_modes(ex, q, modes, want, counts_by_mode, reps=11, **kw):
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         counts_by_mode[mode] = dict(_build.LAUNCHES)
-        if res.value != want:
-            raise AssertionError(f"{mode}: {res.value} != oracle {want}")
+        said = check(mode, res.value)
         warm = []
         for _ in range(reps):
             t0 = time.perf_counter()
             value = run().value
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
-            if value != want:
-                raise AssertionError(f"{mode} (warm): {value} != {want}")
+            check(f"{mode} (warm)", value)
         warm.sort()
-        times[mode] = (first, warm)
-        log(f"  {mode:6s}: value {res.value} (= oracle); first run "
+        times[mode] = (first, warm, res.value)
+        log(f"  {mode:6s}: {said}; first run "
             f"{first * 1e3:.3f} ms, warm median {warm[len(warm) // 2] * 1e3:.3f}"
             f" ms [min {warm[0] * 1e3:.3f}, max {warm[-1] * 1e3:.3f}] over "
             f"{reps} runs; launches {counts_by_mode[mode]}")
@@ -411,7 +487,7 @@ def phase_ssb(dev, tables):
     if not any(l.strip().startswith("join:") for l in plan.splitlines()):
         raise AssertionError("the date join is not the unique-key join")
     counts = {}
-    _run_modes(ex, q, ("batch", "stream", "eager"), want, counts,
+    _run_modes(ex, q, ("batch", "stream", "eager"), equals(want), counts,
                morsel_rows=1 << 22)
     need = {"batch": ("probe_counts",), "stream": ("probe_counts",),
             "eager": ("select", "probe")}
@@ -446,10 +522,226 @@ def phase_tpch(dev, tables, order_idx):
         raise AssertionError(f"build side is not the filtered lineitem: "
                              f"{j.right}")
     counts = {}
-    _run_modes(ex, q, ("eager", "batch"), want, counts)
+    _run_modes(ex, q, ("eager", "batch"), equals(want), counts)
     if counts["eager"]["probe_counts"] <= 0:
         raise AssertionError("eager join_multi launched no probe_counts")
     return counts
+
+
+def timed_once_ms(fn):
+    """(result, milliseconds) of one call, CUDA events around it: for the
+    plain SGD version, whose one call takes seconds."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def phase_glm(dev, seed):
+    """Hyper-parameter search over the MNIST-shaped set in every mode, the
+    SGD kernel against its plain version at that shape, then scoring.
+    Returns (launch counts by mode, the kernel's JSON row)."""
+    import torch
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.kernels.sgd import ref as sgd_ref
+    from repro_torch.kernels.sgd import sgd as sgd_kernels
+    from repro_torch.query import Executor, HyperParams, Q
+
+    t0 = time.perf_counter()
+    tables, a_np, label = make_mnist_like(MNIST_ROWS, MNIST_FEATURES, seed)
+    ex = Executor(catalog_from_arrays(tables, dev), dev)
+    log(f"glm: {MNIST_ROWS} rows x {MNIST_FEATURES} float32 features + "
+        f"label ({a_np.nbytes / 1e6:.0f} MB) on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {GLM_JOBS} jobs, "
+        f"{GLM_EPOCHS} epochs, minibatch {GLM_MINIBATCH}")
+    q = glm_query(Q, HyperParams)
+    plan = ex.explain(q)
+    log("  plan:\n    " + plan.replace("\n", "\n    "))
+    if not plan.startswith("train_glm: impl=cuda"):
+        raise AssertionError(f"train_glm is not planned on the kernels: "
+                             f"{plan.splitlines()[0]}")
+    ln2 = float(np.log(2.0))
+
+    def check(mode, value):
+        xs, losses = value
+        if xs.shape != (GLM_JOBS, MNIST_FEATURES) \
+                or not bool(torch.isfinite(xs).all()):
+            raise AssertionError(f"{mode}: weights {tuple(xs.shape)} not "
+                                 "finite or of the wrong shape")
+        if not bool((losses < ln2).all()):
+            raise AssertionError(f"{mode}: a loss is not below ln 2: "
+                                 f"{losses.tolist()}")
+        return ("losses " + ", ".join(f"{v:.4f}" for v in losses.tolist())
+                + " (all < ln 2)")
+
+    counts = {}
+    runs = _run_modes(ex, q, ("batch", "stream", "eager"), check, counts,
+                      morsel_rows=16_384)
+    weights = {mode: r[2][0] for mode, r in runs.items()}
+    for mode in ("batch", "stream"):
+        if not torch.equal(weights[mode], weights["eager"]):
+            raise AssertionError(f"{mode} weights differ from eager's")
+    log(f"  batch, stream ({-(-MNIST_ROWS // 16_384)} morsels) and eager "
+        "weights are bit-identical")
+    for mode, c in counts.items():
+        if c["sgd"] <= 0:
+            raise AssertionError(f"{mode} launched no sgd kernel")
+
+    # B5 against its plain version at the main path's shape: eager mode's
+    # one launch over the whole set (60,000 rows need no pad)
+    a = torch.from_numpy(a_np).to(dev)
+    b = torch.from_numpy(label).to(dev)
+    grid = q.node.grid
+    lrs = torch.tensor([g.lr for g in grid], dtype=torch.float32, device=dev)
+    l2s = torch.tensor([g.l2 for g in grid], dtype=torch.float32, device=dev)
+    xs0 = torch.zeros((GLM_JOBS, MNIST_FEATURES), dtype=torch.float32,
+                      device=dev)
+    kw = dict(minibatch=GLM_MINIBATCH, epochs=GLM_EPOCHS, kind="logreg")
+    kernel = lambda: sgd_kernels.sgd(a, b, xs0, lrs, l2s, **kw)  # noqa: E731
+    xs_k = kernel()
+    xs_p, plain_ms = timed_once_ms(
+        lambda: sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw))
+    torch.cuda.synchronize()
+    if not torch.equal(xs_k, weights["eager"]):
+        raise AssertionError("the kernel's weights differ from eager mode's")
+    err = float((xs_k - xs_p).abs().max())
+    rel = float(((xs_k - xs_p).abs() / xs_p.abs().clamp(min=1e-30)).max())
+    if not torch.allclose(xs_k, xs_p, **SGD_TOL):
+        raise AssertionError(f"sgd: kernel differs from its plain version "
+                             f"beyond {SGD_TOL} (max abs err {err})")
+    m, n = a.shape
+    steps = GLM_EPOCHS * m // GLM_MINIBATCH
+    row = dict(
+        name="sgd", route="cuda",
+        source="src/repro_torch/kernels/csrc/sgd.cu",
+        replaces="src/repro/kernels/sgd/sgd.py:55",
+        max_abs_err=err, ms=time_ms(kernel, reps=5, warmup=1),
+        plain_ms=plain_ms, library_ms=None,
+        # every input read once, the weights written once; 2 FMAs a
+        # feature a row a job an epoch (the dot and the gradient)
+        bytes=4 * (m * n + m + 2 * GLM_JOBS * n + 2 * GLM_JOBS),
+        ops=4 * GLM_JOBS * GLM_EPOCHS * m * n,
+        shape=f"a=({m}, {n}) f32, {GLM_JOBS} jobs, {GLM_EPOCHS} epochs, "
+              f"minibatch {GLM_MINIBATCH}")
+    streamed_bytes = 4 * GLM_JOBS * GLM_EPOCHS * m * (n + 1)
+    log(f"  sgd: max abs err {err:.3e}, max rel err {rel:.3e} against the "
+        f"plain version (tolerance {SGD_TOL}); the dataset streamed once "
+        f"per job and epoch is {streamed_bytes / 1e9:.3f} GB, "
+        f"{streamed_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory "
+        f"rate; each job is a chain of {steps} dependent steps, "
+        f"{row['ms'] * 1e3 / steps:.3f} us a step")
+    finish_row(row, agree=f"within {SGD_TOL}")
+
+    # score with the best model (trained fresh through execute, as the
+    # port has no model cache) against numpy in float64
+    sq = Q.scan("mnist").score_glm(q)
+    t0 = time.perf_counter()
+    scores = ex.execute(sq).value.column("score")
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    xs_b, losses_b = runs["batch"][2]
+    x = xs_b[int(torch.argmin(losses_b))].double().cpu().numpy()
+    want = 1.0 / (1.0 + np.exp(-(a_np.astype(np.float64) @ x)))
+    got = scores.double().cpu().numpy()
+    score_err = float(np.abs(got - want).max())
+    if got.shape != (MNIST_ROWS,) or not np.allclose(got, want, rtol=1e-5,
+                                                     atol=1e-5):
+        raise AssertionError(f"score_glm differs from numpy (max abs err "
+                             f"{score_err})")
+    log(f"  score_glm: {MNIST_ROWS} scores of the argmin model equal "
+        f"numpy's sigmoid(a @ x) within rtol=1e-5, atol=1e-5 (max abs err "
+        f"{score_err:.3e}); {score_s * 1e3:.3f} ms with its fresh train")
+    return counts, row
+
+
+def phase_multi_join(dev, tables):
+    """``hash_join_multi`` at TPC-H SF 1 against a numpy oracle, bit for
+    bit, on two build sides; then B3 against its plain version at the
+    order-key shape.  Returns (launch counts by join, the kernel's row)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.join import join as jk
+    from repro_torch.kernels.join import ref as join_ref
+    from repro_torch.kernels.join.ops import hash_join_multi
+
+    li, od = tables["lineitem"], tables["orders"]
+    cases = {
+        "orderkey": (li["orderkey"], od["orderkey"]),
+        "quantity": (li["quantity"], np.arange(1, 51, dtype=np.int32)),
+    }
+    counts = {}
+    for name, (s, l) in cases.items():
+        l_want, s_want, total = multi_join_oracle(s, l)
+        max_out = s.size
+        st, lt = torch.from_numpy(s).to(dev), torch.from_numpy(l).to(dev)
+        run = lambda: hash_join_multi(st, lt, max_out=max_out)  # noqa: E731
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts[name] = dict(_build.LAUNCHES)
+        if counts[name]["probe_multi"] <= 0:
+            raise AssertionError(f"{name}: hash_join_multi launched no "
+                                 "probe_multi kernel")
+        got_l, got_s = res.l_idx.cpu().numpy(), res.s_idx.cpu().numpy()
+        if int(res.total) != total or bool(res.overflowed) \
+                or total > max_out:
+            raise AssertionError(f"{name}: total {int(res.total)} (oracle "
+                                 f"{total}), overflowed "
+                                 f"{bool(res.overflowed)}")
+        if not (np.array_equal(got_l[:total], l_want)
+                and np.array_equal(got_s[:total], s_want)
+                and (got_l[total:] == -1).all()
+                and (got_s[total:] == -1).all()):
+            raise AssertionError(f"{name}: pair list differs from the "
+                                 "oracle")
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        warm.sort()
+        chains = np.bincount(np.searchsorted(np.sort(np.unique(s)), s))
+        log(f"multi_join {name}: build {s.size} keys (chains "
+            f"{chains.min()}-{chains.max()}), probe {l.size} keys -> "
+            f"{total} pairs, bit-identical to the oracle; first run "
+            f"{first * 1e3:.3f} ms, warm median {warm[2] * 1e3:.3f} ms "
+            f"[min {warm[0] * 1e3:.3f}, max {warm[-1] * 1e3:.3f}] over 5 "
+            f"runs; launches {counts[name]}")
+        log("    " + profile_once(run))
+
+    # B3 against its plain version at the order-key join's shape
+    s, l = cases["orderkey"]
+    s_sorted, order = join_ref.bucket_build(torch.from_numpy(s).to(dev))
+    keys = torch.from_numpy(l).to(dev)
+    kernel = lambda: jk.probe_multi(s_sorted, order, keys)     # noqa: E731
+    plain = lambda: jk.probe_multi_plain(s_sorted, order, keys)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"probe_multi: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    n_s, n_l = s_sorted.shape[0], keys.shape[0]
+    cap = got[0].shape[1]
+    row = dict(
+        name="probe_multi", route="cuda",
+        source="src/repro_torch/kernels/csrc/join.cu",
+        replaces="src/repro/kernels/join/join.py:142",
+        max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+        library_ms=None,
+        bytes=8 * n_s + 4 * n_l + (8 + 4 * cap) * n_l,
+        shape=f"s_sorted, order=({n_s},), keys=({n_l},) int32, cap {cap}")
+    finish_row(row)
+    return counts, row
 
 
 def main(argv=None) -> int:
@@ -486,18 +778,23 @@ def main(argv=None) -> int:
     ssb_counts = phase_ssb(dev, ssb)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
+    glm_counts, sgd_row = phase_glm(dev, args.seed)
+    multi_counts, multi_row = phase_multi_join(dev, tpch)
+    rows += [multi_row, sgd_row]
 
     key = {"select_range": "select", "probe_counts": "probe_counts",
-           "hash_probe": "probe"}
+           "hash_probe": "probe", "probe_multi": "probe_multi",
+           "sgd": "sgd"}
     for row in rows:
         row["launches"] = sum(c[key[row["name"]]]
-                              for counts in (ssb_counts, tpch_counts)
+                              for counts in (ssb_counts, tpch_counts,
+                                             glm_counts, multi_counts)
                               for c in counts.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  "path")
         row.pop("shape")
-    log(f"tpch launches: {tpch_counts}")
+    log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}")
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,16 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.columnar.table import Column, Table
+from repro_torch.columnar.table import Column, MorselSpec, Table
 from repro_torch.core import join as join_core
 from repro_torch.core import selection as sel_core
+from repro_torch.core import sgd_glm
 from repro_torch.core.channels import ChannelPlan
 from repro_torch.kernels.join import join as join_kernels
 from repro_torch.kernels.join import ref as join_ref
 from repro_torch.kernels.selection import ref as sel_ref
+from repro_torch.kernels.sgd import ref as sgd_ref
+from repro_torch.kernels.sgd.sgd import sgd
 
 
 def compact_positions(valid: torch.Tensor, n: int) -> torch.Tensor:
@@ -159,6 +162,18 @@ def aggregate_sum(table: Table, column: str):
     return int(col.sum(dtype=torch.int64))
 
 
+def train_glm(table: Table, features: Sequence[str], label: str, grid,
+              plan: ChannelPlan, *, kind: str = "logreg", epochs: int = 5):
+    """In-database ML (paper §VI): hyper-parameter search over GLMs on
+    columns of a table — the doppioDB-style UDF.  Returns (xs (K, n),
+    losses (K,))."""
+    a = torch.stack([table.column(f).to(torch.float32) for f in features],
+                    dim=1)
+    b = table.column(label).to(torch.float32)
+    return sgd_glm.hyperparam_search(a, b, grid, plan, kind=kind,
+                                     epochs=epochs)
+
+
 # --------------------------------------------------------------------------- #
 # streaming (morsel-driven) operators
 
@@ -242,3 +257,63 @@ def aggregate_sum_stream(carry: torch.Tensor, values: torch.Tensor,
     upstream."""
     w = mask if weight is None else torch.where(mask, weight, 0)
     return carry + (values.to(carry.dtype) * w.to(carry.dtype)).sum()
+
+
+def train_glm_stream(table: Table, features: Sequence[str], label: str,
+                     grid, plan: ChannelPlan, *, kind: str = "logreg",
+                     epochs: int = 5, minibatch: int = 16,
+                     morsel_rows: Optional[int] = None):
+    """Morsel-streamed hyper-parameter search: each epoch streams the
+    morsels in table order with the K models' weights as the carry, one
+    SGD launch per morsel (``epochs=1``), so the minibatch update
+    sequence — and, the kernel being deterministic, the trained weights —
+    equal ``train_glm``'s bit for bit when morsels align with minibatches
+    (CoCoA-style block rotation with block = morsel).
+
+    Non-dividing row counts zero-pad ONLY the final morsel up to the next
+    minibatch multiple (never to a full morsel: a pure-pad minibatch
+    would still apply the l2 shrinkage step and perturb the weights).
+    Zero feature rows contribute exactly zero to the gradient numerator,
+    so the streamed minibatch sequence equals the eager path's
+    ``sgd_glm.pad_to_minibatch`` sequence on any row count; losses mask
+    the pad rows and divide by the true row count.
+
+    Morsels come from ``Table.morsel``, so host- and disk-tier columns
+    stream too: each morsel's slice is staged onto the plan's device."""
+    m = table.num_rows
+    if morsel_rows is None:
+        morsel_rows = m
+    morsel_rows = max((min(morsel_rows, m) // minibatch) * minibatch,
+                      minibatch)
+    spec = MorselSpec(m, morsel_rows)
+    cols = tuple(features) + (label,)
+    # the device the morsels land on: the plan's, else the label column's
+    # (the card for a host- or disk-tier column)
+    dev = plan.place(table.morsel(spec, 0, (label,))[0][label]).device
+    hp = torch.tensor([[g.lr for g in grid], [g.l2 for g in grid]],
+                      dtype=torch.float32, device=dev)
+    lrs, l2s = hp[0], hp[1]
+    xs = hp.new_zeros((len(grid), len(features)))
+
+    def morsel_arrays(i):
+        data, n_valid = table.morsel(spec, i, cols)
+        # Table.morsel pads the ragged tail to spec.rows; keep only up to
+        # the next minibatch multiple past the valid rows
+        rows_pad = -(-n_valid // minibatch) * minibatch
+        a = torch.stack([plan.place(data[f][:rows_pad]).to(torch.float32)
+                         for f in features], dim=1)
+        b = plan.place(data[label][:rows_pad]).to(torch.float32)
+        return a, b, n_valid
+
+    for _ in range(epochs):
+        for i in range(spec.n_morsels):
+            a_m, b_m, _ = morsel_arrays(i)
+            xs = sgd(a_m, b_m, xs, lrs, l2s, minibatch=minibatch, epochs=1,
+                     kind=kind)
+    acc = hp.new_zeros((len(grid),))
+    for i in range(spec.n_morsels):
+        a_m, b_m, n_valid = morsel_arrays(i)
+        acc = acc + sgd_ref.loss_terms(a_m[:n_valid], b_m[:n_valid], xs,
+                                       kind).sum(dim=0)
+    losses = acc / m + l2s * torch.square(xs).sum(dim=1)
+    return xs, losses

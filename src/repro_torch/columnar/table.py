@@ -102,11 +102,15 @@ class Table:
     def column(self, name: str):
         return self.columns[name].data
 
-    def update_column(self, name: str, data) -> "Table":
-        """Replace one column in place and bump the table version."""
+    def update_column(self, name: str, data,
+                      device: DeviceLike = None) -> "Table":
+        """Replace one column in place and bump the table version.  The
+        new data lands on ``device``; with None, a device column keeps its
+        device and a host or disk column moves to the card."""
         old = self.columns[name].data
-        dev = old.device if isinstance(old, torch.Tensor) else None
-        arr = as_column(data, dev if dev is not None else "cpu")
+        dev = old.device if device is None and isinstance(old, torch.Tensor) \
+            else resolve(device)
+        arr = as_column(data, dev)
         if arr.shape[0] != self.num_rows:
             raise ValueError(f"column {name}: {arr.shape[0]} rows, table "
                              f"has {self.num_rows}")

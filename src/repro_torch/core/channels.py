@@ -20,6 +20,8 @@ from typing import Literal, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve
+
 # --- paper hardware model (AD9H7, 2 stacks x 16 pseudo channels) ----------- #
 N_PORTS = 32
 CHANNEL_MIB = 256
@@ -30,8 +32,9 @@ PORT_GBPS_300 = 282.0 / 32
 CHANNEL_GBPS_200 = 14.0
 CHANNEL_GBPS_300 = 21.0
 
-# --- NVIDIA H100 SXM: data-sheet HBM3 rate, not a measurement -------------- #
+# --- NVIDIA H100 SXM: data-sheet rates, not measurements ------------------- #
 H100_HBM_GBPS = 3350.0
+H100_FP32_FLOPS = 67e12         # float32 outside the tensor cores
 
 
 def fpga_bandwidth_model(n_ports: int, separation_mib: int,
@@ -65,9 +68,12 @@ class ChannelPlan:
     device: Optional[torch.device] = None
 
     def place(self, x) -> torch.Tensor:
-        """Move a column (tensor or numpy array) onto the plan's device."""
-        t = torch.as_tensor(x) if not isinstance(x, torch.Tensor) else x
-        return t.to(self.device) if self.device is not None else t
+        """Move a column onto the plan's device.  Without one, a tensor
+        stays where it is and a numpy array goes to the card
+        (``device.resolve(None)``), never quietly to the CPU."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device) if self.device is not None else x
+        return torch.as_tensor(x).to(resolve(self.device))
 
     def align_morsel_rows(self, rows: int) -> int:
         """Round a morsel row count up to a multiple of the engine count so

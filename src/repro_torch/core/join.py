@@ -118,3 +118,24 @@ def join_distributed_multi(s_keys: torch.Tensor, l_keys: torch.Tensor,
         totals.append(total)
     totals = torch.stack(totals)
     return torch.cat(l_bufs), torch.cat(s_bufs), totals, totals > max_out
+
+
+def join_distributed_multi_result(s_keys: torch.Tensor, l_keys: torch.Tensor,
+                                  plan: ChannelPlan, *,
+                                  max_out_per_shard=None
+                                  ) -> join_ops.MultiJoinResult:
+    """``join_distributed_multi`` under the ``MultiJoinResult`` contract of
+    the single-device ``hash_join_multi``: the engines' pair slices are
+    compacted into one contiguous prefix of the (n_engines * max_out,)
+    list, ``total`` is the exact global pair count (the sum of the
+    engines' exact totals, right even when a list overflowed) and
+    ``overflowed`` is true iff any engine truncated its list."""
+    l_buf, s_buf, totals, over = join_distributed_multi(
+        s_keys, l_keys, plan, max_out_per_shard=max_out_per_shard)
+    keep = l_buf >= 0
+    pos = torch.nonzero(keep).flatten()
+    l_idx = torch.full_like(l_buf, -1)
+    s_idx = torch.full_like(s_buf, -1)
+    l_idx[:pos.shape[0]] = l_buf[pos]
+    s_idx[:pos.shape[0]] = s_buf[pos]
+    return join_ops.MultiJoinResult(l_idx, s_idx, totals.sum(), over.any())

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selection", "join")
+SOURCES = ("selection", "join", "sgd")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 SIGNATURES = {
@@ -36,16 +36,26 @@ SIGNATURES = {
                          (_P, _I64, _I32, _I32, _I64, _P, _P, _P)),
     # s_sorted, n_s, ts, keys, n, start, count, stream
     "probe_counts_i32": ("join", (_P, _I64, _I64, _P, _I64, _P, _P, _P)),
+    # s_sorted, order, n_s, ts, keys, n, cap, mat, start, count, stream
+    "probe_multi_i32": ("join",
+                        (_P, _P, _I64, _I64, _P, _I64, _I32, _P, _P, _P,
+                         _P)),
     # ht_keys, ht_vals, ts, keys, n, probe_depth, block, s_idx, counts,
     # stream
     "hash_probe_i32": ("join",
                        (_P, _P, _I64, _P, _I64, _I32, _I64, _P, _P, _P)),
+    # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, xs, stream
+    "sgd_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                        _I32, _P, _P)),
+    # device, out (int32*)
+    "sgd_max_shared_bytes": ("sgd", (_I32, ctypes.POINTER(_I32))),
 }
 
 # Kernel launches per wrapper, bumped only where a wrapper launches its
 # kernel (never on the plain CPU path).  ``chip_smoke.py`` zeroes these
 # before driving the executor and reads them after.
-LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0, "probe": 0}
+LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
+                            "probe_multi": 0, "probe": 0, "sgd": 0}
 
 _lock = threading.Lock()
 _funcs: Dict[str, object] = {}

@@ -22,6 +22,19 @@
 //   their latency only through occupancy, so it runs well below the byte
 //   bound (its measured share is in PERF.md).
 //
+// probe_multi_i32 replaces probe_multi_pallas / _probe_multi_kernel in the
+//   same file: the bucket (start, count) of probe_counts_i32, plus an
+//   (n, cap) matrix of the bucket's first `cap` build rows read through
+//   `order` (sorted position -> build row), -1 past the count.  Chains
+//   longer than `cap` are completed by the caller's overflow pass.
+//   Bound: device-memory bytes (4 B key read, (8 + 4 * cap) B written per
+//   probe row; table and order read once).
+//   Design: B2's thread per key and its two clamped, virtually padded
+//   searches, then up to `cap` reads of `order` from the bucket start,
+//   which are contiguous, and a row of `cap` int32 stores.  The reference
+//   padded `order` with -1 to the table's power of two; the clamp keeps
+//   every read inside the real table, so no padded copy is made.
+//
 // hash_probe_i32 replaces probe_pallas / _probe_kernel in the same file:
 //   Knuth multiplicative hash (k * 2654435769) & (ts - 1), a linear probe
 //   bounded at probe_depth where the first hit wins, the matched build row
@@ -82,6 +95,26 @@ probe_counts_kernel(const int32_t* __restrict__ s_sorted, int64_t n_s,
 }
 
 __global__ void __launch_bounds__(kThreads)
+probe_multi_kernel(const int32_t* __restrict__ s_sorted,
+                   const int32_t* __restrict__ order, int64_t n_s,
+                   int64_t ts, const int32_t* __restrict__ keys, int64_t n,
+                   int32_t cap, int32_t* __restrict__ mat,
+                   int32_t* __restrict__ start, int32_t* __restrict__ count) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t q = keys[i];
+  const int64_t lo_p = bound_pow2<false>(s_sorted, n_s, ts, q);
+  const int64_t hi_p = bound_pow2<true>(s_sorted, n_s, ts, q);
+  const int64_t lo = lo_p < n_s ? lo_p : n_s;
+  const int64_t hi = hi_p < n_s ? hi_p : n_s;
+  start[i] = static_cast<int32_t>(lo);
+  count[i] = static_cast<int32_t>(hi - lo);
+  int32_t* row = mat + i * cap;
+  for (int32_t k = 0; k < cap; ++k)
+    row[k] = lo + k < hi ? __ldg(order + lo + k) : -1;
+}
+
+__global__ void __launch_bounds__(kThreads)
 hash_probe_kernel(const int32_t* __restrict__ ht_keys,
                   const int32_t* __restrict__ ht_vals, int64_t ts,
                   const int32_t* __restrict__ keys, int64_t n,
@@ -109,7 +142,7 @@ hash_probe_kernel(const int32_t* __restrict__ ht_keys,
 
 }  // namespace
 
-// Both launchers run on `stream` and return cudaGetLastError().
+// The launchers run on `stream` and return cudaGetLastError().
 extern "C" int probe_counts_i32(const void* s_sorted, int64_t n_s, int64_t ts,
                                 const void* keys, int64_t n, void* start,
                                 void* count, void* stream) {
@@ -120,6 +153,22 @@ extern "C" int probe_counts_i32(const void* s_sorted, int64_t n_s, int64_t ts,
         static_cast<const int32_t*>(s_sorted), n_s, ts,
         static_cast<const int32_t*>(keys), n, static_cast<int32_t*>(start),
         static_cast<int32_t*>(count));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_multi_i32(const void* s_sorted, const void* order,
+                               int64_t n_s, int64_t ts, const void* keys,
+                               int64_t n, int32_t cap, void* mat, void* start,
+                               void* count, void* stream) {
+  if (n > 0) {
+    const int64_t grid = (n + kThreads - 1) / kThreads;
+    probe_multi_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(s_sorted),
+        static_cast<const int32_t*>(order), n_s, ts,
+        static_cast<const int32_t*>(keys), n, cap, static_cast<int32_t*>(mat),
+        static_cast<int32_t*>(start), static_cast<int32_t*>(count));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,11 @@ probes on the executor's path:
   Its plain version is ``ref.bucket_probe``; the kernel equals it for
   every int32 key (the TPU kernel padded the table with ``2**31 - 1`` and
   so miscounted that key; the kernel's padding is virtual and clamped).
+* ``probe_multi`` (replaces ``probe_multi_pallas``): the same bucket
+  (start, count) plus an (N_L, cap) matrix of the bucket's first ``cap``
+  build rows (through ``order``), -1 past the count — the widened egress
+  bus of ``ops.hash_join_multi``, whose overflow pass completes longer
+  chains.  Its plain version is ``probe_multi_plain``.
 * ``probe`` (replaces ``probe_pallas``): the open-addressing probe of the
   paper's unique-key fast path.
 
@@ -26,6 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.join import ref
 
 DEFAULT_BLOCK = 4096
+DEFAULT_MATCH_CAP = 8          # egress lines per probe row (B3)
 
 
 # ---- B2: counts-only multi-match probe ------------------------------------ #
@@ -54,6 +60,61 @@ def probe_counts(s_sorted: torch.Tensor, l_keys: torch.Tensor):
     _build.check(rc, "probe_counts_i32")
     _build.LAUNCHES["probe_counts"] += 1
     return start, count
+
+
+# ---- B3: multi-match probe with a capped egress matrix -------------------- #
+
+def probe_multi_plain(s_sorted: torch.Tensor, order: torch.Tensor,
+                      l_keys: torch.Tensor, *, cap: int = DEFAULT_MATCH_CAP):
+    """Plain version of the multi-match probe: ``ref.bucket_probe``, then
+    the first ``cap`` build rows of each bucket gathered through
+    ``order``, -1 past the count.  Returns (mat (N_L, cap), start, count)."""
+    start, count = ref.bucket_probe(s_sorted, l_keys)
+    ks = torch.arange(cap, dtype=torch.int32, device=l_keys.device)
+    hit = ks[None, :] < count[:, None]
+    if s_sorted.shape[0] == 0:
+        mat = torch.full(hit.shape, -1, dtype=torch.int32,
+                         device=l_keys.device)
+    else:
+        src = (start[:, None] + ks[None, :]).clamp(0, s_sorted.shape[0] - 1)
+        mat = torch.where(hit, order[src.to(torch.int64)], -1)
+    return mat, start, count
+
+
+def probe_multi(s_sorted: torch.Tensor, order: torch.Tensor,
+                l_keys: torch.Tensor, *, cap: int = DEFAULT_MATCH_CAP):
+    """(mat (N_L, cap), start (N_L,), count (N_L,)) of each probe key over
+    the sorted build side through the CUDA kernel (plain version on CPU);
+    counts are exact even past ``cap``."""
+    if l_keys.device.type == "cpu":
+        return probe_multi_plain(s_sorted, order, l_keys, cap=cap)
+    for t, name in ((s_sorted, "s_sorted"), (order, "order"),
+                    (l_keys, "l_keys")):
+        _build.require_int32_cuda(t, name)
+        if t.device != l_keys.device:
+            raise ValueError(f"{name} is on {t.device}, l_keys on "
+                             f"{l_keys.device}")
+    n_s, n = s_sorted.shape[0], l_keys.shape[0]
+    if order.shape[0] != n_s:
+        raise ValueError(f"order has {order.shape[0]} entries, the table "
+                         f"{n_s}")
+    if n_s >= 2 ** 31 - 1:
+        raise ValueError(f"build side of {n_s} rows: positions are int32")
+    if not 0 < cap < 2 ** 31:
+        raise ValueError(f"cap must be positive, got {cap}")
+    mat = torch.empty((n, cap), dtype=torch.int32, device=l_keys.device)
+    start = torch.empty_like(l_keys)
+    count = torch.empty_like(l_keys)
+    if n == 0:
+        return mat, start, count
+    fn = _build.function("probe_multi_i32")
+    rc = fn(s_sorted.data_ptr(), order.data_ptr(), n_s,
+            ref.next_pow2(max(n_s, 2)), l_keys.data_ptr(), n, cap,
+            mat.data_ptr(), start.data_ptr(), count.data_ptr(),
+            _build.stream_handle(l_keys.device))
+    _build.check(rc, "probe_multi_i32")
+    _build.LAUNCHES["probe_multi"] += 1
+    return mat, start, count
 
 
 # ---- B4: open-addressing unique-key probe --------------------------------- #

@@ -1,5 +1,6 @@
 """Bandwidth-aware cost model — the optimizer's pricing of physical
-alternatives, for the nodes of the select -> join -> aggregate path.
+alternatives, for the nodes of the select -> join -> aggregate path and
+the GLM roots (TrainGLM, ScoreGLM).
 
 The paper's lesson (Fig. 2/5) is that placement and access pattern decide
 achieved bandwidth.  This module prices each (placement, pass-count)
@@ -9,9 +10,10 @@ wrappers launch the hand-written kernels on a CUDA device and their plain
 versions on the CPU, so the model only carries that choice as the label
 ``impl`` (``cuda`` or ``torch``) that ``explain`` shows.
 
-The bandwidth defaults to NVIDIA's data-sheet figure for the H100
-(``channels.H100_HBM_GBPS``), and the efficiency and per-call overhead are
-placeholders: all of them wait for the port's calibration on the card.
+The bandwidth and the float32 rate default to NVIDIA's data-sheet
+figures for the H100 (``channels.H100_HBM_GBPS``, ``H100_FP32_FLOPS``),
+and the efficiency and per-call overhead are placeholders: all of them
+wait for the port's calibration on the card.
 Unlike the reference, the port reads no calibration file.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core.channels import H100_HBM_GBPS
+from repro_torch.core.channels import H100_FP32_FLOPS, H100_HBM_GBPS
 from repro_torch.core.join import HT_CAPACITY
 from repro_torch.query import logical as L
 
@@ -155,10 +157,13 @@ class CostModel:
         return H100_HBM_GBPS
 
     def stream_cost(self, n_bytes: float, *, placement: str,
-                    n_passes: int = 1) -> float:
-        """Seconds to stream ``n_bytes`` under ``placement``."""
+                    n_passes: int = 1, flops: float = 0.0) -> float:
+        """Seconds to stream ``n_bytes`` under ``placement``, roofline-
+        combined with any compute the operator does."""
         bw = self.bandwidth_gbps(placement) * 1e9 * STREAM_EFF
-        return n_passes * (n_bytes / bw + CALL_OVERHEAD_S)
+        t_mem = n_passes * n_bytes / bw
+        return max(t_mem, flops / H100_FP32_FLOPS) \
+            + n_passes * CALL_OVERHEAD_S
 
     def broadcast_cost(self, n_bytes: float) -> float:
         """Replicating a build side to every engine: n-1 extra copies
@@ -171,7 +176,8 @@ class CostModel:
     # -- morsel pricing (streaming pipeline) -------------------------------- #
 
     def morsel_cost(self, total_rows: float, morsel_rows: int, n_cols: int,
-                    *, include_transfer: bool = True) -> float:
+                    *, flops_per_row: float = 0.0,
+                    include_transfer: bool = True) -> float:
         """Seconds to stream ``total_rows`` in double-buffered morsels: the
         next morsel's host->device copy overlaps the current morsel's
         compute, so steady state pays max(transfer, compute) per morsel.
@@ -180,11 +186,13 @@ class CostModel:
         m_bytes = morsel_rows * BYTES_PER_VALUE * n_cols
         t_x = (m_bytes / (H2D_GBPS * 1e9) + STAGE_OVERHEAD_S) \
             if include_transfer else 0.0
-        t_c = self.stream_cost(m_bytes, placement="partitioned")
+        t_c = self.stream_cost(m_bytes, placement="partitioned",
+                               flops=flops_per_row * morsel_rows)
         return n_morsels * max(t_x, t_c) + min(t_x, t_c)
 
     def choose_morsel_rows(self, total_rows: float, n_cols: int, *,
                            align: Optional[int] = None,
+                           flops_per_row: float = 0.0,
                            include_transfer: bool = True) -> int:
         """argmin of ``morsel_cost`` over power-of-two candidates (and the
         whole input), aligned to the engine count."""
@@ -199,6 +207,7 @@ class CostModel:
         candidates.append(-(-total // align) * align)   # whole input
         for rows in candidates:
             c = self.morsel_cost(total, rows, n_cols,
+                                 flops_per_row=flops_per_row,
                                  include_transfer=include_transfer)
             if c < best_cost:
                 best_rows, best_cost = rows, c
@@ -237,9 +246,10 @@ class PhysNode:
 
 
 def _choose(model: CostModel, n_bytes: float, placements: Tuple[str, ...],
-            *, n_passes: int = 1):
+            *, n_passes: int = 1, flops: float = 0.0):
     """argmin over placements; returns (placement, cost, alts)."""
-    alts = {pl: model.stream_cost(n_bytes, placement=pl, n_passes=n_passes)
+    alts = {pl: model.stream_cost(n_bytes, placement=pl, n_passes=n_passes,
+                                  flops=flops)
             for pl in placements}
     best = min(alts, key=alts.get)
     return best, alts[best], alts
@@ -346,10 +356,52 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
                         model.bandwidth_gbps(pl), alts, (child,),
                         morsel_rows=morsel_rows, n_bytes=n_bytes)
 
-    if isinstance(node, (L.TrainGLM, L.ScoreGLM)):
-        raise NotImplementedError(
-            f"{type(node).__name__} is not ported yet: GLM training and "
-            "scoring run only in the JAX reference package for now")
+    if isinstance(node, L.TrainGLM):
+        child = plan_physical(node.child, stats, model, role="build")
+        in_rows = estimate_rows(node.child, stats)
+        k = len(node.grid)
+        d = len(node.features)
+        dataset = in_rows * BYTES_PER_VALUE * (d + 1)
+        epoch_bytes = dataset * node.epochs * k
+        # replicated: pay the copies once, then every job streams its own
+        # replica (Fig. 10a); congested: every job reads the one copy.  On
+        # one card both stream the same HBM, so they tie at one engine
+        flops = 6.0 * node.epochs * k * in_rows * d
+        alts = {
+            f"{model.impl}/replicated": model.broadcast_cost(dataset)
+            + model.stream_cost(epoch_bytes, placement="partitioned",
+                                flops=flops),
+            f"{model.impl}/congested": model.stream_cost(
+                epoch_bytes, placement="congested", flops=flops),
+        }
+        best = min(alts, key=alts.get)
+        pl = best.split("/")[1]
+        # streaming granularity for the epoch loop: each epoch re-streams
+        # the training set, so the morsel argmin prices the per-pass
+        # feature+label bytes with the per-row SGD flops
+        base = probe_base_scan(node.child)
+        morsel_rows = None
+        if base is not None and base.table in stats:
+            morsel_rows = model.choose_morsel_rows(
+                stats[base.table].num_rows, d + 1,
+                flops_per_row=6.0 * k * d)
+        return PhysNode("train_glm", node, model.impl, pl, 1, 1.0,
+                        alts[best], model.bandwidth_gbps(pl), alts,
+                        (child,), morsel_rows=morsel_rows,
+                        n_bytes=epoch_bytes)
+
+    if isinstance(node, L.ScoreGLM):
+        child = plan_physical(node.child, stats, model, role=role)
+        d = len(node.features)
+        in_rows = estimate_rows(node.child, stats)
+        # one pass over the feature columns plus the written score column
+        n_bytes = in_rows * BYTES_PER_VALUE * d + rows * BYTES_PER_VALUE
+        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1],
+                                 flops=2.0 * in_rows * d)
+        return PhysNode("score_glm", node, model.impl, pl, 1, rows, cost,
+                        model.bandwidth_gbps(pl), alts, (child,),
+                        n_bytes=n_bytes)
+
     raise TypeError(node)
 
 

@@ -1,6 +1,7 @@
 """Physical executor: lowers optimized plans onto the columnar engine.
 
-Three lowering paths, as in the reference:
+Three lowering paths, as in the reference (TrainGLM roots take a fourth,
+below):
 
 * **batch** — an aggregate-rooted select/join pipeline runs as one
   whole-table morsel: filters are masks, join probes binary-search cached
@@ -15,11 +16,18 @@ Three lowering paths, as in the reference:
   filter, the hash-probe kernel for unique-key joins and the counts kernel
   for duplicate-keyed ones.
 
+TrainGLM roots (the paper's workload 3) lower in batch and stream modes
+onto the morsel-streamed trainer (``engine.train_glm_stream``), whose
+weights equal the eager whole-column trainer's (``engine.train_glm``) bit
+for bit; both train through the SGD kernel on the card.  ScoreGLM roots
+score with a model trained fresh through ``execute`` (the port has no
+semantic cache yet, so no model is ever served warm).
+
 The executor runs on the CUDA card unless constructed with a ``device``;
 the kernels run exactly when that device is CUDA, because every kernel
 wrapper launches on CUDA tensors and takes its plain version on CPU ones.
-GLM training and scoring (TrainGLM / ScoreGLM roots), the semantic cache,
-memory-tier spilling, sharding and telemetry are not ported yet.
+The semantic cache, memory-tier spilling, sharding and telemetry are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -91,7 +99,7 @@ class Catalog:
     def update_column(self, table: str, column: str, data) -> None:
         """Replace a base column, bump the table's version and refresh the
         statistics the optimizer plans against."""
-        self.tables[table].update_column(column, data)
+        self.tables[table].update_column(column, data, self.device)
         self.register(self.tables[table])
 
     def versions(self) -> Dict[str, int]:
@@ -177,11 +185,6 @@ class Executor:
         node = q.node if isinstance(q, L.Q) else q
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        for n in L.walk(node):
-            if isinstance(n, (L.TrainGLM, L.ScoreGLM)):
-                raise NotImplementedError(
-                    f"{type(n).__name__} is not ported yet: GLM training "
-                    "and scoring run only in the JAX reference package")
         t0 = time.perf_counter()
         if not optimized:
             if mode == "stream":
@@ -191,6 +194,15 @@ class Executor:
             return Result(self._run_eager(node, None), None, False,
                           time.perf_counter() - t0, mode="eager")
         node, phys = self.plan(node)
+        # TrainGLM roots stream the training set epoch by epoch with the
+        # model weights as the only cross-morsel carry — bit-identical to
+        # the whole-column eager path, which stays the oracle
+        if mode != "eager":
+            tplan = pl.analyze_train(node, self.catalog.stats)
+            if tplan is not None:
+                value = self._run_train(node, phys, tplan, morsel_rows)
+                return Result(value, phys, False, time.perf_counter() - t0,
+                              mode="stream")
         if mode == "stream":
             splan = pl.analyze(node, self.catalog.stats)
             if splan is not None:
@@ -320,6 +332,46 @@ class Executor:
                 total, max(n_cols, 1), include_transfer=False)
         return MorselSpec.for_plan(total, target, self.plans["partitioned"])
 
+    # -- GLM training (morsel-streamed epochs) ------------------------------ #
+
+    def _run_train(self, node: L.TrainGLM, phys: Optional[PhysNode],
+                   tplan: pl.TrainStreamPlan, morsel_rows: Optional[int]):
+        """TrainGLM-rooted streamed execution (paper §VI, workload 3):
+        every epoch streams the training set morsel by morsel through the
+        K-model SGD kernel with the weights as the only cross-morsel
+        carry.  A filter under the train root materializes the selected
+        rows once (the pipeline breaker: streamed compaction would make
+        minibatch boundaries data-dependent) and epochs stream off that
+        transient table; a bare scan streams straight off the catalog
+        table."""
+        if tplan.filtered:
+            child_phys = phys.children[0] if phys and phys.children \
+                else None
+            source = self._run_eager(node.child, child_phys)
+        else:
+            source = self.catalog.tables[tplan.base_scan.table]
+        target = morsel_rows or (phys.morsel_rows if phys else None)
+        cplan = self.plans.get(phys.placement if phys else "partitioned",
+                               self.plans["partitioned"])
+        return engine.train_glm_stream(
+            source, list(node.features), node.label, list(node.grid),
+            cplan, kind=node.kind, epochs=node.epochs, morsel_rows=target)
+
+    def _resolve_model(self, n: L.ScoreGLM, phys: Optional[PhysNode]):
+        """Weights for a ScoreGLM.  The port has no semantic cache, so it
+        trains fresh through ``execute`` (the naive oracle, ``phys is
+        None``, trains inline); a raw fingerprint names no model it could
+        have, and raises."""
+        if n.train is None:
+            raise KeyError(
+                f"score_glm: no cached model under fingerprint "
+                f"{n.model_fp!r} and no defining train plan to fall back "
+                "to — score with the TrainGLM plan instead of a raw "
+                "fingerprint")
+        if phys is None:
+            return self._run_eager(n.train, None)
+        return self.execute(n.train).value
+
     # -- eager path (engine operators, BAT-style intermediates) ------------- #
 
     def _run_eager(self, node: L.Node, phys: Optional[PhysNode]):
@@ -372,6 +424,28 @@ class Executor:
                         return 0.0
                     return float(col.to(torch.float32).mean())
                 raise ValueError(n.op)
+            if isinstance(n, L.TrainGLM):
+                t = eval_node(n.child)
+                # the placement the cost model chose, so explain() and
+                # execution agree
+                d = next((p for p in _walk_phys(phys) if p.logical is n),
+                         None) if phys else None
+                cplan = self.plans.get(
+                    d.placement if d is not None else "partitioned",
+                    self.plans["partitioned"])
+                return engine.train_glm(t, list(n.features), n.label,
+                                        list(n.grid), cplan, kind=n.kind,
+                                        epochs=n.epochs)
+            if isinstance(n, L.ScoreGLM):
+                t = eval_node(n.child)
+                xs, losses = self._resolve_model(n, phys)
+                idx = int(n.select) if n.select >= 0 \
+                    else int(torch.argmin(losses))
+                a = torch.stack([t.column(f).to(torch.float32)
+                                 for f in n.features], dim=1)
+                z = torch.matmul(a, xs[idx])
+                s = torch.sigmoid(z) if n.kind == "logreg" else z
+                return Table("score", {"score": Column(s, "score")})
             raise TypeError(n)
 
         return eval_node(node)

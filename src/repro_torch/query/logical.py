@@ -10,6 +10,8 @@ cached pipeline at run time.
 
 Pure Python, no tensors: the port's copy of ``repro.query.logical``, so
 plans and fingerprints are byte-identical between the two systems.
+``HyperParams`` lives in ``core/sgd_glm.py``, as in the reference, and is
+re-exported here for the plan DSL.
 """
 from __future__ import annotations
 
@@ -17,14 +19,7 @@ import dataclasses
 import hashlib
 from typing import Mapping, Optional, Sequence, Tuple
 
-
-@dataclasses.dataclass(frozen=True)
-class HyperParams:
-    """One GLM training job's hyper-parameters (the reference keeps this
-    in ``core/sgd_glm.py``; the port's GLM path comes later, so the plan
-    DSL carries its own copy with the same name, fields and repr)."""
-    lr: float
-    l2: float
+from repro_torch.core.sgd_glm import HyperParams  # noqa: F401 (re-export)
 
 
 @dataclasses.dataclass(frozen=True)

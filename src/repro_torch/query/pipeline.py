@@ -132,6 +132,44 @@ def analyze(node: L.Node, stats: Dict[str, TableStats]
 
 
 @dataclasses.dataclass
+class TrainStreamPlan:
+    """A TrainGLM-rooted pipeline: every epoch streams the training set
+    morsel by morsel with the K model weight vectors as the carry
+    (``engine.train_glm_stream`` — CoCoA block rotation with block =
+    morsel).  ``filtered`` plans materialize the selected rows once (a
+    pipeline breaker: streaming compaction would make the minibatch
+    boundaries data-dependent) and stream the epochs over the
+    materialized set; bare scans stream straight off the catalog table."""
+    node: L.TrainGLM
+    base_scan: L.Scan
+    stream_cols: Tuple[str, ...]      # features + label on the base table
+    filtered: bool
+
+
+def analyze_train(node: L.Node, stats: Dict[str, TableStats]
+                  ) -> Optional[TrainStreamPlan]:
+    """Whether a TrainGLM-rooted plan lowers onto the epoch x morsel
+    stream: Scan -> (Filter|FilterProject|Project)* with no joins (a
+    joined training-set derivation takes the eager path)."""
+    if not isinstance(node, L.TrainGLM):
+        return None
+    spine = _analyze_spine(node.child, stats)
+    if spine is None:
+        return None
+    scan, breakers, _dup, _refs = spine
+    if breakers:
+        return None
+    cols = tuple(node.features) + (node.label,)
+    avail = set(scan.columns) if scan.columns is not None \
+        else set(stats[scan.table].columns)
+    if not set(cols) <= avail:
+        return None
+    filtered = any(isinstance(n, (L.Filter, L.FilterProject))
+                   for n in L.walk(node.child))
+    return TrainStreamPlan(node, scan, cols, filtered)
+
+
+@dataclasses.dataclass
 class CompiledPipeline:
     """One plan shape lowered to a per-morsel step at one granularity."""
     base_table: str

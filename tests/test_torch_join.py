@@ -1,5 +1,6 @@
-"""The port's distributed operators (``core/selection.py``,
-``core/join.py``) against the JAX reference, on the CPU.
+"""The port's joins (``kernels/join/ops.py``'s ``hash_join_multi``) and
+distributed operators (``core/selection.py``, ``core/join.py``) against
+the JAX reference, on the CPU.
 
 Key distributions follow the reference's join differential suite (unique,
 duplicate-heavy, Zipf, adversarial); the reference runs on an Auto-axis
@@ -18,10 +19,12 @@ import torch
 from repro.core import join as r_join_core
 from repro.core import selection as r_sel_core
 from repro.core.channels import plan as r_plan
+from repro.kernels.join import ops as r_join_ops
 
 from repro_torch.core import join as join_core
 from repro_torch.core import selection as sel_core
 from repro_torch.core.channels import plan
+from repro_torch.kernels.join import ops as join_ops
 
 
 def _ref_plan(placement="partitioned"):
@@ -136,3 +139,93 @@ def test_select_distributed_matches_reference():
                                           plan(placement), block=1024)
         _eq(got[0], want[0])
         _eq(got[1], want[1])
+
+
+# ---- hash_join_multi: the multi-match probe (B3) plus the overflow pass --- #
+
+def _ref_multi(s, l, max_out, cap, impl):
+    """The reference's hash_join_multi; its Pallas probe needs the probe
+    length to tile its block, so one block covers all of it."""
+    return r_join_ops.hash_join_multi(
+        jnp.asarray(s), jnp.asarray(l), max_out=max_out, cap=cap,
+        block=max(l.size, 1), impl=impl, interpret=True)
+
+
+@pytest.mark.parametrize("dist", DISTS)
+@pytest.mark.parametrize("cap", [8, 2])
+def test_hash_join_multi_matches_reference_under_both_impls(dist, cap):
+    """Pair lists, totals and overflow flags bit for bit, against the
+    reference's XLA path and its Pallas path (interpret mode); the dup
+    distributions have chains longer than the cap."""
+    r = np.random.default_rng(len(dist) + cap)
+    s, l = make_keys(dist, r, 120, 1024)
+    for max_out in (8192, 100):              # roomy, then truncating
+        got = join_ops.hash_join_multi(_t(s), _t(l), max_out=max_out,
+                                       cap=cap)
+        for impl in ("xla", "pallas"):
+            want = _ref_multi(s, l, max_out, cap, impl)
+            for g, w in zip(got, want):
+                _eq(g, w)
+        assert bool(got.overflowed) == (int(got.total) > max_out)
+
+
+def test_hash_join_multi_chains_far_past_the_cap():
+    """Nearly every pair comes from the overflow pass."""
+    r = np.random.default_rng(3)
+    s = r.integers(0, 4, 2000).astype(np.int32)
+    l = np.asarray([0, 1, 9, 2, 3, 3], np.int32)
+    got = join_ops.hash_join_multi(_t(s), _t(l), max_out=2000)
+    for impl in ("xla", "pallas"):
+        for g, w in zip(got, _ref_multi(s, l, 2000, 8, impl)):
+            _eq(g, w)
+    assert int(got.total) == int(np.isin(s, [0, 1, 2]).sum()
+                                 + 2 * (s == 3).sum())
+    assert bool(got.overflowed)
+
+
+@pytest.mark.parametrize("n_s,n_l", [(0, 50), (30, 0), (0, 0)])
+def test_hash_join_multi_empty_sides_match_reference(n_s, n_l):
+    s = np.arange(n_s, dtype=np.int32) % 7
+    l = np.arange(n_l, dtype=np.int32) % 5
+    got = join_ops.hash_join_multi(_t(s), _t(l), max_out=16)
+    want = r_join_ops.hash_join_multi(jnp.asarray(s), jnp.asarray(l),
+                                      max_out=16, impl="xla")
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert int(got.total) == 0 and not bool(got.overflowed)
+
+
+def test_materialize_pairs_matches_reference():
+    r = np.random.default_rng(8)
+    s, l = make_keys("dup_heavy", r, 40, 256)
+    s_vals = r.integers(0, 1000, s.size).astype(np.int32)
+    l_vals = r.integers(0, 1000, l.size).astype(np.int32)
+    got = join_ops.hash_join_multi(_t(s), _t(l), max_out=600)
+    want = _ref_multi(s, l, 600, 8, "xla")
+    for g, w in zip(join_ops.materialize_pairs(got.l_idx, got.s_idx,
+                                               _t(l_vals), _t(s_vals)),
+                    r_join_ops.materialize_pairs(
+                        want.l_idx, want.s_idx, jnp.asarray(l_vals),
+                        jnp.asarray(s_vals))):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("dist,max_out", [("dup_heavy", None),
+                                          ("zipf", 300),
+                                          ("unique", None)])
+def test_join_distributed_multi_result_matches_reference(dist, max_out):
+    """The distributed multi-match join under the single-device result
+    contract: one compacted pair prefix, the exact total, the overflow
+    flag; over more than one pass when the build side needs it."""
+    r = np.random.default_rng(len(dist))
+    n_s = join_core.HT_CAPACITY + 300 if dist == "unique" else 150
+    s, l = make_keys(dist, r, n_s, 1024)
+    want = r_join_core.join_distributed_multi_result(
+        jnp.asarray(s), jnp.asarray(l), _ref_plan(),
+        max_out_per_shard=max_out)
+    got = join_core.join_distributed_multi_result(
+        _t(s), _t(l), plan(), max_out_per_shard=max_out)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    assert bool(got.overflowed) == (max_out is not None
+                                    and int(got.total) > max_out)

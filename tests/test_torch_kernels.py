@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from repro.kernels.join import ref as r_join_ref
-from repro.kernels.join.join import probe_counts_pallas, probe_pallas
+from repro.kernels.join.join import (
+    probe_counts_pallas, probe_multi_pallas, probe_pallas,
+)
 from repro.kernels.join.ops import hash_join as r_hash_join
 from repro.kernels.join.ops import materialize as r_materialize
 from repro.kernels.selection import ops as r_sel_ops
@@ -132,6 +134,44 @@ def test_probe_counts_matches_reference_bucket_probe_at_int32_limits():
         # refused above the kernel
         assert int(cnt[-3]) == 3 and int(cnt[-2]) == 0
         assert int(cnt[-1]) == (block is padded)
+
+
+# ---- B3: multi-match probe with the capped egress matrix ------------------ #
+
+@pytest.mark.parametrize("n_s,n_l,block,cap", [(1, 1024, 256, 8),
+                                               (100, 2048, 1024, 8),
+                                               (3000, 4096, 1024, 8),
+                                               (40, 1024, 1024, 3)])
+def test_probe_multi_matches_probe_multi_pallas(n_s, n_l, block, cap):
+    """Every output of the multi-match probe, with chains shorter and
+    longer than the cap (the reference pads ``order`` with -1; the port's
+    clamp never reads past the table)."""
+    r = np.random.default_rng(n_s + cap)
+    dom = max(n_s // 6, 1)
+    s = r.integers(0, dom, n_s).astype(np.int32)
+    l = r.integers(-1, 2 * dom, n_l).astype(np.int32)
+    rs_sorted, r_order = r_join_ref.bucket_build(jnp.asarray(s))
+    want = probe_multi_pallas(rs_sorted, r_order, jnp.asarray(l), cap=cap,
+                              block=block, interpret=True)
+    s_sorted, order = join_ref.bucket_build(_t(s))
+    before = dict(_build.LAUNCHES)
+    for got in (join_kernels.probe_multi(s_sorted, order, _t(l), cap=cap),
+                join_kernels.probe_multi_plain(s_sorted, order, _t(l),
+                                               cap=cap)):
+        assert got[0].shape == (n_l, cap)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            _eq(g, w)
+    assert _build.LAUNCHES == before          # CPU tensors: no launch
+    assert int(want[2].max()) > cap or n_s <= cap
+
+
+def test_probe_multi_plain_on_an_empty_table():
+    mat, start, cnt = join_kernels.probe_multi_plain(
+        _t([]), _t([]), _t([1, 2, 3]))
+    _eq(mat, -np.ones((3, 8), np.int32))
+    _eq(start, [0, 0, 0])
+    _eq(cnt, [0, 0, 0])
 
 
 @pytest.mark.parametrize("out_base,l_base,s_base", [(0, 0, 0), (5, 100, 8192),

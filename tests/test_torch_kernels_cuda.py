@@ -9,7 +9,11 @@ there on its own:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Integer outputs must be bit-identical to the plain versions.
+Integer outputs must be bit-identical to the plain versions.  The SGD
+kernel sums in another order than its plain version (and nvcc contracts
+multiply-adds into FMAs), so its weights agree within rtol=1e-4,
+atol=1e-5; the kernel is deterministic, so streamed training (one launch
+per morsel) equals one launch over all rows bit for bit.
 """
 import numpy as np
 import pytest
@@ -18,8 +22,13 @@ import torch
 from repro_torch.core import join as join_core
 from repro_torch.kernels import _build
 from repro_torch.kernels.join import join as join_kernels
+from repro_torch.kernels.join import ops as join_ops
 from repro_torch.kernels.join import ref as join_ref
 from repro_torch.kernels.selection import selection
+from repro_torch.kernels.sgd import ref as sgd_ref
+from repro_torch.kernels.sgd import sgd as sgd_kernels
+
+SGD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -123,3 +132,134 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     table = torch.zeros(100, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):          # not a power of two
         join_kernels.probe(table, table, table)
+
+
+@pytest.mark.parametrize("n_s,n_l,cap", [(0, 1000, 8), (1, 1000, 8),
+                                         (2556, 100_003, 8),
+                                         (40_000, 1 << 16, 3),
+                                         ((1 << 20) + 17, 1 << 20, 8)])
+def test_probe_multi_kernel_matches_plain(cuda, n_s, n_l, cap):
+    """Chains shorter and longer than the cap, probe keys outside the
+    table, and keys at both ends of int32 (2**31 - 1 also in the table)."""
+    r = np.random.default_rng(n_s + cap)
+    dom = max(n_s // 5, 1)
+    s = np.concatenate([r.integers(0, dom, n_s),
+                        [2 ** 31 - 1, -2 ** 31] if n_s else []])
+    keys = np.concatenate([r.integers(-2, 2 * dom, n_l - 4),
+                           [2 ** 31 - 1, 2 ** 31 - 2, -2 ** 31, -1]])
+    s_sorted, order = join_ref.bucket_build(_i32(s, cuda))
+    keys = _i32(keys, cuda)
+    before = _build.LAUNCHES["probe_multi"]
+    got = join_kernels.probe_multi(s_sorted, order, keys, cap=cap)
+    want = join_kernels.probe_multi_plain(s_sorted, order, keys, cap=cap)
+    for g, w in zip(got, want):
+        _same(g, w)
+    assert _build.LAUNCHES["probe_multi"] == before + 1
+    if n_s > 100:
+        assert int(want[2].max()) > cap
+
+
+@pytest.mark.parametrize("max_out", [10, 1 << 20])
+def test_hash_join_multi_on_the_card_equals_the_cpu(cuda, max_out):
+    """The whole multi-match join, probe kernel and overflow pass, on the
+    card against the same join on CPU tensors (the plain probe)."""
+    r = np.random.default_rng(max_out)
+    s = r.integers(0, 3000, 200_000).astype(np.int32)
+    l = r.integers(0, 3500, 5000).astype(np.int32)
+    got = join_ops.hash_join_multi(_i32(s, cuda), _i32(l, cuda),
+                                   max_out=max_out)
+    want = join_ops.hash_join_multi(torch.from_numpy(s), torch.from_numpy(l),
+                                    max_out=max_out)
+    for g, w in zip(got, want):
+        _same(g, w.to(g.device))
+
+
+def _sgd_inputs(device, m, n, k, kind, seed=0):
+    r = np.random.default_rng(seed + n + k)
+    a = r.uniform(0, 1, (m, n)).astype(np.float32)
+    if kind == "logreg":
+        b = (a @ r.normal(size=n) > 0.5 * r.normal(size=n).sum())
+    else:
+        b = a @ r.normal(size=n) / max(n, 1)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.as_tensor(a, **f32),
+            torch.as_tensor(np.asarray(b, np.float32), **f32),
+            torch.as_tensor(r.normal(0, 0.1, (k, n)), **f32),
+            torch.as_tensor(0.5 / (1 + np.arange(k)) / max(n, 1), **f32),
+            torch.as_tensor(1e-3 * (np.arange(k) % 3), **f32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 784, 2048])
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("kind", ["logreg", "ridge"])
+def test_sgd_kernel_matches_plain(cuda, n, k, kind):
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 256, n, k, kind)
+    before = _build.LAUNCHES["sgd"]
+    got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=3,
+                          kind=kind)
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, minibatch=16, epochs=3,
+                           kind=kind)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sgd"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+
+
+@pytest.mark.parametrize("kind", ["logreg", "ridge"])
+def test_sgd_kernel_streamed_equals_one_launch_bitwise(cuda, kind):
+    """Epochs over morsels (one launch each, weights carried) against one
+    launch over all rows; and a job alone against the job in a group."""
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 1600, 784, 8, kind)
+    once = sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=3,
+                           kind=kind)
+    xs = xs0
+    for _ in range(3):
+        for lo in range(0, 1600, 480):            # 480, 480, 480, 160 rows
+            xs = sgd_kernels.sgd(a[lo:lo + 480], b[lo:lo + 480], xs, lrs,
+                                 l2s, minibatch=16, epochs=1, kind=kind)
+    _same(xs, once)
+    alone = sgd_kernels.sgd(a, b, xs0[3:4].contiguous(), lrs[3:4], l2s[3:4],
+                            minibatch=16, epochs=3, kind=kind)
+    _same(alone[0], once[3])
+
+
+def test_sgd_kernel_refuses_a_model_wider_than_shared_memory(cuda):
+    n = 60_000                       # 240 KB of floats: over 227 KB
+    a = torch.zeros((16, n), dtype=torch.float32, device=cuda)
+    b = torch.zeros(16, dtype=torch.float32, device=cuda)
+    hp = torch.zeros(1, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sgd_kernels.sgd(a, b, torch.zeros((1, n), dtype=torch.float32,
+                                          device=cuda), hp, hp,
+                        minibatch=16)
+    wide = sgd_kernels.sgd(a[:, :50_000].contiguous(), b,
+                           torch.ones((1, 50_000), dtype=torch.float32,
+                                      device=cuda), hp + 0.1, hp,
+                           minibatch=16)
+    torch.cuda.synchronize()         # 200 KB: over 48 KB, opted in
+    assert bool((wide == 1).all())
+
+
+def test_executor_trains_through_the_kernel_stream_equals_eager(cuda):
+    """The executor's GLM path on the card: every mode launches the SGD
+    kernel, and streamed weights equal eager weights bit for bit."""
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.query import Executor, HyperParams, Q
+    r = np.random.default_rng(2)
+    a = r.uniform(0, 1, (1000, 20)).astype(np.float32)
+    y = (a @ r.normal(size=20) > 0).astype(np.float32)
+    cols = {f"f{j}": a[:, j] for j in range(20)}
+    cols["y"] = y
+    ex = Executor(catalog_from_arrays({"t": cols}, cuda), cuda)
+    q = Q.scan("t").train_glm([f"f{j}" for j in range(20)], "y",
+                              [HyperParams(0.1 / (i + 1), 0.001 * i)
+                               for i in range(4)], epochs=3)
+    out = {}
+    for mode, kw in (("batch", {}), ("stream", {"morsel_rows": 160}),
+                     ("eager", {})):
+        before = _build.LAUNCHES["sgd"]
+        out[mode] = ex.execute(q, mode=mode, **kw).value
+        assert _build.LAUNCHES["sgd"] > before
+    _same(out["stream"][0], out["eager"][0])
+    _same(out["batch"][0], out["eager"][0])

@@ -188,17 +188,48 @@ def test_executor_without_a_device_needs_cuda(monkeypatch):
         catalog_from_arrays(_arrays(0))
 
 
-def test_glm_roots_are_not_ported_yet():
-    _, port = _systems(_arrays(0))
+def test_glm_roots_run_and_match_reference():
+    """The TrainGLM plan the port once refused now runs in every mode and
+    its weights match the reference's (rtol=1e-5, atol=1e-6).  Its label
+    ``w`` is not binary, so the logistic loss saturates and its value
+    hangs on how ``log(1 - p + eps)`` is associated; losses and scores are
+    compared on the same shape of query with a binary label."""
+    from repro.core.sgd_glm import HyperParams as RHyperParams
+    ref, port = _systems(_arrays(0))
     q = Q.scan("big").train_glm(["v"], "w", [HyperParams(0.1, 0.0)])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.execute(q)
+    rq = RQ.scan("big").train_glm(["v"], "w", [RHyperParams(0.1, 0.0)])
+    want = ref.execute(rq).value
+    for mode in MODES:
+        np.testing.assert_allclose(port.execute(q, mode=mode).value[0],
+                                   np.asarray(want[0]), rtol=1e-5,
+                                   atol=1e-6)
+
+    arrays = _arrays(0)
+    arrays["big"]["v"] = (arrays["big"]["v"] % 2).astype(np.int32)
+    ref, port = _systems(arrays)
+    q = Q.scan("big").train_glm(["w"], "v", [HyperParams(0.001, 0.0)],
+                                epochs=1)
+    rq = RQ.scan("big").train_glm(["w"], "v", [RHyperParams(0.001, 0.0)],
+                                  epochs=1)
+    want = ref.execute(rq).value
+    for mode in MODES:
+        xs, losses = port.execute(q, mode=mode).value
+        np.testing.assert_allclose(xs.numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(losses.numpy(), np.asarray(want[1]),
+                                   rtol=1e-4, atol=1e-6)
+    got = port.execute(Q.scan("big").score_glm(q)).value.column("score")
+    np.testing.assert_allclose(
+        got.numpy(),
+        np.asarray(ref.execute(RQ.scan("big").score_glm(rq)).value
+                   .column("score")), rtol=1e-5, atol=1e-6)
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.query, repro_torch.kernels._build, "
-            "repro_torch.kernels.join.ops, repro_torch.core.selection\n"
+            "repro_torch.kernels.join.ops, repro_torch.core.selection, "
+            "repro_torch.core.sgd_glm, repro_torch.kernels.sgd.ops\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -110,3 +110,49 @@ def test_columns_take_the_reference_32_bit_types():
                                       np.asarray(ref.column(c)))
     with pytest.raises(ValueError, match="int32"):
         Table.from_arrays("t", {"i": np.asarray([2 ** 40])}, "cpu")
+
+
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_update_of_a_lower_tier_column_goes_to_the_card(tmp_path,
+                                                         monkeypatch, tier):
+    """New data for a host or disk column lands on the card, as the
+    reference puts it on its default device; never quietly on the CPU.
+    Without a card that is an error unless the caller names a device."""
+    from repro_torch.query.exec import Catalog
+    cols = {"a": np.arange(10, dtype=np.int32)}
+    ref = RTable.from_arrays("t", cols)
+    ref.demote_column("a", tier, str(tmp_path / "r"))
+    ref.update_column("a", np.arange(10, 20, dtype=np.int32))
+    port = Table.from_arrays("t", cols, "cpu")
+    port.demote_column("a", tier, str(tmp_path / "p"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.update_column("a", np.arange(10, 20, dtype=np.int32))
+    assert port.version == 0 and port.column_tier("a") == tier
+    port.update_column("a", np.arange(10, 20, dtype=np.int32), "cpu")
+    assert port.column_tier("a") == ref.column_tier("a") == "device"
+    assert isinstance(port.column("a"), torch.Tensor)
+    np.testing.assert_array_equal(port.column("a").numpy(),
+                                  np.asarray(ref.column("a")))
+    assert port.version == ref.version == 1
+    # the catalog updates onto its own device
+    cat = Catalog("cpu").register(Table.from_arrays("t", cols, "cpu"))
+    cat.tables["t"].demote_column("a", tier, str(tmp_path / "c"))
+    cat.update_column("t", "a", np.arange(5, 15, dtype=np.int32))
+    assert cat.tables["t"].column("a").device == torch.device("cpu")
+    assert cat.stats["t"].ranges["a"].lo == 5
+
+
+def test_plan_place_sends_numpy_to_the_card_and_keeps_tensors(monkeypatch):
+    """``ChannelPlan.place`` without a device leaves a tensor where it is
+    and puts a numpy column on the card — an error without one, never a
+    quiet CPU tensor."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.arange(6, dtype=np.int32)
+    t = torch.arange(6, dtype=torch.int32)
+    assert channels.plan().place(t) is t
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        channels.plan().place(x)
+    got = channels.plan(device="cpu").place(x)
+    assert got.device == torch.device("cpu")
+    np.testing.assert_array_equal(got.numpy(), x)

@@ -31,7 +31,23 @@ Phases, each of which must pass or the script exits non-zero:
    lineitem's order keys and probed with orders' (chains of 1-7), and
    built on lineitem's quantity and probed with its 50 values (chains of
    ~120,000, nearly all from the overflow pass); pair lists must equal a
-   numpy sort-based oracle bit for bit.
+   numpy sort-based oracle bit for bit;
+8. calibrate: the traffic-generator kernel (``o = x + 1``) against its
+   plain version, bit for bit, at 1 GiB of int32, at a ragged length, on
+   a misaligned slice, at 2**31 - 1 and in float32, timed beside
+   ``torch.add(x, 1)``; then ``calibrate()`` into a temporary file, loaded
+   back and applied to an executor over SSB SF 10 with ``recost`` (the
+   epoch must move, and a second ``recost`` with the same file must
+   change no price); then the Fig. 2 analogue (``stream_copy_distributed``
+   over 1, 4 and 16 engines, partitioned and congested, in GB/s);
+9. spill: SSB Q1.1 at SF 10 under a 256 MiB device budget (one lineorder
+   column stays on the card, three go to host DRAM) in batch and stream
+   mode, and with a 512 MiB host budget as well (one column goes to
+   disk), each equal to the numpy oracle and the unspilled run; the
+   promoted bytes over the measured time beside the calibrated
+   ``h2d_gbps``.  The GLM search of phase 6 also trains under a 64 MiB
+   device budget, and its weights must equal the resident run's bit for
+   bit.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -46,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +77,8 @@ TPCH_LINEITEM_ROWS = 6_001_215   # TPC-H scale factor 1
 TPCH_ORDERS_ROWS = 1_500_000
 MNIST_ROWS, MNIST_FEATURES = 60_000, 784   # MNIST's training set
 GLM_JOBS, GLM_EPOCHS, GLM_MINIBATCH = 8, 5, 16
+STREAM_ROWS = 1 << 28            # 1 GiB of int32: far past the 50 MB L2
+MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
 # contracts multiply-adds into FMAs: weights agree within this, not bitwise
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -323,12 +342,19 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
     err = max(err, check("probe_counts", tpch_kernel, tpch_plain))
     tpch_bound = n_passes * (4 * cap + 12 * okeys.shape[0]) \
         / HBM_BYTES_PER_S * 1e3
+
+    def tpch_library():
+        for b in blocks:
+            torch.searchsorted(b, okeys, side="left")
+            torch.searchsorted(b, okeys, side="right")
+
     log(f"  probe_counts  {n_passes} TPC-H pass blocks of ({cap},) with "
         f"{n_passes * cap - build.shape[0]} negative pads, keys="
         f"({okeys.shape[0]},): kernel {time_ms(tpch_kernel, reps=5):.4f} ms,"
         f" bound {tpch_bound:.4f} ms, plain "
-        f"{time_ms(tpch_plain, reps=5):.4f} ms for all passes, "
-        "bit-identical")
+        f"{time_ms(tpch_plain, reps=5):.4f} ms, library "
+        f"{time_ms(tpch_library, reps=5):.4f} ms (two torch.searchsorted a "
+        "block) for all passes, bit-identical")
 
     def library_b2():
         torch.searchsorted(s_sorted, orderdate, side="left")
@@ -422,21 +448,32 @@ def _run_modes(ex, q, modes, check, counts_by_mode, reps=11, **kw):
         first = time.perf_counter() - t0
         counts_by_mode[mode] = dict(_build.LAUNCHES)
         said = check(mode, res.value)
-        warm = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            value = run().value
-            torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
-            check(f"{mode} (warm)", value)
-        warm.sort()
+        warm = warm_runs(run, lambda v: check(f"{mode} (warm)", v), reps)
         times[mode] = (first, warm, res.value)
-        log(f"  {mode:6s}: {said}; first run "
-            f"{first * 1e3:.3f} ms, warm median {warm[len(warm) // 2] * 1e3:.3f}"
-            f" ms [min {warm[0] * 1e3:.3f}, max {warm[-1] * 1e3:.3f}] over "
-            f"{reps} runs; launches {counts_by_mode[mode]}")
+        log(f"  {mode:6s}: {said}; first run {first * 1e3:.3f} ms, "
+            f"{spread(warm)}; launches {counts_by_mode[mode]}")
         log("    " + profile_once(run))
     return times
+
+
+def warm_runs(run, check, reps=11):
+    """Sorted seconds of ``reps`` runs of ``run`` (host clock around work
+    that ends in a synchronize), each result's value checked."""
+    import torch
+    warm = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        value = run().value
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(value)
+    return sorted(warm)
+
+
+def spread(warm) -> str:
+    return (f"warm median {warm[len(warm) // 2] * 1e3:.3f} ms [min "
+            f"{warm[0] * 1e3:.3f}, max {warm[-1] * 1e3:.3f}] over "
+            f"{len(warm)} runs")
 
 
 def profile_once(run, top: int = 5) -> str:
@@ -588,6 +625,39 @@ def phase_glm(dev, seed):
             raise AssertionError(f"{mode} weights differ from eager's")
     log(f"  batch, stream ({-(-MNIST_ROWS // 16_384)} morsels) and eager "
         "weights are bit-identical")
+
+    # the same search under a 64 MiB device budget: the columns that do
+    # not fit go to host DRAM and every epoch streams them back
+    from repro_torch.kernels import _build
+    from repro_torch.query import TierBudgets
+    spilled = Executor(catalog_from_arrays(tables, dev), dev,
+                       tier_budgets=TierBudgets(device=64 * MIB))
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = spilled.execute(q).value
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts["spilled batch"] = dict(_build.LAUNCHES)
+    check("spilled batch", value)
+    if not torch.equal(value[0], weights["eager"]):
+        raise AssertionError("spilled weights differ from the resident run's")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        spilled.execute(q)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    warm.sort()
+    by_tier = {}
+    for tier in spilled.last_spill.tiers.values():
+        by_tier[tier] = by_tier.get(tier, 0) + 1
+    log(f"  spilled (64 MiB device budget): columns by tier {by_tier}; "
+        f"weights bit-identical to the resident run's; first run "
+        f"{first * 1e3:.3f} ms, warm median {warm[1] * 1e3:.3f} ms [min "
+        f"{warm[0] * 1e3:.3f}, max {warm[-1] * 1e3:.3f}] over 3 runs; "
+        f"launches {counts['spilled batch']}")
+    del spilled
     for mode, c in counts.items():
         if c["sgd"] <= 0:
             raise AssertionError(f"{mode} launched no sgd kernel")
@@ -744,6 +814,165 @@ def phase_multi_join(dev, tables):
     return counts, row
 
 
+def phase_calibrate(dev, ssb_tables, spill_dir):
+    """B6 against its plain version, timed; the calibration written, read
+    back and applied with ``recost``; the Fig. 2 analogue.  Returns (launch
+    counts of the calibration run, the kernel's row, the calibration)."""
+    import torch
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.core import bandwidth, channels
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bandwidth import ref as bw_ref
+    from repro_torch.kernels.bandwidth import stream
+    from repro_torch.query import Executor, Q, load_calibration
+    from repro_torch.query.calibrate import calibrate
+
+    r = np.random.default_rng(8)
+    x = torch.from_numpy(r.integers(-2 ** 31, 2 ** 31, STREAM_ROWS,
+                                    dtype=np.int64).astype(np.int32)).to(dev)
+    x[0] = 2 ** 31 - 1
+    ragged = x[:(1 << 20) + 3]
+    cases = {"1 GiB int32": x, "ragged (1 << 20) + 3": ragged,
+             "misaligned x[1:]": ragged[1:],
+             "2**31 - 1": torch.full((1027,), 2 ** 31 - 1, dtype=torch.int32,
+                                     device=dev),
+             "float32": torch.from_numpy(r.standard_normal((1 << 20) + 5)
+                                         .astype(np.float32)).to(dev)[1:]}
+    for name, t in cases.items():
+        got, want = stream.stream_copy(t), bw_ref.stream_copy_ref(t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"stream_copy ({name}): kernel differs "
+                                 "from its plain version")
+    if int(stream.stream_copy(cases["2**31 - 1"])[0]) != -2 ** 31:
+        raise AssertionError("stream_copy: 2**31 - 1 did not wrap")
+    log(f"calibrate: stream_copy bit-identical to its plain version on "
+        f"{', '.join(cases)}")
+    row = dict(
+        name="stream_copy", route="cuda",
+        source="src/repro_torch/kernels/csrc/bandwidth.cu",
+        replaces="src/repro/core/bandwidth.py:27", max_abs_err=0.0,
+        ms=time_ms(lambda: stream.stream_copy(x), reps=10),
+        plain_ms=time_ms(lambda: bw_ref.stream_copy_ref(x), reps=10),
+        library_ms=time_ms(lambda: torch.add(x, 1), reps=10),
+        bytes=2 * 4 * STREAM_ROWS,
+        shape=f"x=({STREAM_ROWS},) int32")
+    finish_row(row)
+
+    # the calibration run: the slice's path through the kernel
+    path = os.path.join(spill_dir, "BENCH_calibration_torch.json")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = calibrate(path)
+    torch.cuda.synchronize()
+    counts = {"calibrate": dict(_build.LAUNCHES)}
+    if counts["calibrate"]["stream_copy"] <= 0:
+        raise AssertionError("calibrate() launched no stream_copy kernel")
+    cal = load_calibration(path)
+    if cal != report or set(cal["backends"]) != {"torch", "cuda"} \
+            or not cal["h2d_gbps"] > 0:
+        raise AssertionError(f"the calibration file does not read back: "
+                             f"{cal}")
+    log(f"  calibrate() in {time.perf_counter() - t0:.2f} s: "
+        + "; ".join(f"{impl} {b['achieved_gbps']:.1f} GB/s "
+                    f"(stream_eff {b['stream_eff']:.4f}, call overhead "
+                    f"{b['call_overhead_s'] * 1e6:.2f} us)"
+                    for impl, b in cal["backends"].items())
+        + f"; h2d {cal['h2d_gbps']:.2f} GB/s from pinned memory; "
+        f"launches {counts['calibrate']}")
+
+    # recost an executor over SSB SF 10 with it
+    ex = Executor(catalog_from_arrays(ssb_tables, dev), dev)
+    q = ssb_query(Q)
+
+    def morsel_rows():
+        return ex.plan(q.node)[1].morsel_rows
+
+    before = morsel_rows()
+    epoch = ex.recost(cal)
+    after, plan = morsel_rows(), ex.explain(q)
+    if epoch != 1 or ex.cost_model.calibrated_from != "cuda":
+        raise AssertionError(f"recost: epoch {epoch}, calibrated from "
+                             f"{ex.cost_model.calibrated_from}")
+    ex.recost(cal)
+    if ex.cost_epoch != 2 or ex.explain(q) != plan:
+        raise AssertionError("a second recost with the same calibration "
+                             "changed a price")
+    log(f"  recost: epoch 0 -> 1 -> 2, the second changes no price; SSB "
+        f"stream plan morsel_rows {before} (placeholders) -> {after} "
+        "(calibrated)")
+    del ex
+
+    # the Fig. 2 analogue: one generator per engine, partitioned vs
+    # congested (each engine streams its own slice either way on one card)
+    fig2 = []
+    for n_eng in (1, 4, 16):
+        for placement in ("partitioned", "congested"):
+            plan_ = channels.plan(placement, n_eng, dev)
+            gbps = bandwidth.measure_gbps(
+                lambda t: bandwidth.stream_copy_distributed(t, plan_), x)
+            fig2.append(f"{n_eng} {placement} {gbps:.1f}")
+    log("  fig2 analogue (engines, placement, GB/s): " + "; ".join(fig2))
+    return counts, row, cal
+
+
+def phase_spill(dev, ssb_tables, cal, spill_dir):
+    """SSB Q1.1 at SF 10 under device (and host) budgets: host spill in
+    batch and stream, host and disk spill in batch, each against the
+    oracle.  Returns launch counts by run."""
+    import torch
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.query import Executor, Q, TierBudgets
+
+    want = ssb_oracle(ssb_tables)
+    q = ssb_query(Q)
+    counts = {}
+    cases = (("host", TierBudgets(device=256 * MIB), ("batch", "stream")),
+             ("host+disk", TierBudgets(device=256 * MIB, host=512 * MIB),
+              ("batch",)))
+    for name, budgets, modes in cases:
+        ex = Executor(catalog_from_arrays(ssb_tables, dev), dev,
+                      tier_budgets=budgets)
+        ex._spill_dir = spill_dir
+        ex.recost(cal)
+        by_mode = {}
+        times = _run_modes(ex, q, modes, equals(want), by_mode)
+        spill = ex.last_spill
+        tiers = {c: t for (_, c), t in spill.tiers.items()}
+        lo = ex.catalog.tables["lineorder"]
+        if any(lo.column_tier(c) != t for c, t in tiers.items()):
+            raise AssertionError(f"{name}: catalog tiers differ from the "
+                                 f"spill plan {tiers}")
+        promoted = sum(n for t, n in spill.bytes_by_tier.items()
+                       if t != "device")
+        for mode, (first, warm, value) in times.items():
+            med = warm[len(warm) // 2]
+            log(f"spill {name} {mode}: tiers {tiers}; {promoted} bytes "
+                f"promoted a run over {med * 1e3:.3f} ms (median of "
+                f"{len(warm)}) = {promoted / med / 1e9:.2f} GB/s against "
+                f"the calibrated h2d {ex.cost_model.h2d_gbps:.2f} GB/s; "
+                f"priced promotion {spill.promote_s_per_exec * 1e3:.3f} ms")
+            counts[f"{name} {mode}"] = by_mode[mode]
+            if by_mode[mode]["probe_counts"] <= 0:
+                raise AssertionError(f"spill {name} {mode} launched no "
+                                     "probe_counts kernel")
+        if name == "host":
+            ex.overlap_transfers = False
+            same = equals(want)
+            warm = warm_runs(lambda: ex.execute(q),
+                             lambda v: same("batch, one thread", v))
+            log(f"spill host batch without the prefetch thread: "
+                f"{spread(warm)}")
+        expect = ["device", "host", "host", "host"] if name == "host" \
+            else ["device", "disk", "host", "host"]
+        if sorted(tiers.values()) != expect:
+            raise AssertionError(f"{name}: tiers {tiers}, expected {expect}")
+        del ex, lo
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -776,25 +1005,30 @@ def main(argv=None) -> int:
     log("kernels against their plain versions:")
     rows = phase_kernels(dev, ssb, tpch)
     ssb_counts = phase_ssb(dev, ssb)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as spill_dir:
+        cal_counts, copy_row, cal = phase_calibrate(dev, ssb, spill_dir)
+        spill_counts = phase_spill(dev, ssb, cal, spill_dir)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_row = phase_glm(dev, args.seed)
     multi_counts, multi_row = phase_multi_join(dev, tpch)
-    rows += [multi_row, sgd_row]
+    rows += [multi_row, sgd_row, copy_row]
 
     key = {"select_range": "select", "probe_counts": "probe_counts",
            "hash_probe": "probe", "probe_multi": "probe_multi",
-           "sgd": "sgd"}
+           "sgd": "sgd", "stream_copy": "stream_copy"}
     for row in rows:
         row["launches"] = sum(c[key[row["name"]]]
                               for counts in (ssb_counts, tpch_counts,
-                                             glm_counts, multi_counts)
+                                             glm_counts, multi_counts,
+                                             cal_counts, spill_counts)
                               for c in counts.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  "path")
         row.pop("shape")
-    log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}")
+    log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
+        f"calibrate launches: {cal_counts}; spill launches: {spill_counts}")
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import tempfile
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +83,13 @@ class Column:
     def dtype(self):
         return self.data.dtype
 
+    @property
+    def nbytes(self) -> int:
+        d = self.data
+        if isinstance(d, torch.Tensor):
+            return d.numel() * d.element_size()
+        return int(d.nbytes)
+
     def __len__(self):
         return int(self.data.shape[0])
 
@@ -133,10 +141,15 @@ class Table:
                       spill_dir: Optional[str] = None) -> "Table":
         """Push one column down to ``tier``: "host" keeps a numpy copy,
         "disk" writes an .npy under ``spill_dir`` and re-opens it as a
-        read-only memmap."""
+        read-only memmap; "device" promotes.  Values never change, so the
+        table's version does not move.  Every disk demotion writes a file
+        of its own: a name made only of table, column and version would
+        hand a later table of the same name the earlier one's data."""
         col = self.columns[name]
         if col.tier == tier:
             return self
+        if tier == "device":
+            return self.promote_column(name)
         host = col.data.cpu().numpy() if isinstance(col.data, torch.Tensor) \
             else np.asarray(col.data)
         if tier == "host":
@@ -145,10 +158,11 @@ class Table:
             if not spill_dir:
                 raise ValueError("disk demotion needs a spill directory")
             os.makedirs(spill_dir, exist_ok=True)
-            path = os.path.join(spill_dir,
-                                f"{self.name}__{name}__v{self.version}.npy")
-            if not os.path.exists(path):
-                np.save(path, host)
+            fd, path = tempfile.mkstemp(
+                suffix=".npy", dir=spill_dir,
+                prefix=f"{self.name}__{name}__v{self.version}__")
+            os.close(fd)
+            np.save(path, host)
             self.columns[name] = Column(np.load(path, mmap_mode="r"),
                                         name, "disk")
         else:

@@ -73,7 +73,10 @@ class ChannelPlan:
         (``device.resolve(None)``), never quietly to the CPU."""
         if isinstance(x, torch.Tensor):
             return x.to(self.device) if self.device is not None else x
-        return torch.as_tensor(x).to(resolve(self.device))
+        # a disk column's read-only memmap slice is copied (read) here:
+        # torch wraps only writable memory
+        x = np.require(x, requirements=("C", "W"))
+        return torch.from_numpy(x).to(resolve(self.device))
 
     def align_morsel_rows(self, rows: int) -> int:
         """Round a morsel row count up to a multiple of the engine count so

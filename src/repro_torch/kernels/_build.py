@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selection", "join", "sgd")
+SOURCES = ("selection", "join", "sgd", "bandwidth")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 SIGNATURES = {
@@ -49,13 +49,17 @@ SIGNATURES = {
                         _I32, _P, _P)),
     # device, out (int32*)
     "sgd_max_shared_bytes": ("sgd", (_I32, ctypes.POINTER(_I32))),
+    # x, o, n, grid, stream
+    "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _P)),
+    "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _P)),
 }
 
 # Kernel launches per wrapper, bumped only where a wrapper launches its
 # kernel (never on the plain CPU path).  ``chip_smoke.py`` zeroes these
 # before driving the executor and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
-                            "probe_multi": 0, "probe": 0, "sgd": 0}
+                            "probe_multi": 0, "probe": 0, "sgd": 0,
+                            "stream_copy": 0}
 
 _lock = threading.Lock()
 _funcs: Dict[str, object] = {}

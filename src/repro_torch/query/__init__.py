@@ -15,14 +15,21 @@ from repro_torch.query.logical import (                          # noqa: F401
     signature, tables_of, walk,
 )
 from repro_torch.query.cost import (                             # noqa: F401
-    ColumnStats, CostModel, PhysNode, TableStats, column_placements,
-    estimate_rows, join_orientation_cost, key_is_unique, plan_physical,
+    TIERS, ColumnStats, CostModel, PhysNode, TableStats, column_placements,
+    estimate_rows, join_orientation_cost, key_is_unique, load_calibration,
+    plan_physical,
 )
 from repro_torch.query.optimize import (                         # noqa: F401
     choose_build_side, fuse_filter_project, optimize, prune_columns,
     push_down_filters,
 )
 from repro_torch.query.pipeline import (                         # noqa: F401
-    BreakerSpec, CompiledPipeline, StreamPlan, analyze,
+    BreakerSpec, CompiledPipeline, ProjectStreamPlan, StreamPlan, analyze,
+    analyze_project,
 )
-from repro_torch.query.exec import Catalog, Executor, Result     # noqa: F401
+from repro_torch.query.tiering import (                          # noqa: F401
+    SpillPlan, TierBudgets, plan_spill,
+)
+from repro_torch.query.exec import (                             # noqa: F401
+    Catalog, Executor, PlacementCapacityError, Result,
+)

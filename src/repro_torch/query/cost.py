@@ -1,25 +1,29 @@
 """Bandwidth-aware cost model — the optimizer's pricing of physical
-alternatives, for the nodes of the select -> join -> aggregate path and
-the GLM roots (TrainGLM, ScoreGLM).
+alternatives, for the nodes of the select -> join -> aggregate path, the
+GLM roots (TrainGLM, ScoreGLM) and the memory tiers below the device.
 
 The paper's lesson (Fig. 2/5) is that placement and access pattern decide
 achieved bandwidth.  This module prices each (placement, pass-count)
 alternative of every physical operator so the executor can pick the
-placement per operator.  Which code runs is not priced: the kernel
+placement per operator, and prices moving a column between the device,
+host DRAM and disk so the spill planner (``query/tiering.py``) can place
+an over-budget working set.  Which code runs is not priced: the kernel
 wrappers launch the hand-written kernels on a CUDA device and their plain
 versions on the CPU, so the model only carries that choice as the label
-``impl`` (``cuda`` or ``torch``) that ``explain`` shows.
+``impl`` (``cuda`` or ``torch``) that ``explain`` shows; the label picks
+which calibrated efficiency and call overhead price the plan.
 
-The bandwidth and the float32 rate default to NVIDIA's data-sheet
-figures for the H100 (``channels.H100_HBM_GBPS``, ``H100_FP32_FLOPS``),
-and the efficiency and per-call overhead are placeholders: all of them
-wait for the port's calibration on the card.
-Unlike the reference, the port reads no calibration file.
+The bandwidth and the float32 rate are NVIDIA's data-sheet figures for
+the H100 (``channels.H100_HBM_GBPS``, ``H100_FP32_FLOPS``).  Every other
+constant below is a placeholder until a calibration measured on the card
+(``query/calibrate.py``, ``BENCH_calibration_torch.json``) overlays it.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 from repro_torch.core.channels import H100_FP32_FLOPS, H100_HBM_GBPS
@@ -28,16 +32,58 @@ from repro_torch.query import logical as L
 
 BYTES_PER_VALUE = 4                 # int32/float32 columns
 
-# streaming efficiency and fixed per-call overhead (sec): the reference's
-# defaults for its plain path, placeholders until calibrated on the card
+# streaming efficiency and fixed per-call overhead (sec) of each impl:
+# placeholders until calibrated on the card
+IMPLS = ("torch", "cuda")
 STREAM_EFF = 0.70
 CALL_OVERHEAD_S = 2e-6
 
 # host -> device staging for per-morsel transfers: PCIe Gen5 x16, one
-# direction, data-sheet figure
+# direction, data-sheet figure (placeholder until calibrated)
 H2D_GBPS = 64.0
-# fixed cost of dispatching one morsel's staging transfer
+# fixed cost of dispatching one morsel's staging transfer (placeholder)
 STAGE_OVERHEAD_S = 1.2e-4
+
+# memory-hierarchy tiers below the device (the paper's HBM <-> DDR4
+# hierarchy, one rung further to disk), all placeholders: device -> host
+# over the same PCIe Gen5 link, one DDR5-4800 channel, and an NVMe PCIe
+# Gen4 x4 drive's sequential read; each is a calibration key
+D2H_GBPS = 64.0
+HOST_DRAM_GBPS = 38.4
+DISK_GBPS = 7.0
+
+# tier order, top (fastest, smallest) to bottom: the spill planner fills
+# in this order
+TIERS = ("device", "host", "disk")
+
+# the port's own calibration file and override, never the reference's
+# BENCH_calibration.json / REPRO_CALIBRATION
+CALIBRATION_FILE = "BENCH_calibration_torch.json"
+CALIBRATION_ENV = "REPRO_TORCH_CALIBRATION"
+# the calibration file's channel keys, beside its per-impl "backends"
+CHANNEL_KEYS = ("h2d_gbps", "d2h_gbps", "host_gbps", "disk_gbps",
+                 "stage_overhead_s")
+
+
+def load_calibration(path: Optional[str] = None) -> Optional[dict]:
+    """The card's measured per-impl stream efficiencies, call overheads
+    and tier channels, as ``query/calibrate.py`` writes them.  Returns
+    None (the placeholders apply) when the file is absent or unreadable:
+    calibration is an overlay, never a requirement.  ``path=None`` reads
+    ``BENCH_calibration_torch.json`` in the working directory unless
+    ``REPRO_TORCH_CALIBRATION`` names another file, or is ``off``/``0``/
+    ``none`` to disable the overlay."""
+    if path is None:
+        env = os.environ.get(CALIBRATION_ENV, "")
+        if env.lower() in ("off", "0", "none"):
+            return None
+        path = env or os.path.join(os.getcwd(), CALIBRATION_FILE)
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return data if isinstance(data, dict) and "backends" in data else None
 
 
 # --------------------------------------------------------------------------- #
@@ -142,28 +188,87 @@ def expected_chain_length(node: L.Node, column: str,
 class CostModel:
     """Prices one physical operator alternative at a time on one card
     split into ``n_engines`` contiguous shards.  ``impl`` labels the code
-    the device runs: ``cuda`` (the kernels) or ``torch`` (plain versions)."""
+    the device runs: ``cuda`` (the kernels) or ``torch`` (plain versions).
+    ``calibration`` overlays measured constants (``load_calibration``)."""
 
-    def __init__(self, n_engines: int = 1, *, impl: str = "torch"):
-        if impl not in ("torch", "cuda"):
+    def __init__(self, n_engines: int = 1, *, impl: str = "torch",
+                 calibration: Optional[dict] = None):
+        if impl not in IMPLS:
             raise ValueError(f"impl must be 'torch' or 'cuda', got {impl!r}")
         self.n_engines = int(n_engines)
         self.impl = impl
+        self.stream_eff = {i: STREAM_EFF for i in IMPLS}
+        self.call_overhead = {i: CALL_OVERHEAD_S for i in IMPLS}
+        self.h2d_gbps = H2D_GBPS
+        self.stage_overhead_s = STAGE_OVERHEAD_S
+        self.d2h_gbps = D2H_GBPS
+        self.host_gbps = HOST_DRAM_GBPS
+        self.disk_gbps = DISK_GBPS
+        # the pristine constants: every overlay re-baselines against
+        # these, so applying one twice can never compound
+        self._baseline = {"stream_eff": dict(self.stream_eff),
+                          "call_overhead": dict(self.call_overhead),
+                          **{k: getattr(self, k) for k in CHANNEL_KEYS}}
+        self.calibrated_from: Optional[str] = None
+        self.n_calibrations = 0
+        if calibration:
+            self.apply_calibration(calibration)
+
+    def apply_calibration(self, calibration: dict) -> None:
+        """Overlay measured numbers on the pristine constants.  Idempotent:
+        every constant resets to its baseline before the overlay lands,
+        so an overlay describes an absolute state, and an impl (or
+        channel) the overlay does not mention returns to its placeholder.
+        Efficiencies are clamped to (0, 1]."""
+        self.stream_eff = dict(self._baseline["stream_eff"])
+        self.call_overhead = dict(self._baseline["call_overhead"])
+        for key in CHANNEL_KEYS:
+            setattr(self, key, self._baseline[key])
+        for impl, meas in calibration.get("backends", {}).items():
+            if impl not in self.stream_eff:
+                continue
+            eff = meas.get("stream_eff")
+            if eff and eff > 0:
+                self.stream_eff[impl] = min(float(eff), 1.0)
+            over = meas.get("call_overhead_s")
+            if over and over > 0:
+                self.call_overhead[impl] = float(over)
+        for key in CHANNEL_KEYS:
+            v = calibration.get(key)
+            if v and v > 0:
+                setattr(self, key, float(v))
+        self.calibrated_from = calibration.get("backend", "measured")
+        self.n_calibrations += 1
+
+    def calibration_snapshot(self) -> dict:
+        """The model's current constants in the calibration file's shape."""
+        snap = {"backend": self.calibrated_from or "placeholder",
+                "backends": {impl: {"stream_eff": self.stream_eff[impl],
+                                    "call_overhead_s":
+                                        self.call_overhead[impl]}
+                             for impl in IMPLS}}
+        for key in CHANNEL_KEYS:
+            snap[key] = getattr(self, key)
+        return snap
 
     def bandwidth_gbps(self, placement: str) -> float:
         """Every engine streams the same HBM, so all placements price at
-        the card's rate."""
-        del placement
+        the card's rate; a column on a lower tier ("host", "disk")
+        streams at that tier's channel."""
+        if placement == "host":
+            return self.host_gbps
+        if placement == "disk":
+            return self.disk_gbps
         return H100_HBM_GBPS
 
     def stream_cost(self, n_bytes: float, *, placement: str,
                     n_passes: int = 1, flops: float = 0.0) -> float:
         """Seconds to stream ``n_bytes`` under ``placement``, roofline-
         combined with any compute the operator does."""
-        bw = self.bandwidth_gbps(placement) * 1e9 * STREAM_EFF
+        bw = self.bandwidth_gbps(placement) * 1e9 * self.stream_eff[self.impl]
         t_mem = n_passes * n_bytes / bw
         return max(t_mem, flops / H100_FP32_FLOPS) \
-            + n_passes * CALL_OVERHEAD_S
+            + n_passes * self.call_overhead[self.impl]
 
     def broadcast_cost(self, n_bytes: float) -> float:
         """Replicating a build side to every engine: n-1 extra copies
@@ -173,19 +278,59 @@ class CostModel:
         return n_bytes * (self.n_engines - 1) \
             / (self.bandwidth_gbps("replicated") * 1e9)
 
+    # -- tier pricing (device <-> host <-> disk) ---------------------------- #
+
+    def cache_score(self, recompute_s: float, n_bytes: int,
+                    hits: int = 0) -> float:
+        """Seconds of recompute avoided per resident byte, scaled by
+        observed reuse."""
+        return max(recompute_s, 0.0) * (1.0 + hits) \
+            / max(float(n_bytes), 1.0)
+
+    def promotion_cost(self, n_bytes: float, src_tier: str) -> float:
+        """Seconds to move ``n_bytes`` from ``src_tier`` onto the device:
+        host pays the staging link, disk the sequential read and the
+        staging link (serial within one morsel's fetch)."""
+        if src_tier == "device":
+            return 0.0
+        t = n_bytes / (self.h2d_gbps * 1e9)
+        if src_tier == "disk":
+            t += n_bytes / (self.disk_gbps * 1e9)
+        return t
+
+    def demotion_cost(self, n_bytes: float, dst_tier: str) -> float:
+        """Seconds to push ``n_bytes`` down to ``dst_tier`` (the device ->
+        host copy, plus the disk write when demoting to disk)."""
+        if dst_tier == "device":
+            return 0.0
+        t = n_bytes / (self.d2h_gbps * 1e9)
+        if dst_tier == "disk":
+            t += n_bytes / (self.disk_gbps * 1e9)
+        return t
+
+    def tier_score(self, recompute_s: float, n_bytes: int,
+                   hits: int = 0, tier: str = "device") -> float:
+        """``cache_score`` net of the promotion a hit on ``tier`` pays to
+        come back up, floored at zero."""
+        net = max(recompute_s, 0.0) - self.promotion_cost(
+            float(max(n_bytes, 1)), tier)
+        return max(net, 0.0) * (1.0 + hits) / max(float(n_bytes), 1.0)
+
     # -- morsel pricing (streaming pipeline) -------------------------------- #
 
     def morsel_cost(self, total_rows: float, morsel_rows: int, n_cols: int,
                     *, flops_per_row: float = 0.0,
-                    include_transfer: bool = True) -> float:
+                    include_transfer: bool = True,
+                    src_tier: str = "host") -> float:
         """Seconds to stream ``total_rows`` in double-buffered morsels: the
-        next morsel's host->device copy overlaps the current morsel's
-        compute, so steady state pays max(transfer, compute) per morsel.
+        next morsel's promotion from ``src_tier`` (``promotion_cost`` plus
+        the fixed staging overhead) overlaps the current morsel's compute,
+        so steady state pays max(transfer, compute) per morsel.
         ``include_transfer=False`` prices device-resident sources."""
         n_morsels = max(-(-int(total_rows) // int(morsel_rows)), 1)
         m_bytes = morsel_rows * BYTES_PER_VALUE * n_cols
-        t_x = (m_bytes / (H2D_GBPS * 1e9) + STAGE_OVERHEAD_S) \
-            if include_transfer else 0.0
+        t_x = (self.promotion_cost(m_bytes, src_tier)
+               + self.stage_overhead_s) if include_transfer else 0.0
         t_c = self.stream_cost(m_bytes, placement="partitioned",
                                flops=flops_per_row * morsel_rows)
         return n_morsels * max(t_x, t_c) + min(t_x, t_c)
@@ -193,7 +338,8 @@ class CostModel:
     def choose_morsel_rows(self, total_rows: float, n_cols: int, *,
                            align: Optional[int] = None,
                            flops_per_row: float = 0.0,
-                           include_transfer: bool = True) -> int:
+                           include_transfer: bool = True,
+                           src_tier: str = "host") -> int:
         """argmin of ``morsel_cost`` over power-of-two candidates (and the
         whole input), aligned to the engine count."""
         align = align or self.n_engines
@@ -208,7 +354,8 @@ class CostModel:
         for rows in candidates:
             c = self.morsel_cost(total, rows, n_cols,
                                  flops_per_row=flops_per_row,
-                                 include_transfer=include_transfer)
+                                 include_transfer=include_transfer,
+                                 src_tier=src_tier)
             if c < best_cost:
                 best_rows, best_cost = rows, c
         return best_rows

@@ -23,15 +23,25 @@ for bit; both train through the SGD kernel on the card.  ScoreGLM roots
 score with a model trained fresh through ``execute`` (the port has no
 semantic cache yet, so no model is ever served warm).
 
+A working set over the device budget (``placement_capacity_bytes`` or
+``tier_budgets``, or the reference's ``REPRO_PLACEMENT_CAP`` /
+``REPRO_HOST_CAP`` / ``REPRO_DISK_CAP`` environment) gets a spill plan
+(``query/tiering.py``): its stream columns are demoted to host DRAM and
+disk, priced by the cost model's tier channels, and batch-mode aggregate,
+project and training plans stream them back morsel by morsel, bit-
+identical to the unspilled run.  ``recost`` applies a calibration
+measured on the card.
+
 The executor runs on the CUDA card unless constructed with a ``device``;
 the kernels run exactly when that device is CUDA, because every kernel
 wrapper launches on CUDA tensors and takes its plain version on CPU ones.
-The semantic cache, memory-tier spilling, sharding and telemetry are not
-ported yet.
+The semantic cache, sharding and telemetry are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, Optional, Tuple
 
@@ -45,12 +55,25 @@ from repro_torch.device import DeviceLike, resolve
 from repro_torch.query import logical as L
 from repro_torch.query import pipeline as pl
 from repro_torch.query.cost import (
-    ColumnStats, CostModel, PhysNode, TableStats, column_placements,
-    key_is_unique, plan_physical,
+    BYTES_PER_VALUE, TIERS, ColumnStats, CostModel, PhysNode, TableStats,
+    column_placements, key_is_unique, load_calibration, plan_physical,
 )
 from repro_torch.query.optimize import optimize
+from repro_torch.query.tiering import (
+    SpillPlan, TierBudgets, default_spill_dir, plan_spill,
+)
 
 MODES = ("batch", "stream", "eager")
+
+
+class PlacementCapacityError(RuntimeError):
+    """A placement exceeds the configured device budget (the paper's
+    256 MiB pseudo-channel budget).  Optimized plans with a streamable
+    spine do not fail here — the executor spills them to host and disk —
+    so this survives only where spilling cannot help: the naive oracle
+    and forced-eager paths under an explicit capacity, a single explicit
+    morsel larger than the budget, and working sets that overflow even
+    the disk tier."""
 
 
 class Catalog:
@@ -138,11 +161,37 @@ class Executor:
 
     def __init__(self, catalog: Catalog, device: DeviceLike = None, *,
                  n_engines: int = 1,
-                 cost_model: Optional[CostModel] = None):
+                 cost_model: Optional[CostModel] = None,
+                 placement_capacity_bytes: Optional[int] = None,
+                 tier_budgets: Optional[TierBudgets] = None,
+                 overlap_transfers: Optional[bool] = None):
         self.catalog = catalog
         self.device = resolve(device)
+        # the default model overlays the card's calibration when
+        # BENCH_calibration_torch.json is in the working directory
         self.cost_model = cost_model or CostModel(
-            n_engines, impl="cuda" if self.device.type == "cuda" else "torch")
+            n_engines, impl="cuda" if self.device.type == "cuda" else "torch",
+            calibration=load_calibration())
+        # bumped by every recost(); part of every compiled-pipeline key
+        self.cost_epoch = 0
+        # tier budgets: the device budget routes over-budget plans onto a
+        # spill plan.  The hard gates (placed(), one explicit morsel) hold
+        # only for an explicit capacity; a budget from the environment
+        # only spills
+        self._cap_explicit = placement_capacity_bytes is not None \
+            or (tier_budgets is not None and tier_budgets.device is not None)
+        self.tier_budgets = tier_budgets if tier_budgets is not None \
+            else TierBudgets.from_env(placement_capacity_bytes)
+        self.placement_capacity_bytes = self.tier_budgets.device
+        self._spill_dir: Optional[str] = None
+        self.last_spill: Optional[SpillPlan] = None
+        # a thread stages the next host or disk morsel while the current
+        # one computes; False (or REPRO_OVERLAP=0) stages on the calling
+        # thread, with bit-identical results
+        if overlap_transfers is None:
+            overlap_transfers = os.environ.get(
+                "REPRO_OVERLAP", "1").lower() not in ("0", "off", "no")
+        self.overlap_transfers = overlap_transfers
         self.plans: Dict[str, ChannelPlan] = {
             p: ChannelPlan(p, int(n_engines), self.device)
             for p in ("partitioned", "replicated", "congested")}
@@ -153,15 +202,55 @@ class Executor:
         self._placed: Dict[tuple, torch.Tensor] = {}
         self._builds: Dict[tuple, tuple] = {}
 
+    # -- re-costing --------------------------------------------------------- #
+
+    def recost(self, calibration: Optional[dict] = None) -> int:
+        """Apply a calibration overlay to the cost model (``None`` re-reads
+        ``BENCH_calibration_torch.json``) and bump the cost epoch: every
+        memoized plan is re-derived, and the epoch in ``_cache_key`` keeps
+        compiled pipelines from crossing the boundary.  Application is
+        idempotent (the model re-baselines), so the same overlay twice
+        changes no price.  Unlike the reference, this folds in no
+        selectivity corrections from a bandwidth ledger: the port has no
+        telemetry yet.  Returns the new epoch."""
+        if calibration is None:
+            calibration = load_calibration()
+        if calibration:
+            self.cost_model.apply_calibration(calibration)
+        self.cost_epoch += 1
+        self._planned.clear()
+        return self.cost_epoch
+
     # -- placement ---------------------------------------------------------- #
 
     def placed(self, table: str, column: str, placement: str
                ) -> torch.Tensor:
         """Column tensor under a placement on this executor's device,
-        cached per table version."""
+        cached per table version.  Under an explicit capacity a column
+        larger than it is refused."""
         t = self.catalog.tables[table]
         key = (table, column, placement, t.version)
         if key not in self._placed:
+            n_bytes = t.columns[column].nbytes
+            cap = self.placement_capacity_bytes if self._cap_explicit \
+                else None
+            if cap is not None and n_bytes > cap:
+                n_eng = self.plans["partitioned"].n_engines
+                suggest = max((int(cap) // (BYTES_PER_VALUE * 3))
+                              // n_eng * n_eng, n_eng)
+                raise PlacementCapacityError(
+                    f"working set over placement budget: column "
+                    f"{table}.{column} ({placement}) is {n_bytes} bytes "
+                    f"against the {int(cap)}-byte placement capacity "
+                    f"({n_bytes / cap:.1f}x over).  Remedy: execute with "
+                    f'mode="stream" and morsel_rows <= capacity // '
+                    f"(4 * n_stream_cols) — e.g. morsel_rows={suggest} "
+                    f"for a 3-column stream — so each morsel fits one "
+                    "placement; or configure host/disk tier budgets "
+                    "(TierBudgets / REPRO_HOST_CAP / REPRO_DISK_CAP) so "
+                    "the spill planner can demote it.  Build/replicated "
+                    "columns and eagerly-lowered plans need every placed "
+                    "column to fit one placement")
             self._placed[key] = self.plans[placement].place(t.column(column))
         return self._placed[key]
 
@@ -194,6 +283,9 @@ class Executor:
             return Result(self._run_eager(node, None), None, False,
                           time.perf_counter() - t0, mode="eager")
         node, phys = self.plan(node)
+        # an over-budget working set is demoted to host/disk by a spill
+        # plan, and a batch plan with a streamable spine streams it back
+        spill = self._maybe_spill(node)
         # TrainGLM roots stream the training set epoch by epoch with the
         # model weights as the only cross-morsel carry — bit-identical to
         # the whole-column eager path, which stays the oracle
@@ -203,10 +295,24 @@ class Executor:
                 value = self._run_train(node, phys, tplan, morsel_rows)
                 return Result(value, phys, False, time.perf_counter() - t0,
                               mode="stream")
+        if mode == "batch" and spill is not None:
+            splan = pl.analyze(node, self.catalog.stats)
+            if splan is not None:
+                value, hit = self._run_stream(node, phys, splan,
+                                              morsel_rows, spill=spill)
+                return Result(value, phys, hit, time.perf_counter() - t0,
+                              mode="stream")
+            pplan = pl.analyze_project(node, self.catalog.stats)
+            if pplan is not None:
+                value = self._run_stream_project(node, phys, pplan,
+                                                 morsel_rows, spill=spill)
+                return Result(value, phys, False, time.perf_counter() - t0,
+                              mode="stream")
         if mode == "stream":
             splan = pl.analyze(node, self.catalog.stats)
             if splan is not None:
-                value, hit = self._run_stream(node, phys, splan, morsel_rows)
+                value, hit = self._run_stream(node, phys, splan, morsel_rows,
+                                              spill=spill)
                 return Result(value, phys, hit, time.perf_counter() - t0,
                               mode="stream")
         if mode == "eager":
@@ -229,7 +335,7 @@ class Executor:
         node = q.node if isinstance(q, L.Q) else q
         return _explain(self.plan(node)[1])
 
-    # -- fused path (single-morsel pipeline) --------------------------------- #
+    # -- fused path (single-morsel pipeline) -------------------------------- #
 
     def _run(self, node: L.Node, phys: PhysNode):
         """Aggregate-rooted pipelines run as one whole-table morsel."""
@@ -251,7 +357,7 @@ class Executor:
         decisions = tuple((p.op, p.placement, p.n_passes)
                           for p in _walk_phys(phys))
         return (L.signature(node), shapes, decisions,
-                self.cost_model.n_engines)
+                self.cost_model.n_engines, self.cost_epoch)
 
     def _pipeline(self, node: L.Node, phys: PhysNode,
                   splan: pl.StreamPlan, *, rows: Optional[int]):
@@ -303,33 +409,202 @@ class Executor:
             flat.extend(self._builds[key])
         return flat
 
-    # -- streaming path (morsel-driven pipeline) ----------------------------- #
+    # -- tiered spill ------------------------------------------------------- #
 
-    def _run_stream(self, node: L.Node, phys: PhysNode,
-                    splan: pl.StreamPlan, morsel_rows: Optional[int]):
-        """Drive the pipeline morsel by morsel (``morsel_rows=None``: the
-        cost model's choice for a device-resident source)."""
-        table = splan.base_scan.table
-        spec = self.morsel_spec(table, morsel_rows,
-                                n_cols=len(splan.stream_cols))
-        cp, _, hit = self._pipeline(node, phys, splan, rows=spec.rows)
-        builds = self._breaker_arrays(splan.breakers)
+    def _maybe_spill(self, node: L.Node) -> Optional[SpillPlan]:
+        """A tier assignment for ``node``'s streamed working set when it
+        (with the build sides it keeps on the device) exceeds the device
+        budget; None when it fits, or there is no budget, or no
+        streamable spine.  The reference spills only when one column is
+        over the budget, so several columns each under it but over it
+        together stay on its device; the port counts them together.
+        Columns the plan sends down are demoted in the catalog (host
+        numpy, disk memmap; values unchanged, so table versions do not
+        move) and their cached device placements dropped.  Raises only
+        when the working set overflows even the disk budget."""
+        self.last_spill = None
+        budget = self.tier_budgets.device
+        if budget is None:
+            return None
+        splan = pl.analyze(node, self.catalog.stats)
+        if splan is None:
+            splan = pl.analyze_project(node, self.catalog.stats)
+        if splan is not None:
+            table, cols = splan.base_scan.table, splan.stream_cols
+            breakers = splan.breakers
+        else:
+            # scan-rooted training sets spill too: epochs stream morsels
+            # straight off the demoted catalog columns.  A filtered train
+            # materializes a compacted (smaller) set first
+            tplan = pl.analyze_train(node, self.catalog.stats)
+            if tplan is None or tplan.filtered:
+                return None
+            table, cols, breakers = (tplan.base_scan.table,
+                                     tplan.stream_cols, ())
+        tab = self.catalog.tables[table]
+        sizes = [((table, c), tab.columns[c].nbytes) for c in cols]
+        # build sides stay on the device: carve them out of its budget
+        reserved = sum(self.catalog.tables[b.table].columns[c].nbytes
+                       for b in breakers for c in (b.on, *b.value_cols))
+        total = sum(n for _, n in sizes)
+        if total + reserved <= budget:
+            return None
+        plan = plan_spill(sizes, self.tier_budgets, self.cost_model,
+                          reserved_device=reserved)
+        if plan.overflow_bytes:
+            raise PlacementCapacityError(
+                f"working set of {total} bytes over table '{table}' "
+                f"overflows the whole tier hierarchy: {plan.describe()} "
+                f"(budgets device={self.tier_budgets.device} "
+                f"host={self.tier_budgets.host} "
+                f"disk={self.tier_budgets.disk}, "
+                f"{plan.overflow_bytes} bytes have no tier).  Raise a "
+                "tier budget or reduce the query's streamed column set")
+        if self._spill_dir is None:
+            self._spill_dir = default_spill_dir()
+        demoted = set()
+        for (t, c), tier in plan.tiers.items():
+            if tier != "device":
+                self.catalog.tables[t].demote_column(c, tier, self._spill_dir)
+                demoted.add((t, c))
+        self._placed = {k: v for k, v in self._placed.items()
+                        if k[:2] not in demoted}
+        self.last_spill = plan
+        return plan
+
+    @staticmethod
+    def _spill_src_tier(spill: Optional[SpillPlan]) -> str:
+        """The slowest tier a spill plan streams from, which prices the
+        per-morsel promotion when the model chooses the granularity."""
+        if spill is None:
+            return "host"
+        worst = max(spill.tiers.values(), key=TIERS.index)
+        return worst if worst != "device" else "host"
+
+    def _clamp_spec(self, spec: MorselSpec, n_cols: int,
+                    cap: int) -> MorselSpec:
+        """Shrink a model-chosen morsel spec until one morsel's bytes fit
+        the device budget, floor-aligned to the engine count."""
+        if spec.rows * BYTES_PER_VALUE * n_cols <= cap:
+            return spec
+        n_eng = self.plans["partitioned"].n_engines
+        rows = max((int(cap) // (BYTES_PER_VALUE * max(n_cols, 1)))
+                   // n_eng * n_eng, n_eng)
+        return MorselSpec(spec.total_rows, rows)
+
+    def _stream_spec(self, table: str, n_cols: int,
+                     target: Optional[int], morsel_rows: Optional[int],
+                     spill: Optional[SpillPlan]) -> MorselSpec:
+        """The morsel spec of a stream over ``table``: ``target`` (or the
+        model's choice), clamped under the device budget when the model
+        chose it.  Under an explicit capacity an explicit ``morsel_rows``
+        whose one morsel is over it is refused."""
+        cap = self.placement_capacity_bytes
+        spec = self.morsel_spec(table, target, n_cols=n_cols,
+                                src_tier=self._spill_src_tier(spill))
+        if cap is None:
+            return spec
+        if morsel_rows is None:
+            return self._clamp_spec(spec, n_cols, cap)
+        m_bytes = spec.rows * BYTES_PER_VALUE * n_cols
+        if self._cap_explicit and m_bytes > cap:
+            fit = self._clamp_spec(spec, n_cols, cap).rows
+            raise PlacementCapacityError(
+                f"one morsel ({spec.rows} rows x {n_cols} cols = {m_bytes} "
+                f"bytes) exceeds the {int(cap)}-byte placement capacity: "
+                f"lower morsel_rows to <= {fit}")
+        return spec
+
+    def _prefetch(self, table: str, cols) -> bool:
+        """Stage morsels on the prefetch thread only when a streamed
+        column lives below the device.  A device-resident morsel is a
+        slice, with no transfer to overlap, and the thread then only
+        contends for the interpreter lock: SSB Q1.1 at SF 10 in stream
+        mode on an H100 took a median 20.2 ms with it and 11.6 ms
+        without."""
+        tab = self.catalog.tables[table]
+        return self.overlap_transfers and any(
+            tab.columns[c].tier != "device" for c in cols)
+
+    def _morsel_getter(self, table: str, spec: MorselSpec, cols):
+        """Morsel ``i`` of ``cols`` as (arrays in ``cols`` order, valid
+        rows); host and disk columns come back as numpy for the morsel
+        loop to stage."""
         tab = self.catalog.tables[table]
 
         def get(i):
-            data, n_valid = tab.morsel(spec, i, cp.stream_cols)
-            return [data[c] for c in cp.stream_cols], n_valid
+            data, n_valid = tab.morsel(spec, i, cols)
+            return [data[c] for c in cols], n_valid
 
-        carry = pl.drive(cp, spec.n_morsels, get, builds,
-                         L.literals(node), self.device)
+        return get
+
+    # -- streaming path (morsel-driven pipeline) ---------------------------- #
+
+    def _run_stream(self, node: L.Node, phys: PhysNode,
+                    splan: pl.StreamPlan, morsel_rows: Optional[int],
+                    spill: Optional[SpillPlan] = None):
+        """Drive the pipeline morsel by morsel.  Without a device budget
+        the granularity is ``morsel_rows`` or the model's choice for a
+        device-resident source; with one, the plan's priced morsel size,
+        clamped under the budget.  Host and disk columns are promoted
+        morsel by morsel through the prefetch thread."""
+        table = splan.base_scan.table
+        n_cols = len(splan.stream_cols)
+        target = morsel_rows or (
+            phys.morsel_rows if phys is not None
+            and self.placement_capacity_bytes is not None else None)
+        spec = self._stream_spec(table, n_cols, target, morsel_rows, spill)
+        cp, _, hit = self._pipeline(node, phys, splan, rows=spec.rows)
+        builds = self._breaker_arrays(splan.breakers)
+        carry = pl.drive(cp, spec.n_morsels,
+                         self._morsel_getter(table, spec, cp.stream_cols),
+                         builds, L.literals(node), self.device,
+                         prefetch=self._prefetch(table, cp.stream_cols))
         return cp.finalize(carry), hit
 
+    def _run_stream_project(self, node: L.Node, phys: Optional[PhysNode],
+                            pplan: pl.ProjectStreamPlan,
+                            morsel_rows: Optional[int],
+                            spill: Optional[SpillPlan] = None) -> Table:
+        """Project-rooted spilled execution: each morsel's survivors are
+        compacted on the device and the chunks concatenated in morsel
+        order (= table order), so the result equals the eager
+        materialization bit for bit."""
+        table = pplan.base_scan.table
+        spec = self._stream_spec(table, len(pplan.stream_cols), morsel_rows,
+                                 morsel_rows, spill)
+        key = ("project",) + self._cache_key(node, phys)
+        if key not in self._compiled:
+            self._compiled[key] = pl.compile_project_pipeline(pplan,
+                                                              self.device)
+        cpj = self._compiled[key]
+        builds = self._breaker_arrays(pplan.breakers)
+        lits = L.literals(node)
+        chunks = {c: [] for c in cpj.out_cols}
+        morsels = pl.staged_morsels(
+            spec.n_morsels, self._morsel_getter(table, spec,
+                                                cpj.stream_cols),
+            self.device, prefetch=self._prefetch(table, cpj.stream_cols))
+        with contextlib.closing(morsels):
+            for arrays, n_valid in morsels:
+                mask, outs = cpj.step(lits, n_valid, *builds, *arrays)
+                for c, a in zip(cpj.out_cols, outs):
+                    chunks[c].append(a[mask])
+        return Table("proj", {c: Column(torch.cat(chunks[c]), c)
+                              for c in cpj.out_cols})
+
     def morsel_spec(self, table: str, target: Optional[int] = None,
-                    n_cols: int = 2) -> MorselSpec:
+                    n_cols: int = 2, src_tier: str = "host") -> MorselSpec:
+        """Morsel granularity for a stream over ``table``: ``target``, or
+        the cost model's choice — priced with the per-morsel promotion
+        from ``src_tier`` under a device budget, as a device-resident
+        source otherwise — aligned by the partitioned plan."""
         total = self.catalog.stats[table].num_rows
         if target is None:
             target = self.cost_model.choose_morsel_rows(
-                total, max(n_cols, 1), include_transfer=False)
+                total, max(n_cols, 1),
+                include_transfer=self.placement_capacity_bytes is not None,
+                src_tier=src_tier)
         return MorselSpec.for_plan(total, target, self.plans["partitioned"])
 
     # -- GLM training (morsel-streamed epochs) ------------------------------ #
@@ -343,14 +618,20 @@ class Executor:
         rows once (the pipeline breaker: streamed compaction would make
         minibatch boundaries data-dependent) and epochs stream off that
         transient table; a bare scan streams straight off the catalog
-        table."""
+        table, tier-aware, so a training set that a spill plan demoted
+        trains out of core, its morsels clamped under the device
+        budget."""
         if tplan.filtered:
             child_phys = phys.children[0] if phys and phys.children \
                 else None
             source = self._run_eager(node.child, child_phys)
         else:
             source = self.catalog.tables[tplan.base_scan.table]
+        cap = self.placement_capacity_bytes
         target = morsel_rows or (phys.morsel_rows if phys else None)
+        if target is not None and morsel_rows is None and cap is not None:
+            target = self._clamp_spec(MorselSpec(source.num_rows, target),
+                                      len(tplan.stream_cols), cap).rows
         cplan = self.plans.get(phys.placement if phys else "partitioned",
                                self.plans["partitioned"])
         return engine.train_glm_stream(

@@ -6,9 +6,11 @@ physical plan into a *pipeline*: the probe spine (scan -> filters -> join
 probes -> aggregate) becomes one per-morsel step function with a small
 carry, and the plan's pipeline breakers — join builds, the final
 aggregate — are the only points where state wider than a morsel exists.
-The driver streams partition-granular morsels (``MorselSpec``) and copies
-host-resident morsels to the card from pinned memory on a side stream,
-so the next morsel's copy overlaps the current morsel's compute.
+The morsel loop streams partition-granular slices (``MorselSpec``); a
+background thread fetches host- and disk-resident morsels and copies them
+to the card from pinned memory on a side stream, so the next morsel's
+transfer overlaps the current morsel's compute.  Project-rooted plans
+compile to a per-morsel step that yields a compacted output chunk.
 
 Layout of a step's arguments::
 
@@ -24,7 +26,10 @@ streamed pair multiset matches the eager pair-list operator exactly.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -132,6 +137,37 @@ def analyze(node: L.Node, stats: Dict[str, TableStats]
 
 
 @dataclasses.dataclass
+class ProjectStreamPlan:
+    """A Project-rooted probe spine: the streamed form materializes one
+    compacted output chunk per morsel instead of folding a carry.  Only
+    unique-keyed build sides qualify — a multi-match join multiplies
+    rows, which a per-row output mask cannot express."""
+    node: L.Node                         # Project | FilterProject root
+    base_scan: L.Scan
+    stream_cols: Tuple[str, ...]
+    breakers: Tuple[BreakerSpec, ...]
+    out_cols: Tuple[str, ...]
+
+
+def analyze_project(node: L.Node, stats: Dict[str, TableStats]
+                    ) -> Optional[ProjectStreamPlan]:
+    """Whether a Project-rooted plan lowers onto a morsel pipeline whose
+    per-morsel product is a compacted chunk of the output table."""
+    if not isinstance(node, (L.Project, L.FilterProject)):
+        return None
+    spine = _analyze_spine(node, stats)
+    if spine is None:
+        return None
+    scan, breakers, _dup, _refs = spine
+    if any(not b.unique for b in breakers):
+        return None
+    stream_cols = scan.columns if scan.columns is not None \
+        else tuple(stats[scan.table].columns)
+    return ProjectStreamPlan(node, scan, tuple(stream_cols), breakers,
+                             tuple(node.columns))
+
+
+@dataclasses.dataclass
 class TrainStreamPlan:
     """A TrainGLM-rooted pipeline: every epoch streams the training set
     morsel by morsel with the K model weight vectors as the carry
@@ -139,7 +175,9 @@ class TrainStreamPlan:
     morsel).  ``filtered`` plans materialize the selected rows once (a
     pipeline breaker: streaming compaction would make the minibatch
     boundaries data-dependent) and stream the epochs over the
-    materialized set; bare scans stream straight off the catalog table."""
+    materialized set; bare scans stream straight off the catalog table,
+    tier-aware: host and disk columns are staged per morsel, which is what
+    lets an over-budget training set train under a spill plan."""
     node: L.TrainGLM
     base_scan: L.Scan
     stream_cols: Tuple[str, ...]      # features + label on the base table
@@ -181,14 +219,69 @@ class CompiledPipeline:
     finalize: Callable[[object], object]
 
 
-def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
-                     device: torch.device) -> CompiledPipeline:
-    """Lower a streamable plan into one per-morsel step.
+def _eval_spine(root: L.Node, stream_cols, morsel, valid, lits,
+                breakers, build_flat):
+    """Evaluate a probe spine over one morsel.  Returns (cols, mask,
+    weight, buckets): per-row values, the live-row mask, the multi-match
+    multiplicity product (None = all ones), and bucket-sum pairs for
+    duplicate-build columns.  Literals and breakers are consumed in
+    evaluation order (post-order down the probe side).
 
     Join probes go through the counts kernel on the card, whose ragged
     tail is masked, so every morsel size takes it (the TPU version needed
     ``rows % 4096 == 0`` and otherwise fell back to a plain probe that
-    gives the same (start, count)).
+    gives the same (start, count))."""
+    lit_it = iter(lits)
+    offsets = [sum(b.n_arrays for b in breakers[:i])
+               for i in range(len(breakers))]
+    breaker_pos = [0]
+
+    def eval_node(n):
+        if isinstance(n, L.Scan):
+            return dict(zip(stream_cols, morsel)), valid, None, {}
+        if isinstance(n, (L.Filter, L.FilterProject)):
+            cols, mask, weight, buckets = eval_node(n.child)
+            lo, hi = next(lit_it), next(lit_it)
+            mask = engine.select_range_morsel(cols[n.column], lo, hi, mask)
+            if isinstance(n, L.FilterProject):
+                cols = {k: cols[k] for k in n.columns if k in cols}
+            return cols, mask, weight, buckets
+        if isinstance(n, L.Project):
+            cols, mask, weight, buckets = eval_node(n.child)
+            return ({k: cols[k] for k in n.columns if k in cols},
+                    mask, weight, buckets)
+        if isinstance(n, L.Join):
+            cols, mask, weight, buckets = eval_node(n.left)
+            i = breaker_pos[0]
+            breaker_pos[0] += 1
+            b, off = breakers[i], offsets[i]
+            s_sorted, order = build_flat[off], build_flat[off + 1]
+            vals = dict(zip(b.value_cols,
+                            build_flat[off + 2:off + 2 + len(b.value_cols)]))
+            keys = cols[n.on]
+            start, cnt = join_kernels.probe_counts(s_sorted, keys)
+            mask = mask & (cnt > 0)
+            if b.unique:
+                # clip like the reference's gather: unmatched rows read
+                # some build row and are masked out
+                safe = start.clamp(0, max(s_sorted.shape[0] - 1, 0))
+                for c in b.value_cols:
+                    cols[c] = vals[c][order[safe]] \
+                        if s_sorted.shape[0] else torch.zeros_like(keys)
+            else:
+                weight = cnt if weight is None else weight * cnt
+                for c in b.value_cols:
+                    buckets[c] = (engine.bucket_sums(vals[c], start, cnt),
+                                  cnt)
+            return cols, mask, weight, buckets
+        raise TypeError(n)
+
+    return eval_node(root)
+
+
+def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
+                     device: torch.device) -> CompiledPipeline:
+    """Lower a streamable plan into one per-morsel step.
 
     Integer aggregates accumulate in int64 (the reference's int32 under
     JAX's default 32-bit mode, equal until int32 would overflow); float
@@ -216,68 +309,13 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
         raise ValueError(node.op)
 
     n_build = sum(b.n_arrays for b in breakers)
-    offsets = [sum(b.n_arrays for b in breakers[:i])
-               for i in range(len(breakers))]
 
     def step(lits, carry, n_valid, *arrays):
-        build_flat = arrays[:n_build]
         morsel = arrays[n_build:]
-        n_loc = morsel[0].shape[0]
-        valid = torch.arange(n_loc, device=device) < n_valid
-        lit_pos = [0]
-        breaker_pos = [0]
-
-        def next_lit():
-            v = lits[lit_pos[0]]
-            lit_pos[0] += 1
-            return v
-
-        def eval_node(n):
-            """-> (cols, mask, weight, buckets): per-row values, the live-
-            row mask, the multi-match multiplicity product (None = all
-            ones), and bucket-sum pairs for duplicate-build columns."""
-            if isinstance(n, L.Scan):
-                return dict(zip(splan.stream_cols, morsel)), valid, None, {}
-            if isinstance(n, (L.Filter, L.FilterProject)):
-                cols, mask, weight, buckets = eval_node(n.child)
-                lo, hi = next_lit(), next_lit()
-                mask = engine.select_range_morsel(cols[n.column], lo, hi,
-                                                  mask)
-                if isinstance(n, L.FilterProject):
-                    cols = {k: cols[k] for k in n.columns if k in cols}
-                return cols, mask, weight, buckets
-            if isinstance(n, L.Project):
-                cols, mask, weight, buckets = eval_node(n.child)
-                return ({k: cols[k] for k in n.columns if k in cols},
-                        mask, weight, buckets)
-            if isinstance(n, L.Join):
-                cols, mask, weight, buckets = eval_node(n.left)
-                i = breaker_pos[0]
-                breaker_pos[0] += 1
-                b, off = breakers[i], offsets[i]
-                s_sorted, order = build_flat[off], build_flat[off + 1]
-                vals = dict(zip(b.value_cols,
-                                build_flat[off + 2:off + 2
-                                           + len(b.value_cols)]))
-                keys = cols[n.on]
-                start, cnt = join_kernels.probe_counts(s_sorted, keys)
-                mask = mask & (cnt > 0)
-                if b.unique:
-                    # clip like the reference's gather: unmatched rows
-                    # read some build row and are masked out
-                    safe = start.clamp(0, max(s_sorted.shape[0] - 1, 0))
-                    for c in b.value_cols:
-                        cols[c] = vals[c][order[safe]] \
-                            if s_sorted.shape[0] else torch.zeros_like(keys)
-                else:
-                    weight = cnt if weight is None else weight * cnt
-                    for c in b.value_cols:
-                        buckets[c] = (engine.bucket_sums(vals[c], start,
-                                                         cnt), cnt)
-                return cols, mask, weight, buckets
-            raise TypeError(n)
-
-        cols, mask, weight, buckets = eval_node(node.child)
+        valid = torch.arange(morsel[0].shape[0], device=device) < n_valid
+        cols, mask, weight, buckets = _eval_spine(
+            node.child, splan.stream_cols, morsel, valid, lits, breakers,
+            arrays[:n_build])
         w_live = mask.to(torch.int64) if weight is None \
             else torch.where(mask, weight, 0).to(torch.int64)
         if node.op == "count":
@@ -298,45 +336,151 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
                             breakers, rows, step, init, fin)
 
 
+@dataclasses.dataclass
+class CompiledProject:
+    """A Project-rooted plan lowered to a per-morsel step producing
+    (mask, out_cols)."""
+    stream_cols: Tuple[str, ...]
+    out_cols: Tuple[str, ...]
+    step: Callable
+
+
+def compile_project_pipeline(pplan: ProjectStreamPlan,
+                             device: torch.device) -> CompiledProject:
+    """Lower a Project-rooted streamable plan into one per-morsel step,
+    ``step(lits, n_valid, *build_flat, *morsel_cols) -> (mask, cols)``,
+    with the aggregate pipeline's argument layout and literal order."""
+    n_build = sum(b.n_arrays for b in pplan.breakers)
+
+    def step(lits, n_valid, *arrays):
+        morsel = arrays[n_build:]
+        valid = torch.arange(morsel[0].shape[0], device=device) < n_valid
+        cols, mask, _, _ = _eval_spine(
+            pplan.node, pplan.stream_cols, morsel, valid, lits,
+            pplan.breakers, arrays[:n_build])
+        return mask, tuple(cols[c] for c in pplan.out_cols)
+
+    return CompiledProject(pplan.stream_cols, pplan.out_cols, step)
+
+
 def _stage(arrays, device: torch.device, copy_stream):
     """Morsel columns onto the device: tensors pass through, host numpy
-    slices copy from pinned memory with ``non_blocking=True`` on the side
-    stream (on a CPU device they are wrapped without a copy)."""
+    slices (a disk column's slice is its read) are copied into a freshly
+    pinned buffer and sent with ``non_blocking=True`` on the side stream
+    (on a CPU device they are wrapped, copied only when read-only)."""
     out = []
     for a in arrays:
         if isinstance(a, np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(a))
             if copy_stream is not None:
+                dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+                pinned = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+                pinned.numpy()[...] = a
                 with torch.cuda.stream(copy_stream):
-                    t = t.pin_memory().to(device, non_blocking=True)
-            a = t.to(device)
+                    a = pinned.to(device, non_blocking=True)
+            else:
+                a = torch.from_numpy(
+                    np.require(a, requirements=("C", "W"))).to(device)
         out.append(a)
     return out
 
 
-def drive(cp: CompiledPipeline, n_morsels: int, get_morsel, build_flat,
-          lits, device: torch.device, carry=None):
-    """Run the morsel loop, double-buffered: morsel ``i+1`` is fetched (and
-    its host columns' copies enqueued on a side stream) before morsel
-    ``i`` is stepped, so those copies overlap the step's kernels.  The
-    compute stream waits for a morsel's copies before using it."""
-    carry = cp.init_carry() if carry is None else carry
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
-        else None
+def staged_morsels(n_morsels: int, get_morsel, device: torch.device, *,
+                   prefetch: bool = True):
+    """Yield ``(arrays, n_valid)`` for morsels ``0 .. n_morsels - 1`` in
+    order, each on ``device`` and ready for the current stream.
+
+    With ``prefetch`` a background thread fetches and stages morsels
+    ahead of the consumer through a queue of two: the host slicing (and
+    a disk column's read), the pinned copy and the enqueued host -> device
+    copy of morsel ``i + 1`` run while the consumer launches morsel
+    ``i``'s kernels.  Without it the loop is single-threaded and double-
+    buffered.  Both hand over the same morsels in the same order, so
+    results are bit-identical.  Close the generator (``contextlib.
+    closing``) to stop the thread when the consumer fails: it stops and
+    is joined, and no staged buffer outlives the generator."""
+    on_card = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if on_card else None
+    card = (device.index if device.index is not None
+            else torch.cuda.current_device()) if on_card else None
 
     def fetch(i):
         arrays, n_valid = get_morsel(i)
-        return _stage(arrays, device, copy_stream), n_valid
-
-    nxt = fetch(0)
-    for i in range(n_morsels):
-        cur, n_valid = nxt
+        staged = _stage(arrays, device, copy_stream)
+        ready = None
         if copy_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        return staged, n_valid, ready
+
+    def hand_over(item):
+        arrays, n_valid, ready = item
+        if ready is not None:
             compute = torch.cuda.current_stream(device)
-            compute.wait_stream(copy_stream)
-            for t in cur:
+            compute.wait_event(ready)
+            for t in arrays:
                 t.record_stream(compute)
-        if i + 1 < n_morsels:
-            nxt = fetch(i + 1)
-        carry = cp.step(lits, carry, n_valid, *build_flat, *cur)
+        return arrays, n_valid
+
+    if not (prefetch and n_morsels > 1):
+        nxt = fetch(0)
+        for i in range(n_morsels):
+            cur = nxt
+            if i + 1 < n_morsels:
+                nxt = fetch(i + 1)
+            yield hand_over(cur)
+        return
+
+    buf: queue.Queue = queue.Queue(maxsize=2)
+    failure: list = []
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        # a bounded wait, so a consumer that stopped can always release
+        # the thread through ``stop``
+        while not stop.is_set():
+            try:
+                buf.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def stage():
+        try:
+            if on_card:
+                torch.cuda.set_device(card)
+            for i in range(n_morsels):
+                if not put(fetch(i)):
+                    return
+        except BaseException as e:            # noqa: BLE001 - re-raised
+            failure.append(e)                 # by the consumer below
+            put(None)
+
+    thread = threading.Thread(target=stage, name="morsel-prefetch",
+                              daemon=True)
+    thread.start()
+    try:
+        for _ in range(n_morsels):
+            item = buf.get()
+            if item is None:
+                break
+            yield hand_over(item)
+    finally:
+        stop.set()
+        thread.join()
+    if failure:
+        raise failure[0]
+
+
+def drive(cp: CompiledPipeline, n_morsels: int, get_morsel, build_flat,
+          lits, device: torch.device, carry=None, *,
+          prefetch: bool = True):
+    """Fold every morsel into the carry, in order, with the transfer of
+    the next morsel overlapping the current one's kernels
+    (``staged_morsels``)."""
+    carry = cp.init_carry() if carry is None else carry
+    with contextlib.closing(staged_morsels(n_morsels, get_morsel, device,
+                                           prefetch=prefetch)) as morsels:
+        for arrays, n_valid in morsels:
+            carry = cp.step(lits, carry, n_valid, *build_flat, *arrays)
     return carry

@@ -13,14 +13,21 @@ Integer outputs must be bit-identical to the plain versions.  The SGD
 kernel sums in another order than its plain version (and nvcc contracts
 multiply-adds into FMAs), so its weights agree within rtol=1e-4,
 atol=1e-5; the kernel is deterministic, so streamed training (one launch
-per morsel) equals one launch over all rows bit for bit.
+per morsel) equals one launch over all rows bit for bit.  The traffic
+generator (``o = x + 1``) is bit-identical to its plain version at any
+length, on misaligned slices, at the top of int32 and in float32; a spill
+plan streams host and disk columns back through pinned copies.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import bandwidth
+from repro_torch.core import channels
 from repro_torch.core import join as join_core
 from repro_torch.kernels import _build
+from repro_torch.kernels.bandwidth import ref as bw_ref
+from repro_torch.kernels.bandwidth import stream
 from repro_torch.kernels.join import join as join_kernels
 from repro_torch.kernels.join import ops as join_ops
 from repro_torch.kernels.join import ref as join_ref
@@ -263,3 +270,92 @@ def test_executor_trains_through_the_kernel_stream_equals_eager(cuda):
         assert _build.LAUNCHES["sgd"] > before
     _same(out["stream"][0], out["eager"][0])
     _same(out["batch"][0], out["eager"][0])
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 4096 + 7, (1 << 20) + 3,
+                               (1 << 22) + 1])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_stream_copy_kernel_matches_plain(cuda, n, dtype):
+    r = np.random.default_rng(n)
+    if dtype == torch.int32:
+        x = _i32(r.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64), cuda)
+        if n:
+            x[0] = 2 ** 31 - 1                  # wraps to -2**31
+    else:
+        x = torch.as_tensor(r.standard_normal(n).astype(np.float32) * 1e4,
+                            device=cuda)
+    before = _build.LAUNCHES["stream_copy"]
+    got = stream.stream_copy(x)
+    _same(got, bw_ref.stream_copy_ref(x))
+    assert _build.LAUNCHES["stream_copy"] == before + (n > 0)
+
+
+@pytest.mark.parametrize("start", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_stream_copy_kernel_on_misaligned_slices(cuda, start, dtype):
+    base = torch.arange(-(1 << 16), (1 << 16) + 9, device=cuda).to(dtype)
+    before = base.clone()
+    for stop in (base.shape[0], base.shape[0] - 2, start + 3, start + 1):
+        x = base[start:stop]
+        got = stream.stream_copy(x)
+        _same(got, bw_ref.stream_copy_ref(x))
+        # the output shares x's offset within 16 bytes (the vector path)
+        assert got.data_ptr() % 16 == x.data_ptr() % 16
+        # an output at another offset takes the scalar path, same bits
+        out = torch.empty(x.shape[0] + 1, dtype=dtype, device=cuda)[1:]
+        _same(stream.stream_copy(x, out=out), bw_ref.stream_copy_ref(x))
+    _same(base, before)                          # x is never written
+
+
+def test_stream_copy_kernel_wraps_int32_and_refuses_other_types(cuda):
+    x = torch.tensor([2 ** 31 - 1] * 9, dtype=torch.int32, device=cuda)
+    assert stream.stream_copy(x).tolist() == [-2 ** 31] * 9
+    for dtype in (torch.float16, torch.int64, torch.float64, torch.int16):
+        with pytest.raises(TypeError):
+            stream.stream_copy(torch.zeros(8, dtype=dtype, device=cuda))
+    with pytest.raises(ValueError):
+        stream.stream_copy(torch.zeros((4, 4), dtype=torch.int32,
+                                       device=cuda))
+
+
+@pytest.mark.parametrize("n_engines", [1, 4, 16])
+@pytest.mark.parametrize("placement", ["partitioned", "congested"])
+def test_stream_copy_distributed_matches_plain(cuda, n_engines, placement):
+    n = n_engines * ((1 << 18) + 3)       # shards start off 16-byte marks
+    x = _i32(np.random.default_rng(n_engines).integers(-9, 9, n), cuda)
+    before = _build.LAUNCHES["stream_copy"]
+    got = bandwidth.stream_copy_distributed(
+        x, channels.plan(placement, n_engines, cuda))
+    _same(got, bw_ref.stream_copy_ref(x))
+    assert _build.LAUNCHES["stream_copy"] == before + n_engines
+    assert bandwidth.measure_gbps(stream.stream_copy, x) > 0
+
+
+def test_spilled_executor_on_the_card_equals_resident(cuda, tmp_path):
+    """Host and disk columns staged through pinned copies and the
+    prefetch thread give the resident run's value, in batch (routed to
+    the spill stream) and in stream mode, with and without the thread."""
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.query import Executor, Q, TierBudgets
+    r = np.random.default_rng(3)
+    n = 300_007
+    arrays = {"big": {"k": r.integers(0, 1000, n).astype(np.int32),
+                      "v": r.integers(0, 100, n).astype(np.int32),
+                      "w": r.integers(1, 50, n).astype(np.int32)},
+              "small": {"k": np.arange(0, 1000, 2, dtype=np.int32)}}
+    q = (Q.scan("big").join(Q.scan("small"), on="k").filter("v", 10, 60)
+         .sum("w"))
+    want = Executor(catalog_from_arrays(arrays, cuda), cuda).execute(q).value
+    col = n * 4
+    for overlap in (True, False):
+        ex = Executor(catalog_from_arrays(arrays, cuda), cuda,
+                      tier_budgets=TierBudgets(device=col + 4096, host=col),
+                      overlap_transfers=overlap)
+        ex._spill_dir = str(tmp_path)
+        before = _build.LAUNCHES["probe_counts"]
+        res = ex.execute(q)
+        assert res.value == want and res.mode == "stream"
+        assert _build.LAUNCHES["probe_counts"] > before
+        assert sorted(ex.last_spill.tiers.values()) == ["device", "disk",
+                                                       "host"]
+        assert ex.execute(q, mode="stream", morsel_rows=65_536).value == want

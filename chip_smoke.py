@@ -47,7 +47,23 @@ Phases, each of which must pass or the script exits non-zero:
    promoted bytes over the measured time beside the calibrated
    ``h2d_gbps``.  The GLM search of phase 6 also trains under a 64 MiB
    device budget, and its weights must equal the resident run's bit for
-   bit.
+   bit;
+10. lm: the LM serving path at full width and depth.  The flash-attention
+   kernel against its plain version at the llama3-8b prefill shape (bf16
+   within 2e-2, f32 within 2e-5), timed beside
+   ``scaled_dot_product_attention``; the SSD kernel against its plain
+   version at the mamba2-780m prefill shape (f32 within rtol=atol=1e-4,
+   bf16 y within 1.6e-2).  Then ``serve`` of llama3-8b (32 layers) and
+   mamba2-780m (48 layers), random weights from ``--seed``, 4 prompts of
+   2,000 tokens and 32 greedy tokens each: prefill and per-token decode
+   time (first run, median of warm runs), tok/s, peak device memory, and
+   one flash-attention (ssd) launch per layer of the prefill.  Path
+   checks: no NaN; a teacher-forced prefill of 1,999 tokens plus one
+   decode step equals the 2,000-token prefill's last logits within
+   ``TF_TOL`` of their largest magnitude in bf16 and within
+   ``TF_TOL_F32`` on an f32 copy of the weights; a 2-layer full-width
+   model on the card equals the same weights on the CPU (the plain path)
+   over a 512-token prompt within ``CARD_CPU_TOL`` of the largest logit.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -70,6 +86,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet (HBM3)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM data sheet, outside tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense tensor cores
+OPS_RATE = {"f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S}
 
 SSB_LINEORDER_ROWS = 59_986_214  # SSB scale factor 10
 SSB_DATE_ROWS = 2_556            # 1992-01-01 .. 1998-12-30
@@ -82,6 +100,28 @@ MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
 # contracts multiply-adds into FMAs: weights agree within this, not bitwise
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
+LM_ARCHS = ("llama3-8b", "mamba2-780m")
+LM_BATCH, LM_PROMPT_LEN, LM_GEN_LEN = 4, 2_000, 32
+LM_WARM_RUNS = 3
+LM_CHECK_LEN = 512               # the 2-layer card-vs-CPU prompt
+# the flash-attention kernel sums in another order than its dense plain
+# version (cuBLAS): f32 within 2e-5; in bf16 within the reference's own
+# bf16 tolerance (tests/test_kernels_attention_ssd.py)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the SSD kernel against its plain version: f32 sums in another order;
+# a bf16 y is one rounding of such an f32 value (2**-6 covers one ulp)
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+# bf16 models on two paths: every bf16 product rounds on its own path
+# (cuBLAS picks other tilings for a 1-token decode than for a prefill, the
+# CPU sums in another order), and a flipped rounding travels through 32-48
+# random layers; every bound is a fraction of the largest |logit|.  In
+# bf16 the teacher-forced identity is a gross-fault check (a wrong cache
+# position or a skipped layer moves logits by their own size); its sharp
+# form runs on an f32 copy of the weights, at the reference's own 1e-3
+TF_TOL = 1e-1
+TF_TOL_F32 = 1e-3
+CARD_CPU_TOL = 2e-2
 
 
 def log(*args):
@@ -403,11 +443,13 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
 
 
 def finish_row(row, agree: str = "bit-identical"):
-    """Turn a kernel row's ``bytes`` (and ``ops``, float32 operations) into
-    its bound — the larger of bytes over the memory rate and operations
-    over the float32 rate — and log the row."""
+    """Turn a kernel row's ``bytes`` (and ``ops``, operations of the type
+    ``ops_type``, f32 unless given) into its bound — the larger of bytes
+    over the memory rate and operations over the data sheet's rate for
+    their type — and log the row."""
     t_bytes = row.pop("bytes") / HBM_BYTES_PER_S * 1e3
-    t_ops = row.pop("ops", 0) / FP32_FLOPS_PER_S * 1e3
+    rate = OPS_RATE[row.pop("ops_type", "f32")]
+    t_ops = row.pop("ops", 0) / rate * 1e3
     row["bound_ms"] = max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     lib = row["library_ms"]
@@ -973,6 +1015,259 @@ def phase_spill(dev, ssb_tables, cal, spill_dir):
     return counts
 
 
+def phase_lm_kernels(dev):
+    """B7 at the llama3-8b prefill shape and B8 at the mamba2-780m one,
+    against their plain versions, timed.  Returns the two JSON rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd import ssd as ssd_kernels
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    b, s = LM_BATCH, LM_PROMPT_LEN
+    cfg = get_arch("llama3-8b")
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = randn(b, s, h, d, dtype=dtype), \
+            randn(b, s, kvh, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype)
+        got, want = fa.flash_attention(q, k, v), fa_ref.attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        errs[name] = float((got.float() - want.float()).abs().max())
+        if not errs[name] <= ATTN_TOL[name]:
+            raise AssertionError(f"flash_attention ({name}): kernel differs "
+                                 f"from its plain version by {errs[name]} "
+                                 f"> {ATTN_TOL[name]}")
+        del got, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float()
+                     - fa_ref.attention_plain(q, k, v).float()).abs().max())
+    pairs = b * h * s * (s + 1) // 2            # the causal half, i >= j
+    rows = [dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        max_abs_err=errs["bfloat16"],
+        ms=time_ms(lambda: fa.flash_attention(q, k, v), reps=10),
+        plain_ms=time_ms(lambda: fa_ref.attention_plain(q, k, v), reps=3,
+                         warmup=1),
+        library_ms=time_ms(library, reps=10),
+        # q, k, v read once and o written once; Q.K^T and P.V over the
+        # causal half, 2 operations a multiply-add
+        bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+        ops=4 * d * pairs, ops_type="bf16",
+        shape=f"q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, {d}) bf16, "
+              "causal")]
+    finish_row(rows[-1], agree=f"bf16 max abs err {errs['bfloat16']:.3e} "
+               f"<= {ATTN_TOL['bfloat16']}, f32 {errs['float32']:.3e} <= "
+               f"{ATTN_TOL['float32']}; SDPA differs from the plain version "
+               f"by {lib_err:.3e}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("mamba2-780m")
+    nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.ssm_state
+    # Mamba-2's own init ranges: dt in [0.001, 0.1], A in [1, 16]
+    x, bm, cm = randn(b, s, nh, hd), randn(b, s, ng, ds), randn(b, s, ng, ds)
+    dt = uniform(0.001, 0.1, b, s, nh)
+    a_log = torch.log(uniform(1.0, 16.0, nh))
+    d_skip = randn(nh, dtype=torch.float32)
+    args32 = (x.float(), dt, a_log, bm.float(), cm.float(), d_skip)
+    args = (x, dt, a_log, bm, cm, d_skip)
+    y, hf = ssd_kernels.ssd_scan(*args32)
+    y_p, h_p = ssd_ref.ssd_plain(*args32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, **SSD_TOL)
+    torch.testing.assert_close(hf, h_p, **SSD_TOL)
+    err32 = float((y - y_p).abs().max())
+    y, hf = ssd_kernels.ssd_scan(*args)
+    y_p, h_p = ssd_ref.ssd_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_BF16_TOL)
+    torch.testing.assert_close(hf, h_p, **SSD_TOL)
+    err = float((y.float() - y_p.float()).abs().max())
+    chunks = [min(128, s - t) for t in range(0, s, 128)]
+    per_head = sum(2 * (ds + hd) * L * (L + 1) // 2 + 4 * L * hd * ds
+                   for L in chunks)
+    rows.append(dict(
+        name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/ssd.py:71", max_abs_err=err,
+        ms=time_ms(lambda: ssd_kernels.ssd_scan(*args), reps=10),
+        plain_ms=time_ms(lambda: ssd_ref.ssd_plain(*args), reps=3, warmup=1),
+        library_ms=None,
+        # x, b, c (bf16), dt, a_log, d_skip (f32) read once; y (bf16) and
+        # the final state (f32) written once.  Per chunk of L tokens: C.B^T
+        # and the scores times x over the causal half, C.h^T and the state
+        # update in full, all in f32
+        bytes=2 * (2 * x.numel() + bm.numel() + cm.numel())
+        + 4 * (dt.numel() + 2 * nh + hf.numel()),
+        ops=b * nh * per_head, ops_type="f32",
+        shape=f"x=({b}, {s}, {nh}, {hd}) bf16, dt f32, b, c=({b}, {s}, {ng}, "
+              f"{ds}) bf16, chunk 128"))
+    finish_row(rows[-1], agree=f"bf16 y max abs err {err:.3e} within "
+               f"{SSD_BF16_TOL}, f32 {err32:.3e} within {SSD_TOL}")
+    return rows
+
+
+def _teacher_forced(mb, model, prompts):
+    """The S-token prefill's last logits, and those of a prefill of the
+    first S - 1 tokens followed by one decode step of the last."""
+    import torch
+    from repro_torch.models import registry
+    b, s = prompts.shape
+
+    def caches():
+        return registry.make_cache(mb.cfg, b, s, prompts.device,
+                                   model.embed.dtype)
+    with torch.inference_mode():
+        full, _ = mb.prefill_fn(model, prompts, caches())
+        _, c = mb.prefill_fn(model, prompts[:, :-1], caches())
+        step, _ = mb.decode_fn(model, prompts[:, -1:], s - 1, c)
+    if not (bool(torch.isfinite(full).all())
+            and bool(torch.isfinite(step).all())):
+        raise AssertionError(f"{mb.cfg.name}: non-finite logits")
+    return full, step
+
+
+def phase_lm(dev, seed):
+    """Serve llama3-8b and mamba2-780m at full width and depth through
+    ``serve``; the teacher-forced and card-vs-CPU path checks.  Returns
+    launch counts by model."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import (
+        build_model, draw_prompts, generate, serve,
+    )
+    from repro_torch.models import registry
+
+    kernel_of = {"dense": "flash_attention", "ssm": "ssd"}
+    counts = {}
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = serve(arch, smoke=False, prompt_len=LM_PROMPT_LEN,
+                     gen_len=LM_GEN_LEN, batch=LM_BATCH, seed=seed,
+                     stats=stats)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts[arch] = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        kernel = kernel_of[cfg.family]
+        if counts[arch][kernel] != cfg.num_layers:
+            raise AssertionError(f"{arch}: {counts[arch][kernel]} {kernel} "
+                                 f"launches, want one per layer "
+                                 f"({cfg.num_layers}) of the prefill")
+        if toks.shape != (LM_BATCH, LM_GEN_LEN) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: tokens {tuple(toks.shape)} out of "
+                                 f"shape or range")
+        mb, model = build_model(cfg, dev, seed=seed)
+        n_params = sum(p.numel() for p in model.parameters())
+        prompts = draw_prompts(cfg, LM_BATCH, LM_PROMPT_LEN, seed, dev)
+        warm, same = [], True
+        for _ in range(LM_WARM_RUNS):
+            st = {}
+            same &= torch.equal(generate(mb, model, prompts, LM_GEN_LEN,
+                                         stats=st), toks)
+            warm.append(st)
+        warm.sort(key=lambda st: st["prefill_s"] + st["decode_s"])
+        med = warm[len(warm) // 2]
+        steps = LM_GEN_LEN - 1
+        log(f"lm {arch}: {cfg.num_layers} layers, {n_params:,} params, "
+            f"{LM_BATCH} x {LM_PROMPT_LEN} prompt -> {LM_BATCH} x "
+            f"{LM_GEN_LEN} greedy tokens; first run (serve, weights drawn on "
+            f"the card) {first * 1e3:.1f} ms: prefill "
+            f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{stats['decode_s'] * 1e3 / steps:.3f} ms/token; warm median "
+            f"of {LM_WARM_RUNS}: prefill {med['prefill_s'] * 1e3:.3f} ms, "
+            f"decode {med['decode_s'] * 1e3 / steps:.3f} ms/token, "
+            f"{LM_BATCH * LM_GEN_LEN / (med['prefill_s'] + med['decode_s']):.1f}"
+            f" tok/s (prefill + decode), decode alone "
+            f"{LM_BATCH * steps / med['decode_s']:.1f} tok/s; warm tokens "
+            f"{'equal' if same else 'DIFFER from'} the first run's; peak "
+            f"device memory {peak / 2 ** 30:.2f} GiB; launches {counts[arch]}")
+        log("    " + profile_once(lambda: generate(mb, model, prompts,
+                                                   LM_GEN_LEN)))
+        # the identity prefill(S) == prefill(S - 1) + decode(1), in the
+        # served bf16 (beside the rounding noise of the same prompt served
+        # alone rather than in the batch) and sharply on an f32 copy
+        full, step = _teacher_forced(mb, model, prompts)
+        with torch.inference_mode():
+            alone, _ = mb.prefill_fn(model, prompts[:1], registry.make_cache(
+                cfg, 1, LM_PROMPT_LEN, dev))
+        noise = float((alone[0] - full[0]).abs().max())
+        err, scale = float((full - step).abs().max()), float(full.abs().max())
+        if not err <= TF_TOL * scale:
+            raise AssertionError(f"{arch}: teacher-forced decode differs from "
+                                 f"the prefill by {err} > {TF_TOL} x {scale}")
+        model.float()
+        full, step = _teacher_forced(mb, model, prompts[:1])
+        err32 = float((full - step).abs().max())
+        scale32 = float(full.abs().max())
+        if not err32 <= TF_TOL_F32 * scale32:
+            raise AssertionError(f"{arch} (f32): teacher-forced decode differs "
+                                 f"from the prefill by {err32} > {TF_TOL_F32}"
+                                 f" x {scale32}")
+        log(f"    teacher-forced {LM_PROMPT_LEN - 1} + 1 tokens vs the "
+            f"{LM_PROMPT_LEN}-token prefill, last logits: bf16 max abs diff "
+            f"{err:.4e} (max |logit| {scale:.4f}, bound {TF_TOL} x; the first "
+            f"prompt served alone vs in the batch of {LM_BATCH}: {noise:.4e})"
+            f"; f32 copy, 1 prompt: {err32:.4e} (max |logit| {scale32:.4f}, "
+            f"bound {TF_TOL_F32} x); no NaN")
+        del model, toks
+        torch.cuda.empty_cache()
+
+    # the card's path against the CPU's plain path, same weights
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch), num_layers=2)
+        mb, card = build_model(cfg, dev, seed=seed)
+        sd = {k: v.cpu() for k, v in card.state_dict().items()}
+        _, cpu = build_model(cfg, torch.device("cpu"), state_dict=sd)
+        prompt = draw_prompts(cfg, 1, LM_CHECK_LEN, seed, dev)
+        out = {}
+        t0 = time.perf_counter()
+        for where, model, p in (("card", card, prompt),
+                                ("cpu", cpu, prompt.cpu())):
+            with torch.inference_mode():
+                caches = registry.make_cache(cfg, 1, LM_CHECK_LEN, p.device)
+                out[where] = mb.prefill_fn(model, p, caches)[0].cpu()
+        err = float((out["card"] - out["cpu"]).abs().max())
+        scale = float(out["cpu"].abs().max())
+        if not err <= CARD_CPU_TOL * scale:
+            raise AssertionError(f"{arch} (2 layers): card logits differ from "
+                                 f"the CPU's by {err} > {CARD_CPU_TOL} x "
+                                 f"{scale}")
+        log(f"lm {arch}, 2 layers at full width, 1 x {LM_CHECK_LEN} prompt: "
+            f"card vs CPU last logits max abs diff {err:.4e} (max |logit| "
+            f"{scale:.4f}, bound {CARD_CPU_TOL} x) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del card, cpu, sd
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -991,6 +1286,9 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # f32 matmuls (the plain versions, the logits) in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
 
     card = phase_card()
@@ -1012,23 +1310,30 @@ def main(argv=None) -> int:
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_row = phase_glm(dev, args.seed)
     multi_counts, multi_row = phase_multi_join(dev, tpch)
-    rows += [multi_row, sgd_row, copy_row]
+    del tpch
+    log("lm kernels against their plain versions at the serving shapes:")
+    lm_rows = phase_lm_kernels(dev)
+    lm_counts = phase_lm(dev, args.seed)
+    rows += [multi_row, sgd_row, copy_row] + lm_rows
 
     key = {"select_range": "select", "probe_counts": "probe_counts",
            "hash_probe": "probe", "probe_multi": "probe_multi",
-           "sgd": "sgd", "stream_copy": "stream_copy"}
+           "sgd": "sgd", "stream_copy": "stream_copy",
+           "flash_attention": "flash_attention", "ssd": "ssd"}
     for row in rows:
         row["launches"] = sum(c[key[row["name"]]]
                               for counts in (ssb_counts, tpch_counts,
                                              glm_counts, multi_counts,
-                                             cal_counts, spill_counts)
+                                             cal_counts, spill_counts,
+                                             lm_counts)
                               for c in counts.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  "path")
         row.pop("shape")
     log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
-        f"calibrate launches: {cal_counts}; spill launches: {spill_counts}")
+        f"calibrate launches: {cal_counts}; spill launches: {spill_counts}; "
+        f"lm launches: {lm_counts}")
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

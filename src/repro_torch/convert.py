@@ -1,13 +1,15 @@
 """Carrying state across from the reference: the port's Catalog is built
 from the same numpy columns that build the reference's tables, so both
-systems hold identical data, and a reference cost model's calibration
+systems hold identical data; a reference cost model's calibration
 snapshot becomes the port's overlay, so both price with the same
-constants."""
+constants; and a reference LM's params become the port model's
+``state_dict``, so both compute from the same weights."""
 from __future__ import annotations
 
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.columnar.table import Table
 from repro_torch.device import DeviceLike, resolve
@@ -46,4 +48,40 @@ def calibration_from_reference(snapshot: Optional[Mapping]
     out = {"backend": snapshot.get("backend", "reference"),
            "backends": backends}
     out.update({k: snapshot[k] for k in CHANNEL_KEYS if k in snapshot})
+    return out
+
+
+def _param_tensor(a) -> torch.Tensor:
+    """A reference leaf (numpy, float32 or ml_dtypes' bfloat16) as a torch
+    tensor of the same type; bf16 travels through float32, exactly."""
+    a = np.asarray(a)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+        a.dtype.name)
+    if dtype is None:
+        raise TypeError(f"unexpected parameter type {a.dtype}")
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _leaves(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_arrays(cfg, tree: Mapping) -> dict:
+    """The reference's LM params (``jax.tree.map(np.asarray, params)``) as
+    the port's ``Transformer`` state_dict.  The reference stacks each
+    superblock position's params over superblocks; layer ``i`` of the port
+    is superblock ``i // P`` at position ``i % P``."""
+    from repro_torch.models.transformer import _period
+    p = _period(cfg)
+    out = {k: _param_tensor(tree[k])
+           for k in ("embed", "unembed", "final_norm") if k in tree}
+    for j, position in enumerate(tree["layers"]):
+        for name, stacked in _leaves(position):
+            for sb in range(np.shape(stacked)[0]):
+                out[f"layers.{sb * p + j}.{name}"] = _param_tensor(
+                    stacked[sb])
     return out

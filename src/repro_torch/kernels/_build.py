@@ -27,9 +27,10 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selection", "join", "sgd", "bandwidth")
+SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention", "ssd")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_F32 = ctypes.c_float
 SIGNATURES = {
     # x, n, lo, hi, block, idx, counts, stream
     "select_range_i32": ("selection",
@@ -52,14 +53,23 @@ SIGNATURES = {
     # x, o, n, grid, stream
     "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _P)),
     "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _P)),
+    # q, k, v, o, b, s, h, kv_heads, d, causal, bf16, scale, stream
+    "flash_attention_fwd": ("flash_attention",
+                            (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                             _I32, _I32, _F32, _P)),
+    # x, dt, a_log, b, c, d_skip, y, h_out, bsz, seq, nh, hd, ng, ds,
+    # chunk, bf16, stream
+    "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _I32, _P)),
 }
 
 # Kernel launches per wrapper, bumped only where a wrapper launches its
 # kernel (never on the plain CPU path).  ``chip_smoke.py`` zeroes these
-# before driving the executor and reads them after.
+# before driving the executor or the LM server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
                             "probe_multi": 0, "probe": 0, "sgd": 0,
-                            "stream_copy": 0}
+                            "stream_copy": 0, "flash_attention": 0,
+                            "ssd": 0}
 
 _lock = threading.Lock()
 _funcs: Dict[str, object] = {}

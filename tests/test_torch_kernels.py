@@ -4,14 +4,19 @@ the CPU.
 The reference side runs each Pallas kernel in interpret mode, as the
 reference's own kernel tests do; the port's wrappers take their plain
 PyTorch versions because the tensors lie on the CPU.  Inputs are made
-with numpy from a seed and handed to both; every output is an integer
-array and must be bit-identical.
+with numpy from a seed and handed to both; every integer output must be
+bit-identical.  The float kernels sum in other orders: flash attention
+(B7) agrees within 2e-5 in float32 and 2e-2 in bfloat16 (the reference's
+own sweep and tolerances), the SSD chunk scan (B8) within rtol=atol=1e-4
+in float32, against both ``ssd_pallas`` and the sequential recurrence.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import ops as r_fa_ops
+from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.join import ref as r_join_ref
 from repro.kernels.join.join import (
     probe_counts_pallas, probe_multi_pallas, probe_pallas,
@@ -20,14 +25,20 @@ from repro.kernels.join.ops import hash_join as r_hash_join
 from repro.kernels.join.ops import materialize as r_materialize
 from repro.kernels.selection import ops as r_sel_ops
 from repro.kernels.selection.selection import select_pallas
+from repro.kernels.ssd.ref import ssd_naive
+from repro.kernels.ssd.ssd import ssd_pallas
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ops import attend
 from repro_torch.kernels.join import join as join_kernels
 from repro_torch.kernels.join import ref as join_ref
 from repro_torch.kernels.join.ops import MAX_DROPPED, hash_join, materialize
 from repro_torch.kernels.selection import ops as sel_ops
 from repro_torch.kernels.selection import ref as sel_ref
 from repro_torch.kernels.selection import selection
+from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.ssd.ops import ssd
 
 
 def _eq(port, reference):
@@ -252,3 +263,139 @@ def test_materialize_matches_reference():
     for g, w in zip(materialize(got_idx, _t(l), _t(s)),
                     r_materialize(want_idx, jnp.asarray(l), jnp.asarray(s))):
         _eq(g, w)
+
+
+# ---- B7: flash attention --------------------------------------------------- #
+
+@pytest.mark.parametrize("s,bq,bk", [(128, 64, 64), (256, 128, 128),
+                                     (256, 64, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64])
+def test_attention_matches_flash_attention_interpret(s, bq, bk, causal, d):
+    r = np.random.default_rng(s + d)
+    q, k, v = (r.normal(size=(2, s, 2, d)).astype(np.float32)
+               for _ in range(3))
+    want = r_fa_ops.attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, impl="pallas", interpret=True,
+                           block_q=bq, block_kv=bk)
+    got = attend(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bf16_matches_flash_attention_interpret(causal):
+    r = np.random.default_rng(9)
+    q, k, v = (r.normal(size=(1, 128, 2, 64)).astype(np.float32)
+               for _ in range(3))
+    want = r_fa_ops.attend(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                           causal=causal, impl="pallas", interpret=True,
+                           block_q=64, block_kv=64)
+    got = attend(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                 causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("s", [1, 77, 200])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (4, 1), (3, 3)])
+def test_attention_ragged_gqa_matches_attention_ref(s, heads, kv_heads):
+    """Any length and kv heads read in place: against the reference's dense
+    oracle on kv heads repeated to the q heads."""
+    r = np.random.default_rng(s)
+    q = r.normal(size=(2, s, heads, 32)).astype(np.float32)
+    k, v = (r.normal(size=(2, s, kv_heads, 32)).astype(np.float32)
+            for _ in range(2))
+
+    def flat(a):
+        a = np.repeat(a, heads // a.shape[2], axis=2)
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(-1, s, 32))
+    want = np.asarray(attention_ref(flat(q), flat(k), flat(v), causal=True))
+    want = want.reshape(2, heads, s, 32).transpose(0, 2, 1, 3)
+    got = attend(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_attention_wrapper_checks_shapes_and_types():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q)
+    before = dict(_build.LAUNCHES)
+    fa.flash_attention(q, q, q)                  # the CPU: no launch counted
+    assert _build.LAUNCHES == before
+
+
+# ---- B8: the SSD chunk scan ------------------------------------------------ #
+
+def _ssd_inputs(s, nh, hd, ng, ds, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(2, s, nh, hd)).astype(np.float32),
+            r.uniform(0.01, 0.2, size=(2, s, nh)).astype(np.float32),
+            r.normal(size=(nh,)).astype(np.float32),
+            r.normal(size=(2, s, ng, ds)).astype(np.float32),
+            r.normal(size=(2, s, ng, ds)).astype(np.float32),
+            r.normal(size=(nh,)).astype(np.float32))
+
+
+def _ssd_pallas_model_layout(x, dt, a_log, b, c, d_skip, chunk):
+    """ssd_pallas on model-layout inputs, padded with dt = 0 to a chunk
+    multiple as the reference's mamba_block pads (one chunk of S when
+    S < chunk, as it also does)."""
+    bsz, s, nh, hd = x.shape
+    ng, ds = b.shape[2:]
+    chunk = min(chunk, s)
+    pad = -s % chunk
+    x, dt, b, c = (np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+                   for a in (x, dt, b, c))
+    sp = s + pad
+    rep = nh // ng
+    xf = x.transpose(0, 2, 1, 3).reshape(bsz * nh, sp, hd)
+    dtf = dt.transpose(0, 2, 1).reshape(bsz * nh, sp)
+    bf, cf = (np.repeat(a, rep, 2).transpose(0, 2, 1, 3).reshape(
+        bsz * nh, sp, ds) for a in (b, c))
+    y, h = ssd_pallas(*map(jnp.asarray, (xf, dtf, np.tile(a_log, bsz), bf, cf,
+                                         np.tile(d_skip, bsz))),
+                      chunk=chunk, interpret=True)
+    y = np.asarray(y).reshape(bsz, nh, sp, hd).transpose(0, 2, 1, 3)[:, :s]
+    return y, np.asarray(h).reshape(bsz, nh, hd, ds)
+
+
+@pytest.mark.parametrize("s,chunk", [(128, 64), (256, 128), (512, 128),
+                                     (200, 128), (77, 128), (1, 128)])
+@pytest.mark.parametrize("nh,hd,ng,ds", [(4, 16, 1, 16), (2, 32, 1, 32),
+                                         (4, 16, 2, 16)])
+def test_ssd_matches_ssd_pallas_and_the_recurrence(s, chunk, nh, hd, ng, ds):
+    args = _ssd_inputs(s, nh, hd, ng, ds, seed=s)
+    y, h = ssd(*map(torch.from_numpy, args), chunk=chunk)
+    y_p, h_p = _ssd_pallas_model_layout(*args, chunk)
+    np.testing.assert_allclose(y.numpy(), y_p, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), h_p, rtol=1e-4, atol=1e-4)
+    y_n, h_n = ssd_naive(*args)
+    np.testing.assert_allclose(y.numpy(), y_n, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), h_n, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_naive_copy_equals_the_reference():
+    args = _ssd_inputs(40, 4, 8, 2, 8)
+    for got, want in zip(ssd_ref.ssd_naive(*args), ssd_naive(*args)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_ssd_keeps_bf16_in_and_out_and_checks_types():
+    args = [torch.from_numpy(a) for a in _ssd_inputs(130, 4, 16, 1, 16)]
+    for i in (0, 3, 4):
+        args[i] = args[i].bfloat16()
+    y, h = ssd(*args)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    y32, h32 = ssd(*(a.float() for a in args))
+    np.testing.assert_allclose(h.numpy(), h32.numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        ssd(*(a.half() if i == 0 else a for i, a in enumerate(args)))
+    with pytest.raises(ValueError):
+        ssd(args[0], args[1][:, :-1], *args[2:])

@@ -17,6 +17,14 @@ per morsel) equals one launch over all rows bit for bit.  The traffic
 generator (``o = x + 1``) is bit-identical to its plain version at any
 length, on misaligned slices, at the top of int32 and in float32; a spill
 plan streams host and disk columns back through pinned copies.
+
+The flash-attention kernel (B7) sums in another order than its plain
+version (a dense f32 softmax on cuBLAS), so outputs agree within 2e-5 in
+float32 and 2e-2 in bfloat16 (the reference's own bf16 tolerance).  The
+SSD kernel (B8) agrees with its plain version within rtol=atol=1e-4 in
+float32 (its final state too in bfloat16; y rounded to bfloat16 within
+one rounding, 1.6e-2).  A 2-layer smoke model's logits on the card equal
+its CPU logits within 2e-2: every bf16 product rounds on its own path.
 """
 import numpy as np
 import pytest
@@ -28,14 +36,22 @@ from repro_torch.core import join as join_core
 from repro_torch.kernels import _build
 from repro_torch.kernels.bandwidth import ref as bw_ref
 from repro_torch.kernels.bandwidth import stream
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.join import join as join_kernels
 from repro_torch.kernels.join import ops as join_ops
 from repro_torch.kernels.join import ref as join_ref
 from repro_torch.kernels.selection import selection
 from repro_torch.kernels.sgd import ref as sgd_ref
 from repro_torch.kernels.sgd import sgd as sgd_kernels
+from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.ssd import ssd as ssd_kernels
 
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+LM_TOL = 2e-2
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -359,3 +375,123 @@ def test_spilled_executor_on_the_card_equals_resident(cuda, tmp_path):
         assert sorted(ex.last_spill.tiers.values()) == ["device", "disk",
                                                        "host"]
         assert ex.execute(q, mode="stream", morsel_rows=65_536).value == want
+
+
+# ---- flash attention (B7) ------------------------------------------------- #
+
+def _qkv(device, b, s, h, kvh, d, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(b, s, n, d, generator=g).to(device, dtype)
+                 for n in (h, kvh, kvh))
+
+
+@pytest.mark.parametrize("s", [1, 77, 128, 2000])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, s, group, dtype, causal):
+    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, 128, dtype, seed=s)
+    before = _build.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_attention_kernel_every_head_dim(cuda, d):
+    q, k, v = _qkv(cuda, 1, 77, 4, 2, d, torch.float32, seed=d)
+    got = fa.flash_attention(q, k, v)
+    want = fa_ref.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 4, 2, 64, torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 64, 4, 2, 48, torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 64, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                           v)
+
+
+# ---- SSD chunk scan (B8) --------------------------------------------------- #
+
+def _ssd_inputs(device, bsz, s, nh, hd, ng, ds, dtype, seed=0):
+    r = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(                       # noqa: E731
+        r.normal(size=shape).astype(np.float32))
+    dt = torch.from_numpy(r.uniform(0.01, 0.2, size=(bsz, s, nh))
+                          .astype(np.float32))
+    x, b, c = f(bsz, s, nh, hd), f(bsz, s, ng, ds), f(bsz, s, ng, ds)
+    return (x.to(device, dtype), dt.to(device), f(nh).to(device),
+            b.to(device, dtype), c.to(device, dtype), f(nh).to(device))
+
+
+@pytest.mark.parametrize("s", [1, 77, 128, 200, 2000])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("hd,ds", [(16, 16), (64, 128)])
+def test_ssd_kernel_matches_plain(cuda, s, ng, hd, ds):
+    args = _ssd_inputs(cuda, 2, s, 4, hd, ng, ds, torch.float32, seed=s)
+    before = _build.LAUNCHES["ssd"]
+    y, h = ssd_kernels.ssd_scan(*args)
+    y_p, h_p = ssd_ref.ssd_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, **SSD_TOL)
+    torch.testing.assert_close(h, h_p, **SSD_TOL)
+    assert _build.LAUNCHES["ssd"] == before + 1
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_ssd_kernel_bf16_and_chunk_lengths(cuda, chunk):
+    args = _ssd_inputs(cuda, 2, 300, 8, 64, 2, 128, torch.bfloat16)
+    y, h = ssd_kernels.ssd_scan(*args, chunk=chunk)
+    y_p, h_p = ssd_ref.ssd_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_BF16_TOL)
+    torch.testing.assert_close(h, h_p, **SSD_TOL)
+
+
+def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
+    args = _ssd_inputs(cuda, 1, 64, 2, 128, 1, 256, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_kernels.ssd_scan(*args)
+    args = _ssd_inputs(cuda, 1, 64, 2, 64, 1, 64, torch.float16)
+    with pytest.raises(TypeError):
+        ssd_kernels.ssd_scan(*args)
+
+
+# ---- the LM path ----------------------------------------------------------- #
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):
+    import dataclasses
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(smoke_config(get_arch(arch)), num_layers=2)
+    mb, cpu_model = build_model(cfg, torch.device("cpu"), seed=3)
+    _, card_model = build_model(cfg, cuda, state_dict=cpu_model.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 200),
+                         generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        caches = registry.make_cache(cfg, 2, 201, dev)
+        _build.reset_launches()
+        with torch.inference_mode():
+            logits, caches = mb.prefill_fn(model, toks.to(dev), caches)
+            step, _ = mb.decode_fn(model, toks[:, :1].to(dev), 200, caches)
+        out[dev] = (logits.cpu(), step.cpu(), dict(_build.LAUNCHES))
+    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
+    assert out["cpu"][2][kernel] == 0 and out["cuda"][2][kernel] == 2
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert float((got - want).abs().max()) <= LM_TOL

@@ -7,19 +7,23 @@ Phases, each of which must pass or the script exits non-zero:
 1. card: the name and power limit, as nvidia-smi reports them;
 2. build: the CUDA kernels, compiled from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the queries below give it (the bucket probe also at the
-   TPC-H join's negative-padded pass blocks) and at a ragged length with
-   keys at both ends of int32; integer outputs must be bit-identical.  Each is timed with CUDA events beside
-   its bound (bytes read once and written once over the card's data-sheet
-   memory rate) and, where one PyTorch call computes the same function,
-   that call's time;
+   the shapes the queries below give it (the bucket probe B2 on both of
+   its routes: a table in shared memory, and one searched through a
+   sample; also at the TPC-H join's negative-padded pass blocks and the
+   whole filtered lineitem) and at a ragged length with keys at both ends
+   of int32; integer outputs must be bit-identical.  Each is timed with
+   CUDA events beside its bound (bytes read once and written once over
+   the card's data-sheet memory rate) and, where one PyTorch call
+   computes the same function, that call's time;
 4. ssb: an SSB Q1.1-shaped query at scale factor 10 (lineorder, 59,986,214
    rows, against the 2,556-row date dimension) through the executor in
    batch, stream and eager modes; each must equal a numpy int64 oracle,
    and each mode must have launched the kernels of its path;
 5. tpch: a duplicate-keyed join at TPC-H scale factor 1 (orders against a
    filtered lineitem, which the optimizer makes the build side) in eager
-   and batch modes, against a numpy oracle;
+   and batch modes, and lineitem joined with orders (1,500,000 unique
+   build keys, which the pipeline probes through B2's sampled route) in
+   batch and stream modes, each against a numpy oracle;
 6. glm: hyper-parameter search (8 logistic-regression jobs, 5 epochs,
    minibatch 16) over an MNIST-shaped training set (60,000 rows, 784
    float32 features in [0, 1], a binary label from a planted logistic
@@ -49,15 +53,18 @@ Phases, each of which must pass or the script exits non-zero:
    device budget, and its weights must equal the resident run's bit for
    bit;
 10. lm: the LM serving path at full width and depth.  The flash-attention
-   kernel against its plain version at the llama3-8b prefill shape (bf16
-   within 2e-2, f32 within 2e-5), timed beside
-   ``scaled_dot_product_attention``; the SSD kernel against its plain
-   version at the mamba2-780m prefill shape (f32 within rtol=atol=1e-4,
-   bf16 y within 1.6e-2).  Then ``serve`` of llama3-8b (32 layers) and
-   mamba2-780m (48 layers), random weights from ``--seed``, 4 prompts of
-   2,000 tokens and 32 greedy tokens each: prefill and per-token decode
-   time (first run, median of warm runs), tok/s, peak device memory, and
-   one flash-attention (ssd) launch per layer of the prefill.  Path
+   kernel's two routes against their plain version at the llama3-8b
+   prefill shape (the tensor-core route in bf16 within 2e-2, the
+   CUDA-core route in f32 within 2e-5), each timed beside
+   ``scaled_dot_product_attention`` in its type; the SSD kernel against
+   its plain version at the mamba2-780m prefill shape (f32 within
+   rtol=atol=1e-4, bf16 y within 1.6e-2).  Then ``serve`` of llama3-8b
+   (32 layers) and mamba2-780m (48 layers), random weights from
+   ``--seed``, 4 prompts of 2,000 tokens and 32 greedy tokens each:
+   prefill and per-token decode time (first run, median of warm runs),
+   tok/s, peak device memory, and one tensor-core flash-attention (ssd)
+   launch per layer of the prefill (the f32 check below launches the
+   CUDA-core route, once per layer of each of its two prefills).  Path
    checks: no NaN; a teacher-forced prefill of 1,999 tokens plus one
    decode step equals the 2,000-token prefill's last logits within
    ``TF_TOL`` of their largest magnitude in bf16 and within
@@ -199,6 +206,18 @@ def tpch_query(Q):
                                   on="orderkey").sum("totalprice"))
 
 
+def tpch_lines_query(Q):
+    return (Q.scan("lineitem").join(Q.scan("orders"), on="orderkey")
+            .sum("totalprice"))
+
+
+def tpch_lines_oracle(tables, order_idx) -> int:
+    lines = np.bincount(order_idx,
+                        minlength=tables["orders"]["orderkey"].shape[0])
+    return int((lines * tables["orders"]["totalprice"].astype(np.int64))
+               .sum())
+
+
 def tpch_oracle(tables, order_idx) -> int:
     keep = tables["lineitem"]["quantity"] == 1
     lines = np.bincount(order_idx[keep], minlength=order_idx.max() + 1)
@@ -301,7 +320,7 @@ def phase_build():
         f"({', '.join(p.name for p in paths.values())})")
     for name, out in _build.BUILD_LOG.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -407,7 +426,49 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
         max_abs_err=err, ms=time_ms(b2_kernel), plain_ms=time_ms(b2_plain),
         bytes=4 * s_sorted.shape[0] + 4 * n + 8 * n,
         library_ms=time_ms(library_b2),
-        shape=f"s_sorted=({s_sorted.shape[0]},), keys=({n},) int32"))
+        shape=f"s_sorted=({s_sorted.shape[0]},), keys=({n},) int32, "
+              f"{jk.probe_counts_route(s_sorted.shape[0])} route"))
+
+    # B2's sampled route at the shape the fused pipeline gives it in phase
+    # tpch (lineitem joined with orders: 1,500,000 sorted order keys, past
+    # the shared-memory budget, against every lineitem row), and at the
+    # eager duplicate-keyed join's whole filtered lineitem against orders
+    lkeys = torch.from_numpy(tpch_tables["lineitem"]["orderkey"]).to(dev)
+    ordered, _ = join_ref.bucket_build(okeys)
+    filtered, _ = join_ref.bucket_build(build)
+    for t in (ordered, filtered):
+        if jk.probe_counts_route(t.shape[0]) != "sampled":
+            raise AssertionError(f"a table of {t.shape[0]} keys should take "
+                                 "B2's sampled route")
+    big_kernel = lambda: jk.probe_counts(ordered, lkeys)      # noqa: E731
+    big_plain = lambda: join_ref.bucket_probe(ordered, lkeys)  # noqa: E731
+    err = check("probe_counts", big_kernel, big_plain)
+    f_kernel = lambda: jk.probe_counts(filtered, okeys)       # noqa: E731
+    err = max(err, check("probe_counts", f_kernel,
+                         lambda: join_ref.bucket_probe(filtered, okeys)))
+
+    def library_of(table, keys):
+        def run():
+            torch.searchsorted(table, keys, side="left")
+            torch.searchsorted(table, keys, side="right")
+        return run
+
+    f_bound = (4 * filtered.shape[0] + 12 * okeys.shape[0]) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"  probe_counts  the filtered lineitem ({filtered.shape[0]},) "
+        f"sorted, keys=({okeys.shape[0]},), sampled route: kernel "
+        f"{time_ms(f_kernel):.4f} ms, bound {f_bound:.4f} ms, library "
+        f"{time_ms(library_of(filtered, okeys)):.4f} ms (two "
+        "torch.searchsorted), bit-identical")
+    rows.append(dict(
+        name="probe_counts_sampled", route="cuda",
+        source="src/repro_torch/kernels/csrc/join.cu",
+        replaces="src/repro/kernels/join/join.py:189",
+        max_abs_err=err, ms=time_ms(big_kernel), plain_ms=time_ms(big_plain),
+        bytes=4 * ordered.shape[0] + 12 * lkeys.shape[0],
+        library_ms=time_ms(library_of(ordered, lkeys)),
+        shape=f"s_sorted=({ordered.shape[0]},), keys=({lkeys.shape[0]},) "
+              "int32, sampled route"))
 
     # B4 at the eager unique join's shape: the filtered lineorder keys
     # against the date table built the way join_distributed builds it
@@ -604,6 +665,23 @@ def phase_tpch(dev, tables, order_idx):
     _run_modes(ex, q, ("eager", "batch"), equals(want), counts)
     if counts["eager"]["probe_counts"] <= 0:
         raise AssertionError("eager join_multi launched no probe_counts")
+
+    # lineitem joined with orders (the join of TPC-H's order queries): a
+    # unique-keyed build side of 1,500,000 keys, past B2's shared-memory
+    # budget, which the fused and streamed pipelines probe through B2's
+    # sampled route
+    q = tpch_lines_query(Q)
+    want = tpch_lines_oracle(tables, order_idx)
+    log(f"tpch lines: lineitem joined with orders, sum(totalprice); oracle "
+        f"{want}\n  plan:\n    " + ex.explain(q).replace("\n", "\n    "))
+    lines_counts = {}
+    _run_modes(ex, q, ("batch", "stream"), equals(want), lines_counts,
+               morsel_rows=1 << 21)
+    for mode, c in lines_counts.items():
+        if c["probe_counts_sampled"] <= 0:
+            raise AssertionError(f"lines {mode} probed 1,500,000 keys "
+                                 "without B2's sampled route")
+        counts[f"lines {mode}"] = c
     return counts
 
 
@@ -1016,11 +1094,13 @@ def phase_spill(dev, ssb_tables, cal, spill_dir):
 
 
 def phase_lm_kernels(dev):
-    """B7 at the llama3-8b prefill shape and B8 at the mamba2-780m one,
-    against their plain versions, timed.  Returns the two JSON rows."""
+    """B7's two routes at the llama3-8b prefill shape and B8 at the
+    mamba2-780m one, against their plain versions, timed.  Returns the
+    three JSON rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.ssd import ref as ssd_ref
@@ -1037,46 +1117,73 @@ def phase_lm_kernels(dev):
     b, s = LM_BATCH, LM_PROMPT_LEN
     cfg = get_arch("llama3-8b")
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    pairs = b * h * s * (s + 1) // 2            # the causal half, i >= j
+    rows = []
+    # bf16 takes the tensor-core route, f32 the CUDA-core route
+    for dtype, name in ((torch.bfloat16, "flash_attention_tc"),
+                        (torch.float32, "flash_attention")):
+        tname = str(dtype).split(".")[-1]
         q, k, v = randn(b, s, h, d, dtype=dtype), \
             randn(b, s, kvh, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype)
-        got, want = fa.flash_attention(q, k, v), fa_ref.attention_plain(q, k, v)
+        if fa.route(dtype, d) != ("tc" if name.endswith("_tc")
+                                  else "cuda_core"):
+            raise AssertionError(f"{tname} at D = {d} takes the "
+                                 f"{fa.route(dtype, d)} route")
+        want = fa_ref.attention_plain(q, k, v)
+        got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        name = str(dtype).split(".")[-1]
-        errs[name] = float((got.float() - want.float()).abs().max())
-        if not errs[name] <= ATTN_TOL[name]:
-            raise AssertionError(f"flash_attention ({name}): kernel differs "
-                                 f"from its plain version by {errs[name]} "
-                                 f"> {ATTN_TOL[name]}")
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= ATTN_TOL[tname]:
+            raise AssertionError(f"{name} ({tname}): kernel differs from its "
+                                 f"plain version by {err} > "
+                                 f"{ATTN_TOL[tname]}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
         del got, want
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_err = float((library().transpose(1, 2).float()
-                     - fa_ref.attention_plain(q, k, v).float()).abs().max())
-    pairs = b * h * s * (s + 1) // 2            # the causal half, i >= j
-    rows = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
-        max_abs_err=errs["bfloat16"],
-        ms=time_ms(lambda: fa.flash_attention(q, k, v), reps=10),
-        plain_ms=time_ms(lambda: fa_ref.attention_plain(q, k, v), reps=3,
-                         warmup=1),
-        library_ms=time_ms(library, reps=10),
-        # q, k, v read once and o written once; Q.K^T and P.V over the
-        # causal half, 2 operations a multiply-add
-        bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
-        ops=4 * d * pairs, ops_type="bf16",
-        shape=f"q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, {d}) bf16, "
-              "causal")]
-    finish_row(rows[-1], agree=f"bf16 max abs err {errs['bfloat16']:.3e} "
-               f"<= {ATTN_TOL['bfloat16']}, f32 {errs['float32']:.3e} <= "
-               f"{ATTN_TOL['float32']}; SDPA differs from the plain version "
-               f"by {lib_err:.3e}")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+        size = q.element_size()
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+            max_abs_err=err,
+            ms=time_ms(lambda: fa.flash_attention(q, k, v), reps=10),
+            plain_ms=time_ms(lambda: fa_ref.attention_plain(q, k, v), reps=3,
+                             warmup=1),
+            library_ms=time_ms(library, reps=10),
+            # q, k, v read once and o written once; Q.K^T and P.V over the
+            # causal half, 2 operations a multiply-add, in the inputs' type
+            bytes=size * (2 * q.numel() + k.numel() + v.numel()),
+            ops=4 * d * pairs, ops_type="bf16" if size == 2 else "f32",
+            shape=f"q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, {d}) "
+                  f"{tname}, causal, {fa.route(dtype, d)} route"))
+        extra = ""
+        if dtype == torch.bfloat16:
+            # the same bf16 inputs through the CUDA-core kernel, called
+            # directly (the wrapper routes bf16 at D = 128 to the tensor
+            # cores): the redesign against the kernel it replaces
+            o = torch.empty_like(q)
+            core = _build.function("flash_attention_fwd")
+
+            def cuda_core():
+                _build.check(core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  o.data_ptr(), b, s, h, kvh, d, 1, 1,
+                                  d ** -0.5, _build.stream_handle(q.device)),
+                             "flash_attention_fwd")
+            cuda_core()
+            core_err = float((o.float() - fa_ref.attention_plain(q, k, v)
+                              .float()).abs().max())
+            extra = (f"; the CUDA-core kernel on the same bf16 inputs "
+                     f"{time_ms(cuda_core, reps=5):.4f} ms (max abs err "
+                     f"{core_err:.3e})")
+            del o
+        finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e} <= "
+                   f"{ATTN_TOL[tname]}; SDPA differs from the plain version "
+                   f"by {lib_err:.3e}{extra}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
 
     cfg = get_arch("mamba2-780m")
     nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
@@ -1157,7 +1264,7 @@ def phase_lm(dev, seed):
     )
     from repro_torch.models import registry
 
-    kernel_of = {"dense": "flash_attention", "ssm": "ssd"}
+    kernel_of = {"dense": "flash_attention_tc", "ssm": "ssd"}
     counts = {}
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
@@ -1223,7 +1330,16 @@ def phase_lm(dev, seed):
             raise AssertionError(f"{arch}: teacher-forced decode differs from "
                                  f"the prefill by {err} > {TF_TOL} x {scale}")
         model.float()
+        _build.reset_launches()
         full, step = _teacher_forced(mb, model, prompts[:1])
+        counts[f"{arch} f32 check"] = dict(_build.LAUNCHES)
+        if cfg.family == "dense" and \
+                counts[f"{arch} f32 check"]["flash_attention"] \
+                != 2 * cfg.num_layers:
+            raise AssertionError(f"{arch} (f32): "
+                                 f"{counts[f'{arch} f32 check']} launches, "
+                                 "want one CUDA-core flash attention per "
+                                 "layer of each of the two prefills")
         err32 = float((full - step).abs().max())
         scale32 = float(full.abs().max())
         if not err32 <= TF_TOL_F32 * scale32:
@@ -1317,8 +1433,10 @@ def main(argv=None) -> int:
     rows += [multi_row, sgd_row, copy_row] + lm_rows
 
     key = {"select_range": "select", "probe_counts": "probe_counts",
+           "probe_counts_sampled": "probe_counts_sampled",
            "hash_probe": "probe", "probe_multi": "probe_multi",
            "sgd": "sgd", "stream_copy": "stream_copy",
+           "flash_attention_tc": "flash_attention_tc",
            "flash_attention": "flash_attention", "ssd": "ssd"}
     for row in rows:
         row["launches"] = sum(c[key[row["name"]]]

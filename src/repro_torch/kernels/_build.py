@@ -9,6 +9,11 @@ reused.  The libraries are bound with ``ctypes``: pointers and the CUDA
 stream travel as ``c_void_p``, and every launcher returns
 ``cudaGetLastError()``, which ``check`` turns into an exception.
 
+The tensor-core flash attention encodes its TMA tensor maps with the
+driver's ``cuTensorMapEncodeTiled``, which it looks up at run time through
+``cudaGetDriverEntryPoint`` (``...ByVersion`` from CUDA 12.5), so no
+library links ``-lcuda``.
+
 Nothing here runs at import time: the tests import every module on
 machines without ``nvcc``.
 """
@@ -35,8 +40,10 @@ SIGNATURES = {
     # x, n, lo, hi, block, idx, counts, stream
     "select_range_i32": ("selection",
                          (_P, _I64, _I32, _I32, _I64, _P, _P, _P)),
-    # s_sorted, n_s, ts, keys, n, start, count, stream
-    "probe_counts_i32": ("join", (_P, _I64, _I64, _P, _I64, _P, _P, _P)),
+    # s_sorted, n_s, ts, keys, n, start, count, tree scratch (null for
+    # the shared route), stream
+    "probe_counts_i32": ("join", (_P, _I64, _I64, _P, _I64, _P, _P, _P,
+                                  _P)),
     # s_sorted, order, n_s, ts, keys, n, cap, mat, start, count, stream
     "probe_multi_i32": ("join",
                         (_P, _P, _I64, _I64, _P, _I64, _I32, _P, _P, _P,
@@ -57,19 +64,27 @@ SIGNATURES = {
     "flash_attention_fwd": ("flash_attention",
                             (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                              _I32, _I32, _F32, _P)),
+    # q, k, v, o, b, s, h, kv_heads, d, causal, scale, stream
+    "flash_attention_tc_fwd": ("flash_attention",
+                               (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                                _I32, _I32, _F32, _P)),
     # x, dt, a_log, b, c, d_skip, y, h_out, bsz, seq, nh, hd, ng, ds,
     # chunk, bf16, stream
     "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                         _I32, _I32, _I32, _I32, _I32, _P)),
 }
 
-# Kernel launches per wrapper, bumped only where a wrapper launches its
-# kernel (never on the plain CPU path).  ``chip_smoke.py`` zeroes these
-# before driving the executor or the LM server and reads them after.
+# Kernel launches per wrapper and route, bumped only where a wrapper
+# launches its kernel (never on the plain CPU path): B2's shared-memory
+# and sampled routes, B7's CUDA-core ("flash_attention") and tensor-core
+# ("flash_attention_tc") routes each have their own count.
+# ``chip_smoke.py`` zeroes these before driving the executor or the LM
+# server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
+                            "probe_counts_sampled": 0,
                             "probe_multi": 0, "probe": 0, "sgd": 0,
                             "stream_copy": 0, "flash_attention": 0,
-                            "ssd": 0}
+                            "flash_attention_tc": 0, "ssd": 0}
 
 _lock = threading.Lock()
 _funcs: Dict[str, object] = {}
@@ -168,5 +183,11 @@ def require_int32_cuda(t, name: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, as the
+    compiled kernels PyTorch generates itself read it: building a
+    ``torch.cuda.Stream`` object (``current_stream(device)``) costs more
+    host time than a short kernel takes on the card."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())

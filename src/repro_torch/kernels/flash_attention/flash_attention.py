@@ -1,12 +1,21 @@
 """Flash attention (online softmax) — wrapper and plain version.
 
-The CUDA kernel (``kernels/csrc/flash_attention.cu``) replaces the TPU's
-``flash_attention``: one block per 64-row q tile and head, kv tiles
-streamed through shared memory with the running (m, l, acc) in f32, kv
-tiles above the causal diagonal skipped, kv heads read in place for GQA,
-and the ragged last tiles masked, so any length works.  ``flash_attention``
-launches it for CUDA tensors and takes ``ref.attention_plain`` for CPU
-tensors; there is no fallback from the card to the plain version.
+The CUDA kernels (``kernels/csrc/flash_attention.cu``) replace the TPU's
+``flash_attention`` in two routes, which ``route`` picks from the type
+and the head dim before the launch:
+
+* ``"tc"``, bfloat16 with D in ``TC_HEAD_DIMS``: tensor cores (wgmma)
+  fed by TMA, one block per 128-row q tile and head, 128-row kv tiles in
+  a two-stage ring;
+* ``"cuda_core"``, float32 (tensor cores would round it to TF32) and
+  bfloat16 with the other head dims: f32 FMAs, one block per 64-row q
+  tile and head.
+
+Both keep the running (m, l, acc) in f32, skip kv tiles above the causal
+diagonal, read kv heads in place for GQA and mask the ragged last tiles,
+so any length works.  ``flash_attention`` launches a kernel for CUDA
+tensors and takes ``ref.attention_plain`` for CPU tensors; there is no
+fallback from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +26,14 @@ from repro_torch.kernels.flash_attention import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)      # instantiated in the CUDA source
+TC_HEAD_DIMS = (64, 128)                   # the tensor-core route's
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes (dtype, head dim d): ``"tc"`` (tensor cores)
+    or ``"cuda_core"``."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
+        else "cuda_core"
 
 
 def _check(q, k, v) -> None:
@@ -55,15 +72,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name}: expected a contiguous tensor")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
-    if b * h >= 2 ** 16:
-        raise ValueError(f"B * H = {b * h}: the grid takes at most 65,535")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    stream = _build.stream_handle(q.device)
+    if route(q.dtype, d) == "tc":
+        if b * h * -(-s // 128) >= 2 ** 31:
+            raise ValueError(f"B * H * ceil(S / 128) = "
+                             f"{b * h * -(-s // 128)}: the grid takes at "
+                             "most 2**31 - 1 blocks")
+        fn = _build.function("flash_attention_tc_fwd")
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+                h, k.shape[2], d, int(causal), d ** -0.5, stream)
+        _build.check(rc, "flash_attention_tc_fwd")
+        _build.LAUNCHES["flash_attention_tc"] += 1
+        return o
+    if b * h >= 2 ** 16:
+        raise ValueError(f"B * H = {b * h}: the grid takes at most 65,535")
     fn = _build.function("flash_attention_fwd")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
             k.shape[2], d, int(causal), int(q.dtype == torch.bfloat16),
-            d ** -0.5, _build.stream_handle(q.device))
+            d ** -0.5, stream)
     _build.check(rc, "flash_attention_fwd")
     _build.LAUNCHES["flash_attention"] += 1
     return o

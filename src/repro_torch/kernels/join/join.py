@@ -5,12 +5,16 @@ Two CUDA kernels (``kernels/csrc/join.cu``) replace the TPU's Pallas
 probes on the executor's path:
 
 * ``probe_counts`` (replaces ``probe_counts_pallas``): bucket (start,
-  count) of every probe key over the sorted build side, by two branchless
-  binary searches.  The table is read from device memory through the
-  caches, so the whole build side of a pipeline join is probed at once.
-  Its plain version is ``ref.bucket_probe``; the kernel equals it for
-  every int32 key (the TPU kernel padded the table with ``2**31 - 1`` and
-  so miscounted that key; the kernel's padding is virtual and clamped).
+  count) of every probe key over the sorted build side: a branchless
+  lower-bound search down a breadth-first search tree in shared memory,
+  then the end of the key's run from there.  ``probe_counts_route``
+  picks the route from the table's length: a table of at most
+  ``SHARED_TABLE_MAX`` keys is held whole, a larger one (a pipeline's
+  whole build side) is searched through a tree of ``SAMPLE_KEYS`` of its
+  keys and then in device memory.  Its plain version is
+  ``ref.bucket_probe``; the kernel equals it for every int32 key (the
+  TPU kernel padded the table with ``2**31 - 1`` and so miscounted that
+  key; the kernel's padding is clamped).
 * ``probe_multi`` (replaces ``probe_multi_pallas``): the same bucket
   (start, count) plus an (N_L, cap) matrix of the bucket's first ``cap``
   build rows (through ``order``), -1 past the count — the widened egress
@@ -32,9 +36,22 @@ from repro_torch.kernels.join import ref
 
 DEFAULT_BLOCK = 4096
 DEFAULT_MATCH_CAP = 8          # egress lines per probe row (B3)
+# B2's routes (kSharedMax and kSample in csrc/join.cu): a table of up to
+# 8,192 keys, padded to its power of two, and its search tree take 64 KB of
+# shared memory, which leaves room for three blocks an SM; a larger one is
+# searched through a tree of 8,192 of its keys (32 KB), then in device
+# memory
+SHARED_TABLE_MAX = 8_192
+SAMPLE_KEYS = 8_192
 
 
 # ---- B2: counts-only multi-match probe ------------------------------------ #
+
+def probe_counts_route(n_s: int) -> str:
+    """The B2 route for a table of ``n_s`` sorted keys: ``"shared"`` (the
+    whole table in shared memory) or ``"sampled"``."""
+    return "shared" if max(n_s, 4) <= SHARED_TABLE_MAX else "sampled"
+
 
 def probe_counts(s_sorted: torch.Tensor, l_keys: torch.Tensor):
     """(start (N_L,), counts (N_L,)) of each probe key's bucket in the
@@ -53,12 +70,18 @@ def probe_counts(s_sorted: torch.Tensor, l_keys: torch.Tensor):
     count = torch.empty_like(l_keys)
     if n == 0:
         return start, count
+    route = probe_counts_route(n_s)
+    # the sampled route's search tree, which the kernel builds
+    tree = None if route == "shared" else torch.empty(
+        SAMPLE_KEYS, dtype=torch.int32, device=l_keys.device)
     fn = _build.function("probe_counts_i32")
-    rc = fn(s_sorted.data_ptr(), n_s, ref.next_pow2(max(n_s, 2)),
+    rc = fn(s_sorted.data_ptr(), n_s, 1 << (max(n_s, 4) - 1).bit_length(),
             l_keys.data_ptr(), n, start.data_ptr(), count.data_ptr(),
+            None if tree is None else tree.data_ptr(),
             _build.stream_handle(l_keys.device))
     _build.check(rc, "probe_counts_i32")
-    _build.LAUNCHES["probe_counts"] += 1
+    _build.LAUNCHES["probe_counts" if route == "shared"
+                    else "probe_counts_sampled"] += 1
     return start, count
 
 

@@ -18,9 +18,13 @@ generator (``o = x + 1``) is bit-identical to its plain version at any
 length, on misaligned slices, at the top of int32 and in float32; a spill
 plan streams host and disk columns back through pinned copies.
 
-The flash-attention kernel (B7) sums in another order than its plain
-version (a dense f32 softmax on cuBLAS), so outputs agree within 2e-5 in
-float32 and 2e-2 in bfloat16 (the reference's own bf16 tolerance).  The
+The flash-attention kernels (B7, a tensor-core route for bfloat16 at head
+dims 64 and 128, a CUDA-core route otherwise) sum in another order than
+their plain version (a dense f32 softmax on cuBLAS), so outputs agree
+within 2e-5 in float32 and 2e-2 in bfloat16 (the reference's own bf16
+tolerance).  The counts-only probe (B2) is bit-identical to
+``bucket_probe`` on both of its routes (table in shared memory, or a
+sample of it), at the budget's edge and at both ends of int32.  The
 SSD kernel (B8) agrees with its plain version within rtol=atol=1e-4 in
 float32 (its final state too in bfloat16; y rounded to bfloat16 within
 one rounding, 1.6e-2).  A 2-layer smoke model's logits on the card equal
@@ -128,6 +132,74 @@ def test_probe_counts_kernel_on_negative_padded_pass_blocks(cuda, n_s):
         start_p, count_p = join_ref.bucket_probe(s_sorted, keys)
         _same(start, start_p)
         _same(count, count_p)
+
+
+def _chained_table(r, n_s):
+    """n_s sorted int32 keys in runs of 1-8 spread over int32, holding
+    -2**31, -1 and 2**31 - 1 once n_s >= 3."""
+    if n_s == 0:
+        return np.zeros(0, np.int32)
+    vals = np.unique(r.integers(-2 ** 31, 2 ** 31, n_s, dtype=np.int64))
+    s = np.repeat(vals, r.integers(1, 9, vals.size))
+    s = r.choice(s, n_s - 3 if n_s >= 3 else n_s, replace=False)
+    if n_s >= 3:
+        s = np.concatenate([s, [-2 ** 31, -1, 2 ** 31 - 1]])
+    return np.sort(s).astype(np.int32)
+
+
+def _probe_keys(r, table, n_l):
+    """Half hits drawn from the table, half any int32, with both ends of
+    int32 and their neighbours at the end and (past the first 4) inside."""
+    ends = np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, 2 ** 31 - 2, 2 ** 31 - 1])
+    hits = r.choice(table, n_l // 2) if table.size else np.zeros(0, np.int64)
+    rest = r.integers(-2 ** 31, 2 ** 31, n_l - hits.size)
+    keys = r.permutation(np.concatenate([hits, rest]))
+    tail = min(ends.size, n_l)
+    keys[n_l - tail:] = ends[ends.size - tail:]
+    if n_l >= 4 + 2 * ends.size:
+        keys[4:4 + ends.size] = ends
+    return keys.astype(np.int32)
+
+
+B2_BUDGET = join_kernels.SHARED_TABLE_MAX
+
+
+@pytest.mark.parametrize("n_s", [0, 1, 2556, B2_BUDGET - 1, B2_BUDGET,
+                                 B2_BUDGET + 1, 119_384, 1_000_003])
+def test_probe_counts_routes_are_bit_identical(cuda, n_s):
+    """Both routes of B2 and their edge (the shared budget - 1, + 0, + 1),
+    runs of 1-8 equal keys, keys at both ends of int32, a probe length
+    that is no multiple of 4 and slices of it at every 16-byte offset."""
+    r = np.random.default_rng(n_s + 11)
+    table = _chained_table(r, n_s)
+    s_sorted, _ = join_ref.bucket_build(_i32(table, cuda))
+    keys = _i32(_probe_keys(r, table, 100_003), cuda)
+    counter = ("probe_counts" if join_kernels.probe_counts_route(n_s)
+               == "shared" else "probe_counts_sampled")
+    before = dict(_build.LAUNCHES)
+    for off in range(4):
+        got = join_kernels.probe_counts(s_sorted, keys[off:])
+        want = join_ref.bucket_probe(s_sorted, keys[off:])
+        for g, w in zip(got, want):
+            _same(g, w)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: 4 if k == counter else 0 for k in before}
+
+
+@pytest.mark.parametrize("n_l", [1, 2, 3, 5, 4099])
+@pytest.mark.parametrize("n_s", [2556, B2_BUDGET + 1])
+def test_probe_counts_short_probes(cuda, n_s, n_l):
+    """Fewer keys than one group of four, and a scalar head and tail only,
+    on both routes."""
+    r = np.random.default_rng(n_l)
+    table = _chained_table(r, n_s)
+    s_sorted, _ = join_ref.bucket_build(_i32(table, cuda))
+    keys = _i32(_probe_keys(r, table, n_l + 3), cuda)
+    for off in range(4):
+        got = join_kernels.probe_counts(s_sorted, keys[off:off + n_l])
+        want = join_ref.bucket_probe(s_sorted, keys[off:off + n_l])
+        for g, w in zip(got, want):
+            _same(g, w)
 
 
 @pytest.mark.parametrize("n_s,n_l,depth", [(1, 5000, 8), (2556, 100_003, 8),
@@ -391,14 +463,63 @@ def _qkv(device, b, s, h, kvh, d, dtype, seed=0):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, s, group, dtype, causal):
     q, k, v = _qkv(cuda, 2, s, 8, 8 // group, 128, dtype, seed=s)
-    before = _build.LAUNCHES["flash_attention"]
+    counter = ("flash_attention_tc" if fa.route(dtype, 128) == "tc"
+               else "flash_attention")
+    before = _build.LAUNCHES[counter]
     got = fa.flash_attention(q, k, v, causal=causal)
     want = fa_ref.attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= ATTN_TOL[dtype], err
-    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert _build.LAUNCHES[counter] == before + 1
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", fa.TC_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tensor_core_route_matches_plain(cuda, s, group, d,
+                                                         causal):
+    """The wgmma/TMA route at each head dim it takes: one q tile and a
+    ragged one, the diagonal tiles, GQA groups of 1, 4 and 8."""
+    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, torch.bfloat16,
+                   seed=s + d + group)
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[torch.bfloat16], err
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == "flash_attention_tc") for k in before}
+
+
+def test_flash_attention_routes_by_type_and_head_dim(cuda):
+    """bf16 at D = 128 (the served shape) and 64 takes the tensor cores;
+    f32 and bf16 at another head dim take the CUDA cores."""
+    for dtype, d, counter in ((torch.bfloat16, 128, "flash_attention_tc"),
+                              (torch.bfloat16, 64, "flash_attention_tc"),
+                              (torch.float32, 128, "flash_attention"),
+                              (torch.bfloat16, 32, "flash_attention")):
+        q, k, v = _qkv(cuda, 1, 100, 4, 2, d, dtype, seed=d)
+        before = dict(_build.LAUNCHES)
+        fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+            {k: int(k == counter) for k in before}, (dtype, d)
+
+
+def test_flash_attention_tensor_core_route_takes_more_than_65535_heads(cuda):
+    """The tensor-core grid is one dimension of q tiles x B * H, so B * H
+    is not held to the CUDA-core grid's 65,535."""
+    q, k, v = _qkv(cuda, 2, 3, 33_000, 33_000, 64, torch.bfloat16, seed=5)
+    got = fa.flash_attention(q, k, v)
+    want = fa_ref.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        ATTN_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)

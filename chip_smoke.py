@@ -29,8 +29,11 @@ Phases, each of which must pass or the script exits non-zero:
    float32 features in [0, 1], a binary label from a planted logistic
    model) through the executor in batch, stream and eager modes: the
    modes' weights must be bit-identical, every model's loss below ln 2,
-   and the SGD kernel's weights must equal its plain version's within
-   rtol=1e-4, atol=1e-5; then ``score_glm`` against numpy;
+   and the SGD kernel's weights (its ring route, and the ring at every
+   cluster size, each timed in us a step) must equal its plain version's
+   within rtol=1e-4, atol=1e-5; a hyper-parameter search over a model too
+   wide for the ring (47,236 features) takes the direct route, within the
+   same tolerance; then ``score_glm`` against numpy;
 7. multi_join: ``hash_join_multi`` at TPC-H scale factor 1, built on
    lineitem's order keys and probed with orders' (chains of 1-7), and
    built on lineitem's quantity and probed with its 50 values (chains of
@@ -38,8 +41,9 @@ Phases, each of which must pass or the script exits non-zero:
    numpy sort-based oracle bit for bit;
 8. calibrate: the traffic-generator kernel (``o = x + 1``) against its
    plain version, bit for bit, at 1 GiB of int32, at a ragged length, on
-   a misaligned slice, at 2**31 - 1 and in float32, timed beside
-   ``torch.add(x, 1)``; then ``calibrate()`` into a temporary file, loaded
+   a misaligned slice, at 2**31 - 1 and in float32, timed in turns with
+   ``torch.add(x, 1)`` and with the bulk-copy alternative (itself bit for
+   bit at 1 GiB); then ``calibrate()`` into a temporary file, loaded
    back and applied to an executor over SSB SF 10 with ``recost`` (the
    epoch must move, and a second ``recost`` with the same file must
    change no price); then the Fig. 2 analogue (``stream_copy_distributed``
@@ -56,7 +60,9 @@ Phases, each of which must pass or the script exits non-zero:
    kernel's two routes against their plain version at the llama3-8b
    prefill shape (the tensor-core route in bf16 within 2e-2, the
    CUDA-core route in f32 within 2e-5), each timed beside
-   ``scaled_dot_product_attention`` in its type; the SSD kernel against
+   ``scaled_dot_product_attention`` in its type, and misaligned bf16
+   views of q, k and v through the tensor-core route (equal to the
+   aligned launch bit for bit); the SSD kernel against
    its plain version at the mamba2-780m prefill shape (f32 within
    rtol=atol=1e-4, bf16 y within 1.6e-2).  Then ``serve`` of llama3-8b
    (32 layers) and mamba2-780m (48 layers), random weights from
@@ -102,6 +108,10 @@ TPCH_LINEITEM_ROWS = 6_001_215   # TPC-H scale factor 1
 TPCH_ORDERS_ROWS = 1_500_000
 MNIST_ROWS, MNIST_FEATURES = 60_000, 784   # MNIST's training set
 GLM_JOBS, GLM_EPOCHS, GLM_MINIBATCH = 8, 5, 16
+# a model too wide for B5's ring: RCV1's 47,236 features (Lewis et al.,
+# JMLR 2004), each row scaled to unit L2 norm as RCV1's cosine-normalised
+# TF-IDF rows are, dense and cut to 4,096 rows, 4 jobs, one epoch
+WIDE_ROWS, WIDE_FEATURES, WIDE_JOBS = 4_096, 47_236, 4
 STREAM_ROWS = 1 << 28            # 1 GiB of int32: far past the 50 MB L2
 MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
@@ -806,6 +816,10 @@ def phase_glm(dev, seed):
                              f"beyond {SGD_TOL} (max abs err {err})")
     m, n = a.shape
     steps = GLM_EPOCHS * m // GLM_MINIBATCH
+    plan = sgd_kernels.ring_plan(n, GLM_MINIBATCH)
+    if sgd_kernels.route(n, GLM_MINIBATCH) != "ring":
+        raise AssertionError(f"{n} features take the "
+                             f"{sgd_kernels.route(n, GLM_MINIBATCH)} route")
     row = dict(
         name="sgd", route="cuda",
         source="src/repro_torch/kernels/csrc/sgd.cu",
@@ -817,7 +831,9 @@ def phase_glm(dev, seed):
         bytes=4 * (m * n + m + 2 * GLM_JOBS * n + 2 * GLM_JOBS),
         ops=4 * GLM_JOBS * GLM_EPOCHS * m * n,
         shape=f"a=({m}, {n}) f32, {GLM_JOBS} jobs, {GLM_EPOCHS} epochs, "
-              f"minibatch {GLM_MINIBATCH}")
+              f"minibatch {GLM_MINIBATCH}, ring route, cluster "
+              f"{plan.cluster}, {plan.stages} stages, {plan.threads} "
+              "threads")
     streamed_bytes = 4 * GLM_JOBS * GLM_EPOCHS * m * (n + 1)
     log(f"  sgd: max abs err {err:.3e}, max rel err {rel:.3e} against the "
         f"plain version (tolerance {SGD_TOL}); the dataset streamed once "
@@ -826,6 +842,82 @@ def phase_glm(dev, seed):
         f"rate; each job is a chain of {steps} dependent steps, "
         f"{row['ms'] * 1e3 / steps:.3f} us a step")
     finish_row(row, agree=f"within {SGD_TOL}")
+    # every cluster size the ring takes, at this shape (each sums in its
+    # own fixed order, so each is held to the plain version)
+    sweep = []
+    for c in sgd_kernels.CLUSTER_SIZES:
+        p = sgd_kernels.ring_plan(n, GLM_MINIBATCH, cluster=c)
+        run = lambda: sgd_kernels.sgd_ring(  # noqa: E731
+            a, b, xs0, lrs, l2s, plan=p, **kw)
+        xs_c = run()
+        torch.cuda.synchronize()
+        if not torch.allclose(xs_c, xs_p, **SGD_TOL):
+            raise AssertionError(f"sgd ring, cluster {c}: differs from the "
+                                 f"plain version beyond {SGD_TOL}")
+        ms = time_ms(run, reps=3, warmup=1)
+        sweep.append(f"C {c} ({p.stages} stages, {p.threads} threads) "
+                     f"{ms:.4f} ms = {ms * 1e3 / steps:.3f} us a step")
+    log("  sgd ring by cluster size (all within "
+        f"{SGD_TOL} of the plain version): " + "; ".join(sweep))
+    del a, b
+
+    # B5's direct route: a model too wide for the ring, trained through
+    # the hyper-parameter search entry point with the counters zeroed
+    from repro_torch.core import channels
+    from repro_torch.core.sgd_glm import HyperParams as HP
+    from repro_torch.core.sgd_glm import hyperparam_search
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    wa = torch.rand((WIDE_ROWS, WIDE_FEATURES), generator=g, device=dev)
+    wa /= wa.norm(dim=1, keepdim=True)
+    wb = (torch.rand(WIDE_ROWS, generator=g, device=dev) > 0.5).float()
+    wgrid = [HP(0.05 / (i + 1), 0.001 * i) for i in range(WIDE_JOBS)]
+    wkw = dict(minibatch=GLM_MINIBATCH, epochs=1, kind="logreg")
+    if sgd_kernels.route(WIDE_FEATURES, GLM_MINIBATCH) != "direct":
+        raise AssertionError(f"{WIDE_FEATURES} features do not take the "
+                             "direct route")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wxs, wlosses = hyperparam_search(wa, wb, wgrid,
+                                     channels.plan("partitioned", 1, dev),
+                                     **wkw)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    counts["wide direct"] = dict(_build.LAUNCHES)
+    if counts["wide direct"]["sgd_direct"] <= 0:
+        raise AssertionError("the wide search launched no direct sgd kernel")
+    w_lrs = torch.tensor([h.lr for h in wgrid], device=dev)
+    w_l2s = torch.tensor([h.l2 for h in wgrid], device=dev)
+    w_xs0 = torch.zeros((WIDE_JOBS, WIDE_FEATURES), device=dev)
+    wkernel = lambda: sgd_kernels.sgd(  # noqa: E731
+        wa, wb, w_xs0, w_lrs, w_l2s, **wkw)
+    wplain = lambda: sgd_ref.sgd_ref(  # noqa: E731
+        wa, wb, w_xs0, w_lrs, w_l2s, **wkw)
+    want = wplain()
+    torch.cuda.synchronize()
+    werr = float((wxs - want).abs().max())
+    if not torch.allclose(wxs, want, **SGD_TOL) \
+            or not bool(torch.isfinite(wlosses).all()):
+        raise AssertionError(f"sgd direct: differs from its plain version "
+                             f"beyond {SGD_TOL} (max abs err {werr})")
+    wsteps = WIDE_ROWS // GLM_MINIBATCH
+    direct_row = dict(
+        name="sgd_direct", route="cuda",
+        source="src/repro_torch/kernels/csrc/sgd.cu",
+        replaces="src/repro/kernels/sgd/sgd.py:55", max_abs_err=werr,
+        ms=time_ms(wkernel, reps=3, warmup=1),
+        plain_ms=time_ms(wplain, reps=2, warmup=1), library_ms=None,
+        bytes=4 * (WIDE_ROWS * WIDE_FEATURES + WIDE_ROWS
+                   + 2 * WIDE_JOBS * WIDE_FEATURES + 2 * WIDE_JOBS),
+        ops=4 * WIDE_JOBS * WIDE_ROWS * WIDE_FEATURES,
+        shape=f"a=({WIDE_ROWS}, {WIDE_FEATURES}) f32, {WIDE_JOBS} jobs, "
+              f"1 epoch, minibatch {GLM_MINIBATCH}, direct route")
+    log(f"  wide search ({WIDE_FEATURES} features, direct route): "
+        f"{wide_s * 1e3:.3f} ms with its losses, launches "
+        f"{counts['wide direct']}; {wsteps} dependent steps a job, "
+        f"{direct_row['ms'] * 1e3 / wsteps:.3f} us a step")
+    finish_row(direct_row, agree=f"within {SGD_TOL}")
+    del wa, wb, wxs, want
 
     # score with the best model (trained fresh through execute, as the
     # port has no model cache) against numpy in float64
@@ -846,7 +938,7 @@ def phase_glm(dev, seed):
     log(f"  score_glm: {MNIST_ROWS} scores of the argmin model equal "
         f"numpy's sigmoid(a @ x) within rtol=1e-5, atol=1e-5 (max abs err "
         f"{score_err:.3e}); {score_s * 1e3:.3f} ms with its fresh train")
-    return counts, row
+    return counts, [row, direct_row]
 
 
 def phase_multi_join(dev, tables):
@@ -968,16 +1060,51 @@ def phase_calibrate(dev, ssb_tables, spill_dir):
         raise AssertionError("stream_copy: 2**31 - 1 did not wrap")
     log(f"calibrate: stream_copy bit-identical to its plain version on "
         f"{', '.join(cases)}")
+    # the measured alternative: bulk copies through a shared-memory ring,
+    # one persistent block an SM
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bulk_out = torch.empty_like(x)
+    bulk_tile = torch.empty(1, dtype=torch.int32, device=dev)
+    bulk_fn = _build.function("stream_copy_bulk_i32")
+
+    def bulk():
+        _build.check(bulk_fn(x.data_ptr(), bulk_out.data_ptr(), STREAM_ROWS,
+                             sms, bulk_tile.data_ptr(),
+                             _build.stream_handle(dev)),
+                     "stream_copy_bulk_i32")
+    bulk()
+    torch.cuda.synchronize()
+    if not torch.equal(bulk_out, bw_ref.stream_copy_ref(x)):
+        raise AssertionError("stream_copy_bulk: differs from the plain "
+                             "version")
+    plan = stream.plan_stream_block(STREAM_ROWS, 4)
+    # kernel, library, alternative, kernel, library, alternative: the
+    # means of the two turns
+    turns = {"kernel": [], "library": [], "bulk": []}
+    for _ in range(2):
+        turns["kernel"].append(time_ms(lambda: stream.stream_copy(x),
+                                       reps=10))
+        turns["library"].append(time_ms(lambda: torch.add(x, 1), reps=10))
+        turns["bulk"].append(time_ms(bulk, reps=10))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    del bulk_out
     row = dict(
         name="stream_copy", route="cuda",
         source="src/repro_torch/kernels/csrc/bandwidth.cu",
         replaces="src/repro/core/bandwidth.py:27", max_abs_err=0.0,
-        ms=time_ms(lambda: stream.stream_copy(x), reps=10),
+        ms=ms["kernel"],
         plain_ms=time_ms(lambda: bw_ref.stream_copy_ref(x), reps=10),
-        library_ms=time_ms(lambda: torch.add(x, 1), reps=10),
+        library_ms=ms["library"],
         bytes=2 * 4 * STREAM_ROWS,
-        shape=f"x=({STREAM_ROWS},) int32")
+        shape=f"x=({STREAM_ROWS},) int32, grid {plan.grid}, tiles of "
+              f"{plan.tile} vectors, {plan.unroll} loads in flight a "
+              "thread")
     finish_row(row)
+    log(f"  stream_copy turns (ms): kernel {turns['kernel']}, torch.add "
+        f"{turns['library']}, bulk-copy ring {turns['bulk']}; kernel / "
+        f"torch.add {ms['kernel'] / ms['library']:.4f}, bulk-copy ring "
+        f"{ms['bulk']:.4f} ms ({row['bound_ms'] / ms['bulk']:.1%} of the "
+        f"rate, {sms} blocks), bit-identical")
 
     # the calibration run: the slice's path through the kernel
     path = os.path.join(spill_dir, "BENCH_calibration_torch.json")
@@ -1161,6 +1288,24 @@ def phase_lm_kernels(dev):
                   f"{tname}, causal, {fa.route(dtype, d)} route"))
         extra = ""
         if dtype == torch.bfloat16:
+            # each operand as a contiguous view 2 bytes past a 16-byte
+            # mark, which TMA cannot read in place: the wrapper copies it,
+            # so the output equals the aligned launch's bit for bit
+            aligned = fa.flash_attention(q, k, v)
+            for which in range(3):
+                ops = [q, k, v]
+                buf = torch.empty(ops[which].numel() + 1, dtype=dtype,
+                                  device=dev)
+                ops[which] = buf[1:].view(ops[which].shape)
+                ops[which].copy_((q, k, v)[which])
+                if not torch.equal(fa.flash_attention(*ops), aligned):
+                    raise AssertionError(f"{name}: a misaligned "
+                                         f"{'qkv'[which]} view changes the "
+                                         "output")
+                del ops, buf
+            del aligned
+            extra = ("; misaligned q, k and v views (2 bytes off) equal "
+                     "the aligned launch bit for bit")
             # the same bf16 inputs through the CUDA-core kernel, called
             # directly (the wrapper routes bf16 at D = 128 to the tensor
             # cores): the redesign against the kernel it replaces
@@ -1175,7 +1320,7 @@ def phase_lm_kernels(dev):
             cuda_core()
             core_err = float((o.float() - fa_ref.attention_plain(q, k, v)
                               .float()).abs().max())
-            extra = (f"; the CUDA-core kernel on the same bf16 inputs "
+            extra += (f"; the CUDA-core kernel on the same bf16 inputs "
                      f"{time_ms(cuda_core, reps=5):.4f} ms (max abs err "
                      f"{core_err:.3e})")
             del o
@@ -1424,18 +1569,19 @@ def main(argv=None) -> int:
         spill_counts = phase_spill(dev, ssb, cal, spill_dir)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
-    glm_counts, sgd_row = phase_glm(dev, args.seed)
+    glm_counts, sgd_rows = phase_glm(dev, args.seed)
     multi_counts, multi_row = phase_multi_join(dev, tpch)
     del tpch
     log("lm kernels against their plain versions at the serving shapes:")
     lm_rows = phase_lm_kernels(dev)
     lm_counts = phase_lm(dev, args.seed)
-    rows += [multi_row, sgd_row, copy_row] + lm_rows
+    rows += [multi_row, *sgd_rows, copy_row] + lm_rows
 
     key = {"select_range": "select", "probe_counts": "probe_counts",
            "probe_counts_sampled": "probe_counts_sampled",
            "hash_probe": "probe", "probe_multi": "probe_multi",
-           "sgd": "sgd", "stream_copy": "stream_copy",
+           "sgd": "sgd", "sgd_direct": "sgd_direct",
+           "stream_copy": "stream_copy",
            "flash_attention_tc": "flash_attention_tc",
            "flash_attention": "flash_attention", "ssd": "ssd"}
     for row in rows:
@@ -1452,6 +1598,14 @@ def main(argv=None) -> int:
     log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
         f"calibrate launches: {cal_counts}; spill launches: {spill_counts}; "
         f"lm launches: {lm_counts}")
+    by_name = {row["name"]: row for row in rows}
+    copy, ring = by_name["stream_copy"], by_name["sgd"]
+    steps = GLM_EPOCHS * MNIST_ROWS // GLM_MINIBATCH
+    log(f"stream_copy {copy['ms']:.4f} ms against torch.add(x, 1) "
+        f"{copy['library_ms']:.4f} ms ({copy['ms'] / copy['library_ms']:.4f}"
+        f"x), {copy['bound_ms'] / copy['ms']:.1%} of the byte bound; sgd "
+        f"ring {ring['ms']:.4f} ms a launch at the MNIST shape, "
+        f"{ring['ms'] * 1e3 / steps:.3f} us a step")
     log(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

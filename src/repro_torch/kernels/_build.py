@@ -52,14 +52,22 @@ SIGNATURES = {
     # stream
     "hash_probe_i32": ("join",
                        (_P, _P, _I64, _P, _I64, _I32, _I64, _P, _P, _P)),
+    # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, cluster,
+    # stages, threads, xs, stream
+    "sgd_ring_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                             _I32, _I32, _I32, _I32, _I32, _P, _P)),
     # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, xs, stream
-    "sgd_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
-                        _I32, _P, _P)),
+    "sgd_direct_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                               _I32, _I32, _P, _P)),
     # device, out (int32*)
     "sgd_max_shared_bytes": ("sgd", (_I32, ctypes.POINTER(_I32))),
-    # x, o, n, grid, stream
-    "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _P)),
-    "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _P)),
+    # x, o, n, grid, unroll, next_tile (4-byte scratch), stream
+    "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
+    "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
+    # x, o, n, grid (persistent blocks), next_tile, stream: the measured
+    # alternative
+    "stream_copy_bulk_i32": ("bandwidth", (_P, _P, _I64, _I32, _P, _P)),
+    "stream_copy_bulk_f32": ("bandwidth", (_P, _P, _I64, _I32, _P, _P)),
     # q, k, v, o, b, s, h, kv_heads, d, causal, bf16, scale, stream
     "flash_attention_fwd": ("flash_attention",
                             (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
@@ -76,13 +84,15 @@ SIGNATURES = {
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
 # launches its kernel (never on the plain CPU path): B2's shared-memory
-# and sampled routes, B7's CUDA-core ("flash_attention") and tensor-core
+# and sampled routes, B5's ring ("sgd") and direct ("sgd_direct") routes,
+# B7's CUDA-core ("flash_attention") and tensor-core
 # ("flash_attention_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
                             "probe_counts_sampled": 0,
                             "probe_multi": 0, "probe": 0, "sgd": 0,
+                            "sgd_direct": 0,
                             "stream_copy": 0, "flash_attention": 0,
                             "flash_attention_tc": 0, "ssd": 0}
 

@@ -2,9 +2,10 @@
 version.
 
 The CUDA kernel (``kernels/csrc/bandwidth.cu``) replaces the TPU's
-``stream_copy_pallas``: a grid-stride loop over 16-byte vectors with a
-scalar head and tail, the grid planned by ``core/shim.py`` to fill the
-card.  ``stream_copy`` launches it for CUDA int32 and float32 tensors
+``stream_copy_pallas``: a wave of blocks claims tiles of 16-byte vectors
+from a counter (a 4-byte scratch the wrapper allocates and the launcher
+zeroes), a thread keeping several loads in flight, with a scalar head
+and tail; ``core/shim.py`` plans the grid and the loads in flight.  ``stream_copy`` launches it for CUDA int32 and float32 tensors
 and uses ``ref.stream_copy_ref`` for CPU tensors; any other type on the
 card raises ``TypeError`` instead of taking the plain version.
 """
@@ -59,9 +60,10 @@ def stream_copy(x: torch.Tensor, *,
     if n == 0:
         return out
     plan = plan_stream_block(n, x.element_size())
+    next_tile = torch.empty(1, dtype=torch.int32, device=x.device)
     fn = _build.function(symbol)
-    rc = fn(x.data_ptr(), out.data_ptr(), n, plan.grid,
-            _build.stream_handle(x.device))
+    rc = fn(x.data_ptr(), out.data_ptr(), n, plan.grid, plan.unroll,
+            next_tile.data_ptr(), _build.stream_handle(x.device))
     _build.check(rc, symbol)
     _build.LAUNCHES["stream_copy"] += 1
     return out

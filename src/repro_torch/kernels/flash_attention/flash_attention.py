@@ -13,7 +13,10 @@ and the head dim before the launch:
 
 Both keep the running (m, l, acc) in f32, skip kv tiles above the causal
 diagonal, read kv heads in place for GQA and mask the ragged last tiles,
-so any length works.  ``flash_attention`` launches a kernel for CUDA
+so any length works.  TMA takes 16-byte-aligned addresses only, so the
+tensor-core route first copies an operand that starts off a 16-byte mark
+(a contiguous view such as ``buf[1:]``) into fresh memory.
+``flash_attention`` launches a kernel for CUDA
 tensors and takes ``ref.attention_plain`` for CPU tensors; there is no
 fallback from the card to the plain version.
 """
@@ -77,6 +80,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     stream = _build.stream_handle(q.device)
     if route(q.dtype, d) == "tc":
+        # TMA reads from 16-byte-aligned addresses only: a contiguous view
+        # that starts off a 16-byte mark is copied into fresh memory
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
         if b * h * -(-s // 128) >= 2 ** 31:
             raise ValueError(f"B * H * ceil(S / 128) = "
                              f"{b * h * -(-s // 128)}: the grid takes at "

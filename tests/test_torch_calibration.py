@@ -134,6 +134,13 @@ def test_stream_block_plan_fills_the_card_with_16_byte_vectors(n,
     # a grid that is not full covers every vector in one pass
     if p.grid < shim.H100_SMS * shim.BLOCKS_PER_SM:
         assert p.threads * p.vector * p.grid >= n
+    # the blocks claim tiles of `unroll` vectors a thread, several loads in
+    # flight a thread; a grid short of a wave has a vector for every
+    # thread, and no block without one
+    assert p.unroll in (2, 4, 8)
+    assert p.tile == p.threads * p.unroll
+    if p.grid < shim.H100_SMS * shim.BLOCKS_PER_SM:
+        assert p.threads * p.vector * (p.grid - 1) < n
     with pytest.raises(ValueError):
         shim.plan_stream_block(10, 3)
 

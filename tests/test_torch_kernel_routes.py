@@ -1,9 +1,11 @@
 """The routes of the port's redesigned kernels, decided in Python before a
-launch: B7's (dtype, head dim) -> tensor cores or CUDA cores, and B2's
-table length -> shared memory or sample.  Both are plain functions, so
-they are checked here on the CPU; the kernels behind them run only on the
-card (``tests/test_torch_kernels_cuda.py``).  On CPU tensors both wrappers
-take their plain versions and count no launch."""
+launch: B7's (dtype, head dim) -> tensor cores or CUDA cores, B2's
+table length -> shared memory or sample, and B5's (features, minibatch)
+-> a ring of minibatch tiles on a cluster of blocks, or the direct
+kernel.  All are plain functions, so they are checked here on the CPU;
+the kernels behind them run only on the card
+(``tests/test_torch_kernels_cuda.py``).  On CPU tensors the wrappers take
+their plain versions and count no launch."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,8 @@ from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.join import join as jk
 from repro_torch.kernels.join import ref as join_ref
+from repro_torch.kernels.sgd import ref as sgd_ref
+from repro_torch.kernels.sgd import sgd as sgd_kernels
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -68,3 +72,72 @@ def test_probe_counts_on_cpu_tensors_is_the_plain_version(n_s):
     for g, w in zip(got, join_ref.bucket_probe(s_sorted, keys)):
         assert torch.equal(g, w)
     assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,minibatch,want", [
+    (4, 16, "ring"), (784, 16, "ring"), (1_028, 16, "ring"),
+    (4_096, 16, "ring"), (8_192, 16, "ring"), (8_196, 16, "direct"),
+    (1, 16, "direct"), (3, 16, "direct"), (785, 16, "direct"),
+    (47_236, 16, "direct"), (50_000, 16, "direct"), (0, 16, "direct"),
+    (784, 4, "ring"), (784, 8, "ring"), (784, 1, "direct"),
+    (784, 2, "direct"), (784, 12, "direct"), (784, 32, "direct")])
+def test_sgd_route(n, minibatch, want):
+    """The ring's bulk copies read whole 16-byte groups of features, so
+    it takes n % 4 == 0 and minibatches of 4, 8 and 16 where a ring of
+    two or more tiles fits; every other width takes the direct kernel."""
+    assert sgd_kernels.route(n, minibatch) == want
+
+
+@pytest.mark.parametrize("n,cluster,stages,threads", [
+    (4, 1, 4, 32), (784, 1, 4, 224), (1_024, 1, 3, 256),
+    (1_028, 2, 4, 160), (2_048, 2, 3, 256), (4_096, 4, 3, 256),
+    (8_192, 8, 3, 256)])
+def test_sgd_ring_plan_at_minibatch_16(n, cluster, stages, threads):
+    """The MNIST shape (784 features) runs on one block of 7 warps with a
+    4-tile ring; wider models take the smallest cluster whose blocks hold
+    a ring of 3 or more tiles."""
+    plan = sgd_kernels.ring_plan(n, 16)
+    assert plan == sgd_kernels.RingPlan(cluster, stages, threads)
+    assert 4 * plan.cluster * plan.threads >= n
+    assert sgd_kernels.ring_shared_bytes(n, 16, plan) <= \
+        sgd_kernels.H100_SHARED_BYTES
+
+
+@pytest.mark.parametrize("minibatch", sgd_kernels.RING_MINIBATCHES)
+@pytest.mark.parametrize("n", [4, 100, 784, 1_000, 3_000, 8_192])
+def test_sgd_ring_plans_fit_and_cover_every_feature(n, minibatch):
+    """Every plan's blocks fit the opt-in shared memory, cover all n
+    features, and hold whole warps of at most 256 threads; a forced
+    cluster size keeps those properties where it fits at all."""
+    for cluster in (None, *sgd_kernels.CLUSTER_SIZES):
+        plan = sgd_kernels.ring_plan(n, minibatch, cluster=cluster)
+        if plan is None:
+            assert cluster is not None
+            continue
+        assert plan.threads % 32 == 0
+        assert plan.threads <= sgd_kernels.RING_THREADS_MAX
+        assert 4 * plan.cluster * plan.threads >= n
+        # no block is all padding warps
+        assert plan.threads - 32 < -(-(n // 4) // plan.cluster)
+        assert sgd_kernels.ring_shared_bytes(n, minibatch, plan) <= \
+            sgd_kernels.H100_SHARED_BYTES
+        assert plan.stages in sgd_kernels.RING_STAGES
+
+
+def test_sgd_on_cpu_tensors_is_the_plain_version():
+    r = np.random.default_rng(4)
+    a = torch.from_numpy(r.uniform(0, 1, (64, 784)).astype(np.float32))
+    b = torch.from_numpy((r.uniform(size=64) > 0.5).astype(np.float32))
+    xs0 = torch.zeros(3, 784)
+    lrs, l2s = torch.tensor([0.1, 0.01, 0.001]), torch.zeros(3)
+    before = dict(_build.LAUNCHES)
+    got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
+                          kind="logreg")
+    assert torch.equal(got, sgd_ref.sgd_ref(a, b, xs0, lrs, l2s,
+                                            minibatch=16, epochs=2,
+                                            kind="logreg"))
+    assert _build.LAUNCHES == before
+    with pytest.raises(ValueError, match="card"):
+        sgd_kernels.sgd_ring(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
+                             kind="logreg",
+                             plan=sgd_kernels.ring_plan(784, 16))

@@ -288,14 +288,18 @@ def _sgd_inputs(device, m, n, k, kind, seed=0):
 @pytest.mark.parametrize("k", [1, 8, 33])
 @pytest.mark.parametrize("kind", ["logreg", "ridge"])
 def test_sgd_kernel_matches_plain(cuda, n, k, kind):
+    # each route counts its own launches: the ring "sgd", the direct
+    # kernel (n % 4 != 0) "sgd_direct"
+    counter = {"ring": "sgd", "direct": "sgd_direct"}[
+        sgd_kernels.route(n, 16)]
     a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 256, n, k, kind)
-    before = _build.LAUNCHES["sgd"]
+    before = _build.LAUNCHES[counter]
     got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=3,
                           kind=kind)
     want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, minibatch=16, epochs=3,
                            kind=kind)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["sgd"] == before + 1
+    assert _build.LAUNCHES[counter] == before + 1
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **SGD_TOL)
@@ -316,6 +320,110 @@ def test_sgd_kernel_streamed_equals_one_launch_bitwise(cuda, kind):
     _same(xs, once)
     alone = sgd_kernels.sgd(a, b, xs0[3:4].contiguous(), lrs[3:4], l2s[3:4],
                             minibatch=16, epochs=3, kind=kind)
+    _same(alone[0], once[3])
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 784, 785, 1028, 4096])
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("kind", ["logreg", "ridge"])
+def test_sgd_ring_route_matches_plain(cuda, n, k, kind):
+    """Every width through ``sgd``: the ring on one block (n <= 1,024) or
+    a cluster of them (1,028 features on 2 blocks, 4,096 on 4), where
+    n % 4 == 0; the direct kernel where not (the ring's bulk copies read
+    whole 16-byte groups).  Exactly one launch, counted on its route."""
+    route = sgd_kernels.route(n, 16)
+    assert route == ("ring" if n % 4 == 0 else "direct")
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 320, n, k, kind)
+    before = dict(_build.LAUNCHES)
+    got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
+                          kind=kind)
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
+                           kind=kind)
+    torch.cuda.synchronize()
+    counter = {"ring": "sgd", "direct": "sgd_direct"}[route]
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c == counter) for c in before}
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+
+
+@pytest.mark.parametrize("cluster", sgd_kernels.CLUSTER_SIZES)
+@pytest.mark.parametrize("minibatch", sgd_kernels.RING_MINIBATCHES)
+def test_sgd_ring_every_cluster_size_and_minibatch(cuda, cluster, minibatch):
+    """Every cluster size the ring takes (the ones timed against each
+    other at the MNIST shape) and every minibatch it is built for, at
+    784 features, against the plain version."""
+    plan = sgd_kernels.ring_plan(784, minibatch, cluster=cluster)
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 256, 784, 8, "logreg")
+    kw = dict(minibatch=minibatch, epochs=2, kind="logreg")
+    got = sgd_kernels.sgd_ring(a, b, xs0, lrs, l2s, plan=plan, **kw)
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+
+
+@pytest.mark.parametrize("n", [784, 785, 4096])
+def test_sgd_ring_route_on_a_misaligned_dataset_is_bit_identical(cuda, n):
+    """A dataset or label column that starts 4 bytes past a 16-byte mark
+    (which the ring's bulk copies cannot read in place, so the wrapper
+    copies it first): the same sums, the same bits."""
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 160, n, 3, "logreg")
+    buf = torch.empty(a.numel() + 1, dtype=torch.float32, device=cuda)
+    a_off = buf[1:].view(a.shape)
+    a_off.copy_(a)
+    b_off = torch.empty(b.numel() + 1, dtype=torch.float32,
+                        device=cuda)[1:]
+    b_off.copy_(b)
+    assert a_off.data_ptr() % 16 != 0 and b_off.data_ptr() % 16 != 0
+    kw = dict(minibatch=16, epochs=2, kind="logreg")
+    want = sgd_kernels.sgd(a, b, xs0, lrs, l2s, **kw)
+    _same(sgd_kernels.sgd(a_off, b, xs0, lrs, l2s, **kw), want)
+    _same(sgd_kernels.sgd(a, b_off, xs0, lrs, l2s, **kw), want)
+
+
+@pytest.mark.parametrize("n,minibatch", [(50_000, 16), (9_000, 16),
+                                         (785, 16), (784, 12), (784, 32),
+                                         (784, 2)])
+@pytest.mark.parametrize("kind", ["logreg", "ridge"])
+def test_sgd_direct_route_matches_plain(cuda, n, minibatch, kind):
+    """The direct route: models too wide for a ring (n = 50,000 needs
+    200 KB of the block's shared memory) and minibatches the ring is not
+    built for."""
+    assert sgd_kernels.route(n, minibatch) == "direct"
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 4 * 96, n, 3, kind)
+    before = dict(_build.LAUNCHES)
+    kw = dict(minibatch=minibatch, epochs=2, kind=kind)
+    got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, **kw)
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
+    torch.cuda.synchronize()
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c == "sgd_direct") for c in before}
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+
+
+@pytest.mark.parametrize("n,minibatch", [(784, 16), (784, 8), (1028, 16),
+                                         (4096, 16), (785, 16), (9_000, 16),
+                                         (784, 12)])
+def test_sgd_streamed_equals_one_launch_bitwise_on_each_route(cuda, n,
+                                                              minibatch):
+    """Epochs over morsels (one launch each, weights carried) against one
+    launch over all rows, and a job alone against the job in a group, on
+    the ring (one block at two minibatches, clusters of 2 and 4) and the
+    direct route (n % 4 != 0, too wide, a minibatch of 12)."""
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 1440, n, 5, "logreg")
+    kw = dict(minibatch=minibatch, kind="logreg")
+    once = sgd_kernels.sgd(a, b, xs0, lrs, l2s, epochs=3, **kw)
+    xs = xs0
+    for _ in range(3):
+        for lo in range(0, 1440, 480):
+            xs = sgd_kernels.sgd(a[lo:lo + 480], b[lo:lo + 480], xs, lrs,
+                                 l2s, epochs=1, **kw)
+    _same(xs, once)
+    alone = sgd_kernels.sgd(a, b, xs0[3:4].contiguous(), lrs[3:4], l2s[3:4],
+                            epochs=3, **kw)
     _same(alone[0], once[3])
 
 
@@ -393,6 +501,68 @@ def test_stream_copy_kernel_on_misaligned_slices(cuda, start, dtype):
         out = torch.empty(x.shape[0] + 1, dtype=dtype, device=cuda)[1:]
         _same(stream.stream_copy(x, out=out), bw_ref.stream_copy_ref(x))
     _same(base, before)                          # x is never written
+
+
+def test_stream_copy_kernel_at_one_gib_claims_tiles(cuda):
+    """The calibration's shape: 1 GiB of int32, one wave of blocks
+    claiming tiles until the array is done, several loads in flight a
+    thread."""
+    n = 1 << 28
+    plan = stream.plan_stream_block(n, 4)
+    assert plan.grid * plan.tile * plan.vector < n and plan.unroll > 1
+    x = torch.arange(n, dtype=torch.int32, device=cuda)
+    x[-1] = 2 ** 31 - 1
+    got = stream.stream_copy(x)
+    torch.cuda.synchronize()
+    assert bool(torch.equal(got, bw_ref.stream_copy_ref(x)))
+    assert int(got[-1]) == -2 ** 31
+    del got
+    out = torch.full_like(x, 7)
+    assert stream.stream_copy(x, out=out) is out
+    assert bool(torch.equal(out, bw_ref.stream_copy_ref(x)))
+
+
+@pytest.mark.parametrize("x_start", [0, 1, 2, 3])
+@pytest.mark.parametrize("out_start", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_stream_copy_kernel_every_start_offset_into_out(cuda, x_start,
+                                                        out_start, dtype):
+    """x and out at every offset within 16 bytes, ragged lengths around
+    one thread row and one chunk: vectors where the offsets agree,
+    scalars where they differ, the same bits either way."""
+    n_max = (1 << 18) + 11
+    base = torch.arange(-(n_max // 2), n_max - n_max // 2 + 4,
+                        device=cuda).to(dtype)
+    for n in (1, 3, 1023, 1024 + 5, n_max):
+        x = base[x_start:x_start + n]
+        buf = torch.full((n + 4,), -5, dtype=dtype, device=cuda)
+        out = buf[out_start:out_start + n]
+        before = _build.LAUNCHES["stream_copy"]
+        stream.stream_copy(x, out=out)
+        _same(out, bw_ref.stream_copy_ref(x))
+        assert _build.LAUNCHES["stream_copy"] == before + 1
+        # nothing outside out is written
+        assert bool((buf[:out_start] == -5).all())
+        assert bool((buf[out_start + n:] == -5).all())
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096 * 8 * 132 + 4096 + 3, 1 << 24])
+@pytest.mark.parametrize("start", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_stream_copy_bulk_alternative_matches_plain(cuda, n, start, dtype):
+    """The bulk-copy alternative that the calibration kernel is timed
+    against: 16 KB chunks through a shared-memory ring, its scalar head
+    and the rest past the last whole chunk through the vector kernel."""
+    x = torch.arange(n + start, device=cuda).to(dtype)[start:]
+    out = stream._out_like(x)
+    symbol = {torch.int32: "stream_copy_bulk_i32",
+              torch.float32: "stream_copy_bulk_f32"}[dtype]
+    fn = _build.function(symbol)
+    next_tile = torch.empty(1, dtype=torch.int32, device=cuda)
+    _build.check(fn(x.data_ptr(), out.data_ptr(), n, 132,
+                    next_tile.data_ptr(), _build.stream_handle(x.device)),
+                 symbol)
+    _same(out, bw_ref.stream_copy_ref(x))
 
 
 def test_stream_copy_kernel_wraps_int32_and_refuses_other_types(cuda):
@@ -542,6 +712,31 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
                            v)
+
+
+@pytest.mark.parametrize("s", [1, 129])
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_tensor_core_route_takes_misaligned_views(cuda, s,
+                                                                  which):
+    """A contiguous bf16 view that starts 2 bytes past a 16-byte mark (one
+    operand at a time) runs through the tensor-core route: TMA needs
+    aligned addresses, so the wrapper copies that operand first."""
+    q, k, v = _qkv(cuda, 1, s, 4, 2, 128, torch.bfloat16, seed=s)
+    ops = {"q": q, "k": k, "v": v}
+    t = ops[which]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    ops[which] = view
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(ops["q"], ops["k"], ops["v"])
+    want = fa_ref.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        ATTN_TOL[torch.bfloat16]
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == "flash_attention_tc") for k in before}
 
 
 # ---- SSD chunk scan (B8) --------------------------------------------------- #

@@ -42,8 +42,7 @@ Phases, each of which must pass or the script exits non-zero:
 8. calibrate: the traffic-generator kernel (``o = x + 1``) against its
    plain version, bit for bit, at 1 GiB of int32, at a ragged length, on
    a misaligned slice, at 2**31 - 1 and in float32, timed in turns with
-   ``torch.add(x, 1)`` and with the bulk-copy alternative (itself bit for
-   bit at 1 GiB); then ``calibrate()`` into a temporary file, loaded
+   ``torch.add(x, 1)``; then ``calibrate()`` into a temporary file, loaded
    back and applied to an executor over SSB SF 10 with ``recost`` (the
    epoch must move, and a second ``recost`` with the same file must
    change no price); then the Fig. 2 analogue (``stream_copy_distributed``
@@ -832,8 +831,7 @@ def phase_glm(dev, seed):
         ops=4 * GLM_JOBS * GLM_EPOCHS * m * n,
         shape=f"a=({m}, {n}) f32, {GLM_JOBS} jobs, {GLM_EPOCHS} epochs, "
               f"minibatch {GLM_MINIBATCH}, ring route, cluster "
-              f"{plan.cluster}, {plan.stages} stages, {plan.threads} "
-              "threads")
+              f"{plan.cluster}, {plan.threads} + 32 threads")
     streamed_bytes = 4 * GLM_JOBS * GLM_EPOCHS * m * (n + 1)
     log(f"  sgd: max abs err {err:.3e}, max rel err {rel:.3e} against the "
         f"plain version (tolerance {SGD_TOL}); the dataset streamed once "
@@ -855,7 +853,7 @@ def phase_glm(dev, seed):
             raise AssertionError(f"sgd ring, cluster {c}: differs from the "
                                  f"plain version beyond {SGD_TOL}")
         ms = time_ms(run, reps=3, warmup=1)
-        sweep.append(f"C {c} ({p.stages} stages, {p.threads} threads) "
+        sweep.append(f"C {c} ({p.threads} + 32 threads) "
                      f"{ms:.4f} ms = {ms * 1e3 / steps:.3f} us a step")
     log("  sgd ring by cluster size (all within "
         f"{SGD_TOL} of the plain version): " + "; ".join(sweep))
@@ -1060,34 +1058,14 @@ def phase_calibrate(dev, ssb_tables, spill_dir):
         raise AssertionError("stream_copy: 2**31 - 1 did not wrap")
     log(f"calibrate: stream_copy bit-identical to its plain version on "
         f"{', '.join(cases)}")
-    # the measured alternative: bulk copies through a shared-memory ring,
-    # one persistent block an SM
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bulk_out = torch.empty_like(x)
-    bulk_tile = torch.empty(1, dtype=torch.int32, device=dev)
-    bulk_fn = _build.function("stream_copy_bulk_i32")
-
-    def bulk():
-        _build.check(bulk_fn(x.data_ptr(), bulk_out.data_ptr(), STREAM_ROWS,
-                             sms, bulk_tile.data_ptr(),
-                             _build.stream_handle(dev)),
-                     "stream_copy_bulk_i32")
-    bulk()
-    torch.cuda.synchronize()
-    if not torch.equal(bulk_out, bw_ref.stream_copy_ref(x)):
-        raise AssertionError("stream_copy_bulk: differs from the plain "
-                             "version")
     plan = stream.plan_stream_block(STREAM_ROWS, 4)
-    # kernel, library, alternative, kernel, library, alternative: the
-    # means of the two turns
-    turns = {"kernel": [], "library": [], "bulk": []}
+    # kernel, library, kernel, library: the means of the two turns
+    turns = {"kernel": [], "library": []}
     for _ in range(2):
         turns["kernel"].append(time_ms(lambda: stream.stream_copy(x),
                                        reps=10))
         turns["library"].append(time_ms(lambda: torch.add(x, 1), reps=10))
-        turns["bulk"].append(time_ms(bulk, reps=10))
     ms = {k: sum(v) / len(v) for k, v in turns.items()}
-    del bulk_out
     row = dict(
         name="stream_copy", route="cuda",
         source="src/repro_torch/kernels/csrc/bandwidth.cu",
@@ -1101,10 +1079,8 @@ def phase_calibrate(dev, ssb_tables, spill_dir):
               "thread")
     finish_row(row)
     log(f"  stream_copy turns (ms): kernel {turns['kernel']}, torch.add "
-        f"{turns['library']}, bulk-copy ring {turns['bulk']}; kernel / "
-        f"torch.add {ms['kernel'] / ms['library']:.4f}, bulk-copy ring "
-        f"{ms['bulk']:.4f} ms ({row['bound_ms'] / ms['bulk']:.1%} of the "
-        f"rate, {sms} blocks), bit-identical")
+        f"{turns['library']}; kernel / torch.add "
+        f"{ms['kernel'] / ms['library']:.4f}")
 
     # the calibration run: the slice's path through the kernel
     path = os.path.join(spill_dir, "BENCH_calibration_torch.json")

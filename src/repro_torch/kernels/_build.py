@@ -53,9 +53,9 @@ SIGNATURES = {
     "hash_probe_i32": ("join",
                        (_P, _P, _I64, _P, _I64, _I32, _I64, _P, _P, _P)),
     # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, cluster,
-    # stages, threads, xs, stream
+    # threads, xs, stream
     "sgd_ring_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                             _I32, _I32, _I32, _I32, _I32, _P, _P)),
+                             _I32, _I32, _I32, _I32, _P, _P)),
     # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, xs, stream
     "sgd_direct_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                                _I32, _I32, _P, _P)),
@@ -64,10 +64,6 @@ SIGNATURES = {
     # x, o, n, grid, unroll, next_tile (4-byte scratch), stream
     "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
     "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
-    # x, o, n, grid (persistent blocks), next_tile, stream: the measured
-    # alternative
-    "stream_copy_bulk_i32": ("bandwidth", (_P, _P, _I64, _I32, _P, _P)),
-    "stream_copy_bulk_f32": ("bandwidth", (_P, _P, _I64, _I32, _P, _P)),
     # q, k, v, o, b, s, h, kv_heads, d, causal, bf16, scale, stream
     "flash_attention_fwd": ("flash_attention",
                             (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,

@@ -5,9 +5,10 @@ The CUDA kernel (``kernels/csrc/bandwidth.cu``) replaces the TPU's
 ``stream_copy_pallas``: a wave of blocks claims tiles of 16-byte vectors
 from a counter (a 4-byte scratch the wrapper allocates and the launcher
 zeroes), a thread keeping several loads in flight, with a scalar head
-and tail; ``core/shim.py`` plans the grid and the loads in flight.  ``stream_copy`` launches it for CUDA int32 and float32 tensors
-and uses ``ref.stream_copy_ref`` for CPU tensors; any other type on the
-card raises ``TypeError`` instead of taking the plain version.
+and tail; ``core/shim.py`` plans the grid and the loads in flight.
+``stream_copy`` launches it for CUDA int32 and float32 tensors and uses
+``ref.stream_copy_ref`` for CPU tensors; any other type on the card
+raises ``TypeError`` instead of taking the plain version.
 """
 from __future__ import annotations
 

@@ -8,37 +8,31 @@
 //   back, because signed overflow is undefined in C++.
 // Bound: device-memory bytes, 2 * n * 4 (0.641 ms for 1 GiB of int32 at
 //   3.35 TB/s); one add an element is far below the card's rates.
-// Design (stream_copy_*): a wave of two resident blocks per SM, each
-//   claiming tiles of `unroll` x 256 16-byte vectors (int4 / float4) from
-//   a counter in device memory (atomicAdd) until none is left, so a block
-//   that draws less bandwidth than its neighbours takes fewer tiles and
-//   no SM idles at the end (a static split, by contiguous chunk or by
-//   grid stride, ends on a tail of slow blocks).  A thread issues its
-//   `unroll` loads before its first store, and a warp's loads for one
-//   slot cover four whole 128-byte sectors.  Plain loads and stores: the
-//   evict-first hints (__ldcs / __stcs, ld.global.nc.L1::no_allocate)
-//   measured slower.  Each launch zeroes its counter first
-//   (cudaMemsetAsync on the wrapper's 4-byte scratch).  A scalar head
-//   runs up to x's first 16-byte boundary and a scalar tail past the last
-//   whole vector, so any length and any start address works (the engines
-//   of stream_copy_distributed launch on slices that need not be
-//   aligned).  Vectors need x and o to share their offset within 16
-//   bytes: the wrapper allocates o so, and where a caller's buffers
-//   differ the launcher streams scalars only.
-// The measured alternative (stream_copy_bulk_*, timed beside the kernel
-//   above by chip_smoke.py; PERF.md keeps both times): one persistent
-//   block per SM moves 16 KB chunks with the bulk copy engine
-//   (cp.async.bulk global -> shared into a 4-stage mbarrier ring, the add
-//   in place in shared memory, cp.async.bulk shared -> global), so no
-//   thread holds a load in flight.  It takes 16-byte-aligned x and o and
-//   a whole number of chunks' worth of vectors; the launcher hands it only
-//   such spans.
+// Design: a wave of two resident blocks per SM, each claiming tiles of 4 x
+//   256 16-byte vectors (int4 / float4) from a counter in device memory
+//   (atomicAdd) until none is left, so a block that draws less bandwidth than
+//   its neighbours takes fewer tiles and no SM idles at the end (a static
+//   split, by contiguous chunk or by grid stride, ends on a tail of slow
+//   blocks).  A thread issues its four loads before its first store, and a
+//   warp's loads for one slot cover four whole 128-byte sectors.  Plain loads
+//   and stores: the evict-first hints (__ldcs / __stcs,
+//   ld.global.nc.L1::no_allocate) measured slower on an H100, and so did a
+//   ring of bulk copies through shared memory (cp.async.bulk, one persistent
+//   block an SM; PERF.md).  Each launch zeroes its counter first
+//   (cudaMemsetAsync on the wrapper's 4-byte scratch).  A scalar head runs up
+//   to x's first 16-byte boundary and a scalar tail past the last whole
+//   vector, so any length and any start address works (the engines of
+//   stream_copy_distributed launch on slices that need not be aligned).
+//   Vectors need x and o to share their offset within 16 bytes: the wrapper
+//   allocates o so, and where a caller's buffers differ the launcher streams
+//   scalars only.
 #include "common.cuh"
 
 namespace {
 
 using repro_torch::kThreads;
 constexpr int kVectorBytes = 16;
+constexpr int kUnroll = 4;      // core/shim.py's UNROLL: loads in flight
 
 __device__ __forceinline__ int32_t plus_one(int32_t v) {
   return static_cast<int32_t>(static_cast<uint32_t>(v) + 1u);
@@ -58,15 +52,15 @@ template <> struct Vector<int32_t> { using type = int4; };
 template <> struct Vector<float> { using type = float4; };
 
 // Elements [0, head) and the tail past the last whole vector are scalars,
-// streamed by block 0; the vectors go in tiles of U * kThreads, each
+// streamed by block 0; the vectors go in tiles of kUnroll * kThreads, each
 // claimed by one block through `next_tile`.
-template <typename T, int U>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 stream_copy_kernel(const T* __restrict__ x, T* __restrict__ o, int64_t n,
                    int64_t head, unsigned* __restrict__ next_tile) {
   using V = typename Vector<T>::type;
   constexpr int64_t kPer = kVectorBytes / sizeof(T);
-  constexpr int64_t kTile = U * kThreads;
+  constexpr int64_t kTile = kUnroll * kThreads;
   __shared__ unsigned claimed;
   const int64_t n_vec = (n - head) / kPer;
   const int64_t tiles = (n_vec + kTile - 1) / kTile;
@@ -79,14 +73,14 @@ stream_copy_kernel(const T* __restrict__ x, T* __restrict__ o, int64_t n,
     __syncthreads();
     if (tile >= tiles) break;
     const int64_t i = tile * kTile + threadIdx.x;
-    if (i + (U - 1) * kThreads < n_vec) {
-      V v[U];
+    if (i + (kUnroll - 1) * kThreads < n_vec) {
+      V v[kUnroll];
 #pragma unroll
-      for (int u = 0; u < U; ++u) v[u] = xv[i + u * kThreads];
+      for (int u = 0; u < kUnroll; ++u) v[u] = xv[i + u * kThreads];
 #pragma unroll
-      for (int u = 0; u < U; ++u) ov[i + u * kThreads] = plus_one(v[u]);
+      for (int u = 0; u < kUnroll; ++u) ov[i + u * kThreads] = plus_one(v[u]);
     } else {
-      for (int u = 0; u < U && i + u * kThreads < n_vec; ++u)
+      for (int u = 0; u < kUnroll && i + u * kThreads < n_vec; ++u)
         ov[i + u * kThreads] = plus_one(xv[i + u * kThreads]);
     }
   }
@@ -110,165 +104,26 @@ int64_t scalar_head(const void* x, const void* o, int64_t n) {
   return lead < n ? lead : n;
 }
 
-template <typename T, int U>
-int launch_unrolled(const T* x, T* o, int64_t n, int64_t head,
-                    unsigned* next_tile, int32_t grid, cudaStream_t stream) {
-  const cudaError_t err =
-      cudaMemsetAsync(next_tile, 0, sizeof(unsigned), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stream_copy_kernel<T, U><<<static_cast<unsigned>(grid), kThreads, 0,
-                             stream>>>(x, o, n, head, next_tile);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int launch(const void* x, void* o, int64_t n, int32_t grid, int32_t unroll,
            void* next_tile, void* stream) {
   if (n <= 0 || grid <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t head = scalar_head<T>(x, o, n);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(o);
+  if (unroll != kUnroll) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned* ctr = static_cast<unsigned*>(next_tile);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (unroll) {
-    case 1: return launch_unrolled<T, 1>(xt, ot, n, head, ctr, grid, st);
-    case 2: return launch_unrolled<T, 2>(xt, ot, n, head, ctr, grid, st);
-    case 4: return launch_unrolled<T, 4>(xt, ot, n, head, ctr, grid, st);
-    case 8: return launch_unrolled<T, 8>(xt, ot, n, head, ctr, grid, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// ---- the measured alternative: bulk copies through a shared-memory ring -- //
-
-constexpr int kBulkStages = 4;
-constexpr int kBulkChunk = 16 * 1024;               // bytes a stage
-constexpr int kBulkThreads = 512;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// Block b moves chunks [b * per, min((b + 1) * per, n_chunks)) of
-// kBulkChunk bytes; x and o are 16-byte aligned.
-template <typename T>
-__global__ void __launch_bounds__(kBulkThreads)
-stream_copy_bulk_kernel(const T* __restrict__ x, T* __restrict__ o,
-                        int64_t n_chunks, int64_t per) {
-  using V = typename Vector<T>::type;
-  constexpr int kVecs = kBulkChunk / kVectorBytes;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kBulkStages];
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * per;
-  const int64_t last = first + per < n_chunks ? first + per : n_chunks;
-  const int64_t count = last - first;
-  if (count <= 0) return;
-  const char* xc = reinterpret_cast<const char*>(x) + first * kBulkChunk;
-  char* oc = reinterpret_cast<char*>(o) + first * kBulkChunk;
-  const uint32_t buf0 = smem_u32(smem);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kBulkStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   ::"r"(smem_u32(&full[s])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < kBulkStages && s < count; ++s)
-      bulk_load(buf0 + s * kBulkChunk, xc + s * kBulkChunk, kBulkChunk,
-                smem_u32(&full[s]));
-  }
-  __syncthreads();
-  for (int64_t k = 0; k < count; ++k) {
-    const int s = static_cast<int>(k % kBulkStages);
-    mbar_wait(smem_u32(&full[s]), static_cast<uint32_t>(k / kBulkStages) & 1);
-    V* v = reinterpret_cast<V*>(smem + s * kBulkChunk);
-    for (int i = threadIdx.x; i < kVecs; i += kBulkThreads)
-      v[i] = plus_one(v[i]);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      bulk_store(oc + k * kBulkChunk, buf0 + s * kBulkChunk, kBulkChunk);
-      // refill the stage of chunk k - 1 once its store has read it
-      const int64_t prev = k - 1, next = prev + kBulkStages;
-      if (prev >= 0 && next < count) {
-        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-        const int ps = static_cast<int>(prev % kBulkStages);
-        bulk_load(buf0 + ps * kBulkChunk, xc + next * kBulkChunk, kBulkChunk,
-                  smem_u32(&full[ps]));
-      }
-    }
-  }
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-template <typename T>
-int launch_bulk(const void* x, void* o, int64_t n, int32_t grid,
-                void* next_tile, void* stream) {
-  if (n <= 0 || grid <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int64_t kChunkElems = kBulkChunk / sizeof(T);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // past the head, x and o sit on 16-byte marks (head < n) or the whole
-  // array is scalars (head == n)
-  const int64_t head = scalar_head<T>(x, o, n);
-  const int64_t n_chunks = (n - head) / kChunkElems;
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(o);
-  if (n_chunks > 0) {
-    const int smem = kBulkStages * kBulkChunk;
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_copy_bulk_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t per = (n_chunks + grid - 1) / grid;
-    stream_copy_bulk_kernel<T><<<static_cast<unsigned>(grid), kBulkThreads,
-                                 smem, st>>>(xt + head, ot + head, n_chunks,
-                                             per);
-  }
-  // the scalar head, and what follows the last whole chunk, through the
-  // tiled kernel (its head is the same scalar head)
-  const int64_t done = head + n_chunks * kChunkElems;
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc == 0 && head > 0)
-    rc = launch_unrolled<T, 1>(xt, ot, head, head,
-                               static_cast<unsigned*>(next_tile), 1, st);
-  if (rc == 0 && done < n)
-    rc = launch_unrolled<T, 1>(xt + done, ot + done, n - done, 0,
-                               static_cast<unsigned*>(next_tile), grid, st);
-  return rc;
+  const cudaError_t err = cudaMemsetAsync(ctr, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_copy_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(o), n,
+      scalar_head<T>(x, o, n), ctr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream` with `grid` blocks claiming tiles of `unroll` x 256
-// vectors through the 4-byte scratch `next_tile`; return the CUDA error.
+// Launch on `stream` with `grid` blocks claiming tiles of `unroll` (4,
+// the compiled kUnroll) x 256 vectors through the 4-byte scratch
+// `next_tile`; return the CUDA error.
 extern "C" int stream_copy_i32(const void* x, void* o, int64_t n,
                                int32_t grid, int32_t unroll, void* next_tile,
                                void* stream) {
@@ -279,18 +134,4 @@ extern "C" int stream_copy_f32(const void* x, void* o, int64_t n,
                                int32_t grid, int32_t unroll, void* next_tile,
                                void* stream) {
   return launch<float>(x, o, n, grid, unroll, next_tile, stream);
-}
-
-// The bulk-copy alternative with `grid` persistent blocks (one an SM);
-// its head and tail take the tiled kernel and `next_tile`.
-extern "C" int stream_copy_bulk_i32(const void* x, void* o, int64_t n,
-                                    int32_t grid, void* next_tile,
-                                    void* stream) {
-  return launch_bulk<int32_t>(x, o, n, grid, next_tile, stream);
-}
-
-extern "C" int stream_copy_bulk_f32(const void* x, void* o, int64_t n,
-                                    int32_t grid, void* next_tile,
-                                    void* stream) {
-  return launch_bulk<float>(x, o, n, grid, next_tile, stream);
 }

@@ -14,32 +14,31 @@
 //
 // Two routes, which kernels/sgd/sgd.py picks from (n, B) alone:
 //
-// Ring (sgd_ring_f32), for n % 4 == 0 and B in {4, 8, 16} where a ring of
-//   two or more minibatch tiles fits shared memory.  A job runs on a
-//   cluster of C blocks (C in {1, 2, 4, 8}; 1 at the MNIST shape, the
-//   fastest measured); block c owns a contiguous slice of the features,
-//   and each consumer thread of it owns four of them, whose weights it
-//   keeps in registers.  One more warp of each block, the producer, keeps
-//   the ring of S tiles full with the bulk copy engine (cp.async.bulk, one
-//   mbarrier a slot): a tile is the block's slice of a minibatch's B rows
-//   (one copy where the block holds whole rows, since a minibatch is
-//   contiguous; else one a row, issued by B lanes at once) and its B
-//   labels.  Right after a step's barrier the producer refills the slot
-//   that step read with the minibatch S steps on, wrapping at the end of
-//   each epoch, so no step waits on device memory.  A consumer step: the
-//   thread's B partial dot products from its tile in registers; a
-//   warp-wide reduce-scatter (B - 1 + log2(32 / B) shuffles) leaves each
-//   row's warp sum in one lane, which stores it into every block of the
-//   cluster (distributed shared memory; double-buffered by step parity);
-//   half of the next tile is read from the ring; one block barrier (C = 1)
-//   or cluster barrier (C > 1); lanes < B of every warp add the C x W
-//   warp sums of their row in a fixed order, apply the link (expf) and
-//   subtract the label into the warp's d; the update uses d and the tile
-//   still in registers; the other half of the next tile is read.  One
-//   barrier a step.  The bound is the step's chain of latencies (about
-//   1,800 clocks at the MNIST shape) and, at C = 1, shared memory's
-//   bandwidth: each tile is written and read once, 2 x B x n x 4 bytes a
-//   step at 128 bytes a clock (about 800 clocks at the MNIST shape).
+// Ring (sgd_ring_f32), for n % 4 == 0, B in {4, 8, 16} and n / 4 within 8 x
+//   256 consumer threads.  A job runs on a cluster of C blocks (C in {1, 2,
+//   4, 8}; 1 at the MNIST shape, the fastest measured); block c owns a
+//   contiguous slice of the features, and each consumer thread of it owns
+//   four of them, whose weights it keeps in registers.  One more warp of each
+//   block, the producer, keeps the ring of S = 3 tiles full with the bulk
+//   copy engine (cp.async.bulk, one mbarrier a slot): a tile is the block's
+//   slice of a minibatch's B rows (one copy where the block holds whole rows,
+//   since a minibatch is contiguous; else one a row, issued by B lanes at
+//   once) and its B labels.  Right after a step's barrier the producer
+//   refills the slot that step read with the minibatch S steps on, wrapping
+//   at the end of each epoch, so no step waits on device memory (four tiles
+//   measured no faster than three).  A consumer step: the thread's B partial
+//   dot products from its tile in registers; a warp-wide reduce-scatter (B -
+//   1 + log2(32 / B) shuffles) leaves each row's warp sum in one lane, which
+//   stores it into every block of the cluster (distributed shared memory;
+//   double-buffered by step parity); half of the next tile is read from the
+//   ring; one block barrier (C = 1) or cluster barrier (C > 1); lanes < B of
+//   every warp add the C x W warp sums of their row in a fixed order, apply
+//   the link (expf) and subtract the label into the warp's d; the update uses
+//   d and the tile still in registers; the other half of the next tile is
+//   read.  One barrier a step.  The bound is the step's chain of latencies
+//   (about 1,800 clocks at the MNIST shape) and, at C = 1, shared memory's
+//   bandwidth: each tile is written and read once, 2 x B x n x 4 bytes a step
+//   at 128 bytes a clock (about 800 clocks at the MNIST shape).
 // Direct (sgd_direct_f32), every other (n, B) whose n + B floats fit one
 //   block: one 256-thread block per job, the model in shared memory, each
 //   step reading its (B, n) minibatch from global memory twice (dot:
@@ -63,13 +62,14 @@ using repro_torch::kThreads;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRingThreadsMax = 256;   // consumer threads a ring block,
                                        // at most (plus a producer warp)
+constexpr int kStages = 3;             // minibatch tiles in the ring
 
 // sigmoid(s) = 1 / (1 + exp(-s)) for logreg, s for ridge.
 __device__ __forceinline__ float link(float s, int32_t logreg) {
   return logreg ? 1.0f / (1.0f + expf(-s)) : s;
 }
 
-// ---- direct route ---------------------------------------------------------- //
+// ---- direct route -------------------------------------------------------- //
 
 constexpr int kWarps = kThreads / 32;
 
@@ -121,7 +121,7 @@ sgd_direct_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int j = threadIdx.x; j < n; j += kThreads) xs[job * n + j] = x[j];
 }
 
-// ---- ring route ------------------------------------------------------------ //
+// ---- ring route ---------------------------------------------------------- //
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -218,16 +218,17 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&v)[B], int lane) {
 }
 
 // Shared memory of a ring block: the stages' mbarriers (128 bytes); the
-// tiles, float [S][B][4 * per_block] (the block's slice of each row); the
-// labels, float [S][B]; the warp sums of the cluster, float
+// tiles, float [S][B][4 * per_block] (the block's slice of each row, S =
+// kStages); the labels, float [S][B]; the warp sums of the cluster, float
 // [2][C][W][B]; each warp's d, float [W][B].
-template <int B, int S>
+template <int B>
 __global__ void __launch_bounds__(kRingThreadsMax + 32, 1)
 sgd_ring_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const float* __restrict__ xs0, const float* __restrict__ lrs,
                 const float* __restrict__ l2s, int64_t m, int32_t n,
                 int32_t epochs, int32_t logreg, int32_t cluster,
                 int32_t per_block, float* __restrict__ xs) {
+  constexpr int S = kStages;
   extern __shared__ __align__(128) uint64_t ring_smem[];
   const int T = blockDim.x - 32;               // the consumer threads
   const int W = T >> 5;                        // consumer warps; warp W
@@ -404,7 +405,7 @@ sgd_ring_kernel(const float* __restrict__ a, const float* __restrict__ b,
     if (owns) xs[job * n + j0 + k] = x[k];
 }
 
-template <int B, int S>
+template <int B>
 int launch_ring(const float* a, const float* b, const float* xs0,
                 const float* lrs, const float* l2s, int64_t m, int32_t n,
                 int32_t epochs, int32_t logreg, int32_t k, int32_t cluster,
@@ -412,11 +413,11 @@ int launch_ring(const float* a, const float* b, const float* xs0,
   const int warps = threads / 32;
   const int32_t groups = n / 4;
   const int32_t per_block = (groups + cluster - 1) / cluster;
-  const size_t smem = 128 + sizeof(float4) * S * B * per_block
-                      + sizeof(float) * (S * B + 2 * cluster * warps * B
+  const size_t smem = 128 + sizeof(float4) * kStages * B * per_block
+                      + sizeof(float) * (kStages * B + 2 * cluster * warps * B
                                          + warps * B);
   const cudaError_t err = cudaFuncSetAttribute(
-      sgd_ring_kernel<B, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sgd_ring_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -432,42 +433,24 @@ int launch_ring(const float* a, const float* b, const float* xs0,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t launched = cudaLaunchKernelEx(
-      &cfg, sgd_ring_kernel<B, S>, a, b, xs0, lrs, l2s, m, n, epochs, logreg,
+      &cfg, sgd_ring_kernel<B>, a, b, xs0, lrs, l2s, m, n, epochs, logreg,
       cluster, per_block, xs);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int B>
-int launch_ring_stages(int32_t stages, const float* a, const float* b,
-                       const float* xs0, const float* lrs, const float* l2s,
-                       int64_t m, int32_t n, int32_t epochs, int32_t logreg,
-                       int32_t k, int32_t cluster, int32_t threads, float* xs,
-                       cudaStream_t stream) {
-  switch (stages) {
-    case 2: return launch_ring<B, 2>(a, b, xs0, lrs, l2s, m, n, epochs, logreg,
-                                     k, cluster, threads, xs, stream);
-    case 3: return launch_ring<B, 3>(a, b, xs0, lrs, l2s, m, n, epochs, logreg,
-                                     k, cluster, threads, xs, stream);
-    case 4: return launch_ring<B, 4>(a, b, xs0, lrs, l2s, m, n, epochs, logreg,
-                                     k, cluster, threads, xs, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
 // The ring route: K jobs on clusters of `cluster` blocks of `threads`
-// threads, a ring of `stages` minibatch tiles; kernels/sgd/sgd.py's
-// ring_plan picks the three from (n, minibatch).  a and b 16-byte
-// aligned, n % 4 == 0, minibatch 4, 8 or 16.  Launches on `stream`;
-// returns the launch's CUDA error code.
+// consumer threads (and a producer warp); kernels/sgd/sgd.py's ring_plan
+// picks both from (n, minibatch).  a and b 16-byte aligned, n % 4 == 0,
+// minibatch 4, 8 or 16.  Launches on `stream`; returns the launch's CUDA
+// error code.
 extern "C" int sgd_ring_f32(const void* a, const void* b, const void* xs0,
                             const void* lrs, const void* l2s, int64_t m,
                             int32_t n, int32_t minibatch, int32_t epochs,
                             int32_t logreg, int32_t k, int32_t cluster,
-                            int32_t stages, int32_t threads, void* xs,
-                            void* stream) {
+                            int32_t threads, void* xs, void* stream) {
   if (k <= 0) return static_cast<int>(cudaGetLastError());
   if (cluster < 1 || cluster > 8 || threads < 32 || threads > kRingThreadsMax
       || threads % 32 || n <= 0 || n % 4
@@ -484,15 +467,14 @@ extern "C" int sgd_ring_f32(const void* a, const void* b, const void* xs0,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (minibatch) {
     case 4:
-      return launch_ring_stages<4>(stages, fa, fb, f0, flr, fl2, m, n, epochs,
-                                   logreg, k, cluster, threads, fx, st);
+      return launch_ring<4>(fa, fb, f0, flr, fl2, m, n, epochs, logreg, k,
+                            cluster, threads, fx, st);
     case 8:
-      return launch_ring_stages<8>(stages, fa, fb, f0, flr, fl2, m, n, epochs,
-                                   logreg, k, cluster, threads, fx, st);
+      return launch_ring<8>(fa, fb, f0, flr, fl2, m, n, epochs, logreg, k,
+                            cluster, threads, fx, st);
     case 16:
-      return launch_ring_stages<16>(stages, fa, fb, f0, flr, fl2, m, n,
-                                    epochs, logreg, k, cluster, threads, fx,
-                                    st);
+      return launch_ring<16>(fa, fb, f0, flr, fl2, m, n, epochs, logreg, k,
+                             cluster, threads, fx, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -39,16 +39,15 @@ KINDS = ("ridge", "logreg")
 RING_MINIBATCHES = (4, 8, 16)         # instantiated in the CUDA source
 CLUSTER_SIZES = (1, 2, 4, 8)          # blocks a job, 8 the portable most
 RING_CLUSTER_MIN = 1                  # the fastest at the MNIST shape
-RING_THREADS_MAX = 256                # threads a ring block, 4 features each
-RING_STAGES = (4, 3, 2)               # minibatch tiles in the ring
+RING_THREADS_MAX = 256                # consumer threads a ring block
+RING_STAGES = 3                       # minibatch tiles in the ring
 H100_SHARED_BYTES = 232_448           # opt-in shared memory of one block
 
 
 @dataclasses.dataclass(frozen=True)
 class RingPlan:
     cluster: int            # blocks a job
-    stages: int             # minibatch tiles in each block's ring
-    threads: int            # threads a block, each owning four features
+    threads: int            # consumer threads a block, four features each
 
 
 def ring_shared_bytes(n: int, minibatch: int, plan: RingPlan) -> int:
@@ -57,38 +56,32 @@ def ring_shared_bytes(n: int, minibatch: int, plan: RingPlan) -> int:
     sums of the whole cluster and each warp's d."""
     warps = plan.threads // 32
     per_block = -(-(n // 4) // plan.cluster)
-    return (128 + 16 * plan.stages * minibatch * per_block
-            + 4 * minibatch * (plan.stages + 2 * plan.cluster * warps
+    return (128 + 16 * RING_STAGES * minibatch * per_block
+            + 4 * minibatch * (RING_STAGES + 2 * plan.cluster * warps
                                + warps))
 
 
 def ring_plan(n: int, minibatch: int, *,
               cluster: Optional[int] = None) -> Optional[RingPlan]:
-    """The ring route's cluster size, ring depth and block width for n
-    features and this minibatch, or None where the ring does not fit (or
-    the minibatch is not instantiated).  The smallest cluster size from
-    ``RING_CLUSTER_MIN`` whose blocks hold a ring of three or more tiles
-    wins, else the smallest with two; ``cluster`` fixes the size instead
-    (to time the others).  A function of (n, minibatch) only, so every
-    launch over the same features trains in the same order."""
+    """The ring route's cluster size and block width for n features and
+    this minibatch, or None where the ring does not take them: n % 4 != 0
+    (its bulk copies read whole 16-byte groups), a minibatch it is not
+    built for, or more than 8 x 256 consumer threads' features.  The
+    smallest cluster size from ``RING_CLUSTER_MIN`` whose blocks hold
+    their slice wins; ``cluster`` fixes the size instead (to time the
+    others).  A function of (n, minibatch) only, so every launch over the
+    same features trains in the same order."""
     if minibatch not in RING_MINIBATCHES or n <= 0 or n % 4:
         return None
-    groups = n // 4
     sizes = (cluster,) if cluster is not None else \
         tuple(c for c in CLUSTER_SIZES if c >= RING_CLUSTER_MIN)
-    fits = []
     for c in sizes:
-        per_block = -(-groups // c)
-        threads = -(-per_block // 32) * 32        # whole warps
-        if threads > RING_THREADS_MAX:
-            continue
-        for stages in RING_STAGES:
-            plan = RingPlan(c, stages, threads)
-            if ring_shared_bytes(n, minibatch, plan) <= H100_SHARED_BYTES:
-                fits.append(plan)
-                break
-    deep = [p for p in fits if p.stages >= 3]
-    return (deep or fits or [None])[0]
+        per_block = -(-(n // 4) // c)
+        plan = RingPlan(c, -(-per_block // 32) * 32)   # whole warps
+        if plan.threads <= RING_THREADS_MAX \
+                and ring_shared_bytes(n, minibatch, plan) <= H100_SHARED_BYTES:
+            return plan
+    return None
 
 
 def route(n: int, minibatch: int) -> str:
@@ -200,7 +193,6 @@ def sgd_ring(a: torch.Tensor, b: torch.Tensor, xs0: torch.Tensor,
     m, n = a.shape
     k = xs0.shape[0]
     if minibatch not in RING_MINIBATCHES or plan.cluster not in CLUSTER_SIZES \
-            or plan.stages not in RING_STAGES \
             or not 0 < plan.threads <= RING_THREADS_MAX \
             or plan.threads % 32 or 4 * plan.cluster * plan.threads < n \
             or n % 4:
@@ -215,7 +207,7 @@ def sgd_ring(a: torch.Tensor, b: torch.Tensor, xs0: torch.Tensor,
     fn = _build.function("sgd_ring_f32")
     rc = fn(a.data_ptr(), b.data_ptr(), xs0.data_ptr(), lrs.data_ptr(),
             l2s.data_ptr(), m, n, minibatch, epochs, int(kind == "logreg"),
-            k, plan.cluster, plan.stages, plan.threads, xs.data_ptr(),
+            k, plan.cluster, plan.threads, xs.data_ptr(),
             _build.stream_handle(a.device))
     _build.check(rc, "sgd_ring_f32")
     _build.LAUNCHES["sgd"] += 1

@@ -83,21 +83,20 @@ def test_probe_counts_on_cpu_tensors_is_the_plain_version(n_s):
     (784, 2, "direct"), (784, 12, "direct"), (784, 32, "direct")])
 def test_sgd_route(n, minibatch, want):
     """The ring's bulk copies read whole 16-byte groups of features, so
-    it takes n % 4 == 0 and minibatches of 4, 8 and 16 where a ring of
-    two or more tiles fits; every other width takes the direct kernel."""
+    it takes n % 4 == 0 and minibatches of 4, 8 and 16, up to 8 blocks of
+    256 consumer threads; every other width takes the direct kernel."""
     assert sgd_kernels.route(n, minibatch) == want
 
 
-@pytest.mark.parametrize("n,cluster,stages,threads", [
-    (4, 1, 4, 32), (784, 1, 4, 224), (1_024, 1, 3, 256),
-    (1_028, 2, 4, 160), (2_048, 2, 3, 256), (4_096, 4, 3, 256),
-    (8_192, 8, 3, 256)])
-def test_sgd_ring_plan_at_minibatch_16(n, cluster, stages, threads):
-    """The MNIST shape (784 features) runs on one block of 7 warps with a
-    4-tile ring; wider models take the smallest cluster whose blocks hold
-    a ring of 3 or more tiles."""
+@pytest.mark.parametrize("n,cluster,threads", [
+    (4, 1, 32), (784, 1, 224), (1_024, 1, 256), (1_028, 2, 160),
+    (2_048, 2, 256), (4_096, 4, 256), (8_192, 8, 256)])
+def test_sgd_ring_plan_at_minibatch_16(n, cluster, threads):
+    """The MNIST shape (784 features) runs on one block of 7 consumer
+    warps; wider models take the smallest cluster whose blocks hold at
+    most 256 consumer threads of four features."""
     plan = sgd_kernels.ring_plan(n, 16)
-    assert plan == sgd_kernels.RingPlan(cluster, stages, threads)
+    assert plan == sgd_kernels.RingPlan(cluster, threads)
     assert 4 * plan.cluster * plan.threads >= n
     assert sgd_kernels.ring_shared_bytes(n, 16, plan) <= \
         sgd_kernels.H100_SHARED_BYTES
@@ -121,7 +120,6 @@ def test_sgd_ring_plans_fit_and_cover_every_feature(n, minibatch):
         assert plan.threads - 32 < -(-(n // 4) // plan.cluster)
         assert sgd_kernels.ring_shared_bytes(n, minibatch, plan) <= \
             sgd_kernels.H100_SHARED_BYTES
-        assert plan.stages in sgd_kernels.RING_STAGES
 
 
 def test_sgd_on_cpu_tensors_is_the_plain_version():

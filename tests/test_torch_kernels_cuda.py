@@ -546,25 +546,6 @@ def test_stream_copy_kernel_every_start_offset_into_out(cuda, x_start,
         assert bool((buf[out_start + n:] == -5).all())
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096 * 8 * 132 + 4096 + 3, 1 << 24])
-@pytest.mark.parametrize("start", [0, 1])
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_stream_copy_bulk_alternative_matches_plain(cuda, n, start, dtype):
-    """The bulk-copy alternative that the calibration kernel is timed
-    against: 16 KB chunks through a shared-memory ring, its scalar head
-    and the rest past the last whole chunk through the vector kernel."""
-    x = torch.arange(n + start, device=cuda).to(dtype)[start:]
-    out = stream._out_like(x)
-    symbol = {torch.int32: "stream_copy_bulk_i32",
-              torch.float32: "stream_copy_bulk_f32"}[dtype]
-    fn = _build.function(symbol)
-    next_tile = torch.empty(1, dtype=torch.int32, device=cuda)
-    _build.check(fn(x.data_ptr(), out.data_ptr(), n, 132,
-                    next_tile.data_ptr(), _build.stream_handle(x.device)),
-                 symbol)
-    _same(out, bw_ref.stream_copy_ref(x))
-
-
 def test_stream_copy_kernel_wraps_int32_and_refuses_other_types(cuda):
     x = torch.tensor([2 ** 31 - 1] * 9, dtype=torch.int32, device=cuda)
     assert stream.stream_copy(x).tolist() == [-2 ** 31] * 9

@@ -4,11 +4,11 @@ The CUDA kernels (``kernels/csrc/sgd.cu``) replace the TPU's
 ``sgd_pallas`` in two routes, which ``route`` picks from (n, minibatch)
 alone before the launch:
 
-* ``"ring"`` (``ring_plan`` fits): a cluster of C blocks per job, the
-  features split between them and four a thread, one thread a block
-  keeping a ring of the next minibatches' tiles in shared memory full
-  with bulk copies (cp.async.bulk) before a step needs them; one barrier
-  a step.  The bulk copies read 16-byte-aligned rows, so the ring takes
+* ``"ring"`` (``ring_plan`` takes n): a cluster of C blocks per job
+  (C = 1 up to 1,024 features), the features split between them and four
+  a thread, a producer warp a block keeping a ring of the next three
+  minibatches' tiles in shared memory full with bulk copies
+  (cp.async.bulk) before a step needs them; one barrier a step.  The bulk copies read 16-byte-aligned rows, so the ring takes
   n % 4 == 0, and the wrapper copies a dataset or label column that
   starts off a 16-byte mark into fresh memory first;
 * ``"direct"``, every other (n, minibatch) whose n + minibatch floats fit

@@ -10,13 +10,16 @@ there on its own:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Integer outputs must be bit-identical to the plain versions.  The SGD
-kernel sums in another order than its plain version (and nvcc contracts
-multiply-adds into FMAs), so its weights agree within rtol=1e-4,
-atol=1e-5; the kernel is deterministic, so streamed training (one launch
-per morsel) equals one launch over all rows bit for bit.  The traffic
-generator (``o = x + 1``) is bit-identical to its plain version at any
-length, on misaligned slices, at the top of int32 and in float32; a spill
-plan streams host and disk columns back through pinned copies.
+kernel's two routes (a ring of minibatch tiles in shared memory, and the
+direct kernel for the widths the ring does not take) sum in another
+order than their plain version (and nvcc contracts multiply-adds into
+FMAs), so weights agree within rtol=1e-4, atol=1e-5; each route is
+deterministic, so streamed training (one launch per morsel) equals one
+launch over all rows bit for bit.  The traffic generator (``o = x + 1``)
+is bit-identical to its plain version at any length, at every offset of
+x and of ``out``, at the top of int32 and in float32; a spill plan
+streams host and disk columns back through pinned copies.  The
+tensor-core flash attention takes views that start off a 16-byte mark.
 
 The flash-attention kernels (B7, a tensor-core route for bfloat16 at head
 dims 64 and 128, a CUDA-core route otherwise) sum in another order than

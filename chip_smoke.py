@@ -61,13 +61,16 @@ Phases, each of which must pass or the script exits non-zero:
    CUDA-core route in f32 within 2e-5), each timed beside
    ``scaled_dot_product_attention`` in its type, and misaligned bf16
    views of q, k and v through the tensor-core route (equal to the
-   aligned launch bit for bit); the SSD kernel against
-   its plain version at the mamba2-780m prefill shape (f32 within
-   rtol=atol=1e-4, bf16 y within 1.6e-2).  Then ``serve`` of llama3-8b
+   aligned launch bit for bit); the SSD kernel's two routes against
+   their plain version at the mamba2-780m prefill shape (the tensor-core
+   route in bf16 at batch 4: y within 1.6e-2, the state within
+   rtol=atol=1e-4; the CUDA-core route in f32 at the f32 check's batch 1,
+   within rtol=atol=1e-4), two launches bit-identical, each timed with
+   its three passes.  Then ``serve`` of llama3-8b
    (32 layers) and mamba2-780m (48 layers), random weights from
    ``--seed``, 4 prompts of 2,000 tokens and 32 greedy tokens each:
    prefill and per-token decode time (first run, median of warm runs),
-   tok/s, peak device memory, and one tensor-core flash-attention (ssd)
+   tok/s, peak device memory, and one tensor-core flash-attention (SSD)
    launch per layer of the prefill (the f32 check below launches the
    CUDA-core route, once per layer of each of its two prefills).  Path
    checks: no NaN; a teacher-forced prefill of 1,999 tokens plus one
@@ -1197,9 +1200,10 @@ def phase_spill(dev, ssb_tables, cal, spill_dir):
 
 
 def phase_lm_kernels(dev):
-    """B7's two routes at the llama3-8b prefill shape and B8 at the
-    mamba2-780m one, against their plain versions, timed.  Returns the
-    three JSON rows."""
+    """B7's two routes at the llama3-8b prefill shape and B8's two at the
+    mamba2-780m one (the served bf16 prefill, and the f32 check's batch of
+    one), against their plain versions, timed (B8 also pass by pass).
+    Returns the four JSON rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -1314,40 +1318,86 @@ def phase_lm_kernels(dev):
     dt = uniform(0.001, 0.1, b, s, nh)
     a_log = torch.log(uniform(1.0, 16.0, nh))
     d_skip = randn(nh, dtype=torch.float32)
-    args32 = (x.float(), dt, a_log, bm.float(), cm.float(), d_skip)
-    args = (x, dt, a_log, bm, cm, d_skip)
-    y, hf = ssd_kernels.ssd_scan(*args32)
-    y_p, h_p = ssd_ref.ssd_plain(*args32)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y, y_p, **SSD_TOL)
-    torch.testing.assert_close(hf, h_p, **SSD_TOL)
-    err32 = float((y - y_p).abs().max())
-    y, hf = ssd_kernels.ssd_scan(*args)
-    y_p, h_p = ssd_ref.ssd_plain(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y.float(), y_p.float(), **SSD_BF16_TOL)
-    torch.testing.assert_close(hf, h_p, **SSD_TOL)
-    err = float((y.float() - y_p.float()).abs().max())
+    # per chunk of L tokens: C.B^T and the scores times x over the causal
+    # half, C.H^T and the state update in full (the function's own count,
+    # not the tensor-core route's split, which doubles three of the four)
     chunks = [min(128, s - t) for t in range(0, s, 128)]
     per_head = sum(2 * (ds + hd) * L * (L + 1) // 2 + 4 * L * hd * ds
                    for L in chunks)
-    rows.append(dict(
-        name="ssd", route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
-        replaces="src/repro/kernels/ssd/ssd.py:71", max_abs_err=err,
-        ms=time_ms(lambda: ssd_kernels.ssd_scan(*args), reps=10),
-        plain_ms=time_ms(lambda: ssd_ref.ssd_plain(*args), reps=3, warmup=1),
-        library_ms=None,
-        # x, b, c (bf16), dt, a_log, d_skip (f32) read once; y (bf16) and
-        # the final state (f32) written once.  Per chunk of L tokens: C.B^T
-        # and the scores times x over the causal half, C.h^T and the state
-        # update in full, all in f32
-        bytes=2 * (2 * x.numel() + bm.numel() + cm.numel())
-        + 4 * (dt.numel() + 2 * nh + hf.numel()),
-        ops=b * nh * per_head, ops_type="f32",
-        shape=f"x=({b}, {s}, {nh}, {hd}) bf16, dt f32, b, c=({b}, {s}, {ng}, "
-              f"{ds}) bf16, chunk 128"))
-    finish_row(rows[-1], agree=f"bf16 y max abs err {err:.3e} within "
-               f"{SSD_BF16_TOL}, f32 {err32:.3e} within {SSD_TOL}")
+    # the served prefill (bf16, batch 4) takes the tensor-core route; the
+    # f32 teacher-forced check's prefill (batch 1) the CUDA-core route
+    for name, args in (
+            ("ssd_tc", (x, dt, a_log, bm, cm, d_skip)),
+            ("ssd", (x[:1].float(), dt[:1], a_log, bm[:1].float(),
+                     cm[:1].float(), d_skip))):
+        xx, bb = args[0], args[3]
+        bsz, tname = xx.shape[0], str(xx.dtype).split(".")[-1]
+        rt = ssd_kernels.route(xx.dtype, hd, ds)
+        if ssd_kernels.COUNTER[rt] != name:
+            raise AssertionError(f"{tname} at hd {hd}, ds {ds} takes the "
+                                 f"{rt} route, not {name}")
+        y, hf = ssd_kernels.ssd_scan(*args)
+        y2, h2 = ssd_kernels.ssd_scan(*args)
+        y_p, h_p = ssd_ref.ssd_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(hf, h2)):
+            raise AssertionError(f"{name}: two launches on one input differ")
+        y_tol = SSD_TOL if xx.dtype == torch.float32 else SSD_BF16_TOL
+        torch.testing.assert_close(y.float(), y_p.float(), **y_tol)
+        torch.testing.assert_close(hf, h_p, **SSD_TOL)
+        err = float((y.float() - y_p.float()).abs().max())
+        h_err = float((hf - h_p).abs().max())
+        del y2, h2, y_p, h_p
+        # each pass alone on the scan's own buffers (state_pass rewrites
+        # the scratch in place, which changes no pass's work)
+        states, decay = ssd_kernels.scratch(xx, 128, ds)
+        yb, hb = torch.empty_like(xx), torch.empty_like(hf)
+
+        def passes(*which):
+            ssd_kernels.run_passes(*args, states=states, decay=decay, y=yb,
+                                   h=hb, passes=which)
+        pass_ms = {p: time_ms(lambda p=p: passes(p)) for p in
+                   ssd_kernels.PASSES}
+        # the PR 14 kernel (one block a head, the chunks in sequence) on
+        # the same inputs, timed in turns with the redesign
+        v1 = _build.function("ssd_v1_fwd")
+        y1, h1 = torch.empty_like(xx), torch.empty_like(hf)
+
+        def pr14():
+            _build.check(v1(*(t.data_ptr() for t in args), y1.data_ptr(),
+                            h1.data_ptr(), bsz, s, nh, hd, ng, ds, 128,
+                            int(xx.dtype == torch.bfloat16),
+                            _build.stream_handle(xx.device)), "ssd_v1_fwd")
+        kernel = lambda: ssd_kernels.ssd_scan(*args)  # noqa: E731
+        turns = [time_ms(kernel), time_ms(pr14), time_ms(pr14),
+                 time_ms(kernel)]
+        del states, decay, yb, hb, y1, h1
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd.cu",
+            replaces="src/repro/kernels/ssd/ssd.py:71", max_abs_err=err,
+            ms=(turns[0] + turns[3]) / 2,
+            plain_ms=time_ms(lambda: ssd_ref.ssd_plain(*args), reps=3,
+                             warmup=1),
+            library_ms=None,
+            # x, b, c, dt, a_log, d_skip read once; y (x's type) and the
+            # final state (f32) written once
+            bytes=xx.element_size() * (2 * xx.numel() + 2 * bb.numel())
+            + 4 * (args[1].numel() + 2 * nh + hf.numel()),
+            ops=bsz * nh * per_head,
+            ops_type="bf16" if rt == "tc" else "f32",
+            shape=f"x=({bsz}, {s}, {nh}, {hd}) {tname}, dt f32, b, c=("
+                  f"{bsz}, {s}, {ng}, {ds}) {tname}, chunk 128, {rt} route"))
+        log(f"  {name} passes: " + ", ".join(
+            f"{p} {ms:.4f} ms" for p, ms in pass_ms.items())
+            + f" (sum {sum(pass_ms.values()):.4f}); in turns with the PR 14 "
+            f"kernel: redesign {turns[0]:.4f} / {turns[3]:.4f} ms, PR 14 "
+            f"{turns[1]:.4f} / {turns[2]:.4f} ms")
+        finish_row(rows[-1], agree=f"{tname} y max abs err {err:.3e} within "
+                   f"{y_tol}, state {h_err:.3e} within {SSD_TOL}; two "
+                   "launches bit-identical")
+        del y, hf
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1385,7 +1435,10 @@ def phase_lm(dev, seed):
     )
     from repro_torch.models import registry
 
-    kernel_of = {"dense": "flash_attention_tc", "ssm": "ssd"}
+    # the served bf16 prefill launches the tensor-core route of B7 / B8,
+    # the f32 check's the CUDA-core route
+    kernel_of = {"dense": "flash_attention_tc", "ssm": "ssd_tc"}
+    kernel_of_f32 = {"dense": "flash_attention", "ssm": "ssd"}
     counts = {}
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
@@ -1454,13 +1507,12 @@ def phase_lm(dev, seed):
         _build.reset_launches()
         full, step = _teacher_forced(mb, model, prompts[:1])
         counts[f"{arch} f32 check"] = dict(_build.LAUNCHES)
-        if cfg.family == "dense" and \
-                counts[f"{arch} f32 check"]["flash_attention"] \
-                != 2 * cfg.num_layers:
+        kernel32 = kernel_of_f32[cfg.family]
+        if counts[f"{arch} f32 check"][kernel32] != 2 * cfg.num_layers:
             raise AssertionError(f"{arch} (f32): "
                                  f"{counts[f'{arch} f32 check']} launches, "
-                                 "want one CUDA-core flash attention per "
-                                 "layer of each of the two prefills")
+                                 f"want one CUDA-core {kernel32} per layer "
+                                 "of each of the two prefills")
         err32 = float((full - step).abs().max())
         scale32 = float(full.abs().max())
         if not err32 <= TF_TOL_F32 * scale32:
@@ -1559,7 +1611,8 @@ def main(argv=None) -> int:
            "sgd": "sgd", "sgd_direct": "sgd_direct",
            "stream_copy": "stream_copy",
            "flash_attention_tc": "flash_attention_tc",
-           "flash_attention": "flash_attention", "ssd": "ssd"}
+           "flash_attention": "flash_attention", "ssd": "ssd",
+           "ssd_tc": "ssd_tc"}
     for row in rows:
         row["launches"] = sum(c[key[row["name"]]]
                               for counts in (ssb_counts, tpch_counts,

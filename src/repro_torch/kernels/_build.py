@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention", "ssd")
+SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention", "ssd",
+           "ssd_v1")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _F32 = ctypes.c_float
@@ -72,17 +73,25 @@ SIGNATURES = {
     "flash_attention_tc_fwd": ("flash_attention",
                                (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                 _I32, _I32, _F32, _P)),
-    # x, dt, a_log, b, c, d_skip, y, h_out, bsz, seq, nh, hd, ng, ds,
-    # chunk, bf16, stream
-    "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
-                        _I32, _I32, _I32, _I32, _I32, _P)),
+    # x, dt, a_log, b, c, d_skip, y, h_out, states, decay, bsz, seq, nh,
+    # hd, ng, ds, chunk, mode, passes, stream
+    "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                        _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P)),
+    # mode, hd, ds, chunk, blocks (int32[3]), smem (int32[3])
+    "ssd_occupancy": ("ssd", (_I32, _I32, _I32, _I32, ctypes.POINTER(_I32),
+                              ctypes.POINTER(_I32))),
+    # the PR 14 kernel: x, dt, a_log, b, c, d_skip, y, h_out, bsz, seq,
+    # nh, hd, ng, ds, chunk, bf16, stream
+    "ssd_v1_fwd": ("ssd_v1", (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                              _I32, _I32, _I32, _I32, _I32, _I32, _P)),
 }
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
 # launches its kernel (never on the plain CPU path): B2's shared-memory
 # and sampled routes, B5's ring ("sgd") and direct ("sgd_direct") routes,
 # B7's CUDA-core ("flash_attention") and tensor-core
-# ("flash_attention_tc") routes each have their own count.
+# ("flash_attention_tc") routes and B8's CUDA-core ("ssd") and
+# tensor-core ("ssd_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
@@ -90,7 +99,8 @@ LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
                             "probe_multi": 0, "probe": 0, "sgd": 0,
                             "sgd_direct": 0,
                             "stream_copy": 0, "flash_attention": 0,
-                            "flash_attention_tc": 0, "ssd": 0}
+                            "flash_attention_tc": 0, "ssd": 0,
+                            "ssd_tc": 0}
 
 _lock = threading.Lock()
 _funcs: Dict[str, object] = {}

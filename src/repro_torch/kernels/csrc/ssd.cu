@@ -1,30 +1,51 @@
-// The SSD (Mamba-2) chunk scan for Hopper (sm_90a).
+// The SSD (Mamba-2) chunk scan for Hopper (sm_90a), in the state-passing
+// form of the Mamba-2 paper (arXiv:2405.21060, section 6).
 //
 // Replaces: ssd_pallas / _ssd_kernel in src/repro/kernels/ssd/ssd.py.
 // Computes: for x (B, S, nh, hd), dt (B, S, nh) f32, b and c (B, S, ng, ds),
-//   a_log and d_skip (nh,) f32 (head h reads group h / (nh / ng)), chunk by
-//   chunk of Q tokens with the state h (hd, ds) carried in f32:
-//     a_t = -exp(a_log) dt_t,  cum = cumsum of a over the chunk
-//     y_i = sum_{j <= i} (c_i . b_j) exp(cum_i - cum_j) dt_j x_j
-//           + exp(cum_i) (c_i . h) + d_skip x_i
-//     h   = h exp(cum_last) + sum_j exp(cum_last - cum_j) dt_j x_j b_j^T
-//   in f32, like the TPU kernel; y in x's type, the final h in f32.
-// Bound: operations.  At the mamba2-780m prefill shape (B 4, S 2,000,
-//   nh 48, hd 64, ng 1, ds 128, bf16) the four products of every chunk
-//   (the causal half of C.B^T and of the scores times x, C.h^T, and the
-//   state update) are 22 GFLOP of f32 work against 110 MB of inputs and
-//   outputs: 0.33 ms at the card's f32 rate, 0.03 ms at its memory rate.
-//   PERF.md keeps the measured time beside the bound.
-// Design: one block of 256 threads per (b, head), the chunks in sequence
-//   inside it, as the TPU kernel's sequential grid axis; h stays in shared
-//   memory across chunks as it stayed in VMEM.  A chunk's x dt and b (in
-//   f32, b transposed) are staged whole; c and the masked, decayed scores
-//   go through in tiles of 32 rows, so a Q x Q score block is never held
-//   and mamba2's hd 64, ds 128 use 163 KB of the 227 KB a block may use.
-//   Warp w owns rows 4 w .. 4 w + 3 of a tile, lane l the columns l + 32 k;
-//   padded row strides keep the shared-memory reads free of bank conflicts.
-//   The ragged last chunk is masked (dt = 0 past S contributes nothing),
-//   so any S >= 1 works; the wrapper raises on a shape past the budget.
+//   a_log and d_skip (nh,) f32 (head h reads group h / (nh / ng)), over
+//   chunks k of Q tokens, with a_t = -exp(a_log) dt_t and cum the cumsum
+//   of a over a chunk:
+//     pass 1, chunk states (a block per batch row, chunk and head):
+//       S_k = sum_j exp(cum_last - cum_j) dt_j x_j b_j^T, (hd, ds) f32,
+//       and the chunk's decay exp(cum_last);
+//     pass 2, state passing (a thread per 4 state entries of a head, the
+//       chunks in sequence): H_0 = 0, H_{k+1} = H_k exp(cum_last_k) + S_k;
+//       H_k overwrites S_k in the scratch, H_nc is the final state;
+//     pass 3, chunk scan (a block per batch row, chunk and head):
+//       y_i = sum_{j <= i} (c_i . b_j) exp(cum_i - cum_j) dt_j x_j
+//             + exp(cum_i) (c_i . H_k) + d_skip x_i;
+//   y in x's type and the final state in f32, as the TPU kernel gives them.
+// Bound: at the mamba2-780m prefill shape (B 4, S 2,000, nh 48, hd 64,
+//   ng 1, ds 128, bf16, chunk 128) the function's four products are 22
+//   GFLOP against 110 MB of inputs and outputs: 0.022 ms at the card's
+//   bf16 tensor rate, 0.033 ms at its memory rate.  The state-passing
+//   form's scratch ((B, nh, nc, hd, ds) f32, 100.7 MB: written by pass 1,
+//   read and written by pass 2, read by pass 3) adds ~400 MB of traffic,
+//   a floor near 0.15 ms.  PERF.md keeps the measured times.
+// Design: the chunks of a head run in parallel (B nh nc blocks in passes
+//   1 and 3, 3,072 at the prefill shape), where the TPU kernel carried h
+//   along a sequential grid axis; only the elementwise pass 2 walks the
+//   chunks in order.  A chunk's cum is a warp scan.  cp.async brings the
+//   tiles of x, b and c into shared memory (an address it cannot take, a
+//   bf16 row off a 4-byte mark, is copied by plain loads), and every pass
+//   fits two blocks an SM.  Two routes, which ssd/ssd.py picks:
+//   * tensor cores (bf16, hd and ds multiples of 16): mma.sync m16n8k16
+//     bf16 -> f32 on ldmatrix'd tiles.  C.B^T is exact (bf16 operands).
+//     The three products with an f32 operand (the masked, decayed scores
+//     against x; x dt decay against b; C against H) split it into hi =
+//     bf16(v) and lo = bf16(v - hi), two MMAs summed in f32: one rounding
+//     to bf16 misses the state's 1e-4 tolerance tenfold, and TF32 keeps
+//     fewer bits than the split.  Warp w of pass 3 owns rows 16 w ..
+//     16 w + 15 of the chunk and walks the j tiles up to the diagonal;
+//     shared rows are padded by 16 bytes, so ldmatrix reads are free of
+//     bank conflicts;
+//   * CUDA cores (f32, and bf16 at other widths): f32 FMAs on register
+//     tiles; pass 3 takes rows in tiles of 32 and streams b, c and H
+//     through shared memory in slices of 32 state columns.
+//   Every sum runs in a fixed order with no atomics, so two launches on
+//   one input give the same bits.  The ragged last chunk is zero-padded
+//   (dt = 0 past S adds nothing), so any S >= 1 works.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -33,306 +54,901 @@
 namespace {
 
 using repro_torch::kThreads;
+using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 32;                 // rows of a score tile
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlice = 32;   // rows or state columns of a CUDA-core tile
+constexpr int kPad = 8;      // bf16 padding of a tensor-core tile's rows
+constexpr int kHalf = 64;    // rows of H a tensor-core pass 3 stages at once
+
+struct Shape {
+  int32_t bsz, seq, nh, hd, ng, ds, q, nc;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Shared floats for one block; ssd/ssd.py repeats this formula.
-__host__ __device__ inline size_t smem_floats(int hd, int ds, int chunk) {
-  return static_cast<size_t>(kRows) * ds            // c tile, transposed
-         + static_cast<size_t>(hd) * (ds + 1)       // h
-         + static_cast<size_t>(chunk) * hd          // x dt
-         + static_cast<size_t>(ds) * (chunk + 1)    // b, transposed
-         + static_cast<size_t>(kRows) * (chunk + 1) // score tile
-         + 4 * static_cast<size_t>(chunk);          // dt, cum, exp(cum), decay
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// NC = ceil(hd / 32) and ND = ceil(ds / 32) column groups of a lane.
+template <int V>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(V)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void stage_vec(T* dst, int dstride, const T* src,
+                                          int64_t sstride, int rows,
+                                          int valid, int width) {
+  const int per = width * static_cast<int>(sizeof(T)) / V;
+  for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
+    const int r = i / per, v = i % per;
+    char* d = reinterpret_cast<char*>(dst + r * dstride) + v * V;
+    if (r < valid) {
+      cp_async<V>(d, reinterpret_cast<const char*>(src + r * sstride) + v * V);
+    } else if (V == 16) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    } else if (V == 8) {
+      *reinterpret_cast<uint2*>(d) = make_uint2(0, 0);
+    } else {
+      *reinterpret_cast<uint32_t*>(d) = 0;
+    }
+  }
+}
+
+// Copy `rows` rows of `width` elements from global memory (row stride
+// `sstride` elements) into shared memory (row stride `dstride`); rows at
+// or past `valid` are zero-filled.  cp.async moves the widest of 16, 8 or
+// 4 bytes that every address allows; the caller waits on cp_async_wait_all.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int dstride, const T* src,
+                                      int64_t sstride, int rows, int valid,
+                                      int width) {
+  const uint64_t all = reinterpret_cast<uintptr_t>(src) | smem_addr(dst)
+                       | static_cast<uint64_t>(width * sizeof(T))
+                       | static_cast<uint64_t>(sstride * sizeof(T))
+                       | static_cast<uint64_t>(dstride * sizeof(T));
+  if (all % 16 == 0) {
+    stage_vec<16>(dst, dstride, src, sstride, rows, valid, width);
+  } else if (all % 8 == 0) {
+    stage_vec<8>(dst, dstride, src, sstride, rows, valid, width);
+  } else if (all % 4 == 0) {
+    stage_vec<4>(dst, dstride, src, sstride, rows, valid, width);
+  } else {
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+      const int r = i / width, e = i % width;
+      dst[r * dstride + e] = r < valid ? src[r * sstride + e] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// The chunk a block of pass 1 or 3 owns: blocks of one (b, chunk) are
+// adjacent, so the heads of a group read its b and c tiles from L2.
+struct Chunk {
+  int bi, k, h, g, t0, len;
+  int64_t idx;                // (bi, h, k) in the scratch
+};
+
+__device__ __forceinline__ Chunk chunk_of(const Shape& sh) {
+  Chunk ch;
+  ch.h = blockIdx.x % sh.nh;
+  const int rest = blockIdx.x / sh.nh;
+  ch.k = rest % sh.nc;
+  ch.bi = rest / sh.nc;
+  ch.g = ch.h / (sh.nh / sh.ng);
+  ch.t0 = ch.k * sh.q;
+  ch.len = min(sh.q, sh.seq - ch.t0);
+  ch.idx = (static_cast<int64_t>(ch.bi) * sh.nh + ch.h) * sh.nc + ch.k;
+  return ch;
+}
+
+// dt of the chunk (zero past S) into dtv, and cum = the chunk's inclusive
+// cumsum of a_neg dt: a warp scan of each 32 values, then the totals of
+// the warps before.  Needs blockDim.x >= q; every pass sums in this order.
+__device__ __forceinline__ void chunk_cum(const float* dt, const Shape& sh,
+                                          const Chunk& ch, float a_neg,
+                                          float* dtv, float* cum,
+                                          float* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const float* dtc = dt + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * sh.nh
+                     + ch.h;
+  float v = 0.f;
+  if (tid < sh.q) {
+    dtv[tid] = tid < ch.len ? dtc[static_cast<int64_t>(tid) * sh.nh] : 0.f;
+    v = a_neg * dtv[tid];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    if (lane == 31) wsum[w] = v;
+  }
+  __syncthreads();
+  if (tid < sh.q) {
+    for (int i = 0; i < w; ++i) v += wsum[i];
+    cum[tid] = v;
+  }
+  __syncthreads();
+}
+
+// ---- tensor-core helpers --------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (v0, v1) as packed bf16 pairs hi = bf16(v) and lo = bf16(v - hi)
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
+}
+
+// Fragment lanes: an m16n8 accumulator holds rows g and g + 8, columns
+// 2 t and 2 t + 1; ldmatrix.x4 takes row rr of matrix qq from lane
+// 8 qq + rr.
+struct Lane {
+  int g, t, qq, rr;
+};
+
+__device__ __forceinline__ Lane lane_of() {
+  const int lane = threadIdx.x & 31;
+  return Lane{lane >> 2, lane & 3, lane >> 3, lane & 7};
+}
+
+// ---- pass 1: chunk states -------------------------------------------------
+
+// Shared: dt, cum and w = dt exp(cum_last - cum) (q floats each), 4 warp
+// totals, then the route's tiles.
+__host__ __device__ inline size_t states_cc_smem(int q, int hd, int ds,
+                                                 int size) {
+  return 4 * static_cast<size_t>(3 * q + 4)
+         + static_cast<size_t>(kSlice) * (hd + ds) * size;
+}
+
+__host__ __device__ inline size_t states_tc_smem(int q, int hd, int ds) {
+  return 4 * static_cast<size_t>(3 * q + 4)
+         + 2 * static_cast<size_t>(q) * (2 * (hd + kPad) + ds + kPad);
+}
+
+// The chunk's decay and w; returns the block's shared floats past them.
+__device__ __forceinline__ float* chunk_weights(
+    const float* dt, const float* a_log, float* decay, const Shape& sh,
+    const Chunk& ch, float* smem, float*& wv) {
+  float* dtv = smem;
+  float* cum = dtv + sh.q;
+  wv = cum + sh.q;
+  float* wsum = wv + sh.q;
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), dtv, cum, wsum);
+  const float last = cum[sh.q - 1];
+  for (int j = threadIdx.x; j < sh.q; j += blockDim.x)
+    wv[j] = dtv[j] * expf(last - cum[j]);
+  if (threadIdx.x == 0) decay[ch.idx] = expf(last);
+  __syncthreads();
+  return wsum + 4;
+}
+
+// Thread (w, lane) sums S[d][s] for d = 32 m + 4 w + r, s = lane + 32 k
+// over slices of 32 tokens; NC = ceil(hd / 32), ND = ceil(ds / 32).
 template <typename T, int NC, int ND>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a_log, const T* __restrict__ bm,
-           const T* __restrict__ cm, const float* __restrict__ d_skip,
-           T* __restrict__ y, float* __restrict__ h_out, int32_t seq,
-           int32_t nh, int32_t hd, int32_t ng, int32_t ds, int32_t chunk) {
+states_cc(const T* __restrict__ x, const float* __restrict__ dt,
+          const float* __restrict__ a_log, const T* __restrict__ bm,
+          float* __restrict__ states, float* __restrict__ decay, Shape sh) {
   extern __shared__ __align__(16) float smem[];
-  const int qs = chunk + 1;                 // padded row of bT and gs
-  const int hs_row = ds + 1;                // padded row of hs
-  float* cT = smem;                         // [ds][kRows]
-  float* hs = cT + kRows * ds;              // [hd][ds + 1]
-  float* xs = hs + hd * hs_row;             // [chunk][hd], x * dt
-  float* bT = xs + chunk * hd;              // [ds][chunk + 1]
-  float* gs = bT + ds * qs;                 // [kRows][chunk + 1]
-  float* dtv = gs + kRows * qs;             // [chunk]
-  float* cum = dtv + chunk;
-  float* ecum = cum + chunk;                // exp(cum)
-  float* dec = ecum + chunk;                // exp(cum_last - cum)
+  const Chunk ch = chunk_of(sh);
+  const int hd = sh.hd, ds = sh.ds;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+  const T* xc = x + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
+                + static_cast<int64_t>(ch.h) * hd;
+  const T* bc = bm + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+                + static_cast<int64_t>(ch.g) * ds;
+  float* wv;
+  T* xs = reinterpret_cast<T*>(chunk_weights(dt, a_log, decay, sh, ch, smem,
+                                             wv));   // [kSlice][hd]
+  T* bs = xs + kSlice * hd;                             // [kSlice][ds]
 
-  const int bi = blockIdx.x / nh;
-  const int h = blockIdx.x % nh;
-  const int g = h / (nh / ng);
-  const int tid = threadIdx.x;
-  const int w = tid >> 5;
-  const int lane = tid & 31;
-  const float a_neg = -expf(a_log[h]);
-  const float dsk = d_skip[h];
+  float acc[NC][4][ND];
+#pragma unroll
+  for (int m = 0; m < NC; ++m)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < ND; ++k) acc[m][r][k] = 0.f;
 
-  const int64_t x_row = static_cast<int64_t>(nh) * hd;     // token strides
-  const int64_t b_row = static_cast<int64_t>(ng) * ds;
-  const T* xb = x + static_cast<int64_t>(bi) * seq * x_row + h * hd;
-  const float* dtb = dt + static_cast<int64_t>(bi) * seq * nh + h;
-  const T* bb = bm + static_cast<int64_t>(bi) * seq * b_row + g * ds;
-  const T* cb = cm + static_cast<int64_t>(bi) * seq * b_row + g * ds;
-  T* yb = y + static_cast<int64_t>(bi) * seq * x_row + h * hd;
-
-  for (int i = tid; i < hd * hs_row; i += kThreads) hs[i] = 0.f;
-
-  for (int t0 = 0; t0 < seq; t0 += chunk) {
-    const int len = min(chunk, seq - t0);
-    __syncthreads();                        // the last chunk is done with xs, bT
-    for (int j = tid; j < chunk; j += kThreads)
-      dtv[j] = j < len ? dtb[static_cast<int64_t>(t0 + j) * nh] : 0.f;
+  for (int j0 = 0; j0 < ch.len; j0 += kSlice) {
+    const int n = min(kSlice, ch.len - j0);
+    __syncthreads();                    // the last slice is consumed
+    stage(xs, hd, xc + j0 * x_row, x_row, n, n, hd);
+    stage(bs, ds, bc + j0 * b_row, b_row, n, n, ds);
+    cp_async_wait_all();
     __syncthreads();
-    for (int i = tid; i < chunk * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      xs[i] = j < len ? to_f32(xb[(t0 + j) * x_row + d]) * dtv[j] : 0.f;
+    for (int jj = 0; jj < n; ++jj) {
+      const float wj = wv[j0 + jj];
+      float xv[NC][4], bv[ND];
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int d = 32 * m + 4 * w + r;
+          xv[m][r] = d < hd ? to_f32(xs[jj * hd + d]) * wj : 0.f;
+        }
+#pragma unroll
+      for (int k = 0; k < ND; ++k) {
+        const int s = lane + 32 * k;
+        bv[k] = s < ds ? to_f32(bs[jj * ds + s]) : 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < ND; ++k)
+            acc[m][r][k] = fmaf(xv[m][r], bv[k], acc[m][r][k]);
     }
-    for (int i = tid; i < chunk * ds; i += kThreads) {
-      const int j = i % chunk, s = i / chunk;
-      bT[s * qs + j] = j < len ? to_f32(bb[(t0 + j) * b_row + s]) : 0.f;
-    }
-    if (tid == 0) {                         // in order, like a cumsum
-      float run = 0.f;
-      for (int j = 0; j < chunk; ++j) {
-        run += a_neg * dtv[j];
-        cum[j] = run;
+  }
+  float* out = states + ch.idx * hd * ds;
+#pragma unroll
+  for (int m = 0; m < NC; ++m)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int d = 32 * m + 4 * w + r;
+      if (d >= hd) continue;
+#pragma unroll
+      for (int k = 0; k < ND; ++k) {
+        const int s = lane + 32 * k;
+        if (s < ds) out[d * ds + s] = acc[m][r][k];
       }
     }
-    __syncthreads();
-    for (int j = tid; j < chunk; j += kThreads) {
-      ecum[j] = expf(cum[j]);
-      dec[j] = expf(cum[chunk - 1] - cum[j]);
-    }
+}
 
-    // y, one tile of kRows rows at a time, from the state entering the chunk
-    for (int r0 = 0; r0 < len; r0 += kRows) {
-      __syncthreads();                      // cT and ecum are free / ready
-      for (int i = tid; i < kRows * ds; i += kThreads) {
-        const int r = i % kRows, s = i / kRows;
-        cT[s * kRows + r] =
-            r0 + r < len ? to_f32(cb[(t0 + r0 + r) * b_row + s]) : 0.f;
+// S = (x w)^T b as an (hd, ds) product over the chunk's tokens: warp w
+// takes 16 x 16 tiles of S in turn; x w is split into hi and lo in place.
+__global__ void __launch_bounds__(kThreads)
+states_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+          const float* __restrict__ a_log, const bf16* __restrict__ bm,
+          float* __restrict__ states, float* __restrict__ decay, Shape sh) {
+  extern __shared__ __align__(16) float smem[];
+  const Chunk ch = chunk_of(sh);
+  const int q = sh.q, hd = sh.hd, ds = sh.ds;
+  const int sx = hd + kPad, sb = ds + kPad;
+  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+  bf16* xh = reinterpret_cast<bf16*>(smem + 3 * q + 4);  // [q][sx], x then hi
+  bf16* xl = xh + q * sx;                                // [q][sx], lo
+  bf16* bs = xl + q * sx;                                // [q][sb]
+  stage(xh, sx,
+        x + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
+            + static_cast<int64_t>(ch.h) * hd,
+        x_row, q, ch.len, hd);
+  stage(bs, sb,
+        bm + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+            + static_cast<int64_t>(ch.g) * ds,
+        b_row, q, ch.len, ds);
+  float* wv;
+  chunk_weights(dt, a_log, decay, sh, ch, smem, wv);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = threadIdx.x; i < q * hd / 2; i += kThreads) {
+    const int j = 2 * i / hd, d = 2 * i % hd;
+    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(xh + j * sx + d);
+    const float2 v = __bfloat1622float2(*hp);
+    uint32_t hi, lo;
+    split2(v.x * wv[j], v.y * wv[j], hi, lo);
+    *reinterpret_cast<uint32_t*>(hp) = hi;
+    *reinterpret_cast<uint32_t*>(xl + j * sx + d) = lo;
+  }
+  __syncthreads();
+
+  const Lane ln = lane_of();
+  const int ktiles = (ch.len + 15) / 16;   // token tiles that hold tokens
+  const int nqs = ds / 16;
+  float* out = states + ch.idx * hd * ds;
+  for (int u = threadIdx.x >> 5; u < (hd / 16) * nqs; u += kWarps) {
+    const int mt = u / nqs, nq = u % nqs;
+    float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = 0; ks < ktiles; ++ks) {
+      uint32_t ah[4], al[4], bb[4];
+      // A (d, j) from x w stored [j][d]; B (j, s) from b stored [j][s]
+      const int ao = (16 * ks + (ln.qq >> 1) * 8 + ln.rr) * sx + 16 * mt
+                     + (ln.qq & 1) * 8;
+      ldsm_x4_t(ah, xh + ao);
+      ldsm_x4_t(al, xl + ao);
+      ldsm_x4_t(bb, bs + (16 * ks + (ln.qq & 1) * 8 + ln.rr) * sb + 16 * nq
+                        + (ln.qq >> 1) * 8);
+      mma(a0, ah, bb[0], bb[1]);
+      mma(a0, al, bb[0], bb[1]);
+      mma(a1, ah, bb[2], bb[3]);
+      mma(a1, al, bb[2], bb[3]);
+    }
+    float* o = out + (16 * mt + ln.g) * ds + 16 * nq + 2 * ln.t;
+    *reinterpret_cast<float2*>(o) = make_float2(a0[0], a0[1]);
+    *reinterpret_cast<float2*>(o + 8 * ds) = make_float2(a0[2], a0[3]);
+    *reinterpret_cast<float2*>(o + 8) = make_float2(a1[0], a1[1]);
+    *reinterpret_cast<float2*>(o + 8 * ds + 8) = make_float2(a1[2], a1[3]);
+  }
+}
+
+// ---- pass 2: state passing ------------------------------------------------
+
+// Thread i of a head owns its state entries 4 i .. 4 i + 3 (n = hd ds per
+// head; whole float4s when n % 4 == 0); the loads of 4 chunks are issued
+// together, before their stores.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+state_pass(float* __restrict__ st, const float* __restrict__ decay,
+           float* __restrict__ h_out, int32_t nc, int32_t n, int32_t tiles) {
+  const int64_t head = blockIdx.x / tiles;
+  const int e = ((blockIdx.x % tiles) * kThreads + threadIdx.x) * 4;
+  if (e >= n) return;
+  float* s = st + head * nc * n + e;
+  const float* dec = decay + head * nc;
+  float* ho = h_out + head * n + e;
+  if (kVec) {
+    float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < nc; k0 += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (k0 + u < nc)
+          v[u] = *reinterpret_cast<const float4*>(
+              s + static_cast<int64_t>(k0 + u) * n);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (k0 + u >= nc) break;
+        const float dk = dec[k0 + u];
+        *reinterpret_cast<float4*>(s + static_cast<int64_t>(k0 + u) * n) = hv;
+        hv = make_float4(fmaf(hv.x, dk, v[u].x), fmaf(hv.y, dk, v[u].y),
+                         fmaf(hv.z, dk, v[u].z), fmaf(hv.w, dk, v[u].w));
       }
+    }
+    *reinterpret_cast<float4*>(ho) = hv;
+  } else {
+    for (int i = 0; i < min(4, n - e); ++i) {
+      float hv = 0.f;
+      for (int k = 0; k < nc; ++k) {
+        float* p = s + static_cast<int64_t>(k) * n + i;
+        const float v = *p;
+        *p = hv;
+        hv = fmaf(hv, dec[k], v);
+      }
+      ho[i] = hv;
+    }
+  }
+}
+
+// ---- pass 3: chunk scan ---------------------------------------------------
+
+__host__ __device__ inline size_t scan_cc_smem(int q, int hd, int size) {
+  const size_t st = kSlice + 1;
+  const size_t tiles = q * st * size + kSlice * st * size + hd * st * 4;
+  const size_t scores = static_cast<size_t>(kSlice) * (q + 1) * 4;
+  return 4 * static_cast<size_t>(2 * q + 4)
+         + static_cast<size_t>(q) * hd * size
+         + (tiles > scores ? tiles : scores);
+}
+
+__host__ __device__ inline size_t scan_tc_smem(int q, int hd, int ds) {
+  const size_t sb = ds + kPad;
+  const size_t c = q * sb, h = 2 * static_cast<size_t>(hd < kHalf ? hd : kHalf) * sb;
+  return 4 * static_cast<size_t>(2 * q + 4)
+         + 2 * (static_cast<size_t>(q) * (hd + kPad) + q * sb + (c > h ? c : h));
+}
+
+// Rows in tiles of 32: warp w owns rows 4 w .. 4 w + 3 of a tile, lane l
+// the columns l + 32 m; b, c and H pass through shared memory in slices
+// of 32 state columns, and the masked, decayed scores of the tile then
+// take the slices' place.  NC = ceil(hd / 32).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, 2)
+scan_cc(const T* __restrict__ x, const float* __restrict__ dt,
+        const float* __restrict__ a_log, const T* __restrict__ bm,
+        const T* __restrict__ cm, const float* __restrict__ d_skip,
+        const float* __restrict__ hin, T* __restrict__ y, Shape sh) {
+  extern __shared__ __align__(16) float smem[];
+  const Chunk ch = chunk_of(sh);
+  const int q = sh.q, hd = sh.hd, ds = sh.ds;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int sst = kSlice + 1;
+  const int sg = q + 1;
+  float* dtv = smem;
+  float* cum = dtv + q;
+  float* wsum = cum + q;
+  T* xs = reinterpret_cast<T*>(wsum + 4);                 // [q][hd]
+  T* bt = xs + q * hd;                                    // [q][sst]
+  T* ct = bt + q * sst;                                   // [kSlice][sst]
+  float* ht = reinterpret_cast<float*>(ct + kSlice * sst);  // [hd][sst]
+  float* gs = reinterpret_cast<float*>(bt);               // [kSlice][sg]
+
+  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+  const int64_t xo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
+                     + static_cast<int64_t>(ch.h) * hd;
+  const int64_t bo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+                     + static_cast<int64_t>(ch.g) * ds;
+  const bool has_h = ch.k > 0;            // H_0 = 0
+  const float* hk = hin + ch.idx * hd * ds;
+  const float dsk = d_skip[ch.h];
+  stage(xs, hd, x + xo, x_row, ch.len, ch.len, hd);
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), dtv, cum, wsum);
+
+  for (int r0 = 0; r0 < ch.len; r0 += kSlice) {
+    const int nk = r0 / kSlice + 1;      // column groups up to the diagonal
+    float gacc[4][4], zacc[4][NC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) gacc[r][k] = 0.f;
+#pragma unroll
+      for (int m = 0; m < NC; ++m) zacc[r][m] = 0.f;
+    }
+    for (int s0 = 0; s0 < ds; s0 += kSlice) {
+      const int sw = min(kSlice, ds - s0);
+      __syncthreads();                   // the slices (or scores) are free
+      stage(bt, sst, bm + bo + s0, b_row, kSlice * nk,
+            min(ch.len, kSlice * nk), sw);
+      stage(ct, sst, cm + bo + r0 * b_row + s0, b_row, kSlice,
+            min(kSlice, ch.len - r0), sw);
+      if (has_h) stage(ht, sst, hk + s0, ds, hd, hd, sw);
+      cp_async_wait_all();
       __syncthreads();
-      const int n_k = r0 / 32 + 1;          // column groups up to the diagonal
-      float gacc[4][4], inter[4][NC];
+      for (int s = 0; s < sw; ++s) {
+        float cv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) gacc[r][k] = 0.f;
-#pragma unroll
-        for (int m = 0; m < NC; ++m) inter[r][m] = 0.f;
-      }
-      for (int s = 0; s < ds; ++s) {
-        const float4 c4 = *reinterpret_cast<const float4*>(&cT[s * kRows + 4 * w]);
-        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+        for (int r = 0; r < 4; ++r) cv[r] = to_f32(ct[(4 * w + r) * sst + s]);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          if (k < n_k) {
-            const float bv = bT[s * qs + lane + 32 * k];
+          if (k < nk) {
+            const float bv = to_f32(bt[(lane + 32 * k) * sst + s]);
 #pragma unroll
             for (int r = 0; r < 4; ++r) gacc[r][k] = fmaf(cv[r], bv, gacc[r][k]);
           }
         }
+        if (has_h) {
 #pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const int d = lane + 32 * m;
-          if (d < hd) {
-            const float hv = hs[d * hs_row + s];
+          for (int m = 0; m < NC; ++m) {
+            const int d = lane + 32 * m;
+            if (d < hd) {
+              const float hv = ht[d * sst + s];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) inter[r][m] = fmaf(cv[r], hv, inter[r][m]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = r0 + 4 * w + r;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int j = lane + 32 * k;
-          if (k < n_k)
-            gs[(4 * w + r) * qs + j] =
-                j <= i ? gacc[r][k] * expf(cum[i] - cum[j]) : 0.f;
-        }
-      }
-      __syncwarp();                         // a warp reads only its own rows
-      const int n_j = min(len, r0 + kRows);
-      float yv[4][NC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int m = 0; m < NC; ++m) yv[r][m] = 0.f;
-      for (int j = 0; j < n_j; ++j) {
-        float gv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) gv[r] = gs[(4 * w + r) * qs + j];
-#pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const int d = lane + 32 * m;
-          if (d < hd) {
-            const float xv = xs[j * hd + d];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) yv[r][m] = fmaf(gv[r], xv, yv[r][m]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = r0 + 4 * w + r;
-        if (i >= len) continue;
-#pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const int d = lane + 32 * m;
-          if (d < hd) {
-            const int64_t at = (t0 + i) * x_row + d;
-            const float v = yv[r][m] + ecum[i] * inter[r][m];
-            yb[at] = from_f32<T>(v + dsk * to_f32(xb[at]));
+              for (int r = 0; r < 4; ++r) zacc[r][m] = fmaf(cv[r], hv, zacc[r][m]);
+            }
           }
         }
       }
     }
-    __syncthreads();                        // every tile has read hs
-
-    // advance the state: thread (w, lane) owns h[d][s] for d = d0 + 4 w + r,
-    // s = lane + 32 k
-    const float e_last = ecum[chunk - 1];
-    for (int d0 = 0; d0 < hd; d0 += 4 * kWarps) {
-      float acc[4][ND];
+    __syncthreads();                     // the scores take the slices' place
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r) {
+      const int i = r0 + 4 * w + r;
 #pragma unroll
-        for (int k = 0; k < ND; ++k) acc[r][k] = 0.f;
-      for (int j = 0; j < len; ++j) {
-        float xv[4];
+      for (int k = 0; k < 4; ++k) {
+        const int j = lane + 32 * k;
+        if (k < nk)
+          gs[(4 * w + r) * sg + j] =
+              j <= i ? gacc[r][k] * expf(cum[i] - cum[j]) * dtv[j] : 0.f;
+      }
+    }
+    __syncwarp();                        // a warp reads only its own rows
+    const int nj = min(ch.len, r0 + kSlice);
+    float yv[4][NC];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int d = d0 + 4 * w + r;
-          xv[r] = d < hd ? xs[j * hd + d] * dec[j] : 0.f;
-        }
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int k = 0; k < ND; ++k) {
-          const int s = lane + 32 * k;
-          if (s < ds) {
-            const float bv = bT[s * qs + j];
+      for (int m = 0; m < NC; ++m) yv[r][m] = 0.f;
+    for (int j = 0; j < nj; ++j) {
+      float gv[4];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) acc[r][k] = fmaf(xv[r], bv, acc[r][k]);
-          }
+      for (int r = 0; r < 4; ++r) gv[r] = gs[(4 * w + r) * sg + j];
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        const int d = lane + 32 * m;
+        if (d < hd) {
+          const float xv = to_f32(xs[j * hd + d]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) yv[r][m] = fmaf(gv[r], xv, yv[r][m]);
         }
       }
+    }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int d = d0 + 4 * w + r;
-        if (d >= hd) continue;
+    for (int r = 0; r < 4; ++r) {
+      const int i = r0 + 4 * w + r;
+      if (i >= ch.len) continue;
+      const float ei = expf(cum[i]);
 #pragma unroll
-        for (int k = 0; k < ND; ++k) {
-          const int s = lane + 32 * k;
-          if (s < ds) hs[d * hs_row + s] = hs[d * hs_row + s] * e_last + acc[r][k];
+      for (int m = 0; m < NC; ++m) {
+        const int d = lane + 32 * m;
+        if (d < hd) {
+          const float v = yv[r][m] + ei * zacc[r][m]
+                          + dsk * to_f32(xs[i * hd + d]);
+          y[xo + i * x_row + d] = from_f32<T>(v);
         }
       }
     }
   }
+}
+
+// Rows h0 .. h0 + kHalf - 1 of H (hd, ds), KS float4s a thread
+template <int KS>
+__device__ __forceinline__ void load_half(float4 (&hreg)[KS], const float* hk,
+                                          int hd, int ds, int h0) {
+  const int n = min(kHalf, hd - h0) * ds;
+#pragma unroll
+  for (int it = 0; it < KS; ++it) {
+    const int e = 4 * (threadIdx.x + kThreads * it);
+    if (e < n) hreg[it] = *reinterpret_cast<const float4*>(hk + h0 * ds + e);
+  }
+}
+
+// Warp w owns rows 16 w .. 16 w + 15 of the chunk, its c fragments held
+// in registers: first C . H^T (H split, in halves of 64 rows that take the
+// c tile's place), scaled by exp(cum_i); then, for each 16-token tile j up
+// to the diagonal, the scores C . B^T, masked and decayed, split and
+// multiplied with x.  NT = hd / 8 and KS = ds / 16 at most.
+template <int NT, int KS>
+__global__ void __launch_bounds__(kThreads, NT <= 8 ? 2 : 1)
+scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+        const float* __restrict__ a_log, const bf16* __restrict__ bm,
+        const bf16* __restrict__ cm, const float* __restrict__ d_skip,
+        const float* __restrict__ hin, bf16* __restrict__ y, Shape sh) {
+  extern __shared__ __align__(16) float smem[];
+  const Chunk ch = chunk_of(sh);
+  const int q = sh.q, hd = sh.hd, ds = sh.ds;
+  const int sx = hd + kPad, sb = ds + kPad;
+  float* dtv = smem;
+  float* cum = dtv + q;
+  float* wsum = cum + q;
+  bf16* xs = reinterpret_cast<bf16*>(wsum + 4);  // [q][sx]
+  bf16* bs = xs + q * sx;                        // [q][sb]
+  bf16* cs = bs + q * sb;                        // [q][sb], then H:
+  bf16* hh = cs;                                 // [min(hd, kHalf)][sb] hi
+  bf16* hl = cs + min(hd, kHalf) * sb;           // [min(hd, kHalf)][sb] lo
+
+  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+  const int64_t xo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
+                     + static_cast<int64_t>(ch.h) * hd;
+  const int64_t bo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+                     + static_cast<int64_t>(ch.g) * ds;
+  stage(xs, sx, x + xo, x_row, q, ch.len, hd);
+  stage(bs, sb, bm + bo, b_row, q, ch.len, ds);
+  stage(cs, sb, cm + bo, b_row, q, ch.len, ds);
+  const bool has_h = ch.k > 0;            // H_0 = 0
+  const float* hk = hin + ch.idx * hd * ds;
+  const float dsk = d_skip[ch.h];
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), dtv, cum, wsum);
+
+  float4 hreg[KS];
+  if (has_h) load_half(hreg, hk, hd, ds, 0);
+  cp_async_wait_all();
   __syncthreads();
-  float* hb = h_out + static_cast<int64_t>(blockIdx.x) * hd * ds;
-  for (int i = tid; i < hd * ds; i += kThreads)
-    hb[i] = hs[(i / ds) * hs_row + i % ds];
+
+  const Lane ln = lane_of();
+  const int r = threadIdx.x >> 5;
+  const bool active = 16 * r < ch.len;   // rows of this warp hold tokens
+  const int ks_n = ds / 16, nt_n = hd / 8;
+  uint32_t cf[KS][4];
+  if (active) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      if (ks < ks_n)
+        ldsm_x4(cf[ks], cs + (16 * r + (ln.qq & 1) * 8 + ln.rr) * sb + 16 * ks
+                            + (ln.qq >> 1) * 8);
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  if (has_h) {
+#pragma unroll
+    for (int half = 0; half < (NT + 7) / 8; ++half) {
+      const int h0 = kHalf * half;
+      if (h0 >= hd) break;
+      if (half > 0) load_half(hreg, hk, hd, ds, h0);
+      __syncthreads();                   // c (or the last half) is consumed
+      const int n = min(kHalf, hd - h0) * ds;
+#pragma unroll
+      for (int it = 0; it < KS; ++it) {
+        const int e = 4 * (threadIdx.x + kThreads * it);
+        if (e < n) {
+          const int d = e / ds, s = e % ds;
+          uint2 hi, lo;
+          split2(hreg[it].x, hreg[it].y, hi.x, lo.x);
+          split2(hreg[it].z, hreg[it].w, hi.y, lo.y);
+          *reinterpret_cast<uint2*>(hh + d * sb + s) = hi;
+          *reinterpret_cast<uint2*>(hl + d * sb + s) = lo;
+        }
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          const int n0 = 8 * half + 2 * np;   // n-tiles n0, n0 + 1 of acc
+          if (n0 >= NT || n0 >= nt_n) continue;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            if (ks >= ks_n) continue;
+            // B (s, d) from H stored [d][s]
+            const int off = (16 * np + (ln.qq >> 1) * 8 + ln.rr) * sb + 16 * ks
+                            + (ln.qq & 1) * 8;
+            uint32_t bh[4], bl[4];
+            ldsm_x4(bh, hh + off);
+            ldsm_x4(bl, hl + off);
+            mma(acc[n0], cf[ks], bh[0], bh[1]);
+            mma(acc[n0], cf[ks], bl[0], bl[1]);
+            mma(acc[n0 + 1], cf[ks], bh[2], bh[3]);
+            mma(acc[n0 + 1], cf[ks], bl[2], bl[3]);
+          }
+        }
+      }
+    }
+  }
+  if (!active) return;                   // no barrier follows
+
+  const int ia = 16 * r + ln.g, ib = ia + 8;
+  const float ca = cum[ia], cb = cum[ib];
+  if (has_h) {
+    const float ea = expf(ca), eb = expf(cb);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= ea;
+      acc[n][1] *= ea;
+      acc[n][2] *= eb;
+      acc[n][3] *= eb;
+    }
+  }
+  for (int jt = 0; jt <= r; ++jt) {
+    float g0[4] = {0.f, 0.f, 0.f, 0.f}, g1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks >= ks_n) continue;
+      // B (s, j) from b stored [j][s]
+      uint32_t bb[4];
+      ldsm_x4(bb, bs + (16 * jt + (ln.qq >> 1) * 8 + ln.rr) * sb + 16 * ks
+                      + (ln.qq & 1) * 8);
+      mma(g0, cf[ks], bb[0], bb[1]);
+      mma(g1, cf[ks], bb[2], bb[3]);
+    }
+    // the scores at rows ia, ib and columns j, j + 1 (g0), j + 8, j + 9 (g1)
+    const int j = 16 * jt + 2 * ln.t;
+    auto p = [&](float gv, float ci, int i, int jj) {
+      return jj <= i ? gv * expf(ci - cum[jj]) * dtv[jj] : 0.f;
+    };
+    uint32_t ah[4], al[4];
+    split2(p(g0[0], ca, ia, j), p(g0[1], ca, ia, j + 1), ah[0], al[0]);
+    split2(p(g0[2], cb, ib, j), p(g0[3], cb, ib, j + 1), ah[1], al[1]);
+    split2(p(g1[0], ca, ia, j + 8), p(g1[1], ca, ia, j + 9), ah[2], al[2]);
+    split2(p(g1[2], cb, ib, j + 8), p(g1[3], cb, ib, j + 9), ah[3], al[3]);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      if (2 * np >= nt_n) continue;
+      // B (j, d) from x stored [j][d]
+      uint32_t bx[4];
+      ldsm_x4_t(bx, xs + (16 * jt + (ln.qq & 1) * 8 + ln.rr) * sx + 16 * np
+                        + (ln.qq >> 1) * 8);
+      mma(acc[2 * np], ah, bx[0], bx[1]);
+      mma(acc[2 * np], al, bx[0], bx[1]);
+      mma(acc[2 * np + 1], ah, bx[2], bx[3]);
+      mma(acc[2 * np + 1], al, bx[2], bx[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n >= nt_n) continue;
+    const int d = 8 * n + 2 * ln.t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = half ? ib : ia;
+      if (i >= ch.len) continue;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xs + i * sx + d));
+      *reinterpret_cast<__nv_bfloat162*>(y + xo + i * x_row + d) =
+          __floats2bfloat162_rn(acc[n][2 * half] + dsk * xv.x,
+                                acc[n][2 * half + 1] + dsk * xv.y);
+    }
+  }
 }
 
-template <typename T, int NC, int ND>
-int launch(const void* x, const void* dt, const void* a_log, const void* b,
-           const void* c, const void* d_skip, void* y, void* h_out,
-           int32_t bsz, int32_t seq, int32_t nh, int32_t hd, int32_t ng,
-           int32_t ds, int32_t chunk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(hd, ds, chunk);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T, NC, ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  ssd_kernel<T, NC, ND><<<static_cast<unsigned>(bsz) * nh, kThreads, smem,
-                          stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a_log), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<const float*>(d_skip),
-      static_cast<T*>(y), static_cast<float*>(h_out), seq, nh, hd, ng, ds,
-      chunk);
-  return static_cast<int>(cudaGetLastError());
-}
+// ---- plans and launches ---------------------------------------------------
+
+enum Mode { kF32 = 0, kBf16 = 1, kTensorCores = 2 };
+
+struct Pass {
+  const void* fn;
+  size_t smem;
+};
+
+struct Plan {
+  Pass pass[3];
+};
 
 inline int groups(int n) { return n <= 32 ? 1 : n <= 64 ? 2 : 4; }
 
 template <typename T, int NC>
-int dispatch_ds(int nd, const void* x, const void* dt, const void* a_log,
-                const void* b, const void* c, const void* d_skip, void* y,
-                void* h_out, int32_t bsz, int32_t seq, int32_t nh, int32_t hd,
-                int32_t ng, int32_t ds, int32_t chunk, cudaStream_t st) {
+const void* states_cc_fn(int nd) {
   switch (nd) {
-    case 1: return launch<T, NC, 1>(x, dt, a_log, b, c, d_skip, y, h_out, bsz,
-                                    seq, nh, hd, ng, ds, chunk, st);
-    case 2: return launch<T, NC, 2>(x, dt, a_log, b, c, d_skip, y, h_out, bsz,
-                                    seq, nh, hd, ng, ds, chunk, st);
-    default: return launch<T, NC, 4>(x, dt, a_log, b, c, d_skip, y, h_out,
-                                     bsz, seq, nh, hd, ng, ds, chunk, st);
+    case 1: return reinterpret_cast<const void*>(&states_cc<T, NC, 1>);
+    case 2: return reinterpret_cast<const void*>(&states_cc<T, NC, 2>);
+    default: return reinterpret_cast<const void*>(&states_cc<T, NC, 4>);
   }
 }
 
 template <typename T>
-int dispatch(const void* x, const void* dt, const void* a_log, const void* b,
-             const void* c, const void* d_skip, void* y, void* h_out,
-             int32_t bsz, int32_t seq, int32_t nh, int32_t hd, int32_t ng,
-             int32_t ds, int32_t chunk, cudaStream_t st) {
+Plan plan_cc(int q, int hd, int ds) {
+  Plan p;
   const int nd = groups(ds);
   switch (groups(hd)) {
-    case 1: return dispatch_ds<T, 1>(nd, x, dt, a_log, b, c, d_skip, y, h_out,
-                                     bsz, seq, nh, hd, ng, ds, chunk, st);
-    case 2: return dispatch_ds<T, 2>(nd, x, dt, a_log, b, c, d_skip, y, h_out,
-                                     bsz, seq, nh, hd, ng, ds, chunk, st);
-    default: return dispatch_ds<T, 4>(nd, x, dt, a_log, b, c, d_skip, y,
-                                      h_out, bsz, seq, nh, hd, ng, ds, chunk,
-                                      st);
+    case 1:
+      p.pass[0].fn = states_cc_fn<T, 1>(nd);
+      p.pass[2].fn = reinterpret_cast<const void*>(&scan_cc<T, 1>);
+      break;
+    case 2:
+      p.pass[0].fn = states_cc_fn<T, 2>(nd);
+      p.pass[2].fn = reinterpret_cast<const void*>(&scan_cc<T, 2>);
+      break;
+    default:
+      p.pass[0].fn = states_cc_fn<T, 4>(nd);
+      p.pass[2].fn = reinterpret_cast<const void*>(&scan_cc<T, 4>);
   }
+  p.pass[0].smem = states_cc_smem(q, hd, ds, sizeof(T));
+  p.pass[2].smem = scan_cc_smem(q, hd, sizeof(T));
+  return p;
+}
+
+Plan plan_tc(int q, int hd, int ds) {
+  Plan p;
+  p.pass[0].fn = reinterpret_cast<const void*>(&states_tc);
+  p.pass[0].smem = states_tc_smem(q, hd, ds);
+  const bool wide_d = hd > 64, wide_s = ds > 64;
+  p.pass[2].fn =
+      wide_d ? (wide_s ? reinterpret_cast<const void*>(&scan_tc<16, 8>)
+                       : reinterpret_cast<const void*>(&scan_tc<16, 4>))
+             : (wide_s ? reinterpret_cast<const void*>(&scan_tc<8, 8>)
+                       : reinterpret_cast<const void*>(&scan_tc<8, 4>));
+  p.pass[2].smem = scan_tc_smem(q, hd, ds);
+  return p;
+}
+
+bool valid(int mode, int hd, int ds, int q) {
+  if (hd <= 0 || ds <= 0 || hd > 128 || ds > 128 || q <= 0 || q > 128
+      || q % 32)
+    return false;
+  if (mode == kTensorCores) return hd % 16 == 0 && ds % 16 == 0;
+  return mode == kF32 || mode == kBf16;
+}
+
+Plan plan(int mode, int q, int hd, int ds) {
+  Plan p = mode == kTensorCores ? plan_tc(q, hd, ds)
+           : mode == kBf16      ? plan_cc<bf16>(q, hd, ds)
+                                : plan_cc<float>(q, hd, ds);
+  p.pass[1].fn = (hd * ds) % 4 == 0
+                     ? reinterpret_cast<const void*>(&state_pass<true>)
+                     : reinterpret_cast<const void*>(&state_pass<false>);
+  p.pass[1].smem = 0;
+  return p;
+}
+
+cudaError_t allow_smem(const Pass& p) {
+  if (p.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(p.smem));
+}
+
+cudaError_t launch(const Pass& p, unsigned grid, void** args,
+                   cudaStream_t st) {
+  const cudaError_t err = allow_smem(p);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernel(p.fn, dim3(grid), dim3(kThreads), args, p.smem, st);
 }
 
 }  // namespace
 
-// x (bsz, seq, nh, hd) and y like it, of float32 (bf16 == 0) or bfloat16
-// (bf16 == 1); dt (bsz, seq, nh) f32; a_log, d_skip (nh,) f32; b, c
-// (bsz, seq, ng, ds) of x's type; h_out (bsz, nh, hd, ds) f32; all
-// contiguous.  hd, ds <= 128; chunk a multiple of 32, at most 128; nh a
-// multiple of ng.  Launches on `stream`; returns cudaGetLastError().
+// x (bsz, seq, nh, hd) and y like it; dt (bsz, seq, nh) f32; a_log,
+// d_skip (nh,) f32; b, c (bsz, seq, ng, ds) of x's type; h_out (bsz, nh,
+// hd, ds) f32; the scratch: states (bsz, nh, nc, hd, ds) f32 and decay
+// (bsz, nh, nc) f32, nc = ceil(seq / chunk); all contiguous.  mode 0: f32
+// on the CUDA cores, 1: bf16 on the CUDA cores, 2: bf16 on the tensor
+// cores (hd, ds multiples of 16).  hd, ds <= 128; chunk a multiple of 32,
+// at most 128; nh a multiple of ng.  `passes` is a mask of the passes to
+// launch (1: chunk states into the scratch, 2: state passing in place and
+// h_out, 4: chunk scan from the scratch into y; 7 is the whole scan), in
+// that order on `stream`.  Returns the first CUDA error, else
+// cudaGetLastError().
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* a_log,
                        const void* b, const void* c, const void* d_skip,
-                       void* y, void* h_out, int32_t bsz, int32_t seq,
-                       int32_t nh, int32_t hd, int32_t ng, int32_t ds,
-                       int32_t chunk, int32_t bf16, void* stream) {
-  if (bsz <= 0 || nh <= 0) return static_cast<int>(cudaGetLastError());
-  if (hd > 128 || ds > 128 || chunk > 128 || chunk % 32)
+                       void* y, void* h_out, void* states, void* decay,
+                       int32_t bsz, int32_t seq, int32_t nh, int32_t hd,
+                       int32_t ng, int32_t ds, int32_t chunk, int32_t mode,
+                       int32_t passes, void* stream) {
+  if (!valid(mode, hd, ds, chunk) || ng <= 0 || nh % ng || seq < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bsz <= 0 || nh <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(x, dt, a_log, b, c, d_skip, y, h_out,
-                                        bsz, seq, nh, hd, ng, ds, chunk, st)
-              : dispatch<float>(x, dt, a_log, b, c, d_skip, y, h_out, bsz,
-                                seq, nh, hd, ng, ds, chunk, st);
+  Shape sh{bsz, seq, nh, hd, ng, ds, chunk, (seq + chunk - 1) / chunk};
+  const Plan p = plan(mode, chunk, hd, ds);
+  const unsigned blocks = static_cast<unsigned>(bsz) * nh * sh.nc;
+  cudaError_t err = cudaSuccess;
+  if ((passes & 1) && sh.nc > 0) {
+    void* args[] = {&x, &dt, &a_log, &b, &states, &decay, &sh};
+    err = launch(p.pass[0], blocks, args, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (passes & 2) {
+    int32_t n = hd * ds, tiles = (n + 4 * kThreads - 1) / (4 * kThreads);
+    void* args[] = {&states, &decay, &h_out, &sh.nc, &n, &tiles};
+    err = launch(p.pass[1], static_cast<unsigned>(bsz) * nh * tiles, args, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if ((passes & 4) && sh.nc > 0) {
+    void* args[] = {&x, &dt, &a_log, &b, &c, &d_skip, &states, &y, &sh};
+    err = launch(p.pass[2], blocks, args, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For each pass at (mode, hd, ds, chunk): the blocks of kThreads threads
+// that fit on one SM (registers and shared memory, from the occupancy
+// calculator) into blocks[0..2], and the shared bytes a block takes into
+// smem[0..2].
+extern "C" int ssd_occupancy(int32_t mode, int32_t hd, int32_t ds,
+                             int32_t chunk, int32_t* blocks, int32_t* smem) {
+  if (!valid(mode, hd, ds, chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan(mode, chunk, hd, ds);
+  for (int i = 0; i < 3; ++i) {
+    cudaError_t err = allow_smem(p.pass[i]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks[i], p.pass[i].fn, kThreads, p.pass[i].smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem[i] = static_cast<int32_t>(p.pass[i].smem);
+  }
+  return 0;
 }

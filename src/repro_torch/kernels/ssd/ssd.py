@@ -1,31 +1,60 @@
-"""The SSD (Mamba-2) chunk scan — wrapper and plain version.
+"""The SSD (Mamba-2) chunk scan — wrapper, routes and plain version.
 
-The CUDA kernel (``kernels/csrc/ssd.cu``) replaces the TPU's
-``ssd_pallas``: one block per (batch row, head), the chunks in sequence
-inside it with the state h (hd, ds) in shared memory, b and c read per
-group and a_log, d_skip per head (no repeated copies), the ragged last
-chunk masked.  ``ssd_scan`` launches it for CUDA tensors and takes
+The CUDA kernels (``kernels/csrc/ssd.cu``) replace the TPU's
+``ssd_pallas`` with the state-passing form of the scan: one ``ssd_fwd``
+call launches three passes, the chunk states (a block per batch row,
+chunk and head), the state passing (the chunks of a head in sequence,
+elementwise, in place on the scratch) and the chunk scan (a block per
+batch row, chunk and head), so the chunks of a head run in parallel.
+``route`` picks the arithmetic from the type and the widths before the
+launch, never from the length, the batch or the pointers:
+
+* ``"tc"``, bfloat16 with hd and ds multiples of 16: tensor cores
+  (``mma.sync`` bf16 -> f32), every f32 operand split into a bf16 high
+  part and a bf16 remainder, two products summed in f32; counter
+  ``ssd_tc``;
+* ``"cuda_core"``, float32 and bfloat16 at the other widths: f32 FMAs;
+  counter ``ssd``.
+
+``ssd_scan`` launches the kernels for CUDA tensors and takes
 ``ref.ssd_plain`` for CPU tensors; there is no fallback from the card to
-the plain version.  A shape whose chunk does not fit the shared memory of
-one block raises ``ValueError``.
+the plain version.  ``run_passes`` launches chosen passes on buffers the
+caller gives, for the card tests and per-pass timing; it counts no
+launch.  The wrapper allocates the scratch (``scratch``) with
+``torch.empty``.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.sgd.sgd import max_shared_bytes
 from repro_torch.kernels.ssd import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_WIDTH = 128                 # hd and ds: the widest column groups built
-ROWS = 32                       # rows of a score tile in the kernel
+MAX_WIDTH = 128                 # hd and ds: the widest tiles built
+CHUNK_STEP = 32                 # chunk: a multiple of this, at most 128
+MAX_CHUNK = 128
+TC_STEP = 16                    # the tensor-core route's width step
+PASSES = ("chunk_states", "state_pass", "chunk_scan")
+COUNTER = {"tc": "ssd_tc", "cuda_core": "ssd"}
 
 
-def smem_bytes(hd: int, ds: int, chunk: int) -> int:
-    """Shared memory one block takes (``smem_floats`` in ``ssd.cu``)."""
-    return 4 * (ROWS * ds + hd * (ds + 1) + chunk * hd + ds * (chunk + 1)
-                + ROWS * (chunk + 1) + 4 * chunk)
+def route(dtype: torch.dtype, hd: int, ds: int) -> str:
+    """The kernel that takes (dtype, hd, ds): ``"tc"`` (tensor cores) or
+    ``"cuda_core"``."""
+    return "tc" if dtype == torch.bfloat16 and hd % TC_STEP == 0 \
+        and ds % TC_STEP == 0 else "cuda_core"
+
+
+def _mode(dtype: torch.dtype, hd: int, ds: int) -> int:
+    """``ssd_fwd``'s mode: 0 f32 and 1 bf16 on the CUDA cores, 2 tensor
+    cores."""
+    if route(dtype, hd, ds) == "tc":
+        return 2
+    return int(dtype == torch.bfloat16)
 
 
 def _check(x, dt, a_log, b, c, d_skip, chunk) -> None:
@@ -55,41 +84,113 @@ def _check(x, dt, a_log, b, c, d_skip, chunk) -> None:
         raise ValueError(f"chunk must be positive, got {chunk}")
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor, *,
-             chunk: int = 128):
-    """x (B, S, nh, hd); dt (B, S, nh) f32; a_log, d_skip (nh,) f32; b, c
-    (B, S, ng, ds) of x's type -> (y like x, final state (B, nh, hd, ds)
-    f32), through the CUDA kernel (the plain version on the CPU)."""
-    _check(x, dt, a_log, b, c, d_skip, chunk)
-    if x.device.type == "cpu":
-        return ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
-    bsz, s, nh, hd = x.shape
-    ng, ds = b.shape[2], b.shape[3]
+def _check_card(x, dt, a_log, b, c, d_skip, chunk) -> None:
+    """What the kernels take beyond ``_check``: one device, contiguous
+    tensors, the widths and chunks built, a grid of at most 2**31 - 1."""
     for t, name in ((x, "x"), (dt, "dt"), (a_log, "a_log"), (b, "b"),
                     (c, "c"), (d_skip, "d_skip")):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    smem, limit = smem_bytes(hd, ds, chunk), max_shared_bytes(x.device)
-    if smem > limit:
-        raise ValueError(
-            f"hd {hd}, ds {ds} and chunk {chunk} need {smem} bytes of shared "
-            f"memory; a block may use at most {limit} bytes")
-    if hd > MAX_WIDTH or ds > MAX_WIDTH or chunk > 128 or chunk % ROWS:
+    bsz, s, nh, hd = x.shape
+    ds = b.shape[3]
+    if hd > MAX_WIDTH or ds > MAX_WIDTH or chunk > MAX_CHUNK \
+            or chunk % CHUNK_STEP:
         raise ValueError(f"hd {hd}, ds {ds}, chunk {chunk}: the kernel takes "
                          f"hd, ds <= {MAX_WIDTH} and a chunk that is a "
-                         f"multiple of {ROWS} up to 128")
+                         f"multiple of {CHUNK_STEP} up to {MAX_CHUNK}")
+    if bsz * nh * -(-s // chunk) >= 2 ** 31:
+        raise ValueError(f"B * nh * ceil(S / chunk) = "
+                         f"{bsz * nh * -(-s // chunk)}: the grid takes at "
+                         "most 2**31 - 1 blocks")
+
+
+def scratch(x: torch.Tensor, chunk: int, ds: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The passes' scratch for x (B, S, nh, hd): the chunk states
+    (B, nh, nc, hd, ds) f32 and the chunk decays (B, nh, nc) f32."""
+    bsz, s, nh, hd = x.shape
+    nc = -(-s // chunk)
+    return (torch.empty((bsz, nh, nc, hd, ds), dtype=torch.float32,
+                        device=x.device),
+            torch.empty((bsz, nh, nc), dtype=torch.float32, device=x.device))
+
+
+def _launch(x, dt, a_log, b, c, d_skip, y, h, states, decay, chunk,
+            passes: int) -> None:
+    bsz, s, nh, hd = x.shape
+    ng, ds = b.shape[2], b.shape[3]
+    fn = _build.function("ssd_fwd")
+    rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d_skip.data_ptr(), y.data_ptr(), h.data_ptr(),
+            states.data_ptr(), decay.data_ptr(), bsz, s, nh, hd, ng, ds,
+            chunk, _mode(x.dtype, hd, ds), passes,
+            _build.stream_handle(x.device))
+    _build.check(rc, "ssd_fwd")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor, *,
+             chunk: int = 128):
+    """x (B, S, nh, hd); dt (B, S, nh) f32; a_log, d_skip (nh,) f32; b, c
+    (B, S, ng, ds) of x's type -> (y like x, final state (B, nh, hd, ds)
+    f32), through the CUDA kernels (the plain version on the CPU)."""
+    _check(x, dt, a_log, b, c, d_skip, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
+    _check_card(x, dt, a_log, b, c, d_skip, chunk)
+    bsz, s, nh, hd = x.shape
+    ds = b.shape[3]
     y = torch.empty_like(x)
     h = torch.empty((bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
     if bsz * nh == 0:
         return y, h
-    fn = _build.function("ssd_fwd")
-    rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d_skip.data_ptr(), y.data_ptr(), h.data_ptr(), bsz,
-            s, nh, hd, ng, ds, chunk, int(x.dtype == torch.bfloat16),
-            _build.stream_handle(x.device))
-    _build.check(rc, "ssd_fwd")
-    _build.LAUNCHES["ssd"] += 1
+    states, decay = scratch(x, chunk, ds)
+    _launch(x, dt, a_log, b, c, d_skip, y, h, states, decay, chunk, 7)
+    _build.LAUNCHES[COUNTER[route(x.dtype, hd, ds)]] += 1
     return y, h
+
+
+def run_passes(x, dt, a_log, b, c, d_skip, *, states: torch.Tensor,
+               decay: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
+               chunk: int = 128, passes: Sequence[str] = PASSES) -> None:
+    """Launch the named passes of ``ssd_scan``'s route, in their order, on
+    the caller's buffers (``scratch`` and y, h like ``ssd_scan``'s):
+    ``chunk_states`` writes states and decay, ``state_pass`` turns states
+    into the state entering each chunk in place and writes h,
+    ``chunk_scan`` reads that and writes y.  CUDA tensors only; counts no
+    launch."""
+    _check(x, dt, a_log, b, c, d_skip, chunk)
+    if x.device.type != "cuda":
+        raise ValueError("run_passes launches the kernels: it takes CUDA "
+                         f"tensors, got {x.device}")
+    _check_card(x, dt, a_log, b, c, d_skip, chunk)
+    want = {"states": scratch(x, chunk, b.shape[3])[0].shape,
+            "decay": x.shape[:1] + (x.shape[2], -(-x.shape[1] // chunk)),
+            "y": x.shape, "h": (x.shape[0], x.shape[2], x.shape[3],
+                                b.shape[3])}
+    for t, name in ((states, "states"), (decay, "decay"), (y, "y"),
+                    (h, "h")):
+        if tuple(t.shape) != tuple(want[name]) or not t.is_contiguous() \
+                or t.device != x.device:
+            raise ValueError(f"{name}: expected a contiguous {want[name]} "
+                             f"on {x.device}, got {tuple(t.shape)}")
+    unknown = set(passes) - set(PASSES)
+    if unknown:
+        raise ValueError(f"unknown passes {sorted(unknown)}; the passes are "
+                         f"{PASSES}")
+    if x.shape[0] * x.shape[2]:
+        _launch(x, dt, a_log, b, c, d_skip, y, h, states, decay, chunk,
+                sum(1 << i for i, p in enumerate(PASSES) if p in passes))
+
+
+def occupancy(dtype: torch.dtype, hd: int, ds: int, chunk: int
+              ) -> Dict[str, Tuple[int, int]]:
+    """Per pass of (dtype, hd, ds, chunk)'s route on the current card:
+    (blocks that fit on one SM, shared bytes a block takes)."""
+    blocks, smem = (ctypes.c_int32 * 3)(), (ctypes.c_int32 * 3)()
+    fn = _build.function("ssd_occupancy")
+    _build.check(fn(_mode(dtype, hd, ds), hd, ds, chunk, blocks, smem),
+                 "ssd_occupancy")
+    return {p: (blocks[i], smem[i]) for i, p in enumerate(PASSES)}

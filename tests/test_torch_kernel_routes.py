@@ -2,7 +2,9 @@
 launch: B7's (dtype, head dim) -> tensor cores or CUDA cores, B2's
 table length -> shared memory or sample, and B5's (features, minibatch)
 -> a ring of minibatch tiles on a cluster of blocks, or the direct
-kernel.  All are plain functions, so they are checked here on the CPU;
+kernel, and B8's (dtype, hd, ds) -> tensor cores or CUDA cores, with the
+tensor-core route's split-bf16 arithmetic emulated against the
+tolerances.  All are plain functions, so they are checked here on the CPU;
 the kernels behind them run only on the card
 (``tests/test_torch_kernels_cuda.py``).  On CPU tensors the wrappers take
 their plain versions and count no launch."""
@@ -17,6 +19,11 @@ from repro_torch.kernels.join import join as jk
 from repro_torch.kernels.join import ref as join_ref
 from repro_torch.kernels.sgd import ref as sgd_ref
 from repro_torch.kernels.sgd import sgd as sgd_kernels
+from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.ssd import ssd as ssd_kernels
+
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -139,3 +146,61 @@ def test_sgd_on_cpu_tensors_is_the_plain_version():
         sgd_kernels.sgd_ring(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
                              kind="logreg",
                              plan=sgd_kernels.ring_plan(784, 16))
+
+
+@pytest.mark.parametrize("dtype,hd,ds,want", [
+    (torch.float32, 16, 16, "cuda_core"), (torch.float32, 64, 128, "cuda_core"),
+    (torch.bfloat16, 16, 16, "tc"), (torch.bfloat16, 64, 128, "tc"),
+    (torch.bfloat16, 64, 120, "cuda_core"),
+    (torch.bfloat16, 24, 16, "cuda_core")])
+def test_ssd_route(dtype, hd, ds, want):
+    """Tensor cores take bf16 at widths that are multiples of 16 (mamba2's
+    hd 64, ds 128 among them); f32 and the other widths take the CUDA
+    cores, each route with its own counter."""
+    assert ssd_kernels.route(dtype, hd, ds) == want
+    assert ssd_kernels.COUNTER[want] in _build.LAUNCHES
+
+
+def _ssd_mamba_inputs(s, nh, hd, ds, seed=0):
+    """Inputs as chip_smoke.py draws them at mamba2's widths: bf16 x, b, c;
+    dt in [0.001, 0.1] and A in [1, 16] (Mamba-2's init ranges)."""
+    r = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(                    # noqa: E731
+        r.normal(size=shape).astype(np.float32))
+    dt = torch.from_numpy(r.uniform(0.001, 0.1, (1, s, nh)).astype(np.float32))
+    a_log = torch.from_numpy(np.log(r.uniform(1, 16, nh)).astype(np.float32))
+    x, b, c = f(1, s, nh, hd), f(1, s, 1, ds), f(1, s, 1, ds)
+    return (x.bfloat16(), dt, a_log, b.bfloat16(), c.bfloat16(), f(nh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_on_cpu_tensors_is_the_plain_version(dtype):
+    args = [a.to(dtype) if i in (0, 3, 4) else a
+            for i, a in enumerate(_ssd_mamba_inputs(200, 4, 16, 16))]
+    before = dict(_build.LAUNCHES)
+    got = ssd_kernels.ssd_scan(*args, chunk=64)
+    for g, w in zip(got, ssd_ref.ssd_plain(*args, chunk=64)):
+        assert torch.equal(g, w)
+    assert _build.LAUNCHES == before
+    states, decay = ssd_kernels.scratch(args[0], 64, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernels.run_passes(*args, states=states, decay=decay, y=got[0],
+                               h=got[1], chunk=64)
+
+
+def test_ssd_tensor_core_arithmetic_meets_the_tolerances(monkeypatch):
+    """The tensor-core route's arithmetic on the CPU at mamba2's widths
+    (hd 64, ds 128) over 5 chunks: every f32 operand split into a bf16
+    high part and a bf16 remainder, products in f32, keeps y within the
+    bf16 tolerance and the state within the f32 one; rounding each such
+    operand to bf16 once leaves the state outside it."""
+    args = _ssd_mamba_inputs(640, 4, 64, 128, seed=17)
+    y_p, h_p = ssd_ref.ssd_plain(*args)
+    y, h = ssd_ref.ssd_chunked_plain(*args, split_bf16=True)
+    torch.testing.assert_close(y.float(), y_p.float(), **SSD_BF16_TOL)
+    torch.testing.assert_close(h, h_p, **SSD_TOL)
+    monkeypatch.setattr(ssd_ref, "_split", lambda v, split: (
+        v.to(torch.bfloat16).float(),) if split else (v,))
+    _, h_once = ssd_ref.ssd_chunked_plain(*args, split_bf16=True)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(h_once, h_p, **SSD_TOL)

@@ -8,7 +8,8 @@ with numpy from a seed and handed to both; every integer output must be
 bit-identical.  The float kernels sum in other orders: flash attention
 (B7) agrees within 2e-5 in float32 and 2e-2 in bfloat16 (the reference's
 own sweep and tolerances), the SSD chunk scan (B8) within rtol=atol=1e-4
-in float32, against both ``ssd_pallas`` and the sequential recurrence.
+in float32, against both ``ssd_pallas`` and the sequential recurrence,
+and so do the plain versions of the card kernel's three passes, composed.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -373,6 +374,25 @@ def _ssd_pallas_model_layout(x, dt, a_log, b, c, d_skip, chunk):
 def test_ssd_matches_ssd_pallas_and_the_recurrence(s, chunk, nh, hd, ng, ds):
     args = _ssd_inputs(s, nh, hd, ng, ds, seed=s)
     y, h = ssd(*map(torch.from_numpy, args), chunk=chunk)
+    y_p, h_p = _ssd_pallas_model_layout(*args, chunk)
+    np.testing.assert_allclose(y.numpy(), y_p, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), h_p, rtol=1e-4, atol=1e-4)
+    y_n, h_n = ssd_naive(*args)
+    np.testing.assert_allclose(y.numpy(), y_n, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), h_n, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,chunk", [(128, 64), (256, 128), (512, 128),
+                                     (200, 128), (77, 128), (1, 128)])
+@pytest.mark.parametrize("nh,hd,ng,ds", [(4, 16, 1, 16), (2, 32, 1, 32),
+                                         (4, 16, 2, 16)])
+def test_ssd_passes_compose_to_ssd_pallas_and_the_recurrence(s, chunk, nh, hd,
+                                                             ng, ds):
+    """The plain versions of the card kernel's three passes (chunk states,
+    state passing, chunk scan), composed."""
+    args = _ssd_inputs(s, nh, hd, ng, ds, seed=s)
+    y, h = ssd_ref.ssd_chunked_plain(*map(torch.from_numpy, args),
+                                     chunk=chunk)
     y_p, h_p = _ssd_pallas_model_layout(*args, chunk)
     np.testing.assert_allclose(y.numpy(), y_p, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(h.numpy(), h_p, rtol=1e-4, atol=1e-4)

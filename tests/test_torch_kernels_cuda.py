@@ -28,9 +28,12 @@ within 2e-5 in float32 and 2e-2 in bfloat16 (the reference's own bf16
 tolerance).  The counts-only probe (B2) is bit-identical to
 ``bucket_probe`` on both of its routes (table in shared memory, or a
 sample of it), at the budget's edge and at both ends of int32.  The
-SSD kernel (B8) agrees with its plain version within rtol=atol=1e-4 in
-float32 (its final state too in bfloat16; y rounded to bfloat16 within
-one rounding, 1.6e-2).  A 2-layer smoke model's logits on the card equal
+SSD kernels (B8, a tensor-core route for bfloat16 at widths that are
+multiples of 16, a CUDA-core route otherwise) agree with their plain
+version within rtol=atol=1e-4 in float32 (the final state too in
+bfloat16; y rounded to bfloat16 within one rounding, 1.6e-2), each of
+their three passes with its plain pass, and two launches give the same
+bits.  A 2-layer smoke model's logits on the card equal
 its CPU logits within 2e-2: every bf16 product rounds on its own path.
 """
 import numpy as np
@@ -736,18 +739,31 @@ def _ssd_inputs(device, bsz, s, nh, hd, ng, ds, dtype, seed=0):
             b.to(device, dtype), c.to(device, dtype), f(nh).to(device))
 
 
+def _ssd_counts(before):
+    return {k: _build.LAUNCHES[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
 @pytest.mark.parametrize("s", [1, 77, 128, 200, 2000])
 @pytest.mark.parametrize("ng", [1, 2])
 @pytest.mark.parametrize("hd,ds", [(16, 16), (64, 128)])
-def test_ssd_kernel_matches_plain(cuda, s, ng, hd, ds):
-    args = _ssd_inputs(cuda, 2, s, 4, hd, ng, ds, torch.float32, seed=s)
-    before = _build.LAUNCHES["ssd"]
-    y, h = ssd_kernels.ssd_scan(*args)
-    y_p, h_p = ssd_ref.ssd_plain(*args)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, s, ng, hd, ds, chunk, dtype):
+    """f32 takes the CUDA cores, bf16 at these widths the tensor cores;
+    each call counts one launch on its route's counter and no other."""
+    args = _ssd_inputs(cuda, 2, s, 4, hd, ng, ds, dtype, seed=s)
+    counter = ssd_kernels.COUNTER[ssd_kernels.route(dtype, hd, ds)]
+    assert counter == ("ssd" if dtype == torch.float32 else "ssd_tc")
+    before = dict(_build.LAUNCHES)
+    y, h = ssd_kernels.ssd_scan(*args, chunk=chunk)
+    assert _ssd_counts(before) == {k: int(k == counter) for k in before}
+    y_p, h_p = ssd_ref.ssd_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, y_p, **SSD_TOL)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(
+        y.float(), y_p.float(),
+        **(SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL))
     torch.testing.assert_close(h, h_p, **SSD_TOL)
-    assert _build.LAUNCHES["ssd"] == before + 1
 
 
 @pytest.mark.parametrize("chunk", [32, 64, 128])
@@ -761,9 +777,111 @@ def test_ssd_kernel_bf16_and_chunk_lengths(cuda, chunk):
     torch.testing.assert_close(h, h_p, **SSD_TOL)
 
 
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("hd,ds", [(24, 16), (64, 120), (80, 48), (16, 128),
+                                   (128, 16), (128, 128), (1, 1), (33, 97)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_every_width(cuda, hd, ds, chunk, dtype):
+    """Widths off the multiples of 16 take the CUDA cores in bf16 too;
+    hd 80 and 128 take the tensor-core route's two halves of H."""
+    args = _ssd_inputs(cuda, 2, 300, 4, hd, 2, ds, dtype, seed=hd + ds)
+    counter = ssd_kernels.COUNTER[ssd_kernels.route(dtype, hd, ds)]
+    before = dict(_build.LAUNCHES)
+    y, h = ssd_kernels.ssd_scan(*args, chunk=chunk)
+    assert _ssd_counts(before) == {k: int(k == counter) for k in before}
+    y_p, h_p = ssd_ref.ssd_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        y.float(), y_p.float(),
+        **(SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL))
+    torch.testing.assert_close(h, h_p, **SSD_TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(77, 128), (200, 64), (2000, 128)])
+@pytest.mark.parametrize("dtype,hd,ds", [(torch.float32, 64, 128),
+                                         (torch.bfloat16, 64, 128),
+                                         (torch.bfloat16, 24, 16)])
+def test_ssd_passes_match_their_plain_passes(cuda, s, chunk, dtype, hd, ds):
+    """Each pass of the route alone, fed its plain predecessor's output,
+    against its plain pass."""
+    x, dt, a_log, b, c, d_skip = args = _ssd_inputs(cuda, 2, s, 4, hd, 2, ds,
+                                                    dtype, seed=7)
+    states, decay = ssd_kernels.scratch(x, chunk, ds)
+    y = torch.empty_like(x)
+    h = torch.empty((2, 4, hd, ds), dtype=torch.float32, device=cuda)
+    before = dict(_build.LAUNCHES)
+    ssd_kernels.run_passes(*args, states=states, decay=decay, y=y, h=h,
+                           chunk=chunk, passes=["chunk_states"])
+    s_p, dec_p = ssd_ref.ssd_chunk_states_plain(x, dt, a_log, b, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(states, s_p, **SSD_TOL)
+    torch.testing.assert_close(decay, dec_p, **SSD_TOL)
+
+    states.copy_(s_p)
+    decay.copy_(dec_p)
+    ssd_kernels.run_passes(*args, states=states, decay=decay, y=y, h=h,
+                           chunk=chunk, passes=["state_pass"])
+    h_in, h_p = ssd_ref.ssd_state_pass_plain(s_p, dec_p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(states, h_in, **SSD_TOL)
+    torch.testing.assert_close(h, h_p, **SSD_TOL)
+
+    states.copy_(h_in)
+    ssd_kernels.run_passes(*args, states=states, decay=decay, y=y, h=h,
+                           chunk=chunk, passes=["chunk_scan"])
+    y_p = ssd_ref.ssd_chunk_scan_plain(*args, h_in, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        y.float(), y_p.float(),
+        **(SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL))
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_two_launches_are_bit_identical(cuda, dtype):
+    args = _ssd_inputs(cuda, 2, 2000, 8, 64, 1, 128, dtype, seed=5)
+    y1, h1 = ssd_kernels.ssd_scan(*args)
+    y2, h2 = ssd_kernels.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("which", ["x", "b", "c", "dt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_misaligned_views(cuda, which, dtype):
+    """A contiguous view that starts off a 16-byte mark (``buf[1:]``) is
+    staged by narrower asynchronous copies or plain loads, to the same
+    bits."""
+    args = list(_ssd_inputs(cuda, 2, 200, 4, 64, 1, 128, dtype, seed=3))
+    want = ssd_kernels.ssd_scan(*args)
+    at = {"x": 0, "dt": 1, "b": 3, "c": 4}[which]
+    t = args[at]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    args[at] = buf[1:].view(t.shape)
+    args[at].copy_(t)
+    assert args[at].data_ptr() % 16 != 0
+    got = ssd_kernels.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
+    """Every pass fits two blocks on an SM at mamba2-780m's widths, and at
+    the widest shape the kernel takes each pass's shared memory fits twice;
+    a width past it, or another type, is refused before any launch."""
+    # two blocks of this many bytes (each with the 1 KB the SM reserves a
+    # block) fit in the SM's shared memory, which exceeds a block's limit
+    two = sgd_kernels.max_shared_bytes(cuda) // 2 - 1024
+    for dtype in (torch.float32, torch.bfloat16):
+        for p, (blocks, _) in ssd_kernels.occupancy(dtype, 64, 128,
+                                                    128).items():
+            assert blocks >= 2, (dtype, p, blocks)
+        for p, (blocks, smem) in ssd_kernels.occupancy(dtype, 128, 128,
+                                                       128).items():
+            assert blocks >= 1 and smem <= two, \
+                (dtype, p, blocks, smem)
     args = _ssd_inputs(cuda, 1, 64, 2, 128, 1, 256, torch.float32)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="ds <= 128"):
         ssd_kernels.ssd_scan(*args)
     args = _ssd_inputs(cuda, 1, 64, 2, 64, 1, 64, torch.float16)
     with pytest.raises(TypeError):
@@ -791,7 +909,9 @@ def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):
             logits, caches = mb.prefill_fn(model, toks.to(dev), caches)
             step, _ = mb.decode_fn(model, toks[:, :1].to(dev), 200, caches)
         out[dev] = (logits.cpu(), step.cpu(), dict(_build.LAUNCHES))
-    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
+    # the smoke models are bf16: mamba's hd 16, ds 16 take B8's tensor
+    # cores, the dense head dim 32 B7's CUDA cores
+    kernel = "ssd_tc" if cfg.family == "ssm" else "flash_attention"
     assert out["cpu"][2][kernel] == 0 and out["cuda"][2][kernel] == 2
     for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
         assert float((got - want).abs().max()) <= LM_TOL

@@ -1358,25 +1358,12 @@ def phase_lm_kernels(dev):
                                    h=hb, passes=which)
         pass_ms = {p: time_ms(lambda p=p: passes(p)) for p in
                    ssd_kernels.PASSES}
-        # the PR 14 kernel (one block a head, the chunks in sequence) on
-        # the same inputs, timed in turns with the redesign
-        v1 = _build.function("ssd_v1_fwd")
-        y1, h1 = torch.empty_like(xx), torch.empty_like(hf)
-
-        def pr14():
-            _build.check(v1(*(t.data_ptr() for t in args), y1.data_ptr(),
-                            h1.data_ptr(), bsz, s, nh, hd, ng, ds, 128,
-                            int(xx.dtype == torch.bfloat16),
-                            _build.stream_handle(xx.device)), "ssd_v1_fwd")
-        kernel = lambda: ssd_kernels.ssd_scan(*args)  # noqa: E731
-        turns = [time_ms(kernel), time_ms(pr14), time_ms(pr14),
-                 time_ms(kernel)]
-        del states, decay, yb, hb, y1, h1
+        del states, decay, yb, hb
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/ssd.cu",
             replaces="src/repro/kernels/ssd/ssd.py:71", max_abs_err=err,
-            ms=(turns[0] + turns[3]) / 2,
+            ms=time_ms(lambda: ssd_kernels.ssd_scan(*args)),
             plain_ms=time_ms(lambda: ssd_ref.ssd_plain(*args), reps=3,
                              warmup=1),
             library_ms=None,
@@ -1390,9 +1377,7 @@ def phase_lm_kernels(dev):
                   f"{bsz}, {s}, {ng}, {ds}) {tname}, chunk 128, {rt} route"))
         log(f"  {name} passes: " + ", ".join(
             f"{p} {ms:.4f} ms" for p, ms in pass_ms.items())
-            + f" (sum {sum(pass_ms.values()):.4f}); in turns with the PR 14 "
-            f"kernel: redesign {turns[0]:.4f} / {turns[3]:.4f} ms, PR 14 "
-            f"{turns[1]:.4f} / {turns[2]:.4f} ms")
+            + f" (sum {sum(pass_ms.values()):.4f})")
         finish_row(rows[-1], agree=f"{tname} y max abs err {err:.3e} within "
                    f"{y_tol}, state {h_err:.3e} within {SSD_TOL}; two "
                    "launches bit-identical")

@@ -32,8 +32,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention", "ssd",
-           "ssd_v1")
+SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention", "ssd")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _F32 = ctypes.c_float
@@ -80,10 +79,6 @@ SIGNATURES = {
     # mode, hd, ds, chunk, blocks (int32[3]), smem (int32[3])
     "ssd_occupancy": ("ssd", (_I32, _I32, _I32, _I32, ctypes.POINTER(_I32),
                               ctypes.POINTER(_I32))),
-    # the PR 14 kernel: x, dt, a_log, b, c, d_skip, y, h_out, bsz, seq,
-    # nh, hd, ng, ds, chunk, bf16, stream
-    "ssd_v1_fwd": ("ssd_v1", (_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
-                              _I32, _I32, _I32, _I32, _I32, _I32, _P)),
 }
 
 # Kernel launches per wrapper and route, bumped only where a wrapper

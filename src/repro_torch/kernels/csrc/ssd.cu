@@ -242,13 +242,12 @@ __device__ __forceinline__ Lane lane_of() {
 
 // Shared: dt, cum and w = dt exp(cum_last - cum) (q floats each), 4 warp
 // totals, then the route's tiles.
-__host__ __device__ inline size_t states_cc_smem(int q, int hd, int ds,
-                                                 int size) {
+inline size_t states_cc_smem(int q, int hd, int ds, int size) {
   return 4 * static_cast<size_t>(3 * q + 4)
          + static_cast<size_t>(kSlice) * (hd + ds) * size;
 }
 
-__host__ __device__ inline size_t states_tc_smem(int q, int hd, int ds) {
+inline size_t states_tc_smem(int q, int hd, int ds) {
   return 4 * static_cast<size_t>(3 * q + 4)
          + 2 * static_cast<size_t>(q) * (2 * (hd + kPad) + ds + kPad);
 }
@@ -461,7 +460,7 @@ state_pass(float* __restrict__ st, const float* __restrict__ decay,
 
 // ---- pass 3: chunk scan ---------------------------------------------------
 
-__host__ __device__ inline size_t scan_cc_smem(int q, int hd, int size) {
+inline size_t scan_cc_smem(int q, int hd, int size) {
   const size_t st = kSlice + 1;
   const size_t tiles = q * st * size + kSlice * st * size + hd * st * 4;
   const size_t scores = static_cast<size_t>(kSlice) * (q + 1) * 4;
@@ -470,9 +469,10 @@ __host__ __device__ inline size_t scan_cc_smem(int q, int hd, int size) {
          + (tiles > scores ? tiles : scores);
 }
 
-__host__ __device__ inline size_t scan_tc_smem(int q, int hd, int ds) {
+inline size_t scan_tc_smem(int q, int hd, int ds) {
   const size_t sb = ds + kPad;
-  const size_t c = q * sb, h = 2 * static_cast<size_t>(hd < kHalf ? hd : kHalf) * sb;
+  const size_t c = q * sb;
+  const size_t h = 2 * static_cast<size_t>(hd < kHalf ? hd : kHalf) * sb;
   return 4 * static_cast<size_t>(2 * q + 4)
          + 2 * (static_cast<size_t>(q) * (hd + kPad) + q * sb + (c > h ? c : h));
 }

@@ -166,21 +166,25 @@ def run_passes(x, dt, a_log, b, c, d_skip, *, states: torch.Tensor,
         raise ValueError("run_passes launches the kernels: it takes CUDA "
                          f"tensors, got {x.device}")
     _check_card(x, dt, a_log, b, c, d_skip, chunk)
-    want = {"states": scratch(x, chunk, b.shape[3])[0].shape,
-            "decay": x.shape[:1] + (x.shape[2], -(-x.shape[1] // chunk)),
-            "y": x.shape, "h": (x.shape[0], x.shape[2], x.shape[3],
-                                b.shape[3])}
+    bsz, s, nh, hd = x.shape
+    nc, ds = -(-s // chunk), b.shape[3]
+    f32 = torch.float32
+    want = {"states": ((bsz, nh, nc, hd, ds), f32), "decay": ((bsz, nh, nc),
+                                                              f32),
+            "y": (tuple(x.shape), x.dtype), "h": ((bsz, nh, hd, ds), f32)}
     for t, name in ((states, "states"), (decay, "decay"), (y, "y"),
                     (h, "h")):
-        if tuple(t.shape) != tuple(want[name]) or not t.is_contiguous() \
-                or t.device != x.device:
-            raise ValueError(f"{name}: expected a contiguous {want[name]} "
-                             f"on {x.device}, got {tuple(t.shape)}")
+        shape, dtype = want[name]
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name}: expected a contiguous {shape} "
+                             f"{dtype} on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
     unknown = set(passes) - set(PASSES)
     if unknown:
         raise ValueError(f"unknown passes {sorted(unknown)}; the passes are "
                          f"{PASSES}")
-    if x.shape[0] * x.shape[2]:
+    if bsz * nh:
         _launch(x, dt, a_log, b, c, d_skip, y, h, states, decay, chunk,
                 sum(1 << i for i, p in enumerate(PASSES) if p in passes))
 

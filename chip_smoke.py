@@ -31,9 +31,10 @@ Phases, each of which must pass or the script exits non-zero:
    modes' weights must be bit-identical, every model's loss below ln 2,
    and the SGD kernel's weights (its ring route, and the ring at every
    cluster size, each timed in us a step) must equal its plain version's
-   within rtol=1e-4, atol=1e-5; a hyper-parameter search over a model too
-   wide for the ring (47,236 features) takes the direct route, within the
-   same tolerance; then ``score_glm`` against numpy;
+   within rtol=1e-4, atol=1e-5; hyper-parameter searches over models too
+   wide for the ring (RCV1's 47,236 features, and news20.binary's
+   1,355,191, whose model slices live in device memory) take the split
+   route, within the same tolerance; then ``score_glm`` against numpy;
 7. multi_join: ``hash_join_multi`` at TPC-H scale factor 1, built on
    lineitem's order keys and probed with orders' (chains of 1-7), and
    built on lineitem's quantity and probed with its 50 values (chains of
@@ -114,6 +115,9 @@ GLM_JOBS, GLM_EPOCHS, GLM_MINIBATCH = 8, 5, 16
 # JMLR 2004), each row scaled to unit L2 norm as RCV1's cosine-normalised
 # TF-IDF rows are, dense and cut to 4,096 rows, 4 jobs, one epoch
 WIDE_ROWS, WIDE_FEATURES, WIDE_JOBS = 4_096, 47_236, 4
+# and news20.binary's 1,355,191 features (Keerthi & DeCoste, JMLR 2005;
+# the LIBSVM binary collection), cut the same way to 1,024 rows: 5.55 GB
+NEWS20_ROWS, NEWS20_FEATURES = 1_024, 1_355_191
 STREAM_ROWS = 1 << 28            # 1 GiB of int32: far past the 50 MB L2
 MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
@@ -862,63 +866,91 @@ def phase_glm(dev, seed):
         f"{SGD_TOL} of the plain version): " + "; ".join(sweep))
     del a, b
 
-    # B5's direct route: a model too wide for the ring, trained through
-    # the hyper-parameter search entry point with the counters zeroed
+    # B5's split route: models too wide for the ring, trained through the
+    # hyper-parameter search entry point with the counters zeroed, at
+    # RCV1's width and at news20.binary's (the model slices in device
+    # memory)
     from repro_torch.core import channels
     from repro_torch.core.sgd_glm import HyperParams as HP
     from repro_torch.core.sgd_glm import hyperparam_search
-    g = torch.Generator(device=dev).manual_seed(seed + 5)
-    wa = torch.rand((WIDE_ROWS, WIDE_FEATURES), generator=g, device=dev)
-    wa /= wa.norm(dim=1, keepdim=True)
-    wb = (torch.rand(WIDE_ROWS, generator=g, device=dev) > 0.5).float()
-    wgrid = [HP(0.05 / (i + 1), 0.001 * i) for i in range(WIDE_JOBS)]
-    wkw = dict(minibatch=GLM_MINIBATCH, epochs=1, kind="logreg")
-    if sgd_kernels.route(WIDE_FEATURES, GLM_MINIBATCH) != "direct":
-        raise AssertionError(f"{WIDE_FEATURES} features do not take the "
-                             "direct route")
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    wxs, wlosses = hyperparam_search(wa, wb, wgrid,
-                                     channels.plan("partitioned", 1, dev),
-                                     **wkw)
-    torch.cuda.synchronize()
-    wide_s = time.perf_counter() - t0
-    counts["wide direct"] = dict(_build.LAUNCHES)
-    if counts["wide direct"]["sgd_direct"] <= 0:
-        raise AssertionError("the wide search launched no direct sgd kernel")
-    w_lrs = torch.tensor([h.lr for h in wgrid], device=dev)
-    w_l2s = torch.tensor([h.l2 for h in wgrid], device=dev)
-    w_xs0 = torch.zeros((WIDE_JOBS, WIDE_FEATURES), device=dev)
-    wkernel = lambda: sgd_kernels.sgd(  # noqa: E731
-        wa, wb, w_xs0, w_lrs, w_l2s, **wkw)
-    wplain = lambda: sgd_ref.sgd_ref(  # noqa: E731
-        wa, wb, w_xs0, w_lrs, w_l2s, **wkw)
-    want = wplain()
-    torch.cuda.synchronize()
-    werr = float((wxs - want).abs().max())
-    if not torch.allclose(wxs, want, **SGD_TOL) \
-            or not bool(torch.isfinite(wlosses).all()):
-        raise AssertionError(f"sgd direct: differs from its plain version "
-                             f"beyond {SGD_TOL} (max abs err {werr})")
-    wsteps = WIDE_ROWS // GLM_MINIBATCH
-    direct_row = dict(
-        name="sgd_direct", route="cuda",
-        source="src/repro_torch/kernels/csrc/sgd.cu",
-        replaces="src/repro/kernels/sgd/sgd.py:55", max_abs_err=werr,
-        ms=time_ms(wkernel, reps=3, warmup=1),
-        plain_ms=time_ms(wplain, reps=2, warmup=1), library_ms=None,
-        bytes=4 * (WIDE_ROWS * WIDE_FEATURES + WIDE_ROWS
-                   + 2 * WIDE_JOBS * WIDE_FEATURES + 2 * WIDE_JOBS),
-        ops=4 * WIDE_JOBS * WIDE_ROWS * WIDE_FEATURES,
-        shape=f"a=({WIDE_ROWS}, {WIDE_FEATURES}) f32, {WIDE_JOBS} jobs, "
-              f"1 epoch, minibatch {GLM_MINIBATCH}, direct route")
-    log(f"  wide search ({WIDE_FEATURES} features, direct route): "
-        f"{wide_s * 1e3:.3f} ms with its losses, launches "
-        f"{counts['wide direct']}; {wsteps} dependent steps a job, "
-        f"{direct_row['ms'] * 1e3 / wsteps:.3f} us a step")
-    finish_row(direct_row, agree=f"within {SGD_TOL}")
-    del wa, wb, wxs, want
+    wide_rows = []
+    for tag, rows, feats in (("wide", WIDE_ROWS, WIDE_FEATURES),
+                             ("news20", NEWS20_ROWS, NEWS20_FEATURES)):
+        g = torch.Generator(device=dev).manual_seed(seed + 5)
+        wa = torch.rand((rows, feats), generator=g, device=dev)
+        wa /= wa.norm(dim=1, keepdim=True)
+        wb = (torch.rand(rows, generator=g, device=dev) > 0.5).float()
+        wgrid = [HP(0.05 / (i + 1), 0.001 * i) for i in range(WIDE_JOBS)]
+        wkw = dict(minibatch=GLM_MINIBATCH, epochs=1, kind="logreg")
+        wplan = sgd_kernels.split_plan(feats, GLM_MINIBATCH)
+        if sgd_kernels.route(feats, GLM_MINIBATCH) != "split":
+            raise AssertionError(f"{feats} features do not take the split "
+                                 "route")
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wxs, wlosses = hyperparam_search(wa, wb, wgrid,
+                                         channels.plan("partitioned", 1, dev),
+                                         **wkw)
+        torch.cuda.synchronize()
+        wide_s = time.perf_counter() - t0
+        counts[f"{tag} split"] = dict(_build.LAUNCHES)
+        if counts[f"{tag} split"]["sgd_split"] <= 0:
+            raise AssertionError(f"the {tag} search launched no split sgd "
+                                 "kernel")
+        w_lrs = torch.tensor([h.lr for h in wgrid], device=dev)
+        w_l2s = torch.tensor([h.l2 for h in wgrid], device=dev)
+        w_xs0 = torch.zeros((WIDE_JOBS, feats), device=dev)
+        wkernel = lambda: sgd_kernels.sgd(  # noqa: E731
+            wa, wb, w_xs0, w_lrs, w_l2s, **wkw)
+        wplain = lambda: sgd_ref.sgd_ref(  # noqa: E731
+            wa, wb, w_xs0, w_lrs, w_l2s, **wkw)
+        want, wplain_ms = timed_once_ms(wplain)
+        werr = float((wxs - want).abs().max())
+        if not torch.allclose(wxs, want, **SGD_TOL) \
+                or not bool(torch.isfinite(wlosses).all()):
+            raise AssertionError(f"sgd split ({tag}): differs from its plain "
+                                 f"version beyond {SGD_TOL} (max abs err "
+                                 f"{werr})")
+        wsteps = rows // GLM_MINIBATCH
+        split_row = dict(
+            name="sgd_split" if tag == "wide" else "sgd_split_news20",
+            route="cuda", source="src/repro_torch/kernels/csrc/sgd.cu",
+            replaces="src/repro/kernels/sgd/sgd.py:55", max_abs_err=werr,
+            ms=time_ms(wkernel, reps=5, warmup=1), plain_ms=wplain_ms,
+            library_ms=None,
+            launches=counts[f"{tag} split"]["sgd_split"],
+            bytes=4 * (rows * feats + rows + 2 * WIDE_JOBS * feats
+                       + 2 * WIDE_JOBS),
+            ops=4 * WIDE_JOBS * rows * feats,
+            shape=f"a=({rows}, {feats}) f32, {WIDE_JOBS} jobs, 1 epoch, "
+                  f"minibatch {GLM_MINIBATCH}, split route, {wplan}")
+        log(f"  {tag} search ({feats} features, split route): "
+            f"{wide_s * 1e3:.3f} ms with its losses, launches "
+            f"{counts[f'{tag} split']}; {wsteps} dependent steps a job, "
+            f"{split_row['ms'] * 1e3 / wsteps:.3f} us a step")
+        # the other exchange at the same shape, in turns with the plan's:
+        # one cluster of 16 blocks against the grid-wide launch
+        other = sgd_kernels.split_fit(feats, GLM_MINIBATCH,
+                                      sgd_kernels.SPLIT_CLUSTER_MAX, False)
+        alt = lambda: sgd_kernels.sgd_split(  # noqa: E731
+            wa, wb, w_xs0, w_lrs, w_l2s, plan=other, **wkw)
+        xs_alt = alt()
+        torch.cuda.synchronize()
+        if not torch.allclose(xs_alt, want, **SGD_TOL):
+            raise AssertionError(f"sgd split ({tag}, {other}): differs from "
+                                 f"its plain version beyond {SGD_TOL}")
+        turns = [time_ms(f, reps=3, warmup=1)
+                 for f in (wkernel, alt, alt, wkernel)]
+        log(f"  split route by exchange at {rows} x {feats} (in turns): "
+            f"{'grid' if wplan.grid else 'cluster'} of {wplan.blocks} "
+            f"{turns[0]:.4f} / {turns[3]:.4f} ms, cluster of "
+            f"{other.blocks} {turns[1]:.4f} / {turns[2]:.4f} ms; both within "
+            f"{SGD_TOL} of the plain version")
+        finish_row(split_row, agree=f"within {SGD_TOL}")
+        wide_rows.append(split_row)
+        del wa, wb, wxs, want, xs_alt
+        torch.cuda.empty_cache()
 
     # score with the best model (trained fresh through execute, as the
     # port has no model cache) against numpy in float64
@@ -939,7 +971,7 @@ def phase_glm(dev, seed):
     log(f"  score_glm: {MNIST_ROWS} scores of the argmin model equal "
         f"numpy's sigmoid(a @ x) within rtol=1e-5, atol=1e-5 (max abs err "
         f"{score_err:.3e}); {score_s * 1e3:.3f} ms with its fresh train")
-    return counts, [row, direct_row]
+    return counts, [row, *wide_rows]
 
 
 def phase_multi_join(dev, tables):
@@ -1593,18 +1625,20 @@ def main(argv=None) -> int:
     key = {"select_range": "select", "probe_counts": "probe_counts",
            "probe_counts_sampled": "probe_counts_sampled",
            "hash_probe": "probe", "probe_multi": "probe_multi",
-           "sgd": "sgd", "sgd_direct": "sgd_direct",
+           "sgd": "sgd", "sgd_split": "sgd_split",
+           "sgd_split_news20": "sgd_split",
            "stream_copy": "stream_copy",
            "flash_attention_tc": "flash_attention_tc",
            "flash_attention": "flash_attention", "ssd": "ssd",
            "ssd_tc": "ssd_tc"}
     for row in rows:
-        row["launches"] = sum(c[key[row["name"]]]
-                              for counts in (ssb_counts, tpch_counts,
-                                             glm_counts, multi_counts,
-                                             cal_counts, spill_counts,
-                                             lm_counts)
-                              for c in counts.values())
+        # a row that a phase counted itself keeps its own count
+        row.setdefault("launches", sum(c[key[row["name"]]]
+                                       for counts in (ssb_counts, tpch_counts,
+                                                      glm_counts, multi_counts,
+                                                      cal_counts, spill_counts,
+                                                      lm_counts)
+                                       for c in counts.values()))
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
                                  "path")

@@ -56,9 +56,12 @@ SIGNATURES = {
     # threads, xs, stream
     "sgd_ring_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                              _I32, _I32, _I32, _I32, _P, _P)),
-    # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, xs, stream
-    "sgd_direct_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                               _I32, _I32, _P, _P)),
+    # a, b, xs0, lrs, l2s, m, n, minibatch, epochs, logreg, k, blocks,
+    # grid, width, stages, resident, model_on_chip, jobs, prefetch, part,
+    # arrivals, xs, stream
+    "sgd_split_f32": ("sgd", (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                              _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                              _I32, _I32, _P, _P, _P, _P)),
     # device, out (int32*)
     "sgd_max_shared_bytes": ("sgd", (_I32, ctypes.POINTER(_I32))),
     # x, o, n, grid, unroll, next_tile (4-byte scratch), stream
@@ -83,7 +86,7 @@ SIGNATURES = {
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
 # launches its kernel (never on the plain CPU path): B2's shared-memory
-# and sampled routes, B5's ring ("sgd") and direct ("sgd_direct") routes,
+# and sampled routes, B5's ring ("sgd") and split ("sgd_split") routes,
 # B7's CUDA-core ("flash_attention") and tensor-core
 # ("flash_attention_tc") routes and B8's CUDA-core ("ssd") and
 # tensor-core ("ssd_tc") routes each have their own count.
@@ -92,7 +95,7 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
                             "probe_counts_sampled": 0,
                             "probe_multi": 0, "probe": 0, "sgd": 0,
-                            "sgd_direct": 0,
+                            "sgd_split": 0,
                             "stream_copy": 0, "flash_attention": 0,
                             "flash_attention_tc": 0, "ssd": 0,
                             "ssd_tc": 0}

@@ -11,17 +11,26 @@ alone before the launch:
   (cp.async.bulk) before a step needs them; one barrier a step.  The bulk copies read 16-byte-aligned rows, so the ring takes
   n % 4 == 0, and the wrapper copies a dataset or label column that
   starts off a 16-byte mark into fresh memory first;
-* ``"direct"``, every other (n, minibatch) whose n + minibatch floats fit
-  one block: one block per hyper-parameter job (the Fig. 10a
-  parallelism), the model in shared memory, each step reading its
-  minibatch from device memory.
+* ``"split"`` (``split_plan`` takes every other (n, minibatch), at any
+  width that fits on the card): up to four jobs share the tiles; each
+  group's features are split over P blocks, a producer warp a block
+  copying the block's slice of each minibatch into a ring of 512-feature
+  sub-tiles with bulk copies (from each row's 16-byte-aligned cover, so
+  any n), and the blocks exchange their dot products' sums once a step:
+  inside one cluster (P <= 16, distributed shared memory) where a
+  cluster's blocks keep a step's tile in their rings, else across a
+  cooperative launch of 128 blocks (device memory and a grid barrier;
+  the wrapper allocates its exchange and counter).  The update reads the
+  tile from the ring where it stays there, else from L2.  Each block's
+  slice of the model stays in shared memory where it fits, else in
+  device memory.
 
 Every reduction runs in an order fixed by (n, minibatch), so a job's
 weights do not depend on how the rows are cut into launches (at minibatch
 boundaries) or on which jobs share a launch.  ``sgd`` launches a kernel
 for CUDA tensors and takes ``ref.sgd_ref`` for CPU tensors; there is no
 fallback from the card to the plain version.  Each route has its own
-launch counter (``sgd``, ``sgd_direct``).
+launch counter (``sgd``, ``sgd_split``).
 """
 from __future__ import annotations
 
@@ -42,6 +51,16 @@ RING_CLUSTER_MIN = 1                  # the fastest at the MNIST shape
 RING_THREADS_MAX = 256                # consumer threads a ring block
 RING_STAGES = 3                       # minibatch tiles in the ring
 H100_SHARED_BYTES = 232_448           # opt-in shared memory of one block
+
+SPLIT_ROWS = 16                       # rows a sub-tile (a row chunk)
+SPLIT_SUB = 512                       # features a sub-tile
+SPLIT_ROW_FLOATS = SPLIT_SUB + 8      # its 16-byte-aligned row cover
+SPLIT_WARPS = 8                       # consumer warps a block
+SPLIT_CLUSTER_MAX = 16                # non-portable cluster size
+SPLIT_GRID_BLOCKS = 128               # a grid-wide launch (of 132 SMs)
+SPLIT_STAGES = (2, 16)                # sub-tile slots in a block's ring
+SPLIT_STAGES_BESIDE_MODEL = 4         # the fewest beside an on-chip model
+SPLIT_PREFETCH_BYTES = 16 << 20       # minibatches L2 is asked to fetch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +103,86 @@ def ring_plan(n: int, minibatch: int, *,
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    blocks: int             # blocks a group of jobs' features are split over
+    grid: bool              # a cooperative launch exchanging through
+                            # device memory; else one cluster (<= 16)
+    width: int              # features a block (a multiple of 4)
+    stages: int             # sub-tile slots in a block's ring
+    resident: bool          # a step's tile stays in the ring
+    model_on_chip: bool     # the model slices live in shared memory
+    jobs: int               # jobs a group at most (1, 2 or 4)
+    prefetch: bool          # L2 fetches each minibatch a step ahead
+
+
+def split_shared_bytes(minibatch: int, plan: SplitPlan) -> int:
+    """Shared memory one split block takes (``split_layout`` in
+    ``csrc/sgd.cu``): 2 x 16 mbarriers, the sub-tile slots, the model
+    slices where they live on chip, each warp's sums, a cluster's
+    double-buffered block sums (none for a grid-wide exchange), d with the
+    exchange's partial runs, and the labels, for every (job, row) of a
+    minibatch."""
+    chunks = -(-minibatch // SPLIT_ROWS)
+    rows = min(minibatch, SPLIT_ROWS)
+    vals = chunks * SPLIT_ROWS * plan.jobs
+    return (256 + 4 * plan.stages * rows * SPLIT_ROW_FLOATS
+            + (4 * plan.jobs * plan.width if plan.model_on_chip else 0)
+            + 4 * vals * (2 * SPLIT_WARPS
+                          + (0 if plan.grid else 2 * plan.blocks))
+            + 8 * chunks * SPLIT_ROWS)
+
+
+def split_fit(n: int, minibatch: int, blocks: int,
+              grid: bool) -> Optional[SplitPlan]:
+    """The plan of at most ``blocks`` blocks for n features (as many as
+    slices of a multiple of 4 features need) exchanging through one
+    cluster or, with ``grid``, a grid-wide launch, or None where the
+    fixed buffers leave no room for two sub-tile slots.  ``split_plan``
+    picks among these; the others serve to time one exchange against the
+    other."""
+    chunks = -(-minibatch // SPLIT_ROWS)
+    jobs = 4 if chunks <= 2 else 2 if chunks <= 4 else 1
+    slot = 4 * min(minibatch, SPLIT_ROWS) * SPLIT_ROW_FLOATS
+    width = -(-(-(-n // blocks)) // 4) * 4     # ceil(n / blocks), to 4s
+    blocks = -(-n // width)
+    for on_chip, fewest in ((True, SPLIT_STAGES_BESIDE_MODEL),
+                            (False, SPLIT_STAGES[0])):
+        fixed = split_shared_bytes(minibatch, SplitPlan(
+            blocks, grid, width, 0, False, on_chip, jobs, False))
+        stages = min(SPLIT_STAGES[1], (H100_SHARED_BYTES - fixed) // slot)
+        if stages >= fewest:
+            sub_tiles = chunks * -(-width // SPLIT_SUB)
+            return SplitPlan(blocks, grid, width, stages, sub_tiles < stages,
+                             on_chip, jobs,
+                             4 * minibatch * n <= SPLIT_PREFETCH_BYTES)
+    return None
+
+
+def split_plan(n: int, minibatch: int) -> Optional[SplitPlan]:
+    """The split route's plan for n features and this minibatch, or None
+    where no plan fits a block's shared memory (a minibatch of thousands
+    of rows).  The smallest cluster whose blocks keep a whole step's tile
+    in their ring wins; where none does, a grid-wide launch of
+    ``SPLIT_GRID_BLOCKS`` blocks, else the widest cluster that fits.  The
+    model slices stay in shared memory where four sub-tile slots still
+    fit beside them.  A function of (n, minibatch) only, so every launch
+    over the same features trains in the same order."""
+    if n <= 0 or minibatch <= 0:
+        return None
+    widest = None
+    for blocks in range(1, SPLIT_CLUSTER_MAX + 1):
+        plan = split_fit(n, minibatch, blocks, False)
+        if plan is not None and plan.resident:
+            return plan
+        widest = plan or widest
+    return split_fit(n, minibatch, SPLIT_GRID_BLOCKS, True) or widest
+
+
 def route(n: int, minibatch: int) -> str:
     """The kernel that trains n features in minibatches of ``minibatch``:
-    ``"ring"`` or ``"direct"``."""
-    return "ring" if ring_plan(n, minibatch) is not None else "direct"
+    ``"ring"`` or ``"split"``."""
+    return "ring" if ring_plan(n, minibatch) is not None else "split"
 
 
 _max_shared: Dict[int, int] = {}
@@ -149,35 +244,72 @@ def sgd(a: torch.Tensor, b: torch.Tensor, xs0: torch.Tensor,
         epochs: int = 1, kind: str = "ridge") -> torch.Tensor:
     """Train K GLMs on one dataset: a (m, n) f32, b (m,), xs0 (K, n),
     lrs (K,), l2s (K,) -> xs (K, n), through a CUDA kernel (plain version
-    on CPU).  Raises ``ValueError`` on the direct route when ``n`` floats
-    do not fit the shared memory one block may use."""
+    on CPU): the ring route or the split route, as ``route`` says."""
     _check_shapes(a, b, xs0, lrs, l2s, minibatch, epochs, kind)
     if a.device.type == "cpu":
         return ref.sgd_ref(a, b, xs0, lrs, l2s, minibatch=minibatch,
                            epochs=epochs, kind=kind)
     _check_card(a, b, xs0, lrs, l2s, minibatch, epochs)
-    m, n = a.shape
+    n = a.shape[1]
     plan = ring_plan(n, minibatch)
     if plan is not None:
         return sgd_ring(a, b, xs0, lrs, l2s, minibatch=minibatch,
                         epochs=epochs, kind=kind, plan=plan)
-    smem = 4 * (n + minibatch)
-    limit = max_shared_bytes(a.device)
-    if smem > limit:
-        raise ValueError(
-            f"{n} features and a minibatch of {minibatch} need {smem} bytes "
-            f"of shared memory; a block may use at most {limit} bytes")
-    xs = torch.empty_like(xs0)
+    split = split_plan(n, minibatch)
+    if split is None and n > 0:
+        raise ValueError(f"a minibatch of {minibatch} rows does not fit the "
+                         "split route's shared memory")
+    return sgd_split(a, b, xs0, lrs, l2s, minibatch=minibatch, epochs=epochs,
+                     kind=kind, plan=split)
+
+
+def sgd_split(a: torch.Tensor, b: torch.Tensor, xs0: torch.Tensor,
+              lrs: torch.Tensor, l2s: torch.Tensor, *, minibatch: int,
+              epochs: int, kind: str,
+              plan: Optional[SplitPlan]) -> torch.Tensor:
+    """The split route with a given plan (``sgd`` passes
+    ``split_plan(n, minibatch)``; another plan trains the same rows in
+    another summation order, which is how a cluster and a grid-wide
+    launch are timed against each other).  CUDA tensors only."""
+    _check_shapes(a, b, xs0, lrs, l2s, minibatch, epochs, kind)
+    _check_card(a, b, xs0, lrs, l2s, minibatch, epochs)
+    m, n = a.shape
     k = xs0.shape[0]
-    if k == 0:
+    xs = torch.empty_like(xs0)
+    if k == 0 or n == 0:
         return xs
-    fn = _build.function("sgd_direct_f32")
+    most = SPLIT_GRID_BLOCKS if plan.grid else SPLIT_CLUSTER_MAX
+    if not 1 <= plan.blocks <= most or plan.width % 4 \
+            or plan.blocks * plan.width < n or plan.jobs not in (1, 2, 4) \
+            or not SPLIT_STAGES[0] <= plan.stages <= SPLIT_STAGES[1] \
+            or split_shared_bytes(minibatch, plan) > H100_SHARED_BYTES:
+        raise ValueError(f"{plan} does not train {n} features in "
+                         f"minibatches of {minibatch}")
+    groups = -(-k // plan.jobs)
+    if (1 if plan.grid else groups) * plan.blocks >= 2 ** 31:
+        raise ValueError(f"{k} jobs need more blocks than int32 counts")
+    # the bulk copies read from 16-byte marks (a slice at a minibatch
+    # boundary of an aligned dataset keeps them)
+    if a.data_ptr() % 16:
+        a = a.clone()
+    part = arrivals = None
+    if plan.grid:
+        # the exchange's block sums, double-buffered, and the barrier's
+        # counter
+        part = torch.empty(2 * plan.blocks * -(-minibatch // SPLIT_ROWS)
+                           * SPLIT_ROWS * plan.jobs, dtype=torch.float32,
+                           device=a.device)
+        arrivals = torch.zeros(1, dtype=torch.int32, device=a.device)
+    fn = _build.function("sgd_split_f32")
     rc = fn(a.data_ptr(), b.data_ptr(), xs0.data_ptr(), lrs.data_ptr(),
-            l2s.data_ptr(), m, n, minibatch, epochs,
-            int(kind == "logreg"), k, xs.data_ptr(),
+            l2s.data_ptr(), m, n, minibatch, epochs, int(kind == "logreg"),
+            k, plan.blocks, int(plan.grid), plan.width, plan.stages,
+            int(plan.resident), int(plan.model_on_chip), plan.jobs,
+            int(plan.prefetch), part.data_ptr() if plan.grid else None,
+            arrivals.data_ptr() if plan.grid else None, xs.data_ptr(),
             _build.stream_handle(a.device))
-    _build.check(rc, "sgd_direct_f32")
-    _build.LAUNCHES["sgd_direct"] += 1
+    _build.check(rc, "sgd_split_f32")
+    _build.LAUNCHES["sgd_split"] += 1
     return xs
 
 

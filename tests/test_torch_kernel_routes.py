@@ -1,13 +1,15 @@
 """The routes of the port's redesigned kernels, decided in Python before a
 launch: B7's (dtype, head dim) -> tensor cores or CUDA cores, B2's
 table length -> shared memory or sample, and B5's (features, minibatch)
--> a ring of minibatch tiles on a cluster of blocks, or the direct
-kernel, and B8's (dtype, hd, ds) -> tensor cores or CUDA cores, with the
+-> a ring of minibatch tiles on a cluster of blocks, or the split
+route (its plan checked over widths up to 2,000,000 features), and B8's (dtype, hd, ds) -> tensor cores or CUDA cores, with the
 tensor-core route's split-bf16 arithmetic emulated against the
 tolerances.  All are plain functions, so they are checked here on the CPU;
 the kernels behind them run only on the card
 (``tests/test_torch_kernels_cuda.py``).  On CPU tensors the wrappers take
 their plain versions and count no launch."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -83,16 +85,69 @@ def test_probe_counts_on_cpu_tensors_is_the_plain_version(n_s):
 
 @pytest.mark.parametrize("n,minibatch,want", [
     (4, 16, "ring"), (784, 16, "ring"), (1_028, 16, "ring"),
-    (4_096, 16, "ring"), (8_192, 16, "ring"), (8_196, 16, "direct"),
-    (1, 16, "direct"), (3, 16, "direct"), (785, 16, "direct"),
-    (47_236, 16, "direct"), (50_000, 16, "direct"), (0, 16, "direct"),
-    (784, 4, "ring"), (784, 8, "ring"), (784, 1, "direct"),
-    (784, 2, "direct"), (784, 12, "direct"), (784, 32, "direct")])
+    (4_096, 16, "ring"), (8_192, 16, "ring"), (8_196, 16, "split"),
+    (1, 16, "split"), (3, 16, "split"), (785, 16, "split"),
+    (47_236, 16, "split"), (50_000, 16, "split"), (0, 16, "split"),
+    (784, 4, "ring"), (784, 8, "ring"), (784, 1, "split"),
+    (784, 2, "split"), (784, 12, "split"), (784, 32, "split"),
+    (58_097, 16, "split"), (1_355_191, 16, "split")])
 def test_sgd_route(n, minibatch, want):
     """The ring's bulk copies read whole 16-byte groups of features, so
     it takes n % 4 == 0 and minibatches of 4, 8 and 16, up to 8 blocks of
-    256 consumer threads; every other width takes the direct kernel."""
+    256 consumer threads; every other width takes the split route, up to
+    news20.binary's 1,355,191 features and past them."""
     assert sgd_kernels.route(n, minibatch) == want
+
+
+@pytest.mark.parametrize("minibatch", [1, 2, 12, 16, 32])
+@pytest.mark.parametrize("n", [1, 3, 785, 2_049, 9_000, 47_236, 58_097,
+                               152_000, 760_001, 1_355_191, 2_000_000])
+def test_sgd_split_plan_fits_and_covers_every_feature(n, minibatch):
+    """The split route's plan is a function of (n, minibatch) alone; its
+    blocks fit the opt-in shared memory; one cluster holds at most 16 of
+    them and a grid-wide launch at most 128 (of the card's 132 SMs);
+    their contiguous slices of a multiple of 4 features cover the n
+    features exactly once with no empty block; and the model slices live
+    on chip exactly where four sub-tile slots still fit beside them."""
+    plan = sgd_kernels.split_plan(n, minibatch)
+    assert plan == sgd_kernels.split_plan(n, minibatch)
+    assert sgd_kernels.split_shared_bytes(minibatch, plan) <= \
+        sgd_kernels.H100_SHARED_BYTES
+    assert 1 <= plan.blocks <= (128 if plan.grid else 16)
+    assert plan.width % 4 == 0 and plan.width > 0
+    starts = [c * plan.width for c in range(plan.blocks)]
+    ends = [min(s + plan.width, n) for s in starts]
+    assert starts[0] == 0 and ends[-1] == n and starts[-1] < n
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    lo, hi = sgd_kernels.SPLIT_STAGES
+    assert lo <= plan.stages <= hi
+    beside = sgd_kernels.split_shared_bytes(minibatch, dataclasses.replace(
+        plan, stages=sgd_kernels.SPLIT_STAGES_BESIDE_MODEL,
+        model_on_chip=True))
+    assert plan.model_on_chip == (beside <= sgd_kernels.H100_SHARED_BYTES)
+    chunks = -(-minibatch // sgd_kernels.SPLIT_ROWS)
+    sub_tiles = chunks * -(-plan.width // sgd_kernels.SPLIT_SUB)
+    assert plan.resident == (sub_tiles < plan.stages)
+
+
+def test_sgd_split_plan_at_the_wide_shapes():
+    """785 features train on one block and 9,000 on a cluster of 5, each
+    keeping a step's tile in its ring; RCV1's 47,236 features take a
+    grid-wide launch of 127 blocks (372 features each, the tile resident);
+    news20.binary's 1,355,191 one of 128 whose model slices live in device
+    memory and which asks L2 for nothing (a minibatch is 86.7 MB)."""
+    small = sgd_kernels.split_plan(785, 16)
+    assert (small.blocks, small.grid, small.resident) == (1, False, True)
+    mid = sgd_kernels.split_plan(9_000, 16)
+    assert (mid.blocks, mid.grid, mid.resident) == (5, False, True)
+    rcv1 = sgd_kernels.split_plan(47_236, 16)
+    assert (rcv1.blocks, rcv1.grid, rcv1.width, rcv1.resident,
+            rcv1.model_on_chip, rcv1.jobs, rcv1.prefetch) == \
+        (127, True, 372, True, True, 4, True)
+    news20 = sgd_kernels.split_plan(1_355_191, 16)
+    assert (news20.blocks, news20.grid, news20.width, news20.model_on_chip,
+            news20.prefetch) == (128, True, 10_588, False, False)
+    assert sgd_kernels.split_plan(0, 16) is None
 
 
 @pytest.mark.parametrize("n,cluster,threads", [

@@ -11,9 +11,10 @@ there on its own:
 
 Integer outputs must be bit-identical to the plain versions.  The SGD
 kernel's two routes (a ring of minibatch tiles in shared memory, and the
-direct kernel for the widths the ring does not take) sum in another
-order than their plain version (and nvcc contracts multiply-adds into
-FMAs), so weights agree within rtol=1e-4, atol=1e-5; each route is
+split route, a cluster of blocks over the features, for the widths the
+ring does not take, up to any width that fits on the card) sum in
+another order than their plain version (and nvcc contracts multiply-adds
+into FMAs), so weights agree within rtol=1e-4, atol=1e-5; each route is
 deterministic, so streamed training (one launch per morsel) equals one
 launch over all rows bit for bit.  The traffic generator (``o = x + 1``)
 is bit-identical to its plain version at any length, at every offset of
@@ -294,9 +295,9 @@ def _sgd_inputs(device, m, n, k, kind, seed=0):
 @pytest.mark.parametrize("k", [1, 8, 33])
 @pytest.mark.parametrize("kind", ["logreg", "ridge"])
 def test_sgd_kernel_matches_plain(cuda, n, k, kind):
-    # each route counts its own launches: the ring "sgd", the direct
-    # kernel (n % 4 != 0) "sgd_direct"
-    counter = {"ring": "sgd", "direct": "sgd_direct"}[
+    # each route counts its own launches: the ring "sgd", the split
+    # route (n % 4 != 0) "sgd_split"
+    counter = {"ring": "sgd", "split": "sgd_split"}[
         sgd_kernels.route(n, 16)]
     a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 256, n, k, kind)
     before = _build.LAUNCHES[counter]
@@ -335,10 +336,10 @@ def test_sgd_kernel_streamed_equals_one_launch_bitwise(cuda, kind):
 def test_sgd_ring_route_matches_plain(cuda, n, k, kind):
     """Every width through ``sgd``: the ring on one block (n <= 1,024) or
     a cluster of them (1,028 features on 2 blocks, 4,096 on 4), where
-    n % 4 == 0; the direct kernel where not (the ring's bulk copies read
+    n % 4 == 0; the split route where not (the ring's bulk copies read
     whole 16-byte groups).  Exactly one launch, counted on its route."""
     route = sgd_kernels.route(n, 16)
-    assert route == ("ring" if n % 4 == 0 else "direct")
+    assert route == ("ring" if n % 4 == 0 else "split")
     a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 320, n, k, kind)
     before = dict(_build.LAUNCHES)
     got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
@@ -346,7 +347,7 @@ def test_sgd_ring_route_matches_plain(cuda, n, k, kind):
     want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, minibatch=16, epochs=2,
                            kind=kind)
     torch.cuda.synchronize()
-    counter = {"ring": "sgd", "direct": "sgd_direct"}[route]
+    counter = {"ring": "sgd", "split": "sgd_split"}[route]
     assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
         {c: int(c == counter) for c in before}
     assert bool(torch.isfinite(got).all())
@@ -370,11 +371,13 @@ def test_sgd_ring_every_cluster_size_and_minibatch(cuda, cluster, minibatch):
                                **SGD_TOL)
 
 
-@pytest.mark.parametrize("n", [784, 785, 4096])
+@pytest.mark.parametrize("n", [784, 785, 4096, 9_000])
 def test_sgd_ring_route_on_a_misaligned_dataset_is_bit_identical(cuda, n):
     """A dataset or label column that starts 4 bytes past a 16-byte mark
-    (which the ring's bulk copies cannot read in place, so the wrapper
-    copies it first): the same sums, the same bits."""
+    (which the bulk copies cannot read in place, so the wrapper copies
+    the dataset first), on the ring (784, 4,096) and the split route
+    (785 on one block, 9,000 on a cluster): the same sums, the same
+    bits."""
     a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 160, n, 3, "logreg")
     buf = torch.empty(a.numel() + 1, dtype=torch.float32, device=cuda)
     a_off = buf[1:].view(a.shape)
@@ -394,10 +397,10 @@ def test_sgd_ring_route_on_a_misaligned_dataset_is_bit_identical(cuda, n):
                                          (784, 2)])
 @pytest.mark.parametrize("kind", ["logreg", "ridge"])
 def test_sgd_direct_route_matches_plain(cuda, n, minibatch, kind):
-    """The direct route: models too wide for a ring (n = 50,000 needs
-    200 KB of the block's shared memory) and minibatches the ring is not
-    built for."""
-    assert sgd_kernels.route(n, minibatch) == "direct"
+    """The split route (which replaced the direct kernel): models too
+    wide for a ring (50,000 features on a cluster of 16 blocks) and
+    minibatches the ring is not built for."""
+    assert sgd_kernels.route(n, minibatch) == "split"
     a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 4 * 96, n, 3, kind)
     before = dict(_build.LAUNCHES)
     kw = dict(minibatch=minibatch, epochs=2, kind=kind)
@@ -405,49 +408,85 @@ def test_sgd_direct_route_matches_plain(cuda, n, minibatch, kind):
     want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
     torch.cuda.synchronize()
     assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
-        {c: int(c == "sgd_direct") for c in before}
+        {c: int(c == "sgd_split") for c in before}
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **SGD_TOL)
 
 
-@pytest.mark.parametrize("n,minibatch", [(784, 16), (784, 8), (1028, 16),
-                                         (4096, 16), (785, 16), (9_000, 16),
-                                         (784, 12)])
+@pytest.mark.parametrize("n", [20_003, 47_236])
+@pytest.mark.parametrize("blocks,grid", [(4, False), (16, False), (32, True),
+                                         (128, True)])
+def test_sgd_split_route_every_exchange_matches_plain(cuda, n, blocks, grid):
+    """The split route's two exchanges, whichever its plan picks at
+    these widths: clusters of 4 and 16 blocks (the step's tile read again
+    from L2 where the ring cannot hold it; at 47,236 features on 4 blocks
+    the model slices in device memory) and grid-wide launches of 32 and
+    up to 128 blocks, 5 jobs in two groups, against the plain version."""
+    plan = sgd_kernels.split_fit(n, 16, blocks, grid)
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 320, n, 5, "logreg")
+    kw = dict(minibatch=16, epochs=2, kind="logreg")
+    got = sgd_kernels.sgd_split(a, b, xs0, lrs, l2s, plan=plan, **kw)
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+
+
+# a width (at minibatch 16) whose model slices live in device memory on
+# the split route's grid-wide launch
+SPLIT_OFF_CHIP = 760_001
+
+
+@pytest.mark.parametrize("n,minibatch,m", [
+    (784, 16, 1440), (784, 8, 1440), (1028, 16, 1440), (4096, 16, 1440),
+    (785, 16, 1440), (9_000, 16, 1440), (784, 12, 1440),
+    (47_236, 16, 1440), (SPLIT_OFF_CHIP, 16, 96)])
 def test_sgd_streamed_equals_one_launch_bitwise_on_each_route(cuda, n,
-                                                              minibatch):
+                                                              minibatch, m):
     """Epochs over morsels (one launch each, weights carried) against one
     launch over all rows, and a job alone against the job in a group, on
     the ring (one block at two minibatches, clusters of 2 and 4) and the
-    direct route (n % 4 != 0, too wide, a minibatch of 12)."""
-    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 1440, n, 5, "logreg")
+    split route (n % 4 != 0 on one block, a resident cluster of 5 at
+    9,000, a minibatch of 12, a grid-wide launch at 47,236, and one whose
+    model lives in device memory)."""
+    if n == SPLIT_OFF_CHIP:
+        assert not sgd_kernels.split_plan(n, minibatch).model_on_chip
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, m, n, 5, "logreg")
     kw = dict(minibatch=minibatch, kind="logreg")
     once = sgd_kernels.sgd(a, b, xs0, lrs, l2s, epochs=3, **kw)
     xs = xs0
     for _ in range(3):
-        for lo in range(0, 1440, 480):
-            xs = sgd_kernels.sgd(a[lo:lo + 480], b[lo:lo + 480], xs, lrs,
-                                 l2s, epochs=1, **kw)
+        for lo in range(0, m, m // 3):
+            xs = sgd_kernels.sgd(a[lo:lo + m // 3], b[lo:lo + m // 3], xs,
+                                 lrs, l2s, epochs=1, **kw)
     _same(xs, once)
     alone = sgd_kernels.sgd(a, b, xs0[3:4].contiguous(), lrs[3:4], l2s[3:4],
                             epochs=3, **kw)
     _same(alone[0], once[3])
 
 
-def test_sgd_kernel_refuses_a_model_wider_than_shared_memory(cuda):
-    n = 60_000                       # 240 KB of floats: over 227 KB
-    a = torch.zeros((16, n), dtype=torch.float32, device=cuda)
-    b = torch.zeros(16, dtype=torch.float32, device=cuda)
-    hp = torch.zeros(1, dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        sgd_kernels.sgd(a, b, torch.zeros((1, n), dtype=torch.float32,
-                                          device=cuda), hp, hp,
-                        minibatch=16)
-    wide = sgd_kernels.sgd(a[:, :50_000].contiguous(), b,
-                           torch.ones((1, 50_000), dtype=torch.float32,
-                                      device=cuda), hp + 0.1, hp,
-                           minibatch=16)
-    torch.cuda.synchronize()         # 200 KB: over 48 KB, opted in
-    assert bool((wide == 1).all())
+@pytest.mark.parametrize("n,m", [(58_097, 16), (1_355_191, 64)])
+def test_sgd_kernel_refuses_a_model_wider_than_shared_memory(cuda, n, m):
+    """Named for the fault it now pins: the direct kernel kept a job's
+    model in one block's shared memory and refused n = 58,097 (232,452
+    bytes with a minibatch of 16), where the reference trains.  The split
+    route trains it, and news20.binary's 1,355,191 features (its model
+    slices in device memory), within the tolerance of the plain version;
+    what it still refuses is a count past int32."""
+    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, m, n, 1, "logreg")
+    assert sgd_kernels.route(n, 16) == "split"
+    kw = dict(minibatch=16, epochs=1, kind="logreg")
+    before = _build.LAUNCHES["sgd_split"]
+    got = sgd_kernels.sgd(a, b, xs0, lrs, l2s, **kw)
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sgd_split"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+    with pytest.raises(ValueError, match="int32"):
+        sgd_kernels.sgd(a, b, xs0, lrs, l2s, minibatch=16, epochs=2 ** 31)
 
 
 def test_executor_trains_through_the_kernel_stream_equals_eager(cuda):

@@ -30,6 +30,7 @@ from repro_torch.kernels.sgd import ops, ref
 from repro_torch.kernels.sgd import sgd as sgd_kernels
 
 RTOL, ATOL = 1e-5, 1e-6
+SGD_TOL = dict(rtol=1e-4, atol=1e-5)     # the card tests' kernel bound
 
 
 def _close(port, reference):
@@ -139,6 +140,26 @@ def test_hyperparam_search_matches_reference(m, kind):
             torch.from_numpy(a), torch.from_numpy(b), GRID,
             plan(n_engines=n_eng), epochs=3, kind=kind)
         assert torch.equal(xs_n, xs) and torch.equal(losses_n, losses)
+
+
+def test_hyperparam_search_past_one_blocks_shared_memory():
+    """58,097 features, the narrowest width whose model no longer fits one
+    block's shared memory beside a minibatch of 16 (the card used to
+    refuse it; the reference trains it): the port's search on the CPU
+    against the reference's, within the card tests' SGD tolerance."""
+    a, b = _data(11, 32, 58_097)
+    grid = GRID[:2]
+    xs, losses = sgd_glm.hyperparam_search(
+        torch.from_numpy(a), torch.from_numpy(b), grid, plan(), epochs=1,
+        minibatch=16, kind="logreg")
+    r_xs, r_losses = r_sgd_glm.hyperparam_search(
+        jnp.asarray(a), jnp.asarray(b), R_GRID[:2], _ref_plan(), epochs=1,
+        minibatch=16, kind="logreg")
+    assert xs.shape == (2, 58_097) and sgd_kernels.route(58_097, 16) == \
+        "split"
+    np.testing.assert_allclose(xs.numpy(), np.asarray(r_xs), **SGD_TOL)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(r_losses),
+                               **SGD_TOL)
 
 
 @pytest.mark.parametrize("m,mb", [(16, 16), (17, 16), (31, 8), (5, 16)])

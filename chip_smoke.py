@@ -32,9 +32,11 @@ Phases, each of which must pass or the script exits non-zero:
    and the SGD kernel's weights (its ring route, and the ring at every
    cluster size, each timed in us a step) must equal its plain version's
    within rtol=1e-4, atol=1e-5; hyper-parameter searches over models too
-   wide for the ring (RCV1's 47,236 features, and news20.binary's
-   1,355,191, whose model slices live in device memory) take the split
-   route, within the same tolerance; then ``score_glm`` against numpy;
+   wide for the ring (TF-IDF-shaped rows of RCV1's 47,236 features, and
+   of news20.binary's 1,355,191, whose model slices live in device
+   memory) take the split route, within the same tolerance, and plain
+   controls that drop one block's dot sums, or all of them, must fall
+   outside it; then ``score_glm`` against numpy;
 7. multi_join: ``hash_join_multi`` at TPC-H scale factor 1, built on
    lineitem's order keys and probed with orders' (chains of 1-7), and
    built on lineitem's quantity and probed with its 50 values (chains of
@@ -112,12 +114,18 @@ TPCH_ORDERS_ROWS = 1_500_000
 MNIST_ROWS, MNIST_FEATURES = 60_000, 784   # MNIST's training set
 GLM_JOBS, GLM_EPOCHS, GLM_MINIBATCH = 8, 5, 16
 # a model too wide for B5's ring: RCV1's 47,236 features (Lewis et al.,
-# JMLR 2004), each row scaled to unit L2 norm as RCV1's cosine-normalised
-# TF-IDF rows are, dense and cut to 4,096 rows, 4 jobs, one epoch
-WIDE_ROWS, WIDE_FEATURES, WIDE_JOBS = 4_096, 47_236, 4
-# and news20.binary's 1,355,191 features (Keerthi & DeCoste, JMLR 2005;
-# the LIBSVM binary collection), cut the same way to 1,024 rows: 5.55 GB
-NEWS20_ROWS, NEWS20_FEATURES = 1_024, 1_355_191
+# JMLR 2004) with 74 term draws a row, rcv1.binary's mean count of terms
+# (LIBSVM binary collection; a term drawn twice counts once), each row a
+# cosine-normalised TF-IDF vector as RCV1's are, stored dense and cut to
+# 4,096 rows, 4 jobs, one epoch
+WIDE_ROWS, WIDE_FEATURES, WIDE_TERMS, WIDE_JOBS = 4_096, 47_236, 74, 4
+# and news20.binary's 1,355,191 features and 455 term draws (Keerthi &
+# DeCoste, JMLR 2005; the LIBSVM binary collection), cut the same way to
+# 1,024 rows: 5.55 GB
+NEWS20_ROWS, NEWS20_FEATURES, NEWS20_TERMS = 1_024, 1_355_191, 455
+# the wide searches' largest learning rate: z = <a, x> reaches O(1)
+# within the epoch, so each step's d depends on every block's dot sums
+WIDE_LR = 20.0
 STREAM_ROWS = 1 << 28            # 1 GiB of int32: far past the 50 MB L2
 MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
@@ -255,6 +263,41 @@ def make_mnist_like(rows: int, features: int, seed: int):
     cols = {f"px{j}": a[:, j] for j in range(features)}
     cols["label"] = label
     return {"mnist": cols}, a, label
+
+
+def text_rows(rows: int, features: int, terms: int, gen, dev):
+    """A text-shaped training set on ``dev``: each row draws ``terms``
+    term ids from a Zipf law over the features (the ranks spread over
+    the columns at random), holds each drawn term's IDF (a binary term
+    frequency) and is scaled to unit L2 norm; the label says whether a
+    planted linear score is above its median."""
+    import torch
+    p = 1.0 / torch.arange(1, features + 1, dtype=torch.float64, device=dev)
+    p /= p.sum()
+    rank = torch.multinomial(p, rows * terms, replacement=True, generator=gen)
+    col = torch.randperm(features, generator=gen, device=dev)[rank]
+    a = torch.zeros((rows, features), device=dev)
+    # a term drawn twice in a row writes the same IDF twice
+    a.scatter_(1, col.view(rows, terms),
+               (-torch.log(p[rank])).float().view(rows, terms))
+    a /= a.norm(dim=1, keepdim=True)
+    score = a @ torch.randn(features, generator=gen, device=dev)
+    return a, (score > score.median()).float()
+
+
+def sgd_masked_plain(a, b, xs0, lrs, l2s, keep, minibatch):
+    """One epoch of logistic SGD in plain PyTorch with z taken over the
+    features where ``keep`` is 1 only: the controls that a kernel which
+    dropped a block's dot sums, or all of them, would match."""
+    import torch
+    out = []
+    for x, lr, l2 in zip(xs0, lrs.tolist(), l2s.tolist()):
+        for i in range(0, a.shape[0], minibatch):
+            ai, bi = a[i:i + minibatch], b[i:i + minibatch]
+            d = (ai @ (x * keep)).sigmoid() - bi
+            x = x - lr * (ai.T @ d / minibatch + 2.0 * l2 * x)
+        out.append(x)
+    return torch.stack(out)
 
 
 def glm_query(Q, HyperParams):
@@ -869,18 +912,18 @@ def phase_glm(dev, seed):
     # B5's split route: models too wide for the ring, trained through the
     # hyper-parameter search entry point with the counters zeroed, at
     # RCV1's width and at news20.binary's (the model slices in device
-    # memory)
+    # memory); held to the plain version, and shown to tell a kernel that
+    # drops one block's dot sums, or all of them, from a right one
     from repro_torch.core import channels
     from repro_torch.core.sgd_glm import HyperParams as HP
     from repro_torch.core.sgd_glm import hyperparam_search
     wide_rows = []
-    for tag, rows, feats in (("wide", WIDE_ROWS, WIDE_FEATURES),
-                             ("news20", NEWS20_ROWS, NEWS20_FEATURES)):
-        g = torch.Generator(device=dev).manual_seed(seed + 5)
-        wa = torch.rand((rows, feats), generator=g, device=dev)
-        wa /= wa.norm(dim=1, keepdim=True)
-        wb = (torch.rand(rows, generator=g, device=dev) > 0.5).float()
-        wgrid = [HP(0.05 / (i + 1), 0.001 * i) for i in range(WIDE_JOBS)]
+    for tag, rows, feats, terms in (
+            ("wide", WIDE_ROWS, WIDE_FEATURES, WIDE_TERMS),
+            ("news20", NEWS20_ROWS, NEWS20_FEATURES, NEWS20_TERMS)):
+        wa, wb = text_rows(rows, feats, terms, torch.Generator(
+            device=dev).manual_seed(seed + 5), dev)
+        wgrid = [HP(WIDE_LR / (i + 1), 0.001 * i) for i in range(WIDE_JOBS)]
         wkw = dict(minibatch=GLM_MINIBATCH, epochs=1, kind="logreg")
         wplan = sgd_kernels.split_plan(feats, GLM_MINIBATCH)
         if sgd_kernels.route(feats, GLM_MINIBATCH) != "split":
@@ -912,6 +955,23 @@ def phase_glm(dev, seed):
             raise AssertionError(f"sgd split ({tag}): differs from its plain "
                                  f"version beyond {SGD_TOL} (max abs err "
                                  f"{werr})")
+        # the controls, read through the same allclose: each must fail
+        keep = torch.ones(feats, device=dev)
+        keep[:wplan.width] = 0.0
+        beyond = []
+        for what, k in (("block 0's sums dropped", keep),
+                        ("z forced to 0", torch.zeros_like(keep))):
+            ctrl = sgd_masked_plain(wa, wb, w_xs0, w_lrs, w_l2s, k,
+                                    GLM_MINIBATCH)
+            if torch.allclose(wxs, ctrl, **SGD_TOL):
+                raise AssertionError(f"sgd split ({tag}): the control with "
+                                     f"{what} passes {SGD_TOL}")
+            tol = SGD_TOL["atol"] + SGD_TOL["rtol"] * ctrl.abs()
+            over = float(((wxs - ctrl).abs() / tol).max())
+            beyond.append(f"{what} {over:.1f}x")
+            del ctrl
+        z_max = float((wa @ want.T).abs().max())
+        moved = float(want.abs().max())
         wsteps = rows // GLM_MINIBATCH
         split_row = dict(
             name="sgd_split" if tag == "wide" else "sgd_split_news20",
@@ -925,31 +985,16 @@ def phase_glm(dev, seed):
             ops=4 * WIDE_JOBS * rows * feats,
             shape=f"a=({rows}, {feats}) f32, {WIDE_JOBS} jobs, 1 epoch, "
                   f"minibatch {GLM_MINIBATCH}, split route, {wplan}")
-        log(f"  {tag} search ({feats} features, split route): "
-            f"{wide_s * 1e3:.3f} ms with its losses, launches "
+        log(f"  {tag} search ({feats} features, {terms} terms a row, split "
+            f"route): {wide_s * 1e3:.3f} ms with its losses, launches "
             f"{counts[f'{tag} split']}; {wsteps} dependent steps a job, "
-            f"{split_row['ms'] * 1e3 / wsteps:.3f} us a step")
-        # the other exchange at the same shape, in turns with the plan's:
-        # one cluster of 16 blocks against the grid-wide launch
-        other = sgd_kernels.split_fit(feats, GLM_MINIBATCH,
-                                      sgd_kernels.SPLIT_CLUSTER_MAX, False)
-        alt = lambda: sgd_kernels.sgd_split(  # noqa: E731
-            wa, wb, w_xs0, w_lrs, w_l2s, plan=other, **wkw)
-        xs_alt = alt()
-        torch.cuda.synchronize()
-        if not torch.allclose(xs_alt, want, **SGD_TOL):
-            raise AssertionError(f"sgd split ({tag}, {other}): differs from "
-                                 f"its plain version beyond {SGD_TOL}")
-        turns = [time_ms(f, reps=3, warmup=1)
-                 for f in (wkernel, alt, alt, wkernel)]
-        log(f"  split route by exchange at {rows} x {feats} (in turns): "
-            f"{'grid' if wplan.grid else 'cluster'} of {wplan.blocks} "
-            f"{turns[0]:.4f} / {turns[3]:.4f} ms, cluster of "
-            f"{other.blocks} {turns[1]:.4f} / {turns[2]:.4f} ms; both within "
-            f"{SGD_TOL} of the plain version")
+            f"{split_row['ms'] * 1e3 / wsteps:.3f} us a step; the weights "
+            f"moved by up to {moved:.4f} (|z| at them up to {z_max:.3f}), "
+            f"error {werr / moved:.3e} of that; controls beyond the "
+            f"tolerance by: {', '.join(beyond)}")
         finish_row(split_row, agree=f"within {SGD_TOL}")
         wide_rows.append(split_row)
-        del wa, wb, wxs, want, xs_alt
+        del wa, wb, wxs, want
         torch.cuda.empty_cache()
 
     # score with the best model (trained fresh through execute, as the

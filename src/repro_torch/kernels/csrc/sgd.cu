@@ -736,7 +736,12 @@ sgd_split_kernel(const SplitArgs p) {
     }
 
     for (int64_t step = 0; step < steps; ++step) {
-      const int par = static_cast<int>(step & 1);
+      // the exchange's buffer parity runs on across the groups of a
+      // grid-wide launch: a group's first step must not write the buffer
+      // that slower blocks may still be reading the last group's sums
+      // from (the steps a group may be odd, and no barrier parts them)
+      const int par = static_cast<int>(((group - g_first) * steps + step)
+                                       & 1);
       const int64_t row0 = (step % nb) * B;
       // the labels: thread t's arrived during the last step; the next
       // step's load flies during this one

@@ -8,7 +8,8 @@ alone before the launch:
   (C = 1 up to 1,024 features), the features split between them and four
   a thread, a producer warp a block keeping a ring of the next three
   minibatches' tiles in shared memory full with bulk copies
-  (cp.async.bulk) before a step needs them; one barrier a step.  The bulk copies read 16-byte-aligned rows, so the ring takes
+  (cp.async.bulk) before a step needs them; one barrier a step.  The
+  bulk copies read 16-byte-aligned rows, so the ring takes
   n % 4 == 0, and the wrapper copies a dataset or label column that
   starts off a 16-byte mark into fresh memory first;
 * ``"split"`` (``split_plan`` takes every other (n, minibatch), at any
@@ -139,8 +140,8 @@ def split_fit(n: int, minibatch: int, blocks: int,
     slices of a multiple of 4 features need) exchanging through one
     cluster or, with ``grid``, a grid-wide launch, or None where the
     fixed buffers leave no room for two sub-tile slots.  ``split_plan``
-    picks among these; the others serve to time one exchange against the
-    other."""
+    picks among these; the tests take the others to drive each exchange
+    at a width whose own plan takes the other."""
     chunks = -(-minibatch // SPLIT_ROWS)
     jobs = 4 if chunks <= 2 else 2 if chunks <= 4 else 1
     slot = 4 * min(minibatch, SPLIT_ROWS) * SPLIT_ROW_FLOATS
@@ -164,19 +165,18 @@ def split_plan(n: int, minibatch: int) -> Optional[SplitPlan]:
     where no plan fits a block's shared memory (a minibatch of thousands
     of rows).  The smallest cluster whose blocks keep a whole step's tile
     in their ring wins; where none does, a grid-wide launch of
-    ``SPLIT_GRID_BLOCKS`` blocks, else the widest cluster that fits.  The
+    ``SPLIT_GRID_BLOCKS`` blocks (whose blocks' fixed buffers are never
+    larger than a cluster's, so it fits wherever a cluster does).  The
     model slices stay in shared memory where four sub-tile slots still
     fit beside them.  A function of (n, minibatch) only, so every launch
     over the same features trains in the same order."""
     if n <= 0 or minibatch <= 0:
         return None
-    widest = None
     for blocks in range(1, SPLIT_CLUSTER_MAX + 1):
         plan = split_fit(n, minibatch, blocks, False)
         if plan is not None and plan.resident:
             return plan
-        widest = plan or widest
-    return split_fit(n, minibatch, SPLIT_GRID_BLOCKS, True) or widest
+    return split_fit(n, minibatch, SPLIT_GRID_BLOCKS, True)
 
 
 def route(n: int, minibatch: int) -> str:
@@ -269,8 +269,8 @@ def sgd_split(a: torch.Tensor, b: torch.Tensor, xs0: torch.Tensor,
               plan: Optional[SplitPlan]) -> torch.Tensor:
     """The split route with a given plan (``sgd`` passes
     ``split_plan(n, minibatch)``; another plan trains the same rows in
-    another summation order, which is how a cluster and a grid-wide
-    launch are timed against each other).  CUDA tensors only."""
+    another summation order, which is how the tests drive each exchange
+    at widths whose own plan takes the other).  CUDA tensors only."""
     _check_shapes(a, b, xs0, lrs, l2s, minibatch, epochs, kind)
     _check_card(a, b, xs0, lrs, l2s, minibatch, epochs)
     m, n = a.shape

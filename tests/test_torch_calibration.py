@@ -355,3 +355,18 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
             names.add(node.module)
     assert "repro_torch" in {n.split(".")[0] for n in names}
     assert not {n for n in names if n.split(".")[0] in ("jax", "repro")}
+
+
+def test_sgd_probe_imports_no_jax_and_no_reference():
+    """The card-only timing script beside ``chip_smoke.py`` imports the
+    port and ``chip_smoke``, never ``jax`` or the reference."""
+    with open(os.path.join(ROOT, "sgd_probe.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert {"repro_torch", "chip_smoke"} <= {n.split(".")[0] for n in names}
+    assert not {n for n in names if n.split(".")[0] in ("jax", "repro")}

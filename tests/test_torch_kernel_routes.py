@@ -2,13 +2,16 @@
 launch: B7's (dtype, head dim) -> tensor cores or CUDA cores, B2's
 table length -> shared memory or sample, and B5's (features, minibatch)
 -> a ring of minibatch tiles on a cluster of blocks, or the split
-route (its plan checked over widths up to 2,000,000 features), and B8's (dtype, hd, ds) -> tensor cores or CUDA cores, with the
+route (its plan checked over widths up to 2,000,000 features), and
+B8's (dtype, hd, ds) -> tensor cores or CUDA cores, with the
 tensor-core route's split-bf16 arithmetic emulated against the
 tolerances.  All are plain functions, so they are checked here on the CPU;
 the kernels behind them run only on the card
 (``tests/test_torch_kernels_cuda.py``).  On CPU tensors the wrappers take
 their plain versions and count no launch."""
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -128,6 +131,38 @@ def test_sgd_split_plan_fits_and_covers_every_feature(n, minibatch):
     chunks = -(-minibatch // sgd_kernels.SPLIT_ROWS)
     sub_tiles = chunks * -(-plan.width // sgd_kernels.SPLIT_SUB)
     assert plan.resident == (sub_tiles < plan.stages)
+    # a cluster is taken only where its rings hold a step's tile
+    assert plan.grid or plan.resident
+
+
+@pytest.mark.parametrize("features,terms", [(5_000, 74), (20_000, 455)])
+def test_text_rows_are_unit_norm_tfidf_rows_with_balanced_labels(features,
+                                                                 terms):
+    """The wide GLM searches' rows: at most ``terms`` distinct terms a
+    row, each holding its IDF before the row is scaled to unit L2 norm;
+    half the labels set; the same rows from the same seed."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    text_rows = chip_smoke.text_rows
+    cpu = torch.device("cpu")
+    a, b = text_rows(64, features, terms, torch.Generator().manual_seed(5),
+                     cpu)
+    again, _ = text_rows(64, features, terms,
+                         torch.Generator().manual_seed(5), cpu)
+    assert torch.equal(a, again)
+    nnz = (a != 0).sum(dim=1)
+    assert bool((nnz >= 1).all()) and bool((nnz <= terms).all())
+    torch.testing.assert_close(a.norm(dim=1), torch.ones(64))
+    assert float(b.sum()) == 32.0 and set(b.tolist()) <= {0.0, 1.0}
+    # two terms that share rows keep one ratio of IDFs in all of them
+    common = (a != 0).sum(dim=0).argsort(descending=True)[:2]
+    both = (a[:, common] != 0).all(dim=1)
+    ratio = a[both][:, common[0]] / a[both][:, common[1]]
+    assert int(both.sum()) > 1
+    torch.testing.assert_close(ratio, ratio[:1].expand_as(ratio))
 
 
 def test_sgd_split_plan_at_the_wide_shapes():

@@ -291,6 +291,30 @@ def _sgd_inputs(device, m, n, k, kind, seed=0):
             torch.as_tensor(1e-3 * (np.arange(k) % 3), **f32))
 
 
+def _sgd_moving_inputs(device, m, n, k, seed=0):
+    """Logistic-regression inputs whose weights move far past the
+    tolerance: rows of about unit norm (N(0, 1 / n) entries), starting
+    weights N(0, 0.25), so z = <a, x> is O(1) from the first step and each
+    step's d hangs on every feature's share of z, and a learning rate of
+    30 (1 - j / 10) for job j."""
+    r = np.random.default_rng(seed + n + k)
+    a = r.standard_normal((m, n), dtype=np.float32) / np.float32(np.sqrt(n))
+    b = (a @ r.standard_normal(n, dtype=np.float32) > 0).astype(np.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.as_tensor(a, **f32), torch.as_tensor(b, **f32),
+            torch.as_tensor(0.5 * r.standard_normal((k, n)), **f32),
+            torch.as_tensor(30.0 * (1 - 0.1 * np.arange(k)), **f32),
+            torch.as_tensor(1e-3 * (np.arange(k) % 3), **f32))
+
+
+def _assert_moved(want, xs0, factor=10.0):
+    """Every job's median weight ends ``factor`` times ``SGD_TOL`` from
+    where it started, so weights left in place fail the comparison."""
+    tol = SGD_TOL["atol"] + SGD_TOL["rtol"] * want.abs()
+    moved = ((want - xs0).abs() / tol).median(dim=1).values
+    assert float(moved.min()) > factor, moved.tolist()
+
+
 @pytest.mark.parametrize("n", [1, 3, 784, 2048])
 @pytest.mark.parametrize("k", [1, 8, 33])
 @pytest.mark.parametrize("kind", ["logreg", "ridge"])
@@ -421,13 +445,15 @@ def test_sgd_split_route_every_exchange_matches_plain(cuda, n, blocks, grid):
     these widths: clusters of 4 and 16 blocks (the step's tile read again
     from L2 where the ring cannot hold it; at 47,236 features on 4 blocks
     the model slices in device memory) and grid-wide launches of 32 and
-    up to 128 blocks, 5 jobs in two groups, against the plain version."""
+    up to 128 blocks, 5 jobs in two groups, against the plain version,
+    every job's weights moving far past the tolerance."""
     plan = sgd_kernels.split_fit(n, 16, blocks, grid)
-    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, 320, n, 5, "logreg")
+    a, b, xs0, lrs, l2s = _sgd_moving_inputs(cuda, 320, n, 5)
     kw = dict(minibatch=16, epochs=2, kind="logreg")
     got = sgd_kernels.sgd_split(a, b, xs0, lrs, l2s, plan=plan, **kw)
     want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
     torch.cuda.synchronize()
+    _assert_moved(want, xs0)
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **SGD_TOL)
@@ -466,15 +492,44 @@ def test_sgd_streamed_equals_one_launch_bitwise_on_each_route(cuda, n,
     _same(alone[0], once[3])
 
 
+@pytest.mark.parametrize("epochs", [1, 3])
+def test_sgd_grid_route_odd_steps_across_groups(cuda, epochs):
+    """A grid-wide launch trains its groups of jobs in turn: 5 jobs (4 a
+    group at a minibatch of 16) at 47,236 features over 17 minibatches,
+    an odd number of steps a group, so the exchange's double buffer must
+    not restart at the second group (its first step would write the
+    buffer that slower blocks still read the first group's last sums
+    from).  Against the plain version; three launches and each job alone
+    bit for bit."""
+    n, m = 47_236, 16 * 17
+    plan = sgd_kernels.split_plan(n, 16)
+    assert plan.grid and plan.jobs == 4
+    a, b, xs0, lrs, l2s = _sgd_moving_inputs(cuda, m, n, 5)
+    kw = dict(minibatch=16, epochs=epochs, kind="logreg")
+    got = [sgd_kernels.sgd(a, b, xs0, lrs, l2s, **kw) for _ in range(3)]
+    want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
+    torch.cuda.synchronize()
+    _assert_moved(want, xs0)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want.cpu().numpy(),
+                               **SGD_TOL)
+    for again in got[1:]:
+        _same(again, got[0])
+    for j in range(5):
+        alone = sgd_kernels.sgd(a, b, xs0[j:j + 1].contiguous(),
+                                lrs[j:j + 1], l2s[j:j + 1], **kw)
+        _same(alone[0], got[0][j])
+
+
 @pytest.mark.parametrize("n,m", [(58_097, 16), (1_355_191, 64)])
 def test_sgd_kernel_refuses_a_model_wider_than_shared_memory(cuda, n, m):
     """Named for the fault it now pins: the direct kernel kept a job's
     model in one block's shared memory and refused n = 58,097 (232,452
     bytes with a minibatch of 16), where the reference trains.  The split
     route trains it, and news20.binary's 1,355,191 features (its model
-    slices in device memory), within the tolerance of the plain version;
-    what it still refuses is a count past int32."""
-    a, b, xs0, lrs, l2s = _sgd_inputs(cuda, m, n, 1, "logreg")
+    slices in device memory), within the tolerance of the plain version,
+    the weights moving far past it; what it still refuses is a count past
+    int32."""
+    a, b, xs0, lrs, l2s = _sgd_moving_inputs(cuda, m, n, 1)
     assert sgd_kernels.route(n, 16) == "split"
     kw = dict(minibatch=16, epochs=1, kind="logreg")
     before = _build.LAUNCHES["sgd_split"]
@@ -482,6 +537,7 @@ def test_sgd_kernel_refuses_a_model_wider_than_shared_memory(cuda, n, m):
     want = sgd_ref.sgd_ref(a, b, xs0, lrs, l2s, **kw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sgd_split"] == before + 1
+    _assert_moved(want, xs0)
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **SGD_TOL)

@@ -59,23 +59,25 @@ Phases, each of which must pass or the script exits non-zero:
    device budget, and its weights must equal the resident run's bit for
    bit;
 10. lm: the LM serving path at full width and depth.  The flash-attention
-   kernel's two routes against their plain version at the llama3-8b
-   prefill shape (the tensor-core route in bf16 within 2e-2, the
-   CUDA-core route in f32 within 2e-5), each timed beside
-   ``scaled_dot_product_attention`` in its type, and misaligned bf16
-   views of q, k and v through the tensor-core route (equal to the
-   aligned launch bit for bit); the SSD kernel's two routes against
+   kernel's two tensor-core routes against their plain version at the
+   served prefill shapes: bf16 (wgmma) within 2e-2 at llama3-8b's (D 128,
+   GQA 4) and stablelm-3b's (D 80, MHA), f32 (three split-TF32 products)
+   within 2e-5 at llama3-8b's, each timed beside its bound and
+   ``scaled_dot_product_attention`` in its type, and misaligned views of
+   q, k and v through both routes (equal to the aligned launch bit for
+   bit); the SSD kernel's two routes against
    their plain version at the mamba2-780m prefill shape (the tensor-core
    route in bf16 at batch 4: y within 1.6e-2, the state within
    rtol=atol=1e-4; the CUDA-core route in f32 at the f32 check's batch 1,
    within rtol=atol=1e-4), two launches bit-identical, each timed with
-   its three passes.  Then ``serve`` of llama3-8b
-   (32 layers) and mamba2-780m (48 layers), random weights from
-   ``--seed``, 4 prompts of 2,000 tokens and 32 greedy tokens each:
+   its three passes.  Then ``serve`` of llama3-8b (32 layers),
+   stablelm-3b (32 layers) and mamba2-780m (48 layers), random weights
+   from ``--seed``, 4 prompts of 2,000 tokens and 32 greedy tokens each:
    prefill and per-token decode time (first run, median of warm runs),
-   tok/s, peak device memory, and one tensor-core flash-attention (SSD)
-   launch per layer of the prefill (the f32 check below launches the
-   CUDA-core route, once per layer of each of its two prefills).  Path
+   tok/s, peak device memory, and one bf16 flash-attention (SSD
+   tensor-core) launch per layer of the prefill (the f32 check below
+   launches the f32 route of each, once per layer of each of its two
+   prefills).  Path
    checks: no NaN; a teacher-forced prefill of 1,999 tokens plus one
    decode step equals the 2,000-token prefill's last logits within
    ``TF_TOL`` of their largest magnitude in bf16 and within
@@ -105,7 +107,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet (HBM3)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM data sheet, outside tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense tensor cores
-OPS_RATE = {"f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S}
+TF32_FLOPS_PER_S = 495e12        # H100 SXM data sheet, dense tensor cores
+OPS_RATE = {"f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S,
+            "tf32": TF32_FLOPS_PER_S}
 
 SSB_LINEORDER_ROWS = 59_986_214  # SSB scale factor 10
 SSB_DATE_ROWS = 2_556            # 1992-01-01 .. 1998-12-30
@@ -131,7 +135,7 @@ MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
 # contracts multiply-adds into FMAs: weights agree within this, not bitwise
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
-LM_ARCHS = ("llama3-8b", "mamba2-780m")
+LM_ARCHS = ("llama3-8b", "stablelm-3b", "mamba2-780m")
 LM_BATCH, LM_PROMPT_LEN, LM_GEN_LEN = 4, 2_000, 32
 LM_WARM_RUNS = 3
 LM_CHECK_LEN = 512               # the 2-layer card-vs-CPU prompt
@@ -139,6 +143,10 @@ LM_CHECK_LEN = 512               # the 2-layer card-vs-CPU prompt
 # version (cuBLAS): f32 within 2e-5; in bf16 within the reference's own
 # bf16 tolerance (tests/test_kernels_attention_ssd.py)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# B7's JSON rows and the launch counter each reports
+LM_KERNEL_COUNTER = {"flash_attention_tc": "flash_attention_tc",
+                     "flash_attention_tc_d80": "flash_attention_tc",
+                     "flash_attention_f32": "flash_attention_f32"}
 # the SSD kernel against its plain version: f32 sums in another order;
 # a bf16 y is one rounding of such an f32 value (2**-6 covers one ulp)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1277,10 +1285,13 @@ def phase_spill(dev, ssb_tables, cal, spill_dir):
 
 
 def phase_lm_kernels(dev):
-    """B7's two routes at the llama3-8b prefill shape and B8's two at the
-    mamba2-780m one (the served bf16 prefill, and the f32 check's batch of
-    one), against their plain versions, timed (B8 also pass by pass).
-    Returns the four JSON rows."""
+    """B7's two routes at the served prefill shapes (bf16 at llama3-8b's
+    and stablelm-3b's, f32 at llama3-8b's, as the f32 check runs it) and
+    B8's two at the mamba2-780m one (the served bf16 prefill, and the f32
+    check's batch of one), against their plain versions, timed (B8 also
+    pass by pass).  Returns the five JSON rows; a B7 row's
+    ``counted_in`` names the run of ``phase_lm`` whose launches it
+    reports."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -1299,20 +1310,22 @@ def phase_lm_kernels(dev):
         return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
 
     b, s = LM_BATCH, LM_PROMPT_LEN
-    cfg = get_arch("llama3-8b")
-    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    pairs = b * h * s * (s + 1) // 2            # the causal half, i >= j
     rows = []
-    # bf16 takes the tensor-core route, f32 the CUDA-core route
-    for dtype, name in ((torch.bfloat16, "flash_attention_tc"),
-                        (torch.float32, "flash_attention")):
+    for arch, dtype, name, counted_in in (
+            ("llama3-8b", torch.bfloat16, "flash_attention_tc", "llama3-8b"),
+            ("stablelm-3b", torch.bfloat16, "flash_attention_tc_d80",
+             "stablelm-3b"),
+            ("llama3-8b", torch.float32, "flash_attention_f32",
+             "llama3-8b f32 check")):
+        cfg = get_arch(arch)
+        h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        pairs = b * h * s * (s + 1) // 2        # the causal half, i >= j
         tname = str(dtype).split(".")[-1]
         q, k, v = randn(b, s, h, d, dtype=dtype), \
             randn(b, s, kvh, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype)
-        if fa.route(dtype, d) != ("tc" if name.endswith("_tc")
-                                  else "cuda_core"):
-            raise AssertionError(f"{tname} at D = {d} takes the "
-                                 f"{fa.route(dtype, d)} route")
+        rt = fa.route(dtype, d)
+        if fa.COUNTER[rt] != LM_KERNEL_COUNTER[name]:
+            raise AssertionError(f"{tname} at D = {d} takes the {rt} route")
         want = fa_ref.attention_plain(q, k, v)
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -1323,63 +1336,76 @@ def phase_lm_kernels(dev):
                                  f"{ATTN_TOL[tname]}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=True, enable_gqa=kvh != h)
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
         del got, want
         size = q.element_size()
+        kernel = lambda: fa.flash_attention(q, k, v)     # noqa: E731
+        # q, k, v read once and o written once; Q.K^T and P.V over the
+        # causal half, 2 operations a multiply-add, at the rate of the
+        # tensor cores' input type (bf16, or TF32 for the split f32 route:
+        # the function's own count, not the split's three products)
+        ops = 4 * d * pairs
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
-            max_abs_err=err,
-            ms=time_ms(lambda: fa.flash_attention(q, k, v), reps=10),
+            max_abs_err=err, ms=time_ms(kernel, reps=10),
             plain_ms=time_ms(lambda: fa_ref.attention_plain(q, k, v), reps=3,
                              warmup=1),
             library_ms=time_ms(library, reps=10),
-            # q, k, v read once and o written once; Q.K^T and P.V over the
-            # causal half, 2 operations a multiply-add, in the inputs' type
             bytes=size * (2 * q.numel() + k.numel() + v.numel()),
-            ops=4 * d * pairs, ops_type="bf16" if size == 2 else "f32",
-            shape=f"q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, {d}) "
-                  f"{tname}, causal, {fa.route(dtype, d)} route"))
+            ops=ops, ops_type="bf16" if size == 2 else "tf32",
+            counted_in=counted_in,
+            shape=f"{arch}: q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, "
+                  f"{d}) {tname}, causal, {rt} route"))
         extra = ""
-        if dtype == torch.bfloat16:
-            # each operand as a contiguous view 2 bytes past a 16-byte
+        if name != "flash_attention_tc_d80":
+            # each operand as a contiguous view one element past a 16-byte
             # mark, which TMA cannot read in place: the wrapper copies it,
             # so the output equals the aligned launch's bit for bit
             aligned = fa.flash_attention(q, k, v)
             for which in range(3):
-                ops = [q, k, v]
-                buf = torch.empty(ops[which].numel() + 1, dtype=dtype,
+                ops_ = [q, k, v]
+                buf = torch.empty(ops_[which].numel() + 1, dtype=dtype,
                                   device=dev)
-                ops[which] = buf[1:].view(ops[which].shape)
-                ops[which].copy_((q, k, v)[which])
-                if not torch.equal(fa.flash_attention(*ops), aligned):
+                ops_[which] = buf[1:].view(ops_[which].shape)
+                ops_[which].copy_((q, k, v)[which])
+                if not torch.equal(fa.flash_attention(*ops_), aligned):
                     raise AssertionError(f"{name}: a misaligned "
                                          f"{'qkv'[which]} view changes the "
                                          "output")
-                del ops, buf
+                del ops_, buf
             del aligned
-            extra = ("; misaligned q, k and v views (2 bytes off) equal "
-                     "the aligned launch bit for bit")
-            # the same bf16 inputs through the CUDA-core kernel, called
-            # directly (the wrapper routes bf16 at D = 128 to the tensor
-            # cores): the redesign against the kernel it replaces
+            extra = (f"; misaligned q, k and v views ({size} bytes off) "
+                     "equal the aligned launch bit for bit")
+        if dtype == torch.float32:
+            extra += (f"; bound on the f32 CUDA cores "
+                      f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
+        if name != "flash_attention_tc":
+            # the same inputs through the previous CUDA-core kernel, called
+            # directly (no route reaches it), in turns with the route
             o = torch.empty_like(q)
             core = _build.function("flash_attention_fwd")
 
             def cuda_core():
                 _build.check(core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  o.data_ptr(), b, s, h, kvh, d, 1, 1,
-                                  d ** -0.5, _build.stream_handle(q.device)),
+                                  o.data_ptr(), b, s, h, kvh, d, 1,
+                                  int(size == 2), d ** -0.5,
+                                  _build.stream_handle(q.device)),
                              "flash_attention_fwd")
             cuda_core()
             core_err = float((o.float() - fa_ref.attention_plain(q, k, v)
                               .float()).abs().max())
-            extra += (f"; the CUDA-core kernel on the same bf16 inputs "
-                     f"{time_ms(cuda_core, reps=5):.4f} ms (max abs err "
-                     f"{core_err:.3e})")
+            turns = [time_ms(kernel, reps=10),
+                     time_ms(cuda_core, reps=3, warmup=1),
+                     time_ms(cuda_core, reps=3, warmup=1),
+                     time_ms(kernel, reps=10)]
+            extra += (f"; in turns with the previous CUDA-core kernel "
+                      f"(route, previous, previous, route): "
+                      + ", ".join(f"{t:.4f}" for t in turns)
+                      + f" ms (its max abs err {core_err:.3e})")
             del o
         finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e} <= "
                    f"{ATTN_TOL[tname]}; SDPA differs from the plain version "
@@ -1484,9 +1510,9 @@ def _teacher_forced(mb, model, prompts):
 
 
 def phase_lm(dev, seed):
-    """Serve llama3-8b and mamba2-780m at full width and depth through
-    ``serve``; the teacher-forced and card-vs-CPU path checks.  Returns
-    launch counts by model."""
+    """Serve llama3-8b, stablelm-3b and mamba2-780m at full width and depth
+    through ``serve``; the teacher-forced and card-vs-CPU path checks.
+    Returns launch counts by model."""
     import dataclasses
 
     import torch
@@ -1497,10 +1523,11 @@ def phase_lm(dev, seed):
     )
     from repro_torch.models import registry
 
-    # the served bf16 prefill launches the tensor-core route of B7 / B8,
-    # the f32 check's the CUDA-core route
+    # the served bf16 prefill launches B7's bf16 route and B8's
+    # tensor-core route, the f32 check's B7's f32 route and B8's CUDA-core
+    # route
     kernel_of = {"dense": "flash_attention_tc", "ssm": "ssd_tc"}
-    kernel_of_f32 = {"dense": "flash_attention", "ssm": "ssd"}
+    kernel_of_f32 = {"dense": "flash_attention_f32", "ssm": "ssd"}
     counts = {}
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
@@ -1573,8 +1600,8 @@ def phase_lm(dev, seed):
         if counts[f"{arch} f32 check"][kernel32] != 2 * cfg.num_layers:
             raise AssertionError(f"{arch} (f32): "
                                  f"{counts[f'{arch} f32 check']} launches, "
-                                 f"want one CUDA-core {kernel32} per layer "
-                                 "of each of the two prefills")
+                                 f"want one {kernel32} per layer of each of "
+                                 "the two prefills")
         err32 = float((full - step).abs().max())
         scale32 = float(full.abs().max())
         if not err32 <= TF_TOL_F32 * scale32:
@@ -1672,12 +1699,14 @@ def main(argv=None) -> int:
            "hash_probe": "probe", "probe_multi": "probe_multi",
            "sgd": "sgd", "sgd_split": "sgd_split",
            "sgd_split_news20": "sgd_split",
-           "stream_copy": "stream_copy",
-           "flash_attention_tc": "flash_attention_tc",
-           "flash_attention": "flash_attention", "ssd": "ssd",
+           "stream_copy": "stream_copy", **LM_KERNEL_COUNTER, "ssd": "ssd",
            "ssd_tc": "ssd_tc"}
     for row in rows:
-        # a row that a phase counted itself keeps its own count
+        # a row that a phase counted itself keeps its own count; a B7 row
+        # reports the launches of the LM run at its shape
+        if "counted_in" in row:
+            row["launches"] = lm_counts[row.pop("counted_in")][
+                key[row["name"]]]
         row.setdefault("launches", sum(c[key[row["name"]]]
                                        for counts in (ssb_counts, tpch_counts,
                                                       glm_counts, multi_counts,

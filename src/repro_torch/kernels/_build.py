@@ -75,6 +75,9 @@ SIGNATURES = {
     "flash_attention_tc_fwd": ("flash_attention",
                                (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                 _I32, _I32, _F32, _P)),
+    "flash_attention_f32_fwd": ("flash_attention",
+                                (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                                 _I32, _I32, _F32, _P)),
     # x, dt, a_log, b, c, d_skip, y, h_out, states, decay, bsz, seq, nh,
     # hd, ng, ds, chunk, mode, passes, stream
     "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
@@ -87,8 +90,8 @@ SIGNATURES = {
 # Kernel launches per wrapper and route, bumped only where a wrapper
 # launches its kernel (never on the plain CPU path): B2's shared-memory
 # and sampled routes, B5's ring ("sgd") and split ("sgd_split") routes,
-# B7's CUDA-core ("flash_attention") and tensor-core
-# ("flash_attention_tc") routes and B8's CUDA-core ("ssd") and
+# B7's bf16 ("flash_attention_tc") and f32 ("flash_attention_f32")
+# tensor-core routes and B8's CUDA-core ("ssd") and
 # tensor-core ("ssd_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
@@ -96,8 +99,8 @@ LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
                             "probe_counts_sampled": 0,
                             "probe_multi": 0, "probe": 0, "sgd": 0,
                             "sgd_split": 0,
-                            "stream_copy": 0, "flash_attention": 0,
-                            "flash_attention_tc": 0, "ssd": 0,
+                            "stream_copy": 0, "flash_attention_tc": 0,
+                            "flash_attention_f32": 0, "ssd": 0,
                             "ssd_tc": 0}
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-// Flash attention (online softmax) for Hopper (sm_90a), in two routes.
+// Flash attention (online softmax) for Hopper (sm_90a), on the tensor cores
+// in both of its types.
 //
 // Replaces: flash_attention / _flash_kernel in
 //   src/repro/kernels/flash_attention/flash_attention.py.
@@ -11,13 +12,13 @@
 //   to the value type before p . v (l sums the unrounded p), as the TPU
 //   kernel does; o in q's type.
 // Bound: operations.  At the llama3-8b prefill shape (B 4, S 2,000, H 32,
-//   KV 8, D 128, bf16) the causal half of Q.K^T and P.V is 131 GFLOP
-//   against 164 MB of q, k, v and o; at the card's bf16 tensor rate that
-//   is 0.13 ms, at its memory rate 0.05 ms.
-// Routes, a plain function of (dtype, D) that the wrapper decides before
-//   the launch (flash_attention.route):
-//   * tensor cores (flash_attention_tc_fwd): bfloat16 with D 64 or 128,
-//     which is every served model's prefill.  Its design:
+//   KV 8, D 128) the causal half of Q.K^T and P.V is 131 GFLOP against
+//   164 MB of q, k, v and o in bf16: 0.13 ms at the card's bf16 tensor
+//   rate, 0.05 ms at its memory rate.  At stablelm-3b's (H = KV = 32,
+//   D 80) it is 82 GFLOP against 164 MB: 0.083 ms and 0.049 ms.
+// Routes, a function of the type alone that the wrapper decides before the
+//   launch (flash_attention.route); both take D 16, 32, 64, 80, 96, 128:
+//   * bfloat16 (flash_attention_tc_fwd, namespace bf16):
 //     - a block of three warpgroups per (128-row q tile, b * H + h), the
 //       heaviest causal q tiles of every head first.  Warpgroup 0 is the
 //       producer: it gives up registers (setmaxnreg to 40) and one thread
@@ -26,12 +27,18 @@
 //     - TMA over 4-D tensor maps (D, heads, S, B), encoded on the host, so
 //       a (b, head, s0) tile is one coordinate, kv head h / (H / KV) is
 //       read in place (GQA needs no copy), and rows past S arrive as
-//       zeros.  A box is 64 columns (128 bytes) with the 128-byte swizzle,
-//       so D = 128 loads as two boxes.  The q tile is loaded once; k and v
-//       tiles of 128 rows stream through a ring of two stages with full
-//       and empty mbarriers, k and v on their own full barriers, so Q.K^T
-//       starts before v lands.  D = 128: q 32 KB + 2 x (k 32 KB + v 32 KB)
-//       = 160 KB, so 128-row kv tiles fit with two stages, one block an SM;
+//       zeros.  A box is 64 columns (128 bytes) with the 128-byte swizzle.
+//       D pads to whole boxes (64 or 128 columns): the tensor map's inner
+//       extent is D, so TMA fills the columns past D with zeros and moves
+//       no extra bytes.  Zero padding rather than a narrower swizzle keeps
+//       one operand layout and two wgmma shapes for every head dim; Q.K^T
+//       stops at D (the zero columns add nothing), so only P.V runs the
+//       padded width (at D 80: 80 + 128 columns of work for 80 + 80).
+//       The q tile is loaded once; k and v tiles of 128 rows stream
+//       through a ring of two stages with full and empty mbarriers, k and
+//       v on their own full barriers, so Q.K^T starts before v lands.  At
+//       a padded width of 128: q 32 KB + 2 x (k 32 KB + v 32 KB) = 160 KB,
+//       one block an SM;
 //     - S = Q.K^T: wgmma m64n128k16 bf16 -> f32, A = q and B = k both
 //       K-major from shared memory.  The online softmax runs on the
 //       accumulator fragments: a thread holds two rows, each row's values
@@ -46,29 +53,57 @@
 //       memory MN-major, transposed by the descriptor, so v needs no
 //       transposed copy;
 //     - o / max(l, 1e-30) in bf16, stored from the fragments with the row
-//       mask.
-//     The driver's cuTensorMapEncodeTiled is found at run time through
-//     cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
-//   * CUDA cores (flash_attention_fwd): float32 (tensor cores would mean
-//     TF32, which cannot meet the f32 tolerance of 2e-5), and bfloat16 with
-//     D 16, 32, 80 or 96.  Its design: one block of 256 threads per (64-row
-//     q tile, b * H + h).  The q tile is staged once, transposed, in shared
-//     memory; k and v tiles of 64 rows stream through one shared buffer (k
-//     transposed for Q.K^T, then v row-major for P.V).  Thread (ty, tx) of
-//     a 16 x 16 layout owns rows 4 ty .. 4 ty + 3 of the tile: 4 x 4
-//     scores (columns 4 tx .. 4 tx + 3) and 4 x D/16 outputs (columns
-//     tx + 16 c); the 16 threads of a row group are one half-warp, so row
-//     maxima and sums fold with shuffles.  Kv tiles strictly above the
-//     diagonal are skipped, and the q tiles with the most work are
-//     scheduled first.
+//       mask, D columns of the padded width.
+//   * float32 (flash_attention_f32_fwd, namespace tf32): single-pass TF32
+//     keeps 11 significant bits and cannot meet the f32 tolerance of 2e-5,
+//     so every product is split: x = hi + lo with hi = tf32(x) (rounded
+//     as cvt.rna rounds, by integer operations) and lo = tf32(x - hi),
+//     and a . b = hi.hi + hi.lo + lo.hi, each term
+//     a TF32 tensor-core product summed in f32 (the dropped lo.lo is
+//     below 2^-22 of a . b).  Its design:
+//     - a block of eight warps (16 q rows each, 128 in all) per (128-row
+//       q tile, b * H + h), heaviest causal tiles first, loading through
+//       the same 4-D tensor maps as the bf16 route with f32 boxes of 32
+//       columns (128 bytes, the 128-byte swizzle), D padded to whole boxes
+//       by TMA's zero fill.  q is loaded once; k and v tiles of 64 rows
+//       stream through a ring of two stages (D 128: q 64 KB + 2 x (k 32 KB
+//       + v 32 KB) = 192 KB).  No producer warp: a ninth warp would put
+//       three warps on one of the SM's four schedulers and cap a thread at
+//       168 registers, where this route needs about 200; thread 0 issues
+//       a stage's next load once every thread has left it;
+//     - mma.sync m16n8k8 TF32 rather than wgmma: wgmma reads TF32 operands
+//       from shared memory, K-major only, so the split halves of q, k and
+//       a transposed v would need shared memory of their own (q alone 128
+//       KB at D 128), while mma.sync takes fragments from registers: each
+//       thread loads raw f32 elements and splits them there;
+//     - the order of a sum is free where both operands share it: Q.K^T
+//       takes D's columns in an order that gives each thread two k steps
+//       per 16-byte load, and P.V takes v's columns (o's, permuted back at
+//       the store) so that one 16-byte load gives four n tiles; with the
+//       swizzle, the eight threads of each phase of those loads read eight
+//       different 16-byte chunks, so no load waits on a bank;
+//     - P for P.V comes straight from S's accumulator fragments: these
+//       hold kv columns 2t and 2t + 1 of a k step where the A operand
+//       wants t and t + 4, so the k step is permuted (A's t is column 2t,
+//       its t + 4 column 2t + 1) and v's rows are read in the same order;
+//     - the online softmax as in the bf16 route, with p unrounded (its
+//       type is f32); each tile's P.V is summed apart from O and added in
+//       f32 (the tensor cores' own sums are not rounded to nearest);
+//     - a warp skips the math of a kv tile that lies wholly above its 16
+//       rows' diagonal.
 //   Both routes mask the ragged last q and kv tiles, so any S >= 1 works
-//   (the TPU kernel needs S % 128 == 0).  PERF.md keeps each route's time
-//   beside the bound.
+//   (the TPU kernel needs S % 128 == 0), and copy nothing for GQA.  The
+//   driver's cuTensorMapEncodeTiled is found at run time through
+//   cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
+//   PERF.md keeps each route's time beside the bound.
 #include "common.cuh"
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+// ---- the previous CUDA-core kernel (f32 FMAs for both types), kept only
+// to be timed beside the tensor-core routes that replace it ---------- //
 
 namespace {
 
@@ -304,37 +339,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                 st);
 }
 
-// ---- the tensor-core route ---------------------------------------------- //
+// ---- what both tensor-core routes share ---------------------------------- //
 
 namespace {
-namespace tc {
 
-constexpr int kBr = 128;          // q rows a block: two consumer warpgroups
-constexpr int kBc = 128;          // kv rows a tile
-constexpr int kStages = 2;        // the k, v ring
-constexpr int kBlock = 384;       // the producer warpgroup and two consumers
-constexpr int kBox = 64;          // columns a TMA box: 128 bytes, the swizzle
-constexpr int kRowBytes = 128;    // a swizzled row of one box
-constexpr float kNegInf = -1e30f;
+constexpr float kNegInfTc = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D> struct Layout {
-  static_assert(D == 64 || D == 128, "the tensor-core route takes D 64, 128");
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kQBytes = kBr * D * 2;
-  static constexpr int kKVBytes = kBc * D * 2;
-  // offsets from a 1024-byte-aligned base (the 128-byte swizzle repeats
-  // every 8 rows, and wgmma's descriptors assume that alignment)
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kQBytes;
-  static constexpr int kV = kK + kStages * kKVBytes;
-  static constexpr int kBars = kV + kStages * kKVBytes;
-  static constexpr int kUsed = kBars + 8 * (1 + 3 * kStages) + 1024;
-  // at least 116 KB, so never two blocks share an SM: each block's
-  // setmaxnreg.inc needs the registers its producer gives up, and two
-  // blocks could each wait for the other's
-  static constexpr int kBytes = kUsed > 116 * 1024 ? kUsed : 116 * 1024;
-};
+constexpr int kRowBytes = 128;    // a swizzled row of one TMA box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -384,6 +395,188 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "r"(c2), "r"(c3)
       : "memory");
 }
+
+// The barriers of a block: q's full barrier, then k's and v's full
+// barriers and the empty barrier of each stage of the ring.
+template <int kStages> struct Barriers {
+  uint32_t q_full;
+  __device__ uint32_t k_full(int st) const { return q_full + 8 * (1 + st); }
+  __device__ uint32_t v_full(int st) const {
+    return q_full + 8 * (1 + kStages + st);
+  }
+  __device__ uint32_t empty(int st) const {
+    return q_full + 8 * (1 + 2 * kStages + st);
+  }
+  static constexpr int kBytes = 8 * (1 + 3 * kStages);
+
+  __device__ void init(uint32_t consumers) const {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The loads of one block, each issued by one thread: the q tile, and k
+// and v tiles of `bc` rows into the stages of the ring.  A tile is
+// `boxes` boxes of `box` columns; a box of r rows fills r * 128 bytes.
+template <int kStages> struct Loader {
+  Barriers<kStages> bars;
+  const CUtensorMap *tm_q, *tm_k, *tm_v;
+  uint32_t s_q, s_k, s_v;
+  int boxes, box, br, bc, h, hk, q0, b;
+
+  __device__ void q() const {
+    mbar_expect_tx(bars.q_full, boxes * br * kRowBytes);
+    for (int c = 0; c < boxes; ++c)
+      tma_load_4d(s_q + c * br * kRowBytes, tm_q, bars.q_full, c * box, h, q0,
+                  b);
+  }
+  // kv tile n into stage n % kStages, which must be free
+  __device__ void kv(int n) const {
+    const int st = n % kStages;
+    const uint32_t bytes = boxes * bc * kRowBytes;
+    mbar_expect_tx(bars.k_full(st), bytes);
+    for (int c = 0; c < boxes; ++c)
+      tma_load_4d(s_k + st * bytes + c * bc * kRowBytes, tm_k, bars.k_full(st),
+                  c * box, hk, n * bc, b);
+    mbar_expect_tx(bars.v_full(st), bytes);
+    for (int c = 0; c < boxes; ++c)
+      tma_load_4d(s_v + st * bytes + c * bc * kRowBytes, tm_v, bars.v_full(st),
+                  c * box, hk, n * bc, b);
+  }
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, heads, S, B) over a contiguous (B, S, heads, D) tensor of
+// bfloat16 or float32, boxes of 128 bytes of columns x 1 head x `rows`
+// rows x 1, 128-byte swizzle; columns past D and rows past S read as zeros.
+bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, bool bf16,
+              int d, int heads, int seq, int batch, int rows) {
+  const cuuint64_t esize = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * esize;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kRowBytes / esize), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map,
+            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Encodes the three maps and launches `kernel` over B * H * ceil(S / br)
+// blocks of `threads` with `smem` bytes of dynamic shared memory.
+template <typename Kernel, typename Out>
+int launch_tiled(Kernel kernel, bool bf16, int br, int bc, int threads,
+                 int smem, const void* q, const void* k, const void* v,
+                 void* o, int32_t b, int32_t s, int32_t h, int32_t kvh,
+                 int32_t d, int32_t causal, float scale,
+                 cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv;
+  if (!make_map(fn, &mq, q, bf16, d, h, s, b, br) ||
+      !make_map(fn, &mk, k, bf16, d, kvh, s, b, bc) ||
+      !make_map(fn, &mv, v, bf16, d, kvh, s, b, bc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t bh = static_cast<int64_t>(b) * h;
+  const int64_t blocks = bh * ((s + br - 1) / br);
+  if (bh > INT32_MAX || blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      mq, mk, mv, static_cast<Out*>(o), s, h, kvh, static_cast<int32_t>(bh),
+      causal, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The head dims both routes take, as a switch onto compile-time D.
+template <template <int> class Launch>
+int by_head_dim(int32_t d, const void* q, const void* k, const void* v,
+                void* o, int32_t b, int32_t s, int32_t h, int32_t kvh,
+                int32_t causal, float scale, cudaStream_t st) {
+  switch (d) {
+#define REPRO_FA_CASE(D) \
+  case D: return Launch<D>::run(q, k, v, o, b, s, h, kvh, causal, scale, st);
+    REPRO_FA_CASE(16)
+    REPRO_FA_CASE(32)
+    REPRO_FA_CASE(64)
+    REPRO_FA_CASE(80)
+    REPRO_FA_CASE(96)
+    REPRO_FA_CASE(128)
+#undef REPRO_FA_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---- bfloat16: wgmma ----------------------------------------------------- //
+
+namespace bf16 {
+
+constexpr int kBr = 128;          // q rows a block: two consumer warpgroups
+constexpr int kBc = 128;          // kv rows a tile
+constexpr int kStages = 2;        // the k, v ring
+constexpr int kBlock = 384;       // the producer warpgroup and two consumers
+constexpr int kBox = 64;          // columns a TMA box: 128 bytes, the swizzle
+
+template <int D> struct Layout {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 2 * kBox,
+                "the bf16 route takes D a multiple of 16, up to 128");
+  // D padded to whole boxes; TMA fills the columns past D with zeros
+  static constexpr int kPad = (D + kBox - 1) / kBox * kBox;
+  static constexpr int kBoxes = kPad / kBox;
+  static constexpr int kQBytes = kBr * kPad * 2;
+  static constexpr int kKVBytes = kBc * kPad * 2;
+  // offsets from a 1024-byte-aligned base (the 128-byte swizzle repeats
+  // every 8 rows, and wgmma's descriptors assume that alignment)
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  static constexpr int kUsed = kBars + Barriers<kStages>::kBytes + 1024;
+  // at least 116 KB, so never two blocks share an SM: each block's
+  // setmaxnreg.inc needs the registers its producer gives up, and two
+  // blocks could each wait for the other's
+  static constexpr int kBytes = kUsed > 116 * 1024 ? kUsed : 116 * 1024;
+};
 
 // wgmma's shared-memory descriptor of a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (in 16-byte units), layout 1.
@@ -517,8 +710,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void pv_step(float (&acc)[D / 2],
+// One k step of P.V at the padded width N (64 or 128).
+template <int N>
+__device__ __forceinline__ void pv_step(float (&acc)[N / 2],
                                         const uint32_t (&a)[4], uint64_t dv);
 template <>
 __device__ __forceinline__ void pv_step<128>(float (&acc)[64],
@@ -535,22 +729,18 @@ __device__ __forceinline__ void pv_step<64>(float (&acc)[32],
 
 template <int D>
 __global__ void __launch_bounds__(kBlock, 1)
-flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int32_t seq, int32_t heads,
-                int32_t kv_heads, int32_t bh_total, int32_t causal,
-                float scale_log2) {
+flash_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             __nv_bfloat16* __restrict__ o, int32_t seq, int32_t heads,
+             int32_t kv_heads, int32_t bh_total, int32_t causal,
+             float scale_log2) {
   using L = Layout<D>;
+  constexpr int kPad = L::kPad;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base + L::kQ, s_k = base + L::kK, s_v = base + L::kV;
-  const uint32_t q_full = base + L::kBars;
-  const auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
-  const auto v_full = [&](int st) { return q_full + 8 * (1 + kStages + st); };
-  const auto empty = [&](int st) {
-    return q_full + 8 * (1 + 2 * kStages + st);
-  };
+  const Barriers<kStages> bars{base + L::kBars};
 
   const int n_qt = (seq + kBr - 1) / kBr;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_total;
@@ -564,38 +754,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_kv = causal ? min(n_kv_all, (min(q0 + kBr, seq) - 1) / kBc + 1)
                           : n_kv_all;
 
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
-      mbar_init(empty(st), 2 * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) bars.init(2 * 128);
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::kQBytes);
-      for (int c = 0; c < L::kBoxes; ++c)
-        tma_load_4d(s_q + c * kBr * kRowBytes, &tm_q, q_full, c * kBox, h, q0,
-                    b);
+      const Loader<kStages> load{bars, &tm_q, &tm_k, &tm_v, s_q, s_k, s_v,
+                                 L::kBoxes, kBox, kBr, kBc, h, hk, q0, b};
+      load.q();
       for (int n = 0; n < n_kv; ++n) {
-        const int st = n % kStages;
-        if (n >= kStages) mbar_wait(empty(st), ((n / kStages) - 1) & 1);
-        const uint32_t kb = s_k + st * L::kKVBytes;
-        const uint32_t vb = s_v + st * L::kKVBytes;
-        mbar_expect_tx(k_full(st), L::kKVBytes);
-        for (int c = 0; c < L::kBoxes; ++c)
-          tma_load_4d(kb + c * kBc * kRowBytes, &tm_k, k_full(st), c * kBox,
-                      hk, n * kBc, b);
-        mbar_expect_tx(v_full(st), L::kKVBytes);
-        for (int c = 0; c < L::kBoxes; ++c)
-          tma_load_4d(vb + c * kBc * kRowBytes, &tm_v, v_full(st), c * kBox,
-                      hk, n * kBc, b);
+        // stage n % kStages is free once every consumer thread is done
+        // with tile n - kStages
+        if (n >= kStages)
+          mbar_wait(bars.empty(n % kStages), ((n / kStages) - 1) & 1);
+        load.kv(n);
       }
     }
   } else {
@@ -610,16 +784,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int cq = 2 * (lane % 4);
     const uint32_t qa = s_q + cw * 64 * kRowBytes;
 
-    float acc[D / 2];
+    float acc[kPad / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    for (int i = 0; i < kPad / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInfTc, kNegInfTc}, l[2] = {0.f, 0.f};
     float sc[kBc / 2];
 #pragma unroll
     for (int i = 0; i < kBc / 2; ++i) sc[i] = 0.f;
     uint32_t pa[kBc / 16][4];
 
-    mbar_wait(q_full, 0);
+    mbar_wait(bars.q_full, 0);
     for (int n = 0; n < n_kv; ++n) {
       const int st = n % kStages;
       const uint32_t par = (n / kStages) & 1;
@@ -627,8 +801,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t vb = s_v + st * L::kKVBytes;
 
       // S = Q . K^T over D in steps of 16 (32 bytes within a swizzled row;
-      // the second box of D = 128 starts kBr (kBc) rows on)
-      mbar_wait(k_full(st), par);
+      // the second box starts kBr (kBc) rows on); the zero columns past D
+      // are not multiplied
+      mbar_wait(bars.k_full(st), par);
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
@@ -649,14 +824,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int k0 = n * kBc;
       const bool edge = k0 + kBc > seq ||
                         (causal && k0 + kBc - 1 > q0 + 64 * cw);
-      float mx[2] = {kNegInf, kNegInf};
+      float mx[2] = {kNegInfTc, kNegInfTc};
 #pragma unroll
       for (int i = 0; i < kBc / 2; ++i) {
         float x = sc[i] * scale_log2;
         if (edge) {
           const int col = k0 + 8 * (i / 4) + cq + (i % 2);
           const int row = r0 + 8 * ((i / 2) % 2);
-          if (col >= seq || (causal && col > row)) x = kNegInf;
+          if (col >= seq || (causal && col > row)) x = kNegInfTc;
         }
         sc[i] = x;
         mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
@@ -685,22 +860,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = 0; j < 4; ++j)
           pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < kPad / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
       // O += P . V over the tile's kv rows in steps of 16 (2,048 bytes);
-      // v's D columns are its MN dimension, the second box kBc rows on
-      mbar_wait(v_full(st), par);
+      // v's padded columns are its MN dimension, the second box kBc rows on
+      mbar_wait(bars.v_full(st), par);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBc / 16; ++kk)
-        pv_step<D>(acc, pa[kk],
-                   sw128_desc(vb + kk * 16 * kRowBytes, kBc * kRowBytes,
-                              1024));
+        pv_step<kPad>(acc, pa[kk],
+                      sw128_desc(vb + kk * 16 * kRowBytes, kBc * kRowBytes,
+                                 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
-      mbar_arrive(empty(st));
+      mbar_arrive(bars.empty(st));
     }
 
     float den[2];
@@ -727,82 +902,326 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+template <int D> struct Launch {
+  static int run(const void* q, const void* k, const void* v, void* o,
+                 int32_t b, int32_t s, int32_t h, int32_t kvh, int32_t causal,
+                 float scale, cudaStream_t stream) {
+    return launch_tiled<decltype(&flash_kernel<D>), __nv_bfloat16>(
+        flash_kernel<D>, true, kBr, kBc, kBlock, Layout<D>::kBytes, q, k, v,
+        o, b, s, h, kvh, D, causal, scale, stream);
   }
-  return fn;
+};
+
+}  // namespace bf16
+
+// ---- float32: split TF32 on mma.sync ----------------------------------- //
+
+namespace tf32 {
+
+constexpr int kBr = 128;                   // q rows a block
+constexpr int kBc = 64;                    // kv rows a tile
+constexpr int kStages = 2;                 // the k, v ring
+constexpr int kWarps = kBr / 16;           // warps, 16 q rows each
+constexpr int kBlock = 32 * kWarps;
+constexpr int kBox = 32;                   // columns a TMA box: 128 bytes
+
+template <int D> struct Layout {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 4 * kBox,
+                "the f32 route takes D a multiple of 16, up to 128");
+  // D padded to whole boxes; TMA fills the columns past D with zeros
+  static constexpr int kBoxes = (D + kBox - 1) / kBox;
+  static constexpr int kPad = kBoxes * kBox;
+  static constexpr int kQBytes = kBoxes * kBr * kRowBytes;
+  static constexpr int kKVBytes = kBoxes * kBc * kRowBytes;
+  // offsets from a 1024-byte-aligned base (the swizzle repeats every 8
+  // rows of 128 bytes)
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBars + Barriers<kStages>::kBytes + 1024;
+};
+
+// The 16-byte chunk c (columns 4c .. 4c + 3 of box `box`) of row r of a
+// tile of `kRows` rows that TMA wrote with the 128-byte swizzle: each box
+// is kRows rows of 128 bytes, and in row r chunk c sits at c ^ (r % 8).
+template <int kRows>
+__device__ __forceinline__ float4 ld_chunk(const uint8_t* tile, int box,
+                                           int r, int c) {
+  return *reinterpret_cast<const float4*>(
+      tile + box * (kRows * kRowBytes) + r * kRowBytes + ((c ^ (r & 7)) << 4));
 }
 
-// A 4-D map (D, heads, S, B) over a contiguous (B, S, heads, D) bf16 tensor,
-// boxes of 64 columns x 1 head x `rows` rows x 1, 128-byte swizzle, rows
-// past S read as zeros.
-bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
-              int heads, int seq, int batch, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero): half of the dropped unit added to the magnitude bits, then
+// the low 13 of the 23 mantissa bits cleared, in two integer operations.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo: hi = tf32(x), lo = tf32 of the remainder, which x - hi
+// holds exactly.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The A operand (16 x 8, row) of one k step from its four elements: rows
+// g and g + 8 at k index t (x0, x1) and t + 4 (x2, x3), split.
+__device__ __forceinline__ void split_a(float x0, float x1, float x2,
+                                        float x3, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split(x0, hi[0], lo[0]);
+  split(x1, hi[1], lo[1]);
+  split(x2, hi[2], lo[2]);
+  split(x3, hi[3], lo[3]);
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32, row) . B (8 x 8, tf32, col).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b with a and b split (b's k indices t and t + 4 in b0, b1):
+// the small terms first, then hi . hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int32_t b,
-           int32_t s, int32_t h, int32_t kvh, int32_t causal, float scale,
-           cudaStream_t stream) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap mq, mk, mv;
-  if (!make_map(fn, &mq, q, D, h, s, b, kBr) ||
-      !make_map(fn, &mk, k, D, kvh, s, b, kBc) ||
-      !make_map(fn, &mv, v, D, kvh, s, b, kBc))
-    return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Layout<D>::kBytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t bh = static_cast<int64_t>(b) * h;
-  const int64_t blocks = bh * ((s + kBr - 1) / kBr);
-  if (bh > INT32_MAX || blocks > INT32_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  flash_tc_kernel<D><<<static_cast<unsigned>(blocks), kBlock, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, h, kvh,
-      static_cast<int32_t>(bh), causal, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kBlock, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+             int32_t seq, int32_t heads, int32_t kv_heads, int32_t bh_total,
+             int32_t causal, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int kN = L::kPad / 8;          // n tiles of P.V, k steps / 2
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const Barriers<kStages> bars{base + L::kBars};
+
+  const int n_qt = (seq + kBr - 1) / kBr;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_total;
+  const int bh = static_cast<int>(blockIdx.x) % bh_total;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int hk = h / (heads / kv_heads);
+  const int q0 = qt * kBr;
+  const int n_kv_all = (seq + kBc - 1) / kBc;
+  // causal: kv tiles past the tile's last q row are never loaded
+  const int n_kv = causal ? min(n_kv_all, (min(q0 + kBr, seq) - 1) / kBc + 1)
+                          : n_kv_all;
+  const Loader<kStages> load{bars, &tm_q, &tm_k, &tm_v, base + L::kQ,
+                             base + L::kK, base + L::kV, L::kBoxes, kBox,
+                             kBr, kBc, h, hk, q0, b};
+
+  // no producer warp: a ninth warp would leave a third warp on one of the
+  // SM's four schedulers and cap every thread at 168 registers; thread 0
+  // issues the loads between its tiles instead
+  if (threadIdx.x == 0) bars.init(kBlock);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    load.q();
+    for (int n = 0; n < kStages && n < n_kv; ++n) load.kv(n);
+  }
+
+  // A warp owns 16 q rows.  In an m16n8 fragment the thread holds rows g
+  // and g + 8 and, of an 8-column group, columns 2t and 2t + 1
+  // (accumulators) or t and t + 4 (operands).
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * w;                  // the warp's first row in the tile
+  const int r0 = q0 + wr + g;             // the thread's rows r0, r0 + 8
+  const uint8_t* sq = sm + L::kQ;
+
+  // O in n tiles of 8 columns, permuted: the thread's chunk g of box J
+  // holds columns 32 J + 4 g + i of n tiles 4 J + i, so its accumulators
+  // cover columns 32 J + 8 t .. 32 J + 8 t + 7 of rows g and g + 8
+  float acc[kN][4];
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float m[2] = {kNegInfTc, kNegInfTc}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bars.q_full, 0);
+  for (int n = 0; n < n_kv; ++n) {
+    const int st = n % kStages;
+    const uint32_t par = (n / kStages) & 1;
+    const uint8_t* sk = sm + L::kK + st * L::kKVBytes;
+    const uint8_t* sv = sm + L::kV + st * L::kKVBytes;
+    const int k0 = n * kBc;
+    mbar_wait(bars.k_full(st), par);
+    // causal: a tile wholly above the warp's rows adds nothing to them
+    if (!causal || k0 <= q0 + wr + 15) {
+      // S = Q . K^T.  The sum over D runs in any order that q and k share:
+      // k steps (box, half, sub) take, at A's k indices t and t + 4,
+      // columns 4 c + 2 sub and 4 c + 2 sub + 1 of the box with
+      // c = 2 t + half, so one 16-byte load gives a thread two k steps,
+      // and the eight threads of a phase (g, g + 1; t = 0..3) read eight
+      // different chunks of the swizzle
+      float s[kBc / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+      for (int bx = 0; bx < L::kBoxes; ++bx)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c = 2 * t + half;
+          const float4 qa = ld_chunk<kBr>(sq, bx, wr + g, c);
+          const float4 qb = ld_chunk<kBr>(sq, bx, wr + g + 8, c);
+          uint32_t ah0[4], al0[4], ah1[4], al1[4];
+          split_a(qa.x, qb.x, qa.y, qb.y, ah0, al0);
+          split_a(qa.z, qb.z, qa.w, qb.w, ah1, al1);
+#pragma unroll
+          for (int j = 0; j < kBc / 8; ++j) {
+            const float4 kb = ld_chunk<kBc>(sk, bx, 8 * j + g, c);
+            mma3(s[j], ah0, al0, kb.x, kb.y);
+            mma3(s[j], ah1, al1, kb.z, kb.w);
+          }
+        }
+
+      // masks on the diagonal and the ragged last tile only; then the
+      // online softmax in log2 units, rows folded over the quad
+      const bool edge =
+          k0 + kBc > seq || (causal && k0 + kBc - 1 > q0 + wr);
+      float mx[2] = {kNegInfTc, kNegInfTc};
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = s[j][i] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * j + 2 * t + (i & 1);
+            const int row = r0 + 8 * (i >> 1);
+            if (col >= seq || (causal && col > row)) x = kNegInfTc;
+          }
+          s[j][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = exp2f(s[j][i] - m[i >> 1]);
+          l[i >> 1] += p;
+          s[j][i] = p;
+        }
+
+      // O = O * alpha + P . V, the tile's P . V summed apart in f32: the
+      // tensor cores' own sums are not rounded to nearest, and carried
+      // over a whole row's tiles their error grew to half the f32
+      // tolerance at S 2,000; one tile's 24 products add little to its
+      // own part.  k step kk's accumulator holds kv
+      // columns 2t, 2t + 1; at A's k indices t and t + 4 they are read
+      // with v's rows 2t and 2t + 1, each a 16-byte load of chunk g per
+      // box (the eight threads of a phase again on eight chunks)
+      mbar_wait(bars.v_full(st), par);
+      float pv[kN][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[j][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kBc / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3], ah, al);
+#pragma unroll
+        for (int bx = 0; bx < L::kBoxes; ++bx) {
+          const float4 v0 = ld_chunk<kBc>(sv, bx, 8 * kk + 2 * t, g);
+          const float4 v1 = ld_chunk<kBc>(sv, bx, 8 * kk + 2 * t + 1, g);
+          mma3(pv[4 * bx + 0], ah, al, v0.x, v1.x);
+          mma3(pv[4 * bx + 1], ah, al, v0.y, v1.y);
+          mma3(pv[4 * bx + 2], ah, al, v0.z, v1.z);
+          mma3(pv[4 * bx + 3], ah, al, v0.w, v1.w);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[j][i] = fmaf(acc[j][i], alpha[i >> 1], pv[j][i]);
+    }
+    mbar_arrive(bars.empty(st));
+    // stage st is free once every thread is done with tile n
+    if (threadIdx.x == 0 && n + kStages < n_kv) {
+      mbar_wait(bars.empty(st), par);
+      load.kv(n + kStages);
+    }
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+  const int64_t row_stride = static_cast<int64_t>(heads) * D;
+  float* ob = o + static_cast<int64_t>(b) * seq * row_stride +
+              static_cast<int64_t>(h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= seq) continue;
+    float* orow = ob + row * row_stride;
+#pragma unroll
+    for (int bx = 0; bx < L::kBoxes; ++bx) {
+      const int col = kBox * bx + 8 * t;
+      if (col >= D) continue;               // the zero columns of a pad
+      *reinterpret_cast<float4*>(orow + col) = make_float4(
+          acc[4 * bx][2 * r] / den[r], acc[4 * bx + 1][2 * r] / den[r],
+          acc[4 * bx + 2][2 * r] / den[r], acc[4 * bx + 3][2 * r] / den[r]);
+      *reinterpret_cast<float4*>(orow + col + 4) = make_float4(
+          acc[4 * bx][2 * r + 1] / den[r], acc[4 * bx + 1][2 * r + 1] / den[r],
+          acc[4 * bx + 2][2 * r + 1] / den[r],
+          acc[4 * bx + 3][2 * r + 1] / den[r]);
+    }
+  }
 }
 
-}  // namespace tc
+template <int D> struct Launch {
+  static int run(const void* q, const void* k, const void* v, void* o,
+                 int32_t b, int32_t s, int32_t h, int32_t kvh, int32_t causal,
+                 float scale, cudaStream_t stream) {
+    return launch_tiled<decltype(&flash_kernel<D>), float>(
+        flash_kernel<D>, false, kBr, kBc, kBlock, Layout<D>::kBytes, q, k, v,
+        o, b, s, h, kvh, D, causal, scale, stream);
+  }
+};
+
+}  // namespace tf32
 }  // namespace
 
-// The tensor-core route: q (b, s, h, d), k and v (b, s, kvh, d), o like q,
-// all contiguous bfloat16 with 16-byte-aligned data; d 64 or 128; `scale`
-// multiplies q . k (D^-1/2).  Launches on `stream`; returns
+// q (b, s, h, d), k and v (b, s, kvh, d), o like q, all contiguous with
+// 16-byte-aligned data, of bfloat16 (flash_attention_tc_fwd) or float32
+// (flash_attention_f32_fwd); d one of 16, 32, 64, 80, 96, 128; `scale`
+// multiplies q . k (D^-1/2).  Launch on `stream`; return
 // cudaGetLastError() (cudaErrorNotSupported if the driver has no
 // cuTensorMapEncodeTiled).
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
@@ -811,12 +1230,16 @@ extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
                                       int32_t d, int32_t causal, float scale,
                                       void* stream) {
   if (b <= 0 || s <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return tc::launch<64>(q, k, v, o, b, s, h, kvh, causal, scale, st);
-    case 128:
-      return tc::launch<128>(q, k, v, o, b, s, h, kvh, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_head_dim<bf16::Launch>(d, q, k, v, o, b, s, h, kvh, causal,
+                                   scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
+                                       const void* v, void* o, int32_t b,
+                                       int32_t s, int32_t h, int32_t kvh,
+                                       int32_t d, int32_t causal, float scale,
+                                       void* stream) {
+  if (b <= 0 || s <= 0) return static_cast<int>(cudaGetLastError());
+  return by_head_dim<tf32::Launch>(d, q, k, v, o, b, s, h, kvh, causal,
+                                   scale, static_cast<cudaStream_t>(stream));
 }

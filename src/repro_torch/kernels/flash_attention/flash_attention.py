@@ -1,24 +1,27 @@
 """Flash attention (online softmax) — wrapper and plain version.
 
 The CUDA kernels (``kernels/csrc/flash_attention.cu``) replace the TPU's
-``flash_attention`` in two routes, which ``route`` picks from the type
-and the head dim before the launch:
+``flash_attention`` on Hopper's tensor cores, in one route per type,
+which ``route`` picks before the launch; each takes every D in
+``HEAD_DIMS``:
 
-* ``"tc"``, bfloat16 with D in ``TC_HEAD_DIMS``: tensor cores (wgmma)
-  fed by TMA, one block per 128-row q tile and head, 128-row kv tiles in
-  a two-stage ring;
-* ``"cuda_core"``, float32 (tensor cores would round it to TF32) and
-  bfloat16 with the other head dims: f32 FMAs, one block per 64-row q
-  tile and head.
+* ``"tc"``, bfloat16: wgmma fed by TMA, one block per 128-row q tile and
+  head, 128-row kv tiles in a two-stage ring; D pads to 64 or 128
+  columns with TMA's zero fill (Q.K^T stops at D);
+* ``"tf32x3"``, float32: one TF32 product would keep 11 significant
+  bits, short of the f32 tolerance, so each operand is split into a TF32
+  high part and a TF32 remainder and a . b = hi.hi + hi.lo + lo.hi, on
+  mma.sync m16n8k8 from TMA-loaded f32 tiles, 64-row kv tiles in a
+  two-stage ring.
 
 Both keep the running (m, l, acc) in f32, skip kv tiles above the causal
 diagonal, read kv heads in place for GQA and mask the ragged last tiles,
 so any length works.  TMA takes 16-byte-aligned addresses only, so the
-tensor-core route first copies an operand that starts off a 16-byte mark
-(a contiguous view such as ``buf[1:]``) into fresh memory.
-``flash_attention`` launches a kernel for CUDA
-tensors and takes ``ref.attention_plain`` for CPU tensors; there is no
-fallback from the card to the plain version.
+wrapper first copies an operand that starts off a 16-byte mark (a
+contiguous view such as ``buf[1:]``) into fresh memory.
+``flash_attention`` launches a kernel for CUDA tensors and takes
+``ref.attention_plain`` for CPU tensors; there is no fallback from the
+card to the plain version.
 """
 from __future__ import annotations
 
@@ -29,14 +32,17 @@ from repro_torch.kernels.flash_attention import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)      # instantiated in the CUDA source
-TC_HEAD_DIMS = (64, 128)                   # the tensor-core route's
+# each route's launcher and launch counter
+ENTRY = {"tc": "flash_attention_tc_fwd", "tf32x3": "flash_attention_f32_fwd"}
+COUNTER = {"tc": "flash_attention_tc", "tf32x3": "flash_attention_f32"}
+Q_TILE = 128                               # q rows a block, both routes
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The kernel that takes (dtype, head dim d): ``"tc"`` (tensor cores)
-    or ``"cuda_core"``."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS \
-        else "cuda_core"
+    """The kernel that takes (dtype, head dim d): ``"tc"`` (bf16 wgmma)
+    or ``"tf32x3"`` (f32 as three TF32 products); both take every d in
+    ``HEAD_DIMS``."""
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _check(q, k, v) -> None:
@@ -78,28 +84,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    stream = _build.stream_handle(q.device)
-    if route(q.dtype, d) == "tc":
-        # TMA reads from 16-byte-aligned addresses only: a contiguous view
-        # that starts off a 16-byte mark is copied into fresh memory
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
-        if b * h * -(-s // 128) >= 2 ** 31:
-            raise ValueError(f"B * H * ceil(S / 128) = "
-                             f"{b * h * -(-s // 128)}: the grid takes at "
-                             "most 2**31 - 1 blocks")
-        fn = _build.function("flash_attention_tc_fwd")
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-                h, k.shape[2], d, int(causal), d ** -0.5, stream)
-        _build.check(rc, "flash_attention_tc_fwd")
-        _build.LAUNCHES["flash_attention_tc"] += 1
-        return o
-    if b * h >= 2 ** 16:
-        raise ValueError(f"B * H = {b * h}: the grid takes at most 65,535")
-    fn = _build.function("flash_attention_fwd")
+    # TMA reads from 16-byte-aligned addresses only: a contiguous view
+    # that starts off a 16-byte mark is copied into fresh memory
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    blocks = b * h * -(-s // Q_TILE)
+    if blocks >= 2 ** 31:
+        raise ValueError(f"B * H * ceil(S / {Q_TILE}) = {blocks}: the grid "
+                         "takes at most 2**31 - 1 blocks")
+    rt = route(q.dtype, d)
+    fn = _build.function(ENTRY[rt])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            k.shape[2], d, int(causal), int(q.dtype == torch.bfloat16),
-            d ** -0.5, stream)
-    _build.check(rc, "flash_attention_fwd")
-    _build.LAUNCHES["flash_attention"] += 1
+            k.shape[2], d, int(causal), d ** -0.5,
+            _build.stream_handle(q.device))
+    _build.check(rc, ENTRY[rt])
+    _build.LAUNCHES[COUNTER[rt]] += 1
     return o

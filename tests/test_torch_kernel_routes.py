@@ -1,5 +1,6 @@
 """The routes of the port's redesigned kernels, decided in Python before a
-launch: B7's (dtype, head dim) -> tensor cores or CUDA cores, B2's
+launch: B7's type -> bf16 tensor cores or split-TF32 tensor cores (the
+split's arithmetic emulated against the f32 tolerance), B2's
 table length -> shared memory or sample, and B5's (features, minibatch)
 -> a ring of minibatch tiles on a cluster of blocks, or the split
 route (its plan checked over widths up to 2,000,000 features), and
@@ -29,19 +30,85 @@ from repro_torch.kernels.ssd import ssd as ssd_kernels
 
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+ATTN_F32_TOL = 2e-5          # tests/test_torch_kernels_cuda.py, chip_smoke.py
 
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.bfloat16, 80, "cuda_core"), (torch.bfloat16, 96, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+    (torch.bfloat16, 16, "tc"), (torch.bfloat16, 32, "tc"),
+    (torch.bfloat16, 80, "tc"), (torch.bfloat16, 96, "tc"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 16, "tf32x3"), (torch.float32, 80, "tf32x3")])
 def test_flash_attention_route(dtype, d, want):
     assert fa.route(dtype, d) == want
 
 
 def test_every_tensor_core_head_dim_is_built():
-    assert set(fa.TC_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+    """Both types take the tensor cores at every head dim the source
+    instantiates, each route with its own launcher and counter."""
+    for dtype in fa.DTYPES:
+        for d in fa.HEAD_DIMS:
+            rt = fa.route(dtype, d)
+            assert rt in ("tc", "tf32x3")
+            assert fa.ENTRY[rt] in _build.SIGNATURES
+            assert fa.COUNTER[rt] in _build.LAUNCHES
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero, the low 13 of the 23 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_products(eq, x, y, split):
+    """einsum ``eq`` of x and y as the f32 route multiplies: TF32 operands,
+    products summed in f32; split, x . y = hi.hi + hi.lo + lo.hi with
+    hi = tf32(x) and lo = tf32(x - hi), the small terms first."""
+    xh, yh = _tf32(x), _tf32(y)
+    if not split:
+        return torch.einsum(eq, xh, yh)
+    xl, yl = _tf32(x - xh), _tf32(y - yh)
+    return (torch.einsum(eq, xl, yh) + torch.einsum(eq, xh, yl)
+            + torch.einsum(eq, xh, yh))
+
+
+def _attention_tf32(q, k, v, split):
+    """``ref.attention_plain`` in f32 with its two products taken through
+    TF32 (p is f32, so its rounding to the value type is the identity)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
+    scores = _tf32_products("bqkgd,bskd->bkgqs", qg, k, split) * d ** -0.5
+    keep = torch.ones(s, s, dtype=torch.bool).tril()
+    scores = torch.where(keep, scores, fa_ref.NEG_INF)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    den = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    out = _tf32_products("bkgqs,bskd->bkgqd", p, v, split) / den
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0, -1.0, 1 + 2 ** -11, 1 + 2 ** -12,
+                      -(1 + 2 ** -11 + 2 ** -12), 1 + 2 ** -10 + 2 ** -11])
+    assert _tf32(x).tolist() == [1.0, -1.0, 1 + 2 ** -10, 1.0,
+                                 -(1 + 2 ** -10), 1 + 2 ** -9]
+
+
+@pytest.mark.parametrize("d", [16, 32, 80])
+def test_split_tf32_attention_meets_the_f32_tolerance(d):
+    """The f32 route's arithmetic on the CPU at S 2,000, causal, 4 q heads
+    over 2 kv heads: three TF32 products per product keep the output
+    within the f32 tolerance of the plain version; one TF32 product, the
+    single-pass form, leaves it outside."""
+    r = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, 2_000, n, d))
+                                .astype(np.float32)) for n in (4, 2, 2))
+    want = fa_ref.attention_plain(q, k, v)
+    split = float((_attention_tf32(q, k, v, True) - want).abs().max())
+    once = float((_attention_tf32(q, k, v, False) - want).abs().max())
+    assert split <= ATTN_F32_TOL, split
+    assert once > ATTN_F32_TOL, once
 
 
 @pytest.mark.parametrize("n_s,want", [
@@ -70,6 +137,18 @@ def test_flash_attention_on_cpu_tensors_is_the_plain_version(d):
     before = dict(_build.LAUNCHES)
     got = fa.flash_attention(q, k, v)
     assert torch.equal(got, fa_ref.attention_plain(q, k, v))
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d", [16, 80])
+def test_flash_attention_f32_on_cpu_tensors_is_the_plain_version(d):
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(2, 33, n, d, generator=g) for n in (8, 2, 2))
+    before = dict(_build.LAUNCHES)
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(got, fa_ref.attention_plain(q, k, v,
+                                                       causal=causal))
     assert _build.LAUNCHES == before
 
 

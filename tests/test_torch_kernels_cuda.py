@@ -20,13 +20,13 @@ launch over all rows bit for bit.  The traffic generator (``o = x + 1``)
 is bit-identical to its plain version at any length, at every offset of
 x and of ``out``, at the top of int32 and in float32; a spill plan
 streams host and disk columns back through pinned copies.  The
-tensor-core flash attention takes views that start off a 16-byte mark.
+flash attention takes views that start off a 16-byte mark on both routes.
 
-The flash-attention kernels (B7, a tensor-core route for bfloat16 at head
-dims 64 and 128, a CUDA-core route otherwise) sum in another order than
-their plain version (a dense f32 softmax on cuBLAS), so outputs agree
-within 2e-5 in float32 and 2e-2 in bfloat16 (the reference's own bf16
-tolerance).  The counts-only probe (B2) is bit-identical to
+The flash-attention kernels (B7, on the tensor cores at every head dim:
+wgmma for bfloat16, three split-TF32 mma.sync products a product for
+float32) sum in another order than their plain version (a dense f32
+softmax on cuBLAS), so outputs agree within 2e-5 in float32 and 2e-2 in
+bfloat16 (the reference's own bf16 tolerance).  The counts-only probe (B2) is bit-identical to
 ``bucket_probe`` on both of its routes (table in shared memory, or a
 sample of it), at the budget's edge and at both ends of int32.  The
 SSD kernels (B8, a tensor-core route for bfloat16 at widths that are
@@ -715,8 +715,7 @@ def _qkv(device, b, s, h, kvh, d, dtype, seed=0):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, s, group, dtype, causal):
     q, k, v = _qkv(cuda, 2, s, 8, 8 // group, 128, dtype, seed=s)
-    counter = ("flash_attention_tc" if fa.route(dtype, 128) == "tc"
-               else "flash_attention")
+    counter = fa.COUNTER[fa.route(dtype, 128)]
     before = _build.LAUNCHES[counter]
     got = fa.flash_attention(q, k, v, causal=causal)
     want = fa_ref.attention_plain(q, k, v, causal=causal)
@@ -729,11 +728,12 @@ def test_flash_attention_kernel_matches_plain(cuda, s, group, dtype, causal):
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
 @pytest.mark.parametrize("group", [1, 4, 8])
-@pytest.mark.parametrize("d", fa.TC_HEAD_DIMS)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_tensor_core_route_matches_plain(cuda, s, group, d,
                                                          causal):
-    """The wgmma/TMA route at each head dim it takes: one q tile and a
+    """The bf16 wgmma/TMA route at every head dim (those under 64 and
+    between 64 and 128 padded by TMA's zero fill): one q tile and a
     ragged one, the diagonal tiles, GQA groups of 1, 4 and 8."""
     q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, torch.bfloat16,
                    seed=s + d + group)
@@ -748,13 +748,36 @@ def test_flash_attention_tensor_core_route_matches_plain(cuda, s, group, d,
         {k: int(k == "flash_attention_tc") for k in before}
 
 
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_route_matches_plain(cuda, s, group, d, causal):
+    """The f32 route (split TF32 on mma.sync, 64-row kv tiles): one kv
+    tile and a ragged one, the diagonal tiles, a 128-row q tile over two
+    kv tiles, GQA groups of 1, 4 and 8, within the f32 tolerance."""
+    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, torch.float32,
+                   seed=s + d + group)
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    err = float((got - want).abs().max())
+    assert err <= ATTN_TOL[torch.float32], err
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == "flash_attention_f32") for k in before}
+
+
 def test_flash_attention_routes_by_type_and_head_dim(cuda):
-    """bf16 at D = 128 (the served shape) and 64 takes the tensor cores;
-    f32 and bf16 at another head dim take the CUDA cores."""
+    """bf16 takes the wgmma route and f32 the split-TF32 route at every
+    head dim, the served ones (128, stablelm-3b's 80) among them."""
     for dtype, d, counter in ((torch.bfloat16, 128, "flash_attention_tc"),
                               (torch.bfloat16, 64, "flash_attention_tc"),
-                              (torch.float32, 128, "flash_attention"),
-                              (torch.bfloat16, 32, "flash_attention")):
+                              (torch.float32, 128, "flash_attention_f32"),
+                              (torch.bfloat16, 32, "flash_attention_tc"),
+                              (torch.bfloat16, 80, "flash_attention_tc"),
+                              (torch.float32, 80, "flash_attention_f32")):
         q, k, v = _qkv(cuda, 1, 100, 4, 2, d, dtype, seed=d)
         before = dict(_build.LAUNCHES)
         fa.flash_attention(q, k, v)
@@ -819,6 +842,29 @@ def test_flash_attention_tensor_core_route_takes_misaligned_views(cuda, s,
         ATTN_TOL[torch.bfloat16]
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
         {k: int(k == "flash_attention_tc") for k in before}
+
+
+@pytest.mark.parametrize("s", [1, 129])
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_f32_route_takes_misaligned_views(cuda, s, which):
+    """A contiguous f32 view that starts 4 bytes past a 16-byte mark (one
+    operand at a time) runs through the f32 route, which reads through
+    TMA too: the wrapper copies that operand first."""
+    q, k, v = _qkv(cuda, 1, s, 4, 2, 80, torch.float32, seed=s)
+    ops = {"q": q, "k": k, "v": v}
+    t = ops[which]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    ops[which] = view
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(ops["q"], ops["k"], ops["v"])
+    want = fa_ref.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == "flash_attention_f32") for k in before}
 
 
 # ---- SSD chunk scan (B8) --------------------------------------------------- #
@@ -985,7 +1031,7 @@ def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
 
 # ---- the LM path ----------------------------------------------------------- #
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "stablelm-3b"])
 def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):
     import dataclasses
     from repro_torch.configs import get_arch, smoke_config
@@ -1005,8 +1051,8 @@ def test_smoke_model_on_the_card_equals_the_cpu(cuda, arch):
             step, _ = mb.decode_fn(model, toks[:, :1].to(dev), 200, caches)
         out[dev] = (logits.cpu(), step.cpu(), dict(_build.LAUNCHES))
     # the smoke models are bf16: mamba's hd 16, ds 16 take B8's tensor
-    # cores, the dense head dim 32 B7's CUDA cores
-    kernel = "ssd_tc" if cfg.family == "ssm" else "flash_attention"
+    # cores, the dense head dim 32 B7's (padded to 64 columns)
+    kernel = "ssd_tc" if cfg.family == "ssm" else "flash_attention_tc"
     assert out["cpu"][2][kernel] == 0 and out["cuda"][2][kernel] == 2
     for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
         assert float((got - want).abs().max()) <= LM_TOL

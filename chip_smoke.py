@@ -1295,7 +1295,6 @@ def phase_lm_kernels(dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.ssd import ref as ssd_ref
@@ -1383,30 +1382,6 @@ def phase_lm_kernels(dev):
         if dtype == torch.float32:
             extra += (f"; bound on the f32 CUDA cores "
                       f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
-        if name != "flash_attention_tc":
-            # the same inputs through the previous CUDA-core kernel, called
-            # directly (no route reaches it), in turns with the route
-            o = torch.empty_like(q)
-            core = _build.function("flash_attention_fwd")
-
-            def cuda_core():
-                _build.check(core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  o.data_ptr(), b, s, h, kvh, d, 1,
-                                  int(size == 2), d ** -0.5,
-                                  _build.stream_handle(q.device)),
-                             "flash_attention_fwd")
-            cuda_core()
-            core_err = float((o.float() - fa_ref.attention_plain(q, k, v)
-                              .float()).abs().max())
-            turns = [time_ms(kernel, reps=10),
-                     time_ms(cuda_core, reps=3, warmup=1),
-                     time_ms(cuda_core, reps=3, warmup=1),
-                     time_ms(kernel, reps=10)]
-            extra += (f"; in turns with the previous CUDA-core kernel "
-                      f"(route, previous, previous, route): "
-                      + ", ".join(f"{t:.4f}" for t in turns)
-                      + f" ms (its max abs err {core_err:.3e})")
-            del o
         finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e} <= "
                    f"{ATTN_TOL[tname]}; SDPA differs from the plain version "
                    f"by {lib_err:.3e}{extra}")

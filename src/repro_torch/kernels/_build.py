@@ -67,10 +67,6 @@ SIGNATURES = {
     # x, o, n, grid, unroll, next_tile (4-byte scratch), stream
     "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
     "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
-    # q, k, v, o, b, s, h, kv_heads, d, causal, bf16, scale, stream
-    "flash_attention_fwd": ("flash_attention",
-                            (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                             _I32, _I32, _F32, _P)),
     # q, k, v, o, b, s, h, kv_heads, d, causal, scale, stream
     "flash_attention_tc_fwd": ("flash_attention",
                                (_P, _P, _P, _P, _I32, _I32, _I32, _I32,

@@ -797,6 +797,16 @@ def test_flash_attention_tensor_core_route_takes_more_than_65535_heads(cuda):
         ATTN_TOL[torch.bfloat16]
 
 
+def test_flash_attention_f32_route_takes_more_than_65535_heads(cuda):
+    """The f32 grid is one dimension of q tiles x B * H too, so f32 is no
+    longer held to the former CUDA-core grid's 65,535 heads."""
+    q, k, v = _qkv(cuda, 2, 3, 33_000, 33_000, 16, torch.float32, seed=6)
+    got = fa.flash_attention(q, k, v)
+    want = fa_ref.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+
+
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_flash_attention_kernel_every_head_dim(cuda, d):
     q, k, v = _qkv(cuda, 1, 77, 4, 2, d, torch.float32, seed=d)

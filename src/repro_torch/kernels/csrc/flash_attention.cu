@@ -69,7 +69,7 @@
 //       stream through a ring of two stages (D 128: q 64 KB + 2 x (k 32 KB
 //       + v 32 KB) = 192 KB).  No producer warp: a ninth warp would put
 //       three warps on one of the SM's four schedulers and cap a thread at
-//       168 registers, where this route needs about 200; thread 0 issues
+//       168 registers, where this route takes up to 238; thread 0 issues
 //       a stage's next load once every thread has left it;
 //     - mma.sync m16n8k8 TF32 rather than wgmma: wgmma reads TF32 operands
 //       from shared memory, K-major only, so the split halves of q, k and
@@ -88,7 +88,8 @@
 //       its t + 4 column 2t + 1) and v's rows are read in the same order;
 //     - the online softmax as in the bf16 route, with p unrounded (its
 //       type is f32); each tile's P.V is summed apart from O and added in
-//       f32 (the tensor cores' own sums are not rounded to nearest);
+//       f32, so the tensor cores' accumulation error does not build up
+//       over a row's tiles;
 //     - a warp skips the math of a kv tile that lies wholly above its 16
 //       rows' diagonal.
 //   Both routes mask the ragged last q and kv tiles, so any S >= 1 works
@@ -894,14 +895,13 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
           s[j][i] = p;
         }
 
-      // O = O * alpha + P . V, the tile's P . V summed apart in f32: the
-      // tensor cores' own sums are not rounded to nearest, and carried
-      // over a whole row's tiles their error grew to half the f32
-      // tolerance at S 2,000; one tile's 24 products add little to its
-      // own part.  k step kk's accumulator holds kv
-      // columns 2t, 2t + 1; at A's k indices t and t + 4 they are read
-      // with v's rows 2t and 2t + 1, each a 16-byte load of chunk g per
-      // box (the eight threads of a phase again on eight chunks)
+      // O = O * alpha + P . V, the tile's P . V summed apart and added in
+      // f32: carried in the tensor cores' accumulator over a whole row's
+      // tiles, O would pick up their accumulation error tile after tile.
+      // k step kk's accumulator holds kv columns 2t, 2t + 1; at A's k
+      // indices t and t + 4 they are read with v's rows 2t and 2t + 1,
+      // each a 16-byte load of chunk g per box (the eight threads of a
+      // phase again on eight chunks)
       mbar_wait(bars.v_full(st), par);
       float pv[kN][4];
 #pragma unroll

@@ -60,11 +60,12 @@ Phases, each of which must pass or the script exits non-zero:
    bit;
 10. lm: the LM serving path at full width and depth.  The flash-attention
    kernel's two tensor-core routes against their plain version at the
-   served prefill shapes: bf16 (wgmma) within 2e-2 at llama3-8b's (D 128,
-   GQA 4) and stablelm-3b's (D 80, MHA), f32 (three split-TF32 products)
-   within 2e-5 at llama3-8b's, each timed beside its bound and
+   shapes the path runs them at: bf16 (wgmma) within 2e-2 at the served
+   prefills of llama3-8b (D 128, GQA 4) and stablelm-3b (D 80, MHA),
+   batch 4, and f32 (three split-TF32 products) within 2e-5 at the
+   same two models' f32 checks, batch 1, each timed beside its bound and
    ``scaled_dot_product_attention`` in its type, and misaligned views of
-   q, k and v through both routes (equal to the aligned launch bit for
+   q, k and v through every row (equal to the aligned launch bit for
    bit); the SSD kernel's two routes against
    their plain version at the mamba2-780m prefill shape (the tensor-core
    route in bf16 at batch 4: y within 1.6e-2, the state within
@@ -143,10 +144,6 @@ LM_CHECK_LEN = 512               # the 2-layer card-vs-CPU prompt
 # version (cuBLAS): f32 within 2e-5; in bf16 within the reference's own
 # bf16 tolerance (tests/test_kernels_attention_ssd.py)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# B7's JSON rows and the launch counter each reports
-LM_KERNEL_COUNTER = {"flash_attention_tc": "flash_attention_tc",
-                     "flash_attention_tc_d80": "flash_attention_tc",
-                     "flash_attention_f32": "flash_attention_f32"}
 # the SSD kernel against its plain version: f32 sums in another order;
 # a bf16 y is one rounding of such an f32 value (2**-6 covers one ulp)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1285,13 +1282,14 @@ def phase_spill(dev, ssb_tables, cal, spill_dir):
 
 
 def phase_lm_kernels(dev):
-    """B7's two routes at the served prefill shapes (bf16 at llama3-8b's
-    and stablelm-3b's, f32 at llama3-8b's, as the f32 check runs it) and
-    B8's two at the mamba2-780m one (the served bf16 prefill, and the f32
-    check's batch of one), against their plain versions, timed (B8 also
-    pass by pass).  Returns the five JSON rows; a B7 row's
-    ``counted_in`` names the run of ``phase_lm`` whose launches it
-    reports."""
+    """B7's two routes at every shape the LM path runs them at (bf16 at
+    llama3-8b's and stablelm-3b's served prefills, f32 at the same two
+    models' f32 checks, a batch of one) and B8's two at the mamba2-780m
+    ones (the served bf16 prefill, and the f32 check's batch of one),
+    against their plain versions, timed (B8 also pass by pass).  Returns
+    the six JSON rows; a B7 row's ``counted_in`` names the run of
+    ``phase_lm`` whose launches it reports, and its ``counter`` the
+    counter of the route its inputs take."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -1308,14 +1306,18 @@ def phase_lm_kernels(dev):
     def uniform(lo, hi, *shape):
         return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
 
-    b, s = LM_BATCH, LM_PROMPT_LEN
+    s = LM_PROMPT_LEN
     rows = []
-    for arch, dtype, name, counted_in in (
-            ("llama3-8b", torch.bfloat16, "flash_attention_tc", "llama3-8b"),
-            ("stablelm-3b", torch.bfloat16, "flash_attention_tc_d80",
-             "stablelm-3b"),
-            ("llama3-8b", torch.float32, "flash_attention_f32",
-             "llama3-8b f32 check")):
+    # the served prefills run batch 4, the f32 checks batch 1
+    for arch, dtype, b, name, counted_in in (
+            ("llama3-8b", torch.bfloat16, LM_BATCH, "flash_attention_tc",
+             "llama3-8b"),
+            ("stablelm-3b", torch.bfloat16, LM_BATCH,
+             "flash_attention_tc_d80", "stablelm-3b"),
+            ("llama3-8b", torch.float32, 1, "flash_attention_f32",
+             "llama3-8b f32 check"),
+            ("stablelm-3b", torch.float32, 1, "flash_attention_f32_d80",
+             "stablelm-3b f32 check")):
         cfg = get_arch(arch)
         h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         pairs = b * h * s * (s + 1) // 2        # the causal half, i >= j
@@ -1323,8 +1325,6 @@ def phase_lm_kernels(dev):
         q, k, v = randn(b, s, h, d, dtype=dtype), \
             randn(b, s, kvh, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype)
         rt = fa.route(dtype, d)
-        if fa.COUNTER[rt] != LM_KERNEL_COUNTER[name]:
-            raise AssertionError(f"{tname} at D = {d} takes the {rt} route")
         want = fa_ref.attention_plain(q, k, v)
         got = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -1356,29 +1356,26 @@ def phase_lm_kernels(dev):
             library_ms=time_ms(library, reps=10),
             bytes=size * (2 * q.numel() + k.numel() + v.numel()),
             ops=ops, ops_type="bf16" if size == 2 else "tf32",
-            counted_in=counted_in,
+            counted_in=counted_in, counter=fa.COUNTER[rt],
             shape=f"{arch}: q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, "
                   f"{d}) {tname}, causal, {rt} route"))
-        extra = ""
-        if name != "flash_attention_tc_d80":
-            # each operand as a contiguous view one element past a 16-byte
-            # mark, which TMA cannot read in place: the wrapper copies it,
-            # so the output equals the aligned launch's bit for bit
-            aligned = fa.flash_attention(q, k, v)
-            for which in range(3):
-                ops_ = [q, k, v]
-                buf = torch.empty(ops_[which].numel() + 1, dtype=dtype,
-                                  device=dev)
-                ops_[which] = buf[1:].view(ops_[which].shape)
-                ops_[which].copy_((q, k, v)[which])
-                if not torch.equal(fa.flash_attention(*ops_), aligned):
-                    raise AssertionError(f"{name}: a misaligned "
-                                         f"{'qkv'[which]} view changes the "
-                                         "output")
-                del ops_, buf
-            del aligned
-            extra = (f"; misaligned q, k and v views ({size} bytes off) "
-                     "equal the aligned launch bit for bit")
+        # each operand as a contiguous view one element past a 16-byte
+        # mark, which TMA cannot read in place: the wrapper copies it, so
+        # the output equals the aligned launch's bit for bit
+        aligned = fa.flash_attention(q, k, v)
+        for which in range(3):
+            ops_ = [q, k, v]
+            buf = torch.empty(ops_[which].numel() + 1, dtype=dtype,
+                              device=dev)
+            ops_[which] = buf[1:].view(ops_[which].shape)
+            ops_[which].copy_((q, k, v)[which])
+            if not torch.equal(fa.flash_attention(*ops_), aligned):
+                raise AssertionError(f"{name}: a misaligned {'qkv'[which]} "
+                                     "view changes the output")
+            del ops_, buf
+        del aligned
+        extra = (f"; misaligned q, k and v views ({size} bytes off) equal "
+                 "the aligned launch bit for bit")
         if dtype == torch.float32:
             extra += (f"; bound on the f32 CUDA cores "
                       f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
@@ -1388,6 +1385,7 @@ def phase_lm_kernels(dev):
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
+    b = LM_BATCH
     cfg = get_arch("mamba2-780m")
     nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
         cfg.ssm_state
@@ -1674,15 +1672,15 @@ def main(argv=None) -> int:
            "hash_probe": "probe", "probe_multi": "probe_multi",
            "sgd": "sgd", "sgd_split": "sgd_split",
            "sgd_split_news20": "sgd_split",
-           "stream_copy": "stream_copy", **LM_KERNEL_COUNTER, "ssd": "ssd",
-           "ssd_tc": "ssd_tc"}
+           "stream_copy": "stream_copy", "ssd": "ssd", "ssd_tc": "ssd_tc"}
     for row in rows:
         # a row that a phase counted itself keeps its own count; a B7 row
-        # reports the launches of the LM run at its shape
+        # names its route's counter and reports the launches of the LM run
+        # at its shape
+        counter = row.pop("counter", None) or key[row["name"]]
         if "counted_in" in row:
-            row["launches"] = lm_counts[row.pop("counted_in")][
-                key[row["name"]]]
-        row.setdefault("launches", sum(c[key[row["name"]]]
+            row["launches"] = lm_counts[row.pop("counted_in")][counter]
+        row.setdefault("launches", sum(c[counter]
                                        for counts in (ssb_counts, tpch_counts,
                                                       glm_counts, multi_counts,
                                                       cal_counts, spill_counts,

@@ -40,8 +40,10 @@ Q_TILE = 128                               # q rows a block, both routes
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head dim d): ``"tc"`` (bf16 wgmma)
-    or ``"tf32x3"`` (f32 as three TF32 products); both take every d in
-    ``HEAD_DIMS``."""
+    or ``"tf32x3"`` (f32 as three TF32 products).  Both routes are built
+    for every d in ``HEAD_DIMS`` and for no other, which this refuses."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -79,8 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIMS}")
+    rt = route(q.dtype, d)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -91,7 +92,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if blocks >= 2 ** 31:
         raise ValueError(f"B * H * ceil(S / {Q_TILE}) = {blocks}: the grid "
                          "takes at most 2**31 - 1 blocks")
-    rt = route(q.dtype, d)
     fn = _build.function(ENTRY[rt])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
             k.shape[2], d, int(causal), d ** -0.5,

@@ -43,6 +43,13 @@ def test_flash_attention_route(dtype, d, want):
     assert fa.route(dtype, d) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [8, 48, 256])
+def test_flash_attention_route_refuses_an_unbuilt_head_dim(dtype, d):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.route(dtype, d)
+
+
 def test_every_tensor_core_head_dim_is_built():
     """Both types take the tensor cores at every head dim the source
     instantiates, each route with its own launcher and counter."""

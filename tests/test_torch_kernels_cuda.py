@@ -730,43 +730,25 @@ def test_flash_attention_kernel_matches_plain(cuda, s, group, dtype, causal):
 @pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_tensor_core_route_matches_plain(cuda, s, group, d,
-                                                         causal):
-    """The bf16 wgmma/TMA route at every head dim (those under 64 and
-    between 64 and 128 padded by TMA's zero fill): one q tile and a
-    ragged one, the diagonal tiles, GQA groups of 1, 4 and 8."""
-    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, torch.bfloat16,
-                   seed=s + d + group)
+                                                         causal, dtype):
+    """Both tensor-core routes at every head dim: bf16 on wgmma (those
+    under 64 and between 64 and 128 padded by TMA's zero fill), f32 as
+    split TF32 on mma.sync with 64-row kv tiles; one tile and a ragged
+    one, the diagonal tiles, a 128-row q tile over two f32 kv tiles, GQA
+    groups of 1, 4 and 8, each within its type's tolerance."""
+    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, dtype, seed=s + d + group)
+    counter = fa.COUNTER[fa.route(dtype, d)]
     before = dict(_build.LAUNCHES)
     got = fa.flash_attention(q, k, v, causal=causal)
     want = fa_ref.attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert got.dtype == dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
-    assert err <= ATTN_TOL[torch.bfloat16], err
+    assert err <= ATTN_TOL[dtype], err
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
-        {k: int(k == "flash_attention_tc") for k in before}
-
-
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
-@pytest.mark.parametrize("group", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 80, 128])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_f32_route_matches_plain(cuda, s, group, d, causal):
-    """The f32 route (split TF32 on mma.sync, 64-row kv tiles): one kv
-    tile and a ragged one, the diagonal tiles, a 128-row q tile over two
-    kv tiles, GQA groups of 1, 4 and 8, within the f32 tolerance."""
-    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, torch.float32,
-                   seed=s + d + group)
-    before = dict(_build.LAUNCHES)
-    got = fa.flash_attention(q, k, v, causal=causal)
-    want = fa_ref.attention_plain(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.float32 and got.shape == q.shape
-    err = float((got - want).abs().max())
-    assert err <= ATTN_TOL[torch.float32], err
-    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
-        {k: int(k == "flash_attention_f32") for k in before}
+        {k: int(k == counter) for k in before}
 
 
 def test_flash_attention_routes_by_type_and_head_dim(cuda):
@@ -786,25 +768,18 @@ def test_flash_attention_routes_by_type_and_head_dim(cuda):
             {k: int(k == counter) for k in before}, (dtype, d)
 
 
-def test_flash_attention_tensor_core_route_takes_more_than_65535_heads(cuda):
-    """The tensor-core grid is one dimension of q tiles x B * H, so B * H
-    is not held to the CUDA-core grid's 65,535."""
-    q, k, v = _qkv(cuda, 2, 3, 33_000, 33_000, 64, torch.bfloat16, seed=5)
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 16)])
+def test_flash_attention_tensor_core_route_takes_more_than_65535_heads(
+        cuda, dtype, d):
+    """Each route's grid is one dimension of q tiles x B * H, so B * H is
+    not held to the former CUDA-core grid's 65,535."""
+    q, k, v = _qkv(cuda, 2, 3, 33_000, 33_000, d, dtype,
+                   seed=5 if dtype == torch.bfloat16 else 6)
     got = fa.flash_attention(q, k, v)
     want = fa_ref.attention_plain(q, k, v)
     torch.cuda.synchronize()
-    assert float((got.float() - want.float()).abs().max()) <= \
-        ATTN_TOL[torch.bfloat16]
-
-
-def test_flash_attention_f32_route_takes_more_than_65535_heads(cuda):
-    """The f32 grid is one dimension of q tiles x B * H too, so f32 is no
-    longer held to the former CUDA-core grid's 65,535 heads."""
-    q, k, v = _qkv(cuda, 2, 3, 33_000, 33_000, 16, torch.float32, seed=6)
-    got = fa.flash_attention(q, k, v)
-    want = fa_ref.attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
 
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
@@ -831,12 +806,16 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("s", [1, 129])
 @pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float32, 80)])
 def test_flash_attention_tensor_core_route_takes_misaligned_views(cuda, s,
-                                                                  which):
-    """A contiguous bf16 view that starts 2 bytes past a 16-byte mark (one
-    operand at a time) runs through the tensor-core route: TMA needs
-    aligned addresses, so the wrapper copies that operand first."""
-    q, k, v = _qkv(cuda, 1, s, 4, 2, 128, torch.bfloat16, seed=s)
+                                                                  which,
+                                                                  dtype, d):
+    """A contiguous view that starts one element (2 bytes in bf16, 4 in
+    f32) past a 16-byte mark, one operand at a time, runs through its
+    type's route: both read through TMA, which needs aligned addresses, so
+    the wrapper copies that operand first."""
+    q, k, v = _qkv(cuda, 1, s, 4, 2, d, dtype, seed=s)
     ops = {"q": q, "k": k, "v": v}
     t = ops[which]
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
@@ -844,37 +823,14 @@ def test_flash_attention_tensor_core_route_takes_misaligned_views(cuda, s,
     view.copy_(t)
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
     ops[which] = view
+    counter = fa.COUNTER[fa.route(dtype, d)]
     before = dict(_build.LAUNCHES)
     got = fa.flash_attention(ops["q"], ops["k"], ops["v"])
     want = fa_ref.attention_plain(q, k, v)
     torch.cuda.synchronize()
-    assert float((got.float() - want.float()).abs().max()) <= \
-        ATTN_TOL[torch.bfloat16]
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
-        {k: int(k == "flash_attention_tc") for k in before}
-
-
-@pytest.mark.parametrize("s", [1, 129])
-@pytest.mark.parametrize("which", ["q", "k", "v"])
-def test_flash_attention_f32_route_takes_misaligned_views(cuda, s, which):
-    """A contiguous f32 view that starts 4 bytes past a 16-byte mark (one
-    operand at a time) runs through the f32 route, which reads through
-    TMA too: the wrapper copies that operand first."""
-    q, k, v = _qkv(cuda, 1, s, 4, 2, 80, torch.float32, seed=s)
-    ops = {"q": q, "k": k, "v": v}
-    t = ops[which]
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
-    view = buf[1:].view(t.shape)
-    view.copy_(t)
-    assert view.is_contiguous() and view.data_ptr() % 16 != 0
-    ops[which] = view
-    before = dict(_build.LAUNCHES)
-    got = fa.flash_attention(ops["q"], ops["k"], ops["v"])
-    want = fa_ref.attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
-    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
-        {k: int(k == "flash_attention_f32") for k in before}
+        {k: int(k == counter) for k in before}
 
 
 # ---- SSD chunk scan (B8) --------------------------------------------------- #

@@ -38,10 +38,13 @@ Phases, each of which must pass or the script exits non-zero:
    controls that drop one block's dot sums, or all of them, must fall
    outside it; then ``score_glm`` against numpy;
 7. multi_join: ``hash_join_multi`` at TPC-H scale factor 1, built on
-   lineitem's order keys and probed with orders' (chains of 1-7), and
-   built on lineitem's quantity and probed with its 50 values (chains of
-   ~120,000, nearly all from the overflow pass); pair lists must equal a
-   numpy sort-based oracle bit for bit;
+   lineitem's order keys and probed with orders' (chains of 1-7), built
+   on lineitem's quantity and probed with its 50 values (chains of
+   ~120,000, nearly all from the overflow pass), both through B3's
+   sampled route, and built on a 50-row quantity dimension and probed
+   with every lineitem row (B3's shared route); pair lists must equal a
+   numpy sort-based oracle bit for bit, and B3 its plain version at each
+   shape, its (start, count) B2's;
 8. calibrate: the traffic-generator kernel (``o = x + 1``) against its
    plain version, bit for bit, at 1 GiB of int32, at a ragged length, on
    a misaligned slice, at 2**31 - 1 and in float32, timed in turns with
@@ -346,6 +349,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def time3_ms(name: str, fn, reps: int = 200) -> float:
+    """Three ``time_ms`` timings of ``reps`` launches each, their spread
+    logged; returns the median."""
+    t = sorted(time_ms(fn, reps=reps) for _ in range(3))
+    log(f"  {name} spread: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} ms (min / "
+        f"median / max of 3 x {reps} launches)")
+    return t[1]
+
+
 def max_abs_err(got, want) -> float:
     import torch
     err = 0
@@ -557,7 +569,8 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
         name="hash_probe", route="cuda",
         source="src/repro_torch/kernels/csrc/join.cu",
         replaces="src/repro/kernels/join/join.py:48",
-        max_abs_err=err, ms=time_ms(b4_kernel), plain_ms=time_ms(b4_plain),
+        max_abs_err=err, ms=time3_ms("hash_probe", b4_kernel),
+        plain_ms=time_ms(b4_plain),
         bytes=8 * ts + 4 * n4 + 4 * n4 + 4 * -(-n4 // 4096),
         library_ms=None,
         shape=f"table=2x({ts},), keys=({n4},) int32, depth 8"))
@@ -1026,8 +1039,9 @@ def phase_glm(dev, seed):
 
 def phase_multi_join(dev, tables):
     """``hash_join_multi`` at TPC-H SF 1 against a numpy oracle, bit for
-    bit, on two build sides; then B3 against its plain version at the
-    order-key shape.  Returns (launch counts by join, the kernel's row)."""
+    bit, on three build sides; then B3 against its plain version on both
+    routes at those joins' shapes, its (start, count) against B2's.
+    Returns (launch counts by join, B3's rows)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.join import join as jk
@@ -1035,14 +1049,19 @@ def phase_multi_join(dev, tables):
     from repro_torch.kernels.join.ops import hash_join_multi
 
     li, od = tables["lineitem"], tables["orders"]
+    # the order keys and the quantities take B3's sampled route (6,001,215
+    # build rows); the 50-row quantity dimension, probed by every lineitem
+    # row, its shared route
     cases = {
         "orderkey": (li["orderkey"], od["orderkey"]),
         "quantity": (li["quantity"], np.arange(1, 51, dtype=np.int32)),
+        "quantity dimension": (np.arange(1, 51, dtype=np.int32),
+                               li["quantity"]),
     }
     counts = {}
     for name, (s, l) in cases.items():
         l_want, s_want, total = multi_join_oracle(s, l)
-        max_out = s.size
+        max_out = max(s.size, total)
         st, lt = torch.from_numpy(s).to(dev), torch.from_numpy(l).to(dev)
         run = lambda: hash_join_multi(st, lt, max_out=max_out)  # noqa: E731
         _build.reset_launches()
@@ -1052,9 +1071,12 @@ def phase_multi_join(dev, tables):
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         counts[name] = dict(_build.LAUNCHES)
-        if counts[name]["probe_multi"] <= 0:
+        route = ("probe_multi" if jk.probe_multi_route(s.size) == "shared"
+                 else "probe_multi_sampled")
+        if counts[name]["probe_multi"] + counts[name][
+                "probe_multi_sampled"] <= 0 or counts[name][route] <= 0:
             raise AssertionError(f"{name}: hash_join_multi launched no "
-                                 "probe_multi kernel")
+                                 f"{route} kernel")
         got_l, got_s = res.l_idx.cpu().numpy(), res.s_idx.cpu().numpy()
         if int(res.total) != total or bool(res.overflowed) \
                 or total > max_out:
@@ -1083,30 +1105,45 @@ def phase_multi_join(dev, tables):
             f"runs; launches {counts[name]}")
         log("    " + profile_once(run))
 
-    # B3 against its plain version at the order-key join's shape
-    s, l = cases["orderkey"]
-    s_sorted, order = join_ref.bucket_build(torch.from_numpy(s).to(dev))
-    keys = torch.from_numpy(l).to(dev)
-    kernel = lambda: jk.probe_multi(s_sorted, order, keys)     # noqa: E731
-    plain = lambda: jk.probe_multi_plain(s_sorted, order, keys)  # noqa: E731
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    if err != 0:
-        raise AssertionError(f"probe_multi: kernel differs from its plain "
-                             f"version (max abs err {err})")
-    n_s, n_l = s_sorted.shape[0], keys.shape[0]
-    cap = got[0].shape[1]
-    row = dict(
-        name="probe_multi", route="cuda",
-        source="src/repro_torch/kernels/csrc/join.cu",
-        replaces="src/repro/kernels/join/join.py:142",
-        max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
-        library_ms=None,
-        bytes=8 * n_s + 4 * n_l + (8 + 4 * cap) * n_l,
-        shape=f"s_sorted, order=({n_s},), keys=({n_l},) int32, cap {cap}")
-    finish_row(row)
-    return counts, row
+    # B3 against its plain version at each join's shape, on both routes
+    # (the order keys and the quantities sampled, the dimension shared),
+    # its (start, count) against B2's on the same inputs; the order keys
+    # and the dimension give the routes' rows
+    rows = []
+    for name, (s, l) in cases.items():
+        s_sorted, order = join_ref.bucket_build(torch.from_numpy(s).to(dev))
+        keys = torch.from_numpy(l).to(dev)
+        kernel = lambda: jk.probe_multi(s_sorted, order, keys)  # noqa: E731
+        plain = lambda: jk.probe_multi_plain(  # noqa: E731
+            s_sorted, order, keys)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        b2_err = max_abs_err(got[1:], jk.probe_counts(s_sorted, keys))
+        if err != 0 or b2_err != 0:
+            raise AssertionError(f"probe_multi ({name}): kernel differs from "
+                                 f"its plain version (max abs err {err}) or "
+                                 f"its (start, count) from B2's ({b2_err})")
+        n_s, n_l = s_sorted.shape[0], keys.shape[0]
+        cap = got[0].shape[1]
+        route = jk.probe_multi_route(n_s)
+        log(f"  probe_multi ({name}, {route} route): bit-identical to its "
+            "plain version, (start, count) to B2's")
+        if name == "quantity":
+            continue
+        row = dict(
+            name="probe_multi" if route == "shared"
+            else "probe_multi_sampled", route="cuda",
+            source="src/repro_torch/kernels/csrc/join.cu",
+            replaces="src/repro/kernels/join/join.py:142",
+            max_abs_err=err, plain_ms=time_ms(plain), library_ms=None,
+            bytes=8 * n_s + 4 * n_l + (8 + 4 * cap) * n_l,
+            shape=f"s_sorted, order=({n_s},), keys=({n_l},) int32, cap "
+                  f"{cap}, {route} route")
+        row["ms"] = time3_ms(row["name"], kernel)
+        finish_row(row)
+        rows.append(row)
+    return counts, rows
 
 
 def phase_calibrate(dev, ssb_tables, spill_dir):
@@ -1660,16 +1697,17 @@ def main(argv=None) -> int:
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_rows = phase_glm(dev, args.seed)
-    multi_counts, multi_row = phase_multi_join(dev, tpch)
+    multi_counts, multi_rows = phase_multi_join(dev, tpch)
     del tpch
     log("lm kernels against their plain versions at the serving shapes:")
     lm_rows = phase_lm_kernels(dev)
     lm_counts = phase_lm(dev, args.seed)
-    rows += [multi_row, *sgd_rows, copy_row] + lm_rows
+    rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows
 
     key = {"select_range": "select", "probe_counts": "probe_counts",
            "probe_counts_sampled": "probe_counts_sampled",
            "hash_probe": "probe", "probe_multi": "probe_multi",
+           "probe_multi_sampled": "probe_multi_sampled",
            "sgd": "sgd", "sgd_split": "sgd_split",
            "sgd_split_news20": "sgd_split",
            "stream_copy": "stream_copy", "ssd": "ssd", "ssd_tc": "ssd_tc"}

@@ -44,10 +44,11 @@ SIGNATURES = {
     # the shared route), stream
     "probe_counts_i32": ("join", (_P, _I64, _I64, _P, _I64, _P, _P, _P,
                                   _P)),
-    # s_sorted, order, n_s, ts, keys, n, cap, mat, start, count, stream
+    # s_sorted, order, n_s, ts, keys, n, cap, mat, start, count, tree
+    # scratch (null for the shared route), stream
     "probe_multi_i32": ("join",
                         (_P, _P, _I64, _I64, _P, _I64, _I32, _P, _P, _P,
-                         _P)),
+                         _P, _P)),
     # ht_keys, ht_vals, ts, keys, n, probe_depth, block, s_idx, counts,
     # stream
     "hash_probe_i32": ("join",
@@ -84,8 +85,8 @@ SIGNATURES = {
 }
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
-# launches its kernel (never on the plain CPU path): B2's shared-memory
-# and sampled routes, B5's ring ("sgd") and split ("sgd_split") routes,
+# launches its kernel (never on the plain CPU path): B2's and B3's
+# shared-memory and sampled routes, B5's ring ("sgd") and split ("sgd_split") routes,
 # B7's bf16 ("flash_attention_tc") and f32 ("flash_attention_f32")
 # tensor-core routes and B8's CUDA-core ("ssd") and
 # tensor-core ("ssd_tc") routes each have their own count.
@@ -93,7 +94,8 @@ SIGNATURES = {
 # server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
                             "probe_counts_sampled": 0,
-                            "probe_multi": 0, "probe": 0, "sgd": 0,
+                            "probe_multi": 0, "probe_multi_sampled": 0,
+                            "probe": 0, "sgd": 0,
                             "sgd_split": 0,
                             "stream_copy": 0, "flash_attention_tc": 0,
                             "flash_attention_f32": 0, "ssd": 0,

@@ -46,60 +46,54 @@
 //   same file: the bucket (start, count) of probe_counts_i32, plus an
 //   (n, cap) matrix of the bucket's first `cap` build rows read through
 //   `order` (sorted position -> build row), -1 past the count.  Chains
-//   longer than `cap` are completed by the caller's overflow pass.
+//   longer than `cap` are completed by the caller's overflow pass; the
+//   count stays exact past `cap`.
 //   Bound: device-memory bytes (4 B key read, (8 + 4 * cap) B written per
-//   probe row; table and order read once).
-//   Design: a thread per key and two clamped, virtually padded binary
-//   searches over the table in device memory (bound_pow2), then up to
-//   `cap` reads of `order` from the bucket start, which are contiguous,
-//   and a row of `cap` int32 stores.  The reference
-//   padded `order` with -1 to the table's power of two; the clamp keeps
-//   every read inside the real table, so no padded copy is made.
+//   probe row; table and order read once).  At TPC-H SF 1's order keys
+//   (6,001,215 build rows, 1,500,000 probes, cap 8) that is 114 MB,
+//   0.034 ms at 3.35 TB/s.
+//   Design: the search is probe_counts_i32's, on the same two routes and
+//   through the same code (probe_all with a Table and an output), so
+//   (start, count) equal probe_counts_i32's bit for bit.  Then each
+//   thread gathers its four keys' first min(count, cap) build rows, which
+//   are contiguous in `order` from the bucket start, all of a group's
+//   loads issued before its stores.  Its four rows of `mat` are
+//   contiguous too: where cap % 4 == 0 (the rows then start on 16-byte
+//   marks) each goes out as cap / 4 int4 stores, else as scalar stores.
+//   The clamp keeps every read inside the real table, so `order` needs no
+//   padded copy.
 //
 // hash_probe_i32 replaces probe_pallas / _probe_kernel in the same file:
 //   Knuth multiplicative hash (k * 2654435769) & (ts - 1), a linear probe
 //   bounded at probe_depth where the first hit wins, the matched build row
-//   or -1, and a match count per logical block.
+//   or -1, and a match count per logical block of `block` rows.
 //   Bound: device-memory bytes (probe keys in, s_idx out, the 2*ts*4 B
-//   table read once).
+//   table read once).  At SSB's eager join (2 x 32,768 slots, 1,192,560
+//   probes) that is 9.8 MB, 0.0029 ms at 3.35 TB/s.
 //   Design: the 32768-slot key+value table is 256 KB, over the 227 KB of
 //   shared memory a block can use, so it stays in global memory and is
-//   served from L2 (50 MB).  The hash multiplies as unsigned 32-bit, which
-//   wraps exactly like the reference's int32 product.  One CUDA block per
-//   logical block strides its rows and reduces its count in shared memory,
-//   like the selection kernel; the ragged tail is masked by the loop bound.
+//   served from L2 (50 MB).  The kernel is latency-bound, so it keeps many
+//   rows in flight: a thread takes four rows (one int4 key load where the
+//   keys are 16-byte aligned, a scalar head and tail otherwise) and
+//   probes them together.  The slots a row's walk reads are read as
+//   16-byte windows of four aligned slots, all four rows' windows loaded
+//   before any is compared, and the first hit is picked in registers, so
+//   no load waits on an earlier compare; a row needs another window only
+//   if the walk goes past this one, and reads ht_vals only on a hit.  A
+//   thread per group of four rows fills the card in one wave; the counts
+//   of a logical block are summed per warp (per row where a warp's rows
+//   straddle two logical blocks) and added with atomicAdd into `counts`,
+//   which the launcher zeroes first, so they are exact for any `block`.
+//   The hash multiplies as unsigned 32-bit, which wraps exactly like the
+//   reference's int32 product.
 #include "common.cuh"
 
 namespace {
 
-using repro_torch::block_sum;
 using repro_torch::kThreads;
 
 constexpr int32_t kPadSentinel = 2147483647;  // 2**31 - 1
 constexpr uint32_t kKnuth = 2654435769u;      // the int32 -1640531527
-
-__device__ __forceinline__ int32_t table_at(const int32_t* __restrict__ a,
-                                            int64_t n_s, int64_t i) {
-  return i < n_s ? __ldg(a + i) : kPadSentinel;
-}
-
-// First index in [0, ts] with a[idx] >= q (kStrict = false) or a[idx] > q
-// (kStrict = true), for ts a power of two.  Invariant: the answer lies in
-// [base, base + len]; each step halves len without a branch.
-template <bool kStrict>
-__device__ __forceinline__ int64_t bound_pow2(const int32_t* __restrict__ a,
-                                              int64_t n_s, int64_t ts,
-                                              int32_t q) {
-  int64_t base = 0;
-  for (int64_t half = ts >> 1; half > 0; half >>= 1) {
-    const int32_t v = table_at(a, n_s, base + half - 1);
-    const bool right = kStrict ? (v <= q) : (v < q);
-    base += right ? half : 0;
-  }
-  const int32_t v = table_at(a, n_s, base);
-  return base + ((kStrict ? (v <= q) : (v < q)) ? 1 : 0);
-}
-
 constexpr int32_t kSharedMax = 8192;   // shared route: ts <= 8,192 keys
 constexpr int kSampleLevels = 13;      // sampled route: a tree of 8,192 keys
 constexpr int32_t kSample = 1 << kSampleLevels;
@@ -250,14 +244,91 @@ struct SampledTable {
   }
 };
 
+// probe_counts_i32's output: each key's bucket start and count.  `vec`:
+// the group's outputs start on a 16-byte mark.
+struct BucketOut {
+  int32_t* __restrict__ start;
+  int32_t* __restrict__ count;
+
+  __device__ __forceinline__ bool aligned_at(int64_t i) const {
+    return ((reinterpret_cast<uintptr_t>(start + i) |
+             reinterpret_cast<uintptr_t>(count + i)) & 15) == 0;
+  }
+
+  template <int K>
+  __device__ __forceinline__ void put(int64_t i, const int32_t (&lo)[kKeys],
+                                      const int32_t (&c)[kKeys],
+                                      bool vec) const {
+    if (K == kKeys && vec) {
+      *reinterpret_cast<int4*>(start + i) =
+          make_int4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<int4*>(count + i) = make_int4(c[0], c[1], c[2], c[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        start[i + j] = lo[j];
+        count[i + j] = c[j];
+      }
+    }
+  }
+};
+
+// probe_multi_i32's output: the bucket, and the bucket's first cap build
+// rows through `order`, -1 past the count.  Rows i .. i + K - 1 of `mat`
+// are contiguous; rows4: cap % 4 == 0 and `mat` is 16-byte aligned, so
+// every row starts on a 16-byte mark.
+struct MatchOut {
+  BucketOut bucket;
+  const int32_t* __restrict__ order;
+  int32_t* __restrict__ mat;
+  int32_t cap;
+  bool rows4;
+
+  __device__ __forceinline__ bool aligned_at(int64_t i) const {
+    return bucket.aligned_at(i);
+  }
+
+  template <int K>
+  __device__ __forceinline__ void put(int64_t i, const int32_t (&lo)[kKeys],
+                                      const int32_t (&c)[kKeys],
+                                      bool vec) const {
+    bucket.put<K>(i, lo, c, vec);
+    int32_t m[kKeys];
+#pragma unroll
+    for (int j = 0; j < K; ++j) m[j] = min(c[j], cap);
+    int32_t* rows = mat + i * cap;
+    if (rows4) {
+      for (int32_t t = 0; t < cap; t += 4) {
+        int4 v[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int32_t* src = order + lo[j] + t;
+          v[j].x = t < m[j] ? __ldg(src) : -1;
+          v[j].y = t + 1 < m[j] ? __ldg(src + 1) : -1;
+          v[j].z = t + 2 < m[j] ? __ldg(src + 2) : -1;
+          v[j].w = t + 3 < m[j] ? __ldg(src + 3) : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          *reinterpret_cast<int4*>(rows + j * cap + t) = v[j];
+      }
+    } else {
+      for (int32_t t = 0; t < cap; ++t) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          rows[j * cap + t] = t < m[j] ? __ldg(order + lo[j] + t) : -1;
+      }
+    }
+  }
+};
+
 // Grid-stride over the keys, four at a time: a scalar head up to the first
-// 16-byte boundary of `keys`, int4 groups, a scalar tail.
-template <class Table>
+// 16-byte boundary of `keys`, int4 groups, a scalar tail.  `out` takes
+// each key's (lower bound, count).
+template <class Table, class Out>
 __device__ __forceinline__ void probe_all(const Table& t,
                                           const int32_t* __restrict__ keys,
-                                          int64_t n,
-                                          int32_t* __restrict__ start,
-                                          int32_t* __restrict__ count) {
+                                          int64_t n, const Out& out) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(keys);
   const int64_t to_16 = static_cast<int64_t>(((16 - (addr & 15)) & 15) >> 2);
   const int64_t head = to_16 < n ? to_16 : n;
@@ -272,30 +343,16 @@ __device__ __forceinline__ void probe_all(const Table& t,
     const int32_t q[kKeys] = {k, k, k, k};
     int32_t lo[kKeys], c[kKeys];
     t.probe(q, lo, c);
-    start[edge] = lo[0];
-    count[edge] = c[0];
+    out.template put<1>(edge, lo, c, false);
   }
-  const bool vec_out = ((reinterpret_cast<uintptr_t>(start + head) |
-                         reinterpret_cast<uintptr_t>(count + head)) & 15) == 0;
+  const bool vec_out = out.aligned_at(head);
   const int4* k4 = reinterpret_cast<const int4*>(keys + head);
   for (int64_t v = tid; v < n_vec; v += stride) {
     const int4 kv = __ldg(k4 + v);
     const int32_t q[kKeys] = {kv.x, kv.y, kv.z, kv.w};
     int32_t lo[kKeys], c[kKeys];
     t.probe(q, lo, c);
-    const int64_t i = head + kKeys * v;
-    if (vec_out) {
-      *reinterpret_cast<int4*>(start + i) =
-          make_int4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<int4*>(count + i) =
-          make_int4(c[0], c[1], c[2], c[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        start[i + j] = lo[j];
-        count[i + j] = c[j];
-      }
-    }
+    out.template put<kKeys>(head + kKeys * v, lo, c, vec_out);
   }
 }
 
@@ -313,11 +370,11 @@ build_tree_kernel(const int32_t* __restrict__ s_sorted, int32_t n_s,
 
 // Each block stages the table (coalesced), builds the tree from it in
 // shared memory, then probes.
+template <class Out>
 __global__ void __launch_bounds__(kThreads)
-probe_counts_shared_kernel(const int32_t* __restrict__ s_sorted, int32_t n_s,
-                           int levels, const int32_t* __restrict__ keys,
-                           int64_t n, int32_t* __restrict__ start,
-                           int32_t* __restrict__ count) {
+probe_shared_kernel(const int32_t* __restrict__ s_sorted, int32_t n_s,
+                    int levels, const int32_t* __restrict__ keys, int64_t n,
+                    Out out) {
   extern __shared__ int4 smem4[];
   const int32_t ts = 1 << levels;
   int32_t* sorted = reinterpret_cast<int32_t*>(smem4);
@@ -348,17 +405,14 @@ probe_counts_shared_kernel(const int32_t* __restrict__ s_sorted, int32_t n_s,
   for (int32_t k = threadIdx.x; k < ts; k += kThreads)
     tree[k] = sorted[tree_to_sorted(k, levels)];
   __syncthreads();
-  probe_all(SharedTable{sorted, tree, n_s, levels}, keys, n, start, count);
+  probe_all(SharedTable{sorted, tree, n_s, levels}, keys, n, out);
 }
 
-template <int kWindow>
+template <int kWindow, class Out>
 __global__ void __launch_bounds__(kThreads)
-probe_counts_sampled_kernel(const int32_t* __restrict__ s_sorted,
-                            int32_t n_s, int32_t log_step,
-                            const int32_t* __restrict__ tree_g,
-                            const int32_t* __restrict__ keys, int64_t n,
-                            int32_t* __restrict__ start,
-                            int32_t* __restrict__ count) {
+probe_sampled_kernel(const int32_t* __restrict__ s_sorted, int32_t n_s,
+                     int32_t log_step, const int32_t* __restrict__ tree_g,
+                     const int32_t* __restrict__ keys, int64_t n, Out out) {
   __shared__ int4 tree4[kSample / 4];
   const int4* src = reinterpret_cast<const int4*>(tree_g);
   for (int i = threadIdx.x; i < kSample / 4; i += kThreads)
@@ -368,7 +422,7 @@ probe_counts_sampled_kernel(const int32_t* __restrict__ s_sorted,
   const bool aligned = (reinterpret_cast<uintptr_t>(s_sorted) & 15) == 0;
   probe_all(SampledTable<kWindow>{tree, s_sorted, n_s, int32_t{1} << log_step,
                                   log_step, aligned},
-            keys, n, start, count);
+            keys, n, out);
 }
 
 // Blocks for a grid-stride probe: enough for every group of four keys up
@@ -393,61 +447,190 @@ int64_t probe_grid(size_t smem, int64_t n) {
   return want < most ? want : most;
 }
 
-__global__ void __launch_bounds__(kThreads)
-probe_multi_kernel(const int32_t* __restrict__ s_sorted,
-                   const int32_t* __restrict__ order, int64_t n_s,
-                   int64_t ts, const int32_t* __restrict__ keys, int64_t n,
-                   int32_t cap, int32_t* __restrict__ mat,
-                   int32_t* __restrict__ start, int32_t* __restrict__ count) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int32_t q = keys[i];
-  const int64_t lo_p = bound_pow2<false>(s_sorted, n_s, ts, q);
-  const int64_t hi_p = bound_pow2<true>(s_sorted, n_s, ts, q);
-  const int64_t lo = lo_p < n_s ? lo_p : n_s;
-  const int64_t hi = hi_p < n_s ? hi_p : n_s;
-  start[i] = static_cast<int32_t>(lo);
-  count[i] = static_cast<int32_t>(hi - lo);
-  int32_t* row = mat + i * cap;
-  for (int32_t k = 0; k < cap; ++k)
-    row[k] = lo + k < hi ? __ldg(order + lo + k) : -1;
+template <int kWindow, class Out>
+void launch_sampled(const int32_t* s, int32_t n_s, int32_t log_step,
+                    const int32_t* tree, const int32_t* keys, int64_t n,
+                    const Out& out, cudaStream_t st) {
+  const int64_t grid = probe_grid<probe_sampled_kernel<kWindow, Out>>(0, n);
+  probe_sampled_kernel<kWindow, Out>
+      <<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+          s, n_s, log_step, tree, keys, n, out);
 }
 
+// Both bucket probes: the route from ts, then a grid-stride probe.
+template <class Out>
+int launch_probe(const void* s_sorted, int64_t n_s, int64_t ts,
+                 const void* keys_v, int64_t n, void* scratch, const Out& out,
+                 void* stream) {
+  if (ts < 4 || (ts & (ts - 1)) || n_s > ts || ts > (int64_t{1} << 31) ||
+      (scratch == nullptr) != (ts <= kSharedMax) ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* s = static_cast<const int32_t*>(s_sorted);
+  const int32_t* keys = static_cast<const int32_t*>(keys_v);
+  const int32_t ns = static_cast<int32_t>(n_s);
+  int log_ts = 0;
+  while ((int64_t{1} << log_ts) < ts) ++log_ts;
+  if (ts <= kSharedMax) {
+    const size_t smem = 2 * sizeof(int32_t) * static_cast<size_t>(ts);
+    if (smem > 48 * 1024) {
+      static bool raised = false;
+      if (!raised) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            probe_shared_kernel<Out>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(2 * sizeof(int32_t) * kSharedMax));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        raised = true;
+      }
+    }
+    const int64_t grid = probe_grid<probe_shared_kernel<Out>>(smem, n);
+    probe_shared_kernel<Out><<<static_cast<unsigned>(grid), kThreads, smem,
+                               st>>>(s, ns, log_ts, keys, n, out);
+  } else {
+    const int32_t log_step = log_ts - kSampleLevels;     // >= 1
+    int32_t* tree = static_cast<int32_t*>(scratch);
+    build_tree_kernel<<<kSample / kThreads, kThreads, 0, st>>>(
+        s, ns, int32_t{1} << log_step, tree);
+    if (log_step == 1)
+      launch_sampled<2>(s, ns, log_step, tree, keys, n, out, st);
+    else if (log_step == 2)
+      launch_sampled<4>(s, ns, log_step, tree, keys, n, out, st);
+    else if (log_step == 3)
+      launch_sampled<8>(s, ns, log_step, tree, keys, n, out, st);
+    else
+      launch_sampled<16>(s, ns, log_step, tree, keys, n, out, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first d < depth with ht_keys[(h + d) & mask] == k for each of a
+// thread's rows (-1 if none), read as windows of kW slots: kW = 4 reads
+// the aligned int4 holding slots 4 w .. 4 w + 3 past the row's own int4
+// (needs ts >= 4 and 16-byte aligned keys), kW = 1 one slot a step.  All
+// rows' windows are loaded before any is compared, and a row reads on
+// only while its walk is unfinished.
+template <int kW>
+__device__ __forceinline__ void first_hits(const int32_t* __restrict__ ht_keys,
+                                           uint32_t mask, int32_t depth,
+                                           int rows,
+                                           const int32_t (&k)[kKeys],
+                                           const uint32_t (&h)[kKeys],
+                                           int32_t (&found)[kKeys]) {
+  int32_t skip[kKeys];                // slots of window 0 before slot h
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    found[j] = -1;
+    skip[j] = kW == 4 ? static_cast<int32_t>(h[j] & 3) : 0;
+  }
+  for (int32_t w = 0;; ++w) {
+    int32_t v[kKeys][kW];
+    bool read[kKeys];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      read[j] = j < rows && found[j] < 0 && kW * w - skip[j] < depth;
+      if (!read[j]) continue;
+      if constexpr (kW == 4) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(ht_keys) +
+                             (((h[j] >> 2) + static_cast<uint32_t>(w)) &
+                              (mask >> 2)));
+        v[j][0] = x.x;
+        v[j][1] = x.y;
+        v[j][2] = x.z;
+        v[j][3] = x.w;
+      } else {
+        v[j][0] = __ldg(ht_keys + ((h[j] + static_cast<uint32_t>(w)) & mask));
+      }
+    }
+    bool more = false;
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (!read[j]) continue;
+#pragma unroll
+      for (int p = 0; p < kW; ++p) {
+        const int32_t d = kW * w + p - skip[j];
+        if (found[j] < 0 && d >= 0 && d < depth && v[j][p] == k[j])
+          found[j] = d;
+      }
+      more |= found[j] < 0 && kW * (w + 1) - skip[j] < depth;
+    }
+    if (!more) break;
+  }
+}
+
+// One group of four rows (or one row of the head or tail) a thread; the
+// grid covers every group, so a warp's threads all reach the count's
+// shuffles.
+template <int kW>
 __global__ void __launch_bounds__(kThreads)
 hash_probe_kernel(const int32_t* __restrict__ ht_keys,
-                  const int32_t* __restrict__ ht_vals, int64_t ts,
+                  const int32_t* __restrict__ ht_vals, uint32_t mask,
                   const int32_t* __restrict__ keys, int64_t n,
-                  int32_t probe_depth, int64_t block,
-                  int32_t* __restrict__ s_idx, int32_t* __restrict__ counts) {
-  const uint32_t mask = static_cast<uint32_t>(ts - 1);
-  const int64_t b = blockIdx.x;
-  const int64_t begin = b * block;
-  const int64_t end = begin + block < n ? begin + block : n;
-  int local = 0;
-  for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
-    const int32_t k = keys[i];
-    const uint32_t h = static_cast<uint32_t>(k) * kKnuth;
-    int32_t r = -1;
-    for (int32_t d = 0; d < probe_depth; ++d) {
-      const uint32_t slot = (h + static_cast<uint32_t>(d)) & mask;
-      if (r < 0 && __ldg(ht_keys + slot) == k) r = __ldg(ht_vals + slot);
-    }
-    s_idx[i] = r;
-    local += r >= 0;
+                  int32_t depth, int64_t block, int32_t* __restrict__ s_idx,
+                  int32_t* __restrict__ counts) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(keys);
+  const int64_t to_16 = static_cast<int64_t>(((16 - (addr & 15)) & 15) >> 2);
+  const int64_t head = to_16 < n ? to_16 : n;
+  const int64_t n_vec = (n - head) / kKeys;
+  const int64_t tail = head + kKeys * n_vec;
+  const int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  int rows = 0;
+  int64_t row0 = 0;
+  int32_t k[kKeys] = {0, 0, 0, 0};
+  if (u < n_vec) {
+    const int4 kv = __ldg(reinterpret_cast<const int4*>(keys + head) + u);
+    k[0] = kv.x;
+    k[1] = kv.y;
+    k[2] = kv.z;
+    k[3] = kv.w;
+    row0 = head + kKeys * u;
+    rows = kKeys;
+  } else if (u < n_vec + head + (n - tail)) {
+    const int64_t e = u - n_vec;
+    row0 = e < head ? e : tail + (e - head);
+    k[0] = __ldg(keys + row0);
+    rows = 1;
   }
-  const int total = block_sum(local);
-  if (threadIdx.x == 0) counts[b] = total;
-}
-
-template <int kWindow>
-void launch_sampled(const int32_t* s, int32_t n_s, int32_t log_step,
-                    const int32_t* tree, const void* keys, int64_t n,
-                    void* start, void* count, cudaStream_t st) {
-  const int64_t grid = probe_grid<probe_counts_sampled_kernel<kWindow>>(0, n);
-  probe_counts_sampled_kernel<kWindow>
-      <<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
-          s, n_s, log_step, tree, static_cast<const int32_t*>(keys), n,
-          static_cast<int32_t*>(start), static_cast<int32_t*>(count));
+  uint32_t h[kKeys];
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j)
+    h[j] = (static_cast<uint32_t>(k[j]) * kKnuth) & mask;
+  int32_t found[kKeys];
+  first_hits<kW>(ht_keys, mask, depth, rows, k, h, found);
+  int32_t r[kKeys];
+  int hits = 0;
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    r[j] = found[j] >= 0
+               ? __ldg(ht_vals + ((h[j] + static_cast<uint32_t>(found[j])) &
+                                  mask))
+               : -1;
+    hits += j < rows && r[j] >= 0;
+  }
+  if (rows == kKeys &&
+      (reinterpret_cast<uintptr_t>(s_idx + row0) & 15) == 0) {
+    *reinterpret_cast<int4*>(s_idx + row0) = make_int4(r[0], r[1], r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+      if (j < rows) s_idx[row0 + j] = r[j];
+  }
+  // the counts: one atomicAdd a warp where all of its rows lie in one
+  // logical block, else one a hit
+  const unsigned full = 0xffffffffu;
+  const int64_t b0 = rows ? row0 / block : -1;
+  const int64_t b1 = rows ? (row0 + rows - 1) / block : -1;
+  const int64_t wb = __shfl_sync(full, b0, 0);
+  if (__all_sync(full, rows == 0 || (b0 == wb && b1 == wb))) {
+    const int total = __reduce_add_sync(full, hits);
+    if ((threadIdx.x & 31) == 0 && total > 0) atomicAdd(counts + wb, total);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+      if (j < rows && r[j] >= 0) atomicAdd(counts + (row0 + j) / block, 1);
+  }
 }
 
 }  // namespace
@@ -459,79 +642,56 @@ void launch_sampled(const int32_t* s, int32_t n_s, int32_t log_step,
 extern "C" int probe_counts_i32(const void* s_sorted, int64_t n_s, int64_t ts,
                                 const void* keys, int64_t n, void* start,
                                 void* count, void* scratch, void* stream) {
-  if (ts < 4 || (ts & (ts - 1)) || n_s > ts || ts > (int64_t{1} << 31) ||
-      (scratch == nullptr) != (ts <= kSharedMax) ||
-      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* s = static_cast<const int32_t*>(s_sorted);
-  const int32_t ns = static_cast<int32_t>(n_s);
-  int log_ts = 0;
-  while ((int64_t{1} << log_ts) < ts) ++log_ts;
-  if (ts <= kSharedMax) {
-    const size_t smem = 2 * sizeof(int32_t) * static_cast<size_t>(ts);
-    if (smem > 48 * 1024) {
-      static bool raised = false;
-      if (!raised) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            probe_counts_shared_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(2 * sizeof(int32_t) * kSharedMax));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        raised = true;
-      }
-    }
-    const int64_t grid = probe_grid<probe_counts_shared_kernel>(smem, n);
-    probe_counts_shared_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                                 st>>>(
-        s, ns, log_ts, static_cast<const int32_t*>(keys), n,
-        static_cast<int32_t*>(start), static_cast<int32_t*>(count));
-  } else {
-    const int32_t log_step = log_ts - kSampleLevels;     // >= 1
-    int32_t* tree = static_cast<int32_t*>(scratch);
-    build_tree_kernel<<<kSample / kThreads, kThreads, 0, st>>>(
-        s, ns, int32_t{1} << log_step, tree);
-    if (log_step == 1)
-      launch_sampled<2>(s, ns, log_step, tree, keys, n, start, count, st);
-    else if (log_step == 2)
-      launch_sampled<4>(s, ns, log_step, tree, keys, n, start, count, st);
-    else if (log_step == 3)
-      launch_sampled<8>(s, ns, log_step, tree, keys, n, start, count, st);
-    else
-      launch_sampled<16>(s, ns, log_step, tree, keys, n, start, count, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_probe(
+      s_sorted, n_s, ts, keys, n, scratch,
+      BucketOut{static_cast<int32_t*>(start), static_cast<int32_t*>(count)},
+      stream);
 }
 
+// `mat` is (n, cap) int32, row-major.
 extern "C" int probe_multi_i32(const void* s_sorted, const void* order,
                                int64_t n_s, int64_t ts, const void* keys,
                                int64_t n, int32_t cap, void* mat, void* start,
-                               void* count, void* stream) {
-  if (n > 0) {
-    const int64_t grid = (n + kThreads - 1) / kThreads;
-    probe_multi_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(s_sorted),
-        static_cast<const int32_t*>(order), n_s, ts,
-        static_cast<const int32_t*>(keys), n, cap, static_cast<int32_t*>(mat),
-        static_cast<int32_t*>(start), static_cast<int32_t*>(count));
-  }
-  return static_cast<int>(cudaGetLastError());
+                               void* count, void* scratch, void* stream) {
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool rows4 =
+      cap % 4 == 0 && (reinterpret_cast<uintptr_t>(mat) & 15) == 0;
+  return launch_probe(
+      s_sorted, n_s, ts, keys, n, scratch,
+      MatchOut{BucketOut{static_cast<int32_t*>(start),
+                         static_cast<int32_t*>(count)},
+               static_cast<const int32_t*>(order), static_cast<int32_t*>(mat),
+               cap, rows4},
+      stream);
 }
 
+// `counts` (ceil(n / block) int32) is zeroed here, then summed into.
 extern "C" int hash_probe_i32(const void* ht_keys, const void* ht_vals,
                               int64_t ts, const void* keys, int64_t n,
                               int32_t probe_depth, int64_t block, void* s_idx,
                               void* counts, void* stream) {
+  if (ts < 1 || (ts & (ts - 1)) || ts > (int64_t{1} << 32) || block <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n_blocks = (n + block - 1) / block;
-  if (n_blocks > 0) {
-    hash_probe_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(ht_keys),
-        static_cast<const int32_t*>(ht_vals), ts,
-        static_cast<const int32_t*>(keys), n, probe_depth, block,
-        static_cast<int32_t*>(s_idx), static_cast<int32_t*>(counts));
-  }
+  cudaError_t err =
+      cudaMemsetAsync(counts, 0, sizeof(int32_t) * n_blocks, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a thread per group of four keys, and one per key of the head and tail
+  const int64_t items = n / kKeys + 2 * (kKeys - 1);
+  const unsigned grid = static_cast<unsigned>((items + kThreads - 1) / kThreads);
+  const uint32_t mask = static_cast<uint32_t>(ts - 1);
+  const int32_t* hk = static_cast<const int32_t*>(ht_keys);
+  const int32_t* hv = static_cast<const int32_t*>(ht_vals);
+  const int32_t* k = static_cast<const int32_t*>(keys);
+  int32_t* out = static_cast<int32_t*>(s_idx);
+  int32_t* c = static_cast<int32_t*>(counts);
+  if (ts >= 4 && (reinterpret_cast<uintptr_t>(ht_keys) & 15) == 0)
+    hash_probe_kernel<4><<<grid, kThreads, 0, st>>>(hk, hv, mask, k, n,
+                                                    probe_depth, block, out, c);
+  else
+    hash_probe_kernel<1><<<grid, kThreads, 0, st>>>(hk, hv, mask, k, n,
+                                                    probe_depth, block, out, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,12 +16,14 @@ probes on the executor's path:
   TPU kernel padded the table with ``2**31 - 1`` and so miscounted that
   key; the kernel's padding is clamped).
 * ``probe_multi`` (replaces ``probe_multi_pallas``): the same bucket
-  (start, count) plus an (N_L, cap) matrix of the bucket's first ``cap``
-  build rows (through ``order``), -1 past the count — the widened egress
-  bus of ``ops.hash_join_multi``, whose overflow pass completes longer
-  chains.  Its plain version is ``probe_multi_plain``.
+  (start, count), found by the same search on the same two routes
+  (``probe_multi_route``), plus an (N_L, cap) matrix of the bucket's
+  first ``cap`` build rows (through ``order``), -1 past the count — the
+  widened egress bus of ``ops.hash_join_multi``, whose overflow pass
+  completes longer chains.  Its plain version is ``probe_multi_plain``.
 * ``probe`` (replaces ``probe_pallas``): the open-addressing probe of the
-  paper's unique-key fast path.
+  paper's unique-key fast path, four rows a thread with their slot
+  windows loaded together.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors.  The kernels mask their ragged tails, so unlike
@@ -53,6 +55,18 @@ def probe_counts_route(n_s: int) -> str:
     return "shared" if max(n_s, 4) <= SHARED_TABLE_MAX else "sampled"
 
 
+# B3 searches with B2's code, so it takes B2's routes
+probe_multi_route = probe_counts_route
+
+
+def _search_args(n_s: int, device):
+    """The padded length and, for the sampled route, the search tree's
+    scratch (which the kernel builds) that both bucket probes pass."""
+    tree = None if probe_counts_route(n_s) == "shared" else torch.empty(
+        SAMPLE_KEYS, dtype=torch.int32, device=device)
+    return 1 << (max(n_s, 4) - 1).bit_length(), tree
+
+
 def probe_counts(s_sorted: torch.Tensor, l_keys: torch.Tensor):
     """(start (N_L,), counts (N_L,)) of each probe key's bucket in the
     sorted build side, as ``ref.bucket_probe`` gives them; counts are
@@ -70,17 +84,14 @@ def probe_counts(s_sorted: torch.Tensor, l_keys: torch.Tensor):
     count = torch.empty_like(l_keys)
     if n == 0:
         return start, count
-    route = probe_counts_route(n_s)
-    # the sampled route's search tree, which the kernel builds
-    tree = None if route == "shared" else torch.empty(
-        SAMPLE_KEYS, dtype=torch.int32, device=l_keys.device)
+    ts, tree = _search_args(n_s, l_keys.device)
     fn = _build.function("probe_counts_i32")
-    rc = fn(s_sorted.data_ptr(), n_s, 1 << (max(n_s, 4) - 1).bit_length(),
-            l_keys.data_ptr(), n, start.data_ptr(), count.data_ptr(),
+    rc = fn(s_sorted.data_ptr(), n_s, ts, l_keys.data_ptr(), n,
+            start.data_ptr(), count.data_ptr(),
             None if tree is None else tree.data_ptr(),
             _build.stream_handle(l_keys.device))
     _build.check(rc, "probe_counts_i32")
-    _build.LAUNCHES["probe_counts" if route == "shared"
+    _build.LAUNCHES["probe_counts" if tree is None
                     else "probe_counts_sampled"] += 1
     return start, count
 
@@ -108,7 +119,8 @@ def probe_multi(s_sorted: torch.Tensor, order: torch.Tensor,
                 l_keys: torch.Tensor, *, cap: int = DEFAULT_MATCH_CAP):
     """(mat (N_L, cap), start (N_L,), count (N_L,)) of each probe key over
     the sorted build side through the CUDA kernel (plain version on CPU);
-    counts are exact even past ``cap``."""
+    counts are exact even past ``cap``.  (start, count) equal
+    ``probe_counts``' bit for bit: the kernels share their search."""
     if l_keys.device.type == "cpu":
         return probe_multi_plain(s_sorted, order, l_keys, cap=cap)
     for t, name in ((s_sorted, "s_sorted"), (order, "order"),
@@ -130,13 +142,15 @@ def probe_multi(s_sorted: torch.Tensor, order: torch.Tensor,
     count = torch.empty_like(l_keys)
     if n == 0:
         return mat, start, count
+    ts, tree = _search_args(n_s, l_keys.device)
     fn = _build.function("probe_multi_i32")
-    rc = fn(s_sorted.data_ptr(), order.data_ptr(), n_s,
-            ref.next_pow2(max(n_s, 2)), l_keys.data_ptr(), n, cap,
-            mat.data_ptr(), start.data_ptr(), count.data_ptr(),
+    rc = fn(s_sorted.data_ptr(), order.data_ptr(), n_s, ts,
+            l_keys.data_ptr(), n, cap, mat.data_ptr(), start.data_ptr(),
+            count.data_ptr(), None if tree is None else tree.data_ptr(),
             _build.stream_handle(l_keys.device))
     _build.check(rc, "probe_multi_i32")
-    _build.LAUNCHES["probe_multi"] += 1
+    _build.LAUNCHES["probe_multi" if tree is None
+                    else "probe_multi_sampled"] += 1
     return mat, start, count
 
 
@@ -173,6 +187,7 @@ def probe(ht_keys: torch.Tensor, ht_vals: torch.Tensor, l_keys: torch.Tensor,
         raise ValueError(f"block must be positive, got {block}")
     n = l_keys.shape[0]
     s_idx = torch.empty_like(l_keys)
+    # the launcher zeroes the counts before the kernel sums into them
     counts = torch.empty(-(-n // block), dtype=torch.int32,
                          device=l_keys.device)
     if n == 0:

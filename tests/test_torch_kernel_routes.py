@@ -1,7 +1,8 @@
 """The routes of the port's redesigned kernels, decided in Python before a
 launch: B7's type -> bf16 tensor cores or split-TF32 tensor cores (the
 split's arithmetic emulated against the f32 tolerance), B2's
-table length -> shared memory or sample, and B5's (features, minibatch)
+table length -> shared memory or sample (B3's too: it searches with B2's
+code), and B5's (features, minibatch)
 -> a ring of minibatch tiles on a cluster of blocks, or the split
 route (its plan checked over widths up to 2,000,000 features), and
 B8's (dtype, hd, ds) -> tensor cores or CUDA cores, with the
@@ -128,6 +129,17 @@ def test_probe_counts_route(n_s, want):
     assert jk.probe_counts_route(n_s) == want
 
 
+@pytest.mark.parametrize("n_s,want", [
+    (0, "shared"), (4, "shared"), (2_556, "shared"),
+    (jk.SHARED_TABLE_MAX, "shared"), (jk.SHARED_TABLE_MAX + 1, "sampled"),
+    (1_500_000, "sampled"), (6_001_215, "sampled"), (2 ** 23, "sampled")])
+def test_probe_multi_route(n_s, want):
+    """B3 searches with B2's code, so it takes B2's route at every length:
+    the shared route up to 8,192 keys, the sampled one past them (TPC-H SF
+    1's 6,001,215 lineitem rows pad to 2**23)."""
+    assert jk.probe_multi_route(n_s) == want == jk.probe_counts_route(n_s)
+
+
 def test_sampled_route_tables_hold_at_least_two_keys_per_sample():
     """The sampled route searches every (ts / SAMPLE_KEYS)-th key in shared
     memory: the smallest table it takes pads to twice the shared budget,
@@ -169,6 +181,40 @@ def test_probe_counts_on_cpu_tensors_is_the_plain_version(n_s):
     got = jk.probe_counts(s_sorted, keys)
     for g, w in zip(got, join_ref.bucket_probe(s_sorted, keys)):
         assert torch.equal(g, w)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("cap", [1, 3, 8])
+@pytest.mark.parametrize("n_s", [2_556, jk.SHARED_TABLE_MAX + 1])
+def test_probe_multi_on_cpu_tensors_is_the_plain_version(n_s, cap):
+    r = np.random.default_rng(n_s + cap)
+    s_sorted, order = join_ref.bucket_build(torch.from_numpy(
+        r.integers(-50, 600, n_s).astype(np.int32)))
+    keys = torch.from_numpy(r.integers(-100, 700, 1_003).astype(np.int32))
+    before = dict(_build.LAUNCHES)
+    got = jk.probe_multi(s_sorted, order, keys, cap=cap)
+    for g, w in zip(got, jk.probe_multi_plain(s_sorted, order, keys,
+                                              cap=cap)):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1], jk.probe_counts(s_sorted, keys)[0])
+    assert torch.equal(got[2], jk.probe_counts(s_sorted, keys)[1])
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("block", [1, 4095, 4096])
+def test_probe_on_cpu_tensors_is_the_plain_version(block):
+    r = np.random.default_rng(block)
+    s = torch.from_numpy(r.choice(1 << 16, 3_000, replace=False)
+                         .astype(np.int32))
+    ht_k, ht_v, _ = join_ref.build_table(s, 4096, 8)
+    keys = torch.from_numpy(np.concatenate(
+        [r.integers(0, 1 << 16, 6_000), s.numpy()]).astype(np.int32))
+    before = dict(_build.LAUNCHES)
+    for depth in (1, 8):
+        got = jk.probe(ht_k, ht_v, keys, block=block, probe_depth=depth)
+        for g, w in zip(got, jk.probe_plain(ht_k, ht_v, keys, block=block,
+                                            probe_depth=depth)):
+            assert torch.equal(g, w)
     assert _build.LAUNCHES == before
 
 

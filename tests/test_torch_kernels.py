@@ -42,6 +42,9 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.kernels.ssd.ops import ssd
 
 
+jk_budget = join_kernels.SHARED_TABLE_MAX
+
+
 def _eq(port, reference):
     np.testing.assert_array_equal(np.asarray(port), np.asarray(reference))
 
@@ -178,6 +181,31 @@ def test_probe_multi_matches_probe_multi_pallas(n_s, n_l, block, cap):
     assert int(want[2].max()) > cap or n_s <= cap
 
 
+@pytest.mark.parametrize("n_s,cap", [(jk_budget + 1, 8), (jk_budget + 1, 3),
+                                     (2_556, 9)])
+def test_probe_multi_on_cpu_tensors_matches_probe_multi_pallas(n_s, cap):
+    """``probe_multi`` on CPU tensors is its plain version, on tables of
+    both of the kernel's route lengths (past the shared budget, the card
+    takes the sampled route), and equals ``probe_multi_pallas`` in
+    interpret mode; (start, count) equal ``probe_counts``'."""
+    r = np.random.default_rng(n_s + cap)
+    s = r.integers(0, n_s // 3, n_s).astype(np.int32)
+    l = r.integers(-1, n_s // 2, 1024).astype(np.int32)
+    rs_sorted, r_order = r_join_ref.bucket_build(jnp.asarray(s))
+    want = probe_multi_pallas(rs_sorted, r_order, jnp.asarray(l), cap=cap,
+                              block=512, interpret=True)
+    s_sorted, order = join_ref.bucket_build(_t(s))
+    before = dict(_build.LAUNCHES)
+    got = join_kernels.probe_multi(s_sorted, order, _t(l), cap=cap)
+    for g, p, w in zip(got, join_kernels.probe_multi_plain(
+            s_sorted, order, _t(l), cap=cap), want):
+        assert torch.equal(g, p)
+        _eq(g, w)
+    for g, w in zip(got[1:], join_kernels.probe_counts(s_sorted, _t(l))):
+        _eq(g, w)
+    assert _build.LAUNCHES == before
+
+
 def test_probe_multi_plain_on_an_empty_table():
     mat, start, cnt = join_kernels.probe_multi_plain(
         _t([]), _t([]), _t([1, 2, 3]))
@@ -227,6 +255,27 @@ def test_build_table_and_probe_match_reference(n_s, ts, depth):
     _eq(idx, idx_r)
     _eq(cnt, cnt_r)
     _eq(join_ref.probe_ref(k, v, _t(l), depth)[0], idx_r)
+
+
+@pytest.mark.parametrize("block,depth", [(1024, 1), (1024, 5), (2048, 8)])
+def test_probe_on_cpu_tensors_matches_probe_pallas(block, depth):
+    """``probe`` on CPU tensors is its plain version and equals
+    ``probe_pallas`` in interpret mode, on a table three quarters full
+    built at depth 8 and probed at ``depth`` (keys placed deeper miss)."""
+    r = np.random.default_rng(block + depth)
+    s = r.choice(10 ** 6, size=3_000, replace=False).astype(np.int32)
+    l = np.concatenate([r.integers(0, 10 ** 6, 3 * block - 3000), s])
+    rk, rv, _ = r_join_ref.build_table(jnp.asarray(s), 4096, 8)
+    k, v, _ = join_ref.build_table(_t(s), 4096, 8)
+    want = probe_pallas(rk, rv, jnp.asarray(l.astype(np.int32)),
+                        block=block, probe_depth=depth, interpret=True)
+    before = dict(_build.LAUNCHES)
+    got = join_kernels.probe(k, v, _t(l), block=block, probe_depth=depth)
+    for g, p, w in zip(got, join_kernels.probe_plain(
+            k, v, _t(l), block=block, probe_depth=depth), want):
+        assert torch.equal(g, p)
+        _eq(g, w)
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("case", ["unique", "dense", "overflow"])

@@ -251,14 +251,143 @@ def test_probe_multi_kernel_matches_plain(cuda, n_s, n_l, cap):
                            [2 ** 31 - 1, 2 ** 31 - 2, -2 ** 31, -1]])
     s_sorted, order = join_ref.bucket_build(_i32(s, cuda))
     keys = _i32(keys, cuda)
-    before = _build.LAUNCHES["probe_multi"]
+    counter = _B3_COUNTER[join_kernels.probe_multi_route(s.size)]
+    before = _build.LAUNCHES[counter]
     got = join_kernels.probe_multi(s_sorted, order, keys, cap=cap)
     want = join_kernels.probe_multi_plain(s_sorted, order, keys, cap=cap)
     for g, w in zip(got, want):
         _same(g, w)
-    assert _build.LAUNCHES["probe_multi"] == before + 1
+    assert _build.LAUNCHES[counter] == before + 1
     if n_s > 100:
         assert int(want[2].max()) > cap
+
+
+_B3_COUNTER = {"shared": "probe_multi", "sampled": "probe_multi_sampled"}
+_B2_COUNTER = {"shared": "probe_counts", "sampled": "probe_counts_sampled"}
+
+
+@pytest.mark.parametrize("cap", [1, 3, 8, 9])
+@pytest.mark.parametrize("n_s", [1, 2556, B2_BUDGET - 1, B2_BUDGET,
+                                 B2_BUDGET + 1, 119_384, 1_000_003])
+def test_probe_multi_routes_are_bit_identical(cuda, n_s, cap):
+    """B3 on both routes and their edge (the shared budget - 1, + 0, + 1),
+    runs of 1-8 equal keys, both ends of int32 in the table and among the
+    probe keys, a probe length that is no multiple of 4 and slices of it
+    at every 16-byte offset; cap 3 and 9 put the rows of ``mat`` off
+    16-byte marks.  mat, start and count equal the plain version's,
+    (start, count) equal B2's, and each launch counts on its route's
+    counter."""
+    r = np.random.default_rng(n_s + 13 * cap)
+    table = _chained_table(r, n_s)
+    s_sorted, order = join_ref.bucket_build(_i32(r.permutation(table),
+                                                 cuda))
+    keys = _i32(_probe_keys(r, table, 100_003), cuda)
+    route = join_kernels.probe_multi_route(n_s)
+    assert route == join_kernels.probe_counts_route(n_s)
+    before = dict(_build.LAUNCHES)
+    for off in range(4):
+        got = join_kernels.probe_multi(s_sorted, order, keys[off:], cap=cap)
+        want = join_kernels.probe_multi_plain(s_sorted, order, keys[off:],
+                                              cap=cap)
+        assert got[0].shape == (keys.shape[0] - off, cap)
+        for g, w in zip(got, want):
+            _same(g, w)
+        b2 = join_kernels.probe_counts(s_sorted, keys[off:])
+        _same(got[1], b2[0])
+        _same(got[2], b2[1])
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: 4 if k in (_B3_COUNTER[route], _B2_COUNTER[route]) else 0
+         for k in before}
+
+
+@pytest.mark.parametrize("cap", [1, 8, 9])
+@pytest.mark.parametrize("n_s", [5_000, 6_001_215])
+def test_probe_multi_chains_past_the_window_and_the_cap(cuda, n_s, cap):
+    """Build keys of 50 values (TPC-H's quantity; runs of ~n_s / 50, past
+    the sampled route's window of 16 and past every cap) and a run of
+    2**31 - 1, probed with every value, their neighbours and both ends of
+    int32: counts are exact and ``mat`` holds each run's first cap build
+    rows."""
+    r = np.random.default_rng(n_s + cap)
+    s = np.concatenate([r.integers(1, 51, n_s - 40), [2 ** 31 - 1] * 40])
+    s_sorted, order = join_ref.bucket_build(_i32(s, cuda))
+    keys = _i32(np.concatenate([np.arange(-1, 53), [2 ** 31 - 1,
+                                                    2 ** 31 - 2, -2 ** 31]]),
+                cuda)
+    for off in range(4):
+        got = join_kernels.probe_multi(s_sorted, order, keys[off:], cap=cap)
+        want = join_kernels.probe_multi_plain(s_sorted, order, keys[off:],
+                                              cap=cap)
+        for g, w in zip(got, want):
+            _same(g, w)
+    assert int(want[2].max()) > max(16, cap)
+
+
+@pytest.mark.parametrize("block", [1, 4095, 4096, 10_000])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_hash_probe_blocks_and_depths(cuda, depth, block):
+    """B4 on a table built at depth 8 and probed at ``depth`` (keys placed
+    deeper miss), three quarters full so that walks run long, with misses,
+    a ragged tail and the keys at every 16-byte offset: s_idx and the
+    counts of every logical block of ``block`` rows equal the plain
+    version's."""
+    r = np.random.default_rng(depth + block)
+    s = r.choice(1 << 20, size=3_000, replace=False)
+    ht_k, ht_v, _ = join_ref.build_table(_i32(s, cuda), 4096, 8)
+    keys = _i32(np.concatenate([r.integers(-1, 1 << 20, 40_000),
+                                r.permutation(s)[:10_003]]), cuda)
+    before = dict(_build.LAUNCHES)
+    for off in range(4):
+        got = join_kernels.probe(ht_k, ht_v, keys[off:], block=block,
+                                 probe_depth=depth)
+        want = join_kernels.probe_plain(ht_k, ht_v, keys[off:], block=block,
+                                        probe_depth=depth)
+        for g, w in zip(got, want):
+            _same(g, w)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: 4 if k == "probe" else 0 for k in before}
+    deepest = join_kernels.probe_plain(ht_k, ht_v, keys[3:], block=block,
+                                       probe_depth=8)[1].sum()
+    assert 0 < int(want[1].sum()) <= int(deepest)
+    assert depth > 1 or int(want[1].sum()) < int(deepest)
+
+
+@pytest.mark.parametrize("ts", [1, 2, 4, 16, 32_768])
+def test_hash_probe_small_tables_and_short_probes(cuda, ts):
+    """Tables of 1 and 2 slots (read a slot at a time), of 4 and more
+    (read in 16-byte windows that wrap at the table's end), and probe
+    lengths of 1 to 9 rows at every 16-byte offset."""
+    r = np.random.default_rng(ts)
+    n_s = max(ts // 2, 1)
+    s = r.choice(100 * ts, size=n_s, replace=False)
+    ht_k, ht_v, _ = join_ref.build_table(_i32(s, cuda), ts, 8)
+    pool = _i32(np.concatenate([s, r.integers(0, 100 * ts, 16)]), cuda)
+    for n in range(1, 10):
+        for off in range(4):
+            keys = pool[off:off + n]
+            for depth in (1, 3, 8):
+                got = join_kernels.probe(ht_k, ht_v, keys, block=2,
+                                         probe_depth=depth)
+                want = join_kernels.probe_plain(ht_k, ht_v, keys, block=2,
+                                                probe_depth=depth)
+                for g, w in zip(got, want):
+                    _same(g, w)
+
+
+def test_hash_probe_table_off_a_16_byte_mark(cuda):
+    """A table whose keys start off a 16-byte mark is read a slot at a
+    time, with the same result."""
+    r = np.random.default_rng(3)
+    s = r.choice(1 << 16, size=700, replace=False)
+    ht_k, ht_v, _ = join_ref.build_table(_i32(s, cuda), 1024, 8)
+    keys = _i32(np.concatenate([s, r.integers(0, 1 << 16, 5_000)]), cuda)
+    want = join_kernels.probe_plain(ht_k, ht_v, keys, probe_depth=8)
+    for off in (1, 2, 3):
+        buf = torch.empty(1024 + off, dtype=torch.int32, device=cuda)
+        buf[off:] = ht_k
+        got = join_kernels.probe(buf[off:], ht_v, keys, probe_depth=8)
+        for g, w in zip(got, want):
+            _same(g, w)
 
 
 @pytest.mark.parametrize("max_out", [10, 1 << 20])

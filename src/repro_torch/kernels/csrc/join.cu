@@ -271,6 +271,16 @@ struct BucketOut {
       }
     }
   }
+
+  // a warp's groups: lane l holds the keys from i0 + kKeys l on, lanes
+  // below `lanes` hold keys
+  __device__ __forceinline__ void put_warp(int64_t i0, int lanes,
+                                           const int32_t (&lo)[kKeys],
+                                           const int32_t (&c)[kKeys],
+                                           bool vec) const {
+    const int lane = threadIdx.x & 31;
+    if (lane < lanes) put<kKeys>(i0 + kKeys * lane, lo, c, vec);
+  }
 };
 
 // probe_multi_i32's output: the bucket, and the bucket's first cap build
@@ -293,6 +303,61 @@ struct MatchOut {
                                       const int32_t (&c)[kKeys],
                                       bool vec) const {
     bucket.put<K>(i, lo, c, vec);
+    rows_of<K>(i, lo, c);
+  }
+
+  // A warp's rows of mat, which are contiguous: where they start on
+  // 16-byte marks, lane l writes the warp's int4 chunks l, l + 32, ...,
+  // so each store instruction covers 512 contiguous bytes; the chunk's
+  // bucket comes from the lane that searched it, by shuffles.
+  __device__ __forceinline__ void put_warp(int64_t i0, int lanes,
+                                           const int32_t (&lo)[kKeys],
+                                           const int32_t (&c)[kKeys],
+                                           bool vec) const {
+    const int lane = threadIdx.x & 31;
+    if (!rows4) {
+      if (lane < lanes) put<kKeys>(i0 + kKeys * lane, lo, c, vec);
+      return;
+    }
+    bucket.put_warp(i0, lanes, lo, c, vec);
+    const unsigned full = 0xffffffffu;
+    int32_t m[kKeys];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) m[j] = min(c[j], cap);
+    const int32_t per_row = cap >> 2;
+    const int32_t chunks = kKeys * lanes * per_row;
+    int4* dst = reinterpret_cast<int4*>(mat + i0 * cap);
+    for (int32_t cb = 0; cb < chunks; cb += 32) {
+      const int32_t ch = cb + lane;
+      const int32_t row = ch / per_row;
+      const int32_t t = 4 * (ch - row * per_row);
+      const int src = min(row / kKeys, 31);
+      int32_t l = 0, mm = 0;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int32_t lj = __shfl_sync(full, lo[j], src);
+        const int32_t mj = __shfl_sync(full, m[j], src);
+        if (row % kKeys == j) {
+          l = lj;
+          mm = mj;
+        }
+      }
+      if (ch < chunks) {
+        const int32_t* p = order + l + t;
+        int4 v;
+        v.x = t < mm ? __ldg(p) : -1;
+        v.y = t + 1 < mm ? __ldg(p + 1) : -1;
+        v.z = t + 2 < mm ? __ldg(p + 2) : -1;
+        v.w = t + 3 < mm ? __ldg(p + 3) : -1;
+        dst[ch] = v;
+      }
+    }
+  }
+
+  template <int K>
+  __device__ __forceinline__ void rows_of(int64_t i,
+                                          const int32_t (&lo)[kKeys],
+                                          const int32_t (&c)[kKeys]) const {
     int32_t m[kKeys];
 #pragma unroll
     for (int j = 0; j < K; ++j) m[j] = min(c[j], cap);
@@ -346,13 +411,19 @@ __device__ __forceinline__ void probe_all(const Table& t,
     out.template put<1>(edge, lo, c, false);
   }
   const bool vec_out = out.aligned_at(head);
+  // a warp's lanes run the loop together, so `out` can share their work
   const int4* k4 = reinterpret_cast<const int4*>(keys + head);
-  for (int64_t v = tid; v < n_vec; v += stride) {
-    const int4 kv = __ldg(k4 + v);
-    const int32_t q[kKeys] = {kv.x, kv.y, kv.z, kv.w};
-    int32_t lo[kKeys], c[kKeys];
-    t.probe(q, lo, c);
-    out.template put<kKeys>(head + kKeys * v, lo, c, vec_out);
+  const int lane = threadIdx.x & 31;
+  for (int64_t vb = tid - lane; vb < n_vec; vb += stride) {
+    const int64_t v = vb + lane;
+    int32_t lo[kKeys] = {0, 0, 0, 0}, c[kKeys] = {0, 0, 0, 0};
+    if (v < n_vec) {
+      const int4 kv = __ldg(k4 + v);
+      const int32_t q[kKeys] = {kv.x, kv.y, kv.z, kv.w};
+      t.probe(q, lo, c);
+    }
+    const int lanes = static_cast<int>(n_vec - vb < 32 ? n_vec - vb : 32);
+    out.put_warp(head + kKeys * vb, lanes, lo, c, vec_out);
   }
 }
 

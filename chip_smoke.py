@@ -349,12 +349,37 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int = 200) -> float:
+    """Mean milliseconds of device time a call of ``fn`` takes: the self
+    times of its kernels and copies under ``torch.profiler`` over ``reps``
+    calls, after a warm-up call.  The host's cost of a call (a wrapper's
+    checks, allocations and launches) is left out; ``time_ms`` measures
+    that instead wherever it exceeds the kernel's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("the profiler traced no device time")
+    return busy_us / 1e3 / reps
+
+
 def time3_ms(name: str, fn, reps: int = 200) -> float:
-    """Three ``time_ms`` timings of ``reps`` launches each, their spread
-    logged; returns the median."""
-    t = sorted(time_ms(fn, reps=reps) for _ in range(3))
-    log(f"  {name} spread: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} ms (min / "
-        f"median / max of 3 x {reps} launches)")
+    """Three ``device_ms`` timings of ``reps`` launches each, their spread
+    logged beside the time a call takes dispatched from the host one by
+    one (``time_ms``); returns the median device time."""
+    t = sorted(device_ms(fn, reps) for _ in range(3))
+    host = time_ms(fn, reps=reps)
+    log(f"  {name} spread: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} ms device "
+        f"time a call (min / median / max of 3 x {reps} launches); "
+        f"{host:.4f} ms a call dispatched from the host")
     return t[1]
 
 

@@ -4,8 +4,10 @@ to compare commits.
     python3 join_probe.py [--src DIR] [--reps 200]
 
 Each line gives a kernel's time at a shape of ``chip_smoke.py``'s main
-path: the minimum, median and maximum of three timings, each the mean
-of ``--reps`` launches (CUDA events, after warm-up), beside the byte
+path: the minimum, median and maximum of three timings of its device
+time a call, each over ``--reps`` calls under ``torch.profiler``
+(``chip_smoke.device_ms``), the time a call takes dispatched from the
+host one by one (CUDA events around ``--reps`` calls), and the byte
 bound (inputs read once, outputs written once, over 3.35 TB/s):
 
 * ``probe_multi`` (B3) at ``hash_join_multi``'s order-key join (TPC-H SF
@@ -16,7 +18,11 @@ bound (inputs read once, outputs written once, over 3.35 TB/s):
 * ``probe`` (B4) at SSB SF 10's eager unique join (the date table in
   32,768 slots, depth 8, the 1,192,560 lineorder keys the filter keeps)
   and at its first 1/8 and 1/2, so that the fixed cost and the cost a
-  row can be read apart.
+  row can be read apart;
+* ``probe_counts`` (B2), which shares B3's search, at SSB's batch join
+  (2,556 date keys, 59,986,214 lineorder keys: the shared route) and at
+  lineitem joined with orders (1,500,000 order keys, 6,001,215 lineitem
+  keys: the sampled route).
 
 It also prints the card's name and power limit, and the registers and
 spills ``ptxas`` reports for the join kernels when this process built
@@ -59,15 +65,15 @@ def main(argv=None) -> int:
     card = cs.phase_card()
 
     def line(name, shape, fn, n_bytes):
-        fn()
-        torch.cuda.synchronize()
-        times = sorted(cs.time_ms(fn, reps=args.reps) for _ in range(3))
+        times = sorted(cs.device_ms(fn, args.reps) for _ in range(3))
+        host = cs.time_ms(fn, reps=args.reps)
         bound = n_bytes / cs.HBM_BYTES_PER_S * 1e3
-        print(f"{src} {name} {shape}: {times[0]:.4f} / "
-              f"{statistics.median(times):.4f} / {times[-1]:.4f} ms "
-              f"(min / median / max of 3 x {args.reps} launches), bound "
-              f"{bound:.4f} ms ({bound / statistics.median(times):.1%}); "
-              f"{card}", flush=True)
+        mid = statistics.median(times)
+        print(f"{src} {name} {shape}: device {times[0]:.4f} / {mid:.4f} / "
+              f"{times[-1]:.4f} ms a call (min / median / max of 3 x "
+              f"{args.reps} calls), dispatched from the host {host:.4f} ms "
+              f"a call, bound {bound:.4f} ms ({bound / mid:.1%} of the "
+              f"median); {card}", flush=True)
 
     tpch, _ = cs.make_tpch(cs.TPCH_LINEITEM_ROWS, cs.TPCH_ORDERS_ROWS, SEED)
     li = tpch["lineitem"]
@@ -86,7 +92,13 @@ def main(argv=None) -> int:
         line("probe_multi", f"{what}: s_sorted=({n_s},), keys=({n},), cap "
              f"{cap}", lambda: jk.probe_multi(s_sorted, order, keys),
              8 * n_s + 4 * n + (8 + 4 * cap) * n)
-    del tpch, cases
+    ordered, _ = join_ref.bucket_build(okeys)
+    lkeys = torch.from_numpy(li["orderkey"]).to(dev)
+    line("probe_counts", f"s_sorted=({ordered.shape[0]},), keys="
+         f"({lkeys.shape[0]},), sampled route",
+         lambda: jk.probe_counts(ordered, lkeys),
+         4 * ordered.shape[0] + 12 * lkeys.shape[0])
+    del tpch, cases, ordered, lkeys
 
     ssb = cs.make_ssb(cs.SSB_LINEORDER_ROWS, SEED)
     lo = ssb["lineorder"]
@@ -95,7 +107,14 @@ def main(argv=None) -> int:
          & (lo["quantity"] >= 1) & (lo["quantity"] <= 24))
     probe_keys = torch.from_numpy(lo["orderdate"][m]).to(dev)
     datekeys = torch.from_numpy(ssb["date"]["orderdate"]).to(dev)
+    orderdate = torch.from_numpy(lo["orderdate"]).to(dev)
     del ssb, lo
+    s_dates, _ = join_ref.bucket_build(datekeys)
+    line("probe_counts", f"s_sorted=({s_dates.shape[0]},), keys="
+         f"({orderdate.shape[0]},), shared route",
+         lambda: jk.probe_counts(s_dates, orderdate),
+         4 * s_dates.shape[0] + 12 * orderdate.shape[0])
+    del orderdate
     ts = 4 * join_core.HT_CAPACITY
     ht_k, ht_v, _ = join_ref.build_table(join_core._pad_build(datekeys, 1),
                                          ts, 8)

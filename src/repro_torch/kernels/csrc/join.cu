@@ -244,49 +244,40 @@ struct SampledTable {
   }
 };
 
-// probe_counts_i32's output: each key's bucket start and count.  `vec`:
-// the group's outputs start on a 16-byte mark.
+// A warp probes 32 * kKeys keys at a time, from `first` on: lane l the
+// keys first + l + 32 j, j < kKeys, so every load and store of keys,
+// starts and counts covers 128 contiguous bytes at any alignment, and
+// where the probe keys are sorted (a key column in key order, as a
+// join's probe side often is), the 32 searches of one j read neighbouring
+// table entries and share their lines.  An output takes the warp's
+// (lower bound, count) of each key; its lanes call it together.
+
+// probe_counts_i32's output: each key's bucket start and count.
 struct BucketOut {
   int32_t* __restrict__ start;
   int32_t* __restrict__ count;
 
-  __device__ __forceinline__ bool aligned_at(int64_t i) const {
-    return ((reinterpret_cast<uintptr_t>(start + i) |
-             reinterpret_cast<uintptr_t>(count + i)) & 15) == 0;
-  }
-
-  template <int K>
-  __device__ __forceinline__ void put(int64_t i, const int32_t (&lo)[kKeys],
-                                      const int32_t (&c)[kKeys],
-                                      bool vec) const {
-    if (K == kKeys && vec) {
-      *reinterpret_cast<int4*>(start + i) =
-          make_int4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<int4*>(count + i) = make_int4(c[0], c[1], c[2], c[3]);
-    } else {
+  __device__ __forceinline__ void put(int64_t first, int64_t n,
+                                      const int32_t (&lo)[kKeys],
+                                      const int32_t (&c)[kKeys]) const {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        start[i + j] = lo[j];
-        count[i + j] = c[j];
+    for (int j = 0; j < kKeys; ++j) {
+      const int64_t i = first + 32 * j + lane;
+      if (i < n) {
+        start[i] = lo[j];
+        count[i] = c[j];
       }
     }
-  }
-
-  // a warp's groups: lane l holds the keys from i0 + kKeys l on, lanes
-  // below `lanes` hold keys
-  __device__ __forceinline__ void put_warp(int64_t i0, int lanes,
-                                           const int32_t (&lo)[kKeys],
-                                           const int32_t (&c)[kKeys],
-                                           bool vec) const {
-    const int lane = threadIdx.x & 31;
-    if (lane < lanes) put<kKeys>(i0 + kKeys * lane, lo, c, vec);
   }
 };
 
 // probe_multi_i32's output: the bucket, and the bucket's first cap build
-// rows through `order`, -1 past the count.  Rows i .. i + K - 1 of `mat`
-// are contiguous; rows4: cap % 4 == 0 and `mat` is 16-byte aligned, so
-// every row starts on a 16-byte mark.
+// rows through `order`, -1 past the count.  A warp's rows of mat are
+// contiguous.  rows4 (cap % 4 == 0 and mat 16-byte aligned): lane l
+// writes the warp's int4 chunks l, l + 32, ..., so each store covers 512
+// contiguous bytes; the chunk's bucket comes from the lane that searched
+// it, by shuffles.  Otherwise each lane writes its own rows.
 struct MatchOut {
   BucketOut bucket;
   const int32_t* __restrict__ order;
@@ -294,50 +285,40 @@ struct MatchOut {
   int32_t cap;
   bool rows4;
 
-  __device__ __forceinline__ bool aligned_at(int64_t i) const {
-    return bucket.aligned_at(i);
-  }
-
-  template <int K>
-  __device__ __forceinline__ void put(int64_t i, const int32_t (&lo)[kKeys],
-                                      const int32_t (&c)[kKeys],
-                                      bool vec) const {
-    bucket.put<K>(i, lo, c, vec);
-    rows_of<K>(i, lo, c);
-  }
-
-  // A warp's rows of mat, which are contiguous: where they start on
-  // 16-byte marks, lane l writes the warp's int4 chunks l, l + 32, ...,
-  // so each store instruction covers 512 contiguous bytes; the chunk's
-  // bucket comes from the lane that searched it, by shuffles.
-  __device__ __forceinline__ void put_warp(int64_t i0, int lanes,
-                                           const int32_t (&lo)[kKeys],
-                                           const int32_t (&c)[kKeys],
-                                           bool vec) const {
+  __device__ __forceinline__ void put(int64_t first, int64_t n,
+                                      const int32_t (&lo)[kKeys],
+                                      const int32_t (&c)[kKeys]) const {
+    bucket.put(first, n, lo, c);
     const int lane = threadIdx.x & 31;
-    if (!rows4) {
-      if (lane < lanes) put<kKeys>(i0 + kKeys * lane, lo, c, vec);
-      return;
-    }
-    bucket.put_warp(i0, lanes, lo, c, vec);
-    const unsigned full = 0xffffffffu;
     int32_t m[kKeys];
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) m[j] = min(c[j], cap);
+    if (!rows4) {
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int64_t i = first + 32 * j + lane;
+        if (i >= n) continue;
+        for (int32_t t = 0; t < cap; ++t)
+          mat[i * cap + t] = t < m[j] ? __ldg(order + lo[j] + t) : -1;
+      }
+      return;
+    }
+    const unsigned full = 0xffffffffu;
     const int32_t per_row = cap >> 2;
-    const int32_t chunks = kKeys * lanes * per_row;
-    int4* dst = reinterpret_cast<int4*>(mat + i0 * cap);
+    const int64_t left = n - first;
+    const int32_t chunks =
+        static_cast<int32_t>(left < 32 * kKeys ? left : 32 * kKeys) * per_row;
+    int4* dst = reinterpret_cast<int4*>(mat + first * cap);
     for (int32_t cb = 0; cb < chunks; cb += 32) {
       const int32_t ch = cb + lane;
-      const int32_t row = ch / per_row;
+      const int32_t row = ch / per_row;      // of the warp's rows
       const int32_t t = 4 * (ch - row * per_row);
-      const int src = min(row / kKeys, 31);
       int32_t l = 0, mm = 0;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
-        const int32_t lj = __shfl_sync(full, lo[j], src);
-        const int32_t mj = __shfl_sync(full, m[j], src);
-        if (row % kKeys == j) {
+        const int32_t lj = __shfl_sync(full, lo[j], row & 31);
+        const int32_t mj = __shfl_sync(full, m[j], row & 31);
+        if (row >> 5 == j) {
           l = lj;
           mm = mj;
         }
@@ -353,77 +334,27 @@ struct MatchOut {
       }
     }
   }
-
-  template <int K>
-  __device__ __forceinline__ void rows_of(int64_t i,
-                                          const int32_t (&lo)[kKeys],
-                                          const int32_t (&c)[kKeys]) const {
-    int32_t m[kKeys];
-#pragma unroll
-    for (int j = 0; j < K; ++j) m[j] = min(c[j], cap);
-    int32_t* rows = mat + i * cap;
-    if (rows4) {
-      for (int32_t t = 0; t < cap; t += 4) {
-        int4 v[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const int32_t* src = order + lo[j] + t;
-          v[j].x = t < m[j] ? __ldg(src) : -1;
-          v[j].y = t + 1 < m[j] ? __ldg(src + 1) : -1;
-          v[j].z = t + 2 < m[j] ? __ldg(src + 2) : -1;
-          v[j].w = t + 3 < m[j] ? __ldg(src + 3) : -1;
-        }
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-          *reinterpret_cast<int4*>(rows + j * cap + t) = v[j];
-      }
-    } else {
-      for (int32_t t = 0; t < cap; ++t) {
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-          rows[j * cap + t] = t < m[j] ? __ldg(order + lo[j] + t) : -1;
-      }
-    }
-  }
 };
 
-// Grid-stride over the keys, four at a time: a scalar head up to the first
-// 16-byte boundary of `keys`, int4 groups, a scalar tail.  `out` takes
-// each key's (lower bound, count).
+// Grid-stride over the keys a warp at a time.  Lanes past the end search
+// the last key again, so that every lane's search is one of the path's.
 template <class Table, class Out>
 __device__ __forceinline__ void probe_all(const Table& t,
                                           const int32_t* __restrict__ keys,
                                           int64_t n, const Out& out) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(keys);
-  const int64_t to_16 = static_cast<int64_t>(((16 - (addr & 15)) & 15) >> 2);
-  const int64_t head = to_16 < n ? to_16 : n;
-  const int64_t n_vec = (n - head) / kKeys;
-  const int64_t tail = head + kKeys * n_vec;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  // the head and the tail: at most 3 keys each, by the grid's first threads
-  const int64_t edge = tid < head ? tid : tail + (tid - head);
-  if (tid < head + (n - tail)) {
-    const int32_t k = __ldg(keys + edge);
-    const int32_t q[kKeys] = {k, k, k, k};
-    int32_t lo[kKeys], c[kKeys];
-    t.probe(q, lo, c);
-    out.template put<1>(edge, lo, c, false);
-  }
-  const bool vec_out = out.aligned_at(head);
-  // a warp's lanes run the loop together, so `out` can share their work
-  const int4* k4 = reinterpret_cast<const int4*>(keys + head);
   const int lane = threadIdx.x & 31;
-  for (int64_t vb = tid - lane; vb < n_vec; vb += stride) {
-    const int64_t v = vb + lane;
-    int32_t lo[kKeys] = {0, 0, 0, 0}, c[kKeys] = {0, 0, 0, 0};
-    if (v < n_vec) {
-      const int4 kv = __ldg(k4 + v);
-      const int32_t q[kKeys] = {kv.x, kv.y, kv.z, kv.w};
-      t.probe(q, lo, c);
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kKeys;
+  for (int64_t first = warp * 32 * kKeys; first < n; first += step) {
+    int32_t q[kKeys], lo[kKeys], c[kKeys];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const int64_t i = first + 32 * j + lane;
+      q[j] = __ldg(keys + (i < n ? i : n - 1));
     }
-    const int lanes = static_cast<int>(n_vec - vb < 32 ? n_vec - vb : 32);
-    out.put_warp(head + kKeys * vb, lanes, lo, c, vec_out);
+    t.probe(q, lo, c);
+    out.put(first, n, lo, c);
   }
 }
 
@@ -631,9 +562,9 @@ __device__ __forceinline__ void first_hits(const int32_t* __restrict__ ht_keys,
   }
 }
 
-// One group of four rows (or one row of the head or tail) a thread; the
-// grid covers every group, so a warp's threads all reach the count's
-// shuffles.
+// A warp takes 32 * kKeys contiguous rows, lane l the rows first + l +
+// 32 j, as probe_all does: coalesced loads of the keys and stores of
+// s_idx at any alignment.  The grid covers every row once.
 template <int kW>
 __global__ void __launch_bounds__(kThreads)
 hash_probe_kernel(const int32_t* __restrict__ ht_keys,
@@ -641,66 +572,47 @@ hash_probe_kernel(const int32_t* __restrict__ ht_keys,
                   const int32_t* __restrict__ keys, int64_t n,
                   int32_t depth, int64_t block, int32_t* __restrict__ s_idx,
                   int32_t* __restrict__ counts) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(keys);
-  const int64_t to_16 = static_cast<int64_t>(((16 - (addr & 15)) & 15) >> 2);
-  const int64_t head = to_16 < n ? to_16 : n;
-  const int64_t n_vec = (n - head) / kKeys;
-  const int64_t tail = head + kKeys * n_vec;
-  const int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  int rows = 0;
-  int64_t row0 = 0;
-  int32_t k[kKeys] = {0, 0, 0, 0};
-  if (u < n_vec) {
-    const int4 kv = __ldg(reinterpret_cast<const int4*>(keys + head) + u);
-    k[0] = kv.x;
-    k[1] = kv.y;
-    k[2] = kv.z;
-    k[3] = kv.w;
-    row0 = head + kKeys * u;
-    rows = kKeys;
-  } else if (u < n_vec + head + (n - tail)) {
-    const int64_t e = u - n_vec;
-    row0 = e < head ? e : tail + (e - head);
-    k[0] = __ldg(keys + row0);
-    rows = 1;
-  }
+  const int lane = threadIdx.x & 31;
+  const int64_t first =
+      ((static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5) *
+      32 * kKeys;
+  if (first >= n) return;             // the whole warp
+  const int64_t left = n - first - lane;
+  const int rows = left <= 0 ? 0 : left > 32 * (kKeys - 1) ? kKeys
+                                   : static_cast<int>((left + 31) / 32);
+  int32_t k[kKeys];
   uint32_t h[kKeys];
 #pragma unroll
-  for (int j = 0; j < kKeys; ++j)
+  for (int j = 0; j < kKeys; ++j) {
+    k[j] = j < rows ? __ldg(keys + first + 32 * j + lane) : 0;
     h[j] = (static_cast<uint32_t>(k[j]) * kKnuth) & mask;
+  }
   int32_t found[kKeys];
   first_hits<kW>(ht_keys, mask, depth, rows, k, h, found);
-  int32_t r[kKeys];
   int hits = 0;
 #pragma unroll
   for (int j = 0; j < kKeys; ++j) {
-    r[j] = found[j] >= 0
-               ? __ldg(ht_vals + ((h[j] + static_cast<uint32_t>(found[j])) &
-                                  mask))
-               : -1;
-    hits += j < rows && r[j] >= 0;
+    const int32_t r =
+        found[j] >= 0
+            ? __ldg(ht_vals + ((h[j] + static_cast<uint32_t>(found[j])) & mask))
+            : -1;
+    found[j] = r;
+    if (j < rows) {
+      s_idx[first + 32 * j + lane] = r;
+      hits += r >= 0;
+    }
   }
-  if (rows == kKeys &&
-      (reinterpret_cast<uintptr_t>(s_idx + row0) & 15) == 0) {
-    *reinterpret_cast<int4*>(s_idx + row0) = make_int4(r[0], r[1], r[2], r[3]);
+  // the counts: one atomicAdd a warp where its rows lie in one logical
+  // block, else one a hit
+  const int64_t last = (first + 32 * kKeys < n ? first + 32 * kKeys : n) - 1;
+  if (first / block == last / block) {
+    const int total = __reduce_add_sync(0xffffffffu, hits);
+    if (lane == 0 && total > 0) atomicAdd(counts + first / block, total);
   } else {
 #pragma unroll
     for (int j = 0; j < kKeys; ++j)
-      if (j < rows) s_idx[row0 + j] = r[j];
-  }
-  // the counts: one atomicAdd a warp where all of its rows lie in one
-  // logical block, else one a hit
-  const unsigned full = 0xffffffffu;
-  const int64_t b0 = rows ? row0 / block : -1;
-  const int64_t b1 = rows ? (row0 + rows - 1) / block : -1;
-  const int64_t wb = __shfl_sync(full, b0, 0);
-  if (__all_sync(full, rows == 0 || (b0 == wb && b1 == wb))) {
-    const int total = __reduce_add_sync(full, hits);
-    if ((threadIdx.x & 31) == 0 && total > 0) atomicAdd(counts + wb, total);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j)
-      if (j < rows && r[j] >= 0) atomicAdd(counts + (row0 + j) / block, 1);
+      if (j < rows && found[j] >= 0)
+        atomicAdd(counts + (first + 32 * j + lane) / block, 1);
   }
 }
 
@@ -749,9 +661,8 @@ extern "C" int hash_probe_i32(const void* ht_keys, const void* ht_vals,
   cudaError_t err =
       cudaMemsetAsync(counts, 0, sizeof(int32_t) * n_blocks, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a thread per group of four keys, and one per key of the head and tail
-  const int64_t items = n / kKeys + 2 * (kKeys - 1);
-  const unsigned grid = static_cast<unsigned>((items + kThreads - 1) / kThreads);
+  const unsigned grid = static_cast<unsigned>(
+      (n + kThreads * kKeys - 1) / (kThreads * kKeys));
   const uint32_t mask = static_cast<uint32_t>(ts - 1);
   const int32_t* hk = static_cast<const int32_t*>(ht_keys);
   const int32_t* hv = static_cast<const int32_t*>(ht_vals);

@@ -15,9 +15,11 @@
 //   (the TPU kernel counted its pads).  The keys a search reads first sit in
 //   shared memory as a breadth-first (Eytzinger) tree.  Each block of the
 //   probe loads them once and runs a grid-stride loop over the probe keys,
-//   on a grid of a few blocks an SM.  A thread takes 4 keys at a time (one
-//   int4 load where the keys are 16-byte aligned, a scalar head and tail
-//   otherwise) and interleaves their four branchless descents.  The tree
+//   on a grid of a few blocks an SM.  A warp takes 128 keys at a time,
+//   lane l the keys l + 32 j, j < 4 (coalesced at any alignment; where
+//   the probe keys are sorted, one j's 32 searches read neighbouring
+//   entries and share lines), and a thread interleaves its four
+//   branchless descents.  The tree
 //   matters for the banks: the positions base + half - 1 a plain binary
 //   search reads all lie in one bank of shared memory from half >= 32 on,
 //   so a warp's deep levels serialise up to 32 ways, while one level of
@@ -54,14 +56,17 @@
 //   0.034 ms at 3.35 TB/s.
 //   Design: the search is probe_counts_i32's, on the same two routes and
 //   through the same code (probe_all with a Table and an output), so
-//   (start, count) equal probe_counts_i32's bit for bit.  Then each
-//   thread gathers its four keys' first min(count, cap) build rows, which
-//   are contiguous in `order` from the bucket start, all of a group's
-//   loads issued before its stores.  Its four rows of `mat` are
-//   contiguous too: where cap % 4 == 0 (the rows then start on 16-byte
-//   marks) each goes out as cap / 4 int4 stores, else as scalar stores.
-//   The clamp keeps every read inside the real table, so `order` needs no
-//   padded copy.
+//   (start, count) equal probe_counts_i32's bit for bit.  A warp's 128
+//   rows of `mat` are contiguous, and so are a bucket's first
+//   min(count, cap) build rows in `order`.  Where cap % 4 == 0 (every row
+//   starts on a 16-byte mark) the warp writes its rows as int4 chunks,
+//   lane l the chunks l, l + 32, ..., so that each store instruction
+//   covers 512 contiguous bytes; a chunk's bucket comes by shuffles from
+//   the lane that searched it.  A lane writing its own rows as int4s (a
+//   row's 32 bytes at 128-byte strides across the warp) took 3.5 times as
+//   long on an H100 at the 50-key dimension's shape (PERF.md).  Other
+//   caps store a lane's own rows as scalars.  The clamp keeps every read
+//   inside the real table, so `order` needs no padded copy.
 //
 // hash_probe_i32 replaces probe_pallas / _probe_kernel in the same file:
 //   Knuth multiplicative hash (k * 2654435769) & (ts - 1), a linear probe
@@ -73,19 +78,19 @@
 //   Design: the 32768-slot key+value table is 256 KB, over the 227 KB of
 //   shared memory a block can use, so it stays in global memory and is
 //   served from L2 (50 MB).  The kernel is latency-bound, so it keeps many
-//   rows in flight: a thread takes four rows (one int4 key load where the
-//   keys are 16-byte aligned, a scalar head and tail otherwise) and
-//   probes them together.  The slots a row's walk reads are read as
-//   16-byte windows of four aligned slots, all four rows' windows loaded
-//   before any is compared, and the first hit is picked in registers, so
-//   no load waits on an earlier compare; a row needs another window only
-//   if the walk goes past this one, and reads ht_vals only on a hit.  A
-//   thread per group of four rows fills the card in one wave; the counts
-//   of a logical block are summed per warp (per row where a warp's rows
-//   straddle two logical blocks) and added with atomicAdd into `counts`,
-//   which the launcher zeroes first, so they are exact for any `block`.
-//   The hash multiplies as unsigned 32-bit, which wraps exactly like the
-//   reference's int32 product.
+//   rows in flight: a warp takes 128 contiguous rows, lane l the rows
+//   l + 32 j, j < 4 (coalesced loads and stores at any alignment), and a
+//   thread probes its four together.  The slots a row's walk reads are
+//   read as 16-byte windows of four aligned slots, all four rows' windows
+//   loaded before any is compared, and the first hit is picked in
+//   registers, so no load waits on an earlier compare; a row needs
+//   another window only if the walk goes past this one, and reads ht_vals
+//   only on a hit.  A warp per 128 rows fills the card in one wave; the
+//   counts of a logical block are summed per warp (per row where a warp's
+//   rows straddle two logical blocks) and added with atomicAdd into
+//   `counts`, which the launcher zeroes first, so they are exact for any
+//   `block`.  The hash multiplies as unsigned 32-bit, which wraps exactly
+//   like the reference's int32 product.
 #include "common.cuh"
 
 namespace {
@@ -129,27 +134,68 @@ __device__ __forceinline__ void descend(const int32_t* tree, int levels,
   for (int j = 0; j < K; ++j) below[j] = k[j] - (1 << levels);
 }
 
-// Entries at and past the (clamped) lower bound lo are >= q: the run of q
-// starts at lo if it starts at all.  Gallop to a position past its end,
-// then binary-search the last gap.  lo + b and lo + mid stay below n_s, and
-// 2 b is taken only while b <= rem / 2, so nothing overflows int32.
+// Entries at and past the (clamped) lower bound lo[j] are >= q[j]: the run
+// of q[j] starts at lo[j] if it starts at all.  Gallop to a position past
+// its end (1, 2, 4, ... past lo[j]), then binary-search the last gap.  The
+// keys step together, one load each a step, so that their chains of
+// dependent loads overlap.  lo + b and lo + mid stay below n_s, and 2 b is
+// taken only while b <= rem / 2, so nothing overflows int32.
 template <class Table>
-__device__ __forceinline__ int32_t run_length(const Table& t, int32_t lo,
-                                              int32_t q) {
-  if (lo >= t.n_s || t.at(lo) != q) return 0;
-  const int32_t rem = t.n_s - lo;
-  int32_t a = 1, b = 1, hi;           // t.at(lo + i) == q for every i < a
-  for (;;) {
-    if (b >= rem) { hi = rem; break; }
-    if (t.at(lo + b) != q) { hi = b; break; }
-    a = b + 1;
-    b = b > (rem >> 1) ? rem : 2 * b;
+__device__ __forceinline__ void run_lengths(const Table& t,
+                                            const int32_t (&lo)[kKeys],
+                                            const int32_t (&q)[kKeys],
+                                            int32_t (&len)[kKeys]) {
+  // t.at(lo + i) == q for every i < a; the run ends in [a, hi] once
+  // `gallop` is off
+  int32_t a[kKeys], b[kKeys], hi[kKeys], rem[kKeys];
+  bool gallop[kKeys];
+  bool busy = false;
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    const bool starts = lo[j] < t.n_s && t.at(lo[j]) == q[j];
+    rem[j] = t.n_s - lo[j];
+    a[j] = starts ? 1 : 0;
+    b[j] = 1;
+    hi[j] = 0;
+    gallop[j] = starts;
+    busy |= starts;
   }
-  while (a < hi) {                    // the run ends in [a, hi]
-    const int32_t mid = a + ((hi - a) >> 1);
-    if (t.at(lo + mid) == q) a = mid + 1; else hi = mid;
+  while (busy) {
+    int32_t pos[kKeys], v[kKeys];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (gallop[j] && b[j] >= rem[j]) {
+        hi[j] = rem[j];
+        gallop[j] = false;
+      }
+      pos[j] = gallop[j] ? b[j]
+               : a[j] < hi[j] ? a[j] + ((hi[j] - a[j]) >> 1) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+      v[j] = pos[j] >= 0 ? t.at(lo[j] + pos[j]) : 0;
+    busy = false;
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (pos[j] < 0) continue;
+      if (gallop[j]) {
+        if (v[j] != q[j]) {
+          hi[j] = b[j];
+          gallop[j] = false;
+        } else {
+          a[j] = b[j] + 1;
+          b[j] = b[j] > (rem[j] >> 1) ? rem[j] : 2 * b[j];
+        }
+      } else if (v[j] == q[j]) {
+        a[j] = pos[j] + 1;
+      } else {
+        hi[j] = pos[j];
+      }
+      busy |= gallop[j] || a[j] < hi[j];
+    }
   }
-  return a;
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) len[j] = a[j];
 }
 
 // The shared route: the whole table, padded to ts = 2**levels, in shared
@@ -173,8 +219,8 @@ struct SharedTable {
     for (int j = 0; j < kKeys; ++j) {
       lo[j] += lo[j] == last && tree[0] < q[j];
       lo[j] = min(lo[j], n_s);
-      count[j] = run_length(*this, lo[j], q[j]);
     }
+    run_lengths(*this, lo, q, count);
   }
 };
 
@@ -233,14 +279,16 @@ struct SampledTable {
         }
       }
     }
+    int32_t past[kKeys], more[kKeys];  // runs that reach past the window
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       lo[j] = min(base[j] + lt[j], n_s);
-      count[j] = eq[j];
-      if (eq[j] > 0 && lt[j] + eq[j] == kWindow &&
-          base[j] + kWindow < n_s)
-        count[j] += run_length(*this, base[j] + kWindow, q[j]);
+      past[j] = eq[j] > 0 && lt[j] + eq[j] == kWindow ? base[j] + kWindow
+                                                      : n_s;
     }
+    run_lengths(*this, past, q, more);
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) count[j] = eq[j] + more[j];
   }
 };
 
@@ -260,13 +308,13 @@ struct BucketOut {
   __device__ __forceinline__ void put(int64_t first, int64_t n,
                                       const int32_t (&lo)[kKeys],
                                       const int32_t (&c)[kKeys]) const {
-    const int lane = threadIdx.x & 31;
+    const int64_t i = first + (threadIdx.x & 31);
+    const bool whole = first + 32 * kKeys <= n;
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
-      const int64_t i = first + 32 * j + lane;
-      if (i < n) {
-        start[i] = lo[j];
-        count[i] = c[j];
+      if (whole || i + 32 * j < n) {
+        start[i + 32 * j] = lo[j];
+        count[i + 32 * j] = c[j];
       }
     }
   }
@@ -348,10 +396,14 @@ __device__ __forceinline__ void probe_all(const Table& t,
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kKeys;
   for (int64_t first = warp * 32 * kKeys; first < n; first += step) {
     int32_t q[kKeys], lo[kKeys], c[kKeys];
+    const int32_t* k = keys + first + lane;
+    if (first + 32 * kKeys <= n) {
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const int64_t i = first + 32 * j + lane;
-      q[j] = __ldg(keys + (i < n ? i : n - 1));
+      for (int j = 0; j < kKeys; ++j) q[j] = __ldg(k + 32 * j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j)
+        q[j] = __ldg(first + 32 * j + lane < n ? k + 32 * j : keys + n - 1);
     }
     t.probe(q, lo, c);
     out.put(first, n, lo, c);

@@ -24,7 +24,9 @@ bound (inputs read once, outputs written once, over 3.35 TB/s):
   lineitem joined with orders (1,500,000 order keys, 6,001,215 lineitem
   keys: the sampled route).
 
-It also prints the card's name and power limit, and the registers and
+Each line ends with the device time a call of each kernel and copy the
+call launches (from one more profiled run of ``--reps`` calls).  It also
+prints the card's name and power limit, and the registers and
 spills ``ptxas`` reports for the join kernels when this process built
 them.  ``--src`` imports ``repro_torch`` from another checkout's
 ``src`` (its kernels build into that checkout), so two commits are
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import statistics
 import sys
 
@@ -43,6 +46,13 @@ import chip_smoke as cs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+
+
+def _short(key: str) -> str:
+    """A kernel's own name (with its template arguments' first word) out of
+    the profiler's demangled signature."""
+    m = re.search(r"(\w+_kernel(?:<\w+)?)", key)
+    return m.group(1) if m else key[:40]
 
 
 def main(argv=None) -> int:
@@ -64,6 +74,21 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = cs.phase_card()
 
+    def split(fn):
+        """Device time a call of each kernel and copy ``fn`` launches."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fn()
+            torch.cuda.synchronize()
+        parts = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        return "; ".join(f"{_short(e.key)} "
+                         f"{e.self_device_time_total / 1e3 / args.reps:.4f}"
+                         for e in sorted(parts, key=lambda e:
+                                         -e.self_device_time_total))
+
     def line(name, shape, fn, n_bytes):
         times = sorted(cs.device_ms(fn, args.reps) for _ in range(3))
         host = cs.time_ms(fn, reps=args.reps)
@@ -73,7 +98,8 @@ def main(argv=None) -> int:
               f"{times[-1]:.4f} ms a call (min / median / max of 3 x "
               f"{args.reps} calls), dispatched from the host {host:.4f} ms "
               f"a call, bound {bound:.4f} ms ({bound / mid:.1%} of the "
-              f"median); {card}", flush=True)
+              f"median); {card}; by kernel (ms a call): {split(fn)}",
+              flush=True)
 
     tpch, _ = cs.make_tpch(cs.TPCH_LINEITEM_ROWS, cs.TPCH_ORDERS_ROWS, SEED)
     li = tpch["lineitem"]

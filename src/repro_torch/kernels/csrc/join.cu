@@ -134,68 +134,27 @@ __device__ __forceinline__ void descend(const int32_t* tree, int levels,
   for (int j = 0; j < K; ++j) below[j] = k[j] - (1 << levels);
 }
 
-// Entries at and past the (clamped) lower bound lo[j] are >= q[j]: the run
-// of q[j] starts at lo[j] if it starts at all.  Gallop to a position past
-// its end (1, 2, 4, ... past lo[j]), then binary-search the last gap.  The
-// keys step together, one load each a step, so that their chains of
-// dependent loads overlap.  lo + b and lo + mid stay below n_s, and 2 b is
-// taken only while b <= rem / 2, so nothing overflows int32.
+// Entries at and past the (clamped) lower bound lo are >= q: the run of q
+// starts at lo if it starts at all.  Gallop to a position past its end,
+// then binary-search the last gap.  lo + b and lo + mid stay below n_s, and
+// 2 b is taken only while b <= rem / 2, so nothing overflows int32.
 template <class Table>
-__device__ __forceinline__ void run_lengths(const Table& t,
-                                            const int32_t (&lo)[kKeys],
-                                            const int32_t (&q)[kKeys],
-                                            int32_t (&len)[kKeys]) {
-  // t.at(lo + i) == q for every i < a; the run ends in [a, hi] once
-  // `gallop` is off
-  int32_t a[kKeys], b[kKeys], hi[kKeys], rem[kKeys];
-  bool gallop[kKeys];
-  bool busy = false;
-#pragma unroll
-  for (int j = 0; j < kKeys; ++j) {
-    const bool starts = lo[j] < t.n_s && t.at(lo[j]) == q[j];
-    rem[j] = t.n_s - lo[j];
-    a[j] = starts ? 1 : 0;
-    b[j] = 1;
-    hi[j] = 0;
-    gallop[j] = starts;
-    busy |= starts;
+__device__ __forceinline__ int32_t run_length(const Table& t, int32_t lo,
+                                              int32_t q) {
+  if (lo >= t.n_s || t.at(lo) != q) return 0;
+  const int32_t rem = t.n_s - lo;
+  int32_t a = 1, b = 1, hi;           // t.at(lo + i) == q for every i < a
+  for (;;) {
+    if (b >= rem) { hi = rem; break; }
+    if (t.at(lo + b) != q) { hi = b; break; }
+    a = b + 1;
+    b = b > (rem >> 1) ? rem : 2 * b;
   }
-  while (busy) {
-    int32_t pos[kKeys], v[kKeys];
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      if (gallop[j] && b[j] >= rem[j]) {
-        hi[j] = rem[j];
-        gallop[j] = false;
-      }
-      pos[j] = gallop[j] ? b[j]
-               : a[j] < hi[j] ? a[j] + ((hi[j] - a[j]) >> 1) : -1;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j)
-      v[j] = pos[j] >= 0 ? t.at(lo[j] + pos[j]) : 0;
-    busy = false;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      if (pos[j] < 0) continue;
-      if (gallop[j]) {
-        if (v[j] != q[j]) {
-          hi[j] = b[j];
-          gallop[j] = false;
-        } else {
-          a[j] = b[j] + 1;
-          b[j] = b[j] > (rem[j] >> 1) ? rem[j] : 2 * b[j];
-        }
-      } else if (v[j] == q[j]) {
-        a[j] = pos[j] + 1;
-      } else {
-        hi[j] = pos[j];
-      }
-      busy |= gallop[j] || a[j] < hi[j];
-    }
+  while (a < hi) {                    // the run ends in [a, hi]
+    const int32_t mid = a + ((hi - a) >> 1);
+    if (t.at(lo + mid) == q) a = mid + 1; else hi = mid;
   }
-#pragma unroll
-  for (int j = 0; j < kKeys; ++j) len[j] = a[j];
+  return a;
 }
 
 // The shared route: the whole table, padded to ts = 2**levels, in shared
@@ -219,8 +178,8 @@ struct SharedTable {
     for (int j = 0; j < kKeys; ++j) {
       lo[j] += lo[j] == last && tree[0] < q[j];
       lo[j] = min(lo[j], n_s);
+      count[j] = run_length(*this, lo[j], q[j]);
     }
-    run_lengths(*this, lo, q, count);
   }
 };
 
@@ -279,16 +238,14 @@ struct SampledTable {
         }
       }
     }
-    int32_t past[kKeys], more[kKeys];  // runs that reach past the window
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       lo[j] = min(base[j] + lt[j], n_s);
-      past[j] = eq[j] > 0 && lt[j] + eq[j] == kWindow ? base[j] + kWindow
-                                                      : n_s;
+      count[j] = eq[j];
+      if (eq[j] > 0 && lt[j] + eq[j] == kWindow &&
+          base[j] + kWindow < n_s)
+        count[j] += run_length(*this, base[j] + kWindow, q[j]);
     }
-    run_lengths(*this, past, q, more);
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) count[j] = eq[j] + more[j];
   }
 };
 

@@ -117,9 +117,18 @@ __device__ __forceinline__ int32_t tree_to_sorted(int32_t k, int levels) {
   return (((k - (1 << d)) * 2 + 1) << (levels - 1 - d)) - 1;
 }
 
-// After `levels` steps k = 2 k + (tree[k] < q) from k = 1, k - 2**levels is
-// the number of the tree's 2**levels - 1 keys below q: the path's bits.
-template <int K>
+// v sorts before the first position a search looks for: the first entry
+// >= q (the lower bound), or with kStrict the first entry > q (the upper
+// bound).
+template <bool kStrict>
+__device__ __forceinline__ bool before(int32_t v, int32_t q) {
+  return kStrict ? v <= q : v < q;
+}
+
+// After `levels` steps k = 2 k + before(tree[k], q) from k = 1,
+// k - 2**levels is the number of the tree's 2**levels - 1 keys before q:
+// the path's bits.
+template <bool kStrict = false, int K>
 __device__ __forceinline__ void descend(const int32_t* tree, int levels,
                                         const int32_t (&q)[K],
                                         int32_t (&below)[K]) {
@@ -128,7 +137,8 @@ __device__ __forceinline__ void descend(const int32_t* tree, int levels,
   for (int j = 0; j < K; ++j) k[j] = 1;
   for (int l = 0; l < levels; ++l) {
 #pragma unroll
-    for (int j = 0; j < K; ++j) k[j] = 2 * k[j] + (tree[k[j]] < q[j]);
+    for (int j = 0; j < K; ++j)
+      k[j] = 2 * k[j] + before<kStrict>(tree[k[j]], q[j]);
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) below[j] = k[j] - (1 << levels);
@@ -136,17 +146,20 @@ __device__ __forceinline__ void descend(const int32_t* tree, int levels,
 
 // Entries at and past the (clamped) lower bound lo are >= q: the run of q
 // starts at lo if it starts at all.  Gallop to a position past its end,
-// then binary-search the last gap.  lo + b and lo + mid stay below n_s, and
-// 2 b is taken only while b <= rem / 2, so nothing overflows int32.
+// then binary-search the last gap; -1 if the run reaches past lo + limit
+// (the caller then searches for its end).  lo + b and lo + mid stay below
+// n_s, and 2 b is taken only while b <= rem / 2, so nothing overflows
+// int32.
 template <class Table>
 __device__ __forceinline__ int32_t run_length(const Table& t, int32_t lo,
-                                              int32_t q) {
+                                              int32_t q, int32_t limit) {
   if (lo >= t.n_s || t.at(lo) != q) return 0;
   const int32_t rem = t.n_s - lo;
   int32_t a = 1, b = 1, hi;           // t.at(lo + i) == q for every i < a
   for (;;) {
     if (b >= rem) { hi = rem; break; }
     if (t.at(lo + b) != q) { hi = b; break; }
+    if (b >= limit) return -1;
     a = b + 1;
     b = b > (rem >> 1) ? rem : 2 * b;
   }
@@ -178,7 +191,7 @@ struct SharedTable {
     for (int j = 0; j < kKeys; ++j) {
       lo[j] += lo[j] == last && tree[0] < q[j];
       lo[j] = min(lo[j], n_s);
-      count[j] = run_length(*this, lo[j], q[j]);
+      count[j] = run_length(*this, lo[j], q[j], n_s);
     }
   }
 };
@@ -187,9 +200,12 @@ struct SharedTable {
 // ts / kSample) as a tree in shared memory; the table in device memory,
 // virtually padded.  The tree narrows a search to step keys from base;
 // binary steps from device memory narrow it to a window of kWindow (step
-// if smaller), which is read as int4 vectors and counted: the keys below q
-// give the lower bound, the keys equal to q the count, unless the run
-// reaches past the window.
+// if smaller), which is read as int4 vectors and counted: the keys before
+// the bound give it, the keys equal to q the count, unless the run
+// reaches past the window.  Then a short run's end is found by a gallop
+// of up to kWindow past it, a longer run's by a second search, for the
+// upper bound, which costs as many loads as the first whatever the run's
+// length.
 template <int kWindow>
 struct SampledTable {
   const int32_t* tree;
@@ -201,50 +217,77 @@ struct SampledTable {
     return i < n_s ? __ldg(s + i) : kPadSentinel;
   }
 
-  __device__ __forceinline__ void probe(const int32_t (&q)[kKeys],
-                                        int32_t (&lo)[kKeys],
-                                        int32_t (&count)[kKeys]) const {
-    int32_t base[kKeys];
-    descend(tree, kSampleLevels, q, base);
+  // The window [base, base + kWindow] holding each key's bound (see
+  // before()); ahead[j] counts the window's real entries before it, same[j]
+  // those equal to q[j].
+  template <bool kStrict>
+  __device__ __forceinline__ void narrow(const int32_t (&q)[kKeys],
+                                         int32_t (&base)[kKeys],
+                                         int32_t (&ahead)[kKeys],
+                                         int32_t (&same)[kKeys]) const {
+    descend<kStrict>(tree, kSampleLevels, q, base);
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) base[j] <<= log_step;
     for (int32_t half = step >> 1; half >= kWindow; half >>= 1) {
 #pragma unroll
       for (int j = 0; j < kKeys; ++j)
-        base[j] += at(base[j] + half - 1) < q[j] ? half : 0;
+        base[j] += before<kStrict>(at(base[j] + half - 1), q[j]) ? half : 0;
     }
-    int32_t lt[kKeys], eq[kKeys];
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
-      lt[j] = 0;
-      eq[j] = 0;
+      ahead[j] = 0;
+      same[j] = 0;
       if (kWindow % 4 == 0 && aligned && base[j] + kWindow <= n_s) {
         const int4* w = reinterpret_cast<const int4*>(s + base[j]);
 #pragma unroll
         for (int t = 0; t < kWindow / 4; ++t) {
           const int4 v = __ldg(w + t);
-          lt[j] += (v.x < q[j]) + (v.y < q[j]) + (v.z < q[j]) + (v.w < q[j]);
-          eq[j] += (v.x == q[j]) + (v.y == q[j]) + (v.z == q[j]) +
-                   (v.w == q[j]);
+          ahead[j] += before<kStrict>(v.x, q[j]) + before<kStrict>(v.y, q[j]) +
+                      before<kStrict>(v.z, q[j]) + before<kStrict>(v.w, q[j]);
+          same[j] += (v.x == q[j]) + (v.y == q[j]) + (v.z == q[j]) +
+                     (v.w == q[j]);
         }
       } else {
 #pragma unroll
         for (int t = 0; t < kWindow; ++t) {
           if (base[j] + t < n_s) {
             const int32_t v = __ldg(s + base[j] + t);
-            lt[j] += v < q[j];
-            eq[j] += v == q[j];
+            ahead[j] += before<kStrict>(v, q[j]);
+            same[j] += v == q[j];
           }
         }
       }
     }
+  }
+
+  __device__ __forceinline__ void probe(const int32_t (&q)[kKeys],
+                                        int32_t (&lo)[kKeys],
+                                        int32_t (&count)[kKeys]) const {
+    int32_t base[kKeys], lt[kKeys], eq[kKeys];
+    narrow<false>(q, base, lt, eq);
+    bool longer[kKeys], any = false;
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       lo[j] = min(base[j] + lt[j], n_s);
       count[j] = eq[j];
+      longer[j] = false;
       if (eq[j] > 0 && lt[j] + eq[j] == kWindow &&
-          base[j] + kWindow < n_s)
-        count[j] += run_length(*this, base[j] + kWindow, q[j]);
+          base[j] + kWindow < n_s) {
+        // the run reaches past the window; one that fills it is long
+        const int32_t more =
+            lt[j] == 0 ? -1 : run_length(*this, base[j] + kWindow, q[j],
+                                         kWindow);
+        if (more >= 0) count[j] += more;
+        longer[j] = more < 0;
+        any |= more < 0;
+      }
+    }
+    if (any) {
+      int32_t ends[kKeys], le[kKeys], same[kKeys];
+      narrow<true>(q, ends, le, same);
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j)
+        if (longer[j]) count[j] = min(ends[j] + le[j], n_s) - lo[j];
     }
   }
 };

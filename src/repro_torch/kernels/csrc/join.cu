@@ -102,6 +102,7 @@ constexpr uint32_t kKnuth = 2654435769u;      // the int32 -1640531527
 constexpr int32_t kSharedMax = 8192;   // shared route: ts <= 8,192 keys
 constexpr int kSampleLevels = 13;      // sampled route: a tree of 8,192 keys
 constexpr int32_t kSample = 1 << kSampleLevels;
+static_assert(kSample / 4 % kThreads == 0, "a block copies the tree evenly");
 constexpr int kKeys = 4;               // keys a thread searches at a time
 
 // A search tree over 2**L sorted positions, stored breadth first
@@ -469,8 +470,10 @@ probe_sampled_kernel(const int32_t* __restrict__ s_sorted, int32_t n_s,
                      const int32_t* __restrict__ keys, int64_t n, Out out) {
   __shared__ int4 tree4[kSample / 4];
   const int4* src = reinterpret_cast<const int4*>(tree_g);
-  for (int i = threadIdx.x; i < kSample / 4; i += kThreads)
-    tree4[i] = __ldg(src + i);
+  // all of a thread's loads in flight at once
+#pragma unroll
+  for (int i = 0; i < kSample / 4; i += kThreads)
+    tree4[i + threadIdx.x] = __ldg(src + i + threadIdx.x);
   __syncthreads();
   const int32_t* tree = reinterpret_cast<const int32_t*>(tree4);
   const bool aligned = (reinterpret_cast<uintptr_t>(s_sorted) & 15) == 0;

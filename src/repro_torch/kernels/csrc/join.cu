@@ -147,17 +147,20 @@ __device__ __forceinline__ void descend(const int32_t* tree, int levels,
 
 // Entries at and past the (clamped) lower bound lo are >= q: the run of q
 // starts at lo if it starts at all.  Gallop to a position past its end,
-// then binary-search the last gap.  lo + b and lo + mid stay below n_s, and
-// 2 b is taken only while b <= rem / 2, so nothing overflows int32.
+// then binary-search the last gap; -1 if the run reaches past lo + limit
+// (the caller then searches for its end).  lo + b and lo + mid stay below
+// n_s, and 2 b is taken only while b <= rem / 2, so nothing overflows
+// int32.
 template <class Table>
 __device__ __forceinline__ int32_t run_length(const Table& t, int32_t lo,
-                                              int32_t q) {
+                                              int32_t q, int32_t limit) {
   if (lo >= t.n_s || t.at(lo) != q) return 0;
   const int32_t rem = t.n_s - lo;
   int32_t a = 1, b = 1, hi;           // t.at(lo + i) == q for every i < a
   for (;;) {
     if (b >= rem) { hi = rem; break; }
     if (t.at(lo + b) != q) { hi = b; break; }
+    if (b >= limit) return -1;
     a = b + 1;
     b = b > (rem >> 1) ? rem : 2 * b;
   }
@@ -189,7 +192,7 @@ struct SharedTable {
     for (int j = 0; j < kKeys; ++j) {
       lo[j] += lo[j] == last && tree[0] < q[j];
       lo[j] = min(lo[j], n_s);
-      count[j] = run_length(*this, lo[j], q[j]);
+      count[j] = run_length(*this, lo[j], q[j], n_s);
     }
   }
 };
@@ -200,9 +203,10 @@ struct SharedTable {
 // binary steps from device memory narrow it to a window of kWindow (step
 // if smaller), which is read as int4 vectors and counted: the keys before
 // the bound give it, the keys equal to q the count, unless the run
-// reaches past the window.  Then a second search, for the upper bound,
-// finds its end, interleaved over a thread's keys like the first, and as
-// many loads as the first whatever the run's length.
+// reaches past the window.  Then a short run's end is found by a gallop
+// of up to kWindow past it, a longer run's by a second search, for the
+// upper bound, which costs as many loads as the first whatever the run's
+// length.
 template <int kWindow>
 struct SampledTable {
   const int32_t* tree;
@@ -268,9 +272,16 @@ struct SampledTable {
       lo[j] = min(base[j] + lt[j], n_s);
       count[j] = eq[j];
       longer[j] = false;
-      longer[j] = eq[j] > 0 && lt[j] + eq[j] == kWindow &&
-                  base[j] + kWindow < n_s;
-      any |= longer[j];
+      if (eq[j] > 0 && lt[j] + eq[j] == kWindow &&
+          base[j] + kWindow < n_s) {
+        // the run reaches past the window; one that fills it is long
+        const int32_t more =
+            lt[j] == 0 ? -1 : run_length(*this, base[j] + kWindow, q[j],
+                                         kWindow);
+        if (more >= 0) count[j] += more;
+        longer[j] = more < 0;
+        any |= more < 0;
+      }
     }
     if (any) {
       int32_t ends[kKeys], le[kKeys], same[kKeys];

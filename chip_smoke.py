@@ -14,7 +14,10 @@ Phases, each of which must pass or the script exits non-zero:
    of int32; integer outputs must be bit-identical.  Each is timed with
    CUDA events beside its bound (bytes read once and written once over
    the card's data-sheet memory rate) and, where one PyTorch call
-   computes the same function, that call's time;
+   computes the same function, that call's time; the join probes B3 and
+   B4, whose wrappers can cost more host time a call than their kernels
+   take, by their device time under ``torch.profiler``, the median of
+   three timings of 200 calls;
 4. ssb: an SSB Q1.1-shaped query at scale factor 10 (lineorder, 59,986,214
    rows, against the 2,556-row date dimension) through the executor in
    batch, stream and eager modes; each must equal a numpy int64 oracle,
@@ -1098,8 +1101,7 @@ def phase_multi_join(dev, tables):
         counts[name] = dict(_build.LAUNCHES)
         route = ("probe_multi" if jk.probe_multi_route(s.size) == "shared"
                  else "probe_multi_sampled")
-        if counts[name]["probe_multi"] + counts[name][
-                "probe_multi_sampled"] <= 0 or counts[name][route] <= 0:
+        if counts[name][route] <= 0:
             raise AssertionError(f"{name}: hash_join_multi launched no "
                                  f"{route} kernel")
         got_l, got_s = res.l_idx.cpu().numpy(), res.s_idx.cpu().numpy()

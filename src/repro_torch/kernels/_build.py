@@ -86,10 +86,10 @@ SIGNATURES = {
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
 # launches its kernel (never on the plain CPU path): B2's and B3's
-# shared-memory and sampled routes, B5's ring ("sgd") and split ("sgd_split") routes,
-# B7's bf16 ("flash_attention_tc") and f32 ("flash_attention_f32")
-# tensor-core routes and B8's CUDA-core ("ssd") and
-# tensor-core ("ssd_tc") routes each have their own count.
+# shared-memory and sampled routes, B5's ring ("sgd") and split
+# ("sgd_split") routes, B7's bf16 ("flash_attention_tc") and f32
+# ("flash_attention_f32") tensor-core routes and B8's CUDA-core ("ssd")
+# and tensor-core ("ssd_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,

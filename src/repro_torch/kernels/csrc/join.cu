@@ -85,11 +85,10 @@
 //   loaded before any is compared, and the first hit is picked in
 //   registers, so no load waits on an earlier compare; a row needs
 //   another window only if the walk goes past this one, and reads ht_vals
-//   only on a hit.  A warp per 128 rows fills the card in one wave; the
-//   counts of a logical block are summed per warp (per row where a warp's
-//   rows straddle two logical blocks) and added with atomicAdd into
-//   `counts`, which the launcher zeroes first, so they are exact for any
-//   `block`.  The hash multiplies as unsigned 32-bit, which wraps exactly
+//   only on a hit.  The counts of a logical block are summed per warp
+//   (per row where a warp's rows straddle two logical blocks) and added
+//   with atomicAdd into `counts`, which the launcher zeroes first, so they
+//   are exact for any `block`.  The hash multiplies as unsigned 32-bit, which wraps exactly
 //   like the reference's int32 product.
 #include "common.cuh"
 
@@ -642,19 +641,18 @@ hash_probe_kernel(const int32_t* __restrict__ ht_keys,
     k[j] = j < rows ? __ldg(keys + first + 32 * j + lane) : 0;
     h[j] = (static_cast<uint32_t>(k[j]) * kKnuth) & mask;
   }
-  int32_t found[kKeys];
+  int32_t found[kKeys], r[kKeys];
   first_hits<kW>(ht_keys, mask, depth, rows, k, h, found);
   int hits = 0;
 #pragma unroll
   for (int j = 0; j < kKeys; ++j) {
-    const int32_t r =
-        found[j] >= 0
-            ? __ldg(ht_vals + ((h[j] + static_cast<uint32_t>(found[j])) & mask))
-            : -1;
-    found[j] = r;
+    r[j] = found[j] >= 0
+               ? __ldg(ht_vals +
+                       ((h[j] + static_cast<uint32_t>(found[j])) & mask))
+               : -1;
     if (j < rows) {
-      s_idx[first + 32 * j + lane] = r;
-      hits += r >= 0;
+      s_idx[first + 32 * j + lane] = r[j];
+      hits += r[j] >= 0;
     }
   }
   // the counts: one atomicAdd a warp where its rows lie in one logical
@@ -666,7 +664,7 @@ hash_probe_kernel(const int32_t* __restrict__ ht_keys,
   } else {
 #pragma unroll
     for (int j = 0; j < kKeys; ++j)
-      if (j < rows && found[j] >= 0)
+      if (j < rows && r[j] >= 0)
         atomicAdd(counts + (first + 32 * j + lane) / block, 1);
   }
 }
@@ -686,14 +684,15 @@ extern "C" int probe_counts_i32(const void* s_sorted, int64_t n_s, int64_t ts,
       stream);
 }
 
-// `mat` is (n, cap) int32, row-major.
+// `mat` is (n, cap) int32, row-major.  A warp's int4 chunks of mat are
+// counted in int32, so caps past 2**24 take the scalar stores.
 extern "C" int probe_multi_i32(const void* s_sorted, const void* order,
                                int64_t n_s, int64_t ts, const void* keys,
                                int64_t n, int32_t cap, void* mat, void* start,
                                void* count, void* scratch, void* stream) {
   if (cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool rows4 =
-      cap % 4 == 0 && (reinterpret_cast<uintptr_t>(mat) & 15) == 0;
+  const bool rows4 = cap % 4 == 0 && cap <= (1 << 24) &&
+                     (reinterpret_cast<uintptr_t>(mat) & 15) == 0;
   return launch_probe(
       s_sorted, n_s, ts, keys, n, scratch,
       MatchOut{BucketOut{static_cast<int32_t*>(start),

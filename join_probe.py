@@ -20,9 +20,13 @@ bound (inputs read once, outputs written once, over 3.35 TB/s):
   and at its first 1/8 and 1/2, so that the fixed cost and the cost a
   row can be read apart;
 * ``probe_counts`` (B2), which shares B3's search, at SSB's batch join
-  (2,556 date keys, 59,986,214 lineorder keys: the shared route) and at
+  (2,556 date keys, 59,986,214 lineorder keys: the shared route), at
   lineitem joined with orders (1,500,000 order keys, 6,001,215 lineitem
-  keys: the sampled route).
+  keys: the sampled route), and at the eager duplicate-keyed TPC-H join
+  (the 119,384 lineitem keys of quantity 1 against the 1,500,000 order
+  keys: their 15 negative-padded pass blocks of 8,192 on the shared
+  route, all 15 a call, and the whole of them sorted on the sampled
+  route).
 
 Each line ends with the device time a call of each kernel and copy the
 call launches (from one more profiled run of ``--reps`` calls).  It also
@@ -124,7 +128,23 @@ def main(argv=None) -> int:
          f"({lkeys.shape[0]},), sampled route",
          lambda: jk.probe_counts(ordered, lkeys),
          4 * ordered.shape[0] + 12 * lkeys.shape[0])
-    del tpch, cases, ordered, lkeys
+    cap = join_core.HT_CAPACITY
+    build = torch.from_numpy(li["orderkey"][li["quantity"] == 1]).to(dev)
+    n_passes = -(-build.shape[0] // cap)
+    padded = join_core._pad_build(build, n_passes)
+    blocks = [join_ref.bucket_build(padded[p * cap:(p + 1) * cap])[0]
+              for p in range(n_passes)]
+    line("probe_counts", f"{n_passes} pass blocks of ({cap},), keys="
+         f"({okeys.shape[0]},), shared route",
+         lambda: [jk.probe_counts(b, okeys) for b in blocks],
+         n_passes * (4 * cap + 12 * okeys.shape[0]))
+    filtered, _ = join_ref.bucket_build(build)
+    line("probe_counts", f"s_sorted=({filtered.shape[0]},), keys="
+         f"({okeys.shape[0]},), "
+         f"{jk.probe_counts_route(filtered.shape[0])} route",
+         lambda: jk.probe_counts(filtered, okeys),
+         4 * filtered.shape[0] + 12 * okeys.shape[0])
+    del tpch, cases, ordered, lkeys, blocks, filtered
 
     ssb = cs.make_ssb(cs.SSB_LINEORDER_ROWS, SEED)
     lo = ssb["lineorder"]

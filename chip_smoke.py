@@ -64,7 +64,25 @@ Phases, each of which must pass or the script exits non-zero:
    ``h2d_gbps``.  The GLM search of phase 6 also trains under a 64 MiB
    device budget, and its weights must equal the resident run's bit for
    bit;
-10. lm: the LM serving path at full width and depth.  The flash-attention
+10. telemetry: the query telemetry (``Telemetry(enabled=True)``).  SSB
+   Q1.1 at SF 10 traced in batch, stream and eager mode, each value equal
+   to the oracle and to phase 4's untraced run, each mode's launches equal
+   to that run's, one bandwidth-ledger row per costed operator (the fused
+   and streamed rows attributed), with each operator's predicted and
+   measured GB/s and drifts printed; an exact-estimate table of 2**26
+   rows (``v`` cycling 0..127, ``w`` ones), whose eager rows must all read
+   ``drift_bytes`` 1.0; the median of 11 warm SSB batch runs with
+   telemetry disabled (which must call the fence helper no time) and
+   enabled, beside phase 4's; the ledger's calibration overlay (a ``cuda``
+   backend with 0 < stream_eff <= 1) through ``recost``, twice, the second
+   changing no price, its GB/s beside B6's calibrated rate; the Chrome
+   trace, valid JSON whose ``op.*`` spans lie inside their
+   ``exec.execute``; SSB spilled under 256 MiB, whose host promotions
+   (719,834,568 bytes a run) get ``promote`` rows and an ``h2d_gbps``
+   printed beside phase 8's pinned rate; and the MNIST-shaped GLM search
+   streamed, its weights equal to the untraced run's bit for bit, with
+   one ``train_glm`` row and rows x 4 x 785 x epochs x jobs bytes;
+11. lm: the LM serving path at full width and depth.  The flash-attention
    kernel's two tensor-core routes against their plain version at the
    shapes the path runs them at: bf16 (wgmma) within 2e-2 at the served
    prefills of llama3-8b (D 128, GQA 4) and stablelm-3b (D 80, MHA),
@@ -732,15 +750,15 @@ def phase_ssb(dev, tables):
     if not any(l.strip().startswith("join:") for l in plan.splitlines()):
         raise AssertionError("the date join is not the unique-key join")
     counts = {}
-    _run_modes(ex, q, ("batch", "stream", "eager"), equals(want), counts,
-               morsel_rows=1 << 22)
+    times = _run_modes(ex, q, ("batch", "stream", "eager"), equals(want),
+                       counts, morsel_rows=1 << 22)
     need = {"batch": ("probe_counts",), "stream": ("probe_counts",),
             "eager": ("select", "probe")}
     for mode, kernels in need.items():
         for k in kernels:
             if counts[mode][k] <= 0:
                 raise AssertionError(f"{mode} launched no {k} kernel")
-    return counts
+    return counts, times
 
 
 def phase_tpch(dev, tables, order_idx):
@@ -1345,6 +1363,248 @@ def phase_spill(dev, ssb_tables, cal, spill_dir):
     return counts
 
 
+EXACT_ROWS = 1 << 26             # the exact-estimate table: 2 x 256 MiB
+TRACE_MAX_EVENTS = 50_000
+
+
+def _ledger_lines(rows) -> str:
+    """Per op: predicted against measured GB/s and the two drifts."""
+    return "; ".join(
+        f"{r.op} pred {r.predicted_gbps:.1f} meas {r.achieved_gbps:.1f} "
+        f"GB/s, drift bytes {r.drift_bytes:.4f} time {r.drift_time:.3f}"
+        for r in rows)
+
+
+def phase_telemetry(dev, ssb_tables, ssb_counts, ssb_times, cal, spill_dir,
+                    seed):
+    """The query telemetry on the card: SSB Q1.1 traced in every mode
+    (values and launches equal to phase 4's untraced runs, one eager
+    ledger row per costed operator), the exact-estimate table at 2**26
+    rows (eager drift_bytes 1.0 on every operator), the enabled path's
+    cost against the disabled one (which must never fence), SSB spilled
+    with promotions in the ledger, the traced GLM search (weights equal
+    to the untraced run's), the ledger's overlay through ``recost``, and
+    the Chrome trace.  Returns launch counts by run."""
+    from repro_torch.query import exec as qexec
+
+    fences = [0]
+    real_fence = qexec._fence
+
+    def counted_fence(device):
+        fences[0] += 1
+        real_fence(device)
+
+    qexec._fence = counted_fence
+    t0 = time.perf_counter()
+    try:
+        counts = _telemetry_checks(dev, ssb_tables, ssb_counts, ssb_times,
+                                   cal, spill_dir, seed, fences)
+    finally:
+        qexec._fence = real_fence
+    log(f"telemetry: phase in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def _walk_phys(p):
+    yield p
+    for c in p.children:
+        yield from _walk_phys(c)
+
+
+def _telemetry_checks(dev, ssb_tables, ssb_counts, ssb_times, cal,
+                      spill_dir, seed, fences):
+    """``phase_telemetry``'s runs; ``fences[0]`` counts the executor's
+    fence calls."""
+    import torch
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.kernels import _build
+    from repro_torch.query import (
+        Executor, HyperParams, Q, Telemetry, TierBudgets,
+    )
+
+    counts = {}
+
+    def traced_run(ex, q, name, **kw):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.execute(q, **kw)
+        torch.cuda.synchronize()
+        counts[name] = dict(_build.LAUNCHES)
+        return res, time.perf_counter() - t0
+
+    # SSB Q1.1 traced in each mode, against phase 4's untraced runs
+    want = ssb_oracle(ssb_tables)
+    q = ssb_query(Q)
+    cat = catalog_from_arrays(ssb_tables, dev)
+    tel = Telemetry(enabled=True)
+    tel.tracer.max_events = TRACE_MAX_EVENTS
+    ex = Executor(cat, dev, telemetry=tel)
+    phys_ops = sorted(p.op for p in _walk_phys(ex.plan(q.node)[1]))
+    for mode in ("batch", "stream", "eager"):
+        start = len(tel.ledger.rows)
+        kw = {"morsel_rows": 1 << 22} if mode == "stream" else {}
+        res, first = traced_run(ex, q, f"traced {mode}", mode=mode, **kw)
+        untraced = ssb_times[mode][2]
+        if res.value != want or res.value != untraced:
+            raise AssertionError(f"traced {mode}: {res.value} against the "
+                                 f"oracle {want} and untraced {untraced}")
+        if counts[f"traced {mode}"] != ssb_counts[mode]:
+            raise AssertionError(f"traced {mode} launched "
+                                 f"{counts[f'traced {mode}']}, untraced "
+                                 f"{ssb_counts[mode]}")
+        rows = tel.ledger.rows[start:]
+        if sorted(r.op for r in rows) != phys_ops:
+            raise AssertionError(f"traced {mode}: ledger ops "
+                                 f"{[r.op for r in rows]}, plan {phys_ops}")
+        if mode == "eager":
+            if any(r.attributed or r.mode != "eager" for r in rows):
+                raise AssertionError("an eager row is attributed")
+        elif not all(r.attributed and r.mode == ("fused" if mode == "batch"
+                                                 else "stream")
+                     for r in rows):
+            raise AssertionError(f"a {mode} row is not attributed")
+        log(f"telemetry ssb {mode}: value {res.value} (= oracle, = "
+            f"untraced); launches equal the untraced run's; first run "
+            f"{first * 1e3:.3f} ms; {len(rows)} ledger rows: "
+            + _ledger_lines(rows))
+
+    # the exact-estimate table at 2**26 rows: eager drift_bytes 1.0
+    exact = {"t": {"v": (np.arange(EXACT_ROWS) % 128).astype(np.int32),
+                   "w": np.ones(EXACT_ROWS, np.int32)}}
+    etel = Telemetry(enabled=True)
+    eex = Executor(catalog_from_arrays(exact, dev), dev, telemetry=etel)
+    eq = Q.scan("t", ("v", "w")).filter("v", 10, 41).sum("w")
+    res, _ = traced_run(eex, eq, "exact eager", mode="eager")
+    if res.value != EXACT_ROWS // 128 * 32:
+        raise AssertionError(f"exact table: {res.value}")
+    erows = etel.ledger.rows
+    eops = sorted(p.op for p in _walk_phys(eex.plan(eq.node)[1]))
+    if sorted(r.op for r in erows) != eops:
+        raise AssertionError(f"exact table: ledger ops {erows}")
+    for r in erows:
+        if abs(r.drift_bytes - 1.0) > 1e-6 or not r.measured_s > 0:
+            raise AssertionError(f"exact table: {r}")
+    log(f"telemetry exact table ({EXACT_ROWS} rows x 2 int32): eager "
+        f"drift_bytes 1.0 on {eops}; " + _ledger_lines(erows))
+    del eex, exact
+
+    # the enabled path's cost against the disabled one's, which must
+    # never fence
+    off = Executor(cat, dev, telemetry=Telemetry(enabled=False))
+    off.execute(q)
+    fences[0] = 0
+    same = equals(want)
+    warm_off = warm_runs(lambda: off.execute(q),
+                         lambda v: same("batch, telemetry off", v))
+    if fences[0]:
+        raise AssertionError(f"telemetry disabled: {fences[0]} fences")
+    warm_on = warm_runs(lambda: ex.execute(q),
+                        lambda v: same("batch, telemetry on", v))
+    if not fences[0]:
+        raise AssertionError("telemetry enabled: no fence")
+    med_off, med_on = (w[len(w) // 2] for w in (warm_off, warm_on))
+    phase4 = ssb_times["batch"][1]
+    log(f"telemetry overhead, ssb batch: disabled {spread(warm_off)} (0 "
+        f"fences); enabled {spread(warm_on)} ({fences[0]} fences); "
+        f"enabled - disabled {(med_on - med_off) * 1e3:.3f} ms; phase 4 "
+        f"median {phase4[len(phase4) // 2] * 1e3:.3f} ms")
+    del off
+
+    # the SSB ledger's overlay through recost
+    overlay = tel.ledger.calibration_overlay(ex.cost_model)
+    b = overlay["backends"].get("cuda")
+    if b is None or not 0 < b["stream_eff"] <= 1:
+        raise AssertionError(f"overlay: {overlay}")
+    epoch = ex.cost_epoch
+    if ex.recost(overlay) != epoch + 1:
+        raise AssertionError("recost did not move the epoch")
+    plan = ex.explain(q)
+    ex.recost(overlay)
+    if ex.explain(q) != plan:
+        raise AssertionError("the same overlay twice changed a price")
+    log(f"telemetry overlay: cuda achieved {b['achieved_gbps']:.2f} GB/s "
+        f"(stream_eff {b['stream_eff']:.6f}) against B6's calibrated "
+        f"{cal['backends']['cuda']['achieved_gbps']:.2f} GB/s; recost "
+        f"epoch {epoch} -> {epoch + 2}, the second changes no price; "
+        f"selectivity corrections {ex.cost_model.sel_corrections}")
+
+    # the Chrome trace of the SSB runs
+    path = tel.export_chrome(os.path.join(spill_dir, "trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e["name"] == "exec.execute"]
+    ops = [e for e in events if e["name"].startswith("op.")]
+    for e in ops:
+        if not any(s["tid"] == e["tid"] and s["ts"] - 1 <= e["ts"]
+                   and e["ts"] + e["dur"] <= s["ts"] + s["dur"] + 1
+                   for s in spans):
+            raise AssertionError(f"{e['name']} lies in no exec.execute")
+    if not ops or len(events) > tel.tracer.max_events:
+        raise AssertionError(f"trace: {len(ops)} op spans, {len(events)} "
+                             "events")
+    log(f"telemetry chrome trace: {len(events)} events (max "
+        f"{tel.tracer.max_events}, {tel.tracer.dropped} dropped), "
+        f"{len(ops)} op spans each inside its exec.execute; "
+        f"{os.path.getsize(path)} bytes")
+    del ex, cat
+    torch.cuda.empty_cache()
+
+    # SSB spilled under 256 MiB: the host promotions in the ledger
+    stel = Telemetry(enabled=True)
+    sex = Executor(catalog_from_arrays(ssb_tables, dev), dev,
+                   tier_budgets=TierBudgets(device=256 * MIB),
+                   telemetry=stel)
+    sex._spill_dir = spill_dir
+    sex.recost(cal)
+    sex.execute(q)
+    sex.reset_metrics()
+    start = len(stel.ledger.rows)
+    res, first = traced_run(sex, q, "traced spill")
+    if res.value != want:
+        raise AssertionError(f"traced spill: {res.value} != {want}")
+    promoted = sum(n for t, n in sex.last_spill.bytes_by_tier.items()
+                   if t == "host")
+    got = sex.stats_dict()["promote_bytes_host"]
+    if got != promoted or promoted != 3 * SSB_LINEORDER_ROWS * 4:
+        raise AssertionError(f"promoted {got} host bytes, the spill plan "
+                             f"{promoted}")
+    prow = [r for r in stel.ledger.rows[start:] if r.op == "promote"]
+    if [r.tier for r in prow] != ["host"]:
+        raise AssertionError(f"promote rows {prow}")
+    h2d = stel.ledger.calibration_overlay(sex.cost_model)["h2d_gbps"]
+    log(f"telemetry spill: {got} bytes promoted from host a run (= the "
+        f"plan's), in {prow[0].measured_s * 1e3:.3f} ms of fenced fetches; "
+        f"ledger h2d {h2d:.2f} GB/s against the calibrated (pinned) "
+        f"{cal['h2d_gbps']:.2f} GB/s; run {first * 1e3:.3f} ms")
+    del sex
+    torch.cuda.empty_cache()
+
+    # the GLM search streamed, traced, against the untraced run
+    tables, _, _ = make_mnist_like(MNIST_ROWS, MNIST_FEATURES, seed)
+    gq = glm_query(Q, HyperParams)
+    gcat = catalog_from_arrays(tables, dev)
+    untraced = Executor(gcat, dev, telemetry=Telemetry(enabled=False))
+    xs_off = untraced.execute(gq, mode="stream", morsel_rows=16_384).value[0]
+    gtel = Telemetry(enabled=True)
+    gex = Executor(gcat, dev, telemetry=gtel)
+    res, first = traced_run(gex, gq, "traced glm", mode="stream",
+                            morsel_rows=16_384)
+    if not torch.equal(res.value[0], xs_off):
+        raise AssertionError("traced GLM weights differ from untraced")
+    trows = [r for r in gtel.ledger.rows if r.op == "train_glm"]
+    span = [e for e in gtel.tracer.events if e["name"] == "exec.run_train"]
+    moved = MNIST_ROWS * 4 * (MNIST_FEATURES + 1) * GLM_EPOCHS * GLM_JOBS
+    if len(trows) != 1 or len(span) != 1 \
+            or span[0]["args"]["measured_bytes"] != moved:
+        raise AssertionError(f"train rows {trows}, spans {span}")
+    log(f"telemetry glm stream: weights bit-identical to the untraced "
+        f"run's; exec.run_train {span[0]['dur'] / 1e3:.3f} ms over "
+        f"{moved} bytes; first run {first * 1e3:.3f} ms; "
+        + _ledger_lines(gtel.ledger.rows))
+    return counts
+
+
 def phase_lm_kernels(dev):
     """B7's two routes at every shape the LM path runs them at (bf16 at
     llama3-8b's and stablelm-3b's served prefills, f32 at the same two
@@ -1717,10 +1977,12 @@ def main(argv=None) -> int:
 
     log("kernels against their plain versions:")
     rows = phase_kernels(dev, ssb, tpch)
-    ssb_counts = phase_ssb(dev, ssb)
+    ssb_counts, ssb_times = phase_ssb(dev, ssb)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as spill_dir:
         cal_counts, copy_row, cal = phase_calibrate(dev, ssb, spill_dir)
         spill_counts = phase_spill(dev, ssb, cal, spill_dir)
+        tel_counts = phase_telemetry(dev, ssb, ssb_counts, ssb_times, cal,
+                                     spill_dir, args.seed)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_rows = phase_glm(dev, args.seed)
@@ -1749,7 +2011,7 @@ def main(argv=None) -> int:
                                        for counts in (ssb_counts, tpch_counts,
                                                       glm_counts, multi_counts,
                                                       cal_counts, spill_counts,
-                                                      lm_counts)
+                                                      tel_counts, lm_counts)
                                        for c in counts.values()))
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
@@ -1757,7 +2019,7 @@ def main(argv=None) -> int:
         row.pop("shape")
     log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
         f"calibrate launches: {cal_counts}; spill launches: {spill_counts}; "
-        f"lm launches: {lm_counts}")
+        f"telemetry launches: {tel_counts}; lm launches: {lm_counts}")
     by_name = {row["name"]: row for row in rows}
     copy, ring = by_name["stream_copy"], by_name["sgd"]
     steps = GLM_EPOCHS * MNIST_ROWS // GLM_MINIBATCH

@@ -10,6 +10,7 @@ morsel is explicit.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -262,7 +263,7 @@ def aggregate_sum_stream(carry: torch.Tensor, values: torch.Tensor,
 def train_glm_stream(table: Table, features: Sequence[str], label: str,
                      grid, plan: ChannelPlan, *, kind: str = "logreg",
                      epochs: int = 5, minibatch: int = 16,
-                     morsel_rows: Optional[int] = None):
+                     morsel_rows: Optional[int] = None, on_morsel=None):
     """Morsel-streamed hyper-parameter search: each epoch streams the
     morsels in table order with the K models' weights as the carry, one
     SGD launch per morsel (``epochs=1``), so the minibatch update
@@ -279,7 +280,11 @@ def train_glm_stream(table: Table, features: Sequence[str], label: str,
     the pad rows and divide by the true row count.
 
     Morsels come from ``Table.morsel``, so host- and disk-tier columns
-    stream too: each morsel's slice is staged onto the plan's device."""
+    stream too: each morsel's slice is staged onto the plan's device.
+    ``on_morsel(n_bytes, seconds, tier)`` observes each morsel's fetch
+    once per tier its columns live on: the valid rows' bytes from that
+    tier and its share (by bytes) of the fetch's seconds, fenced on the
+    device's current stream before and after."""
     m = table.num_rows
     if morsel_rows is None:
         morsel_rows = m
@@ -295,7 +300,14 @@ def train_glm_stream(table: Table, features: Sequence[str], label: str,
     lrs, l2s = hp[0], hp[1]
     xs = hp.new_zeros((len(grid), len(features)))
 
+    def fence():
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
     def morsel_arrays(i):
+        if on_morsel is not None:
+            fence()
+            t0 = time.perf_counter()
         data, n_valid = table.morsel(spec, i, cols)
         # Table.morsel pads the ragged tail to spec.rows; keep only up to
         # the next minibatch multiple past the valid rows
@@ -303,6 +315,17 @@ def train_glm_stream(table: Table, features: Sequence[str], label: str,
         a = torch.stack([plan.place(data[f][:rows_pad]).to(torch.float32)
                          for f in features], dim=1)
         b = plan.place(data[label][:rows_pad]).to(torch.float32)
+        if on_morsel is not None:
+            fence()
+            seconds = time.perf_counter() - t0
+            moved: Dict[str, int] = {}
+            for c in cols:
+                tier = table.column_tier(c)
+                moved[tier] = moved.get(tier, 0) \
+                    + int(data[c][:n_valid].nbytes)
+            total = sum(moved.values()) or 1
+            for tier, n in moved.items():
+                on_morsel(n, seconds * n / total, tier)
         return a, b, n_valid
 
     for _ in range(epochs):

@@ -1,5 +1,5 @@
 """Query subsystem of the port: logical plans -> optimizer -> cost model ->
-physical executor (batch / stream / eager).
+physical executor (batch / stream / eager), with telemetry.
 
     from repro_torch.query import Q, Catalog, Executor
 
@@ -30,6 +30,9 @@ from repro_torch.query.pipeline import (                         # noqa: F401
 from repro_torch.query.tiering import (                          # noqa: F401
     SpillPlan, TierBudgets, plan_spill,
 )
+from repro_torch.query.telemetry import (                        # noqa: F401
+    BandwidthLedger, MetricsRegistry, Telemetry,
+)
 from repro_torch.query.exec import (                             # noqa: F401
-    Catalog, Executor, PlacementCapacityError, Result,
+    Catalog, Executor, PlacementCapacityError, Result, sql_like_query,
 )

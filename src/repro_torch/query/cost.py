@@ -113,18 +113,42 @@ def selectivity(stats: ColumnStats, lo: int, hi: int) -> float:
     return min(max(span, 0) / stats.domain, 1.0)
 
 
-def estimate_rows(node: L.Node, stats: Dict[str, TableStats]) -> float:
+# measured/predicted selectivity correction factors are clamped so one bad
+# ledger window can never swing a plan by more than 4x either way
+SEL_CORRECTION_CLAMP = (0.25, 4.0)
+
+
+def clamp_correction(factor: float) -> float:
+    lo, hi = SEL_CORRECTION_CLAMP
+    return min(max(float(factor), lo), hi)
+
+
+def estimate_rows(node: L.Node, stats: Dict[str, TableStats],
+                  corrections: Optional[Dict[Tuple[str, str], float]] = None
+                  ) -> float:
     """Cardinality estimate — drives build/probe side selection and the
-    multi-pass join block count."""
+    multi-pass join block count.
+
+    ``corrections`` maps (table, column) to a measured-over-predicted
+    bytes ratio from the bandwidth ledger (``Executor.recost`` folds them
+    in from ``BandwidthLedger.selectivity_corrections``): the uniform-
+    domain selectivity of a filter over that column is scaled by the
+    clamped factor."""
     if isinstance(node, L.Scan):
         return float(stats[node.table].num_rows)
     if isinstance(node, (L.Filter, L.FilterProject)):
-        base = estimate_rows(node.child, stats)
+        base = estimate_rows(node.child, stats, corrections)
         cs = _column_stats(node.child, node.column, stats)
-        return base * (selectivity(cs, node.lo, node.hi) if cs else 0.33)
+        sel = selectivity(cs, node.lo, node.hi) if cs else 0.33
+        if corrections:
+            scan = probe_base_scan(node.child)
+            f = corrections.get((scan.table, node.column)) if scan else None
+            if f is not None:
+                sel = min(sel * clamp_correction(f), 1.0)
+        return base * sel
     if isinstance(node, L.Join):
-        l = estimate_rows(node.left, stats)
-        r = estimate_rows(node.right, stats)
+        l = estimate_rows(node.left, stats, corrections)
+        r = estimate_rows(node.right, stats, corrections)
         cs = _column_stats(node.right, node.on, stats)
         ls = _column_stats(node.left, node.on, stats)
         # expected matches per probe row ~ |build| / |key domain|, over
@@ -137,7 +161,7 @@ def estimate_rows(node: L.Node, stats: Dict[str, TableStats]) -> float:
             frac = 1.0
         return l * matches * frac
     if isinstance(node, (L.Project, L.ScoreGLM)):
-        return estimate_rows(node.child, stats)
+        return estimate_rows(node.child, stats, corrections)
     if isinstance(node, (L.Aggregate, L.TrainGLM)):
         return 1.0
     raise TypeError(node)
@@ -197,6 +221,9 @@ class CostModel:
             raise ValueError(f"impl must be 'torch' or 'cuda', got {impl!r}")
         self.n_engines = int(n_engines)
         self.impl = impl
+        # (table, column) -> measured/predicted bytes ratio fed back from
+        # the bandwidth ledger by Executor.recost (clamped at use)
+        self.sel_corrections: Dict[Tuple[str, str], float] = {}
         self.stream_eff = {i: STREAM_EFF for i in IMPLS}
         self.call_overhead = {i: CALL_OVERHEAD_S for i in IMPLS}
         self.h2d_gbps = H2D_GBPS
@@ -410,8 +437,10 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
     """Annotate a (logically optimized) plan with per-column placement,
     pass counts, costs, and the model's impl label.  ``role="build"`` is
     the build side of a join (replicated to every engine); everything
-    else streams."""
-    rows = estimate_rows(node, stats)
+    else streams.  Filter selectivities take the model's
+    ``sel_corrections``."""
+    corr = model.sel_corrections or None
+    rows = estimate_rows(node, stats, corr)
 
     if isinstance(node, L.Scan):
         n_cols = len(L.output_columns(node, {t: s.columns
@@ -430,7 +459,7 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
 
     if isinstance(node, (L.Filter, L.FilterProject)):
         child = plan_physical(node.child, stats, model, role=role)
-        in_rows = estimate_rows(node.child, stats)
+        in_rows = estimate_rows(node.child, stats, corr)
         n_out_cols = len(node.columns) if isinstance(node, L.FilterProject) \
             else 1
         n_bytes = in_rows * BYTES_PER_VALUE + rows * BYTES_PER_VALUE \
@@ -447,8 +476,8 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
     if isinstance(node, L.Join):
         left = plan_physical(node.left, stats, model, role="stream")
         right = plan_physical(node.right, stats, model, role="build")
-        build_rows = estimate_rows(node.right, stats)
-        probe_rows = estimate_rows(node.left, stats)
+        build_rows = estimate_rows(node.right, stats, corr)
+        probe_rows = estimate_rows(node.left, stats, corr)
         n_passes = max(-(-int(build_rows) // HT_CAPACITY), 1)
         unique = key_is_unique(node.right, node.on, stats)
         if unique:
@@ -488,7 +517,7 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
 
     if isinstance(node, L.Aggregate):
         child = plan_physical(node.child, stats, model, role=role)
-        n_bytes = estimate_rows(node.child, stats) * BYTES_PER_VALUE
+        n_bytes = estimate_rows(node.child, stats, corr) * BYTES_PER_VALUE
         pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
         # streaming granularity for the pipeline this aggregate roots,
         # priced on the probe-spine base scan (the stream source)
@@ -540,7 +569,7 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
     if isinstance(node, L.ScoreGLM):
         child = plan_physical(node.child, stats, model, role=role)
         d = len(node.features)
-        in_rows = estimate_rows(node.child, stats)
+        in_rows = estimate_rows(node.child, stats, corr)
         # one pass over the feature columns plus the written score column
         n_bytes = in_rows * BYTES_PER_VALUE * d + rows * BYTES_PER_VALUE
         pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1],

@@ -30,17 +30,27 @@ A working set over the device budget (``placement_capacity_bytes`` or
 disk, priced by the cost model's tier channels, and batch-mode aggregate,
 project and training plans stream them back morsel by morsel, bit-
 identical to the unspilled run.  ``recost`` applies a calibration
-measured on the card.
+measured on the card and the bandwidth ledger's selectivity corrections.
+
+Telemetry (``query/telemetry.py``; ``REPRO_TRACE=1`` or an explicit
+``Telemetry(enabled=True)``) records nested spans, per-executor counters
+and a bandwidth ledger: the fused and streamed paths fence the pipeline
+and attribute its time across the plan's operators, the eager path fences
+every operator and measures its bytes with the cost model's formulas at
+actual cardinalities, and spill promotions and streamed training get rows
+of their own.  Disabled, no path fences and nothing is recorded.
 
 The executor runs on the CUDA card unless constructed with a ``device``;
 the kernels run exactly when that device is CUDA, because every kernel
 wrapper launches on CUDA tensors and takes its plain version on CPU ones.
-The semantic cache, sharding and telemetry are not ported yet.
+The semantic cache and sharding are not ported yet.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -54,6 +64,7 @@ from repro_torch.core.channels import ChannelPlan
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.query import logical as L
 from repro_torch.query import pipeline as pl
+from repro_torch.query import telemetry as tm
 from repro_torch.query.cost import (
     BYTES_PER_VALUE, TIERS, ColumnStats, CostModel, PhysNode, TableStats,
     column_placements, key_is_unique, load_calibration, plan_physical,
@@ -156,17 +167,47 @@ def _walk_phys(p: PhysNode):
         yield from _walk_phys(c)
 
 
+def _counter(name: str, doc: str):
+    """An attribute that reads and writes the executor's MetricsRegistry
+    counter ``name`` (``ex.cache_hits`` reads ``exec.plan_cache_hits``)."""
+
+    def fget(self):
+        return int(self.metrics.value(name))
+
+    def fset(self, value):
+        self.metrics.set(name, value)
+
+    return property(fget, fset, doc=doc)
+
+
 class Executor:
     """optimize -> cost -> lower -> run, with a compiled-pipeline cache."""
+
+    cache_hits = _counter("exec.plan_cache_hits",
+                          "compiled-pipeline cache hits")
+    cache_misses = _counter("exec.plan_cache_misses",
+                            "compiled-pipeline cache misses")
+    trace_count = _counter("exec.trace_count",
+                           "pipeline steps built (one per cache miss)")
+
+    _COUNTERS = ("exec.plan_cache_hits", "exec.plan_cache_misses",
+                 "exec.trace_count")
 
     def __init__(self, catalog: Catalog, device: DeviceLike = None, *,
                  n_engines: int = 1,
                  cost_model: Optional[CostModel] = None,
                  placement_capacity_bytes: Optional[int] = None,
                  tier_budgets: Optional[TierBudgets] = None,
-                 overlap_transfers: Optional[bool] = None):
+                 overlap_transfers: Optional[bool] = None,
+                 telemetry: Optional[tm.Telemetry] = None):
         self.catalog = catalog
         self.device = resolve(device)
+        # spans and the bandwidth ledger are shared (default: the process
+        # global, REPRO_TRACE-gated); the metrics registry is private, so
+        # two executors' counters never mix
+        self.tel = telemetry if telemetry is not None else tm.get()
+        self.metrics = tm.MetricsRegistry()
+        self.reset_metrics()
         # the default model overlays the card's calibration when
         # BENCH_calibration_torch.json is in the working directory
         self.cost_model = cost_model or CostModel(
@@ -195,30 +236,74 @@ class Executor:
         self.plans: Dict[str, ChannelPlan] = {
             p: ChannelPlan(p, int(n_engines), self.device)
             for p in ("partitioned", "replicated", "congested")}
-        self.cache_hits = 0
-        self.cache_misses = 0
         self._compiled: Dict[tuple, tuple] = {}
         self._planned: Dict[tuple, tuple] = {}
         self._placed: Dict[tuple, torch.Tensor] = {}
         self._builds: Dict[tuple, tuple] = {}
 
+    # -- metrics ------------------------------------------------------------ #
+
+    def reset_metrics(self) -> None:
+        """Zero every counter and histogram (the registry keeps its
+        identity, so held references stay valid)."""
+        self.metrics.reset()
+        for name in self._COUNTERS:
+            self.metrics.set(name, 0)
+
+    def metrics_snapshot(self) -> dict:
+        """Flat snapshot of the executor's registry: counters verbatim,
+        histograms as ``name.{count,mean,p50,p95,max}``."""
+        return self.metrics.snapshot()
+
+    def stats_dict(self) -> dict:
+        total = self.cache_hits + self.cache_misses
+        return {
+            "plan_cache_hits": self.cache_hits,
+            "plan_cache_misses": self.cache_misses,
+            "plan_cache_hit_rate": self.cache_hits / total if total else 0.0,
+            "trace_count": self.trace_count,
+            "placed_columns": len(self._placed),
+            "cached_builds": len(self._builds),
+            "cost_model_calibrated_from": self.cost_model.calibrated_from,
+            "cost_epoch": self.cost_epoch,
+            "recost_count": int(self.metrics.value("exec.recost_count")),
+            "spilled_columns": int(
+                self.metrics.value("exec.spilled_columns")),
+            "promote_bytes_host": int(
+                self.metrics.value("exec.promote_bytes.host")),
+            "promote_bytes_disk": int(
+                self.metrics.value("exec.promote_bytes.disk")),
+            "tier_budgets": {"device": self.tier_budgets.device,
+                             "host": self.tier_budgets.host,
+                             "disk": self.tier_budgets.disk},
+        }
+
     # -- re-costing --------------------------------------------------------- #
 
     def recost(self, calibration: Optional[dict] = None) -> int:
         """Apply a calibration overlay to the cost model (``None`` re-reads
-        ``BENCH_calibration_torch.json``) and bump the cost epoch: every
-        memoized plan is re-derived, and the epoch in ``_cache_key`` keeps
-        compiled pipelines from crossing the boundary.  Application is
-        idempotent (the model re-baselines), so the same overlay twice
-        changes no price.  Unlike the reference, this folds in no
-        selectivity corrections from a bandwidth ledger: the port has no
-        telemetry yet.  Returns the new epoch."""
+        ``BENCH_calibration_torch.json``; usually
+        ``ledger.calibration_overlay(model)``), fold the ledger's per-
+        (table, column) selectivity corrections into
+        ``cost_model.sel_corrections`` (clamped where ``estimate_rows``
+        applies them), and bump the cost epoch: every memoized plan is
+        re-derived, and the epoch in ``_cache_key`` keeps compiled
+        pipelines from crossing the boundary.  Application is idempotent
+        (the model re-baselines), so the same overlay twice changes no
+        price.  Returns the new epoch."""
         if calibration is None:
             calibration = load_calibration()
         if calibration:
             self.cost_model.apply_calibration(calibration)
+        corrections = self.tel.ledger.selectivity_corrections()
+        if corrections:
+            self.cost_model.sel_corrections.update(corrections)
         self.cost_epoch += 1
         self._planned.clear()
+        self.metrics.inc("exec.recost_count")
+        self.metrics.set("exec.cost_epoch", self.cost_epoch)
+        self.tel.instant("exec.recost", epoch=self.cost_epoch,
+                         calibrated_from=self.cost_model.calibrated_from)
         return self.cost_epoch
 
     # -- placement ---------------------------------------------------------- #
@@ -275,59 +360,76 @@ class Executor:
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         t0 = time.perf_counter()
-        if not optimized:
+        with self.tel.span("exec.execute", mode=mode,
+                           optimized=optimized) as sp:
+            if not optimized:
+                if mode == "stream":
+                    raise ValueError("mode='stream' lowers through the "
+                                     "optimizer's physical plan; it cannot "
+                                     "combine with optimized=False")
+                sp.set(path="naive")
+                return Result(self._run_eager(node, None), None, False,
+                              time.perf_counter() - t0, mode="eager")
+            node, phys = self.plan(node)
+            # an over-budget working set is demoted to host/disk by a
+            # spill plan, and a batch plan with a streamable spine streams
+            # it back
+            spill = self._maybe_spill(node)
+            # TrainGLM roots stream the training set epoch by epoch with
+            # the model weights as the only cross-morsel carry — bit-
+            # identical to the whole-column eager path, the oracle
+            if mode != "eager":
+                tplan = pl.analyze_train(node, self.catalog.stats)
+                if tplan is not None:
+                    sp.set(path="train_stream")
+                    value = self._run_train(node, phys, tplan, morsel_rows)
+                    return Result(value, phys, False,
+                                  time.perf_counter() - t0, mode="stream")
+            if mode == "batch" and spill is not None:
+                splan = pl.analyze(node, self.catalog.stats)
+                if splan is not None:
+                    sp.set(path="spill_stream")
+                    value, hit = self._run_stream(node, phys, splan,
+                                                  morsel_rows, spill=spill)
+                    return Result(value, phys, hit,
+                                  time.perf_counter() - t0, mode="stream")
+                pplan = pl.analyze_project(node, self.catalog.stats)
+                if pplan is not None:
+                    sp.set(path="spill_stream_project")
+                    value = self._run_stream_project(node, phys, pplan,
+                                                     morsel_rows,
+                                                     spill=spill)
+                    return Result(value, phys, False,
+                                  time.perf_counter() - t0, mode="stream")
             if mode == "stream":
-                raise ValueError("mode='stream' lowers through the "
-                                 "optimizer's physical plan; it cannot "
-                                 "combine with optimized=False")
-            return Result(self._run_eager(node, None), None, False,
-                          time.perf_counter() - t0, mode="eager")
-        node, phys = self.plan(node)
-        # an over-budget working set is demoted to host/disk by a spill
-        # plan, and a batch plan with a streamable spine streams it back
-        spill = self._maybe_spill(node)
-        # TrainGLM roots stream the training set epoch by epoch with the
-        # model weights as the only cross-morsel carry — bit-identical to
-        # the whole-column eager path, which stays the oracle
-        if mode != "eager":
-            tplan = pl.analyze_train(node, self.catalog.stats)
-            if tplan is not None:
-                value = self._run_train(node, phys, tplan, morsel_rows)
+                splan = pl.analyze(node, self.catalog.stats)
+                if splan is not None:
+                    sp.set(path="stream")
+                    value, hit = self._run_stream(node, phys, splan,
+                                                  morsel_rows, spill=spill)
+                    return Result(value, phys, hit,
+                                  time.perf_counter() - t0, mode="stream")
+                sp.set(reason="no_streamable_spine")
+            if mode == "eager":
+                sp.set(path="eager")
+                value = self._run_eager(node, phys)
                 return Result(value, phys, False, time.perf_counter() - t0,
-                              mode="stream")
-        if mode == "batch" and spill is not None:
-            splan = pl.analyze(node, self.catalog.stats)
-            if splan is not None:
-                value, hit = self._run_stream(node, phys, splan,
-                                              morsel_rows, spill=spill)
-                return Result(value, phys, hit, time.perf_counter() - t0,
-                              mode="stream")
-            pplan = pl.analyze_project(node, self.catalog.stats)
-            if pplan is not None:
-                value = self._run_stream_project(node, phys, pplan,
-                                                 morsel_rows, spill=spill)
-                return Result(value, phys, False, time.perf_counter() - t0,
-                              mode="stream")
-        if mode == "stream":
-            splan = pl.analyze(node, self.catalog.stats)
-            if splan is not None:
-                value, hit = self._run_stream(node, phys, splan, morsel_rows,
-                                              spill=spill)
-                return Result(value, phys, hit, time.perf_counter() - t0,
-                              mode="stream")
-        if mode == "eager":
-            value = self._run_eager(node, phys)
-            return Result(value, phys, False, time.perf_counter() - t0,
-                          mode="eager")
-        value, hit = self._run(node, phys)
-        return Result(value, phys, hit, time.perf_counter() - t0)
+                              mode="eager")
+            sp.set(path="batch")
+            value, hit = self._run(node, phys)
+            return Result(value, phys, hit, time.perf_counter() - t0)
 
     def plan(self, node: L.Node):
         """optimize + plan_physical, memoized per node and table versions."""
         key = (node, tuple(sorted(self.catalog.versions().items())))
         if key not in self._planned:
-            opt = optimize(node, self.catalog.stats, self.cost_model)
-            phys = plan_physical(opt, self.catalog.stats, self.cost_model)
+            with self.tel.span("exec.plan") as sp:
+                with self.tel.span("exec.optimize"):
+                    opt = optimize(node, self.catalog.stats, self.cost_model)
+                with self.tel.span("exec.cost_physical"):
+                    phys = plan_physical(opt, self.catalog.stats,
+                                         self.cost_model)
+                sp.set(predicted_s=phys.total_cost_s)
             self._planned[key] = (opt, phys)
         return self._planned[key]
 
@@ -345,9 +447,25 @@ class Executor:
         cp, specs, hit = self._pipeline(node, phys, splan, rows=None)
         arrays = [self.placed(t, c, p) for t, c, p in specs]
         builds = self._breaker_arrays(splan.breakers)
-        carry = cp.step(L.literals(node), cp.init_carry(), cp.rows,
-                        *builds, *arrays)
-        return cp.finalize(carry), hit
+        lits = L.literals(node)
+        if not self.tel.enabled:
+            carry = cp.step(lits, cp.init_carry(), cp.rows, *builds,
+                            *arrays)
+            return cp.finalize(carry), hit
+        # settle the placements first, then time the step to completion:
+        # the one measurement the ledger apportions across the operators
+        with self.tel.span("exec.run_fused", compiled_hit=hit) as sp:
+            _fence(self.device)
+            t0 = time.perf_counter()
+            carry = cp.step(lits, cp.init_carry(), cp.rows, *builds,
+                            *arrays)
+            _fence(self.device)
+            dt = time.perf_counter() - t0
+            moved = sum(a.nbytes for a in arrays) \
+                + sum(b.nbytes for b in builds)
+            sp.set(measured_s=dt, measured_bytes=moved)
+            self.tel.ledger.record_plan(phys, dt, moved, mode="fused")
+            return cp.finalize(carry), hit
 
     def _cache_key(self, node: L.Node, phys: PhysNode) -> tuple:
         shapes = tuple(sorted(
@@ -367,9 +485,10 @@ class Executor:
         key = (rows,) + self._cache_key(node, phys)
         hit = key in self._compiled
         if hit:
-            self.cache_hits += 1
+            self.metrics.inc("exec.plan_cache_hits")
         else:
-            self.cache_misses += 1
+            self.metrics.inc("exec.plan_cache_misses")
+            self.metrics.inc("exec.trace_count")
             placements = column_placements(phys)
             table = splan.base_scan.table
             specs = tuple(
@@ -470,6 +589,9 @@ class Executor:
         self._placed = {k: v for k, v in self._placed.items()
                         if k[:2] not in demoted}
         self.last_spill = plan
+        self.metrics.set("exec.spilled_columns", sum(
+            1 for t in plan.tiers.values() if t != "device"))
+        self.tel.instant("exec.spill", table=table, plan=plan.describe())
         return plan
 
     @staticmethod
@@ -538,6 +660,56 @@ class Executor:
 
         return get
 
+    def _promotion_observer(self, table: str, cols,
+                            promote: Dict[str, list]):
+        """``staged_morsels``' ``on_staged`` hook when telemetry is on and
+        a streamed column lives below the device, else None: it counts
+        each morsel's promoted bytes (the valid rows of the numpy slices
+        from host and disk; the zero pad of the last morsel was read from
+        nowhere) with their share of the fenced fetch time.  It runs on
+        the prefetch thread; the registry takes its lock."""
+        tiers = [self.catalog.tables[table].columns[c].tier for c in cols]
+        if not self.tel.enabled or all(t == "device" for t in tiers):
+            return None
+
+        def observe(arrays, n_valid, seconds):
+            moved: Dict[str, int] = {}
+            for a, tier in zip(arrays, tiers):
+                if tier != "device":
+                    moved[tier] = moved.get(tier, 0) \
+                        + int(a[:n_valid].nbytes)
+            total = sum(moved.values())
+            for tier, n in moved.items():
+                self._count_promotion(promote, n, seconds * n / total, tier)
+
+        return observe
+
+    def _count_promotion(self, promote: Dict[str, list], n_bytes: int,
+                         seconds: float, tier: str) -> None:
+        """Add one promotion from ``tier`` to ``promote`` (tier -> [bytes,
+        seconds]) and to ``exec.promote_bytes.<tier>``; device-resident
+        bytes were not promoted and count nowhere."""
+        if tier == "device":
+            return
+        acc = promote.setdefault(tier, [0, 0.0])
+        acc[0] += n_bytes
+        acc[1] += seconds
+        self.metrics.inc(f"exec.promote_bytes.{tier}", n_bytes)
+
+    def _record_promotions(self, promote: Dict[str, list]) -> None:
+        """Ledger rows for spill-promotion traffic: op="promote" per
+        source tier, measured in the morsel fetch, predicted by the
+        model's tier channel — the pair the recalibration loop folds back
+        into h2d/disk bandwidth."""
+        for tier, (n_bytes, seconds) in promote.items():
+            self.tel.ledger.record(
+                op="promote", impl="promote", placement=tier,
+                predicted_bytes=float(n_bytes),
+                predicted_s=self.cost_model.promotion_cost(
+                    float(n_bytes), tier),
+                measured_bytes=float(n_bytes), measured_s=seconds,
+                mode="stream", tier=tier)
+
     # -- streaming path (morsel-driven pipeline) ---------------------------- #
 
     def _run_stream(self, node: L.Node, phys: PhysNode,
@@ -556,11 +728,32 @@ class Executor:
         spec = self._stream_spec(table, n_cols, target, morsel_rows, spill)
         cp, _, hit = self._pipeline(node, phys, splan, rows=spec.rows)
         builds = self._breaker_arrays(splan.breakers)
-        carry = pl.drive(cp, spec.n_morsels,
-                         self._morsel_getter(table, spec, cp.stream_cols),
-                         builds, L.literals(node), self.device,
-                         prefetch=self._prefetch(table, cp.stream_cols))
-        return cp.finalize(carry), hit
+        get = self._morsel_getter(table, spec, cp.stream_cols)
+        prefetch = self._prefetch(table, cp.stream_cols)
+        if not self.tel.enabled:
+            carry = pl.drive(cp, spec.n_morsels, get, builds,
+                             L.literals(node), self.device,
+                             prefetch=prefetch)
+            return cp.finalize(carry), hit
+        promote: Dict[str, list] = {}
+        with self.tel.span("exec.run_stream", n_morsels=spec.n_morsels,
+                           morsel_rows=spec.rows, compiled_hit=hit) as sp:
+            _fence(self.device)
+            t0 = time.perf_counter()
+            carry = pl.drive(
+                cp, spec.n_morsels, get, builds, L.literals(node),
+                self.device, prefetch=prefetch, telemetry=self.tel,
+                metrics=self.metrics,
+                on_staged=self._promotion_observer(table, cp.stream_cols,
+                                                   promote))
+            _fence(self.device)
+            dt = time.perf_counter() - t0
+            moved = self.catalog.stats[table].num_rows * BYTES_PER_VALUE \
+                * len(cp.stream_cols) + sum(b.nbytes for b in builds)
+            sp.set(measured_s=dt, measured_bytes=moved)
+            self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
+            self._record_promotions(promote)
+            return cp.finalize(carry), hit
 
     def _run_stream_project(self, node: L.Node, phys: Optional[PhysNode],
                             pplan: pl.ProjectStreamPlan,
@@ -574,24 +767,42 @@ class Executor:
         spec = self._stream_spec(table, len(pplan.stream_cols), morsel_rows,
                                  morsel_rows, spill)
         key = ("project",) + self._cache_key(node, phys)
-        if key not in self._compiled:
+        if key in self._compiled:
+            self.metrics.inc("exec.plan_cache_hits")
+        else:
+            self.metrics.inc("exec.plan_cache_misses")
+            self.metrics.inc("exec.trace_count")
             self._compiled[key] = pl.compile_project_pipeline(pplan,
                                                               self.device)
         cpj = self._compiled[key]
         builds = self._breaker_arrays(pplan.breakers)
         lits = L.literals(node)
         chunks = {c: [] for c in cpj.out_cols}
+        promote: Dict[str, list] = {}
+        if self.tel.enabled:
+            _fence(self.device)
+        t0 = time.perf_counter()
         morsels = pl.staged_morsels(
             spec.n_morsels, self._morsel_getter(table, spec,
                                                 cpj.stream_cols),
-            self.device, prefetch=self._prefetch(table, cpj.stream_cols))
+            self.device, prefetch=self._prefetch(table, cpj.stream_cols),
+            on_staged=self._promotion_observer(table, cpj.stream_cols,
+                                               promote))
         with contextlib.closing(morsels):
             for arrays, n_valid in morsels:
                 mask, outs = cpj.step(lits, n_valid, *builds, *arrays)
                 for c, a in zip(cpj.out_cols, outs):
                     chunks[c].append(a[mask])
-        return Table("proj", {c: Column(torch.cat(chunks[c]), c)
-                              for c in cpj.out_cols})
+        value = Table("proj", {c: Column(torch.cat(chunks[c]), c)
+                               for c in cpj.out_cols})
+        if self.tel.enabled:
+            _fence(self.device)
+            dt = time.perf_counter() - t0
+            moved = self.catalog.stats[table].num_rows * BYTES_PER_VALUE \
+                * len(cpj.stream_cols) + sum(b.nbytes for b in builds)
+            self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
+            self._record_promotions(promote)
+        return value
 
     def morsel_spec(self, table: str, target: Optional[int] = None,
                     n_cols: int = 2, src_tier: str = "host") -> MorselSpec:
@@ -634,9 +845,32 @@ class Executor:
                                       len(tplan.stream_cols), cap).rows
         cplan = self.plans.get(phys.placement if phys else "partitioned",
                                self.plans["partitioned"])
-        return engine.train_glm_stream(
-            source, list(node.features), node.label, list(node.grid),
-            cplan, kind=node.kind, epochs=node.epochs, morsel_rows=target)
+        if not self.tel.enabled:
+            return engine.train_glm_stream(
+                source, list(node.features), node.label, list(node.grid),
+                cplan, kind=node.kind, epochs=node.epochs,
+                morsel_rows=target)
+        promote: Dict[str, list] = {}
+        with self.tel.span("exec.run_train", epochs=node.epochs,
+                           k=len(node.grid),
+                           morsel_rows=target or source.num_rows) as sp:
+            _fence(self.device)
+            t0 = time.perf_counter()
+            value = engine.train_glm_stream(
+                source, list(node.features), node.label, list(node.grid),
+                cplan, kind=node.kind, epochs=node.epochs,
+                morsel_rows=target,
+                on_morsel=functools.partial(self._count_promotion, promote))
+            _fence(self.device)
+            dt = time.perf_counter() - t0
+            # the cost formula at the actual cardinality (as in
+            # _eager_measured_bytes): drift isolates estimation error
+            moved = source.num_rows * BYTES_PER_VALUE \
+                * len(tplan.stream_cols) * node.epochs * len(node.grid)
+            sp.set(measured_s=dt, measured_bytes=moved)
+            self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
+            self._record_promotions(promote)
+            return value
 
     def _resolve_model(self, n: L.ScoreGLM, phys: Optional[PhysNode]):
         """Weights for a ScoreGLM.  The port has no semantic cache, so it
@@ -657,6 +891,42 @@ class Executor:
 
     def _run_eager(self, node: L.Node, phys: Optional[PhysNode]):
         placements = column_placements(phys) if phys else {}
+        decisions = {p.logical: p for p in _walk_phys(phys)} if phys \
+            else {}
+        # the bandwidth ledger's per-operator rows: the eager lowering is
+        # the one path where every operator can be fenced alone.  Each
+        # evaluated node gets a frame; its exclusive time is its
+        # inclusive (fenced) time minus its children's, and its measured
+        # bytes are the cost model's formulas at actual cardinalities, so
+        # drift_bytes isolates estimation error and drift_time the
+        # bandwidth model's
+        ledger_on = self.tel.enabled and phys is not None
+        frames: list = []        # per live node: [child_incl_s, child_outs]
+
+        def traced_eval(n):
+            if not ledger_on:
+                return eval_node(n)
+            frames.append([0.0, []])
+            _fence(self.device)
+            t0 = time.perf_counter()
+            out = eval_node(n)
+            _fence(self.device)
+            incl = time.perf_counter() - t0
+            child_s, child_outs = frames.pop()
+            d = decisions.get(n)
+            if d is not None:
+                self.tel.complete(f"op.{d.op}", t0, incl, impl=d.impl,
+                                  placement=d.placement)
+                self.tel.ledger.record(
+                    op=d.op, impl=d.impl, placement=d.placement,
+                    predicted_bytes=d.n_bytes, predicted_s=d.cost_s,
+                    measured_bytes=_eager_measured_bytes(d, out,
+                                                         child_outs),
+                    measured_s=max(incl - child_s, 0.0), mode="eager")
+            if frames:
+                frames[-1][0] += incl
+                frames[-1][1].append((n, out))
+            return out
 
         def scan_placement(n: L.Scan) -> str:
             cols = n.columns or ("*",)
@@ -668,13 +938,13 @@ class Executor:
             if isinstance(n, L.Scan):
                 return self._placed_table(n, scan_placement(n))
             if isinstance(n, (L.Filter, L.FilterProject)):
-                t = eval_node(n.child)
+                t = traced_eval(n.child)
                 keep = n.columns if isinstance(n, L.FilterProject) \
                     else tuple(t.columns)
                 return self._filter_table(t, n.column, n.lo, n.hi, keep)
             if isinstance(n, L.Join):
-                lt = eval_node(n.left)
-                rt = eval_node(n.right)
+                lt = traced_eval(n.left)
+                rt = traced_eval(n.right)
                 if lt.plan is None:
                     pname = "partitioned" if lt.num_rows \
                         % self.plans["partitioned"].n_engines == 0 \
@@ -691,10 +961,10 @@ class Executor:
                         cols[c] = Column(rt.column(c)[r_idx], c)
                 return Table("join", cols)
             if isinstance(n, L.Project):
-                t = eval_node(n.child)
+                t = traced_eval(n.child)
                 return Table("proj", {c: t.columns[c] for c in n.columns})
             if isinstance(n, L.Aggregate):
-                col = eval_node(n.child).column(n.column)
+                col = traced_eval(n.child).column(n.column)
                 if n.op == "sum":
                     return float(col.sum()) if col.dtype.is_floating_point \
                         else int(col.sum(dtype=torch.int64))
@@ -706,11 +976,10 @@ class Executor:
                     return float(col.to(torch.float32).mean())
                 raise ValueError(n.op)
             if isinstance(n, L.TrainGLM):
-                t = eval_node(n.child)
+                t = traced_eval(n.child)
                 # the placement the cost model chose, so explain() and
                 # execution agree
-                d = next((p for p in _walk_phys(phys) if p.logical is n),
-                         None) if phys else None
+                d = decisions.get(n)
                 cplan = self.plans.get(
                     d.placement if d is not None else "partitioned",
                     self.plans["partitioned"])
@@ -718,7 +987,7 @@ class Executor:
                                         list(n.grid), cplan, kind=n.kind,
                                         epochs=n.epochs)
             if isinstance(n, L.ScoreGLM):
-                t = eval_node(n.child)
+                t = traced_eval(n.child)
                 xs, losses = self._resolve_model(n, phys)
                 idx = int(n.select) if n.select >= 0 \
                     else int(torch.argmin(losses))
@@ -729,7 +998,7 @@ class Executor:
                 return Table("score", {"score": Column(s, "score")})
             raise TypeError(n)
 
-        return eval_node(node)
+        return traced_eval(node)
 
     def _filter_table(self, t: Table, column: str, lo: int, hi: int,
                       keep: Tuple[str, ...], *, block: int = 1024) -> Table:
@@ -745,3 +1014,63 @@ class Executor:
         return engine.gather(t, sel.column("idx"),
                              [c for c in keep if c in t.columns],
                              name=f"{t.name}.sel")
+
+
+def _fence(device: torch.device) -> None:
+    """Wait for the card, so a host clock bounds execution and not the
+    enqueue of asynchronous launches; nothing to wait for on the CPU.
+    Called only with telemetry enabled."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rows_of(value) -> float:
+    """Actual output cardinality of an eager operator's materialization."""
+    if isinstance(value, Table):
+        return float(value.num_rows)
+    return 1.0
+
+
+def _eager_measured_bytes(d: PhysNode, out, child_outs) -> float:
+    """Bytes an eager operator moved: ``plan_physical``'s n_bytes formulas
+    evaluated with measured cardinalities instead of estimates, so
+    drift_bytes is 1.0 exactly when the estimates were exact, whatever the
+    bandwidth model (whose error shows in drift_time)."""
+    B = BYTES_PER_VALUE
+    rows_out = _rows_of(out)
+    kids = [_rows_of(v) for _, v in child_outs]
+    in_rows = kids[0] if kids else rows_out
+    if d.op == "scan":
+        n_cols = len(out.columns) if isinstance(out, Table) else 1
+        return rows_out * B * n_cols
+    if d.op in ("filter", "filter_project"):
+        n_out_cols = len(d.logical.columns) if d.op == "filter_project" \
+            else 1
+        return in_rows * B + rows_out * B * n_out_cols
+    if d.op == "join":
+        probe = kids[0] if kids else rows_out
+        build = kids[1] if len(kids) > 1 else probe
+        return probe * B + build * B / d.n_passes
+    if d.op == "join_multi":
+        probe = max(kids[0] if kids else rows_out, 1.0)
+        build = kids[1] if len(kids) > 1 else probe
+        chain = max(rows_out / probe, 1.0)
+        sort_bytes = build * B * max(math.log2(max(build, 2.0)), 1.0)
+        return probe * B * chain \
+            + (2 * rows_out * B + sort_bytes) / d.n_passes
+    if d.op == "project":
+        return rows_out * B * len(d.logical.columns)
+    if d.op == "aggregate":
+        return in_rows * B
+    if d.op == "train_glm":
+        n = d.logical
+        dataset = in_rows * B * (len(n.features) + 1)
+        return dataset * n.epochs * len(n.grid)
+    if d.op == "score_glm":
+        return in_rows * B * len(d.logical.features) + rows_out * B
+    return float(d.n_bytes)     # an op without a formula: the prediction
+
+
+def sql_like_query(executor: Executor, q, **kw):
+    """UDF surface: run a logical plan through optimize -> cost -> exec."""
+    return executor.execute(q, **kw).value

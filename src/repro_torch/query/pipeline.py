@@ -30,6 +30,7 @@ import contextlib
 import dataclasses
 import queue
 import threading
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -385,7 +386,7 @@ def _stage(arrays, device: torch.device, copy_stream):
 
 
 def staged_morsels(n_morsels: int, get_morsel, device: torch.device, *,
-                   prefetch: bool = True):
+                   prefetch: bool = True, on_staged=None):
     """Yield ``(arrays, n_valid)`` for morsels ``0 .. n_morsels - 1`` in
     order, each on ``device`` and ready for the current stream.
 
@@ -397,19 +398,30 @@ def staged_morsels(n_morsels: int, get_morsel, device: torch.device, *,
     buffered.  Both hand over the same morsels in the same order, so
     results are bit-identical.  Close the generator (``contextlib.
     closing``) to stop the thread when the consumer fails: it stops and
-    is joined, and no staged buffer outlives the generator."""
+    is joined, and no staged buffer outlives the generator.
+
+    ``on_staged(arrays, n_valid, seconds)``, when given, observes each
+    fetch: the arrays ``get_morsel`` returned and the seconds from the
+    call to the copies' completion, fenced on the copy stream's own
+    event (never the device, which would stall the compute stream from
+    the prefetch thread)."""
     on_card = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_card else None
     card = (device.index if device.index is not None
             else torch.cuda.current_device()) if on_card else None
 
     def fetch(i):
+        t0 = time.perf_counter() if on_staged is not None else 0.0
         arrays, n_valid = get_morsel(i)
         staged = _stage(arrays, device, copy_stream)
         ready = None
         if copy_stream is not None:
             ready = torch.cuda.Event()
             ready.record(copy_stream)
+        if on_staged is not None:
+            if ready is not None:
+                ready.synchronize()
+            on_staged(arrays, n_valid, time.perf_counter() - t0)
         return staged, n_valid, ready
 
     def hand_over(item):
@@ -472,15 +484,65 @@ def staged_morsels(n_morsels: int, get_morsel, device: torch.device, *,
         raise failure[0]
 
 
+def _account_morsel(telemetry, metrics, i: int, t0: float, t1: float,
+                    step_s: float, path: str) -> None:
+    """One morsel's split: transfer wait (t0..t1, blocked on staging) and
+    the step (``step_s`` long from t1).  With perfect overlap the wait
+    term collapses toward zero."""
+    if metrics is not None:
+        metrics.inc("pipeline.morsels")
+        metrics.inc("pipeline.transfer_wait_s", t1 - t0)
+        metrics.inc("pipeline.compute_s", step_s)
+        metrics.observe("pipeline.morsel_wait_s", t1 - t0)
+        metrics.observe("pipeline.morsel_step_s", step_s)
+    if telemetry is not None:
+        telemetry.complete("pipeline.morsel_wait", t0, t1 - t0,
+                           morsel=i, path=path)
+        telemetry.complete("pipeline.morsel_step", t1, step_s,
+                           morsel=i, path=path)
+
+
 def drive(cp: CompiledPipeline, n_morsels: int, get_morsel, build_flat,
           lits, device: torch.device, carry=None, *,
-          prefetch: bool = True):
+          prefetch: bool = True, telemetry=None, metrics=None,
+          on_staged=None):
     """Fold every morsel into the carry, in order, with the transfer of
     the next morsel overlapping the current one's kernels
-    (``staged_morsels``)."""
+    (``staged_morsels``, which ``on_staged`` is passed to).
+
+    An enabled ``telemetry`` (with ``metrics``) records each morsel's
+    transfer wait on the host clock and its step: on the card the step is
+    timed by CUDA events on the compute stream, read once the last one
+    has completed, since a host clock around the step sees only the
+    launches.  Otherwise the loop is the uninstrumented one."""
     carry = cp.init_carry() if carry is None else carry
-    with contextlib.closing(staged_morsels(n_morsels, get_morsel, device,
-                                           prefetch=prefetch)) as morsels:
-        for arrays, n_valid in morsels:
+    morsels = staged_morsels(n_morsels, get_morsel, device,
+                             prefetch=prefetch, on_staged=on_staged)
+    if telemetry is None or not telemetry.enabled:
+        with contextlib.closing(morsels):
+            for arrays, n_valid in morsels:
+                carry = cp.step(lits, carry, n_valid, *build_flat, *arrays)
+        return carry
+    path = "prefetch" if prefetch and n_morsels > 1 else "double_buffer"
+    on_card = device.type == "cuda"
+    stamps = []
+    with contextlib.closing(morsels):
+        t0 = time.perf_counter()
+        for i, (arrays, n_valid) in enumerate(morsels):
+            t1 = time.perf_counter()
+            if on_card:
+                step = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                step[0].record()
             carry = cp.step(lits, carry, n_valid, *build_flat, *arrays)
+            if on_card:
+                step[1].record()
+            t2 = time.perf_counter()
+            stamps.append((i, t0, t1, step if on_card else t2 - t1))
+            t0 = t2
+    if on_card and stamps:
+        stamps[-1][3][1].synchronize()
+    for i, t0, t1, step in stamps:
+        step_s = step[0].elapsed_time(step[1]) / 1e3 if on_card else step
+        _account_morsel(telemetry, metrics, i, t0, t1, step_s, path)
     return carry

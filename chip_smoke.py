@@ -82,7 +82,30 @@ Phases, each of which must pass or the script exits non-zero:
    printed beside phase 8's pinned rate; and the MNIST-shaped GLM search
    streamed, its weights equal to the untraced run's bit for bit, with
    one ``train_glm`` row and rows x 4 x 785 x epochs x jobs bytes;
-11. lm: the LM serving path at full width and depth.  The flash-attention
+11. cache: the semantic cache (2 GiB) over SSB at SF 10.  Q1.1 in batch
+   cold, then warm: a result hit that launches no kernel, its median of
+   11 beside phase 4's; eager sum(extendedprice) over quantity 1..15 (30%
+   of the rows) admits a 72 MB bitmap that 5..12 refines with no B1
+   launch, bit-identical to a fresh B1 selection, refine against B1's
+   scan timed; 1..30 (60%) is 1..24's only superset and loses to the
+   scan (3 x 60% > 100%); a batch aggregate over 5..12 is routed onto the
+   cached bitmap.  The cache and the calibrated model are saved to the
+   temporary directory and warm-started into a fresh executor's host
+   tier, where Q1.1 is a hit; then ``lineorder.discount`` is updated:
+   Q1.1 misses and equals the new oracle, no entry, placement, build or
+   plan of the old version is left (device memory before and after
+   printed), and the snapshot loads with stale entries.  A cache whose
+   device budget holds one of two bitmaps demotes one to the host; the
+   rerun hits it there, gets it on the card and, once there is room,
+   promotes it.  Two executors share one cache: one's Q1.1 is a hit from
+   the other's run, and a mutation noticed by one sweeps the other's
+   entries.  TPC-H lineitem (two quantity filters) joined with orders in
+   batch: the second query reuses the cached 1,500,000-key build.  The
+   MNIST-shaped search trains once, and ``score_glm`` by the train plan
+   and by raw fingerprint launch no SGD kernel, their scores bit-identical
+   to a cache-less executor's.  Every value equals numpy, and the phase
+   fails when the executor has no cache (``REPRO_CACHE=0``);
+12. lm: the LM serving path at full width and depth.  The flash-attention
    kernel's two tensor-core routes against their plain version at the
    shapes the path runs them at: bf16 (wgmma) within 2e-2 at the served
    prefills of llama3-8b (D 128, GQA 4) and stablelm-3b (D 80, MHA),
@@ -1605,6 +1628,403 @@ def _telemetry_checks(dev, ssb_tables, ssb_counts, ssb_times, cal,
     return counts
 
 
+CACHE_BYTES = 2 << 30            # holds every entry of phase `cache`
+HOST_CACHE_BYTES = 4 << 30       # the warm-started cache's host tier
+
+
+def phase_cache(dev, ssb_tables, tpch_tables, order_idx, ssb_times, cal,
+                spill_dir, seed):
+    """The semantic cache on the card: result hits, predicate subsumption,
+    warm-start persistence, a mutation, the host tier, a shared cache,
+    join-build reuse and served models.  Fails, rather than skips, when
+    an executor ends up without a cache.  Returns launch counts by run."""
+    import torch
+    from repro_torch.columnar import engine
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.kernels import _build
+    from repro_torch.query import (
+        Executor, HyperParams, Q, SemanticCache, persist,
+    )
+    from repro_torch.query import cache as cache_mod
+
+    t_phase = time.perf_counter()
+    counts = {}
+
+    def run(ex, q, name, **kw):
+        """One counted run: launch counters zeroed just before and read
+        just after; returns (result, seconds to a synchronize)."""
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ex.execute(q, **kw)
+        torch.cuda.synchronize()
+        counts[name] = dict(_build.LAUNCHES)
+        return res, time.perf_counter() - t
+
+    def need_cache(ex, what):
+        if ex.cache is None:
+            raise AssertionError(f"{what}: the executor has no semantic "
+                                 "cache (is REPRO_CACHE=0 set?)")
+
+    def events_ms(fn, reps=10):
+        """Median of ``reps`` CUDA-event timings of one call each."""
+        out = []
+        for _ in range(reps + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return sorted(out[1:])[reps // 2]
+
+    lineorder = dict(ssb_tables["lineorder"])
+    tables = {"lineorder": lineorder, "date": ssb_tables["date"]}
+    cat = catalog_from_arrays(tables, dev)
+    ex = Executor(cat, dev, cache_bytes=CACHE_BYTES)
+    need_cache(ex, "cache")
+    ex.recost(cal)
+    q = ssb_query(Q)
+
+    # 1. result hits: SSB Q1.1 in batch, cold then warm
+    want = ssb_oracle(tables)
+    cold, cold_s = run(ex, q, "cache ssb cold")
+    warm, _ = run(ex, q, "cache ssb warm")
+    if cold.value != want or warm.value != want:
+        raise AssertionError(f"cache ssb: {cold.value}, {warm.value} "
+                             f"against the oracle {want}")
+    if cold.result_cache_hit or not warm.result_cache_hit:
+        raise AssertionError("cache ssb: the warm run is no result hit")
+    if any(counts["cache ssb warm"].values()):
+        raise AssertionError(f"cache ssb: the hit launched "
+                             f"{counts['cache ssb warm']}")
+    same = equals(want)
+    hit_warm = warm_runs(lambda: ex.execute(q),
+                         lambda v: same("batch, cached", v))
+    phase4 = ssb_times["batch"][1]
+    log(f"cache ssb batch: cold {cold_s * 1e3:.3f} ms (launches "
+        f"{counts['cache ssb cold']}), warm is a result hit launching "
+        f"nothing, {spread(hit_warm)}; phase 4's miss median "
+        f"{phase4[len(phase4) // 2] * 1e3:.3f} ms; both = oracle {want}")
+
+    # 2. subsumption: [1, 15] admits a bitmap, [5, 12] refines it
+    qty = lineorder["quantity"]
+    price = lineorder["extendedprice"].astype(np.int64)
+
+    def qsum(lo, hi):
+        return Q.scan("lineorder").filter("quantity", lo, hi) \
+            .sum("extendedprice")
+
+    def qwant(lo, hi):
+        return int(price[(qty >= lo) & (qty <= hi)].sum())
+
+    wide, wide_s = run(ex, qsum(1, 15), "cache refine [1,15]", mode="eager")
+    narrow, narrow_s = run(ex, qsum(5, 12), "cache refine [5,12]",
+                           mode="eager")
+    for lo, hi, r in ((1, 15, wide), (5, 12, narrow)):
+        if r.value != qwant(lo, hi):
+            raise AssertionError(f"cache [{lo}, {hi}]: {r.value} != "
+                                 f"{qwant(lo, hi)}")
+    if ex.subsumption_hits != 1 \
+            or counts["cache refine [5,12]"]["select"] != 0:
+        raise AssertionError(f"cache refine: subsumption hits "
+                             f"{ex.subsumption_hits}, launches "
+                             f"{counts['cache refine [5,12]']}")
+    version = cat.tables["lineorder"].version
+    sup = ex.cache.peek(("bitmap", "lineorder", version, "quantity", 1, 15))
+    ref_idx = ex.cache.peek(("bitmap", "lineorder", version, "quantity", 5,
+                             12)).value
+    placed = cat.tables["lineorder"].place(ex.plans["partitioned"])
+    fresh = engine.select_range(placed, "quantity", 5, 12).column("idx")
+    if ref_idx.dtype != fresh.dtype or not torch.equal(ref_idx, fresh):
+        raise AssertionError("the refined bitmap differs from B1's")
+    col = placed.column("quantity")
+    refine_ms = events_ms(lambda: ex._refine_bitmap(col, sup.value, 5, 12))
+    scan_ms = events_ms(lambda: engine.select_range(placed, "quantity", 5,
+                                                    12))
+    log(f"cache refine: [1, 15] admitted a {sup.n_bytes}-byte bitmap "
+        f"({sup.value.shape[0]} rows, {wide_s * 1e3:.3f} ms); [5, 12] "
+        f"refined it in {narrow_s * 1e3:.3f} ms with no B1 launch, its "
+        f"{ref_idx.shape[0]} rows bit-identical to a fresh B1 selection; "
+        f"refine {refine_ms:.4f} ms against B1's scan and compaction "
+        f"{scan_ms:.4f} ms (medians of 10, CUDA events)")
+    del sup, ref_idx, fresh, placed, col
+    wide2, _ = run(ex, qsum(1, 30), "cache refine [1,30]", mode="eager")
+    mid, mid_s = run(ex, qsum(1, 24), "cache refine [1,24]", mode="eager")
+    for lo, hi, r in ((1, 30, wide2), (1, 24, mid)):
+        if r.value != qwant(lo, hi):
+            raise AssertionError(f"cache [{lo}, {hi}]: {r.value}")
+    big = ex.cache.peek(("bitmap", "lineorder", version, "quantity", 1, 30))
+    if ex.cost_model.refine_wins(int(big.value.shape[0]),
+                                 SSB_LINEORDER_ROWS) \
+            or ex.subsumption_hits != 1 \
+            or counts["cache refine [1,24]"]["select"] <= 0:
+        raise AssertionError("cache refine: [1, 24] refined a 60% "
+                             "superset instead of rescanning")
+    big_rows = int(big.value.shape[0])
+    del big
+    routed_q = Q.scan("lineorder").filter("quantity", 5, 12).sum("discount")
+    routed, _ = run(ex, routed_q, "cache routed [5,12]")
+    disc = lineorder["discount"].astype(np.int64)
+    if routed.value != int(disc[(qty >= 5) & (qty <= 12)].sum()) \
+            or ex.refine_routed != 1:
+        raise AssertionError(f"cache routed: {routed.value}, routed "
+                             f"{ex.refine_routed}")
+    log(f"cache refine: [1, 30] ({big_rows} rows, 3 x 60% > "
+        f"100%) is [1, 24]'s only superset and loses to the scan (B1 "
+        f"launched {counts['cache refine [1,24]']['select']}x, "
+        f"{mid_s * 1e3:.3f} ms); batch sum(discount) over [5, 12] routed "
+        f"onto the cached bitmap (refine_routed 1), = numpy")
+    if ex.cache.rejected or ex.cache.evicted:
+        raise AssertionError(f"cache: {ex.cache.stats_dict()}")
+
+    # 8a. persistence: the warm cache and the calibrated model
+    path = os.path.join(spill_dir, "cache.npz")
+    t = time.perf_counter()
+    saved = persist.save_state(path, ex.cache, cost_model=ex.cost_model,
+                               table_versions=cat.versions())
+    save_s = time.perf_counter() - t
+    fresh_ex = Executor(cat, dev, semantic_cache=SemanticCache(
+        CACHE_BYTES, host_budget_bytes=HOST_CACHE_BYTES))
+    need_cache(fresh_ex, "cache warm start")
+    t = time.perf_counter()
+    got = persist.warm_start(path, fresh_ex.cache,
+                             cost_model=fresh_ex.cost_model,
+                             table_versions=cat.versions())
+    load_s = time.perf_counter() - t
+    tiers = {e.tier for e in fresh_ex.cache._entries.values()}
+    if got["restored"] != saved["saved"] or got["stale"] \
+            or not got["calibrated"] or tiers != {"host"} \
+            or saved["saved"] != len(ex.cache):
+        raise AssertionError(f"warm start: saved {saved}, loaded {got}, "
+                             f"tiers {tiers}")
+    if fresh_ex.cost_model.calibration_snapshot() \
+            != ex.cost_model.calibration_snapshot():
+        raise AssertionError("warm start: the calibration differs")
+    res, hit_s = run(fresh_ex, q, "cache warm-started ssb")
+    if not res.result_cache_hit or res.value != want:
+        raise AssertionError(f"warm start: ssb {res.value}, hit "
+                             f"{res.result_cache_hit}")
+    log(f"cache persistence: {saved['saved']} entries "
+        f"({ex.cache.used_bytes} bytes resident) in "
+        f"{os.path.getsize(path)} file bytes, saved in {save_s:.3f} s, "
+        f"warm-started into the host tier in {load_s:.3f} s (stale 0, "
+        f"calibration applied); SSB Q1.1 then a result hit = oracle in "
+        f"{hit_s * 1e3:.3f} ms")
+    del fresh_ex
+
+    # 5. a mutation: lineorder.discount takes new values
+    old_keys = set(ex.cache._entries)
+    mem_before = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(seed + 7)
+    lineorder["discount"] = rng.integers(0, 11, SSB_LINEORDER_ROWS,
+                                         dtype=np.int32)
+    cat.update_column("lineorder", "discount", lineorder["discount"])
+    want = ssb_oracle(tables)
+    res, miss_s = run(ex, q, "cache ssb after mutation")
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    now = cat.tables["lineorder"].version
+    if res.result_cache_hit or res.value != want \
+            or ex.cache.invalidated <= 0:
+        raise AssertionError(f"mutation: {res.value} against {want}, hit "
+                             f"{res.result_cache_hit}, invalidated "
+                             f"{ex.cache.invalidated}")
+    stale = [k for k in old_keys if k in ex.cache._entries
+             and "lineorder" in ex.cache._entries[k].tables]
+    stale += [k for k in ex._placed if k[0] == "lineorder" and k[3] != now]
+    stale += [k for k in ex._builds
+              if k[1] != cat.tables[k[0].table].version]
+    stale += [k for k in ex._planned if dict(k[1]) != cat.versions()]
+    if stale:
+        raise AssertionError(f"mutation: state of the old version: "
+                             f"{stale}")
+    log(f"cache mutation: discount updated (version {now}); SSB Q1.1 "
+        f"missed and = the new oracle {want} in {miss_s * 1e3:.3f} ms; "
+        f"{ex.cache.invalidated} entries invalidated, no entry, placement, "
+        f"build or plan of the old version left; memory_allocated "
+        f"{mem_before} -> {mem_after} bytes")
+    stale_load = persist.load_state(path, cat.versions())
+    if stale_load is None or stale_load["stale"] <= 0:
+        raise AssertionError(f"the snapshot loaded after the mutation: "
+                             f"{stale_load}")
+    log(f"cache persistence after the mutation: {stale_load['stale']} "
+        f"stale entries dropped, {len(stale_load['entries'])} kept")
+    del stale_load
+    os.unlink(path)
+
+    # 6. the host tier: a device budget that holds one of two bitmaps
+    kind = torch.device(dev).type        # where every served value must be
+    hcache = SemanticCache(64 * MIB, host_budget_bytes=256 * MIB)
+    hex_ = Executor(cat, dev, semantic_cache=hcache)
+    need_cache(hex_, "cache host tier")
+    served = []
+    real_value = hcache.device_value
+
+    def device_value(entry, device=None):
+        tier = entry.tier
+        value = real_value(entry, device)
+        served.append((tier, value))
+        return value
+
+    hcache.device_value = device_value
+    moved = {"_to_host": 0.0}
+    real_to_host = cache_mod._to_host
+
+    def to_host(value):
+        t = time.perf_counter()
+        out = real_to_host(value)
+        moved["_to_host"] += time.perf_counter() - t
+        return out
+
+    cache_mod._to_host = to_host
+    try:
+        def proj(lo, hi):
+            return Q.scan("lineorder").filter("quantity", lo, hi) \
+                .project("extendedprice", "discount")
+
+        def check_proj(lo, hi, value):
+            m = (qty >= lo) & (qty <= hi)
+            for c in ("extendedprice", "discount"):
+                if not np.array_equal(value.column(c).cpu().numpy(),
+                                      lineorder[c][m]):
+                    raise AssertionError(f"host tier [{lo}, {hi}]: {c}")
+
+        a, _ = run(hex_, proj(1, 10), "cache host [1,10]")
+        check_proj(1, 10, a.value)
+        del a
+        b, b_s = run(hex_, proj(41, 48), "cache host [41,48]")
+        check_proj(41, 48, b.value)
+        del b
+        akey = ("bitmap", "lineorder", now, "quantity", 1, 10)
+        if hcache.demoted < 1 or hcache.peek(akey).tier != "host":
+            raise AssertionError(f"host tier: {hcache.stats_dict()}")
+        served.clear()
+        a, host_s = run(hex_, proj(1, 10), "cache host rerun")
+        check_proj(1, 10, a.value)
+        del a
+        host_hits = [v for tier, v in served if tier == "host"]
+        if not host_hits or any(v.device.type != kind for v in host_hits):
+            raise AssertionError(f"host tier: served {served}")
+        if hcache.promoted:
+            raise AssertionError("host tier: promoted past the budget")
+        hcache.budget_bytes = 256 * MIB        # room for both bitmaps
+        served.clear()
+        a, promote_s = run(hex_, proj(1, 10), "cache host promoted")
+        check_proj(1, 10, a.value)
+        del a
+        if hcache.promoted != 1 or hcache.peek(akey).tier != "device" \
+                or any(v.device.type != kind for _, v in served):
+            raise AssertionError(f"host tier: {hcache.stats_dict()}")
+        hcache.check_invariants()
+    finally:
+        cache_mod._to_host = real_to_host
+    abytes = hcache.peek(akey).n_bytes
+    log(f"cache host tier: [41, 48]'s bitmap demoted [1, 10]'s "
+        f"({abytes} bytes) to the host in {moved['_to_host'] * 1e3:.3f} ms "
+        f"(run {b_s * 1e3:.3f} ms); the rerun hit it on the host, served "
+        f"on the card ({host_s * 1e3:.3f} ms); with room it was promoted "
+        f"({promote_s * 1e3:.3f} ms); values = numpy, invariants hold")
+    del hex_, hcache, served
+    del ex
+
+    # 7. a shared cache: two executors over one catalog
+    shared = SemanticCache(CACHE_BYTES)
+    ea = Executor(cat, dev, semantic_cache=shared)
+    eb = Executor(cat, dev, semantic_cache=shared)
+    need_cache(ea, "cache shared")
+    ra, _ = run(ea, q, "cache shared a")
+    rb, rb_s = run(eb, q, "cache shared b")
+    if ra.value != want or not rb.result_cache_hit or rb.value != want:
+        raise AssertionError(f"shared: {ra.value}, {rb.value}")
+    run(eb, qsum(1, 15), "cache shared b bitmap", mode="eager")
+    bkey = ("bitmap", "lineorder", now, "quantity", 1, 15)
+    if bkey not in shared:
+        raise AssertionError("shared: B admitted no bitmap")
+    lineorder["discount"] = rng.integers(0, 11, SSB_LINEORDER_ROWS,
+                                         dtype=np.int32)
+    cat.update_column("lineorder", "discount", lineorder["discount"])
+    want = ssb_oracle(tables)
+    swept = shared.invalidated
+    ra, _ = run(ea, q, "cache shared a after mutation")
+    rb, _ = run(eb, q, "cache shared b after mutation")
+    if bkey in shared or shared.invalidated <= swept \
+            or ra.value != want or rb.value != want \
+            or ra.result_cache_hit or not rb.result_cache_hit:
+        raise AssertionError(f"shared after the mutation: {ra.value}, "
+                             f"{rb.value}, {shared.stats_dict()}")
+    log(f"cache shared: B's SSB Q1.1 a result hit from A's run "
+        f"({rb_s * 1e3:.3f} ms); A noticed a mutation and swept "
+        f"{shared.invalidated - swept} entries, B's bitmap among them; both "
+        f"= the new oracle {want}")
+    del ea, eb, shared, cat
+    torch.cuda.empty_cache()
+
+    # 3. join-build reuse: TPC-H lineitem joined with orders, two filters
+    tcat = catalog_from_arrays(tpch_tables, dev)
+    tex = Executor(tcat, dev, cache_bytes=CACHE_BYTES)
+    need_cache(tex, "cache builds")
+    lq = tpch_tables["lineitem"]["quantity"]
+    price = tpch_tables["orders"]["totalprice"].astype(np.int64)
+    times = []
+    for i, (lo, hi) in enumerate(((1, 25), (26, 50))):
+        tq = (Q.scan("lineitem").filter("quantity", lo, hi)
+              .join(Q.scan("orders"), on="orderkey").sum("totalprice"))
+        res, s = run(tex, tq, f"cache tpch build {i}")
+        keep = (lq >= lo) & (lq <= hi)
+        lines = np.bincount(order_idx[keep], minlength=price.size)
+        if res.value != int((lines * price).sum()):
+            raise AssertionError(f"cache tpch [{lo}, {hi}]: {res.value}")
+        times.append(s)
+    if tex.build_hits < 1:
+        raise AssertionError("cache tpch: the second query rebuilt")
+    log(f"cache builds: lineitem (quantity 1-25, then 26-50) joined with "
+        f"orders in batch, = numpy; the second reused the cached "
+        f"1,500,000-key build (build_hits {tex.build_hits}): first "
+        f"{times[0] * 1e3:.3f} ms, second {times[1] * 1e3:.3f} ms")
+    del tex, tcat
+    torch.cuda.empty_cache()
+
+    # 4. served models: the MNIST-shaped search, then ScoreGLM
+    gtables, _, _ = make_mnist_like(MNIST_ROWS, MNIST_FEATURES, seed)
+    gcat = catalog_from_arrays(gtables, dev)
+    del gtables
+    gex = Executor(gcat, dev, cache_bytes=CACHE_BYTES)
+    need_cache(gex, "cache models")
+    gq = glm_query(Q, HyperParams)
+    run(gex, gq, "cache glm train")
+    feats = [f"px{j}" for j in range(MNIST_FEATURES)]
+    by_plan, plan_s = run(gex, Q.scan("mnist").score_glm(gq),
+                          "cache glm score")
+    fp = gex.fingerprint_of(gq.node)
+    by_fp, fp_s = run(gex, Q.scan("mnist").score(fp, feats),
+                      "cache glm score by fingerprint")
+    plain = Executor(gcat, dev)
+    want_s, plain_s = run(plain, Q.scan("mnist").score_glm(gq),
+                          "cache glm score, no cache")
+    sgd_moved = [counts[n][k] for n in ("cache glm score",
+                                        "cache glm score by fingerprint")
+                 for k in ("sgd", "sgd_split")]
+    if gex.model_hits < 2 or any(sgd_moved):
+        raise AssertionError(f"cache glm: model hits {gex.model_hits}, "
+                             f"B5 launches {sgd_moved}")
+    for r in (by_plan, by_fp):
+        if not torch.equal(r.value.column("score"),
+                           want_s.value.column("score")):
+            raise AssertionError("cache glm: scores differ from the "
+                                 "cache-less executor's")
+    log(f"cache models: the trained search served both scores "
+        f"(model_hits {gex.model_hits}, no B5 launch): by plan "
+        f"{plan_s * 1e3:.3f} ms, by fingerprint {fp_s * 1e3:.3f} ms, "
+        f"against {plain_s * 1e3:.3f} ms for a cache-less executor that "
+        f"trains first; {MNIST_ROWS} scores bit-identical")
+    del gex, plain, gcat
+    torch.cuda.empty_cache()
+    log(f"cache: phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def phase_lm_kernels(dev):
     """B7's two routes at every shape the LM path runs them at (bf16 at
     llama3-8b's and stablelm-3b's served prefills, f32 at the same two
@@ -1983,6 +2403,8 @@ def main(argv=None) -> int:
         spill_counts = phase_spill(dev, ssb, cal, spill_dir)
         tel_counts = phase_telemetry(dev, ssb, ssb_counts, ssb_times, cal,
                                      spill_dir, args.seed)
+        cache_counts = phase_cache(dev, ssb, tpch, order_idx, ssb_times, cal,
+                                   spill_dir, args.seed)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_rows = phase_glm(dev, args.seed)
@@ -2011,7 +2433,8 @@ def main(argv=None) -> int:
                                        for counts in (ssb_counts, tpch_counts,
                                                       glm_counts, multi_counts,
                                                       cal_counts, spill_counts,
-                                                      tel_counts, lm_counts)
+                                                      tel_counts, cache_counts,
+                                                      lm_counts)
                                        for c in counts.values()))
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
@@ -2019,7 +2442,8 @@ def main(argv=None) -> int:
         row.pop("shape")
     log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
         f"calibrate launches: {cal_counts}; spill launches: {spill_counts}; "
-        f"telemetry launches: {tel_counts}; lm launches: {lm_counts}")
+        f"telemetry launches: {tel_counts}; cache launches: "
+        f"{cache_counts}; lm launches: {lm_counts}")
     by_name = {row["name"]: row for row in rows}
     copy, ring = by_name["stream_copy"], by_name["sgd"]
     steps = GLM_EPOCHS * MNIST_ROWS // GLM_MINIBATCH

@@ -38,7 +38,7 @@ def compact_positions(valid: torch.Tensor, n: int) -> torch.Tensor:
     return pos
 
 
-def _in_range(col: torch.Tensor, lo, hi) -> torch.Tensor:
+def in_range(col: torch.Tensor, lo, hi) -> torch.Tensor:
     """Row mask of lo <= col <= hi, with integer bounds normalized the way
     the selection kernel takes them (``sel_ref.int32_bounds``)."""
     if not col.dtype.is_floating_point:
@@ -66,7 +66,7 @@ def select_range(table: Table, column: str, lo: int, hi: int, *,
     n_eng = table.plan.n_engines
     if n_eng > 1 and (table.plan.placement != "partitioned"
                       or table.num_rows % n_eng != 0):
-        mask = _in_range(table.column(column), lo, hi)
+        mask = in_range(table.column(column), lo, hi)
         idx = compact_positions(mask, int(mask.sum()))
         return Table(f"{table.name}.sel", {"idx": Column(idx, "idx")})
     idx, counts = sel_core.select_distributed(
@@ -246,7 +246,7 @@ def select_range_morsel(col: torch.Tensor, lo, hi,
                         mask: torch.Tensor) -> torch.Tensor:
     """Streaming range selection: narrow the morsel's row mask — no index
     materialization between pipeline stages."""
-    return mask & _in_range(col, lo, hi)
+    return mask & in_range(col, lo, hi)
 
 
 def aggregate_sum_stream(carry: torch.Tensor, values: torch.Tensor,

@@ -1,5 +1,6 @@
 """Query subsystem of the port: logical plans -> optimizer -> cost model ->
-physical executor (batch / stream / eager), with telemetry.
+physical executor (batch / stream / eager), with telemetry, the semantic
+cache and its warm-start persistence.
 
     from repro_torch.query import Q, Catalog, Executor
 
@@ -8,11 +9,17 @@ physical executor (batch / stream / eager), with telemetry.
     q = (Q.scan("lineitem").filter("quantity", 30, 49)
           .join(Q.scan("orders"), on="orderkey").sum("price"))
     total = ex.execute(q).value
+
+    cached = Executor(cat, cache_bytes=1 << 30)        # opt-in semantic cache
+    persist.save_state("snap.npz", cached.cache,
+                       cost_model=cached.cost_model,
+                       table_versions=cat.versions())
 """
 from repro_torch.query.logical import (                          # noqa: F401
     Aggregate, Filter, FilterProject, HyperParams, Join, Node, Project, Q,
-    Scan, canonicalize, fingerprint, literals, output_columns, pformat,
-    signature, tables_of, walk,
+    Scan, SelectionInterval, canonicalize, fingerprint, literals,
+    output_columns, pformat, selection_interval, signature,
+    subsumption_key, tables_of, walk,
 )
 from repro_torch.query.cost import (                             # noqa: F401
     TIERS, ColumnStats, CostModel, PhysNode, TableStats, column_placements,
@@ -20,8 +27,8 @@ from repro_torch.query.cost import (                             # noqa: F401
     plan_physical,
 )
 from repro_torch.query.optimize import (                         # noqa: F401
-    choose_build_side, fuse_filter_project, optimize, prune_columns,
-    push_down_filters,
+    choose_build_side, common_subplans, fuse_filter_project, optimize,
+    prune_columns, push_down_filters,
 )
 from repro_torch.query.pipeline import (                         # noqa: F401
     BreakerSpec, CompiledPipeline, ProjectStreamPlan, StreamPlan, analyze,
@@ -33,6 +40,10 @@ from repro_torch.query.tiering import (                          # noqa: F401
 from repro_torch.query.telemetry import (                        # noqa: F401
     BandwidthLedger, MetricsRegistry, Telemetry,
 )
+from repro_torch.query.cache import (                            # noqa: F401
+    SemanticCache, cache_disabled,
+)
+from repro_torch.query import persist                            # noqa: F401
 from repro_torch.query.exec import (                             # noqa: F401
     Catalog, Executor, PlacementCapacityError, Result, sql_like_query,
 )

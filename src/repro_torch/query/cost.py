@@ -343,6 +343,41 @@ class CostModel:
             float(max(n_bytes, 1)), tier)
         return max(net, 0.0) * (1.0 + hits) / max(float(n_bytes), 1.0)
 
+    # -- semantic-cache pricing --------------------------------------------- #
+
+    def refine_price(self, cached_rows: float, *,
+                     placement: str = "partitioned") -> float:
+        """Seconds to serve a selection by refining a cached superset
+        bitmap instead of rescanning the base column: stream the cached
+        index, gather the predicate column at those positions and write
+        the surviving subset, three bitmap-sized streams."""
+        n_bytes = 3.0 * max(float(cached_rows), 0.0) * BYTES_PER_VALUE
+        return self.stream_cost(n_bytes, placement=placement)
+
+    def refine_wins(self, cached_rows: float, base_rows: float, *,
+                    placement: str = "partitioned") -> bool:
+        """Whether refining a ``cached_rows``-entry superset bitmap beats
+        rescanning the ``base_rows``-row column.  Both sides are priced
+        under one (impl, placement), so efficiency and call overhead
+        cancel and the verdict is the reference's: 3 * cached < base."""
+        return self.refine_price(cached_rows, placement=placement) \
+            < self.stream_cost(max(float(base_rows), 1.0) * BYTES_PER_VALUE,
+                               placement=placement)
+
+    def build_price(self, n_rows: float, n_value_cols: int = 0) -> float:
+        """Recompute cost of a sorted-bucket join build: the n log n key
+        sort and the prefix sums over each carried value column on the
+        replicated placement, plus the replication broadcast.  What a
+        cached build saves a pipeline."""
+        n_rows = max(float(n_rows), 1.0)
+        sort_bytes = n_rows * BYTES_PER_VALUE * max(
+            math.log2(max(n_rows, 2.0)), 1.0)
+        value_bytes = n_rows * BYTES_PER_VALUE * (1 + n_value_cols)
+        return (self.stream_cost(sort_bytes + value_bytes,
+                                 placement="replicated")
+                + self.broadcast_cost(n_rows * BYTES_PER_VALUE
+                                      * (2 + n_value_cols)))
+
     # -- morsel pricing (streaming pipeline) -------------------------------- #
 
     def morsel_cost(self, total_rows: float, morsel_rows: int, n_cols: int,

@@ -19,9 +19,9 @@ below):
 TrainGLM roots (the paper's workload 3) lower in batch and stream modes
 onto the morsel-streamed trainer (``engine.train_glm_stream``), whose
 weights equal the eager whole-column trainer's (``engine.train_glm``) bit
-for bit; both train through the SGD kernel on the card.  ScoreGLM roots
-score with a model trained fresh through ``execute`` (the port has no
-semantic cache yet, so no model is ever served warm).
+for bit; both train through the SGD kernel on the card.  ScoreGLM roots score
+with the model the semantic cache holds under the train plan's
+fingerprint, or train it fresh through ``execute`` (which admits it).
 
 A working set over the device budget (``placement_capacity_bytes`` or
 ``tier_budgets``, or the reference's ``REPRO_PLACEMENT_CAP`` /
@@ -40,10 +40,24 @@ every operator and measures its bytes with the cost model's formulas at
 actual cardinalities, and spill promotions and streamed training get rows
 of their own.  Disabled, no path fences and nothing is recorded.
 
+The semantic cache (``query/cache.py``) is opt-in: ``cache_bytes=`` or a
+``semantic_cache=`` shared with other executors (``REPRO_CACHE=0`` turns
+it off everywhere).  With one installed, whole results short-circuit by
+fingerprint, join builds live in it under their table version, eager
+Filter / FilterProject / Join outputs and selection bitmaps are reused,
+a narrower range refines the tightest cached superset bitmap when the
+cost model prices that below rescanning the column (a fused aggregate is
+then routed onto the eager path), and trained GLM weights serve ScoreGLM.
+Every hit's value reaches the consumer on the executor's device, from the
+host tier too.  Without one, every path runs as before.  Table mutations
+are noticed at the top of ``execute`` and ``plan``: the stale version's
+placements, builds, plans and fingerprints are purged, and the cache's
+dependent entries swept.
+
 The executor runs on the CUDA card unless constructed with a ``device``;
 the kernels run exactly when that device is CUDA, because every kernel
 wrapper launches on CUDA tensors and takes its plain version on CPU ones.
-The semantic cache and sharding are not ported yet.
+Sharding is not ported yet.
 """
 from __future__ import annotations
 
@@ -65,6 +79,7 @@ from repro_torch.device import DeviceLike, resolve
 from repro_torch.query import logical as L
 from repro_torch.query import pipeline as pl
 from repro_torch.query import telemetry as tm
+from repro_torch.query.cache import SemanticCache, cache_disabled
 from repro_torch.query.cost import (
     BYTES_PER_VALUE, TIERS, ColumnStats, CostModel, PhysNode, TableStats,
     column_placements, key_is_unique, load_calibration, plan_physical,
@@ -147,6 +162,7 @@ class Result:
     cache_hit: bool                     # compiled-pipeline cache hit
     wall_s: float
     mode: str = "batch"
+    result_cache_hit: bool = False      # served from the semantic cache
 
     def explain(self) -> str:
         if self.physical is None:
@@ -189,9 +205,31 @@ class Executor:
                             "compiled-pipeline cache misses")
     trace_count = _counter("exec.trace_count",
                            "pipeline steps built (one per cache miss)")
+    result_hits = _counter("exec.result_cache_hits",
+                           "semantic cache: whole results")
+    subplan_hits = _counter("exec.subplan_cache_hits",
+                            "semantic cache: eager intermediates")
+    build_hits = _counter("exec.build_cache_hits",
+                          "semantic cache: join builds")
+    model_hits = _counter("exec.model_cache_hits",
+                          "semantic cache: trained GLM weights")
+    subsumption_hits = _counter("exec.subsumption_hits",
+                                "selections served by refinement")
+    refine_bytes_streamed = _counter(
+        "exec.refine_bytes_streamed", "bitmap bytes the refine path read")
+    refine_bytes_avoided = _counter(
+        "exec.refine_bytes_avoided",
+        "base-column bytes refinement did not read")
+    refine_routed = _counter(
+        "exec.refine_routed",
+        "fused aggregates routed onto a cached bitmap's eager path")
 
     _COUNTERS = ("exec.plan_cache_hits", "exec.plan_cache_misses",
-                 "exec.trace_count")
+                 "exec.trace_count", "exec.result_cache_hits",
+                 "exec.subplan_cache_hits", "exec.build_cache_hits",
+                 "exec.model_cache_hits", "exec.subsumption_hits",
+                 "exec.refine_bytes_streamed", "exec.refine_bytes_avoided",
+                 "exec.refine_routed")
 
     def __init__(self, catalog: Catalog, device: DeviceLike = None, *,
                  n_engines: int = 1,
@@ -199,9 +237,15 @@ class Executor:
                  placement_capacity_bytes: Optional[int] = None,
                  tier_budgets: Optional[TierBudgets] = None,
                  overlap_transfers: Optional[bool] = None,
-                 telemetry: Optional[tm.Telemetry] = None):
+                 telemetry: Optional[tm.Telemetry] = None,
+                 cache_bytes: Optional[int] = None,
+                 semantic_cache: Optional[SemanticCache] = None,
+                 tenant: Optional[str] = None):
         self.catalog = catalog
         self.device = resolve(device)
+        # the tenant every semantic-cache admission is charged to (its
+        # share of a shared cache, when shares are set)
+        self.tenant = tenant
         # spans and the bandwidth ledger are shared (default: the process
         # global, REPRO_TRACE-gated); the metrics registry is private, so
         # two executors' counters never mix
@@ -240,6 +284,21 @@ class Executor:
         self._planned: Dict[tuple, tuple] = {}
         self._placed: Dict[tuple, torch.Tensor] = {}
         self._builds: Dict[tuple, tuple] = {}
+        self._fps: Dict[L.Node, str] = {}
+        # plan -> its extracted SelectionInterval (or None): version-free,
+        # so never purged; the fused-path router reads it per execution
+        self._sints: Dict[L.Node, Optional[L.SelectionInterval]] = {}
+        self._seen_versions: Dict[str, int] = catalog.versions()
+        # the semantic cache is opt-in: a byte budget, or an instance
+        # shared with other executors over the same catalog
+        self.cache: Optional[SemanticCache] = None
+        if semantic_cache is not None:
+            self.install_cache(semantic_cache)
+        elif cache_bytes:
+            self.install_cache(SemanticCache(cache_bytes,
+                                             model=self.cost_model,
+                                             telemetry=self.tel,
+                                             device=self.device))
 
     # -- metrics ------------------------------------------------------------ #
 
@@ -252,12 +311,16 @@ class Executor:
 
     def metrics_snapshot(self) -> dict:
         """Flat snapshot of the executor's registry: counters verbatim,
-        histograms as ``name.{count,mean,p50,p95,max}``."""
-        return self.metrics.snapshot()
+        histograms as ``name.{count,mean,p50,p95,max}``, plus the semantic
+        cache's accounting when one is installed."""
+        out = self.metrics.snapshot()
+        if self.cache is not None:
+            out.update(self.cache.stats_dict())
+        return out
 
     def stats_dict(self) -> dict:
         total = self.cache_hits + self.cache_misses
-        return {
+        out = {
             "plan_cache_hits": self.cache_hits,
             "plan_cache_misses": self.cache_misses,
             "plan_cache_hit_rate": self.cache_hits / total if total else 0.0,
@@ -276,7 +339,76 @@ class Executor:
             "tier_budgets": {"device": self.tier_budgets.device,
                              "host": self.tier_budgets.host,
                              "disk": self.tier_budgets.disk},
+            "result_cache_hits": self.result_hits,
+            "subplan_cache_hits": self.subplan_hits,
+            "build_cache_hits": self.build_hits,
+            "model_cache_hits": self.model_hits,
+            "subsumption_hits": self.subsumption_hits,
+            "refine_bytes_streamed": self.refine_bytes_streamed,
+            "refine_bytes_avoided": self.refine_bytes_avoided,
         }
+        if self.cache is not None:
+            out.update(self.cache.stats_dict())
+        return out
+
+    # -- semantic cache and versions ---------------------------------------- #
+
+    def install_cache(self, cache: Optional[SemanticCache]) -> None:
+        """Attach a semantic cache, possibly one shared with other
+        executors over the same catalog; a cache whose device was left
+        unset takes this executor's.  A no-op under ``REPRO_CACHE=0``, so
+        no caller can re-enable caching around the switch."""
+        if cache is None or cache_disabled():
+            return
+        if not cache.device_set:
+            cache.device = self.device
+        self.cache = cache
+        # the current versions are the cache's drift baseline: a later
+        # mutation sweeps shared entries whichever executor notices it
+        cache.sync_versions(self.catalog.versions())
+
+    def _sync_versions(self) -> None:
+        """Notice table mutations since the last call and purge the state
+        derived from the stale version: placements, join builds, memoized
+        plans (the statistics changed) and fingerprints, and the semantic
+        cache's dependent entries.  Keys embed versions, so nothing stale
+        could be served; the purge frees device memory and bytes."""
+        drifted = False
+        for name, t in list(self.catalog.tables.items()):
+            if self._seen_versions.get(name) == t.version:
+                continue
+            drifted = True
+            if name in self._seen_versions:
+                self.catalog.register(t)           # refresh statistics
+                self._placed = {k: v for k, v in self._placed.items()
+                                if k[0] != name}
+                self._builds = {k: v for k, v in self._builds.items()
+                                if k[0].table != name}
+                self._planned.clear()              # stats feed every plan
+                self._fps.clear()
+            self._seen_versions[name] = t.version
+        # gated on local drift so the hot path never takes the shared
+        # cache's lock; install_cache registered the baseline
+        if drifted and self.cache is not None:
+            self.cache.sync_versions(self.catalog.versions())
+
+    def fingerprint_of(self, node: L.Node) -> str:
+        """Semantic fingerprint of the optimized form of ``node`` against
+        the current table versions: the result-cache key (memoized; the
+        memo is purged whenever a version moves)."""
+        self._sync_versions()
+        fp = self._fps.get(node)
+        if fp is None:
+            opt, _ = self.plan(node)
+            fp = L.fingerprint(opt, self.catalog.versions())
+            self._fps[node] = fp
+        return fp
+
+    def _served(self, entry):
+        """A cache hit's value on this executor's device: promoted or not,
+        a host-tier value is copied up, since torch operations do not mix
+        devices."""
+        return self.cache.device_value(entry, self.device)
 
     # -- re-costing --------------------------------------------------------- #
 
@@ -300,6 +432,7 @@ class Executor:
             self.cost_model.sel_corrections.update(corrections)
         self.cost_epoch += 1
         self._planned.clear()
+        self._fps.clear()
         self.metrics.inc("exec.recost_count")
         self.metrics.set("exec.cost_epoch", self.cost_epoch)
         self.tel.instant("exec.recost", epoch=self.cost_epoch,
@@ -362,15 +495,28 @@ class Executor:
         t0 = time.perf_counter()
         with self.tel.span("exec.execute", mode=mode,
                            optimized=optimized) as sp:
+            self._sync_versions()      # every path, the naive oracle too
             if not optimized:
                 if mode == "stream":
                     raise ValueError("mode='stream' lowers through the "
                                      "optimizer's physical plan; it cannot "
                                      "combine with optimized=False")
+                # the differential oracle never reads or feeds the cache
                 sp.set(path="naive")
                 return Result(self._run_eager(node, None), None, False,
                               time.perf_counter() - t0, mode="eager")
+            orig = node
             node, phys = self.plan(node)
+            if self.cache is not None:
+                entry = self.cache.get(("result", self.fingerprint_of(orig)))
+                if entry is not None:
+                    self.metrics.inc("exec.result_cache_hits")
+                    sp.set(path="result_cache", outcome="hit",
+                           reason="fingerprint_match")
+                    return Result(self._served(entry), phys, True,
+                                  time.perf_counter() - t0, mode=mode,
+                                  result_cache_hit=True)
+                sp.set(outcome="miss")
             # an over-budget working set is demoted to host/disk by a
             # spill plan, and a batch plan with a streamable spine streams
             # it back
@@ -383,6 +529,7 @@ class Executor:
                 if tplan is not None:
                     sp.set(path="train_stream")
                     value = self._run_train(node, phys, tplan, morsel_rows)
+                    self._admit_result(orig, node, phys, value)
                     return Result(value, phys, False,
                                   time.perf_counter() - t0, mode="stream")
             if mode == "batch" and spill is not None:
@@ -391,6 +538,7 @@ class Executor:
                     sp.set(path="spill_stream")
                     value, hit = self._run_stream(node, phys, splan,
                                                   morsel_rows, spill=spill)
+                    self._admit_result(orig, node, phys, value)
                     return Result(value, phys, hit,
                                   time.perf_counter() - t0, mode="stream")
                 pplan = pl.analyze_project(node, self.catalog.stats)
@@ -399,6 +547,7 @@ class Executor:
                     value = self._run_stream_project(node, phys, pplan,
                                                      morsel_rows,
                                                      spill=spill)
+                    self._admit_result(orig, node, phys, value)
                     return Result(value, phys, False,
                                   time.perf_counter() - t0, mode="stream")
             if mode == "stream":
@@ -407,20 +556,42 @@ class Executor:
                     sp.set(path="stream")
                     value, hit = self._run_stream(node, phys, splan,
                                                   morsel_rows, spill=spill)
+                    self._admit_result(orig, node, phys, value)
                     return Result(value, phys, hit,
                                   time.perf_counter() - t0, mode="stream")
                 sp.set(reason="no_streamable_spine")
             if mode == "eager":
                 sp.set(path="eager")
                 value = self._run_eager(node, phys)
+                self._admit_result(orig, node, phys, value)
                 return Result(value, phys, False, time.perf_counter() - t0,
                               mode="eager")
             sp.set(path="batch")
             value, hit = self._run(node, phys)
+            self._admit_result(orig, node, phys, value)
             return Result(value, phys, hit, time.perf_counter() - t0)
 
+    def _admit_result(self, orig: L.Node, opt: L.Node, phys: PhysNode,
+                      value) -> None:
+        """Offer a finished result to the semantic cache, priced by the
+        physical plan's modeled recompute cost.  A TrainGLM result is
+        also admitted as a servable model under the same fingerprint,
+        which embeds the training tables' versions: a mutation strands
+        it and the next score retrains."""
+        if self.cache is None:
+            return
+        fp = self.fingerprint_of(orig)
+        for kind in ("result", "model") if isinstance(opt, L.TrainGLM) \
+                else ("result",):
+            self.cache.put((kind, fp), value, kind=kind,
+                           n_bytes=_value_nbytes(value),
+                           recompute_s=phys.total_cost_s,
+                           tables=L.tables_of(opt), tenant=self.tenant)
+
     def plan(self, node: L.Node):
-        """optimize + plan_physical, memoized per node and table versions."""
+        """optimize + plan_physical, memoized per node and table versions
+        (a mutation noticed first purges the memo)."""
+        self._sync_versions()
         key = (node, tuple(sorted(self.catalog.versions().items())))
         if key not in self._planned:
             with self.tel.span("exec.plan") as sp:
@@ -444,6 +615,13 @@ class Executor:
         splan = pl.analyze(node, self.catalog.stats)
         if splan is None:
             return self._run_eager(node, phys), False
+        if self._route_to_refine(node, splan):
+            # a cached (superset) bitmap makes the eager gather path
+            # cheaper than the fused full-column scan
+            self.metrics.inc("exec.refine_routed")
+            self.tel.instant("exec.route_refine",
+                             reason="cached_bitmap_priced_below_scan")
+            return self._run_eager(node, phys), False
         cp, specs, hit = self._pipeline(node, phys, splan, rows=None)
         arrays = [self.placed(t, c, p) for t, c, p in specs]
         builds = self._breaker_arrays(splan.breakers)
@@ -466,6 +644,32 @@ class Executor:
             sp.set(measured_s=dt, measured_bytes=moved)
             self.tel.ledger.record_plan(phys, dt, moved, mode="fused")
             return cp.finalize(carry), hit
+
+    def _route_to_refine(self, node: L.Node, splan: pl.StreamPlan) -> bool:
+        """Whether a breaker-free aggregate pipeline should leave its
+        fused full-column scan for the eager path because the semantic
+        cache holds a selection bitmap (exact or superset) that the cost
+        model prices below the scan.  A performance decision only: both
+        paths give the same bits, and the eager lowering makes the real
+        (exact first, then tightest superset) lookup."""
+        if self.cache is None or splan.breakers:
+            return False
+        if node not in self._sints:
+            self._sints[node] = L.selection_interval(node)
+        si = self._sints[node]
+        if si is None or si.table not in self.catalog.tables:
+            return False
+        version = self.catalog.tables[si.table].version
+        gate = self._refine_gate(self.catalog.stats[si.table].num_rows)
+        exact = self.cache.peek(("bitmap", si.table, version, si.column,
+                                 si.lo, si.hi))
+        if exact is not None:
+            # serving the exact bitmap streams only the selected rows;
+            # it is priced as refinement is
+            return gate(exact)
+        return self.cache.peek_superset(si.table, si.column, version,
+                                        si.lo, si.hi, accept=gate) \
+            is not None
 
     def _cache_key(self, node: L.Node, phys: PhysNode) -> tuple:
         shapes = tuple(sorted(
@@ -514,19 +718,42 @@ class Executor:
         return torch.int32
 
     def _breaker_arrays(self, breakers) -> list:
-        """Flattened join-build state (the pipeline breakers), cached per
-        build table version."""
+        """Flattened join-build state (the pipeline breakers), per build
+        table version.  With a semantic cache the builds live there, byte-
+        budgeted (an evicted build is rebuilt) and shared with every
+        executor of the cache; without one, in a private dict."""
         flat: list = []
         for b in breakers:
-            key = (b, self.catalog.tables[b.table].version)
+            version = self.catalog.tables[b.table].version
+            if self.cache is not None:
+                ckey = ("build", b.table, version, b.on, b.value_cols,
+                        b.unique)
+                entry = self.cache.get(ckey)
+                if entry is not None:
+                    self.metrics.inc("exec.build_cache_hits")
+                    flat.extend(self._served(entry))
+                    continue
+                arrays = self._make_build(b)
+                self.cache.put(
+                    ckey, arrays, kind="build",
+                    n_bytes=_value_nbytes(arrays),
+                    recompute_s=self.cost_model.build_price(
+                        self.catalog.stats[b.table].num_rows,
+                        len(b.value_cols)),
+                    tables=(b.table,), tenant=self.tenant)
+                flat.extend(arrays)
+                continue
+            key = (b, version)
             if key not in self._builds:
-                cols = {c: Column(self.placed(b.table, c, "replicated"), c)
-                        for c in (b.on, *b.value_cols)}
-                self._builds[key] = engine.join_build(
-                    Table(b.table, cols), b.on, b.value_cols,
-                    unique=b.unique).flat()
+                self._builds[key] = self._make_build(b)
             flat.extend(self._builds[key])
         return flat
+
+    def _make_build(self, b: pl.BreakerSpec) -> tuple:
+        cols = {c: Column(self.placed(b.table, c, "replicated"), c)
+                for c in (b.on, *b.value_cols)}
+        return engine.join_build(Table(b.table, cols), b.on, b.value_cols,
+                                 unique=b.unique).flat()
 
     # -- tiered spill ------------------------------------------------------- #
 
@@ -873,16 +1100,26 @@ class Executor:
             return value
 
     def _resolve_model(self, n: L.ScoreGLM, phys: Optional[PhysNode]):
-        """Weights for a ScoreGLM.  The port has no semantic cache, so it
-        trains fresh through ``execute`` (the naive oracle, ``phys is
-        None``, trains inline); a raw fingerprint names no model it could
-        have, and raises."""
+        """Weights for a ScoreGLM: the semantic cache's model under the
+        train plan's fingerprint (or the raw ``model_fp``), else a fresh
+        train through ``execute``, which admits the model for the next
+        score.  Without a cache, or with no entry, it trains fresh; a raw
+        fingerprint with no entry raises.  The naive oracle (``phys is
+        None``) neither reads nor feeds the cache: it trains inline."""
+        fp = n.model_fp or (self.fingerprint_of(n.train)
+                            if n.train is not None else "")
+        if phys is not None and self.cache is not None and fp:
+            entry = self.cache.get(("model", fp))
+            if entry is not None:
+                self.metrics.inc("exec.model_cache_hits")
+                self.tel.instant("exec.model_hit", fingerprint=fp[:16])
+                return self._served(entry)
         if n.train is None:
             raise KeyError(
-                f"score_glm: no cached model under fingerprint "
-                f"{n.model_fp!r} and no defining train plan to fall back "
-                "to — score with the TrainGLM plan instead of a raw "
-                "fingerprint")
+                f"score_glm: no cached model under fingerprint {fp!r} "
+                "and no defining train plan to fall back to — train first "
+                "(with a semantic cache installed) or score with the "
+                "TrainGLM plan instead of a raw fingerprint")
         if phys is None:
             return self._run_eager(n.train, None)
         return self.execute(n.train).value
@@ -902,6 +1139,8 @@ class Executor:
         # bandwidth model's
         ledger_on = self.tel.enabled and phys is not None
         frames: list = []        # per live node: [child_incl_s, child_outs]
+        versions = self.catalog.versions() if self.cache is not None \
+            else None
 
         def traced_eval(n):
             if not ledger_on:
@@ -934,17 +1173,45 @@ class Executor:
                                   placements.get((n.table, "*"),
                                                  "partitioned"))
 
+        def eval_cached(n):
+            # subplan caching (optimized runs only): materialized
+            # selections and join products go to the semantic cache under
+            # order-sensitive fingerprints (row order is part of a
+            # materialized table), priced by the plan's per-operator cost
+            if self.cache is None or phys is None or \
+                    not isinstance(n, (L.Filter, L.FilterProject, L.Join)):
+                return traced_eval(n)
+            key = ("subplan", L.fingerprint(n, versions,
+                                            order_sensitive=True))
+            entry = self.cache.get(key)
+            if entry is not None:
+                self.metrics.inc("exec.subplan_cache_hits")
+                value = self._served(entry)
+                # served, not run: no ledger row, but the parent's bytes
+                # mirror still needs this child's actual cardinality
+                if ledger_on and frames:
+                    frames[-1][1].append((n, value))
+                return value
+            t = traced_eval(n)
+            d = decisions.get(n)
+            self.cache.put(key, t, kind="subplan", n_bytes=_value_nbytes(t),
+                           recompute_s=d.total_cost_s if d is not None
+                           else 0.0,
+                           tables=L.tables_of(n), tenant=self.tenant)
+            return t
+
         def eval_node(n):
             if isinstance(n, L.Scan):
                 return self._placed_table(n, scan_placement(n))
             if isinstance(n, (L.Filter, L.FilterProject)):
-                t = traced_eval(n.child)
+                t = eval_cached(n.child)
                 keep = n.columns if isinstance(n, L.FilterProject) \
                     else tuple(t.columns)
-                return self._filter_table(t, n.column, n.lo, n.hi, keep)
+                return self._filter_table(t, n.column, n.lo, n.hi, keep,
+                                          cache_ok=phys is not None)
             if isinstance(n, L.Join):
-                lt = traced_eval(n.left)
-                rt = traced_eval(n.right)
+                lt = eval_cached(n.left)
+                rt = eval_cached(n.right)
                 if lt.plan is None:
                     pname = "partitioned" if lt.num_rows \
                         % self.plans["partitioned"].n_engines == 0 \
@@ -961,10 +1228,10 @@ class Executor:
                         cols[c] = Column(rt.column(c)[r_idx], c)
                 return Table("join", cols)
             if isinstance(n, L.Project):
-                t = traced_eval(n.child)
+                t = eval_cached(n.child)
                 return Table("proj", {c: t.columns[c] for c in n.columns})
             if isinstance(n, L.Aggregate):
-                col = traced_eval(n.child).column(n.column)
+                col = eval_cached(n.child).column(n.column)
                 if n.op == "sum":
                     return float(col.sum()) if col.dtype.is_floating_point \
                         else int(col.sum(dtype=torch.int64))
@@ -976,7 +1243,7 @@ class Executor:
                     return float(col.to(torch.float32).mean())
                 raise ValueError(n.op)
             if isinstance(n, L.TrainGLM):
-                t = traced_eval(n.child)
+                t = eval_cached(n.child)
                 # the placement the cost model chose, so explain() and
                 # execution agree
                 d = decisions.get(n)
@@ -987,7 +1254,7 @@ class Executor:
                                         list(n.grid), cplan, kind=n.kind,
                                         epochs=n.epochs)
             if isinstance(n, L.ScoreGLM):
-                t = traced_eval(n.child)
+                t = eval_cached(n.child)
                 xs, losses = self._resolve_model(n, phys)
                 idx = int(n.select) if n.select >= 0 \
                     else int(torch.argmin(losses))
@@ -1001,19 +1268,116 @@ class Executor:
         return traced_eval(node)
 
     def _filter_table(self, t: Table, column: str, lo: int, hi: int,
-                      keep: Tuple[str, ...], *, block: int = 1024) -> Table:
-        """Selection -> gather.  Every filter goes through
-        ``engine.select_range`` (the selection kernel on the card): the
-        kernel masks ragged blocks, so the reference's guard
-        that sent non-dividing tables and unplaced intermediates to a
-        plain mask is gone.  Intermediates take the partitioned plan; the
-        index list is the same either way."""
+                      keep: Tuple[str, ...], *, block: int = 1024,
+                      cache_ok: bool = True) -> Table:
+        """Selection -> gather.  A miss goes through ``engine.select_range``
+        (the selection kernel on the card): the kernel masks ragged
+        blocks, so the reference's guard that sent non-dividing tables
+        and unplaced intermediates to a plain mask is gone.
+        Intermediates take the partitioned plan; the index list is the
+        same either way.
+
+        With a semantic cache, selections over base tables are cacheable
+        bitmaps keyed by the table version: an exact hit gathers at once,
+        and an exact miss refines the tightest cached superset when the
+        cost model prices that below the scan (``_refine_gate``).  Either
+        index list is bit-identical to the kernel's.  ``cache_ok=False``
+        is the naive oracle, which neither reads nor feeds the cache."""
+        bkey = interval = None
+        if cache_ok and self.cache is not None \
+                and t.name in self.catalog.tables:
+            version = self.catalog.tables[t.name].version
+            interval = (t.name, column, version, int(lo), int(hi))
+            bkey = ("bitmap", t.name, version, column, int(lo), int(hi))
+            entry = self.cache.get(bkey)
+            if entry is not None:
+                self.metrics.inc("exec.subplan_cache_hits")
+                return self._gather(t, self._served(entry), keep)
+            # predicate subsumption: the pricing gate rides inside the
+            # lookup, so a superset too wide to refine is never counted
+            # as a hit or touched for recency
+            sup = self.cache.lookup_superset(
+                t.name, column, version, int(lo), int(hi),
+                accept=self._refine_gate(t.num_rows))
+            if sup is not None:
+                cached_idx = self._served(sup[0])
+                idx = self._refine_bitmap(t.column(column), cached_idx,
+                                          lo, hi,
+                                          chunk_rows=self._refine_chunk())
+                self.metrics.inc("exec.subsumption_hits")
+                self.metrics.inc("exec.refine_bytes_streamed",
+                                 3 * _value_nbytes(cached_idx))
+                self.metrics.inc("exec.refine_bytes_avoided",
+                                 t.num_rows * BYTES_PER_VALUE)
+                self.tel.instant("cache.refine", table=t.name,
+                                 column=column,
+                                 cached_rows=int(cached_idx.shape[0]))
+                # the refined (narrower) bitmap joins the ladder
+                self._admit_bitmap(bkey, idx, interval, t)
+                return self._gather(t, idx, keep)
         plan = t.plan if t.plan is not None else self.plans["partitioned"]
         sel = engine.select_range(Table(t.name, t.columns, plan), column,
                                   lo, hi, block=block)
-        return engine.gather(t, sel.column("idx"),
-                             [c for c in keep if c in t.columns],
+        idx = sel.column("idx")
+        if bkey is not None:
+            self._admit_bitmap(bkey, idx, interval, t)
+        return self._gather(t, idx, keep)
+
+    @staticmethod
+    def _gather(t: Table, idx: torch.Tensor, keep) -> Table:
+        return engine.gather(t, idx, [c for c in keep if c in t.columns],
                              name=f"{t.name}.sel")
+
+    def _refine_gate(self, base_rows: int):
+        """The accept predicate of superset lookups: a cached bitmap
+        qualifies only when refining it is priced below rescanning the
+        base column."""
+        return lambda e: self.cost_model.refine_wins(
+            int(e.value.shape[0]), base_rows)
+
+    def _admit_bitmap(self, bkey, idx: torch.Tensor, interval,
+                      t: Table) -> None:
+        """One admission for scanned and refined bitmaps, both priced at
+        the full base-column recompute (a refined entry is no cheaper to
+        lose: its superset may be gone by rebuild time)."""
+        self.cache.put(
+            bkey, idx, kind="bitmap", n_bytes=_value_nbytes(idx),
+            recompute_s=self.cost_model.stream_cost(
+                t.num_rows * BYTES_PER_VALUE, placement="partitioned"),
+            tables=(t.name,), interval=interval, tenant=self.tenant)
+
+    def _refine_chunk(self) -> Optional[int]:
+        """Refinement granularity: None (one gather) without a device
+        budget; under one, slices of the cached index whose index and
+        gathered values (8 bytes a row) fit the budget."""
+        cap = self.placement_capacity_bytes
+        if cap is None:
+            return None
+        return max(int(cap // 8), 1)
+
+    @staticmethod
+    def _refine_bitmap(col: torch.Tensor, cached_idx: torch.Tensor,
+                       lo: int, hi: int, *,
+                       chunk_rows: Optional[int] = None) -> torch.Tensor:
+        """AND a cached superset bitmap with the narrower range: gather
+        the predicate column at the cached positions and keep the
+        survivors.  ``cached_idx`` is ascending and compaction keeps
+        order, so the result is bit-identical to a from-scratch selection,
+        order and dtype included.  ``chunk_rows`` refines one bounded
+        slice of the cached index at a time; the slices partition the
+        ascending index, so their concatenation is the one-gather answer.
+        Reads the cached index and writes only new tensors."""
+        n = int(cached_idx.shape[0])
+        if chunk_rows is None or chunk_rows >= n:
+            parts = [cached_idx]
+        else:
+            parts = [cached_idx[s:s + chunk_rows]
+                     for s in range(0, n, chunk_rows)]
+        out = []
+        for sub in parts:
+            mask = engine.in_range(col[sub], lo, hi)
+            out.append(sub[engine.compact_positions(mask, int(mask.sum()))])
+        return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _fence(device: torch.device) -> None:
@@ -1069,6 +1433,21 @@ def _eager_measured_bytes(d: PhysNode, out, child_outs) -> float:
     if d.op == "score_glm":
         return in_rows * B * len(d.logical.features) + rows_out * B
     return float(d.n_bytes)     # an op without a formula: the prediction
+
+
+def _value_nbytes(value) -> int:
+    """Residency size of a cached value: the bytes of a tensor, of a
+    Table's columns and of a tuple's items; a nominal 16 for a scalar.
+    Aggregates come back as Python ``int`` / ``float`` from the fused
+    pipeline's ``finalize`` and from the eager lowering alike, so a
+    result's size never depends on the path that made it."""
+    if isinstance(value, Table):
+        return sum(c.nbytes for c in value.columns.values())
+    if isinstance(value, (tuple, list)):
+        return sum(_value_nbytes(v) for v in value)
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    return int(getattr(value, "nbytes", 16))
 
 
 def sql_like_query(executor: Executor, q, **kw):

@@ -220,8 +220,9 @@ def test_eager_mode_follows_planned_placement():
 
 def test_mutation_retrains_on_the_new_labels():
     """A label update changes the training data and the next train sees
-    it (the port has no model cache to invalidate; this pins that the
-    update reaches the stream and eager paths alike)."""
+    it.  The test runs without a semantic cache, so no model is cached
+    to invalidate; it pins that the update reaches the stream and eager
+    paths alike."""
     ex = _port(256)
     before = ex.execute(train_q()).value[0]
     y = ex.catalog.tables["train"].column("y")

@@ -105,7 +105,26 @@ Phases, each of which must pass or the script exits non-zero:
    and by raw fingerprint launch no SGD kernel, their scores bit-identical
    to a cache-less executor's.  Every value equals numpy, and the phase
    fails when the executor has no cache (``REPRO_CACHE=0``);
-12. lm: the LM serving path at full width and depth.  The flash-attention
+12. serve: the query server over SSB at SF 10.  One admission-batch
+   server takes 64 submissions from 4 tenants (flight 1's Q1.1, Q1.2 and
+   Q1.3 four times each, 24 quantity-range sums twice, 4 projections of
+   a 5-day order-date window, about 0.2% of the rows): 33 deduplicated,
+   the 24 sums micro-batched in one pass.  A streaming server
+   (``morsel_rows`` 2**22, 15 morsels) admits 16 flight-1 variants in 4
+   waves two pumps apart, 2 dedup riders and 2 Project-rooted members:
+   one group holds up to 16 members, and B2 launches once per advance
+   per live group and join, however many members.  A tenant whose SLO
+   (1 us) is far below the achievable p95 forces backpressure on the
+   other.  A traced server with ``AdaptivePolicy()`` folds the ledger's
+   drift into the cost model while a wave is in flight (or, when the
+   policy sees no breach in 7 pumps, recosts with the ledger's overlay),
+   and the next wave forms a new group.  A 2 GiB cache is saved and a
+   fresh server warm-starts from the file: Q1.1 then takes path
+   ``cached`` and launches nothing.  Every value equals numpy; the
+   sojourn p50 / p95, q/s and per-path counts are printed.  Phase 6's
+   search is also served from a cached server: it trains once and two
+   ``score_glm`` queries launch no SGD kernel;
+13. lm: the LM serving path at full width and depth.  The flash-attention
    kernel's two tensor-core routes against their plain version at the
    shapes the path runs them at: bf16 (wgmma) within 2e-2 at the served
    prefills of llama3-8b (D 128, GQA 4) and stablelm-3b (D 80, MHA),
@@ -1103,6 +1122,48 @@ def phase_glm(dev, seed):
     log(f"  score_glm: {MNIST_ROWS} scores of the argmin model equal "
         f"numpy's sigmoid(a @ x) within rtol=1e-5, atol=1e-5 (max abs err "
         f"{score_err:.3e}); {score_s * 1e3:.3f} ms with its fresh train")
+
+    # a cached query server: the search trains once, and two scores (by
+    # the train plan, and by the model's raw fingerprint) are served from
+    # its model
+    from repro_torch.query import QueryServer
+    srv = QueryServer(Executor(catalog_from_arrays(tables, dev), dev,
+                               cache_bytes=CACHE_BYTES))
+    if srv.executor.cache is None:
+        raise AssertionError("glm server: the executor has no semantic "
+                             "cache (is REPRO_CACHE=0 set?)")
+    served = {}
+    by_fp = Q.scan("mnist").score(srv.executor.fingerprint_of(q.node),
+                                  [f"px{j}" for j in range(MNIST_FEATURES)])
+    for name, qs in (("serve glm train", [q]),
+                     ("serve glm scores", [sq, by_fp])):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qids = [srv.submit(x) for x in qs]
+        out = srv.drain()
+        torch.cuda.synchronize()
+        served[name] = time.perf_counter() - t0
+        counts[name] = dict(_build.LAUNCHES)
+    plan_s, fp_s = (out[i].column("score") for i in qids)
+    b5 = counts["serve glm scores"]["sgd"] \
+        + counts["serve glm scores"]["sgd_split"]
+    st = srv.stats()
+    if counts["serve glm train"]["sgd"] + \
+            counts["serve glm train"]["sgd_split"] <= 0 or b5 \
+            or st["n_model_hits"] < 1:
+        raise AssertionError(f"glm server: launches {counts}, model hits "
+                             f"{st['n_model_hits']}")
+    if not torch.equal(plan_s, scores) or not torch.equal(fp_s, scores):
+        raise AssertionError("glm server: the served scores differ from "
+                             "the executor's")
+    log(f"  served: the search trained once "
+        f"({served['serve glm train'] * 1e3:.3f} ms, launches "
+        f"{counts['serve glm train']}), then both scores came from its "
+        f"model in {served['serve glm scores'] * 1e3:.3f} ms "
+        f"with no B5 launch (n_model_hits {st['n_model_hits']}), both "
+        f"equal to the executor's scores bit for bit")
+    del srv
     return counts, [row, *wide_rows]
 
 
@@ -2025,6 +2086,373 @@ def phase_cache(dev, ssb_tables, tpch_tables, order_idx, ssb_times, cal,
     return counts
 
 
+SERVE_MORSEL_ROWS = 1 << 22      # 15 morsels over SF 10's lineorder
+# SSB flight 1 (O'Neil et al., "Star Schema Benchmark"), its date
+# predicates as ranges of lineorder's order date: Q1.1 the year 1993,
+# Q1.2 January 1994, Q1.3 the sixth week of 1994
+FLIGHT1 = {"Q1.1": ((19930101, 19931231), (1, 3), (1, 24)),
+           "Q1.2": ((19940101, 19940131), (4, 6), (26, 35)),
+           "Q1.3": ((19940205, 19940211), (5, 7), (26, 35))}
+
+
+def flight1_query(Q, dates, disc, qty):
+    return (Q.scan("lineorder").filter("orderdate", *dates)
+            .filter("discount", *disc).filter("quantity", *qty)
+            .join(Q.scan("date"), on="orderdate").sum("extendedprice"))
+
+
+def flight1_variants(n: int):
+    """``n`` flight-1 queries of one shape: a year, a month or a week of
+    order dates (in turn), with shifted discount and quantity bands."""
+    out = []
+    for i in range(n):
+        y = 1992 + i % 6
+        if i % 3 == 0:
+            dates = (y * 10000 + 101, y * 10000 + 1231)
+        elif i % 3 == 1:
+            m = 1 + (i * 5) % 12
+            dates = (y * 10000 + m * 100 + 1, y * 10000 + m * 100 + 28)
+        else:
+            d = 1 + (i * 3) % 21
+            dates = (y * 10000 + 300 + d, y * 10000 + 300 + d + 6)
+        disc = (i % 9, i % 9 + 2)
+        qty = (1 + i % 7, 24 + i % 11)
+        out.append((dates, disc, qty))
+    return out
+
+
+class Flight1Oracle:
+    """Exact answers to flight-1 queries: one int64-exact cube of
+    extendedprice summed by (day, discount, quantity) over the lineorder
+    rows that join the date dimension, from which each query sums a box
+    (float64 sums of integers below 2**53 are exact)."""
+
+    def __init__(self, tables):
+        lo = tables["lineorder"]
+        self.datekey = tables["date"]["orderdate"]
+        base = int(self.datekey.min())
+        lut = np.full(int(self.datekey.max()) - base + 1, -1, np.int64)
+        lut[self.datekey - base] = np.arange(self.datekey.size)
+        od = lo["orderdate"].astype(np.int64) - base
+        inside = (od >= 0) & (od < lut.size)
+        day = np.where(inside, lut[np.clip(od, 0, lut.size - 1)], -1)
+        joins = day >= 0
+        key = (day[joins] * 11 + lo["discount"][joins]) * 51 \
+            + lo["quantity"][joins]
+        self.cube = np.bincount(
+            key, weights=lo["extendedprice"][joins].astype(np.float64),
+            minlength=self.datekey.size * 11 * 51).reshape(-1, 11, 51)
+
+    def __call__(self, dates, disc, qty) -> int:
+        d0 = np.searchsorted(self.datekey, dates[0])
+        d1 = np.searchsorted(self.datekey, dates[1], side="right")
+        box = self.cube[d0:d1, max(disc[0], 0):disc[1] + 1,
+                        max(qty[0], 0):qty[1] + 1]
+        return int(round(float(box.sum())))
+
+
+def phase_serve(dev, ssb_tables, cal, spill_dir):
+    """The query server on the card over SSB at SF 10: admission batches,
+    streaming morsel groups, QoS backpressure, adaptive recalibration and
+    warm start.  Every value against a numpy oracle.  Returns launch
+    counts by run."""
+    import torch
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.kernels import _build
+    from repro_torch.query import (
+        AdaptivePolicy, Executor, Q, QueryServer, SemanticCache, Telemetry,
+        TenantSpec,
+    )
+    from repro_torch.query import serve as serve_mod
+
+    t_phase = time.perf_counter()
+    counts = {}
+    lo = ssb_tables["lineorder"]
+    cat = catalog_from_arrays(ssb_tables, dev)
+    oracle = Flight1Oracle(ssb_tables)
+    qty_price = np.bincount(lo["quantity"], weights=lo["extendedprice"]
+                            .astype(np.float64), minlength=51)
+
+    def qty_sum(a, b):
+        return int(round(float(qty_price[a:b + 1].sum())))
+
+    def counted(name, fn):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = dict(_build.LAUNCHES)
+        return out, time.perf_counter() - t
+
+    def check(srv, want):
+        by_qid = {r.qid: r for r in srv.history}
+        for qid, w in want.items():
+            got = by_qid[qid].result
+            if callable(w):
+                w(qid, got)
+            elif got != w:
+                raise AssertionError(f"serve qid {qid} ({by_qid[qid].path})"
+                                     f": {got} != oracle {w}")
+
+    def paths(srv):
+        out = {}
+        for r in srv.history:
+            out[r.path] = out.get(r.path, 0) + 1
+        return out
+
+    def summary(srv, seconds):
+        st = srv.stats()
+        return (f"{st['n_queries']} queries in {seconds * 1e3:.3f} ms "
+                f"({st['n_queries'] / seconds:.1f} q/s end to end, "
+                f"{st['queries_per_s']:.1f} q/s in the server); sojourn "
+                f"p50 {st['latency_p50_s'] * 1e3:.3f} ms, p95 "
+                f"{st['latency_p95_s'] * 1e3:.3f} ms; paths {paths(srv)}")
+
+    def project_check(dates):
+        m = (lo["orderdate"] >= dates[0]) & (lo["orderdate"] <= dates[1])
+
+        def chk(qid, table):
+            for c in ("quantity", "extendedprice"):
+                if not np.array_equal(table.column(c).cpu().numpy(),
+                                      lo[c][m]):
+                    raise AssertionError(f"serve project qid {qid}: {c}")
+        return chk, int(m.sum())
+
+    def proj_query(dates):
+        return (Q.scan("lineorder").filter("orderdate", *dates)
+                .project("quantity", "extendedprice"))
+
+    # 1. admission batches: 64 submissions from 4 tenants
+    tenants = [TenantSpec("dash", priority=10), TenantSpec("adhoc",
+                                                           priority=5),
+               TenantSpec("report"), TenantSpec("etl")]
+    ex = Executor(cat, dev)
+    ex.recost(cal)
+    sub = []
+    for name, spec in FLIGHT1.items():
+        sub += [(flight1_query(Q, *spec), oracle(*spec))] * 4
+    qranges = [(a, a + w) for a in range(1, 49, 4) for w in (1, 2)]
+    sub += [(Q.scan("lineorder").filter("quantity", a, b)
+             .sum("extendedprice"), qty_sum(a, b)) for a, b in qranges]
+    weeks = [(19940301, 19940305), (19950610, 19950614),
+             (19960120, 19960124), (19971103, 19971107)]
+    # the projections' checks hold their numpy masks, made here, outside
+    # every timed round
+    proj_checks = {dates: project_check(dates) for dates in weeks}
+    narrow = sum(rows for _, rows in proj_checks.values())
+    sub += [(proj_query(dates), proj_checks[dates][0]) for dates in weeks]
+    sub += [(Q.scan("lineorder").filter("quantity", a, b)
+             .sum("extendedprice"), qty_sum(a, b)) for a, b in qranges]
+    assert len(sub) == 64
+
+    def batch_round():
+        """A fresh server on ``ex`` takes the 64 submissions and drains:
+        (server, qid -> oracle)."""
+        srv = QueryServer(ex)
+        for t in tenants:
+            srv.register_tenant(t)
+        want = {srv.submit(qq, tenant=tenants[i % 4].name): w
+                for i, (qq, w) in enumerate(sub)}
+        srv.drain()
+        return srv, want
+
+    def warm(run, name):
+        """The same round again on the warm executor (placements, plans
+        and join builds cached), timed, then once more profiled."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        srv, want = run()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        check(srv, want)
+        log(f"  {name} warm: {summary(srv, warm_s)}")
+        log("    " + profile_once(run))
+
+    (srv, want), batch_s = counted("serve batches", batch_round)
+    check(srv, want)
+    st = srv.stats()
+    expect = {"n_deduped": 9 + 24, "n_microbatched": 24,
+              "n_microbatches": 1}
+    if any(st[k] != v for k, v in expect.items()) \
+            or counts["serve batches"]["probe_counts"] <= 0 \
+            or counts["serve batches"]["select"] <= 0:
+        raise AssertionError(f"serve batches: {st}, launches "
+                             f"{counts['serve batches']}")
+    log(f"serve batches: 64 submissions from 4 tenants (flight 1 x 4 each, "
+        f"24 quantity sums twice, 4 projections of {narrow / len(weeks):.0f}"
+        f" rows, {narrow / len(weeks) / SSB_LINEORDER_ROWS:.3%} of "
+        f"lineorder), all = numpy; first round on a fresh executor: "
+        f"{summary(srv, batch_s)}; deduped {st['n_deduped']}, micro-batched "
+        f"{st['n_microbatched']} in {st['n_microbatches']} pass; launches "
+        f"{counts['serve batches']}")
+    del srv
+    warm(batch_round, "serve batches")
+
+    # 2. streaming: 16 flight-1 variants in 4 waves, 2 riders, 2 projects
+    variants = flight1_variants(16)
+
+    def stream_round():
+        srv = QueryServer(ex, streaming=True, morsel_rows=SERVE_MORSEL_ROWS)
+        want = {}
+        for w in range(4):
+            for dates, disc, qty in variants[4 * w:4 * w + 4]:
+                want[srv.submit(flight1_query(Q, dates, disc, qty),
+                                tenant=tenants[w].name)] = \
+                    oracle(dates, disc, qty)
+            if w == 1:                      # riders on wave 1's members
+                for dates, disc, qty in variants[:2]:
+                    want[srv.submit(flight1_query(Q, dates, disc, qty))] = \
+                        oracle(dates, disc, qty)
+            if w == 2:
+                for dates in weeks[:2]:
+                    want[srv.submit(proj_query(dates))] = \
+                        proj_checks[dates][0]
+            srv.pump()
+            srv.pump()
+        srv.drain()
+        return srv, want
+
+    advances = []
+    real_advance = serve_mod._MorselStream.advance
+
+    def advance(stream):
+        live = [g for g in stream.groups.values() if g.members]
+        advances.append((sum(len(g.cp.breakers) for g in live),
+                         [len(g.members) for g in live],
+                         len(stream.proj_members)))
+        return real_advance(stream)
+
+    serve_mod._MorselStream.advance = advance
+    try:
+        (srv, want), stream_s = counted("serve streaming", stream_round)
+    finally:
+        serve_mod._MorselStream.advance = real_advance
+    check(srv, want)
+    st = srv.stats()
+    b2 = counts["serve streaming"]["probe_counts"] \
+        + counts["serve streaming"]["probe_counts_sampled"]
+    expect_b2 = sum(j for j, _, _ in advances)
+    n_morsels = srv._streams["lineorder"].spec.n_morsels
+    widest = max(max(m, default=0) for _, m, _ in advances)
+    if st["n_streamed"] != 18 or st["n_deduped"] != 2 or b2 != expect_b2 \
+            or any(len(m) > 1 for _, m, _ in advances) or widest < 8:
+        raise AssertionError(f"serve streaming: {st}, B2 {b2} against "
+                             f"{expect_b2}, advances {advances}")
+    log(f"serve streaming: {n_morsels} morsels of {SERVE_MORSEL_ROWS} rows;"
+        f" 16 flight-1 variants in 4 waves (2 pumps apart), 2 dedup riders "
+        f"and 2 projections, all = numpy; first round: "
+        f"{summary(srv, stream_s)}")
+    log(f"  B2 launches {b2} over {len(advances)} advances = live groups x "
+        f"joins; members per group by advance "
+        f"{[m[0] if m else 0 for _, m, _ in advances]}, projections "
+        f"{[p for _, _, p in advances]}; launches "
+        f"{counts['serve streaming']}")
+    del srv
+    warm(stream_round, "serve streaming")
+
+    # 3. QoS: an SLO far below the achievable p95 forces backpressure
+    srv = QueryServer(Executor(cat, dev), streaming=True,
+                      morsel_rows=SERVE_MORSEL_ROWS)
+    srv.register_tenant(TenantSpec("dash", priority=10, slo_p95_s=1e-6))
+    srv.register_tenant(TenantSpec("adhoc", priority=0))
+    want = {srv.submit(flight1_query(Q, *FLIGHT1["Q1.1"]), tenant="dash"):
+            oracle(*FLIGHT1["Q1.1"])}
+    srv.drain()                          # seeds the recent sojourns
+
+    def qos_run():
+        for i, v in enumerate(variants[:8]):
+            want[srv.submit(flight1_query(Q, *v),
+                            tenant="dash" if i % 2 else "adhoc")] = oracle(*v)
+        return srv.drain()
+
+    _, qos_s = counted("serve qos", qos_run)
+    check(srv, want)
+    st = srv.stats()
+    if st["n_backpressured"] <= 0 or any(
+            r.n_deferred for r in srv.history if r.tenant == "dash"):
+        raise AssertionError(f"serve qos: {st}")
+    tn = st["tenants"]
+    log(f"serve qos: dash's SLO 1 us against its p95 "
+        f"{tn['dash']['latency_p95_s'] * 1e3:.3f} ms; {st['n_backpressured']}"
+        f" admissions of adhoc deferred (adhoc p95 "
+        f"{tn['adhoc']['latency_p95_s'] * 1e3:.3f} ms), none of dash's; all "
+        f"= numpy; {summary(srv, qos_s)}")
+    del srv
+
+    # 4. adaptive: the ledger's drift folds back into the cost model
+    aex = Executor(cat, dev, telemetry=Telemetry(enabled=True))
+    srv = QueryServer(aex, streaming=True, morsel_rows=SERVE_MORSEL_ROWS,
+                      policy=AdaptivePolicy())
+    want = {}
+
+    def adaptive_run():
+        for v in variants[:4]:
+            want[srv.submit(flight1_query(Q, *v))] = oracle(*v)
+        for _ in range(7):
+            srv.pump()
+        forced = srv.n_recalibrations == 0
+        if forced:
+            # the policy saw no breach: recost with the ledger's overlay
+            # itself, so a recost still lands mid-stream
+            aex.recost(aex.tel.ledger.calibration_overlay(aex.cost_model))
+        for v in variants[4:8]:
+            want[srv.submit(flight1_query(Q, *v))] = oracle(*v)
+        srv.drain()
+        return forced
+
+    epoch0 = aex.cost_epoch
+    forced, adapt_s = counted("serve adaptive", adaptive_run)
+    check(srv, want)
+    st = srv.stats()
+    groups = len(srv._streams["lineorder"].groups)
+    if aex.cost_epoch <= epoch0 or groups < 2:
+        raise AssertionError(f"serve adaptive: epoch {aex.cost_epoch}, "
+                             f"groups {groups}")
+    rows = [r for r in aex.tel.ledger.rows if r.mode == "serve"]
+    log(f"serve adaptive: n_recalibrations {st['n_recalibrations']}, epoch "
+        f"{epoch0} -> {aex.cost_epoch}"
+        + (" (the policy saw no breach in 7 pumps; recost with the ledger's"
+           " overlay mid-stream)" if forced else "")
+        + f"; {len(rows)} serve ledger rows; {groups} pinned groups; all 8 "
+        f"= numpy across the recost; {summary(srv, adapt_s)}")
+    del srv, aex
+
+    # 5. warm start: a 2 GiB cache saved, a fresh server restored from it
+    path = os.path.join(spill_dir, "serve.npz")
+    q11 = flight1_query(Q, *FLIGHT1["Q1.1"])
+    want11 = oracle(*FLIGHT1["Q1.1"])
+    srv = QueryServer(Executor(cat, dev, cache_bytes=CACHE_BYTES),
+                      persist_path=path)
+    if srv.executor.cache is None:
+        raise AssertionError("serve warm start: the executor has no "
+                             "semantic cache (is REPRO_CACHE=0 set?)")
+    if srv.query(q11) != want11:
+        raise AssertionError("serve warm start: Q1.1 differs")
+    saved = srv.save_state()
+    del srv
+    srv = QueryServer(Executor(cat, dev), persist_path=path,
+                      semantic_cache=SemanticCache(
+                          CACHE_BYTES, host_budget_bytes=HOST_CACHE_BYTES))
+    got, warm_s = counted("serve warm start", lambda: srv.query(q11))
+    rec = srv.history[-1]
+    if not srv.warm_started or srv.warm_started["restored"] < 1 \
+            or got != want11 or rec.path != "cached" \
+            or any(counts["serve warm start"].values()):
+        raise AssertionError(f"serve warm start: {srv.warm_started}, "
+                             f"{got}, {rec.path}, "
+                             f"{counts['serve warm start']}")
+    log(f"serve warm start: {saved['saved']} entries saved, "
+        f"{srv.warm_started['restored']} restored into a fresh server; Q1.1 "
+        f"took path cached in {warm_s * 1e3:.3f} ms launching nothing, "
+        f"= oracle {want11}")
+    del srv
+    os.unlink(path)
+    torch.cuda.empty_cache()
+    log(f"serve: phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def phase_lm_kernels(dev):
     """B7's two routes at every shape the LM path runs them at (bf16 at
     llama3-8b's and stablelm-3b's served prefills, f32 at the same two
@@ -2405,6 +2833,7 @@ def main(argv=None) -> int:
                                      spill_dir, args.seed)
         cache_counts = phase_cache(dev, ssb, tpch, order_idx, ssb_times, cal,
                                    spill_dir, args.seed)
+        serve_counts = phase_serve(dev, ssb, cal, spill_dir)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_rows = phase_glm(dev, args.seed)
@@ -2434,7 +2863,7 @@ def main(argv=None) -> int:
                                                       glm_counts, multi_counts,
                                                       cal_counts, spill_counts,
                                                       tel_counts, cache_counts,
-                                                      lm_counts)
+                                                      serve_counts, lm_counts)
                                        for c in counts.values()))
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
@@ -2443,7 +2872,8 @@ def main(argv=None) -> int:
     log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
         f"calibrate launches: {cal_counts}; spill launches: {spill_counts}; "
         f"telemetry launches: {tel_counts}; cache launches: "
-        f"{cache_counts}; lm launches: {lm_counts}")
+        f"{cache_counts}; serve launches: {serve_counts}; lm launches: "
+        f"{lm_counts}")
     by_name = {row["name"]: row for row in rows}
     copy, ring = by_name["stream_copy"], by_name["sgd"]
     steps = GLM_EPOCHS * MNIST_ROWS // GLM_MINIBATCH

@@ -46,6 +46,22 @@ def in_range(col: torch.Tensor, lo, hi) -> torch.Tensor:
     return (col >= lo) & (col <= hi)
 
 
+def in_ranges(col: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor) -> torch.Tensor:
+    """Row masks of G ranges at once: ``lo`` and ``hi`` are ``[G, 1]``
+    integer tensors, the result ``[G, rows]``.  Integer bounds are
+    normalized per range exactly as ``in_range`` normalizes a pair
+    (clamped into int32, an empty or out-of-domain range made (1, 0));
+    a float column compares in its own type, as a Python bound does."""
+    if col.dtype.is_floating_point:
+        lo, hi = lo.to(col.dtype), hi.to(col.dtype)
+    else:
+        empty = (lo > hi) | (lo > sel_ref.I32_MAX) | (hi < sel_ref.I32_MIN)
+        lo = torch.where(empty, 1, lo.clamp(min=sel_ref.I32_MIN))
+        hi = torch.where(empty, 0, hi.clamp(max=sel_ref.I32_MAX))
+    return (col >= lo) & (col <= hi)
+
+
 def scan(table: Table, columns: Sequence[str]) -> Table:
     return Table(table.name, {c: table.columns[c] for c in columns},
                  table.plan)

@@ -1,6 +1,6 @@
 """Query subsystem of the port: logical plans -> optimizer -> cost model ->
 physical executor (batch / stream / eager), with telemetry, the semantic
-cache and its warm-start persistence.
+cache and its warm-start persistence, and the query server in front.
 
     from repro_torch.query import Q, Catalog, Executor
 
@@ -14,6 +14,14 @@ cache and its warm-start persistence.
     persist.save_state("snap.npz", cached.cache,
                        cost_model=cached.cost_model,
                        table_versions=cat.versions())
+
+    srv = QueryServer(Executor(cat, cache_bytes=1 << 30), streaming=True,
+                      morsel_rows=1 << 22, policy=AdaptivePolicy(),
+                      persist_path="server.npz")
+    srv.register_tenant(TenantSpec("dash", priority=10, slo_p95_s=0.05))
+    qid = srv.submit(q, tenant="dash")
+    results = srv.drain()                    # qid -> value
+    srv.save_state()
 """
 from repro_torch.query.logical import (                          # noqa: F401
     Aggregate, Filter, FilterProject, HyperParams, Join, Node, Project, Q,
@@ -46,4 +54,7 @@ from repro_torch.query.cache import (                            # noqa: F401
 from repro_torch.query import persist                            # noqa: F401
 from repro_torch.query.exec import (                             # noqa: F401
     Catalog, Executor, PlacementCapacityError, Result, sql_like_query,
+)
+from repro_torch.query.serve import (                            # noqa: F401
+    AdaptivePolicy, QueryRecord, QueryServer, TenantSpec,
 )

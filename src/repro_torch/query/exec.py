@@ -54,10 +54,17 @@ are noticed at the top of ``execute`` and ``plan``: the stale version's
 placements, builds, plans and fingerprints are purged, and the cache's
 dependent entries swept.
 
+Callers that advance morsels themselves reuse the streamed path:
+``stream_pipeline`` / ``project_pipeline`` hand out the compiled step and
+its join builds at a morsel granularity, and ``_stream_morsel`` fetches
+one morsel of a union of columns.  The query server (``query/serve.py``)
+advances its shared morsel streams through them.
+
 The executor runs on the CUDA card unless constructed with a ``device``;
 the kernels run exactly when that device is CUDA, because every kernel
 wrapper launches on CUDA tensors and takes its plain version on CPU ones.
-Sharding is not ported yet.
+Sharded execution (``distributed/sharding.py``'s query part and the
+shard pricing) is not ported yet.
 """
 from __future__ import annotations
 
@@ -993,15 +1000,7 @@ class Executor:
         table = pplan.base_scan.table
         spec = self._stream_spec(table, len(pplan.stream_cols), morsel_rows,
                                  morsel_rows, spill)
-        key = ("project",) + self._cache_key(node, phys)
-        if key in self._compiled:
-            self.metrics.inc("exec.plan_cache_hits")
-        else:
-            self.metrics.inc("exec.plan_cache_misses")
-            self.metrics.inc("exec.trace_count")
-            self._compiled[key] = pl.compile_project_pipeline(pplan,
-                                                              self.device)
-        cpj = self._compiled[key]
+        cpj = self._project_compiled(node, phys, pplan, spec.rows)
         builds = self._breaker_arrays(pplan.breakers)
         lits = L.literals(node)
         chunks = {c: [] for c in cpj.out_cols}
@@ -1030,6 +1029,98 @@ class Executor:
             self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
             self._record_promotions(promote)
         return value
+
+    def _project_compiled(self, node: L.Node, phys: Optional[PhysNode],
+                          pplan: pl.ProjectStreamPlan,
+                          rows: int) -> pl.CompiledProject:
+        """The cached Project-rooted step for this plan shape at one
+        granularity."""
+        key = ("proj", rows) + self._cache_key(node, phys)
+        if key in self._compiled:
+            self.metrics.inc("exec.plan_cache_hits")
+        else:
+            self.metrics.inc("exec.plan_cache_misses")
+            self.metrics.inc("exec.trace_count")
+            self._compiled[key] = pl.compile_project_pipeline(
+                pplan, rows, self.device)
+        return self._compiled[key]
+
+    # -- the query server's shared morsel streams --------------------------- #
+
+    def stream_pipeline(self, node: L.Node, phys: Optional[PhysNode],
+                        splan: pl.StreamPlan, spec: MorselSpec):
+        """The compiled per-morsel step and the join builds of one plan at
+        one granularity, for a caller that advances the morsels itself.
+        Returns (pipeline, build arrays, compiled hit).  Under an explicit
+        capacity a morsel over it is refused."""
+        key = ("stream", spec.rows) + self._cache_key(node, phys)
+        hit = key in self._compiled
+        if hit:
+            self.metrics.inc("exec.plan_cache_hits")
+        else:
+            self.metrics.inc("exec.plan_cache_misses")
+            self.metrics.inc("exec.trace_count")
+            self._compiled[key] = pl.compile_pipeline(
+                splan, spec.rows, self._agg_dtype(splan), self.device)
+        cp = self._compiled[key]
+        builds = self._breaker_arrays(splan.breakers)
+        # the one-morsel gate holds only under an explicit capacity; a
+        # budget from the environment clamps model-chosen specs instead
+        cap = self.placement_capacity_bytes if self._cap_explicit else None
+        if cap is not None:
+            n_cols = len(cp.stream_cols)
+            m_bytes = spec.rows * BYTES_PER_VALUE * n_cols
+            if m_bytes > cap:
+                fit = self._clamp_spec(spec, n_cols, cap).rows
+                raise PlacementCapacityError(
+                    f"one morsel ({spec.rows} rows x {n_cols} cols = "
+                    f"{m_bytes} bytes) exceeds the {int(cap)}-byte "
+                    f"placement capacity: lower morsel_rows to <= {fit}")
+        return cp, builds, hit
+
+    def project_pipeline(self, node: L.Node, phys: Optional[PhysNode],
+                         pplan: pl.ProjectStreamPlan, spec: MorselSpec):
+        """The compiled Project-rooted step and its join builds at one
+        granularity: each morsel yields the mask and the output columns,
+        which the caller compacts into a chunk."""
+        cpj = self._project_compiled(node, phys, pplan, spec.rows)
+        return cpj, self._breaker_arrays(pplan.breakers)
+
+    def _stream_morsel(self, table: str, cols: Tuple[str, ...],
+                       spec: MorselSpec, i: int,
+                       promote: Optional[Dict[str, list]] = None):
+        """Morsel ``i`` of ``cols`` on this executor's device, as (arrays
+        in ``cols`` order, valid rows as a Python int, so a morsel costs
+        no device round trip).  A device-resident column's morsel is a
+        slice of it.  Host and disk columns are read here and sent from
+        pinned memory on the current stream, so the step that follows is
+        ordered after the copy.  With telemetry on, ``promote`` counts
+        their valid bytes and fenced fetch time (``_count_promotion``)."""
+        tab = self.catalog.tables[table]
+        tiers = [tab.columns[c].tier for c in cols]
+        below = any(t != "device" for t in tiers)
+        counted = below and promote is not None and self.tel.enabled
+        t0 = time.perf_counter() if counted else 0.0
+        data, n_valid = tab.morsel(spec, i, cols)
+        arrays = [data[c] for c in cols]
+        if not below:
+            return tuple(arrays), int(n_valid)
+        on_card = self.device.type == "cuda"
+        staged = pl._stage(arrays, self.device,
+                           torch.cuda.current_stream(self.device)
+                           if on_card else None)
+        if counted:
+            _fence(self.device)
+            seconds = time.perf_counter() - t0
+            moved: Dict[str, int] = {}
+            for a, tier in zip(arrays, tiers):
+                if tier != "device":
+                    moved[tier] = moved.get(tier, 0) \
+                        + int(a[:n_valid].nbytes)
+            total = sum(moved.values()) or 1
+            for tier, n in moved.items():
+                self._count_promotion(promote, n, seconds * n / total, tier)
+        return tuple(staged), int(n_valid)
 
     def morsel_spec(self, table: str, target: Optional[int] = None,
                     n_cols: int = 2, src_tier: str = "host") -> MorselSpec:

@@ -210,14 +210,29 @@ def analyze_train(node: L.Node, stats: Dict[str, TableStats]
 
 @dataclasses.dataclass
 class CompiledPipeline:
-    """One plan shape lowered to a per-morsel step at one granularity."""
+    """One plan shape lowered to a per-morsel step at one granularity.
+
+    ``group_step(lits, carry, n_valid, *build_flat, *morsel_cols)`` runs
+    G queries of this shape over one morsel at once: ``lits`` is a
+    ``[G, n_lits]`` integer tensor and ``carry`` a ``[G]`` tensor (for
+    ``mean``, a pair of them).  Only the row masks depend on the
+    literals, so the spine (column values, join keys, each join's probe)
+    is evaluated once and the filters broadcast into ``[G, rows]`` masks;
+    each lane's carry equals what ``step`` folds for that query alone,
+    bit for bit."""
     base_table: str
     stream_cols: Tuple[str, ...]
     breakers: Tuple[BreakerSpec, ...]
     rows: int
     step: Callable
+    group_step: Callable
     init_carry: Callable[[], object]
     finalize: Callable[[object], object]
+    device: torch.device
+
+    @property
+    def n_build_arrays(self) -> int:
+        return sum(b.n_arrays for b in self.breakers)
 
 
 def _eval_spine(root: L.Node, stream_cols, morsel, valid, lits,
@@ -226,13 +241,17 @@ def _eval_spine(root: L.Node, stream_cols, morsel, valid, lits,
     weight, buckets): per-row values, the live-row mask, the multi-match
     multiplicity product (None = all ones), and bucket-sum pairs for
     duplicate-build columns.  Literals and breakers are consumed in
-    evaluation order (post-order down the probe side).
+    evaluation order (post-order down the probe side).  ``lits`` is a
+    sequence of Python ints, or a ``[G, n_lits]`` tensor for a group of
+    queries, whose masks are then ``[G, rows]`` while everything else
+    stays per row.
 
     Join probes go through the counts kernel on the card, whose ragged
     tail is masked, so every morsel size takes it (the TPU version needed
     ``rows % 4096 == 0`` and otherwise fell back to a plain probe that
     gives the same (start, count))."""
-    lit_it = iter(lits)
+    grouped = isinstance(lits, torch.Tensor)
+    lit_it = iter(lits.unbind(1) if grouped else lits)
     offsets = [sum(b.n_arrays for b in breakers[:i])
                for i in range(len(breakers))]
     breaker_pos = [0]
@@ -243,7 +262,12 @@ def _eval_spine(root: L.Node, stream_cols, morsel, valid, lits,
         if isinstance(n, (L.Filter, L.FilterProject)):
             cols, mask, weight, buckets = eval_node(n.child)
             lo, hi = next(lit_it), next(lit_it)
-            mask = engine.select_range_morsel(cols[n.column], lo, hi, mask)
+            if grouped:
+                mask = mask & engine.in_ranges(cols[n.column], lo[:, None],
+                                               hi[:, None])
+            else:
+                mask = engine.select_range_morsel(cols[n.column], lo, hi,
+                                                  mask)
             if isinstance(n, L.FilterProject):
                 cols = {k: cols[k] for k in n.columns if k in cols}
             return cols, mask, weight, buckets
@@ -277,7 +301,20 @@ def _eval_spine(root: L.Node, stream_cols, morsel, valid, lits,
             return cols, mask, weight, buckets
         raise TypeError(n)
 
-    return eval_node(root)
+    cols, mask, weight, buckets = eval_node(root)
+    if grouped and mask.dim() == 1:         # a spine with no filter
+        mask = mask.expand(lits.shape[0], -1)
+    return cols, mask, weight, buckets
+
+
+def _lane_sums(x: torch.Tensor) -> torch.Tensor:
+    """Per-lane sums of a ``[G, rows]`` tensor.  Integer sums are exact
+    in any order; a float lane is summed alone, as ``step`` sums one
+    query's morsel, so the group's carries equal the lone member's bit
+    for bit."""
+    if not x.dtype.is_floating_point:
+        return x.sum(dim=1)
+    return torch.stack([lane.sum() for lane in x])
 
 
 def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
@@ -311,7 +348,7 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
 
     n_build = sum(b.n_arrays for b in breakers)
 
-    def step(lits, carry, n_valid, *arrays):
+    def fold(lits, carry, n_valid, arrays, total):
         morsel = arrays[n_build:]
         valid = torch.arange(morsel[0].shape[0], device=device) < n_valid
         cols, mask, weight, buckets = _eval_spine(
@@ -320,7 +357,7 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
         w_live = mask.to(torch.int64) if weight is None \
             else torch.where(mask, weight, 0).to(torch.int64)
         if node.op == "count":
-            return carry + w_live.sum()
+            return carry + total(w_live)
         dtype = carry[0].dtype if node.op == "mean" else carry.dtype
         if node.column in cols:
             contrib = cols[node.column].to(dtype) * w_live.to(dtype)
@@ -329,28 +366,43 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
             others = w_live // cnt.clamp(min=1)
             contrib = bsum.to(dtype) * others.to(dtype)
         if node.op == "sum":
-            return carry + contrib.sum()
+            return carry + total(contrib)
         s, c = carry
-        return s + contrib.sum(), c + w_live.to(c.dtype).sum()
+        return s + total(contrib), c + total(w_live.to(c.dtype))
+
+    def step(lits, carry, n_valid, *arrays):
+        return fold(lits, carry, n_valid, arrays, torch.sum)
+
+    def group_step(lits, carry, n_valid, *arrays):
+        return fold(lits, carry, n_valid, arrays, _lane_sums)
 
     return CompiledPipeline(splan.base_scan.table, splan.stream_cols,
-                            breakers, rows, step, init, fin)
+                            breakers, rows, step, group_step, init, fin,
+                            device)
 
 
 @dataclasses.dataclass
 class CompiledProject:
     """A Project-rooted plan lowered to a per-morsel step producing
-    (mask, out_cols)."""
+    (mask, out_cols) at one granularity."""
+    base_table: str
     stream_cols: Tuple[str, ...]
+    breakers: Tuple[BreakerSpec, ...]
+    rows: int
     out_cols: Tuple[str, ...]
     step: Callable
 
+    @property
+    def n_build_arrays(self) -> int:
+        return sum(b.n_arrays for b in self.breakers)
 
-def compile_project_pipeline(pplan: ProjectStreamPlan,
+
+def compile_project_pipeline(pplan: ProjectStreamPlan, rows: int,
                              device: torch.device) -> CompiledProject:
     """Lower a Project-rooted streamable plan into one per-morsel step,
     ``step(lits, n_valid, *build_flat, *morsel_cols) -> (mask, cols)``,
-    with the aggregate pipeline's argument layout and literal order."""
+    with the aggregate pipeline's argument layout and literal order, for
+    morsels of ``rows`` rows."""
     n_build = sum(b.n_arrays for b in pplan.breakers)
 
     def step(lits, n_valid, *arrays):
@@ -361,7 +413,8 @@ def compile_project_pipeline(pplan: ProjectStreamPlan,
             pplan.breakers, arrays[:n_build])
         return mask, tuple(cols[c] for c in pplan.out_cols)
 
-    return CompiledProject(pplan.stream_cols, pplan.out_cols, step)
+    return CompiledProject(pplan.base_scan.table, pplan.stream_cols,
+                           pplan.breakers, rows, pplan.out_cols, step)
 
 
 def _stage(arrays, device: torch.device, copy_stream):

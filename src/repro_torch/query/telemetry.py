@@ -326,12 +326,15 @@ class BandwidthLedger:
             self.rows.append(row)
 
     def record_plan(self, phys, measured_s: float, measured_bytes: float,
-                    *, mode: str) -> None:
+                    *, mode: str, scale: float = 1.0) -> None:
         """Attribute one fused/streamed pipeline's fenced measurement
         across its physical operators, proportional to each op's share
         of the predicted cost (bytes pro-rated the same way).  Every
         costed operator gets a row, so drift is populated plan-wide even
-        when only the pipeline boundary is fenceable.  Filter rows
+        when only the pipeline boundary is fenceable.  ``scale`` shrinks
+        the plan's predictions to the measured slice: the serving
+        streams fence one morsel at a time and record against
+        ``1/n_morsels`` of the whole-plan prediction.  Filter rows
         additionally carry their (table, column) so
         ``selectivity_corrections`` can key the cardinality feedback."""
         if not self.enabled or phys is None:
@@ -343,7 +346,8 @@ class BandwidthLedger:
             table, column = _filter_attribution(p)
             self.record(
                 op=p.op, impl=p.impl, placement=p.placement,
-                predicted_bytes=p.n_bytes, predicted_s=p.cost_s,
+                predicted_bytes=p.n_bytes * scale,
+                predicted_s=p.cost_s * scale,
                 measured_bytes=measured_bytes * (p.n_bytes / total_b),
                 measured_s=measured_s * (p.cost_s / total_s),
                 mode=mode, attributed=True, table=table, column=column)

@@ -10,8 +10,10 @@ Phases, each of which must pass or the script exits non-zero:
    the shapes the queries below give it (the bucket probe B2 on both of
    its routes: a table in shared memory, and one searched through a
    sample; also at the TPC-H join's negative-padded pass blocks and the
-   whole filtered lineitem) and at a ragged length with keys at both ends
-   of int32; integer outputs must be bit-identical.  Each is timed with
+   whole filtered lineitem; the selection B1 in int32 and, on lineorder's
+   price in dollars with bounds that round to float32, in float32) and at
+   a ragged length with keys at both ends of int32 (NaN rows for B1's
+   float32 entry); integer outputs must be bit-identical.  Each is timed with
    CUDA events beside its bound (bytes read once and written once over
    the card's data-sheet memory rate) and, where one PyTorch call
    computes the same function, that call's time; the join probes B3 and
@@ -124,7 +126,23 @@ Phases, each of which must pass or the script exits non-zero:
    sojourn p50 / p95, q/s and per-path counts are printed.  Phase 6's
    search is also served from a cached server: it trains once and two
    ``score_glm`` queries launch no SGD kernel;
-13. lm: the LM serving path at full width and depth.  The flash-attention
+13. shard: sharded execution (``Executor(shards=N)``, N contiguous slices
+   of every streamed column on the one card).  SSB Q1.1 at SF 10 on 2
+   shards (batch sharded) and on 4 (59,986,214 rows are not a multiple
+   of 4, so the batch step is the unsharded one, as in the reference) in
+   batch, stream and eager, each equal to the oracle, with ``explain``
+   (``placement=sharded``), the warm median of 11 beside phase 4's
+   unsharded one, device busy against wall, and B2 launched once per
+   shard per morsel; TPC-H SF 1's lineitem joined with orders and the
+   duplicate-keyed filtered join, eager on 4 shards, each planner
+   strategy printed, and at the engine layer the shuffle join's pairs
+   bit-identical to the broadcast join's at full size, both timed with
+   their B2 / B4 launches; a streaming server on 2 shards whose values
+   equal the unsharded server's and the oracle, its ``serve`` ledger
+   rows carrying shard ids 0 and 1; and the eager filter on a float32
+   column (lineorder's price in dollars) through B1's float32 entry,
+   bit-identical to the CPU's;
+14. lm: the LM serving path at full width and depth.  The flash-attention
    kernel's two tensor-core routes against their plain version at the
    shapes the path runs them at: bf16 (wgmma) within 2e-2 at the served
    prefills of llama3-8b (D 128, GQA 4) and stablelm-3b (D 80, MHA),
@@ -271,6 +289,16 @@ def ssb_oracle(tables) -> int:
          & (lo["quantity"] >= 1) & (lo["quantity"] <= 24)
          & np.isin(lo["orderdate"], tables["date"]["orderdate"]))
     return int(lo["extendedprice"][m].astype(np.int64).sum())
+
+
+# a float filter on lineorder's price in dollars: both bounds round when
+# cast to float32, as the TPU kernel casts them to the column's type
+FLOAT_RANGE = (1000.05, 30000.3)
+
+
+def ssb_price_dollars(tables) -> np.ndarray:
+    """lineorder's extendedprice in dollars, as a float32 column."""
+    return (tables["lineorder"]["extendedprice"] / 100).astype(np.float32)
 
 
 def make_tpch(lineitem_rows: int, orders_rows: int, seed: int):
@@ -533,6 +561,28 @@ def phase_kernels(dev, ssb_tables, tpch_tables):
         plain_ms=time_ms(b1["plain"], reps=5),
         bytes=4 * n + 4 * n + 4 * nb, library_ms=None,
         shape=f"x=({n},) int32, block=1024"))
+
+    # B1's float32 entry at the same length: lineorder's extendedprice in
+    # dollars (phase shard's float filter), bounds that round to float32;
+    # and a ragged column with NaN rows, which match nothing
+    price = torch.from_numpy(ssb_price_dollars(ssb_tables)).to(dev)
+    small_f = r.uniform(-1, 1, 1_000_003).astype(np.float32)
+    small_f[::97] = np.nan
+    small_f = torch.from_numpy(small_f).to(dev)
+    check("select_f32", lambda: sk.select(small_f, 0.1, 0.3, block=1024),
+          lambda: sk.select_plain(small_f, 0.1, 0.3, block=1024))
+    f1 = dict(kernel=lambda: sk.select(price, *FLOAT_RANGE, block=1024),
+              plain=lambda: sk.select_plain(price, *FLOAT_RANGE,
+                                            block=1024))
+    err = check("select_f32", f1["kernel"], f1["plain"])
+    rows.append(dict(
+        name="select_f32", route="cuda",
+        source="src/repro_torch/kernels/csrc/selection.cu",
+        replaces="src/repro/kernels/selection/selection.py:37",
+        max_abs_err=err, ms=time_ms(f1["kernel"]),
+        plain_ms=time_ms(f1["plain"], reps=5),
+        bytes=4 * n + 4 * n + 4 * nb, library_ms=None,
+        shape=f"x=({n},) float32, block=1024"))
 
     # B2 at the fused probe's shape: the sorted date keys against every
     # lineorder row (batch mode probes the whole column)
@@ -2453,6 +2503,251 @@ def phase_serve(dev, ssb_tables, cal, spill_dir):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# sharded execution
+
+SHARD_MORSEL_ROWS = 1 << 22      # 15 morsels over SF 10's lineorder
+SHARD_SERVE_QUERIES = 8          # flight-1 variants on the sharded server
+
+
+def _join_node(phys):
+    return next(p for p in _walk_phys(phys) if p.op.startswith("join"))
+
+
+def phase_shard(dev, ssb_tables, ssb_times, tpch_tables, order_idx):
+    """Sharded execution (``Executor(shards=N)``: N contiguous slices of
+    each sharded column on the one card).  SSB Q1.1 at SF 10 on 2 and 4
+    shards against the oracle and the unsharded run; TPC-H SF 1's two
+    joins eager on 4 shards, with both join strategies checked and timed;
+    a streaming server on 2 shards against the unsharded one; and the
+    eager float filter (B1's float32 entry) against the CPU.  Returns
+    launch counts by run."""
+    import torch
+    from repro_torch.columnar import engine
+    from repro_torch.columnar.table import Column, Table
+    from repro_torch.convert import catalog_from_arrays
+    from repro_torch.core import join as join_core
+    from repro_torch.distributed.sharding import ShardLayout
+    from repro_torch.kernels import _build
+    from repro_torch.query import Executor, Q, QueryServer, Telemetry
+    from repro_torch.query import pipeline as qpl
+
+    t_phase = time.perf_counter()
+    counts = {}
+
+    def counted(name, fn):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = dict(_build.LAUNCHES)
+        return out, time.perf_counter() - t
+
+    def warm_ms(fn, reps=3):
+        """Sorted milliseconds of ``reps`` warm calls (host clock around
+        work that ends in a synchronize)."""
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)
+
+    def b2(c):
+        return c["probe_counts"] + c["probe_counts_sampled"]
+
+    # 1. SSB Q1.1 at SF 10, resident, on 2 and 4 shards
+    want = ssb_oracle(ssb_tables)
+    cat = catalog_from_arrays(ssb_tables, dev)
+    q = ssb_query(Q)
+    n_lo = SSB_LINEORDER_ROWS
+    log(f"shard: SSB Q1.1 at SF 10 ({n_lo} rows = 2 x {n_lo // 2}, not a "
+        f"multiple of 4); oracle {want}; unsharded (phase ssb) warm medians "
+        + ", ".join(f"{m} {ssb_times[m][1][len(ssb_times[m][1]) // 2] * 1e3:.3f}"
+                    f" ms" for m in ("batch", "stream", "eager")))
+    for n_sh, modes in ((2, ("batch", "stream", "eager")),
+                        (4, ("batch", "stream", "eager"))):
+        ex = Executor(cat, dev, shards=n_sh)
+        plan = ex.explain(q)
+        log(f"  {n_sh} shards, plan:\n    " + plan.replace("\n", "\n    "))
+        if "placement=sharded" not in plan:
+            raise AssertionError(f"{n_sh} shards: no sharded placement")
+        node, phys = ex.plan(q.node)
+        splan = qpl.analyze(node, ex.catalog.stats)
+        sharded_batch = ex._pipeline(node, phys, splan,
+                                     rows=None)[0].shard is not None
+        if sharded_batch != (n_lo % n_sh == 0):
+            raise AssertionError(f"{n_sh} shards: batch step sharded "
+                                 f"{sharded_batch}")
+        log(f"  {n_sh} shards: the batch step is "
+            + ("sharded" if sharded_batch else
+               f"the unsharded one ({n_lo} % {n_sh} = {n_lo % n_sh}, as in "
+               "the reference)"))
+        by_mode = {}
+        times = _run_modes(ex, q, modes, equals(want), by_mode,
+                           morsel_rows=SHARD_MORSEL_ROWS)
+        spec = ex.morsel_spec("lineorder", SHARD_MORSEL_ROWS)
+        want_b2 = {"batch": n_sh if sharded_batch else 1,
+                   "stream": spec.n_morsels * n_sh}
+        for mode, n in want_b2.items():
+            if by_mode[mode]["probe_counts"] != n:
+                raise AssertionError(f"{n_sh} shards {mode}: B2 launched "
+                                     f"{by_mode[mode]['probe_counts']} "
+                                     f"times, not {n}")
+        eager = by_mode["eager"]
+        if eager["select"] <= 0 or eager["probe"] + b2(eager) <= 0:
+            raise AssertionError(f"{n_sh} shards eager: {eager}")
+        log(f"  {n_sh} shards: B2 launches batch {want_b2['batch']}, "
+            f"stream {want_b2['stream']} = {spec.n_morsels} morsels x "
+            f"{n_sh} ({n_sh} a morsel); warm medians against unsharded: "
+            + ", ".join(
+                f"{m} {times[m][1][len(times[m][1]) // 2] * 1e3:.3f} / "
+                f"{ssb_times[m][1][len(ssb_times[m][1]) // 2] * 1e3:.3f} ms"
+                for m in modes))
+        for mode, c in by_mode.items():
+            counts[f"ssb {n_sh} shards {mode}"] = c
+        del ex
+
+    # 2. TPC-H SF 1, eager on 4 shards: lineitem joined with orders, and
+    # the duplicate-keyed join of orders with the filtered lineitem
+    tcat = catalog_from_arrays(tpch_tables, dev)
+    ex = Executor(tcat, dev, shards=4)
+    layout = ShardLayout(4)
+    for name, qq, oracle in (
+            ("lines", tpch_lines_query(Q),
+             tpch_lines_oracle(tpch_tables, order_idx)),
+            ("filtered", tpch_query(Q), tpch_oracle(tpch_tables, order_idx))):
+        opt, phys = ex.plan(qq.node)
+        j = _join_node(phys)
+        log(f"  tpch {name} on 4 shards, plan:\n    "
+            + ex.explain(qq).replace("\n", "\n    "))
+        by_mode = {}
+        _run_modes(ex, qq, ("eager",), equals(oracle), by_mode, reps=3)
+        c = counts[f"tpch {name} 4 shards eager"] = by_mode["eager"]
+        log(f"  tpch {name}: strategy {j.shard_strategy} (shuffle "
+            f"{j.alternatives['shard/shuffle'] * 1e3:.3f} ms, broadcast "
+            f"{j.alternatives['shard/broadcast'] * 1e3:.3f} ms priced), "
+            f"planned passes {j.n_passes}; launches B2 {b2(c)}, B4 "
+            f"{c['probe']}")
+        if j.shard_strategy == "shuffle" and b2(c) <= 0:
+            raise AssertionError(f"tpch {name}: the shuffle launched no B2")
+
+    # both strategies at the engine layer, at full size: the shuffle's
+    # pairs against the broadcast join's (probe-row order), each timed
+    li = tpch_tables["lineitem"]
+    odr = tpch_tables["orders"]
+    sharded = ex.plans["sharded"]
+
+    def table(name, col, plan=None):
+        return Table(name, {"orderkey": Column(
+            torch.from_numpy(col).to(dev), "orderkey")}, plan)
+
+    keep = li["quantity"] == 1
+    cases = (("lines", table("lineitem", li["orderkey"], sharded),
+              table("orders", odr["orderkey"]), True),
+             ("filtered", table("orders", odr["orderkey"], sharded),
+              table("lineitem", li["orderkey"][keep]), False))
+    for name, lt, rt, unique in cases:
+        n_s = rt.num_rows
+        s_cap = join_core._round_build_cap(join_core._bucket_cap(n_s, 4))
+        passes = {"broadcast": -(-n_s // join_core.HT_CAPACITY),
+                  "shuffle": -(-s_cap // join_core.HT_CAPACITY)}
+        runs = {"broadcast": lambda: engine.join(lt, rt, "orderkey",
+                                                 unique=unique),
+                "shuffle": lambda: engine.join_shuffle(lt, rt, "orderkey",
+                                                       layout)}
+        pairs, said = {}, []
+        for strat, run in runs.items():
+            pairs[strat], first_s = counted(
+                f"tpch {name} {strat} engine", run)
+            c = counts[f"tpch {name} {strat} engine"]
+            # a strategy that takes seconds (the broadcast over 184
+            # passes) is timed warm once, to keep the phase short
+            t = warm_ms(run, reps=3 if first_s < 1.0 else 1)
+            said.append(f"{strat} {passes[strat]} passes a shard, x 4 "
+                        f"shards: B2 {b2(c)}, B4 {c['probe']} launches, "
+                        f"warm {t[len(t) // 2]:.3f} ms (min {t[0]:.3f}, "
+                        f"max {t[-1]:.3f} over {len(t)}), first "
+                        f"{first_s * 1e3:.3f} ms")
+        want_b2 = 4 * passes["shuffle"]
+        if b2(counts[f"tpch {name} shuffle engine"]) < want_b2:
+            raise AssertionError(f"tpch {name}: the shuffle launched B2 "
+                                 f"fewer than {want_b2} times")
+        bl = pairs["broadcast"].column("l_idx")
+        order = torch.argsort(bl, stable=True)
+        for col, idx in (("l_idx", order), ("r_idx", order)):
+            if not torch.equal(pairs["broadcast"].column(col)[idx],
+                               pairs["shuffle"].column(col)):
+                raise AssertionError(f"tpch {name}: shuffle {col} differs "
+                                     "from the broadcast join's")
+        in_order = torch.equal(order, torch.arange(bl.shape[0],
+                                                   device=dev))
+        log(f"  tpch {name} engine: {lt.num_rows} probe x {n_s} build rows,"
+            f" {bl.shape[0]} pairs, the shuffle's bit-identical to the "
+            f"broadcast join's "
+            + ("as they come" if in_order else
+               "in probe-row order (the broadcast join emits pass by pass)")
+            + "; " + "; ".join(said))
+    del ex, tcat
+
+    # 3. a streaming server on a 2-shard executor against the unsharded
+    variants = flight1_variants(SHARD_SERVE_QUERIES)
+    oracle = Flight1Oracle(ssb_tables)
+    served = {}
+    for n_sh in (None, 2):
+        tel = Telemetry(enabled=True)
+        srv = QueryServer(Executor(cat, dev, shards=n_sh, telemetry=tel),
+                          streaming=True, morsel_rows=SHARD_MORSEL_ROWS)
+        qids = [srv.submit(flight1_query(Q, *v)) for v in variants]
+        res, secs = counted(f"serve {n_sh or 1} shards", srv.drain)
+        served[n_sh] = [res[qi] for qi in qids]
+        ids = sorted({r.shard for r in tel.ledger.rows if r.mode == "serve"
+                      and r.placement == "sharded"})
+        log(f"  streaming server, {n_sh or 1} shard(s): "
+            f"{len(qids)} flight-1 variants in {secs * 1e3:.3f} ms (traced),"
+            f" B2 launches {counts[f'serve {n_sh or 1} shards']['probe_counts']}"
+            f", serve ledger rows' shard ids {ids or [-1]}")
+        if n_sh and ids != list(range(n_sh)):
+            raise AssertionError(f"serve rows carry shard ids {ids}")
+    want_served = [oracle(*v) for v in variants]
+    if not served[None] == served[2] == want_served:
+        raise AssertionError(f"sharded server {served[2]} != unsharded "
+                             f"{served[None]} / oracle {want_served}")
+
+    # 4. the eager float filter (B1's float32 entry) against the CPU
+    ftab = {"prices": {"price": ssb_price_dollars(ssb_tables),
+                       "quantity": ssb_tables["lineorder"]["quantity"]}}
+    # the plan DSL keeps integer bounds (``Q.filter`` truncates, as the
+    # reference's does), which a float32 column compares exactly
+    bounds = tuple(int(b) for b in FLOAT_RANGE)
+    fq = Q.scan("prices").filter("price", *bounds) \
+        .project("price", "quantity")
+    fex = Executor(catalog_from_arrays(ftab, dev), dev)
+    got, secs = counted("float filter eager", lambda: fex.execute(
+        fq, mode="eager").value)
+    if counts["float filter eager"]["select_f32"] <= 0:
+        raise AssertionError("the float filter launched no select_f32")
+    cpu = Executor(catalog_from_arrays(ftab, "cpu"), "cpu")
+    ref = cpu.execute(fq, mode="eager").value
+    for col in ("price", "quantity"):
+        if not torch.equal(got.column(col).cpu(), ref.column(col)):
+            raise AssertionError(f"float filter: {col} differs from the CPU")
+    p = ftab["prices"]["price"]
+    n_keep = int(((p >= bounds[0]) & (p <= bounds[1])).sum())
+    if got.num_rows != n_keep:
+        raise AssertionError(f"float filter: {got.num_rows} rows, numpy "
+                             f"{n_keep}")
+    log(f"  float filter {bounds} on a float32 column of {p.size} "
+        f"rows, eager: {got.num_rows} rows (= numpy and the CPU, bit for "
+        f"bit) in {secs * 1e3:.3f} ms, launches "
+        f"{counts['float filter eager']}")
+    log(f"shard: phase took {time.perf_counter() - t_phase:.2f} s")
+    return counts
+
+
 def phase_lm_kernels(dev):
     """B7's two routes at every shape the LM path runs them at (bf16 at
     llama3-8b's and stablelm-3b's served prefills, f32 at the same two
@@ -2834,6 +3129,7 @@ def main(argv=None) -> int:
         cache_counts = phase_cache(dev, ssb, tpch, order_idx, ssb_times, cal,
                                    spill_dir, args.seed)
         serve_counts = phase_serve(dev, ssb, cal, spill_dir)
+    shard_counts = phase_shard(dev, ssb, ssb_times, tpch, order_idx)
     del ssb
     tpch_counts = phase_tpch(dev, tpch, order_idx)
     glm_counts, sgd_rows = phase_glm(dev, args.seed)
@@ -2844,7 +3140,8 @@ def main(argv=None) -> int:
     lm_counts = phase_lm(dev, args.seed)
     rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows
 
-    key = {"select_range": "select", "probe_counts": "probe_counts",
+    key = {"select_range": "select", "select_f32": "select_f32",
+           "probe_counts": "probe_counts",
            "probe_counts_sampled": "probe_counts_sampled",
            "hash_probe": "probe", "probe_multi": "probe_multi",
            "probe_multi_sampled": "probe_multi_sampled",
@@ -2863,7 +3160,8 @@ def main(argv=None) -> int:
                                                       glm_counts, multi_counts,
                                                       cal_counts, spill_counts,
                                                       tel_counts, cache_counts,
-                                                      serve_counts, lm_counts)
+                                                      serve_counts, shard_counts,
+                                                      lm_counts)
                                        for c in counts.values()))
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the main "
@@ -2872,8 +3170,8 @@ def main(argv=None) -> int:
     log(f"tpch launches: {tpch_counts}; glm launches: {glm_counts}; "
         f"calibrate launches: {cal_counts}; spill launches: {spill_counts}; "
         f"telemetry launches: {tel_counts}; cache launches: "
-        f"{cache_counts}; serve launches: {serve_counts}; lm launches: "
-        f"{lm_counts}")
+        f"{cache_counts}; serve launches: {serve_counts}; shard launches: "
+        f"{shard_counts}; lm launches: {lm_counts}")
     by_name = {row["name"]: row for row in rows}
     copy, ring = by_name["stream_copy"], by_name["sgd"]
     steps = GLM_EPOCHS * MNIST_ROWS // GLM_MINIBATCH

@@ -39,10 +39,10 @@ def compact_positions(valid: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def in_range(col: torch.Tensor, lo, hi) -> torch.Tensor:
-    """Row mask of lo <= col <= hi, with integer bounds normalized the way
-    the selection kernel takes them (``sel_ref.int32_bounds``)."""
-    if not col.dtype.is_floating_point:
-        lo, hi = sel_ref.int32_bounds(lo, hi)
+    """Row mask of lo <= col <= hi, with the bounds normalized the way the
+    selection kernel takes them (``sel_ref.column_bounds``: int32-clamped
+    for an integer column, rounded to float32 for a float32 one)."""
+    lo, hi = sel_ref.column_bounds(col.dtype, lo, hi)
     return (col >= lo) & (col <= hi)
 
 
@@ -73,20 +73,20 @@ def select_range(table: Table, column: str, lo: int, hi: int, *,
 
     The selection kernel masks ragged blocks, so every row count takes the
     kernel path; the TPU version halved ``block`` until the shard tiled
-    and skipped the kernel otherwise.  Only a multi-engine plan that is
-    not partitioned (or does not split evenly) takes the exact masked
-    path: its congested mode is the Fig. 5 throughput baseline, a correct
-    selection only at one engine.  Both paths give the same index list."""
+    and skipped the kernel otherwise.  A multi-engine plan that is not
+    partitioned (or does not split evenly) selects the whole column as
+    one engine: its congested mode is the Fig. 5 throughput baseline, a
+    correct selection only at one engine.  Both give the same index
+    list."""
     if table.plan is None:
         raise ValueError("place() the table first")
     n_eng = table.plan.n_engines
-    if n_eng > 1 and (table.plan.placement != "partitioned"
+    plan = table.plan
+    if n_eng > 1 and (plan.placement != "partitioned"
                       or table.num_rows % n_eng != 0):
-        mask = in_range(table.column(column), lo, hi)
-        idx = compact_positions(mask, int(mask.sum()))
-        return Table(f"{table.name}.sel", {"idx": Column(idx, "idx")})
+        plan = ChannelPlan("partitioned", 1, plan.device)
     idx, counts = sel_core.select_distributed(
-        table.column(column), lo, hi, table.plan, block=block)
+        table.column(column), lo, hi, plan, block=block)
     n = int(counts.sum())
     compacted = idx[compact_positions(idx >= 0, n)]
     return Table(f"{table.name}.sel", {"idx": Column(compacted, "idx")})
@@ -162,6 +162,39 @@ def _join_pairs(s_keys: torch.Tensor, l_keys: torch.Tensor,
             raise RuntimeError("multi-match join overflowed after resizing")
     pos = compact_positions(l_buf >= 0, int(totals.sum()))
     return l_buf[pos], s_buf[pos]
+
+
+def join_shuffle(left: Table, right: Table, on: str, layout) -> Table:
+    """Inner join by shuffle repartitioning (the planner's costed
+    alternative to sharing the build side): both sides hash-partition by
+    key across ``layout``'s shards, and each shard joins its buckets.
+    The pairs are bit-identical to ``join``'s: the raw emission is shard-
+    major, and a final stable sort by probe row restores the one-engine
+    (probe row, bucket position) order, since all matches of a probe row
+    live on one shard and the stable partition and stable build sort keep
+    equal-key matches in ascending build order.  Shuffle-bucket or pair-
+    list overflows retry with the exact measured capacities, so the result
+    is always complete."""
+    s_keys, l_keys = right.column(on), left.column(on)
+    _check_key_domain(s_keys, l_keys)
+    kw = {}
+    for _ in range(3):
+        l_buf, s_buf, totals, pair_over, (s_counts, l_counts, shuf_over) = \
+            join_core.join_shuffle_multi(s_keys, l_keys, layout, **kw)
+        if not (bool(shuf_over) or bool(pair_over.any())):
+            break
+        # the counts and totals are exact even on overflow: one sizing
+        # pass each for the buckets and the pair lists always converges
+        l_cap = max(int(l_counts.max()), 8)
+        kw = dict(s_cap=max(int(s_counts.max()), 8), l_cap=l_cap,
+                  max_out_per_shard=max(int(totals.max()), 2 * l_cap, 64))
+    else:
+        raise RuntimeError("join_shuffle did not converge on capacity")
+    pos = compact_positions(l_buf >= 0, int(totals.sum()))
+    l_sel, s_sel = l_buf[pos], s_buf[pos]
+    order = torch.argsort(l_sel, stable=True)
+    return Table("join", {"l_idx": Column(l_sel[order], "l_idx"),
+                          "r_idx": Column(s_sel[order], "r_idx")})
 
 
 def gather(table: Table, idx: torch.Tensor, columns: Sequence[str],

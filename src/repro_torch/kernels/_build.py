@@ -40,6 +40,8 @@ SIGNATURES = {
     # x, n, lo, hi, block, idx, counts, stream
     "select_range_i32": ("selection",
                          (_P, _I64, _I32, _I32, _I64, _P, _P, _P)),
+    "select_range_f32": ("selection",
+                         (_P, _I64, _F32, _F32, _I64, _P, _P, _P)),
     # s_sorted, n_s, ts, keys, n, start, count, tree scratch (null for
     # the shared route), stream
     "probe_counts_i32": ("join", (_P, _I64, _I64, _P, _I64, _P, _P, _P,
@@ -85,14 +87,16 @@ SIGNATURES = {
 }
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
-# launches its kernel (never on the plain CPU path): B2's and B3's
+# launches its kernel (never on the plain CPU path): B1's int32
+# ("select") and float32 ("select_f32") entries, B2's and B3's
 # shared-memory and sampled routes, B5's ring ("sgd") and split
 # ("sgd_split") routes, B7's bf16 ("flash_attention_tc") and f32
 # ("flash_attention_f32") tensor-core routes and B8's CUDA-core ("ssd")
 # and tensor-core ("ssd_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
-LAUNCHES: Dict[str, int] = {"select": 0, "probe_counts": 0,
+LAUNCHES: Dict[str, int] = {"select": 0, "select_f32": 0,
+                            "probe_counts": 0,
                             "probe_counts_sampled": 0,
                             "probe_multi": 0, "probe_multi_sampled": 0,
                             "probe": 0, "sgd": 0,
@@ -184,13 +188,15 @@ def check(rc: int, symbol: str) -> None:
         raise RuntimeError(f"CUDA launch of {symbol} failed: cudaError {rc}")
 
 
-def require_int32_cuda(t, name: str) -> None:
-    """The kernels take contiguous int32 tensors on the card."""
+def require_int32_cuda(t, name: str, dtype=None) -> None:
+    """The kernels take contiguous 1-D tensors on the card, of int32
+    unless ``dtype`` names another type."""
     import torch
+    dtype = torch.int32 if dtype is None else dtype
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {str(dtype)[6:]}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.dim() != 1:

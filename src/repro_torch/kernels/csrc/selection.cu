@@ -2,9 +2,13 @@
 //
 // Replaces: select_pallas / _selection_kernel in
 //   src/repro/kernels/selection/selection.py
-// Computes: for an int32 column x of n rows and an inclusive [lo, hi],
+// Computes: for an int32 or float32 column x of n rows and an inclusive
+// [lo, hi] of the column's own type,
 //   idx[i]    = i if lo <= x[i] <= hi else -1       (the index line)
 //   counts[b] = matches in rows [b*block, min((b+1)*block, n))
+// The float32 entry compares as the TPU kernel does after it casts the
+// bounds to x.dtype: the caller passes them rounded to float32, and a NaN
+// row never matches (both ordered compares are false).
 // Bound: device-memory bytes.  Each row is read once (4 B) and its index
 //   line written once (4 B), plus 4 B per logical block; two compares a
 //   row are far below the card's integer rate.
@@ -22,16 +26,17 @@ namespace {
 using repro_torch::block_sum;
 using repro_torch::kThreads;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-select_range_kernel(const int32_t* __restrict__ x, int64_t n, int32_t lo,
-                    int32_t hi, int64_t block, int32_t* __restrict__ idx,
+select_range_kernel(const T* __restrict__ x, int64_t n, T lo, T hi,
+                    int64_t block, int32_t* __restrict__ idx,
                     int32_t* __restrict__ counts) {
   const int64_t b = blockIdx.x;
   const int64_t begin = b * block;
   const int64_t end = begin + block < n ? begin + block : n;
   int local = 0;
   for (int64_t i = begin + threadIdx.x; i < end; i += kThreads) {
-    const int32_t v = x[i];
+    const T v = x[i];
     const bool hit = (v >= lo) & (v <= hi);
     idx[i] = hit ? static_cast<int32_t>(i) : -1;
     local += hit;
@@ -40,18 +45,30 @@ select_range_kernel(const int32_t* __restrict__ x, int64_t n, int32_t lo,
   if (threadIdx.x == 0) counts[b] = total;
 }
 
-}  // namespace
-
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-extern "C" int select_range_i32(const void* x, int64_t n, int32_t lo,
-                                int32_t hi, int64_t block, void* idx,
-                                void* counts, void* stream) {
+template <typename T>
+int launch_select(const void* x, int64_t n, T lo, T hi, int64_t block,
+                  void* idx, void* counts, void* stream) {
   const int64_t n_blocks = (n + block - 1) / block;
   if (n_blocks > 0) {
-    select_range_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(x), n, lo, hi, block,
+    select_range_kernel<T><<<static_cast<unsigned>(n_blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), n, lo, hi, block,
         static_cast<int32_t*>(idx), static_cast<int32_t*>(counts));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each launches on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int select_range_i32(const void* x, int64_t n, int32_t lo,
+                                int32_t hi, int64_t block, void* idx,
+                                void* counts, void* stream) {
+  return launch_select<int32_t>(x, n, lo, hi, block, idx, counts, stream);
+}
+
+extern "C" int select_range_f32(const void* x, int64_t n, float lo,
+                                float hi, int64_t block, void* idx,
+                                void* counts, void* stream) {
+  return launch_select<float>(x, n, lo, hi, block, idx, counts, stream);
 }

@@ -17,6 +17,17 @@ The bandwidth and the float32 rate are NVIDIA's data-sheet figures for
 the H100 (``channels.H100_HBM_GBPS``, ``H100_FP32_FLOPS``).  Every other
 constant below is a placeholder until a calibration measured on the card
 (``query/calibrate.py``, ``BENCH_calibration_torch.json``) overlays it.
+
+Under a shard layout (``CostModel(n_shards=N)``, N > 1) streams take the
+``sharded`` placement, and a join on it prices two ways to co-locate its
+build and probe rows: broadcasting the build to every shard, or
+shuffling both sides by key (``core/join.join_shuffle_multi``).  The
+reference priced the repartition on a TPU's inter-chip links; on one card
+the shards are slices of the same HBM, so the "interconnect" is the
+card's own memory: the shuffle's and the broadcast's bytes are priced at
+``H100_HBM_GBPS``, and the ``sharded`` placement streams at the card's
+rate, not N times it.  What the shuffle can win is fewer rescan passes: a
+shard builds only its ~1/N of the build side.
 """
 from __future__ import annotations
 
@@ -211,15 +222,18 @@ def expected_chain_length(node: L.Node, column: str,
 
 class CostModel:
     """Prices one physical operator alternative at a time on one card
-    split into ``n_engines`` contiguous shards.  ``impl`` labels the code
+    split into ``n_engines`` contiguous shards, under a shard layout of
+    ``n_shards`` slices (1: none).  ``impl`` labels the code
     the device runs: ``cuda`` (the kernels) or ``torch`` (plain versions).
     ``calibration`` overlays measured constants (``load_calibration``)."""
 
-    def __init__(self, n_engines: int = 1, *, impl: str = "torch",
-                 calibration: Optional[dict] = None):
+    def __init__(self, n_engines: int = 1, *, n_shards: int = 1,
+                 impl: str = "torch", calibration: Optional[dict] = None):
         if impl not in IMPLS:
             raise ValueError(f"impl must be 'torch' or 'cuda', got {impl!r}")
         self.n_engines = int(n_engines)
+        # shard-layout width; 1 keeps every plan byte-for-byte unsharded
+        self.n_shards = max(int(n_shards), 1)
         self.impl = impl
         # (table, column) -> measured/predicted bytes ratio fed back from
         # the bandwidth ledger by Executor.recost (clamped at use)
@@ -279,9 +293,9 @@ class CostModel:
         return snap
 
     def bandwidth_gbps(self, placement: str) -> float:
-        """Every engine streams the same HBM, so all placements price at
-        the card's rate; a column on a lower tier ("host", "disk")
-        streams at that tier's channel."""
+        """Every engine and shard streams the same HBM, so all placements
+        ("sharded" too) price at the card's rate; a column on a lower tier
+        ("host", "disk") streams at that tier's channel."""
         if placement == "host":
             return self.host_gbps
         if placement == "disk":
@@ -304,6 +318,22 @@ class CostModel:
             return 0.0
         return n_bytes * (self.n_engines - 1) \
             / (self.bandwidth_gbps("replicated") * 1e9)
+
+    def shuffle_cost(self, n_bytes: float) -> float:
+        """Seconds to hash-repartition ``n_bytes`` across the shards: under
+        a uniform hash (n-1)/n of every shard's rows change shards, copied
+        through the card's memory."""
+        if self.n_shards <= 1:
+            return 0.0
+        return n_bytes * (self.n_shards - 1) / self.n_shards \
+            / (H100_HBM_GBPS * 1e9)
+
+    def shard_broadcast_cost(self, n_bytes: float) -> float:
+        """Replicating a build side to every shard: n-1 extra copies
+        through the card's memory."""
+        if self.n_shards <= 1:
+            return 0.0
+        return n_bytes * (self.n_shards - 1) / (H100_HBM_GBPS * 1e9)
 
     # -- tier pricing (device <-> host <-> disk) ---------------------------- #
 
@@ -403,8 +433,10 @@ class CostModel:
                            include_transfer: bool = True,
                            src_tier: str = "host") -> int:
         """argmin of ``morsel_cost`` over power-of-two candidates (and the
-        whole input), aligned to the engine count."""
-        align = align or self.n_engines
+        whole input), aligned to the engine count, and under a shard
+        layout to the shard count too: one morsel must cut evenly across
+        both."""
+        align = align or math.lcm(self.n_engines, self.n_shards)
         total = max(int(total_rows), 1)
         best_rows, best_cost = None, math.inf
         candidates = []
@@ -441,6 +473,9 @@ class PhysNode:
     children: Tuple["PhysNode", ...] = ()
     morsel_rows: Optional[int] = None     # streaming pipeline granularity
     n_bytes: float = 0.0                  # predicted bytes moved (priced)
+    shard_strategy: Optional[str] = None  # under a shard layout: a join's
+                                          # "broadcast" | "shuffle", a
+                                          # TrainGLM's "replicated"
 
     @property
     def total_cost_s(self) -> float:
@@ -448,10 +483,12 @@ class PhysNode:
 
     def describe(self) -> str:
         morsel = f" morsel={self.morsel_rows}" if self.morsel_rows else ""
+        strat = f" strategy={self.shard_strategy}" if self.shard_strategy \
+            else ""
         return (f"impl={self.impl} placement={self.placement} "
                 f"passes={self.n_passes} est_rows={self.est_rows_out:.0f} "
                 f"cost={self.cost_s * 1e6:.1f}us bw={self.gbps:.0f}GB/s"
-                f"{morsel}")
+                f"{morsel}{strat}")
 
 
 def _choose(model: CostModel, n_bytes: float, placements: Tuple[str, ...],
@@ -464,7 +501,12 @@ def _choose(model: CostModel, n_bytes: float, placements: Tuple[str, ...],
     return best, alts[best], alts
 
 
-STREAM_PLACEMENTS = ("partitioned", "congested")
+def _stream_placements(model: CostModel) -> Tuple[str, ...]:
+    """Stream-role placement alternatives: an active shard layout replaces
+    "partitioned" with "sharded" (unsharded plans are unchanged)."""
+    if model.n_shards > 1:
+        return ("sharded", "congested")
+    return ("partitioned", "congested")
 
 
 def plan_physical(node: L.Node, stats: Dict[str, TableStats],
@@ -488,7 +530,7 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
             return PhysNode("scan", node, model.impl, "replicated", 1, rows,
                             cost, model.bandwidth_gbps("replicated"),
                             {"replicated": cost}, n_bytes=n_bytes)
-        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS)
+        pl, cost, alts = _choose(model, n_bytes, _stream_placements(model))
         return PhysNode("scan", node, model.impl, pl, 1, rows, cost,
                         model.bandwidth_gbps(pl), alts, n_bytes=n_bytes)
 
@@ -500,7 +542,7 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
         n_bytes = in_rows * BYTES_PER_VALUE + rows * BYTES_PER_VALUE \
             * n_out_cols
         placements = ("replicated",) if role == "build" \
-            else STREAM_PLACEMENTS
+            else _stream_placements(model)
         pl, cost, alts = _choose(model, n_bytes, placements)
         op = "filter_project" if isinstance(node, L.FilterProject) \
             else "filter"
@@ -515,6 +557,8 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
         probe_rows = estimate_rows(node.left, stats, corr)
         n_passes = max(-(-int(build_rows) // HT_CAPACITY), 1)
         unique = key_is_unique(node.right, node.on, stats)
+        chain = 1.0 if unique \
+            else expected_chain_length(node.right, node.on, stats)
         if unique:
             # open-addressing fast path: one egress line per probe row,
             # plus the one-time table build (divided back out of the
@@ -526,7 +570,6 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
             # multi-match probe: per-row work scales with the expected
             # chain length; the pair list and the sorted-bucket build are
             # paid once, so their bytes are divided by n_passes
-            chain = expected_chain_length(node.right, node.on, stats)
             sort_bytes = build_rows * BYTES_PER_VALUE * max(
                 math.log2(max(build_rows, 2.0)), 1.0)
             n_bytes = (probe_rows * BYTES_PER_VALUE * max(chain, 1.0)
@@ -535,17 +578,58 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
             op = "join_multi"
         # the probe runs wherever the probe stream already lives
         probe_pl = left.placement if left.placement != "replicated" \
-            else STREAM_PLACEMENTS[0]
+            else _stream_placements(model)[0]
         pl, cost, alts = _choose(model, n_bytes, (probe_pl,),
                                  n_passes=n_passes)
+        shard_strategy = None
+        if model.n_shards > 1 and pl == "sharded":
+            # two ways to co-locate build and probe rows on a shard:
+            #   broadcast: copy the build to every shard; each shard
+            #     probes against the whole build (ceil(build /
+            #     HT_CAPACITY) rescans, n redundant build sorts);
+            #   shuffle: repartition both sides by key; each shard builds
+            #     only its ~1/n, collapsing the rescans, at the price of
+            #     (n-1)/n of every byte changing shards.
+            n = float(model.n_shards)
+            build_bytes = build_rows * BYTES_PER_VALUE
+            probe_bytes = probe_rows * BYTES_PER_VALUE
+            passes_sh = max(-(-int(max(build_rows / n, 1.0))
+                              // HT_CAPACITY), 1)
+
+            def _strategy_bytes(local_build, passes, n_copies):
+                # stream_cost's accounting: one-time build terms are
+                # divided by the pass count that multiplies them back up;
+                # ``n_copies`` shards redo the build work
+                if unique:
+                    return (probe_bytes + n_copies * local_build
+                            * BYTES_PER_VALUE / passes)
+                sort_b = n_copies * local_build * BYTES_PER_VALUE * max(
+                    math.log2(max(local_build, 2.0)), 1.0)
+                return (probe_bytes * max(chain, 1.0)
+                        + (2 * rows * BYTES_PER_VALUE + sort_b) / passes)
+
+            alt_b = model.shard_broadcast_cost(build_bytes) \
+                + model.stream_cost(_strategy_bytes(build_rows, n_passes, n),
+                                    placement="sharded", n_passes=n_passes)
+            alt_s = model.shuffle_cost(probe_bytes + build_bytes) \
+                + model.stream_cost(
+                    _strategy_bytes(build_rows / n, passes_sh, n),
+                    placement="sharded", n_passes=passes_sh)
+            alts["shard/broadcast"] = alt_b
+            alts["shard/shuffle"] = alt_s
+            if alt_s < alt_b:
+                shard_strategy, cost, n_passes = "shuffle", alt_s, passes_sh
+            else:
+                shard_strategy, cost = "broadcast", alt_b
         return PhysNode(op, node, model.impl, pl, n_passes, rows, cost,
                         model.bandwidth_gbps(pl), alts, (left, right),
-                        n_bytes=n_bytes)
+                        n_bytes=n_bytes, shard_strategy=shard_strategy)
 
     if isinstance(node, L.Project):
         child = plan_physical(node.child, stats, model, role=role)
         n_bytes = rows * BYTES_PER_VALUE * len(node.columns)
-        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
+        pl, cost, alts = _choose(model, n_bytes,
+                                 _stream_placements(model)[:1])
         return PhysNode("project", node, model.impl, pl, 1, rows, cost,
                         model.bandwidth_gbps(pl), alts, (child,),
                         n_bytes=n_bytes)
@@ -553,7 +637,8 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
     if isinstance(node, L.Aggregate):
         child = plan_physical(node.child, stats, model, role=role)
         n_bytes = estimate_rows(node.child, stats, corr) * BYTES_PER_VALUE
-        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1])
+        pl, cost, alts = _choose(model, n_bytes,
+                                 _stream_placements(model)[:1])
         # streaming granularity for the pipeline this aggregate roots,
         # priced on the probe-spine base scan (the stream source)
         base = probe_base_scan(node.child)
@@ -585,8 +670,17 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
             f"{model.impl}/congested": model.stream_cost(
                 epoch_bytes, placement="congested", flops=flops),
         }
+        shard_strategy = None
+        if model.n_shards > 1:
+            # Fig. 10a over the shards: copy the training set to every
+            # shard once, then each shard's jobs stream its own replica
+            alts["shard/replicated"] = model.shard_broadcast_cost(dataset) \
+                + model.stream_cost(epoch_bytes, placement="sharded",
+                                    flops=flops)
         best = min(alts, key=alts.get)
         pl = best.split("/")[1]
+        if best.startswith("shard/"):
+            pl, shard_strategy = "sharded", pl
         # streaming granularity for the epoch loop: each epoch re-streams
         # the training set, so the morsel argmin prices the per-pass
         # feature+label bytes with the per-row SGD flops
@@ -599,7 +693,7 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
         return PhysNode("train_glm", node, model.impl, pl, 1, 1.0,
                         alts[best], model.bandwidth_gbps(pl), alts,
                         (child,), morsel_rows=morsel_rows,
-                        n_bytes=epoch_bytes)
+                        n_bytes=epoch_bytes, shard_strategy=shard_strategy)
 
     if isinstance(node, L.ScoreGLM):
         child = plan_physical(node.child, stats, model, role=role)
@@ -607,7 +701,8 @@ def plan_physical(node: L.Node, stats: Dict[str, TableStats],
         in_rows = estimate_rows(node.child, stats, corr)
         # one pass over the feature columns plus the written score column
         n_bytes = in_rows * BYTES_PER_VALUE * d + rows * BYTES_PER_VALUE
-        pl, cost, alts = _choose(model, n_bytes, STREAM_PLACEMENTS[:1],
+        pl, cost, alts = _choose(model, n_bytes,
+                                 _stream_placements(model)[:1],
                                  flops=2.0 * in_rows * d)
         return PhysNode("score_glm", node, model.impl, pl, 1, rows, cost,
                         model.bandwidth_gbps(pl), alts, (child,),

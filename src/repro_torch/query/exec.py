@@ -63,8 +63,20 @@ advances its shared morsel streams through them.
 The executor runs on the CUDA card unless constructed with a ``device``;
 the kernels run exactly when that device is CUDA, because every kernel
 wrapper launches on CUDA tensors and takes its plain version on CPU ones.
-Sharded execution (``distributed/sharding.py``'s query part and the
-shard pricing) is not ported yet.
+
+``shards=N`` (N > 1) runs the plans under a shard layout
+(``distributed/sharding.py``): N contiguous slices of every sharded column
+on the one card, run one after another.  Streams take the ``sharded``
+placement, whose plan has N engines; a fused or streamed step evaluates
+each shard's slice of a morsel whose rows N divides (other row counts
+take the unsharded step) and adds the shards' partial carries in shard
+order; the eager lowering selects and probes per shard, and a join the
+cost model prices cheaper shuffled (``shard_strategy == "shuffle"``) runs
+``engine.join_shuffle``.  The layout joins fingerprints and compiled-plan
+keys, so a sharded plan never aliases an unsharded one; ``shards=None``
+and ``shards=1`` are the unsharded executor byte for byte.  Integer
+results equal the unsharded ones bit for bit; float sums are added in
+shard order.
 """
 from __future__ import annotations
 
@@ -83,6 +95,7 @@ from repro_torch.columnar import engine
 from repro_torch.columnar.table import Column, MorselSpec, Table
 from repro_torch.core.channels import ChannelPlan
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed.sharding import ShardLayout
 from repro_torch.query import logical as L
 from repro_torch.query import pipeline as pl
 from repro_torch.query import telemetry as tm
@@ -247,9 +260,15 @@ class Executor:
                  telemetry: Optional[tm.Telemetry] = None,
                  cache_bytes: Optional[int] = None,
                  semantic_cache: Optional[SemanticCache] = None,
-                 tenant: Optional[str] = None):
+                 tenant: Optional[str] = None,
+                 shards: Optional[int] = None):
         self.catalog = catalog
         self.device = resolve(device)
+        # the shard layout: None (shards None or 1) keeps every plan,
+        # fingerprint and key byte-identical to the unsharded executor
+        n_sh = max(int(shards), 1) if shards else 1
+        self.shard_layout: Optional[ShardLayout] = \
+            ShardLayout(n_sh) if n_sh > 1 else None
         # the tenant every semantic-cache admission is charged to (its
         # share of a shared cache, when shares are set)
         self.tenant = tenant
@@ -263,7 +282,11 @@ class Executor:
         # BENCH_calibration_torch.json is in the working directory
         self.cost_model = cost_model or CostModel(
             n_engines, impl="cuda" if self.device.type == "cuda" else "torch",
-            calibration=load_calibration())
+            calibration=load_calibration(), n_shards=n_sh)
+        if self.shard_layout is not None \
+                and self.cost_model.n_shards != n_sh:
+            # a caller's model prices what this executor runs
+            self.cost_model.n_shards = n_sh
         # bumped by every recost(); part of every compiled-pipeline key
         self.cost_epoch = 0
         # tier budgets: the device budget routes over-budget plans onto a
@@ -287,6 +310,10 @@ class Executor:
         self.plans: Dict[str, ChannelPlan] = {
             p: ChannelPlan(p, int(n_engines), self.device)
             for p in ("partitioned", "replicated", "congested")}
+        if self.shard_layout is not None:
+            # one engine per shard: the sharded plan partitions over them
+            self.plans["sharded"] = ChannelPlan("partitioned", n_sh,
+                                                self.device)
         self._compiled: Dict[tuple, tuple] = {}
         self._planned: Dict[tuple, tuple] = {}
         self._placed: Dict[tuple, torch.Tensor] = {}
@@ -336,6 +363,7 @@ class Executor:
             "cached_builds": len(self._builds),
             "cost_model_calibrated_from": self.cost_model.calibrated_from,
             "cost_epoch": self.cost_epoch,
+            "n_shards": self.n_shards,
             "recost_count": int(self.metrics.value("exec.recost_count")),
             "spilled_columns": int(
                 self.metrics.value("exec.spilled_columns")),
@@ -399,15 +427,27 @@ class Executor:
         if drifted and self.cache is not None:
             self.cache.sync_versions(self.catalog.versions())
 
+    # -- shard layout ------------------------------------------------------- #
+
+    @property
+    def n_shards(self) -> int:
+        return self.shard_layout.n_shards if self.shard_layout else 1
+
+    def _layout_key(self) -> Optional[tuple]:
+        """The shard layout's element of every plan-derived key: None on
+        an unsharded executor, so its keys stay as they were."""
+        return self.shard_layout.key() if self.shard_layout else None
+
     def fingerprint_of(self, node: L.Node) -> str:
         """Semantic fingerprint of the optimized form of ``node`` against
-        the current table versions: the result-cache key (memoized; the
-        memo is purged whenever a version moves)."""
+        the current table versions and the shard layout: the result-cache
+        key (memoized; the memo is purged whenever a version moves)."""
         self._sync_versions()
         fp = self._fps.get(node)
         if fp is None:
             opt, _ = self.plan(node)
-            fp = L.fingerprint(opt, self.catalog.versions())
+            fp = L.fingerprint(opt, self.catalog.versions(),
+                               layout=self._layout_key())
             self._fps[node] = fp
         return fp
 
@@ -649,7 +689,8 @@ class Executor:
             moved = sum(a.nbytes for a in arrays) \
                 + sum(b.nbytes for b in builds)
             sp.set(measured_s=dt, measured_bytes=moved)
-            self.tel.ledger.record_plan(phys, dt, moved, mode="fused")
+            self.tel.ledger.record_plan(phys, dt, moved, mode="fused",
+                                        shards=self.n_shards)
             return cp.finalize(carry), hit
 
     def _route_to_refine(self, node: L.Node, splan: pl.StreamPlan) -> bool:
@@ -683,10 +724,13 @@ class Executor:
             (t, self.catalog.stats[t].num_rows)
             for t in {n.table for n in L.walk(node)
                       if isinstance(n, L.Scan)}))
-        decisions = tuple((p.op, p.placement, p.n_passes)
-                          for p in _walk_phys(phys))
+        decisions = tuple(
+            (p.op, p.impl, p.placement, p.n_passes, p.shard_strategy)
+            for p in _walk_phys(phys)) if phys else ()
+        # the layout keeps a sharded and an unsharded plan apart
         return (L.signature(node), shapes, decisions,
-                self.cost_model.n_engines, self.cost_epoch)
+                self.cost_model.n_engines, self.cost_epoch,
+                self._layout_key())
 
     def _pipeline(self, node: L.Node, phys: PhysNode,
                   splan: pl.StreamPlan, *, rows: Optional[int]):
@@ -709,7 +753,8 @@ class Executor:
                 for c in splan.stream_cols)
             cp = pl.compile_pipeline(
                 splan, rows or self.catalog.stats[table].num_rows,
-                self._agg_dtype(splan), self.device)
+                self._agg_dtype(splan), self.device,
+                shard=self.shard_layout)
             self._compiled[key] = (cp, specs)
         cp, specs = self._compiled[key]
         return cp, specs, hit
@@ -985,7 +1030,8 @@ class Executor:
             moved = self.catalog.stats[table].num_rows * BYTES_PER_VALUE \
                 * len(cp.stream_cols) + sum(b.nbytes for b in builds)
             sp.set(measured_s=dt, measured_bytes=moved)
-            self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
+            self.tel.ledger.record_plan(phys, dt, moved, mode="stream",
+                                        shards=self.n_shards)
             self._record_promotions(promote)
             return cp.finalize(carry), hit
 
@@ -1026,7 +1072,8 @@ class Executor:
             dt = time.perf_counter() - t0
             moved = self.catalog.stats[table].num_rows * BYTES_PER_VALUE \
                 * len(cpj.stream_cols) + sum(b.nbytes for b in builds)
-            self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
+            self.tel.ledger.record_plan(phys, dt, moved, mode="stream",
+                                        shards=self.n_shards)
             self._record_promotions(promote)
         return value
 
@@ -1042,7 +1089,7 @@ class Executor:
             self.metrics.inc("exec.plan_cache_misses")
             self.metrics.inc("exec.trace_count")
             self._compiled[key] = pl.compile_project_pipeline(
-                pplan, rows, self.device)
+                pplan, rows, self.device, shard=self.shard_layout)
         return self._compiled[key]
 
     # -- the query server's shared morsel streams --------------------------- #
@@ -1061,7 +1108,8 @@ class Executor:
             self.metrics.inc("exec.plan_cache_misses")
             self.metrics.inc("exec.trace_count")
             self._compiled[key] = pl.compile_pipeline(
-                splan, spec.rows, self._agg_dtype(splan), self.device)
+                splan, spec.rows, self._agg_dtype(splan), self.device,
+                shard=self.shard_layout)
         cp = self._compiled[key]
         builds = self._breaker_arrays(splan.breakers)
         # the one-morsel gate holds only under an explicit capacity; a
@@ -1127,14 +1175,20 @@ class Executor:
         """Morsel granularity for a stream over ``table``: ``target``, or
         the cost model's choice — priced with the per-morsel promotion
         from ``src_tier`` under a device budget, as a device-resident
-        source otherwise — aligned by the partitioned plan."""
+        source otherwise — aligned by the partitioned plan (under a shard
+        layout, to the engines and the shards at once, so every morsel
+        splits into the shards' slices)."""
         total = self.catalog.stats[table].num_rows
+        plan = self.plans["partitioned"]
+        if self.shard_layout is not None:
+            plan = dataclasses.replace(plan, n_engines=math.lcm(
+                plan.n_engines, self.n_shards))
         if target is None:
             target = self.cost_model.choose_morsel_rows(
                 total, max(n_cols, 1),
                 include_transfer=self.placement_capacity_bytes is not None,
                 src_tier=src_tier)
-        return MorselSpec.for_plan(total, target, self.plans["partitioned"])
+        return MorselSpec.for_plan(total, target, plan)
 
     # -- GLM training (morsel-streamed epochs) ------------------------------ #
 
@@ -1186,7 +1240,8 @@ class Executor:
             moved = source.num_rows * BYTES_PER_VALUE \
                 * len(tplan.stream_cols) * node.epochs * len(node.grid)
             sp.set(measured_s=dt, measured_bytes=moved)
-            self.tel.ledger.record_plan(phys, dt, moved, mode="stream")
+            self.tel.ledger.record_plan(phys, dt, moved, mode="stream",
+                                        shards=self.n_shards)
             self._record_promotions(promote)
             return value
 
@@ -1303,14 +1358,24 @@ class Executor:
             if isinstance(n, L.Join):
                 lt = eval_cached(n.left)
                 rt = eval_cached(n.right)
-                if lt.plan is None:
-                    pname = "partitioned" if lt.num_rows \
-                        % self.plans["partitioned"].n_engines == 0 \
-                        else "congested"
-                    lt = lt.place(self.plans[pname])
-                pairs = engine.join(
-                    lt, rt, n.on,
-                    unique=key_is_unique(n.right, n.on, self.catalog.stats))
+                d = decisions.get(n)
+                if d is not None and d.shard_strategy == "shuffle" \
+                        and self.shard_layout is not None:
+                    # the costed alternative to broadcasting the build:
+                    # both sides repartition by key and each shard joins
+                    # its buckets; the pairs come back in the broadcast
+                    # join's probe-row order
+                    pairs = engine.join_shuffle(lt, rt, n.on,
+                                                self.shard_layout)
+                else:
+                    if lt.plan is None:
+                        pname = "partitioned" if lt.num_rows \
+                            % self.plans["partitioned"].n_engines == 0 \
+                            else "congested"
+                        lt = lt.place(self.plans[pname])
+                    pairs = engine.join(
+                        lt, rt, n.on, unique=key_is_unique(
+                            n.right, n.on, self.catalog.stats))
                 l_idx, r_idx = pairs.column("l_idx"), pairs.column("r_idx")
                 cols = {c: Column(lt.column(c)[l_idx], c)
                         for c in lt.columns}

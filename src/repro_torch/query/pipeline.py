@@ -12,6 +12,16 @@ to the card from pinned memory on a side stream, so the next morsel's
 transfer overlaps the current morsel's compute.  Project-rooted plans
 compile to a per-morsel step that yields a compacted output chunk.
 
+Under a shard layout (``shard=`` with ``rows`` a multiple of the shard
+count) a step evaluates the spine on each shard's contiguous slice of the
+morsel, one after another on the card, with the validity window offset
+into the morsel's rows and the builds shared: an aggregate step reduces
+each shard's partial in the carry's dtype and adds the partials in shard
+order (the reference's ``psum``), a project step concatenates the shards'
+(mask, cols) blocks in shard order.  Integer carries stay bit-identical to
+the unsharded fold; a float sum is summed in another order.  Other row
+counts take the unsharded step, as in the reference.
+
 Layout of a step's arguments::
 
     step(lits, carry, n_valid, *build_flat, *morsel_cols) -> carry
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.columnar import engine
+from repro_torch.distributed.sharding import ShardLayout
 from repro_torch.kernels.join import join as join_kernels
 from repro_torch.query import logical as L
 from repro_torch.query.cost import TableStats, key_is_unique
@@ -229,10 +240,32 @@ class CompiledPipeline:
     init_carry: Callable[[], object]
     finalize: Callable[[object], object]
     device: torch.device
+    shard: Optional[ShardLayout] = None   # set when the step is sharded
 
     @property
     def n_build_arrays(self) -> int:
         return sum(b.n_arrays for b in self.breakers)
+
+
+def _n_slices(rows: int, shard: Optional[ShardLayout]) -> int:
+    """How many shard slices a step of ``rows`` rows evaluates: the
+    layout's count when it divides ``rows``, else 1 (unsharded)."""
+    if shard is not None and shard.n_shards > 1 \
+            and rows % shard.n_shards == 0:
+        return shard.n_shards
+    return 1
+
+
+def _shard_slices(morsel, n_valid, n_sh: int, device: torch.device):
+    """Each shard's contiguous slice of the morsel columns and its
+    validity mask (rows below ``n_valid`` in morsel coordinates), in
+    shard order."""
+    n_loc = morsel[0].shape[0] // n_sh
+    for k in range(n_sh):
+        off = k * n_loc
+        cols = morsel if n_sh == 1 \
+            else tuple(a[off:off + n_loc] for a in morsel)
+        yield cols, off + torch.arange(n_loc, device=device) < n_valid
 
 
 def _eval_spine(root: L.Node, stream_cols, morsel, valid, lits,
@@ -318,8 +351,11 @@ def _lane_sums(x: torch.Tensor) -> torch.Tensor:
 
 
 def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
-                     device: torch.device) -> CompiledPipeline:
-    """Lower a streamable plan into one per-morsel step.
+                     device: torch.device,
+                     shard: Optional[ShardLayout] = None
+                     ) -> CompiledPipeline:
+    """Lower a streamable plan into one per-morsel step (sharded over
+    ``shard`` when its count divides ``rows``).
 
     Integer aggregates accumulate in int64 (the reference's int32 under
     JAX's default 32-bit mode, equal until int32 would overflow); float
@@ -347,18 +383,17 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
         raise ValueError(node.op)
 
     n_build = sum(b.n_arrays for b in breakers)
+    n_sh = _n_slices(rows, shard)
 
-    def fold(lits, carry, n_valid, arrays, total):
-        morsel = arrays[n_build:]
-        valid = torch.arange(morsel[0].shape[0], device=device) < n_valid
+    def partial(lits, morsel, valid, build_flat, dtype, total):
+        """One slice's carry increment, reduced in the carry's dtype."""
         cols, mask, weight, buckets = _eval_spine(
             node.child, splan.stream_cols, morsel, valid, lits, breakers,
-            arrays[:n_build])
+            build_flat)
         w_live = mask.to(torch.int64) if weight is None \
             else torch.where(mask, weight, 0).to(torch.int64)
         if node.op == "count":
-            return carry + total(w_live)
-        dtype = carry[0].dtype if node.op == "mean" else carry.dtype
+            return total(w_live)
         if node.column in cols:
             contrib = cols[node.column].to(dtype) * w_live.to(dtype)
         else:
@@ -366,9 +401,21 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
             others = w_live // cnt.clamp(min=1)
             contrib = bsum.to(dtype) * others.to(dtype)
         if node.op == "sum":
-            return carry + total(contrib)
-        s, c = carry
-        return s + total(contrib), c + total(w_live.to(c.dtype))
+            return total(contrib)
+        return total(contrib), total(w_live.to(dtype))
+
+    def fold(lits, carry, n_valid, arrays, total):
+        dtype = carry[0].dtype if node.op == "mean" else carry.dtype
+        parts = [partial(lits, morsel, valid, arrays[:n_build], dtype, total)
+                 for morsel, valid in _shard_slices(arrays[n_build:],
+                                                    n_valid, n_sh, device)]
+        inc = parts[0]
+        for p in parts[1:]:                 # the shards' sum, in order
+            inc = (inc[0] + p[0], inc[1] + p[1]) if node.op == "mean" \
+                else inc + p
+        if node.op == "mean":
+            return carry[0] + inc[0], carry[1] + inc[1]
+        return carry + inc
 
     def step(lits, carry, n_valid, *arrays):
         return fold(lits, carry, n_valid, arrays, torch.sum)
@@ -378,7 +425,7 @@ def compile_pipeline(splan: StreamPlan, rows: int, agg_dtype: torch.dtype,
 
     return CompiledPipeline(splan.base_scan.table, splan.stream_cols,
                             breakers, rows, step, group_step, init, fin,
-                            device)
+                            device, shard if n_sh > 1 else None)
 
 
 @dataclasses.dataclass
@@ -391,6 +438,7 @@ class CompiledProject:
     rows: int
     out_cols: Tuple[str, ...]
     step: Callable
+    shard: Optional[ShardLayout] = None   # set when the step is sharded
 
     @property
     def n_build_arrays(self) -> int:
@@ -398,23 +446,35 @@ class CompiledProject:
 
 
 def compile_project_pipeline(pplan: ProjectStreamPlan, rows: int,
-                             device: torch.device) -> CompiledProject:
+                             device: torch.device,
+                             shard: Optional[ShardLayout] = None
+                             ) -> CompiledProject:
     """Lower a Project-rooted streamable plan into one per-morsel step,
     ``step(lits, n_valid, *build_flat, *morsel_cols) -> (mask, cols)``,
     with the aggregate pipeline's argument layout and literal order, for
-    morsels of ``rows`` rows."""
+    morsels of ``rows`` rows.  Under ``shard`` (dividing ``rows``) the
+    shards' (mask, cols) blocks concatenate in shard order, back into the
+    morsel's row order."""
     n_build = sum(b.n_arrays for b in pplan.breakers)
+    n_sh = _n_slices(rows, shard)
 
     def step(lits, n_valid, *arrays):
-        morsel = arrays[n_build:]
-        valid = torch.arange(morsel[0].shape[0], device=device) < n_valid
-        cols, mask, _, _ = _eval_spine(
-            pplan.node, pplan.stream_cols, morsel, valid, lits,
-            pplan.breakers, arrays[:n_build])
-        return mask, tuple(cols[c] for c in pplan.out_cols)
+        masks, outs = [], []
+        for morsel, valid in _shard_slices(arrays[n_build:], n_valid, n_sh,
+                                           device):
+            cols, mask, _, _ = _eval_spine(
+                pplan.node, pplan.stream_cols, morsel, valid, lits,
+                pplan.breakers, arrays[:n_build])
+            masks.append(mask)
+            outs.append(tuple(cols[c] for c in pplan.out_cols))
+        if n_sh == 1:
+            return masks[0], outs[0]
+        return torch.cat(masks), tuple(torch.cat(blocks)
+                                       for blocks in zip(*outs))
 
     return CompiledProject(pplan.base_scan.table, pplan.stream_cols,
-                           pplan.breakers, rows, pplan.out_cols, step)
+                           pplan.breakers, rows, pplan.out_cols, step,
+                           shard if n_sh > 1 else None)
 
 
 def _stage(arrays, device: torch.device, copy_stream):

@@ -17,7 +17,9 @@ Two serving disciplines share one ``submit()`` surface:
   that share a compiled pipeline form a group that takes one step a
   morsel (``CompiledPipeline.group_step``): one fetch of the morsel, one
   probe of each join for the whole group, and ``[G, rows]`` masks for
-  the members' different ranges.
+  the members' different ranges.  On a sharded executor the group step
+  is the sharded one: one probe of each join per shard per group, and
+  the ledger rows of sharded operators carry shard ids.
 
 Per-query sojourn latency, throughput, the dedup / micro-batch / stream /
 cache counters and the executor's statistics come back from ``stats()``.
@@ -357,7 +359,7 @@ class _MorselStream:
             for phys in live_phys:
                 ex.tel.ledger.record_plan(
                     phys, dt * share, moved * share, mode="serve",
-                    scale=1.0 / self.spec.n_morsels)
+                    scale=1.0 / self.spec.n_morsels, shards=ex.n_shards)
         self.pos = (self.pos + 1) % self.spec.n_morsels
         return done
 

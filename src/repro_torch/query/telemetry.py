@@ -265,6 +265,8 @@ class LedgerRow:
     measured_s: float
     mode: str = "eager"              # eager | fused | stream
     attributed: bool = False
+    shard: int = -1                  # shard id under a sharded placement
+                                     # (-1 = not shard-attributed)
     table: str = ""                  # (table, column) a filter row's bytes
     column: str = ""                 # belong to — selectivity feedback key
     tier: str = "device"             # memory tier the bytes streamed FROM
@@ -311,13 +313,13 @@ class BandwidthLedger:
                predicted_bytes: float, predicted_s: float,
                measured_bytes: float, measured_s: float,
                mode: str = "eager", attributed: bool = False,
-               table: str = "", column: str = "",
+               shard: int = -1, table: str = "", column: str = "",
                tier: str = "device") -> None:
         if not self.enabled:
             return
         row = LedgerRow(op, impl, placement, float(predicted_bytes),
                         float(predicted_s), float(measured_bytes),
-                        float(measured_s), mode, attributed, table,
+                        float(measured_s), mode, attributed, shard, table,
                         column, tier=tier)
         with self._lock:
             if len(self.rows) >= self.max_rows:
@@ -326,7 +328,8 @@ class BandwidthLedger:
             self.rows.append(row)
 
     def record_plan(self, phys, measured_s: float, measured_bytes: float,
-                    *, mode: str, scale: float = 1.0) -> None:
+                    *, mode: str, scale: float = 1.0,
+                    shards: int = 1) -> None:
         """Attribute one fused/streamed pipeline's fenced measurement
         across its physical operators, proportional to each op's share
         of the predicted cost (bytes pro-rated the same way).  Every
@@ -334,9 +337,15 @@ class BandwidthLedger:
         when only the pipeline boundary is fenceable.  ``scale`` shrinks
         the plan's predictions to the measured slice: the serving
         streams fence one morsel at a time and record against
-        ``1/n_morsels`` of the whole-plan prediction.  Filter rows
-        additionally carry their (table, column) so
-        ``selectivity_corrections`` can key the cardinality feedback."""
+        ``1/n_morsels`` of the whole-plan prediction.
+
+        ``shards > 1`` splits every sharded-placement op's row into one
+        row per shard, bytes and seconds divided evenly (the shards' steps
+        are fenced together, so per-shard skew is not observable).  The
+        sums are unchanged, which keeps ``window_drift`` and
+        ``calibration_overlay`` identical.  Filter rows additionally carry
+        their (table, column) so ``selectivity_corrections`` can key the
+        cardinality feedback."""
         if not self.enabled or phys is None:
             return
         nodes = list(_walk(phys))
@@ -344,13 +353,17 @@ class BandwidthLedger:
         total_b = sum(p.n_bytes for p in nodes) or 1.0
         for p in nodes:
             table, column = _filter_attribution(p)
-            self.record(
-                op=p.op, impl=p.impl, placement=p.placement,
-                predicted_bytes=p.n_bytes * scale,
-                predicted_s=p.cost_s * scale,
-                measured_bytes=measured_bytes * (p.n_bytes / total_b),
-                measured_s=measured_s * (p.cost_s / total_s),
-                mode=mode, attributed=True, table=table, column=column)
+            n = shards if (shards > 1 and p.placement == "sharded") else 1
+            for k in range(n):
+                self.record(
+                    op=p.op, impl=p.impl, placement=p.placement,
+                    predicted_bytes=p.n_bytes * scale / n,
+                    predicted_s=p.cost_s * scale / n,
+                    measured_bytes=measured_bytes * (p.n_bytes / total_b)
+                    / n,
+                    measured_s=measured_s * (p.cost_s / total_s) / n,
+                    mode=mode, attributed=True,
+                    shard=k if n > 1 else -1, table=table, column=column)
 
     # -- aggregation --------------------------------------------------------- #
 

@@ -142,33 +142,50 @@ Phases, each of which must pass or the script exits non-zero:
    rows carrying shard ids 0 and 1; and the eager filter on a float32
    column (lineorder's price in dollars) through B1's float32 entry,
    bit-identical to the CPU's;
-14. lm: the LM serving path at full width and depth.  The flash-attention
+14. lm: the LM serving path at full width.  The flash-attention
    kernel's two tensor-core routes against their plain version at the
-   shapes the path runs them at: bf16 (wgmma) within 2e-2 at the served
-   prefills of llama3-8b (D 128, GQA 4) and stablelm-3b (D 80, MHA),
-   batch 4, and f32 (three split-TF32 products) within 2e-5 at the
-   same two models' f32 checks, batch 1, each timed beside its bound and
+   shapes the path runs them at: bf16 (wgmma) within 2e-2 at every
+   served prefill, batch 4 (llama3-8b D 128 GQA 4, stablelm-3b D 80 MHA,
+   granite-moe D 64 GQA 3, llama4-scout GQA 5, qwen2-vl GQA 7, jamba
+   GQA 4), and f32 (three split-TF32 products) within 2e-5 at every
+   model's f32 check, batch 1, each timed beside its bound and
    ``scaled_dot_product_attention`` in its type, and misaligned views of
    q, k and v through every row (equal to the aligned launch bit for
-   bit); the SSD kernel's two routes against
-   their plain version at the mamba2-780m prefill shape (the tensor-core
-   route in bf16 at batch 4: y within 1.6e-2, the state within
-   rtol=atol=1e-4; the CUDA-core route in f32 at the f32 check's batch 1,
-   within rtol=atol=1e-4), two launches bit-identical, each timed with
-   its three passes.  Then ``serve`` of llama3-8b (32 layers),
-   stablelm-3b (32 layers) and mamba2-780m (48 layers), random weights
-   from ``--seed``, 4 prompts of 2,000 tokens and 32 greedy tokens each:
-   prefill and per-token decode time (first run, median of warm runs),
-   tok/s, peak device memory, and one bf16 flash-attention (SSD
-   tensor-core) launch per layer of the prefill (the f32 check below
-   launches the f32 route of each, once per layer of each of its two
-   prefills).  Path
+   bit); the SSD kernel's two routes against their plain version at the
+   mamba2-780m prefill shape (the tensor-core route in bf16 at batch 4:
+   y within 1.6e-2, the state within rtol=atol=1e-4; the CUDA-core route
+   in f32 at the f32 check's batch 1, within rtol=atol=1e-4) and at
+   jamba's (128 heads of 64, ds 16; the same two routes, batches and
+   tolerances), two launches bit-identical, each timed with its three
+   passes.  Then llama3-8b (32
+   layers), stablelm-3b (32), mamba2-780m (48), granite-moe-3b-a800m (32)
+   and qwen2-vl-7b (28) through ``serve`` at full depth, and
+   llama4-scout-17b-a16e and jamba-v0.1-52b through ``build_model`` and
+   ``generate`` at 8 layers (``LM_DEPTH``: 214 GB and 104 GB of bf16
+   weights against one 80 GB card; jamba's 8 are one period of its
+   schedule), random weights from ``--seed``, 4 prompts of 2,000 tokens
+   and 32 greedy tokens each: prefill and per-token decode time (first
+   run, median of warm runs, one warm run for the four later models),
+   tok/s, peak device memory, device busy against wall over a profiled
+   run of a prefill and 7 decode steps, and one bf16 flash-attention
+   launch per attention layer and one SSD tensor-core launch per Mamba
+   layer of the prefill (the f32 check below launches the f32 route of
+   each, once per such layer of each of its two prefills).  qwen2-vl
+   also prefills with its 256 patch embeddings and distinct (t, h, w)
+   positions.  Path
    checks: no NaN; a teacher-forced prefill of 1,999 tokens plus one
    decode step equals the 2,000-token prefill's last logits within
    ``TF_TOL`` of their largest magnitude in bf16 and within
-   ``TF_TOL_F32`` on an f32 copy of the weights; a 2-layer full-width
-   model on the card equals the same weights on the CPU (the plain path)
-   over a 512-token prompt within ``CARD_CPU_TOL`` of the largest logit.
+   ``TF_TOL_F32`` on an f32 copy of the weights (llama4-scout's at 4
+   layers, ``LM_F32_DEPTH``), at capacity factor E / k for the MoE
+   models, where nothing drops; a 2-layer full-width model on the card
+   equals the same weights on the CPU (the plain path) over a 512-token
+   prompt within ``CARD_CPU_TOL`` of the largest logit: the MoE models on
+   an f32 copy over 2 rows, their experts equal wherever the CPU's
+   boundary gap exceeds ``LM_ROUTE_MARGIN`` and the rows that route alike
+   compared (jamba's 2 layers pair attention with its FFN and Mamba with
+   its MoE, as its schedule does); qwen2-vl with its patch embeddings and
+   (t, h, w) positions.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -220,10 +237,34 @@ MIB = 1 << 20
 # the SGD kernel sums in another order than its plain version and nvcc
 # contracts multiply-adds into FMAs: weights agree within this, not bitwise
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
-LM_ARCHS = ("llama3-8b", "stablelm-3b", "mamba2-780m")
+LM_ARCHS = ("llama3-8b", "stablelm-3b", "mamba2-780m",
+            "granite-moe-3b-a800m", "qwen2-vl-7b", "llama4-scout-17b-a16e",
+            "jamba-v0.1-52b")
 LM_BATCH, LM_PROMPT_LEN, LM_GEN_LEN = 4, 2_000, 32
 LM_WARM_RUNS = 3
+# the profiled run generates 8 tokens (a prefill and 7 decode steps): the
+# profiler's own bookkeeping of a 32-token run took 67-86 s a model
+LM_PROFILE_TOKENS = 8
+# the moe, hybrid and vlm families (added last) take one warm run each,
+# which keeps the script inside its time
+LM_WARM_RUNS_OF = {"granite-moe-3b-a800m": 1, "qwen2-vl-7b": 1,
+                   "llama4-scout-17b-a16e": 1, "jamba-v0.1-52b": 1}
+# depth cuts, and why: one 80 GB card, no model parallelism in the port
+LM_DEPTH = {
+    "llama4-scout-17b-a16e": (8, "48 layers of bf16 weights are 214 GB"),
+    "jamba-v0.1-52b": (8, "32 layers of bf16 weights are 104 GB; 8 is "
+                          "one period of its schedule"),
+}
+# the f32 copy of the teacher-forced check, where the served depth's does
+# not fit: llama4-scout's 8 layers are 79 GB in f32
+LM_F32_DEPTH = {"llama4-scout-17b-a16e": 4}
 LM_CHECK_LEN = 512               # the 2-layer card-vs-CPU prompt
+# the MoE models' card-vs-CPU check: rows of LM_CHECK_LEN tokens in f32,
+# compared where every routing decision agrees; the experts must agree
+# wherever the CPU's boundary gap (k-th less (k+1)-th probability)
+# exceeds LM_ROUTE_MARGIN, far above f32 noise on the same weights
+LM_MOE_CHECK_ROWS = 2
+LM_ROUTE_MARGIN = 1e-5
 # the flash-attention kernel sums in another order than its dense plain
 # version (cuBLAS): f32 within 2e-5; in bf16 within the reference's own
 # bf16 tolerance (tests/test_kernels_attention_ssd.py)
@@ -450,16 +491,21 @@ def device_ms(fn, reps: int = 200) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    if busy_us <= 0:
-        raise AssertionError("the profiler traced no device time")
-    return busy_us / 1e3 / reps
+    # the card's profiler has returned a session without device events
+    # now and then; such a session is taken again, up to three times
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / reps
+        log(f"  the profiler traced no device time (session {attempt + 1} "
+            "of 3)")
+    raise AssertionError("the profiler traced no device time")
 
 
 def time3_ms(name: str, fn, reps: int = 200) -> float:
@@ -2749,14 +2795,17 @@ def phase_shard(dev, ssb_tables, ssb_times, tpch_tables, order_idx):
 
 
 def phase_lm_kernels(dev):
-    """B7's two routes at every shape the LM path runs them at (bf16 at
-    llama3-8b's and stablelm-3b's served prefills, f32 at the same two
-    models' f32 checks, a batch of one) and B8's two at the mamba2-780m
-    ones (the served bf16 prefill, and the f32 check's batch of one),
-    against their plain versions, timed (B8 also pass by pass).  Returns
-    the six JSON rows; a B7 row's ``counted_in`` names the run of
-    ``phase_lm`` whose launches it reports, and its ``counter`` the
-    counter of the route its inputs take."""
+    """B7's two routes at the shapes the LM path runs them at (bf16 at
+    every served prefill: llama3-8b's, stablelm-3b's, granite-moe's D 64
+    with GQA 3, llama4-scout's GQA 5, qwen2-vl's GQA 7, jamba's GQA 4; f32
+    at every model's f32 check, a batch of one) and B8's two at the
+    mamba2-780m ones and at jamba's (ds 16, 128 heads): the served bf16
+    prefill and the f32 check's batch of one, against their plain
+    versions, timed (B8 also pass by pass).  Returns the sixteen JSON
+    rows; a row's
+    ``counted_in`` names the run of ``phase_lm`` whose launches it
+    reports, and its ``counter`` the counter of the route its inputs
+    take."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -2784,7 +2833,25 @@ def phase_lm_kernels(dev):
             ("llama3-8b", torch.float32, 1, "flash_attention_f32",
              "llama3-8b f32 check"),
             ("stablelm-3b", torch.float32, 1, "flash_attention_f32_d80",
-             "stablelm-3b f32 check")):
+             "stablelm-3b f32 check"),
+            ("granite-moe-3b-a800m", torch.bfloat16, LM_BATCH,
+             "flash_attention_tc_granite_moe", "granite-moe-3b-a800m"),
+            ("llama4-scout-17b-a16e", torch.bfloat16, LM_BATCH,
+             "flash_attention_tc_llama4_scout", "llama4-scout-17b-a16e"),
+            ("qwen2-vl-7b", torch.bfloat16, LM_BATCH,
+             "flash_attention_tc_qwen2_vl", "qwen2-vl-7b"),
+            ("jamba-v0.1-52b", torch.bfloat16, LM_BATCH,
+             "flash_attention_tc_jamba", "jamba-v0.1-52b"),
+            ("granite-moe-3b-a800m", torch.float32, 1,
+             "flash_attention_f32_granite_moe",
+             "granite-moe-3b-a800m f32 check"),
+            ("llama4-scout-17b-a16e", torch.float32, 1,
+             "flash_attention_f32_llama4_scout",
+             "llama4-scout-17b-a16e f32 check"),
+            ("qwen2-vl-7b", torch.float32, 1, "flash_attention_f32_qwen2_vl",
+             "qwen2-vl-7b f32 check"),
+            ("jamba-v0.1-52b", torch.float32, 1, "flash_attention_f32_jamba",
+             "jamba-v0.1-52b f32 check")):
         cfg = get_arch(arch)
         h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         pairs = b * h * s * (s + 1) // 2        # the causal half, i >= j
@@ -2852,31 +2919,38 @@ def phase_lm_kernels(dev):
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
-    b = LM_BATCH
-    cfg = get_arch("mamba2-780m")
-    nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
-        cfg.ssm_state
-    # Mamba-2's own init ranges: dt in [0.001, 0.1], A in [1, 16]
-    x, bm, cm = randn(b, s, nh, hd), randn(b, s, ng, ds), randn(b, s, ng, ds)
-    dt = uniform(0.001, 0.1, b, s, nh)
-    a_log = torch.log(uniform(1.0, 16.0, nh))
-    d_skip = randn(nh, dtype=torch.float32)
-    # per chunk of L tokens: C.B^T and the scores times x over the causal
-    # half, C.H^T and the state update in full (the function's own count,
-    # not the tensor-core route's split, which doubles three of the four)
-    chunks = [min(128, s - t) for t in range(0, s, 128)]
-    per_head = sum(2 * (ds + hd) * L * (L + 1) // 2 + 4 * L * hd * ds
-                   for L in chunks)
-    # the served prefill (bf16, batch 4) takes the tensor-core route; the
+    # the served prefills (bf16, batch 4) take the tensor-core route; the
     # f32 teacher-forced check's prefill (batch 1) the CUDA-core route
-    for name, args in (
-            ("ssd_tc", (x, dt, a_log, bm, cm, d_skip)),
-            ("ssd", (x[:1].float(), dt[:1], a_log, bm[:1].float(),
-                     cm[:1].float(), d_skip))):
+    for name, arch, bsz, dtype, counted_in in (
+            ("ssd_tc", "mamba2-780m", LM_BATCH, torch.bfloat16,
+             "mamba2-780m"),
+            ("ssd", "mamba2-780m", 1, torch.float32, "mamba2-780m f32 check"),
+            ("ssd_tc_jamba", "jamba-v0.1-52b", LM_BATCH, torch.bfloat16,
+             "jamba-v0.1-52b"),
+            ("ssd_jamba", "jamba-v0.1-52b", 1, torch.float32,
+             "jamba-v0.1-52b f32 check")):
+        cfg = get_arch(arch)
+        nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+            cfg.ssm_state
+        # Mamba-2's own init ranges: dt in [0.001, 0.1], A in [1, 16]
+        args = (randn(bsz, s, nh, hd, dtype=dtype),
+                uniform(0.001, 0.1, bsz, s, nh),
+                torch.log(uniform(1.0, 16.0, nh)),
+                randn(bsz, s, ng, ds, dtype=dtype),
+                randn(bsz, s, ng, ds, dtype=dtype),
+                randn(nh, dtype=torch.float32))
+        # per chunk of L tokens: C.B^T and the scores times x over the
+        # causal half, C.H^T and the state update in full (the function's
+        # own count, not the tensor-core route's split, which doubles three
+        # of the four)
+        chunks = [min(128, s - t) for t in range(0, s, 128)]
+        per_head = sum(2 * (ds + hd) * L * (L + 1) // 2 + 4 * L * hd * ds
+                       for L in chunks)
         xx, bb = args[0], args[3]
-        bsz, tname = xx.shape[0], str(xx.dtype).split(".")[-1]
-        rt = ssd_kernels.route(xx.dtype, hd, ds)
-        if ssd_kernels.COUNTER[rt] != name:
+        tname = str(dtype).split(".")[-1]
+        rt = ssd_kernels.route(dtype, hd, ds)
+        counter = ssd_kernels.COUNTER[rt]
+        if counter != name.replace("_jamba", ""):
             raise AssertionError(f"{tname} at hd {hd}, ds {ds} takes the "
                                  f"{rt} route, not {name}")
         y, hf = ssd_kernels.ssd_scan(*args)
@@ -2885,7 +2959,7 @@ def phase_lm_kernels(dev):
         torch.cuda.synchronize()
         if not (torch.equal(y, y2) and torch.equal(hf, h2)):
             raise AssertionError(f"{name}: two launches on one input differ")
-        y_tol = SSD_TOL if xx.dtype == torch.float32 else SSD_BF16_TOL
+        y_tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
         torch.testing.assert_close(y.float(), y_p.float(), **y_tol)
         torch.testing.assert_close(hf, h_p, **SSD_TOL)
         err = float((y.float() - y_p.float()).abs().max())
@@ -2916,22 +2990,25 @@ def phase_lm_kernels(dev):
             + 4 * (args[1].numel() + 2 * nh + hf.numel()),
             ops=bsz * nh * per_head,
             ops_type="bf16" if rt == "tc" else "f32",
-            shape=f"x=({bsz}, {s}, {nh}, {hd}) {tname}, dt f32, b, c=("
-                  f"{bsz}, {s}, {ng}, {ds}) {tname}, chunk 128, {rt} route"))
+            counted_in=counted_in, counter=counter,
+            shape=f"{arch}: x=({bsz}, {s}, {nh}, {hd}) {tname}, dt f32, b, "
+                  f"c=({bsz}, {s}, {ng}, {ds}) {tname}, chunk 128, {rt} "
+                  "route"))
         log(f"  {name} passes: " + ", ".join(
             f"{p} {ms:.4f} ms" for p, ms in pass_ms.items())
             + f" (sum {sum(pass_ms.values()):.4f})")
         finish_row(rows[-1], agree=f"{tname} y max abs err {err:.3e} within "
                    f"{y_tol}, state {h_err:.3e} within {SSD_TOL}; two "
                    "launches bit-identical")
-        del y, hf
+        del y, hf, args, xx, bb
         torch.cuda.empty_cache()
     return rows
 
 
-def _teacher_forced(mb, model, prompts):
+def _teacher_forced(mb, model, prompts, **kw):
     """The S-token prefill's last logits, and those of a prefill of the
-    first S - 1 tokens followed by one decode step of the last."""
+    first S - 1 tokens followed by one decode step of the last (``kw``:
+    the prefills' MoE capacity factor; a decode step never drops)."""
     import torch
     from repro_torch.models import registry
     b, s = prompts.shape
@@ -2940,8 +3017,8 @@ def _teacher_forced(mb, model, prompts):
         return registry.make_cache(mb.cfg, b, s, prompts.device,
                                    model.embed.dtype)
     with torch.inference_mode():
-        full, _ = mb.prefill_fn(model, prompts, caches())
-        _, c = mb.prefill_fn(model, prompts[:, :-1], caches())
+        full, _ = mb.prefill_fn(model, prompts, caches(), **kw)
+        _, c = mb.prefill_fn(model, prompts[:, :-1], caches(), **kw)
         step, _ = mb.decode_fn(model, prompts[:, -1:], s - 1, c)
     if not (bool(torch.isfinite(full).all())
             and bool(torch.isfinite(step).all())):
@@ -2949,10 +3026,138 @@ def _teacher_forced(mb, model, prompts):
     return full, step
 
 
+def _mixers(cfg):
+    """(attention layers, Mamba layers) of a config: the prefill launches
+    B7 once for each of the first and B8 once for each of the second."""
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.num_layers))
+    return n_attn, cfg.num_layers - n_attn
+
+
+def _expect_launches(label, counts, cfg, per_layer, b7, b8):
+    """One ``b7`` launch per attention layer and one ``b8`` launch per
+    Mamba layer, ``per_layer`` times (one a prefill)."""
+    n_attn, n_ssm = _mixers(cfg)
+    got = {b7: counts[b7], b8: counts[b8]}
+    want = {b7: per_layer * n_attn, b8: per_layer * n_ssm}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want} "
+                             f"({n_attn} attention and {n_ssm} Mamba layers, "
+                             f"{per_layer} prefill(s))")
+
+
+def _vlm_inputs(cfg, b, s, dev, seed):
+    """qwen2-vl's patch embeddings (b, n_vision_patches, d_model) over the
+    first positions, and (t, h, w) positions whose components all differ
+    (t = the index, as the attention kernel's index mask needs; h and w a
+    16 x 16 patch grid over the patches, the index after them)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = cfg.n_vision_patches
+    ve = 0.02 * torch.randn(b, n, cfg.d_model, generator=g, device=dev)
+    t = torch.arange(s, device=dev)
+    side = int(n ** 0.5)
+    h = torch.where(t < n, t // side, t + 7)
+    w = torch.where(t < n, t % side, t + 3)
+    pos = torch.stack([t, h, w], -1).expand(b, s, 3)
+    return ve.to(torch.bfloat16), pos
+
+
+def _card_vs_cpu(dev, arch, seed):
+    """The card's path against the CPU's plain path on the same weights:
+    2 layers at full width, a 512-token prompt, last logits within
+    ``CARD_CPU_TOL``.  The MoE models run on an f32 copy, over
+    ``LM_MOE_CHECK_ROWS`` rows, under the routing rule: experts equal
+    wherever the CPU's boundary gap exceeds ``LM_ROUTE_MARGIN``, rows
+    compared where every decision agrees.  jamba's 2 layers take its
+    period-8 schedule's two pairings, attention + FFN (its layer 4) and
+    Mamba + MoE (its odd layers).  qwen2-vl's prompt carries its 256
+    patch embeddings and distinct (t, h, w) positions."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_model, draw_prompts
+    from repro_torch.models import registry
+    from repro_torch.models.moe import MoE
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, attn_every=2, attn_offset=0,
+                                  moe_every=2, moe_offset=1)
+    moe = bool(cfg.n_experts)
+    rows = LM_MOE_CHECK_ROWS if moe else 1
+    mb, card = build_model(cfg, dev, seed=seed)
+    _, cpu = build_model(cfg, torch.device("cpu"),
+                         state_dict=card.state_dict())
+    if moe:
+        card.float(), cpu.float()
+    prompt = draw_prompts(cfg, rows, LM_CHECK_LEN, seed, dev)
+    extra = {}
+    if cfg.family == "vlm":
+        ve, pos = _vlm_inputs(cfg, rows, LM_CHECK_LEN, dev, seed + 2)
+        extra = dict(vision_embeds=ve.to(card.embed.dtype), positions=pos)
+    out, routes = {}, {}
+    t0 = time.perf_counter()
+    for where, model in (("card", card), ("cpu", cpu)):
+        d = next(model.parameters()).device
+        seen = []
+        hooks = [m.register_forward_hook(
+            lambda m, args, out_, seen=seen: seen.append((m, args[0])))
+            for m in model.modules() if isinstance(m, MoE)]
+        with torch.inference_mode():
+            caches = registry.make_cache(cfg, rows, LM_CHECK_LEN, d,
+                                         card.embed.dtype)
+            out[where] = mb.prefill_fn(
+                model, prompt.to(d), caches,
+                **{k: v.to(d) for k, v in extra.items()})[0].cpu()
+            routes[where] = [m.route(h) for m, h in seen]
+        for hk in hooks:
+            hk.remove()
+    agree = torch.ones(rows, dtype=torch.bool)
+    under = decisions = 0
+    for (p_cpu, _, ids_cpu), (_, _, ids_card) in zip(routes["cpu"],
+                                                     routes["card"]):
+        k = ids_cpu.shape[-1]
+        top = p_cpu.sort(-1, descending=True).values
+        clear = (top[..., k - 1] - top[..., k]) > LM_ROUTE_MARGIN
+        same = (ids_cpu.sort(-1).values
+                == ids_card.cpu().sort(-1).values).all(-1)
+        if not bool(same[clear].all()):
+            raise AssertionError(f"{arch} (2 layers): the card routes a token "
+                                 f"clear of the margin {LM_ROUTE_MARGIN} to "
+                                 "other experts than the CPU")
+        under += int((~clear).sum())
+        decisions += clear.numel()
+        agree &= same.all(-1)
+    if not bool(agree.any()):
+        raise AssertionError(f"{arch} (2 layers): no row routes alike")
+    err = float((out["card"] - out["cpu"])[agree].abs().max())
+    scale = float(out["cpu"][agree].abs().max())
+    if not err <= CARD_CPU_TOL * scale:
+        raise AssertionError(f"{arch} (2 layers): card logits differ from "
+                             f"the CPU's by {err} > {CARD_CPU_TOL} x {scale}")
+    what = (f"{rows} x {LM_CHECK_LEN} prompt"
+            + (", f32 copy" if moe else "")
+            + (f", {cfg.n_vision_patches} patch embeddings and distinct "
+               "(t, h, w) positions" if extra else ""))
+    route = (f"; routing: {under} of {decisions} decisions within "
+             f"{LM_ROUTE_MARGIN} of the boundary, "
+             f"{int(agree.sum())} of {rows} rows route alike and are "
+             "compared" if moe else "")
+    log(f"lm {arch}, 2 layers at full width"
+        + (" (attention + FFN, Mamba + MoE)" if cfg.family == "hybrid"
+           else "") + f", {what}: card vs CPU last logits max abs diff "
+        f"{err:.4e} (max |logit| {scale:.4f}, bound {CARD_CPU_TOL} x){route}"
+        f" in {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
 def phase_lm(dev, seed):
-    """Serve llama3-8b, stablelm-3b and mamba2-780m at full width and depth
-    through ``serve``; the teacher-forced and card-vs-CPU path checks.
-    Returns launch counts by model."""
+    """Serve every model of ``LM_ARCHS`` at full width (and full depth but
+    for the cuts of ``LM_DEPTH``), the teacher-forced and card-vs-CPU path
+    checks; qwen2-vl also prefills with its patch embeddings.  Returns
+    launch counts by model."""
     import dataclasses
 
     import torch
@@ -2963,41 +3168,51 @@ def phase_lm(dev, seed):
     )
     from repro_torch.models import registry
 
-    # the served bf16 prefill launches B7's bf16 route and B8's
-    # tensor-core route, the f32 check's B7's f32 route and B8's CUDA-core
-    # route
-    kernel_of = {"dense": "flash_attention_tc", "ssm": "ssd_tc"}
-    kernel_of_f32 = {"dense": "flash_attention_f32", "ssm": "ssd"}
+    t_phase = time.perf_counter()
     counts = {}
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
+        depth, why = LM_DEPTH.get(arch, (None, ""))
+        if depth is not None:
+            log(f"lm {arch}: reduced to {depth} of {cfg.num_layers} layers "
+                f"at full width ({why}; {cfg.param_count() / 1e9:.1f} B "
+                f"params at full depth, one card of 80 GB)")
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        warm_runs = LM_WARM_RUNS_OF.get(arch, LM_WARM_RUNS)
+        # the identity holds where nothing drops: capacity factor E / k
+        kw = {"capacity_factor": cfg.n_experts / cfg.top_k} \
+            if cfg.n_experts else {}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         stats = {}
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = serve(arch, smoke=False, prompt_len=LM_PROMPT_LEN,
-                     gen_len=LM_GEN_LEN, batch=LM_BATCH, seed=seed,
-                     stats=stats)
+        if depth is None:
+            toks = serve(arch, smoke=False, prompt_len=LM_PROMPT_LEN,
+                         gen_len=LM_GEN_LEN, batch=LM_BATCH, seed=seed,
+                         stats=stats)
+        else:       # serve's own steps on the cut config
+            mb, model = build_model(cfg, dev, seed=seed)
+            toks = generate(mb, model, draw_prompts(
+                cfg, LM_BATCH, LM_PROMPT_LEN, seed, dev), LM_GEN_LEN,
+                stats=stats)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         counts[arch] = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        kernel = kernel_of[cfg.family]
-        if counts[arch][kernel] != cfg.num_layers:
-            raise AssertionError(f"{arch}: {counts[arch][kernel]} {kernel} "
-                                 f"launches, want one per layer "
-                                 f"({cfg.num_layers}) of the prefill")
+        _expect_launches(arch, counts[arch], cfg, 1, "flash_attention_tc",
+                         "ssd_tc")
         if toks.shape != (LM_BATCH, LM_GEN_LEN) or int(toks.min()) < 0 \
                 or int(toks.max()) >= cfg.vocab_size:
             raise AssertionError(f"{arch}: tokens {tuple(toks.shape)} out of "
                                  f"shape or range")
-        mb, model = build_model(cfg, dev, seed=seed)
+        if depth is None:
+            mb, model = build_model(cfg, dev, seed=seed)
         n_params = sum(p.numel() for p in model.parameters())
         prompts = draw_prompts(cfg, LM_BATCH, LM_PROMPT_LEN, seed, dev)
         warm, same = [], True
-        for _ in range(LM_WARM_RUNS):
+        for _ in range(warm_runs):
             st = {}
             same &= torch.equal(generate(mb, model, prompts, LM_GEN_LEN,
                                          stats=st), toks)
@@ -3007,41 +3222,62 @@ def phase_lm(dev, seed):
         steps = LM_GEN_LEN - 1
         log(f"lm {arch}: {cfg.num_layers} layers, {n_params:,} params, "
             f"{LM_BATCH} x {LM_PROMPT_LEN} prompt -> {LM_BATCH} x "
-            f"{LM_GEN_LEN} greedy tokens; first run (serve, weights drawn on "
-            f"the card) {first * 1e3:.1f} ms: prefill "
+            f"{LM_GEN_LEN} greedy tokens; first run ("
+            f"{'serve' if depth is None else 'build_model + generate'}, "
+            f"weights drawn on the card) {first * 1e3:.1f} ms: prefill "
             f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
             f"{stats['decode_s'] * 1e3 / steps:.3f} ms/token; warm median "
-            f"of {LM_WARM_RUNS}: prefill {med['prefill_s'] * 1e3:.3f} ms, "
+            f"of {warm_runs}: prefill {med['prefill_s'] * 1e3:.3f} ms, "
             f"decode {med['decode_s'] * 1e3 / steps:.3f} ms/token, "
             f"{LM_BATCH * LM_GEN_LEN / (med['prefill_s'] + med['decode_s']):.1f}"
             f" tok/s (prefill + decode), decode alone "
             f"{LM_BATCH * steps / med['decode_s']:.1f} tok/s; warm tokens "
             f"{'equal' if same else 'DIFFER from'} the first run's; peak "
             f"device memory {peak / 2 ** 30:.2f} GiB; launches {counts[arch]}")
-        log("    " + profile_once(lambda: generate(mb, model, prompts,
-                                                   LM_GEN_LEN)))
+        t_warm = time.perf_counter()
+        log(f"    prefill + {LM_PROFILE_TOKENS - 1} decode steps "
+            + profile_once(lambda: generate(mb, model, prompts,
+                                            LM_PROFILE_TOKENS)))
+        t_prof = time.perf_counter()
+        if cfg.family == "vlm":
+            # the served depth with its patch embeddings spliced in
+            ve, pos = _vlm_inputs(cfg, LM_BATCH, LM_PROMPT_LEN, dev, seed + 2)
+            with torch.inference_mode():
+                lg, _ = mb.prefill_fn(model, prompts, registry.make_cache(
+                    cfg, LM_BATCH, LM_PROMPT_LEN, dev), vision_embeds=ve,
+                    positions=pos)
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{arch}: non-finite logits with patch "
+                                     "embeddings")
+            log(f"    prefill with {cfg.n_vision_patches} patch embeddings "
+                f"and (t, h, w) positions at {cfg.num_layers} layers: finite "
+                "logits")
         # the identity prefill(S) == prefill(S - 1) + decode(1), in the
         # served bf16 (beside the rounding noise of the same prompt served
         # alone rather than in the batch) and sharply on an f32 copy
-        full, step = _teacher_forced(mb, model, prompts)
+        full, step = _teacher_forced(mb, model, prompts, **kw)
         with torch.inference_mode():
             alone, _ = mb.prefill_fn(model, prompts[:1], registry.make_cache(
-                cfg, 1, LM_PROMPT_LEN, dev))
+                cfg, 1, LM_PROMPT_LEN, dev), **kw)
         noise = float((alone[0] - full[0]).abs().max())
         err, scale = float((full - step).abs().max()), float(full.abs().max())
         if not err <= TF_TOL * scale:
             raise AssertionError(f"{arch}: teacher-forced decode differs from "
                                  f"the prefill by {err} > {TF_TOL} x {scale}")
+        f32_depth = LM_F32_DEPTH.get(arch)
+        if f32_depth is not None:
+            # the same seed draws the same first layers
+            del model
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(cfg, num_layers=f32_depth)
+            mb, model = build_model(cfg, dev, seed=seed)
         model.float()
         _build.reset_launches()
-        full, step = _teacher_forced(mb, model, prompts[:1])
-        counts[f"{arch} f32 check"] = dict(_build.LAUNCHES)
-        kernel32 = kernel_of_f32[cfg.family]
-        if counts[f"{arch} f32 check"][kernel32] != 2 * cfg.num_layers:
-            raise AssertionError(f"{arch} (f32): "
-                                 f"{counts[f'{arch} f32 check']} launches, "
-                                 f"want one {kernel32} per layer of each of "
-                                 "the two prefills")
+        full, step = _teacher_forced(mb, model, prompts[:1], **kw)
+        label = f"{arch} f32 check"
+        counts[label] = dict(_build.LAUNCHES)
+        _expect_launches(label, counts[label], cfg, 2, "flash_attention_f32",
+                         "ssd")
         err32 = float((full - step).abs().max())
         scale32 = float(full.abs().max())
         if not err32 <= TF_TOL_F32 * scale32:
@@ -3049,40 +3285,28 @@ def phase_lm(dev, seed):
                                  f"from the prefill by {err32} > {TF_TOL_F32}"
                                  f" x {scale32}")
         log(f"    teacher-forced {LM_PROMPT_LEN - 1} + 1 tokens vs the "
-            f"{LM_PROMPT_LEN}-token prefill, last logits: bf16 max abs diff "
+            f"{LM_PROMPT_LEN}-token prefill, last logits"
+            + (f" (capacity factor {kw['capacity_factor']:g}: nothing drops)"
+               if kw else "") + f": bf16 max abs diff "
             f"{err:.4e} (max |logit| {scale:.4f}, bound {TF_TOL} x; the first "
             f"prompt served alone vs in the batch of {LM_BATCH}: {noise:.4e})"
-            f"; f32 copy, 1 prompt: {err32:.4e} (max |logit| {scale32:.4f}, "
+            f"; f32 copy"
+            + (f" at {f32_depth} layers (the served depth's is too large)"
+               if f32_depth else "")
+            + f", 1 prompt: {err32:.4e} (max |logit| {scale32:.4f}, "
             f"bound {TF_TOL_F32} x); no NaN")
         del model, toks
         torch.cuda.empty_cache()
+        t_end = time.perf_counter()
+        log(f"    {arch} took {t_end - t0:.1f} s: first run and warm runs "
+            f"{t_warm - t0:.1f}, profile {t_prof - t_warm:.1f}, checks "
+            f"{t_end - t_prof:.1f}")
 
-    # the card's path against the CPU's plain path, same weights
     for arch in LM_ARCHS:
-        cfg = dataclasses.replace(get_arch(arch), num_layers=2)
-        mb, card = build_model(cfg, dev, seed=seed)
-        sd = {k: v.cpu() for k, v in card.state_dict().items()}
-        _, cpu = build_model(cfg, torch.device("cpu"), state_dict=sd)
-        prompt = draw_prompts(cfg, 1, LM_CHECK_LEN, seed, dev)
-        out = {}
         t0 = time.perf_counter()
-        for where, model, p in (("card", card, prompt),
-                                ("cpu", cpu, prompt.cpu())):
-            with torch.inference_mode():
-                caches = registry.make_cache(cfg, 1, LM_CHECK_LEN, p.device)
-                out[where] = mb.prefill_fn(model, p, caches)[0].cpu()
-        err = float((out["card"] - out["cpu"]).abs().max())
-        scale = float(out["cpu"].abs().max())
-        if not err <= CARD_CPU_TOL * scale:
-            raise AssertionError(f"{arch} (2 layers): card logits differ from "
-                                 f"the CPU's by {err} > {CARD_CPU_TOL} x "
-                                 f"{scale}")
-        log(f"lm {arch}, 2 layers at full width, 1 x {LM_CHECK_LEN} prompt: "
-            f"card vs CPU last logits max abs diff {err:.4e} (max |logit| "
-            f"{scale:.4f}, bound {CARD_CPU_TOL} x) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        del card, cpu, sd
-        torch.cuda.empty_cache()
+        _card_vs_cpu(dev, arch, seed)
+        log(f"    {arch} card vs CPU took {time.perf_counter() - t0:.1f} s")
+    log(f"lm: phase took {time.perf_counter() - t_phase:.2f} s")
     return counts
 
 
@@ -3147,11 +3371,11 @@ def main(argv=None) -> int:
            "probe_multi_sampled": "probe_multi_sampled",
            "sgd": "sgd", "sgd_split": "sgd_split",
            "sgd_split_news20": "sgd_split",
-           "stream_copy": "stream_copy", "ssd": "ssd", "ssd_tc": "ssd_tc"}
+           "stream_copy": "stream_copy"}
     for row in rows:
-        # a row that a phase counted itself keeps its own count; a B7 row
-        # names its route's counter and reports the launches of the LM run
-        # at its shape
+        # a row that a phase counted itself keeps its own count; a B7 or
+        # B8 row names its route's counter and reports the launches of the
+        # LM run at its shape
         counter = row.pop("counter", None) or key[row["name"]]
         if "counted_in" in row:
             row["launches"] = lm_counts[row.pop("counted_in")][counter]

@@ -74,7 +74,10 @@ def lm_params_from_arrays(cfg, tree: Mapping) -> dict:
     """The reference's LM params (``jax.tree.map(np.asarray, params)``) as
     the port's ``Transformer`` state_dict.  The reference stacks each
     superblock position's params over superblocks; layer ``i`` of the port
-    is superblock ``i // P`` at position ``i % P``."""
+    is superblock ``i // P`` at position ``i % P`` (jamba's positions mix
+    ``attn`` or ``ssm`` with ``ffn`` or ``moe`` over its period of 8).
+    Nested leaves keep their path (``moe.shared.w_in``) and every leaf
+    its type (the MoE router stays f32)."""
     from repro_torch.models.transformer import _period
     p = _period(cfg)
     out = {k: _param_tensor(tree[k])

@@ -1,5 +1,5 @@
-"""Shared model primitives: the init rule, norms, RoPE, logits over a
-padded vocab, and the gated and plain MLPs.
+"""Shared model primitives: the init rule, norms, RoPE and M-RoPE, logits
+over a padded vocab, and the gated and plain MLPs.
 
 Matmuls run in the param dtype (bf16); norms, RoPE angles, softmax and
 logits accumulate in f32, as in the reference (``repro.models.common``).
@@ -73,7 +73,7 @@ def apply_norm(cfg, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# RoPE (standard and partial)
+# RoPE (standard, partial, and qwen2-vl's M-RoPE)
 # --------------------------------------------------------------------------- #
 
 def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
@@ -85,18 +85,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                rotary_pct: float = 1.0,
                mrope_sections: Optional[tuple[int, int, int]] = None
                ) -> torch.Tensor:
-    """x (B, S, H, D); positions (B, S) integers.  The first
-    ``rotary_pct`` of each head rotates (rotate-half form), the rest passes
-    through."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: ROADMAP A11")
+    """x (B, S, H, D); positions (B, S) integers, or (B, S, 3) for M-RoPE.
+    The first ``rotary_pct`` of each head rotates (rotate-half form), the
+    rest passes through.  With ``mrope_sections`` (t, h, w) each frequency
+    index takes the position component its section names, in order;
+    without them a (B, S, 3) position rotates by its component 0."""
     d = x.shape[-1]
     rot = int(d * rotary_pct)
     rot -= rot % 2
     half = rot // 2
     freqs = _rope_freqs(rot, theta, x.device)
-    angles = positions.float()[..., None] * freqs          # (B, S, half)
+    if mrope_sections is not None:
+        if positions.dim() != 3 or sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE needs (B, S, 3) positions and sections "
+                             f"summing to {half}, got positions "
+                             f"{tuple(positions.shape)}, {mrope_sections}")
+        # each section's component widened to its frequencies: slices of
+        # the positions, with no host copy and no read of a device size
+        pos = positions.float()
+        angles = torch.cat([pos[..., j:j + 1].expand(*pos.shape[:-1], n)
+                            for j, n in enumerate(mrope_sections)],
+                           -1) * freqs
+    else:
+        if positions.dim() == 3:
+            positions = positions[..., 0]
+        angles = positions.float()[..., None] * freqs      # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1 = x[..., :half].float()

@@ -1,0 +1,120 @@
+"""Mixture-of-Experts layer with GShard-style capacity dispatch, for serving.
+
+The reference (``repro.models.moe``) computes the routing, the dispatch,
+the expert products and the combine in plain jnp, outside any kernel; the
+port computes them in plain torch, the expert products as batched matmuls
+over the experts.  As in the reference, dispatch is per batch row: an
+assignment's position in its expert is its rank among the row's
+assignments to that expert, in the order of the row's (S * k) flattened
+ids, and an assignment at or past the capacity ``c`` is dropped (its gate
+is zeroed).  Kept assignments are copied into one (E, B, C) slot buffer
+whose spare last row takes every dropped one, the experts' gated FFN runs
+over all slots, and each token sums its kept slots' outputs times their
+gates in the activation type.  One device holds every expert, so the
+reference's padded experts never arise (``padded_experts(1)`` is the
+expert count).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import MLP, _act, param
+
+
+def capacity(cfg: ArchConfig, seq: int,
+             capacity_factor: Optional[float] = None) -> int:
+    """Slots per expert and batch row for ``seq`` tokens: the reference's
+    rule, capacity factor 1.0 for a top-1 router and 1.25 otherwise, and
+    ``c = max(ceil(cf * seq * k / E), 1)``."""
+    if capacity_factor is None:
+        capacity_factor = 1.0 if cfg.top_k == 1 else 1.25
+    c = int(-(-capacity_factor * seq * cfg.top_k // cfg.n_experts))
+    return max(c, 1)
+
+
+def aux_loss(probs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The Switch / GShard load-balance loss of a routing (``MoE.route``'s
+    probs (B, S, E) and ids (B, S, k)), from per-row assignment counts: the
+    f32 scalar the reference's ``moe_apply`` returns beside y for its
+    trainer.  Serving never reads it, so ``MoE.forward`` does not compute
+    it."""
+    b, s, k = ids.shape
+    e = probs.shape[-1]
+    counts = torch.zeros(b, e, dtype=torch.float32, device=probs.device)
+    counts.scatter_add_(1, ids.reshape(b, s * k),
+                        torch.ones(b, s * k, device=probs.device))
+    return e * torch.sum(counts.mean(0) / s * probs.mean((0, 1)))
+
+
+def positions_in_expert(ids: torch.Tensor) -> torch.Tensor:
+    """ids (B, S, k) -> each assignment's rank among the assignments of its
+    row to the same expert, in the row's flattened (s, k) order: a stable
+    sort of the row's ids, then each index less the start of its run."""
+    b, s, k = ids.shape
+    flat = ids.reshape(b, s * k)
+    sorted_e, order = torch.sort(flat, dim=-1, stable=True)
+    idx = torch.arange(s * k, device=ids.device).expand(b, s * k)
+    is_start = torch.ones_like(flat, dtype=torch.bool)
+    is_start[:, 1:] = sorted_e[:, 1:] != sorted_e[:, :-1]
+    run_start = torch.cummax(torch.where(is_start, idx, 0), dim=-1).values
+    pos = torch.empty_like(flat).scatter_(1, order, idx - run_start)
+    return pos.reshape(b, s, k)
+
+
+class MoE(nn.Module):
+    """Top-k routed experts (gated FFNs of width ``moe_d_ff``) and, where
+    the config has them, shared experts; weights in the reference's layout:
+    router (d, E) in f32, w_in (E, d, 2, f), w_down (E, f, d)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        self.router = param(d, e, dtype=torch.float32, device=device)
+        self.w_in = param(e, d, 2, f, device=device)
+        self.w_down = param(e, f, d, device=device)
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, cfg.n_shared_experts * cfg.moe_d_ff, device)
+
+    def route(self, x: torch.Tensor):
+        """x (B, S, d) -> (probs (B, S, E) f32, gate (B, S, k) f32
+        renormalised over the top k, ids (B, S, k) in descending order of
+        probability)."""
+        probs = torch.softmax(x.float() @ self.router, dim=-1)
+        gate, ids = torch.topk(probs, self.cfg.top_k, dim=-1)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        return probs, gate, ids
+
+    def forward(self, x: torch.Tensor, *,
+                capacity_factor: Optional[float] = None):
+        """x (B, S, d) -> y (B, S, d) in x's type."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        e, k, f = cfg.n_experts, cfg.top_k, cfg.moe_d_ff
+        c = capacity(cfg, s, capacity_factor)
+        _, gate, ids = self.route(x)
+        pos = positions_in_expert(ids)
+        keep = pos < c
+        bi = torch.arange(b, device=x.device)[:, None, None]
+        # slot (expert, row, position) of a kept assignment; the spare slot
+        # e * b * c takes the dropped ones and stays out of the products
+        slot = torch.where(keep, (ids * b + bi) * c + pos, e * b * c)
+        buf = x.new_zeros(e * b * c + 1, d)
+        buf[slot.reshape(-1)] = x.unsqueeze(2).expand(b, s, k, d).reshape(
+            -1, d)
+        gu = torch.bmm(buf[:-1].view(e, b * c, d),
+                       self.w_in.reshape(e, d, 2 * f)).unflatten(-1, (2, f))
+        h = _act(cfg, gu[..., 0, :]) * gu[..., 1, :]
+        # the expert outputs, and a zero row where the dropped slots read
+        out = x.new_zeros(e * b * c + 1, d)
+        torch.bmm(h, self.w_down, out=out[:-1].view(e, b * c, d))
+        # combine: each token's kept outputs times their gates (zero where
+        # dropped) in x's type, summed over its k assignments
+        y = (out[slot] * (gate * keep).to(x.dtype)[..., None]).sum(2)
+        if cfg.n_shared_experts:
+            y = y + self.shared(x)
+        return y

@@ -20,7 +20,8 @@ from repro_torch.models import transformer
 class ModelBundle:
     cfg: ArchConfig
     build: Callable           # (device) -> Transformer, weights uninitialised
-    prefill_fn: Callable      # (model, tokens, caches) -> (logits, caches)
+    prefill_fn: Callable      # (model, tokens, caches, *, vision_embeds,
+                              #  positions) -> (logits, caches)
     decode_fn: Callable       # (model, tokens, pos, caches) -> (logits, caches)
 
 

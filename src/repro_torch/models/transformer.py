@@ -1,11 +1,20 @@
-"""Decoder-only LM for serving, for the ``dense`` and ``ssm`` families.
+"""Decoder-only LM for serving: the dense, moe, hybrid, ssm and vlm
+families.
 
 The reference stacks each superblock position's params and scans over
 them (``repro.models.transformer``); one H100 runs the layers from an
 ``nn.ModuleList`` in a Python loop instead, so layer ``i`` is the
 reference's superblock ``i // P`` at position ``i % P`` (``_period``).
-Caches are a list with one entry per layer: a ``KVCache`` for an
-attention layer, an ``SSMCache`` for an SSM layer.
+Layer ``i`` mixes with attention where ``cfg.layer_is_attn(i)`` and with
+Mamba-2 elsewhere, then (outside the SSM family) runs the MoE where
+``cfg.layer_is_moe(i)`` and the MLP elsewhere: jamba's schedule over its
+period of 8.  Caches are a list with one entry per layer: a ``KVCache``
+for an attention layer, an ``SSMCache`` for an SSM layer.  The vlm
+family takes precomputed patch embeddings over the first positions of
+every row and M-RoPE (t, h, w) positions; the attention kernel masks by
+index, so explicit positions must rise along each row (their t component
+under M-RoPE), which makes the reference's positional mask the index
+mask.
 """
 from __future__ import annotations
 
@@ -21,21 +30,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention, KVCache, init_cache
 from repro_torch.models.common import MLP, apply_norm, logits_fn, param
 from repro_torch.models.mamba import Mamba, SSMCache, init_ssm_cache_spec
+from repro_torch.models.moe import MoE
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
 Cache = Union[KVCache, SSMCache]
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """The port serves the dense and SSM families; every other one raises
-    rather than running a substitute."""
-    if cfg.family not in FAMILIES or cfg.is_enc_dec or cfg.n_experts \
-            or cfg.mrope_sections is not None:
+    """The port serves the decoder-only families; the encoder-decoder one
+    (whisper) raises rather than running a substitute."""
+    if cfg.family not in FAMILIES or cfg.is_enc_dec:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: the port serves "
-            f"the {' and '.join(FAMILIES)} families; MoE, hybrid, VLM and "
-            "encoder-decoder models wait for ROADMAP A11")
+            f"the {', '.join(FAMILIES)} families; the encoder-decoder audio "
+            "family (whisper) waits for ROADMAP A11")
 
 
 def _period(cfg: ArchConfig) -> int:
@@ -50,7 +59,7 @@ def _period(cfg: ArchConfig) -> int:
 
 class Block(nn.Module):
     """Pre-norm residual layer: attention or Mamba-2, then (outside the
-    SSM family) the MLP."""
+    SSM family) the MoE or the MLP."""
 
     def __init__(self, cfg: ArchConfig, i: int, device=None):
         super().__init__()
@@ -62,10 +71,15 @@ class Block(nn.Module):
             self.ssm = Mamba(cfg, device)
         if cfg.family != "ssm":
             self.norm2 = param(cfg.d_model, device=device)
-            self.ffn = MLP(cfg, cfg.d_ff, device)
+            if cfg.layer_is_moe(i):
+                self.moe = MoE(cfg, device)
+            else:
+                self.ffn = MLP(cfg, cfg.d_ff, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[Cache]):
+                cache: Optional[Cache], *,
+                capacity_factor: Optional[float] = None):
+        """Returns (x, the advanced cache)."""
         h = apply_norm(self.cfg, x, self.norm1)
         if hasattr(self, "attn"):
             mix, new_c = self.attn(h, positions, cache=cache)
@@ -73,8 +87,21 @@ class Block(nn.Module):
             mix, new_c = self.ssm(h, cache=cache)
         x = x + mix
         if self.cfg.family != "ssm":
-            x = x + self.ffn(apply_norm(self.cfg, x, self.norm2))
+            h = apply_norm(self.cfg, x, self.norm2)
+            if hasattr(self, "moe"):
+                y = self.moe(h, capacity_factor=capacity_factor)
+            else:
+                y = self.ffn(h)
+            x = x + y
         return x, new_c
+
+
+def _check_rising(positions: torch.Tensor) -> None:
+    t = positions[..., 0] if positions.dim() == 3 else positions
+    if t.shape[1] > 1 and not bool((t[:, 1:] > t[:, :-1]).all()):
+        raise NotImplementedError(
+            "positions must rise along each row: the attention kernel masks "
+            "by index, which is the reference's positional mask only then")
 
 
 class Transformer(nn.Module):
@@ -98,36 +125,55 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
-                caches: Optional[List[Cache]] = None, cache_pos: int = 0):
-        """tokens (B, S) -> (x_final (B, S, d_model), new caches or None)."""
+                caches: Optional[List[Cache]] = None, cache_pos: int = 0,
+                vision_embeds: Optional[torch.Tensor] = None,
+                capacity_factor: Optional[float] = None):
+        """tokens (B, S) -> (x_final (B, S, d_model), new caches or None).
+        ``vision_embeds``
+        (B, P, d_model) replace the first P positions' embeddings.  The
+        positions default to ``cache_pos`` onwards, as (B, S, 3) copies
+        under M-RoPE.  ``capacity_factor`` reaches every MoE layer."""
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed)
+        if vision_embeds is not None:
+            x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
         if positions is None:
             positions = (torch.arange(s, device=tokens.device)
                          + cache_pos).expand(b, s)
+            if self.cfg.mrope_sections is not None:
+                positions = positions[..., None].expand(b, s, 3)
+        else:
+            _check_rising(positions)
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             c = caches[i] if caches is not None else None
             if isinstance(c, KVCache):          # written from cache_pos on
                 c = dataclasses.replace(c, pos=cache_pos)
-            x, c = layer(x, positions, c)
+            x, c = layer(x, positions, c, capacity_factor=capacity_factor)
             if caches is not None:
                 new_caches.append(c)
         return apply_norm(self.cfg, x, self.final_norm), new_caches
 
 
 def prefill_fn(model: Transformer, tokens: torch.Tensor,
-               caches: List[Cache]):
-    """Populate the caches from a whole prompt (B, S); return the last
+               caches: List[Cache], *,
+               vision_embeds: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None,
+               capacity_factor: Optional[float] = None):
+    """Populate the caches from a whole prompt (B, S), with the reference
+    batch's optional ``vision_embeds`` and ``positions``; return the last
     token's f32 logits (B, 1, padded vocab) and the caches."""
-    x, new_caches = model(tokens, caches=caches, cache_pos=0)
+    x, new_caches = model(tokens, caches=caches, cache_pos=0,
+                          vision_embeds=vision_embeds, positions=positions,
+                          capacity_factor=capacity_factor)
     return model.logits(x[:, -1:]), new_caches
 
 
 def decode_fn(model: Transformer, tokens: torch.Tensor, pos: int,
               caches: List[Cache]):
     """One step: tokens (B, 1) at position ``pos`` -> (logits (B, 1,
-    padded vocab) f32, caches)."""
+    padded vocab) f32, caches).  A one-token step never drops an MoE
+    assignment: its capacity is at least 1 and its k experts differ."""
     x, new_caches = model(tokens, caches=caches, cache_pos=pos)
     return model.logits(x), new_caches
 

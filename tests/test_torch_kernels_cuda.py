@@ -67,6 +67,8 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
 LM_TOL = 2e-2
+MOE_MARGIN = 1e-6
+MOE_TOL = 1e-4
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -937,6 +939,27 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
                            v)
 
 
+@pytest.mark.parametrize("h,kvh,d", [(24, 8, 64), (40, 8, 128),
+                                     (28, 4, 128), (32, 8, 128)],
+                         ids=["granite-moe", "llama4-scout", "qwen2-vl",
+                              "jamba"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_at_the_moe_hybrid_and_vlm_heads(cuda, h, kvh, d,
+                                                        dtype):
+    """The served families' head counts: granite-moe's D 64 with GQA 3,
+    llama4-scout's GQA 5, qwen2-vl's GQA 7 and jamba's GQA 4, causal over
+    300 tokens (a ragged q tile), on each type's route."""
+    q, k, v = _qkv(cuda, 2, 300, h, kvh, d, dtype, seed=h + kvh)
+    counter = fa.COUNTER[fa.route(dtype, d)]
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(q, k, v)
+    want = fa_ref.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == counter) for k in before}
+
+
 @pytest.mark.parametrize("s", [1, 129])
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
@@ -1126,6 +1149,23 @@ def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
     args = _ssd_inputs(cuda, 1, 64, 2, 64, 1, 64, torch.float16)
     with pytest.raises(TypeError):
         ssd_kernels.ssd_scan(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_jamba_widths(cuda, dtype):
+    """jamba's Mamba layers: 128 heads of 64, one group, a state of 16
+    (bf16 takes the tensor cores, f32 the CUDA cores), a ragged chunk."""
+    args = _ssd_inputs(cuda, 2, 300, 128, 64, 1, 16, dtype, seed=16)
+    counter = ssd_kernels.COUNTER[ssd_kernels.route(dtype, 64, 16)]
+    assert counter == ("ssd" if dtype == torch.float32 else "ssd_tc")
+    before = dict(_build.LAUNCHES)
+    y, h = ssd_kernels.ssd_scan(*args)
+    assert _ssd_counts(before) == {k: int(k == counter) for k in before}
+    y_p, h_p = ssd_ref.ssd_plain(*args)
+    torch.cuda.synchronize()
+    y_tol = SSD_TOL if dtype == torch.float32 else SSD_BF16_TOL
+    torch.testing.assert_close(y.float(), y_p.float(), **y_tol)
+    torch.testing.assert_close(h, h_p, **SSD_TOL)
 
 
 # ---- the LM path ----------------------------------------------------------- #
@@ -1353,3 +1393,48 @@ def test_sharded_executor_on_the_card_equals_the_cpu(cuda):
     want = cpu.execute(proj, mode="eager").value
     for c in ("w", "x"):
         _same(got.column(c), want.column(c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_the_card_equals_the_cpu(cuda, dtype):
+    """granite-moe's MoE layer at full width (40 experts, top 8) over one
+    batch row of 512 tokens, on the card and on the CPU from the same
+    weights and input.  Routing rule: the card's experts equal the CPU's
+    wherever the CPU's boundary gap (k-th less (k+1)-th probability)
+    exceeds ``MOE_MARGIN``; the row is compared when every routing
+    decision agrees (printed), y within ``MOE_TOL`` of its largest
+    magnitude in f32 and ``LM_TOL`` in bf16."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import MoE, aux_loss
+    cfg = get_arch("granite-moe-3b-a800m")
+    cpu = MoE(cfg)
+    init_params(cpu, torch.Generator().manual_seed(7))
+    card = MoE(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    if dtype == torch.float32:          # the experts' weights are bf16
+        cpu.float(), card.float()
+    x = torch.randn(1, 512, cfg.d_model,
+                    generator=torch.Generator().manual_seed(8)).to(dtype)
+    out = {}
+    with torch.inference_mode():
+        for where, mod in (("cpu", cpu), ("card", card)):
+            xx = x.to(next(mod.parameters()).device)
+            probs, _, ids = mod.route(xx)
+            y, aux = mod(xx), aux_loss(probs, ids)
+            out[where] = (probs.cpu(), ids.cpu(), y.float().cpu(),
+                          float(aux))
+    probs, ids_cpu = out["cpu"][:2]
+    k = cfg.top_k
+    top = probs.sort(-1, descending=True).values
+    clear = (top[..., k - 1] - top[..., k]) > MOE_MARGIN
+    same = (ids_cpu.sort(-1).values == out["card"][1].sort(-1).values).all(-1)
+    assert bool(same[clear].all())
+    print(f"{int((~clear).sum())} of {clear.numel()} decisions within "
+          f"{MOE_MARGIN}; {int((~same).sum())} differ")
+    assert bool(same.all()), "the one row's routing differs: no row to compare"
+    tol = MOE_TOL if dtype == torch.float32 else LM_TOL
+    y_cpu, y_card = out["cpu"][2], out["card"][2]
+    assert float((y_card - y_cpu).abs().max()) <= tol * float(
+        y_cpu.abs().max())
+    assert abs(out["card"][3] - out["cpu"][3]) <= 1e-5 * out["cpu"][3]

@@ -307,9 +307,7 @@ def test_serve_cli_turns_smoke_off(monkeypatch):
     assert seen["smoke"] is True and seen["device"] is None
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-moe-3b-a800m",
-                                  "qwen2-vl-7b", "whisper-large-v3",
-                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3"])
 def test_families_outside_the_slice_raise(arch):
     cfg = smoke_config(get_arch(arch))
     with pytest.raises(NotImplementedError, match="A11"):

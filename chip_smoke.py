@@ -171,7 +171,7 @@ Phases, each of which must pass or the script exits non-zero:
    launch per attention layer and one SSD tensor-core launch per Mamba
    layer of the prefill (the f32 check below launches the f32 route of
    each, once per such layer of each of its two prefills).  qwen2-vl
-   also prefills with its 256 patch embeddings and distinct (t, h, w)
+   also prefills with its 256 patch embeddings and Qwen2-VL's (t, h, w)
    positions.  Path
    checks: no NaN; a teacher-forced prefill of 1,999 tokens plus one
    decode step equals the 2,000-token prefill's last logits within
@@ -185,7 +185,19 @@ Phases, each of which must pass or the script exits non-zero:
    boundary gap exceeds ``LM_ROUTE_MARGIN`` and the rows that route alike
    compared (jamba's 2 layers pair attention with its FFN and Mamba with
    its MoE, as its schedule does); qwen2-vl with its patch embeddings and
-   (t, h, w) positions.
+   (t, h, w) positions.  qwen2-vl's patch prompts take Qwen2-VL's own
+   layout (the 256 patches of a 16 x 16 grid share t, the text resumes
+   at the grid's side), so their attention masks by position: one launch
+   a layer, each so masked, in the served bf16 model and its f32 copy.
+   whisper-large-v3 (32 encoder and 32 decoder layers, 1.55 B
+   parameters) through ``serve`` at full width and depth: 4 x 1,500
+   frames, 4 x 416-token prompts and 32 greedy tokens (448 decoder
+   positions, its published context), B7 launched 96 times a prefill (32
+   encoder layers non-causal, 32 causal decoder self-attentions, 32
+   cross-attentions over the frames), the same path checks (the
+   card-vs-CPU one at 2 encoder and 2 decoder layers over 416 tokens).
+   B7 is also timed at whisper's three shapes and masked by position at
+   qwen2-vl's.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -239,8 +251,12 @@ MIB = 1 << 20
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
 LM_ARCHS = ("llama3-8b", "stablelm-3b", "mamba2-780m",
             "granite-moe-3b-a800m", "qwen2-vl-7b", "llama4-scout-17b-a16e",
-            "jamba-v0.1-52b")
+            "jamba-v0.1-52b", "whisper-large-v3")
 LM_BATCH, LM_PROMPT_LEN, LM_GEN_LEN = 4, 2_000, 32
+# whisper's decoder context is 448 positions (its published
+# max_target_positions): a 416-token prompt and 32 greedy tokens fill it,
+# against its 1,500 frames (30 s of audio)
+LM_PROMPT_LEN_OF = {"whisper-large-v3": 416}
 LM_WARM_RUNS = 3
 # the profiled run generates 8 tokens (a prefill and 7 decode steps): the
 # profiler's own bookkeeping of a 32-token run took 67-86 s a model
@@ -2798,14 +2814,17 @@ def phase_lm_kernels(dev):
     """B7's two routes at the shapes the LM path runs them at (bf16 at
     every served prefill: llama3-8b's, stablelm-3b's, granite-moe's D 64
     with GQA 3, llama4-scout's GQA 5, qwen2-vl's GQA 7, jamba's GQA 4; f32
-    at every model's f32 check, a batch of one) and B8's two at the
-    mamba2-780m ones and at jamba's (ds 16, 128 heads): the served bf16
-    prefill and the f32 check's batch of one, against their plain
-    versions, timed (B8 also pass by pass).  Returns the sixteen JSON
-    rows; a row's
-    ``counted_in`` names the run of ``phase_lm`` whose launches it
-    reports, and its ``counter`` the counter of the route its inputs
-    take."""
+    at every model's f32 check, a batch of one; masked by position at
+    qwen2-vl's patch prefills, its 256 patches at one t, in both types;
+    whisper's encoder (non-causal over 1,500 frames), decoder
+    self-attention (causal over 416 tokens) and cross-attention (416
+    queries over the 1,500 frames) in bf16 at batch 4 and f32 at batch 1)
+    and B8's two at the mamba2-780m ones and at jamba's (ds 16, 128
+    heads): the served bf16 prefill and the f32 check's batch of one,
+    against their plain versions, timed (B8 also pass by pass).  Returns
+    the 24 JSON rows; a row's ``counted_in`` names the run of
+    ``phase_lm`` whose launches it reports, and its ``counter`` the
+    counter of the route its inputs take."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -2824,6 +2843,103 @@ def phase_lm_kernels(dev):
 
     s = LM_PROMPT_LEN
     rows = []
+
+    def b7_row(name, arch, q, k, v, counted_in, causal=True, q_pos=None,
+               k_pos=None, kind=None):
+        """One B7 row: the kernel against its plain version, timed beside
+        its bound and SDPA on the same inputs (``is_causal``, or the
+        position mask as a boolean mask), misaligned views equal to the
+        aligned launch.  A row with a ``kind`` reports the launches of
+        that kind of attention (``AttentionKinds``) in its run, else the
+        route's."""
+        dtype = q.dtype
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        if q_pos is not None:           # the pairs this data keeps
+            kept = torch.searchsorted(k_pos.sort(-1).values, q_pos,
+                                      right=True)
+            pairs = h * int(kept.sum())
+            mask = "position mask"
+        elif causal:                    # the causal half, i >= j
+            pairs = b * h * sq * (sq + 1) // 2
+            mask = "causal"
+        else:
+            pairs = b * h * sq * sk
+            mask = "non-causal"
+        kw = dict(causal=causal, q_pos=q_pos, k_pos=k_pos)
+        tname = str(dtype).split(".")[-1]
+        rt = fa.route(dtype, d)
+        want = fa_ref.attention_plain(q, k, v, **kw)
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= ATTN_TOL[tname]:
+            raise AssertionError(f"{name} ({tname}): kernel differs from its "
+                                 f"plain version by {err} > "
+                                 f"{ATTN_TOL[tname]}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_kw = dict(is_causal=causal and q_pos is None)
+        if q_pos is not None:
+            sdpa_kw["attn_mask"] = (q_pos[:, None, :, None]
+                                    >= k_pos[:, None, None, :])
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, enable_gqa=kvh != h, **sdpa_kw)
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        del got, want
+        size = q.element_size()
+        kernel = lambda: fa.flash_attention(q, k, v, **kw)     # noqa: E731
+        # q, k, v (and positions) read once and o written once; Q.K^T and
+        # P.V over the kept pairs, 2 operations a multiply-add, at the
+        # rate of the tensor cores' input type (bf16, or TF32 for the split
+        # f32 route: the function's own count, not the split's three
+        # products)
+        ops = 4 * d * pairs
+        pos_bytes = 0 if q_pos is None else 4 * (q_pos.numel()
+                                                 + k_pos.numel())
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+            max_abs_err=err, ms=time_ms(kernel, reps=10),
+            plain_ms=time_ms(lambda: fa_ref.attention_plain(q, k, v, **kw),
+                             reps=3, warmup=1),
+            library_ms=time_ms(library, reps=10),
+            bytes=size * (2 * q.numel() + k.numel() + v.numel()) + pos_bytes,
+            ops=ops, ops_type="bf16" if size == 2 else "tf32",
+            counted_in=counted_in, counter=fa.COUNTER[rt],
+            **({} if kind is None else {"kind": kind}),
+            shape=f"{arch}: q=({b}, {sq}, {h}, {d}), k, v=({b}, {sk}, {kvh}, "
+                  f"{d}) {tname}, {mask}, {rt} route"))
+        # each operand as a contiguous view one element past a 16-byte
+        # mark, which TMA cannot read in place: the wrapper copies it, so
+        # the output equals the aligned launch's bit for bit
+        aligned = fa.flash_attention(q, k, v, **kw)
+        for which in range(3):
+            ops_ = [q, k, v]
+            buf = torch.empty(ops_[which].numel() + 1, dtype=dtype,
+                              device=dev)
+            ops_[which] = buf[1:].view(ops_[which].shape)
+            ops_[which].copy_((q, k, v)[which])
+            if not torch.equal(fa.flash_attention(*ops_, **kw), aligned):
+                raise AssertionError(f"{name}: a misaligned {'qkv'[which]} "
+                                     "view changes the output")
+            del ops_, buf
+        del aligned
+        extra = (f"; misaligned q, k and v views ({size} bytes off) equal "
+                 "the aligned launch bit for bit")
+        if dtype == torch.float32:
+            extra += (f"; bound on the f32 CUDA cores "
+                      f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
+        if q_pos is not None:
+            extra += (f"; {pairs / (b * h * sq * sk):.1%} of the pairs kept, "
+                      "every kv tile loaded")
+        finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e} <= "
+                   f"{ATTN_TOL[tname]}; SDPA differs from the plain version "
+                   f"by {lib_err:.3e}{extra}")
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+
     # the served prefills run batch 4, the f32 checks batch 1
     for arch, dtype, b, name, counted_in in (
             ("llama3-8b", torch.bfloat16, LM_BATCH, "flash_attention_tc",
@@ -2854,70 +2970,44 @@ def phase_lm_kernels(dev):
              "jamba-v0.1-52b f32 check")):
         cfg = get_arch(arch)
         h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        pairs = b * h * s * (s + 1) // 2        # the causal half, i >= j
-        tname = str(dtype).split(".")[-1]
-        q, k, v = randn(b, s, h, d, dtype=dtype), \
-            randn(b, s, kvh, d, dtype=dtype), randn(b, s, kvh, d, dtype=dtype)
-        rt = fa.route(dtype, d)
-        want = fa_ref.attention_plain(q, k, v)
-        got = fa.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        if not err <= ATTN_TOL[tname]:
-            raise AssertionError(f"{name} ({tname}): kernel differs from its "
-                                 f"plain version by {err} > "
-                                 f"{ATTN_TOL[tname]}")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=kvh != h)
-        lib_err = float((library().transpose(1, 2).float()
-                         - want.float()).abs().max())
-        del got, want
-        size = q.element_size()
-        kernel = lambda: fa.flash_attention(q, k, v)     # noqa: E731
-        # q, k, v read once and o written once; Q.K^T and P.V over the
-        # causal half, 2 operations a multiply-add, at the rate of the
-        # tensor cores' input type (bf16, or TF32 for the split f32 route:
-        # the function's own count, not the split's three products)
-        ops = 4 * d * pairs
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
-            max_abs_err=err, ms=time_ms(kernel, reps=10),
-            plain_ms=time_ms(lambda: fa_ref.attention_plain(q, k, v), reps=3,
-                             warmup=1),
-            library_ms=time_ms(library, reps=10),
-            bytes=size * (2 * q.numel() + k.numel() + v.numel()),
-            ops=ops, ops_type="bf16" if size == 2 else "tf32",
-            counted_in=counted_in, counter=fa.COUNTER[rt],
-            shape=f"{arch}: q=({b}, {s}, {h}, {d}), k, v=({b}, {s}, {kvh}, "
-                  f"{d}) {tname}, causal, {rt} route"))
-        # each operand as a contiguous view one element past a 16-byte
-        # mark, which TMA cannot read in place: the wrapper copies it, so
-        # the output equals the aligned launch's bit for bit
-        aligned = fa.flash_attention(q, k, v)
-        for which in range(3):
-            ops_ = [q, k, v]
-            buf = torch.empty(ops_[which].numel() + 1, dtype=dtype,
-                              device=dev)
-            ops_[which] = buf[1:].view(ops_[which].shape)
-            ops_[which].copy_((q, k, v)[which])
-            if not torch.equal(fa.flash_attention(*ops_), aligned):
-                raise AssertionError(f"{name}: a misaligned {'qkv'[which]} "
-                                     "view changes the output")
-            del ops_, buf
-        del aligned
-        extra = (f"; misaligned q, k and v views ({size} bytes off) equal "
-                 "the aligned launch bit for bit")
-        if dtype == torch.float32:
-            extra += (f"; bound on the f32 CUDA cores "
-                      f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
-        finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e} <= "
-                   f"{ATTN_TOL[tname]}; SDPA differs from the plain version "
-                   f"by {lib_err:.3e}{extra}")
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+        b7_row(name, arch, randn(b, s, h, d, dtype=dtype),
+               randn(b, s, kvh, d, dtype=dtype),
+               randn(b, s, kvh, d, dtype=dtype), counted_in)
+
+    # qwen2-vl's prefill with its patches sharing one t: the position mask
+    # (the served patch prefill in bf16, batch 4; the f32 copy's, batch 1)
+    cfg = get_arch("qwen2-vl-7b")
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for dtype, b, name, counted_in in (
+            (torch.bfloat16, LM_BATCH, "flash_attention_tc_qwen2_vl_pos",
+             "qwen2-vl-7b patches"),
+            (torch.float32, 1, "flash_attention_f32_qwen2_vl_pos",
+             "qwen2-vl-7b f32 patches")):
+        t = vlm_positions(cfg, b, s, dev)[..., 0].to(torch.int32)
+        t = t.contiguous()
+        b7_row(name, "qwen2-vl-7b", randn(b, s, h, d, dtype=dtype),
+               randn(b, s, kvh, d, dtype=dtype),
+               randn(b, s, kvh, d, dtype=dtype), counted_in, q_pos=t,
+               k_pos=t, kind="position")
+
+    # whisper-large-v3: the encoder over 1,500 frames (non-causal), the
+    # decoder's causal self-attention over its prompt and its
+    # cross-attention to the frames; bf16 at the served batch, f32 at the
+    # f32 check's batch of one
+    cfg = get_arch("whisper-large-v3")
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f, sd = cfg.n_audio_frames, LM_PROMPT_LEN_OF["whisper-large-v3"]
+    for dtype, b, tag, counted_in in (
+            (torch.bfloat16, LM_BATCH, "tc", "whisper-large-v3"),
+            (torch.float32, 1, "f32", "whisper-large-v3 f32 check")):
+        for part, kind, sq, sk in (("encoder", "square", f, f),
+                                   ("self", "causal", sd, sd),
+                                   ("cross", "cross", sd, f)):
+            b7_row(f"flash_attention_{tag}_whisper_{part}",
+                   "whisper-large-v3", randn(b, sq, h, d, dtype=dtype),
+                   randn(b, sk, kvh, d, dtype=dtype),
+                   randn(b, sk, kvh, d, dtype=dtype), counted_in,
+                   causal=kind == "causal", kind=kind)
 
     # the served prefills (bf16, batch 4) take the tensor-core route; the
     # f32 teacher-forced check's prefill (batch 1) the CUDA-core route
@@ -3008,7 +3098,8 @@ def phase_lm_kernels(dev):
 def _teacher_forced(mb, model, prompts, **kw):
     """The S-token prefill's last logits, and those of a prefill of the
     first S - 1 tokens followed by one decode step of the last (``kw``:
-    the prefills' MoE capacity factor; a decode step never drops)."""
+    the prefills' MoE capacity factor, or an encoder-decoder's frames; a
+    decode step never drops)."""
     import torch
     from repro_torch.models import registry
     b, s = prompts.shape
@@ -3028,7 +3119,11 @@ def _teacher_forced(mb, model, prompts, **kw):
 
 def _mixers(cfg):
     """(attention layers, Mamba layers) of a config: the prefill launches
-    B7 once for each of the first and B8 once for each of the second."""
+    B7 once for each of the first and B8 once for each of the second; an
+    encoder-decoder's attention layers are its encoder's and, twice, its
+    decoder's (self- and cross-attention)."""
+    if cfg.is_enc_dec:
+        return cfg.n_encoder_layers + 2 * cfg.num_layers, 0
     n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.num_layers))
     return n_attn, cfg.num_layers - n_attn
 
@@ -3045,38 +3140,103 @@ def _expect_launches(label, counts, cfg, per_layer, b7, b8):
                              f"{per_layer} prefill(s))")
 
 
+class AttentionKinds:
+    """Counts the model's calls of B7's entry (``models.attention.attend``)
+    by the kind of attention asked for, while it is entered: ``causal``
+    (masked by index), ``position`` (masked by positions), ``square``
+    (non-causal, as many keys as queries: an encoder) and ``cross``
+    (non-causal, other lengths).  The launch counters say that the kernel
+    ran; this says which of its forms each launch took."""
+
+    def __init__(self):
+        self.kinds = {}
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self._plain = plain = attention.attend
+
+        def attend(q, k, v, *, causal=True, q_pos=None, k_pos=None):
+            if causal:
+                kind = "causal" if q_pos is None else "position"
+            else:
+                kind = "square" if q.shape[1] == k.shape[1] else "cross"
+            self.kinds[kind] = self.kinds.get(kind, 0) + 1
+            return plain(q, k, v, causal=causal, q_pos=q_pos, k_pos=k_pos)
+        attention.attend = attend
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.attend = self._plain
+        return False
+
+    def expect(self, label, want):
+        want = {k: n for k, n in want.items() if n}
+        if self.kinds != want:
+            raise AssertionError(f"{label}: attention calls by kind "
+                                 f"{self.kinds}, want {want}")
+
+
+def _prefill_kinds(cfg, prefills=1, position=False):
+    """The attention kinds a prefill of ``cfg`` asks for, ``prefills``
+    times: an encoder-decoder's square, causal and cross layers; a
+    decoder's causal ones, masked by position where its positions do not
+    rise."""
+    if cfg.is_enc_dec:
+        return {"square": prefills * cfg.n_encoder_layers,
+                "causal": prefills * cfg.num_layers,
+                "cross": prefills * cfg.num_layers}
+    return {"position" if position else "causal": prefills * _mixers(cfg)[0]}
+
+
+def vlm_positions(cfg, b, s, dev):
+    """Qwen2-VL's M-RoPE (t, h, w) positions (b, s, 3) for its
+    ``n_vision_patches`` patches of a square grid at the start of every
+    row: the patches share t = 0 and take (h, w) on the grid, and the text
+    after them resumes at the grid's side with t = h = w.  t does not rise
+    along the row, so attention masks by position."""
+    import torch
+    n = cfg.n_vision_patches
+    side = int(round(n ** 0.5))
+    i = torch.arange(s, device=dev)
+    text = side + i - n
+    t = torch.where(i < n, 0, text)
+    h = torch.where(i < n, i // side, text)
+    w = torch.where(i < n, i % side, text)
+    return torch.stack([t, h, w], -1).expand(b, s, 3)
+
+
 def _vlm_inputs(cfg, b, s, dev, seed):
     """qwen2-vl's patch embeddings (b, n_vision_patches, d_model) over the
-    first positions, and (t, h, w) positions whose components all differ
-    (t = the index, as the attention kernel's index mask needs; h and w a
-    16 x 16 patch grid over the patches, the index after them)."""
+    first positions, and ``vlm_positions``: the patches of its 16 x 16
+    grid at one t, as Qwen2-VL lays out an image."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = cfg.n_vision_patches
-    ve = 0.02 * torch.randn(b, n, cfg.d_model, generator=g, device=dev)
-    t = torch.arange(s, device=dev)
-    side = int(n ** 0.5)
-    h = torch.where(t < n, t // side, t + 7)
-    w = torch.where(t < n, t % side, t + 3)
-    pos = torch.stack([t, h, w], -1).expand(b, s, 3)
-    return ve.to(torch.bfloat16), pos
+    ve = 0.02 * torch.randn(b, cfg.n_vision_patches, cfg.d_model,
+                            generator=g, device=dev)
+    return ve.to(torch.bfloat16), vlm_positions(cfg, b, s, dev)
+
+
+def _prompt_len(cfg):
+    return LM_PROMPT_LEN_OF.get(cfg.name, LM_PROMPT_LEN)
 
 
 def _card_vs_cpu(dev, arch, seed):
     """The card's path against the CPU's plain path on the same weights:
-    2 layers at full width, a 512-token prompt, last logits within
-    ``CARD_CPU_TOL``.  The MoE models run on an f32 copy, over
-    ``LM_MOE_CHECK_ROWS`` rows, under the routing rule: experts equal
+    2 layers at full width (an encoder-decoder: 2 encoder and 2 decoder
+    layers, over its frames), a 512-token prompt (whisper: its 416), last
+    logits within ``CARD_CPU_TOL``.  The MoE models run on an f32 copy,
+    over ``LM_MOE_CHECK_ROWS`` rows, under the routing rule: experts equal
     wherever the CPU's boundary gap exceeds ``LM_ROUTE_MARGIN``, rows
     compared where every decision agrees.  jamba's 2 layers take its
     period-8 schedule's two pairings, attention + FFN (its layer 4) and
     Mamba + MoE (its odd layers).  qwen2-vl's prompt carries its 256
-    patch embeddings and distinct (t, h, w) positions."""
+    patch embeddings and Qwen2-VL's positions, masked by position."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import build_model, draw_prompts
+    from repro_torch.launch.serve import build_model, draw_frames, draw_prompts
     from repro_torch.models import registry
     from repro_torch.models.moe import MoE
 
@@ -3084,18 +3244,23 @@ def _card_vs_cpu(dev, arch, seed):
     if cfg.family == "hybrid":
         cfg = dataclasses.replace(cfg, attn_every=2, attn_offset=0,
                                   moe_every=2, moe_offset=1)
+    if cfg.is_enc_dec:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=2)
     moe = bool(cfg.n_experts)
     rows = LM_MOE_CHECK_ROWS if moe else 1
+    check_len = min(LM_CHECK_LEN, _prompt_len(cfg))
     mb, card = build_model(cfg, dev, seed=seed)
     _, cpu = build_model(cfg, torch.device("cpu"),
                          state_dict=card.state_dict())
     if moe:
         card.float(), cpu.float()
-    prompt = draw_prompts(cfg, rows, LM_CHECK_LEN, seed, dev)
+    prompt = draw_prompts(cfg, rows, check_len, seed, dev)
     extra = {}
     if cfg.family == "vlm":
-        ve, pos = _vlm_inputs(cfg, rows, LM_CHECK_LEN, dev, seed + 2)
+        ve, pos = _vlm_inputs(cfg, rows, check_len, dev, seed + 2)
         extra = dict(vision_embeds=ve.to(card.embed.dtype), positions=pos)
+    if cfg.is_enc_dec:
+        extra = dict(frames=draw_frames(cfg, rows, seed, dev))
     out, routes = {}, {}
     t0 = time.perf_counter()
     for where, model in (("card", card), ("cpu", cpu)):
@@ -3104,13 +3269,15 @@ def _card_vs_cpu(dev, arch, seed):
         hooks = [m.register_forward_hook(
             lambda m, args, out_, seen=seen: seen.append((m, args[0])))
             for m in model.modules() if isinstance(m, MoE)]
-        with torch.inference_mode():
-            caches = registry.make_cache(cfg, rows, LM_CHECK_LEN, d,
+        with torch.inference_mode(), AttentionKinds() as kinds:
+            caches = registry.make_cache(cfg, rows, check_len, d,
                                          card.embed.dtype)
             out[where] = mb.prefill_fn(
                 model, prompt.to(d), caches,
                 **{k: v.to(d) for k, v in extra.items()})[0].cpu()
             routes[where] = [m.route(h) for m, h in seen]
+        kinds.expect(f"{arch} (2 layers) on the {where}",
+                     _prefill_kinds(cfg, position="positions" in extra))
         for hk in hooks:
             hk.remove()
     agree = torch.ones(rows, dtype=torch.bool)
@@ -3136,15 +3303,18 @@ def _card_vs_cpu(dev, arch, seed):
     if not err <= CARD_CPU_TOL * scale:
         raise AssertionError(f"{arch} (2 layers): card logits differ from "
                              f"the CPU's by {err} > {CARD_CPU_TOL} x {scale}")
-    what = (f"{rows} x {LM_CHECK_LEN} prompt"
+    what = (f"{rows} x {check_len} prompt"
             + (", f32 copy" if moe else "")
-            + (f", {cfg.n_vision_patches} patch embeddings and distinct "
-               "(t, h, w) positions" if extra else ""))
+            + (f", {cfg.n_vision_patches} patch embeddings at one t (masked "
+               "by position)" if "positions" in extra else "")
+            + (f", {cfg.n_audio_frames} frames" if cfg.is_enc_dec else ""))
     route = (f"; routing: {under} of {decisions} decisions within "
              f"{LM_ROUTE_MARGIN} of the boundary, "
              f"{int(agree.sum())} of {rows} rows route alike and are "
              "compared" if moe else "")
-    log(f"lm {arch}, 2 layers at full width"
+    layers = ("2 encoder and 2 decoder layers" if cfg.is_enc_dec
+              else "2 layers")
+    log(f"lm {arch}, {layers} at full width"
         + (" (attention + FFN, Mamba + MoE)" if cfg.family == "hybrid"
            else "") + f", {what}: card vs CPU last logits max abs diff "
         f"{err:.4e} (max |logit| {scale:.4f}, bound {CARD_CPU_TOL} x){route}"
@@ -3153,23 +3323,55 @@ def _card_vs_cpu(dev, arch, seed):
     torch.cuda.empty_cache()
 
 
+def _patch_prefill(mb, model, cfg, b, dev, seed, label, counts, kinds_of,
+                   counter):
+    """qwen2-vl's prefill of ``b`` prompts with its patch embeddings and
+    Qwen2-VL's positions, at the model's depth and type: finite logits,
+    and one ``counter`` launch per attention layer, each masked by
+    position."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.models import registry
+    s = _prompt_len(cfg)
+    prompts = draw_prompts(cfg, b, s, seed, dev)
+    ve, pos = _vlm_inputs(cfg, b, s, dev, seed + 2)
+    _build.reset_launches()
+    with torch.inference_mode(), AttentionKinds() as kinds:
+        lg, _ = mb.prefill_fn(model, prompts, registry.make_cache(
+            cfg, b, s, dev, model.embed.dtype),
+            vision_embeds=ve.to(model.embed.dtype), positions=pos)
+        torch.cuda.synchronize()
+    counts[label] = dict(_build.LAUNCHES)
+    kinds_of[label] = kinds.kinds
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    _expect_launches(label, counts[label], cfg, 1, counter, "ssd")
+    kinds.expect(label, _prefill_kinds(cfg, position=True))
+    return (f"{b} x {s} prompt with {cfg.n_vision_patches} patch embeddings "
+            f"at one t, {model.embed.dtype}: finite logits, "
+            f"{counts[label][counter]} launches, all masked by position")
+
+
 def phase_lm(dev, seed):
     """Serve every model of ``LM_ARCHS`` at full width (and full depth but
     for the cuts of ``LM_DEPTH``), the teacher-forced and card-vs-CPU path
-    checks; qwen2-vl also prefills with its patch embeddings.  Returns
-    launch counts by model."""
+    checks; qwen2-vl also prefills with its patch embeddings at one t,
+    masked by position, in bf16 and on its f32 copy.  Returns launch
+    counts by run and the attention calls by kind (``AttentionKinds``) of
+    the same runs."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import (
-        build_model, draw_prompts, generate, serve,
+        build_model, draw_frames, draw_prompts, generate, serve,
     )
     from repro_torch.models import registry
 
     t_phase = time.perf_counter()
-    counts = {}
+    counts, kinds_of = {}, {}
     for arch in LM_ARCHS:
         cfg = get_arch(arch)
         depth, why = LM_DEPTH.get(arch, (None, ""))
@@ -3179,30 +3381,40 @@ def phase_lm(dev, seed):
                 f"params at full depth, one card of 80 GB)")
             cfg = dataclasses.replace(cfg, num_layers=depth)
         warm_runs = LM_WARM_RUNS_OF.get(arch, LM_WARM_RUNS)
+        plen = _prompt_len(cfg)
         # the identity holds where nothing drops: capacity factor E / k
         kw = {"capacity_factor": cfg.n_experts / cfg.top_k} \
             if cfg.n_experts else {}
+        # an encoder-decoder's frames, as serve draws them
+        frames = draw_frames(cfg, LM_BATCH, seed, dev) if cfg.is_enc_dec \
+            else None
+
+        def inputs(rows):
+            return kw if frames is None else {"frames": frames[:rows]}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         stats = {}
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if depth is None:
-            toks = serve(arch, smoke=False, prompt_len=LM_PROMPT_LEN,
-                         gen_len=LM_GEN_LEN, batch=LM_BATCH, seed=seed,
-                         stats=stats)
-        else:       # serve's own steps on the cut config
-            mb, model = build_model(cfg, dev, seed=seed)
-            toks = generate(mb, model, draw_prompts(
-                cfg, LM_BATCH, LM_PROMPT_LEN, seed, dev), LM_GEN_LEN,
-                stats=stats)
-        torch.cuda.synchronize()
+        with AttentionKinds() as kinds:
+            if depth is None:
+                toks = serve(arch, smoke=False, prompt_len=plen,
+                             gen_len=LM_GEN_LEN, batch=LM_BATCH, seed=seed,
+                             stats=stats)
+            else:       # serve's own steps on the cut config
+                mb, model = build_model(cfg, dev, seed=seed)
+                toks = generate(mb, model, draw_prompts(
+                    cfg, LM_BATCH, plen, seed, dev), LM_GEN_LEN,
+                    stats=stats)
+            torch.cuda.synchronize()
         first = time.perf_counter() - t0
         counts[arch] = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         _expect_launches(arch, counts[arch], cfg, 1, "flash_attention_tc",
                          "ssd_tc")
+        kinds.expect(arch, _prefill_kinds(cfg))
+        kinds_of[arch] = kinds.kinds
         if toks.shape != (LM_BATCH, LM_GEN_LEN) or int(toks.min()) < 0 \
                 or int(toks.max()) >= cfg.vocab_size:
             raise AssertionError(f"{arch}: tokens {tuple(toks.shape)} out of "
@@ -3210,18 +3422,23 @@ def phase_lm(dev, seed):
         if depth is None:
             mb, model = build_model(cfg, dev, seed=seed)
         n_params = sum(p.numel() for p in model.parameters())
-        prompts = draw_prompts(cfg, LM_BATCH, LM_PROMPT_LEN, seed, dev)
+        prompts = draw_prompts(cfg, LM_BATCH, plen, seed, dev)
         warm, same = [], True
         for _ in range(warm_runs):
             st = {}
             same &= torch.equal(generate(mb, model, prompts, LM_GEN_LEN,
-                                         stats=st), toks)
+                                         frames=frames, stats=st), toks)
             warm.append(st)
         warm.sort(key=lambda st: st["prefill_s"] + st["decode_s"])
         med = warm[len(warm) // 2]
         steps = LM_GEN_LEN - 1
-        log(f"lm {arch}: {cfg.num_layers} layers, {n_params:,} params, "
-            f"{LM_BATCH} x {LM_PROMPT_LEN} prompt -> {LM_BATCH} x "
+        layers = (f"{cfg.n_encoder_layers} encoder and {cfg.num_layers} "
+                  f"decoder layers" if cfg.is_enc_dec
+                  else f"{cfg.num_layers} layers")
+        audio = (f" and {LM_BATCH} x {cfg.n_audio_frames} frames"
+                 if cfg.is_enc_dec else "")
+        log(f"lm {arch}: {layers}, {n_params:,} params, "
+            f"{LM_BATCH} x {plen} prompt{audio} -> {LM_BATCH} x "
             f"{LM_GEN_LEN} greedy tokens; first run ("
             f"{'serve' if depth is None else 'build_model + generate'}, "
             f"weights drawn on the card) {first * 1e3:.1f} ms: prefill "
@@ -3233,32 +3450,26 @@ def phase_lm(dev, seed):
             f" tok/s (prefill + decode), decode alone "
             f"{LM_BATCH * steps / med['decode_s']:.1f} tok/s; warm tokens "
             f"{'equal' if same else 'DIFFER from'} the first run's; peak "
-            f"device memory {peak / 2 ** 30:.2f} GiB; launches {counts[arch]}")
+            f"device memory {peak / 2 ** 30:.2f} GiB; launches {counts[arch]}"
+            f"; attention calls {kinds.kinds}")
         t_warm = time.perf_counter()
         log(f"    prefill + {LM_PROFILE_TOKENS - 1} decode steps "
             + profile_once(lambda: generate(mb, model, prompts,
-                                            LM_PROFILE_TOKENS)))
+                                            LM_PROFILE_TOKENS,
+                                            frames=frames)))
         t_prof = time.perf_counter()
         if cfg.family == "vlm":
             # the served depth with its patch embeddings spliced in
-            ve, pos = _vlm_inputs(cfg, LM_BATCH, LM_PROMPT_LEN, dev, seed + 2)
-            with torch.inference_mode():
-                lg, _ = mb.prefill_fn(model, prompts, registry.make_cache(
-                    cfg, LM_BATCH, LM_PROMPT_LEN, dev), vision_embeds=ve,
-                    positions=pos)
-            if not bool(torch.isfinite(lg).all()):
-                raise AssertionError(f"{arch}: non-finite logits with patch "
-                                     "embeddings")
-            log(f"    prefill with {cfg.n_vision_patches} patch embeddings "
-                f"and (t, h, w) positions at {cfg.num_layers} layers: finite "
-                "logits")
+            log("    prefill " + _patch_prefill(
+                mb, model, cfg, LM_BATCH, dev, seed, f"{arch} patches",
+                counts, kinds_of, "flash_attention_tc"))
         # the identity prefill(S) == prefill(S - 1) + decode(1), in the
         # served bf16 (beside the rounding noise of the same prompt served
         # alone rather than in the batch) and sharply on an f32 copy
-        full, step = _teacher_forced(mb, model, prompts, **kw)
+        full, step = _teacher_forced(mb, model, prompts, **inputs(LM_BATCH))
         with torch.inference_mode():
             alone, _ = mb.prefill_fn(model, prompts[:1], registry.make_cache(
-                cfg, 1, LM_PROMPT_LEN, dev), **kw)
+                cfg, 1, plen, dev), **inputs(1))
         noise = float((alone[0] - full[0]).abs().max())
         err, scale = float((full - step).abs().max()), float(full.abs().max())
         if not err <= TF_TOL * scale:
@@ -3273,19 +3484,22 @@ def phase_lm(dev, seed):
             mb, model = build_model(cfg, dev, seed=seed)
         model.float()
         _build.reset_launches()
-        full, step = _teacher_forced(mb, model, prompts[:1], **kw)
+        with AttentionKinds() as kinds:
+            full, step = _teacher_forced(mb, model, prompts[:1], **inputs(1))
         label = f"{arch} f32 check"
         counts[label] = dict(_build.LAUNCHES)
+        kinds_of[label] = kinds.kinds
         _expect_launches(label, counts[label], cfg, 2, "flash_attention_f32",
                          "ssd")
+        kinds.expect(label, _prefill_kinds(cfg, prefills=2))
         err32 = float((full - step).abs().max())
         scale32 = float(full.abs().max())
         if not err32 <= TF_TOL_F32 * scale32:
             raise AssertionError(f"{arch} (f32): teacher-forced decode differs "
                                  f"from the prefill by {err32} > {TF_TOL_F32}"
                                  f" x {scale32}")
-        log(f"    teacher-forced {LM_PROMPT_LEN - 1} + 1 tokens vs the "
-            f"{LM_PROMPT_LEN}-token prefill, last logits"
+        log(f"    teacher-forced {plen - 1} + 1 tokens vs the "
+            f"{plen}-token prefill, last logits"
             + (f" (capacity factor {kw['capacity_factor']:g}: nothing drops)"
                if kw else "") + f": bf16 max abs diff "
             f"{err:.4e} (max |logit| {scale:.4f}, bound {TF_TOL} x; the first "
@@ -3295,6 +3509,10 @@ def phase_lm(dev, seed):
                if f32_depth else "")
             + f", 1 prompt: {err32:.4e} (max |logit| {scale32:.4f}, "
             f"bound {TF_TOL_F32} x); no NaN")
+        if cfg.family == "vlm":
+            log("    f32 copy: prefill " + _patch_prefill(
+                mb, model, cfg, 1, dev, seed, f"{arch} f32 patches", counts,
+                kinds_of, "flash_attention_f32"))
         del model, toks
         torch.cuda.empty_cache()
         t_end = time.perf_counter()
@@ -3307,7 +3525,7 @@ def phase_lm(dev, seed):
         _card_vs_cpu(dev, arch, seed)
         log(f"    {arch} card vs CPU took {time.perf_counter() - t0:.1f} s")
     log(f"lm: phase took {time.perf_counter() - t_phase:.2f} s")
-    return counts
+    return counts, kinds_of
 
 
 def main(argv=None) -> int:
@@ -3361,7 +3579,7 @@ def main(argv=None) -> int:
     del tpch
     log("lm kernels against their plain versions at the serving shapes:")
     lm_rows = phase_lm_kernels(dev)
-    lm_counts = phase_lm(dev, args.seed)
+    lm_counts, lm_kinds = phase_lm(dev, args.seed)
     rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows
 
     key = {"select_range": "select", "select_f32": "select_f32",
@@ -3375,10 +3593,13 @@ def main(argv=None) -> int:
     for row in rows:
         # a row that a phase counted itself keeps its own count; a B7 or
         # B8 row names its route's counter and reports the launches of the
-        # LM run at its shape
+        # LM run at its shape (a B7 row with a kind, those of its kind of
+        # attention, each of which the run checked to have launched)
         counter = row.pop("counter", None) or key[row["name"]]
         if "counted_in" in row:
-            row["launches"] = lm_counts[row.pop("counted_in")][counter]
+            run, kind = row.pop("counted_in"), row.pop("kind", None)
+            row["launches"] = lm_kinds[run].get(kind, 0) if kind else \
+                lm_counts[run][counter]
         row.setdefault("launches", sum(c[counter]
                                        for counts in (ssb_counts, tpch_counts,
                                                       glm_counts, multi_counts,

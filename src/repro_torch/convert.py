@@ -72,19 +72,27 @@ def _leaves(tree: Mapping, prefix: str = ""):
 
 def lm_params_from_arrays(cfg, tree: Mapping) -> dict:
     """The reference's LM params (``jax.tree.map(np.asarray, params)``) as
-    the port's ``Transformer`` state_dict.  The reference stacks each
-    superblock position's params over superblocks; layer ``i`` of the port
-    is superblock ``i // P`` at position ``i % P`` (jamba's positions mix
-    ``attn`` or ``ssm`` with ``ffn`` or ``moe`` over its period of 8).
-    Nested leaves keep their path (``moe.shared.w_in``) and every leaf
-    its type (the MoE router stays f32)."""
-    from repro_torch.models.transformer import _period
-    p = _period(cfg)
+    the port's model state_dict.  The reference stacks each superblock
+    position's params over superblocks; layer ``i`` of the port is
+    superblock ``i // P`` at position ``i % P`` (jamba's positions mix
+    ``attn`` or ``ssm`` with ``ffn`` or ``moe`` over its period of 8).  An
+    encoder-decoder's ``encoder`` and ``decoder`` stacks are unstacked
+    layer by layer.  Nested leaves keep their path (``moe.shared.w_in``)
+    and every leaf its type (the MoE router stays f32)."""
     out = {k: _param_tensor(tree[k])
-           for k in ("embed", "unembed", "final_norm") if k in tree}
-    for j, position in enumerate(tree["layers"]):
-        for name, stacked in _leaves(position):
+           for k in ("embed", "unembed", "enc_norm", "final_norm")
+           if k in tree}
+    if cfg.is_enc_dec:
+        stacks = [(f"{name}.{{}}.", 1, 0, tree[name])
+                  for name in ("encoder", "decoder")]
+    else:
+        from repro_torch.models.transformer import _period
+        p = _period(cfg)
+        stacks = [("layers.{}.", p, j, position)
+                  for j, position in enumerate(tree["layers"])]
+    for prefix, p, j, stack in stacks:
+        for name, stacked in _leaves(stack):
             for sb in range(np.shape(stacked)[0]):
-                out[f"layers.{sb * p + j}.{name}"] = _param_tensor(
+                out[prefix.format(sb * p + j) + name] = _param_tensor(
                     stacked[sb])
     return out

@@ -70,13 +70,14 @@ SIGNATURES = {
     # x, o, n, grid, unroll, next_tile (4-byte scratch), stream
     "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
     "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
-    # q, k, v, o, b, s, h, kv_heads, d, causal, scale, stream
+    # q, k, v, o, b, sq, sk, h, kv_heads, d, causal, q_pos, k_pos (both
+    # null for the index mask), scale, stream
     "flash_attention_tc_fwd": ("flash_attention",
                                (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                                _I32, _I32, _F32, _P)),
+                                _I32, _I32, _I32, _P, _P, _F32, _P)),
     "flash_attention_f32_fwd": ("flash_attention",
                                 (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                                 _I32, _I32, _F32, _P)),
+                                 _I32, _I32, _I32, _P, _P, _F32, _P)),
     # x, dt, a_log, b, c, d_skip, y, h_out, states, decay, bsz, seq, nh,
     # hd, ng, ds, chunk, mode, passes, stream
     "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,

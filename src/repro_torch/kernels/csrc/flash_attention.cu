@@ -3,11 +3,20 @@
 //
 // Replaces: flash_attention / _flash_kernel in
 //   src/repro/kernels/flash_attention/flash_attention.py.
-// Computes: for q (B, S, H, D) and k, v (B, S, KV, D) in model layout
+// Computes: for q (B, Sq, H, D) and k, v (B, Sk, KV, D) in model layout
 //   (H a multiple of KV; q head h reads kv head h / (H / KV)):
 //     s_ij = (q_i . k_j) * D^-1/2             in f32, masked to -1e30 where
-//                                             j > i (causal) or j >= S
+//                                             j > i (causal, Sq == Sk) or,
+//                                             given int32 positions q_pos
+//                                             (B, Sq) and k_pos (B, Sk),
+//                                             where q_pos_i < k_pos_j
+//                                             (causal by position, the
+//                                             reference's mask)
 //     o_i  = sum_j exp(s_ij - m_i) v_j / sum_j exp(s_ij - m_i)
+//   over j < Sk; non-causal attention takes any Sq and Sk (an encoder-
+//   decoder's cross-attention).  Columns past Sk sit at -2e30, below the
+//   mask, so a row that no key reaches averages the keys, as the
+//   reference's softmax does, and not the zero rows past Sk.
 //   with the running (m, l, acc) of the online softmax in f32 and p rounded
 //   to the value type before p . v (l sums the unrounded p), as the TPU
 //   kernel does; o in q's type.
@@ -92,8 +101,15 @@
 //       over a row's tiles;
 //     - a warp skips the math of a kv tile that lies wholly above its 16
 //       rows' diagonal.
-//   Both routes mask the ragged last q and kv tiles, so any S >= 1 works
-//   (the TPU kernel needs S % 128 == 0), and copy nothing for GQA.  The
+//   Both routes mask the ragged last q and kv tiles, so any Sq, Sk >= 1
+//   work (the TPU kernel needs S % 128 == 0), and copy nothing for GQA.
+//   The mask is a template parameter, so the index-masked kernels are
+//   compiled without the position mask's code.  Under the position mask
+//   (positions need not rise) each block first folds its rows' q
+//   positions and each kv tile's k positions into shared memory
+//   (`position_tiles`), then loads and computes only the kv tiles that
+//   some row keeps a key of, and masks only those that hold a masked
+//   pair, reading each column's k position from device memory there.  The
 //   driver's cuTensorMapEncodeTiled is found at run time through
 //   cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
 //   PERF.md keeps each route's time beside the bound.
@@ -108,6 +124,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kPastEnd = -2e30f;     // columns past Sk, below the mask
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRowBytes = 128;    // a swizzled row of one TMA box
 
@@ -199,9 +216,8 @@ template <int kStages> struct Loader {
       tma_load_4d(s_q + c * br * kRowBytes, tm_q, bars.q_full, c * box, h, q0,
                   b);
   }
-  // kv tile n into stage n % kStages, which must be free
-  __device__ void kv(int n) const {
-    const int st = n % kStages;
+  // kv tile n into stage st, which must be free
+  __device__ void kv(int n, int st) const {
     const uint32_t bytes = boxes * bc * kRowBytes;
     mbar_expect_tx(bars.k_full(st), bytes);
     for (int c = 0; c < boxes; ++c)
@@ -213,6 +229,76 @@ template <int kStages> struct Loader {
                   c * box, hk, n * bc, b);
   }
 };
+
+// The shared memory, in ints, that `position_tiles` takes for n_kv tiles.
+__host__ __device__ constexpr int stats_ints(int n_kv) { return 3 * n_kv + 4; }
+constexpr int kMaskBit = 1 << 30;
+
+// Under the position mask: the kv tiles of kBc columns that the q tile
+// (rows q0 .. q0 + kBr - 1 below seq_q) needs, in order, written to the
+// list in `stats` as n, or n | kMaskBit where some (row, column) of the
+// tile is masked or it is the ragged last tile; returns how many.  A tile
+// whose least k position exceeds every row's q position adds nothing to
+// any row, so it is skipped, unless some row keeps no key at all (that
+// row averages every key, as a softmax over a fully masked row does):
+// then none is.  qp and kp are the batch row's positions.  Every thread
+// of the block calls this; `stats` is stats_ints(n_kv) ints of shared
+// memory.
+template <int kBc, int kBr>
+__device__ int position_tiles(const int32_t* __restrict__ qp,
+                              const int32_t* __restrict__ kp, int seq_q,
+                              int seq_k, int q0, int n_kv, int* stats) {
+  static_assert(kBc % 32 == 0 && kBr % 32 == 0, "a warp's 32 in one tile");
+  int* kmin = stats;
+  int* kmax = stats + n_kv;
+  int* list = stats + 2 * n_kv;
+  int* s = stats + 3 * n_kv;     // rows' largest and least q, count
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int i = tid; i < n_kv; i += blockDim.x) {
+    kmin[i] = INT32_MAX;
+    kmax[i] = INT32_MIN;
+  }
+  if (tid == 0) {
+    s[0] = INT32_MIN;
+    s[1] = INT32_MAX;
+  }
+  __syncthreads();
+  // a warp folds 32 consecutive columns (or rows), one lane's atomics
+  for (int c0 = tid - lane; c0 < seq_k; c0 += blockDim.x) {
+    const bool in = c0 + lane < seq_k;
+    const int p = in ? kp[c0 + lane] : 0;
+    const int lo = __reduce_min_sync(0xffffffffu, in ? p : INT32_MAX);
+    const int hi = __reduce_max_sync(0xffffffffu, in ? p : INT32_MIN);
+    if (lane == 0) {
+      atomicMin(&kmin[c0 / kBc], lo);
+      atomicMax(&kmax[c0 / kBc], hi);
+    }
+  }
+  for (int r0 = tid - lane; r0 < kBr; r0 += blockDim.x) {
+    const bool in = q0 + r0 + lane < seq_q;
+    const int p = in ? qp[q0 + r0 + lane] : 0;
+    const int hi = __reduce_max_sync(0xffffffffu, in ? p : INT32_MIN);
+    const int lo = __reduce_min_sync(0xffffffffu, in ? p : INT32_MAX);
+    if (lane == 0) {
+      atomicMax(&s[0], hi);
+      atomicMin(&s[1], lo);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int least = INT32_MAX;
+    for (int n = 0; n < n_kv; ++n) least = min(least, kmin[n]);
+    const bool skip = s[1] >= least;          // every row keeps a key
+    int m = 0;
+    for (int n = 0; n < n_kv; ++n)
+      if (!skip || kmin[n] <= s[0])
+        list[m++] = n | (kmax[n] > s[1] || (n + 1) * kBc > seq_k
+                             ? kMaskBit : 0);
+    s[2] = m;
+  }
+  __syncthreads();
+  return s[2];
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -264,42 +350,49 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, bool bf16,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Encodes the three maps and launches `kernel` over B * H * ceil(S / br)
-// blocks of `threads` with `smem` bytes of dynamic shared memory.
+// The arguments of a launch that every route takes.
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int32_t b, sq, sk, h, kvh, causal;
+  const int32_t *q_pos, *k_pos;   // both null: the index mask
+  float scale;
+  cudaStream_t stream;
+};
+
+// Encodes the three maps (q at Sq rows, k and v at Sk) and launches
+// `kernel` over B * H * ceil(Sq / br) blocks of `threads` with `smem`
+// bytes of dynamic shared memory.
 template <typename Kernel, typename Out>
 int launch_tiled(Kernel kernel, bool bf16, int br, int bc, int threads,
-                 int smem, const void* q, const void* k, const void* v,
-                 void* o, int32_t b, int32_t s, int32_t h, int32_t kvh,
-                 int32_t d, int32_t causal, float scale,
-                 cudaStream_t stream) {
+                 int smem, int32_t d, const Args& a) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
-  if (!make_map(fn, &mq, q, bf16, d, h, s, b, br) ||
-      !make_map(fn, &mk, k, bf16, d, kvh, s, b, bc) ||
-      !make_map(fn, &mv, v, bf16, d, kvh, s, b, bc))
+  if (!make_map(fn, &mq, a.q, bf16, d, a.h, a.sq, a.b, br) ||
+      !make_map(fn, &mk, a.k, bf16, d, a.kvh, a.sk, a.b, bc) ||
+      !make_map(fn, &mv, a.v, bf16, d, a.kvh, a.sk, a.b, bc))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t bh = static_cast<int64_t>(b) * h;
-  const int64_t blocks = bh * ((s + br - 1) / br);
+  const int64_t bh = static_cast<int64_t>(a.b) * a.h;
+  const int64_t blocks = bh * ((a.sq + br - 1) / br);
   if (bh > INT32_MAX || blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      mq, mk, mv, static_cast<Out*>(o), s, h, kvh, static_cast<int32_t>(bh),
-      causal, scale * kLog2e);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, a.stream>>>(
+      mq, mk, mv, static_cast<Out*>(a.o), a.sq, a.sk, a.h, a.kvh,
+      static_cast<int32_t>(bh), a.causal, a.q_pos, a.k_pos,
+      a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The head dims both routes take, as a switch onto compile-time D.
 template <template <int> class Launch>
-int by_head_dim(int32_t d, const void* q, const void* k, const void* v,
-                void* o, int32_t b, int32_t s, int32_t h, int32_t kvh,
-                int32_t causal, float scale, cudaStream_t st) {
+int by_head_dim(int32_t d, const Args& a) {
   switch (d) {
 #define REPRO_FA_CASE(D) \
-  case D: return Launch<D>::run(q, k, v, o, b, s, h, kvh, causal, scale, st);
+  case D: return Launch<D>::run(a);
     REPRO_FA_CASE(16)
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
@@ -335,11 +428,16 @@ template <int D> struct Layout {
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kBars = kV + kStages * kKVBytes;
-  static constexpr int kUsed = kBars + Barriers<kStages>::kBytes + 1024;
+  // the position mask's tile statistics (stats_ints of the kv tiles)
+  static constexpr int kStats = (kBars + Barriers<kStages>::kBytes + 15) /
+                                16 * 16;
+  static constexpr int kUsed = kStats + 1024;
   // at least 116 KB, so never two blocks share an SM: each block's
   // setmaxnreg.inc needs the registers its producer gives up, and two
   // blocks could each wait for the other's
-  static constexpr int kBytes = kUsed > 116 * 1024 ? kUsed : 116 * 1024;
+  static constexpr int bytes(int stats) {
+    return kUsed + stats > 116 * 1024 ? kUsed + stats : 116 * 1024;
+  }
 };
 
 // wgmma's shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -491,14 +589,15 @@ __device__ __forceinline__ void pv_step<64>(float (&acc)[32],
   wgmma_rs_n64(acc, a, dv);
 }
 
-template <int D>
+template <int D, bool kByPos>
 __global__ void __launch_bounds__(kBlock, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
-             __nv_bfloat16* __restrict__ o, int32_t seq, int32_t heads,
-             int32_t kv_heads, int32_t bh_total, int32_t causal,
-             float scale_log2) {
+             __nv_bfloat16* __restrict__ o, int32_t seq_q, int32_t seq_k,
+             int32_t heads, int32_t kv_heads, int32_t bh_total,
+             int32_t causal, const int32_t* __restrict__ q_pos,
+             const int32_t* __restrict__ k_pos, float scale_log2) {
   using L = Layout<D>;
   constexpr int kPad = L::kPad;
   extern __shared__ uint8_t smem_raw[];
@@ -506,19 +605,30 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t s_q = base + L::kQ, s_k = base + L::kK, s_v = base + L::kV;
   const Barriers<kStages> bars{base + L::kBars};
 
-  const int n_qt = (seq + kBr - 1) / kBr;
+  const int n_qt = (seq_q + kBr - 1) / kBr;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_total;
   const int bh = static_cast<int>(blockIdx.x) % bh_total;
   const int b = bh / heads;
   const int h = bh % heads;
   const int hk = h / (heads / kv_heads);
   const int q0 = qt * kBr;
-  const int n_kv_all = (seq + kBc - 1) / kBc;
-  // causal: kv tiles past the tile's last q row are never loaded
-  const int n_kv = causal ? min(n_kv_all, (min(q0 + kBr, seq) - 1) / kBc + 1)
-                          : n_kv_all;
+  const int n_kv_all = (seq_k + kBc - 1) / kBc;
+  int* const list = reinterpret_cast<int*>(
+                        smem_raw + (base - smem_u32(smem_raw)) + L::kStats) +
+                    2 * n_kv_all;
 
   if (threadIdx.x == 0) bars.init(2 * 128);
+  // causal by index (Sq == Sk): kv tiles past the tile's last q row are
+  // never loaded; by position, the tiles `position_tiles` lists
+  int n_kv;
+  if constexpr (kByPos)
+    n_kv = position_tiles<kBc, kBr>(
+        q_pos + static_cast<int64_t>(b) * seq_q,
+        k_pos + static_cast<int64_t>(b) * seq_k, seq_q, seq_k, q0, n_kv_all,
+        list - 2 * n_kv_all);
+  else
+    n_kv = causal ? min(n_kv_all, (min(q0 + kBr, seq_q) - 1) / kBc + 1)
+                  : n_kv_all;
   __syncthreads();
 
   if (threadIdx.x < 128) {
@@ -528,12 +638,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       const Loader<kStages> load{bars, &tm_q, &tm_k, &tm_v, s_q, s_k, s_v,
                                  L::kBoxes, kBox, kBr, kBc, h, hk, q0, b};
       load.q();
-      for (int n = 0; n < n_kv; ++n) {
-        // stage n % kStages is free once every consumer thread is done
-        // with tile n - kStages
-        if (n >= kStages)
-          mbar_wait(bars.empty(n % kStages), ((n / kStages) - 1) & 1);
-        load.kv(n);
+      for (int it = 0; it < n_kv; ++it) {
+        // stage it % kStages is free once every consumer thread is done
+        // with the tile it - kStages
+        if (it >= kStages)
+          mbar_wait(bars.empty(it % kStages), ((it / kStages) - 1) & 1);
+        load.kv(kByPos ? list[it] & ~kMaskBit : it, it % kStages);
       }
     }
   } else {
@@ -547,6 +657,16 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = q0 + 64 * cw + 16 * warp + lane / 4;
     const int cq = 2 * (lane % 4);
     const uint32_t qa = s_q + cw * 64 * kRowBytes;
+    // by position: the rows' q positions (a row past Sq keeps every key;
+    // it is not stored) and the batch row's k positions
+    int qp[2] = {INT32_MAX, INT32_MAX};
+    const int32_t* kp = nullptr;
+    if constexpr (kByPos) {
+      for (int r = 0; r < 2; ++r)
+        if (r0 + 8 * r < seq_q)
+          qp[r] = q_pos[static_cast<int64_t>(b) * seq_q + r0 + 8 * r];
+      kp = k_pos + static_cast<int64_t>(b) * seq_k;
+    }
 
     float acc[kPad / 2];
 #pragma unroll
@@ -558,9 +678,10 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t pa[kBc / 16][4];
 
     mbar_wait(bars.q_full, 0);
-    for (int n = 0; n < n_kv; ++n) {
-      const int st = n % kStages;
-      const uint32_t par = (n / kStages) & 1;
+    for (int it = 0; it < n_kv; ++it) {
+      const int st = it % kStages;
+      const uint32_t par = (it / kStages) & 1;
+      const int n = kByPos ? list[it] & ~kMaskBit : it;
       const uint32_t kb = s_k + st * L::kKVBytes;
       const uint32_t vb = s_v + st * L::kKVBytes;
 
@@ -583,11 +704,13 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       fence_regs(sc);
 
-      // masks on the diagonal and the ragged last tile only; then the
-      // online softmax in log2 units, rows folded over the quad
+      // masks on the diagonal and the ragged last tile only (by
+      // position, on the tiles listed so); then the online softmax in
+      // log2 units, rows folded over the quad
       const int k0 = n * kBc;
-      const bool edge = k0 + kBc > seq ||
-                        (causal && k0 + kBc - 1 > q0 + 64 * cw);
+      const bool edge = kByPos ? (list[it] & kMaskBit) != 0
+                               : k0 + kBc > seq_k ||
+                                     (causal && k0 + kBc - 1 > q0 + 64 * cw);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int i = 0; i < kBc / 2; ++i) {
@@ -595,7 +718,11 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (edge) {
           const int col = k0 + 8 * (i / 4) + cq + (i % 2);
           const int row = r0 + 8 * ((i / 2) % 2);
-          if (col >= seq || (causal && col > row)) x = kNegInf;
+          if (col >= seq_k)
+            x = kPastEnd;
+          else if (kByPos ? qp[(i / 2) % 2] < __ldg(kp + col)
+                          : causal && col > row)
+            x = kNegInf;
         }
         sc[i] = x;
         mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
@@ -650,12 +777,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       den[r] = fmaxf(l[r], 1e-30f);
     }
     const int64_t row_stride = static_cast<int64_t>(heads) * D;
-    __nv_bfloat16* ob = o + static_cast<int64_t>(b) * seq * row_stride +
+    __nv_bfloat16* ob = o + static_cast<int64_t>(b) * seq_q * row_stride +
                         static_cast<int64_t>(h) * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
-      if (row >= seq) continue;
+      if (row >= seq_q) continue;
       __nv_bfloat16* orow = ob + row * row_stride + cq;
 #pragma unroll
       for (int g = 0; g < D / 8; ++g)
@@ -667,12 +794,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int D> struct Launch {
-  static int run(const void* q, const void* k, const void* v, void* o,
-                 int32_t b, int32_t s, int32_t h, int32_t kvh, int32_t causal,
-                 float scale, cudaStream_t stream) {
-    return launch_tiled<decltype(&flash_kernel<D>), __nv_bfloat16>(
-        flash_kernel<D>, true, kBr, kBc, kBlock, Layout<D>::kBytes, q, k, v,
-        o, b, s, h, kvh, D, causal, scale, stream);
+  static int run(const Args& a) {
+    const bool by_pos = a.q_pos != nullptr;
+    const int stats = by_pos ? 4 * stats_ints((a.sk + kBc - 1) / kBc) : 0;
+    return launch_tiled<decltype(&flash_kernel<D, false>), __nv_bfloat16>(
+        by_pos ? flash_kernel<D, true> : flash_kernel<D, false>, true, kBr,
+        kBc, kBlock, Layout<D>::bytes(stats), D, a);
   }
 };
 
@@ -703,7 +830,10 @@ template <int D> struct Layout {
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kBars = kV + kStages * kKVBytes;
-  static constexpr int kBytes = kBars + Barriers<kStages>::kBytes + 1024;
+  // the position mask's tile statistics (stats_ints of the kv tiles)
+  static constexpr int kStats = (kBars + Barriers<kStages>::kBytes + 15) /
+                                16 * 16;
+  static constexpr int bytes(int stats) { return kStats + 1024 + stats; }
 };
 
 // The 16-byte chunk c (columns 4c .. 4c + 3 of box `box`) of row r of a
@@ -763,13 +893,15 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma(d, ah, bh0, bh1);
 }
 
-template <int D>
+template <int D, bool kByPos>
 __global__ void __launch_bounds__(kBlock, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
-             int32_t seq, int32_t heads, int32_t kv_heads, int32_t bh_total,
-             int32_t causal, float scale_log2) {
+             int32_t seq_q, int32_t seq_k, int32_t heads, int32_t kv_heads,
+             int32_t bh_total, int32_t causal,
+             const int32_t* __restrict__ q_pos,
+             const int32_t* __restrict__ k_pos, float scale_log2) {
   using L = Layout<D>;
   constexpr int kN = L::kPad / 8;   // n tiles of P.V, k steps of Q.K^T
   extern __shared__ uint8_t smem_raw[];
@@ -777,27 +909,37 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = smem_u32(sm);
   const Barriers<kStages> bars{base + L::kBars};
 
-  const int n_qt = (seq + kBr - 1) / kBr;
+  const int n_qt = (seq_q + kBr - 1) / kBr;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_total;
   const int bh = static_cast<int>(blockIdx.x) % bh_total;
   const int b = bh / heads;
   const int h = bh % heads;
   const int hk = h / (heads / kv_heads);
   const int q0 = qt * kBr;
-  const int n_kv_all = (seq + kBc - 1) / kBc;
-  // causal: kv tiles past the tile's last q row are never loaded
-  const int n_kv = causal ? min(n_kv_all, (min(q0 + kBr, seq) - 1) / kBc + 1)
-                          : n_kv_all;
+  const int n_kv_all = (seq_k + kBc - 1) / kBc;
+  int* const list = reinterpret_cast<int*>(sm + L::kStats) + 2 * n_kv_all;
   const Loader<kStages> load{bars, &tm_q, &tm_k, &tm_v, base + L::kQ,
                              base + L::kK, base + L::kV, L::kBoxes, kBox,
                              kBr, kBc, h, hk, q0, b};
 
   // thread 0 issues the loads (no producer warp: see the note above)
   if (threadIdx.x == 0) bars.init(kBlock);
+  // causal by index (Sq == Sk): kv tiles past the tile's last q row are
+  // never loaded; by position, the tiles `position_tiles` lists
+  int n_kv;
+  if constexpr (kByPos)
+    n_kv = position_tiles<kBc, kBr>(
+        q_pos + static_cast<int64_t>(b) * seq_q,
+        k_pos + static_cast<int64_t>(b) * seq_k, seq_q, seq_k, q0, n_kv_all,
+        list - 2 * n_kv_all);
+  else
+    n_kv = causal ? min(n_kv_all, (min(q0 + kBr, seq_q) - 1) / kBc + 1)
+                  : n_kv_all;
   __syncthreads();
   if (threadIdx.x == 0) {
     load.q();
-    for (int n = 0; n < kStages && n < n_kv; ++n) load.kv(n);
+    for (int it = 0; it < kStages && it < n_kv; ++it)
+      load.kv(kByPos ? list[it] & ~kMaskBit : it, it);
   }
 
   // A warp owns 16 q rows.  In an m16n8 fragment the thread holds rows g
@@ -808,6 +950,16 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wr = 16 * w;                  // the warp's first row in the tile
   const int r0 = q0 + wr + g;             // the thread's rows r0, r0 + 8
   const uint8_t* sq = sm + L::kQ;
+  // by position: the rows' q positions (a row past Sq keeps every key; it
+  // is not stored) and the batch row's k positions
+  int qp[2] = {INT32_MAX, INT32_MAX};
+  const int32_t* kp = nullptr;
+  if constexpr (kByPos) {
+    for (int r = 0; r < 2; ++r)
+      if (r0 + 8 * r < seq_q)
+        qp[r] = q_pos[static_cast<int64_t>(b) * seq_q + r0 + 8 * r];
+    kp = k_pos + static_cast<int64_t>(b) * seq_k;
+  }
 
   // O in n tiles of 8 columns, permuted: the thread's chunk g of box J
   // holds columns 32 J + 4 g + i of n tiles 4 J + i, so its accumulators
@@ -820,15 +972,17 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(bars.q_full, 0);
-  for (int n = 0; n < n_kv; ++n) {
-    const int st = n % kStages;
-    const uint32_t par = (n / kStages) & 1;
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it % kStages;
+    const uint32_t par = (it / kStages) & 1;
+    const int n = kByPos ? list[it] & ~kMaskBit : it;
     const uint8_t* sk = sm + L::kK + st * L::kKVBytes;
     const uint8_t* sv = sm + L::kV + st * L::kKVBytes;
     const int k0 = n * kBc;
     mbar_wait(bars.k_full(st), par);
-    // causal: a tile wholly above the warp's rows adds nothing to them
-    if (!causal || k0 <= q0 + wr + 15) {
+    // causal by index: a tile wholly above the warp's rows adds nothing
+    // to them
+    if (!causal || kByPos || k0 <= q0 + wr + 15) {
       // S = Q . K^T.  The sum over D runs in any order that q and k share:
       // k steps (box, half, sub) take, at A's k indices t and t + 4,
       // columns 4 c + 2 sub and 4 c + 2 sub + 1 of the box with
@@ -858,10 +1012,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         }
 
-      // masks on the diagonal and the ragged last tile only; then the
-      // online softmax in log2 units, rows folded over the quad
-      const bool edge =
-          k0 + kBc > seq || (causal && k0 + kBc - 1 > q0 + wr);
+      // masks on the diagonal and the ragged last tile only (by
+      // position, on the tiles listed so); then the online softmax in
+      // log2 units, rows folded over the quad
+      const bool edge = kByPos ? (list[it] & kMaskBit) != 0
+                               : k0 + kBc > seq_k ||
+                                     (causal && k0 + kBc - 1 > q0 + wr);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int j = 0; j < kBc / 8; ++j)
@@ -871,7 +1027,11 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (edge) {
             const int col = k0 + 8 * j + 2 * t + (i & 1);
             const int row = r0 + 8 * (i >> 1);
-            if (col >= seq || (causal && col > row)) x = kNegInf;
+            if (col >= seq_k)
+              x = kPastEnd;
+            else if (kByPos ? qp[i >> 1] < __ldg(kp + col)
+                            : causal && col > row)
+              x = kNegInf;
           }
           s[j][i] = x;
           mx[i >> 1] = fmaxf(mx[i >> 1], x);
@@ -930,9 +1090,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     mbar_arrive(bars.empty(st));
     // stage st is free once every thread is done with tile n
-    if (threadIdx.x == 0 && n + kStages < n_kv) {
+    if (threadIdx.x == 0 && it + kStages < n_kv) {
       mbar_wait(bars.empty(st), par);
-      load.kv(n + kStages);
+      load.kv(kByPos ? list[it + kStages] & ~kMaskBit : it + kStages, st);
     }
   }
 
@@ -944,12 +1104,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     den[r] = fmaxf(l[r], 1e-30f);
   }
   const int64_t row_stride = static_cast<int64_t>(heads) * D;
-  float* ob = o + static_cast<int64_t>(b) * seq * row_stride +
+  float* ob = o + static_cast<int64_t>(b) * seq_q * row_stride +
               static_cast<int64_t>(h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
-    if (row >= seq) continue;
+    if (row >= seq_q) continue;
     float* orow = ob + row * row_stride;
 #pragma unroll
     for (int bx = 0; bx < L::kBoxes; ++bx) {
@@ -967,40 +1127,49 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int D> struct Launch {
-  static int run(const void* q, const void* k, const void* v, void* o,
-                 int32_t b, int32_t s, int32_t h, int32_t kvh, int32_t causal,
-                 float scale, cudaStream_t stream) {
-    return launch_tiled<decltype(&flash_kernel<D>), float>(
-        flash_kernel<D>, false, kBr, kBc, kBlock, Layout<D>::kBytes, q, k, v,
-        o, b, s, h, kvh, D, causal, scale, stream);
+  static int run(const Args& a) {
+    const bool by_pos = a.q_pos != nullptr;
+    const int stats = by_pos ? 4 * stats_ints((a.sk + kBc - 1) / kBc) : 0;
+    return launch_tiled<decltype(&flash_kernel<D, false>), float>(
+        by_pos ? flash_kernel<D, true> : flash_kernel<D, false>, false, kBr,
+        kBc, kBlock, Layout<D>::bytes(stats), D, a);
   }
 };
 
 }  // namespace tf32
 }  // namespace
 
-// q (b, s, h, d), k and v (b, s, kvh, d), o like q, all contiguous with
+// q (b, sq, h, d), k and v (b, sk, kvh, d), o like q, all contiguous with
 // 16-byte-aligned data, of bfloat16 (flash_attention_tc_fwd) or float32
-// (flash_attention_f32_fwd); d one of 16, 32, 64, 80, 96, 128; `scale`
-// multiplies q . k (D^-1/2).  Launch on `stream`; return
-// cudaGetLastError() (cudaErrorNotSupported if the driver has no
-// cuTensorMapEncodeTiled).
+// (flash_attention_f32_fwd); d one of 16, 32, 64, 80, 96, 128; `causal`
+// needs sq == sk, and with q_pos (b, sq) and k_pos (b, sk) int32 masks by
+// position (both null: by index); `scale` multiplies q . k (D^-1/2).
+// Launch on `stream`; return cudaGetLastError() (cudaErrorNotSupported if
+// the driver has no cuTensorMapEncodeTiled).
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
                                       const void* v, void* o, int32_t b,
-                                      int32_t s, int32_t h, int32_t kvh,
-                                      int32_t d, int32_t causal, float scale,
+                                      int32_t sq, int32_t sk, int32_t h,
+                                      int32_t kvh, int32_t d, int32_t causal,
+                                      const int32_t* q_pos,
+                                      const int32_t* k_pos, float scale,
                                       void* stream) {
-  if (b <= 0 || s <= 0) return static_cast<int>(cudaGetLastError());
-  return by_head_dim<bf16::Launch>(d, q, k, v, o, b, s, h, kvh, causal,
-                                   scale, static_cast<cudaStream_t>(stream));
+  if (b <= 0 || sq <= 0 || sk <= 0)
+    return static_cast<int>(cudaGetLastError());
+  return by_head_dim<bf16::Launch>(
+      d, Args{q, k, v, o, b, sq, sk, h, kvh, causal, q_pos, k_pos, scale,
+              static_cast<cudaStream_t>(stream)});
 }
 
 extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
                                        const void* v, void* o, int32_t b,
-                                       int32_t s, int32_t h, int32_t kvh,
-                                       int32_t d, int32_t causal, float scale,
+                                       int32_t sq, int32_t sk, int32_t h,
+                                       int32_t kvh, int32_t d, int32_t causal,
+                                       const int32_t* q_pos,
+                                       const int32_t* k_pos, float scale,
                                        void* stream) {
-  if (b <= 0 || s <= 0) return static_cast<int>(cudaGetLastError());
-  return by_head_dim<tf32::Launch>(d, q, k, v, o, b, s, h, kvh, causal,
-                                   scale, static_cast<cudaStream_t>(stream));
+  if (b <= 0 || sq <= 0 || sk <= 0)
+    return static_cast<int>(cudaGetLastError());
+  return by_head_dim<tf32::Launch>(
+      d, Args{q, k, v, o, b, sq, sk, h, kvh, causal, q_pos, k_pos, scale,
+              static_cast<cudaStream_t>(stream)});
 }

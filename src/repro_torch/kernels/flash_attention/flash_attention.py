@@ -14,16 +14,25 @@ which ``route`` picks before the launch; each takes every D in
   mma.sync m16n8k8 from TMA-loaded f32 tiles, 64-row kv tiles in a
   two-stage ring.
 
-Both keep the running (m, l, acc) in f32, skip kv tiles above the causal
-diagonal, read kv heads in place for GQA and mask the ragged last tiles,
-so any length works.  TMA takes 16-byte-aligned addresses only, so the
-wrapper first copies an operand that starts off a 16-byte mark (a
-contiguous view such as ``buf[1:]``) into fresh memory.
+Both keep the running (m, l, acc) in f32, read kv heads in place for GQA
+and mask the ragged last q and kv tiles, so any lengths work: q (B, Sq,
+H, D) against k, v (B, Sk, KV, D) non-causally at any Sq and Sk (the
+encoder-decoder's cross-attention), causally at Sq == Sk.  The causal
+mask is by index, where the kernels skip kv tiles above the diagonal,
+or, given int32 positions ``q_pos`` (B, Sq) and ``k_pos`` (B, Sk) on
+q's device, by position (``q_pos[b, i] >= k_pos[b, j]`` keeps a key, as
+the reference masks), where each block lists the kv tiles its rows keep
+a key of, loads only those and masks only those that hold a masked
+pair.  TMA takes 16-byte-aligned addresses only, so the wrapper first
+copies an operand that starts off a 16-byte mark (a contiguous view
+such as ``buf[1:]``) into fresh memory.
 ``flash_attention`` launches a kernel for CUDA tensors and takes
 ``ref.attention_plain`` for CPU tensors; there is no fallback from the
 card to the plain version.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -47,17 +56,22 @@ def route(dtype: torch.dtype, d: int) -> str:
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, causal, q_pos, k_pos) -> None:
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"expected q (B, S, H, D) and k, v (B, S, KV, D), "
+        raise ValueError(f"expected q (B, Sq, H, D) and k, v (B, Sk, KV, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    if v.shape != k.shape or k.shape != (b, s, kvh, d) or kvh == 0 \
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if v.shape != k.shape or k.shape != (b, sk, kvh, d) or kvh == 0 \
             or h % kvh:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: want k and v (B, S, KV, D) "
+                         f"v {tuple(v.shape)}: want k and v (B, Sk, KV, D) "
                          "with H a multiple of KV")
+    if sk == 0 and q.numel():
+        raise ValueError("attention over no keys")
+    if causal and sk != sq:
+        raise ValueError(f"causal attention needs as many keys as queries, "
+                         f"got Sq {sq} and Sk {sk}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.dtype not in DTYPES:
             raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
@@ -65,18 +79,38 @@ def _check(q, k, v) -> None:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a type, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
+    if (q_pos is None) != (k_pos is None):
+        raise ValueError("give both q_pos and k_pos, or neither")
+    if q_pos is None:
+        return
+    if not causal:
+        raise ValueError("positions mask causal attention only")
+    for t, name, n in ((q_pos, "q_pos", sq), (k_pos, "k_pos", sk)):
+        if t.shape != (b, n):
+            raise ValueError(f"{name}: want ({b}, {n}), got {tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: want int32, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q (B, S, H, D), k and v (B, S, KV, D), float32 or bfloat16 ->
+                    causal: bool = True, q_pos: Optional[torch.Tensor] = None,
+                    k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, Sq, H, D), k and v (B, Sk, KV, D), float32 or bfloat16 ->
     attention output like q, through the CUDA kernel (the plain version on
-    the CPU)."""
-    _check(q, k, v)
+    the CPU).  ``causal`` needs Sq == Sk; ``q_pos`` and ``k_pos`` (int32,
+    (B, Sq) and (B, Sk)) make its mask one by position."""
+    _check(q, k, v, causal, q_pos, k_pos)
     if q.device.type == "cpu":
-        return ref.attention_plain(q, k, v, causal=causal)
-    b, s, h, d = q.shape
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        return ref.attention_plain(q, k, v, causal=causal, q_pos=q_pos,
+                                   k_pos=k_pos)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    named = [(q, "q"), (k, "k"), (v, "v")]
+    if q_pos is not None:
+        named += [(q_pos, "q_pos"), (k_pos, "k_pos")]
+    for t, name in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -88,13 +122,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # TMA reads from 16-byte-aligned addresses only: a contiguous view
     # that starts off a 16-byte mark is copied into fresh memory
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    blocks = b * h * -(-s // Q_TILE)
+    blocks = b * h * -(-sq // Q_TILE)
     if blocks >= 2 ** 31:
-        raise ValueError(f"B * H * ceil(S / {Q_TILE}) = {blocks}: the grid "
+        raise ValueError(f"B * H * ceil(Sq / {Q_TILE}) = {blocks}: the grid "
                          "takes at most 2**31 - 1 blocks")
     fn = _build.function(ENTRY[rt])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-            k.shape[2], d, int(causal), d ** -0.5,
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq,
+            sk, h, k.shape[2], d, int(causal),
+            None if q_pos is None else q_pos.data_ptr(),
+            None if k_pos is None else k_pos.data_ptr(), d ** -0.5,
             _build.stream_handle(q.device))
     _build.check(rc, ENTRY[rt])
     _build.LAUNCHES[COUNTER[rt]] += 1

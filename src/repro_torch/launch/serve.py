@@ -4,10 +4,14 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --no-smoke --prompt-len 2000 --gen-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --smoke --device cpu
 
 It runs on the CUDA card unless ``--device`` (``device=``) names another;
 the weights are random, drawn from ``--seed`` on the target device with
-the reference's init rule, and the prompts from ``--seed + 1``.
+the reference's init rule, the prompts from ``--seed + 1`` and, for the
+encoder-decoder family, the frame embeddings (``n_audio_frames`` of
+them, the conv frontend being a stub) from ``--seed + 2``.
 """
 from __future__ import annotations
 
@@ -46,6 +50,16 @@ def draw_prompts(cfg, batch: int, prompt_len: int, seed: int,
                          generator=g, device=device)
 
 
+def draw_frames(cfg, batch: int, seed: int, device: torch.device,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """The frame embeddings ``serve`` draws for an encoder-decoder: (batch,
+    ``cfg.n_audio_frames``, d_model), normal at scale 0.02, from ``seed +
+    2`` on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    return (0.02 * torch.randn(batch, cfg.n_audio_frames, cfg.d_model,
+                               generator=g, device=device)).to(dtype)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -53,22 +67,27 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def generate(mb, model, prompts: torch.Tensor, gen_len: int, *,
+             frames: Optional[torch.Tensor] = None,
              stats: Optional[dict] = None) -> torch.Tensor:
     """Greedy continuation of ``prompts`` (B, S): the prefill's token and
-    ``gen_len - 1`` decoded ones, (B, gen_len).  With ``stats``, the
-    prefill's and the decode loop's seconds (host clock around work that
-    ends in a synchronize) go into it as ``prefill_s`` and ``decode_s``."""
+    ``gen_len - 1`` decoded ones, (B, gen_len).  An encoder-decoder takes
+    ``frames`` (B, S_enc, d_model), its cross cache made for them.  With
+    ``stats``, the prefill's and the decode loop's seconds (host clock
+    around work that ends in a synchronize) go into it as ``prefill_s``
+    and ``decode_s``."""
     if gen_len < 1:
         raise ValueError(f"gen_len must be at least 1, got {gen_len}")
     b, s = prompts.shape
     dev = prompts.device
-    caches = registry.make_cache(mb.cfg, b, s + gen_len, dev,
-                                 model.embed.dtype)
+    inputs = {} if frames is None else {"frames": frames}
+    caches = registry.make_cache(
+        mb.cfg, b, s + gen_len, dev, model.embed.dtype,
+        enc_len=None if frames is None else frames.shape[1])
     prefill = make_prefill_step(mb, model)
     decode = make_decode_step(mb, model)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(prompts, caches)
+    logits, caches = prefill(prompts, caches, **inputs)
     tok = torch.argmax(logits[..., :mb.cfg.vocab_size], dim=-1)
     if stats is not None:
         _sync(dev)
@@ -88,10 +107,12 @@ def generate(mb, model, prompts: torch.Tensor, gen_len: int, *,
 def serve(arch: str, *, smoke: bool = True, prompt_len: int = 24,
           gen_len: int = 12, batch: int = 4, seed: int = 0,
           device: DeviceLike = None, state_dict: Optional[dict] = None,
-          prompts=None, stats: Optional[dict] = None) -> torch.Tensor:
-    """Serve ``batch`` prompts of ``prompt_len`` tokens and return the
-    greedy tokens (batch, gen_len).  ``state_dict`` and ``prompts``
-    replace the drawn weights and prompts (as the tests do to hold the
+          prompts=None, frames=None,
+          stats: Optional[dict] = None) -> torch.Tensor:
+    """Serve ``batch`` prompts of ``prompt_len`` tokens (with frame
+    embeddings for an encoder-decoder) and return the greedy tokens
+    (batch, gen_len).  ``state_dict``, ``prompts`` and ``frames`` replace
+    the drawn weights, prompts and frames (as the tests do to hold the
     port to the reference); ``stats`` receives the timings of
     ``generate``."""
     dev = resolve(device)
@@ -104,12 +125,16 @@ def serve(arch: str, *, smoke: bool = True, prompt_len: int = 24,
     else:
         prompts = torch.as_tensor(prompts, device=dev).long()
     batch, prompt_len = prompts.shape
+    if cfg.is_enc_dec:
+        frames = draw_frames(cfg, batch, seed, dev, model.embed.dtype) \
+            if frames is None else torch.as_tensor(frames, device=dev)
     t0 = time.perf_counter()
-    gen = generate(mb, model, prompts, gen_len, stats=stats)
+    gen = generate(mb, model, prompts, gen_len, frames=frames, stats=stats)
     _sync(dev)
     dt = time.perf_counter() - t0
-    print(f"[serve] {cfg.name} on {dev}: {batch}x{prompt_len} prompt -> "
-          f"{batch}x{gen_len} tokens in {dt:.2f}s "
+    audio = "" if frames is None else f", {frames.shape[1]} frames"
+    print(f"[serve] {cfg.name} on {dev}: {batch}x{prompt_len} prompt"
+          f"{audio} -> {batch}x{gen_len} tokens in {dt:.2f}s "
           f"({batch * gen_len / dt:.1f} tok/s)")
     return gen
 

@@ -3,7 +3,13 @@ through the flash-attention kernel and decode over the cache.
 
 Prefill (s > 1) attends over the freshly projected k and v through
 ``kernels.flash_attention.ops.attend``: the hand-written kernel on the
-card, its plain version on the CPU; the kv heads stay unexpanded.
+card, its plain version on the CPU; the kv heads stay unexpanded.  The
+causal mask is by index, or by the positions ``mask_pos`` (B, S) that
+the caller passes where its positions do not rise strictly along a row
+(the reference masks by ``q_pos >= k_pos`` always; the two agree on
+strictly rising positions).  The cross form attends, non-causally, to
+k and v computed elsewhere (an encoder's output through this layer's
+wk and wv, kept in a cache), and projects only q.
 Decode (s == 1) is a plain masked softmax over the whole cache, as the
 reference computes it outside any kernel (``attention.py``'s
 ``_dense_attn``): positions past ``pos + 1`` are masked to ``NEG_INF``;
@@ -64,31 +70,48 @@ def _decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class Attention(nn.Module):
-    """Self-attention over x (B, S, d_model) with RoPE; weights in the
-    reference's layout: wq (d, H, hd), wk and wv (d, KV, hd), wo (H, hd, d)."""
+    """Self- or cross-attention over x (B, S, d_model), with RoPE unless
+    the config's positions are absolute; weights in the reference's
+    layout: wq (d, H, hd), wk and wv (d, KV, hd), wo (H, hd, d)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.use_rope = cfg.position_scheme != "absolute"
         d, hd = cfg.d_model, cfg.head_dim
         self.wq = param(d, cfg.n_heads, hd, device=device)
         self.wk = param(d, cfg.n_kv_heads, hd, device=device)
         self.wv = param(d, cfg.n_kv_heads, hd, device=device)
         self.wo = param(cfg.n_heads, hd, d, device=device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                cache: Optional[KVCache] = None, causal: bool = True):
-        """Returns (out (B, S, d_model), the advanced cache or None)."""
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor], *,
+                cache: Optional[KVCache] = None, causal: bool = True,
+                mask_pos: Optional[torch.Tensor] = None,
+                cross_kv: Optional[tuple] = None):
+        """Returns (out (B, S, d_model), the advanced cache or None).
+        ``mask_pos`` (B, S) masks a causal prefill by position;
+        ``cross_kv`` = (k, v), each (B, S_enc, KV, hd), makes this
+        cross-attention over all of them: a prefill through the kernel, a
+        one-token step through the decode attention over their length."""
         cfg = self.cfg
         b, s, d = x.shape
 
         def proj(w):
             return (x @ w.reshape(d, -1)).unflatten(-1, w.shape[1:])
 
-        q = apply_rope(proj(self.wq), positions, cfg.rope_theta,
-                       cfg.rotary_pct, cfg.mrope_sections)
-        k = apply_rope(proj(self.wk), positions, cfg.rope_theta,
-                       cfg.rotary_pct, cfg.mrope_sections)
+        def rope(t):
+            if not self.use_rope:
+                return t
+            return apply_rope(t, positions, cfg.rope_theta, cfg.rotary_pct,
+                              cfg.mrope_sections)
+
+        q = rope(proj(self.wq))
+        if cross_kv is not None:
+            k, v = cross_kv
+            out = _decode_attn(q, k, v, k.shape[1]) if s == 1 else \
+                attend(q, k, v, causal=False)
+            return out.reshape(b, s, -1) @ self.wo.reshape(-1, d), None
+        k = rope(proj(self.wk))
         v = proj(self.wv)
         new_cache = None
         if cache is not None:
@@ -99,6 +122,7 @@ class Attention(nn.Module):
         if cache is not None and s == 1:
             out = _decode_attn(q, cache.k, cache.v, new_cache.pos)
         else:
-            out = attend(q, k, v, causal=causal)
+            out = attend(q, k, v, causal=causal, q_pos=mask_pos,
+                         k_pos=mask_pos)
         y = out.reshape(b, s, -1) @ self.wo.reshape(-1, d)
         return y, new_cache

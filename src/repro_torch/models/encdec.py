@@ -1,0 +1,205 @@
+"""Whisper-style encoder-decoder (the audio family) for serving.
+
+The counterpart of ``repro.models.encdec``.  As there, the conv frontend
+is a stub: the encoder takes precomputed frame embeddings (B, S_enc,
+d_model).  Positions are absolute and sinusoidal (computed, not stored);
+attention has no RoPE; layers are pre-LayerNorm with a plain GELU MLP,
+biases omitted.  The reference stacks each stack's layer params and
+scans over them; here each stack is an ``nn.ModuleList``.
+
+Serving: ``prefill_fn`` encodes the frames (non-causal self-attention,
+one flash-attention launch a layer on the card), computes every decoder
+layer's cross k and v from the encoder output (the cross cache,
+(L, B, S_enc, KV, hd) in the model's type, as the reference's
+``_cross_kv`` stacks them), then runs the decoder over the prompt:
+causal self-attention through the KV cache and cross-attention to the
+frames, each a launch a layer.  ``decode_fn`` takes one token against
+both caches.  The caches are ``{"self": [KVCache per decoder layer],
+"cross": {"k", "v"}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.attention import Attention, KVCache, init_cache
+from repro_torch.models.common import MLP, apply_norm, logits_fn, param
+
+
+def sinusoid(s: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(s, d) f32 absolute positions ``offset`` .. ``offset + s - 1``: sines
+    of the d / 2 frequencies, then cosines (the reference's
+    ``_sinusoid``)."""
+    pos = torch.arange(s, dtype=torch.float32, device=device) + offset
+    inv = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    / d * math.log(10000.0))
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+class EncoderLayer(nn.Module):
+    """Non-causal self-attention, then the MLP, each pre-norm residual."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = param(cfg.d_model, device=device)
+        self.attn = Attention(cfg, device)
+        self.norm2 = param(cfg.d_model, device=device)
+        self.ffn = MLP(cfg, cfg.d_ff, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mix, _ = self.attn(apply_norm(self.cfg, x, self.norm1), None,
+                           causal=False)
+        x = x + mix
+        return x + self.ffn(apply_norm(self.cfg, x, self.norm2))
+
+
+class DecoderLayer(nn.Module):
+    """Causal self-attention over the KV cache, cross-attention to the
+    frames, then the MLP, each pre-norm residual."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm1 = param(cfg.d_model, device=device)
+        self.self_attn = Attention(cfg, device)
+        self.norm_x = param(cfg.d_model, device=device)
+        self.cross_attn = Attention(cfg, device)
+        self.norm2 = param(cfg.d_model, device=device)
+        self.ffn = MLP(cfg, cfg.d_ff, device)
+
+    def forward(self, x: torch.Tensor, cache: KVCache, cross_kv: tuple):
+        """Returns (x, the advanced cache)."""
+        cfg = self.cfg
+        mix, cache = self.self_attn(apply_norm(cfg, x, self.norm1), None,
+                                    cache=cache)
+        x = x + mix
+        cross, _ = self.cross_attn(apply_norm(cfg, x, self.norm_x), None,
+                                   cross_kv=cross_kv)
+        x = x + cross
+        return x + self.ffn(apply_norm(cfg, x, self.norm2)), cache
+
+
+class EncoderDecoder(nn.Module):
+    """Embedding, ``n_encoder_layers`` encoder and ``num_layers`` decoder
+    layers, ``enc_norm`` and ``final_norm``; the logits read the untied
+    ``unembed`` (d, padded vocab) or the embedding transposed."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        if not cfg.is_enc_dec:
+            raise ValueError(f"{cfg.name} has no encoder")
+        self.cfg = cfg
+        pv = cfg.padded_vocab(1)
+        self.embed = param(pv, cfg.d_model, device=device)
+        if not cfg.tie_embeddings:
+            self.unembed = param(cfg.d_model, pv, device=device)
+        self.encoder = nn.ModuleList(EncoderLayer(cfg, device)
+                                     for _ in range(cfg.n_encoder_layers))
+        self.decoder = nn.ModuleList(DecoderLayer(cfg, device)
+                                     for _ in range(cfg.num_layers))
+        self.enc_norm = param(cfg.d_model, device=device)
+        self.final_norm = param(cfg.d_model, device=device)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return logits_fn(self.embed, getattr(self, "unembed", None), x)
+
+
+def encode(model: EncoderDecoder, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, S_enc, d_model) -> the encoder output, in the model's
+    type: frames plus sinusoidal positions, the encoder layers, then
+    ``enc_norm``."""
+    dtype = model.embed.dtype
+    x = frames.to(dtype)
+    x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(dtype)
+    for layer in model.encoder:
+        x = layer(x)
+    return apply_norm(model.cfg, x, model.enc_norm)
+
+
+def cross_kv(model: EncoderDecoder, enc_out: torch.Tensor,
+             out: Optional[dict] = None) -> dict:
+    """Every decoder layer's cross k and v from the encoder output:
+    ``{"k", "v"}``, each (L, B, S_enc, KV, hd) in the model's type, written
+    into ``out`` where its shape is theirs (a cache made for these frames),
+    else into new tensors."""
+    cfg = model.cfg
+    b, s, d = enc_out.shape
+    shape = (cfg.num_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+    if out is None or tuple(out["k"].shape) != shape:
+        out = {n: torch.empty(shape, dtype=enc_out.dtype,
+                              device=enc_out.device) for n in ("k", "v")}
+    for i, layer in enumerate(model.decoder):
+        for n in ("k", "v"):
+            w = getattr(layer.cross_attn, "w" + n)
+            torch.matmul(enc_out, w.reshape(d, -1),
+                         out=out[n][i].view(b, s, -1))
+    return out
+
+
+def decode_trunk(model: EncoderDecoder, tokens: torch.Tensor, cross: dict,
+                 self_caches: List[KVCache], cache_pos: int):
+    """The decoder over tokens (B, S) at positions ``cache_pos`` onwards:
+    token embeddings plus sinusoidal positions, each layer's self-attention
+    through its cache and cross-attention to ``cross``, then
+    ``final_norm``.  Returns (x (B, S, d_model), the advanced caches)."""
+    cfg = model.cfg
+    x = F.embedding(tokens, model.embed)
+    x = x + sinusoid(tokens.shape[1], cfg.d_model, cache_pos,
+                     x.device).to(x.dtype)
+    new_caches = []
+    for i, layer in enumerate(model.decoder):
+        c = dataclasses.replace(self_caches[i], pos=cache_pos)
+        x, c = layer(x, c, (cross["k"][i], cross["v"][i]))
+        new_caches.append(c)
+    return apply_norm(cfg, x, model.final_norm), new_caches
+
+
+def prefill_fn(model: EncoderDecoder, tokens: torch.Tensor, caches: dict, *,
+               frames: torch.Tensor):
+    """Encode ``frames`` (B, S_enc, d_model) into the cross cache and
+    populate the self caches from a whole prompt (B, S); return the last
+    token's f32 logits (B, 1, padded vocab) and ``{"self", "cross"}``.
+    The cross cache has the frames' length, whatever ``caches``' has."""
+    cross = cross_kv(model, encode(model, frames), caches.get("cross"))
+    x, new_self = decode_trunk(model, tokens, cross, caches["self"], 0)
+    return model.logits(x[:, -1:]), {"self": new_self, "cross": cross}
+
+
+def decode_fn(model: EncoderDecoder, tokens: torch.Tensor, pos: int,
+              caches: dict):
+    """One step: tokens (B, 1) at position ``pos`` -> (logits (B, 1,
+    padded vocab) f32, caches)."""
+    x, new_self = decode_trunk(model, tokens, caches["cross"],
+                               caches["self"], pos)
+    return model.logits(x), {"self": new_self, "cross": caches["cross"]}
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
+                dtype=torch.bfloat16) -> dict:
+    """``{"self": [per decoder layer {name: (shape, dtype)}], "cross":
+    {name: (shape, dtype)}}``: each layer's KV cache of ``max_len`` and the
+    cross k and v of ``enc_len`` frames, stacked over the layers."""
+    shape = (cfg.num_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"self": [init_cache(cfg, batch, max_len, dtype)
+                     for _ in range(cfg.num_layers)],
+            "cross": {"k": (shape, dtype), "v": (shape, dtype)}}
+
+
+def make_caches(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
+                device=None, dtype=torch.bfloat16) -> dict:
+    """Zero-filled caches, the self caches at position 0."""
+    spec = cache_specs(cfg, batch, max_len, enc_len, dtype)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return {"self": [KVCache(zeros(*s["k"]), zeros(*s["v"]), 0)
+                     for s in spec["self"]],
+            "cross": {n: zeros(*sd) for n, sd in spec["cross"].items()}}

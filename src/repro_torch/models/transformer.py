@@ -11,10 +11,12 @@ Mamba-2 elsewhere, then (outside the SSM family) runs the MoE where
 period of 8.  Caches are a list with one entry per layer: a ``KVCache``
 for an attention layer, an ``SSMCache`` for an SSM layer.  The vlm
 family takes precomputed patch embeddings over the first positions of
-every row and M-RoPE (t, h, w) positions; the attention kernel masks by
-index, so explicit positions must rise along each row (their t component
-under M-RoPE), which makes the reference's positional mask the index
-mask.
+every row and M-RoPE (t, h, w) positions.  The reference masks attention
+by position (``q_pos >= k_pos``, on the t component under M-RoPE); a
+prefill whose positions rise strictly along every row gets the same mask
+by index, and any other (Qwen2-VL's image patches share one t) passes
+its positions to every attention layer, which masks by them.  The
+encoder-decoder family (whisper) is ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -35,16 +37,6 @@ from repro_torch.models.moe import MoE
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
 Cache = Union[KVCache, SSMCache]
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """The port serves the decoder-only families; the encoder-decoder one
-    (whisper) raises rather than running a substitute."""
-    if cfg.family not in FAMILIES or cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: the port serves "
-            f"the {', '.join(FAMILIES)} families; the encoder-decoder audio "
-            "family (whisper) waits for ROADMAP A11")
 
 
 def _period(cfg: ArchConfig) -> int:
@@ -78,11 +70,14 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Cache], *,
-                capacity_factor: Optional[float] = None):
-        """Returns (x, the advanced cache)."""
+                capacity_factor: Optional[float] = None,
+                mask_pos: Optional[torch.Tensor] = None):
+        """Returns (x, the advanced cache); ``mask_pos`` reaches the
+        attention's causal mask."""
         h = apply_norm(self.cfg, x, self.norm1)
         if hasattr(self, "attn"):
-            mix, new_c = self.attn(h, positions, cache=cache)
+            mix, new_c = self.attn(h, positions, cache=cache,
+                                   mask_pos=mask_pos)
         else:
             mix, new_c = self.ssm(h, cache=cache)
         x = x + mix
@@ -96,12 +91,14 @@ class Block(nn.Module):
         return x, new_c
 
 
-def _check_rising(positions: torch.Tensor) -> None:
+def mask_positions(positions: torch.Tensor) -> Optional[torch.Tensor]:
+    """None where every row's positions (component 0 under M-RoPE) rise
+    strictly, so that the index mask is the reference's positional one
+    (one host read); else those positions, int32, for the mask."""
     t = positions[..., 0] if positions.dim() == 3 else positions
-    if t.shape[1] > 1 and not bool((t[:, 1:] > t[:, :-1]).all()):
-        raise NotImplementedError(
-            "positions must rise along each row: the attention kernel masks "
-            "by index, which is the reference's positional mask only then")
+    if t.shape[1] <= 1 or bool((t[:, 1:] > t[:, :-1]).all()):
+        return None
+    return t.to(torch.int32).contiguous()
 
 
 class Transformer(nn.Module):
@@ -110,7 +107,10 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        check_family(cfg)
+        if cfg.family not in FAMILIES or cfg.is_enc_dec:
+            raise ValueError(f"{cfg.name} ({cfg.family}) is no decoder-only "
+                             "model: the encoder-decoder family is "
+                             "models.encdec's")
         self.cfg = cfg
         pv = cfg.padded_vocab(1)
         self.embed = param(pv, cfg.d_model, device=device)
@@ -132,24 +132,28 @@ class Transformer(nn.Module):
         ``vision_embeds``
         (B, P, d_model) replace the first P positions' embeddings.  The
         positions default to ``cache_pos`` onwards, as (B, S, 3) copies
-        under M-RoPE.  ``capacity_factor`` reaches every MoE layer."""
+        under M-RoPE; explicit positions that do not rise strictly along
+        a row mask attention by position.  ``capacity_factor`` reaches
+        every MoE layer."""
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed)
         if vision_embeds is not None:
             x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
+        mask_pos = None
         if positions is None:
             positions = (torch.arange(s, device=tokens.device)
                          + cache_pos).expand(b, s)
             if self.cfg.mrope_sections is not None:
                 positions = positions[..., None].expand(b, s, 3)
         else:
-            _check_rising(positions)
+            mask_pos = mask_positions(positions)
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             c = caches[i] if caches is not None else None
             if isinstance(c, KVCache):          # written from cache_pos on
                 c = dataclasses.replace(c, pos=cache_pos)
-            x, c = layer(x, positions, c, capacity_factor=capacity_factor)
+            x, c = layer(x, positions, c, capacity_factor=capacity_factor,
+                         mask_pos=mask_pos)
             if caches is not None:
                 new_caches.append(c)
         return apply_norm(self.cfg, x, self.final_norm), new_caches

@@ -9,8 +9,10 @@ from repro_torch.models.registry import ModelBundle
 
 
 def make_prefill_step(mb: ModelBundle, model) -> Callable:
-    def prefill_step(tokens: torch.Tensor, caches):
-        return mb.prefill_fn(model, tokens, caches)
+    def prefill_step(tokens: torch.Tensor, caches, **inputs):
+        """``inputs``: the prompt's other inputs (an encoder-decoder's
+        ``frames``)."""
+        return mb.prefill_fn(model, tokens, caches, **inputs)
     return prefill_step
 
 

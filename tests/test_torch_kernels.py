@@ -7,7 +7,9 @@ PyTorch versions because the tensors lie on the CPU.  Inputs are made
 with numpy from a seed and handed to both; every integer output must be
 bit-identical.  The float kernels sum in other orders: flash attention
 (B7) agrees within 2e-5 in float32 and 2e-2 in bfloat16 (the reference's
-own sweep and tolerances), the SSD chunk scan (B8) within rtol=atol=1e-4
+own sweep and tolerances), also against the reference model's dense
+attention (``_dense_attn``) at other q and k lengths and masked by
+position, the SSD chunk scan (B8) within rtol=atol=1e-4
 in float32, against both ``ssd_pallas`` and the sequential recurrence,
 and so do the plain versions of the card kernel's three passes, composed.
 """
@@ -18,6 +20,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as r_fa_ops
 from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.attention import _dense_attn
 from repro.kernels.join import ref as r_join_ref
 from repro.kernels.join.join import (
     probe_counts_pallas, probe_multi_pallas, probe_pallas,
@@ -366,6 +369,103 @@ def test_attention_ragged_gqa_matches_attention_ref(s, heads, kv_heads):
     want = want.reshape(2, heads, s, 32).transpose(0, 2, 1, 3)
     got = attend(*map(torch.from_numpy, (q, k, v)))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def _dense(q, k, v, q_pos, k_pos, causal):
+    """The reference model's ``_dense_attn`` on kv heads repeated to the q
+    heads, as its ``attention`` expands them."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (np.repeat(a, g, axis=2) for a in (k, v))
+    return np.asarray(_dense_attn(*(jnp.asarray(a) for a in (q, k, v)),
+                                  jnp.asarray(q_pos), jnp.asarray(k_pos),
+                                  causal), np.float32)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 100), (40, 100), (150, 77),
+                                   (130, 1)])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2)])
+def test_cross_attention_matches_dense_attn(sq, sk, heads, kv_heads):
+    """Non-causal attention of Sq queries over Sk keys: every key counts,
+    as in the reference's cross-attention."""
+    r = np.random.default_rng(sq + sk)
+    q = r.normal(size=(2, sq, heads, 32)).astype(np.float32)
+    k, v = (r.normal(size=(2, sk, kv_heads, 32)).astype(np.float32)
+            for _ in range(2))
+    qp = np.broadcast_to(np.arange(sq, dtype=np.int32), (2, sq))
+    kp = np.broadcast_to(np.arange(sk, dtype=np.int32), (2, sk))
+    want = _dense(q, k, v, qp, kp, False)
+    got = attend(*map(torch.from_numpy, (q, k, v)), causal=False)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def _qwen2_vl_t(s, patches):
+    side = int(np.ceil(np.sqrt(patches)))
+    i = np.arange(s)
+    return np.where(i < patches, 0, side + i - patches)
+
+
+@pytest.mark.parametrize("pattern", ["shared_t", "falling", "repeats"])
+@pytest.mark.parametrize("s", [2, 77, 300])
+def test_position_masked_attention_matches_dense_attn(pattern, s):
+    """Causal attention masked by per-row positions, q_pos >= k_pos, as the
+    reference masks: Qwen2-VL's patch grid at one t (16 x 16 patches where
+    the row holds them), positions that fall, and random repeats."""
+    r = np.random.default_rng(s)
+    if pattern == "shared_t":
+        pos = np.broadcast_to(_qwen2_vl_t(s, min(256, s)), (2, s))
+    elif pattern == "falling":
+        pos = np.broadcast_to(np.arange(s)[::-1], (2, s))
+    else:
+        pos = r.integers(0, max(s // 3, 1), (2, s))
+    pos = np.ascontiguousarray(pos, np.int32)
+    q = r.normal(size=(2, s, 4, 32)).astype(np.float32)
+    k, v = (r.normal(size=(2, s, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    want = _dense(q, k, v, pos, pos, True)
+    pt = torch.from_numpy(pos)
+    got = attend(*map(torch.from_numpy, (q, k, v)), q_pos=pt, k_pos=pt)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    if pattern != "falling" and s > 2:      # not the index mask
+        index = attend(*map(torch.from_numpy, (q, k, v)))
+        assert float((index - got).abs().max()) > 1e-2
+
+
+def test_position_masked_attention_bf16_matches_dense_attn():
+    r = np.random.default_rng(3)
+    s = 200
+    pos = np.ascontiguousarray(np.broadcast_to(_qwen2_vl_t(s, 64), (1, s)),
+                               np.int32)
+    q, k, v = (np.asarray(jnp.asarray(r.normal(size=(1, s, 2, 64)),
+                                      jnp.bfloat16), np.float32)
+               for _ in range(3))
+    want = _dense(*(a.astype(jnp.bfloat16) for a in (q, k, v)), pos, pos,
+                  True)
+    pt = torch.from_numpy(pos)
+    got = attend(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                 q_pos=pt, k_pos=pt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_attention_wrapper_refuses_causal_cross_lengths_and_bad_positions():
+    q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 12, 2, 16)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, k)
+    assert fa.flash_attention(q, k, k, causal=False).shape == q.shape
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    kv = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="both"):
+        fa.flash_attention(q, kv, kv, q_pos=pos)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, kv, kv, causal=False, q_pos=pos, k_pos=pos)
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attention(q, kv, kv, q_pos=pos.long(), k_pos=pos.long())
+    with pytest.raises(ValueError, match="want"):
+        fa.flash_attention(q, kv, kv, q_pos=pos[:, :4], k_pos=pos[:, :4])
+    with pytest.raises(ValueError, match="no keys"):
+        fa.flash_attention(q, k[:, :0], k[:, :0], causal=False)
 
 
 def test_attention_wrapper_checks_shapes_and_types():

@@ -26,7 +26,9 @@ The flash-attention kernels (B7, on the tensor cores at every head dim:
 wgmma for bfloat16, three split-TF32 mma.sync products a product for
 float32) sum in another order than their plain version (a dense f32
 softmax on cuBLAS), so outputs agree within 2e-5 in float32 and 2e-2 in
-bfloat16 (the reference's own bf16 tolerance).  The counts-only probe (B2) is bit-identical to
+bfloat16 (the reference's own bf16 tolerance), also non-causally at
+other q and k lengths (cross-attention) and causally masked by per-row
+positions.  The counts-only probe (B2) is bit-identical to
 ``bucket_probe`` on both of its routes (table in shared memory, or a
 sample of it), at the budget's edge and at both ends of int32.  The
 SSD kernels (B8, a tensor-core route for bfloat16 at widths that are
@@ -987,6 +989,120 @@ def test_flash_attention_tensor_core_route_takes_misaligned_views(cuda, s,
     assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == \
         {k: int(k == counter) for k in before}
+
+
+def _launched(before, counter):
+    return {k: _build.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == counter) for k in before}
+
+
+@pytest.mark.parametrize("sq", [1, 32, 416])
+@pytest.mark.parametrize("sk", [1, 92, 1500])
+@pytest.mark.parametrize("d,group", [(64, 1), (64, 4), (128, 1), (128, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_cross_lengths_match_plain(cuda, sq, sk, d, group,
+                                                   dtype):
+    """Non-causal attention of Sq queries over Sk keys (an encoder-decoder's
+    cross-attention: whisper's decoder 416 = 3 x 128 + 32 rows against
+    1,500 = 11 x 128 + 92 = 23 x 64 + 28 frames), ragged on both sides,
+    on each type's route, one launch each."""
+    g = torch.Generator(device="cpu").manual_seed(sq * 7 + sk + d + group)
+    q = torch.randn(2, sq, 8, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(2, sk, 8 // group, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    counter = fa.COUNTER[fa.route(dtype, d)]
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa_ref.attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+    assert _launched(before, counter)
+
+
+def _vlm_t(s, patches):
+    """Qwen2-VL's temporal positions: ``patches`` image patches share t = 0,
+    and the text after them resumes at the grid's side."""
+    side = int(np.ceil(np.sqrt(patches)))
+    i = np.arange(s)
+    return np.where(i < patches, 0, side + i - patches)
+
+
+def _positions(pattern, b, s, seed):
+    """(q_pos, k_pos) int32 (b, s) of a named pattern: Qwen2-VL's shared t,
+    positions that fall along the row, random repeats, and rows that no
+    key reaches (k positions past every q position of the first half)."""
+    r = np.random.default_rng(seed)
+    if pattern == "shared_t":
+        qp = np.broadcast_to(_vlm_t(s, min(256, s // 2 + 1)), (b, s))
+    elif pattern == "falling":
+        qp = np.broadcast_to(np.arange(s)[::-1], (b, s))
+    elif pattern == "repeats":
+        qp = r.integers(0, max(s // 4, 1), (b, s))
+    else:
+        qp = np.broadcast_to(np.arange(s), (b, s))
+    kp = qp + s // 2 if pattern == "no_key_rows" else qp
+    return (torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            for a in (qp, kp))
+
+
+@pytest.mark.parametrize("s", [1, 32, 92, 416, 1500])
+@pytest.mark.parametrize("pattern", ["shared_t", "falling", "repeats",
+                                     "no_key_rows"])
+@pytest.mark.parametrize("d,group", [(64, 1), (128, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_position_mask_matches_plain(cuda, s, pattern, d,
+                                                     group, dtype):
+    """Causal attention masked by per-row positions (``q_pos >= k_pos``
+    keeps a key, the reference's mask) on each type's route: every kv tile
+    is loaded and masked, the first tiles of a falling row hold no key of
+    it, and a row that no key reaches averages every key as the plain
+    version does."""
+    q, k, v = _qkv(cuda, 2, s, 8, 8 // group, d, dtype, seed=s + d)
+    qp, kp = (t.to(cuda) for t in _positions(pattern, 2, s, s))
+    counter = fa.COUNTER[fa.route(dtype, d)]
+    before = dict(_build.LAUNCHES)
+    got = fa.flash_attention(q, k, v, q_pos=qp, k_pos=kp)
+    want = fa_ref.attention_plain(q, k, v, q_pos=qp, k_pos=kp)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+    assert _launched(before, counter)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_position_mask_at_the_qwen2_vl_prefill(cuda, dtype):
+    """qwen2-vl's served prefill (4 x 2,000 tokens, 28 heads of 128, GQA 7)
+    with its 256 patches at one t: the position mask against the plain
+    version, and rising positions equal to the index mask bit for bit."""
+    b = 4 if dtype == torch.bfloat16 else 1
+    q, k, v = _qkv(cuda, b, 2000, 28, 4, 128, dtype, seed=28)
+    qp, kp = (t.to(cuda) for t in _positions("shared_t", b, 2000, 0))
+    got = fa.flash_attention(q, k, v, q_pos=qp, k_pos=kp)
+    want = fa_ref.attention_plain(q, k, v, q_pos=qp, k_pos=kp)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+    del want
+    rising = torch.arange(2000, dtype=torch.int32, device=cuda).expand(b, -1)
+    rising = rising.contiguous()
+    assert torch.equal(fa.flash_attention(q, k, v, q_pos=rising,
+                                          k_pos=rising),
+                       fa.flash_attention(q, k, v))
+
+
+def test_flash_attention_refuses_causal_cross_lengths_and_bad_positions(cuda):
+    q, k, v = _qkv(cuda, 1, 32, 4, 2, 64, torch.bfloat16)
+    k2, v2 = (t.repeat(1, 2, 1, 1) for t in (k, v))
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k2, v2)
+    pos = torch.arange(32, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(ValueError, match="both"):
+        fa.flash_attention(q, k, v, q_pos=pos)
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attention(q, k, v, q_pos=pos.long(), k_pos=pos.long())
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_attention(q, k, v, q_pos=pos.cpu(), k_pos=pos.cpu())
 
 
 # ---- SSD chunk scan (B8) --------------------------------------------------- #

@@ -307,15 +307,6 @@ def test_serve_cli_turns_smoke_off(monkeypatch):
     assert seen["smoke"] is True and seen["device"] is None
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
-def test_families_outside_the_slice_raise(arch):
-    cfg = smoke_config(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="A11"):
-        registry.bundle(cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve(arch, device="cpu")
-
-
 def test_convert_unstacks_superblocks_in_layer_order():
     cfg = dataclasses.replace(smoke_config(get_arch("llama3-8b")),
                               num_layers=3)

@@ -357,14 +357,88 @@ def test_generate_is_deterministic_for_the_hybrid_family():
     assert a.shape == (2, 4) and torch.equal(a, b)
 
 
-def test_explicit_positions_must_rise():
+def _shared_t_positions(case):
+    """M-RoPE (t, h, w) positions whose t does not rise strictly: the
+    smallest input on which the port once refused what the reference
+    computes, two patches at t = 0, and an 8-token row whose four patches
+    of a 2 x 2 grid share t = 0 before the text resumes at the grid's
+    side, as Qwen2-VL lays out an image."""
+    if case == "two patches":
+        return np.array([[[0, 0, 0], [0, 1, 1]]], np.int32)
+    t = [0, 0, 0, 0, 2, 3, 4, 5]
+    h = [0, 0, 1, 1, 2, 3, 4, 5]
+    w = [0, 1, 0, 1, 2, 3, 4, 5]
+    return np.stack([t, h, w], -1)[None].astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["two patches", "four patches at t = 0"])
+def test_positions_that_do_not_rise_match_reference(case):
+    """A prefill whose t positions repeat masks attention by position,
+    as the reference does (``q_pos >= k_pos``); the port's logits equal
+    the reference's ``prefill_fn`` within ``LOGIT_REL`` (patch embeddings
+    over the 8-token row's four patches)."""
+    arch = "qwen2-vl-7b"
+    params = _reference(arch)[0]
+    pos = _shared_t_positions(case)
+    b, s = pos.shape[:2]
+    cfg_r = r_smoke(r_get_arch(arch))
+    shape = ShapeConfig("serve", s, b, "prefill")
+    rules = resolve(cfg_r, _mesh(), shape)
+    r = np.random.default_rng(6)
+    toks = r.integers(0, cfg_r.vocab_size, (b, s)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)}
+    extra = {"positions": torch.from_numpy(pos)}
+    if s == 8:
+        ve = (0.02 * r.normal(size=(b, 4, cfg_r.d_model))).astype(np.float32)
+        batch["vision_embeds"] = jnp.asarray(ve, jnp.bfloat16)
+        extra["vision_embeds"] = torch.from_numpy(ve).bfloat16()
+    want, _ = r_transformer.prefill_fn(
+        cfg_r, jax.tree.map(jnp.asarray, params), batch,
+        r_registry.make_cache(cfg_r, shape, rules), rules, exact_counts=True)
+    mb, model, _ = _port_model(arch, params)
+    with torch.inference_mode():
+        got, _ = mb.prefill_fn(model, torch.from_numpy(toks).long(),
+                               registry.make_cache(mb.cfg, b, s), **extra)
+    assert np.isfinite(_np(got)).all()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("rising", [True, False])
+def test_only_positions_that_do_not_rise_mask_by_position(rising,
+                                                          monkeypatch):
+    """Positions that rise strictly along every row keep the index mask
+    (every attention call gets no positions, so the card launches what it
+    launched before); others reach every attention layer's call as int32
+    (B, S) positions, their t component."""
+    from repro_torch.models import attention as attention_mod
     cfg = smoke_config(get_arch("qwen2-vl-7b"))
     mb, model = build_model(cfg, torch.device("cpu"), seed=0)
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    pos = torch.zeros(1, 8, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="rise"):
-        mb.prefill_fn(model, toks, registry.make_cache(cfg, 1, 8),
-                      positions=pos)
+    seen = []
+    plain = attention_mod.attend
+
+    def spy(q, k, v, **kw):
+        seen.append(kw)
+        return plain(q, k, v, **kw)
+    monkeypatch.setattr(attention_mod, "attend", spy)
+    ve, pos = _vlm_inputs(cfg, B, 40, 4)
+    if not rising:
+        patches = _shared_t_positions("four patches at t = 0")
+        pos = np.concatenate([np.broadcast_to(patches, (B, 8, 3)),
+                              pos[:, 8:]], 1)
+    with torch.inference_mode():
+        mb.prefill_fn(model, torch.zeros(B, 40, dtype=torch.long),
+                      registry.make_cache(cfg, B, 40),
+                      vision_embeds=torch.from_numpy(ve).bfloat16(),
+                      positions=torch.from_numpy(pos))
+    assert len(seen) == cfg.num_layers
+    for kw in seen:
+        assert kw["causal"] is True
+        if rising:
+            assert kw["q_pos"] is None and kw["k_pos"] is None
+        else:
+            assert kw["q_pos"].dtype == torch.int32
+            np.testing.assert_array_equal(kw["q_pos"].numpy(), pos[..., 0])
+            assert kw["k_pos"] is kw["q_pos"]
 
 
 # --------------------------------------------------------------------------- #

@@ -159,7 +159,8 @@ Phases, each of which must pass or the script exits non-zero:
    tolerances), two launches bit-identical, each timed with its three
    passes.  Then llama3-8b (32
    layers), stablelm-3b (32), mamba2-780m (48), granite-moe-3b-a800m (32)
-   and qwen2-vl-7b (28) through ``serve`` at full depth, and
+   and qwen2-vl-7b (28), granite-8b (36) and internlm2-20b (48) through
+   ``serve`` at full depth, and
    llama4-scout-17b-a16e and jamba-v0.1-52b through ``build_model`` and
    ``generate`` at 8 layers (``LM_DEPTH``: 214 GB and 104 GB of bf16
    weights against one 80 GB card; jamba's 8 are one period of its
@@ -177,7 +178,8 @@ Phases, each of which must pass or the script exits non-zero:
    decode step equals the 2,000-token prefill's last logits within
    ``TF_TOL`` of their largest magnitude in bf16 and within
    ``TF_TOL_F32`` on an f32 copy of the weights (llama4-scout's at 4
-   layers, ``LM_F32_DEPTH``), at capacity factor E / k for the MoE
+   layers and internlm2-20b's at 24, ``LM_F32_DEPTH``), at capacity
+   factor E / k for the MoE
    models, where nothing drops; a 2-layer full-width model on the card
    equals the same weights on the CPU (the plain path) over a 512-token
    prompt within ``CARD_CPU_TOL`` of the largest logit: the MoE models on
@@ -197,7 +199,27 @@ Phases, each of which must pass or the script exits non-zero:
    cross-attentions over the frames), the same path checks (the
    card-vs-CPU one at 2 encoder and 2 decoder layers over 416 tokens).
    B7 is also timed at whisper's three shapes and masked by position at
-   qwen2-vl's.
+   qwen2-vl's, and B7 and B8 at the training step's shapes below;
+15. train: LM training.  stablelm-3b (32 layers, 2.80 B params, B7 bf16
+   at D 80, batch 1) and mamba2-780m (48 layers, B8's tensor cores,
+   batch 4) at full width and depth through ``launch.train.train`` at
+   the reference's 4,096-token sequence (its global batch of 256 cut to
+   what one card holds beside the AdamW state), 6 AdamW steps on one
+   repeated batch: finite, falling loss, finite norms, exactly 2 B7 / B8
+   launches a mixer layer a step (the forward and the checkpoint's
+   recompute), the warm step median and the first, tokens/s, 6 N tokens
+   over step time against 989 TFLOP/s, peak memory, and one more step
+   profiled with the device time of the plain backwards (the kernels'
+   ``torch.autograd.Function``s recompute the plain version), after
+   which every parameter's gradient must be non-zero; one AdamW
+   step of granite-moe-3b-a800m, qwen2-vl-7b and whisper-large-v3 at 2
+   layers and full width, every gradient non-zero; the loss and every
+   gradient of 2-layer f32 copies of stablelm-3b and mamba2-780m on the
+   card against the CPU's plain autograd (``TRAIN_LOSS_TOL``,
+   ``TRAIN_GRAD_TOL``); why jamba-v0.1-52b trains only on the CPU; and
+   checkpoints: ``run_with_restarts`` with an injected failure and
+   ``train(..., ckpt_dir=)`` run twice, each equal to an uninterrupted
+   run bit for bit.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -209,11 +231,13 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -251,7 +275,8 @@ MIB = 1 << 20
 SGD_TOL = dict(rtol=1e-4, atol=1e-5)
 LM_ARCHS = ("llama3-8b", "stablelm-3b", "mamba2-780m",
             "granite-moe-3b-a800m", "qwen2-vl-7b", "llama4-scout-17b-a16e",
-            "jamba-v0.1-52b", "whisper-large-v3")
+            "jamba-v0.1-52b", "whisper-large-v3", "granite-8b",
+            "internlm2-20b")
 LM_BATCH, LM_PROMPT_LEN, LM_GEN_LEN = 4, 2_000, 32
 # whisper's decoder context is 448 positions (its published
 # max_target_positions): a 416-token prompt and 32 greedy tokens fill it,
@@ -261,10 +286,11 @@ LM_WARM_RUNS = 3
 # the profiled run generates 8 tokens (a prefill and 7 decode steps): the
 # profiler's own bookkeeping of a 32-token run took 67-86 s a model
 LM_PROFILE_TOKENS = 8
-# the moe, hybrid and vlm families (added last) take one warm run each,
-# which keeps the script inside its time
+# the moe, hybrid and vlm families and the two dense models added after
+# them take one warm run each, which keeps the script inside its time
 LM_WARM_RUNS_OF = {"granite-moe-3b-a800m": 1, "qwen2-vl-7b": 1,
-                   "llama4-scout-17b-a16e": 1, "jamba-v0.1-52b": 1}
+                   "llama4-scout-17b-a16e": 1, "jamba-v0.1-52b": 1,
+                   "granite-8b": 1, "internlm2-20b": 1}
 # depth cuts, and why: one 80 GB card, no model parallelism in the port
 LM_DEPTH = {
     "llama4-scout-17b-a16e": (8, "48 layers of bf16 weights are 214 GB"),
@@ -272,8 +298,9 @@ LM_DEPTH = {
                           "one period of its schedule"),
 }
 # the f32 copy of the teacher-forced check, where the served depth's does
-# not fit: llama4-scout's 8 layers are 79 GB in f32
-LM_F32_DEPTH = {"llama4-scout-17b-a16e": 4}
+# not fit: llama4-scout's 8 layers are 79 GB in f32, internlm2-20b's 48
+# layers 79 GB too (24 of them and its embeddings take 42 GB)
+LM_F32_DEPTH = {"llama4-scout-17b-a16e": 4, "internlm2-20b": 24}
 LM_CHECK_LEN = 512               # the 2-layer card-vs-CPU prompt
 # the MoE models' card-vs-CPU check: rows of LM_CHECK_LEN tokens in f32,
 # compared where every routing decision agrees; the experts must agree
@@ -299,6 +326,27 @@ SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
 TF_TOL = 1e-1
 TF_TOL_F32 = 1e-3
 CARD_CPU_TOL = 2e-2
+# phase `train`: the reference's train_4k sequence (SHAPES["train_4k"]);
+# its global batch of 256 is cut to what one 80 GB card holds with the
+# full AdamW state: stablelm-3b's 2.80 B params x (2 + 2 + 12) bytes of
+# bf16 params and grads and f32 master, m and v are 45 GB before
+# activations, so batch 1; mamba2-780m's 0.78 B take 12.5 GB, batch 4
+TRAIN_SEQ = 4_096
+TRAIN_FULL = {"stablelm-3b": 1, "mamba2-780m": 4}
+TRAIN_STEPS = 6
+# the other families take one AdamW step at 2 layers and full width (an
+# encoder-decoder 2 encoder and 2 decoder layers, over its 448-position
+# decoder context, as many frames as tokens as the reference's launcher
+# draws them); batch 1
+TRAIN_CUT = ("granite-moe-3b-a800m", "qwen2-vl-7b", "whisper-large-v3")
+TRAIN_SEQ_OF = {"whisper-large-v3": 448}
+# the 2-layer full-width f32 card-vs-CPU check of the loss and every
+# gradient: the card's B7 (split TF32) and B8 forwards differ from the
+# plain ones by f32 rounding (2e-5 and 1e-4 of their outputs), which
+# the backward carries into every gradient
+TRAIN_CHECK_LEN = 256
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 2e-3
 
 
 def log(*args):
@@ -856,11 +904,15 @@ def spread(warm) -> str:
             f"{len(warm)} runs")
 
 
-def profile_once(run, top: int = 5) -> str:
+def profile_once(run, top: int = 5, labels=()) -> str:
     """One more warm run under ``torch.profiler``: the device's busy time
     (the sum of kernel and copy self times) against the run's wall time,
-    and the kernels that took most of it.  The profiler's own cost
-    lengthens the wall time, so the idle share is an upper bound."""
+    and the kernels that took most of it; with ``labels`` (profiler
+    ranges: the train step's plain backwards), the device time of the
+    kernels run under each.  A range also shows as a device-side span
+    (its first kernel to its last, gaps included), which the busy time
+    leaves out.  The profiler's own cost lengthens the wall time, so the
+    idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -870,18 +922,26 @@ def profile_once(run, top: int = 5) -> str:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    dev = [e for e in events if e.device_type == cuda and e.key not in labels]
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         return "profile: no device time traced (not measured)"
     dev.sort(key=lambda e: -e.self_device_time_total)
     heads = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
                       f" x{e.count}" for e in dev[:top])
+    parts = ""
+    for label in labels:
+        mine = [e for e in events if e.key == label and e.device_type == cpu]
+        us = sum(e.device_time_total for e in mine)
+        parts += (f"{label} {us / 1e3:.1f} ms device over "
+                  f"{sum(e.count for e in mine)} calls ({us / busy_us:.1%} of "
+                  "busy); ")
     return (f"profile: device busy {busy_us / 1e3:.3f} ms of "
             f"{wall_us / 1e3:.3f} ms wall (idle <= "
             f"{1 - busy_us / wall_us:.0%}), {sum(e.count for e in dev)} "
-            f"device ops; top: {heads}")
+            f"device ops; {parts}top: {heads}")
 
 
 def phase_ssb(dev, tables):
@@ -2818,13 +2878,15 @@ def phase_lm_kernels(dev):
     qwen2-vl's patch prefills, its 256 patches at one t, in both types;
     whisper's encoder (non-causal over 1,500 frames), decoder
     self-attention (causal over 416 tokens) and cross-attention (416
-    queries over the 1,500 frames) in bf16 at batch 4 and f32 at batch 1)
-    and B8's two at the mamba2-780m ones and at jamba's (ds 16, 128
-    heads): the served bf16 prefill and the f32 check's batch of one,
-    against their plain versions, timed (B8 also pass by pass).  Returns
-    the 24 JSON rows; a row's ``counted_in`` names the run of
-    ``phase_lm`` whose launches it reports, and its ``counter`` the
-    counter of the route its inputs take."""
+    queries over the 1,500 frames) in bf16 at batch 4 and f32 at batch 1;
+    stablelm-3b's training step, bf16, 1 x ``TRAIN_SEQ``) and B8's two
+    at the mamba2-780m ones and at jamba's (ds 16, 128 heads): the served
+    bf16 prefill and the f32 check's batch of one (and mamba2-780m's
+    training step, bf16, 4 x ``TRAIN_SEQ``), against their plain
+    versions, timed (B8 also pass by pass).  Returns the 26 JSON rows; a
+    row's ``counted_in`` names the run of ``phase_lm`` or ``phase_train``
+    whose launches it reports, and its ``counter`` the counter of the
+    route its inputs take."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
@@ -2990,6 +3052,14 @@ def phase_lm_kernels(dev):
                randn(b, s, kvh, d, dtype=dtype), counted_in, q_pos=t,
                k_pos=t, kind="position")
 
+    # the training step's (phase `train`): stablelm-3b's batch of one at
+    # TRAIN_SEQ, the forward and the checkpoint's recompute
+    cfg = get_arch("stablelm-3b")
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b7_row("flash_attention_tc_d80_train", "stablelm-3b train",
+           randn(1, TRAIN_SEQ, h, d), randn(1, TRAIN_SEQ, kvh, d),
+           randn(1, TRAIN_SEQ, kvh, d), "stablelm-3b train")
+
     # whisper-large-v3: the encoder over 1,500 frames (non-causal), the
     # decoder's causal self-attention over its prompt and its
     # cross-attention to the frames; bf16 at the served batch, f32 at the
@@ -3010,15 +3080,19 @@ def phase_lm_kernels(dev):
                    causal=kind == "causal", kind=kind)
 
     # the served prefills (bf16, batch 4) take the tensor-core route; the
-    # f32 teacher-forced check's prefill (batch 1) the CUDA-core route
-    for name, arch, bsz, dtype, counted_in in (
+    # f32 teacher-forced check's prefill (batch 1) the CUDA-core route; the
+    # training step (phase `train`) the tensor-core route at TRAIN_SEQ
+    for name, arch, bsz, dtype, counted_in, s in (
             ("ssd_tc", "mamba2-780m", LM_BATCH, torch.bfloat16,
-             "mamba2-780m"),
-            ("ssd", "mamba2-780m", 1, torch.float32, "mamba2-780m f32 check"),
+             "mamba2-780m", LM_PROMPT_LEN),
+            ("ssd", "mamba2-780m", 1, torch.float32, "mamba2-780m f32 check",
+             LM_PROMPT_LEN),
             ("ssd_tc_jamba", "jamba-v0.1-52b", LM_BATCH, torch.bfloat16,
-             "jamba-v0.1-52b"),
+             "jamba-v0.1-52b", LM_PROMPT_LEN),
             ("ssd_jamba", "jamba-v0.1-52b", 1, torch.float32,
-             "jamba-v0.1-52b f32 check")):
+             "jamba-v0.1-52b f32 check", LM_PROMPT_LEN),
+            ("ssd_tc_train", "mamba2-780m", TRAIN_FULL["mamba2-780m"],
+             torch.bfloat16, "mamba2-780m train", TRAIN_SEQ)):
         cfg = get_arch(arch)
         nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
             cfg.ssm_state
@@ -3040,7 +3114,7 @@ def phase_lm_kernels(dev):
         tname = str(dtype).split(".")[-1]
         rt = ssd_kernels.route(dtype, hd, ds)
         counter = ssd_kernels.COUNTER[rt]
-        if counter != name.replace("_jamba", ""):
+        if counter != name.replace("_jamba", "").replace("_train", ""):
             raise AssertionError(f"{tname} at hd {hd}, ds {ds} takes the "
                                  f"{rt} route, not {name}")
         y, hf = ssd_kernels.ssd_scan(*args)
@@ -3528,6 +3602,331 @@ def phase_lm(dev, seed):
     return counts, kinds_of
 
 
+def _train_full(dev, arch, batch, seed):
+    """``launch.train.train`` at full width and depth on the card:
+    ``TRAIN_STEPS`` AdamW steps on one repeated batch of ``batch`` x
+    ``TRAIN_SEQ`` tokens, finite and falling loss, finite norms, two
+    launches a mixer layer a step (the forward and the checkpoint's
+    recompute); then one more step profiled, after which every
+    parameter's gradient must be non-zero.  Returns the launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd import ssd as ssd_kernels
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    stats = {}
+    model, losses = train_mod.train(
+        arch, smoke=False, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+        global_batch=batch, seed=seed, device=dev, log_every=1,
+        overfit_batch=True, stats=stats)
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    label = f"{arch} train"
+    _expect_launches(label, counts, cfg, 2 * TRAIN_STEPS,
+                     "flash_attention_tc", "ssd_tc")
+    steps = stats["steps"]
+    if not all(np.isfinite([st["loss"], st["grad_norm"]]).all()
+               for st in steps):
+        raise AssertionError(f"{label}: non-finite loss or norm {steps}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall on one "
+                             f"repeated batch: {losses}")
+    warm = sorted(st["s"] for st in steps[1:])
+    med = warm[len(warm) // 2]
+    tokens = batch * TRAIN_SEQ
+    n = sum(p.numel() for p in model.parameters())
+    log(f"train {arch}: {cfg.num_layers} layers, {n:,} params, {batch} x "
+        f"{TRAIN_SEQ} tokens a step, AdamW, {TRAIN_STEPS} steps on one "
+        f"repeated batch: loss {' -> '.join(f'{x:.4f}' for x in losses)}; "
+        f"grad norm {steps[0]['grad_norm']:.3f} -> "
+        f"{steps[-1]['grad_norm']:.3f}; first step {steps[0]['s'] * 1e3:.1f}"
+        f" ms, warm median of {len(warm)} {med * 1e3:.1f} ms [min "
+        f"{warm[0] * 1e3:.1f}, max {warm[-1] * 1e3:.1f}], "
+        f"{tokens / med:,.0f} tokens/s, 6 N tokens / step time "
+        f"{6 * n * tokens / med / 1e12:.1f} TFLOP/s = "
+        f"{6 * n * tokens / med / BF16_FLOPS_PER_S:.1%} of "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} bf16; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches {counts}")
+    mb = registry.bundle(cfg)
+    opt = AdamW()
+    step = make_train_step(mb, model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    batch_ = {k: v.to(dev) for k, v in synthetic_batch(
+        DataConfig(cfg.vocab_size, TRAIN_SEQ, batch, seed), 0).items()}
+    log("    one more step " + profile_once(
+        lambda: step(state, batch_), top=4,
+        labels=(fa.PLAIN_BACKWARD, ssd_kernels.PLAIN_BACKWARD)))
+    # that step's first moment m is 0.1 x the clipped gradient
+    dead = [n for n, t in state["m"].items() if not bool(t.any())]
+    if dead:
+        raise AssertionError(f"{label}: no gradient reaches {dead}")
+    log(f"    every one of its {len(state['m'])} parameters' gradients "
+        "non-zero (read from AdamW's first moment)")
+    del model, step, state, batch_
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_cut(dev, arch, seed):
+    """One AdamW step of ``arch`` at 2 layers (2 encoder and 2 decoder
+    layers) and full width, batch 1: finite loss and norm, two launches a
+    mixer layer, and every parameter's gradient non-zero (read from the
+    first moment m, 0.1 x the clipped gradient after one step).  Returns
+    the launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import build_model
+    from repro_torch.train.data import DataConfig, Pipeline
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2)
+    if cfg.is_enc_dec:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=2)
+    s = TRAIN_SEQ_OF.get(arch, TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    mb, model = build_model(cfg, dev, seed=seed)
+    opt = AdamW()
+    step = make_train_step(mb, model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    batch = Pipeline(DataConfig(cfg.vocab_size, s, 1, seed), dev,
+                     extras_fn=train_mod._extras_fn(
+                         cfg, model.embed.dtype)).next()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    label = f"{arch} train (2 layers)"
+    _expect_launches(label, counts, cfg, 2, "flash_attention_tc", "ssd_tc")
+    m = {k: float(v) for k, v in metrics.items()}
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+        raise AssertionError(f"{label}: non-finite metrics {m}")
+    dead = [n for n, t in state["m"].items() if not bool(t.any())]
+    if dead:
+        raise AssertionError(f"{label}: no gradient reaches {dead}")
+    extra = (f"{s} frames and " if cfg.is_enc_dec else
+             f"{cfg.n_vision_patches} patch embeddings, " if
+             cfg.family == "vlm" else "")
+    log(f"train {arch}, 2{' + 2' if cfg.is_enc_dec else ''} layers at full "
+        f"width, {sum(p.numel() for p in model.parameters()):,} params, one "
+        f"AdamW step over {extra}1 x {s} tokens: loss {m['loss']:.4f} (ce "
+        f"{m['ce']:.4f}, aux {m['aux']:.4f}), grad norm "
+        f"{m['grad_norm']:.3f}, {dt * 1e3:.1f} ms (the first step), every "
+        f"parameter's gradient non-zero; launches {counts}")
+    del model, step, state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_card_vs_cpu(dev, arch, seed):
+    """The loss and every gradient of a 2-layer full-width f32 copy of
+    ``arch`` on the card (the kernels' f32 routes and their autograd
+    Functions, under the checkpointed layers) against the same weights on
+    the CPU (plain autograd), over ``TRAIN_CHECK_LEN`` tokens: loss within
+    ``TRAIN_LOSS_TOL``, each gradient within ``TRAIN_GRAD_TOL`` of its
+    leaf's largest magnitude, each non-zero on the card; B7 / B8 launched
+    twice a layer."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import build_model
+    from repro_torch.train.data import DataConfig, synthetic_batch
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2)
+    t0 = time.perf_counter()
+    mb, card = build_model(cfg, dev, seed=seed)
+    _, cpu = build_model(cfg, torch.device("cpu"), seed=seed)
+    card.float(), cpu.float()
+    cpu.load_state_dict(card.state_dict())
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, TRAIN_CHECK_LEN, 1,
+                                       seed), 0)
+    out = {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        d = next(model.parameters()).device
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        _build.reset_launches()
+        loss, _ = mb.loss_fn(model, {k: v.to(d) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[where] = (float(loss.detach()), {n: g.cpu() for n, g in
+                                    zip(params, grads)},
+                      dict(_build.LAUNCHES))
+    label = f"{arch} (2 layers, f32) train"
+    _expect_launches(label + " on the card", out["card"][2], cfg, 2,
+                     "flash_attention_f32", "ssd")
+    loss_card, loss_cpu = out["card"][0], out["cpu"][0]
+    if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_TOL * abs(loss_cpu):
+        raise AssertionError(f"{label}: loss {loss_card} on the card, "
+                             f"{loss_cpu} on the CPU")
+    worst, dead = (0.0, ""), []
+    for n, g_cpu in out["cpu"][1].items():
+        g_card = out["card"][1][n]
+        if not bool(g_card.any()):
+            dead.append(n)
+        rel = float((g_card - g_cpu).abs().max()) / max(
+            float(g_cpu.abs().max()), 1e-30)
+        worst = max(worst, (rel, n))
+    if dead:
+        raise AssertionError(f"{label}: no gradient reaches {dead} on the "
+                             "card")
+    if not worst[0] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"{label}: gradient {worst[1]} differs by "
+                             f"{worst[0]:.3e} of its largest magnitude > "
+                             f"{TRAIN_GRAD_TOL}")
+    log(f"train {arch}, 2 layers at full width, f32, 1 x {TRAIN_CHECK_LEN} "
+        f"tokens: card vs CPU loss {loss_card:.6f} / {loss_cpu:.6f}; "
+        f"{len(out['cpu'][1])} gradients, each non-zero on the card, the "
+        f"worst {worst[1]} at {worst[0]:.3e} of its largest magnitude "
+        f"(bound {TRAIN_GRAD_TOL}); launches {out['card'][2]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def _train_restarts(dev, seed, tmp):
+    """Checkpoints on the card, at smoke size (a cut depth and width):
+    ``run_with_restarts`` over stablelm-3b's train step with a failure
+    injected after a checkpoint, its losses and final weights equal to an
+    uninterrupted run's bit for bit and its last checkpoint restoring the
+    final state bit for bit; and ``launch.train.train`` with a checkpoint
+    directory run twice on mamba2-780m (2 steps, then on to 4), its
+    losses and step-4 checkpoint equal to one 4-step run's."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.fault_tolerance import run_with_restarts
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_loop import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = smoke_config(get_arch("stablelm-3b"))
+    dc = DataConfig(cfg.vocab_size, 128, 2, seed)
+
+    def supervised(name, fail_at):
+        mb, model = build_model(cfg, dev, seed=seed)
+        opt = AdamW(lr=1e-3, warmup=2)
+        train_step = make_train_step(mb, model, opt)
+        losses = {}
+
+        def step_fn(step, state):
+            model.load_state_dict(state["params"])
+            opt_state, m = train_step(state["opt"], {
+                k: v.to(dev) for k, v in synthetic_batch(dc, step).items()})
+            losses[step] = float(m["loss"])
+            return {"step": state["step"] + 1, "params": model.state_dict(),
+                    "opt": opt_state}
+        state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                 "params": model.state_dict(),
+                 "opt": opt.init(dict(model.named_parameters()))}
+        state, stats = run_with_restarts(
+            step_fn, state, n_steps=6, ckpt_dir=str(tmp / name),
+            ckpt_every=2, fail_at=fail_at)
+        return state, stats, [losses[i] for i in range(6)]
+
+    state, stats, losses = supervised("restarts", [3])
+    clean, _, clean_losses = supervised("clean", [])
+    if not (losses == clean_losses and stats.restarts == 1
+            and all(torch.equal(a, b) for (_, a), (_, b) in
+                    zip(checkpoint.flatten(state),
+                        checkpoint.flatten(clean)))):
+        raise AssertionError(f"run_with_restarts on the card: losses "
+                             f"{losses} against {clean_losses}, {stats}")
+    back, man = checkpoint.restore(tmp / "restarts", state)
+    if man["step"] != 6 or not all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(checkpoint.flatten(back), checkpoint.flatten(state))):
+        raise AssertionError("the last checkpoint does not restore the final "
+                             "state bit for bit")
+    log(f"train checkpoints: run_with_restarts, stablelm-3b smoke on the "
+        f"card, 6 steps, checkpoint every 2, a failure injected at step 3: "
+        f"{stats}; losses equal the uninterrupted run's bit for bit "
+        f"({', '.join(f'{x:.4f}' for x in losses)}), final state too; the "
+        f"last checkpoint ({len(man['leaves'])} leaves) restores it bit for "
+        "bit")
+    kw = dict(smoke=True, seq_len=128, global_batch=2, ckpt_every=2,
+              seed=seed, device=dev, log_every=100)
+    _, whole = train_mod.train("mamba2-780m", steps=4,
+                               ckpt_dir=str(tmp / "whole"), **kw)
+    _, first = train_mod.train("mamba2-780m", steps=2,
+                               ckpt_dir=str(tmp / "split"), **kw)
+    model, rest = train_mod.train("mamba2-780m", steps=4,
+                                  ckpt_dir=str(tmp / "split"), **kw)
+    like = {"params": model.state_dict()}
+    a, _ = checkpoint.restore(tmp / "whole", like, step=4)
+    b, _ = checkpoint.restore(tmp / "split", like, step=4)
+    if not (first + rest == whole and all(
+            torch.equal(a["params"][k], b["params"][k]) for k in a["params"])):
+        raise AssertionError(f"train() resumed: losses {first} + {rest} "
+                             f"against {whole}")
+    log(f"train checkpoints: launch.train.train, mamba2-780m smoke on the "
+        f"card, 2 steps and then on to 4 from its checkpoint: losses "
+        f"{', '.join(f'{x:.4f}' for x in first + rest)} equal one 4-step "
+        f"run's bit for bit, and so does the step-4 checkpoint; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_train(dev, seed):
+    """LM training on the card: stablelm-3b and mamba2-780m at full width
+    and depth through ``launch.train.train`` (``_train_full``); one step
+    of each other trainable family at 2 layers (``_train_cut``); the f32
+    card-vs-CPU gradients (``_train_card_vs_cpu``); why jamba trains on
+    the CPU only; checkpoints and restarts (``_train_restarts``).  Returns
+    the launch counts by run."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+
+    t_phase = time.perf_counter()
+    counts = {}
+    for arch, batch in TRAIN_FULL.items():
+        t0 = time.perf_counter()
+        counts[f"{arch} train"] = _train_full(dev, arch, batch, seed)
+        log(f"    {arch} train took {time.perf_counter() - t0:.1f} s")
+    for arch in TRAIN_CUT:
+        counts[f"{arch} train"] = _train_cut(dev, arch, seed)
+    for arch in TRAIN_FULL:
+        _train_card_vs_cpu(dev, arch, seed)
+    jamba = get_arch("jamba-v0.1-52b")
+    whole = dataclasses.replace(jamba, num_layers=math.lcm(
+        jamba.attn_every, jamba.moe_every))
+    n = whole.param_count()
+    log(f"train jamba-v0.1-52b: on the CPU only (tests/"
+        f"test_torch_train_models.py): its smallest whole schedule is "
+        f"{whole.num_layers} layers, {n / 1e9:.1f} B params, "
+        f"{16 * n / 1e9:.0f} GB with bf16 params and grads and the f32 "
+        f"AdamW master, m and v, against one card of 80 GB; its parts (B7, "
+        f"B8, the MoE) train on the card in the models above")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        _train_restarts(dev, seed, Path(tmp))
+    torch.cuda.empty_cache()
+    log(f"train: phase took {time.perf_counter() - t_phase:.2f} s")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3580,6 +3979,8 @@ def main(argv=None) -> int:
     log("lm kernels against their plain versions at the serving shapes:")
     lm_rows = phase_lm_kernels(dev)
     lm_counts, lm_kinds = phase_lm(dev, args.seed)
+    train_counts = phase_train(dev, args.seed)
+    lm_counts.update(train_counts)
     rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows
 
     key = {"select_range": "select", "select_f32": "select_f32",

@@ -2,8 +2,9 @@
 from the same numpy columns that build the reference's tables, so both
 systems hold identical data; a reference cost model's calibration
 snapshot becomes the port's overlay, so both price with the same
-constants; and a reference LM's params become the port model's
-``state_dict``, so both compute from the same weights."""
+constants; and a reference LM's params (and its AdamW state) become the
+port model's ``state_dict`` (and the port's optimizer state), so both
+compute, and train, from the same weights."""
 from __future__ import annotations
 
 from typing import Mapping, Optional
@@ -95,4 +96,17 @@ def lm_params_from_arrays(cfg, tree: Mapping) -> dict:
             for sb in range(np.shape(stacked)[0]):
                 out[prefix.format(sb * p + j) + name] = _param_tensor(
                     stacked[sb])
+    return out
+
+
+def adamw_state_from_arrays(cfg, state: Mapping) -> dict:
+    """The reference's AdamW state (``{"master", "m", "v", "count"}`` as
+    numpy, each tree in its params' layout) as the port's
+    ``train.optimizer.AdamW`` state: each tree named as
+    ``lm_params_from_arrays`` names the params, ``count`` an int32 0-dim
+    tensor."""
+    out = {k: lm_params_from_arrays(cfg, state[k])
+           for k in ("master", "m", "v")}
+    out["count"] = torch.tensor(int(np.asarray(state["count"])),
+                                dtype=torch.int32)
     return out

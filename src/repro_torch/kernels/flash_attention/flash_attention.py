@@ -29,6 +29,17 @@ such as ``buf[1:]``) into fresh memory.
 ``flash_attention`` launches a kernel for CUDA tensors and takes
 ``ref.attention_plain`` for CPU tensors; there is no fallback from the
 card to the plain version.
+
+Training differentiates through ``FlashAttentionFn``: its forward is the
+kernel's launch (``_launch``, the one seam a CPU test may swap for the
+plain version), its backward runs ``ref.attention_plain`` again on the
+saved q, k, v (and positions) under autograd and returns that function's
+gradients, a batch row and a group of kv heads at a time so that the f32
+scores of a slice stay within ``BACKWARD_SCORE_BYTES``.  The reference
+has no backward kernel either: its training attention is XLA's dense or
+chunked softmax attention, which XLA differentiates
+(``repro/models/attention.py:184-205``).  The backward is plain torch on
+the card by design, under the profiler label ``PLAIN_BACKWARD``.
 """
 from __future__ import annotations
 
@@ -45,6 +56,10 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128)      # instantiated in the CUDA source
 ENTRY = {"tc": "flash_attention_tc_fwd", "tf32x3": "flash_attention_f32_fwd"}
 COUNTER = {"tc": "flash_attention_tc", "tf32x3": "flash_attention_f32"}
 Q_TILE = 128                               # q rows a block, both routes
+# the f32 scores one slice of the plain backward holds (it holds a few
+# tensors of that size while autograd runs)
+BACKWARD_SCORE_BYTES = 1 << 30
+PLAIN_BACKWARD = "flash_attention.plain_backward"
 
 
 def route(dtype: torch.dtype, d: int) -> str:
@@ -99,12 +114,79 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Sk, KV, D), float32 or bfloat16 ->
     attention output like q, through the CUDA kernel (the plain version on
-    the CPU).  ``causal`` needs Sq == Sk; ``q_pos`` and ``k_pos`` (int32,
-    (B, Sq) and (B, Sk)) make its mask one by position."""
+    the CPU), differentiable on both.  ``causal`` needs Sq == Sk;
+    ``q_pos`` and ``k_pos`` (int32, (B, Sq) and (B, Sk)) make its mask one
+    by position."""
     _check(q, k, v, causal, q_pos, k_pos)
     if q.device.type == "cpu":
         return ref.attention_plain(q, k, v, causal=causal, q_pos=q_pos,
                                    k_pos=k_pos)
+    return FlashAttentionFn.apply(q, k, v, causal, q_pos, k_pos)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel forward (``_launch``) and the plain version's gradients
+    (``plain_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_pos, k_pos):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        return _launch(q, k, v, causal, q_pos, k_pos)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, go):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        with torch.profiler.record_function(PLAIN_BACKWARD):
+            gq, gk, gv = plain_backward(q, k, v, go, causal=ctx.causal,
+                                        q_pos=q_pos, k_pos=k_pos,
+                                        needs=ctx.needs_input_grad[:3])
+        return gq, gk, gv, None, None, None
+
+
+def plain_backward(q, k, v, go, *, causal: bool, q_pos=None, k_pos=None,
+                   needs=(True, True, True)):
+    """The gradients of ``ref.attention_plain`` at (q, k, v) against the
+    output's gradient ``go`` (None where ``needs`` says no), computed by
+    autograd over slices of batch rows and kv heads (with their q heads)
+    whose f32 scores stay within ``BACKWARD_SCORE_BYTES``."""
+    b, sq, h, _ = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    out = [torch.empty_like(t) if need else None
+           for t, need in zip((q, k, v), needs)]
+    if not any(needs) or q.numel() == 0:
+        return out
+    head_bytes = max(g * sq * sk * 4, 1)
+    heads = max(1, min(kvh, BACKWARD_SCORE_BYTES // head_bytes))
+    rows = max(1, BACKWARD_SCORE_BYTES // (head_bytes * kvh)) \
+        if heads == kvh else 1
+    for r0 in range(0, b, rows):
+        r = slice(r0, r0 + rows)
+        for k0 in range(0, kvh, heads):
+            kv_h = slice(k0, k0 + heads)
+            q_h = slice(k0 * g, (k0 + heads) * g)
+            parts = [t[r, :, sl].detach().requires_grad_(need)
+                     for t, sl, need in ((q, q_h, needs[0]),
+                                         (k, kv_h, needs[1]),
+                                         (v, kv_h, needs[2]))]
+            with torch.enable_grad():
+                o = ref.attention_plain(
+                    *parts, causal=causal,
+                    q_pos=None if q_pos is None else q_pos[r],
+                    k_pos=None if k_pos is None else k_pos[r])
+                grads = iter(torch.autograd.grad(
+                    o, [p for p in parts if p.requires_grad], go[r, :, q_h]))
+            for dst, sl, need in zip(out, (q_h, kv_h, kv_h), needs):
+                if need:
+                    dst[r, :, sl] = next(grads)
+    return out
+
+
+def _launch(q, k, v, causal, q_pos, k_pos) -> torch.Tensor:
+    """One launch of the route's kernel on checked CUDA tensors, counted;
+    the output like q."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     named = [(q, "q"), (k, "k"), (v, "v")]

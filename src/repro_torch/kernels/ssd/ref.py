@@ -57,8 +57,10 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         cum = torch.cumsum(a_neg * dtc, dim=-1)            # (B, nh, Q)
         xdt = xc * dtc[..., None]
         seg = cum[..., :, None] - cum[..., None, :]
-        scores = (cc @ bc.transpose(-1, -2)) * torch.where(
-            keep, torch.exp(seg), 0.0)
+        # masked before the exp, so no inf above the diagonal reaches
+        # autograd (0 x inf is NaN in the backward)
+        scores = (cc @ bc.transpose(-1, -2)) * torch.exp(
+            torch.where(keep, seg, float("-inf")))
         y = scores @ xdt
         y = y + torch.exp(cum)[..., None] * (cc @ h.transpose(-1, -2))
         ys.append(y + dsk * xc)
@@ -134,8 +136,8 @@ def ssd_chunk_scan_plain(x, dt, a_log, b, c, d_skip, h_in, *,
     cum = _cum(dtc, a_log)
     xc, bc, cc = (_chunks(t, nh, chunk) for t in (x, b, c))
     keep = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    seg = torch.where(keep, torch.exp(cum[..., :, None] - cum[..., None, :]),
-                      0.0)
+    seg = torch.exp(torch.where(keep, cum[..., :, None] - cum[..., None, :],
+                                float("-inf")))
     scores = (cc @ bc.transpose(-1, -2)) * seg * dtc[..., None, :]
     y = sum(t @ xc for t in _split(scores, split_bf16))
     y = y + torch.exp(cum)[..., None] * sum(

@@ -22,6 +22,18 @@ the plain version.  ``run_passes`` launches chosen passes on buffers the
 caller gives, for the card tests and per-pass timing; it counts no
 launch.  The wrapper allocates the scratch (``scratch``) with
 ``torch.empty``.
+
+Training differentiates through ``SSDScanFn``: its forward is
+``_scan`` (the kernels' launch, the one seam a CPU test may swap for the
+plain version), its backward runs the plain version again on the saved
+inputs under autograd and returns that function's gradients.  The
+reference has no backward kernel either: it trains through
+``ssd_chunked``, which XLA differentiates.  The backward takes the plain
+version in its chunk-parallel form, ``ref.ssd_chunked_plain`` (the
+kernel's three passes, which ``ssd_plain``'s chunk-by-chunk loop
+equals), as ``ssd_chunked`` is chunk-parallel: a few dozen batched ops a
+layer where the loop takes some 60 a chunk.  It is plain torch on the
+card by design, under the profiler label ``PLAIN_BACKWARD``.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ MAX_CHUNK = 128
 TC_STEP = 16                    # the tensor-core route's width step
 PASSES = ("chunk_states", "state_pass", "chunk_scan")
 COUNTER = {"tc": "ssd_tc", "cuda_core": "ssd"}
+PLAIN_BACKWARD = "ssd.plain_backward"
 
 
 def route(dtype: torch.dtype, hd: int, ds: int) -> str:
@@ -135,11 +148,58 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              chunk: int = 128):
     """x (B, S, nh, hd); dt (B, S, nh) f32; a_log, d_skip (nh,) f32; b, c
     (B, S, ng, ds) of x's type -> (y like x, final state (B, nh, hd, ds)
-    f32), through the CUDA kernels (the plain version on the CPU)."""
+    f32), through the CUDA kernels (the plain version on the CPU),
+    differentiable on both."""
     _check(x, dt, a_log, b, c, d_skip, chunk)
     if x.device.type == "cpu":
         return ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
     _check_card(x, dt, a_log, b, c, d_skip, chunk)
+    return SSDScanFn.apply(x, dt, a_log, b, c, d_skip, chunk)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The kernels' forward (``_scan``) and the plain version's gradients
+    (``plain_backward``); the final state's gradient may be absent."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
+        return _scan(x, dt, a_log, b, c, d_skip, chunk)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy, gh):
+        with torch.profiler.record_function(PLAIN_BACKWARD):
+            grads = plain_backward(*ctx.saved_tensors, gy, gh,
+                                   chunk=ctx.chunk,
+                                   needs=ctx.needs_input_grad[:6])
+        return (*grads, None)
+
+
+def plain_backward(x, dt, a_log, b, c, d_skip, gy, gh, *, chunk: int = 128,
+                   needs=(True,) * 6):
+    """The gradients of the plain version (``ref.ssd_chunked_plain``) at
+    its inputs against those of y and the final state (either may be
+    None), by autograd; None where ``needs`` says no or neither output
+    has a gradient."""
+    live = [(i, g) for i, g in enumerate((gy, gh)) if g is not None]
+    if not any(needs) or not live:
+        return [None] * 6
+    ins = [t.detach().requires_grad_(need)
+           for t, need in zip((x, dt, a_log, b, c, d_skip), needs)]
+    with torch.enable_grad():
+        outs = ref.ssd_chunked_plain(*ins, chunk=chunk)
+        grads = iter(torch.autograd.grad(
+            [outs[i] for i, _ in live], [t for t in ins if t.requires_grad],
+            [g for _, g in live]))
+    return [next(grads) if need else None for need in needs]
+
+
+def _scan(x, dt, a_log, b, c, d_skip, chunk):
+    """One ``ssd_fwd`` call (its three passes) on checked CUDA tensors,
+    counted: (y like x, the final state (B, nh, hd, ds) f32)."""
     bsz, s, nh, hd = x.shape
     ds = b.shape[3]
     y = torch.empty_like(x)

@@ -1,5 +1,5 @@
 """Shared model primitives: the init rule, norms, RoPE and M-RoPE, logits
-over a padded vocab, and the gated and plain MLPs.
+over a padded vocab and the loss over them, and the gated and plain MLPs.
 
 Matmuls run in the param dtype (bf16); norms, RoPE angles, softmax and
 logits accumulate in f32, as in the reference (``repro.models.common``).
@@ -131,6 +131,26 @@ def logits_fn(embed: torch.Tensor, unembed: Optional[torch.Tensor],
     model reads the embedding table transposed."""
     table = embed.t() if unembed is None else unembed
     return x.float() @ table.float()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  vocab_size: int, z_loss: float = 0.0) -> torch.Tensor:
+    """The mean token loss, f32: logits (B, S, padded vocab), targets (B,
+    S) integer.  Columns past ``vocab_size`` are masked to -1e30 before
+    the logsumexp; a token's loss is the logsumexp less its gold logit,
+    plus ``z_loss`` times the squared logsumexp where that is non-zero
+    (the reference's ``common.cross_entropy``)."""
+    logits = logits.float()
+    pv = logits.shape[-1]
+    if pv > vocab_size:
+        keep = torch.arange(pv, device=logits.device) < vocab_size
+        logits = torch.where(keep, logits, -1e30)
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()
 
 
 # --------------------------------------------------------------------------- #

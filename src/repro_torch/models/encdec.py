@@ -16,6 +16,13 @@ causal self-attention through the KV cache and cross-attention to the
 frames, each a launch a layer.  ``decode_fn`` takes one token against
 both caches.  The caches are ``{"self": [KVCache per decoder layer],
 "cross": {"k", "v"}}``.
+
+Training (``loss_fn``): the encoder over the frames, then the decoder
+over the tokens with no cache, each decoder layer computing its cross k
+and v from the encoder output itself (out of place, so autograd
+differentiates them; the reference recomputes them inside its scan body
+alike), every layer under ``torch.utils.checkpoint``, then the cross
+entropy; the aux loss is a zero f32 scalar.
 """
 from __future__ import annotations
 
@@ -26,10 +33,13 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention, KVCache, init_cache
-from repro_torch.models.common import MLP, apply_norm, logits_fn, param
+from repro_torch.models.common import (
+    MLP, apply_norm, cross_entropy, logits_fn, param,
+)
 
 
 def sinusoid(s: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
@@ -75,9 +85,22 @@ class DecoderLayer(nn.Module):
         self.norm2 = param(cfg.d_model, device=device)
         self.ffn = MLP(cfg, cfg.d_ff, device)
 
-    def forward(self, x: torch.Tensor, cache: KVCache, cross_kv: tuple):
-        """Returns (x, the advanced cache)."""
+    def cross_proj(self, enc_out: torch.Tensor) -> tuple:
+        """(k, v), each (B, S_enc, KV, hd): the encoder output through this
+        layer's cross-attention wk and wv, out of place."""
+        b, s, d = enc_out.shape
+        w = self.cross_attn
+        return tuple((enc_out @ t.reshape(d, -1)).view(b, s, *t.shape[1:])
+                     for t in (w.wk, w.wv))
+
+    def forward(self, x: torch.Tensor, cache: Optional[KVCache],
+                cross_kv: Optional[tuple] = None,
+                enc_out: Optional[torch.Tensor] = None):
+        """Returns (x, the advanced cache or None).  The cross k and v are
+        ``cross_kv``'s, or this layer's projections of ``enc_out``."""
         cfg = self.cfg
+        if cross_kv is None:
+            cross_kv = self.cross_proj(enc_out)
         mix, cache = self.self_attn(apply_norm(cfg, x, self.norm1), None,
                                     cache=cache)
         x = x + mix
@@ -112,15 +135,16 @@ class EncoderDecoder(nn.Module):
         return logits_fn(self.embed, getattr(self, "unembed", None), x)
 
 
-def encode(model: EncoderDecoder, frames: torch.Tensor) -> torch.Tensor:
+def encode(model: EncoderDecoder, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """frames (B, S_enc, d_model) -> the encoder output, in the model's
-    type: frames plus sinusoidal positions, the encoder layers, then
-    ``enc_norm``."""
+    type: frames plus sinusoidal positions, the encoder layers (each under
+    ``torch.utils.checkpoint`` with ``remat``), then ``enc_norm``."""
     dtype = model.embed.dtype
     x = frames.to(dtype)
     x = x + sinusoid(x.shape[1], x.shape[2], device=x.device).to(dtype)
     for layer in model.encoder:
-        x = layer(x)
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return apply_norm(model.cfg, x, model.enc_norm)
 
 
@@ -144,22 +168,49 @@ def cross_kv(model: EncoderDecoder, enc_out: torch.Tensor,
     return out
 
 
-def decode_trunk(model: EncoderDecoder, tokens: torch.Tensor, cross: dict,
-                 self_caches: List[KVCache], cache_pos: int):
+def decode_trunk(model: EncoderDecoder, tokens: torch.Tensor,
+                 cross: Optional[dict], self_caches: Optional[List[KVCache]],
+                 cache_pos: int, *, enc_out: Optional[torch.Tensor] = None,
+                 remat: bool = False):
     """The decoder over tokens (B, S) at positions ``cache_pos`` onwards:
     token embeddings plus sinusoidal positions, each layer's self-attention
     through its cache and cross-attention to ``cross``, then
-    ``final_norm``.  Returns (x (B, S, d_model), the advanced caches)."""
+    ``final_norm``.  Returns (x (B, S, d_model), the advanced caches).
+    Training passes no caches and ``enc_out`` in place of ``cross``:
+    each layer projects its own cross k and v from it, under
+    ``torch.utils.checkpoint`` with ``remat``; the caches are then
+    None."""
     cfg = model.cfg
     x = F.embedding(tokens, model.embed)
     x = x + sinusoid(tokens.shape[1], cfg.d_model, cache_pos,
                      x.device).to(x.dtype)
+    if self_caches is None:
+        for layer in model.decoder:
+            x = checkpoint(layer, x, None, None, enc_out,
+                           use_reentrant=False)[0] if remat \
+                else layer(x, None, None, enc_out)[0]
+        return apply_norm(cfg, x, model.final_norm), None
     new_caches = []
     for i, layer in enumerate(model.decoder):
         c = dataclasses.replace(self_caches[i], pos=cache_pos)
         x, c = layer(x, c, (cross["k"][i], cross["v"][i]))
         new_caches.append(c)
     return apply_norm(cfg, x, model.final_norm), new_caches
+
+
+def loss_fn(model: EncoderDecoder, batch: dict, *, remat: bool = True,
+            **_):
+    """The training loss of ``batch`` (``frames`` (B, S_enc, d_model),
+    ``tokens`` and ``targets`` (B, S)): the mean cross entropy of the
+    decoder's logits over the padded vocab -> (loss, {"ce", "aux"}), the
+    aux a zero f32 scalar (other keywords, such as ``aux_weight``, are
+    ignored, as the reference ignores them)."""
+    enc_out = encode(model, batch["frames"], remat=remat)
+    x, _ = decode_trunk(model, batch["tokens"], None, None, 0,
+                        enc_out=enc_out, remat=remat)
+    ce = cross_entropy(model.logits(x), batch["targets"],
+                       model.cfg.vocab_size)
+    return ce, {"ce": ce, "aux": ce.new_zeros(())}
 
 
 def prefill_fn(model: EncoderDecoder, tokens: torch.Tensor, caches: dict, *,

@@ -10,7 +10,9 @@ ids, and an assignment at or past the capacity ``c`` is dropped (its gate
 is zeroed).  Kept assignments are copied into one (E, B, C) slot buffer
 whose spare last row takes every dropped one, the experts' gated FFN runs
 over all slots, and each token sums its kept slots' outputs times their
-gates in the activation type.  One device holds every expert, so the
+gates in the activation type; a dropped assignment reads the last slot's
+output times its zero gate.  Every step is out of place, so a trainer
+differentiates the layer as it stands.  One device holds every expert, so the
 reference's padded experts never arise (``padded_experts(1)`` is the
 expert count).
 """
@@ -40,8 +42,8 @@ def aux_loss(probs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The Switch / GShard load-balance loss of a routing (``MoE.route``'s
     probs (B, S, E) and ids (B, S, k)), from per-row assignment counts: the
     f32 scalar the reference's ``moe_apply`` returns beside y for its
-    trainer.  Serving never reads it, so ``MoE.forward`` does not compute
-    it."""
+    trainer, and ``MoE.forward`` with ``with_aux``.  The gradient reaches
+    the router through the mean probabilities only."""
     b, s, k = ids.shape
     e = probs.shape[-1]
     counts = torch.zeros(b, e, dtype=torch.float32, device=probs.device)
@@ -90,13 +92,15 @@ class MoE(nn.Module):
         return probs, gate, ids
 
     def forward(self, x: torch.Tensor, *,
-                capacity_factor: Optional[float] = None):
-        """x (B, S, d) -> y (B, S, d) in x's type."""
+                capacity_factor: Optional[float] = None,
+                with_aux: bool = False):
+        """x (B, S, d) -> y (B, S, d) in x's type, or (y, the aux loss)
+        ``with_aux``."""
         cfg = self.cfg
         b, s, d = x.shape
         e, k, f = cfg.n_experts, cfg.top_k, cfg.moe_d_ff
         c = capacity(cfg, s, capacity_factor)
-        _, gate, ids = self.route(x)
+        probs, gate, ids = self.route(x)
         pos = positions_in_expert(ids)
         keep = pos < c
         bi = torch.arange(b, device=x.device)[:, None, None]
@@ -109,12 +113,12 @@ class MoE(nn.Module):
         gu = torch.bmm(buf[:-1].view(e, b * c, d),
                        self.w_in.reshape(e, d, 2 * f)).unflatten(-1, (2, f))
         h = _act(cfg, gu[..., 0, :]) * gu[..., 1, :]
-        # the expert outputs, and a zero row where the dropped slots read
-        out = x.new_zeros(e * b * c + 1, d)
-        torch.bmm(h, self.w_down, out=out[:-1].view(e, b * c, d))
+        out = torch.bmm(h, self.w_down).view(e * b * c, d)
         # combine: each token's kept outputs times their gates (zero where
-        # dropped) in x's type, summed over its k assignments
-        y = (out[slot] * (gate * keep).to(x.dtype)[..., None]).sum(2)
+        # dropped, which read the last slot) in x's type, summed over its
+        # k assignments
+        y = (out[slot.clamp(max=e * b * c - 1)]
+             * (gate * keep).to(x.dtype)[..., None]).sum(2)
         if cfg.n_shared_experts:
             y = y + self.shared(x)
-        return y
+        return (y, aux_loss(probs, ids)) if with_aux else y

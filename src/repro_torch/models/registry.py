@@ -1,7 +1,7 @@
 """Model registry: one entry point per servable architecture.
 
-``bundle(cfg)`` returns how to build the model on a device and its
-prefill and decode functions: the encoder-decoder family's
+``bundle(cfg)`` returns how to build the model on a device, its training
+loss and its prefill and decode functions: the encoder-decoder family's
 (``models.encdec``) or the decoder-only families' (``models.transformer``).
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ from repro_torch.models import encdec, transformer
 class ModelBundle:
     cfg: ArchConfig
     build: Callable           # (device) -> the model, weights uninitialised
+    loss_fn: Callable         # (model, batch, **kw) -> (loss, {"ce", "aux"})
     prefill_fn: Callable      # (model, tokens, caches, **inputs) -> (logits,
                               #  caches); inputs: vision_embeds, positions,
                               #  capacity_factor, or an enc-dec's frames
@@ -29,11 +30,13 @@ class ModelBundle:
 def bundle(cfg: ArchConfig) -> ModelBundle:
     if cfg.is_enc_dec:
         return ModelBundle(cfg=cfg, build=partial(encdec.EncoderDecoder, cfg),
+                           loss_fn=encdec.loss_fn,
                            prefill_fn=encdec.prefill_fn,
                            decode_fn=encdec.decode_fn)
     return ModelBundle(
         cfg=cfg,
         build=partial(transformer.Transformer, cfg),
+        loss_fn=transformer.loss_fn,
         prefill_fn=transformer.prefill_fn,
         decode_fn=transformer.decode_fn,
     )

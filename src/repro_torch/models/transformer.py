@@ -17,6 +17,12 @@ prefill whose positions rise strictly along every row gets the same mask
 by index, and any other (Qwen2-VL's image patches share one t) passes
 its positions to every attention layer, which masks by them.  The
 encoder-decoder family (whisper) is ``models.encdec``.
+
+Training (``loss_fn``) runs the same layers with the MoE layers' aux
+losses summed, each layer inside ``torch.utils.checkpoint`` (the
+reference's ``remat=True`` with ``nothing_saveable``: a layer keeps only
+its input, and the backward runs its forward again, launching its
+kernel a second time).
 """
 from __future__ import annotations
 
@@ -27,10 +33,13 @@ from typing import List, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention, KVCache, init_cache
-from repro_torch.models.common import MLP, apply_norm, logits_fn, param
+from repro_torch.models.common import (
+    MLP, apply_norm, cross_entropy, logits_fn, param,
+)
 from repro_torch.models.mamba import Mamba, SSMCache, init_ssm_cache_spec
 from repro_torch.models.moe import MoE
 
@@ -71,9 +80,11 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Cache], *,
                 capacity_factor: Optional[float] = None,
-                mask_pos: Optional[torch.Tensor] = None):
-        """Returns (x, the advanced cache); ``mask_pos`` reaches the
-        attention's causal mask."""
+                mask_pos: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
+        """Returns (x, the advanced cache), and the layer's MoE aux loss
+        (a zero f32 scalar without an MoE) ``with_aux``; ``mask_pos``
+        reaches the attention's causal mask."""
         h = apply_norm(self.cfg, x, self.norm1)
         if hasattr(self, "attn"):
             mix, new_c = self.attn(h, positions, cache=cache,
@@ -81,14 +92,18 @@ class Block(nn.Module):
         else:
             mix, new_c = self.ssm(h, cache=cache)
         x = x + mix
+        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
         if self.cfg.family != "ssm":
             h = apply_norm(self.cfg, x, self.norm2)
             if hasattr(self, "moe"):
-                y = self.moe(h, capacity_factor=capacity_factor)
+                y = self.moe(h, capacity_factor=capacity_factor,
+                             with_aux=with_aux)
+                if with_aux:
+                    y, aux = y
             else:
                 y = self.ffn(h)
             x = x + y
-        return x, new_c
+        return (x, new_c, aux) if with_aux else (x, new_c)
 
 
 def mask_positions(positions: torch.Tensor) -> Optional[torch.Tensor]:
@@ -127,14 +142,17 @@ class Transformer(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 caches: Optional[List[Cache]] = None, cache_pos: int = 0,
                 vision_embeds: Optional[torch.Tensor] = None,
-                capacity_factor: Optional[float] = None):
-        """tokens (B, S) -> (x_final (B, S, d_model), new caches or None).
+                capacity_factor: Optional[float] = None,
+                with_aux: bool = False, remat: bool = False):
+        """tokens (B, S) -> (x_final (B, S, d_model), new caches or None),
+        and ``with_aux`` the MoE layers' aux losses summed (f32).
         ``vision_embeds``
         (B, P, d_model) replace the first P positions' embeddings.  The
         positions default to ``cache_pos`` onwards, as (B, S, 3) copies
         under M-RoPE; explicit positions that do not rise strictly along
         a row mask attention by position.  ``capacity_factor`` reaches
-        every MoE layer."""
+        every MoE layer.  ``remat`` runs each layer (without a cache)
+        under ``torch.utils.checkpoint``."""
         b, s = tokens.shape
         x = F.embedding(tokens, self.embed)
         if vision_embeds is not None:
@@ -148,15 +166,40 @@ class Transformer(nn.Module):
         else:
             mask_pos = mask_positions(positions)
         new_caches = [] if caches is not None else None
+        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
         for i, layer in enumerate(self.layers):
             c = caches[i] if caches is not None else None
             if isinstance(c, KVCache):          # written from cache_pos on
                 c = dataclasses.replace(c, pos=cache_pos)
-            x, c = layer(x, positions, c, capacity_factor=capacity_factor,
-                         mask_pos=mask_pos)
+            kw = dict(capacity_factor=capacity_factor, mask_pos=mask_pos,
+                      with_aux=with_aux)
+            if remat and c is None:
+                out = checkpoint(layer, x, positions, None,
+                                 use_reentrant=False, **kw)
+            else:
+                out = layer(x, positions, c, **kw)
+            x, c = out[:2]
+            if with_aux:
+                aux = aux + out[2]
             if caches is not None:
                 new_caches.append(c)
-        return apply_norm(self.cfg, x, self.final_norm), new_caches
+        x = apply_norm(self.cfg, x, self.final_norm)
+        return (x, new_caches, aux) if with_aux else (x, new_caches)
+
+
+def loss_fn(model: Transformer, batch: dict, *, aux_weight: float = 0.01,
+            remat: bool = True):
+    """The training loss of ``batch`` (``tokens`` and ``targets`` (B, S),
+    optional ``positions`` and ``vision_embeds``): the mean cross entropy
+    over the padded vocab plus ``aux_weight`` times the MoE layers' aux
+    losses -> (loss, {"ce", "aux"}), f32 scalars; every layer runs under
+    ``torch.utils.checkpoint`` unless ``remat`` is off."""
+    x, _, aux = model(batch["tokens"], positions=batch.get("positions"),
+                      vision_embeds=batch.get("vision_embeds"),
+                      with_aux=True, remat=remat)
+    ce = cross_entropy(model.logits(x), batch["targets"],
+                       model.cfg.vocab_size)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill_fn(model: Transformer, tokens: torch.Tensor,

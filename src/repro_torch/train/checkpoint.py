@@ -1,0 +1,128 @@
+"""Checkpoints of a training run, the counterpart of
+``repro.train.checkpoint``, in its layout:
+
+  * ``<dir>/step_XXXXXXXX/`` holds ``manifest.json`` (step, time, extra,
+    and per leaf its key, path, shape and logical dtype) and
+    ``shards.npz`` (one array a leaf; bf16 is stored as f32, exactly);
+  * a write goes to ``.tmp_step_XXXXXXXX`` and is published by one
+    rename, so a crash mid-write never leaves a broken latest step;
+  * the last ``keep`` checkpoints are kept.
+
+The tree is nested dicts, lists and tuples of tensors (a model's
+``state_dict`` beside the optimizer state); a leaf's path is the
+reference's ``keystr`` form (``['params']['embed']``), and ``restore``
+puts every leaf back into the structure of ``like`` with its type, on
+its device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+
+def flatten(tree, prefix: str = "") -> list:
+    """[(path, tensor)] in the tree's order, each path in the reference's
+    ``keystr`` form."""
+    if isinstance(tree, dict):
+        items = ((f"[{k!r}]", v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    return [leaf for key, v in items for leaf in flatten(v, prefix + key)]
+
+
+def _unflatten(like, leaves):
+    """``like``'s structure with its leaves taken from the iterator."""
+    if isinstance(like, dict):
+        return {k: _unflatten(v, leaves) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def _dir(ckpt_dir, step: int) -> Path:
+    return Path(ckpt_dir) / f"step_{step:08d}"
+
+
+def save(ckpt_dir: str | Path, step: int, tree: Any, *,
+         extra: Optional[dict] = None, keep: int = 3) -> Path:
+    ckpt_dir = Path(ckpt_dir)
+    final = _dir(ckpt_dir, step)
+    tmp = ckpt_dir / f".tmp_step_{step:08d}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+
+    manifest = {"step": step, "time": time.time(), "extra": extra or {},
+                "leaves": []}
+    arrays = {}
+    for i, (name, leaf) in enumerate(flatten(tree)):
+        t = leaf.detach().cpu()
+        logical_dtype = str(t.dtype).removeprefix("torch.")
+        if t.dtype == torch.bfloat16:          # npz-safe storage as f32
+            t = t.float()
+        key = f"leaf_{i:05d}"
+        arrays[key] = t.numpy()
+        manifest["leaves"].append(
+            {"key": key, "path": name, "shape": list(t.shape),
+             "dtype": logical_dtype})
+    np.savez(tmp / "shards.npz", **arrays)
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    if final.exists():
+        shutil.rmtree(final)
+    os.rename(tmp, final)                      # atomic publish
+
+    # retention
+    ckpts = sorted(d for d in ckpt_dir.iterdir()
+                   if d.name.startswith("step_"))
+    for old in ckpts[:-keep]:
+        shutil.rmtree(old)
+    return final
+
+
+def latest_step(ckpt_dir: str | Path) -> Optional[int]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = [int(d.name.split("_")[1]) for d in ckpt_dir.iterdir()
+             if d.name.startswith("step_")]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None):
+    """(the checkpoint's tree in the structure of ``like``, its
+    manifest): every leaf found by ``like``'s path, of ``like``'s shape,
+    type and device; the latest step when ``step`` is None."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    d = _dir(ckpt_dir, step)
+    manifest = json.loads((d / "manifest.json").read_text())
+    by_path = {m["path"]: m for m in manifest["leaves"]}
+    out = []
+    with np.load(d / "shards.npz") as data:
+        for name, leaf in flatten(like):
+            m = by_path.get(name)
+            if m is None:
+                raise KeyError(f"checkpoint missing leaf {name}")
+            arr = data[m["key"]]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"{name}: checkpoint shape {arr.shape}, "
+                                 f"want {tuple(leaf.shape)}")
+            out.append(torch.from_numpy(arr).to(device=leaf.device,
+                                                dtype=leaf.dtype))
+    return _unflatten(like, iter(out)), manifest
+
+
+def manifest_of(ckpt_dir: str | Path, step: int) -> dict:
+    return json.loads((_dir(ckpt_dir, step) / "manifest.json").read_text())

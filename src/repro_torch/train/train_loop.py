@@ -1,4 +1,5 @@
-"""Serve-step factories: prefill and greedy decode over a built model."""
+"""Step factories over a built model: the train step (loss, gradients,
+optimizer update), prefill and greedy decode."""
 from __future__ import annotations
 
 from typing import Callable
@@ -6,6 +7,32 @@ from typing import Callable
 import torch
 
 from repro_torch.models.registry import ModelBundle
+
+
+def make_train_step(mb: ModelBundle, model, opt, **loss_kw) -> Callable:
+    """``train_step(opt_state, batch) -> (opt_state, metrics)``: the
+    bundle's loss of ``batch`` (``loss_kw`` passed on), the gradients of
+    every named parameter (zero where the loss does not reach one, as the
+    reference's ``jax.grad`` gives), and ``opt.update`` in place on the
+    model's parameters and the state.  ``metrics``: ``loss``, ``ce``,
+    ``aux`` and ``grad_norm`` (the unclipped global norm), f32 0-dim
+    tensors on the model's device.  Makes every parameter require its
+    gradient."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+
+    def train_step(opt_state, batch):
+        loss, metrics = mb.loss_fn(model, batch, **loss_kw)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        _, opt_state, gnorm = opt.update(grads, opt_state, params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss.detach(), grad_norm=gnorm)
+        return opt_state, metrics
+    return train_step
 
 
 def make_prefill_step(mb: ModelBundle, model) -> Callable:

@@ -38,6 +38,13 @@ bfloat16; y rounded to bfloat16 within one rounding, 1.6e-2), each of
 their three passes with its plain pass, and two launches give the same
 bits.  A 2-layer smoke model's logits on the card equal
 its CPU logits within 2e-2: every bf16 product rounds on its own path.
+On a CUDA tensor that requires grad, B7 and B8 launch once and give an
+output with a ``grad_fn``; their gradients (the plain version's, which
+the backward recomputes) equal plain autograd's within 1e-5 in float32
+and 2e-2 in bfloat16 of their largest magnitude, and a 2-layer f32 smoke
+model's loss and gradients on the card equal the CPU's within 1e-5 and
+1e-3 (the kernels' f32 forwards differ from the plain ones by f32
+rounding).
 The selection kernel's float32 entry (B1) is bit-identical to its plain
 version, NaN rows and bounds that round to float32 included, and the
 eager float filter, the shuffle join and ``Executor(shards=4)`` on the
@@ -1554,3 +1561,131 @@ def test_moe_layer_on_the_card_equals_the_cpu(cuda, dtype):
     assert float((y_card - y_cpu).abs().max()) <= tol * float(
         y_cpu.abs().max())
     assert abs(out["card"][3] - out["cpu"][3]) <= 1e-5 * out["cpu"][3]
+
+
+# ---- training: the kernels' autograd Functions ----------------------------- #
+
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# B8's backward is autograd of the chunk-parallel plain version; against
+# the chunk-by-chunk one, a_log's gradient (a sum over every token's decay
+# with cancellations) rounds differently: 9e-5 of its largest magnitude
+# in f32 on the CPU at these inputs
+SSD_ORDER_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _grads_close(got, want, dtype_or_tol):
+    tol = GRAD_TOL.get(dtype_or_tol, dtype_or_tol)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["causal", "cross", "position"])
+def test_flash_attention_gradients_through_the_kernel_match_plain(
+        cuda, d, dtype, kind):
+    """B7 on a CUDA tensor that requires grad: the kernel launches once,
+    its output carries a ``grad_fn``, and its gradients (the plain
+    version's, recomputed from the saved inputs over slices) equal plain
+    autograd's within ``GRAD_TOL`` of their largest magnitude: the
+    served heads' dims (whisper's 64, stablelm-3b's 80, the GQA models'
+    128), causal, cross lengths, and masked by position."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    b, sq, sk, h, kvh = {"causal": (2, 300, 300, 8, 2),
+                         "cross": (2, 70, 333, 4, 4),
+                         "position": (2, 257, 257, 6, 3)}[kind]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    q, k, v = randn(b, sq, h, d), randn(b, sk, kvh, d), randn(b, sk, kvh, d)
+    kw = dict(causal=kind != "cross")
+    if kind == "position":
+        pos = (torch.arange(sq, device=cuda) // 3).expand(b, sq)
+        kw.update(q_pos=pos.to(torch.int32).contiguous(),
+                  k_pos=pos.to(torch.int32).contiguous())
+    go = randn(b, sq, h, d)
+    ins = [t.requires_grad_() for t in (q, k, v)]
+    _build.reset_launches()
+    out = fa.flash_attention(*ins, **kw)
+    assert out.grad_fn is not None
+    assert _build.LAUNCHES[fa.COUNTER[fa.route(dtype, d)]] == 1
+    got = torch.autograd.grad(out, ins, go)
+    want_out = fa_ref.attention_plain(*ins, **kw)
+    want = torch.autograd.grad(want_out, ins, go)
+    torch.cuda.synchronize()
+    assert float((out - want_out).detach().abs().max()) <= ATTN_TOL[dtype]
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_gradients_through_the_kernel_match_plain(cuda, dtype):
+    """B8 on CUDA tensors that require grad at mamba2-780m's widths (64,
+    ds 128; the tensor-core route in bf16, the CUDA cores in f32) over
+    two whole chunks and a ragged one with strong decays: one launch, a
+    ``grad_fn``, and the plain version's gradients, finite: within
+    ``GRAD_TOL`` of the chunk-parallel form's the backward takes, within
+    ``SSD_ORDER_TOL`` of the chunk-by-chunk form's, with and without the
+    final state's gradient."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bsz, s, nh, hd, ng, ds = 2, 300, 8, 64, 1, 128
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda).to(dt)
+    x, b, c = randn(bsz, s, nh, hd), randn(bsz, s, ng, ds), \
+        randn(bsz, s, ng, ds)
+    dt = torch.rand(bsz, s, nh, generator=g, device=cuda) * 2
+    a_log = torch.log(1 + 15 * torch.rand(nh, generator=g, device=cuda))
+    d_skip = randn(nh, dt=torch.float32)
+    ins = [t.requires_grad_() for t in (x, dt, a_log, b, c, d_skip)]
+    _build.reset_launches()
+    y, h = ssd_kernels.ssd_scan(*ins)
+    assert y.grad_fn is not None
+    assert _build.LAUNCHES[ssd_kernels.COUNTER[
+        ssd_kernels.route(dtype, hd, ds)]] == 1
+    gy, gh = randn(bsz, s, nh, hd), randn(bsz, nh, hd, ds, dt=torch.float32)
+    for plain, tol in ((ssd_ref.ssd_chunked_plain, GRAD_TOL[dtype]),
+                       (ssd_ref.ssd_plain, SSD_ORDER_TOL[dtype])):
+        y_p, h_p = plain(*ins)
+        for outs, wants, grads in (((y, h), (y_p, h_p), (gy, gh)),
+                                   ((y,), (y_p,), (gy,))):
+            got = torch.autograd.grad(outs, ins, grads, retain_graph=True)
+            want = torch.autograd.grad(wants, ins, grads, retain_graph=True)
+            assert all(bool(torch.isfinite(t).all()) for t in got)
+            _grads_close(got, want, tol)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-780m"])
+def test_smoke_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """A 2-layer f32 smoke model's loss and every gradient through
+    ``loss_fn`` (the checkpointed layers, the kernels' f32 routes and
+    their Functions) on the card against the CPU's plain autograd on the
+    same weights: loss within 1e-5, each gradient within 1e-3 of its
+    largest magnitude; B7 / B8 launched twice a layer (the forward and
+    the recompute)."""
+    import dataclasses
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch.serve import build_model
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    cfg = dataclasses.replace(smoke_config(get_arch(arch)), num_layers=2)
+    mb, cpu_model = build_model(cfg, torch.device("cpu"), seed=3)
+    _, card_model = build_model(cfg, cuda, seed=3)
+    cpu_model.float(), card_model.float()
+    card_model.load_state_dict(cpu_model.state_dict())
+    batch = synthetic_batch(DataConfig(cfg.vocab_size, 200, 2, seed=1), 0)
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        params = [p.requires_grad_() for p in model.parameters()]
+        _build.reset_launches()
+        loss, _ = mb.loss_fn(model, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, params)
+        out[dev] = (float(loss.detach()), [t.cpu() for t in grads],
+                    dict(_build.LAUNCHES))
+    kernel = "ssd" if cfg.family == "ssm" else "flash_attention_f32"
+    assert out["cuda"][2][kernel] == 4 and out["cpu"][2][kernel] == 0
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert bool(got.any())
+        assert float((got - want).abs().max()) <= 1e-3 * float(
+            want.abs().max())

@@ -1,5 +1,6 @@
-"""The port's LM serving path (llama3-8b, stablelm-3b, mamba2-780m at
-smoke size) against the JAX reference, on the CPU.
+"""The port's LM serving path (llama3-8b, stablelm-3b, mamba2-780m,
+granite-8b and internlm2-20b at smoke size) against the JAX reference, on
+the CPU.
 
 The reference runs on an Auto-axis mesh; its params, drawn with its own
 init, go through ``convert.lm_params_from_arrays`` into the port, and
@@ -39,6 +40,9 @@ from repro_torch.launch.serve import build_model, serve
 from repro_torch.models import attention, common, mamba, registry
 
 ARCHS = ["llama3-8b", "stablelm-3b", "mamba2-780m"]
+# the other dense models: granite-8b (GQA 4, rope theta 1e7) and
+# internlm2-20b (GQA 6 at full size)
+DENSE = ["granite-8b", "internlm2-20b"]
 REL = 2e-2
 LOGIT_REL = 2e-2
 GAP = 0.05
@@ -237,7 +241,7 @@ def _port_model(arch, params):
                        state_dict=lm_params_from_arrays(cfg, params))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE)
 def test_prefill_and_decode_logits_match_reference(arch):
     params, prompts, steps = _reference(arch)
     mb, model = _port_model(arch, params)
@@ -253,7 +257,7 @@ def test_prefill_and_decode_logits_match_reference(arch):
     assert logits.shape == (B, 1, mb.cfg.padded_vocab(1))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE)
 def test_serve_tokens_match_reference_greedy(arch, capsys):
     params, prompts, steps = _reference(arch)
     cfg = smoke_config(get_arch(arch))
@@ -275,7 +279,7 @@ def test_serve_tokens_match_reference_greedy(arch, capsys):
     assert checked >= B                   # not vacuous: every first token
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["granite-8b", "internlm2-20b"])
+@pytest.mark.parametrize("arch", ARCHS + DENSE)
 def test_teacher_forced_decode_equals_full_prefill(arch):
     cfg = smoke_config(get_arch(arch))
     mb, model = build_model(cfg, torch.device("cpu"), seed=0)

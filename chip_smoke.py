@@ -219,7 +219,26 @@ Phases, each of which must pass or the script exits non-zero:
    ``TRAIN_GRAD_TOL``); why jamba-v0.1-52b trains only on the CPU; and
    checkpoints: ``run_with_restarts`` with an injected failure and
    ``train(..., ckpt_dir=)`` run twice, each equal to an uninterrupted
-   run bit for bit.
+   run bit for bit;
+16. distributed: the distributed layer on a one-rank NCCL group that
+   ``make_host_mesh()`` starts (and the phase destroys).  Context-parallel
+   decode at the reference's long_500k (524,288 positions, batch 1) at
+   jamba-v0.1-52b's widths (32 heads of 128, bf16), the first 500,000
+   valid: ``cp_decode_attention`` against ``cp_decode_reference`` within
+   ``CP_TOL``, then the local part over 4 and 8 slices (one or two with no
+   valid key) combined over the slice dim against one slice within
+   ``CP_F32_TOL``, each timed beside the bound of reading k and v once;
+   ``pipeline_apply`` at one stage over a llama3-8b gated MLP block (4 x
+   2,000 x 4,096 bf16, 4 microbatches), equal to the block microbatch by
+   microbatch bit for bit and to the whole batch within ``PIPE_TOL``;
+   ``compress_tree`` over 3 steps of error feedback on mamba2-780m's
+   gradient-shaped f32 tree (3.1 GB), every residual within half its
+   leaf's step, the first two layers' payloads and residuals equal to the
+   CPU's bit for bit, ``compressed_psum`` equal to ``dequantize(quantize(g
+   + r))``, GB/s printed; mamba2-780m's params saved and restored as
+   DTensors on the card (``restore(shardings=)``), bit for bit, the same
+   global norm, seconds and bytes printed; and every arch's tp-16 specs
+   divisible on both production meshes.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -347,6 +366,28 @@ TRAIN_SEQ_OF = {"whisper-large-v3": 448}
 TRAIN_CHECK_LEN = 256
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3
+# phase `distributed`: context-parallel decode at the reference's
+# long_500k decode (524,288 positions, its stated use) at
+# jamba-v0.1-52b's widths (32 heads of 128), k and v expanded to the
+# query heads, the first 500,000 positions valid, on one rank; then the
+# local part over 4 and 8 slices, with positions 131,072-262,143 invalid
+# so that a slice holds no valid key, combined over the slice dim
+DIST_ARCH = "jamba-v0.1-52b"
+CP_SEQ = 524_288
+CP_VALID = 500_000
+CP_GAP = (131_072, 262_144)
+CP_SLICES = (4, 8)
+CP_TOL = 1e-2           # bf16 outputs, of the largest magnitude
+CP_F32_TOL = 1e-5       # f32 combines of slices, of the largest magnitude
+# the pipeline's stage: one llama3-8b gated MLP block (d_ff 14,336) with
+# its RMS norm and residual, over 4 x 2,000 x 4,096 bf16 in 4 microbatches
+PIPE_ARCH = "llama3-8b"
+PIPE_BATCH, PIPE_SEQ, PIPE_MICRO = 4, 2_000, 4
+PIPE_TOL = 1e-2         # against the block over the whole batch, of the max
+# compression and restore: mamba2-780m's parameters at full width
+COMP_ARCH = "mamba2-780m"
+COMP_STEPS = 3
+COMP_CPU_LAYERS = ("layers.0.", "layers.1.")
 
 
 def log(*args):
@@ -3927,6 +3968,297 @@ def phase_train(dev, seed):
     return counts
 
 
+def _cp_decode(dev, seed, mesh):
+    """Context-parallel decode at long_500k on the one-rank mesh: the whole
+    sequence against the oracle, then the local part over 4 and 8 slices
+    combined over the slice dim against one slice, each timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import context_parallel as cp
+
+    cfg = get_arch(DIST_ARCH)
+    h, d = cfg.n_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+               for shape in ((1, h, 1, d), (1, CP_SEQ, h, d),
+                             (1, CP_SEQ, h, d)))
+    pos = torch.arange(CP_SEQ, device=dev)[None]
+    valid = pos < CP_VALID
+    kv_bytes = 2 * k.numel() * k.element_size()
+    bound_ms = kv_bytes / HBM_BYTES_PER_S * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    got = cp.cp_decode_attention(mesh, "model", q, k, v, valid)
+    want = cp.cp_decode_reference(q, k, v, valid)
+    peak = torch.cuda.max_memory_allocated()
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    if got.shape != q.shape or got.dtype != q.dtype or \
+            not torch.isfinite(got).all() or err > CP_TOL * top:
+        raise AssertionError(f"cp_decode_attention: {tuple(got.shape)} "
+                             f"{got.dtype}, max error {err} of {top}")
+    ms = time_ms(lambda: cp.cp_decode_attention(mesh, "model", q, k, v,
+                                                valid), reps=5, warmup=1)
+    ref_ms = time_ms(lambda: cp.cp_decode_reference(q, k, v, valid),
+                     reps=5, warmup=1)
+    log(f"distributed cp_decode_attention: {DIST_ARCH} widths at long_500k, "
+        f"q 1 x {h} x 1 x {d}, k, v 1 x {CP_SEQ:,} x {h} x {d} bf16 "
+        f"({kv_bytes / 1e9:.2f} GB), first {CP_VALID:,} valid, one "
+        f"{dist.get_backend()} rank: max error {err:.3g} of {top:.3g} "
+        f"against cp_decode_reference; {ms:.3f} ms ({kv_bytes / ms / 1e6:,.1f} GB/s"
+        f" of k and v), the oracle {ref_ms:.3f} ms; bound {bound_ms:.3f} ms "
+        f"(k and v read once), {bound_ms / ms:.1%} of it; peak "
+        f"{peak / 2 ** 30:.2f} GiB")
+    gap = valid & ~((pos >= CP_GAP[0]) & (pos < CP_GAP[1]))
+    whole = cp.combine_stacked(*(t[None] for t in cp.cp_local(q, k, v, gap)))
+    top = float(whole.abs().max())
+    for n in CP_SLICES:
+        bounds = [CP_SEQ * i // n for i in range(n + 1)]
+
+        def sliced(n=n, bounds=bounds):
+            parts = [cp.cp_local(q, k[:, a:b], v[:, a:b], gap[:, a:b])
+                     for a, b in zip(bounds, bounds[1:])]
+            return cp.combine_stacked(*(torch.stack(x) for x in zip(*parts)))
+        empty = [i for i, (a, b) in enumerate(zip(bounds, bounds[1:]))
+                 if not bool(gap[:, a:b].any())]
+        out = sliced()
+        err = float((out - whole).abs().max())
+        if not empty or not torch.isfinite(out).all() or \
+                err > CP_F32_TOL * top:
+            raise AssertionError(f"cp over {n} slices (empty {empty}): "
+                                 f"max error {err} of {top}")
+        ms = time_ms(sliced, reps=3, warmup=1)
+        log(f"    the local part over {n} slices ({', '.join(map(str, empty))}"
+            f" with no valid key), combined over the slice dim: f32 within "
+            f"{err:.3g} of one slice's ({top:.3g} the largest); {ms:.3f} ms "
+            f"({kv_bytes / ms / 1e6:,.1f} GB/s)")
+    del q, k, v, got, want, whole
+    torch.cuda.empty_cache()
+
+
+def _pipeline_block(dev, seed, mesh):
+    """``pipeline_apply`` at one rank over a llama3-8b gated MLP block:
+    equal to the block microbatch by microbatch, bit for bit, and to the
+    block over the whole batch within ``PIPE_TOL``; both timed."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pipeline
+    from repro_torch.models.common import MLP, init_params, rmsnorm
+
+    cfg = get_arch(PIPE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mlp = MLP(cfg, cfg.d_ff, dev)
+    init_params(mlp, gen)
+    params = {"mlp": mlp, "norm": 0.02 * torch.randn(
+        cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)}
+
+    def block(p, x):
+        return x + p["mlp"](rmsnorm(x, p["norm"]))
+
+    x = torch.randn(PIPE_BATCH, PIPE_SEQ, cfg.d_model, generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = pipeline.pipeline_apply(mesh, "model", block, params, x,
+                                      PIPE_MICRO)
+        mb = PIPE_BATCH // PIPE_MICRO
+        by_micro = torch.cat([block(params, x[i:i + mb])
+                              for i in range(0, PIPE_BATCH, mb)])
+        whole = block(params, x)
+        err = float((got.float() - whole.float()).abs().max())
+        top = float(whole.float().abs().max())
+        if not torch.equal(got, by_micro) or err > PIPE_TOL * top:
+            raise AssertionError(
+                f"pipeline_apply: equal to the block by microbatch "
+                f"{torch.equal(got, by_micro)}, max error {err} of {top} "
+                "against the whole batch")
+        ms = time_ms(lambda: pipeline.pipeline_apply(
+            mesh, "model", block, params, x, PIPE_MICRO), reps=5, warmup=1)
+        whole_ms = time_ms(lambda: block(params, x), reps=5, warmup=1)
+    log(f"distributed pipeline_apply: one stage ({PIPE_ARCH} gated MLP, d_ff "
+        f"{cfg.d_ff:,}, RMS norm, residual) over {PIPE_BATCH} x {PIPE_SEQ:,} "
+        f"x {cfg.d_model:,} bf16 in {PIPE_MICRO} microbatches: equal to the "
+        f"block by microbatch bit for bit, within {err:.3g} of the whole "
+        f"batch's ({top:.3g} the largest); {ms:.3f} ms against the block "
+        f"over the whole batch {whole_ms:.3f} ms; bubble fraction at "
+        f"{PIPE_MICRO} microbatches over 4 stages "
+        f"{pipeline.bubble_fraction(PIPE_MICRO, 4):.3f}")
+    del mlp, params, x, got, by_micro, whole
+    torch.cuda.empty_cache()
+
+
+def _gradient_tree(specs, gen, dev):
+    import torch
+    return {k: torch.randn(la.shape, generator=gen, device=dev)
+            for k, la in specs.items()}
+
+
+def _compression(dev, seed, mesh, specs):
+    """``compress_tree`` over ``COMP_STEPS`` steps of error feedback on a
+    mamba2-780m gradient-shaped f32 tree; the first two layers' payloads
+    and residuals against the CPU's; ``compressed_psum`` on the one-rank
+    group against ``dequantize(quantize(g + r))``."""
+    import torch
+    from repro_torch.distributed import compression as comp
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = sum(math.prod(la.shape) for la in specs.values())
+    res = None
+    cpu_res = {k: torch.zeros(la.shape) for k, la in specs.items()
+               if k.startswith(COMP_CPU_LAYERS)}
+    g_sum = {k: torch.zeros(la.shape, device=dev) for k, la in specs.items()}
+    d_sum = {k: torch.zeros(la.shape, device=dev) for k, la in specs.items()}
+    ms = []
+    for step in range(COMP_STEPS):
+        g = _gradient_tree(specs, gen, dev)
+        if res is None:
+            res = comp.zero_residual(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_tree, new_res = comp.compress_tree(g, res)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        cpu_q, cpu_new = comp.compress_tree(
+            {k: g[k].cpu() for k in cpu_res}, cpu_res)
+        for k in cpu_res:
+            (q, s), (cq, cs) = q_tree[k], cpu_q[k]
+            if not (torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+                    and torch.equal(new_res[k].cpu(), cpu_new[k])):
+                raise AssertionError(f"compress_tree step {step}: {k} on the "
+                                     "card differs from the CPU")
+        cpu_res = cpu_new
+        deq = comp.decompress_tree(q_tree)
+        for k in specs:
+            g_sum[k] += g[k]
+            d_sum[k] += deq[k]
+            fed = g[k] + res[k]
+            _, scale = q_tree[k]
+            amax = float(fed.abs().max())
+            bound = float(scale) * 0.5 + 2 * amax * 2 ** -23
+            if float(new_res[k].abs().max()) > bound:
+                raise AssertionError(f"step {step}: {k}'s residual exceeds "
+                                     f"half its step {bound}")
+            track = float((d_sum[k] - g_sum[k]).abs().max())
+            if track > bound + 1e-5 * float(g_sum[k].abs().max()):
+                raise AssertionError(f"step {step}: {k}'s summed signal is "
+                                     f"{track} from the summed gradient")
+        res = new_res
+        del q_tree, deq
+    fn = comp.compressed_psum(mesh, "model")
+    g = _gradient_tree(specs, gen, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, psum_res = fn(g, res)
+    torch.cuda.synchronize()
+    psum_ms = (time.perf_counter() - t0) * 1e3
+    q_tree, want_res = comp.compress_tree(g, res)
+    want = comp.decompress_tree(q_tree)
+    for k in specs:
+        if not (torch.equal(mean[k], want[k])
+                and torch.equal(psum_res[k], want_res[k])):
+            raise AssertionError(f"compressed_psum: {k} is not "
+                                 "dequantize(quantize(g + r))")
+    moved = 13 * n                 # g, r read (f32); q (int8), r written
+    log(f"distributed compression: {COMP_ARCH}'s {len(specs)} leaves, "
+        f"{n:,} f32 values ({4 * n / 1e9:.2f} GB): compress_tree over "
+        f"{COMP_STEPS} steps of error feedback, every residual within half "
+        f"its leaf's step and the summed signal on the summed gradient; "
+        f"the first two layers' payloads, scales and residuals equal the "
+        f"CPU's bit for bit; compressed_psum on the one-rank group equals "
+        f"dequantize(quantize(g + r)) exactly; compress_tree "
+        f"{' / '.join(f'{t:.1f}' for t in ms)} ms a step "
+        f"({moved / min(ms) / 1e6:,.1f} GB/s of {moved / 1e9:.2f} GB read "
+        f"and written), compressed_psum {psum_ms:.1f} ms")
+    del g, res, mean, psum_res, q_tree, want, want_res, g_sum, d_sum
+    torch.cuda.empty_cache()
+
+
+def _restore_onto_mesh(dev, seed, specs, rules, tmp):
+    """mamba2-780m's full-width params saved, then restored as DTensors
+    on the card's mesh: local tensors and global norm bit for bit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import global_norm
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params = {k: (0.02 * torch.randn(la.shape, generator=gen, device=dev))
+              .to(la.dtype) for k, la in specs.items()}
+    t0 = time.perf_counter()
+    path = checkpoint.save(tmp, 1, params)
+    save_s = time.perf_counter() - t0
+    file_bytes = sum(f.stat().st_size for f in path.iterdir())
+    shardings = sharding.tree_shardings(specs, rules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = checkpoint.restore(tmp, params, shardings=shardings)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for k, x in got.items():
+        local = x.to_local() if isinstance(x, DTensor) else None
+        if local is None or local.device.type != torch.device(dev).type or \
+                x.placements != shardings[k][1] or \
+                not torch.equal(local, params[k]):
+            raise AssertionError(f"restore(shardings=): {k} is not the saved "
+                                 "leaf as a DTensor on the card")
+    n_saved = float(global_norm(params.values()))
+    n_got = float(global_norm(x.to_local() for x in got.values()))
+    if n_saved != n_got:
+        raise AssertionError(f"global norm {n_got} against {n_saved}")
+    log(f"distributed restore onto the mesh: {COMP_ARCH}'s {len(specs)} "
+        f"params ({sum(t.numel() for t in params.values()):,} bf16) saved in "
+        f"{save_s:.2f} s ({file_bytes / 1e9:.2f} GB on disk, bf16 stored as "
+        f"f32), restored as DTensors on the card in {load_s:.2f} s "
+        f"({file_bytes / load_s / 1e9:.2f} GB/s from a warm file), every "
+        f"local tensor bit for bit, global norm {n_got:.6f} both")
+    del params, got
+    torch.cuda.empty_cache()
+
+
+def phase_distributed(dev, seed):
+    """The distributed layer on a one-rank NCCL group (``make_host_mesh``
+    starts it): context-parallel decode at long_500k whole and over 4 and
+    8 slices, the pipeline, compression, restore onto the mesh, and every
+    arch's divisibility on both production meshes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import all_archs, get_arch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    try:
+        log(f"distributed: {mesh} over a one-rank {dist.get_backend()} "
+            "group")
+        _cp_decode(dev, seed, mesh)
+        _pipeline_block(dev, seed, mesh)
+        cfg = get_arch(COMP_ARCH)
+        specs = registry.bundle(cfg).init_specs(1)
+        _compression(dev, seed, mesh, specs)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+            _restore_onto_mesh(dev, seed, specs,
+                               sharding.resolve(cfg, mesh), Path(tmp))
+    finally:
+        del mesh
+        dist.destroy_process_group()
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        for name, cfg in sorted(all_archs().items()):
+            problems = sharding.validate_divisibility(
+                registry.bundle(cfg).init_specs(16),
+                sharding.resolve(cfg, mesh))
+            if problems:
+                raise AssertionError(f"{name} on {mesh.shape}: {problems}")
+        log(f"distributed divisibility: every arch's tp-16 specs on the "
+            f"{mesh.shape} mesh, no problem")
+    torch.cuda.empty_cache()
+    log(f"distributed: phase took {time.perf_counter() - t_phase:.2f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3981,6 +4313,7 @@ def main(argv=None) -> int:
     lm_counts, lm_kinds = phase_lm(dev, args.seed)
     train_counts = phase_train(dev, args.seed)
     lm_counts.update(train_counts)
+    phase_distributed(dev, args.seed)
     rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows
 
     key = {"select_range": "select", "select_f32": "select_f32",

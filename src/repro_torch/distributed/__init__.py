@@ -1,4 +1,7 @@
-"""Sharding for the query layer (``sharding.py``): shard layouts, the
-hash that owns a key, and the shuffle that partitions rows into
-per-shard buckets."""
-from repro_torch.distributed import sharding  # noqa: F401
+"""The distributed layer: logical-axis sharding rules and the query
+layer's shard layouts (``sharding``), context-parallel decode
+(``context_parallel``), the GPipe pipeline (``pipeline``) and int8
+gradient compression (``compression``), on ``torch.distributed``."""
+from repro_torch.distributed import (  # noqa: F401
+    compression, context_parallel, pipeline, sharding,
+)

@@ -1,4 +1,5 @@
-"""Query-layer shard layouts (device = HBM pseudo-channel, Figs. 5-7).
+"""Sharding: the query layer's shard layouts (device = HBM
+pseudo-channel, Figs. 5-7) and the LM harness's logical-axis rules.
 
 The query stack stripes row streams across ``n_shards`` shards, each
 playing one pseudo-channel of the paper's channel-count sweep.  One H100
@@ -12,15 +13,44 @@ fingerprints and the executor's compiled-plan keys, so a 1-shard and an
 repartitioning: both join sides go through the same owner function, so
 matching keys land on the same shard.
 
-The model-sharding half of the reference module (logical-axis rules for
-the LM harness) is not here.
+The model half (logical-axis rules for the LM harness, after the
+reference's ``ShardingRules`` / ``resolve``) maps every logical tensor dim
+to a mesh axis:
+
+  batch      activations' batch dim            -> (pod, data)
+  seq        sequence dim                      -> None (or data under CP)
+  kv_seq     KV-cache sequence dim             -> model (flash-decoding)
+  heads      q-head dim                        -> model (when divisible)
+  kv_heads   kv-head dim                       -> model (when divisible)
+  mlp        d_ff dim                          -> model
+  vocab      vocabulary dim                    -> model
+  experts    expert dim                        -> model (EP) or None
+  moe_mlp    expert d_ff dim                   -> model (expert-TP only)
+  fsdp       weight shard dim (ZeRO-3 style)   -> data
+  ssm_heads  SSD head dim                      -> model (when divisible)
+  head_dim   rope-free head_dim TP (whisper)   -> model
+
+``spec`` gives the reference's ``PartitionSpec`` as a plain tuple;
+``placements`` the DTensor placements of that spec over a ``DeviceMesh``
+(``Shard(d)`` on each mesh dim that tensor dim ``d`` names, major to
+minor, ``Replicate()`` elsewhere), so that each rank holds the block the
+reference puts on the device at the same mesh coordinate.  The rules
+resolve against a ``DeviceMesh`` or an ``AbstractMesh``
+(``launch.mesh``), whose sizes alone decide them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import (
+    Mesh, axis_names, axis_sizes, data_axes, mesh_axis,
+)
 
 QUERY_SHARD_AXIS = "shard"
 
@@ -81,3 +111,214 @@ def partition_to_shards(shard_ids: torch.Tensor,
         buckets.append(b)
     counts = counts.to(torch.int32)
     return tuple(buckets), counts, (counts > cap).any()
+
+
+# --------------------------------------------------------------------------- #
+# the model half: logical-axis rules for the LM harness
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Resolved logical -> mesh-axis mapping for one (arch, mesh) pair."""
+
+    mesh: Mesh
+    batch: tuple[str, ...]
+    seq: Optional[str]                 # context parallelism when set
+    kv_seq: Optional[str]              # KV-cache sequence dim (flash-decoding)
+    heads: Optional[str]
+    kv_heads: Optional[str]
+    mlp: Optional[str]
+    vocab: Optional[str]
+    experts: Optional[str]
+    moe_mlp: Optional[str]             # expert d_ff dim (expert-TP only)
+    fsdp: Optional[str]
+    ssm_heads: Optional[str]
+    head_dim: Optional[str]            # rope-free head_dim TP (whisper)
+
+    def spec(self, *logical: Optional[str]) -> tuple:
+        """The reference's ``PartitionSpec`` of these logical dims as a
+        tuple: per dim ``None``, an axis name, or a tuple of names (a
+        one-name tuple is the name, as ``PartitionSpec`` normalises it)."""
+        out = []
+        for ax in logical:
+            v = None if ax is None else getattr(self, ax)
+            if isinstance(v, tuple):
+                v = (v[0] if len(v) == 1 else v) if v else None
+            out.append(v)
+        return tuple(out)
+
+    def placements(self, *logical: Optional[str]) -> tuple:
+        """DTensor placements over ``self.mesh``: for each mesh dim,
+        ``Shard(d)`` if tensor dim ``d`` names it, else ``Replicate()``.
+        A dim over several axes names them in mesh order (major first)."""
+        names = axis_names(self.mesh)
+        out: list = [Replicate()] * len(names)
+        for d, axes in enumerate(self.spec(*logical)):
+            if axes is None:
+                continue
+            axes_t = axes if isinstance(axes, tuple) else (axes,)
+            dims = [names.index(a) for a in axes_t]
+            if dims != sorted(dims):
+                raise ValueError(f"dim {d} over {axes_t}: not in the mesh's "
+                                 f"major-to-minor order {names}")
+            for m in dims:
+                if out[m] != Replicate():
+                    raise ValueError(f"mesh axis {names[m]!r} shards two "
+                                     f"dims of {logical}")
+                out[m] = Shard(d)
+        return tuple(out)
+
+    def named(self, *logical: Optional[str]) -> tuple:
+        """``(mesh, placements)``: what a DTensor of these dims is laid
+        out by (the reference's ``NamedSharding``)."""
+        return self.mesh, self.placements(*logical)
+
+    def constrain(self, x, *logical: Optional[str]):
+        """A DTensor redistributed to these dims' placements; a plain
+        tensor unchanged (``with_sharding_constraint`` on one device)."""
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh, self.placements(*logical))
+
+
+def resolve(cfg: ArchConfig, mesh: Mesh, shape=None, *,
+            context_parallel_decode: bool = False,
+            fsdp: bool = True) -> ShardingRules:
+    """The reference's padding / replication policy, line for line.
+
+    ``shape`` (a ShapeConfig) refines the rules per step kind: serve steps
+    shard the KV-cache sequence dim over ``model`` (the flash-decoding
+    layout), and batch sharding is dropped when the global batch does not
+    divide the dp axes (long_500k's batch 1)."""
+    tp = mesh_axis(mesh, "model")
+    dp_axes = data_axes(mesh)
+    has_data = "data" in axis_names(mesh)
+
+    kv_seq = None
+    if shape is not None:
+        dp_size = 1
+        for a in dp_axes:
+            dp_size *= mesh_axis(mesh, a)
+        if shape.global_batch % max(dp_size, 1):
+            dp_axes = ()
+        if shape.kind in ("prefill", "decode") and tp > 1 \
+                and shape.seq_len % tp == 0 and cfg.kv_tp(tp) != tp:
+            # flash-decoding cache layout; not needed (and conflicting)
+            # when the kv heads themselves shard over the model axis
+            kv_seq = "model"
+
+    attn_tp = cfg.attn_tp(tp)
+    heads = "model" if (tp > 1 and attn_tp == tp) else None
+    kv_heads = "model" if (tp > 1 and cfg.kv_tp(tp) == tp) else None
+    mlp = "model" if tp > 1 else None
+    vocab = "model" if tp > 1 else None
+    # EP owns the model axis for expert weights (experts divide it);
+    # otherwise expert-TP shards each expert's d_ff over the model axis
+    experts = "model" if (cfg.n_experts and cfg.expert_parallel(tp)) \
+        else None
+    moe_mlp = "model" if (cfg.n_experts and tp > 1 and experts is None) \
+        else None
+    ssm_heads = "model" if (cfg.ssm_state and tp > 1
+                            and cfg.n_ssm_heads % tp == 0) else None
+    seq = "data" if (context_parallel_decode and has_data) else None
+
+    return ShardingRules(
+        mesh=mesh, batch=dp_axes, seq=seq, kv_seq=kv_seq, heads=heads,
+        kv_heads=kv_heads, mlp=mlp, vocab=vocab, experts=experts,
+        moe_mlp=moe_mlp, fsdp="data" if (fsdp and has_data) else None,
+        ssm_heads=ssm_heads,
+        head_dim="model" if (tp > 1 and cfg.head_dim_tp(tp) == tp) else None,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# parameter spec trees: every leaf a LogicalArray (shape, logical dims,
+# dtype), mapped to placements or to meta stand-ins
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class LogicalArray:
+    """Shape + logical axes of a parameter, with no storage."""
+
+    shape: tuple[int, ...]
+    logical: tuple[Optional[str], ...]
+    dtype: torch.dtype
+
+    def sds(self, rules: ShardingRules) -> torch.Tensor:
+        """A meta tensor of this shape and type that carries the leaf's
+        ``device_mesh`` and ``placements`` (a DTensor's names for them):
+        a stand-in that allocates nothing."""
+        t = torch.empty(self.shape, dtype=self.dtype, device="meta")
+        t.device_mesh, t.placements = rules.named(*self.logical)
+        return t
+
+
+def tree_map(fn, *trees, is_leaf=None, path: str = ""):
+    """``fn(path, *leaves)`` over the leaves of trees of one structure (the
+    first's): nested dicts, lists and tuples, a container that
+    ``is_leaf`` accepts taken whole; a leaf's path is the reference's
+    ``keystr`` form (``['layers.0.attn.wq']``)."""
+    t0 = trees[0]
+    if is_leaf is None or not is_leaf(t0):
+        if isinstance(t0, dict):
+            return {k: tree_map(fn, *(t[k] for t in trees), is_leaf=is_leaf,
+                                path=f"{path}[{k!r}]") for k in t0}
+        if isinstance(t0, (list, tuple)):
+            return type(t0)(tree_map(fn, *parts, is_leaf=is_leaf,
+                                     path=f"{path}[{i}]")
+                            for i, parts in enumerate(zip(*trees)))
+    return fn(path, *trees)
+
+
+def tree_shardings(tree, rules: ShardingRules):
+    """A tree of LogicalArray -> the same tree of ``(mesh, placements)``."""
+    return tree_map(lambda _, la: rules.named(*la.logical), tree)
+
+
+def tree_sds(tree, rules: ShardingRules):
+    """A tree of LogicalArray -> the same tree of meta stand-ins."""
+    return tree_map(lambda _, la: la.sds(rules), tree)
+
+
+def validate_divisibility(tree, rules: ShardingRules) -> list[str]:
+    """Every sharded dim must divide its mesh-axis product; returns one
+    problem per dim that does not."""
+    sizes = axis_sizes(rules.mesh)
+    problems: list[str] = []
+
+    def check(path: str, la: Any) -> None:
+        for dim, axes in zip(la.shape, rules.spec(*la.logical)):
+            if axes is None:
+                continue
+            axes_t = axes if isinstance(axes, tuple) else (axes,)
+            k = 1
+            for a in axes_t:
+                k *= sizes.get(a, 1)
+            if dim % k:
+                problems.append(f"{path}: dim {dim} not divisible by {k} "
+                                f"({axes})")
+
+    tree_map(check, tree)
+    return problems
+
+
+def local_block(shape: Sequence[int], mesh: DeviceMesh,
+                placements: Sequence) -> tuple:
+    """This rank's block of an array of ``shape`` under
+    ``placements`` over ``mesh``: an index tuple of slices.  A dim sharded
+    on several mesh dims is chunked by each in turn, major first, in
+    ``torch.chunk``'s sizes (as DTensor lays it out)."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    lo = [0] * len(shape)
+    hi = list(shape)
+    for m, p in enumerate(placements):
+        if not isinstance(p, Shard):
+            continue
+        d, n, c = p.dim, mesh.size(m), coord[m]
+        length = hi[d] - lo[d]
+        step = -(-length // n)
+        start = min(lo[d] + c * step, hi[d])
+        lo[d], hi[d] = start, min(start + step, hi[d])
+    return tuple(slice(a, b) for a, b in zip(lo, hi))

@@ -29,7 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attend
-from repro_torch.models.common import apply_rope, param
+from repro_torch.models.common import apply_rope, la, param
 
 NEG_INF = -1e30
 
@@ -39,6 +39,19 @@ class KVCache:
     k: torch.Tensor          # (B, S_max, KV, hd)
     v: torch.Tensor
     pos: int                 # tokens written so far
+
+
+def attn_specs(cfg: ArchConfig, tp: int) -> dict:
+    """``Attention``'s params at tensor-parallel degree ``tp``: query heads
+    (and an MHA's kv heads) padded as the config pads them."""
+    hp, kvp = cfg.padded_heads(tp), cfg.padded_kv_heads(tp)
+    d, hd = cfg.d_model, cfg.head_dim
+    return {
+        "wq": la((d, hp, hd), ("fsdp", "heads", "head_dim")),
+        "wk": la((d, kvp, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wv": la((d, kvp, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wo": la((hp, hd, d), ("heads", "head_dim", "fsdp")),
+    }
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

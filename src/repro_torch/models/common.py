@@ -1,5 +1,6 @@
-"""Shared model primitives: the init rule, norms, RoPE and M-RoPE, logits
-over a padded vocab and the loss over them, and the gated and plain MLPs.
+"""Shared model primitives: parameter specs (``la``, the embedding's and
+the MLP's), the init rule, norms, RoPE and M-RoPE, logits over a padded
+vocab and the loss over them, and the gated and plain MLPs.
 
 Matmuls run in the param dtype (bf16); norms, RoPE angles, softmax and
 logits accumulate in f32, as in the reference (``repro.models.common``).
@@ -13,8 +14,52 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import LogicalArray
+
 PARAM_DTYPE = torch.bfloat16
 INIT_SCALE = 0.02
+
+
+# --------------------------------------------------------------------------- #
+# parameter specs: each module's params as LogicalArrays (the reference's
+# ``la`` leaves), keyed as the module's ``named_parameters`` names them
+# --------------------------------------------------------------------------- #
+
+def la(shape, logical, dtype=PARAM_DTYPE) -> LogicalArray:
+    if len(shape) != len(logical):
+        raise ValueError(f"shape {shape} against logical dims {logical}")
+    return LogicalArray(tuple(int(s) for s in shape), tuple(logical), dtype)
+
+
+def flat_specs(prefix: str, tree: dict) -> dict:
+    """Nested spec dicts as one dict of dotted ``state_dict`` names."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_specs(f"{prefix}{k}.", v))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def embed_specs(cfg, tp: int) -> dict:
+    """``embed`` (padded vocab, d) and, untied, ``unembed`` (d, padded
+    vocab)."""
+    pv = cfg.padded_vocab(tp)
+    p = {"embed": la((pv, cfg.d_model), ("vocab", "fsdp"))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = la((cfg.d_model, pv), ("fsdp", "vocab"))
+    return p
+
+
+def mlp_specs(cfg, d_ff: int) -> dict:
+    """``MLP``'s params: gate and up fused into ``w_in`` (d, 2, f), or
+    ``w_up``, then ``w_down``."""
+    if cfg.gated_ffn:
+        return {"w_in": la((cfg.d_model, 2, d_ff), ("fsdp", None, "mlp")),
+                "w_down": la((d_ff, cfg.d_model), ("mlp", "fsdp"))}
+    return {"w_up": la((cfg.d_model, d_ff), ("fsdp", "mlp")),
+            "w_down": la((d_ff, cfg.d_model), ("mlp", "fsdp"))}
 
 
 def param(*shape: int, dtype=PARAM_DTYPE, device=None) -> nn.Parameter:

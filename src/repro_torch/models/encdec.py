@@ -36,9 +36,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import Attention, KVCache, init_cache
+from repro_torch.models.attention import (
+    Attention, KVCache, attn_specs, init_cache,
+)
 from repro_torch.models.common import (
-    MLP, apply_norm, cross_entropy, logits_fn, param,
+    MLP, apply_norm, cross_entropy, embed_specs, flat_specs, la, logits_fn,
+    mlp_specs, param,
 )
 
 
@@ -51,6 +54,27 @@ def sinusoid(s: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
                     / d * math.log(10000.0))
     ang = pos[:, None] * inv[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def init_specs(cfg: ArchConfig, tp: int) -> dict:
+    """Every parameter as a LogicalArray, keyed by its ``state_dict`` name
+    (``encoder.{i}.attn.wq``, ``decoder.{i}.cross_attn.wk``) in
+    the reference's order; at ``tp`` > 1 the reference's padded
+    shapes."""
+    norm = la((cfg.d_model,), (None,))
+    enc = {"norm1": norm, "attn": attn_specs(cfg, tp), "norm2": norm,
+           "ffn": mlp_specs(cfg, cfg.d_ff)}
+    dec = {"norm1": norm, "self_attn": attn_specs(cfg, tp), "norm_x": norm,
+           "cross_attn": attn_specs(cfg, tp), "norm2": norm,
+           "ffn": mlp_specs(cfg, cfg.d_ff)}
+    specs = dict(embed_specs(cfg, tp))
+    for i in range(cfg.n_encoder_layers):
+        specs.update(flat_specs(f"encoder.{i}.", enc))
+    for i in range(cfg.num_layers):
+        specs.update(flat_specs(f"decoder.{i}.", dec))
+    specs["enc_norm"] = norm
+    specs["final_norm"] = norm
+    return specs
 
 
 class EncoderLayer(nn.Module):

@@ -19,7 +19,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd.ops import ssd
-from repro_torch.models.common import param
+from repro_torch.models.common import la, param
 
 SSD_CHUNK = 128
 
@@ -37,6 +37,25 @@ def init_ssm_cache_spec(cfg: ArchConfig, batch: int,
     nh, ng, w = cfg.n_ssm_heads, cfg.ssm_groups, cfg.ssm_conv_width
     return {"conv": ((batch, w - 1, di + 2 * ng * ds), dtype),
             "state": ((batch, nh, cfg.ssm_head_dim, ds), torch.float32)}
+
+
+def ssm_specs(cfg: ArchConfig) -> dict:
+    """``Mamba``'s params, in its order."""
+    d, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh, ng, w = cfg.n_ssm_heads, cfg.ssm_groups, cfg.ssm_conv_width
+    return {
+        "w_x": la((d, di), ("fsdp", "ssm_heads")),
+        "w_z": la((d, di), ("fsdp", "ssm_heads")),
+        "w_b": la((d, ng * ds), ("fsdp", None)),
+        "w_c": la((d, ng * ds), ("fsdp", None)),
+        "w_dt": la((d, nh), ("fsdp", "ssm_heads")),
+        "dt_bias": la((nh,), ("ssm_heads",), torch.float32),
+        "a_log": la((nh,), ("ssm_heads",), torch.float32),
+        "d_skip": la((nh,), ("ssm_heads",), torch.float32),
+        "conv_w": la((w, di + 2 * ng * ds), (None, None)),
+        "norm": la((di,), ("ssm_heads",)),
+        "w_out": la((di, d), ("ssm_heads", "fsdp")),
+    }
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

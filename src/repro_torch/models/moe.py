@@ -24,7 +24,22 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import MLP, _act, param
+from repro_torch.models.common import MLP, _act, la, mlp_specs, param
+
+
+def moe_specs(cfg: ArchConfig, tp: int = 1) -> dict:
+    """``MoE``'s params at tensor-parallel degree ``tp``: experts padded as
+    the config pads them (the model itself holds the unpadded count,
+    ``padded_experts(1)``)."""
+    e, d, f = cfg.padded_experts(tp), cfg.d_model, cfg.moe_d_ff
+    p = {
+        "router": la((d, e), (None, None), torch.float32),
+        "w_in": la((e, d, 2, f), ("experts", "fsdp", None, "moe_mlp")),
+        "w_down": la((e, f, d), ("experts", "moe_mlp", "fsdp")),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_specs(cfg, cfg.n_shared_experts * cfg.moe_d_ff)
+    return p
 
 
 def capacity(cfg: ArchConfig, seq: int,

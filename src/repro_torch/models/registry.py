@@ -1,7 +1,7 @@
 """Model registry: one entry point per servable architecture.
 
-``bundle(cfg)`` returns how to build the model on a device, its training
-loss and its prefill and decode functions: the encoder-decoder family's
+``bundle(cfg)`` returns how to build the model on a device, its
+parameter specs (shapes, logical axes, types), its training loss and its prefill and decode functions: the encoder-decoder family's
 (``models.encdec``) or the decoder-only families' (``models.transformer``).
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ from repro_torch.models import encdec, transformer
 class ModelBundle:
     cfg: ArchConfig
     build: Callable           # (device) -> the model, weights uninitialised
+    init_specs: Callable      # (tp) -> {state_dict name: LogicalArray}
     loss_fn: Callable         # (model, batch, **kw) -> (loss, {"ce", "aux"})
     prefill_fn: Callable      # (model, tokens, caches, **inputs) -> (logits,
                               #  caches); inputs: vision_embeds, positions,
@@ -30,12 +31,14 @@ class ModelBundle:
 def bundle(cfg: ArchConfig) -> ModelBundle:
     if cfg.is_enc_dec:
         return ModelBundle(cfg=cfg, build=partial(encdec.EncoderDecoder, cfg),
+                           init_specs=partial(encdec.init_specs, cfg),
                            loss_fn=encdec.loss_fn,
                            prefill_fn=encdec.prefill_fn,
                            decode_fn=encdec.decode_fn)
     return ModelBundle(
         cfg=cfg,
         build=partial(transformer.Transformer, cfg),
+        init_specs=partial(transformer.init_specs, cfg),
         loss_fn=transformer.loss_fn,
         prefill_fn=transformer.prefill_fn,
         decode_fn=transformer.decode_fn,

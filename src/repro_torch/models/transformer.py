@@ -36,12 +36,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import Attention, KVCache, init_cache
-from repro_torch.models.common import (
-    MLP, apply_norm, cross_entropy, logits_fn, param,
+from repro_torch.models.attention import (
+    Attention, KVCache, attn_specs, init_cache,
 )
-from repro_torch.models.mamba import Mamba, SSMCache, init_ssm_cache_spec
-from repro_torch.models.moe import MoE
+from repro_torch.models.common import (
+    MLP, apply_norm, cross_entropy, embed_specs, flat_specs, la, logits_fn,
+    mlp_specs, param,
+)
+from repro_torch.models.mamba import (
+    Mamba, SSMCache, init_ssm_cache_spec, ssm_specs,
+)
+from repro_torch.models.moe import MoE, moe_specs
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
@@ -104,6 +109,36 @@ class Block(nn.Module):
                 y = self.ffn(h)
             x = x + y
         return (x, new_c, aux) if with_aux else (x, new_c)
+
+
+def block_specs(cfg: ArchConfig, tp: int, i: int) -> dict:
+    """Layer ``i``'s params as ``Block`` holds them (the reference's
+    ``_position_params`` at position ``i % P``, less the superblock
+    dim)."""
+    d = {"norm1": la((cfg.d_model,), (None,))}
+    if cfg.layer_is_attn(i):
+        d["attn"] = attn_specs(cfg, tp)
+    else:
+        d["ssm"] = ssm_specs(cfg)
+    if cfg.family != "ssm":
+        d["norm2"] = la((cfg.d_model,), (None,))
+        if cfg.layer_is_moe(i):
+            d["moe"] = moe_specs(cfg, tp)
+        else:
+            d["ffn"] = mlp_specs(cfg, cfg.d_ff)
+    return d
+
+
+def init_specs(cfg: ArchConfig, tp: int) -> dict:
+    """Every parameter as a LogicalArray, keyed by its ``state_dict`` name
+    (``layers.{i}.attn.wq``) in the reference's order: at ``tp`` 1
+    the model's own shapes and types; at ``tp`` > 1 the reference's padded
+    heads, kv heads, experts and vocab."""
+    specs = dict(embed_specs(cfg, tp))
+    for i in range(cfg.num_layers):
+        specs.update(flat_specs(f"layers.{i}.", block_specs(cfg, tp, i)))
+    specs["final_norm"] = la((cfg.d_model,), (None,))
+    return specs
 
 
 def mask_positions(positions: torch.Tensor) -> Optional[torch.Tensor]:

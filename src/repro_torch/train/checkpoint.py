@@ -12,7 +12,9 @@ The tree is nested dicts, lists and tuples of tensors (a model's
 ``state_dict`` beside the optimizer state); a leaf's path is the
 reference's ``keystr`` form (``['params']['embed']``), and ``restore``
 puts every leaf back into the structure of ``like`` with its type, on
-its device.
+its device, or, given ``shardings``, as a DTensor over a mesh of the
+current process group (the reference's elastic re-sharding): each rank
+reads the file and places only its own block of each leaf.
 """
 from __future__ import annotations
 
@@ -25,19 +27,31 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import local_block
 
 
+def _is_sharding(x) -> bool:
+    """A ``(device_mesh, placements)`` leaf of a shardings tree."""
+    return isinstance(x, tuple) and len(x) == 2 \
+        and isinstance(x[0], DeviceMesh)
 
-def flatten(tree, prefix: str = "") -> list:
+
+def flatten(tree, prefix: str = "", is_leaf=None) -> list:
     """[(path, tensor)] in the tree's order, each path in the reference's
-    ``keystr`` form."""
+    ``keystr`` form; ``is_leaf`` stops the walk at a container."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         items = ((f"[{k!r}]", v) for k, v in tree.items())
     elif isinstance(tree, (list, tuple)):
         items = ((f"[{i}]", v) for i, v in enumerate(tree))
     else:
         return [(prefix, tree)]
-    return [leaf for key, v in items for leaf in flatten(v, prefix + key)]
+    return [leaf for key, v in items
+            for leaf in flatten(v, prefix + key, is_leaf)]
 
 
 def _unflatten(like, leaves):
@@ -98,10 +112,32 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None):
+def _sharded(arr: np.ndarray, dtype: torch.dtype, sharding):
+    """This rank's block of ``arr`` as a DTensor laid out by ``sharding``
+    = (device_mesh, placements); no bytes cross the group."""
+    mesh, placements = sharding
+    block = arr[local_block(arr.shape, mesh, placements)]
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    local = torch.from_numpy(np.ascontiguousarray(block)).to(device=dev,
+                                                             dtype=dtype)
+    full = torch.empty(arr.shape, device="meta")
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None,
+            shardings: Any = None):
     """(the checkpoint's tree in the structure of ``like``, its
     manifest): every leaf found by ``like``'s path, of ``like``'s shape,
-    type and device; the latest step when ``step`` is None."""
+    type and device; the latest step when ``step`` is None.
+    ``shardings``, a tree matching ``like`` whose leaves are
+    ``(device_mesh, placements)``, makes each leaf a DTensor of ``like``'s
+    type whose local tensor is this rank's block, on the mesh's device."""
+    flat_shardings = None
+    if shardings is not None:
+        flat_shardings = dict(flatten(shardings, is_leaf=_is_sharding))
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -119,6 +155,9 @@ def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{name}: checkpoint shape {arr.shape}, "
                                  f"want {tuple(leaf.shape)}")
+            if flat_shardings is not None:
+                out.append(_sharded(arr, leaf.dtype, flat_shardings[name]))
+                continue
             out.append(torch.from_numpy(arr).to(device=leaf.device,
                                                 dtype=leaf.dtype))
     return _unflatten(like, iter(out)), manifest

@@ -1689,3 +1689,152 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda, arch):
         assert bool(got.any())
         assert float((got - want).abs().max()) <= 1e-3 * float(
             want.abs().max())
+
+
+# --------------------------------------------------------------------------- #
+# the distributed layer on a one-rank NCCL group, against the same calls on
+# the CPU (a gloo mesh of the same group)
+
+@pytest.fixture
+def card_and_cpu_meshes(cuda, tmp_path):
+    """One process group with NCCL for the card and gloo for the CPU; the
+    card's mesh (``make_host_mesh()``) and the CPU's."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl", init_method=f"file://{tmp_path / 'store'}",
+        rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield mesh_mod.make_host_mesh(), mesh_mod.make_host_mesh("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_host_mesh_starts_nccl_on_the_card(cuda):
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    assert not dist.is_initialized()
+    mesh = mesh_mod.make_host_mesh()
+    try:
+        assert dist.get_backend() == "nccl"
+        assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+        assert tuple(mesh.mesh_dim_names) == ("data", "model")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_host_mesh_without_a_card_raises(cuda, monkeypatch):
+    """No card means no mesh: nothing falls back to the CPU or gloo."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_mod.make_host_mesh()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_decode_on_the_card_equals_the_cpu(card_and_cpu_meshes, dtype):
+    from repro_torch.distributed import context_parallel as cp
+    card, cpu = card_and_cpu_meshes
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g).to(dtype)
+               for s in ((2, 8, 1, 64), (2, 4096, 8, 64), (2, 4096, 8, 64)))
+    valid = torch.rand(2, 4096, generator=g) > 0.3
+    valid[1] = False                     # a row with no valid key
+    want = cp.cp_decode_attention(cpu, "model", q, k, v, valid)
+    got = cp.cp_decode_attention(card, "model", *(t.cuda() for t in
+                                                  (q, k, v, valid)))
+    assert got.device.type == "cuda" and got.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+    ref = cp.cp_decode_reference(*(t.cuda() for t in (q, k, v, valid)))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_pipeline_on_the_card_equals_the_cpu(card_and_cpu_meshes):
+    from repro_torch.distributed import pipeline
+    card, cpu = card_and_cpu_meshes
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn(64, 64, generator=g) / 8
+    x = torch.randn(8, 16, 64, generator=g)
+
+    def stage(p, xb):
+        return torch.tanh(xb @ p)
+
+    want = pipeline.pipeline_apply(cpu, "model", stage, w, x, 4)
+    got = pipeline.pipeline_apply(card, "model", stage, w.cuda(), x.cuda(), 4)
+    by_micro = torch.cat([stage(w.cuda(), x[i:i + 2].cuda())
+                          for i in range(0, 8, 2)])
+    _same(got, by_micro)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_compressed_psum_on_the_card_equals_the_cpu(card_and_cpu_meshes):
+    """Payloads, scales, means and residuals bit for bit over two steps of
+    error feedback, on leaves whose largest magnitudes span many scales
+    (a scale divided on the card by a reciprocal would miss by an ulp)."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.train.checkpoint import flatten
+    card, cpu = card_and_cpu_meshes
+    g = torch.Generator().manual_seed(2)
+    grads = {"w": torch.randn(256, 96, generator=g),
+             "many": [torch.randn(97, generator=g) * float(i + 1) ** 3
+                      for i in range(64)],
+             "z": torch.zeros(16),
+             "t": torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5])}
+    res = comp.zero_residual(grads)
+
+    def to_card(tree):
+        return {k: [t.cuda() for t in v] if isinstance(v, list) else v.cuda()
+                for k, v in tree.items()}
+
+    def same(a, b):
+        for (pa, x), (pb, y) in zip(flatten(a), flatten(b)):
+            assert pa == pb and torch.equal(x.cpu(), y), pa
+
+    for _ in range(2):
+        q_tree, new_res = comp.compress_tree(grads, res)
+        c_q, c_res = comp.compress_tree(to_card(grads), to_card(res))
+        same(c_res, new_res)
+        same(comp.decompress_tree(c_q), comp.decompress_tree(q_tree))
+        mean, p_res = comp.compressed_psum(cpu, "model")(grads, res)
+        c_mean, c_p_res = comp.compressed_psum(card, "model")(to_card(grads),
+                                                              to_card(res))
+        same(c_mean, mean)
+        same(c_p_res, p_res)
+        same(mean, comp.decompress_tree(q_tree))
+        res = new_res
+
+
+def test_restore_onto_the_card_mesh_equals_the_cpu(card_and_cpu_meshes,
+                                                   tmp_path):
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint
+    card, cpu = card_and_cpu_meshes
+    cfg = smoke_config(get_arch("jamba-v0.1-52b"))
+    specs = registry.bundle(cfg).init_specs(1)
+    g = torch.Generator().manual_seed(3)
+    params = {k: (0.02 * torch.randn(la.shape, generator=g)).to(la.dtype)
+              for k, la in specs.items()}
+    checkpoint.save(tmp_path / "ckpt", 1, params)
+    outs = []
+    for mesh in (card, cpu):
+        rules = sharding.resolve(cfg, mesh)
+        shardings = sharding.tree_shardings(specs, rules)
+        got, _ = checkpoint.restore(tmp_path / "ckpt", params,
+                                    shardings=shardings)
+        for k, x in got.items():
+            assert x.placements == shardings[k][1]
+            assert x.to_local().device.type == mesh.device_type
+        outs.append(got)
+    for k in params:
+        card_local = outs[0][k].to_local().cpu()
+        assert torch.equal(card_local, outs[1][k].to_local()), k
+        assert torch.equal(card_local, params[k]), k

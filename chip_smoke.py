@@ -238,7 +238,16 @@ Phases, each of which must pass or the script exits non-zero:
    + r))``, GB/s printed; mamba2-780m's params saved and restored as
    DTensors on the card (``restore(shardings=)``), bit for bit, the same
    global norm, seconds and bytes printed; and every arch's tp-16 specs
-   divisible on both production meshes.
+   divisible on both production meshes;
+17. dryrun: the dry run (``launch.dryrun``) in a child process with no
+   card, within ``DRYRUN_TIMEOUT_S``: llama3-8b train_4k and decode_32k
+   and jamba-v0.1-52b long_500k on the fake 256-rank pod16x16 mesh and
+   llama3-8b decode_32k on the 512-rank pod2x16x16, each cell's
+   per-device FLOPs, bytes, collective bytes by kind, memory and
+   roofline (H100 data-sheet constants) printed, any ``error`` failing
+   the run; then one-rank cells of the steps phases 14 and 15 time
+   (stablelm-3b training 1 x 4,096, llama3-8b prefilling 4 x 2,000), each
+   cell's roofline bound beside the measured warm median as a share.
 
 The data is made from ``--seed`` with numpy, with the column domains of
 the SSB and TPC-H specifications and MNIST's shape.  The second-to-last line is the kernels'
@@ -267,6 +276,23 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense tensor cores
 TF32_FLOPS_PER_S = 495e12        # H100 SXM data sheet, dense tensor cores
 OPS_RATE = {"f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S,
             "tf32": TF32_FLOPS_PER_S}
+
+# the dry run's cells (arch, shape, multi-pod) on the production meshes,
+# and its one-rank cells (arch, (name, seq, batch, kind), the measured
+# step they bound: phase lm's prefill or phase train's step)
+DRYRUN_CELLS = (("llama3-8b", "train_4k", False),
+                ("llama3-8b", "decode_32k", False),
+                ("jamba-v0.1-52b", "long_500k", False),
+                ("llama3-8b", "decode_32k", True))
+DRYRUN_ONE_RANK = (
+    ("stablelm-3b", ("train_1x4096", 4_096, 1, "train"),
+     "stablelm-3b train step"),
+    ("llama3-8b", ("prefill_4x2000", 2_000, 4, "prefill"),
+     "llama3-8b prefill"))
+DRYRUN_TIMEOUT_S = 90
+# warm medians (s) that phases lm and train measure, for the dry run's
+# one-rank cells
+MEASURED: dict = {}
 
 SSB_LINEORDER_ROWS = 59_986_214  # SSB scale factor 10
 SSB_DATE_ROWS = 2_556            # 1992-01-01 .. 1998-12-30
@@ -3546,6 +3572,7 @@ def phase_lm(dev, seed):
             warm.append(st)
         warm.sort(key=lambda st: st["prefill_s"] + st["decode_s"])
         med = warm[len(warm) // 2]
+        MEASURED[f"{arch} prefill"] = med["prefill_s"]
         steps = LM_GEN_LEN - 1
         layers = (f"{cfg.n_encoder_layers} encoder and {cfg.num_layers} "
                   f"decoder layers" if cfg.is_enc_dec
@@ -3684,6 +3711,7 @@ def _train_full(dev, arch, batch, seed):
                              f"repeated batch: {losses}")
     warm = sorted(st["s"] for st in steps[1:])
     med = warm[len(warm) // 2]
+    MEASURED[f"{arch} train step"] = med
     tokens = batch * TRAIN_SEQ
     n = sum(p.numel() for p in model.parameters())
     log(f"train {arch}: {cfg.num_layers} layers, {n:,} params, {batch} x "
@@ -4259,6 +4287,89 @@ def phase_distributed(dev, seed):
     log(f"distributed: phase took {time.perf_counter() - t_phase:.2f} s")
 
 
+_DRYRUN_CHILD = r'''
+import json, sys, time
+from repro_torch.configs import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import AbstractMesh
+
+spec = json.loads(sys.argv[1])
+for arch, shape, multi in spec["cells"]:
+    t0 = time.perf_counter()
+    cell = dryrun.run_guarded(arch, shape, multi, save_hist=False)
+    cell["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(cell), flush=True)
+one = AbstractMesh((1, 1), ("data", "model"))
+for arch, (name, seq, batch, kind), key in spec["one_rank"]:
+    t0 = time.perf_counter()
+    cell = dryrun.run_guarded(arch, name, False, mesh=one, save_hist=False,
+                              shape=ShapeConfig(name, seq, batch, kind))
+    cell["wall_s"] = time.perf_counter() - t0
+    cell["measured"] = key
+    print(json.dumps(cell), flush=True)
+'''
+
+
+def _gb(x) -> str:
+    return f"{x / 1e9:.3f} GB"
+
+
+def phase_dryrun(card: str):
+    """The dry run in a child process (no card, its own fake process
+    groups): the production cells and the one-rank cells, each ``ok``; the
+    one-rank cells' bounds beside phases lm's and train's measured warm
+    medians, as a share."""
+    t_phase = time.perf_counter()
+    spec = {"cells": DRYRUN_CELLS, "one_rank": DRYRUN_ONE_RANK}
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD,
+                          json.dumps(spec)], env=env, capture_output=True,
+                         text=True, timeout=DRYRUN_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"dryrun: the child exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    cells = [json.loads(line) for line in res.stdout.splitlines()
+             if line.startswith("{")]
+    if len(cells) != len(DRYRUN_CELLS) + len(DRYRUN_ONE_RANK):
+        raise AssertionError(f"dryrun: {len(cells)} cells came back: "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    for c in cells:
+        key = f"{c['arch']}|{c['shape']}|{c['mesh']}"
+        if c.get("status") != "ok":
+            raise AssertionError(f"dryrun {key}: {c.get('status')} "
+                                 f"{c.get('error')} {c.get('trace', '')}")
+        rl, mem = c["roofline"], c["memory"]
+        by_kind = ", ".join(f"{k} {c['collectives'][k]} x "
+                            f"{_gb(c['coll_operand_by_kind'][k])}"
+                            for k in sorted(c["collectives"]))
+        log(f"dryrun {key} ({c['chips']} ranks, {c['wall_s']:.1f} s): "
+            f"{c['flops_per_dev']:.4g} FLOP, {_gb(c['bytes_per_dev'])} "
+            f"moved a device; collectives {by_kind or 'none'} (operand "
+            f"{_gb(c['coll_operand_bytes'])}, wire "
+            f"{_gb(c['coll_wire_bytes'])}); memory arguments "
+            f"{_gb(mem['argument_bytes'])}, temp {_gb(mem['temp_bytes'])}, "
+            f"aliased {_gb(mem['alias_bytes'])}; roofline t_compute "
+            f"{rl['t_compute'] * 1e3:.3f} ms, t_memory "
+            f"{rl['t_memory'] * 1e3:.3f} ms, t_collective "
+            f"{rl['t_collective'] * 1e3:.3f} ms ({rl['bottleneck']}), "
+            f"useful / counted FLOPs {rl['useful_flops_ratio']:.3f}, MFU "
+            f"bound {rl['mfu_bound']:.3f}")
+        if "measured" in c:
+            t_bound = max(rl["t_compute"], rl["t_memory"],
+                          rl["t_collective"])
+            took = MEASURED.get(c["measured"])
+            if took is None:
+                raise AssertionError(f"dryrun {key}: no measured "
+                                     f"{c['measured']} in this run")
+            log(f"    {c['measured']}: roofline bound "
+                f"{t_bound * 1e3:.3f} ms against the measured warm median "
+                f"{took * 1e3:.3f} ms on {card}: "
+                f"{t_bound / took:.1%} of it")
+    log(f"dryrun: phase took {time.perf_counter() - t_phase:.2f} s "
+        f"(limit {DRYRUN_TIMEOUT_S} s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4314,6 +4425,7 @@ def main(argv=None) -> int:
     train_counts = phase_train(dev, args.seed)
     lm_counts.update(train_counts)
     phase_distributed(dev, args.seed)
+    phase_dryrun(card)
     rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows
 
     key = {"select_range": "select", "select_f32": "select_f32",

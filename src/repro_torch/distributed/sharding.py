@@ -30,6 +30,11 @@ to a mesh axis:
   ssm_heads  SSD head dim                      -> model (when divisible)
   head_dim   rope-free head_dim TP (whisper)   -> model
 
+The models take these rules (``rules=None`` by default, and then, or on
+plain tensors, nothing changes): they pin activation layouts with
+``constrain`` where the reference does, and run on each rank's block
+(``on_shards``, a ``local_map``) what DTensor cannot propagate.
+
 ``spec`` gives the reference's ``PartitionSpec`` as a plain tuple;
 ``placements`` the DTensor placements of that spec over a ``DeviceMesh``
 (``Shard(d)`` on each mesh dim that tensor dim ``d`` names, major to
@@ -45,7 +50,8 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import (
@@ -322,3 +328,144 @@ def local_block(shape: Sequence[int], mesh: DeviceMesh,
         start = min(lo[d] + c * step, hi[d])
         lo[d], hi[d] = start, min(start + step, hi[d])
     return tuple(slice(a, b) for a, b in zip(lo, hi))
+
+
+# --------------------------------------------------------------------------- #
+# the models' sharded pieces: constants beside DTensors, and the parts run
+# on each rank's block
+# --------------------------------------------------------------------------- #
+
+def is_sharded(rules: Optional[ShardingRules], x) -> bool:
+    """Whether a model call runs distributed: rules given and ``x`` a
+    DTensor."""
+    return rules is not None and isinstance(x, DTensor)
+
+
+def active(rules: Optional[ShardingRules], x) -> Optional[ShardingRules]:
+    """The rules where ``x`` is a DTensor they lay out, else None: a model
+    call on plain tensors runs as on one card."""
+    return rules if is_sharded(rules, x) else None
+
+
+def constrain(rules: Optional[ShardingRules], x, *logical: Optional[str]):
+    """``rules.constrain(x, *logical)``; ``x`` itself without rules."""
+    return x if rules is None else rules.constrain(x, *logical)
+
+
+def replicated_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """A constant built inside a forward (positions, a mask, a table) as a
+    DTensor replicated over ``ref``'s mesh when ``ref`` is a DTensor and
+    ``t`` is not; else ``t`` itself."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def axis_coordinate(rules: ShardingRules, axis: str) -> int:
+    """This rank's coordinate on mesh axis ``axis`` (0 where the mesh has
+    no such axis)."""
+    names = axis_names(rules.mesh)
+    if axis not in names:
+        return 0
+    return rules.mesh.get_local_rank(axis)
+
+
+def mesh_dim(rules: ShardingRules, axis: str) -> int:
+    """The index of mesh axis ``axis`` in the rules' ``DeviceMesh`` (what a
+    functional collective's ``(mesh, dim)`` group names)."""
+    return list(axis_names(rules.mesh)).index(axis)
+
+
+def dim_block(rules: ShardingRules, n: int, logical: Optional[str]) -> slice:
+    """This rank's block of a dim of size ``n`` laid out by ``logical``."""
+    if logical is None:
+        return slice(0, n)
+    return local_block((n,), rules.mesh, rules.placements(logical))[0]
+
+
+def _grad_placements(inp: tuple, outs: list) -> tuple:
+    """An input replicated on a mesh dim where an output is sharded or
+    partial was read in part by each rank: its gradient is partial
+    there."""
+    out = list(inp)
+    for m, p in enumerate(inp):
+        if isinstance(p, Replicate) and any(
+                not isinstance(o[m], Replicate) for o in outs):
+            out[m] = Partial()
+    return tuple(out)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: a rank's block's
+    gradient may be a strided view, which DTensor's backward ops upstream
+    (a matmul's) view as they are."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _SettleGrad(torch.autograd.Function):
+    """The identity, whose gradient (a DTensor) is redistributed to
+    ``placements`` as it passes: a partial gradient is summed here, before
+    the ops upstream see it."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def on_shards(rules: ShardingRules, fn, out_specs: tuple, in_specs: tuple,
+              *args):
+    """``fn`` on each rank's blocks (``torch.distributed.tensor.
+    experimental.local_map``): every DTensor argument is redistributed to
+    the placements of its logical dims in ``in_specs`` (None for an
+    argument that is no DTensor) and passed as its local block; ``fn``'s
+    outputs become DTensors laid out by ``out_specs``, each a tuple of
+    logical dims or of ready placements (``Partial`` where the ranks' blocks
+    sum).  An input replicated where an output is split gets a partial
+    gradient, summed (redistributed to the input's placements) before it
+    leaves; so an output that every rank computes whole beside a split
+    one must be given as ``Partial`` too, each rank's block its share
+    (divided by the ranks that compute it), or its gradient is counted
+    once a rank.  Without rules, or with no DTensor argument,
+    ``fn(*args)`` (one card)."""
+    if rules is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+
+    def placements(spec):
+        if spec is None:
+            return None
+        if spec and all(isinstance(p, (Replicate, Shard, Partial))
+                        for p in spec):
+            return tuple(spec)
+        return rules.placements(*spec)
+
+    outs = [placements(s) for s in out_specs]
+    ins = tuple(placements(s) if isinstance(a, DTensor) else None
+                for s, a in zip(in_specs, args))
+    grads = tuple(None if p is None else _grad_placements(p, outs)
+                  for p in ins)
+    args = tuple(_SettleGrad.apply(a.redistribute(rules.mesh, p), p)
+                 if p is not None and g != p and a.requires_grad else a
+                 for a, p, g in zip(args, ins, grads))
+
+    def local(*blocks):
+        return fn(*(_ContiguousGrad.apply(b) if isinstance(b, torch.Tensor)
+                    and b.requires_grad else b for b in blocks))
+    return local_map(local, out_placements=tuple(outs), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=rules.mesh,
+                     redistribute_inputs=True)(*args)

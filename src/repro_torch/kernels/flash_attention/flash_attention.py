@@ -40,12 +40,24 @@ has no backward kernel either: its training attention is XLA's dense or
 chunked softmax attention, which XLA differentiates
 (``repro/models/attention.py:184-205``).  The backward is plain torch on
 the card by design, under the profiler label ``PLAIN_BACKWARD``.
+
+On fake tensors (stand-ins that hold no data: the dry run's) the wrapper
+calls the kernel's function as one op, ``repro_torch::flash_attention``
+(o and the rows' log-sum-exp), differentiated by one op too,
+``repro_torch::flash_attention_backward``: a counting dispatch mode sees
+each once, with the kernels' operands and results as its bytes and
+``attention_flops`` as its operations, where the plain version would
+show the dense S x S scores that no kernel writes.  On real CPU tensors
+the two ops compute the plain version and its gradients.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
@@ -118,6 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_pos`` and ``k_pos`` (int32, (B, Sq) and (B, Sk)) make its mask one
     by position."""
     _check(q, k, v, causal, q_pos, k_pos)
+    if is_fake(q):
+        return attention_op(q, k, v, causal, q_pos, k_pos)[0]
     if q.device.type == "cpu":
         return ref.attention_plain(q, k, v, causal=causal, q_pos=q_pos,
                                    k_pos=k_pos)
@@ -217,3 +231,105 @@ def _launch(q, k, v, causal, q_pos, k_pos) -> torch.Tensor:
     _build.check(rc, ENTRY[rt])
     _build.LAUNCHES[COUNTER[rt]] += 1
     return o
+
+
+# --------------------------------------------------------------------------- #
+# the kernel as one op on stand-ins (see the module)
+# --------------------------------------------------------------------------- #
+
+def attention_flops(q_shape, k_shape, causal: bool,
+                    backward: bool = False) -> int:
+    """The operations of attention at these shapes: Q.K^T and P.V over the
+    kept pairs, 2 a multiply-add (4 D a pair; the causal half at Sq ==
+    Sk, i >= j, which is also what a position mask keeps where positions
+    rise along the row); a backward 2.5 times that (the scores computed
+    again, then dV, dP, dQ and dK)."""
+    b, sq, h, d = q_shape
+    sk = k_shape[1]
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    fwd = 4 * b * h * d * pairs
+    return fwd * 5 // 2 if backward else fwd
+
+
+def _lse(q, k, causal, q_pos, k_pos) -> torch.Tensor:
+    """The log-sum-exp of each row's kept scores, (B, H, Sq) f32."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * d ** -0.5
+    if causal:
+        keep = torch.ones(sq, sq, dtype=torch.bool, device=q.device).tril() \
+            if q_pos is None else \
+            q_pos[:, None, None, :, None] >= k_pos[:, None, None, None, :]
+        scores = torch.where(keep, scores, ref.NEG_INF)
+    return torch.logsumexp(scores, -1).reshape(b, h, sq)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                 q_pos: Optional[Tensor], k_pos: Optional[Tensor]
+                 ) -> Tuple[Tensor, Tensor]:
+    """``flash_attention``'s function as one op: (o like q, the rows'
+    log-sum-exp (B, H, Sq) f32); the plain version on real tensors."""
+    o = ref.attention_plain(q, k, v, causal=causal, q_pos=q_pos,
+                            k_pos=k_pos)
+    return o.contiguous(), _lse(q, k, causal, q_pos, k_pos).contiguous()
+
+
+@attention_op.register_fake
+def _(q, k, v, causal, q_pos, k_pos):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=(), device_types="cpu")
+def attention_backward_op(go: Tensor, q: Tensor, k: Tensor, v: Tensor,
+                          o: Tensor, lse: Tensor, causal: bool,
+                          q_pos: Optional[Tensor], k_pos: Optional[Tensor]
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The gradients of ``attention_op``'s o at (q, k, v) against ``go``,
+    given the forward's o and log-sum-exp (what a backward kernel reads);
+    on real tensors the plain version's gradients (``torch.func.vjp``: an
+    op's own code runs below autograd)."""
+    _, vjp = torch.func.vjp(
+        lambda q, k, v: ref.attention_plain(q, k, v, causal=causal,
+                                            q_pos=q_pos, k_pos=k_pos),
+        q, k, v)
+    return tuple(g.contiguous() for g in vjp(go))
+
+
+@attention_backward_op.register_fake
+def _(go, q, k, v, o, lse, causal, q_pos, k_pos):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, causal, q_pos, k_pos = inputs
+    ctx.causal = causal
+    ctx.set_materialize_grads(False)          # lse's gradient: none
+    ctx.save_for_backward(q, k, v, *output, q_pos, k_pos)
+
+
+def _attention_backward(ctx, go, _glse):
+    q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
+    return (*attention_backward_op(go, q, k, v, o, lse, ctx.causal, q_pos,
+                                   k_pos), None, None, None)
+
+
+attention_op.register_autograd(_attention_backward,
+                               setup_context=_attention_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _attention_op_flops(q_shape, k_shape, v_shape, causal, *args,
+                        out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _attention_backward_op_flops(go_shape, q_shape, k_shape, v_shape,
+                                 o_shape, lse_shape, causal, *args,
+                                 out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, backward=True)

@@ -34,13 +34,24 @@ kernel's three passes, which ``ssd_plain``'s chunk-by-chunk loop
 equals), as ``ssd_chunked`` is chunk-parallel: a few dozen batched ops a
 layer where the loop takes some 60 a chunk.  It is plain torch on the
 card by design, under the profiler label ``PLAIN_BACKWARD``.
+
+On fake tensors (stand-ins that hold no data: the dry run's) the wrapper
+calls the kernels' function as one op, ``repro_torch::ssd_scan``,
+differentiated by one op too, ``repro_torch::ssd_scan_backward``: a
+counting dispatch mode sees each once, with the kernels' operands and
+results as its bytes and ``ssd_flops`` as its operations, where the
+plain version would show its intra-chunk intermediates.  On real CPU
+tensors the two ops compute the plain version and its gradients.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import Tensor
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd import ref
@@ -151,6 +162,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     f32), through the CUDA kernels (the plain version on the CPU),
     differentiable on both."""
     _check(x, dt, a_log, b, c, d_skip, chunk)
+    if is_fake(x):
+        return scan_op(x, dt, a_log, b, c, d_skip, chunk)
     if x.device.type == "cpu":
         return ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
     _check_card(x, dt, a_log, b, c, d_skip, chunk)
@@ -258,3 +271,89 @@ def occupancy(dtype: torch.dtype, hd: int, ds: int, chunk: int
     _build.check(fn(_mode(dtype, hd, ds), hd, ds, chunk, blocks, smem),
                  "ssd_occupancy")
     return {p: (blocks[i], smem[i]) for i, p in enumerate(PASSES)}
+
+
+# --------------------------------------------------------------------------- #
+# the kernels as one op on stand-ins (see the module)
+# --------------------------------------------------------------------------- #
+
+def ssd_flops(x_shape, b_shape, chunk: int, backward: bool = False) -> int:
+    """The operations of the chunked scan at these shapes, per head and
+    chunk of L tokens: C.B^T and the scores times x over the causal half,
+    (ds + hd) L (L + 1), and C.H^T and the state update in full, 4 L hd
+    ds; a backward twice that (each product's gradient for each of its
+    two operands)."""
+    bsz, s, nh, hd = x_shape
+    ds = b_shape[3]
+    per_head = sum((ds + hd) * n * (n + 1) + 4 * n * hd * ds
+                   for n in (min(chunk, s - t) for t in range(0, s, chunk)))
+    fwd = bsz * nh * per_head
+    return 2 * fwd if backward else fwd
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cpu")
+def scan_op(x: Tensor, dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
+            d_skip: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
+    """``ssd_scan``'s function as one op: (y like x, the final state (B, nh,
+    hd, ds) f32); the plain version on real tensors."""
+    y, h = ref.ssd_plain(x, dt, a_log, b, c, d_skip, chunk=chunk)
+    return y.contiguous(), h.contiguous()
+
+
+@scan_op.register_fake
+def _(x, dt, a_log, b, c, d_skip, chunk):
+    bsz, _, nh, hd = x.shape
+    return x.new_empty(x.shape), x.new_empty((bsz, nh, hd, b.shape[3]),
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_backward", mutates_args=(),
+                         device_types="cpu")
+def scan_backward_op(gy: Tensor, gh: Optional[Tensor], x: Tensor,
+                     dt: Tensor, a_log: Tensor, b: Tensor, c: Tensor,
+                     d_skip: Tensor, chunk: int
+                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                Tensor]:
+    """The gradients of ``scan_op`` at its six inputs against those of y
+    and the final state (None: zero); on real tensors the plain version's
+    (``ref.ssd_chunked_plain``'s, by ``torch.func.vjp``: an op's own code
+    runs below autograd)."""
+    (_, h), vjp = torch.func.vjp(
+        lambda *a: ref.ssd_chunked_plain(*a, chunk=chunk),
+        x, dt, a_log, b, c, d_skip)
+    return tuple(g.contiguous() for g in
+                 vjp((gy, torch.zeros_like(h) if gh is None else gh)))
+
+
+@scan_backward_op.register_fake
+def _(gy, gh, x, dt, a_log, b, c, d_skip, chunk):
+    return tuple(t.new_empty(t.shape) for t in (x, dt, a_log, b, c, d_skip))
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.chunk = inputs[-1]
+    ctx.set_materialize_grads(False)          # an unused output's: None
+    ctx.save_for_backward(*inputs[:-1])
+
+
+def _scan_backward(ctx, gy, gh):
+    saved = ctx.saved_tensors
+    gy = torch.zeros_like(saved[0]) if gy is None else gy
+    return (*scan_backward_op(gy, gh, *saved, ctx.chunk), None)
+
+
+scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _scan_op_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, d_shape,
+                   chunk, *args, out_shape=None, **kwargs) -> int:
+    return ssd_flops(x_shape, b_shape, chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_backward)
+def _scan_backward_op_flops(gy_shape, gh_shape, x_shape, dt_shape, a_shape,
+                            b_shape, c_shape, d_shape, chunk, *args,
+                            out_shape=None, **kwargs) -> int:
+    return ssd_flops(x_shape, b_shape, chunk, backward=True)

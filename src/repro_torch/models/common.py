@@ -4,6 +4,10 @@ vocab and the loss over them, and the gated and plain MLPs.
 
 Matmuls run in the param dtype (bf16); norms, RoPE angles, softmax and
 logits accumulate in f32, as in the reference (``repro.models.common``).
+Given sharding ``rules`` and DTensor activations, the embedding, the
+logits and the MLP pin their layouts where the reference's do, and the
+constants built here (RoPE positions, the padded-vocab mask) become
+replicated DTensors beside a DTensor input.
 """
 from __future__ import annotations
 
@@ -13,8 +17,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial
+from torch.func import functional_call
 
-from repro_torch.distributed.sharding import LogicalArray
+from repro_torch.distributed.sharding import (
+    LogicalArray, ShardingRules, dim_block, is_sharded, on_shards,
+    replicated_like,
+)
+from repro_torch.launch.mesh import axis_names
 
 PARAM_DTYPE = torch.bfloat16
 INIT_SCALE = 0.02
@@ -60,6 +70,27 @@ def mlp_specs(cfg, d_ff: int) -> dict:
                 "w_down": la((d_ff, cfg.d_model), ("mlp", "fsdp"))}
     return {"w_up": la((cfg.d_model, d_ff), ("fsdp", "mlp")),
             "w_down": la((d_ff, cfg.d_model), ("mlp", "fsdp"))}
+
+
+class _Call(nn.Module):
+    """Holds a module so that ``functional_call`` swaps its parameters for
+    the whole of a function of it (a backward and an update too)."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, fn, *args):
+        return fn(self.module, *args)
+
+
+def over_params(module: nn.Module, params: dict, fn, *args):
+    """``fn(module, *args)`` with every parameter of ``module`` (a model
+    built on the meta device) swapped for ``params``' tensor of its
+    ``named_parameters`` name, by ``torch.func.functional_call``."""
+    return functional_call(_Call(module), {f"module.{n}": p
+                                           for n, p in params.items()},
+                           (fn, *args), strict=True)
 
 
 def param(*shape: int, dtype=PARAM_DTYPE, device=None) -> nn.Parameter:
@@ -139,7 +170,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     rot = int(d * rotary_pct)
     rot -= rot % 2
     half = rot // 2
-    freqs = _rope_freqs(rot, theta, x.device)
+    freqs = replicated_like(_rope_freqs(rot, theta, x.device), x)
+    positions = replicated_like(positions, x)
     if mrope_sections is not None:
         if positions.dim() != 3 or sum(mrope_sections) != half:
             raise ValueError(f"M-RoPE needs (B, S, 3) positions and sections "
@@ -169,13 +201,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # logits over a padded vocab
 # --------------------------------------------------------------------------- #
 
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 rules: Optional[ShardingRules] = None) -> torch.Tensor:
+    """tokens (B, S) -> their rows of the table (B, S, d).  Under
+    ``rules`` each rank looks its batch rows up in its block of the vocab
+    (a row outside it reads zeros), and the blocks' rows sum over the
+    vocab's mesh axis."""
+    if not is_sharded(rules, embed):
+        return F.embedding(tokens, embed)
+    rows = dim_block(rules, embed.shape[0], "vocab")
+
+    def local(tokens, table):
+        t = tokens.long() - rows.start
+        inside = (t >= 0) & (t < table.shape[0])
+        x = F.embedding(torch.where(inside, t, 0), table)
+        return x * inside[..., None].to(x.dtype)
+
+    out = tuple(Partial() if n == rules.vocab else p for n, p in
+                zip(axis_names(rules.mesh),
+                    rules.placements("batch", None, None)))
+    x = on_shards(rules, local, (out,), (("batch", None), ("vocab", None)),
+                  tokens, embed)
+    return rules.constrain(x, "batch", None, None)
+
+
 def logits_fn(embed: torch.Tensor, unembed: Optional[torch.Tensor],
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor,
+              rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """x (B, S, d) -> f32 logits (B, S, padded vocab): bf16 products summed
     in f32, as the reference's ``preferred_element_type=float32``; a tied
     model reads the embedding table transposed."""
     table = embed.t() if unembed is None else unembed
-    return x.float() @ table.float()
+    logits = x.float() @ table.float()
+    return rules.constrain(logits, "batch", None, "vocab") \
+        if is_sharded(rules, logits) else logits
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -189,9 +248,16 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     pv = logits.shape[-1]
     if pv > vocab_size:
         keep = torch.arange(pv, device=logits.device) < vocab_size
-        logits = torch.where(keep, logits, -1e30)
+        logits = torch.where(replicated_like(keep, logits), logits, -1e30)
     lse = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # a gather along a split vocab has no DTensor layout: the gold
+        # logit as a masked sum, each rank's columns a partial sum
+        cols = replicated_like(torch.arange(pv, device=logits.device), logits)
+        gold = torch.where(cols == targets.long()[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * lse.square()
@@ -222,11 +288,20 @@ class MLP(nn.Module):
             self.w_up = param(d, d_ff, device=device)
         self.w_down = param(d_ff, d, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.gated_ffn:
+    def forward(self, x: torch.Tensor,
+                rules: Optional[ShardingRules] = None) -> torch.Tensor:
+        sharded = is_sharded(rules, x)
+        if self.cfg.gated_ffn and sharded:
+            # d_ff splits over the mesh: gate and up as two products (a
+            # (2, f) -> 2 f reshape of a split f has no DTensor layout)
+            h = _act(self.cfg, x @ self.w_in[:, 0]) * (x @ self.w_in[:, 1])
+        elif self.cfg.gated_ffn:
             d, _, f = self.w_in.shape
             gu = (x @ self.w_in.reshape(d, 2 * f)).unflatten(-1, (2, f))
             h = _act(self.cfg, gu[..., 0, :]) * gu[..., 1, :]
         else:
             h = _act(self.cfg, x @ self.w_up)
-        return h @ self.w_down
+        if not sharded:
+            return h @ self.w_down
+        h = rules.constrain(h, "batch", None, "mlp")
+        return rules.constrain(h @ self.w_down, "batch", None, None)

@@ -25,8 +25,15 @@ from typing import Iterable, Mapping, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import LogicalArray
+
 # the port's module lists whose leaves the reference stacks over layers
 STACKED = ("layers", "encoder", "decoder")
+
+
+def _like(specs: Mapping[str, LogicalArray], dtype) -> dict:
+    return {n: LogicalArray(la.shape, la.logical, dtype)
+            for n, la in specs.items()}
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -62,6 +69,15 @@ class AdamW:
     weight_decay: float = 0.1
     clip_norm: Optional[float] = 1.0
     warmup: int = 100
+
+    def init_specs(self, param_specs: Mapping[str, LogicalArray]) -> dict:
+        """The state of ``init`` as LogicalArrays: f32 copies of the
+        parameter specs for the master and both moments, laid out as the
+        parameters, and the int32 count."""
+        return {"master": _like(param_specs, torch.float32),
+                "m": _like(param_specs, torch.float32),
+                "v": _like(param_specs, torch.float32),
+                "count": LogicalArray((), (), torch.int32)}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         """``{"master", "m", "v"}`` (name -> f32 tensor) and ``"count"``
@@ -115,6 +131,9 @@ class PaperSGD:
     lr: float = 0.05
     l2: float = 0.0
     clip_norm: Optional[float] = None
+
+    def init_specs(self, param_specs: Mapping[str, LogicalArray]) -> dict:
+        return {"count": LogicalArray((), (), torch.int32)}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         dev = next(iter(params.values())).device

@@ -219,8 +219,25 @@ Phases, each of which must pass or the script exits non-zero:
    ``TRAIN_GRAD_TOL``); why jamba-v0.1-52b trains only on the CPU; and
    checkpoints: ``run_with_restarts`` with an injected failure and
    ``train(..., ckpt_dir=)`` run twice, each equal to an uninterrupted
-   run bit for bit;
-16. distributed: the distributed layer on a one-rank NCCL group that
+   run bit for bit.  Phases 14 and 15 also time, in turns in one process,
+   the launchers' one-rank path (the step under the rules of the host
+   mesh, plain tensors) against the same step built without rules:
+   llama3-8b's decode steps (alternating within two generations whose
+   tokens must be ``generate``'s) and stablelm-3b's warm train step;
+16. launch: the launchers' CLIs as children of this script under torchrun
+   (``python -m torch.distributed.run --standalone --nproc_per_node 1``),
+   each on one NCCL rank started from torchrun's environment on cuda:0
+   (the mesh line they print says so): ``-m repro_torch.launch.train``
+   on stablelm-3b at full size (1 x 4,096, 3 steps on the repeated first
+   batch), its losses within ``LAUNCH_LOSS_REL`` of phase 15's first
+   three and B7 launched twice a layer a step; ``-m
+   repro_torch.launch.serve`` on llama3-8b (4 x 2,000 prompts, 32
+   tokens), its tokens equal to phase 14's and B7 launched once a layer;
+   and ``launch.train --ckpt-dir`` on mamba2-780m at smoke size saving
+   at step 2 in a child, resumed on to step 4 in this process, its
+   losses within ``LAUNCH_CKPT_REL`` of an uninterrupted run's; each
+   child's wall time printed;
+17. distributed: the distributed layer on a one-rank NCCL group that
    ``make_host_mesh()`` starts (and the phase destroys).  Context-parallel
    decode at the reference's long_500k (524,288 positions, batch 1) at
    jamba-v0.1-52b's widths (32 heads of 128, bf16), the first 500,000
@@ -239,7 +256,7 @@ Phases, each of which must pass or the script exits non-zero:
    DTensors on the card (``restore(shardings=)``), bit for bit, the same
    global norm, seconds and bytes printed; and every arch's tp-16 specs
    divisible on both production meshes;
-17. dryrun: the dry run (``launch.dryrun``) in a child process with no
+18. dryrun: the dry run (``launch.dryrun``) in a child process with no
    card, within ``DRYRUN_TIMEOUT_S``: llama3-8b train_4k and decode_32k
    and jamba-v0.1-52b long_500k on the fake 256-rank pod16x16 mesh and
    llama3-8b decode_32k on the 512-rank pod2x16x16, each cell's
@@ -261,6 +278,7 @@ import datetime
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -293,6 +311,21 @@ DRYRUN_TIMEOUT_S = 90
 # warm medians (s) that phases lm and train measure, for the dry run's
 # one-rank cells
 MEASURED: dict = {}
+# phase lm's served tokens and phase train's losses, by arch, which phase
+# launch's children must reproduce
+RESULTS: dict = {}
+# phase `launch`: the launchers' CLIs under torchrun, one NCCL rank each
+LAUNCH_TRAIN_ARCH, LAUNCH_TRAIN_STEPS = "stablelm-3b", 3
+LAUNCH_SERVE_ARCH = "llama3-8b"
+LAUNCH_CKPT_ARCH = "mamba2-780m"
+LAUNCH_LOSS_REL = 1e-3
+LAUNCH_CKPT_REL = 1e-5
+LAUNCH_CHILD_TIMEOUT_S = 240
+LAUNCH_MESH = "on cuda:0: a 1-rank nccl group, started from env://"
+# the launchers' one-rank decode step against the step without rules, in
+# turns step by step over this many generations (a whole generation's
+# decode moved 54-74 ms a token from run to run on the card)
+TURNS_DECODE_ROUNDS = 2
 
 SSB_LINEORDER_ROWS = 59_986_214  # SSB scale factor 10
 SSB_DATE_ROWS = 2_556            # 1992-01-01 .. 1998-12-30
@@ -3494,6 +3527,73 @@ def _patch_prefill(mb, model, cfg, b, dev, seed, label, counts, kinds_of,
             f"{counts[label][counter]} launches, all masked by position")
 
 
+def _turns_line(what, times, unit) -> str:
+    """Medians and spreads (the samples, or quartiles of eight or more)
+    of the two sides' seconds, and the medians' ratio."""
+    def q(v):
+        if len(v) < 8:
+            spread = f"samples {[round(t * 1e3, 3) for t in v]}"
+        else:
+            lo, _, hi = statistics.quantiles(v, n=4)
+            spread = (f"quartiles {lo * 1e3:.3f}-{hi * 1e3:.3f}, {len(v)} "
+                      "samples")
+        return (f"median {statistics.median(v) * 1e3:.3f} ms{unit} "
+                f"({spread})")
+    p, r = (statistics.median(times[k]) for k in ("plain", "ruled"))
+    return (f"{what} in turns (plain, rules, rules, plain, ...): without "
+            f"rules {q(times['plain'])}, the launcher's (the host mesh's "
+            f"rules, plain tensors) {q(times['ruled'])}: {r / p - 1:+.2%}")
+
+
+def _decode_turns(dev, cfg, mb, model, prompts, plen) -> str:
+    """The decode step as ``serve`` builds it at one rank (the rules of
+    the one-rank host mesh passed, the parameters plain) against the step
+    without rules, in turns within each of ``TURNS_DECODE_ROUNDS``
+    generations (plain, rules, rules, plain, ...: the host's drift falls
+    on both alike), each step timed to a synchronize; the tokens must
+    be ``generate``'s."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import registry
+    from repro_torch.train.train_loop import (
+        greedy, make_decode_step, make_prefill_step,
+    )
+
+    b, n = prompts.shape[0], LM_GEN_LEN - 1
+    want = generate(mb, model, prompts, LM_GEN_LEN)
+    times = {"plain": [], "ruled": []}
+    with process_group(dev):
+        rules = sharding.resolve(cfg, make_host_mesh(dev), ShapeConfig(
+            "serve", plen + LM_GEN_LEN, b, "prefill"))
+        steps = {"plain": make_decode_step(mb, model),
+                 "ruled": make_decode_step(mb, model, rules)}
+        with torch.inference_mode():
+            for r in range(TURNS_DECODE_ROUNDS):
+                caches = registry.make_cache(cfg, b, plen + LM_GEN_LEN, dev,
+                                             model.embed.dtype)
+                logits, caches = make_prefill_step(mb, model)(prompts,
+                                                              caches)
+                out = [greedy(cfg, logits)]
+                for i in range(n):
+                    # each generation starts on the other side
+                    key = ("plain", "ruled", "ruled", "plain")[(i + 2 * r)
+                                                               % 4]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tok, _, caches = steps[key](out[-1], plen + i, caches)
+                    torch.cuda.synchronize()
+                    times[key].append(time.perf_counter() - t0)
+                    out.append(tok)
+                if not torch.equal(torch.cat(out, 1), want):
+                    raise AssertionError("decode in turns: tokens differ "
+                                         "from generate's")
+    return _turns_line(f"decode steps ({TURNS_DECODE_ROUNDS} generations "
+                       f"of {n})", times, "/step")
+
+
 def phase_lm(dev, seed):
     """Serve every model of ``LM_ARCHS`` at full width (and full depth but
     for the cuts of ``LM_DEPTH``), the teacher-forced and card-vs-CPU path
@@ -3552,6 +3652,7 @@ def phase_lm(dev, seed):
         first = time.perf_counter() - t0
         counts[arch] = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
+        RESULTS[f"{arch} tokens"] = toks.cpu()
         _expect_launches(arch, counts[arch], cfg, 1, "flash_attention_tc",
                          "ssd_tc")
         kinds.expect(arch, _prefill_kinds(cfg))
@@ -3594,6 +3695,8 @@ def phase_lm(dev, seed):
             f"{'equal' if same else 'DIFFER from'} the first run's; peak "
             f"device memory {peak / 2 ** 30:.2f} GiB; launches {counts[arch]}"
             f"; attention calls {kinds.kinds}")
+        if arch == LAUNCH_SERVE_ARCH:
+            log("    " + _decode_turns(dev, cfg, mb, model, prompts, plen))
         t_warm = time.perf_counter()
         log(f"    prefill + {LM_PROFILE_TOKENS - 1} decode steps "
             + profile_once(lambda: generate(mb, model, prompts,
@@ -3712,6 +3815,7 @@ def _train_full(dev, arch, batch, seed):
     warm = sorted(st["s"] for st in steps[1:])
     med = warm[len(warm) // 2]
     MEASURED[f"{arch} train step"] = med
+    RESULTS[f"{arch} losses"] = losses
     tokens = batch * TRAIN_SEQ
     n = sum(p.numel() for p in model.parameters())
     log(f"train {arch}: {cfg.num_layers} layers, {n:,} params, {batch} x "
@@ -3732,6 +3836,8 @@ def _train_full(dev, arch, batch, seed):
     state = opt.init(dict(model.named_parameters()))
     batch_ = {k: v.to(dev) for k, v in synthetic_batch(
         DataConfig(cfg.vocab_size, TRAIN_SEQ, batch, seed), 0).items()}
+    if arch == LAUNCH_TRAIN_ARCH:
+        log("    " + _step_turns(dev, cfg, mb, model, opt, state, batch_))
     log("    one more step " + profile_once(
         lambda: step(state, batch_), top=4,
         labels=(fa.PLAIN_BACKWARD, ssd_kernels.PLAIN_BACKWARD)))
@@ -3744,6 +3850,33 @@ def _train_full(dev, arch, batch, seed):
     del model, step, state, batch_
     torch.cuda.empty_cache()
     return counts
+
+
+def _step_turns(dev, cfg, mb, model, opt, state, batch) -> str:
+    """The train step as ``launch.train.train`` builds it at one rank (the
+    rules of the one-rank host mesh, plain parameters) against
+    ``make_train_step`` without rules, in turns on one model, state and
+    batch: each step's seconds (a synchronize on both sides)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_host_mesh, process_group
+    from repro_torch.train.train_loop import make_train_step
+
+    b, s = batch["tokens"].shape
+    with process_group(dev):
+        rules = sharding.resolve(cfg, make_host_mesh(dev), ShapeConfig(
+            "train", s, b, "train"))
+        steps = {"plain": make_train_step(mb, model, opt),
+                 "ruled": make_train_step(mb, model, opt, rules)}
+        times = {"plain": [], "ruled": []}
+        for key in ("plain", "ruled", "ruled", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[key](state, batch)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+    return _turns_line("warm train steps", times, "")
 
 
 def _train_cut(dev, arch, seed):
@@ -3994,6 +4127,159 @@ def phase_train(dev, seed):
     torch.cuda.empty_cache()
     log(f"train: phase took {time.perf_counter() - t_phase:.2f} s")
     return counts
+
+
+def _torchrun(module: str, args: list, label: str):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m module args`` from the checkout, in a process
+    group of its own -> a handle for ``_finish``."""
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.path.join(HERE, "src")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", module, *args]
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    return proc, cmd, label, time.perf_counter()
+
+
+def _finish(handle):
+    """A ``_torchrun`` child's standard output and seconds, once it exits;
+    its process group killed whole after ``LAUNCH_CHILD_TIMEOUT_S``.  A
+    child that fails fails the phase."""
+    import signal
+    proc, cmd, label, t0 = handle
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"launch {label}: over {LAUNCH_CHILD_TIMEOUT_S}"
+                             f" s: {' '.join(cmd)}")
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch {label}: exited {proc.returncode}: "
+                             f"{' '.join(cmd)}\n{out[-3000:]}\n{err[-3000:]}")
+    return out, dt
+
+
+def _printed(out: str, prefix: str, label: str):
+    """The one line of ``out`` that starts with ``prefix``, the rest of it
+    read as JSON where it is JSON, else as text."""
+    lines = [x[len(prefix):] for x in out.splitlines()
+             if x.startswith(prefix)]
+    if len(lines) != 1:
+        raise AssertionError(f"launch {label}: {len(lines)} lines start "
+                             f"with {prefix!r}: {out[-3000:]}")
+    try:
+        return json.loads(lines[0])
+    except json.JSONDecodeError:
+        return lines[0]
+
+
+def _child_checks(out: str, tag: str, label: str, cfg, per_layer: int):
+    """A child's mesh line (one NCCL rank started from torchrun's
+    environment on cuda:0) and its B7 / B8 launches, ``per_layer`` a mixer
+    layer -> (the mesh line, the launches)."""
+    from repro_torch.kernels import _build
+    mesh = _printed(out, f"[{tag}] mesh ", label)
+    if LAUNCH_MESH not in mesh:
+        raise AssertionError(f"launch {label}: mesh {mesh}")
+    counts = dict.fromkeys(_build.LAUNCHES, 0)
+    counts.update(_printed(out, f"[{tag}] kernel launches ", label))
+    _expect_launches(label, counts, cfg, per_layer, "flash_attention_tc",
+                     "ssd_tc")
+    return mesh, {k: n for k, n in counts.items() if n}
+
+
+def phase_launch(dev, seed):
+    """The launchers' CLIs under torchrun, as users start them, one NCCL
+    rank each: training and serving at full size against phases train's
+    and lm's in-process runs, and a save and a restore at smoke size."""
+    import re
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    arch = LAUNCH_TRAIN_ARCH
+    cfg = get_arch(arch)
+    label = f"{arch} train child"
+    out, dt = _finish(_torchrun("repro_torch.launch.train", [
+        "--arch", arch, "--full", "--seq-len", str(TRAIN_SEQ),
+        "--global-batch", str(TRAIN_FULL[arch]), "--steps",
+        str(LAUNCH_TRAIN_STEPS), "--overfit-batch", "--seed", str(seed),
+        "--log-every", "1"], label))
+    mesh, counts = _child_checks(out, "train", label, cfg,
+                                 2 * LAUNCH_TRAIN_STEPS)
+    losses = _printed(out, "[train] losses ", label)
+    want = RESULTS[f"{arch} losses"][:LAUNCH_TRAIN_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    if len(losses) != LAUNCH_TRAIN_STEPS or not rel <= LAUNCH_LOSS_REL:
+        raise AssertionError(f"{label}: losses {losses}, phase train's "
+                             f"{want}")
+    step_ms = [float(x) for x in re.findall(r"dt=(\d+)ms", out)]
+    log(f"launch {label}: {mesh}; losses {losses} against phase train's "
+        f"{want} (largest relative difference {rel:.3e}, bound "
+        f"{LAUNCH_LOSS_REL}); steps {step_ms} ms; launches {counts}; the "
+        f"child took {dt:.1f} s")
+
+    # the serve child beside the checkpoint child (a smoke model: both fit)
+    ckpt_arch = LAUNCH_CKPT_ARCH
+    kw = dict(seq_len=128, global_batch=2, seed=seed, ckpt_every=2,
+              log_every=100)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        ckpt = _torchrun("repro_torch.launch.train", [
+            "--arch", ckpt_arch, "--steps", "2", "--ckpt-dir", tmp,
+            *(x for k, v in kw.items()
+              for x in (f"--{k.replace('_', '-')}", str(v)))],
+            f"{ckpt_arch} checkpoint child")
+        arch = LAUNCH_SERVE_ARCH
+        cfg = get_arch(arch)
+        label = f"{arch} serve child"
+        out, dt = _finish(_torchrun("repro_torch.launch.serve", [
+            "--arch", arch, "--no-smoke", "--prompt-len", str(LM_PROMPT_LEN),
+            "--gen-len", str(LM_GEN_LEN), "--batch", str(LM_BATCH),
+            "--seed", str(seed)], label))
+        mesh, counts = _child_checks(out, "serve", label, cfg, 1)
+        toks = torch.tensor(_printed(out, "[serve] tokens ", label))
+        want = RESULTS[f"{arch} tokens"]
+        if not torch.equal(toks, want):
+            raise AssertionError(f"{label}: tokens differ from phase lm's "
+                                 f"in {int((toks != want).sum())} of "
+                                 f"{want.numel()} places")
+        timing = [x for x in out.splitlines()
+                  if x.startswith(f"[serve] {arch}")]
+        log(f"launch {label}: {mesh}; {LM_BATCH} x {LM_GEN_LEN} tokens "
+            f"equal phase lm's; {timing}; launches {counts}; the child "
+            f"took {dt:.1f} s")
+
+        label = ckpt[2]
+        out, dt = _finish(ckpt)
+        saved = sorted(os.listdir(tmp))
+        t0 = time.perf_counter()
+        _, rest = train_mod.train(ckpt_arch, steps=4, ckpt_dir=tmp,
+                                  device=dev, **kw)
+        dt_rest = time.perf_counter() - t0
+        kept = sorted(os.listdir(tmp))
+    if saved != ["step_00000002"] or kept != ["step_00000002",
+                                               "step_00000004"]:
+        raise AssertionError(f"{label}: checkpoints {saved}, then {kept}")
+    got = _printed(out, "[train] losses ", label) + rest
+    _, whole = train_mod.train(ckpt_arch, steps=4, device=dev, **kw)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, whole))
+    if len(got) != 4 or not rel <= LAUNCH_CKPT_REL:
+        raise AssertionError(f"{label}: losses {got}, uninterrupted {whole}")
+    log(f"launch {label}: smoke size, 2 steps saved at step 2 by the child "
+        f"(beside the serve child, {dt:.1f} s), then resumed on to 4 in "
+        f"this process ({dt_rest:.1f} s): losses {got} against an "
+        f"uninterrupted in-process run's {whole} (largest relative "
+        f"difference {rel:.3e}, bound {LAUNCH_CKPT_REL})")
+    torch.cuda.empty_cache()
+    log(f"launch: phase took {time.perf_counter() - t_phase:.2f} s")
 
 
 def _cp_decode(dev, seed, mesh):
@@ -4424,6 +4710,7 @@ def main(argv=None) -> int:
     lm_counts, lm_kinds = phase_lm(dev, args.seed)
     train_counts = phase_train(dev, args.seed)
     lm_counts.update(train_counts)
+    phase_launch(dev, args.seed)
     phase_distributed(dev, args.seed)
     phase_dryrun(card)
     rows += [*multi_rows, *sgd_rows, copy_row] + lm_rows

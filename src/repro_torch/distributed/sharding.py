@@ -41,7 +41,9 @@ plain tensors, nothing changes): they pin activation layouts with
 minor, ``Replicate()`` elsewhere), so that each rank holds the block the
 reference puts on the device at the same mesh coordinate.  The rules
 resolve against a ``DeviceMesh`` or an ``AbstractMesh``
-(``launch.mesh``), whose sizes alone decide them.
+(``launch.mesh``), whose sizes alone decide them.  ``of_block`` and
+``from_whole`` make the DTensor of this rank's block (``local_block``),
+``whole`` gathers one back.
 """
 from __future__ import annotations
 
@@ -328,6 +330,34 @@ def local_block(shape: Sequence[int], mesh: DeviceMesh,
         start = min(lo[d] + c * step, hi[d])
         lo[d], hi[d] = start, min(start + step, hi[d])
     return tuple(slice(a, b) for a, b in zip(lo, hi))
+
+
+def of_block(local: torch.Tensor, mesh: DeviceMesh, placements: Sequence,
+             shape: Sequence[int]) -> DTensor:
+    """The DTensor of global ``shape`` laid out by ``placements`` over
+    ``mesh`` whose local tensor is ``local``, this rank's block
+    (``local_block``'s): no check, no bytes cross the group."""
+    full = torch.empty(tuple(shape), device="meta")
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
+def from_whole(t: torch.Tensor, mesh: DeviceMesh,
+               placements: Sequence) -> DTensor:
+    """``of_block`` of this rank's block of ``t``, a tensor every rank
+    holds whole and equal.  A block less than the whole is a copy, which
+    keeps nothing of ``t`` alive."""
+    block = t[local_block(t.shape, mesh, placements)]
+    block = block.contiguous() if block.numel() == t.numel() else \
+        block.clone(memory_format=torch.contiguous_format)
+    return of_block(block, mesh, placements, t.shape)
+
+
+def whole(x):
+    """``x`` gathered whole on every rank where it is a DTensor (a
+    collective), else ``x`` itself."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 # --------------------------------------------------------------------------- #

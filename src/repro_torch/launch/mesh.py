@@ -7,9 +7,15 @@ The counterpart of ``repro.launch.mesh``.  Axes:
   * ``model`` — tensor / expert parallelism
 
 ``make_host_mesh`` lays the current process group out as ``(1, world)``
-over ``("data", "model")``, on the card unless the caller names the CPU;
-with no process group yet it starts a one-rank group (NCCL on the card,
-gloo on the CPU) through a ``file://`` store in a temporary directory.
+over ``("data", "model")``, on the card unless the caller names the CPU.
+A group that exists (one a launcher or the caller started) is joined;
+with none, ``start_group`` starts one: from torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
+``MASTER_PORT``) where ``WORLD_SIZE`` is set, NCCL on card
+``LOCAL_RANK`` or gloo on the CPU; else a one-rank group (NCCL on the
+card, gloo on the CPU) through a ``file://`` store in a temporary
+directory.  ``process_group`` holds a group for a launcher's body and
+destroys it afterwards only where it started it.
 ``make_production_mesh`` gives the 256- and 512-chip meshes that the
 sharding rules are resolved against; no process group here has that many
 ranks, so these are ``AbstractMesh``es: axis names and sizes, no
@@ -20,11 +26,12 @@ either kind.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import os
 import shutil
 import tempfile
-from typing import Union
+from typing import Iterator, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -73,32 +80,73 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh((16, 16), ("data", "model"))
 
 
-def _start_one_rank_group(device: torch.device) -> None:
+def _start_one_rank_group(device: torch.device) -> str:
     """A process group of this process alone: NCCL for the card, gloo for
     the CPU, rendezvous through a file in a new temporary directory.  NCCL
-    that fails to start raises; nothing falls back to gloo on the card."""
+    that fails to start raises; nothing falls back to gloo on the card.
+    Returns the init method."""
     backend = "nccl" if device.type == "cuda" else "gloo"
     tmp = tempfile.mkdtemp(prefix="repro_torch_pg_")
     # the store's file is read for as long as the group lives: the
     # directory goes when the process exits
     atexit.register(shutil.rmtree, tmp, ignore_errors=True)
-    store = os.path.join(tmp, "store")
+    init = f"file://{os.path.join(tmp, 'store')}"
     kw = {}
     if device.type == "cuda":
         kw["device_id"] = torch.device(
             "cuda", torch.cuda.current_device() if device.index is None
             else device.index)
-    dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=0, world_size=1, **kw)
+    dist.init_process_group(backend, init_method=init, rank=0,
+                            world_size=1, **kw)
+    return init
+
+
+def _start_from_env(device: torch.device) -> str:
+    """The group torchrun describes in the environment: NCCL on card
+    ``LOCAL_RANK`` (made the current device first, so that ``"cuda"``
+    names it), gloo on the CPU."""
+    if device.type == "cuda":
+        card = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(card)
+        dist.init_process_group("nccl", init_method="env://",
+                                device_id=card)
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    return "env://"
+
+
+def start_group(device: DeviceLike = None) -> Optional[str]:
+    """Start the default process group unless one exists: from the
+    environment where ``WORLD_SIZE`` is set, else one rank through a file
+    store.  Returns the init method of the group it started, None where
+    it found one."""
+    if dist.is_initialized():
+        return None
+    dev = resolve(device)
+    if "WORLD_SIZE" in os.environ:
+        return _start_from_env(dev)
+    return _start_one_rank_group(dev)
+
+
+@contextlib.contextmanager
+def process_group(device: DeviceLike = None) -> Iterator[Optional[str]]:
+    """The default process group for the body (``start_group``), which
+    yields how it was started (None: the caller's) and, where it started
+    the group, destroys it on the way out."""
+    started = start_group(device)
+    try:
+        yield started
+    finally:
+        if started is not None and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def make_host_mesh(device: DeviceLike = None) -> DeviceMesh:
     """``(1, world)`` over ``("data", "model")`` of the current process
     group, on the card (``device=None``) or the device type named; starts
-    a one-rank group when there is none."""
+    a group (``start_group``) when there is none."""
     dev = resolve(device)
-    if not dist.is_initialized():
-        _start_one_rank_group(dev)
+    start_group(dev)
     return init_device_mesh(dev.type, (1, dist.get_world_size()),
                             mesh_dim_names=("data", "model"))
 

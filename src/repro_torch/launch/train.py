@@ -13,19 +13,35 @@ the reference's init rule; the batches are ``data.synthetic_batch``'s
 patch embeddings from ``np.random.default_rng(step)``.  With
 ``--ckpt-dir`` it saves the model's ``state_dict`` and the optimizer state
 every ``--ckpt-every`` steps and, started again, resumes from the latest.
+It runs on the current process group laid out as the host mesh, so the
+same command runs under torchrun on several ranks:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m repro_torch.launch.train --arch mamba2-780m --device cpu --steps 2
+
+Rank 0 prints the mesh, each logged step, the losses and the kernels'
+launch counters so far.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs import get_arch, smoke_config
+from repro_torch.configs import ShapeConfig, get_arch, smoke_config
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.launch.serve import _sync, build_model
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_host_mesh, mesh_axis, process_group
+from repro_torch.launch.serve import (
+    _on_card, _sync, build_model, launches_line, mesh_line,
+)
+from repro_torch.models import registry
+from repro_torch.models.common import distribute
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import DataConfig, Pipeline
 from repro_torch.train.fault_tolerance import StragglerDetector
@@ -41,56 +57,96 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           overfit_batch: bool = False, stats: Optional[dict] = None):
     """Train ``arch`` (its smoke config with ``smoke``) for ``steps``
     steps of ``global_batch`` x ``seq_len`` tokens -> (the model, the
-    losses of the steps run).  ``overfit_batch`` trains on the first
-    batch at every step, a run whose loss must fall.  ``stats``, where
-    given, receives
+    losses of the steps run, plain floats equal on every rank).
+    ``overfit_batch`` trains on the first batch at every step, a run
+    whose loss must fall.  ``stats``, where given, receives
     ``"steps"``: per step run a dict of its ``step``, ``loss``, ``ce``,
     ``aux``, ``grad_norm`` and seconds ``s`` (host clock around the step,
-    ending in a synchronize)."""
+    ending in a synchronize).
+
+    As the reference's launcher: the process group laid out as the host
+    mesh (``make_host_mesh``; a group started here is destroyed on
+    return), the rules resolved for ``ShapeConfig("train", seq_len,
+    global_batch, "train")``, and the step run under them.  Over more
+    than one rank the parameters (drawn whole from ``seed`` by every
+    rank, each keeping its block) and the optimizer state are DTensors
+    laid out by ``init_specs(tp)``, the batches are laid out by the
+    rules, a checkpoint is gathered and written by rank 0, and a resumed
+    run restores onto its own mesh, whatever the saving run's was.  One
+    rank keeps plain tensors (the rules then change nothing).  Only rank
+    0 prints."""
     dev = resolve(device)
     cfg = get_arch(arch)
     if smoke:
         cfg = smoke_config(cfg)
-    mb, model = build_model(cfg, dev, seed=seed)
-    opt = AdamW(lr=lr) if optimizer == "adamw" else PaperSGD(lr=lr)
-    opt_state = opt.init(dict(model.named_parameters()))
-    step_fn = make_train_step(mb, model, opt)
+    shape = ShapeConfig("train", seq_len, global_batch, "train")
+    with process_group(dev) as started:
+        mesh = make_host_mesh(dev)
+        dev = _on_card(dev)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        rules = sharding.resolve(cfg, mesh, shape)
+        tp = mesh_axis(mesh, "model")
+        mb, model = build_model(cfg, dev, seed=seed)
+        specs = mb.init_specs(tp)
+        if world > 1:
+            distribute(model, specs, rules)
+        opt = AdamW(lr=lr) if optimizer == "adamw" else PaperSGD(lr=lr)
+        opt_state = opt.init(dict(model.named_parameters()))
+        step_fn = make_train_step(mb, model, opt, rules)
+        if rank == 0:
+            print(f"[train] {mesh_line(mesh, started, dev)}")
 
-    data_cfg = DataConfig(cfg.vocab_size, seq_len, global_batch, seed=seed)
-    start = 0
-    if ckpt_dir and ckpt_lib.latest_step(ckpt_dir) is not None:
-        tree, man = ckpt_lib.restore(
-            ckpt_dir, {"params": model.state_dict(), "opt": opt_state})
-        model.load_state_dict(tree["params"])
-        opt_state = tree["opt"]
-        start = man["extra"]["step"]
-        print(f"[train] resumed from step {start}")
-    pipe = Pipeline(data_cfg, dev, start_step=start,
-                    extras_fn=_extras_fn(cfg, model.embed.dtype))
+        data_cfg = DataConfig(cfg.vocab_size, seq_len, global_batch,
+                              seed=seed)
+        start = 0
+        if ckpt_dir and ckpt_lib.latest_step(ckpt_dir) is not None:
+            like = {"params": model.state_dict(), "opt": opt_state}
+            shardings = None if world == 1 else {
+                "params": sharding.tree_shardings(specs, rules),
+                "opt": sharding.tree_shardings(opt.init_specs(specs),
+                                               rules)}
+            tree, man = ckpt_lib.restore(ckpt_dir, like,
+                                         shardings=shardings)
+            model.load_state_dict(tree["params"])
+            opt_state = tree["opt"]
+            start = man["extra"]["step"]
+            if rank == 0:
+                print(f"[train] resumed from step {start}")
+        batch_sharding = None if world == 1 else {
+            k: rules.named(*la.logical)
+            for k, la in registry.batch_logical(cfg, shape).items()}
+        pipe = Pipeline(data_cfg, dev, start_step=start,
+                        extras_fn=_extras_fn(cfg, model.embed.dtype),
+                        sharding=batch_sharding)
 
-    straggle = StragglerDetector()
-    losses = []
-    first = pipe.next() if overfit_batch else None
-    for step in range(start, steps):
-        batch = first if overfit_batch else pipe.next()
-        _sync(dev)
-        t0 = time.perf_counter()
-        opt_state, metrics = step_fn(opt_state, batch)
-        _sync(dev)
-        dt = time.perf_counter() - t0
-        straggle.observe("host0", dt)
-        m = {k: float(v) for k, v in metrics.items()}
-        losses.append(m["loss"])
-        if stats is not None:
-            stats.setdefault("steps", []).append(dict(m, step=step, s=dt))
-        if step % log_every == 0 or step == steps - 1:
-            print(f"[train] step={step:5d} loss={m['loss']:.4f} "
-                  f"ce={m['ce']:.4f} gnorm={m['grad_norm']:.3f} "
-                  f"dt={dt * 1e3:.0f}ms")
-        if ckpt_dir and (step + 1) % ckpt_every == 0:
-            ckpt_lib.save(ckpt_dir, step + 1,
-                          {"params": model.state_dict(), "opt": opt_state},
-                          extra={"step": step + 1, "data": pipe.state()})
+        straggle = StragglerDetector()
+        losses = []
+        first = pipe.next() if overfit_batch else None
+        for step in range(start, steps):
+            batch = first if overfit_batch else pipe.next()
+            _sync(dev)
+            t0 = time.perf_counter()
+            opt_state, metrics = step_fn(opt_state, batch)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            straggle.observe(f"host{rank}", dt)
+            m = {k: float(v) for k, v in metrics.items()}
+            losses.append(m["loss"])
+            if stats is not None:
+                stats.setdefault("steps", []).append(dict(m, step=step,
+                                                          s=dt))
+            if rank == 0 and (step % log_every == 0 or step == steps - 1):
+                print(f"[train] step={step:5d} loss={m['loss']:.4f} "
+                      f"ce={m['ce']:.4f} gnorm={m['grad_norm']:.3f} "
+                      f"dt={dt * 1e3:.0f}ms")
+            if ckpt_dir and (step + 1) % ckpt_every == 0:
+                ckpt_lib.save(ckpt_dir, step + 1,
+                              {"params": model.state_dict(),
+                               "opt": opt_state},
+                              extra={"step": step + 1, "data": pipe.state()})
+    if rank == 0:
+        print(f"[train] losses {json.dumps(losses)}")
+        print(f"[train] {launches_line()}")
     return model, losses
 
 

@@ -1,6 +1,7 @@
 """Shared model primitives: parameter specs (``la``, the embedding's and
-the MLP's), the init rule, norms, RoPE and M-RoPE, logits over a padded
-vocab and the loss over them, and the gated and plain MLPs.
+the MLP's), the init rule, parameters onto a mesh (``distribute``),
+norms, RoPE and M-RoPE, logits over a padded vocab and the loss over
+them, and the gated and plain MLPs.
 
 Matmuls run in the param dtype (bf16); norms, RoPE angles, softmax and
 logits accumulate in f32, as in the reference (``repro.models.common``).
@@ -21,8 +22,8 @@ from torch.distributed.tensor import DTensor, Partial
 from torch.func import functional_call
 
 from repro_torch.distributed.sharding import (
-    LogicalArray, ShardingRules, dim_block, is_sharded, on_shards,
-    replicated_like,
+    LogicalArray, ShardingRules, dim_block, from_whole, is_sharded,
+    on_shards, replicated_like, validate_divisibility,
 )
 from repro_torch.launch.mesh import axis_names
 
@@ -117,6 +118,33 @@ def init_params(module: nn.Module, generator: torch.Generator,
         scale = min(init_scale, 1.0 / math.sqrt(fan_in))
         p.copy_(scale * torch.randn(p.shape, generator=generator,
                                     dtype=torch.float32, device=p.device))
+
+
+@torch.no_grad()
+def distribute(model: nn.Module, specs: dict, rules: ShardingRules) -> None:
+    """Each parameter of ``model`` (drawn whole and equal on every rank)
+    replaced, one at a time, by an ``nn.Parameter`` holding the DTensor of
+    this rank's block, laid out by ``rules.placements`` of its spec's
+    logical dims (``specs``: ``init_specs``' LogicalArrays by name); the
+    whole tensor is dropped as its block takes its place, so a rank never
+    holds two whole copies.  A spec whose shape is not the parameter's
+    (heads, experts or vocab padded for the mesh), or a split dim the
+    mesh axis does not divide, raises: nothing is padded here."""
+    problems = validate_divisibility(specs, rules)
+    if problems:
+        raise ValueError(f"{model.cfg.name} does not split over "
+                         f"{axis_names(rules.mesh)}: {problems}")
+    for name in [n for n, _ in model.named_parameters()]:
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        p, la = getattr(module, leaf), specs[name]
+        if tuple(p.shape) != la.shape:
+            raise ValueError(f"{name}: the model holds {tuple(p.shape)}, "
+                             f"the specs {la.shape}")
+        block = from_whole(p.detach(), rules.mesh,
+                           rules.placements(*la.logical))
+        setattr(module, leaf, nn.Parameter(block,
+                                           requires_grad=p.requires_grad))
 
 
 # --------------------------------------------------------------------------- #

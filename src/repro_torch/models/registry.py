@@ -19,10 +19,11 @@ from functools import partial
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.sharding import (
-    LogicalArray, ShardingRules, tree_map, tree_sds,
+    LogicalArray, ShardingRules, local_block, of_block, tree_map, tree_sds,
 )
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import mesh_axis
@@ -157,14 +158,27 @@ def make_cache(cfg: ArchConfig, batch, max_len=None, device=None,
 
     ``make_cache(cfg, shape, rules, device=None)``, with a ShapeConfig,
     gives the reference's form instead: ``cache_specs_sds``' tree filled
-    with zeros on ``device`` (the card unless named), None for train."""
+    with zeros on ``device`` (the card unless named), its bf16 leaves in
+    ``dtype``, None for train.  Over a ``DeviceMesh`` each leaf is the
+    DTensor of this rank's block of zeros, laid out by its
+    LogicalArray."""
     if isinstance(batch, ShapeConfig):
         tree = cache_logical(cfg, batch, max_len)
         if tree is None:
             return None
         dev = resolve(device)
-        return tree_map(lambda _, la: torch.zeros(la.shape, dtype=la.dtype,
-                                                  device=dev), tree)
+        mesh = max_len.mesh
+
+        def zeros(_, la):
+            dt = dtype if la.dtype == torch.bfloat16 else la.dtype
+            if not isinstance(mesh, DeviceMesh):
+                return torch.zeros(la.shape, dtype=dt, device=dev)
+            placements = max_len.placements(*la.logical)
+            block = local_block(la.shape, mesh, placements)
+            local = torch.zeros([s.stop - s.start for s in block], dtype=dt,
+                                device=dev)
+            return of_block(local, mesh, placements, la.shape)
+        return tree_map(zeros, tree)
     if cfg.is_enc_dec:
         return encdec.make_caches(
             cfg, batch, max_len,

@@ -6,7 +6,9 @@
     ``shards.npz`` (one array a leaf; bf16 is stored as f32, exactly);
   * a write goes to ``.tmp_step_XXXXXXXX`` and is published by one
     rename, so a crash mid-write never leaves a broken latest step;
-  * the last ``keep`` checkpoints are kept.
+  * the last ``keep`` checkpoints are kept;
+  * a tree of DTensors (a run over several ranks) is gathered whole and
+    written by rank 0 (``save``).
 
 The tree is nested dicts, lists and tuples of tensors (a model's
 ``state_dict`` beside the optimizer state); a leaf's path is the
@@ -27,10 +29,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import local_block
+from repro_torch.distributed.sharding import local_block, of_block
 
 
 def _is_sharding(x) -> bool:
@@ -69,8 +72,22 @@ def _dir(ckpt_dir, step: int) -> Path:
 
 def save(ckpt_dir: str | Path, step: int, tree: Any, *,
          extra: Optional[dict] = None, keep: int = 3) -> Path:
+    """Write ``tree`` as step ``step`` under ``ckpt_dir`` and keep the
+    last ``keep`` steps.  A tree with DTensor leaves is saved by every
+    rank of the default process group together: each such leaf is
+    gathered whole (a collective), rank 0 alone writes, publishes and
+    prunes, and a barrier holds every rank until the step is published.
+    The layout on disk is the same either way."""
     ckpt_dir = Path(ckpt_dir)
     final = _dir(ckpt_dir, step)
+    leaves = flatten(tree)
+    group = any(isinstance(leaf, DTensor) for _, leaf in leaves)
+    if group and dist.get_rank() != 0:
+        for _, leaf in leaves:                 # rank 0's gathers
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()
+        dist.barrier()
+        return final
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -79,7 +96,9 @@ def save(ckpt_dir: str | Path, step: int, tree: Any, *,
     manifest = {"step": step, "time": time.time(), "extra": extra or {},
                 "leaves": []}
     arrays = {}
-    for i, (name, leaf) in enumerate(flatten(tree)):
+    for i, (name, leaf) in enumerate(leaves):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         logical_dtype = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:          # npz-safe storage as f32
@@ -100,6 +119,8 @@ def save(ckpt_dir: str | Path, step: int, tree: Any, *,
                    if d.name.startswith("step_"))
     for old in ckpts[:-keep]:
         shutil.rmtree(old)
+    if group:
+        dist.barrier()
     return final
 
 
@@ -122,9 +143,7 @@ def _sharded(arr: np.ndarray, dtype: torch.dtype, sharding):
         dev = torch.device("cuda", torch.cuda.current_device())
     local = torch.from_numpy(np.ascontiguousarray(block)).to(device=dev,
                                                              dtype=dtype)
-    full = torch.empty(arr.shape, device="meta")
-    return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=full.shape, stride=full.stride())
+    return of_block(local, mesh, placements, arr.shape)
 
 
 def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None,

@@ -6,7 +6,7 @@ replays the exact stream with no persisted iterator state.  The tokens
 are the reference's own numpy draw, so both systems train on identical
 batches.  The pipeline works one step ahead, as the paper's datamovers
 stage the next batch while the step runs; it places batches on an
-explicit device where the reference puts them on a sharding.
+explicit device and, given shardings, hands each rank its block.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.sharding import from_whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,16 +47,20 @@ class Pipeline:
     """The batch stream of ``synthetic_batch`` (with ``extras_fn(cfg,
     step)``'s tensors added, such as frames or patch embeddings), each
     batch placed on ``device`` (left on the host when None), the next one
-    staged while the caller works on the current one."""
+    staged while the caller works on the current one.  ``sharding`` (the
+    reference's ``Pipeline(sharding=)``) maps a batch key to ``(mesh,
+    placements)``: that tensor, drawn whole by every rank, is handed on
+    as the DTensor of this rank's block."""
 
     def __init__(self, cfg: DataConfig, device: DeviceLike = None,
                  start_step: int = 0,
                  extras_fn: Optional[Callable[[DataConfig, int], dict]]
-                 = None):
+                 = None, sharding: Optional[dict] = None):
         self.cfg = cfg
         self.device = None if device is None else torch.device(device)
         self.step = start_step
         self.extras_fn = extras_fn
+        self.sharding = sharding or {}
         self._staged: Optional[dict] = None
 
     def _produce(self, step: int) -> dict:
@@ -64,7 +69,8 @@ class Pipeline:
             batch.update(self.extras_fn(self.cfg, step))
         if self.device is not None:
             batch = {k: v.to(self.device) for k, v in batch.items()}
-        return batch
+        return {k: from_whole(v, *self.sharding[k]) if k in self.sharding
+                else v for k, v in batch.items()}
 
     def next(self) -> dict:
         batch = self._staged if self._staged is not None \

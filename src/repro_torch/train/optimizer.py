@@ -25,7 +25,7 @@ from typing import Iterable, Mapping, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import LogicalArray
+from repro_torch.distributed.sharding import LogicalArray, replicated_like
 
 # the port's module lists whose leaves the reference stacks over layers
 STACKED = ("layers", "encoder", "decoder")
@@ -60,6 +60,15 @@ def _clipped(grads: Mapping[str, torch.Tensor], clip_norm):
                               max=1.0)
 
 
+def _count(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The step count, an int32 0-dim zero on the parameters' device;
+    replicated over their mesh where they are DTensors (``init_specs``'
+    layout, which ``checkpoint.restore`` gives it back in)."""
+    p = next(iter(params.values()))
+    return replicated_like(torch.zeros((), dtype=torch.int32,
+                                       device=p.device), p)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: float = 3e-4
@@ -80,17 +89,14 @@ class AdamW:
                 "count": LogicalArray((), (), torch.int32)}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
-        """``{"master", "m", "v"}`` (name -> f32 tensor) and ``"count"``
-        (an int32 0-dim tensor), on the parameters' device."""
+        """``{"master", "m", "v"}`` (name -> f32 tensor, each laid out as
+        its parameter) and ``"count"`` (``_count``)."""
         def zeros():
-            return {n: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            return {n: torch.zeros_like(p, dtype=torch.float32)
                     for n, p in params.items()}
-        dev = next(iter(params.values())).device
         return {"master": {n: p.detach().float().clone()
                            for n, p in params.items()},
-                "m": zeros(), "v": zeros(),
-                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+                "m": zeros(), "v": zeros(), "count": _count(params)}
 
     def _schedule(self, count: torch.Tensor) -> torch.Tensor:
         warm = torch.clamp(count.float() / max(self.warmup, 1), max=1.0)
@@ -136,8 +142,7 @@ class PaperSGD:
         return {"count": LogicalArray((), (), torch.int32)}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
-        dev = next(iter(params.values())).device
-        return {"count": torch.zeros((), dtype=torch.int32, device=dev)}
+        return {"count": _count(params)}
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,

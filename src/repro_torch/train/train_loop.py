@@ -1,6 +1,9 @@
 """Step factories over a built model: the train step (loss, gradients,
-optimizer update), prefill and greedy decode; and ``step_and_specs``, one
-dry-run cell's step with its inputs as meta stand-ins."""
+optimizer update), prefill and greedy decode, each under optional
+sharding ``rules`` (the reference's factories take them; with
+``rules=None``, or a model of plain tensors, a step runs as on one
+card); and ``step_and_specs``, one dry-run cell's step with its inputs
+as meta stand-ins."""
 from __future__ import annotations
 
 from typing import Callable
@@ -10,7 +13,9 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.distributed.sharding import ShardingRules, tree_sds
+from repro_torch.distributed.sharding import (
+    ShardingRules, constrain, tree_sds, whole,
+)
 from repro_torch.launch.mesh import mesh_axis
 from repro_torch.models import registry
 from repro_torch.models.attention import KVCache
@@ -20,46 +25,68 @@ from repro_torch.models.registry import ModelBundle
 from repro_torch.train.optimizer import AdamW
 
 
-def make_train_step(mb: ModelBundle, model, opt, **loss_kw) -> Callable:
+def make_train_step(mb: ModelBundle, model, opt, rules=None,
+                    **loss_kw) -> Callable:
     """``train_step(opt_state, batch) -> (opt_state, metrics)``: the
-    bundle's loss of ``batch`` (``loss_kw`` passed on), the gradients of
-    every named parameter (zero where the loss does not reach one, as the
-    reference's ``jax.grad`` gives), and ``opt.update`` in place on the
-    model's parameters and the state.  ``metrics``: ``loss``, ``ce``,
-    ``aux`` and ``grad_norm`` (the unclipped global norm), f32 0-dim
-    tensors on the model's device.  Makes every parameter require its
-    gradient."""
+    bundle's loss of ``batch`` under ``rules`` (``loss_kw`` passed on),
+    the gradients of every named parameter (zero where the loss does not
+    reach one, as the reference's ``jax.grad`` gives), and ``opt.update``
+    in place on the model's parameters and the state.  The gradient of a
+    DTensor parameter is laid out as the parameter.  ``metrics``:
+    ``loss``, ``ce``, ``aux`` and ``grad_norm`` (the unclipped global
+    norm), f32 0-dim tensors on the model's device, whole on every rank.
+    Makes every parameter require its gradient."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
 
     def train_step(opt_state, batch):
-        loss, metrics = mb.loss_fn(model, batch, **loss_kw)
+        loss, metrics = mb.loss_fn(model, batch, rules=rules, **loss_kw)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
+        grads = {n: _laid_out_as(p, g)
                  for (n, p), g in zip(params.items(), grads)}
         _, opt_state, gnorm = opt.update(grads, opt_state, params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(loss=loss.detach(), grad_norm=gnorm)
+        metrics = {k: whole(v.detach()) for k, v in metrics.items()}
+        metrics.update(loss=whole(loss.detach()), grad_norm=whole(gnorm))
         return opt_state, metrics
     return train_step
 
 
-def make_prefill_step(mb: ModelBundle, model) -> Callable:
+def _laid_out_as(p: torch.Tensor, g) -> torch.Tensor:
+    """``p``'s gradient ``g`` in ``p``'s layout: zeros where the loss does
+    not reach ``p``; a DTensor's partial sums summed and its blocks
+    redistributed to ``p``'s placements."""
+    if g is None:
+        return torch.zeros_like(p)
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def greedy(cfg: ArchConfig, logits: torch.Tensor,
+           rules=None) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` (..., padded vocab) over
+    the real vocab (padded columns never win); a DTensor's vocab is
+    gathered whole first."""
+    if isinstance(logits, DTensor):
+        logits = constrain(rules, logits, "batch", None, None)
+    return torch.argmax(logits[..., :cfg.vocab_size], dim=-1)
+
+
+def make_prefill_step(mb: ModelBundle, model, rules=None) -> Callable:
     def prefill_step(tokens: torch.Tensor, caches, **inputs):
         """``inputs``: the prompt's other inputs (an encoder-decoder's
         ``frames``)."""
-        return mb.prefill_fn(model, tokens, caches, **inputs)
+        return mb.prefill_fn(model, tokens, caches, rules=rules, **inputs)
     return prefill_step
 
 
-def make_decode_step(mb: ModelBundle, model) -> Callable:
+def make_decode_step(mb: ModelBundle, model, rules=None) -> Callable:
     def decode_step(tokens: torch.Tensor, pos: int, caches):
-        logits, new_caches = mb.decode_fn(model, tokens, pos, caches)
-        # greedy token for the serving loop; padded vocab columns never win
-        next_tok = torch.argmax(logits[..., :mb.cfg.vocab_size], dim=-1)
-        return next_tok, logits, new_caches
+        logits, new_caches = mb.decode_fn(model, tokens, pos, caches,
+                                          rules=rules)
+        return greedy(mb.cfg, logits, rules), logits, new_caches
     return decode_step
 
 
@@ -67,7 +94,7 @@ def make_decode_step(mb: ModelBundle, model) -> Callable:
 # one dry-run cell's step over stand-ins
 # --------------------------------------------------------------------------- #
 
-def _cache_objects(tree, pos: int):
+def cache_objects(tree, pos: int):
     """A cache tree of tensors (``cache_specs_sds``' form) as the models'
     cache objects, the KV caches at ``pos``."""
     def one(c):
@@ -156,7 +183,7 @@ def step_and_specs(cfg: ArchConfig, shape: ShapeConfig, rules: ShardingRules,
         def prefill(model, batch, caches):
             kw = {k: batch[k] for k in inputs if k in batch}
             logits, new = mb.prefill_fn(model, batch["tokens"],
-                                        _cache_objects(caches, 0),
+                                        cache_objects(caches, 0),
                                         rules=rules, **kw)
             return logits, _cache_tree(new)
 
@@ -168,12 +195,8 @@ def step_and_specs(cfg: ArchConfig, shape: ShapeConfig, rules: ShardingRules,
     def decode(model, batch, caches):
         pos = _position(batch["pos"], shape)
         logits, new = mb.decode_fn(model, batch["tokens"], pos,
-                                   _cache_objects(caches, pos), rules=rules)
-        whole = logits
-        if isinstance(logits, DTensor):      # the argmax over the vocab
-            whole = rules.constrain(logits, "batch", None, None)
-        next_tok = torch.argmax(whole[..., :cfg.vocab_size], dim=-1)
-        return next_tok, logits, _cache_tree(new)
+                                   cache_objects(caches, pos), rules=rules)
+        return greedy(cfg, logits, rules), logits, _cache_tree(new)
 
     @torch.no_grad()
     def decode_step(params, batch, caches):

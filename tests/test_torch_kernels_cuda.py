@@ -1838,3 +1838,48 @@ def test_restore_onto_the_card_mesh_equals_the_cpu(card_and_cpu_meshes,
         card_local = outs[0][k].to_local().cpu()
         assert torch.equal(card_local, outs[1][k].to_local()), k
         assert torch.equal(card_local, params[k]), k
+
+
+def test_launchers_start_and_destroy_a_one_rank_nccl_group(cuda, tmp_path,
+                                                           capsys):
+    """``launch.train`` and ``launch.serve`` on the card with no group:
+    each starts a one-rank NCCL group, keeps plain parameters, launches
+    B7 once a layer a prefill (twice a layer a train step), and leaves no
+    group behind; a DTensor tree saved on the card's one-rank mesh is the
+    plain tree's checkpoint."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint
+    assert not dist.is_initialized()
+    _build.reset_launches()
+    model, losses = train_mod.train("llama3-8b", steps=2, seq_len=128,
+                                    global_batch=2)
+    cfg = smoke_config(get_arch("llama3-8b"))
+    assert _build.LAUNCHES["flash_attention_tc"] == 2 * 2 * cfg.num_layers
+    assert not dist.is_initialized() and all(np.isfinite(losses))
+    assert not any(isinstance(p, DTensor) for p in model.parameters())
+    _build.reset_launches()
+    gen = serve_mod.serve("llama3-8b", gen_len=4)
+    assert _build.LAUNCHES["flash_attention_tc"] == cfg.num_layers
+    assert gen.shape == (4, 4) and not dist.is_initialized()
+    out = capsys.readouterr().out
+    assert "1-rank nccl group, started from file://" in out
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    with mesh_mod.process_group(cuda):
+        mesh = mesh_mod.make_host_mesh(cuda)
+        rules = sharding.resolve(cfg, mesh)
+        specs = registry.bundle(cfg).init_specs(1)
+        tree = {n: sharding.from_whole(t, *rules.named(*specs[n].logical))
+                for n, t in params.items()}
+        checkpoint.save(tmp_path / "d", 1, tree)
+    assert not dist.is_initialized()
+    checkpoint.save(tmp_path / "p", 1, params)
+    for d in ("d", "p"):
+        got, _ = checkpoint.restore(tmp_path / d, params)
+        assert all(torch.equal(got[n], params[n]) for n in params), d

@@ -168,7 +168,8 @@ Phases, each of which must pass or the script exits non-zero:
    and 32 greedy tokens each: prefill and per-token decode time (first
    run, median of warm runs, one warm run for the four later models),
    tok/s, peak device memory, device busy against wall over a profiled
-   run of a prefill and 7 decode steps, and one bf16 flash-attention
+   run of a prefill and 7 decode steps (llama3-8b and granite-moe only,
+   ``LM_PROFILE_ARCHS``), and one bf16 flash-attention
    launch per attention layer and one SSD tensor-core launch per Mamba
    layer of the prefill (the f32 check below launches the f32 route of
    each, once per such layer of each of its two prefills).  qwen2-vl
@@ -199,7 +200,11 @@ Phases, each of which must pass or the script exits non-zero:
    cross-attentions over the frames), the same path checks (the
    card-vs-CPU one at 2 encoder and 2 decoder layers over 416 tokens).
    B7 is also timed at whisper's three shapes and masked by position at
-   qwen2-vl's, and B7 and B8 at the training step's shapes below;
+   qwen2-vl's, and B7 and B8 at the training step's shapes below; B7's
+   backward kernel is held against ``plain_backward`` (two calls
+   bit-identical) and timed beside SDPA's backward at stablelm-3b's,
+   granite-moe's (GQA 3) and qwen2-vl's (by position) training shapes and
+   whisper's encoder and cross-attention, in bf16 and in f32;
 15. train: LM training.  stablelm-3b (32 layers, 2.80 B params, B7 bf16
    at D 80, batch 1) and mamba2-780m (48 layers, B8's tensor cores,
    batch 4) at full width and depth through ``launch.train.train`` at
@@ -207,13 +212,15 @@ Phases, each of which must pass or the script exits non-zero:
    what one card holds beside the AdamW state), 6 AdamW steps on one
    repeated batch: finite, falling loss, finite norms, exactly 2 B7 / B8
    launches a mixer layer a step (the forward and the checkpoint's
-   recompute), the warm step median and the first, tokens/s, 6 N tokens
-   over step time against 989 TFLOP/s, peak memory, and one more step
-   profiled with the device time of the plain backwards (the kernels'
-   ``torch.autograd.Function``s recompute the plain version), after
+   recompute) and one call of B7's backward kernel an attention layer a
+   step, the warm step median and the first, tokens/s, 6 N tokens over
+   step time against 989 TFLOP/s, peak memory, and one more step
+   profiled with the device time of B7's backward kernel and of B8's
+   plain backward (``SSDScanFn`` recomputes the plain version), after
    which every parameter's gradient must be non-zero; one AdamW
    step of granite-moe-3b-a800m, qwen2-vl-7b and whisper-large-v3 at 2
-   layers and full width, every gradient non-zero; the loss and every
+   layers and full width (B7's backward once an attention layer), every
+   gradient non-zero; the loss and every
    gradient of 2-layer f32 copies of stablelm-3b and mamba2-780m on the
    card against the CPU's plain autograd (``TRAIN_LOSS_TOL``,
    ``TRAIN_GRAD_TOL``); why jamba-v0.1-52b trains only on the CPU; and
@@ -362,8 +369,11 @@ LM_BATCH, LM_PROMPT_LEN, LM_GEN_LEN = 4, 2_000, 32
 LM_PROMPT_LEN_OF = {"whisper-large-v3": 416}
 LM_WARM_RUNS = 3
 # the profiled run generates 8 tokens (a prefill and 7 decode steps): the
-# profiler's own bookkeeping of a 32-token run took 67-86 s a model
+# profiler's own bookkeeping of a 32-token run took 67-86 s a model; it
+# runs for one dense and one MoE model only, since a profile took 5-29 s
+# a model and the ten of them 185 s of a run that reached 960 s
 LM_PROFILE_TOKENS = 8
+LM_PROFILE_ARCHS = ("llama3-8b", "granite-moe-3b-a800m")
 # the moe, hybrid and vlm families and the two dense models added after
 # them take one warm run each, which keeps the script inside its time
 LM_WARM_RUNS_OF = {"granite-moe-3b-a800m": 1, "qwen2-vl-7b": 1,
@@ -390,6 +400,10 @@ LM_ROUTE_MARGIN = 1e-5
 # version (cuBLAS): f32 within 2e-5; in bf16 within the reference's own
 # bf16 tolerance (tests/test_kernels_attention_ssd.py)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# B7's backward kernel against plain_backward, of each gradient's largest
+# magnitude: f32 sums in another order; in bf16 the kernel rounds P and dS
+# for its products where the plain version rounds the unnormalised p
+ATTN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the SSD kernel against its plain version: f32 sums in another order;
 # a bf16 y is one rounding of such an f32 value (2**-6 covers one ulp)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1004,15 +1018,18 @@ def spread(warm) -> str:
             f"{len(warm)} runs")
 
 
-def profile_once(run, top: int = 5, labels=()) -> str:
+def profile_once(run, top: int = 5, labels=(), kernels=()) -> str:
     """One more warm run under ``torch.profiler``: the device's busy time
     (the sum of kernel and copy self times) against the run's wall time,
     and the kernels that took most of it; with ``labels`` (profiler
     ranges: the train step's plain backwards), the device time of the
-    kernels run under each.  A range also shows as a device-side span
-    (its first kernel to its last, gaps included), which the busy time
-    leaves out.  The profiler's own cost lengthens the wall time, so the
-    idle share is an upper bound."""
+    torch ops run under each; with ``kernels`` ((range, substring)
+    pairs), the device self time of the kernels whose names hold the
+    substring (a kernel launched through ctypes runs under no torch op, so
+    its range's own count shows none of its time).  A range also shows as
+    a device-side span (its first kernel to its last, gaps included),
+    which the busy time leaves out.  The profiler's own cost lengthens the wall
+    time, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1024,7 +1041,8 @@ def profile_once(run, top: int = 5, labels=()) -> str:
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    dev = [e for e in events if e.device_type == cuda and e.key not in labels]
+    spans = set(labels) | {label for label, _ in kernels}
+    dev = [e for e in events if e.device_type == cuda and e.key not in spans]
     busy_us = sum(e.self_device_time_total for e in dev)
     if busy_us <= 0:
         return "profile: no device time traced (not measured)"
@@ -1038,6 +1056,15 @@ def profile_once(run, top: int = 5, labels=()) -> str:
         parts += (f"{label} {us / 1e3:.1f} ms device over "
                   f"{sum(e.count for e in mine)} calls ({us / busy_us:.1%} of "
                   "busy); ")
+    for label, sub in kernels:
+        mine = [e for e in dev if sub in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        parts += (f"{label} kernels {us / 1e3:.1f} ms device over "
+                  f"{sum(e.count for e in mine)} launches ({us / busy_us:.1%} "
+                  "of busy: " + ", ".join(
+                      f"{e.key.split(sub, 1)[1].split('<')[0][:24]} "
+                      f"{e.self_device_time_total / 1e3:.1f}" for e in mine)
+                  + "); ")
     return (f"profile: device busy {busy_us / 1e3:.3f} ms of "
             f"{wall_us / 1e3:.3f} ms wall (idle <= "
             f"{1 - busy_us / wall_us:.0%}), {sum(e.count for e in dev)} "
@@ -2983,7 +3010,8 @@ def phase_lm_kernels(dev):
     at the mamba2-780m ones and at jamba's (ds 16, 128 heads): the served
     bf16 prefill and the f32 check's batch of one (and mamba2-780m's
     training step, bf16, 4 x ``TRAIN_SEQ``), against their plain
-    versions, timed (B8 also pass by pass).  Returns the 26 JSON rows; a
+    versions, timed (B8 also pass by pass); then B7's backward kernel at
+    the training shapes (``b7_bwd_row``).  Returns the 36 JSON rows; a
     row's ``counted_in`` names the run of ``phase_lm`` or ``phase_train``
     whose launches it reports, and its ``counter`` the counter of the
     route its inputs take."""
@@ -3006,28 +3034,34 @@ def phase_lm_kernels(dev):
     s = LM_PROMPT_LEN
     rows = []
 
+    def b7_mask(q, k, causal, q_pos, k_pos):
+        """(the pairs this data keeps, the mask's name, SDPA's mask
+        arguments: ``is_causal``, or the position mask as a boolean
+        mask)."""
+        b, sq, h, _ = q.shape
+        sk = k.shape[1]
+        sdpa_kw = dict(is_causal=causal and q_pos is None)
+        if q_pos is not None:
+            kept = torch.searchsorted(k_pos.sort(-1).values, q_pos,
+                                      right=True)
+            sdpa_kw["attn_mask"] = (q_pos[:, None, :, None]
+                                    >= k_pos[:, None, None, :])
+            return h * int(kept.sum()), "position mask", sdpa_kw
+        if causal:                      # the causal half, i >= j
+            return b * h * sq * (sq + 1) // 2, "causal", sdpa_kw
+        return b * h * sq * sk, "non-causal", sdpa_kw
+
     def b7_row(name, arch, q, k, v, counted_in, causal=True, q_pos=None,
                k_pos=None, kind=None):
         """One B7 row: the kernel against its plain version, timed beside
-        its bound and SDPA on the same inputs (``is_causal``, or the
-        position mask as a boolean mask), misaligned views equal to the
-        aligned launch.  A row with a ``kind`` reports the launches of
-        that kind of attention (``AttentionKinds``) in its run, else the
-        route's."""
+        its bound and SDPA on the same inputs (``b7_mask``), misaligned
+        views equal to the aligned launch.  A row with a ``kind`` reports
+        the launches of that kind of attention (``AttentionKinds``) in its
+        run, else the route's."""
         dtype = q.dtype
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
-        if q_pos is not None:           # the pairs this data keeps
-            kept = torch.searchsorted(k_pos.sort(-1).values, q_pos,
-                                      right=True)
-            pairs = h * int(kept.sum())
-            mask = "position mask"
-        elif causal:                    # the causal half, i >= j
-            pairs = b * h * sq * (sq + 1) // 2
-            mask = "causal"
-        else:
-            pairs = b * h * sq * sk
-            mask = "non-causal"
+        pairs, mask, sdpa_kw = b7_mask(q, k, causal, q_pos, k_pos)
         kw = dict(causal=causal, q_pos=q_pos, k_pos=k_pos)
         tname = str(dtype).split(".")[-1]
         rt = fa.route(dtype, d)
@@ -3040,10 +3074,6 @@ def phase_lm_kernels(dev):
                                  f"plain version by {err} > "
                                  f"{ATTN_TOL[tname]}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa_kw = dict(is_causal=causal and q_pos is None)
-        if q_pos is not None:
-            sdpa_kw["attn_mask"] = (q_pos[:, None, :, None]
-                                    >= k_pos[:, None, None, :])
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, enable_gqa=kvh != h, **sdpa_kw)
         lib_err = float((library().transpose(1, 2).float()
@@ -3160,6 +3190,83 @@ def phase_lm_kernels(dev):
            randn(1, TRAIN_SEQ, h, d), randn(1, TRAIN_SEQ, kvh, d),
            randn(1, TRAIN_SEQ, kvh, d), "stablelm-3b train")
 
+    def b7_bwd_row(name, arch, q, k, v, counted_in, causal=True, q_pos=None,
+                   k_pos=None):
+        """One row of B7's backward kernel: its gradients from the forward
+        kernel's o and lse against ``plain_backward`` on the same inputs
+        within ``ATTN_BWD_TOL`` of each gradient's largest magnitude, two
+        calls bit-identical, timed by CUDA events beside its bound (2.5
+        times the forward's operations over the kept pairs: the scores
+        again, dV, dP, dQ and dK) and SDPA's backward on the same inputs
+        (``b7_mask``; timed only)."""
+        dtype = q.dtype
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        tname = str(dtype).split(".")[-1]
+        pairs, mask, sdpa_kw = b7_mask(q, k, causal, q_pos, k_pos)
+        kw = dict(causal=causal, q_pos=q_pos, k_pos=k_pos)
+        rt = fa.route(dtype, d)
+        go = randn(b, sq, h, d, dtype=dtype)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        o = fa._launch(q, k, v, causal, q_pos, k_pos, lse)
+        got = fa._launch_backward(go, q, k, v, o, lse, **kw)
+        again = fa._launch_backward(go, q, k, v, o, lse, **kw)
+        want = fa.plain_backward(q, k, v, go, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name}: two backward calls differ")
+        err, worst = 0.0, 0.0
+        for x, y, which in zip(got, want, ("dq", "dk", "dv")):
+            e = float((x.float() - y.float()).abs().max())
+            scale = float(y.float().abs().max())
+            if not (bool(torch.isfinite(x).all())
+                    and e <= ATTN_BWD_TOL[tname] * scale):
+                raise AssertionError(
+                    f"{name} ({tname}): {which} differs from plain_backward"
+                    f" by {e} > {ATTN_BWD_TOL[tname]} x {scale}")
+            err, worst = max(err, e), max(worst, e / scale)
+        del got, again, want
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=kvh != h,
+                                             **sdpa_kw)
+        go_t = go.transpose(1, 2)
+        library = lambda: torch.autograd.grad(              # noqa: E731
+            out, (qt, kt, vt), go_t, retain_graph=True)
+        size = q.element_size()
+        pos_bytes = 0 if q_pos is None else 4 * (q_pos.numel()
+                                                 + k_pos.numel())
+        ops = 10 * d * pairs
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/models/attention.py:63",
+            max_abs_err=err,
+            ms=time_ms(lambda: fa._launch_backward(go, q, k, v, o, lse,
+                                                   **kw), reps=10),
+            plain_ms=time_ms(lambda: fa.plain_backward(q, k, v, go, **kw),
+                             reps=3, warmup=1),
+            library_ms=time_ms(library, reps=10),
+            # q, k, v, o, go and lse (and positions) read once; dq, dk, dv
+            # written once
+            bytes=size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+            + 4 * lse.numel() + pos_bytes,
+            ops=ops, ops_type="bf16" if size == 2 else "f32",
+            counted_in=counted_in, counter=fa.BACKWARD_COUNTER[rt],
+            shape=f"{arch}: q=({b}, {sq}, {h}, {d}), k, v=({b}, {sk}, {kvh}, "
+                  f"{d}) {tname}, {mask}, backward on "
+                  f"{'mma.sync bf16' if size == 2 else 'f32 FMAs'}"))
+        extra = ""
+        if q_pos is not None:
+            extra = (f"; {pairs / (b * h * sq * sk):.1%} of the pairs kept, "
+                     "every tile pair visited")
+        finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e}, worst "
+                   f"{worst:.3e} of a gradient's largest magnitude <= "
+                   f"{ATTN_BWD_TOL[tname]}; two calls bit-identical; "
+                   f"SDPA's backward as the library{extra}")
+        del qt, kt, vt, out, go, o, lse
+        torch.cuda.empty_cache()
+
     # whisper-large-v3: the encoder over 1,500 frames (non-causal), the
     # decoder's causal self-attention over its prompt and its
     # cross-attention to the frames; bf16 at the served batch, f32 at the
@@ -3178,6 +3285,36 @@ def phase_lm_kernels(dev):
                    randn(b, sk, kvh, d, dtype=dtype),
                    randn(b, sk, kvh, d, dtype=dtype), counted_in,
                    causal=kind == "causal", kind=kind)
+
+    # B7's backward at the training shapes: stablelm-3b's step (1 x
+    # TRAIN_SEQ, causal), granite-moe's GQA 3, qwen2-vl's patches at one t
+    # (the position mask), whisper's encoder (non-causal, square) and its
+    # cross-attention (416 queries over 1,500 frames); bf16 as the steps
+    # of phase `train` run them, and an f32 copy of each, whose launches
+    # are those of stablelm-3b's f32 card-vs-CPU step
+    for dtype, tag, f32_run in ((torch.bfloat16, "tc", None),
+                                (torch.float32, "f32",
+                                 "stablelm-3b f32 train check")):
+        for arch, part, sq, sk, form in (
+                ("stablelm-3b", "d80_train", TRAIN_SEQ, TRAIN_SEQ, "causal"),
+                ("granite-moe-3b-a800m", "granite_moe", TRAIN_SEQ, TRAIN_SEQ,
+                 "causal"),
+                ("qwen2-vl-7b", "qwen2_vl_pos", TRAIN_SEQ, TRAIN_SEQ,
+                 "position"),
+                ("whisper-large-v3", "whisper_encoder", f, f, "square"),
+                ("whisper-large-v3", "whisper_cross", sd, f, "cross")):
+            cfg = get_arch(arch)
+            h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            pos = {}
+            if form == "position":
+                t = vlm_positions(cfg, 1, sq, dev)[..., 0].to(torch.int32)
+                pos = dict(q_pos=t.contiguous(), k_pos=t.contiguous())
+            b7_bwd_row(f"flash_attention_bwd_{tag}_{part}", arch,
+                       randn(1, sq, h, d, dtype=dtype),
+                       randn(1, sk, kvh, d, dtype=dtype),
+                       randn(1, sk, kvh, d, dtype=dtype),
+                       f32_run or f"{arch} train",
+                       causal=form in ("causal", "position"), **pos)
 
     # the served prefills (bf16, batch 4) take the tensor-core route; the
     # f32 teacher-forced check's prefill (batch 1) the CUDA-core route; the
@@ -3302,16 +3439,21 @@ def _mixers(cfg):
     return n_attn, cfg.num_layers - n_attn
 
 
-def _expect_launches(label, counts, cfg, per_layer, b7, b8):
+def _expect_launches(label, counts, cfg, per_layer, b7, b8, b7_bwd=None,
+                     steps=0):
     """One ``b7`` launch per attention layer and one ``b8`` launch per
-    Mamba layer, ``per_layer`` times (one a prefill)."""
+    Mamba layer, ``per_layer`` times (one a prefill); with ``b7_bwd``, also
+    one call of B7's backward kernel per attention layer a training step,
+    ``steps`` times."""
     n_attn, n_ssm = _mixers(cfg)
     got = {b7: counts[b7], b8: counts[b8]}
     want = {b7: per_layer * n_attn, b8: per_layer * n_ssm}
+    if b7_bwd is not None:
+        got[b7_bwd], want[b7_bwd] = counts[b7_bwd], steps * n_attn
     if got != want:
         raise AssertionError(f"{label}: launches {got}, want {want} "
                              f"({n_attn} attention and {n_ssm} Mamba layers, "
-                             f"{per_layer} prefill(s))")
+                             f"{per_layer} prefill(s), {steps} step(s))")
 
 
 class AttentionKinds:
@@ -3698,10 +3840,11 @@ def phase_lm(dev, seed):
         if arch == LAUNCH_SERVE_ARCH:
             log("    " + _decode_turns(dev, cfg, mb, model, prompts, plen))
         t_warm = time.perf_counter()
-        log(f"    prefill + {LM_PROFILE_TOKENS - 1} decode steps "
-            + profile_once(lambda: generate(mb, model, prompts,
-                                            LM_PROFILE_TOKENS,
-                                            frames=frames)))
+        if arch in LM_PROFILE_ARCHS:
+            log(f"    prefill + {LM_PROFILE_TOKENS - 1} decode steps "
+                + profile_once(lambda: generate(mb, model, prompts,
+                                                LM_PROFILE_TOKENS,
+                                                frames=frames)))
         t_prof = time.perf_counter()
         if cfg.family == "vlm":
             # the served depth with its patch embeddings spliced in
@@ -3778,8 +3921,11 @@ def _train_full(dev, arch, batch, seed):
     ``TRAIN_STEPS`` AdamW steps on one repeated batch of ``batch`` x
     ``TRAIN_SEQ`` tokens, finite and falling loss, finite norms, two
     launches a mixer layer a step (the forward and the checkpoint's
-    recompute); then one more step profiled, after which every
-    parameter's gradient must be non-zero.  Returns the launches."""
+    recompute) and one call of B7's backward kernel an attention layer a
+    step; then one more step profiled (the device time under the backward
+    kernel's label and under the SSD's plain backward's), after which
+    every parameter's gradient must be non-zero.  Returns the
+    launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
@@ -3804,7 +3950,8 @@ def _train_full(dev, arch, batch, seed):
     peak = torch.cuda.max_memory_allocated()
     label = f"{arch} train"
     _expect_launches(label, counts, cfg, 2 * TRAIN_STEPS,
-                     "flash_attention_tc", "ssd_tc")
+                     "flash_attention_tc", "ssd_tc", "flash_attention_bwd_tc",
+                     TRAIN_STEPS)
     steps = stats["steps"]
     if not all(np.isfinite([st["loss"], st["grad_norm"]]).all()
                for st in steps):
@@ -3840,7 +3987,8 @@ def _train_full(dev, arch, batch, seed):
         log("    " + _step_turns(dev, cfg, mb, model, opt, state, batch_))
     log("    one more step " + profile_once(
         lambda: step(state, batch_), top=4,
-        labels=(fa.PLAIN_BACKWARD, ssd_kernels.PLAIN_BACKWARD)))
+        labels=(ssd_kernels.PLAIN_BACKWARD,),
+        kernels=((fa.BACKWARD, "bwd::"),)))
     # that step's first moment m is 0.1 x the clipped gradient
     dead = [n for n, t in state["m"].items() if not bool(t.any())]
     if dead:
@@ -3882,7 +4030,8 @@ def _step_turns(dev, cfg, mb, model, opt, state, batch) -> str:
 def _train_cut(dev, arch, seed):
     """One AdamW step of ``arch`` at 2 layers (2 encoder and 2 decoder
     layers) and full width, batch 1: finite loss and norm, two launches a
-    mixer layer, and every parameter's gradient non-zero (read from the
+    mixer layer and one backward call an attention layer, and every
+    parameter's gradient non-zero (read from the
     first moment m, 0.1 x the clipped gradient after one step).  Returns
     the launches."""
     import dataclasses
@@ -3916,7 +4065,8 @@ def _train_cut(dev, arch, seed):
     dt = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
     label = f"{arch} train (2 layers)"
-    _expect_launches(label, counts, cfg, 2, "flash_attention_tc", "ssd_tc")
+    _expect_launches(label, counts, cfg, 2, "flash_attention_tc", "ssd_tc",
+                     "flash_attention_bwd_tc", 1)
     m = {k: float(v) for k, v in metrics.items()}
     if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
         raise AssertionError(f"{label}: non-finite metrics {m}")
@@ -3944,7 +4094,8 @@ def _train_card_vs_cpu(dev, arch, seed):
     the CPU (plain autograd), over ``TRAIN_CHECK_LEN`` tokens: loss within
     ``TRAIN_LOSS_TOL``, each gradient within ``TRAIN_GRAD_TOL`` of its
     leaf's largest magnitude, each non-zero on the card; B7 / B8 launched
-    twice a layer."""
+    twice a layer and B7's backward kernel once an attention layer.
+    Returns the card's launches."""
     import dataclasses
 
     import torch
@@ -3975,7 +4126,8 @@ def _train_card_vs_cpu(dev, arch, seed):
                       dict(_build.LAUNCHES))
     label = f"{arch} (2 layers, f32) train"
     _expect_launches(label + " on the card", out["card"][2], cfg, 2,
-                     "flash_attention_f32", "ssd")
+                     "flash_attention_f32", "ssd", "flash_attention_bwd_f32",
+                     1)
     loss_card, loss_cpu = out["card"][0], out["cpu"][0]
     if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_TOL * abs(loss_cpu):
         raise AssertionError(f"{label}: loss {loss_card} on the card, "
@@ -4003,6 +4155,7 @@ def _train_card_vs_cpu(dev, arch, seed):
         f"{time.perf_counter() - t0:.1f} s")
     del card, cpu
     torch.cuda.empty_cache()
+    return out["card"][2]
 
 
 def _train_restarts(dev, seed, tmp):
@@ -4111,7 +4264,8 @@ def phase_train(dev, seed):
     for arch in TRAIN_CUT:
         counts[f"{arch} train"] = _train_cut(dev, arch, seed)
     for arch in TRAIN_FULL:
-        _train_card_vs_cpu(dev, arch, seed)
+        counts[f"{arch} f32 train check"] = _train_card_vs_cpu(dev, arch,
+                                                               seed)
     jamba = get_arch("jamba-v0.1-52b")
     whole = dataclasses.replace(jamba, num_layers=math.lcm(
         jamba.attn_every, jamba.moe_every))

@@ -70,14 +70,24 @@ SIGNATURES = {
     # x, o, n, grid, unroll, next_tile (4-byte scratch), stream
     "stream_copy_i32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
     "stream_copy_f32": ("bandwidth", (_P, _P, _I64, _I32, _I32, _P, _P)),
-    # q, k, v, o, b, sq, sk, h, kv_heads, d, causal, q_pos, k_pos (both
-    # null for the index mask), scale, stream
+    # q, k, v, o, lse (null: none written), b, sq, sk, h, kv_heads, d,
+    # causal, q_pos, k_pos (both null for the index mask), scale, stream
     "flash_attention_tc_fwd": ("flash_attention",
-                               (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                               (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _P, _P, _F32, _P)),
     "flash_attention_f32_fwd": ("flash_attention",
-                                (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                                (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _P, _P, _F32, _P)),
+    # go, q, k, v, o, lse, delta (scratch), dq, dk, dv, b, sq, sk, h,
+    # kv_heads, d, causal, q_pos, k_pos, scale, stream
+    "flash_attention_tc_bwd": ("flash_attention",
+                               (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                                _P, _P, _F32, _P)),
+    "flash_attention_f32_bwd": ("flash_attention",
+                                (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                                 _P, _P, _F32, _P)),
     # x, dt, a_log, b, c, d_skip, y, h_out, states, decay, bsz, seq, nh,
     # hd, ng, ds, chunk, mode, passes, stream
     "ssd_fwd": ("ssd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
@@ -92,8 +102,10 @@ SIGNATURES = {
 # ("select") and float32 ("select_f32") entries, B2's and B3's
 # shared-memory and sampled routes, B5's ring ("sgd") and split
 # ("sgd_split") routes, B7's bf16 ("flash_attention_tc") and f32
-# ("flash_attention_f32") tensor-core routes and B8's CUDA-core ("ssd")
-# and tensor-core ("ssd_tc") routes each have their own count.
+# ("flash_attention_f32") tensor-core routes, B7's backward in each type
+# ("flash_attention_bwd_tc", "flash_attention_bwd_f32": one count a call
+# of its three launches) and B8's CUDA-core ("ssd") and tensor-core
+# ("ssd_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "select_f32": 0,
@@ -103,7 +115,9 @@ LAUNCHES: Dict[str, int] = {"select": 0, "select_f32": 0,
                             "probe": 0, "sgd": 0,
                             "sgd_split": 0,
                             "stream_copy": 0, "flash_attention_tc": 0,
-                            "flash_attention_f32": 0, "ssd": 0,
+                            "flash_attention_f32": 0,
+                            "flash_attention_bwd_tc": 0,
+                            "flash_attention_bwd_f32": 0, "ssd": 0,
                             "ssd_tc": 0}
 
 _lock = threading.Lock()

@@ -1,8 +1,10 @@
 // Flash attention (online softmax) for Hopper (sm_90a), on the tensor cores
-// in both of its types.
+// in both of its types, and its backward (namespace bwd, below).
 //
 // Replaces: flash_attention / _flash_kernel in
-//   src/repro/kernels/flash_attention/flash_attention.py.
+//   src/repro/kernels/flash_attention/flash_attention.py; the backward
+//   replaces no TPU kernel: the reference's training differentiates XLA's
+//   dense attention (src/repro/models/attention.py, _dense_attn).
 // Computes: for q (B, Sq, H, D) and k, v (B, Sk, KV, D) in model layout
 //   (H a multiple of KV; q head h reads kv head h / (H / KV)):
 //     s_ij = (q_i . k_j) * D^-1/2             in f32, masked to -1e30 where
@@ -126,6 +128,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kPastEnd = -2e30f;     // columns past Sk, below the mask
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kRowBytes = 128;    // a swizzled row of one TMA box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -229,6 +232,23 @@ template <int kStages> struct Loader {
                   c * box, hk, n * bc, b);
   }
 };
+
+// The log-sum-exp of the thread's rows r0 and r0 + 8 (below seq_q) into
+// `row_lse` (the (b, h) row of lse, (B, H, Sq) f32), in natural units, from
+// the online softmax's running max m (log2 units, the scale folded in) and
+// the quad's whole sum l: (m + log2 l) ln 2.  A row that keeps no key (m
+// still at the mask) gets the mask itself, -1e30, which is what a
+// logsumexp of its masked scores rounds to in f32; the backward reads it
+// as the row that averages every key.
+__device__ __forceinline__ void store_lse(float* row_lse, int r0, int seq_q,
+                                          const float (&m)[2],
+                                          const float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (r0 + 8 * r < seq_q)
+      row_lse[r0 + 8 * r] =
+          m[r] <= kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
+}
 
 // The shared memory, in ints, that `position_tiles` takes for n_kv tiles.
 __host__ __device__ constexpr int stats_ints(int n_kv) { return 3 * n_kv + 4; }
@@ -354,6 +374,7 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, bool bf16,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;                     // null: no log-sum-exp written
   int32_t b, sq, sk, h, kvh, causal;
   const int32_t *q_pos, *k_pos;   // both null: the index mask
   float scale;
@@ -381,7 +402,7 @@ int launch_tiled(Kernel kernel, bool bf16, int br, int bc, int threads,
   if (bh > INT32_MAX || blocks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), threads, smem, a.stream>>>(
-      mq, mk, mv, static_cast<Out*>(a.o), a.sq, a.sk, a.h, a.kvh,
+      mq, mk, mv, static_cast<Out*>(a.o), a.lse, a.sq, a.sk, a.h, a.kvh,
       static_cast<int32_t>(bh), a.causal, a.q_pos, a.k_pos,
       a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -594,7 +615,8 @@ __global__ void __launch_bounds__(kBlock, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
-             __nv_bfloat16* __restrict__ o, int32_t seq_q, int32_t seq_k,
+             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+             int32_t seq_q, int32_t seq_k,
              int32_t heads, int32_t kv_heads, int32_t bh_total,
              int32_t causal, const int32_t* __restrict__ q_pos,
              const int32_t* __restrict__ k_pos, float scale_log2) {
@@ -776,6 +798,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       den[r] = fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr && cq == 0)
+      store_lse(lse + static_cast<int64_t>(bh) * seq_q, r0, seq_q, m, l);
     const int64_t row_stride = static_cast<int64_t>(heads) * D;
     __nv_bfloat16* ob = o + static_cast<int64_t>(b) * seq_q * row_stride +
                         static_cast<int64_t>(h) * D;
@@ -898,7 +922,7 @@ __global__ void __launch_bounds__(kBlock, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
-             int32_t seq_q, int32_t seq_k, int32_t heads, int32_t kv_heads,
+             float* __restrict__ lse, int32_t seq_q, int32_t seq_k, int32_t heads, int32_t kv_heads,
              int32_t bh_total, int32_t causal,
              const int32_t* __restrict__ q_pos,
              const int32_t* __restrict__ k_pos, float scale_log2) {
@@ -1103,6 +1127,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && t == 0)
+    store_lse(lse + static_cast<int64_t>(bh) * seq_q, r0, seq_q, m, l);
   const int64_t row_stride = static_cast<int64_t>(heads) * D;
   float* ob = o + static_cast<int64_t>(b) * seq_q * row_stride +
               static_cast<int64_t>(h) * D;
@@ -1137,6 +1163,640 @@ template <int D> struct Launch {
 };
 
 }  // namespace tf32
+
+// ---- the backward, both types: Delta, dK and dV, dQ -------------------- //
+//
+// The gradients of the function above at (q, k, v) against the output's
+// gradient dO, from the forward's o and lse (in natural units):
+//   P = exp(S * scale - lse)   (S masked as above; a row that keeps no key,
+//                              lse = -1e30, has P = 1 / Sk on every key)
+//   Delta = rowsum(dO o O)     dV = P^T . dO     dP = dO . V^T
+//   dS = P o (dP - Delta)      (0 wherever the mask drops a pair)
+//   dQ = scale dS . K          dK = scale dS^T . Q
+// in three launches: (a) Delta in f32 into the wrapper's scratch; (b) one
+// block per (64-row kv tile, b * KV + kv head) loops over the q heads of
+// its group and the q tiles that keep a key of its tile, and writes dK and
+// dV once; (c) one block per (64-row q tile, b * H + h) loops over the kv
+// tiles it keeps and writes dQ once.  No block adds into another's output
+// and no sum uses atomics, so two calls give the same bits; GQA's sum over
+// a group of q heads stays inside the block of (b).
+// Bound: operations.  The scores are computed again, then dV, dP, dQ and
+// dK: 2.5 times the forward's Q.K^T and P.V, over the kept pairs.
+// Design, the simple one: a warp owns 16 rows of the block's tile, tiles
+// of its operands stage in shared memory by cp.async (rows padded by 16
+// bytes so that the eight rows a matrix load reads fall on eight different
+// bank groups; rows past S read as zeros), and every product is one of two
+// warp-level forms (`Mma`): C = A . B^T with both from shared memory, and
+// C += A . B with A the f32 fragments of an earlier product.
+//   * bfloat16: mma.sync m16n8k16 bf16 -> f32, operands by ldmatrix (B of
+//     the second form transposed by ldmatrix .trans), the A of the second
+//     form packed to bf16 straight from the accumulator fragments (P and
+//     dS rounded to bf16 for the products, as the forward rounds P);
+//   * float32: FMAs on the CUDA cores in the same fragment layout, so that
+//     the masks and the softmax are one code for both; the second form's A
+//     goes through a 16-row scratch of the warp in shared memory.
+// The mask is a uniform run-time switch (0 none, 1 by index, 2 by
+// position).  By index, (b) starts at the q tile that holds its first kv
+// row and (c) stops at the kv tile that holds its last q row; by position,
+// every tile pair is visited and masked per element (the forward's tile
+// list has no transpose for (b) yet).  `wgmma`, TMA and warp
+// specialisation are later work.
+namespace bwd {
+
+constexpr int kWarps = 4;
+constexpr int kBlock = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;        // a block's own rows, (b) and (c)
+constexpr int kDeltaWarps = 8;            // (a): one warp a row
+constexpr float kDead = 0.5f * kNegInf;   // lse at or below: no key kept
+
+enum Mask { kNone = 0, kByIndex = 1, kByPos = 2 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows first .. first + kN - 1 of a (B, S, heads, D) tensor's (b, head)
+// slice (`src` at its row 0, `stride` elements a row) into a tile of kN
+// rows of ld elements; rows at or past n are zeros.  Every thread of the
+// block calls this; the caller waits (cp_async_wait_all, __syncthreads).
+template <typename T, int D, int kN>
+__device__ __forceinline__ void load_rows(T* tile, int ld, const T* src,
+                                          int64_t stride, int first, int n) {
+  constexpr int kPer = 16 / sizeof(T);     // elements a 16-byte chunk
+  constexpr int kChunks = D / kPer;
+  for (int i = threadIdx.x; i < kN * kChunks; i += kBlock) {
+    const int r = i / kChunks, c = i % kChunks;
+    T* dst = tile + r * ld + c * kPer;
+    if (first + r < n)
+      cp_async16(dst, src + (first + r) * stride + c * kPer);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename T> struct Mma;
+
+// bfloat16 on mma.sync m16n8k16.  In an m16n8 accumulator the thread holds
+// rows g and g + 8 and columns 2t and 2t + 1 (g = lane / 4, t = lane % 4).
+template <> struct Mma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int kPad = 8;          // 16 bytes a row
+
+  static __device__ __forceinline__ void ldsm(uint32_t (&r)[4],
+                                              const T* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p))
+        : "memory");
+  }
+  static __device__ __forceinline__ void ldsm_t(uint32_t (&r)[4],
+                                                const T* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p))
+        : "memory");
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+
+  // C (16 x N) = A (16 x K, row-major, ld lda) . B^T, B (N x K, row-major,
+  // ld ldb), both in shared memory.
+  template <int K, int N>
+  static __device__ __forceinline__ void abt(float (&c)[N / 8][4],
+                                             const T* a, int lda, const T* b,
+                                             int ldb) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk) {
+      // A's four 8 x 8 matrices: rows 0-7 and 8-15 at columns 16 kk and
+      // 16 kk + 8; lane l gives row l % 16 of column block l / 16
+      uint32_t af[4];
+      ldsm(af, a + (lane % 16) * lda + 16 * kk + 8 * (lane / 16));
+#pragma unroll
+      for (int jj = 0; jj < N / 16; ++jj) {
+        // B's n tiles 2 jj and 2 jj + 1, each as its k halves: rows of B
+        // are n, so the untransposed matrices are the col operand
+        uint32_t bf[4];
+        ldsm(bf, b + (16 * jj + lane % 8 + 8 * (lane / 16)) * ldb + 16 * kk +
+                     8 * ((lane / 8) % 2));
+        mma(c[2 * jj], af, bf[0], bf[1]);
+        mma(c[2 * jj + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+
+  // C (16 x N) += A (16 x K) . B (K x N, row-major, ld ldb, in shared
+  // memory), A given as the f32 accumulator fragments `p` of an earlier
+  // product: the two n tiles 2 kk and 2 kk + 1 of an accumulator are the
+  // A operand of k step kk, rounded to bf16.
+  template <int K, int N>
+  static __device__ __forceinline__ void ab(float (&c)[N / 8][4],
+                                            const float (&p)[K / 8][4],
+                                            float* /*scratch*/, const T* b,
+                                            int ldb) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk) {
+      const uint32_t af[4] = {pack(p[2 * kk][0], p[2 * kk][1]),
+                              pack(p[2 * kk][2], p[2 * kk][3]),
+                              pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                              pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int jj = 0; jj < N / 16; ++jj) {
+        // rows of B are k: the transposed matrices are the col operand
+        uint32_t bf[4];
+        ldsm_t(bf, b + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * ldb +
+                       16 * jj + 8 * (lane / 16));
+        mma(c[2 * jj], af, bf[0], bf[1]);
+        mma(c[2 * jj + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+};
+
+// float32 on the CUDA cores, in the same fragment layout.
+template <> struct Mma<float> {
+  using T = float;
+  static constexpr int kPad = 4;          // 16 bytes a row
+
+  template <int K, int N>
+  static __device__ __forceinline__ void abt(float (&c)[N / 8][4],
+                                             const T* a, int lda, const T* b,
+                                             int ldb) {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(a + g * lda + k);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(a + (g + 8) * lda + k);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float4 y0 =
+            *reinterpret_cast<const float4*>(b + (8 * j + 2 * t) * ldb + k);
+        const float4 y1 = *reinterpret_cast<const float4*>(
+            b + (8 * j + 2 * t + 1) * ldb + k);
+        c[j][0] = fmaf(x0.w, y0.w, fmaf(x0.z, y0.z,
+                  fmaf(x0.y, y0.y, fmaf(x0.x, y0.x, c[j][0]))));
+        c[j][1] = fmaf(x0.w, y1.w, fmaf(x0.z, y1.z,
+                  fmaf(x0.y, y1.y, fmaf(x0.x, y1.x, c[j][1]))));
+        c[j][2] = fmaf(x1.w, y0.w, fmaf(x1.z, y0.z,
+                  fmaf(x1.y, y0.y, fmaf(x1.x, y0.x, c[j][2]))));
+        c[j][3] = fmaf(x1.w, y1.w, fmaf(x1.z, y1.z,
+                  fmaf(x1.y, y1.y, fmaf(x1.x, y1.x, c[j][3]))));
+      }
+    }
+  }
+
+  // A's fragments are written to the warp's scratch (16 x (K + 4) f32),
+  // then read back whole rows at a time.
+  template <int K, int N>
+  static __device__ __forceinline__ void ab(float (&c)[N / 8][4],
+                                            const float (&p)[K / 8][4],
+                                            float* scratch, const T* b,
+                                            int ldb) {
+    constexpr int lds = K + 4;
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j) {
+      *reinterpret_cast<float2*>(scratch + g * lds + 8 * j + 2 * t) =
+          make_float2(p[j][0], p[j][1]);
+      *reinterpret_cast<float2*>(scratch + (g + 8) * lds + 8 * j + 2 * t) =
+          make_float2(p[j][2], p[j][3]);
+    }
+    __syncwarp();
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      const float4 x0 =
+          *reinterpret_cast<const float4*>(scratch + g * lds + k);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(scratch + (g + 8) * lds + k);
+      const float a0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float a1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const float2 y = *reinterpret_cast<const float2*>(
+              b + (k + i) * ldb + 8 * j + 2 * t);
+          c[j][0] = fmaf(a0[i], y.x, c[j][0]);
+          c[j][1] = fmaf(a0[i], y.y, c[j][1]);
+          c[j][2] = fmaf(a1[i], y.x, c[j][2]);
+          c[j][3] = fmaf(a1[i], y.y, c[j][3]);
+        }
+    }
+    __syncwarp();
+  }
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The thread's two values of columns 2t, 2t + 1 of an accumulator row,
+// stored in T.
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// (a) Delta (B, H, Sq) f32 = rowsum(dO o O): one warp a (b, i, h) row.
+template <typename T>
+__global__ void __launch_bounds__(32 * kDeltaWarps)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ go,
+             float* __restrict__ delta, int64_t rows, int32_t seq_q,
+             int32_t heads, int32_t d) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kDeltaWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32)
+    acc = fmaf(to_f32(o[row * d + c]), to_f32(go[row * d + c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int64_t bi = row / heads;         // b * Sq + i
+    const int h = static_cast<int>(row % heads);
+    const int64_t b = bi / seq_q;
+    const int i = static_cast<int>(bi % seq_q);
+    delta[(b * heads + h) * seq_q + i] = acc;
+  }
+}
+
+// The arguments of the backward's launches.
+struct BwdArgs {
+  const void *go, *q, *k, *v, *o;
+  const float* lse;
+  float* delta;                 // scratch (B, H, Sq) f32
+  void *dq, *dk, *dv;
+  int32_t b, sq, sk, h, kvh, mask;
+  const int32_t *q_pos, *k_pos;
+  float scale;
+  cudaStream_t stream;
+};
+
+// q rows a step of (b) and kv rows a step of (c): at D above 64 a step of
+// 32 q rows keeps (b)'s dK and dV accumulators (D / 2 registers each) and
+// its two score tiles within a thread's registers.
+template <int D> constexpr int kStepB = D <= 64 ? 64 : 32;
+constexpr int kStepC = 64;
+
+// Shared memory of (b) and (c) in bytes: two tiles of the block's own rows,
+// two tiles of a step's rows, the step's per-row lse, Delta and positions
+// ((b) only; (c) keeps its rows' in registers), and the f32 route's scratch.
+template <typename T, int D, int kStep>
+constexpr int bwd_smem(bool scratch) {
+  return 2 * (kRows + kStep) * (D + Mma<T>::kPad) * static_cast<int>(
+             sizeof(T)) + 3 * kStep * 4 +
+         (scratch ? kWarps * 16 * (kStep + 4) * 4 : 0);
+}
+
+// (b) dK and dV of one 64-row kv tile of kv head hk in batch row b.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBlock)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ go,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, int32_t seq_q,
+            int32_t seq_k, int32_t heads, int32_t kv_heads, int32_t bh_total,
+            int32_t mask, const int32_t* __restrict__ q_pos,
+            const int32_t* __restrict__ k_pos, float scale_log2,
+            float scale) {
+  using M = Mma<T>;
+  constexpr int kStep = kStepB<D>;
+  constexpr int ld = D + M::kPad;
+  extern __shared__ uint8_t smem_raw[];
+  T* s_k = reinterpret_cast<T*>(smem_raw);
+  T* s_v = s_k + kRows * ld;
+  T* s_q = s_v + kRows * ld;
+  T* s_do = s_q + kStep * ld;
+  float* s_lse = reinterpret_cast<float*>(s_do + kStep * ld);  // log2 units
+  float* s_delta = s_lse + kStep;
+  int* s_qp = reinterpret_cast<int*>(s_delta + kStep);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float* scratch = reinterpret_cast<float*>(s_qp + kStep) +
+                   warp * 16 * (kStep + 4);
+
+  // the heaviest causal tiles (the first) of every head first
+  const int bh = static_cast<int>(blockIdx.x) % bh_total;
+  const int kt = static_cast<int>(blockIdx.x) / bh_total;
+  const int b = bh / kv_heads, hk = bh % kv_heads;
+  const int group = heads / kv_heads;
+  const int k0 = kt * kRows;
+  const int64_t kv_stride = static_cast<int64_t>(kv_heads) * D;
+  const int64_t q_stride = static_cast<int64_t>(heads) * D;
+  const int64_t kv_base = static_cast<int64_t>(b) * seq_k * kv_stride +
+                          static_cast<int64_t>(hk) * D;
+  load_rows<T, D, kRows>(s_k, ld, k + kv_base, kv_stride, k0, seq_k);
+  load_rows<T, D, kRows>(s_v, ld, v + kv_base, kv_stride, k0, seq_k);
+
+  // the thread's kv rows j0 and j0 + 8 (the columns of S^T are q rows)
+  const int j0 = k0 + 16 * warp + g;
+  int kp[2] = {0, 0};
+  if (mask == kByPos)
+    for (int r = 0; r < 2; ++r)
+      if (j0 + 8 * r < seq_k)
+        kp[r] = k_pos[static_cast<int64_t>(b) * seq_k + j0 + 8 * r];
+  const float inv_sk = 1.f / static_cast<float>(seq_k);
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  // by index, a q tile wholly before the kv tile keeps none of its keys
+  const int n_qt = (seq_q + kStep - 1) / kStep;
+  const int qt0 = mask == kByIndex ? k0 / kStep : 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const int64_t q_base = static_cast<int64_t>(b) * seq_q * q_stride +
+                           static_cast<int64_t>(h) * D;
+    const int64_t row_base = (static_cast<int64_t>(b) * heads + h) * seq_q;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kStep;
+      __syncthreads();          // every warp is done with the last step
+      load_rows<T, D, kStep>(s_q, ld, q + q_base, q_stride, q0, seq_q);
+      load_rows<T, D, kStep>(s_do, ld, go + q_base, q_stride, q0, seq_q);
+      for (int i = threadIdx.x; i < kStep; i += kBlock) {
+        const bool in = q0 + i < seq_q;
+        s_lse[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
+        s_delta[i] = in ? delta[row_base + q0 + i] : 0.f;
+        if (mask == kByPos)
+          s_qp[i] = in ? q_pos[static_cast<int64_t>(b) * seq_q + q0 + i]
+                       : INT32_MIN;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      // S^T = K . Q^T over the warp's 16 kv rows, then P^T in place
+      float s[kStep / 8][4];
+      M::template abt<D, kStep>(s, s_k + 16 * warp * ld, ld, s_q, ld);
+      uint32_t keep = 0;                      // bit 4 j + e: a kept pair
+#pragma unroll
+      for (int j = 0; j < kStep / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ci = 8 * j + 2 * t + (e & 1);      // q row in the step
+          const int i = q0 + ci, jr = j0 + 8 * (e >> 1);
+          const bool in = i < seq_q && jr < seq_k;
+          bool kept = in;
+          if (mask == kByIndex) kept = kept && jr <= i;
+          if (mask == kByPos) kept = kept && s_qp[ci] >= kp[e >> 1];
+          float p = kept ? exp2f(s[j][e] * scale_log2 - s_lse[ci]) : 0.f;
+          if (mask == kByPos && s_lse[ci] <= kDead * kLog2e)
+            p = in ? inv_sk : 0.f;   // a row with no key averages every key
+          s[j][e] = p;
+          keep |= static_cast<uint32_t>(kept) << (4 * j + e);
+        }
+      // dV += P^T . dO
+      M::template ab<kStep, D>(acc_dv, s, scratch, s_do, ld);
+      // dP^T = V . dO^T; dS^T = P^T o (dP^T - Delta), 0 off the mask
+      float ds[kStep / 8][4];
+      M::template abt<D, kStep>(ds, s_v + 16 * warp * ld, ld, s_do, ld);
+#pragma unroll
+      for (int j = 0; j < kStep / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = (keep >> (4 * j + e)) & 1u
+                         ? s[j][e] * (ds[j][e] - s_delta[8 * j + 2 * t +
+                                                         (e & 1)])
+                         : 0.f;
+      // dK += dS^T . Q
+      M::template ab<kStep, D>(acc_dk, ds, scratch, s_q, ld);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int jr = j0 + 8 * r;
+    if (jr >= seq_k) continue;
+    const int64_t off = kv_base + static_cast<int64_t>(jr) * kv_stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store2(dk + off + 8 * j + 2 * t, scale * acc_dk[j][2 * r],
+             scale * acc_dk[j][2 * r + 1]);
+      store2(dv + off + 8 * j + 2 * t, acc_dv[j][2 * r],
+             acc_dv[j][2 * r + 1]);
+    }
+  }
+}
+
+// (c) dQ of one 64-row q tile of q head h in batch row b.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBlock)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ go,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, int32_t seq_q, int32_t seq_k, int32_t heads,
+          int32_t kv_heads, int32_t bh_total, int32_t mask,
+          const int32_t* __restrict__ q_pos,
+          const int32_t* __restrict__ k_pos, float scale_log2,
+          float scale) {
+  using M = Mma<T>;
+  constexpr int kStep = kStepC;
+  constexpr int ld = D + M::kPad;
+  extern __shared__ uint8_t smem_raw[];
+  T* s_q = reinterpret_cast<T*>(smem_raw);
+  T* s_do = s_q + kRows * ld;
+  T* s_k = s_do + kRows * ld;
+  T* s_v = s_k + kStep * ld;
+  int* s_kp = reinterpret_cast<int*>(s_v + kStep * ld);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float* scratch = reinterpret_cast<float*>(s_kp + 3 * kStep) +
+                   warp * 16 * (kStep + 4);
+
+  // the heaviest causal tiles (the last) of every head first
+  const int n_qt = (seq_q + kRows - 1) / kRows;
+  const int bh = static_cast<int>(blockIdx.x) % bh_total;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh_total;
+  const int b = bh / heads, h = bh % heads;
+  const int hk = h / (heads / kv_heads);
+  const int q0 = qt * kRows;
+  const int64_t kv_stride = static_cast<int64_t>(kv_heads) * D;
+  const int64_t q_stride = static_cast<int64_t>(heads) * D;
+  const int64_t q_base = static_cast<int64_t>(b) * seq_q * q_stride +
+                         static_cast<int64_t>(h) * D;
+  const int64_t kv_base = static_cast<int64_t>(b) * seq_k * kv_stride +
+                          static_cast<int64_t>(hk) * D;
+  load_rows<T, D, kRows>(s_q, ld, q + q_base, q_stride, q0, seq_q);
+  load_rows<T, D, kRows>(s_do, ld, go + q_base, q_stride, q0, seq_q);
+
+  // the thread's q rows i0 and i0 + 8: lse (log2 units), Delta, position
+  const int i0 = q0 + 16 * warp + g;
+  const int64_t row_base = static_cast<int64_t>(bh) * seq_q;
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  int qp[2] = {INT32_MIN, INT32_MIN};
+  bool dead[2] = {false, false};
+  for (int r = 0; r < 2; ++r)
+    if (i0 + 8 * r < seq_q) {
+      lse2[r] = lse[row_base + i0 + 8 * r] * kLog2e;
+      dl[r] = delta[row_base + i0 + 8 * r];
+      // a row with no key averages every key: its dS is 0 throughout
+      dead[r] = mask == kByPos && lse2[r] <= kDead * kLog2e;
+      if (mask == kByPos)
+        qp[r] = q_pos[static_cast<int64_t>(b) * seq_q + i0 + 8 * r];
+    }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // by index, kv tiles past the q tile's last row keep none of its keys
+  const int n_kt = mask == kByIndex
+                       ? (min(q0 + kRows, seq_q) + kStep - 1) / kStep
+                       : (seq_k + kStep - 1) / kStep;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kStep;
+    __syncthreads();            // every warp is done with the last step
+    load_rows<T, D, kStep>(s_k, ld, k + kv_base, kv_stride, k0, seq_k);
+    load_rows<T, D, kStep>(s_v, ld, v + kv_base, kv_stride, k0, seq_k);
+    if (mask == kByPos)
+      for (int j = threadIdx.x; j < kStep; j += kBlock)
+        s_kp[j] = k0 + j < seq_k
+                      ? k_pos[static_cast<int64_t>(b) * seq_k + k0 + j]
+                      : 0;
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S = Q . K^T, dP = dO . V^T over the warp's 16 q rows; dS in dP
+    float s[kStep / 8][4], ds[kStep / 8][4];
+    M::template abt<D, kStep>(s, s_q + 16 * warp * ld, ld, s_k, ld);
+    M::template abt<D, kStep>(ds, s_do + 16 * warp * ld, ld, s_v, ld);
+#pragma unroll
+    for (int j = 0; j < kStep / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cj = 8 * j + 2 * t + (e & 1);
+        const int jc = k0 + cj, r = e >> 1, i = i0 + 8 * r;
+        bool kept = i < seq_q && jc < seq_k && !dead[r];
+        if (mask == kByIndex) kept = kept && jc <= i;
+        if (mask == kByPos) kept = kept && qp[r] >= s_kp[cj];
+        ds[j][e] = kept ? exp2f(s[j][e] * scale_log2 - lse2[r]) *
+                              (ds[j][e] - dl[r])
+                        : 0.f;
+      }
+    // dQ += dS . K
+    M::template ab<kStep, D>(acc, ds, scratch, s_k, ld);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 8 * r;
+    if (i >= seq_q) continue;
+    const int64_t off = q_base + static_cast<int64_t>(i) * q_stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(static_cast<T*>(dq) + off + 8 * j + 2 * t,
+             scale * acc[j][2 * r], scale * acc[j][2 * r + 1]);
+  }
+}
+
+template <typename T> struct BwdLaunch {
+  template <int D> struct At {
+    static int run(const BwdArgs& a) {
+      const T* go = static_cast<const T*>(a.go);
+      const T* q = static_cast<const T*>(a.q);
+      const T* k = static_cast<const T*>(a.k);
+      const T* v = static_cast<const T*>(a.v);
+      const T* o = static_cast<const T*>(a.o);
+      const float scale_log2 = a.scale * kLog2e;
+      // (a) Delta
+      const int64_t rows = static_cast<int64_t>(a.b) * a.sq * a.h;
+      const int64_t blocks_a = (rows + kDeltaWarps - 1) / kDeltaWarps;
+      const int64_t bh_kv = static_cast<int64_t>(a.b) * a.kvh;
+      const int64_t bh_q = static_cast<int64_t>(a.b) * a.h;
+      const int64_t blocks_b = bh_kv * ((a.sk + kRows - 1) / kRows);
+      const int64_t blocks_c = bh_q * ((a.sq + kRows - 1) / kRows);
+      if (blocks_a > INT32_MAX || blocks_b > INT32_MAX ||
+          blocks_c > INT32_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
+      delta_kernel<T><<<static_cast<unsigned>(blocks_a), 32 * kDeltaWarps,
+                        0, a.stream>>>(o, go, a.delta, rows, a.sq, a.h, D);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      // (b) dK and dV
+      constexpr int smem_b = bwd_smem<T, D, kStepB<D>>(sizeof(T) == 4);
+      err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_b);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      dkdv_kernel<T, D><<<static_cast<unsigned>(blocks_b), kBlock, smem_b,
+                          a.stream>>>(
+          q, k, v, go, a.lse, a.delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.sq, a.sk, a.h, a.kvh,
+          static_cast<int32_t>(bh_kv), a.mask, a.q_pos, a.k_pos, scale_log2,
+          a.scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      // (c) dQ
+      constexpr int smem_c = bwd_smem<T, D, kStepC>(sizeof(T) == 4);
+      err = cudaFuncSetAttribute(dq_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_c);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      dq_kernel<T, D><<<static_cast<unsigned>(blocks_c), kBlock, smem_c,
+                        a.stream>>>(
+          q, k, v, go, a.lse, a.delta, static_cast<T*>(a.dq), a.sq, a.sk,
+          a.h, a.kvh, static_cast<int32_t>(bh_q), a.mask, a.q_pos, a.k_pos,
+          scale_log2, a.scale);
+      return static_cast<int>(cudaGetLastError());
+    }
+  };
+};
+
+template <typename T> int bwd_by_head_dim(int32_t d, const BwdArgs& a) {
+  switch (d) {
+#define REPRO_FA_BWD_CASE(D) \
+  case D: return BwdLaunch<T>::template At<D>::run(a);
+    REPRO_FA_BWD_CASE(16)
+    REPRO_FA_BWD_CASE(32)
+    REPRO_FA_BWD_CASE(64)
+    REPRO_FA_BWD_CASE(80)
+    REPRO_FA_BWD_CASE(96)
+    REPRO_FA_BWD_CASE(128)
+#undef REPRO_FA_BWD_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace bwd
 }  // namespace
 
 // q (b, sq, h, d), k and v (b, sk, kvh, d), o like q, all contiguous with
@@ -1144,32 +1804,83 @@ template <int D> struct Launch {
 // (flash_attention_f32_fwd); d one of 16, 32, 64, 80, 96, 128; `causal`
 // needs sq == sk, and with q_pos (b, sq) and k_pos (b, sk) int32 masks by
 // position (both null: by index); `scale` multiplies q . k (D^-1/2).
-// Launch on `stream`; return cudaGetLastError() (cudaErrorNotSupported if
-// the driver has no cuTensorMapEncodeTiled).
+// Non-null `lse` (b, h, sq) f32 receives each row's log-sum-exp of its
+// kept scaled scores (natural units; null, as serving passes, writes
+// nothing).  Launch on `stream`; return cudaGetLastError()
+// (cudaErrorNotSupported where cuTensorMapEncodeTiled is not found).
 extern "C" int flash_attention_tc_fwd(const void* q, const void* k,
-                                      const void* v, void* o, int32_t b,
-                                      int32_t sq, int32_t sk, int32_t h,
-                                      int32_t kvh, int32_t d, int32_t causal,
-                                      const int32_t* q_pos,
+                                      const void* v, void* o, float* lse,
+                                      int32_t b, int32_t sq, int32_t sk,
+                                      int32_t h, int32_t kvh, int32_t d,
+                                      int32_t causal, const int32_t* q_pos,
                                       const int32_t* k_pos, float scale,
                                       void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0)
     return static_cast<int>(cudaGetLastError());
   return by_head_dim<bf16::Launch>(
-      d, Args{q, k, v, o, b, sq, sk, h, kvh, causal, q_pos, k_pos, scale,
-              static_cast<cudaStream_t>(stream)});
+      d, Args{q, k, v, o, lse, b, sq, sk, h, kvh, causal, q_pos, k_pos,
+              scale, static_cast<cudaStream_t>(stream)});
 }
 
 extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
-                                       const void* v, void* o, int32_t b,
-                                       int32_t sq, int32_t sk, int32_t h,
-                                       int32_t kvh, int32_t d, int32_t causal,
-                                       const int32_t* q_pos,
+                                       const void* v, void* o, float* lse,
+                                       int32_t b, int32_t sq, int32_t sk,
+                                       int32_t h, int32_t kvh, int32_t d,
+                                       int32_t causal, const int32_t* q_pos,
                                        const int32_t* k_pos, float scale,
                                        void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0)
     return static_cast<int>(cudaGetLastError());
   return by_head_dim<tf32::Launch>(
-      d, Args{q, k, v, o, b, sq, sk, h, kvh, causal, q_pos, k_pos, scale,
-              static_cast<cudaStream_t>(stream)});
+      d, Args{q, k, v, o, lse, b, sq, sk, h, kvh, causal, q_pos, k_pos,
+              scale, static_cast<cudaStream_t>(stream)});
+}
+
+// The gradients of the function above at (q, k, v) against go (like q),
+// given its o and lse (b, h, sq) f32 from a forward at the same arguments:
+// dq like q, dk and dv like k, of bfloat16 (flash_attention_tc_bwd) or
+// float32 (flash_attention_f32_bwd), all contiguous with 16-byte-aligned
+// data; `delta` is (b, h, sq) f32 scratch.  Three launches on `stream`;
+// return cudaGetLastError() (cudaErrorInvalidValue for a head dim the
+// kernels are not built for or a grid of 2**31 blocks or more).
+extern "C" int flash_attention_tc_bwd(const void* go, const void* q,
+                                      const void* k, const void* v,
+                                      const void* o, const float* lse,
+                                      float* delta, void* dq, void* dk,
+                                      void* dv, int32_t b, int32_t sq,
+                                      int32_t sk, int32_t h, int32_t kvh,
+                                      int32_t d, int32_t causal,
+                                      const int32_t* q_pos,
+                                      const int32_t* k_pos, float scale,
+                                      void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int32_t mask = q_pos != nullptr ? bwd::kByPos
+                       : causal         ? bwd::kByIndex
+                                        : bwd::kNone;
+  return bwd::bwd_by_head_dim<__nv_bfloat16>(
+      d, bwd::BwdArgs{go, q, k, v, o, lse, delta, dq, dk, dv, b, sq, sk, h,
+                      kvh, mask, q_pos, k_pos, scale,
+                      static_cast<cudaStream_t>(stream)});
+}
+
+extern "C" int flash_attention_f32_bwd(const void* go, const void* q,
+                                       const void* k, const void* v,
+                                       const void* o, const float* lse,
+                                       float* delta, void* dq, void* dk,
+                                       void* dv, int32_t b, int32_t sq,
+                                       int32_t sk, int32_t h, int32_t kvh,
+                                       int32_t d, int32_t causal,
+                                       const int32_t* q_pos,
+                                       const int32_t* k_pos, float scale,
+                                       void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const int32_t mask = q_pos != nullptr ? bwd::kByPos
+                       : causal         ? bwd::kByIndex
+                                        : bwd::kNone;
+  return bwd::bwd_by_head_dim<float>(
+      d, bwd::BwdArgs{go, q, k, v, o, lse, delta, dq, dk, dv, b, sq, sk, h,
+                      kvh, mask, q_pos, k_pos, scale,
+                      static_cast<cudaStream_t>(stream)});
 }

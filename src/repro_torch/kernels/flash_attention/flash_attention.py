@@ -30,24 +30,32 @@ such as ``buf[1:]``) into fresh memory.
 ``ref.attention_plain`` for CPU tensors; there is no fallback from the
 card to the plain version.
 
-Training differentiates through ``FlashAttentionFn``: its forward is the
-kernel's launch (``_launch``, the one seam a CPU test may swap for the
-plain version), its backward runs ``ref.attention_plain`` again on the
-saved q, k, v (and positions) under autograd and returns that function's
-gradients, a batch row and a group of kv heads at a time so that the f32
-scores of a slice stay within ``BACKWARD_SCORE_BYTES``.  The reference
-has no backward kernel either: its training attention is XLA's dense or
-chunked softmax attention, which XLA differentiates
-(``repro/models/attention.py:184-205``).  The backward is plain torch on
-the card by design, under the profiler label ``PLAIN_BACKWARD``.
+Training differentiates through ``FlashAttentionFn``.  Its forward is the
+kernel's launch (``_launch``), which also writes each row's log-sum-exp
+(B, H, Sq) f32 when a gradient will be asked for; it saves q, k, v, o and
+that.  Its backward is the backward kernel's call (``_launch_backward``:
+three launches in the same source, counted once, under the profiler label
+``BACKWARD``): Delta = rowsum(dO o O), then dK and dV by kv tile, then dQ
+by q tile, with P recomputed from the saved log-sum-exp.  On a CUDA
+tensor it launches those kernels or raises; it never falls back.  The two
+launchers are the seams that a CPU test swaps for the plain versions:
+``ref.attention_plain`` for the forward, and ``plain_backward`` for the
+backward.  ``plain_backward`` runs ``ref.attention_plain`` again on the
+saved q, k, v (and positions) under autograd, a batch row and a group of
+kv heads at a time, so that the f32 scores of a slice stay within
+``BACKWARD_SCORE_BYTES``; the card runs it only to check the kernel.  The
+reference has no backward kernel: its training attention is XLA's dense
+or chunked softmax attention, which XLA differentiates
+(``repro/models/attention.py:184-205``).
 
 On fake tensors (stand-ins that hold no data: the dry run's) the wrapper
 calls the kernel's function as one op, ``repro_torch::flash_attention``
 (o and the rows' log-sum-exp), differentiated by one op too,
-``repro_torch::flash_attention_backward``: a counting dispatch mode sees
-each once, with the kernels' operands and results as its bytes and
-``attention_flops`` as its operations, where the plain version would
-show the dense S x S scores that no kernel writes.  On real CPU tensors
+``repro_torch::flash_attention_backward`` (what the backward kernel
+reads and writes): a counting dispatch mode sees each once, with the
+kernels' operands and results as its bytes and ``attention_flops`` as its
+operations, where the plain version would show the dense S x S scores
+that no kernel writes.  On real CPU tensors
 the two ops compute the plain version and its gradients.
 """
 from __future__ import annotations
@@ -64,14 +72,20 @@ from repro_torch.kernels.flash_attention import ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)      # instantiated in the CUDA source
-# each route's launcher and launch counter
+# each route's launcher and launch counter, forward and backward
 ENTRY = {"tc": "flash_attention_tc_fwd", "tf32x3": "flash_attention_f32_fwd"}
 COUNTER = {"tc": "flash_attention_tc", "tf32x3": "flash_attention_f32"}
+BACKWARD_ENTRY = {"tc": "flash_attention_tc_bwd",
+                  "tf32x3": "flash_attention_f32_bwd"}
+BACKWARD_COUNTER = {"tc": "flash_attention_bwd_tc",
+                    "tf32x3": "flash_attention_bwd_f32"}
 Q_TILE = 128                               # q rows a block, both routes
+BACKWARD_TILE = 64      # kv rows a block of dK / dV, q rows a block of dQ
+DELTA_ROWS = 8          # (b, i, h) rows a block of Delta
 # the f32 scores one slice of the plain backward holds (it holds a few
 # tensors of that size while autograd runs)
 BACKWARD_SCORE_BYTES = 1 << 30
-PLAIN_BACKWARD = "flash_attention.plain_backward"
+BACKWARD = "flash_attention.backward"      # the backward kernel's label
 
 
 def route(dtype: torch.dtype, d: int) -> str:
@@ -139,39 +153,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """The kernel forward (``_launch``) and the plain version's gradients
-    (``plain_backward``)."""
+    """The kernel forward (``_launch``), which writes the rows' log-sum-exp
+    where a gradient will be asked for, and the backward kernel
+    (``_launch_backward``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_pos, k_pos):
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, q_pos, k_pos)
-        return _launch(q, k, v, causal, q_pos, k_pos)
+        lse = None
+        if any(ctx.needs_input_grad[:3]):     # serving's tensors need none
+            b, sq, h, _ = q.shape
+            lse = torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device)
+        o = _launch(q, k, v, causal, q_pos, k_pos, lse)
+        ctx.save_for_backward(q, k, v, o, lse, q_pos, k_pos)
+        return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, go):
-        q, k, v, q_pos, k_pos = ctx.saved_tensors
-        with torch.profiler.record_function(PLAIN_BACKWARD):
-            gq, gk, gv = plain_backward(q, k, v, go, causal=ctx.causal,
-                                        q_pos=q_pos, k_pos=k_pos,
-                                        needs=ctx.needs_input_grad[:3])
-        return gq, gk, gv, None, None, None
+        q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD):
+            grads = _launch_backward(go, q, k, v, o, lse, ctx.causal, q_pos,
+                                     k_pos)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad[:3])),
+                None, None, None)
 
 
-def plain_backward(q, k, v, go, *, causal: bool, q_pos=None, k_pos=None,
-                   needs=(True, True, True)):
-    """The gradients of ``ref.attention_plain`` at (q, k, v) against the
-    output's gradient ``go`` (None where ``needs`` says no), computed by
-    autograd over slices of batch rows and kv heads (with their q heads)
-    whose f32 scores stay within ``BACKWARD_SCORE_BYTES``."""
+def plain_backward(q, k, v, go, *, causal: bool, q_pos=None, k_pos=None):
+    """The gradients (dq, dk, dv) of ``ref.attention_plain`` at (q, k, v)
+    against the output's gradient ``go``, computed by autograd over slices
+    of batch rows and kv heads (with their q heads) whose f32 scores stay
+    within ``BACKWARD_SCORE_BYTES``."""
     b, sq, h, _ = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    out = [torch.empty_like(t) if need else None
-           for t, need in zip((q, k, v), needs)]
-    if not any(needs) or q.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return [torch.zeros_like(t) for t in (q, k, v)]
+    out = [torch.empty_like(t) for t in (q, k, v)]
     head_bytes = max(g * sq * sk * 4, 1)
     heads = max(1, min(kvh, BACKWARD_SCORE_BYTES // head_bytes))
     rows = max(1, BACKWARD_SCORE_BYTES // (head_bytes * kvh)) \
@@ -181,56 +201,120 @@ def plain_backward(q, k, v, go, *, causal: bool, q_pos=None, k_pos=None,
         for k0 in range(0, kvh, heads):
             kv_h = slice(k0, k0 + heads)
             q_h = slice(k0 * g, (k0 + heads) * g)
-            parts = [t[r, :, sl].detach().requires_grad_(need)
-                     for t, sl, need in ((q, q_h, needs[0]),
-                                         (k, kv_h, needs[1]),
-                                         (v, kv_h, needs[2]))]
+            parts = [t[r, :, sl].detach().requires_grad_()
+                     for t, sl in ((q, q_h), (k, kv_h), (v, kv_h))]
             with torch.enable_grad():
                 o = ref.attention_plain(
                     *parts, causal=causal,
                     q_pos=None if q_pos is None else q_pos[r],
                     k_pos=None if k_pos is None else k_pos[r])
-                grads = iter(torch.autograd.grad(
-                    o, [p for p in parts if p.requires_grad], go[r, :, q_h]))
-            for dst, sl, need in zip(out, (q_h, kv_h, kv_h), needs):
-                if need:
-                    dst[r, :, sl] = next(grads)
+                grads = torch.autograd.grad(o, parts, go[r, :, q_h])
+            for dst, sl, grad in zip(out, (q_h, kv_h, kv_h), grads):
+                dst[r, :, sl] = grad
     return out
 
 
-def _launch(q, k, v, causal, q_pos, k_pos) -> torch.Tensor:
-    """One launch of the route's kernel on checked CUDA tensors, counted;
-    the output like q."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    named = [(q, "q"), (k, "k"), (v, "v")]
-    if q_pos is not None:
-        named += [(q_pos, "q_pos"), (k_pos, "k_pos")]
+def _require_on(q, named) -> None:
+    """Each named tensor on q's device and contiguous."""
     for t, name in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _aligned(*ts):
+    """The tensors, each that starts off a 16-byte mark (a contiguous view
+    such as ``buf[1:]``) copied into fresh memory: TMA and cp.async read
+    from 16-byte-aligned addresses only."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
+def _launch(q, k, v, causal, q_pos, k_pos, lse=None) -> torch.Tensor:
+    """One launch of the route's kernel on checked CUDA tensors, counted;
+    the output like q.  A given ``lse`` ((B, H, Sq) f32) receives the
+    rows' log-sum-exp."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    named = [(q, "q"), (k, "k"), (v, "v")]
+    if q_pos is not None:
+        named += [(q_pos, "q_pos"), (k_pos, "k_pos")]
+    if lse is not None:
+        if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+            raise ValueError(f"lse: want ({b}, {h}, {sq}) float32, got "
+                             f"{tuple(lse.shape)} {lse.dtype}")
+        named.append((lse, "lse"))
+    _require_on(q, named)
     rt = route(q.dtype, d)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    # TMA reads from 16-byte-aligned addresses only: a contiguous view
-    # that starts off a 16-byte mark is copied into fresh memory
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     blocks = b * h * -(-sq // Q_TILE)
     if blocks >= 2 ** 31:
         raise ValueError(f"B * H * ceil(Sq / {Q_TILE}) = {blocks}: the grid "
                          "takes at most 2**31 - 1 blocks")
     fn = _build.function(ENTRY[rt])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq,
-            sk, h, k.shape[2], d, int(causal),
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, sq, sk, h,
+            k.shape[2], d, int(causal),
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), d ** -0.5,
             _build.stream_handle(q.device))
     _build.check(rc, ENTRY[rt])
     _build.LAUNCHES[COUNTER[rt]] += 1
     return o
+
+
+def _launch_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
+    """One call of the route's backward kernel (three launches: Delta, dK
+    and dV, dQ) on checked CUDA tensors, counted once -> (dq like q, dk and
+    dv like k).  ``o`` and ``lse`` are the forward's at the same
+    arguments; ``go`` may be strided (autograd's), and is made
+    contiguous."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    go = go.contiguous()
+    if go.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"go {tuple(go.shape)} and o {tuple(o.shape)}: "
+                         f"want q's {tuple(q.shape)}")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in (k, v, go,
+                                                                   o)):
+        raise TypeError(f"q, k, v, go and o: one type of {DTYPES}, got "
+                        f"{[t.dtype for t in (q, k, v, go, o)]}")
+    if lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse: want the forward's ({b}, {h}, {sq}) float32")
+    named = [(go, "go"), (q, "q"), (k, "k"), (v, "v"), (o, "o"),
+             (lse, "lse")]
+    if q_pos is not None:
+        named += [(q_pos, "q_pos"), (k_pos, "k_pos")]
+    _require_on(q, named)
+    rt = route(q.dtype, d)
+    if q.numel() == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    go, q, k, v, o = _aligned(go, q, k, v, o)
+    grids = {"B * Sq * H / DELTA_ROWS": -(-b * sq * h // DELTA_ROWS),
+             "B * KV * ceil(Sk / BACKWARD_TILE)":
+                 b * kvh * -(-sk // BACKWARD_TILE),
+             "B * H * ceil(Sq / BACKWARD_TILE)":
+                 b * h * -(-sq // BACKWARD_TILE)}
+    for what, blocks in grids.items():
+        if blocks >= 2 ** 31:
+            raise ValueError(f"{what} = {blocks}: the grid takes at most "
+                             "2**31 - 1 blocks")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.function(BACKWARD_ENTRY[rt])
+    rc = fn(go.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kvh, d, int(causal),
+            None if q_pos is None else q_pos.data_ptr(),
+            None if k_pos is None else k_pos.data_ptr(), d ** -0.5,
+            _build.stream_handle(q.device))
+    _build.check(rc, BACKWARD_ENTRY[rt])
+    _build.LAUNCHES[BACKWARD_COUNTER[rt]] += 1
+    return dq, dk, dv
 
 
 # --------------------------------------------------------------------------- #

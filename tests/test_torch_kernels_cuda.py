@@ -1587,11 +1587,11 @@ def _grads_close(got, want, dtype_or_tol):
 def test_flash_attention_gradients_through_the_kernel_match_plain(
         cuda, d, dtype, kind):
     """B7 on a CUDA tensor that requires grad: the kernel launches once,
-    its output carries a ``grad_fn``, and its gradients (the plain
-    version's, recomputed from the saved inputs over slices) equal plain
-    autograd's within ``GRAD_TOL`` of their largest magnitude: the
-    served heads' dims (whisper's 64, stablelm-3b's 80, the GQA models'
-    128), causal, cross lengths, and masked by position."""
+    its output carries a ``grad_fn``, and its gradients (the backward
+    kernel's, one counted call) equal plain autograd's within
+    ``GRAD_TOL`` of their largest magnitude: the served heads' dims
+    (whisper's 64, stablelm-3b's 80, the GQA models' 128), causal, cross
+    lengths, and masked by position."""
     g = torch.Generator(device=cuda).manual_seed(d)
     b, sq, sk, h, kvh = {"causal": (2, 300, 300, 8, 2),
                          "cross": (2, 70, 333, 4, 4),
@@ -1612,11 +1612,175 @@ def test_flash_attention_gradients_through_the_kernel_match_plain(
     assert out.grad_fn is not None
     assert _build.LAUNCHES[fa.COUNTER[fa.route(dtype, d)]] == 1
     got = torch.autograd.grad(out, ins, go)
+    assert _build.LAUNCHES[fa.BACKWARD_COUNTER[fa.route(dtype, d)]] == 1
     want_out = fa_ref.attention_plain(*ins, **kw)
     want = torch.autograd.grad(want_out, ins, go)
     torch.cuda.synchronize()
     assert float((out - want_out).detach().abs().max()) <= ATTN_TOL[dtype]
     _grads_close(got, want, dtype)
+
+
+def _bwd_inputs(cuda, b, sq, sk, h, kvh, d, dtype, form, seed):
+    """q, k, v, go on the card and the mask arguments of a form: "causal"
+    (by index), "position" (repeated positions) or "cross" (non-causal, Sq
+    and Sk as given)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, go = (torch.randn(b, sq, h, d, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, kvh, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    kw = dict(causal=form != "cross", q_pos=None, k_pos=None)
+    if form == "position":
+        qp, kp = (t.to(cuda) for t in _positions("repeats", b, sq, seed))
+        kw.update(q_pos=qp, k_pos=kp)
+    return q, k, v, go, kw
+
+
+def _forward_with_lse(q, k, v, kw):
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    o = fa._launch(q, k, v, kw["causal"], kw["q_pos"], kw["k_pos"], lse)
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form,sq,sk", [("causal", 37, 37),
+                                        ("causal", 1000, 1000),
+                                        ("position", 300, 300),
+                                        ("cross", 37, 1000),
+                                        ("cross", 1000, 37)])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_flash_attention_forward_writes_the_plain_lse(cuda, dtype, form, sq,
+                                                      sk, d):
+    """Asked for it, each forward route writes the rows' log-sum-exp (B, H,
+    Sq) f32 in natural units, equal to the plain ``_lse`` within 1e-5 (the
+    scores are f32 sums of the same products), and the same output as
+    without it, bit for bit."""
+    q, k, v, _, kw = _bwd_inputs(cuda, 2, sq, sk, 6, 2, d, dtype, form,
+                                 seed=sq + sk + d)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    want = fa._lse(q, k, kw["causal"], kw["q_pos"], kw["k_pos"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, fa._launch(q, k, v, kw["causal"], kw["q_pos"],
+                                     kw["k_pos"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("form,sq,sk", [("causal", 37, 37),
+                                        ("causal", 1000, 1000),
+                                        ("position", 37, 37),
+                                        ("position", 1000, 1000),
+                                        ("cross", 37, 1000),
+                                        ("cross", 1000, 37)])
+@pytest.mark.parametrize("group", [1, 3, 7])
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, d, form,
+                                                       sq, sk, group):
+    """The backward kernel (Delta, dK / dV by kv tile, dQ by q tile) against
+    ``plain_backward`` on the same inputs, from the forward kernel's o and
+    lse: every head dim, GQA 1, 3 and 7, ragged q and kv tiles, causal by
+    index and by position at Sq == Sk and non-causal at other lengths,
+    within ``GRAD_TOL`` of each gradient's largest magnitude (the kernel
+    rounds P and dS to bf16 for its products, the plain version the
+    unnormalised p), one counted call."""
+    b = 2 if max(sq, sk) < 1000 else 1
+    q, k, v, go, kw = _bwd_inputs(cuda, b, sq, sk, 2 * group, 2, d, dtype,
+                                  form, seed=d + group + sq)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    counter = fa.BACKWARD_COUNTER[fa.route(dtype, d)]
+    before = dict(_build.LAUNCHES)
+    got = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c == counter) for c in before}
+    want = fa.plain_backward(q, k, v, go, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["causal", "position", "cross"])
+def test_flash_attention_backward_kernel_is_deterministic(cuda, dtype, form):
+    """No atomics and no split sums across blocks: two backward calls on the
+    same inputs give the same bits (GQA 4, ragged tiles)."""
+    sk = 333 if form == "cross" else 517
+    q, k, v, go, kw = _bwd_inputs(cuda, 2, 517, sk, 8, 2, 128, dtype, form,
+                                  seed=9)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    first = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    second = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_never_reaches_the_plain_version(
+        cuda, dtype, monkeypatch):
+    """On CUDA tensors the Function's backward is the kernel's call: with
+    ``plain_backward`` made to raise, autograd still gives the gradients,
+    and the forward and backward counters each move once; a strided
+    gradient from autograd is taken (made contiguous)."""
+    def refuse(*a, **kw):
+        raise AssertionError("plain_backward on a CUDA tensor")
+    q, k, v, go, kw = _bwd_inputs(cuda, 2, 200, 200, 6, 2, 64, dtype,
+                                  "causal", seed=4)
+    want = fa.plain_backward(q, k, v, go, **kw)
+    monkeypatch.setattr(fa, "plain_backward", refuse)
+    ins = [t.requires_grad_() for t in (q, k, v)]
+    rt = fa.route(dtype, 64)
+    before = dict(_build.LAUNCHES)
+    out = fa.flash_attention(*ins, causal=True)
+    # a strided output gradient: a transposed copy's transpose
+    go_strided = go.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not go_strided.is_contiguous()
+    got = torch.autograd.grad(out, ins, go_strided)
+    torch.cuda.synchronize()
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c in (fa.COUNTER[rt], fa.BACKWARD_COUNTER[rt]))
+         for c in before}
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_rows_without_a_key_match_plain(cuda, dtype):
+    """Position-masked rows whose q position is below every k position keep
+    no key: the forward and the backward equal the plain version, which
+    averages every key (no gradient reaches q or k through such a row),
+    and nothing is NaN; such a row's lse is the mask, -1e30."""
+    b, s, h, kvh, d = 2, 150, 4, 2, 64
+    q, k, v, go, _ = _bwd_inputs(cuda, b, s, s, h, kvh, d, dtype, "causal",
+                                 seed=12)
+    qp, kp = (t.to(cuda) for t in _positions("no_key_rows", b, s, 0))
+    kw = dict(causal=True, q_pos=qp, k_pos=kp)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    want_o = fa_ref.attention_plain(q, k, v, q_pos=qp, k_pos=kp)
+    got = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    want = fa.plain_backward(q, k, v, go, **kw)
+    torch.cuda.synchronize()
+    dead = qp < kp.min(-1, keepdim=True).values
+    assert bool(dead.any()) and bool((~dead).any())
+    assert bool((lse.transpose(1, 2)[dead] == -1e30).all())
+    assert bool(torch.isfinite(o).all())
+    assert float((o.float() - want_o.float()).abs().max()) <= \
+        ATTN_TOL[dtype]
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _grads_close(got, want, dtype)
+
+
+def test_flash_attention_backward_refuses_what_it_does_not_take(cuda):
+    q, k, v, go, kw = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 64, torch.float32,
+                                  "causal", seed=1)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    with pytest.raises(ValueError, match="lse"):
+        fa._launch_backward(go, q, k, v, o, None, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        fa._launch_backward(go, q, k, v, o, lse[:, :2], **kw)
+    with pytest.raises(TypeError):
+        fa._launch_backward(go.bfloat16(), q, k, v, o, lse, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa._launch_backward(go, q, k, v, o, lse.cpu(), **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

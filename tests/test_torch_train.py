@@ -390,10 +390,23 @@ def test_run_with_restarts_resumes_exactly_as_the_reference(tmp_path):
 # the kernels' autograd Functions, with the plain version as the launcher
 
 
+def _plain_attention_launch(q, k, v, causal, qp, kp, lse=None):
+    """B7's forward seam on the CPU: the plain output, and the plain
+    log-sum-exp where the Function asks for it."""
+    if lse is not None:
+        lse.copy_(fa._lse(q, k, causal, qp, kp))
+    return fa_ref.attention_plain(q, k, v, causal=causal, q_pos=qp, k_pos=kp)
+
+
+def _plain_attention_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
+    """B7's backward seam on the CPU: the plain version's gradients."""
+    return tuple(fa.plain_backward(q, k, v, go, causal=causal, q_pos=q_pos,
+                                   k_pos=k_pos))
+
+
 def _plain_launchers(monkeypatch):
-    monkeypatch.setattr(fa, "_launch", lambda q, k, v, causal, qp, kp:
-                        fa_ref.attention_plain(q, k, v, causal=causal,
-                                               q_pos=qp, k_pos=kp))
+    monkeypatch.setattr(fa, "_launch", _plain_attention_launch)
+    monkeypatch.setattr(fa, "_launch_backward", _plain_attention_backward)
     monkeypatch.setattr(ssd_mod, "_scan", lambda x, dt, a, b, c, d, chunk:
                         ssd_ref.ssd_plain(x, dt, a, b, c, d, chunk=chunk))
 
@@ -529,18 +542,22 @@ def test_train_step_launches_each_kernel_twice_a_layer_under_remat(
         monkeypatch):
     """The forward and the checkpoint's recompute each reach the kernels'
     Functions once a mixer layer; counted through the CPU seam."""
-    calls = {"attn": 0, "ssd": 0}
+    calls = {"attn": 0, "ssd": 0, "attn_backward": 0}
 
-    def attn_launch(q, k, v, causal, qp, kp):
+    def attn_launch(*args):
         calls["attn"] += 1
-        return fa_ref.attention_plain(q, k, v, causal=causal, q_pos=qp,
-                                      k_pos=kp)
+        return _plain_attention_launch(*args)
+
+    def attn_backward(*args):
+        calls["attn_backward"] += 1
+        return _plain_attention_backward(*args)
 
     def ssd_launch(x, dt, a, b, c, d, chunk):
         calls["ssd"] += 1
         return ssd_ref.ssd_plain(x, dt, a, b, c, d, chunk=chunk)
 
     monkeypatch.setattr(fa, "_launch", attn_launch)
+    monkeypatch.setattr(fa, "_launch_backward", attn_backward)
     monkeypatch.setattr(ssd_mod, "_scan", ssd_launch)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -559,7 +576,8 @@ def test_train_step_launches_each_kernel_twice_a_layer_under_remat(
     batch = synthetic_batch(DataConfig(cfg.vocab_size, 24, 2), 0)
     state, metrics = step(state, batch)
     n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.num_layers))
-    assert calls == {"attn": 2 * n_attn, "ssd": 2 * (cfg.num_layers - n_attn)}
+    assert calls == {"attn": 2 * n_attn, "ssd": 2 * (cfg.num_layers - n_attn),
+                     "attn_backward": n_attn}
     assert set(metrics) == {"loss", "ce", "aux", "grad_norm"}
     assert float(metrics["aux"]) > 0 and int(state["count"]) == 1
     assert all(p.grad is None for p in model.parameters())

@@ -1,7 +1,7 @@
 """Time the flash-attention kernel (B7) on the card for one checkout of the
 port, to compare commits.
 
-    python3 attention_probe.py [--src DIR] [--tag NAME]
+    python3 attention_probe.py [--src DIR] [--tag NAME] [--backward]
 
 One line, ``[NAME]`` and then, for each shape of ``chip_smoke.py``'s
 served prefills (llama3-8b: 4 x 2,000 x 32 x 128, GQA 4; qwen2-vl: 28
@@ -15,6 +15,17 @@ Inputs are normal, drawn on the card from seed 0.  ``--src`` imports
 ``repro_torch`` from another checkout's ``src`` (its kernels build into
 that checkout), so two commits are compared by running this script
 once for each, in turns, in one call.
+
+``--backward`` times B7's backward kernel instead (``_launch_backward``,
+from the forward kernel's o and lse on the same inputs, 20 calls after
+3, CUDA events) at the training shapes of ``chip_smoke.py``'s phase
+``lm_kernels``, batch 1: stablelm-3b (4,096 x 32 x 80, causal),
+granite-moe (4,096 x 24 of 64 over 8 kv heads, causal), qwen2-vl (4,096
+x 28 of 128 over 4 kv heads, masked by Qwen2-VL's positions), whisper's
+encoder (1,500 x 20 x 64, non-causal) and cross-attention (416 queries
+over 1,500 frames), all in bf16, and stablelm-3b's shape in f32; beside
+each, the device ms a call of each of its kernels (the names under
+``bwd::``), from ``torch.profiler`` over 5 more calls.
 """
 from __future__ import annotations
 
@@ -28,6 +39,14 @@ SHAPES = (("llama3-8b", 4, 32, 8, 128, "bfloat16"),
           ("granite-moe", 4, 24, 8, 64, "bfloat16"),
           ("qwen2-vl f32", 1, 28, 4, 128, "float32"))
 SEQ, PATCHES, SIDE = 2_000, 256, 16
+# name, sq, sk, h, kv heads, d, type, mask ("causal", "position", "none")
+BACKWARD_SHAPES = (
+    ("stablelm-3b", 4096, 4096, 32, 32, 80, "bfloat16", "causal"),
+    ("granite-moe", 4096, 4096, 24, 8, 64, "bfloat16", "causal"),
+    ("qwen2-vl position", 4096, 4096, 28, 4, 128, "bfloat16", "position"),
+    ("whisper encoder", 1500, 1500, 20, 20, 64, "bfloat16", "none"),
+    ("whisper cross", 416, 1500, 20, 20, 64, "bfloat16", "none"),
+    ("stablelm-3b f32", 4096, 4096, 32, 32, 80, "float32", "causal"))
 
 
 def main(argv=None) -> int:
@@ -35,6 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "src"))
     ap.add_argument("--tag", default="this checkout")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward kernel at the training shapes")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -62,6 +83,44 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
+    def by_kernel(fn, reps=5):
+        """Device ms a call of each kernel named under ``bwd::``."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms_of = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and "bwd::" in e.key:
+                name = e.key.split("bwd::", 1)[1].split("<")[0]
+                ms_of[name] = ms_of.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / reps
+        return ", ".join(f"{n} {t:.4f}" for n, t in sorted(ms_of.items()))
+
+    if args.backward:
+        out = []
+        for name, sq, sk, h, kvh, d, dt, mask in BACKWARD_SHAPES:
+            dtype = getattr(torch, dt)
+            q, go = (randn(1, sq, h, d, dtype=dtype) for _ in range(2))
+            k, v = (randn(1, sk, kvh, d, dtype=dtype) for _ in range(2))
+            pos = None
+            if mask == "position":
+                i = torch.arange(sq, device=dev)
+                pos = torch.where(i < PATCHES, 0, SIDE + i - PATCHES).to(
+                    torch.int32)[None].contiguous()
+            causal = mask != "none"
+            lse = torch.empty((1, h, sq), dtype=torch.float32, device=dev)
+            o = fa._launch(q, k, v, causal, pos, pos, lse)
+            run = lambda: fa._launch_backward(go, q, k, v, o, lse,  # noqa
+                                              causal, pos, pos)
+            out.append(f"{name} {ms(run):.4f} ({by_kernel(run)})")
+            del q, k, v, go, o, lse
+        print(f"[{args.tag}] backward: " + "; ".join(out), flush=True)
+        return 0
     i = torch.arange(SEQ, device=dev)
     out = []
     for name, b, h, kvh, d, dt in SHAPES:

@@ -3190,6 +3190,36 @@ def phase_lm_kernels(dev):
            randn(1, TRAIN_SEQ, h, d), randn(1, TRAIN_SEQ, kvh, d),
            randn(1, TRAIN_SEQ, kvh, d), "stablelm-3b train")
 
+    def b7_bwd_visits(q, k, causal, q_pos, k_pos):
+        """The shares of (q tile, kv tile) pairs that the backward's dK / dV
+        blocks and its dQ blocks visit, with the route's tiles
+        (``fa.BACKWARD_BLOCKS`` and ``fa.backward_steps``: bf16 64-row q
+        tiles past 128-row kv tiles for dK / dV, 64- or 128-row kv tiles
+        past 128-row q tiles for dQ), under the position mask the tile
+        lists (``fa_ref.kv_tile_visits``: the forward's list for dQ is the
+        same rule with the roles of the tile sizes swapped); f32 64-row
+        tiles, every pair under the position mask."""
+        sq, sk = q.shape[1], k.shape[1]
+        bf16 = q.dtype == torch.bfloat16
+        _, bk, cq = fa.BACKWARD_BLOCKS[fa.route(q.dtype, q.shape[3])]
+        bq, ck = fa.backward_steps(q.dtype, q.shape[3])
+        if q_pos is not None:
+            if not bf16:
+                return 1.0, 1.0
+            return tuple(float(fa_ref.kv_tile_visits(
+                q_pos, k_pos, q_tile=qt, kv_tile=kt).float().mean())
+                for qt, kt in ((bq, bk), (cq, ck)))
+        if not causal:
+            return 1.0, 1.0
+        # dK / dV: a kv tile from the q tile of its first row on; dQ: a q
+        # tile up to the kv tile of its last row
+        nq, nk = -(-sq // bq), -(-sk // bk)
+        kv_share = sum(nq - n * bk // bq for n in range(nk)) / (nq * nk)
+        nq, nk = -(-sq // cq), -(-sk // ck)
+        q_share = sum(min(nk, (min((t + 1) * cq, sq) - 1) // ck + 1)
+                      for t in range(nq)) / (nq * nk)
+        return kv_share, q_share
+
     def b7_bwd_row(name, arch, q, k, v, counted_in, causal=True, q_pos=None,
                    k_pos=None):
         """One row of B7's backward kernel: its gradients from the forward
@@ -3198,7 +3228,8 @@ def phase_lm_kernels(dev):
         calls bit-identical, timed by CUDA events beside its bound (2.5
         times the forward's operations over the kept pairs: the scores
         again, dV, dP, dQ and dK) and SDPA's backward on the same inputs
-        (``b7_mask``; timed only)."""
+        (``b7_mask``; timed only), with the shares of tile pairs its blocks
+        visit (``b7_bwd_visits``)."""
         dtype = q.dtype
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
@@ -3239,7 +3270,8 @@ def phase_lm_kernels(dev):
         ops = 10 * d * pairs
         rows.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            source="src/repro_torch/kernels/csrc/flash_attention"
+                   + ("_bwd.cu" if size == 2 else ".cu"),
             replaces="src/repro/models/attention.py:63",
             max_abs_err=err,
             ms=time_ms(lambda: fa._launch_backward(go, q, k, v, o, lse,
@@ -3254,12 +3286,17 @@ def phase_lm_kernels(dev):
             ops=ops, ops_type="bf16" if size == 2 else "f32",
             counted_in=counted_in, counter=fa.BACKWARD_COUNTER[rt],
             shape=f"{arch}: q=({b}, {sq}, {h}, {d}), k, v=({b}, {sk}, {kvh}, "
-                  f"{d}) {tname}, {mask}, backward on "
-                  f"{'mma.sync bf16' if size == 2 else 'f32 FMAs'}"))
-        extra = ""
+                  f"{d}) {tname}, {mask}, backward "
+                  + ("on wgmma, a TMA ring, warp-specialised: dK / dV by "
+                     "128-row kv tile, dQ by 128-row q tile"
+                     + (", a block a q head" if fa._splits_group(
+                         q.device, b, h, kvh, sk) else "")
+                     if size == 2 else "on f32 FMAs, 64-row tiles")))
+        seen_kv, seen_q = b7_bwd_visits(q, k, causal, q_pos, k_pos)
+        extra = (f"; tile pairs visited: dK / dV {seen_kv:.1%}, dQ "
+                 f"{seen_q:.1%}")
         if q_pos is not None:
-            extra = (f"; {pairs / (b * h * sq * sk):.1%} of the pairs kept, "
-                     "every tile pair visited")
+            extra += f"; {pairs / (b * h * sq * sk):.1%} of the pairs kept"
         finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e}, worst "
                    f"{worst:.3e} of a gradient's largest magnitude <= "
                    f"{ATTN_BWD_TOL[tname]}; two calls bit-identical; "

@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention", "ssd")
+SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention",
+           "flash_attention_bwd", "ssd")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _F32 = ctypes.c_float
@@ -78,10 +79,11 @@ SIGNATURES = {
     "flash_attention_f32_fwd": ("flash_attention",
                                 (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _P, _P, _F32, _P)),
-    # go, q, k, v, o, lse, delta (scratch), dq, dk, dv, b, sq, sk, h,
-    # kv_heads, d, causal, q_pos, k_pos, scale, stream
-    "flash_attention_tc_bwd": ("flash_attention",
-                               (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # go, q, k, v, o, lse, delta (scratch), [part (scratch or null),] dq,
+    # dk, dv, b, sq, sk, h, kv_heads, d, causal, q_pos, k_pos, scale,
+    # stream
+    "flash_attention_tc_bwd": ("flash_attention_bwd",
+                               (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                                 _P, _P, _F32, _P)),
     "flash_attention_f32_bwd": ("flash_attention",
@@ -104,7 +106,7 @@ SIGNATURES = {
 # ("sgd_split") routes, B7's bf16 ("flash_attention_tc") and f32
 # ("flash_attention_f32") tensor-core routes, B7's backward in each type
 # ("flash_attention_bwd_tc", "flash_attention_bwd_f32": one count a call
-# of its three launches) and B8's CUDA-core ("ssd") and tensor-core
+# of its three or four launches) and B8's CUDA-core ("ssd") and tensor-core
 # ("ssd_tc") routes each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.

@@ -30,20 +30,34 @@ such as ``buf[1:]``) into fresh memory.
 ``ref.attention_plain`` for CPU tensors; there is no fallback from the
 card to the plain version.
 
-Training differentiates through ``FlashAttentionFn``.  Its forward is the
+Training differentiates through ``FlashAttentionFn``. Its forward is the
 kernel's launch (``_launch``), which also writes each row's log-sum-exp
-(B, H, Sq) f32 when a gradient will be asked for; it saves q, k, v, o and
-that.  Its backward is the backward kernel's call (``_launch_backward``:
-three launches in the same source, counted once, under the profiler label
-``BACKWARD``): Delta = rowsum(dO o O), then dK and dV by kv tile, then dQ
-by q tile, with P recomputed from the saved log-sum-exp.  On a CUDA
-tensor it launches those kernels or raises; it never falls back.  The two
-launchers are the seams that a CPU test swaps for the plain versions:
+(B, H, Sq) f32 when a gradient will be asked for; it saves q, k, v, o
+and that. Its backward is the backward kernel's call
+(``_launch_backward``: three launches, or four, counted once, under the
+profiler label ``BACKWARD``): Delta = rowsum(dO o O), then dK and dV by kv tile,
+then dQ by q tile, with P recomputed from the saved log-sum-exp. In
+bfloat16 (``kernels/csrc/flash_attention_bwd.cu``) dK / dV and dQ are
+Hopper kernels of the forward's shape: a block of three warpgroups per
+128-row kv (q) tile, a producer issuing TMA loads of 64-row q and dO
+(64- or 128-row k and v, ``backward_steps``) tiles into a two-stage
+ring, two consumers on wgmma with the tile they own resident and their
+gradient in registers; under the position mask dQ visits the forward's
+kv tile list and dK / dV its transpose (``ref.kv_tile_visits``: a q tile
+with a row that keeps no key is on every list). A dK / dV block loops
+over its kv head's GQA group, or, where those blocks would be fewer than
+the card's SMs (``_splits_group``), each q head takes blocks of its own
+and one more launch sums their f32 shares in the group's order. In
+float32 (``kernels/csrc/flash_attention.cu``) they are CUDA-core kernels
+of 64-row tiles. No sum uses atomics and each runs in a fixed order, so
+two calls give the same bits. On a CUDA tensor it launches
+those kernels or raises; it never falls back. The two launchers are the
+seams that a CPU test swaps for the plain versions:
 ``ref.attention_plain`` for the forward, and ``plain_backward`` for the
-backward.  ``plain_backward`` runs ``ref.attention_plain`` again on the
+backward. ``plain_backward`` runs ``ref.attention_plain`` again on the
 saved q, k, v (and positions) under autograd, a batch row and a group of
 kv heads at a time, so that the f32 scores of a slice stay within
-``BACKWARD_SCORE_BYTES``; the card runs it only to check the kernel.  The
+``BACKWARD_SCORE_BYTES``; the card runs it only to check the kernel. The
 reference has no backward kernel: its training attention is XLA's dense
 or chunked softmax attention, which XLA differentiates
 (``repro/models/attention.py:184-205``).
@@ -60,6 +74,7 @@ the two ops compute the plain version and its gradients.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -80,8 +95,17 @@ BACKWARD_ENTRY = {"tc": "flash_attention_tc_bwd",
 BACKWARD_COUNTER = {"tc": "flash_attention_bwd_tc",
                     "tf32x3": "flash_attention_bwd_f32"}
 Q_TILE = 128                               # q rows a block, both routes
-BACKWARD_TILE = 64      # kv rows a block of dK / dV, q rows a block of dQ
-DELTA_ROWS = 8          # (b, i, h) rows a block of Delta
+# rows a block of the backward's three launches, per route: Delta's (b, i,
+# h) rows, dK / dV's kv rows, dQ's q rows
+BACKWARD_BLOCKS = {"tc": (256, 128, 128), "tf32x3": (8, 64, 64)}
+
+
+def backward_steps(dtype: torch.dtype, d: int) -> Tuple[int, int]:
+    """The rows a step of the backward streams past a block's own tile:
+    (q rows past dK / dV's kv tile, kv rows past dQ's q tile)."""
+    if route(dtype, d) == "tf32x3":
+        return 64, 64
+    return 64, 128 if d <= 80 else 64
 # the f32 scores one slice of the plain backward holds (it holds a few
 # tensors of that size while autograd runs)
 BACKWARD_SCORE_BYTES = 1 << 30
@@ -266,11 +290,32 @@ def _launch(q, k, v, causal, q_pos, k_pos, lse=None) -> torch.Tensor:
     return o
 
 
+def _splits_group(device, b, h, kvh, sk) -> bool:
+    """Whether the bf16 backward gives a GQA group's q heads dK / dV blocks
+    of their own (each head's share in f32 scratch, summed over the group
+    in order by one more launch) rather than a block a kv head that loops
+    over its group: where the group's blocks, B * KV * ceil(Sk / 128),
+    are fewer than the card's SMs.  On an H100 (132 SMs, 700 W) the split
+    took 1.64 ms against 2.10 at qwen2-vl's training shape (128 blocks)
+    and 0.651 against 0.620 at granite-moe's (256), both timed by
+    ``attention_probe.py --backward`` (PERF.md)."""
+    if h == kvh:
+        return False
+    rows_b = BACKWARD_BLOCKS["tc"][1]
+    return b * kvh * -(-sk // rows_b) < _sm_count(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
     """One call of the route's backward kernel (three launches: Delta, dK
-    and dV, dQ) on checked CUDA tensors, counted once -> (dq like q, dk and
-    dv like k).  ``o`` and ``lse`` are the forward's at the same
-    arguments; ``go`` may be strided (autograd's), and is made
+    and dV, dQ; a fourth that sums a GQA group's shares of dK and dV where
+    ``_splits_group`` splits it) on checked CUDA tensors, counted once ->
+    (dq like q, dk and dv like k).  ``o`` and ``lse`` are the forward's at
+    the same arguments; ``go`` may be strided (autograd's), and is made
     contiguous."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -294,20 +339,27 @@ def _launch_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
         return (torch.zeros_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
     go, q, k, v, o = _aligned(go, q, k, v, o)
-    grids = {"B * Sq * H / DELTA_ROWS": -(-b * sq * h // DELTA_ROWS),
-             "B * KV * ceil(Sk / BACKWARD_TILE)":
-                 b * kvh * -(-sk // BACKWARD_TILE),
-             "B * H * ceil(Sq / BACKWARD_TILE)":
-                 b * h * -(-sq // BACKWARD_TILE)}
+    split = rt == "tc" and _splits_group(q.device, b, h, kvh, sk)
+    rows_a, rows_b, rows_c = BACKWARD_BLOCKS[rt]
+    heads_b = "H" if split else "KV"
+    grids = {f"B * Sq * H / {rows_a}": -(-b * sq * h // rows_a),
+             f"B * {heads_b} * ceil(Sk / {rows_b})":
+                 b * (h if split else kvh) * -(-sk // rows_b),
+             f"B * H * ceil(Sq / {rows_c})": b * h * -(-sq // rows_c)}
     for what, blocks in grids.items():
         if blocks >= 2 ** 31:
             raise ValueError(f"{what} = {blocks}: the grid takes at most "
                              "2**31 - 1 blocks")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    scratch = [delta.data_ptr()]
+    if rt == "tc":
+        part = torch.empty((2, b, sk, h, d), dtype=torch.float32,
+                           device=q.device) if split else None
+        scratch.append(None if part is None else part.data_ptr())
     fn = _build.function(BACKWARD_ENTRY[rt])
     rc = fn(go.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), *scratch, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kvh, d, int(causal),
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), d ** -0.5,

@@ -14,6 +14,9 @@ no key left averages every key, as the reference's softmax over
 rounded to the value type before ``p . v`` and the sum divides
 afterwards, which is what the TPU kernel's online softmax computes; the
 output is in q's type.
+
+``kv_tile_visits`` is the rule by which the bf16 backward kernel's dK / dV
+blocks choose their q tiles under the position mask, as a plain function.
 """
 from __future__ import annotations
 
@@ -43,3 +46,32 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = p.to(v.dtype).float()
     out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / den
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _tile_fold(x: torch.Tensor, tile: int, fill: int) -> torch.Tensor:
+    """(B, n) -> (B, ceil(n / tile), tile), the last tile padded with
+    ``fill``."""
+    b, n = x.shape
+    out = x.new_full((b, -(-n // tile) * tile), fill)
+    out[:, :n] = x
+    return out.reshape(b, -1, tile)
+
+
+def kv_tile_visits(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                   q_tile: int = 64, kv_tile: int = 128) -> torch.Tensor:
+    """Under the position mask, the q tiles (of ``q_tile`` rows) that the
+    backward's dK / dV block of each kv tile (of ``kv_tile`` rows) visits:
+    (B, ceil(Sk / kv_tile), ceil(Sq / q_tile)) bool.  A q tile is visited
+    where its largest q position reaches the kv tile's least k position
+    (some row keeps a key of the tile), and by every kv tile where it
+    holds a row that keeps no key at all (a q position below every k
+    position of the batch row): such a row averages every key, P = 1 /
+    Sk, so it adds 1 / Sk . dO to every kv row's dV.  No other pair adds
+    to dK or dV: where every row of a q tile is below every k position of
+    a kv tile, each of their pairs is masked."""
+    lo, hi = torch.iinfo(torch.int32).min, torch.iinfo(torch.int32).max
+    qmax = _tile_fold(q_pos, q_tile, lo).amax(-1)          # (B, nq)
+    qmin = _tile_fold(q_pos, q_tile, hi).amin(-1)
+    kmin = _tile_fold(k_pos, kv_tile, hi).amin(-1)         # (B, nk)
+    dead = qmin < k_pos.amin(-1, keepdim=True)
+    return (qmax[:, None, :] >= kmin[:, :, None]) | dead[:, None, :]

@@ -159,3 +159,124 @@ def test_lse_matches_the_reference_logsumexp(case, dtype):
     np.testing.assert_allclose(got, want, rtol=LSE_TOL, atol=LSE_TOL)
     if case == "no_key_rows":
         assert (got[:, :, :5] == np.float32(NEG_INF)).all()
+
+
+# ---- the bf16 backward's tile lists under the position mask ---------------- #
+
+def _vlm_t(s, patches=256, side=16):
+    """Qwen2-VL's temporal positions: ``patches`` patches at t = 0, then
+    the text rising from ``side``."""
+    i = np.arange(s)
+    return np.where(i < patches, 0, side + i - patches)
+
+
+def _tile_case(case):
+    """numpy q, k, v, go (f32), int32 positions (q_pos, k_pos) and the tile
+    sizes (q_tile, kv_tile) of a case: the ``CASES`` positions at small
+    tiles, Qwen2-VL's layout at the kernel's tiles, and positions that leave
+    the whole second 64-row q tile without a key while no kept pair reaches
+    the last kv tile."""
+    r = np.random.default_rng(len(case))
+    if case in ("position", "no_key_rows"):
+        (q, k, v, go), (qp, kp), _ = _inputs(case, seed=len(case))
+        return (q, k, v, go), (qp, kp), (8, 16)
+    b, s, h, kvh, d = 1, 640, 4, 2, 16
+    qp = np.broadcast_to(_vlm_t(s, patches=128), (b, s)).copy()
+    kp = qp.copy()
+    if case == "dead_tile":
+        qp[:, 64:128] = -1                  # below every k position
+        kp[:, 512:] = 10 ** 6               # above every q position
+    q, go = (r.normal(size=(b, s, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (r.normal(size=(b, s, kvh, d)).astype(np.float32)
+            for _ in range(2))
+    return (q, k, v, go), (qp.astype(np.int32), kp.astype(np.int32)), \
+        (64, 128)
+
+
+def _backward_over_tiles(q, k, v, go, q_pos, k_pos, visits, q_tile,
+                         kv_tile):
+    """(dq, dk, dv) f32 by the backward kernel's formulas (P from the
+    masked softmax, a row with no key averaging every key; dS = P o (dP -
+    Delta), 0 off the mask), dK and dV summed over the (q tile, kv tile)
+    pairs ``visits`` lists only, dQ over every pair."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d ** -0.5
+    qg = q.reshape(b, sq, kvh, g, d)
+    dog = go.reshape(b, sq, kvh, g, d)
+    keep = q_pos[:, None, None, :, None] >= k_pos[:, None, None, None, :]
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * scale
+    p = torch.softmax(torch.where(keep, s, fa_ref.NEG_INF), -1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v)
+    delta = (dog.permute(0, 2, 3, 1, 4) * o).sum(-1, keepdim=True)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v)
+    ds = torch.where(keep, p * (dp - delta), 0.0)
+    pair = visits[:, torch.arange(sk) // kv_tile][
+        :, :, torch.arange(sq) // q_tile].transpose(1, 2)   # (B, Sq, Sk)
+    pair = pair[:, None, None]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p * pair, dog)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds * pair, qg) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k).reshape(b, sq, h, d) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("case", ["position", "no_key_rows", "qwen2_vl",
+                                  "dead_tile"])
+def test_kv_tile_visits_keep_the_whole_backward(case):
+    """The backward restricted to the (q tile, kv tile) pairs that
+    ``ref.kv_tile_visits`` lists equals ``plain_backward`` (autograd of the
+    plain attention) within the f32 tolerance: no pair it leaves out adds
+    to dK or dV, also where a row keeps no key (it adds 1 / Sk . dO to every
+    kv row's dV) and under Qwen2-VL's patches, where it leaves out tiles
+    (random repeated positions reach every tile)."""
+    (q, k, v, go), (qp, kp), (qt, kt) = _tile_case(case)
+    q, k, v, go = (torch.from_numpy(a) for a in (q, k, v, go))
+    qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
+    visits = fa_ref.kv_tile_visits(qp, kp, q_tile=qt, kv_tile=kt)
+    assert visits.shape == (q.shape[0], -(-k.shape[1] // kt),
+                            -(-q.shape[1] // qt))
+    if case in ("qwen2_vl", "dead_tile"):
+        assert not bool(visits.all())      # some pairs left out
+    got = _backward_over_tiles(q, k, v, go, qp, kp, visits, qt, kt)
+    want = fa.plain_backward(q, k, v, go, causal=True, q_pos=qp, k_pos=kp)
+    _close([g.numpy() for g in got], [w.numpy() for w in want],
+           GRAD_REL["float32"])
+
+
+def test_a_kv_tile_no_pair_reaches_still_visits_a_dead_row_tile():
+    """Where a whole q tile keeps no key and no kept pair reaches the last
+    kv tile, that kv tile visits the dead tile alone, and leaving the dead
+    tile out of the lists changes dV: the kv tile's dV would be 0 where
+    it is 1 / Sk of the dead rows' dO summed."""
+    (q, k, v, go), (qp, kp), (qt, kt) = _tile_case("dead_tile")
+    q, k, v, go = (torch.from_numpy(a) for a in (q, k, v, go))
+    qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
+    visits = fa_ref.kv_tile_visits(qp, kp, q_tile=qt, kv_tile=kt)
+    assert visits[0, -1].nonzero().flatten().tolist() == [1]
+    assert bool(visits[0, :, 1].all())
+    full = _backward_over_tiles(q, k, v, go, qp, kp, visits, qt, kt)
+    short = visits.clone()
+    short[:, :, 1] = False
+    cut = _backward_over_tiles(q, k, v, go, qp, kp, short, qt, kt)
+    dv, dv_cut = full[2], cut[2]
+    assert float(dv_cut[:, 512:].abs().max()) == 0.0
+    sk, g = k.shape[1], q.shape[2] // k.shape[2]
+    dead_share = go[:, 64:128].reshape(1, 64, k.shape[2], g, -1).sum(
+        (1, 3)) / sk
+    torch.testing.assert_close(dv[:, 512:], dead_share[:, None].expand_as(
+        dv[:, 512:]), rtol=1e-5, atol=1e-6)
+    assert float((dv - dv_cut).abs().max()) > 1e-3 * float(dv.abs().max())
+
+
+@pytest.mark.parametrize("d,want", [(16, (64, 128)), (64, (64, 128)),
+                                    (80, (64, 128)), (96, (64, 64)),
+                                    (128, (64, 64))])
+def test_backward_steps_follow_the_head_dim(d, want):
+    """The rows a step of the bf16 backward streams: 64 q rows past a dK /
+    dV block's kv tile, and past a dQ block's q tile 128 kv rows up to D
+    80, 64 above (what fits a consumer's registers); the f32 route's 64
+    and 64 at every D."""
+    assert fa.backward_steps(torch.bfloat16, d) == want
+    assert fa.backward_steps(torch.float32, d) == (64, 64)

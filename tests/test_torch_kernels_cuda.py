@@ -1702,8 +1702,10 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, d, form,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("form", ["causal", "position", "cross"])
 def test_flash_attention_backward_kernel_is_deterministic(cuda, dtype, form):
-    """No atomics and no split sums across blocks: two backward calls on the
-    same inputs give the same bits (GQA 4, ragged tiles)."""
+    """No atomics, and where a GQA group's q heads take dK / dV blocks of
+    their own (bf16), their shares are summed in the group's order: two
+    backward calls on the same inputs give the same bits (GQA 4, ragged
+    tiles)."""
     sk = 333 if form == "cross" else 517
     q, k, v, go, kw = _bwd_inputs(cuda, 2, 517, sk, 8, 2, 128, dtype, form,
                                   seed=9)
@@ -2047,3 +2049,161 @@ def test_launchers_start_and_destroy_a_one_rank_nccl_group(cuda, tmp_path,
     for d in ("d", "p"):
         got, _ = checkpoint.restore(tmp_path / d, params)
         assert all(torch.equal(got[n], params[n]) for n in params), d
+
+
+# ---- B7's bf16 backward (wgmma, TMA ring): its shapes and tile lists ------ #
+
+def _bwd_positions(pattern, s, cuda):
+    """(q_pos, k_pos) int32 (1, s) on the card: Qwen2-VL's layout (256
+    patches at one t, the text rising after them), or that layout with the
+    second 64-row q tile below every k position (its rows keep no key) and
+    the last 128-row kv tile above every q position (no kept pair reaches
+    it: its dV is the dead rows' 1 / Sk share alone)."""
+    qp = _vlm_t(s, 256).copy()
+    kp = qp.copy()
+    if pattern == "dead_tile":
+        qp[64:128] = -1
+        kp[(s - 1) // 128 * 128:] = 10 ** 6
+    return tuple(_i32(a[None], cuda) for a in (qp, kp))
+
+
+def _bwd_against_plain(cuda, b, sq, sk, h, kvh, d, form, seed, pos=None):
+    q, k, v, go, kw = _bwd_inputs(cuda, b, sq, sk, h, kvh, d, torch.bfloat16,
+                                  form, seed=seed)
+    if pos is not None:
+        kw.update(q_pos=pos[0], k_pos=pos[1])
+    o, lse = _forward_with_lse(q, k, v, kw)
+    before = dict(_build.LAUNCHES)
+    got = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c == "flash_attention_bwd_tc") for c in before}
+    want = fa.plain_backward(q, k, v, go, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _grads_close(got, want, torch.bfloat16)
+    return got, want
+
+
+@pytest.mark.parametrize("group", [1, 3])
+def test_flash_attention_bf16_backward_at_d80_full_length(cuda, group):
+    """stablelm-3b's head dim (dK, dV and dQ on wgmma's n80 shape, the
+    second 64-column box read in part) at its training length, 4,096,
+    causal, GQA 1 and 3: every step of the causal schedule, the heaviest
+    tiles first, within ``GRAD_TOL``."""
+    _bwd_against_plain(cuda, 1, 4096, 4096, 2 * group, 2, 80, "causal",
+                       seed=80 + group)
+
+
+@pytest.mark.parametrize("s", [1000, 4096])
+def test_flash_attention_bf16_backward_by_qwen2_vl_positions(cuda, s):
+    """Masked by Qwen2-VL's positions (256 patches at one t, then text), as
+    its training step runs it (GQA 7, D 128): dQ over the forward's kv tile
+    lists, dK / dV over their transpose, which leaves out the q tiles of
+    the patches for the text's kv tiles."""
+    pos = _bwd_positions("qwen2_vl", s, cuda)
+    visits = fa_ref.kv_tile_visits(*pos)
+    assert not bool(visits.all())
+    _bwd_against_plain(cuda, 1, s, s, 7, 1, 128, "causal", seed=s, pos=pos)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_backward_dead_q_tile(cuda, d):
+    """A whole 64-row q tile keeps no key (each of its rows averages every
+    key) and no kept pair reaches the last kv tile: that tile's dK / dV
+    block still visits the dead q tile, so its dV is the dead rows' 1 / Sk
+    share of dO, as ``plain_backward`` has it."""
+    s = 1000
+    pos = _bwd_positions("dead_tile", s, cuda)
+    visits = fa_ref.kv_tile_visits(*pos)
+    assert visits[0, -1].nonzero().flatten().tolist() == [1]
+    got, want = _bwd_against_plain(cuda, 1, s, s, 4, 2, d, "causal",
+                                   seed=d, pos=pos)
+    assert float(want[2][:, (s - 1) // 128 * 128:].float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("form,sq,sk", [("causal", 1003, 1003),
+                                        ("causal", 6, 6),
+                                        ("cross", 1003, 61),
+                                        ("cross", 21, 1003)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_backward_rows_off_a_16_byte_stride(cuda, form,
+                                                                 sq, sk, d):
+    """Sq % 4 != 0: the (B, H, Sq) f32 rows of lse and Delta start off a
+    16-byte mark for most heads, which the producer's plain loads take."""
+    _bwd_against_plain(cuda, 2, sq, sk, 6, 2, d, form, seed=sq + sk + d)
+
+
+def test_flash_attention_bf16_backward_is_deterministic_at_granite_moe(cuda):
+    """Two backward calls at granite-moe's training shape (1 x 4,096 x 24
+    x 64, GQA 3, causal) give the same bits: each output is written by one
+    block, whose sums run in a fixed order."""
+    q, k, v, go, kw = _bwd_inputs(cuda, 1, 4096, 4096, 24, 8, 64,
+                                  torch.bfloat16, "causal", seed=3)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    first = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    second = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_backward_on_a_thread_without_cuda_calls(cuda):
+    """The backward's first call on a thread that has made no CUDA call
+    (autograd's worker, when the attention's backward is its first op)
+    encodes its tensor maps all the same: the kernel binds the data's
+    device first."""
+    import threading
+    q, k, v, go, kw = _bwd_inputs(cuda, 2, 300, 300, 8, 2, 64,
+                                  torch.bfloat16, "causal", seed=5)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    want = fa.plain_backward(q, k, v, go, **kw)
+    got = {}
+
+    def run():
+        try:
+            got["grads"] = fa._launch_backward(go, q, k, v, o, lse, **kw)
+            torch.cuda.synchronize()
+        except Exception as e:               # reported below
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    _grads_close(got["grads"], want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("form,sq,sk", [("causal", 517, 517),
+                                        ("position", 300, 300),
+                                        ("cross", 37, 1003)])
+@pytest.mark.parametrize("d,group", [(64, 3), (80, 7), (128, 7)])
+def test_flash_attention_bf16_backward_group_loop_and_split(
+        cuda, monkeypatch, split, form, sq, sk, d, group):
+    """Both ways of the bf16 backward's dK / dV with GQA, whichever
+    ``_splits_group`` would pick at this shape: a block a kv head looping
+    over its group, or a block a q head with the group's f32 shares summed
+    in order after; each within ``GRAD_TOL`` of ``plain_backward``, and
+    two calls give the same bits."""
+    monkeypatch.setattr(fa, "_splits_group", lambda *a: split)
+    got, _ = _bwd_against_plain(cuda, 2, sq, sk, 2 * group, 2, d, form,
+                                seed=sq + d + group)
+    q, k, v, go, kw = _bwd_inputs(cuda, 2, sq, sk, 2 * group, 2, d,
+                                  torch.bfloat16, form, seed=sq + d + group)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    again = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_backward_splits_only_a_short_grid(cuda):
+    """The split is taken where the group loop's dK / dV blocks are fewer
+    than the card's SMs (qwen2-vl's 4 kv heads at 4,096), not where they
+    fill it (granite-moe's 8 kv heads) nor without GQA."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows = fa.BACKWARD_BLOCKS["tc"][1]
+    assert fa._splits_group(cuda, 1, 28, 4, 4096) == (4 * 32 < sms)
+    assert fa._splits_group(cuda, 1, 24, 8, 4096) == (8 * 32 < sms)
+    assert not fa._splits_group(cuda, 1, 32, 32, 128)
+    assert fa._splits_group(cuda, 1, 8, 2, rows)

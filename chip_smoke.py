@@ -204,7 +204,14 @@ Phases, each of which must pass or the script exits non-zero:
    backward kernel is held against ``plain_backward`` (two calls
    bit-identical) and timed beside SDPA's backward at stablelm-3b's,
    granite-moe's (GQA 3) and qwen2-vl's (by position) training shapes and
-   whisper's encoder and cross-attention, in bf16 and in f32;
+   whisper's encoder and cross-attention, in bf16 and in f32; B8's
+   backward kernel is held against ``plain_backward`` (in f64 for f32
+   inputs; each gradient within ``SSD_GRAD_TOL`` of its largest
+   magnitude, two calls bit-identical) and timed, pass by pass, beside
+   its bound and the plain version at mamba2-780m's training shape (bf16,
+   4 x 4,096), at jamba's widths (bf16, 4 x 4,096: logged, not listed,
+   as no card path trains jamba) and at the f32 check's shape (f32,
+   1 x 256);
 15. train: LM training.  stablelm-3b (32 layers, 2.80 B params, B7 bf16
    at D 80, batch 1) and mamba2-780m (48 layers, B8's tensor cores,
    batch 4) at full width and depth through ``launch.train.train`` at
@@ -212,18 +219,19 @@ Phases, each of which must pass or the script exits non-zero:
    what one card holds beside the AdamW state), 6 AdamW steps on one
    repeated batch: finite, falling loss, finite norms, exactly 2 B7 / B8
    launches a mixer layer a step (the forward and the checkpoint's
-   recompute) and one call of B7's backward kernel an attention layer a
-   step, the warm step median and the first, tokens/s, 6 N tokens over
-   step time against 989 TFLOP/s, peak memory, and one more step
-   profiled with the device time of B7's backward kernel and of B8's
-   plain backward (``SSDScanFn`` recomputes the plain version), after
-   which every parameter's gradient must be non-zero; one AdamW
+   recompute) and one call of B7's and of B8's backward kernel an
+   attention or Mamba layer a step, the warm step median and the first,
+   tokens/s, 6 N tokens over step time against 989 TFLOP/s, peak memory,
+   and one more step profiled with the device time of B7's and B8's
+   backward kernels (by name), no device time under B8's former plain
+   backward's label, after which every parameter's gradient must be
+   non-zero; one AdamW
    step of granite-moe-3b-a800m, qwen2-vl-7b and whisper-large-v3 at 2
    layers and full width (B7's backward once an attention layer), every
    gradient non-zero; the loss and every
    gradient of 2-layer f32 copies of stablelm-3b and mamba2-780m on the
-   card against the CPU's plain autograd (``TRAIN_LOSS_TOL``,
-   ``TRAIN_GRAD_TOL``); why jamba-v0.1-52b trains only on the CPU; and
+   card (B7's and B8's f32 backward kernels once a layer) against the
+   CPU's plain autograd (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``); why jamba-v0.1-52b trains only on the CPU; and
    checkpoints: ``run_with_restarts`` with an injected failure and
    ``train(..., ckpt_dir=)`` run twice, each equal to an uninterrupted
    run bit for bit.  Phases 14 and 15 also time, in turns in one process,
@@ -408,6 +416,12 @@ ATTN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # a bf16 y is one rounding of such an f32 value (2**-6 covers one ulp)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSD_BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+# B8's backward kernel against plain_backward, of each gradient's largest
+# magnitude: f32 sums in another order (the plain version in f64: under
+# strong decays the f32 one's cumsum of the log-decays costs it 1e-5 to
+# 2e-4 of a gradient); in bf16 the kernel splits its f32 operands in two
+# and rounds dx, db and dc
+SSD_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # bf16 models on two paths: every bf16 product rounds on its own path
 # (cuBLAS picks other tilings for a 1-token decode than for a prefill, the
 # CPU sums in another order), and a flipped rounding travels through 32-48
@@ -1018,7 +1032,19 @@ def spread(warm) -> str:
             f"{len(warm)} runs")
 
 
-def profile_once(run, top: int = 5, labels=(), kernels=()) -> str:
+def _kernel_name(key: str) -> str:
+    """A kernel's function name from its profiler key, with its first
+    template argument where that is true or false (the SSD's shared
+    passes, which the backward runs for R and to rebuild the states)."""
+    head = key.replace("(anonymous namespace)", "").split("(")[0]
+    name = head.split("<")[0].split("::")[-1].split()[-1]
+    first = head.split("<", 1)[1].split(",")[0].strip(" >") \
+        if "<" in head else ""
+    return name + (f"<{first}>" if first in ("true", "false") else "")
+
+
+def profile_once(run, top: int = 5, labels=(), kernels=(),
+                 require=()) -> str:
     """One more warm run under ``torch.profiler``: the device's busy time
     (the sum of kernel and copy self times) against the run's wall time,
     and the kernels that took most of it; with ``labels`` (profiler
@@ -1026,7 +1052,9 @@ def profile_once(run, top: int = 5, labels=(), kernels=()) -> str:
     torch ops run under each; with ``kernels`` ((range, substring)
     pairs), the device self time of the kernels whose names hold the
     substring (a kernel launched through ctypes runs under no torch op, so
-    its range's own count shows none of its time).  A range also shows as
+    its range's own count shows none of its time); ``require`` names those
+    ranges of ``kernels`` whose kernels must show device time (it raises
+    if one shows none).  A range also shows as
     a device-side span (its first kernel to its last, gaps included),
     which the busy time leaves out.  The profiler's own cost lengthens the wall
     time, so the idle share is an upper bound."""
@@ -1059,10 +1087,13 @@ def profile_once(run, top: int = 5, labels=(), kernels=()) -> str:
     for label, sub in kernels:
         mine = [e for e in dev if sub in e.key]
         us = sum(e.self_device_time_total for e in mine)
+        if label in require and us <= 0:
+            raise AssertionError(f"profile: no device time in {label}'s "
+                                 f"kernels ({sub})")
         parts += (f"{label} kernels {us / 1e3:.1f} ms device over "
                   f"{sum(e.count for e in mine)} launches ({us / busy_us:.1%} "
                   "of busy: " + ", ".join(
-                      f"{e.key.split(sub, 1)[1].split('<')[0][:24]} "
+                      f"{_kernel_name(e.key)[:24]} "
                       f"{e.self_device_time_total / 1e3:.1f}" for e in mine)
                   + "); ")
     return (f"profile: device busy {busy_us / 1e3:.3f} ms of "
@@ -3011,7 +3042,9 @@ def phase_lm_kernels(dev):
     bf16 prefill and the f32 check's batch of one (and mamba2-780m's
     training step, bf16, 4 x ``TRAIN_SEQ``), against their plain
     versions, timed (B8 also pass by pass); then B7's backward kernel at
-    the training shapes (``b7_bwd_row``).  Returns the 36 JSON rows; a
+    the training shapes (``b7_bwd_row``) and B8's (``b8_bwd_row``: bf16
+    at mamba2-780m's training step and, logged only, at jamba's widths;
+    f32 at the f32 check's step).  Returns the 38 JSON rows; a
     row's ``counted_in`` names the run of ``phase_lm`` or ``phase_train``
     whose launches it reports, and its ``counter`` the counter of the
     route its inputs take."""
@@ -3353,6 +3386,94 @@ def phase_lm_kernels(dev):
                        f32_run or f"{arch} train",
                        causal=form in ("causal", "position"), **pos)
 
+    def b8_bwd_row(name, arch, bsz, s_len, dtype, counted_in):
+        """One row of B8's backward kernel (``_scan_backward``, its five
+        passes) against ``plain_backward`` on the same inputs, in f64 for
+        f32 inputs, each gradient within ``SSD_GRAD_TOL`` of its largest
+        magnitude and finite, two calls bit-identical; timed by CUDA
+        events, pass by pass too, beside its bound (x, gy, dt, b and c read
+        once, dx, ddt, db and dc written once; ``ssd_flops(backward=True)``
+        operations) and the plain version.  Mamba-2's init ranges, the
+        final state's gradient absent (the model reads y only).  With
+        ``counted_in`` None (widths that no card path trains at) the row
+        is checked, timed and logged, but not listed."""
+        cfg = get_arch(arch)
+        nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+            cfg.ssm_state
+        args = (randn(bsz, s_len, nh, hd, dtype=dtype),
+                uniform(0.001, 0.1, bsz, s_len, nh),
+                torch.log(uniform(1.0, 16.0, nh)),
+                randn(bsz, s_len, ng, ds, dtype=dtype),
+                randn(bsz, s_len, ng, ds, dtype=dtype),
+                randn(nh, dtype=torch.float32))
+        gy = randn(bsz, s_len, nh, hd, dtype=dtype)
+        tname = str(dtype).split(".")[-1]
+        rt = ssd_kernels.route(dtype, hd, ds)
+        got = ssd_kernels._scan_backward(*args, gy, None, 128)
+        again = ssd_kernels._scan_backward(*args, gy, None, 128)
+        exact = dtype == torch.float32
+        want = ssd_kernels.plain_backward(
+            *(t.double() if exact else t for t in args),
+            gy.double() if exact else gy, None)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward calls differ")
+        err, worst = 0.0, 0.0
+        for g, w, which in zip(got, want, ("dx", "ddt", "da_log", "db",
+                                           "dc", "dd_skip")):
+            e = float((g.double() - w.double()).abs().max())
+            scale = float(w.double().abs().max())
+            if not (bool(torch.isfinite(g).all())
+                    and e <= SSD_GRAD_TOL[tname] * scale):
+                raise AssertionError(
+                    f"{name} ({tname}): {which} differs from plain_backward"
+                    f" by {e} > {SSD_GRAD_TOL[tname]} x {scale}")
+            err, worst = max(err, e), max(worst, e / scale)
+        del got, again, want
+        bufs = ssd_kernels.backward_buffers(args[0], args[3], 128)
+        pass_ms = {p: time_ms(lambda p=p: ssd_kernels.run_backward_passes(
+            *args, gy, None, bufs=bufs, passes=(p,)))
+            for p in ssd_kernels.BACKWARD_PASSES}
+        del bufs
+        x, dt, b = args[0], args[1], args[3]
+        size = x.element_size()
+        row = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_bwd.cu",
+            replaces="src/repro/models/mamba.py:70", max_abs_err=err,
+            ms=time_ms(lambda: ssd_kernels._scan_backward(*args, gy, None,
+                                                          128)),
+            plain_ms=time_ms(lambda: ssd_kernels.plain_backward(*args, gy,
+                                                                None),
+                             reps=3, warmup=1),
+            library_ms=None,
+            # x, gy, b, c, dt (and a_log, d_skip) read once; dx, db, dc,
+            # ddt (and da_log, dd_skip) written once
+            bytes=size * (3 * x.numel() + 4 * b.numel())
+            + 4 * (2 * dt.numel() + 4 * nh),
+            ops=ssd_kernels.ssd_flops(tuple(x.shape), tuple(b.shape), 128,
+                                      backward=True),
+            ops_type="bf16" if rt == "tc" else "f32",
+            counted_in=counted_in,
+            counter=ssd_kernels.BACKWARD_COUNTER[rt],
+            shape=f"{arch}: x=({bsz}, {s_len}, {nh}, {hd}) {tname}, dt f32, "
+                  f"b, c=({bsz}, {s_len}, {ng}, {ds}) {tname}, chunk 128, "
+                  f"gh absent, backward on the {rt} route")
+        log(f"  {name} passes: " + ", ".join(
+            f"{p} {ms:.4f} ms" for p, ms in pass_ms.items())
+            + f" (sum {sum(pass_ms.values()):.4f})")
+        finish_row(row, agree=f"{tname} max abs err {err:.3e}, worst "
+                   f"{worst:.2e} of a gradient's largest magnitude (bound "
+                   f"{SSD_GRAD_TOL[tname]}"
+                   + (", against f64" if exact else "")
+                   + "); two calls bit-identical")
+        if counted_in is None:
+            log(f"  {name}: no card path trains at these widths (jamba "
+                "trains on the CPU only), so it has no launches to report: "
+                "logged, not listed")
+        else:
+            rows.append(row)
+
     # the served prefills (bf16, batch 4) take the tensor-core route; the
     # f32 teacher-forced check's prefill (batch 1) the CUDA-core route; the
     # training step (phase `train`) the tensor-core route at TRAIN_SEQ
@@ -3440,6 +3561,18 @@ def phase_lm_kernels(dev):
                    "launches bit-identical")
         del y, hf, args, xx, bb
         torch.cuda.empty_cache()
+
+    # B8's backward: the tensor-core route at mamba2-780m's training step
+    # and at jamba's widths, the CUDA-core route at the f32 check's step
+    for name, arch, bsz, s_len, dtype, counted_in in (
+            ("ssd_bwd_tc_train", "mamba2-780m", TRAIN_FULL["mamba2-780m"],
+             TRAIN_SEQ, torch.bfloat16, "mamba2-780m train"),
+            ("ssd_bwd_tc_jamba", "jamba-v0.1-52b", LM_BATCH, TRAIN_SEQ,
+             torch.bfloat16, None),
+            ("ssd_bwd", "mamba2-780m", 1, TRAIN_CHECK_LEN, torch.float32,
+             "mamba2-780m f32 train check")):
+        b8_bwd_row(name, arch, bsz, s_len, dtype, counted_in)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3477,16 +3610,18 @@ def _mixers(cfg):
 
 
 def _expect_launches(label, counts, cfg, per_layer, b7, b8, b7_bwd=None,
-                     steps=0):
+                     steps=0, b8_bwd=None):
     """One ``b7`` launch per attention layer and one ``b8`` launch per
-    Mamba layer, ``per_layer`` times (one a prefill); with ``b7_bwd``, also
-    one call of B7's backward kernel per attention layer a training step,
-    ``steps`` times."""
+    Mamba layer, ``per_layer`` times (one a prefill); with ``b7_bwd`` and
+    ``b8_bwd``, also one call of B7's and of B8's backward kernel per
+    attention and per Mamba layer a training step, ``steps`` times."""
     n_attn, n_ssm = _mixers(cfg)
     got = {b7: counts[b7], b8: counts[b8]}
     want = {b7: per_layer * n_attn, b8: per_layer * n_ssm}
     if b7_bwd is not None:
         got[b7_bwd], want[b7_bwd] = counts[b7_bwd], steps * n_attn
+    if b8_bwd is not None:
+        got[b8_bwd], want[b8_bwd] = counts[b8_bwd], steps * n_ssm
     if got != want:
         raise AssertionError(f"{label}: launches {got}, want {want} "
                              f"({n_attn} attention and {n_ssm} Mamba layers, "
@@ -3958,9 +4093,10 @@ def _train_full(dev, arch, batch, seed):
     ``TRAIN_STEPS`` AdamW steps on one repeated batch of ``batch`` x
     ``TRAIN_SEQ`` tokens, finite and falling loss, finite norms, two
     launches a mixer layer a step (the forward and the checkpoint's
-    recompute) and one call of B7's backward kernel an attention layer a
-    step; then one more step profiled (the device time under the backward
-    kernel's label and under the SSD's plain backward's), after which
+    recompute) and one call of B7's and of B8's backward kernel an
+    attention or Mamba layer a step; then one more step profiled (the
+    device time of each backward's kernels, summed by name; the step fails
+    if any op runs under B8's former plain backward's label), after which
     every parameter's gradient must be non-zero.  Returns the
     launches."""
     import torch
@@ -3988,7 +4124,7 @@ def _train_full(dev, arch, batch, seed):
     label = f"{arch} train"
     _expect_launches(label, counts, cfg, 2 * TRAIN_STEPS,
                      "flash_attention_tc", "ssd_tc", "flash_attention_bwd_tc",
-                     TRAIN_STEPS)
+                     TRAIN_STEPS, "ssd_bwd_tc")
     steps = stats["steps"]
     if not all(np.isfinite([st["loss"], st["grad_norm"]]).all()
                for st in steps):
@@ -4024,8 +4160,11 @@ def _train_full(dev, arch, batch, seed):
         log("    " + _step_turns(dev, cfg, mb, model, opt, state, batch_))
     log("    one more step " + profile_once(
         lambda: step(state, batch_), top=4,
-        labels=(ssd_kernels.PLAIN_BACKWARD,),
-        kernels=((fa.BACKWARD, "bwd::"),)))
+        kernels=((fa.BACKWARD, "bwd::"),
+                 (ssd_kernels.BACKWARD, ssd_kernels.BACKWARD_KERNELS)),
+        require=tuple(rng for rng, counter in (
+            (fa.BACKWARD, "flash_attention_bwd_tc"),
+            (ssd_kernels.BACKWARD, "ssd_bwd_tc")) if counts.get(counter))))
     # that step's first moment m is 0.1 x the clipped gradient
     dead = [n for n, t in state["m"].items() if not bool(t.any())]
     if dead:
@@ -4103,7 +4242,7 @@ def _train_cut(dev, arch, seed):
     counts = dict(_build.LAUNCHES)
     label = f"{arch} train (2 layers)"
     _expect_launches(label, counts, cfg, 2, "flash_attention_tc", "ssd_tc",
-                     "flash_attention_bwd_tc", 1)
+                     "flash_attention_bwd_tc", 1, "ssd_bwd_tc")
     m = {k: float(v) for k, v in metrics.items()}
     if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
         raise AssertionError(f"{label}: non-finite metrics {m}")
@@ -4131,8 +4270,8 @@ def _train_card_vs_cpu(dev, arch, seed):
     the CPU (plain autograd), over ``TRAIN_CHECK_LEN`` tokens: loss within
     ``TRAIN_LOSS_TOL``, each gradient within ``TRAIN_GRAD_TOL`` of its
     leaf's largest magnitude, each non-zero on the card; B7 / B8 launched
-    twice a layer and B7's backward kernel once an attention layer.
-    Returns the card's launches."""
+    twice a layer and B7's and B8's backward kernels once an attention or
+    Mamba layer.  Returns the card's launches."""
     import dataclasses
 
     import torch
@@ -4164,7 +4303,7 @@ def _train_card_vs_cpu(dev, arch, seed):
     label = f"{arch} (2 layers, f32) train"
     _expect_launches(label + " on the card", out["card"][2], cfg, 2,
                      "flash_attention_f32", "ssd", "flash_attention_bwd_f32",
-                     1)
+                     1, "ssd_bwd")
     loss_card, loss_cpu = out["card"][0], out["cpu"][0]
     if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_TOL * abs(loss_cpu):
         raise AssertionError(f"{label}: loss {loss_card} on the card, "

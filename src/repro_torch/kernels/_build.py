@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("selection", "join", "sgd", "bandwidth", "flash_attention",
-           "flash_attention_bwd", "ssd")
+           "flash_attention_bwd", "ssd", "ssd_bwd")
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _F32 = ctypes.c_float
@@ -97,6 +97,14 @@ SIGNATURES = {
     # mode, hd, ds, chunk, blocks (int32[3]), smem (int32[3])
     "ssd_occupancy": ("ssd", (_I32, _I32, _I32, _I32, ctypes.POINTER(_I32),
                               ctypes.POINTER(_I32))),
+    # x, dt, a_log, b, c, d_skip, gy, gh (null: zero), the scratch (states,
+    # decay, dstates, db_part, dc_part, dalog_part, dd_part), dx, ddt,
+    # da_log, db, dc, dd_skip, bsz, seq, nh, hd, ng, ds, chunk, mode,
+    # passes, stream
+    "ssd_bwd": ("ssd_bwd", (_P,) * 21 + (_I32,) * 9 + (_P,)),
+    "ssd_bwd_occupancy": ("ssd_bwd", (_I32, _I32, _I32, _I32,
+                                      ctypes.POINTER(_I32),
+                                      ctypes.POINTER(_I32))),
 }
 
 # Kernel launches per wrapper and route, bumped only where a wrapper
@@ -106,8 +114,9 @@ SIGNATURES = {
 # ("sgd_split") routes, B7's bf16 ("flash_attention_tc") and f32
 # ("flash_attention_f32") tensor-core routes, B7's backward in each type
 # ("flash_attention_bwd_tc", "flash_attention_bwd_f32": one count a call
-# of its three or four launches) and B8's CUDA-core ("ssd") and tensor-core
-# ("ssd_tc") routes each have their own count.
+# of its three or four launches), B8's CUDA-core ("ssd") and tensor-core
+# ("ssd_tc") routes and B8's backward on each ("ssd_bwd", "ssd_bwd_tc":
+# one count a call of its passes) each have their own count.
 # ``chip_smoke.py`` zeroes these before driving the executor or the LM
 # server and reads them after.
 LAUNCHES: Dict[str, int] = {"select": 0, "select_f32": 0,
@@ -120,7 +129,7 @@ LAUNCHES: Dict[str, int] = {"select": 0, "select_f32": 0,
                             "flash_attention_f32": 0,
                             "flash_attention_bwd_tc": 0,
                             "flash_attention_bwd_f32": 0, "ssd": 0,
-                            "ssd_tc": 0}
+                            "ssd_tc": 0, "ssd_bwd": 0, "ssd_bwd_tc": 0}
 
 _lock = threading.Lock()
 _funcs: Dict[str, object] = {}

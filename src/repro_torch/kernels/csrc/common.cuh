@@ -219,6 +219,17 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// Makes the context of the device that holds `p` current on this thread.
+// cuTensorMapEncodeTiled is a driver call and fails on a thread that has
+// made no CUDA call yet (autograd's backward worker, when an attention's
+// backward is its first op; any fresh thread whose first op is a launch),
+// so every launcher that encodes tensor maps calls this first.
+inline cudaError_t bind_device(const void* p) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, p);
+  return err != cudaSuccess ? err : cudaSetDevice(attr.device);
+}
+
 // The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;

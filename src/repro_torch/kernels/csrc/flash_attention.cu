@@ -159,12 +159,16 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Encodes the three maps (q at Sq rows, k and v at Sk) and launches
+// Makes q's device current on this thread (bind_device: the first CUDA
+// call of a fresh thread may be this launch), encodes the three maps (q
+// at Sq rows, k and v at Sk) and launches
 // `kernel` over B * H * ceil(Sq / br) blocks of `threads` with `smem`
 // bytes of dynamic shared memory.
 template <typename Kernel, typename Out>
 int launch_tiled(Kernel kernel, bool bf16, int br, int bc, int threads,
                  int smem, int32_t d, const Args& a) {
+  const cudaError_t bound = bind_device(a.q);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;

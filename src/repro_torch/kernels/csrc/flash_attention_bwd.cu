@@ -94,7 +94,8 @@
 //   A block asks for at least 116 KB of shared memory, so no two share an
 //   SM (each setmaxnreg.inc needs the registers its own producer gives up).
 //   The launcher first makes the data's device current on the calling
-//   thread (`bind_device`): the tensor maps' encoder is a driver call.
+//   thread (`bind_device`, common.cuh): the tensor maps' encoder is a
+//   driver call.
 //   PERF.md keeps the times beside the bound.
 #include "common.cuh"
 
@@ -1051,16 +1052,6 @@ int launch(void (*kernel)(P...), int64_t blocks, int threads, int smem,
   }
   kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Makes the context of the device that holds `p` current on this thread.
-// cuTensorMapEncodeTiled is a driver call and fails on a thread that has
-// made no CUDA call yet, as autograd's backward worker has not when the
-// attention's backward is its first op.
-inline cudaError_t bind_device(const void* p) {
-  cudaPointerAttributes attr;
-  const cudaError_t err = cudaPointerGetAttributes(&attr, p);
-  return err != cudaSuccess ? err : cudaSetDevice(attr.device);
 }
 
 template <int D> struct Launch {

@@ -43,420 +43,19 @@
 //   * CUDA cores (f32, and bf16 at other widths): f32 FMAs on register
 //     tiles; pass 3 takes rows in tiles of 32 and streams b, c and H
 //     through shared memory in slices of 32 state columns.
+//   A chunk's cum is summed and kept in f32 (the gradient's in f64:
+//   ssd_common.cuh says why).
 //   Every sum runs in a fixed order with no atomics, so two launches on
 //   one input give the same bits.  The ragged last chunk is zero-padded
 //   (dt = 0 past S adds nothing), so any S >= 1 works.
-#include "common.cuh"
-
-#include <cuda_bf16.h>
-#include <math.h>
+#include "ssd_common.cuh"
 
 namespace {
 
+using namespace repro_torch::ssd;
 using repro_torch::kThreads;
-using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlice = 32;   // rows or state columns of a CUDA-core tile
-constexpr int kPad = 8;      // bf16 padding of a tensor-core tile's rows
 constexpr int kHalf = 64;    // rows of H a tensor-core pass 3 stages at once
-
-struct Shape {
-  int32_t bsz, seq, nh, hd, ng, ds, q, nc;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int V>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "n"(V)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-template <int V, typename T>
-__device__ __forceinline__ void stage_vec(T* dst, int dstride, const T* src,
-                                          int64_t sstride, int rows,
-                                          int valid, int width) {
-  const int per = width * static_cast<int>(sizeof(T)) / V;
-  for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
-    const int r = i / per, v = i % per;
-    char* d = reinterpret_cast<char*>(dst + r * dstride) + v * V;
-    if (r < valid) {
-      cp_async<V>(d, reinterpret_cast<const char*>(src + r * sstride) + v * V);
-    } else if (V == 16) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    } else if (V == 8) {
-      *reinterpret_cast<uint2*>(d) = make_uint2(0, 0);
-    } else {
-      *reinterpret_cast<uint32_t*>(d) = 0;
-    }
-  }
-}
-
-// Copy `rows` rows of `width` elements from global memory (row stride
-// `sstride` elements) into shared memory (row stride `dstride`); rows at
-// or past `valid` are zero-filled.  cp.async moves the widest of 16, 8 or
-// 4 bytes that every address allows; the caller waits on cp_async_wait_all.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int dstride, const T* src,
-                                      int64_t sstride, int rows, int valid,
-                                      int width) {
-  const uint64_t all = reinterpret_cast<uintptr_t>(src) | smem_addr(dst)
-                       | static_cast<uint64_t>(width * sizeof(T))
-                       | static_cast<uint64_t>(sstride * sizeof(T))
-                       | static_cast<uint64_t>(dstride * sizeof(T));
-  if (all % 16 == 0) {
-    stage_vec<16>(dst, dstride, src, sstride, rows, valid, width);
-  } else if (all % 8 == 0) {
-    stage_vec<8>(dst, dstride, src, sstride, rows, valid, width);
-  } else if (all % 4 == 0) {
-    stage_vec<4>(dst, dstride, src, sstride, rows, valid, width);
-  } else {
-    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
-      const int r = i / width, e = i % width;
-      dst[r * dstride + e] = r < valid ? src[r * sstride + e] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// The chunk a block of pass 1 or 3 owns: blocks of one (b, chunk) are
-// adjacent, so the heads of a group read its b and c tiles from L2.
-struct Chunk {
-  int bi, k, h, g, t0, len;
-  int64_t idx;                // (bi, h, k) in the scratch
-};
-
-__device__ __forceinline__ Chunk chunk_of(const Shape& sh) {
-  Chunk ch;
-  ch.h = blockIdx.x % sh.nh;
-  const int rest = blockIdx.x / sh.nh;
-  ch.k = rest % sh.nc;
-  ch.bi = rest / sh.nc;
-  ch.g = ch.h / (sh.nh / sh.ng);
-  ch.t0 = ch.k * sh.q;
-  ch.len = min(sh.q, sh.seq - ch.t0);
-  ch.idx = (static_cast<int64_t>(ch.bi) * sh.nh + ch.h) * sh.nc + ch.k;
-  return ch;
-}
-
-// dt of the chunk (zero past S) into dtv, and cum = the chunk's inclusive
-// cumsum of a_neg dt: a warp scan of each 32 values, then the totals of
-// the warps before.  Needs blockDim.x >= q; every pass sums in this order.
-__device__ __forceinline__ void chunk_cum(const float* dt, const Shape& sh,
-                                          const Chunk& ch, float a_neg,
-                                          float* dtv, float* cum,
-                                          float* wsum) {
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const float* dtc = dt + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * sh.nh
-                     + ch.h;
-  float v = 0.f;
-  if (tid < sh.q) {
-    dtv[tid] = tid < ch.len ? dtc[static_cast<int64_t>(tid) * sh.nh] : 0.f;
-    v = a_neg * dtv[tid];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += u;
-    }
-    if (lane == 31) wsum[w] = v;
-  }
-  __syncthreads();
-  if (tid < sh.q) {
-    for (int i = 0; i < w; ++i) v += wsum[i];
-    cum[tid] = v;
-  }
-  __syncthreads();
-}
-
-// ---- tensor-core helpers --------------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (v0, v1) as packed bf16 pairs hi = bf16(v) and lo = bf16(v - hi)
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
-}
-
-// Fragment lanes: an m16n8 accumulator holds rows g and g + 8, columns
-// 2 t and 2 t + 1; ldmatrix.x4 takes row rr of matrix qq from lane
-// 8 qq + rr.
-struct Lane {
-  int g, t, qq, rr;
-};
-
-__device__ __forceinline__ Lane lane_of() {
-  const int lane = threadIdx.x & 31;
-  return Lane{lane >> 2, lane & 3, lane >> 3, lane & 7};
-}
-
-// ---- pass 1: chunk states -------------------------------------------------
-
-// Shared: dt, cum and w = dt exp(cum_last - cum) (q floats each), 4 warp
-// totals, then the route's tiles.
-inline size_t states_cc_smem(int q, int hd, int ds, int size) {
-  return 4 * static_cast<size_t>(3 * q + 4)
-         + static_cast<size_t>(kSlice) * (hd + ds) * size;
-}
-
-inline size_t states_tc_smem(int q, int hd, int ds) {
-  return 4 * static_cast<size_t>(3 * q + 4)
-         + 2 * static_cast<size_t>(q) * (2 * (hd + kPad) + ds + kPad);
-}
-
-// The chunk's decay and w; returns the block's shared floats past them.
-__device__ __forceinline__ float* chunk_weights(
-    const float* dt, const float* a_log, float* decay, const Shape& sh,
-    const Chunk& ch, float* smem, float*& wv) {
-  float* dtv = smem;
-  float* cum = dtv + sh.q;
-  wv = cum + sh.q;
-  float* wsum = wv + sh.q;
-  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), dtv, cum, wsum);
-  const float last = cum[sh.q - 1];
-  for (int j = threadIdx.x; j < sh.q; j += blockDim.x)
-    wv[j] = dtv[j] * expf(last - cum[j]);
-  if (threadIdx.x == 0) decay[ch.idx] = expf(last);
-  __syncthreads();
-  return wsum + 4;
-}
-
-// Thread (w, lane) sums S[d][s] for d = 32 m + 4 w + r, s = lane + 32 k
-// over slices of 32 tokens; NC = ceil(hd / 32), ND = ceil(ds / 32).
-template <typename T, int NC, int ND>
-__global__ void __launch_bounds__(kThreads)
-states_cc(const T* __restrict__ x, const float* __restrict__ dt,
-          const float* __restrict__ a_log, const T* __restrict__ bm,
-          float* __restrict__ states, float* __restrict__ decay, Shape sh) {
-  extern __shared__ __align__(16) float smem[];
-  const Chunk ch = chunk_of(sh);
-  const int hd = sh.hd, ds = sh.ds;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
-  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
-  const T* xc = x + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
-                + static_cast<int64_t>(ch.h) * hd;
-  const T* bc = bm + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
-                + static_cast<int64_t>(ch.g) * ds;
-  float* wv;
-  T* xs = reinterpret_cast<T*>(chunk_weights(dt, a_log, decay, sh, ch, smem,
-                                             wv));   // [kSlice][hd]
-  T* bs = xs + kSlice * hd;                             // [kSlice][ds]
-
-  float acc[NC][4][ND];
-#pragma unroll
-  for (int m = 0; m < NC; ++m)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int k = 0; k < ND; ++k) acc[m][r][k] = 0.f;
-
-  for (int j0 = 0; j0 < ch.len; j0 += kSlice) {
-    const int n = min(kSlice, ch.len - j0);
-    __syncthreads();                    // the last slice is consumed
-    stage(xs, hd, xc + j0 * x_row, x_row, n, n, hd);
-    stage(bs, ds, bc + j0 * b_row, b_row, n, n, ds);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int jj = 0; jj < n; ++jj) {
-      const float wj = wv[j0 + jj];
-      float xv[NC][4], bv[ND];
-#pragma unroll
-      for (int m = 0; m < NC; ++m)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int d = 32 * m + 4 * w + r;
-          xv[m][r] = d < hd ? to_f32(xs[jj * hd + d]) * wj : 0.f;
-        }
-#pragma unroll
-      for (int k = 0; k < ND; ++k) {
-        const int s = lane + 32 * k;
-        bv[k] = s < ds ? to_f32(bs[jj * ds + s]) : 0.f;
-      }
-#pragma unroll
-      for (int m = 0; m < NC; ++m)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int k = 0; k < ND; ++k)
-            acc[m][r][k] = fmaf(xv[m][r], bv[k], acc[m][r][k]);
-    }
-  }
-  float* out = states + ch.idx * hd * ds;
-#pragma unroll
-  for (int m = 0; m < NC; ++m)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int d = 32 * m + 4 * w + r;
-      if (d >= hd) continue;
-#pragma unroll
-      for (int k = 0; k < ND; ++k) {
-        const int s = lane + 32 * k;
-        if (s < ds) out[d * ds + s] = acc[m][r][k];
-      }
-    }
-}
-
-// S = (x w)^T b as an (hd, ds) product over the chunk's tokens: warp w
-// takes 16 x 16 tiles of S in turn; x w is split into hi and lo in place.
-__global__ void __launch_bounds__(kThreads)
-states_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
-          const float* __restrict__ a_log, const bf16* __restrict__ bm,
-          float* __restrict__ states, float* __restrict__ decay, Shape sh) {
-  extern __shared__ __align__(16) float smem[];
-  const Chunk ch = chunk_of(sh);
-  const int q = sh.q, hd = sh.hd, ds = sh.ds;
-  const int sx = hd + kPad, sb = ds + kPad;
-  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
-  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
-  bf16* xh = reinterpret_cast<bf16*>(smem + 3 * q + 4);  // [q][sx], x then hi
-  bf16* xl = xh + q * sx;                                // [q][sx], lo
-  bf16* bs = xl + q * sx;                                // [q][sb]
-  stage(xh, sx,
-        x + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
-            + static_cast<int64_t>(ch.h) * hd,
-        x_row, q, ch.len, hd);
-  stage(bs, sb,
-        bm + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
-            + static_cast<int64_t>(ch.g) * ds,
-        b_row, q, ch.len, ds);
-  float* wv;
-  chunk_weights(dt, a_log, decay, sh, ch, smem, wv);
-  cp_async_wait_all();
-  __syncthreads();
-  for (int i = threadIdx.x; i < q * hd / 2; i += kThreads) {
-    const int j = 2 * i / hd, d = 2 * i % hd;
-    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(xh + j * sx + d);
-    const float2 v = __bfloat1622float2(*hp);
-    uint32_t hi, lo;
-    split2(v.x * wv[j], v.y * wv[j], hi, lo);
-    *reinterpret_cast<uint32_t*>(hp) = hi;
-    *reinterpret_cast<uint32_t*>(xl + j * sx + d) = lo;
-  }
-  __syncthreads();
-
-  const Lane ln = lane_of();
-  const int ktiles = (ch.len + 15) / 16;   // token tiles that hold tokens
-  const int nqs = ds / 16;
-  float* out = states + ch.idx * hd * ds;
-  for (int u = threadIdx.x >> 5; u < (hd / 16) * nqs; u += kWarps) {
-    const int mt = u / nqs, nq = u % nqs;
-    float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ks = 0; ks < ktiles; ++ks) {
-      uint32_t ah[4], al[4], bb[4];
-      // A (d, j) from x w stored [j][d]; B (j, s) from b stored [j][s]
-      const int ao = (16 * ks + (ln.qq >> 1) * 8 + ln.rr) * sx + 16 * mt
-                     + (ln.qq & 1) * 8;
-      ldsm_x4_t(ah, xh + ao);
-      ldsm_x4_t(al, xl + ao);
-      ldsm_x4_t(bb, bs + (16 * ks + (ln.qq & 1) * 8 + ln.rr) * sb + 16 * nq
-                        + (ln.qq >> 1) * 8);
-      mma(a0, ah, bb[0], bb[1]);
-      mma(a0, al, bb[0], bb[1]);
-      mma(a1, ah, bb[2], bb[3]);
-      mma(a1, al, bb[2], bb[3]);
-    }
-    float* o = out + (16 * mt + ln.g) * ds + 16 * nq + 2 * ln.t;
-    *reinterpret_cast<float2*>(o) = make_float2(a0[0], a0[1]);
-    *reinterpret_cast<float2*>(o + 8 * ds) = make_float2(a0[2], a0[3]);
-    *reinterpret_cast<float2*>(o + 8) = make_float2(a1[0], a1[1]);
-    *reinterpret_cast<float2*>(o + 8 * ds + 8) = make_float2(a1[2], a1[3]);
-  }
-}
-
-// ---- pass 2: state passing ------------------------------------------------
-
-// Thread i of a head owns its state entries 4 i .. 4 i + 3 (n = hd ds per
-// head; whole float4s when n % 4 == 0); the next chunk's load is issued
-// before the current chunk's store (issuing four chunks' loads together
-// measured slower).
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-state_pass(float* __restrict__ st, const float* __restrict__ decay,
-           float* __restrict__ h_out, int32_t nc, int32_t n, int32_t tiles) {
-  const int64_t head = blockIdx.x / tiles;
-  const int e = ((blockIdx.x % tiles) * kThreads + threadIdx.x) * 4;
-  if (e >= n) return;
-  float* s = st + head * nc * n + e;
-  const float* dec = decay + head * nc;
-  float* ho = h_out + head * n + e;
-  if (kVec) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 hv = zero;
-    float4 cur = nc > 0 ? *reinterpret_cast<const float4*>(s) : zero;
-    for (int k = 0; k < nc; ++k) {
-      const float4 nxt =
-          k + 1 < nc ? *reinterpret_cast<const float4*>(
-                           s + static_cast<int64_t>(k + 1) * n)
-                     : zero;
-      const float dk = dec[k];
-      *reinterpret_cast<float4*>(s + static_cast<int64_t>(k) * n) = hv;
-      hv = make_float4(fmaf(hv.x, dk, cur.x), fmaf(hv.y, dk, cur.y),
-                       fmaf(hv.z, dk, cur.z), fmaf(hv.w, dk, cur.w));
-      cur = nxt;
-    }
-    *reinterpret_cast<float4*>(ho) = hv;
-  } else {
-    for (int i = 0; i < min(4, n - e); ++i) {
-      float hv = 0.f;
-      for (int k = 0; k < nc; ++k) {
-        float* p = s + static_cast<int64_t>(k) * n + i;
-        const float v = *p;
-        *p = hv;
-        hv = fmaf(hv, dec[k], v);
-      }
-      ho[i] = hv;
-    }
-  }
-}
 
 // ---- pass 3: chunk scan ---------------------------------------------------
 
@@ -464,8 +63,7 @@ inline size_t scan_cc_smem(int q, int hd, int size) {
   const size_t st = kSlice + 1;
   const size_t tiles = q * st * size + kSlice * st * size + hd * st * 4;
   const size_t scores = static_cast<size_t>(kSlice) * (q + 1) * 4;
-  return 4 * static_cast<size_t>(2 * q + 4)
-         + static_cast<size_t>(q) * hd * size
+  return cum_bytes<float>(q) + static_cast<size_t>(q) * hd * size
          + (tiles > scores ? tiles : scores);
 }
 
@@ -473,7 +71,7 @@ inline size_t scan_tc_smem(int q, int hd, int ds) {
   const size_t sb = ds + kPad;
   const size_t c = q * sb;
   const size_t h = 2 * static_cast<size_t>(hd < kHalf ? hd : kHalf) * sb;
-  return 4 * static_cast<size_t>(2 * q + 4)
+  return cum_bytes<float>(q)
          + 2 * (static_cast<size_t>(q) * (hd + kPad) + q * sb + (c > h ? c : h));
 }
 
@@ -493,10 +91,10 @@ scan_cc(const T* __restrict__ x, const float* __restrict__ dt,
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int sst = kSlice + 1;
   const int sg = q + 1;
-  float* dtv = smem;
-  float* cum = dtv + q;
-  float* wsum = cum + q;
-  T* xs = reinterpret_cast<T*>(wsum + 4);                 // [q][hd]
+  const Cum<float> cu = cum_at<float>(smem, q);
+  const float* dtv = cu.dtv;
+  const float* cum = cu.cum;
+  T* xs = reinterpret_cast<T*>(past_cum<float>(smem, q));  // [q][hd]
   T* bt = xs + q * hd;                                    // [q][sst]
   T* ct = bt + q * sst;                                   // [kSlice][sst]
   float* ht = reinterpret_cast<float*>(ct + kSlice * sst);  // [hd][sst]
@@ -512,7 +110,7 @@ scan_cc(const T* __restrict__ x, const float* __restrict__ dt,
   const float* hk = hin + ch.idx * hd * ds;
   const float dsk = d_skip[ch.h];
   stage(xs, hd, x + xo, x_row, ch.len, ch.len, hd);
-  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), dtv, cum, wsum);
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), cu);
 
   for (int r0 = 0; r0 < ch.len; r0 += kSlice) {
     const int nk = r0 / kSlice + 1;      // column groups up to the diagonal
@@ -568,7 +166,7 @@ scan_cc(const T* __restrict__ x, const float* __restrict__ dt,
         const int j = lane + 32 * k;
         if (k < nk)
           gs[(4 * w + r) * sg + j] =
-              j <= i ? gacc[r][k] * expf(cum[i] - cum[j]) * dtv[j] : 0.f;
+              j <= i ? gacc[r][k] * exp_diff(cum[i], cum[j]) * dtv[j] : 0.f;
       }
     }
     __syncwarp();                        // a warp reads only its own rows
@@ -596,7 +194,7 @@ scan_cc(const T* __restrict__ x, const float* __restrict__ dt,
     for (int r = 0; r < 4; ++r) {
       const int i = r0 + 4 * w + r;
       if (i >= ch.len) continue;
-      const float ei = expf(cum[i]);
+      const float ei = expf(static_cast<float>(cum[i]));
 #pragma unroll
       for (int m = 0; m < NC; ++m) {
         const int d = lane + 32 * m;
@@ -637,10 +235,10 @@ scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
   const Chunk ch = chunk_of(sh);
   const int q = sh.q, hd = sh.hd, ds = sh.ds;
   const int sx = hd + kPad, sb = ds + kPad;
-  float* dtv = smem;
-  float* cum = dtv + q;
-  float* wsum = cum + q;
-  bf16* xs = reinterpret_cast<bf16*>(wsum + 4);  // [q][sx]
+  const Cum<float> cu = cum_at<float>(smem, q);
+  const float* dtv = cu.dtv;
+  const float* cum = cu.cum;
+  bf16* xs = reinterpret_cast<bf16*>(past_cum<float>(smem, q));  // [q][sx]
   bf16* bs = xs + q * sx;                        // [q][sb]
   bf16* cs = bs + q * sb;                        // [q][sb], then H:
   bf16* hh = cs;                                 // [min(hd, kHalf)][sb] hi
@@ -658,7 +256,7 @@ scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
   const bool has_h = ch.k > 0;            // H_0 = 0
   const float* hk = hin + ch.idx * hd * ds;
   const float dsk = d_skip[ch.h];
-  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), dtv, cum, wsum);
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), cu);
 
   float4 hreg[KS];
   if (has_h) load_half(hreg, hk, hd, ds, 0);
@@ -756,7 +354,7 @@ scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
     // the scores at rows ia, ib and columns j, j + 1 (g0), j + 8, j + 9 (g1)
     const int j = 16 * jt + 2 * ln.t;
     auto p = [&](float gv, float ci, int i, int jj) {
-      return jj <= i ? gv * expf(ci - cum[jj]) * dtv[jj] : 0.f;
+      return jj <= i ? gv * exp_diff(ci, cum[jj]) * dtv[jj] : 0.f;
     };
     uint32_t ah[4], al[4];
     split2(p(g0[0], ca, ia, j), p(g0[1], ca, ia, j + 1), ah[0], al[0]);
@@ -792,97 +390,41 @@ scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
     }
   }
 }
-
 // ---- plans and launches ---------------------------------------------------
-
-enum Mode { kF32 = 0, kBf16 = 1, kTensorCores = 2 };
-
-struct Pass {
-  const void* fn;
-  size_t smem;
-};
 
 struct Plan {
   Pass pass[3];
 };
 
-inline int groups(int n) { return n <= 32 ? 1 : n <= 64 ? 2 : 4; }
-
-template <typename T, int NC>
-const void* states_cc_fn(int nd) {
-  switch (nd) {
-    case 1: return reinterpret_cast<const void*>(&states_cc<T, NC, 1>);
-    case 2: return reinterpret_cast<const void*>(&states_cc<T, NC, 2>);
-    default: return reinterpret_cast<const void*>(&states_cc<T, NC, 4>);
-  }
-}
-
 template <typename T>
-Plan plan_cc(int q, int hd, int ds) {
-  Plan p;
-  const int nd = groups(ds);
+const void* scan_cc_fn(int hd) {
   switch (groups(hd)) {
-    case 1:
-      p.pass[0].fn = states_cc_fn<T, 1>(nd);
-      p.pass[2].fn = reinterpret_cast<const void*>(&scan_cc<T, 1>);
-      break;
-    case 2:
-      p.pass[0].fn = states_cc_fn<T, 2>(nd);
-      p.pass[2].fn = reinterpret_cast<const void*>(&scan_cc<T, 2>);
-      break;
-    default:
-      p.pass[0].fn = states_cc_fn<T, 4>(nd);
-      p.pass[2].fn = reinterpret_cast<const void*>(&scan_cc<T, 4>);
+    case 1: return reinterpret_cast<const void*>(&scan_cc<T, 1>);
+    case 2: return reinterpret_cast<const void*>(&scan_cc<T, 2>);
+    default: return reinterpret_cast<const void*>(&scan_cc<T, 4>);
   }
-  p.pass[0].smem = states_cc_smem(q, hd, ds, sizeof(T));
-  p.pass[2].smem = scan_cc_smem(q, hd, sizeof(T));
-  return p;
 }
 
-Plan plan_tc(int q, int hd, int ds) {
-  Plan p;
-  p.pass[0].fn = reinterpret_cast<const void*>(&states_tc);
-  p.pass[0].smem = states_tc_smem(q, hd, ds);
-  const bool wide_d = hd > 64, wide_s = ds > 64;
-  p.pass[2].fn =
-      wide_d ? (wide_s ? reinterpret_cast<const void*>(&scan_tc<16, 8>)
-                       : reinterpret_cast<const void*>(&scan_tc<16, 4>))
-             : (wide_s ? reinterpret_cast<const void*>(&scan_tc<8, 8>)
-                       : reinterpret_cast<const void*>(&scan_tc<8, 4>));
-  p.pass[2].smem = scan_tc_smem(q, hd, ds);
-  return p;
-}
-
-bool valid(int mode, int hd, int ds, int q) {
-  if (hd <= 0 || ds <= 0 || hd > 128 || ds > 128 || q <= 0 || q > 128
-      || q % 32)
-    return false;
-  if (mode == kTensorCores) return hd % 16 == 0 && ds % 16 == 0;
-  return mode == kF32 || mode == kBf16;
+Pass scan_pass(int mode, int q, int hd, int ds) {
+  if (mode == kTensorCores) {
+    const bool wide_d = hd > 64, wide_s = ds > 64;
+    return Pass{
+        wide_d ? (wide_s ? reinterpret_cast<const void*>(&scan_tc<16, 8>)
+                         : reinterpret_cast<const void*>(&scan_tc<16, 4>))
+               : (wide_s ? reinterpret_cast<const void*>(&scan_tc<8, 8>)
+                         : reinterpret_cast<const void*>(&scan_tc<8, 4>)),
+        scan_tc_smem(q, hd, ds)};
+  }
+  return mode == kBf16 ? Pass{scan_cc_fn<bf16>(hd), scan_cc_smem(q, hd, 2)}
+                       : Pass{scan_cc_fn<float>(hd), scan_cc_smem(q, hd, 4)};
 }
 
 Plan plan(int mode, int q, int hd, int ds) {
-  Plan p = mode == kTensorCores ? plan_tc(q, hd, ds)
-           : mode == kBf16      ? plan_cc<bf16>(q, hd, ds)
-                                : plan_cc<float>(q, hd, ds);
-  p.pass[1].fn = (hd * ds) % 4 == 0
-                     ? reinterpret_cast<const void*>(&state_pass<true>)
-                     : reinterpret_cast<const void*>(&state_pass<false>);
-  p.pass[1].smem = 0;
+  Plan p;
+  p.pass[0] = states_pass<false, void>(mode, q, hd, ds);
+  p.pass[1] = state_pass_pass<void>(hd, ds);
+  p.pass[2] = scan_pass(mode, q, hd, ds);
   return p;
-}
-
-cudaError_t allow_smem(const Pass& p) {
-  if (p.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(p.smem));
-}
-
-cudaError_t launch(const Pass& p, unsigned grid, void** args,
-                   cudaStream_t st) {
-  const cudaError_t err = allow_smem(p);
-  if (err != cudaSuccess) return err;
-  return cudaLaunchKernel(p.fn, dim3(grid), dim3(kThreads), args, p.smem, st);
 }
 
 }  // namespace
@@ -918,7 +460,7 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* a_log,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (passes & 2) {
-    int32_t n = hd * ds, tiles = (n + 4 * kThreads - 1) / (4 * kThreads);
+    int32_t n = hd * ds, tiles = state_tiles(n);
     void* args[] = {&states, &decay, &h_out, &sh.nc, &n, &tiles};
     err = launch(p.pass[1], static_cast<unsigned>(bsz) * nh * tiles, args, st);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -25,15 +25,21 @@ launch.  The wrapper allocates the scratch (``scratch``) with
 
 Training differentiates through ``SSDScanFn``: its forward is
 ``_scan`` (the kernels' launch, the one seam a CPU test may swap for the
-plain version), its backward runs the plain version again on the saved
-inputs under autograd and returns that function's gradients.  The
-reference has no backward kernel either: it trains through
-``ssd_chunked``, which XLA differentiates.  The backward takes the plain
-version in its chunk-parallel form, ``ref.ssd_chunked_plain`` (the
-kernel's three passes, which ``ssd_plain``'s chunk-by-chunk loop
-equals), as ``ssd_chunked`` is chunk-parallel: a few dozen batched ops a
-layer where the loop takes some 60 a chunk.  It is plain torch on the
-card by design, under the profiler label ``PLAIN_BACKWARD``.
+plain version), its backward ``_scan_backward``, one call of the backward
+kernels (``kernels/csrc/ssd_bwd.cu``: one ``ssd_bwd`` call of five
+passes, counted once on ``BACKWARD_COUNTER``, under the profiler label
+``BACKWARD``): the entering states rebuilt by the forward's passes 1 and
+2, what each chunk's y sends back to its entering state, the state
+passing in reverse, a chunk pass for dx, dt, the heads' shares of db and
+dc and the blocks' shares of da_log and d_skip, and fixed-order sums of
+the shares.  The reference has no backward kernel: it trains through
+``ssd_chunked``, which XLA differentiates.  On a CUDA tensor the backward
+launches or raises; on a CPU tensor (a test's) it takes
+``plain_backward``, autograd of the plain version in its chunk-parallel
+form, ``ref.ssd_chunked_plain`` (the kernel's three passes, which
+``ssd_plain``'s chunk-by-chunk loop equals).  ``ref.ssd_backward_plain``
+writes the same gradients out pass by pass; the card's tests and
+``chip_smoke.py`` hold the kernel against both.
 
 On fake tensors (stand-ins that hold no data: the dry run's) the wrapper
 calls the kernels' function as one op, ``repro_torch::ssd_scan``,
@@ -63,7 +69,13 @@ MAX_CHUNK = 128
 TC_STEP = 16                    # the tensor-core route's width step
 PASSES = ("chunk_states", "state_pass", "chunk_scan")
 COUNTER = {"tc": "ssd_tc", "cuda_core": "ssd"}
-PLAIN_BACKWARD = "ssd.plain_backward"
+BACKWARD_COUNTER = {"tc": "ssd_bwd_tc", "cuda_core": "ssd_bwd"}
+BACKWARD_PASSES = ("states", "out_states", "state_pass", "chunk", "reduce")
+BACKWARD_OUTPUTS = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
+BACKWARD = "ssd.backward"
+# what the names of the backward's kernels share (a ctypes launch runs
+# under no torch op, so a profile finds them by name)
+BACKWARD_KERNELS = "ssd_grad::"
 
 
 def route(dtype: torch.dtype, hd: int, ds: int) -> str:
@@ -171,8 +183,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 class SSDScanFn(torch.autograd.Function):
-    """The kernels' forward (``_scan``) and the plain version's gradients
-    (``plain_backward``); the final state's gradient may be absent."""
+    """The kernels' forward (``_scan``) and backward (``_scan_backward``);
+    the final state's gradient may be absent."""
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b, c, d_skip, chunk):
@@ -184,30 +196,27 @@ class SSDScanFn(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gy, gh):
-        with torch.profiler.record_function(PLAIN_BACKWARD):
-            grads = plain_backward(*ctx.saved_tensors, gy, gh,
-                                   chunk=ctx.chunk,
-                                   needs=ctx.needs_input_grad[:6])
-        return (*grads, None)
+        needs = ctx.needs_input_grad[:6]
+        if not any(needs) or (gy is None and gh is None):
+            return (None,) * 7
+        with torch.profiler.record_function(BACKWARD):
+            grads = _scan_backward(*ctx.saved_tensors, gy, gh, ctx.chunk)
+        return (*(g if need else None for g, need in zip(grads, needs)),
+                None)
 
 
-def plain_backward(x, dt, a_log, b, c, d_skip, gy, gh, *, chunk: int = 128,
-                   needs=(True,) * 6):
+def plain_backward(x, dt, a_log, b, c, d_skip, gy, gh, *, chunk: int = 128):
     """The gradients of the plain version (``ref.ssd_chunked_plain``) at
-    its inputs against those of y and the final state (either may be
-    None), by autograd; None where ``needs`` says no or neither output
-    has a gradient."""
+    its six inputs against those of y and the final state (either may be
+    None), by autograd; None where neither output has a gradient."""
     live = [(i, g) for i, g in enumerate((gy, gh)) if g is not None]
-    if not any(needs) or not live:
+    if not live:
         return [None] * 6
-    ins = [t.detach().requires_grad_(need)
-           for t, need in zip((x, dt, a_log, b, c, d_skip), needs)]
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c, d_skip)]
     with torch.enable_grad():
         outs = ref.ssd_chunked_plain(*ins, chunk=chunk)
-        grads = iter(torch.autograd.grad(
-            [outs[i] for i, _ in live], [t for t in ins if t.requires_grad],
-            [g for _, g in live]))
-    return [next(grads) if need else None for need in needs]
+        return list(torch.autograd.grad([outs[i] for i, _ in live], ins,
+                                        [g for _, g in live]))
 
 
 def _scan(x, dt, a_log, b, c, d_skip, chunk):
@@ -223,6 +232,127 @@ def _scan(x, dt, a_log, b, c, d_skip, chunk):
     _launch(x, dt, a_log, b, c, d_skip, y, h, states, decay, chunk, 7)
     _build.LAUNCHES[COUNTER[route(x.dtype, hd, ds)]] += 1
     return y, h
+
+
+def _backward_layout(x: torch.Tensor, b: torch.Tensor, chunk: int
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, type) of each of the backward's buffers: the scratch (f32:
+    the entering states and their gradients (B, nh, nc, hd, ds), the chunk
+    decays and the blocks' shares of da_log and d_skip (B, nh, nc), the
+    heads' shares of db and dc (B, S, nh, ds)) and the outputs (dx like x,
+    ddt (B, S, nh) f32, da_log and dd_skip (nh,) f32, db and dc like b)
+    for x (B, S, nh, hd) and b (B, S, ng, ds)."""
+    bsz, s, nh, hd = x.shape
+    ds = b.shape[3]
+    nc = -(-s // chunk)
+    f32 = torch.float32
+    return {"states": ((bsz, nh, nc, hd, ds), f32),
+            "decay": ((bsz, nh, nc), f32),
+            "dstates": ((bsz, nh, nc, hd, ds), f32),
+            "db_part": ((bsz, s, nh, ds), f32),
+            "dc_part": ((bsz, s, nh, ds), f32),
+            "dalog_part": ((bsz, nh, nc), f32), "dd_part": ((bsz, nh, nc), f32),
+            "dx": (tuple(x.shape), x.dtype), "ddt": ((bsz, s, nh), f32),
+            "da_log": ((nh,), f32), "db": (tuple(b.shape), b.dtype),
+            "dc": (tuple(b.shape), b.dtype), "dd_skip": ((nh,), f32)}
+
+
+def backward_buffers(x: torch.Tensor, b: torch.Tensor, chunk: int
+                     ) -> Dict[str, torch.Tensor]:
+    """The backward's buffers (``_backward_layout``), uninitialised, on
+    x's device."""
+    return {k: torch.empty(shape, dtype=dtype, device=x.device)
+            for k, (shape, dtype) in _backward_layout(x, b, chunk).items()}
+
+
+def _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
+                     passes: int) -> None:
+    bsz, s, nh, hd = x.shape
+    ng, ds = b.shape[2], b.shape[3]
+    fn = _build.function("ssd_bwd")
+    ptr = [bufs[k].data_ptr() for k in (
+        "states", "decay", "dstates", "db_part", "dc_part", "dalog_part",
+        "dd_part", *BACKWARD_OUTPUTS)]
+    rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d_skip.data_ptr(), gy.data_ptr(),
+            None if gh is None else gh.data_ptr(), *ptr, bsz, s, nh, hd, ng,
+            ds, chunk, _mode(x.dtype, hd, ds), passes,
+            _build.stream_handle(x.device))
+    _build.check(rc, "ssd_bwd")
+
+
+def _backward_operands(x, b, gy, gh):
+    """gy in x's type and gh f32, contiguous on x's device (gy None: zero;
+    gh None stays None, the kernel's zero)."""
+    bsz, _, nh, hd = x.shape
+    ds = b.shape[3]
+    gy = torch.zeros_like(x) if gy is None else gy.to(x.dtype).contiguous()
+    if gh is not None:
+        gh = gh.to(torch.float32).contiguous()
+    for t, name, shape in ((gy, "gy", tuple(x.shape)),
+                           (gh, "gh", (bsz, nh, hd, ds))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    return gy, gh
+
+
+def _scan_backward(x, dt, a_log, b, c, d_skip, gy, gh, chunk):
+    """The gradients (dx, ddt, da_log, db, dc, dd_skip) of ``_scan`` at its
+    inputs against gy and gh (either may be None: zero): one ``ssd_bwd``
+    call (its five passes) on checked CUDA tensors, counted once;
+    ``plain_backward``'s on CPU tensors."""
+    if x.device.type == "cpu":
+        return plain_backward(x, dt, a_log, b, c, d_skip, gy, gh,
+                              chunk=chunk)
+    _check(x, dt, a_log, b, c, d_skip, chunk)
+    _check_card(x, dt, a_log, b, c, d_skip, chunk)
+    gy, gh = _backward_operands(x, b, gy, gh)
+    bsz, _, nh, hd = x.shape
+    ds = b.shape[3]
+    bufs = backward_buffers(x, b, chunk)
+    if bsz * nh == 0:                   # nothing to launch
+        return tuple(bufs[k].zero_() for k in BACKWARD_OUTPUTS)
+    _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
+                     2 ** len(BACKWARD_PASSES) - 1)
+    _build.LAUNCHES[BACKWARD_COUNTER[route(x.dtype, hd, ds)]] += 1
+    return tuple(bufs[k] for k in BACKWARD_OUTPUTS)
+
+
+def run_backward_passes(x, dt, a_log, b, c, d_skip, gy, gh, *,
+                        bufs: Dict[str, torch.Tensor], chunk: int = 128,
+                        passes: Sequence[str] = BACKWARD_PASSES) -> None:
+    """Launch the named passes of the backward's route, in their order, on
+    the caller's ``backward_buffers``: ``states`` rebuilds the entering
+    states (and the decays), ``out_states`` writes R into dstates,
+    ``state_pass`` turns that into dS in place, ``chunk`` writes dx, ddt
+    and the shares, ``reduce`` sums the shares into db, dc, da_log and
+    dd_skip.  CUDA tensors only; counts no launch."""
+    _check(x, dt, a_log, b, c, d_skip, chunk)
+    if x.device.type != "cuda":
+        raise ValueError("run_backward_passes launches the kernels: it takes "
+                         f"CUDA tensors, got {x.device}")
+    _check_card(x, dt, a_log, b, c, d_skip, chunk)
+    gy, gh = _backward_operands(x, b, gy, gh)
+    unknown = set(passes) - set(BACKWARD_PASSES)
+    if unknown:
+        raise ValueError(f"unknown passes {sorted(unknown)}; the passes are "
+                         f"{BACKWARD_PASSES}")
+    for k, (shape, dtype) in _backward_layout(x, b, chunk).items():
+        t = bufs[k]
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{k}: expected a contiguous {shape} {dtype} "
+                             f"on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if x.shape[0] * x.shape[2]:
+        _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
+                         sum(1 << i for i, p in enumerate(BACKWARD_PASSES)
+                             if p in passes))
 
 
 def run_passes(x, dt, a_log, b, c, d_skip, *, states: torch.Tensor,
@@ -271,6 +401,20 @@ def occupancy(dtype: torch.dtype, hd: int, ds: int, chunk: int
     _build.check(fn(_mode(dtype, hd, ds), hd, ds, chunk, blocks, smem),
                  "ssd_occupancy")
     return {p: (blocks[i], smem[i]) for i, p in enumerate(PASSES)}
+
+
+def backward_occupancy(dtype: torch.dtype, hd: int, ds: int, chunk: int
+                       ) -> Dict[str, Tuple[int, int]]:
+    """For the backward's passes with shared memory of their own
+    (``states``, ``out_states``, ``chunk``) at (dtype, hd, ds, chunk)'s
+    route on the current card: (blocks that fit on one SM, shared bytes a
+    block takes)."""
+    blocks, smem = (ctypes.c_int32 * 3)(), (ctypes.c_int32 * 3)()
+    fn = _build.function("ssd_bwd_occupancy")
+    _build.check(fn(_mode(dtype, hd, ds), hd, ds, chunk, blocks, smem),
+                 "ssd_bwd_occupancy")
+    return {p: (blocks[i], smem[i]) for i, p in
+            enumerate(("states", "out_states", "chunk"))}
 
 
 # --------------------------------------------------------------------------- #
@@ -337,13 +481,13 @@ def _scan_setup(ctx, inputs, output):
     ctx.save_for_backward(*inputs[:-1])
 
 
-def _scan_backward(ctx, gy, gh):
+def _scan_op_backward(ctx, gy, gh):
     saved = ctx.saved_tensors
     gy = torch.zeros_like(saved[0]) if gy is None else gy
     return (*scan_backward_op(gy, gh, *saved, ctx.chunk), None)
 
 
-scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
+scan_op.register_autograd(_scan_op_backward, setup_context=_scan_setup)
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_scan)

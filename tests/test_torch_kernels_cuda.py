@@ -39,12 +39,17 @@ their three passes with its plain pass, and two launches give the same
 bits.  A 2-layer smoke model's logits on the card equal
 its CPU logits within 2e-2: every bf16 product rounds on its own path.
 On a CUDA tensor that requires grad, B7 and B8 launch once and give an
-output with a ``grad_fn``; their gradients (the plain version's, which
-the backward recomputes) equal plain autograd's within 1e-5 in float32
-and 2e-2 in bfloat16 of their largest magnitude, and a 2-layer f32 smoke
-model's loss and gradients on the card equal the CPU's within 1e-5 and
-1e-3 (the kernels' f32 forwards differ from the plain ones by f32
-rounding).
+output with a ``grad_fn``; their gradients (each a backward kernel's,
+one counted call) equal plain autograd's within 1e-5 in float32 and 2e-2
+in bfloat16 of their largest magnitude (B8's against the plain version
+run in float64: under strong decays the float32 plain version's own
+rounding exceeds 1e-5), and a 2-layer f32 smoke model's loss and
+gradients on the card equal the CPU's within 1e-5 and 1e-3 (the
+kernels' f32 routes differ from the plain ones by f32 rounding).  B8's
+backward kernel is also held against ``plain_backward`` at every width
+and chunk the forward takes, pass by pass, on misaligned views, twice
+to the same bits, and from a training step with ``plain_backward`` made
+to raise; B7's forward runs from a thread with no CUDA call yet.
 The selection kernel's float32 entry (B1) is bit-identical to its plain
 version, NaN rows and bounds that round to float32 included, and the
 eager float filter, the shuffle join and ``Executor(shards=4)`` on the
@@ -1566,10 +1571,9 @@ def test_moe_layer_on_the_card_equals_the_cpu(cuda, dtype):
 # ---- training: the kernels' autograd Functions ----------------------------- #
 
 GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# B8's backward is autograd of the chunk-parallel plain version; against
-# the chunk-by-chunk one, a_log's gradient (a sum over every token's decay
-# with cancellations) rounds differently: 9e-5 of its largest magnitude
-# in f32 on the CPU at these inputs
+# the chunk-by-chunk plain scan against the chunk-parallel one: a_log's
+# gradient (a sum over every token's decay with cancellations) rounds
+# differently in f32, 9e-5 of its largest magnitude on the CPU
 SSD_ORDER_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
@@ -1791,9 +1795,13 @@ def test_ssd_gradients_through_the_kernel_match_plain(cuda, dtype):
     ds 128; the tensor-core route in bf16, the CUDA cores in f32) over
     two whole chunks and a ragged one with strong decays: one launch, a
     ``grad_fn``, and the plain version's gradients, finite: within
-    ``GRAD_TOL`` of the chunk-parallel form's the backward takes, within
-    ``SSD_ORDER_TOL`` of the chunk-by-chunk form's, with and without the
-    final state's gradient."""
+    ``GRAD_TOL`` of the chunk-parallel form's, within ``SSD_ORDER_TOL`` of
+    the chunk-by-chunk form's, with and without the final state's
+    gradient.  The backward is a kernel of its own, so the plain forms
+    run in f64 on the same inputs: under these decays a chunk's
+    log-decays sum to thousands, and the f32 plain version's own rounding
+    of them puts its gradients (a_log's most) further from their f64
+    values than ``GRAD_TOL``."""
     g = torch.Generator(device=cuda).manual_seed(5)
     bsz, s, nh, hd, ng, ds = 2, 300, 8, 64, 1, 128
 
@@ -1811,15 +1819,19 @@ def test_ssd_gradients_through_the_kernel_match_plain(cuda, dtype):
     assert _build.LAUNCHES[ssd_kernels.COUNTER[
         ssd_kernels.route(dtype, hd, ds)]] == 1
     gy, gh = randn(bsz, s, nh, hd), randn(bsz, nh, hd, ds, dt=torch.float32)
+    ins64 = [t.detach().double().requires_grad_() for t in ins]
     for plain, tol in ((ssd_ref.ssd_chunked_plain, GRAD_TOL[dtype]),
                        (ssd_ref.ssd_plain, SSD_ORDER_TOL[dtype])):
-        y_p, h_p = plain(*ins)
+        y_p, h_p = plain(*ins64)
         for outs, wants, grads in (((y, h), (y_p, h_p), (gy, gh)),
                                    ((y,), (y_p,), (gy,))):
             got = torch.autograd.grad(outs, ins, grads, retain_graph=True)
-            want = torch.autograd.grad(wants, ins, grads, retain_graph=True)
+            want = torch.autograd.grad(wants, ins64,
+                                       [t.double() for t in grads],
+                                       retain_graph=True)
             assert all(bool(torch.isfinite(t).all()) for t in got)
-            _grads_close(got, want, tol)
+            _grads_close(got, [w.to(t.dtype) for w, t in zip(want, ins)],
+                         tol)
 
 
 @pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-780m"])
@@ -2207,3 +2219,238 @@ def test_flash_attention_bf16_backward_splits_only_a_short_grid(cuda):
     assert fa._splits_group(cuda, 1, 24, 8, 4096) == (8 * 32 < sms)
     assert not fa._splits_group(cuda, 1, 32, 32, 128)
     assert fa._splits_group(cuda, 1, 8, 2, rows)
+
+
+def test_flash_attention_forward_on_a_thread_without_cuda_calls(cuda):
+    """The forward's first call on a thread that has made no CUDA call
+    encodes its tensor maps all the same (the launcher binds the data's
+    device first), to the main thread's bits."""
+    import threading
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(2, 300, n, 64, generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (8, 2, 2))
+    want = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["o"] = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+        except Exception as e:               # reported below
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    assert torch.equal(got["o"], want)
+
+
+# ---- B8's backward kernel -------------------------------------------------- #
+
+def _ssd_grad_inputs(device, bsz, s, nh, hd, ng, ds, dtype, seed=0,
+                     strong=False):
+    """The scan's six inputs (Mamba-2's init ranges: dt in [0.001, 0.1], A
+    in [1, 16]; or strong decays, dt in [0, 2]), gy like x and gh f32."""
+    r = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(r.normal(size=shape).astype(np.float32))
+    dt = r.uniform(0.0, 2.0, (bsz, s, nh)) if strong else \
+        r.uniform(0.001, 0.1, (bsz, s, nh))
+    args = (f(bsz, s, nh, hd).to(device, dtype),
+            torch.from_numpy(dt.astype(np.float32)).to(device),
+            torch.from_numpy(np.log(r.uniform(1.0, 16.0, nh))
+                             .astype(np.float32)).to(device),
+            f(bsz, s, ng, ds).to(device, dtype),
+            f(bsz, s, ng, ds).to(device, dtype), f(nh).to(device))
+    return args, f(bsz, s, nh, hd).to(device, dtype), \
+        f(bsz, nh, hd, ds).to(device)
+
+
+def _plain_grads64(args, gy, gh, chunk=128):
+    """``plain_backward`` on the same inputs in f64, each gradient in its
+    input's type: the reference the kernel is held to."""
+    want = ssd_kernels.plain_backward(
+        *(t.double() for t in args), gy.double(),
+        None if gh is None else gh.double(), chunk=chunk)
+    return [w.to(t.dtype) for w, t in zip(want, args)]
+
+
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("chunk", [32, 64, 96, 128])
+@pytest.mark.parametrize("hd,ds,ng", [(64, 128, 1), (64, 16, 1), (64, 128, 2),
+                                      (16, 16, 2), (128, 128, 2), (80, 48, 1),
+                                      (33, 97, 2), (1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_matches_plain(cuda, dtype, hd, ds, ng, chunk, with_gh):
+    """Both routes of the backward kernel (tensor cores for bf16 at widths
+    that are multiples of 16: mamba2-780m's 64 / 128, jamba's 64 / 16; the
+    CUDA cores for f32 and bf16 at odd widths) against ``plain_backward``
+    within ``GRAD_TOL`` of each gradient's largest magnitude, over a
+    ragged last chunk, with and without the final state's gradient; one
+    counted call on its route's counter."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, 4, hd, ng, ds, dtype,
+                                    seed=hd + ds + chunk)
+    gh = gh if with_gh else None
+    counter = ssd_kernels.BACKWARD_COUNTER[ssd_kernels.route(dtype, hd, ds)]
+    before = dict(_build.LAUNCHES)
+    got = ssd_kernels._scan_backward(*args, gy, gh, chunk)
+    assert _ssd_counts(before) == {k: int(k == counter) for k in before}
+    _grads_close(got, _plain_grads64(args, gy, gh, chunk), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_stays_finite_under_strong_decays(cuda, dtype):
+    """dt up to 2 and A up to 16 over whole 128-token chunks: every
+    gradient finite and within ``GRAD_TOL`` of the plain version's in
+    f64."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 512, 8, 64, 1, 128, dtype,
+                                    seed=3, strong=True)
+    got = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _grads_close(got, _plain_grads64(args, gy, gh), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_two_calls_are_bit_identical(cuda, dtype):
+    """No atomics: the heads' shares of db and dc and the blocks' shares of
+    da_log and d_skip are summed in a fixed order."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 2000, 8, 64, 1, 128, dtype,
+                                    seed=5)
+    first = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    second = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd,ds", [(64, 128), (33, 97)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_launches_the_backward_kernel(cuda, monkeypatch, dtype,
+                                                   hd, ds):
+    """With ``plain_backward`` made to raise, autograd through ``ssd_scan``
+    still gives the gradients: one forward launch and one backward call,
+    each on its route's counter."""
+    def refuse(*args, **kw):
+        raise AssertionError("plain_backward ran on the card")
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, 4, hd, 2, ds, dtype,
+                                    seed=11)
+    want = _plain_grads64(args, gy, gh)
+    monkeypatch.setattr(ssd_kernels, "plain_backward", refuse)
+    ins = [t.clone().requires_grad_() for t in args]
+    rt = ssd_kernels.route(dtype, hd, ds)
+    _build.reset_launches()
+    y, h = ssd_kernels.ssd_scan(*ins)
+    got = torch.autograd.grad((y, h), ins, (gy, gh))
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        ssd_kernels.COUNTER[rt]: 1, ssd_kernels.BACKWARD_COUNTER[rt]: 1}
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("which", ["x", "dt", "b", "c", "gy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_takes_misaligned_views(cuda, which, dtype):
+    """A contiguous view that starts off a 16-byte mark is staged by
+    narrower copies, to the same bits, as the forward takes it."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 200, 4, 64, 1, 128, dtype,
+                                    seed=3)
+    args = list(args)
+    want = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    t = gy if which == "gy" else args[{"x": 0, "dt": 1, "b": 3,
+                                        "c": 4}[which]]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    if which == "gy":
+        gy = view
+    else:
+        args[{"x": 0, "dt": 1, "b": 3, "c": 4}[which]] = view
+    got = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_ssd_backward_refuses_what_it_does_not_take(cuda):
+    """A gradient of another shape, a width or chunk past the kernel's, is
+    refused before any launch."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 1, 64, 2, 64, 1, 64, torch.float32)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="gy"):
+        ssd_kernels._scan_backward(*args, gy[:, :32], gh, 128)
+    with pytest.raises(ValueError, match="gh"):
+        ssd_kernels._scan_backward(*args, gy, gh[:, :1], 128)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_kernels._scan_backward(*args, gy, gh, 48)
+    wide, gy_w, gh_w = _ssd_grad_inputs(cuda, 1, 64, 2, 64, 1, 256,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="ds <= 128"):
+        ssd_kernels._scan_backward(*wide, gy_w, gh_w, 128)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_of_no_rows_launches_nothing(cuda, dtype):
+    """A batch of no rows gives zero gradients of the inputs' shapes and
+    types, and neither launches nor counts a kernel."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 0, 64, 2, 64, 1, 64, dtype)
+    before = dict(_build.LAUNCHES)
+    got = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    assert _build.LAUNCHES == before
+    assert [(tuple(g.shape), g.dtype) for g in got] == \
+        [(tuple(t.shape), t.dtype) for t in args]
+    assert not any(g.any() for g in got)
+
+
+def test_ssd_backward_fits_the_card(cuda):
+    """The passes with shared memory of their own fit at the widest shape
+    the kernel takes (the chunk pass one block an SM); at mamba2-780m's
+    widths the two state passes fit more than one."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for p, (blocks, _) in ssd_kernels.backward_occupancy(
+                dtype, 128, 128, 128).items():
+            assert blocks >= 1, (dtype, p)
+        occ = ssd_kernels.backward_occupancy(dtype, 64, 128, 128)
+        assert occ["states"][0] >= 2 and occ["out_states"][0] >= 2, occ
+
+
+@pytest.mark.parametrize("dtype,hd,ds", [(torch.float32, 64, 128),
+                                         (torch.bfloat16, 64, 128),
+                                         (torch.bfloat16, 33, 97)])
+def test_ssd_backward_passes_match_their_plain_passes(cuda, dtype, hd, ds):
+    """Each pass alone against its plain version: the rebuilt entering
+    states (the forward's passes 1 and 2), R (pass 3's gradient of the
+    entering states), dS and the decays' share (pass 2's gradient), then
+    the chunk pass and the sums against the composition."""
+    chunk = 64
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 200, 4, hd, 2, ds, dtype,
+                                    seed=7)
+    x, dt, a_log, b, c, d_skip = args
+    bufs = ssd_kernels.backward_buffers(x, b, chunk)
+
+    def run(*passes):
+        ssd_kernels.run_backward_passes(*args, gy, gh, bufs=bufs, chunk=chunk,
+                                        passes=passes)
+    before = dict(_build.LAUNCHES)
+    run("states")
+    states, decay = ssd_ref.ssd_chunk_states_plain(x, dt, a_log, b,
+                                                   chunk=chunk)
+    h_in, _ = ssd_ref.ssd_state_pass_plain(states, decay)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(bufs["states"], h_in, **SSD_TOL)
+    torch.testing.assert_close(bufs["decay"], decay, **SSD_TOL)
+    run("out_states")
+    *_, dh_in = ssd_ref.ssd_chunk_scan_bwd_plain(*args, h_in, gy,
+                                                 chunk=chunk)
+    torch.testing.assert_close(bufs["dstates"], dh_in, **SSD_TOL)
+    run("state_pass")
+    dstates, _ = ssd_ref.ssd_state_pass_bwd_plain(h_in, decay, dh_in, gh)
+    torch.testing.assert_close(bufs["dstates"], dstates, **SSD_TOL)
+    run("chunk", "reduce")
+    got = [bufs[k] for k in ssd_kernels.BACKWARD_OUTPUTS]
+    _grads_close(got, _plain_grads64(args, gy, gh, chunk), dtype)
+    assert _build.LAUNCHES == before
+

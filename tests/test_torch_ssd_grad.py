@@ -1,0 +1,308 @@
+"""B8's backward in explicit formulas (``ref.ssd_backward_plain`` and its
+three passes), the plain version of the card's backward kernel, against
+autograd of the port's plain scan and against ``jax.vjp`` of the
+reference's ``ssd_chunked``, on the CPU.
+
+Inputs are drawn with numpy from a seed; the cases cover a ragged last
+chunk, one group and several (up to one a head), the final state's
+gradient present and absent, and strong decays over whole 128-token
+chunks (dt up to 2, A up to 16: a chunk's log-decays sum to thousands).
+
+Tolerances, each of a gradient's largest magnitude:
+
+* in f64 every pass and the composition equal autograd within 1e-10: the
+  formulas are the gradient's, whatever order they sum in;
+* in f32, under Mamba-2's decays, within ``F32_REL`` (1e-6), but a_log's
+  within ``A_LOG_REL`` (2e-5): its gradient sums every token's log-decay
+  over the whole sequence, and autograd's reverse cumsum rounds it
+  differently (up to 2.0e-6 of it from the f64 value at these cases,
+  where the plain backward's pairwise sum stays within 2e-7);
+* against the chunk-by-chunk ``ssd_plain`` within ``SSD_ORDER_REL``
+  (2e-4), the two forms' known distance in f32;
+* against the reference within 2e-2: ``ssd_chunked`` rounds its
+  intra-chunk tensors to bf16.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.mamba import ssd_chunked
+
+from repro_torch.kernels.ssd import ref
+from repro_torch.kernels.ssd import ssd as ssd_mod
+
+F64_REL = 1e-10
+F32_REL = 1e-6
+A_LOG_REL = 2e-5
+SSD_ORDER_REL = 2e-4
+REF_REL = 2e-2
+NAMES = ("x", "dt", "a_log", "b", "c", "d_skip")
+
+# bsz, s, nh, hd, ng, ds, chunk, decay
+CASES = {
+    "ragged": (2, 170, 4, 16, 2, 16, 32, "mamba"),
+    "one_group": (2, 96, 4, 8, 1, 16, 32, "mamba"),
+    "group_a_head": (1, 70, 2, 8, 2, 8, 32, "mamba"),
+    "short": (1, 5, 2, 8, 1, 4, 32, "mamba"),
+    "whole_chunks_strong": (1, 256, 2, 8, 1, 8, 128, "strong"),
+    "ragged_strong": (2, 170, 4, 16, 2, 16, 64, "strong"),
+}
+MAMBA = [k for k, v in CASES.items() if v[-1] == "mamba"]
+WHOLE = [k for k, v in CASES.items() if v[1] % v[6] == 0]
+
+
+def _arrays(case, seed=0):
+    """(x, dt, a_log, b, c, d_skip), gy, gh as f32 numpy arrays: Mamba-2's
+    init ranges (dt in [0.001, 0.1], A in [1, 16]) or strong decays (dt
+    in [0, 2])."""
+    bsz, s, nh, hd, ng, ds, _, decay = CASES[case]
+    r = np.random.default_rng(seed)
+    dt = r.uniform(0.001, 0.1, (bsz, s, nh)) if decay == "mamba" else \
+        r.uniform(0.0, 2.0, (bsz, s, nh))
+    ins = [r.normal(size=(bsz, s, nh, hd)), dt,
+           np.log(r.uniform(1.0, 16.0, nh)), r.normal(size=(bsz, s, ng, ds)),
+           r.normal(size=(bsz, s, ng, ds)), r.normal(size=nh)]
+    gy, gh = r.normal(size=(bsz, s, nh, hd)), r.normal(size=(bsz, nh, hd, ds))
+    return ([a.astype(np.float32) for a in ins], gy.astype(np.float32),
+            gh.astype(np.float32))
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _close(got, want, rel, names=NAMES):
+    for g, w, name in zip(got, want, names):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        r = rel[name] if isinstance(rel, dict) else rel
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        assert err <= r * scale, (name, err, scale)
+
+
+def _autograd(fn, ins, outs_grads):
+    """Autograd of ``fn(*ins)``'s outputs against their gradients (None:
+    the output has none) at ``ins``; an output that depends on no input
+    (the state entering a lone chunk, zero) adds nothing."""
+    ins = [t.detach().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    live = [(o, g) for o, g in zip(outs, outs_grads)
+            if g is not None and o.grad_fn is not None]
+    if not live:
+        return [torch.zeros_like(t) for t in ins]
+    grads = torch.autograd.grad([o for o, _ in live], ins,
+                                [g for _, g in live], allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(grads, ins)]
+
+
+# ---- each pass against autograd of its forward pass ------------------------
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chunk_scan_backward_equals_autograd_of_the_chunk_scan(case):
+    chunk = CASES[case][6]
+    (x, dt, a_log, b, c, d), gy, _ = (
+        _torch(a, torch.float64) if isinstance(a, list) else
+        torch.from_numpy(a).double() for a in _arrays(case))
+    states, decay = ref.ssd_chunk_states_plain(x, dt, a_log, b, chunk=chunk)
+    h_in, _ = ref.ssd_state_pass_plain(states, decay)
+    got = ref.ssd_chunk_scan_bwd_plain(x, dt, a_log, b, c, d, h_in, gy,
+                                       chunk=chunk)
+    want = _autograd(lambda *a: ref.ssd_chunk_scan_plain(*a, chunk=chunk),
+                     [x, dt, a_log, b, c, d, h_in], [gy])
+    _close(got, want, F64_REL, NAMES + ("h_in",))
+
+
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_state_pass_backward_equals_autograd_of_the_state_pass(case,
+                                                                with_gh):
+    chunk = CASES[case][6]
+    (x, dt, a_log, b, _, _), _, gh = (
+        _torch(a, torch.float64) if isinstance(a, list) else
+        torch.from_numpy(a).double() for a in _arrays(case))
+    states, decay = ref.ssd_chunk_states_plain(x, dt, a_log, b, chunk=chunk)
+    h_in, _ = ref.ssd_state_pass_plain(states, decay)
+    dh_in = torch.from_numpy(np.random.default_rng(1).normal(
+        size=tuple(h_in.shape)))
+    gh = gh if with_gh else None
+    got = ref.ssd_state_pass_bwd_plain(h_in, decay, dh_in, gh)
+    want = _autograd(ref.ssd_state_pass_plain, [states, decay], [dh_in, gh])
+    _close(got, want, F64_REL, ("states", "decay"))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chunk_states_backward_equals_autograd_of_the_chunk_states(case):
+    chunk = CASES[case][6]
+    (x, dt, a_log, b, _, _), _, _ = (
+        _torch(a, torch.float64) if isinstance(a, list) else
+        torch.from_numpy(a).double() for a in _arrays(case))
+    states, decay = ref.ssd_chunk_states_plain(x, dt, a_log, b, chunk=chunk)
+    r = np.random.default_rng(2)
+    dstates = torch.from_numpy(r.normal(size=tuple(states.shape)))
+    ddecay = torch.from_numpy(r.normal(size=tuple(decay.shape)))
+    got = ref.ssd_chunk_states_bwd_plain(x, dt, a_log, b, dstates, ddecay,
+                                         chunk=chunk)
+    want = _autograd(lambda *a: ref.ssd_chunk_states_plain(*a, chunk=chunk),
+                     [x, dt, a_log, b], [dstates, ddecay])
+    _close(got, want, F64_REL, NAMES[:4])
+
+
+# ---- the composition ---------------------------------------------------------
+
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_plain_equals_plain_backward_in_f64(case, with_gh):
+    chunk = CASES[case][6]
+    arrays, gy, gh = _arrays(case)
+    ins = _torch(arrays, torch.float64)
+    gy = torch.from_numpy(gy).double()
+    gh = torch.from_numpy(gh).double() if with_gh else None
+    got = ref.ssd_backward_plain(*ins, gy, gh, chunk=chunk)
+    want = ssd_mod.plain_backward(*ins, gy, gh, chunk=chunk)
+    _close(got, want, F64_REL)
+
+
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("case", MAMBA)
+def test_backward_plain_equals_plain_backward_in_f32(case, with_gh):
+    chunk = CASES[case][6]
+    arrays, gy, gh = _arrays(case)
+    ins = _torch(arrays, torch.float32)
+    gy = torch.from_numpy(gy)
+    gh = torch.from_numpy(gh) if with_gh else None
+    got = ref.ssd_backward_plain(*ins, gy, gh, chunk=chunk)
+    want = ssd_mod.plain_backward(*ins, gy, gh, chunk=chunk)
+    _close(got, want, dict({n: F32_REL for n in NAMES}, a_log=A_LOG_REL))
+
+
+@pytest.mark.parametrize("case", MAMBA)
+def test_backward_plain_equals_the_chunk_by_chunk_scan(case):
+    chunk = CASES[case][6]
+    arrays, gy, gh = _arrays(case)
+    ins = _torch(arrays, torch.float32)
+    gy, gh = torch.from_numpy(gy), torch.from_numpy(gh)
+    got = ref.ssd_backward_plain(*ins, gy, gh, chunk=chunk)
+    want = _autograd(lambda *a: ref.ssd_plain(*a, chunk=chunk), ins,
+                     [gy, gh])
+    _close(got, want, SSD_ORDER_REL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_plain_keeps_the_inputs_types(dtype):
+    """bf16 x, b and c give bf16 gradients (f32 sums, rounded once, as
+    autograd of the plain version rounds them), dt, a_log and d_skip f32
+    ones."""
+    arrays, gy, gh = _arrays("ragged")
+    ins = _torch(arrays, torch.float32)
+    for i in (0, 3, 4):
+        ins[i] = ins[i].to(dtype)
+    gy = torch.from_numpy(gy).to(dtype)
+    got = ref.ssd_backward_plain(*ins, gy, torch.from_numpy(gh), chunk=32)
+    want = ssd_mod.plain_backward(*ins, gy, torch.from_numpy(gh), chunk=32)
+    assert [g.dtype for g in got] == [t.dtype for t in ins]
+    _close(got, want, dict({n: 1e-2 if dtype == torch.bfloat16 else F32_REL
+                            for n in NAMES}, a_log=A_LOG_REL))
+
+
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("case", WHOLE)
+def test_backward_plain_matches_the_reference_vjp(case, with_gh):
+    """Against ``jax.vjp`` of the reference's ``ssd_chunked`` (S a whole
+    number of chunks, as it asks) on the same numpy inputs."""
+    chunk = CASES[case][6]
+    arrays, gy, gh = _arrays(case)
+    _, vjp = jax.vjp(lambda *a: ssd_chunked(*a, chunk=chunk),
+                     *map(jnp.asarray, arrays))
+    want = vjp((jnp.asarray(gy).astype(jnp.float32),
+                jnp.asarray(gh if with_gh else np.zeros_like(gh))))
+    got = ref.ssd_backward_plain(
+        *_torch(arrays, torch.float32), torch.from_numpy(gy),
+        torch.from_numpy(gh) if with_gh else None, chunk=chunk)
+    for g, w, name in zip(got, want, NAMES):
+        w = np.asarray(w, np.float32)
+        assert bool(torch.isfinite(g).all()), name
+        err = np.abs(g.numpy() - w).max()
+        assert err <= REF_REL * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("case", ["whole_chunks_strong", "ragged_strong"])
+def test_backward_plain_stays_finite_under_strong_decays(case):
+    """exp(cum_i - cum_j) above the diagonal overflows under strong decays;
+    the plain backward masks it before the exp, so every gradient is
+    finite, in f32 as in f64, and the two agree within 5e-4 (f32's own
+    cumsum over such chunks rounds each log-decay difference by some 1e-4:
+    4.3e-5 of a gradient here)."""
+    chunk = CASES[case][6]
+    arrays, gy, gh = _arrays(case)
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        got[dtype] = ref.ssd_backward_plain(
+            *_torch(arrays, dtype), torch.from_numpy(gy).to(dtype),
+            torch.from_numpy(gh).to(dtype), chunk=chunk)
+        assert all(bool(torch.isfinite(t).all()) for t in got[dtype])
+    _close([g.double() for g in got[torch.float32]], got[torch.float64],
+           5e-4)
+
+
+# ---- through the autograd Function ----------------------------------------
+
+@pytest.mark.parametrize("needs", ["all", "no_d_skip", "x_only"])
+@pytest.mark.parametrize("with_gh", [True, False])
+def test_function_takes_the_backward_seam(monkeypatch, with_gh, needs):
+    """``SSDScanFn``'s backward calls ``_scan_backward`` once with the
+    saved inputs, gy and gh (None where the final state has no gradient)
+    and hands back the gradients of the inputs that need one; with the
+    seam swapped for ``ref.ssd_backward_plain`` (and the forward's for the
+    plain scan) the Function gives autograd's gradients."""
+    calls = []
+
+    def backward(x, dt, a, b, c, d, gy, gh, chunk):
+        calls.append(gh is None)
+        return ref.ssd_backward_plain(x, dt, a, b, c, d, gy, gh, chunk=chunk)
+    monkeypatch.setattr(ssd_mod, "_scan", lambda x, dt, a, b, c, d, chunk:
+                        ref.ssd_chunked_plain(x, dt, a, b, c, d, chunk=chunk))
+    monkeypatch.setattr(ssd_mod, "_scan_backward", backward)
+    arrays, gy, gh = _arrays("ragged")
+    ins = _torch(arrays, torch.float32)
+    want_grad = {"all": NAMES, "no_d_skip": NAMES[:5], "x_only": NAMES[:1]}
+    for t, name in zip(ins, NAMES):
+        t.requires_grad_(name in want_grad[needs])
+    y, h = ssd_mod.SSDScanFn.apply(*ins, 32)
+    outs, grads = ((y, h), (torch.from_numpy(gy), torch.from_numpy(gh))) \
+        if with_gh else ((y,), (torch.from_numpy(gy),))
+    live = [t for t in ins if t.requires_grad]
+    got = torch.autograd.grad(outs, live, grads)
+    assert calls == [not with_gh]
+    yp, hp = ref.ssd_chunked_plain(*ins, chunk=32)
+    want = torch.autograd.grad((yp, hp)[:len(outs)], live, grads)
+    _close(got, want, dict({n: F32_REL for n in NAMES}, a_log=A_LOG_REL),
+           [n for n in NAMES if n in want_grad[needs]])
+
+
+def test_function_on_cpu_tensors_takes_plain_backward(monkeypatch):
+    """On CPU tensors (a test's: ``ssd_scan`` itself takes the plain scan
+    there) the backward seam runs ``plain_backward`` and launches
+    nothing."""
+    calls = []
+    plain = ssd_mod.plain_backward
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+    monkeypatch.setattr(ssd_mod, "plain_backward", counted)
+    monkeypatch.setattr(ssd_mod, "_scan", lambda x, dt, a, b, c, d, chunk:
+                        ref.ssd_chunked_plain(x, dt, a, b, c, d, chunk=chunk))
+    from repro_torch.kernels import _build
+    before = dict(_build.LAUNCHES)
+    arrays, gy, _ = _arrays("one_group")
+    ins = [t.requires_grad_() for t in _torch(arrays, torch.float32)]
+    y, _ = ssd_mod.SSDScanFn.apply(*ins, 32)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(gy))
+    assert calls == [1] and _build.LAUNCHES == before
+    want = torch.autograd.grad(ref.ssd_chunked_plain(*ins, chunk=32)[0], ins,
+                               torch.from_numpy(gy))
+    _close(got, want, F32_REL)

@@ -409,6 +409,14 @@ def _plain_launchers(monkeypatch):
     monkeypatch.setattr(fa, "_launch_backward", _plain_attention_backward)
     monkeypatch.setattr(ssd_mod, "_scan", lambda x, dt, a, b, c, d, chunk:
                         ssd_ref.ssd_plain(x, dt, a, b, c, d, chunk=chunk))
+    # B8's backward seam: autograd of the chunk-parallel plain version (the
+    # explicit formulas, ref.ssd_backward_plain, round a_log's gradient
+    # apart from it by more than this file's 1e-6; tests/test_torch_ssd_grad.py
+    # holds them)
+    monkeypatch.setattr(ssd_mod, "_scan_backward",
+                        lambda x, dt, a, b, c, d, gy, gh, chunk:
+                        ssd_mod.plain_backward(x, dt, a, b, c, d, gy, gh,
+                                               chunk=chunk))
 
 
 def _grad_close(got, want, rel):

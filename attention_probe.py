@@ -1,7 +1,9 @@
-"""Time the flash-attention kernel (B7) on the card for one checkout of the
-port, to compare commits.
+"""Time the flash-attention kernel (B7) and the SSD scan's backward (B8's
+gradient) on the card for one checkout of the port, to compare commits.
 
-    python3 attention_probe.py [--src DIR] [--tag NAME] [--backward]
+    python3 attention_probe.py [--src DIR] [--tag NAME]
+        [--backward [--dtype TYPE] [--split auto|loop|split] [--errors]]
+        [--ssd]
 
 One line, ``[NAME]`` and then, for each shape of ``chip_smoke.py``'s
 served prefills (llama3-8b: 4 x 2,000 x 32 x 128, GQA 4; qwen2-vl: 28
@@ -23,9 +25,24 @@ from the forward kernel's o and lse on the same inputs, 20 calls after
 granite-moe (4,096 x 24 of 64 over 8 kv heads, causal), qwen2-vl (4,096
 x 28 of 128 over 4 kv heads, masked by Qwen2-VL's positions), whisper's
 encoder (1,500 x 20 x 64, non-causal) and cross-attention (416 queries
-over 1,500 frames), all in bf16, and stablelm-3b's shape in f32; beside
-each, the device ms a call of each of its kernels (the names under
-``bwd::``), from ``torch.profiler`` over 5 more calls.
+over 1,500 frames), each in bf16 and in f32; beside each, the device ms
+a call of each of its kernels (the names under ``bwd::``), from
+``torch.profiler`` over 5 more calls.  ``--dtype`` keeps the shapes of
+one type; ``--split`` makes every GQA shape take the group loop or the
+split by q head in dK / dV (``_splits_group``; ``auto`` leaves the
+wrapper's rule); ``--errors`` adds, for each shape, the worst error of
+dq, dk and dv as a share of that gradient's largest magnitude, against
+``plain_backward`` (f32 scores) and against autograd of the same
+function in f64.
+
+``--ssd`` times B8's backward instead: for mamba2-780m's training step
+(x 4 x 4,096 x 48 x 64 bf16, b and c 4 x 4,096 x 1 x 128, chunk 128, gh
+absent) and jamba's widths (x 4 x 4,096 x 128 x 64, b and c ds 16), the
+mean milliseconds of ``_scan_backward`` over 20 calls after 3 (CUDA
+events), each of its five passes alone on the same buffers
+(``run_backward_passes``), and the chunk pass's blocks an SM and shared
+bytes a block (``backward_occupancy``).  Its inputs are drawn in
+Mamba-2's init ranges (dt in [0.001, 0.1], A in [1, 16]).
 """
 from __future__ import annotations
 
@@ -46,7 +63,58 @@ BACKWARD_SHAPES = (
     ("qwen2-vl position", 4096, 4096, 28, 4, 128, "bfloat16", "position"),
     ("whisper encoder", 1500, 1500, 20, 20, 64, "bfloat16", "none"),
     ("whisper cross", 416, 1500, 20, 20, 64, "bfloat16", "none"),
-    ("stablelm-3b f32", 4096, 4096, 32, 32, 80, "float32", "causal"))
+    ("stablelm-3b f32", 4096, 4096, 32, 32, 80, "float32", "causal"),
+    ("granite-moe f32", 4096, 4096, 24, 8, 64, "float32", "causal"),
+    ("qwen2-vl position f32", 4096, 4096, 28, 4, 128, "float32",
+     "position"),
+    ("whisper encoder f32", 1500, 1500, 20, 20, 64, "float32", "none"),
+    ("whisper cross f32", 416, 1500, 20, 20, 64, "float32", "none"))
+# B8's backward: name, batch, heads, head dim, groups, state
+SSD_SHAPES = (("mamba2-780m train", 4, 48, 64, 1, 128),
+              ("jamba widths", 4, 128, 64, 1, 16))
+SSD_SEQ, SSD_CHUNK = 4_096, 128
+
+
+def attention_f64(q, k, v, causal, q_pos, k_pos):
+    """``ref.attention_plain``'s function with every operation in f64."""
+    import torch
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * d ** -0.5
+    if causal:
+        keep = (torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+                if q_pos is None else
+                q_pos[:, None, None, :, None] >= k_pos[:, None, None, None, :])
+        scores = torch.where(keep, scores, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v) / p.sum(-1, keepdim=True)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def backward_f64(go, q, k, v, causal, q_pos, k_pos):
+    """(dq, dk, dv) of ``attention_f64`` in f64, a kv head at a time."""
+    import torch
+    g = q.shape[2] // k.shape[2]
+    out = [torch.empty(t.shape, dtype=torch.float64, device=t.device)
+           for t in (q, k, v)]
+    for hk in range(k.shape[2]):
+        qh, kh = slice(hk * g, (hk + 1) * g), slice(hk, hk + 1)
+        parts = [t[:, :, sl].double().requires_grad_()
+                 for t, sl in ((q, qh), (k, kh), (v, kh))]
+        with torch.enable_grad():
+            o = attention_f64(*parts, causal, q_pos, k_pos)
+            grads = torch.autograd.grad(o, parts, go[:, :, qh].double())
+        for dst, sl, grad in zip(out, (qh, kh, kh), grads):
+            dst[:, :, sl] = grad
+    return out
+
+
+def worst(got, want):
+    """The largest of max |got - want| / max |want| over the gradients."""
+    return max(float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want))
 
 
 def main(argv=None) -> int:
@@ -56,15 +124,21 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--backward", action="store_true",
                     help="time the backward kernel at the training shapes")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    help="with --backward: the shapes of this type only")
+    ap.add_argument("--split", choices=("auto", "loop", "split"),
+                    default="auto",
+                    help="with --backward: force the GQA path of dK / dV")
+    ap.add_argument("--errors", action="store_true",
+                    help="with --backward: the worst error of each shape")
+    ap.add_argument("--ssd", action="store_true",
+                    help="time B8's backward and its passes")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         print("attention_probe: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    takes_positions = "q_pos" in inspect.signature(
-        fa.flash_attention).parameters
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -83,6 +157,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
+    if args.ssd:
+        return ssd_backward(args.tag, dev, g, ms)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    if args.split != "auto":
+        forced = args.split == "split"
+        fa._splits_group = lambda device, b, h, kvh, *rest: forced and \
+            h != kvh
+    takes_positions = "q_pos" in inspect.signature(
+        fa.flash_attention).parameters
     def by_kernel(fn, reps=5):
         """Device ms a call of each kernel named under ``bwd::``."""
         from torch.profiler import ProfilerActivity, profile
@@ -104,6 +187,8 @@ def main(argv=None) -> int:
     if args.backward:
         out = []
         for name, sq, sk, h, kvh, d, dt, mask in BACKWARD_SHAPES:
+            if args.dtype not in (None, dt):
+                continue
             dtype = getattr(torch, dt)
             q, go = (randn(1, sq, h, d, dtype=dtype) for _ in range(2))
             k, v = (randn(1, sk, kvh, d, dtype=dtype) for _ in range(2))
@@ -117,8 +202,20 @@ def main(argv=None) -> int:
             o = fa._launch(q, k, v, causal, pos, pos, lse)
             run = lambda: fa._launch_backward(go, q, k, v, o, lse,  # noqa
                                               causal, pos, pos)
-            out.append(f"{name} {ms(run):.4f} ({by_kernel(run)})")
+            row = f"{name} {ms(run):.4f} ({by_kernel(run)}"
+            if args.errors:
+                got = run()
+                plain = fa.plain_backward(q, k, v, go, causal=causal,
+                                          q_pos=pos, k_pos=pos)
+                exact = backward_f64(go, q, k, v, causal, pos, pos)
+                row += (f"; worst error {worst(got, plain):.3e} against "
+                        f"plain_backward, {worst(got, exact):.3e} against "
+                        f"f64; plain_backward {worst(plain, exact):.3e} "
+                        "against f64")
+                del got, plain, exact
+            out.append(row + ")")
             del q, k, v, go, o, lse
+            torch.cuda.empty_cache()
         print(f"[{args.tag}] backward: " + "; ".join(out), flush=True)
         return 0
     i = torch.arange(SEQ, device=dev)
@@ -139,6 +236,44 @@ def main(argv=None) -> int:
                     ".4f"))
         del q, k, v
     print(f"[{args.tag}] " + "; ".join(out), flush=True)
+    return 0
+
+
+def ssd_backward(tag, dev, g, ms) -> int:
+    """B8's backward at ``SSD_SHAPES``: the whole, each pass, occupancy."""
+    import torch
+    from repro_torch.kernels.ssd import ssd as ssd_kernels
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    out = []
+    for name, bsz, nh, hd, ng, ds in SSD_SHAPES:
+        ins = (randn(bsz, SSD_SEQ, nh, hd),
+               uniform(0.001, 0.1, bsz, SSD_SEQ, nh),
+               torch.log(uniform(1.0, 16.0, nh)),
+               randn(bsz, SSD_SEQ, ng, ds), randn(bsz, SSD_SEQ, ng, ds),
+               randn(nh, dtype=torch.float32))
+        gy = randn(bsz, SSD_SEQ, nh, hd)
+        whole = ms(lambda: ssd_kernels._scan_backward(*ins, gy, None,
+                                                      SSD_CHUNK))
+        bufs = ssd_kernels.backward_buffers(ins[0], ins[3], SSD_CHUNK)
+
+        def one(p):
+            return ms(lambda: ssd_kernels.run_backward_passes(
+                *ins, gy, None, bufs=bufs, chunk=SSD_CHUNK, passes=(p,)))
+        passes = ", ".join(f"{p} {one(p):.4f}"
+                           for p in ssd_kernels.BACKWARD_PASSES)
+        blocks, smem = ssd_kernels.backward_occupancy(
+            torch.bfloat16, hd, ds, SSD_CHUNK)["chunk"]
+        out.append(f"{name} {whole:.4f} ({passes}; chunk pass {blocks} "
+                   f"block(s) an SM, {smem} shared bytes)")
+        del ins, gy, bufs
+        torch.cuda.empty_cache()
+    print(f"[{tag}] ssd backward: " + "; ".join(out), flush=True)
     return 0
 
 

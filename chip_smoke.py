@@ -3231,14 +3231,12 @@ def phase_lm_kernels(dev):
         past 128-row q tiles for dQ), under the position mask the tile
         lists (``fa_ref.kv_tile_visits``: the forward's list for dQ is the
         same rule with the roles of the tile sizes swapped); f32 64-row
-        tiles, every pair under the position mask."""
+        tiles past 64-row steps (32-row above D 64), the same lists under
+        the position mask."""
         sq, sk = q.shape[1], k.shape[1]
-        bf16 = q.dtype == torch.bfloat16
         _, bk, cq = fa.BACKWARD_BLOCKS[fa.route(q.dtype, q.shape[3])]
         bq, ck = fa.backward_steps(q.dtype, q.shape[3])
         if q_pos is not None:
-            if not bf16:
-                return 1.0, 1.0
             return tuple(float(fa_ref.kv_tile_visits(
                 q_pos, k_pos, q_tile=qt, kv_tile=kt).float().mean())
                 for qt, kt in ((bq, bk), (cq, ck)))
@@ -3300,7 +3298,11 @@ def phase_lm_kernels(dev):
         size = q.element_size()
         pos_bytes = 0 if q_pos is None else 4 * (q_pos.numel()
                                                  + k_pos.numel())
+        # the scores again, dV, dP, dQ and dK over the kept pairs, 2
+        # operations a multiply-add; f32 as split TF32: three tensor-core
+        # products for each
         ops = 10 * d * pairs
+        steps = fa.backward_steps(dtype, d)
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention"
@@ -3316,7 +3318,8 @@ def phase_lm_kernels(dev):
             # written once
             bytes=size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
             + 4 * lse.numel() + pos_bytes,
-            ops=ops, ops_type="bf16" if size == 2 else "f32",
+            ops=ops if size == 2 else 3 * ops,
+            ops_type="bf16" if size == 2 else "tf32",
             counted_in=counted_in, counter=fa.BACKWARD_COUNTER[rt],
             shape=f"{arch}: q=({b}, {sq}, {h}, {d}), k, v=({b}, {sk}, {kvh}, "
                   f"{d}) {tname}, {mask}, backward "
@@ -3324,10 +3327,17 @@ def phase_lm_kernels(dev):
                      "128-row kv tile, dQ by 128-row q tile"
                      + (", a block a q head" if fa._splits_group(
                          q.device, b, h, kvh, sk) else "")
-                     if size == 2 else "on f32 FMAs, 64-row tiles")))
+                     if size == 2 else
+                     "on split-TF32 mma.sync (three tensor-core products), "
+                     f"64-row tiles, {steps[0]}-row steps, a block a q head"
+                     + (", the group's shares summed in order"
+                        if h != kvh else ""))))
         seen_kv, seen_q = b7_bwd_visits(q, k, causal, q_pos, k_pos)
         extra = (f"; tile pairs visited: dK / dV {seen_kv:.1%}, dQ "
                  f"{seen_q:.1%}")
+        if size == 4:
+            extra += ("; bound on the f32 CUDA cores "
+                      f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
         if q_pos is not None:
             extra += f"; {pairs / (b * h * sq * sk):.1%} of the pairs kept"
         finish_row(rows[-1], agree=f"{tname} max abs err {err:.3e}, worst "
@@ -3458,10 +3468,14 @@ def phase_lm_kernels(dev):
             counter=ssd_kernels.BACKWARD_COUNTER[rt],
             shape=f"{arch}: x=({bsz}, {s_len}, {nh}, {hd}) {tname}, dt f32, "
                   f"b, c=({bsz}, {s_len}, {ng}, {ds}) {tname}, chunk 128, "
-                  f"gh absent, backward on the {rt} route")
+                  f"gh absent, backward on the {rt} route"
+                  + (", chunk pass on wgmma" if rt == "tc" else ""))
+        blocks, smem = ssd_kernels.backward_occupancy(dtype, hd, ds,
+                                                      128)["chunk"]
         log(f"  {name} passes: " + ", ".join(
             f"{p} {ms:.4f} ms" for p, ms in pass_ms.items())
-            + f" (sum {sum(pass_ms.values()):.4f})")
+            + f" (sum {sum(pass_ms.values()):.4f}); chunk pass "
+            f"{blocks} block(s) an SM, {smem} shared bytes a block")
         finish_row(row, agree=f"{tname} max abs err {err:.3e}, worst "
                    f"{worst:.2e} of a gradient's largest magnitude (bound "
                    f"{SSD_GRAD_TOL[tname]}"

@@ -79,7 +79,7 @@ SIGNATURES = {
     "flash_attention_f32_fwd": ("flash_attention",
                                 (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _P, _P, _F32, _P)),
-    # go, q, k, v, o, lse, delta (scratch), [part (scratch or null),] dq,
+    # go, q, k, v, o, lse, delta (scratch), part (scratch or null), dq,
     # dk, dv, b, sq, sk, h, kv_heads, d, causal, q_pos, k_pos, scale,
     # stream
     "flash_attention_tc_bwd": ("flash_attention_bwd",
@@ -87,7 +87,7 @@ SIGNATURES = {
                                 _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                                 _P, _P, _F32, _P)),
     "flash_attention_f32_bwd": ("flash_attention",
-                                (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                                  _P, _P, _F32, _P)),
     # x, dt, a_log, b, c, d_skip, y, h_out, states, decay, bsz, seq, nh,

@@ -1,6 +1,7 @@
 // Flash attention (online softmax) for Hopper (sm_90a), on the tensor cores
 // in both of its types, and the float32 route of its backward (namespace
-// bwd, below; the bfloat16 backward is flash_attention_bwd.cu).
+// bwd, below: split TF32 on mma.sync as the forward's f32 route; the
+// bfloat16 backward is flash_attention_bwd.cu).
 //
 // Replaces: flash_attention / _flash_kernel in
 //   src/repro/kernels/flash_attention/flash_attention.py; the backward
@@ -527,22 +528,27 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// x = hi + lo: hi = tf32(x), lo = tf32 of the remainder, which x - hi
-// holds exactly.
+// x = hi + lo: hi = tf32(x), lo = the remainder, which x - hi holds
+// exactly, rounded to TF32 too (kRoundLo) or left whole: the tensor cores
+// then read its 19 high bits, dropping under 2^-11 of lo (|lo| <= 2^-12
+// |x|), two integer operations fewer.
+template <bool kRoundLo = true>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  const float rest = x - __uint_as_float(hi);
+  lo = kRoundLo ? tf32_rna(rest) : __float_as_uint(rest);
 }
 
 // The A operand (16 x 8, row) of one k step from its four elements: rows
 // g and g + 8 at k index t (x0, x1) and t + 4 (x2, x3), split.
+template <bool kRoundLo = true>
 __device__ __forceinline__ void split_a(float x0, float x1, float x2,
                                         float x3, uint32_t (&hi)[4],
                                         uint32_t (&lo)[4]) {
-  split(x0, hi[0], lo[0]);
-  split(x1, hi[1], lo[1]);
-  split(x2, hi[2], lo[2]);
-  split(x3, hi[3], lo[3]);
+  split<kRoundLo>(x0, hi[0], lo[0]);
+  split<kRoundLo>(x1, hi[1], lo[1]);
+  split<kRoundLo>(x2, hi[2], lo[2]);
+  split<kRoundLo>(x3, hi[3], lo[3]);
 }
 
 // D (16 x 8, f32) += A (16 x 8, tf32, row) . B (8 x 8, tf32, col).
@@ -556,12 +562,13 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 
 // d += a . b with a and b split (b's k indices t and t + 4 in b0, b1):
 // the small terms first, then hi . hi.
+template <bool kRoundLo = true>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0,
                                      float b1) {
   uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
+  split<kRoundLo>(b0, bh0, bl0);
+  split<kRoundLo>(b1, bh1, bl1);
   mma(d, al, bh0, bh1);
   mma(d, ah, bl0, bl1);
   mma(d, ah, bh0, bh1);
@@ -824,28 +831,59 @@ template <int D> struct Launch {
 //   dS = P o (dP - Delta)      (0 wherever the mask drops a pair)
 //   dQ = scale dS . K          dK = scale dS^T . Q
 // in three launches: (a) Delta in f32 into the wrapper's scratch; (b) one
-// block per (64-row kv tile, b * KV + kv head) loops over the q heads of
-// its group and the q tiles that keep a key of its tile, and writes dK and
-// dV once; (c) one block per (64-row q tile, b * H + h) loops over the kv
-// tiles it keeps and writes dQ once.  No block adds into another's output
-// and no sum uses atomics, so two calls give the same bits; GQA's sum over
-// a group of q heads stays inside the block of (b).  The bfloat16 route
-// (wgmma, TMA, warp specialisation) is flash_attention_bwd.cu.
+// block per (64-row kv tile, b * H + h) loops over the q tiles that keep a
+// key of its tile and writes dK and dV once, or with GQA its q head's
+// share of them into f32 scratch, which (d) group_sum_kernel adds up in
+// the order of the group's q heads (one block a q head measured no slower
+// than a block looping over the group at granite-moe's shape, and 28%
+// faster at qwen2-vl's, whose group loop had too few blocks: PERF.md);
+// (c) one block per (64-row q tile, b * H + h) loops over the kv tiles it
+// keeps and writes dQ once.  No block adds into another's output and no
+// sum uses atomics, so two calls give the same bits.  The bfloat16 route (wgmma, TMA, warp specialisation) is
+// flash_attention_bwd.cu.
 // Bound: operations.  The scores are computed again, then dV, dP, dQ and
-// dK: 2.5 times the forward's Q.K^T and P.V, over the kept pairs.
-// Design, the simple one: a warp owns 16 rows of the block's tile, tiles
-// of its operands stage in shared memory by cp.async (rows padded by 16
-// bytes; rows past S read as zeros), and every product is one of two
-// warp-level forms (`Mma`): C = A . B^T with both from shared memory, and
-// C += A . B with A the f32 fragments of an earlier product, as FMAs on
-// the CUDA cores in mma.sync's fragment layout (a thread holds rows g and
-// g + 8 and columns 2t and 2t + 1, g = lane / 4, t = lane % 4); the second
-// form's A goes through a 16-row scratch of the warp in shared memory.
+// dK: 2.5 times the forward's Q.K^T and P.V over the kept pairs, each a
+// split-TF32 product of three tensor-core products (at stablelm-3b's
+// training shape 3 x 214.8 GFLOP, 1.30 ms at the card's TF32 rate).
+// Design: a block of four warps, a warp owning 16 rows of the block's
+// 64-row tile; the block's own tiles and the streamed tiles of each step
+// (64 rows up to D 64, else 32, so that two or three blocks share an SM)
+// stage in shared memory by cp.async, rows of D + 4 floats (rows past S
+// read as zeros).  Every product is mma.sync m16n8k8 TF32 with both
+// operands split, x = hi + lo, and a . b = lo.hi + hi.lo + hi.hi summed in
+// f32, as the forward's f32 route does (its lo unrounded here: kRoundLo),
+// in two forms:
+//   `abt`  C = A . B^T, both from shared memory (S^T = K . Q^T and
+//          dP^T = V . dO^T in (b), S = Q . K^T and dP = dO . V^T in (c)),
+//          each element split where a thread reads it;
+//   `ab`   C += P . B, P the f32 accumulator fragments of an earlier
+//          product, fed straight from registers: k step kk's accumulator
+//          holds columns 2t and 2t + 1 where the A operand wants k indices
+//          t and t + 4, so the k step is permuted (A's t is column 2t, its
+//          t + 4 column 2t + 1) and B's rows are read in that order, as the
+//          forward's P.V does (dV += P^T . dO, dK += dS^T . Q in (b),
+//          dQ += dS . K in (c)).  Each step's product is summed apart and
+//          added to the running gradient in f32: the tensor cores' own
+//          accumulation would carry its error along every q (kv) tile.
 // The mask is a uniform run-time switch (0 none, 1 by index, 2 by
-// position).  By index, (b) starts at the q tile that holds its first kv
-// row and (c) stops at the kv tile that holds its last q row; by position,
-// every tile pair is visited and masked per element.
+// position), applied per element only in a tile pair that holds a masked
+// pair or a ragged edge.  By index, (b) starts at the q tile that holds
+// its first kv row and (c) stops at the kv tile that holds its last q row;
+// by position, (c) walks the kv tiles the forward's `position_tiles` lists
+// for its q tile and (b) the q tiles `kv_position_tiles` lists for its kv
+// tile (common.cuh; the bf16 route walks the same lists): a q tile with a
+// row that keeps no key is on every kv tile's list, since such a row
+// averages every key and adds 1 / Sk . dO to every kv row's dV.  Rows past
+// S read as zeros: a q row past Sq, with lse and Delta read as 0, adds
+// nothing to dK or dV in an unmasked tile pair.
 namespace bwd {
+
+using tf32::mma3;
+using tf32::split_a;
+
+// lo left unrounded in every split (tf32::split): 8% faster than rounded
+// at stablelm-3b's shape; PERF.md has both variants' errors
+constexpr bool kRoundLo = false;
 
 constexpr int kWarps = 4;
 constexpr int kBlock = 32 * kWarps;
@@ -854,6 +892,12 @@ constexpr int kDeltaWarps = 8;            // (a): one warp a row
 constexpr float kDead = 0.5f * kNegInf;   // lse at or below: no key kept
 
 enum Mask { kNone = 0, kByIndex = 1, kByPos = 2 };
+
+// The rows a step streams past a block's own tile (q rows in (b), kv rows
+// in (c)), and a staged row's floats: with ld = 4 (mod 16) both product
+// forms read shared memory with no bank conflict (below).
+template <int D> constexpr int kStep = D <= 64 ? 64 : 32;
+template <int D> constexpr int kLd = D + 4;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -866,115 +910,117 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows first .. first + kN - 1 of a (B, S, heads, D) tensor's (b, head)
-// slice (`src` at its row 0, `stride` elements a row) into a tile of kN
-// rows of ld elements; rows at or past n are zeros.  Every thread of the
+// slice (`src` at its row 0, `stride` floats a row) into a tile of kN rows
+// of kLd<D> floats; rows at or past n are zeros.  Every thread of the
 // block calls this; the caller waits (cp_async_wait_all, __syncthreads).
-template <typename T, int D, int kN>
-__device__ __forceinline__ void load_rows(T* tile, int ld, const T* src,
+template <int D, int kN>
+__device__ __forceinline__ void load_rows(float* tile, const float* src,
                                           int64_t stride, int first, int n) {
-  constexpr int kPer = 16 / sizeof(T);     // elements a 16-byte chunk
-  constexpr int kChunks = D / kPer;
+  constexpr int kChunks = D / 4;
   for (int i = threadIdx.x; i < kN * kChunks; i += kBlock) {
     const int r = i / kChunks, c = i % kChunks;
-    T* dst = tile + r * ld + c * kPer;
+    float* dst = tile + r * kLd<D> + 4 * c;
     if (first + r < n)
-      cp_async16(dst, src + (first + r) * stride + c * kPer);
+      cp_async16(dst, src + (first + r) * stride + 4 * c);
     else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-template <typename T> struct Mma;
-
-// float32 on the CUDA cores, in the same fragment layout.
-template <> struct Mma<float> {
-  using T = float;
-  static constexpr int kPad = 4;          // 16 bytes a row
-
-  template <int K, int N>
-  static __device__ __forceinline__ void abt(float (&c)[N / 8][4],
-                                             const T* a, int lda, const T* b,
-                                             int ldb) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+// C (16 x N) = A . B^T over K columns: A the warp's 16 rows of a staged
+// tile, B N rows of another.  In a k step of 8 columns the thread reads
+// A's rows g and g + 8 and B's row 8 j + g at columns t and t + 4: word g
+// ld + t, which with ld = 4 (mod 16) puts a warp's 32 reads in 32 banks.
+template <int K, int N, int ld>
+__device__ __forceinline__ void abt(float (&c)[N / 8][4], const float* a,
+                                    const float* b) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8) {
+    uint32_t ah[4], al[4];
+    split_a<kRoundLo>(a[g * ld + k + t], a[(g + 8) * ld + k + t],
+                      a[g * ld + k + t + 4], a[(g + 8) * ld + k + t + 4], ah,
+                      al);
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
+      mma3<kRoundLo>(c[j], ah, al, b[(8 * j + g) * ld + k + t],
+                     b[(8 * j + g) * ld + k + t + 4]);
+  }
+}
+
+// C (16 x D) += P . B: P (16 x K) the accumulator fragments of an earlier
+// product, B K rows of a staged tile.  k step kk takes B's rows 8 kk + 2t
+// and 8 kk + 2t + 1 (the permutation above).  Columns go by pairs of n
+// tiles: tiles 2m and 2m + 1 take, at the thread's n index g, columns 16 m
+// + 2g and 16 m + 2g + 1 of one 8-byte read (32 banks over each half-warp
+// with ld = 4 (mod 16)), so the thread's accumulators of the pair hold
+// columns 16 m + 4t .. 16 m + 4t + 3 of its rows (`store_rows`).  Two
+// pairs at a time are summed over K apart from C and then added to it.
+template <int K, int D, int ld>
+__device__ __forceinline__ void ab(float (&c)[D / 8][4],
+                                   const float (&p)[K / 8][4],
+                                   const float* b) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  constexpr int kPairs = D / 16;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < K; k += 4) {
-      const float4 x0 = *reinterpret_cast<const float4*>(a + g * lda + k);
-      const float4 x1 =
-          *reinterpret_cast<const float4*>(a + (g + 8) * lda + k);
+  for (int m0 = 0; m0 < kPairs; m0 += 2) {
+    float s[4][4];
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const float4 y0 =
-            *reinterpret_cast<const float4*>(b + (8 * j + 2 * t) * ldb + k);
-        const float4 y1 = *reinterpret_cast<const float4*>(
-            b + (8 * j + 2 * t + 1) * ldb + k);
-        c[j][0] = fmaf(x0.w, y0.w, fmaf(x0.z, y0.z,
-                  fmaf(x0.y, y0.y, fmaf(x0.x, y0.x, c[j][0]))));
-        c[j][1] = fmaf(x0.w, y1.w, fmaf(x0.z, y1.z,
-                  fmaf(x0.y, y1.y, fmaf(x0.x, y1.x, c[j][1]))));
-        c[j][2] = fmaf(x1.w, y0.w, fmaf(x1.z, y0.z,
-                  fmaf(x1.y, y0.y, fmaf(x1.x, y0.x, c[j][2]))));
-        c[j][3] = fmaf(x1.w, y1.w, fmaf(x1.z, y1.z,
-                  fmaf(x1.y, y1.y, fmaf(x1.x, y1.x, c[j][3]))));
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_a<kRoundLo>(p[kk][0], p[kk][2], p[kk][1], p[kk][3], ah, al);
+      const float* r0 = b + (8 * kk + 2 * t) * ld + 2 * g;
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        if (m0 + mm >= kPairs) continue;
+        const float2 y0 =
+            *reinterpret_cast<const float2*>(r0 + 16 * (m0 + mm));
+        const float2 y1 =
+            *reinterpret_cast<const float2*>(r0 + ld + 16 * (m0 + mm));
+        mma3<kRoundLo>(s[2 * mm], ah, al, y0.x, y1.x);
+        mma3<kRoundLo>(s[2 * mm + 1], ah, al, y0.y, y1.y);
       }
     }
-  }
-
-  // A's fragments are written to the warp's scratch (16 x (K + 4) f32),
-  // then read back whole rows at a time.
-  template <int K, int N>
-  static __device__ __forceinline__ void ab(float (&c)[N / 8][4],
-                                            const float (&p)[K / 8][4],
-                                            float* scratch, const T* b,
-                                            int ldb) {
-    constexpr int lds = K + 4;
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-    for (int j = 0; j < K / 8; ++j) {
-      *reinterpret_cast<float2*>(scratch + g * lds + 8 * j + 2 * t) =
-          make_float2(p[j][0], p[j][1]);
-      *reinterpret_cast<float2*>(scratch + (g + 8) * lds + 8 * j + 2 * t) =
-          make_float2(p[j][2], p[j][3]);
+    for (int j = 0; j < 4; ++j) {
+      if (2 * m0 + j >= D / 8) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[2 * m0 + j][e] += s[j][e];
     }
-    __syncwarp();
-#pragma unroll 2
-    for (int k = 0; k < K; k += 4) {
-      const float4 x0 =
-          *reinterpret_cast<const float4*>(scratch + g * lds + k);
-      const float4 x1 =
-          *reinterpret_cast<const float4*>(scratch + (g + 8) * lds + k);
-      const float a0[4] = {x0.x, x0.y, x0.z, x0.w};
-      const float a1[4] = {x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-          const float2 y = *reinterpret_cast<const float2*>(
-              b + (k + i) * ldb + 8 * j + 2 * t);
-          c[j][0] = fmaf(a0[i], y.x, c[j][0]);
-          c[j][1] = fmaf(a0[i], y.y, c[j][1]);
-          c[j][2] = fmaf(a1[i], y.x, c[j][2]);
-          c[j][3] = fmaf(a1[i], y.y, c[j][3]);
-        }
-    }
-    __syncwarp();
   }
-};
+}
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-// The thread's two values of columns 2t, 2t + 1 of an accumulator row.
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+// The thread's rows r0 and r0 + 8 (below n) of an `ab` accumulator times
+// `mul` into rows `stride` floats apart at `out`.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, int64_t stride,
+                                           int r0, int n,
+                                           const float (&acc)[D / 8][4],
+                                           float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + 8 * r >= n) continue;
+    float* row = out + (r0 + 8 * r) * stride + 4 * t;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m)
+      *reinterpret_cast<float4*>(row + 16 * m) = make_float4(
+          mul * acc[2 * m][2 * r], mul * acc[2 * m + 1][2 * r],
+          mul * acc[2 * m][2 * r + 1], mul * acc[2 * m + 1][2 * r + 1]);
+  }
 }
 
 // (a) Delta (B, H, Sq) f32 = rowsum(dO o O): one warp a (b, i, h) row.
-template <typename T>
 __global__ void __launch_bounds__(32 * kDeltaWarps)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ go,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ go,
              float* __restrict__ delta, int64_t rows, int32_t seq_q,
              int32_t heads, int32_t d) {
   const int64_t row =
@@ -983,7 +1029,7 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ go,
   const int lane = threadIdx.x % 32;
   float acc = 0.f;
   for (int c = lane; c < d; c += 32)
-    acc = fmaf(to_f32(o[row * d + c]), to_f32(go[row * d + c]), acc);
+    acc = fmaf(o[row * d + c], go[row * d + c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -996,73 +1042,116 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ go,
   }
 }
 
+// The GQA group's dK and dV from the q heads' shares (`part`: f32, dK's
+// (B, Sk, H, D) then dV's, `plane` floats apart), added in the order of the
+// group's q heads, dK times `scale`: a thread a 4-column chunk of a (b, j,
+// kv head) row.
+__global__ void __launch_bounds__(32 * kDeltaWarps)
+group_sum_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                 float* __restrict__ dv, int64_t chunks, int64_t plane,
+                 int32_t kv_heads, int32_t group, int32_t d, float scale) {
+  const int64_t c =
+      static_cast<int64_t>(blockIdx.x) * (32 * kDeltaWarps) + threadIdx.x;
+  if (c >= chunks) return;
+  const int64_t row = c / (d / 4);           // (b * Sk + j) * KV + hk
+  const int col = static_cast<int>(c % (d / 4)) * 4;
+  const int64_t bj = row / kv_heads;
+  const int hk = static_cast<int>(row % kv_heads);
+  const float* src =
+      part + (bj * kv_heads + hk) * static_cast<int64_t>(group) * d + col;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const float* p = src + which * plane;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < group; ++g) {
+      const float4 y = __ldg(reinterpret_cast<const float4*>(p + g * d));
+      x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+    }
+    const float mul = which == 0 ? scale : 1.f;
+    *reinterpret_cast<float4*>((which == 0 ? dk : dv) + row * d + col) =
+        make_float4(mul * x.x, mul * x.y, mul * x.z, mul * x.w);
+  }
+}
+
 // The arguments of the backward's launches.
 struct BwdArgs {
-  const void *go, *q, *k, *v, *o;
+  const float *go, *q, *k, *v, *o;
   const float* lse;
   float* delta;                 // scratch (B, H, Sq) f32
-  void *dq, *dk, *dv;
+  float* part;                  // scratch 2 x (B, Sk, H, D) f32, or null
+  float *dq, *dk, *dv;
   int32_t b, sq, sk, h, kvh, mask;
   const int32_t *q_pos, *k_pos;
   float scale;
   cudaStream_t stream;
 };
 
-// q rows a step of (b) and kv rows a step of (c): at D above 64 a step of
-// 32 q rows keeps (b)'s dK and dV accumulators (D / 2 registers each) and
-// its two score tiles within a thread's registers.
-template <int D> constexpr int kStepB = D <= 64 ? 64 : 32;
-constexpr int kStepC = 64;
-
-// Shared memory of (b) and (c) in bytes: two tiles of the block's own rows,
-// two tiles of a step's rows, the step's per-row lse, Delta and positions
-// ((b) only; (c) keeps its rows' in registers), and the f32 route's scratch.
-template <typename T, int D, int kStep>
-constexpr int bwd_smem(bool scratch) {
-  return 2 * (kRows + kStep) * (D + Mma<T>::kPad) * static_cast<int>(
-             sizeof(T)) + 3 * kStep * 4 +
-         (scratch ? kWarps * 16 * (kStep + 4) * 4 : 0);
+// Shared memory of (b) and (c) in bytes: two tiles of the block's own
+// rows, two of a step's, `per_row` ints for each row of a step, and the
+// position mask's `stats` ints.
+template <int D>
+constexpr int bwd_smem(int per_row, int stats) {
+  return 4 * ((2 * kRows + 2 * kStep<D>) * kLd<D> + per_row * kStep<D> +
+              stats);
 }
 
-// (b) dK and dV of one 64-row kv tile of kv head hk in batch row b.
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlock)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ go,
+// (b) dK and dV of one 64-row kv tile of q head h's kv head hk in batch
+// row b; with GQA (`part` given) h's share of them goes to `part` (f32,
+// dK's (B, Sk, H, D) then dV's) for group_sum_kernel to add up.  At D 80
+// three blocks' shared memory fits an SM, and the registers are held to
+// three blocks' share (168 a thread, spilling 120 bytes); unasked, ptxas
+// took 178, two blocks an SM, which measured slower (PERF.md).
+template <int D>
+__global__ void __launch_bounds__(kBlock, D == 80 ? 3 : 1)
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ go,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int32_t seq_q,
+            float* __restrict__ dk, float* __restrict__ dv,
+            float* __restrict__ part, int32_t seq_q,
             int32_t seq_k, int32_t heads, int32_t kv_heads, int32_t bh_total,
             int32_t mask, const int32_t* __restrict__ q_pos,
             const int32_t* __restrict__ k_pos, float scale_log2,
             float scale) {
-  using M = Mma<T>;
-  constexpr int kStep = kStepB<D>;
-  constexpr int ld = D + M::kPad;
-  extern __shared__ uint8_t smem_raw[];
-  T* s_k = reinterpret_cast<T*>(smem_raw);
-  T* s_v = s_k + kRows * ld;
-  T* s_q = s_v + kRows * ld;
-  T* s_do = s_q + kStep * ld;
-  float* s_lse = reinterpret_cast<float*>(s_do + kStep * ld);  // log2 units
-  float* s_delta = s_lse + kStep;
-  int* s_qp = reinterpret_cast<int*>(s_delta + kStep);
+  constexpr int kS = kStep<D>, ld = kLd<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* s_k = smem;
+  float* s_v = s_k + kRows * ld;
+  float* s_q = s_v + kRows * ld;
+  float* s_do = s_q + kS * ld;
+  float* s_lse = s_do + kS * ld;           // log2 units
+  float* s_delta = s_lse + kS;
+  int* s_qp = reinterpret_cast<int*>(s_delta + kS);
+  int* stats = s_qp + kS;                  // the position mask's list
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* scratch = reinterpret_cast<float*>(s_qp + kStep) +
-                   warp * 16 * (kStep + 4);
 
   // the heaviest causal tiles (the first) of every head first
-  const int bh = static_cast<int>(blockIdx.x) % bh_total;
+  const int bh = static_cast<int>(blockIdx.x) % bh_total;  // b * H + h
   const int kt = static_cast<int>(blockIdx.x) / bh_total;
-  const int b = bh / kv_heads, hk = bh % kv_heads;
-  const int group = heads / kv_heads;
+  const int b = bh / heads, h = bh % heads;
+  const int hk = h / (heads / kv_heads);
   const int k0 = kt * kRows;
   const int64_t kv_stride = static_cast<int64_t>(kv_heads) * D;
   const int64_t q_stride = static_cast<int64_t>(heads) * D;
   const int64_t kv_base = static_cast<int64_t>(b) * seq_k * kv_stride +
                           static_cast<int64_t>(hk) * D;
-  load_rows<T, D, kRows>(s_k, ld, k + kv_base, kv_stride, k0, seq_k);
-  load_rows<T, D, kRows>(s_v, ld, v + kv_base, kv_stride, k0, seq_k);
+  load_rows<D, kRows>(s_k, k + kv_base, kv_stride, k0, seq_k);
+  load_rows<D, kRows>(s_v, v + kv_base, kv_stride, k0, seq_k);
+
+  // the q tiles to visit: by index from the one that holds the tile's
+  // first kv row; by position the ones `kv_position_tiles` lists
+  const int n_qt = (seq_q + kS - 1) / kS;
+  int n_list, qt0 = 0;
+  if (mask == kByPos) {
+    n_list = kv_position_tiles<kS, kRows>(
+        q_pos + static_cast<int64_t>(b) * seq_q,
+        k_pos + static_cast<int64_t>(b) * seq_k, seq_q, seq_k, k0, n_qt,
+        stats);
+  } else {
+    qt0 = mask == kByIndex ? k0 / kS : 0;
+    n_list = n_qt - qt0;
+  }
+  const int* list = stats + 2 * n_qt;
 
   // the thread's kv rows j0 and j0 + 8 (the columns of S^T are q rows)
   const int j0 = k0 + 16 * warp + g;
@@ -1079,107 +1168,101 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
 
-  // by index, a q tile wholly before the kv tile keeps none of its keys
-  const int n_qt = (seq_q + kStep - 1) / kStep;
-  const int qt0 = mask == kByIndex ? k0 / kStep : 0;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const int64_t q_base = static_cast<int64_t>(b) * seq_q * q_stride +
-                           static_cast<int64_t>(h) * D;
-    const int64_t row_base = (static_cast<int64_t>(b) * heads + h) * seq_q;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kStep;
-      __syncthreads();          // every warp is done with the last step
-      load_rows<T, D, kStep>(s_q, ld, q + q_base, q_stride, q0, seq_q);
-      load_rows<T, D, kStep>(s_do, ld, go + q_base, q_stride, q0, seq_q);
-      for (int i = threadIdx.x; i < kStep; i += kBlock) {
-        const bool in = q0 + i < seq_q;
-        s_lse[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
-        s_delta[i] = in ? delta[row_base + q0 + i] : 0.f;
-        if (mask == kByPos)
-          s_qp[i] = in ? q_pos[static_cast<int64_t>(b) * seq_q + q0 + i]
-                       : INT32_MIN;
-      }
-      cp_async_wait_all();
-      __syncthreads();
+  const int64_t q_base = static_cast<int64_t>(b) * seq_q * q_stride +
+                         static_cast<int64_t>(h) * D;
+  const int64_t row_base = static_cast<int64_t>(bh) * seq_q;
+  for (int it = 0; it < n_list; ++it) {
+    const int entry = mask == kByPos ? list[it] : qt0 + it;
+    const int q0 = (entry & ~kMaskBit) * kS;
+    // a masked pair in the tile pair: by index where a q row precedes
+    // a kv row; by position as the list says
+    const bool edge = mask == kByPos ? (entry & kMaskBit) != 0
+                                     : mask == kByIndex &&
+                                           q0 < k0 + kRows - 1;
+    __syncthreads();          // every warp is done with the last step
+    load_rows<D, kS>(s_q, q + q_base, q_stride, q0, seq_q);
+    load_rows<D, kS>(s_do, go + q_base, q_stride, q0, seq_q);
+    for (int i = threadIdx.x; i < kS; i += kBlock) {
+      const bool in = q0 + i < seq_q;
+      s_lse[i] = in ? lse[row_base + q0 + i] * kLog2e : 0.f;
+      s_delta[i] = in ? delta[row_base + q0 + i] : 0.f;
+      if (mask == kByPos)
+        s_qp[i] = in ? q_pos[static_cast<int64_t>(b) * seq_q + q0 + i]
+                     : INT32_MIN;
+    }
+    cp_async_wait_all();
+    __syncthreads();
 
-      // S^T = K . Q^T over the warp's 16 kv rows, then P^T in place
-      float s[kStep / 8][4];
-      M::template abt<D, kStep>(s, s_k + 16 * warp * ld, ld, s_q, ld);
-      uint32_t keep = 0;                      // bit 4 j + e: a kept pair
+    // S^T = K . Q^T and dP^T = V . dO^T over the warp's 16 kv rows;
+    // then P^T into s and dS^T = P^T o (dP^T - Delta) into ds
+    float s[kS / 8][4], ds[kS / 8][4];
+    abt<D, kS, ld>(s, s_k + 16 * warp * ld, s_q);
+    abt<D, kS, ld>(ds, s_v + 16 * warp * ld, s_do);
 #pragma unroll
-      for (int j = 0; j < kStep / 8; ++j)
+    for (int j = 0; j < kS / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ci = 8 * j + 2 * t + (e & 1);      // q row in the step
+      for (int e = 0; e < 4; ++e) {
+        const int ci = 8 * j + 2 * t + (e & 1);      // q row in the step
+        float p;
+        bool kept = true;
+        if (!edge) {
+          p = exp2f(s[j][e] * scale_log2 - s_lse[ci]);
+        } else {
           const int i = q0 + ci, jr = j0 + 8 * (e >> 1);
           const bool in = i < seq_q && jr < seq_k;
-          bool kept = in;
+          kept = in;
           if (mask == kByIndex) kept = kept && jr <= i;
           if (mask == kByPos) kept = kept && s_qp[ci] >= kp[e >> 1];
-          float p = kept ? exp2f(s[j][e] * scale_log2 - s_lse[ci]) : 0.f;
+          p = kept ? exp2f(s[j][e] * scale_log2 - s_lse[ci]) : 0.f;
           if (mask == kByPos && s_lse[ci] <= kDead * kLog2e)
-            p = in ? inv_sk : 0.f;   // a row with no key averages every key
-          s[j][e] = p;
-          keep |= static_cast<uint32_t>(kept) << (4 * j + e);
+            p = in ? inv_sk : 0.f;  // a row with no key averages every key
         }
-      // dV += P^T . dO
-      M::template ab<kStep, D>(acc_dv, s, scratch, s_do, ld);
-      // dP^T = V . dO^T; dS^T = P^T o (dP^T - Delta), 0 off the mask
-      float ds[kStep / 8][4];
-      M::template abt<D, kStep>(ds, s_v + 16 * warp * ld, ld, s_do, ld);
-#pragma unroll
-      for (int j = 0; j < kStep / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[j][e] = (keep >> (4 * j + e)) & 1u
-                         ? s[j][e] * (ds[j][e] - s_delta[8 * j + 2 * t +
-                                                         (e & 1)])
-                         : 0.f;
-      // dK += dS^T . Q
-      M::template ab<kStep, D>(acc_dk, ds, scratch, s_q, ld);
-    }
+        s[j][e] = p;
+        ds[j][e] = kept ? p * (ds[j][e] - s_delta[ci]) : 0.f;
+      }
+    // dV += P^T . dO; dK += dS^T . Q
+    ab<kS, D, ld>(acc_dv, s, s_do);
+    ab<kS, D, ld>(acc_dk, ds, s_q);
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int jr = j0 + 8 * r;
-    if (jr >= seq_k) continue;
-    const int64_t off = kv_base + static_cast<int64_t>(jr) * kv_stride;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      store2(dk + off + 8 * j + 2 * t, scale * acc_dk[j][2 * r],
-             scale * acc_dk[j][2 * r + 1]);
-      store2(dv + off + 8 * j + 2 * t, acc_dv[j][2 * r],
-             acc_dv[j][2 * r + 1]);
-    }
+  if (part != nullptr) {
+    // the q head's share, unscaled, at (b, j, h) of each f32 plane
+    const int64_t plane = static_cast<int64_t>(bh_total) * seq_k * D;
+    float* pk = part + (static_cast<int64_t>(b) * seq_k + k0) * q_stride +
+                static_cast<int64_t>(h) * D;
+    store_rows<D>(pk, q_stride, 16 * warp + g, seq_k - k0, acc_dk, 1.f);
+    store_rows<D>(pk + plane, q_stride, 16 * warp + g, seq_k - k0, acc_dv,
+                  1.f);
+    return;
   }
+  const int64_t dst = kv_base + static_cast<int64_t>(k0) * kv_stride;
+  store_rows<D>(dk + dst, kv_stride, 16 * warp + g, seq_k - k0, acc_dk,
+                scale);
+  store_rows<D>(dv + dst, kv_stride, 16 * warp + g, seq_k - k0, acc_dv,
+                1.f);
 }
 
 // (c) dQ of one 64-row q tile of q head h in batch row b.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlock)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ go,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ go,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int32_t seq_q, int32_t seq_k, int32_t heads,
+          float* __restrict__ dq, int32_t seq_q, int32_t seq_k, int32_t heads,
           int32_t kv_heads, int32_t bh_total, int32_t mask,
           const int32_t* __restrict__ q_pos,
           const int32_t* __restrict__ k_pos, float scale_log2,
           float scale) {
-  using M = Mma<T>;
-  constexpr int kStep = kStepC;
-  constexpr int ld = D + M::kPad;
-  extern __shared__ uint8_t smem_raw[];
-  T* s_q = reinterpret_cast<T*>(smem_raw);
-  T* s_do = s_q + kRows * ld;
-  T* s_k = s_do + kRows * ld;
-  T* s_v = s_k + kStep * ld;
-  int* s_kp = reinterpret_cast<int*>(s_v + kStep * ld);
+  constexpr int kS = kStep<D>, ld = kLd<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;
+  float* s_do = s_q + kRows * ld;
+  float* s_k = s_do + kRows * ld;
+  float* s_v = s_k + kS * ld;
+  int* s_kp = reinterpret_cast<int*>(s_v + kS * ld);
+  int* stats = s_kp + kS;                  // the position mask's list
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* scratch = reinterpret_cast<float*>(s_kp + 3 * kStep) +
-                   warp * 16 * (kStep + 4);
 
   // the heaviest causal tiles (the last) of every head first
   const int n_qt = (seq_q + kRows - 1) / kRows;
@@ -1194,8 +1277,22 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          static_cast<int64_t>(h) * D;
   const int64_t kv_base = static_cast<int64_t>(b) * seq_k * kv_stride +
                           static_cast<int64_t>(hk) * D;
-  load_rows<T, D, kRows>(s_q, ld, q + q_base, q_stride, q0, seq_q);
-  load_rows<T, D, kRows>(s_do, ld, go + q_base, q_stride, q0, seq_q);
+  load_rows<D, kRows>(s_q, q + q_base, q_stride, q0, seq_q);
+  load_rows<D, kRows>(s_do, go + q_base, q_stride, q0, seq_q);
+
+  // the kv tiles to visit: by index up to the one that holds the tile's
+  // last q row; by position the ones `position_tiles` lists
+  const int n_kt = (seq_k + kS - 1) / kS;
+  int n_list;
+  if (mask == kByPos)
+    n_list = position_tiles<kS, kRows>(
+        q_pos + static_cast<int64_t>(b) * seq_q,
+        k_pos + static_cast<int64_t>(b) * seq_k, seq_q, seq_k, q0, n_kt,
+        stats);
+  else
+    n_list = mask == kByIndex ? (min(q0 + kRows, seq_q) + kS - 1) / kS
+                              : n_kt;
+  const int* list = stats + 2 * n_kt;
 
   // the thread's q rows i0 and i0 + 8: lse (log2 units), Delta, position
   const int i0 = q0 + 16 * warp + g;
@@ -1219,17 +1316,19 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  // by index, kv tiles past the q tile's last row keep none of its keys
-  const int n_kt = mask == kByIndex
-                       ? (min(q0 + kRows, seq_q) + kStep - 1) / kStep
-                       : (seq_k + kStep - 1) / kStep;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kStep;
+  for (int it = 0; it < n_list; ++it) {
+    const int entry = mask == kByPos ? list[it] : it;
+    const int k0 = (entry & ~kMaskBit) * kS;
+    // a masked pair or a kv column past Sk in the tile pair
+    const bool edge = mask == kByPos
+                          ? (entry & kMaskBit) != 0
+                          : k0 + kS > seq_k ||
+                                (mask == kByIndex && k0 + kS - 1 > q0);
     __syncthreads();            // every warp is done with the last step
-    load_rows<T, D, kStep>(s_k, ld, k + kv_base, kv_stride, k0, seq_k);
-    load_rows<T, D, kStep>(s_v, ld, v + kv_base, kv_stride, k0, seq_k);
+    load_rows<D, kS>(s_k, k + kv_base, kv_stride, k0, seq_k);
+    load_rows<D, kS>(s_v, v + kv_base, kv_stride, k0, seq_k);
     if (mask == kByPos)
-      for (int j = threadIdx.x; j < kStep; j += kBlock)
+      for (int j = threadIdx.x; j < kS; j += kBlock)
         s_kp[j] = k0 + j < seq_k
                       ? k_pos[static_cast<int64_t>(b) * seq_k + k0 + j]
                       : 0;
@@ -1237,95 +1336,101 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // S = Q . K^T, dP = dO . V^T over the warp's 16 q rows; dS in dP
-    float s[kStep / 8][4], ds[kStep / 8][4];
-    M::template abt<D, kStep>(s, s_q + 16 * warp * ld, ld, s_k, ld);
-    M::template abt<D, kStep>(ds, s_do + 16 * warp * ld, ld, s_v, ld);
+    float s[kS / 8][4], ds[kS / 8][4];
+    abt<D, kS, ld>(s, s_q + 16 * warp * ld, s_k);
+    abt<D, kS, ld>(ds, s_do + 16 * warp * ld, s_v);
 #pragma unroll
-    for (int j = 0; j < kStep / 8; ++j)
+    for (int j = 0; j < kS / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int cj = 8 * j + 2 * t + (e & 1);
-        const int jc = k0 + cj, r = e >> 1, i = i0 + 8 * r;
-        bool kept = i < seq_q && jc < seq_k && !dead[r];
-        if (mask == kByIndex) kept = kept && jc <= i;
-        if (mask == kByPos) kept = kept && qp[r] >= s_kp[cj];
+        const int r = e >> 1;
+        bool kept = true;
+        if (edge) {
+          const int cj = 8 * j + 2 * t + (e & 1);
+          const int jc = k0 + cj, i = i0 + 8 * r;
+          kept = i < seq_q && jc < seq_k && !dead[r];
+          if (mask == kByIndex) kept = kept && jc <= i;
+          if (mask == kByPos) kept = kept && qp[r] >= s_kp[cj];
+        }
         ds[j][e] = kept ? exp2f(s[j][e] * scale_log2 - lse2[r]) *
                               (ds[j][e] - dl[r])
                         : 0.f;
       }
     // dQ += dS . K
-    M::template ab<kStep, D>(acc, ds, scratch, s_k, ld);
+    ab<kS, D, ld>(acc, ds, s_k);
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = i0 + 8 * r;
-    if (i >= seq_q) continue;
-    const int64_t off = q_base + static_cast<int64_t>(i) * q_stride;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(static_cast<T*>(dq) + off + 8 * j + 2 * t,
-             scale * acc[j][2 * r], scale * acc[j][2 * r + 1]);
-  }
+  store_rows<D>(dq + q_base + static_cast<int64_t>(q0) * q_stride, q_stride,
+                16 * warp + g, seq_q - q0, acc, scale);
 }
 
-template <typename T> struct BwdLaunch {
-  template <int D> struct At {
-    static int run(const BwdArgs& a) {
-      const T* go = static_cast<const T*>(a.go);
-      const T* q = static_cast<const T*>(a.q);
-      const T* k = static_cast<const T*>(a.k);
-      const T* v = static_cast<const T*>(a.v);
-      const T* o = static_cast<const T*>(a.o);
-      const float scale_log2 = a.scale * kLog2e;
-      // (a) Delta
-      const int64_t rows = static_cast<int64_t>(a.b) * a.sq * a.h;
-      const int64_t blocks_a = (rows + kDeltaWarps - 1) / kDeltaWarps;
-      const int64_t bh_kv = static_cast<int64_t>(a.b) * a.kvh;
-      const int64_t bh_q = static_cast<int64_t>(a.b) * a.h;
-      const int64_t blocks_b = bh_kv * ((a.sk + kRows - 1) / kRows);
-      const int64_t blocks_c = bh_q * ((a.sq + kRows - 1) / kRows);
-      if (blocks_a > INT32_MAX || blocks_b > INT32_MAX ||
-          blocks_c > INT32_MAX)
-        return static_cast<int>(cudaErrorInvalidValue);
-      delta_kernel<T><<<static_cast<unsigned>(blocks_a), 32 * kDeltaWarps,
-                        0, a.stream>>>(o, go, a.delta, rows, a.sq, a.h, D);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      // (b) dK and dV
-      constexpr int smem_b = bwd_smem<T, D, kStepB<D>>(sizeof(T) == 4);
-      err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_b);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      dkdv_kernel<T, D><<<static_cast<unsigned>(blocks_b), kBlock, smem_b,
-                          a.stream>>>(
-          q, k, v, go, a.lse, a.delta, static_cast<T*>(a.dk),
-          static_cast<T*>(a.dv), a.sq, a.sk, a.h, a.kvh,
-          static_cast<int32_t>(bh_kv), a.mask, a.q_pos, a.k_pos, scale_log2,
-          a.scale);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      // (c) dQ
-      constexpr int smem_c = bwd_smem<T, D, kStepC>(sizeof(T) == 4);
-      err = cudaFuncSetAttribute(dq_kernel<T, D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_c);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      dq_kernel<T, D><<<static_cast<unsigned>(blocks_c), kBlock, smem_c,
-                        a.stream>>>(
-          q, k, v, go, a.lse, a.delta, static_cast<T*>(a.dq), a.sq, a.sk,
-          a.h, a.kvh, static_cast<int32_t>(bh_q), a.mask, a.q_pos, a.k_pos,
-          scale_log2, a.scale);
-      return static_cast<int>(cudaGetLastError());
-    }
-  };
-};
+template <int D> int bwd_run(const BwdArgs& a) {
+  const float scale_log2 = a.scale * kLog2e;
+  const bool by_pos = a.mask == kByPos;
+  constexpr int kS = kStep<D>;
+  // (a) Delta
+  const int64_t rows = static_cast<int64_t>(a.b) * a.sq * a.h;
+  const int64_t blocks_a = (rows + kDeltaWarps - 1) / kDeltaWarps;
+  const int64_t bh_kv = static_cast<int64_t>(a.b) * a.kvh;
+  const int64_t bh_q = static_cast<int64_t>(a.b) * a.h;
+  // a block a q head; with GQA its shares into the scratch, then their sum
+  const bool split = a.h != a.kvh;
+  if (split && a.part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks_b = bh_q * ((a.sk + kRows - 1) / kRows);
+  const int64_t blocks_c = bh_q * ((a.sq + kRows - 1) / kRows);
+  if (blocks_a > INT32_MAX || blocks_b > INT32_MAX || blocks_c > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  delta_kernel<<<static_cast<unsigned>(blocks_a), 32 * kDeltaWarps, 0,
+                 a.stream>>>(a.o, a.go, a.delta, rows, a.sq, a.h, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (b) dK and dV: a step's lse, Delta and q positions; the q tile list
+  const int smem_b = bwd_smem<D>(
+      3, by_pos ? stats_ints((a.sq + kS - 1) / kS) : 0);
+  err = cudaFuncSetAttribute(dkdv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_kernel<D><<<static_cast<unsigned>(blocks_b), kBlock, smem_b,
+                   a.stream>>>(
+      a.q, a.k, a.v, a.go, a.lse, a.delta, a.dk, a.dv,
+      split ? a.part : nullptr, a.sq, a.sk, a.h, a.kvh,
+      static_cast<int32_t>(bh_q), a.mask, a.q_pos, a.k_pos, scale_log2,
+      a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (split) {
+    const int64_t chunks = bh_kv * a.sk * (D / 4);
+    const int64_t blocks = (chunks + 32 * kDeltaWarps - 1) /
+                           (32 * kDeltaWarps);
+    if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    group_sum_kernel<<<static_cast<unsigned>(blocks), 32 * kDeltaWarps, 0,
+                       a.stream>>>(a.part, a.dk, a.dv, chunks,
+                                   bh_q * a.sk * D, a.kvh, a.h / a.kvh, D,
+                                   a.scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // (c) dQ: a step's k positions; the kv tile list
+  const int smem_c = bwd_smem<D>(
+      1, by_pos ? stats_ints((a.sk + kS - 1) / kS) : 0);
+  err = cudaFuncSetAttribute(dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_kernel<D><<<static_cast<unsigned>(blocks_c), kBlock, smem_c,
+                 a.stream>>>(
+      a.q, a.k, a.v, a.go, a.lse, a.delta, a.dq, a.sq, a.sk, a.h, a.kvh,
+      static_cast<int32_t>(bh_q), a.mask, a.q_pos, a.k_pos, scale_log2,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
-template <typename T> int bwd_by_head_dim(int32_t d, const BwdArgs& a) {
+int bwd_by_head_dim(int32_t d, const BwdArgs& a) {
   switch (d) {
 #define REPRO_FA_BWD_CASE(D) \
-  case D: return BwdLaunch<T>::template At<D>::run(a);
+  case D: return bwd_run<D>(a);
     REPRO_FA_BWD_CASE(16)
     REPRO_FA_BWD_CASE(32)
     REPRO_FA_BWD_CASE(64)
@@ -1382,15 +1487,18 @@ extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
 // dq like q, dk and dv like k, of float32 (flash_attention_f32_bwd; the
 // bfloat16 route, flash_attention_tc_bwd, is flash_attention_bwd.cu), all
 // contiguous with 16-byte-aligned data; `delta` is (b, h, sq) f32
-// scratch.  Three launches on `stream`;
-// return cudaGetLastError() (cudaErrorInvalidValue for a head dim the
-// kernels are not built for or a grid of 2**31 blocks or more).
+// scratch; `part` (2 x (b, sk, h, d) f32 scratch, the GQA group's q heads'
+// shares of dK and dV) is needed where h != kvh, else null.  Three
+// launches (four with GQA) on `stream`; return cudaGetLastError()
+// (cudaErrorInvalidValue for a head dim the kernels are not built for, a
+// grid of 2**31 blocks or more, or GQA without `part`).
 extern "C" int flash_attention_f32_bwd(const void* go, const void* q,
                                        const void* k, const void* v,
                                        const void* o, const float* lse,
-                                       float* delta, void* dq, void* dk,
-                                       void* dv, int32_t b, int32_t sq,
-                                       int32_t sk, int32_t h, int32_t kvh,
+                                       float* delta, float* part, void* dq,
+                                       void* dk, void* dv, int32_t b,
+                                       int32_t sq, int32_t sk, int32_t h,
+                                       int32_t kvh,
                                        int32_t d, int32_t causal,
                                        const int32_t* q_pos,
                                        const int32_t* k_pos, float scale,
@@ -1400,8 +1508,10 @@ extern "C" int flash_attention_f32_bwd(const void* go, const void* q,
   const int32_t mask = q_pos != nullptr ? bwd::kByPos
                        : causal         ? bwd::kByIndex
                                         : bwd::kNone;
-  return bwd::bwd_by_head_dim<float>(
-      d, bwd::BwdArgs{go, q, k, v, o, lse, delta, dq, dk, dv, b, sq, sk, h,
-                      kvh, mask, q_pos, k_pos, scale,
-                      static_cast<cudaStream_t>(stream)});
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return bwd::bwd_by_head_dim(
+      d, bwd::BwdArgs{f(go), f(q), f(k), f(v), f(o), lse, delta, part,
+                      static_cast<float*>(dq), static_cast<float*>(dk),
+                      static_cast<float*>(dv), b, sq, sk, h, kvh, mask, q_pos,
+                      k_pos, scale, static_cast<cudaStream_t>(stream)});
 }

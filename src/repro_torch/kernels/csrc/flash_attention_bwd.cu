@@ -468,78 +468,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
   }
 }
 
-// Under the position mask, (b)'s tile list, the transpose of the forward's
-// `position_tiles`: the q tiles of kBq rows that the kv tile (rows k0 ..
-// k0 + kBk - 1 below seq_k) must visit, in order, written to the list in
-// `stats` as t, or t | kMaskBit where some pair of the two is masked;
-// returns how many.  A q tile is listed where its largest q position
-// reaches the kv tile's least k position (some row keeps a key of it), or
-// where it holds a row that keeps no key at all (a q position below every
-// k position of the batch row): such a row averages every key, P = 1 / Sk,
-// so it adds to every kv tile's dV.  A listed tile is masked where its
-// least q position is below the kv tile's largest k position, or where it
-// holds such a row.  qp and kp are the batch row's positions; every thread
-// of the block calls this; `stats` is stats_ints(n_q) ints of shared
-// memory.
-template <int kBq, int kBk>
-__device__ int kv_position_tiles(const int32_t* __restrict__ qp,
-                                 const int32_t* __restrict__ kp, int seq_q,
-                                 int seq_k, int k0, int n_q, int* stats) {
-  static_assert(kBq % 32 == 0 && kBk % 32 == 0, "a warp's 32 in one tile");
-  int* qmin = stats;
-  int* qmax = stats + n_q;
-  int* list = stats + 2 * n_q;
-  int* s = stats + 3 * n_q;   // the kv tile's least and largest k, the
-                              // row's least k, count
-  const int tid = threadIdx.x, lane = tid % 32;
-  for (int i = tid; i < n_q; i += blockDim.x) {
-    qmin[i] = INT32_MAX;
-    qmax[i] = INT32_MIN;
-  }
-  if (tid == 0) {
-    s[0] = INT32_MAX;
-    s[1] = INT32_MIN;
-    s[2] = INT32_MAX;
-  }
-  __syncthreads();
-  // a warp folds 32 consecutive rows (or columns), one lane's atomics
-  for (int r0 = tid - lane; r0 < seq_q; r0 += blockDim.x) {
-    const bool in = r0 + lane < seq_q;
-    const int p = in ? qp[r0 + lane] : 0;
-    const int lo = __reduce_min_sync(0xffffffffu, in ? p : INT32_MAX);
-    const int hi = __reduce_max_sync(0xffffffffu, in ? p : INT32_MIN);
-    if (lane == 0) {
-      atomicMin(&qmin[r0 / kBq], lo);
-      atomicMax(&qmax[r0 / kBq], hi);
-    }
-  }
-  for (int c0 = tid - lane; c0 < seq_k; c0 += blockDim.x) {
-    const bool in = c0 + lane < seq_k;
-    const int p = in ? kp[c0 + lane] : 0;
-    const int lo = __reduce_min_sync(0xffffffffu, in ? p : INT32_MAX);
-    const int hi = __reduce_max_sync(0xffffffffu, in ? p : INT32_MIN);
-    if (lane == 0) {
-      atomicMin(&s[2], lo);
-      if (c0 >= k0 && c0 < k0 + kBk) {
-        atomicMin(&s[0], lo);
-        atomicMax(&s[1], hi);
-      }
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int m = 0;
-    for (int t = 0; t < n_q; ++t) {
-      const bool dead = qmin[t] < s[2];
-      if (dead || qmax[t] >= s[0])
-        list[m++] = t | (dead || qmin[t] < s[1] ? kMaskBit : 0);
-    }
-    s[3] = m;
-  }
-  __syncthreads();
-  return s[3];
-}
-
 // (a) Delta (B, H, Sq) f32 = rowsum(dO o O): one thread a (b, i, h) row,
 // neighbouring threads on neighbouring rows of o and dO.
 template <int D>

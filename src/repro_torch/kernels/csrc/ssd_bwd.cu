@@ -48,24 +48,33 @@
 //   for them measured slower at every number of heads tried (PERF.md).
 //   PERF.md keeps the measured times.
 // Design: every pass but 3 and 5 runs the chunks of a head in parallel.
-//   The chunk pass is register-resident on the tensor-core route (bf16,
-//   hd and ds multiples of 16): x, gy, b and c of the chunk and one f32
-//   (hd, ds) state split into bf16 hi and lo sit in shared memory (one
-//   block an SM); warp w owns tokens 16 w .. 16 w + 15, first as rows i
-//   (dc, sum_j F_ij: C B^T and GY X^T recomputed a 16 x 16 tile at a
-//   time up to the diagonal, W split into hi / lo A fragments and
-//   multiplied with b), then as rows j (dx, then db: B C^T and X GY^T from
-//   the diagonal on, M^T and W^T multiplied with gy and c), with H in the
-//   shared tiles for the first and dS for the second.  mma.sync m16n8k16
-//   bf16 -> f32 on ldmatrix'd tiles; bf16 operands are exact, an f32
-//   operand (H, dS, M, W) is split into hi = bf16(v) and lo = bf16(v -
-//   hi), two products summed in f32, as the forward does.  The CUDA-core
-//   route (f32, bf16 at other widths) keeps C B^T (then M) and GY X^T
-//   (then W) as f32 Q x Q tiles in shared memory and runs every product as
-//   a register-tiled FMA product over k-slices staged in shared memory.
-//   cum is f64 (ssd_common.cuh).  No atomics: every sum has a fixed order,
-//   so two calls give the same bits.  No TMA: nothing here encodes a
-//   tensor map, so no thread needs the driver's context bound first.
+//   The chunk pass on the tensor-core route (bf16, hd and ds multiples of
+//   16) is a block of two warpgroups per (batch row, chunk, head), one
+//   block an SM (about 166 KB of shared tiles and 240 registers a thread
+//   at mamba2-780m's widths: two blocks would need half of each).  x, gy,
+//   b and c of the chunk stage by cp.async into 128-row tiles in wgmma's
+//   128-byte swizzle, hd and ds padded to 64 or 128 with zeros, and the
+//   f32 states H and dS are split into bf16 hi and lo tiles (both resident
+//   where they fit).  Warpgroup wg owns tokens 64 wg .. 64 wg + 63, first
+//   as rows i (dc = W b + e (gy H), sum_j F_ij, v), then as rows j (dx =
+//   M^T gy + w (b dS^T), db = W^T c + w (x dS), sum_i T_ij, u).  Every
+//   product is wgmma m64nNk16 bf16 -> f32: the Q x Q products C B^T and
+//   GY X^T by 64 x 64 blocks on and below the diagonal, once per
+//   orientation, both operands K-major in shared memory; the state
+//   products with the state as an MN-major or K-major shared operand; the
+//   split M, W products with the A operand in registers, straight from
+//   the elementwise work on the accumulator.  bf16 operands are exact; an
+//   f32 operand (H, dS, M, W) is split into hi = bf16(v) and lo = bf16(v -
+//   hi), two products summed in f32, as the forward does.  Every k loop
+//   has a trip count fixed at compile time (the padded width) and the
+//   accumulators are touched in no divergent path: otherwise ptxas
+//   serialises every wgmma of the kernel.  The CUDA-core route (f32, bf16
+//   at other widths) keeps C B^T (then M) and GY X^T (then W) as f32 Q x Q
+//   tiles in shared memory and runs every product as a register-tiled FMA
+//   product over k-slices staged in shared memory.  cum is f64
+//   (ssd_common.cuh).  No atomics: every sum has a fixed order, so two
+//   calls give the same bits.  No TMA: nothing here encodes a tensor map,
+//   so no thread needs the driver's context bound first.
 #include "ssd_common.cuh"
 
 // Every kernel of the backward is named in this namespace (the shared
@@ -73,6 +82,7 @@
 namespace ssd_grad {
 
 using namespace repro_torch::ssd;
+using namespace repro_torch::sm90;
 using repro_torch::kThreads;
 
 // Names the backward's instances of the shared passes, and keeps their cum
@@ -86,13 +96,16 @@ constexpr unsigned kFull = 0xffffffffu;
 // ---- per-token scratch of the chunk pass ----------------------------------
 
 // After the cum head: exp(cum), w, sum_j F_tj, sum_i T_it (T = F / dt),
-// u, v (q floats each), then 32 floats for block sums.
+// u, v (q floats each), cum as f32 pairs hi + lo (q float2s), then 32
+// floats for block sums.
 struct Tok {
-  float *ev, *wv, *rowf, *colt, *uu, *vv, *red;
+  float *ev, *wv, *rowf, *colt, *uu, *vv;
+  float2* c2;
+  float* red;
 };
 
 __host__ __device__ inline size_t tok_bytes(int q) {
-  return 4 * (6 * static_cast<size_t>(q) + 32);
+  return 4 * (8 * static_cast<size_t>(q) + 32);
 }
 
 __device__ __forceinline__ Tok tok_at(char* p, int q) {
@@ -103,11 +116,12 @@ __device__ __forceinline__ Tok tok_at(char* p, int q) {
   t.colt = t.rowf + q;
   t.uu = t.colt + q;
   t.vv = t.uu + q;
-  t.red = t.vv + q;
+  t.c2 = reinterpret_cast<float2*>(t.vv + q);
+  t.red = reinterpret_cast<float*>(t.c2 + q);
   return t;
 }
 
-// exp(cum) and w of each token; the sums zeroed.
+// exp(cum), w and cum as hi + lo of each token; the sums zeroed.
 __device__ __forceinline__ void chunk_tokens(const Cum<double>& cm,
                                              const Tok& tk, int q) {
   const double last = cm.cum[q - 1];
@@ -115,8 +129,19 @@ __device__ __forceinline__ void chunk_tokens(const Cum<double>& cm,
     tk.ev[t] = expf(static_cast<float>(cm.cum[t]));
     tk.wv[t] = cm.dtv[t] * exp_diff(last, cm.cum[t]);
     tk.rowf[t] = tk.colt[t] = tk.uu[t] = tk.vv[t] = 0.f;
+    const float hi = static_cast<float>(cm.cum[t]);
+    tk.c2[t] = make_float2(hi, static_cast<float>(cm.cum[t] - hi));
   }
   __syncthreads();
+}
+
+// cum_i - cum_j from the pairs hi + lo, in f32: where exp of the
+// difference is above f32's underflow (|cum_i - cum_j| < 104), either the
+// his lie within a factor two of each other, so their difference is exact,
+// or it exceeds the smaller one, so its one rounding is relative to
+// itself: the result is as close as the f64 difference rounded to f32.
+__device__ __forceinline__ float cum_diff(float2 i, float2 j) {
+  return (i.x - j.x) + (i.y - j.y);
 }
 
 // The sum of v over the block in a fixed order, in every thread; every
@@ -188,124 +213,582 @@ __device__ __forceinline__ void chunk_finish(
   }
 }
 
-// ---- chunk pass, tensor cores ---------------------------------------------
+// ---- chunk pass, tensor cores (wgmma) -------------------------------------
+//
+// (The design is in the note at the top.)  Each warpgroup waits for its
+// products before the elementwise work that follows them.
 
-// Shared: the cum head, the per-token scratch, x and gy ([q][hd + kPad]),
-// b and c ([q][ds + kPad]), an f32 state split into hi and lo ([hd][ds +
-// kPad] each), bf16.
-inline size_t chunk_tc_smem(int q, int hd, int ds) {
-  const size_t sx = hd + kPad, sb = ds + kPad;
-  return cum_bytes<double>(q) + tok_bytes(q)
-         + 2 * (2 * q * sx + 2 * q * sb + 2 * static_cast<size_t>(hd) * sb);
+constexpr int kTok = 128;        // a token tile's rows (the longest chunk)
+
+// The element offset of (r, c) in a bf16 tile of kRows rows in the
+// 128-byte swizzle: columns in boxes of 64 (kRows rows of 128 bytes each),
+// the 16-byte chunk c / 8 of row r at chunk (c / 8) ^ (r % 8) of the row.
+template <int kRows>
+__device__ __forceinline__ int sw(int r, int c) {
+  return (c >> 6) * (kRows * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3)
+         + (c & 7);
 }
 
-// An f32 (hd, ds) state into bf16 hi and lo tiles [hd][sb]; returns this
-// thread's share of <st, other> (0 where other is null).
+// wgmma's descriptor of rows r0 .. of a kRows-row tile as a K-major
+// operand, k step kk (16 columns: 32 bytes within a swizzled row, the next
+// box kRows rows on).
+template <int kRows>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int r0, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kRows * kRowBytes + r0 * kRowBytes
+                        + (kk & 3) * 32, 16, 1024);
+}
+
+// ... and of rows k0 .. k0 + 15 as an MN-major B operand (the K rows; N
+// across the tile's boxes, transposed by the instruction).
+template <int kRows>
+__device__ __forceinline__ uint64_t mdesc(uint32_t tile, int k0) {
+  return sw128_desc(tile + k0 * kRowBytes, kRows * kRowBytes, 1024);
+}
+
+// D (64 x 64, f32) += A (64 x 16) . B (16 x 64), bf16, both in shared
+// memory (128-byte swizzle), A K-major; B K-major (kTransB 0) or MN-major
+// (1, transposed through the descriptor); scale_d = 0 overwrites D.
+template <int kTransB>
+__device__ __forceinline__ void wg_ss64(float (&d)[32], uint64_t desc_a,
+                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// D (64 x 128, f32) += A (64 x 16) . B (16 x 128), bf16, both in shared
+// memory (128-byte swizzle), A K-major; B K-major (kTransB 0) or MN-major
+// (1, transposed through the descriptor); scale_d = 0 overwrites D.
+template <int kTransB>
+__device__ __forceinline__ void wg_ss128(float (&d)[64], uint64_t desc_a,
+                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wg_ss(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db) {
+  if constexpr (N == 64)
+    wg_ss64<kTransB>(d, da, db, 1);
+  else
+    wg_ss128<kTransB>(d, da, db, 1);
+}
+
+// D (64 x N) += A (64 x 16, bf16 fragments in registers) . B, B MN-major.
+template <int N>
+__device__ __forceinline__ void wg_rs(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+template <int N> __device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// The f32 64 x 64 accumulator as the bf16 hi and lo A fragments of its
+// four k steps (k step kk: the accumulator's registers 8 kk .. 8 kk + 7,
+// paired in order).
+__device__ __forceinline__ void split_acc(const float (&v)[32],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split2(v[8 * kk + 2 * j], v[8 * kk + 2 * j + 1], hi[kk][j], lo[kk][j]);
+}
+
+__device__ __forceinline__ float2 bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <int N> __device__ __forceinline__ void fence_u32(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Rows ra and ra + 8 (those below len) of an f32 (64 x N) accumulator, its
+// first `width` columns (a multiple of 16), into rows `stride` floats
+// apart at `out`.  The values are copied out of the accumulator first, in
+// code every thread runs: an accumulator touched in a divergent path
+// makes ptxas serialise every wgmma of the kernel.
+template <int N>
+__device__ __forceinline__ void store_rows(float* out, int64_t stride, int ra,
+                                           int len, int width, int tq,
+                                           const float (&acc)[N / 2]) {
+  float v[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) v[i] = acc[i];
+  fence_regs(v);
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    if (8 * n >= width) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = ra + 8 * half;
+      if (r < len)
+        *reinterpret_cast<float2*>(out + r * stride + 8 * n + 2 * tq) =
+            make_float2(v[4 * n + 2 * half], v[4 * n + 2 * half + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows 0 .. kTok - 1 of a (seq, heads, width) slice, `src` at the chunk's
+// first row and `sstride` elements a row, into a swizzled tile of kW
+// columns; rows at or past `valid` and columns at or past `width` (a
+// multiple of 16) are zeros.  16-byte cp.async where every address allows,
+// else element by element; the caller waits.
+template <int kW>
+__device__ __forceinline__ void stage_sw(bf16* tile, const bf16* src,
+                                         int64_t sstride, int valid,
+                                         int width) {
+  constexpr int kChunks = kW / 8;
+  const bool vec = ((reinterpret_cast<uintptr_t>(src)
+                     | static_cast<uint64_t>(sstride * 2)) & 15) == 0;
+  for (int i = threadIdx.x; i < kTok * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = 8 * (i % kChunks);
+    bf16* d = tile + sw<kTok>(r, c);
+    if (r < valid && c < width) {
+      const bf16* s = src + r * sstride + c;
+      if (vec) {
+        cp_async<16>(d, s);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] = s[e];
+      }
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// An f32 (hd, ds) state into bf16 hi and lo swizzled tiles of kH rows and
+// kS columns (zero past hd and ds), and, where `other_hi` is not null, the
+// state `other` the same way; returns this thread's share of <st, other>
+// (0 where other is null).  A thread's loads are all issued before the
+// first split, so they are in flight together.
+template <int kH, int kS>
 __device__ __forceinline__ float split_state(const float* __restrict__ st,
                                              const float* __restrict__ other,
-                                             bf16* hi, bf16* lo, int hd,
-                                             int ds, int sb) {
+                                             bf16* hi, bf16* lo,
+                                             bf16* other_hi, bf16* other_lo,
+                                             int hd, int ds) {
+  constexpr int kIters = kH * kS / (4 * kThreads);
+  float4 v[kIters], o[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int e = 4 * (threadIdx.x + it * kThreads);
+    const int p = e / kS, s = e % kS;
+    const bool in = p < hd && s < ds;
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    v[it] = in ? *reinterpret_cast<const float4*>(st + p * ds + s) : zero4;
+    o[it] = in && other != nullptr
+                ? *reinterpret_cast<const float4*>(other + p * ds + s)
+                : zero4;
+  }
   float dot = 0.f;
-  for (int e = 4 * threadIdx.x; e < hd * ds; e += 4 * kThreads) {
-    const float4 v = *reinterpret_cast<const float4*>(st + e);
-    if (other != nullptr) {
-      const float4 o = *reinterpret_cast<const float4*>(other + e);
-      dot = fmaf(v.x, o.x, fmaf(v.y, o.y, fmaf(v.z, o.z, fmaf(v.w, o.w, dot))));
-    }
-    const int d = e / ds, s = e % ds;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int e = 4 * (threadIdx.x + it * kThreads);
+    const int at = sw<kH>(e / kS, e % kS);
+    dot = fmaf(v[it].x, o[it].x, fmaf(v[it].y, o[it].y,
+               fmaf(v[it].z, o[it].z, fmaf(v[it].w, o[it].w, dot))));
     uint2 h, l;
-    split2(v.x, v.y, h.x, l.x);
-    split2(v.z, v.w, h.y, l.y);
-    *reinterpret_cast<uint2*>(hi + d * sb + s) = h;
-    *reinterpret_cast<uint2*>(lo + d * sb + s) = l;
+    split2(v[it].x, v[it].y, h.x, l.x);
+    split2(v[it].z, v[it].w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + at) = h;
+    *reinterpret_cast<uint2*>(lo + at) = l;
+    if (other_hi != nullptr) {
+      split2(o[it].x, o[it].y, h.x, l.x);
+      split2(o[it].z, o[it].w, h.y, l.y);
+      *reinterpret_cast<uint2*>(other_hi + at) = h;
+      *reinterpret_cast<uint2*>(other_lo + at) = l;
+    }
   }
   return dot;
 }
 
-// acc (16 x 8 n-tiles, n < 2 nn_n) += A (16 x 16 k-tiles held as
-// fragments af[k], k < kk_n) . B, B (k, n) read from a tile stored [k][n]
-// (trans = true, row stride `stride`, split into hi / lo where lo is not
-// null) or [n][k] (trans = false).  k-tile kt of B starts at row 16 kt (or
-// column); nn_n n-pairs of 16 columns.
-template <int NA, int NK>
-__device__ __forceinline__ void mma_rows(float (&acc)[NA][4],
-                                         const uint32_t (&af)[NK][4],
-                                         int kk_n, const bf16* hi,
-                                         const bf16* lo, int stride,
-                                         int nn_n, bool trans,
-                                         const Lane& ln) {
+// Byte offsets of the tiles from a 1024-byte-aligned base.
+template <int HP, int SP> struct WgLayout {
+  static constexpr int kX = 0;                          // x  [kTok][HP]
+  static constexpr int kG = kX + kTok * HP * 2;         // gy [kTok][HP]
+  static constexpr int kB = kG + kTok * HP * 2;         // b  [kTok][SP]
+  static constexpr int kC = kB + kTok * SP * 2;         // c  [kTok][SP]
+  static constexpr int kStBytes = HP * SP * 2;          // a state's half
+  static constexpr int kH = kC + kTok * SP * 2;         // H hi, lo
+  // dS beside H where both fit, else in H's tiles once H is consumed
+  static constexpr bool kBoth = HP * SP <= 64 * 128;
+  static constexpr int kDs = kBoth ? kH + 2 * kStBytes : kH;
+  static constexpr int kBytes = kDs + 2 * kStBytes;
+};
+
+template <int HP, int SP> inline size_t chunk_wg_smem(int q) {
+  return cum_bytes<double>(q) + tok_bytes(q) + 1024 + WgLayout<HP, SP>::kBytes;
+}
+
+// What a warpgroup's phases read and write: the block's staged tiles
+// (generic pointers for element reads, shared addresses for wgmma), its
+// per-token scratch, and the outputs.
+struct WgCtx {
+  Cum<double> cm;
+  Tok tk;
+  Chunk ch;
+  Shape sh;
+  const bf16 *xs, *gs, *cs;
+  uint32_t ux, ug, ub, uc, uhh, uhl, udh, udl;
+  const float* d_skip;
+  bf16* dx;
+  float *db_part, *dc_part;
+  int64_t xo, x_row;
+  int len, hd, ds;
+  bool has_h;
+};
+
+// Warpgroup wg's tokens as rows i: dc = W b + e (gy H), sum_j F_ij, v;
+// returns the thread's share of sum F_ij (cum_i - cum_j).  Both warpgroups
+// run one copy of the code (a copy a warpgroup measured slower).  In the
+// accumulators the thread holds rows ra and ra + 8 of the warpgroup's 64
+// and, in every 8-column group, columns 2 tq and 2 tq + 1 (register 4 n +
+// e: column 8 n + 2 tq + (e & 1) of row ra, or of rb where e & 2).
+template <int HP, int SP>
+__device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
+  if (64 * wg >= c.len) return 0.f;
+  const int tw = threadIdx.x & 127, tq = tw & 3;
+  const int r0 = 64 * wg;
+  const int len = c.len, hd = c.hd, ds = c.ds;
+  const int ra = r0 + 16 * (tw >> 5) + ((tw & 31) >> 2), rb = ra + 8;
+  const Cum<double>& cm = c.cm;
+  const Tok& tk = c.tk;
+  const Chunk& ch = c.ch;
+  const Shape& sh = c.sh;
+  const bf16* cs = c.cs;
+  const uint32_t ux = c.ux, ug = c.ug, ub = c.ub, uc = c.uc;
+  const float2 ka = ra < len ? tk.c2[ra] : make_float2(0.f, 0.f);
+  const float2 kb = rb < len ? tk.c2[rb] : make_float2(0.f, 0.f);
+  const uint32_t uhh = c.uhh, uhl = c.uhl;
+  const bool has_h = c.has_h;
+  float pair = 0.f;
+  float acc[SP / 2];
+  zero(acc);
+  if (has_h) {
+    // gy H: A gy (rows i, K-major over p), B H ([p][s]: MN-major)
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int kt = 0; kt < NK; ++kt) {
-    if (kt >= kk_n) continue;
+    for (int kk = 0; kk < HP / 16; ++kk) {
+      wg_ss<SP, 1>(acc, kdesc<kTok>(ug, r0, kk), mdesc<HP>(uhh, 16 * kk));
+      wg_ss<SP, 1>(acc, kdesc<kTok>(ug, r0, kk), mdesc<HP>(uhl, 16 * kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    float va = 0.f, vb = 0.f;
 #pragma unroll
-    for (int np = 0; np < NA / 2; ++np) {
-      if (np >= nn_n) continue;
-      const int off = trans ? (16 * kt + (ln.qq & 1) * 8 + ln.rr) * stride
-                                  + 16 * np + (ln.qq >> 1) * 8
-                            : (16 * np + (ln.qq >> 1) * 8 + ln.rr) * stride
-                                  + 16 * kt + (ln.qq & 1) * 8;
-      uint32_t bh[4];
-      if (trans) ldsm_x4_t(bh, hi + off); else ldsm_x4(bh, hi + off);
-      mma(acc[2 * np], af[kt], bh[0], bh[1]);
-      mma(acc[2 * np + 1], af[kt], bh[2], bh[3]);
-      if (lo != nullptr) {
-        uint32_t bl[4];
-        if (trans) ldsm_x4_t(bl, lo + off); else ldsm_x4(bl, lo + off);
-        mma(acc[2 * np], af[kt], bl[0], bl[1]);
-        mma(acc[2 * np + 1], af[kt], bl[2], bl[3]);
-      }
+    for (int n = 0; n < SP / 8; ++n) {
+      if (8 * n >= ds) continue;          // ds is a multiple of 16
+      const int s = 8 * n + 2 * tq;
+      const float2 c2a = bf2(cs + sw<kTok>(ra, s));
+      const float2 c2b = bf2(cs + sw<kTok>(rb, s));
+      va = fmaf(acc[4 * n], c2a.x, fmaf(acc[4 * n + 1], c2a.y, va));
+      vb = fmaf(acc[4 * n + 2], c2b.x, fmaf(acc[4 * n + 3], c2b.y, vb));
+    }
+    va = quad_sum(va);
+    vb = quad_sum(vb);
+    if (tq == 0) {
+      if (ra < len) tk.vv[ra] = va;
+      if (rb < len) tk.vv[rb] = vb;
+    }
+    const float ea = ra < len ? tk.ev[ra] : 0.f;
+    const float eb = rb < len ? tk.ev[rb] : 0.f;
+#pragma unroll
+    for (int i = 0; i < SP / 2; ++i) acc[i] *= (i & 2) ? eb : ea;
+  }
+  float rfa = 0.f, rfb = 0.f;
+  for (int jb = 0; jb <= wg; ++jb) {    // the j blocks up to the rows
+    // C B^T (K over ds) and GY X^T (K over hd), rows i, columns j
+    float s1[32], s2[32];
+    zero(s1);
+    zero(s2);
+    fence_regs(s1);
+    fence_regs(s2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SP / 16; ++kk)
+      wg_ss<64, 0>(s1, kdesc<kTok>(uc, r0, kk),
+                   kdesc<kTok>(ub, 64 * jb, kk));
+#pragma unroll
+    for (int kk = 0; kk < HP / 16; ++kk)
+      wg_ss<64, 0>(s2, kdesc<kTok>(ug, r0, kk),
+                   kdesc<kTok>(ux, 64 * jb, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s1);
+    fence_regs(s2);
+    // W = gy.x E dt_j into s2; F = (c.b) W.  Selects, not branches:
+    // the accumulators are touched in no divergent path, which would
+    // make ptxas serialise every wgmma
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const bool lower = (e & 2) != 0;
+      const int i = lower ? rb : ra;
+      const int j = 64 * jb + 8 * (e >> 2) + 2 * tq + (e & 1);
+      const bool keep = j <= i && i < len;
+      const int jk = keep ? j : 0;
+      const float sg = keep ? cum_diff(lower ? kb : ka, tk.c2[jk]) : 0.f;
+      const float wv = keep ? s2[e] * __expf(sg) * cm.dtv[jk] : 0.f;
+      const float fv = s1[e] * wv;
+      if (lower) rfb += fv; else rfa += fv;
+      pair = fmaf(fv, sg, pair);
+      s2[e] = wv;
+    }
+    uint32_t wh[4][4], wl[4][4];
+    split_acc(s2, wh, wl);
+    // W b: B b ([j][s]: MN-major), its rows 64 jb .. 64 jb + 63
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg_rs<SP>(acc, wh[kk], mdesc<kTok>(ub, 64 * jb + 16 * kk));
+      wg_rs<SP>(acc, wl[kk], mdesc<kTok>(ub, 64 * jb + 16 * kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  rfa = quad_sum(rfa);
+  rfb = quad_sum(rfb);
+  if (tq == 0) {
+    if (ra < len) tk.rowf[ra] = rfa;
+    if (rb < len) tk.rowf[rb] = rfb;
+  }
+  store_rows<SP>(c.dc_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
+                                * sh.nh + ch.h) * ds,
+                 static_cast<int64_t>(sh.nh) * ds, ra, len, ds, tq, acc);
+  return pair;
+}
+
+// Warpgroup wg's tokens as rows j: dx = M^T gy + d_skip gy + w (b dS^T),
+// db = W^T c + w (x dS), sum_i T_ij, u (the layout of rows_i).
+template <int HP, int SP>
+__device__ __forceinline__ void rows_j(const WgCtx& c, int wg) {
+  if (64 * wg >= c.len) return;
+  const int tw = threadIdx.x & 127, tq = tw & 3;
+  const int r0 = 64 * wg;
+  const int len = c.len, hd = c.hd, ds = c.ds;
+  const int ra = r0 + 16 * (tw >> 5) + ((tw & 31) >> 2), rb = ra + 8;
+  const Cum<double>& cm = c.cm;
+  const Tok& tk = c.tk;
+  const Chunk& ch = c.ch;
+  const Shape& sh = c.sh;
+  const bf16 *xs = c.xs, *gs = c.gs;
+  const uint32_t ux = c.ux, ug = c.ug, ub = c.ub, uc = c.uc;
+  const float2 ka = ra < len ? tk.c2[ra] : make_float2(0.f, 0.f);
+  const float2 kb = rb < len ? tk.c2[rb] : make_float2(0.f, 0.f);
+  const uint32_t udh = c.udh, udl = c.udl;
+  const int nblk = (len + 63) / 64;       // 64-token blocks that hold tokens
+  const float* d_skip = c.d_skip;
+  bf16* dx = c.dx;
+  float* db_part = c.db_part;
+  const int64_t xo = c.xo, x_row = c.x_row;
+  // b dS^T: A b (rows j, K-major over s), B dS^T (dS [p][s]: K-major);
+  // x dS: A x (K-major over p), B dS (MN-major)
+  float adx[HP / 2], adb[SP / 2];
+  zero(adx);
+  zero(adb);
+  fence_regs(adx);
+  fence_regs(adb);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < SP / 16; ++kk) {
+    wg_ss<HP, 0>(adx, kdesc<kTok>(ub, r0, kk), kdesc<HP>(udh, 0, kk));
+    wg_ss<HP, 0>(adx, kdesc<kTok>(ub, r0, kk), kdesc<HP>(udl, 0, kk));
+  }
+#pragma unroll
+  for (int kk = 0; kk < HP / 16; ++kk) {
+    wg_ss<SP, 1>(adb, kdesc<kTok>(ux, r0, kk), mdesc<HP>(udh, 16 * kk));
+    wg_ss<SP, 1>(adb, kdesc<kTok>(ux, r0, kk), mdesc<HP>(udl, 16 * kk));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(adx);
+  fence_regs(adb);
+  float ua = 0.f, ub_ = 0.f;
+#pragma unroll
+  for (int n = 0; n < HP / 8; ++n) {
+    if (8 * n >= hd) continue;            // hd is a multiple of 16
+    const int p = 8 * n + 2 * tq;
+    const float2 xa = bf2(xs + sw<kTok>(ra, p));
+    const float2 xb = bf2(xs + sw<kTok>(rb, p));
+    ua = fmaf(adx[4 * n], xa.x, fmaf(adx[4 * n + 1], xa.y, ua));
+    ub_ = fmaf(adx[4 * n + 2], xb.x, fmaf(adx[4 * n + 3], xb.y, ub_));
+  }
+  ua = quad_sum(ua);
+  ub_ = quad_sum(ub_);
+  if (tq == 0) {
+    if (ra < len) tk.uu[ra] = ua;
+    if (rb < len) tk.uu[rb] = ub_;
+  }
+  const float wa = ra < len ? tk.wv[ra] : 0.f;
+  const float wb = rb < len ? tk.wv[rb] : 0.f;
+#pragma unroll
+  for (int i = 0; i < HP / 2; ++i) adx[i] *= (i & 2) ? wb : wa;
+#pragma unroll
+  for (int i = 0; i < SP / 2; ++i) adb[i] *= (i & 2) ? wb : wa;
+  const float dta = ra < len ? cm.dtv[ra] : 0.f;
+  const float dtb = rb < len ? cm.dtv[rb] : 0.f;
+  float cta = 0.f, ctb = 0.f;
+  for (int ib = wg; ib < nblk; ++ib) {  // the i blocks from the rows on
+    // B C^T (K over ds) and X GY^T (K over hd), rows j, columns i
+    float bc[32], xg[32];
+    zero(bc);
+    zero(xg);
+    fence_regs(bc);
+    fence_regs(xg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SP / 16; ++kk)
+      wg_ss<64, 0>(bc, kdesc<kTok>(ub, r0, kk),
+                   kdesc<kTok>(uc, 64 * ib, kk));
+#pragma unroll
+    for (int kk = 0; kk < HP / 16; ++kk)
+      wg_ss<64, 0>(xg, kdesc<kTok>(ux, r0, kk),
+                   kdesc<kTok>(ug, 64 * ib, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(bc);
+    fence_regs(xg);
+    // M^T_ji = (b.c) E dt_j into bc, W^T_ji = (x.gy) E dt_j into xg;
+    // T_ji = (b.c) E (x.gy)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const bool lower = (e & 2) != 0;
+      const int j = lower ? rb : ra;
+      const int i = 64 * ib + 8 * (e >> 2) + 2 * tq + (e & 1);
+      const bool keep = i >= j && i < len;
+      const float ee =
+          keep ? __expf(cum_diff(tk.c2[keep ? i : 0], lower ? kb : ka))
+               : 0.f;
+      const float dtj = lower ? dtb : dta;
+      const float be = bc[e] * ee;
+      if (lower) ctb = fmaf(be, xg[e], ctb); else cta = fmaf(be, xg[e], cta);
+      bc[e] = be * dtj;
+      xg[e] = xg[e] * ee * dtj;
+    }
+    uint32_t mh[4][4], ml[4][4], wh[4][4], wl[4][4];
+    split_acc(bc, mh, ml);
+    split_acc(xg, wh, wl);
+    // M^T gy: B gy ([i][p]: MN-major); W^T c: B c ([i][s]: MN-major)
+    fence_regs(adx);
+    fence_regs(adb);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg_rs<HP>(adx, mh[kk], mdesc<kTok>(ug, 64 * ib + 16 * kk));
+      wg_rs<HP>(adx, ml[kk], mdesc<kTok>(ug, 64 * ib + 16 * kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg_rs<SP>(adb, wh[kk], mdesc<kTok>(uc, 64 * ib + 16 * kk));
+      wg_rs<SP>(adb, wl[kk], mdesc<kTok>(uc, 64 * ib + 16 * kk));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adx);
+    fence_regs(adb);
+  }
+  cta = quad_sum(cta);
+  ctb = quad_sum(ctb);
+  if (tq == 0) {
+    if (ra < len) tk.colt[ra] = cta;
+    if (rb < len) tk.colt[rb] = ctb;
+  }
+  // dx = adx + d_skip gy, in registers first (see store_rows)
+  const float dsk = d_skip[ch.h];
+  uint32_t dxo[HP / 4];
+#pragma unroll
+  for (int n = 0; n < HP / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 g2 = bf2(gs + sw<kTok>(half ? rb : ra, 8 * n + 2 * tq));
+      dxo[2 * n + half] =
+          pack_bf16(fmaf(dsk, g2.x, adx[4 * n + 2 * half]),
+                    fmaf(dsk, g2.y, adx[4 * n + 2 * half + 1]));
+    }
+  fence_u32(dxo);
+#pragma unroll
+  for (int n = 0; n < HP / 8; ++n) {
+    if (8 * n >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = half ? rb : ra;
+      if (j < len)
+        *reinterpret_cast<uint32_t*>(dx + xo + j * x_row + 8 * n + 2 * tq) =
+            dxo[2 * n + half];
     }
   }
+  store_rows<SP>(db_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
+                                * sh.nh + ch.h) * ds,
+                 static_cast<int64_t>(sh.nh) * ds, ra, len, ds, tq, adb);
 }
 
-// A 16 x 16 tile (two n-tiles g0, g1) of rows R (fragments af, k < kk_n)
-// times the 16 rows of a tile stored [row][k] starting at row r0: the
-// product R . T^T.
-template <int NK>
-__device__ __forceinline__ void mma_tile(float (&g0)[4], float (&g1)[4],
-                                         const uint32_t (&af)[NK][4],
-                                         int kk_n, const bf16* t, int stride,
-                                         int r0, const Lane& ln) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) g0[i] = g1[i] = 0.f;
-#pragma unroll
-  for (int kt = 0; kt < NK; ++kt) {
-    if (kt >= kk_n) continue;
-    uint32_t bb[4];
-    ldsm_x4(bb, t + (r0 + (ln.qq >> 1) * 8 + ln.rr) * stride + 16 * kt
-                    + (ln.qq & 1) * 8);
-    mma(g0, af[kt], bb[0], bb[1]);
-    mma(g1, af[kt], bb[2], bb[3]);
-  }
-}
-
-// The A fragments (rows 16 r .. 16 r + 15, k < kk_n) of a tile stored
-// [row][k].
-template <int NK>
-__device__ __forceinline__ void load_rows(uint32_t (&af)[NK][4], const bf16* t,
-                                          int stride, int r, int kk_n,
-                                          const Lane& ln) {
-#pragma unroll
-  for (int kt = 0; kt < NK; ++kt)
-    if (kt < kk_n)
-      ldsm_x4(af[kt], t + (16 * r + (ln.qq & 1) * 8 + ln.rr) * stride
-                          + 16 * kt + (ln.qq >> 1) * 8);
-}
-
-// The 16 x 16 f32 tile (g0: columns c0, c0 + 1, g1: c0 + 8, c0 + 9 of rows
-// ra and ra + 8) split into hi and lo A fragments.
-__device__ __forceinline__ void split_frag(const float (&v)[8], uint32_t (&ah)[4],
-                                           uint32_t (&al)[4]) {
-  split2(v[0], v[1], ah[0], al[0]);
-  split2(v[2], v[3], ah[1], al[1]);
-  split2(v[4], v[5], ah[2], al[2]);
-  split2(v[6], v[7], ah[3], al[3]);
-}
-
-// NP = hd / 8 and NS = ds / 8 at most (8 or 16 each).
-template <int NP, int NS>
+// HP = hd and SP = ds padded to 64 or 128.
+template <int HP, int SP>
 __global__ void __launch_bounds__(kThreads, 1)
-chunk_bwd_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+chunk_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ a_log, const bf16* __restrict__ bm,
              const bf16* __restrict__ cmat, const float* __restrict__ d_skip,
              const bf16* __restrict__ gy, const float* __restrict__ hin,
@@ -313,19 +796,27 @@ chunk_bwd_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
              float* __restrict__ ddt, float* __restrict__ db_part,
              float* __restrict__ dc_part, float* __restrict__ dalog_part,
              float* __restrict__ dd_part, Shape sh) {
+  using L = WgLayout<HP, SP>;
   extern __shared__ __align__(16) float smem[];
   const Chunk ch = chunk_of(sh);
-  const int q = sh.q, hd = sh.hd, ds = sh.ds;
-  const int sx = hd + kPad, sb = ds + kPad;
+  const int q = sh.q, hd = sh.hd, ds = sh.ds, len = ch.len;
   const Cum<double> cm = cum_at<double>(smem, q);
   const Tok tk = tok_at(past_cum<double>(smem, q), q);
-  bf16* xs =
-      reinterpret_cast<bf16*>(past_cum<double>(smem, q) + tok_bytes(q));
-  bf16* gs = xs + q * sx;
-  bf16* bs = gs + q * sx;
-  bf16* cs = bs + q * sb;
-  bf16* sth = cs + q * sb;
-  bf16* stl = sth + hd * sb;
+  char* const head_end = past_cum<double>(smem, q) + tok_bytes(q);
+  const uint32_t base = (smem_addr(head_end) + 1023u) & ~1023u;
+  char* const tiles = head_end + (base - smem_addr(head_end));
+  bf16* xs = reinterpret_cast<bf16*>(tiles + L::kX);
+  bf16* gs = reinterpret_cast<bf16*>(tiles + L::kG);
+  bf16* bs = reinterpret_cast<bf16*>(tiles + L::kB);
+  bf16* cs = reinterpret_cast<bf16*>(tiles + L::kC);
+  bf16* hh = reinterpret_cast<bf16*>(tiles + L::kH);
+  bf16* hl = hh + HP * SP;
+  bf16* dh = reinterpret_cast<bf16*>(tiles + L::kDs);
+  bf16* dl = dh + HP * SP;
+  const uint32_t ux = base + L::kX, ug = base + L::kG, ub = base + L::kB,
+                 uc = base + L::kC, uhh = base + L::kH,
+                 uhl = uhh + L::kStBytes, udh = base + L::kDs,
+                 udl = udh + L::kStBytes;
 
   const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
   const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
@@ -333,277 +824,52 @@ chunk_bwd_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
                      + static_cast<int64_t>(ch.h) * hd;
   const int64_t bo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
                      + static_cast<int64_t>(ch.g) * ds;
-  stage(xs, sx, x + xo, x_row, q, ch.len, hd);
-  stage(gs, sx, gy + xo, x_row, q, ch.len, hd);
-  stage(bs, sb, bm + bo, b_row, q, ch.len, ds);
-  stage(cs, sb, cmat + bo, b_row, q, ch.len, ds);
+  stage_sw<HP>(xs, x + xo, x_row, len, hd);
+  stage_sw<HP>(gs, gy + xo, x_row, len, hd);
+  stage_sw<SP>(bs, bm + bo, b_row, len, ds);
+  stage_sw<SP>(cs, cmat + bo, b_row, len, ds);
+  // the states: dS and H together where both fit, else H now and dS once
+  // the rows i are done (H_0 = 0)
+  const bool has_h = ch.k > 0;
+  const float* hk = hin + ch.idx * hd * ds;
+  const float* sk = dst + ch.idx * hd * ds;
+  float dsh = 0.f;                        // a share of <dS, H>
+  if (L::kBoth)
+    dsh = split_state<HP, SP>(sk, has_h ? hk : nullptr, dh, dl,
+                              has_h ? hh : nullptr, hl, hd, ds);
+  else if (has_h)
+    split_state<HP, SP>(hk, nullptr, hh, hl, nullptr, nullptr, hd, ds);
   const float a_neg = -expf(a_log[ch.h]);
   chunk_cum(dt, sh, ch, a_neg, cm);
   chunk_tokens(cm, tk, q);
-  const bool has_h = ch.k > 0;            // H_0 = 0
-  const float* hk = hin + ch.idx * hd * ds;
-  const float* sk = dst + ch.idx * hd * ds;
-  if (has_h) split_state(hk, nullptr, sth, stl, hd, ds, sb);
   cp_async_wait_all();
+  fence_async_smem();                     // the tiles, for wgmma's reads
   __syncthreads();
 
-  const Lane ln = lane_of();
-  const int r = threadIdx.x >> 5;
-  const int ntl = (ch.len + 15) / 16;     // 16-token tiles that hold tokens
-  const bool active = r < ntl;
-  const int ks_n = ds / 16, kp_n = hd / 16;
-  const int ia = 16 * r + ln.g, ib = ia + 8;
-  const double ca = active ? cm.cum[ia] : 0.0, cb = active ? cm.cum[ib] : 0.0;
-  float pair = 0.f;                       // sum F_ij (cum_i - cum_j), a share
-
-  // rows i: dc = W b + e (gy H), sum_j F_ij, v
-  if (active) {
-    uint32_t cf[NS / 2][4], gf[NP / 2][4];
-    load_rows(cf, cs, sb, r, ks_n, ln);
-    load_rows(gf, gs, sx, r, kp_n, ln);
-    float acc[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-    if (has_h) {
-      // gy H: B (p, s) from H stored [p][s]
-      mma_rows(acc, gf, kp_n, sth, stl, sb, ks_n, true, ln);
-      float va = 0.f, vb = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        if (n >= ds / 8) continue;
-        const int s = 8 * n + 2 * ln.t;
-        const float2 c2a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(cs + ia * sb + s));
-        const float2 c2b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(cs + ib * sb + s));
-        va = fmaf(acc[n][0], c2a.x, fmaf(acc[n][1], c2a.y, va));
-        vb = fmaf(acc[n][2], c2b.x, fmaf(acc[n][3], c2b.y, vb));
-      }
-      va = quad_sum(va);
-      vb = quad_sum(vb);
-      if (ln.t == 0) {
-        tk.vv[ia] = va;
-        tk.vv[ib] = vb;
-      }
-      const float ea = tk.ev[ia], eb = tk.ev[ib];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        acc[n][0] *= ea;
-        acc[n][1] *= ea;
-        acc[n][2] *= eb;
-        acc[n][3] *= eb;
-      }
-    }
-    float rfa = 0.f, rfb = 0.f;
-    for (int jt = 0; jt <= r; ++jt) {
-      float g0[4], g1[4], z0[4], z1[4];
-      mma_tile(g0, g1, cf, ks_n, bs, sb, 16 * jt, ln);   // C B^T
-      mma_tile(z0, z1, gf, kp_n, xs, sx, 16 * jt, ln);   // GY X^T
-      const int j = 16 * jt + 2 * ln.t;
-      // W = gy.x E dt_j; F = (c.b) W
-      auto wf = [&](float cbv, float gxv, int i, double ci, int jj,
-                    float& rf) -> float {
-        if (jj > i) return 0.f;
-        const double sg = ci - cm.cum[jj];
-        const float wv = gxv * expf(static_cast<float>(sg)) * cm.dtv[jj];
-        const float fv = cbv * wv;
-        rf += fv;
-        pair = fmaf(fv, static_cast<float>(sg), pair);
-        return wv;
-      };
-      const float wq[8] = {wf(g0[0], z0[0], ia, ca, j, rfa),
-                           wf(g0[1], z0[1], ia, ca, j + 1, rfa),
-                           wf(g0[2], z0[2], ib, cb, j, rfb),
-                           wf(g0[3], z0[3], ib, cb, j + 1, rfb),
-                           wf(g1[0], z1[0], ia, ca, j + 8, rfa),
-                           wf(g1[1], z1[1], ia, ca, j + 9, rfa),
-                           wf(g1[2], z1[2], ib, cb, j + 8, rfb),
-                           wf(g1[3], z1[3], ib, cb, j + 9, rfb)};
-      uint32_t af[2][1][4];
-      split_frag(wq, af[0][0], af[1][0]);
-      // W b: B (j, s) from b stored [j][s], the k-tile at row 16 jt
-      mma_rows(acc, af[0], 1, bs + 16 * jt * sb, nullptr, sb, ks_n, true, ln);
-      mma_rows(acc, af[1], 1, bs + 16 * jt * sb, nullptr, sb, ks_n, true, ln);
-    }
-    rfa = quad_sum(rfa);
-    rfb = quad_sum(rfb);
-    if (ln.t == 0) {
-      tk.rowf[ia] = rfa;
-      tk.rowf[ib] = rfb;
-    }
-    float* dco = dc_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
-                                * sh.nh + ch.h) * ds;
-    const int64_t drow = static_cast<int64_t>(sh.nh) * ds;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      if (n >= ds / 8) continue;
-      const int s = 8 * n + 2 * ln.t;
-      if (ia < ch.len)
-        *reinterpret_cast<float2*>(dco + ia * drow + s) =
-            make_float2(acc[n][0], acc[n][1]);
-      if (ib < ch.len)
-        *reinterpret_cast<float2*>(dco + ib * drow + s) =
-            make_float2(acc[n][2], acc[n][3]);
-    }
-  }
-  __syncthreads();                        // H's tiles are consumed
-  const float dsh = split_state(sk, has_h ? hk : nullptr, sth, stl, hd, ds, sb);
-  __syncthreads();
-
-  // rows j, first: dx = M^T gy + d_skip gy + w (b dS^T), sum_i T_ij, u
-  if (active) {
-    uint32_t bf[NS / 2][4], xf[NP / 2][4];
-    load_rows(bf, bs, sb, r, ks_n, ln);
-    load_rows(xf, xs, sx, r, kp_n, ln);
-    float acc[NP][4];
-#pragma unroll
-    for (int n = 0; n < NP; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-    // b dS^T: B (s, p) from dS stored [p][s]
-    mma_rows(acc, bf, ks_n, sth, stl, sb, kp_n, false, ln);
-    float ua = 0.f, ub = 0.f;
-#pragma unroll
-    for (int n = 0; n < NP; ++n) {
-      if (n >= hd / 8) continue;
-      const int p = 8 * n + 2 * ln.t;
-      const float2 xa = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(xs + ia * sx + p));
-      const float2 xb = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(xs + ib * sx + p));
-      ua = fmaf(acc[n][0], xa.x, fmaf(acc[n][1], xa.y, ua));
-      ub = fmaf(acc[n][2], xb.x, fmaf(acc[n][3], xb.y, ub));
-    }
-    ua = quad_sum(ua);
-    ub = quad_sum(ub);
-    if (ln.t == 0) {
-      tk.uu[ia] = ua;
-      tk.uu[ib] = ub;
-    }
-    const float wa = tk.wv[ia], wb = tk.wv[ib];
-#pragma unroll
-    for (int n = 0; n < NP; ++n) {
-      acc[n][0] *= wa;
-      acc[n][1] *= wa;
-      acc[n][2] *= wb;
-      acc[n][3] *= wb;
-    }
-    const float dta = cm.dtv[ia], dtb = cm.dtv[ib];
-    float cta = 0.f, ctb = 0.f;
-    for (int it = r; it < ntl; ++it) {
-      float g0[4], g1[4], z0[4], z1[4];
-      mma_tile(g0, g1, bf, ks_n, cs, sb, 16 * it, ln);   // B C^T
-      mma_tile(z0, z1, xf, kp_n, gs, sx, 16 * it, ln);   // X GY^T
-      const int i = 16 * it + 2 * ln.t;
-      // M^T_ji = (b.c) E dt_j; T = (b.c) E (x.gy)
-      auto mt = [&](float bcv, float xgv, int jr, double cj, float dtj,
-                    int ii, float& ct) -> float {
-        if (ii < jr) return 0.f;
-        const float e = exp_diff(cm.cum[ii], cj);
-        ct = fmaf(bcv * e, xgv, ct);
-        return bcv * e * dtj;
-      };
-      const float mq[8] = {mt(g0[0], z0[0], ia, ca, dta, i, cta),
-                           mt(g0[1], z0[1], ia, ca, dta, i + 1, cta),
-                           mt(g0[2], z0[2], ib, cb, dtb, i, ctb),
-                           mt(g0[3], z0[3], ib, cb, dtb, i + 1, ctb),
-                           mt(g1[0], z1[0], ia, ca, dta, i + 8, cta),
-                           mt(g1[1], z1[1], ia, ca, dta, i + 9, cta),
-                           mt(g1[2], z1[2], ib, cb, dtb, i + 8, ctb),
-                           mt(g1[3], z1[3], ib, cb, dtb, i + 9, ctb)};
-      uint32_t af[2][1][4];
-      split_frag(mq, af[0][0], af[1][0]);
-      // M^T gy: B (i, p) from gy stored [i][p], the k-tile at row 16 it
-      mma_rows(acc, af[0], 1, gs + 16 * it * sx, nullptr, sx, kp_n, true, ln);
-      mma_rows(acc, af[1], 1, gs + 16 * it * sx, nullptr, sx, kp_n, true, ln);
-    }
-    cta = quad_sum(cta);
-    ctb = quad_sum(ctb);
-    if (ln.t == 0) {
-      tk.colt[ia] = cta;
-      tk.colt[ib] = ctb;
-    }
-    const float dsk = d_skip[ch.h];
-#pragma unroll
-    for (int n = 0; n < NP; ++n) {
-      if (n >= hd / 8) continue;
-      const int p = 8 * n + 2 * ln.t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = half ? ib : ia;
-        if (j >= ch.len) continue;
-        const float2 g2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(gs + j * sx + p));
-        *reinterpret_cast<__nv_bfloat162*>(dx + xo + j * x_row + p) =
-            __floats2bfloat162_rn(fmaf(dsk, g2.x, acc[n][2 * half]),
-                                  fmaf(dsk, g2.y, acc[n][2 * half + 1]));
-      }
-    }
+  const WgCtx wc{cm, tk, ch, sh, xs, gs, cs, ux, ug, ub, uc, uhh, uhl, udh,
+                 udl, d_skip, dx, db_part, dc_part, xo, x_row, len, hd, ds,
+                 has_h};
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it
+  // uniform across the warp
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x >> 7), 0);
+  // sum F_ij (cum_i - cum_j), a share
+  const float pair = rows_i<HP, SP>(wc, wg);
+  if (!L::kBoth) {
+    __syncthreads();                      // H's tiles are consumed
+    dsh = split_state<HP, SP>(sk, has_h ? hk : nullptr, dh, dl, nullptr,
+                              nullptr, hd, ds);
+    fence_async_smem();
+    __syncthreads();
   }
 
-  // rows j, then: db = W^T c + w (x dS)
-  if (active) {
-    uint32_t xf[NP / 2][4];
-    load_rows(xf, xs, sx, r, kp_n, ln);
-    float acc[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-    // x dS: B (p, s) from dS stored [p][s]
-    mma_rows(acc, xf, kp_n, sth, stl, sb, ks_n, true, ln);
-    const float wa = tk.wv[ia], wb = tk.wv[ib];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      acc[n][0] *= wa;
-      acc[n][1] *= wa;
-      acc[n][2] *= wb;
-      acc[n][3] *= wb;
-    }
-    const float dta = cm.dtv[ia], dtb = cm.dtv[ib];
-    for (int it = r; it < ntl; ++it) {
-      float z0[4], z1[4];
-      mma_tile(z0, z1, xf, kp_n, gs, sx, 16 * it, ln);   // X GY^T
-      const int i = 16 * it + 2 * ln.t;
-      auto wt = [&](float xgv, int jr, double cj, float dtj, int ii) {
-        return ii < jr ? 0.f : xgv * exp_diff(cm.cum[ii], cj) * dtj;
-      };
-      const float wq[8] = {wt(z0[0], ia, ca, dta, i), wt(z0[1], ia, ca, dta, i + 1),
-                           wt(z0[2], ib, cb, dtb, i), wt(z0[3], ib, cb, dtb, i + 1),
-                           wt(z1[0], ia, ca, dta, i + 8),
-                           wt(z1[1], ia, ca, dta, i + 9),
-                           wt(z1[2], ib, cb, dtb, i + 8),
-                           wt(z1[3], ib, cb, dtb, i + 9)};
-      uint32_t af[2][1][4];
-      split_frag(wq, af[0][0], af[1][0]);
-      // W^T c: B (i, s) from c stored [i][s], the k-tile at row 16 it
-      mma_rows(acc, af[0], 1, cs + 16 * it * sb, nullptr, sb, ks_n, true, ln);
-      mma_rows(acc, af[1], 1, cs + 16 * it * sb, nullptr, sb, ks_n, true, ln);
-    }
-    float* dbo = db_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
-                                * sh.nh + ch.h) * ds;
-    const int64_t drow = static_cast<int64_t>(sh.nh) * ds;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      if (n >= ds / 8) continue;
-      const int s = 8 * n + 2 * ln.t;
-      if (ia < ch.len)
-        *reinterpret_cast<float2*>(dbo + ia * drow + s) =
-            make_float2(acc[n][0], acc[n][1]);
-      if (ib < ch.len)
-        *reinterpret_cast<float2*>(dbo + ib * drow + s) =
-            make_float2(acc[n][2], acc[n][3]);
-    }
-  }
+  rows_j<HP, SP>(wc, wg);
   __syncthreads();                        // the per-token sums are written
 
   float dd = 0.f;
-  for (int e = threadIdx.x; e < ch.len * hd; e += kThreads) {
+  for (int e = threadIdx.x; e < len * hd; e += kThreads) {
     const int j = e / hd, p = e % hd;
-    dd = fmaf(__bfloat162float(gs[j * sx + p]), __bfloat162float(xs[j * sx + p]),
-              dd);
+    dd = fmaf(__bfloat162float(gs[sw<kTok>(j, p)]),
+              __bfloat162float(xs[sw<kTok>(j, p)]), dd);
   }
   chunk_finish(cm, tk, ch, sh, a_neg, pair, dsh, dd, ddt, dalog_part, dd_part);
 }
@@ -966,12 +1232,18 @@ head_sum(const float* __restrict__ dalog_part, const float* __restrict__ dd_part
 Pass chunk_pass(int mode, int q, int hd, int ds) {
   if (mode == kTensorCores) {
     const bool wide_d = hd > 64, wide_s = ds > 64;
-    return Pass{
-        wide_d ? (wide_s ? reinterpret_cast<const void*>(&chunk_bwd_tc<16, 16>)
-                         : reinterpret_cast<const void*>(&chunk_bwd_tc<16, 8>))
-               : (wide_s ? reinterpret_cast<const void*>(&chunk_bwd_tc<8, 16>)
-                         : reinterpret_cast<const void*>(&chunk_bwd_tc<8, 8>)),
-        chunk_tc_smem(q, hd, ds)};
+    return wide_d ? (wide_s ? Pass{reinterpret_cast<const void*>(
+                                       &chunk_bwd_wg<128, 128>),
+                                   chunk_wg_smem<128, 128>(q)}
+                            : Pass{reinterpret_cast<const void*>(
+                                       &chunk_bwd_wg<128, 64>),
+                                   chunk_wg_smem<128, 64>(q)})
+                  : (wide_s ? Pass{reinterpret_cast<const void*>(
+                                       &chunk_bwd_wg<64, 128>),
+                                   chunk_wg_smem<64, 128>(q)}
+                            : Pass{reinterpret_cast<const void*>(
+                                       &chunk_bwd_wg<64, 64>),
+                                   chunk_wg_smem<64, 64>(q)});
   }
   return Pass{mode == kBf16
                   ? reinterpret_cast<const void*>(&chunk_bwd_cc<bf16>)

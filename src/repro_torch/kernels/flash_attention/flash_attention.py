@@ -48,10 +48,17 @@ with a row that keeps no key is on every list). A dK / dV block loops
 over its kv head's GQA group, or, where those blocks would be fewer than
 the card's SMs (``_splits_group``), each q head takes blocks of its own
 and one more launch sums their f32 shares in the group's order. In
-float32 (``kernels/csrc/flash_attention.cu``) they are CUDA-core kernels
-of 64-row tiles. No sum uses atomics and each runs in a fixed order, so
-two calls give the same bits. On a CUDA tensor it launches
-those kernels or raises; it never falls back. The two launchers are the
+float32 (``kernels/csrc/flash_attention.cu``) a block of four warps owns
+a 64-row tile and streams 64-row steps (32 above D 64) staged by
+cp.async; every product is split TF32 on mma.sync (three tensor-core
+products, as the forward's f32 route), an earlier product's accumulator
+feeding the next straight from registers; a dK / dV block takes one q
+head, and with GQA a fourth launch sums the group's shares in order;
+under the position mask dQ and dK / dV walk the same tile lists as the
+bf16 route.
+No sum uses atomics and each runs in a fixed order, so two calls give
+the same bits. On a CUDA tensor it launches those kernels or raises; it
+never falls back. The two launchers are the
 seams that a CPU test swaps for the plain versions:
 ``ref.attention_plain`` for the forward, and ``plain_backward`` for the
 backward. ``plain_backward`` runs ``ref.attention_plain`` again on the
@@ -104,7 +111,7 @@ def backward_steps(dtype: torch.dtype, d: int) -> Tuple[int, int]:
     """The rows a step of the backward streams past a block's own tile:
     (q rows past dK / dV's kv tile, kv rows past dQ's q tile)."""
     if route(dtype, d) == "tf32x3":
-        return 64, 64
+        return (64, 64) if d <= 64 else (32, 32)
     return 64, 128 if d <= 80 else 64
 # the f32 scores one slice of the plain backward holds (it holds a few
 # tensors of that size while autograd runs)
@@ -298,7 +305,8 @@ def _splits_group(device, b, h, kvh, sk) -> bool:
     are fewer than the card's SMs.  On an H100 (132 SMs, 700 W) the split
     took 1.64 ms against 2.10 at qwen2-vl's training shape (128 blocks)
     and 0.651 against 0.620 at granite-moe's (256), both timed by
-    ``attention_probe.py --backward`` (PERF.md)."""
+    ``attention_probe.py --backward`` (PERF.md).  The f32 route splits
+    every GQA group: it has no group loop."""
     if h == kvh:
         return False
     rows_b = BACKWARD_BLOCKS["tc"][1]
@@ -313,7 +321,8 @@ def _sm_count(device) -> int:
 def _launch_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
     """One call of the route's backward kernel (three launches: Delta, dK
     and dV, dQ; a fourth that sums a GQA group's shares of dK and dV where
-    ``_splits_group`` splits it) on checked CUDA tensors, counted once ->
+    the group is split: always in f32, where ``_splits_group`` says in
+    bf16) on checked CUDA tensors, counted once ->
     (dq like q, dk and dv like k).  ``o`` and ``lse`` are the forward's at
     the same arguments; ``go`` may be strided (autograd's), and is made
     contiguous."""
@@ -339,7 +348,8 @@ def _launch_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
         return (torch.zeros_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
     go, q, k, v, o = _aligned(go, q, k, v, o)
-    split = rt == "tc" and _splits_group(q.device, b, h, kvh, sk)
+    split = h != kvh if rt == "tf32x3" else _splits_group(q.device, b, h,
+                                                           kvh, sk)
     rows_a, rows_b, rows_c = BACKWARD_BLOCKS[rt]
     heads_b = "H" if split else "KV"
     grids = {f"B * Sq * H / {rows_a}": -(-b * sq * h // rows_a),
@@ -352,11 +362,9 @@ def _launch_backward(go, q, k, v, o, lse, causal, q_pos, k_pos):
                              "2**31 - 1 blocks")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    scratch = [delta.data_ptr()]
-    if rt == "tc":
-        part = torch.empty((2, b, sk, h, d), dtype=torch.float32,
-                           device=q.device) if split else None
-        scratch.append(None if part is None else part.data_ptr())
+    part = torch.empty((2, b, sk, h, d), dtype=torch.float32,
+                       device=q.device) if split else None
+    scratch = [delta.data_ptr(), None if part is None else part.data_ptr()]
     fn = _build.function(BACKWARD_ENTRY[rt])
     rc = fn(go.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), *scratch, dq.data_ptr(),

@@ -31,9 +31,10 @@ passes, counted once on ``BACKWARD_COUNTER``, under the profiler label
 ``BACKWARD``): the entering states rebuilt by the forward's passes 1 and
 2, what each chunk's y sends back to its entering state, the state
 passing in reverse, a chunk pass for dx, dt, the heads' shares of db and
-dc and the blocks' shares of da_log and d_skip, and fixed-order sums of
-the shares.  The reference has no backward kernel: it trains through
-``ssd_chunked``, which XLA differentiates.  On a CUDA tensor the backward
+dc and the blocks' shares of da_log and d_skip (on the tensor-core route
+a block of two warpgroups whose products are wgmma), and fixed-order
+sums of the shares.  The reference has no backward kernel: it trains
+through ``ssd_chunked``, which XLA differentiates.  On a CUDA tensor the backward
 launches or raises; on a CPU tensor (a test's) it takes
 ``plain_backward``, autograd of the plain version in its chunk-parallel
 form, ``ref.ssd_chunked_plain`` (the kernel's three passes, which

@@ -170,12 +170,29 @@ def _vlm_t(s, patches=256, side=16):
     return np.where(i < patches, 0, side + i - patches)
 
 
+def _route_tiles(dtype, d):
+    """The (q tile, kv tile) of the backward's dK / dV blocks on the route
+    of (dtype, d): its q step past its kv tile."""
+    rt = fa.route(dtype, d)
+    return fa.backward_steps(dtype, d)[0], fa.BACKWARD_BLOCKS[rt][1]
+
+
+# the f32 route's tiles: 64-row q steps up to D 64, 32-row ones above
+F32_TILES = {"f32": 64, "f32_wide": 128}
+
+
 def _tile_case(case):
     """numpy q, k, v, go (f32), int32 positions (q_pos, k_pos) and the tile
     sizes (q_tile, kv_tile) of a case: the ``CASES`` positions at small
     tiles, Qwen2-VL's layout at the kernel's tiles, and positions that leave
     the whole second 64-row q tile without a key while no kept pair reaches
-    the last kv tile."""
+    the last kv tile; a ``_f32`` or ``_f32_wide`` suffix takes the f32
+    route's tiles (at D 64 and at D 128) for the bf16 route's."""
+    base, _, route = case.partition("_f32")
+    if route or case.endswith("_f32"):
+        data, pos, _ = _tile_case(base)
+        return data, pos, _route_tiles(torch.float32,
+                                       F32_TILES["f32" + route])
     r = np.random.default_rng(len(case))
     if case in ("position", "no_key_rows"):
         (q, k, v, go), (qp, kp), _ = _inputs(case, seed=len(case))
@@ -191,7 +208,7 @@ def _tile_case(case):
     k, v = (r.normal(size=(b, s, kvh, d)).astype(np.float32)
             for _ in range(2))
     return (q, k, v, go), (qp.astype(np.int32), kp.astype(np.int32)), \
-        (64, 128)
+        _route_tiles(torch.bfloat16, d)
 
 
 def _backward_over_tiles(q, k, v, go, q_pos, k_pos, visits, q_tile,
@@ -223,21 +240,25 @@ def _backward_over_tiles(q, k, v, go, q_pos, k_pos, visits, q_tile,
 
 
 @pytest.mark.parametrize("case", ["position", "no_key_rows", "qwen2_vl",
-                                  "dead_tile"])
+                                  "dead_tile", "qwen2_vl_f32",
+                                  "dead_tile_f32", "qwen2_vl_f32_wide",
+                                  "dead_tile_f32_wide"])
 def test_kv_tile_visits_keep_the_whole_backward(case):
     """The backward restricted to the (q tile, kv tile) pairs that
     ``ref.kv_tile_visits`` lists equals ``plain_backward`` (autograd of the
     plain attention) within the f32 tolerance: no pair it leaves out adds
     to dK or dV, also where a row keeps no key (it adds 1 / Sk . dO to every
     kv row's dV) and under Qwen2-VL's patches, where it leaves out tiles
-    (random repeated positions reach every tile)."""
+    (random repeated positions reach every tile); at the bf16 route's
+    tiles and at the f32 route's (64-row kv tiles, 64- or 32-row q
+    steps)."""
     (q, k, v, go), (qp, kp), (qt, kt) = _tile_case(case)
     q, k, v, go = (torch.from_numpy(a) for a in (q, k, v, go))
     qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
     visits = fa_ref.kv_tile_visits(qp, kp, q_tile=qt, kv_tile=kt)
     assert visits.shape == (q.shape[0], -(-k.shape[1] // kt),
                             -(-q.shape[1] // qt))
-    if case in ("qwen2_vl", "dead_tile"):
+    if not case.startswith(("position", "no_key_rows")):
         assert not bool(visits.all())      # some pairs left out
     got = _backward_over_tiles(q, k, v, go, qp, kp, visits, qt, kt)
     want = fa.plain_backward(q, k, v, go, causal=True, q_pos=qp, k_pos=kp)
@@ -245,20 +266,22 @@ def test_kv_tile_visits_keep_the_whole_backward(case):
            GRAD_REL["float32"])
 
 
-def test_a_kv_tile_no_pair_reaches_still_visits_a_dead_row_tile():
-    """Where a whole q tile keeps no key and no kept pair reaches the last
-    kv tile, that kv tile visits the dead tile alone, and leaving the dead
-    tile out of the lists changes dV: the kv tile's dV would be 0 where
-    it is 1 / Sk of the dead rows' dO summed."""
-    (q, k, v, go), (qp, kp), (qt, kt) = _tile_case("dead_tile")
+def _dead_tile_check(case):
+    """Where a whole 64-row q block keeps no key and no kept pair reaches
+    the last kv tile, that kv tile visits the dead rows' q tiles alone,
+    every kv tile visits them, and leaving them out of the lists changes
+    dV: the last kv tile's dV would be 0 where it is 1 / Sk of the dead
+    rows' dO summed."""
+    (q, k, v, go), (qp, kp), (qt, kt) = _tile_case(case)
     q, k, v, go = (torch.from_numpy(a) for a in (q, k, v, go))
-    qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
+    qp, kp = (torch.from_numpy(qp), torch.from_numpy(kp))
     visits = fa_ref.kv_tile_visits(qp, kp, q_tile=qt, kv_tile=kt)
-    assert visits[0, -1].nonzero().flatten().tolist() == [1]
-    assert bool(visits[0, :, 1].all())
+    dead_tiles = list(range(64 // qt, 128 // qt))     # rows 64 .. 127
+    assert visits[0, -1].nonzero().flatten().tolist() == dead_tiles
+    assert bool(visits[0, :, dead_tiles].all())
     full = _backward_over_tiles(q, k, v, go, qp, kp, visits, qt, kt)
     short = visits.clone()
-    short[:, :, 1] = False
+    short[:, :, dead_tiles] = False
     cut = _backward_over_tiles(q, k, v, go, qp, kp, short, qt, kt)
     dv, dv_cut = full[2], cut[2]
     assert float(dv_cut[:, 512:].abs().max()) == 0.0
@@ -270,6 +293,20 @@ def test_a_kv_tile_no_pair_reaches_still_visits_a_dead_row_tile():
     assert float((dv - dv_cut).abs().max()) > 1e-3 * float(dv.abs().max())
 
 
+def test_a_kv_tile_no_pair_reaches_still_visits_a_dead_row_tile():
+    """At the bf16 route's tiles (``_dead_tile_check``): the last 128-row
+    kv tile visits the dead second 64-row q tile alone."""
+    _dead_tile_check("dead_tile")
+
+
+@pytest.mark.parametrize("case", ["dead_tile_f32", "dead_tile_f32_wide"])
+def test_a_kv_tile_no_pair_reaches_still_visits_a_dead_row_tile_f32(case):
+    """At the f32 route's tiles (``_dead_tile_check``): the last two 64-row
+    kv tiles each visit the dead rows' q tiles alone (one 64-row q step at
+    D 64, two 32-row steps at D 128)."""
+    _dead_tile_check(case)
+
+
 @pytest.mark.parametrize("d,want", [(16, (64, 128)), (64, (64, 128)),
                                     (80, (64, 128)), (96, (64, 64)),
                                     (128, (64, 64))])
@@ -277,6 +314,7 @@ def test_backward_steps_follow_the_head_dim(d, want):
     """The rows a step of the bf16 backward streams: 64 q rows past a dK /
     dV block's kv tile, and past a dQ block's q tile 128 kv rows up to D
     80, 64 above (what fits a consumer's registers); the f32 route's 64
-    and 64 at every D."""
+    and 64 up to D 64, 32 and 32 above (two blocks an SM)."""
     assert fa.backward_steps(torch.bfloat16, d) == want
-    assert fa.backward_steps(torch.float32, d) == (64, 64)
+    assert fa.backward_steps(torch.float32, d) == \
+        ((64, 64) if d <= 64 else (32, 32))

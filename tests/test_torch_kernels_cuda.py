@@ -1775,6 +1775,45 @@ def test_flash_attention_rows_without_a_key_match_plain(cuda, dtype):
     _grads_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("group", [1, 3, 7])
+def test_flash_attention_backward_tile_lists_skip_and_keep_dead_rows(
+        cuda, dtype, d, group):
+    """Under the position mask both backward routes walk tile lists:
+    Qwen2-VL's patches (128 at one t, the text rising after them), q rows
+    64 .. 127 below every k position (rows that keep no key: they average
+    every key and add 1 / Sk . dO to every kv row's dV) and k positions
+    past every q position from row 512 on (kv tiles that no kept pair
+    reaches, which only the dead rows' q tiles visit).  The gradients
+    equal ``plain_backward``'s within ``GRAD_TOL``, finite, one counted
+    call, two calls bit-identical."""
+    s = 640
+    q, k, v, go, kw = _bwd_inputs(cuda, 1, s, s, 2 * group, 2, d, dtype,
+                                  "causal", seed=d + group)
+    i = np.arange(s)
+    qp = np.where(i < 128, 0, 16 + i - 128)
+    kp = qp.copy()
+    qp[64:128] = -1
+    kp[512:] = 10 ** 6
+    kw.update(q_pos=torch.from_numpy(qp[None].astype(np.int32)).to(cuda),
+              k_pos=torch.from_numpy(kp[None].astype(np.int32)).to(cuda))
+    o, lse = _forward_with_lse(q, k, v, kw)
+    counter = fa.BACKWARD_COUNTER[fa.route(dtype, d)]
+    before = dict(_build.LAUNCHES)
+    got = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c == counter) for c in before}
+    again = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    want = fa.plain_backward(q, k, v, go, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert float(got[1][:, 512:].abs().max()) == 0.0   # no kept pair
+    assert float(got[2][:, 512:].abs().max()) > 0.0    # the dead rows' dO
+    _grads_close(got, want, dtype)
+
+
 def test_flash_attention_backward_refuses_what_it_does_not_take(cuda):
     q, k, v, go, kw = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 64, torch.float32,
                                   "causal", seed=1)
@@ -2209,6 +2248,49 @@ def test_flash_attention_bf16_backward_group_loop_and_split(
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("form,sq,sk", [("causal", 517, 517),
+                                        ("position", 300, 300),
+                                        ("cross", 37, 1003)])
+@pytest.mark.parametrize("d,group", [(64, 3), (80, 7), (128, 7)])
+def test_flash_attention_f32_backward_splits_every_gqa_group(
+        cuda, monkeypatch, form, sq, sk, d, group):
+    """The f32 backward's dK / dV with GQA, a block a q head and the
+    group's f32 shares summed in order after (the fourth launch),
+    whatever ``_splits_group`` would say for bf16: within ``GRAD_TOL`` of
+    ``plain_backward``, one counted call, and two calls give the same
+    bits."""
+    monkeypatch.setattr(fa, "_splits_group", lambda *a: False)
+    q, k, v, go, kw = _bwd_inputs(cuda, 2, sq, sk, 2 * group, 2, d,
+                                  torch.float32, form, seed=sq + d + group)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    before = dict(_build.LAUNCHES)
+    got = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    assert {c: _build.LAUNCHES[c] - before[c] for c in before} == \
+        {c: int(c == "flash_attention_bwd_f32") for c in before}
+    again = fa._launch_backward(go, q, k, v, o, lse, **kw)
+    want = fa.plain_backward(q, k, v, go, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _grads_close(got, want, torch.float32)
+
+
+def test_flash_attention_f32_backward_refuses_gqa_without_scratch(cuda):
+    """The f32 entry needs the q heads' scratch for a GQA group: given
+    none it launches nothing and returns cudaErrorInvalidValue (1)."""
+    q, k, v, go, kw = _bwd_inputs(cuda, 1, 64, 64, 6, 2, 64, torch.float32,
+                                  "causal", seed=3)
+    o, lse = _forward_with_lse(q, k, v, kw)
+    delta = torch.empty((1, 6, 64), dtype=torch.float32, device=cuda)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    fn = _build.function(fa.BACKWARD_ENTRY["tf32x3"])
+    rc = fn(go.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, 64, 64, 6, 2,
+            64, 1, None, None, 64 ** -0.5, _build.stream_handle(cuda))
+    assert rc == 1
+
+
 def test_flash_attention_bf16_backward_splits_only_a_short_grid(cuda):
     """The split is taken where the group loop's dK / dV blocks are fewer
     than the card's SMs (qwen2-vl's 4 kv heads at 4,096), not where they
@@ -2299,6 +2381,36 @@ def test_ssd_backward_matches_plain(cuda, dtype, hd, ds, ng, chunk, with_gh):
     got = ssd_kernels._scan_backward(*args, gy, gh, chunk)
     assert _ssd_counts(before) == {k: int(k == counter) for k in before}
     _grads_close(got, _plain_grads64(args, gy, gh, chunk), dtype)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("hd,ds,ng", [(64, 128, 1), (64, 16, 1), (64, 16, 4),
+                                      (64, 128, 3), (128, 64, 2),
+                                      (128, 128, 1), (32, 48, 2)])
+def test_ssd_backward_chunk_pass_on_wgmma(cuda, hd, ds, ng, strong):
+    """The tensor-core route's chunk pass (two warpgroups on wgmma, hd and
+    ds padded to 64 or 128, the states resident together or one after the
+    other) at mamba2-780m's widths (hd 64, ds 128), jamba's (ds 16) and
+    the other paddings, one group and several, over whole chunks and a
+    ragged last one, with Mamba-2's decays and strong ones (dt up to 2):
+    the gradients finite, within the bf16 ``GRAD_TOL`` of the plain version
+    in f64, one counted call, two calls bit-identical; the pass takes one
+    block an SM."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, 2 * ng, hd, ng, ds,
+                                    torch.bfloat16, seed=hd + ds + ng,
+                                    strong=strong)
+    assert ssd_kernels.route(torch.bfloat16, hd, ds) == "tc"
+    before = dict(_build.LAUNCHES)
+    got = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    assert _ssd_counts(before) == {k: int(k == "ssd_bwd_tc") for k in before}
+    again = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grads_close(got, _plain_grads64(args, gy, gh), torch.bfloat16)
+    blocks, _ = ssd_kernels.backward_occupancy(torch.bfloat16, hd, ds,
+                                               128)["chunk"]
+    assert blocks == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -39,10 +39,14 @@ function in f64.
 (x 4 x 4,096 x 48 x 64 bf16, b and c 4 x 4,096 x 1 x 128, chunk 128, gh
 absent) and jamba's widths (x 4 x 4,096 x 128 x 64, b and c ds 16), the
 mean milliseconds of ``_scan_backward`` over 20 calls after 3 (CUDA
-events), each of its five passes alone on the same buffers
-(``run_backward_passes``), and the chunk pass's blocks an SM and shared
-bytes a block (``backward_occupancy``).  Its inputs are drawn in
-Mamba-2's init ranges (dt in [0.001, 0.1], A in [1, 16]).
+events), each of its passes (``BACKWARD_PASSES``) alone on the same
+buffers (``run_backward_passes``), and the chunk pass's blocks an SM and
+shared bytes a block (``backward_occupancy``); where the checkout's
+chunk pass runs in clusters of heads, also its cluster, the clusters the
+card holds at once (``backward_clusters``) and the whole backward with
+clusters of 8, 4, 2 and 1 heads in turns (8, 4, 2, 1, 1, 2, 4, 8).  Its
+inputs are drawn in Mamba-2's init ranges (dt in [0.001, 0.1], A in [1,
+16]).
 """
 from __future__ import annotations
 
@@ -269,8 +273,30 @@ def ssd_backward(tag, dev, g, ms) -> int:
                            for p in ssd_kernels.BACKWARD_PASSES)
         blocks, smem = ssd_kernels.backward_occupancy(
             torch.bfloat16, hd, ds, SSD_CHUNK)["chunk"]
+        extra = ""
+        if hasattr(ssd_kernels, "backward_cluster"):
+            cl = ssd_kernels.backward_cluster(torch.bfloat16, hd, ds, nh, ng)
+            sizes = [c for c in (8, 4, 2, 1) if (nh // ng) % c == 0]
+            cbufs = {c: ssd_kernels.backward_buffers(ins[0], ins[3],
+                                                     SSD_CHUNK, cluster=c)
+                     for c in sizes}
+            turns = {c: [] for c in sizes}
+            for c in sizes + sizes[::-1]:
+                turns[c].append(ms(
+                    lambda c=c: ssd_kernels.run_backward_passes(
+                        *ins, gy, None, bufs=cbufs[c], chunk=SSD_CHUNK,
+                        cluster=c)))
+            resident = [ssd_kernels.backward_clusters(
+                torch.bfloat16, hd, ds, SSD_CHUNK, c)
+                for c in range(1, ssd_kernels.MAX_CLUSTER + 1)]
+            at_once = ", ".join(f"{n} of {c}"
+                                for c, n in enumerate(resident, start=1))
+            extra = (f", clusters of {cl}, {at_once} at once; in turns "
+                + ", ".join(f"C={c} " + " / ".join(f"{t:.4f}" for t in v)
+                            for c, v in turns.items()))
+            del cbufs
         out.append(f"{name} {whole:.4f} ({passes}; chunk pass {blocks} "
-                   f"block(s) an SM, {smem} shared bytes)")
+                   f"block(s) an SM, {smem} shared bytes{extra})")
         del ins, gy, bufs
         torch.cuda.empty_cache()
     print(f"[{tag}] ssd backward: " + "; ".join(out), flush=True)

@@ -1035,7 +1035,8 @@ def spread(warm) -> str:
 def _kernel_name(key: str) -> str:
     """A kernel's function name from its profiler key, with its first
     template argument where that is true or false (the SSD's shared
-    passes, which the backward runs for R and to rebuild the states)."""
+    passes, which the backward runs for the entering states, and on its
+    CUDA-core route for the chunks' states and R)."""
     head = key.replace("(anonymous namespace)", "").split("(")[0]
     name = head.split("<")[0].split("::")[-1].split()[-1]
     first = head.split("<", 1)[1].split(",")[0].strip(" >") \
@@ -3397,16 +3398,19 @@ def phase_lm_kernels(dev):
                        causal=form in ("causal", "position"), **pos)
 
     def b8_bwd_row(name, arch, bsz, s_len, dtype, counted_in):
-        """One row of B8's backward kernel (``_scan_backward``, its five
+        """One row of B8's backward kernel (``_scan_backward``, its four
         passes) against ``plain_backward`` on the same inputs, in f64 for
         f32 inputs, each gradient within ``SSD_GRAD_TOL`` of its largest
         magnitude and finite, two calls bit-identical; timed by CUDA
         events, pass by pass too, beside its bound (x, gy, dt, b and c read
         once, dx, ddt, db and dc written once; ``ssd_flops(backward=True)``
-        operations) and the plain version.  Mamba-2's init ranges, the
-        final state's gradient absent (the model reads y only).  With
-        ``counted_in`` None (widths that no card path trains at) the row
-        is checked, timed and logged, but not listed."""
+        operations) and the plain version.  On the tensor-core route also
+        the chunk pass's cluster of heads C and the clusters the card holds
+        at once, and the whole backward at C, at C = 4 and at C = 1 (a
+        share a head) in turns.  Mamba-2's init ranges, the final state's
+        gradient absent (the model reads y only).  With ``counted_in``
+        None (widths that no card path trains at) the row is checked,
+        timed and logged, but not listed."""
         cfg = get_arch(arch)
         nh, hd, ng, ds = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
             cfg.ssm_state
@@ -3472,10 +3476,15 @@ def phase_lm_kernels(dev):
                   + (", chunk pass on wgmma" if rt == "tc" else ""))
         blocks, smem = ssd_kernels.backward_occupancy(dtype, hd, ds,
                                                       128)["chunk"]
+        cluster = ssd_kernels.backward_cluster(dtype, hd, ds, nh, ng)
+        clusters = ssd_kernels.backward_clusters(dtype, hd, ds, 128, cluster)
         log(f"  {name} passes: " + ", ".join(
             f"{p} {ms:.4f} ms" for p, ms in pass_ms.items())
             + f" (sum {sum(pass_ms.values()):.4f}); chunk pass "
-            f"{blocks} block(s) an SM, {smem} shared bytes a block")
+            f"{blocks} block(s) an SM, {smem} shared bytes a block, "
+            f"clusters of {cluster} head(s), {clusters} at once")
+        if rt == "tc":
+            log(f"  {name} " + b8_cluster_turns(args, gy, cluster))
         finish_row(row, agree=f"{tname} max abs err {err:.3e}, worst "
                    f"{worst:.2e} of a gradient's largest magnitude (bound "
                    f"{SSD_GRAD_TOL[tname]}"
@@ -3487,6 +3496,25 @@ def phase_lm_kernels(dev):
                 "logged, not listed")
         else:
             rows.append(row)
+
+    def b8_cluster_turns(args, gy, cluster):
+        """The whole backward (``run_backward_passes``, every pass) with
+        the chunk pass in clusters of ``cluster``, 4 and 1 heads (those of
+        them that divide a group's), in turns: mean ms of each."""
+        rep = args[0].shape[2] // args[3].shape[2]
+        sizes = [c for c in dict.fromkeys((cluster, 4, 1)) if rep % c == 0]
+        bufs = {c: ssd_kernels.backward_buffers(args[0], args[3], 128,
+                                                cluster=c) for c in sizes}
+        times = {c: [] for c in sizes}
+        for turn in range(2):
+            for c in sizes if turn == 0 else sizes[::-1]:
+                times[c].append(time_ms(
+                    lambda c=c: ssd_kernels.run_backward_passes(
+                        *args, gy, None, bufs=bufs[c], cluster=c)))
+        del bufs
+        return "whole backward by cluster, in turns: " + "; ".join(
+            f"C={c} " + " / ".join(f"{t:.4f}" for t in times[c]) + " ms"
+            for c in sizes)
 
     # the served prefills (bf16, batch 4) take the tensor-core route; the
     # f32 teacher-forced check's prefill (batch 1) the CUDA-core route; the

@@ -99,10 +99,13 @@ SIGNATURES = {
                               ctypes.POINTER(_I32))),
     # x, dt, a_log, b, c, d_skip, gy, gh (null: zero), the scratch (states,
     # decay, dstates, db_part, dc_part, dalog_part, dd_part), dx, ddt,
-    # da_log, db, dc, dd_skip, bsz, seq, nh, hd, ng, ds, chunk, mode,
-    # passes, stream
-    "ssd_bwd": ("ssd_bwd", (_P,) * 21 + (_I32,) * 9 + (_P,)),
-    "ssd_bwd_occupancy": ("ssd_bwd", (_I32, _I32, _I32, _I32,
+    # da_log, db, dc, dd_skip, bsz, seq, nh, hd, ng, ds, chunk, cluster,
+    # mode, passes, stream
+    "ssd_bwd": ("ssd_bwd", (_P,) * 21 + (_I32,) * 10 + (_P,)),
+    # mode, hd, ds, chunk, cluster, blocks (int32[2]), smem (int32[2]),
+    # clusters (int32[1])
+    "ssd_bwd_occupancy": ("ssd_bwd", (_I32, _I32, _I32, _I32, _I32,
+                                      ctypes.POINTER(_I32),
                                       ctypes.POINTER(_I32),
                                       ctypes.POINTER(_I32))),
 }

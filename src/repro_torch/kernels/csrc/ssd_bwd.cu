@@ -8,19 +8,20 @@
 // Computes: the gradients of ssd.cu's (y, final state) at (x, dt, a_log,
 //   b, c, d_skip) against gy and gh (gh may be null: zero).  With the
 //   forward's notation (a_t = -exp(a_log) dt_t, cum its cumsum over a chunk
-//   of Q tokens, L = cum_last, H_k the state entering chunk k), over five
+//   of Q tokens, L = cum_last, H_k the state entering chunk k), over four
 //   passes:
-//     1. states: H_k rebuilt by the forward's passes 1 and 2 into the
-//        scratch (no (B, nh, nc, hd, ds) tensor is kept from the forward);
-//     2. out states: R_k = sum_i exp(cum_i) gy_i c_i^T, what chunk k's y
-//        sends back to H_k (the forward's pass 1 with gy, c and exp(cum)
-//        for x, b and the decay weight);
-//     3. state pass, the chunks in reverse, elementwise and in place: G =
-//        gh, then dS_k = G and G <- R_k + exp(L_k) G; dS_k over R_k;
-//     4. chunk pass (a block per batch row, chunk and head): with E_ij =
-//        exp(cum_i - cum_j) (j <= i), e_i = exp(cum_i), w_j = dt_j
-//        exp(L - cum_j), M_ij = (c_i . b_j) E_ij dt_j, W_ij = (gy_i . x_j)
-//        E_ij dt_j and F_ij = (c_i . b_j) W_ij:
+//     1. states (a block per batch row, chunk and head, one chunk cum): the
+//        chunk's own state S_k = sum_j w_j x_j b_j^T, w_j = dt_j exp(L -
+//        cum_j), and its decay exp(L) (the forward's pass 1: no (B, nh, nc,
+//        hd, ds) tensor is kept from the forward), and R_k = sum_i exp(cum_i)
+//        gy_i c_i^T, what chunk k's y sends back to H_k;
+//     2. state pass, elementwise and in place, two scans: S into H (the
+//        forward's pass 2, chunks in order), and R into dS (chunks in
+//        reverse: G = gh, then dS_k = G and G <- R_k + exp(L_k) G);
+//     3. chunk pass (a block per batch row, chunk and head): with E_ij =
+//        exp(cum_i - cum_j) (j <= i), e_i = exp(cum_i), w_j as above, M_ij
+//        = (c_i . b_j) E_ij dt_j, W_ij = (gy_i . x_j) E_ij dt_j and F_ij =
+//        (c_i . b_j) W_ij:
 //          dx_j = sum_i M_ij gy_i + d_skip gy_j + w_j dS b_j,
 //          db_j = sum_i W_ij c_i + w_j dS^T x_j (a share per head),
 //          dc_i = sum_j W_ij b_j + e_i H^T gy_i (a share per head),
@@ -34,47 +35,85 @@
 //          (the reverse cumsum's form takes differences of sums some
 //          thousand times larger under strong decays, which loses a_log's
 //          gradient to f32 rounding); and of dd_skip = sum gy . x;
-//     5. reduce: db and dc summed over the heads of a group, da_log and
+//     4. reduce: db and dc summed over the shares of a group, da_log and
 //        dd_skip over the blocks, in a fixed order.
 // Bound: at mamba2-780m's training shape (x 4 x 4,096 x 48 x 64 bf16, b
 //   and c 4 x 4,096 x 1 x 128, chunk 128, gh absent) the function reads x,
 //   gy, dt, b, c once and writes dx, ddt, db, dc once: 325.1 MB, 0.0970 ms
 //   at 3.35 TB/s; its products (ssd_flops(backward=True), twice the
 //   forward's) are 90.5 GFLOP, 0.0915 ms at 989 TFLOP/s: bound by bytes.
-//   The passes move far more: two (B, nh, nc, hd, ds) f32 scratches (H_k
-//   and R_k / dS_k, 100.7 MB each, each written and read twice or more),
-//   and db's and dc's per-head f32 shares (402.7 MB each, written once and
-//   read once).  A block that walked a group's heads and kept one share
-//   for them measured slower at every number of heads tried (PERF.md).
-//   PERF.md keeps the measured times.
-// Design: every pass but 3 and 5 runs the chunks of a head in parallel.
-//   The chunk pass on the tensor-core route (bf16, hd and ds multiples of
-//   16) is a block of two warpgroups per (batch row, chunk, head), one
-//   block an SM (about 166 KB of shared tiles and 240 registers a thread
-//   at mamba2-780m's widths: two blocks would need half of each).  x, gy,
-//   b and c of the chunk stage by cp.async into 128-row tiles in wgmma's
-//   128-byte swizzle, hd and ds padded to 64 or 128 with zeros, and the
-//   f32 states H and dS are split into bf16 hi and lo tiles (both resident
-//   where they fit).  Warpgroup wg owns tokens 64 wg .. 64 wg + 63, first
-//   as rows i (dc = W b + e (gy H), sum_j F_ij, v), then as rows j (dx =
-//   M^T gy + w (b dS^T), db = W^T c + w (x dS), sum_i T_ij, u).  Every
-//   product is wgmma m64nNk16 bf16 -> f32: the Q x Q products C B^T and
-//   GY X^T by 64 x 64 blocks on and below the diagonal, once per
-//   orientation, both operands K-major in shared memory; the state
-//   products with the state as an MN-major or K-major shared operand; the
-//   split M, W products with the A operand in registers, straight from
-//   the elementwise work on the accumulator.  bf16 operands are exact; an
-//   f32 operand (H, dS, M, W) is split into hi = bf16(v) and lo = bf16(v -
-//   hi), two products summed in f32, as the forward does.  Every k loop
-//   has a trip count fixed at compile time (the padded width) and the
-//   accumulators are touched in no divergent path: otherwise ptxas
-//   serialises every wgmma of the kernel.  The CUDA-core route (f32, bf16
-//   at other widths) keeps C B^T (then M) and GY X^T (then W) as f32 Q x Q
-//   tiles in shared memory and runs every product as a register-tiled FMA
-//   product over k-slices staged in shared memory.  cum is f64
-//   (ssd_common.cuh).  No atomics: every sum has a fixed order, so two
-//   calls give the same bits.  No TMA: nothing here encodes a tensor map,
-//   so no thread needs the driver's context bound first.
+//   The passes move far more: two (B, nh, nc, hd, ds) f32 scratches (S
+//   then H, and R then dS, 201.3 MB each: written by pass 1, read and
+//   written by pass 2, read by pass 3), x and gy twice (100.7 MB each), and
+//   db's and dc's f32 shares, (B, S, nh / C, ds) each (50.3 MB at C = 8;
+//   402.7 MB each a head, C = 1), written once and read once: some 2.3 GB
+//   of device memory a call on the tensor-core route, and some 0.7 GB
+//   between the shared memories of a cluster's blocks (7 / 8 of each
+//   block's two f32 shares at C = 8).  PERF.md keeps the measured times.
+// Design: every pass but 2 and 4 runs the chunks of a head in parallel.
+//   On the tensor-core route (bf16, hd and ds multiples of 16) passes 1
+//   and 3 multiply on wgmma (m64nNk16 bf16 -> f32).  bf16 operands are
+//   exact; an f32 operand (a weighted x or gy, H, dS, M, W) is split into
+//   hi = bf16(v) and lo = bf16(v - hi), two products summed in f32, as the
+//   forward does.  Every k loop has a trip count fixed at compile time
+//   (the padded width) and the accumulators are touched in no divergent
+//   path: otherwise ptxas serialises every wgmma of the kernel.  cum is
+//   f64 (ssd_common.cuh), computed once a block in each pass.
+//   Pass 1 (states_bwd_wg) is two warpgroups, one a product: warpgroup 0
+//   S from x w and b, warpgroup 1 R from gy e and c, each over the chunk's
+//   tokens 64 at a time, its own tiles staged by cp.async in wgmma's
+//   128-byte swizzle, the weighted operand split in place; A is the
+//   weighted (token, hd) tile read transposed (MN-major) and B the (token,
+//   ds) tile, MN-major.  Two blocks an SM at hd 64.
+//   Pass 3 (chunk_bwd_wg) is a block of two warpgroups per (batch row,
+//   chunk, head), one block an SM, launched in thread-block clusters of C
+//   blocks: C consecutive heads of one group at the same (batch row,
+//   chunk), C the largest divisor of nh / ng up to 8 (the wrapper's
+//   cluster_heads).  chunk_of's order already puts the head fastest, so a
+//   cluster is C consecutive blocks and a block's rank is h % C.  Rank r
+//   owns rows r P .. r P + P - 1 of the chunk (P = ceil(128 / C)).  x and
+//   gy stage by cp.async into 128-row tiles in wgmma's 128-byte swizzle,
+//   hd and ds padded to 64 or 128 with zeros.  b and c, the same for every
+//   head of a group, are read once a cluster: their 64-column x 16-row TMA
+//   boxes are shared out among the ranks, and each rank's loads are
+//   multicast to every block of the cluster (where a tensor map cannot
+//   take them, a misaligned view or ds not a multiple of 64, each block
+//   stages its own).  The f32 states H and dS are split into bf16 hi and
+//   lo tiles (both resident where they fit).  Warpgroup wg owns tokens 64
+//   wg .. 64 wg + 63, first as rows i (dc = W b + e (gy H), sum_j F_ij, v,
+//   and gy . x from the diagonal of GY X^T), then as rows j (dx = M^T gy +
+//   w (b dS^T), db = W^T c + w (x dS), sum_i T_ij, u); the two take the
+//   halves of the Q x Q products in other orders and meet at no barrier
+//   between them.  The Q x Q products C B^T and GY X^T run by 64 x 64
+//   blocks on and below the diagonal, once per orientation, both operands
+//   K-major in shared memory; the state products take the state as an
+//   MN-major or K-major shared operand; the split M, W products take the A
+//   operand in registers, straight from the elementwise work on the
+//   accumulator.  db's and dc's head shares are summed on the chip, into
+//   the buffers of the rows' owners (f32, rows of SP + 8 floats): dc's
+//   straight from the accumulators by asynchronous stores to distributed
+//   shared memory (st.async, counted on the owner's mbarrier), which
+//   travel while rows j run; db's through this block's shared memory and
+//   one bulk copy to each owner (cp.async.bulk), which travels while the
+//   chunk's tail runs.  The owner sums its rows of the C shares in rank
+//   order from its own shared memory and writes one share of (B, S, nh /
+//   C, ds).  A buffer lies over tiles its block no longer reads (dc's over
+//   H's and past them, db's over x, gy, b and c), and each warp of the
+//   owner says so on an mbarrier of every block before any writes there.
+//   No block leaves before all that was sent to it has landed.  One
+//   cluster barrier, at the start, orders the mbarriers' set-up before
+//   their first use from a peer.  Where H and dS are not both resident (hd
+//   = ds = 128) dc's shares are summed before dS is split into H's tiles.
+//   Every width the route takes fits C up to 8 (211,936 bytes at hd 64 or
+//   128, ds 128), so no width falls back to C = 1.
+//   The CUDA-core route (f32, bf16 at other widths) launches the forward's
+//   pass 1 twice for pass 1 (S, then R with gy, c and exp(cum) for x, b
+//   and the weight), keeps C B^T (then M) and GY X^T (then W) as f32 Q x Q
+//   tiles in shared memory, runs every product as a register-tiled FMA
+//   product over k-slices staged in shared memory, and writes a share a
+//   head (C = 1).  No atomics: every sum has a fixed order, so two calls
+//   give the same bits.  The launcher binds the device before it encodes
+//   b's and c's tensor maps (bind_device, common.cuh).
 #include "ssd_common.cuh"
 
 // Every kernel of the backward is named in this namespace (the shared
@@ -219,6 +258,7 @@ __device__ __forceinline__ void chunk_finish(
 // products before the elementwise work that follows them.
 
 constexpr int kTok = 128;        // a token tile's rows (the longest chunk)
+constexpr int kMaxCluster = 8;   // blocks a cluster of the chunk pass
 
 // The element offset of (r, c) in a bf16 tile of kRows rows in the
 // 128-byte swizzle: columns in boxes of 64 (kRows rows of 128 bytes each),
@@ -246,9 +286,9 @@ __device__ __forceinline__ uint64_t mdesc(uint32_t tile, int k0) {
 }
 
 // D (64 x 64, f32) += A (64 x 16) . B (16 x 64), bf16, both in shared
-// memory (128-byte swizzle), A K-major; B K-major (kTransB 0) or MN-major
-// (1, transposed through the descriptor); scale_d = 0 overwrites D.
-template <int kTransB>
+// memory (128-byte swizzle), each K-major (kTrans 0) or MN-major (1,
+// transposed through the descriptor); scale_d = 0 overwrites D.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wg_ss64(float (&d)[32], uint64_t desc_a,
                                         uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -260,7 +300,7 @@ __device__ __forceinline__ void wg_ss64(float (&d)[32], uint64_t desc_a,
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -269,13 +309,11 @@ __device__ __forceinline__ void wg_ss64(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-// D (64 x 128, f32) += A (64 x 16) . B (16 x 128), bf16, both in shared
-// memory (128-byte swizzle), A K-major; B K-major (kTransB 0) or MN-major
-// (1, transposed through the descriptor); scale_d = 0 overwrites D.
-template <int kTransB>
+// D (64 x 128, f32) += A (64 x 16) . B (16 x 128), the same way.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wg_ss128(float (&d)[64], uint64_t desc_a,
                                         uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -291,7 +329,7 @@ __device__ __forceinline__ void wg_ss128(float (&d)[64], uint64_t desc_a,
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -308,16 +346,17 @@ __device__ __forceinline__ void wg_ss128(float (&d)[64], uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-template <int N, int kTransB>
+// A K-major (kTransA 0) or MN-major (1).
+template <int N, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wg_ss(float (&d)[N / 2], uint64_t da,
                                       uint64_t db) {
   if constexpr (N == 64)
-    wg_ss64<kTransB>(d, da, db, 1);
+    wg_ss64<kTransA, kTransB>(d, da, db, 1);
   else
-    wg_ss128<kTransB>(d, da, db, 1);
+    wg_ss128<kTransA, kTransB>(d, da, db, 1);
 }
 
 // D (64 x N) += A (64 x 16, bf16 fragments in registers) . B, B MN-major.
@@ -387,21 +426,133 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows 0 .. kTok - 1 of a (seq, heads, width) slice, `src` at the chunk's
-// first row and `sstride` elements a row, into a swizzled tile of kW
-// columns; rows at or past `valid` and columns at or past `width` (a
-// multiple of 16) are zeros.  16-byte cp.async where every address allows,
-// else element by element; the caller waits.
-template <int kW>
+// ---- thread-block clusters (distributed shared memory) -------------------
+
+// This block's rank in its cluster, and the cluster's blocks.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
+// The cluster barrier, used once, at the start: every block arrives once
+// its mbarriers are set up (relaxed: fence.mbarrier_init orders them) and
+// waits before its first operation on a peer's shared memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address in block `rank`'s shared memory of this block's shared
+// address `addr`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// One arrival on the mbarrier at cluster address `bar` (a peer's, or this
+// block's own), releasing this thread's accesses to the cluster.
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// Waits for phase 0 of this block's mbarrier `bar`, acquiring what the
+// cluster's blocks released into it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+}
+
+// (v0, .., v3) into a block's shared memory at cluster address `addr`,
+// counted in bytes on that block's mbarrier `bar` (cluster address).
+__device__ __forceinline__ void st_async4(uint32_t addr, float v0, float v1,
+                                          float v2, float v3, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v0), "f"(v1), "f"(v2), "f"(v3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at `src` to a
+// peer's at cluster address `dst`, counted on the peer's mbarrier `bar`.
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// One TMA box of a 4-D tensor map into this block's shared memory at `dst`
+// and the same place in each block of `mask` (bit p: rank p), counted on
+// each one's mbarrier at `bar`.
+__device__ __forceinline__ void tma_multicast_4d(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 uint32_t bar, int c0, int c1,
+                                                 int c2, int c3,
+                                                 uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's bulk copies have read their sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup wg wait for each other (named barrier 1 +
+// wg; 0 is __syncthreads').
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// Rows r0 .. r1 - 1 of a kRows-row tile of a (seq, heads, width) slice,
+// `src` at the tile's first row and `sstride` elements a row, into a
+// swizzled tile of kW columns; rows at or past `valid` and columns at or
+// past `width` (a multiple of 16) are zeros.  Threads tid of nthr take
+// the 16-byte pieces in turn: cp.async where every address allows, else
+// element by element; the caller waits.
+template <int kRows, int kW>
 __device__ __forceinline__ void stage_sw(bf16* tile, const bf16* src,
                                          int64_t sstride, int valid,
-                                         int width) {
+                                         int width, int r0, int r1, int tid,
+                                         int nthr) {
   constexpr int kChunks = kW / 8;
   const bool vec = ((reinterpret_cast<uintptr_t>(src)
                      | static_cast<uint64_t>(sstride * 2)) & 15) == 0;
-  for (int i = threadIdx.x; i < kTok * kChunks; i += kThreads) {
+  for (int i = r0 * kChunks + tid; i < r1 * kChunks; i += nthr) {
     const int r = i / kChunks, c = 8 * (i % kChunks);
-    bf16* d = tile + sw<kTok>(r, c);
+    bf16* d = tile + sw<kRows>(r, c);
     if (r < valid && c < width) {
       const bf16* s = src + r * sstride + c;
       if (vec) {
@@ -469,15 +620,35 @@ template <int HP, int SP> struct WgLayout {
   static constexpr int kB = kG + kTok * HP * 2;         // b  [kTok][SP]
   static constexpr int kC = kB + kTok * SP * 2;         // c  [kTok][SP]
   static constexpr int kStBytes = HP * SP * 2;          // a state's half
-  static constexpr int kH = kC + kTok * SP * 2;         // H hi, lo
-  // dS beside H where both fit, else in H's tiles once H is consumed
+  static constexpr int kDs = kC + kTok * SP * 2;        // dS hi, lo
+  // H beside dS where both fit, else dS in H's tiles once H is consumed
   static constexpr bool kBoth = HP * SP <= 64 * 128;
-  static constexpr int kDs = kBoth ? kH + 2 * kStBytes : kH;
-  static constexpr int kBytes = kDs + 2 * kStBytes;
+  static constexpr int kH = kBoth ? kDs + 2 * kStBytes : kDs;
+  // the buffers that receive the cluster's shares of this block's rows of
+  // dc and of db, [kTok + kMaxCluster][kShareRow] f32 each: dc's over H's
+  // tiles (rows j do not read H) and past them, db's over x, gy, b and c
+  // (free once rows j are done); 8 floats of padding a row keep a warp's
+  // rows on other banks
+  static constexpr int kShareRow = SP + 8;
+  static constexpr int kRecvBytes = (kTok + kMaxCluster) * kShareRow * 4;
+  static constexpr int kRecvC = kH;
+  static constexpr int kRecvB = kX;
+  static_assert(kRecvB + kRecvBytes <= kDs, "db's buffer within x to c");
+  static constexpr int kBytes = kRecvC + kRecvBytes > kH + 2 * kStBytes
+                                    ? kRecvC + kRecvBytes
+                                    : kH + 2 * kStBytes;
 };
 
+// The chunk pass's mbarriers, 8 bytes each after the per-token scratch:
+// the peers' rows of b and c landed; every block of the cluster may write
+// its share of dc (of db) into this block's buffer; every share of this
+// block's rows of dc (of db) landed.
+enum { kBarBc, kBarReadyC, kBarFullC, kBarReadyB, kBarFullB };
+constexpr int kBarBytes = 64;
+
 template <int HP, int SP> inline size_t chunk_wg_smem(int q) {
-  return cum_bytes<double>(q) + tok_bytes(q) + 1024 + WgLayout<HP, SP>::kBytes;
+  return cum_bytes<double>(q) + tok_bytes(q) + kBarBytes + 1024
+         + WgLayout<HP, SP>::kBytes;
 }
 
 // What a warpgroup's phases read and write: the block's staged tiles
@@ -487,34 +658,152 @@ struct WgCtx {
   Cum<double> cm;
   Tok tk;
   Chunk ch;
-  Shape sh;
   const bf16 *xs, *gs, *cs;
   uint32_t ux, ug, ub, uc, uhh, uhl, udh, udl;
+  uint32_t ready_c, ready_b;            // kBarReadyC, kBarReadyB
   const float* d_skip;
   bf16* dx;
-  float *db_part, *dc_part;
   int64_t xo, x_row;
   int len, hd, ds;
   bool has_h;
 };
 
-// Warpgroup wg's tokens as rows i: dc = W b + e (gy H), sum_j F_ij, v;
-// returns the thread's share of sum F_ij (cum_i - cum_j).  Both warpgroups
-// run one copy of the code (a copy a warpgroup measured slower).  In the
-// accumulators the thread holds rows ra and ra + 8 of the warpgroup's 64
-// and, in every 8-column group, columns 2 tq and 2 tq + 1 (register 4 n +
-// e: column 8 n + 2 tq + (e & 1) of row ra, or of rb where e & 2).
+// This warp will read the tiles under a buffer (`ready`: its kBarReadyC
+// or kBarReadyB) no more: one arrival on that mbarrier of every block of
+// the cluster, lane p's on rank p's.
+__device__ __forceinline__ void warp_done_with(uint32_t ready) {
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  if (lane < cluster_blocks()) mbar_arrive_peer(peer_addr(ready, lane));
+}
+
+// The share of the cluster's heads in (B, S, nh / C, ds) `part`, at the
+// chunk's first row.
+__device__ __forceinline__ float* share_out(float* part, const Shape& sh,
+                                            const Chunk& ch) {
+  const int nrank = cluster_blocks();
+  return part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
+                     * (sh.nh / nrank)
+                 + ch.h / nrank) * sh.ds;
+}
+
+// The first of a thread's two rows (this and 8 on) in its warpgroup's
+// accumulators.
+__device__ __forceinline__ int share_row0(int wg) {
+  const int tw = threadIdx.x & 127;
+  return 64 * wg + 16 * (tw >> 5) + ((tw & 31) >> 2);
+}
+
+// This block's share of dc (rows ra and ra + 8 of an f32 (64 x SP)
+// accumulator, its first ds columns) into the buffers (`recv`, counted on
+// `full`) of the rows' owners: of the cluster's C blocks, rank o owns rows
+// o P .. o P + P - 1 (P = ceil(kTok / C)) and keeps rank p's share of row
+// r at its buffer row p P + r - o P (SP + 8 floats a row).  Asynchronous
+// stores of 16 bytes, from registers: lanes tq and tq ^ 1 trade halves,
+// so that the even one holds 4 columns of row ra and the odd one the same
+// 4 of row ra + 8.  Every thread runs it, whatever its rows (see
+// store_rows).
+template <int SP>
+__device__ __forceinline__ void push_share(uint32_t recv, uint32_t full,
+                                           int ra, int ds,
+                                           const float (&acc)[SP / 2]) {
+  float v[SP / 2];
+#pragma unroll
+  for (int i = 0; i < SP / 2; ++i) v[i] = acc[i];
+  fence_regs(v);
+  const int nrank = cluster_blocks(), rank = cluster_rank();
+  const int per = (kTok + nrank - 1) / nrank, tq = threadIdx.x & 3;
+  const bool odd = tq & 1;
+  const int r = ra + (odd ? 8 : 0), o = r / per;
+  const uint32_t at = peer_addr(
+      recv + static_cast<uint32_t>((rank * per + r - o * per) * (SP + 8)
+                                   + 2 * (tq & 2)) * 4, o);
+  const uint32_t bar = peer_addr(full, o);
+#pragma unroll
+  for (int n = 0; n < SP / 8; ++n) {
+    // even lanes send row ra + 8's pair, odd lanes row ra's
+    const float s0 = odd ? v[4 * n] : v[4 * n + 2];
+    const float s1 = odd ? v[4 * n + 1] : v[4 * n + 3];
+    const float g0 = __shfl_xor_sync(kFull, s0, 1);
+    const float g1 = __shfl_xor_sync(kFull, s1, 1);
+    if (8 * n < ds) {
+      if (odd)
+        st_async4(at + 32 * n, g0, g1, v[4 * n + 2], v[4 * n + 3], bar);
+      else
+        st_async4(at + 32 * n, v[4 * n], v[4 * n + 1], g0, g1, bar);
+    }
+  }
+}
+
+// Rows ra and ra + 8 of an f32 (64 x SP) accumulator into a [kTok][SP +
+// 8] share in this block's shared memory.  Every thread runs it, whatever
+// its rows (see store_rows).
+template <int SP>
+__device__ __forceinline__ void local_share(float* share, int ra,
+                                            const float (&acc)[SP / 2]) {
+  float v[SP / 2];
+#pragma unroll
+  for (int i = 0; i < SP / 2; ++i) v[i] = acc[i];
+  fence_regs(v);
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < SP / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(share + (ra + 8 * half) * (SP + 8) + 8 * n
+                                 + 2 * tq) =
+          make_float2(v[4 * n + 2 * half], v[4 * n + 2 * half + 1]);
+}
+
+// The cluster's sum of its heads' shares of this block's rows (rank P ..
+// rank P + P - 1, those below len), each row's shares in rank order, from
+// the buffer `recv` (rank p's share of row r at row p P + r - rank P,
+// `stride` floats a row) into `out` (share_out's).
+template <int SP>
+__device__ __forceinline__ void sum_shares(const float* recv, float* out,
+                                           const Shape& sh, int len,
+                                           int stride) {
+  const int nrank = cluster_blocks(), rank = cluster_rank(), ds = sh.ds;
+  const int per = (kTok + nrank - 1) / nrank, r0 = rank * per;
+  const int rows = min(len, r0 + per) - r0, n4 = ds / 4;
+  const int64_t out_row = static_cast<int64_t>(sh.nh / nrank) * ds;
+  for (int e = threadIdx.x; e < rows * n4; e += kThreads) {
+    const int lr = e / n4, c = 4 * (e % n4);
+    const float* p = recv + lr * stride + c;
+    float4 v = *reinterpret_cast<const float4*>(p);
+    for (int k = 1; k < nrank; ++k) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(p + k * per * stride);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    *reinterpret_cast<float4*>(out + (r0 + lr) * out_row + c) = v;
+  }
+}
+
+// Warpgroup wg's tokens as rows i: dc = W b + e (gy H) into acc (zero on
+// entry), sum_j F_ij, v, and a share of sum_i gy_i . x_i into dd (the
+// diagonal of GY X^T); returns the thread's share of sum F_ij (cum_i -
+// cum_j).  Both warpgroups run one copy of the code (a copy a warpgroup
+// measured slower).  In the accumulators the thread holds rows ra and ra
+// + 8 of the warpgroup's 64 and, in every 8-column group, columns 2 tq and
+// 2 tq + 1 (register 4 n + e: column 8 n + 2 tq + (e & 1) of row ra, or of
+// rb where e & 2).
 template <int HP, int SP>
-__device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
-  if (64 * wg >= c.len) return 0.f;
+__device__ __forceinline__ float rows_i(const WgCtx& c, int wg,
+                                        float (&acc)[SP / 2], float& dd) {
+  if (64 * wg >= c.len) {
+    warp_done_with(c.ready_c);
+    return 0.f;
+  }
   const int tw = threadIdx.x & 127, tq = tw & 3;
   const int r0 = 64 * wg;
-  const int len = c.len, hd = c.hd, ds = c.ds;
+  const int len = c.len, ds = c.ds;
   const int ra = r0 + 16 * (tw >> 5) + ((tw & 31) >> 2), rb = ra + 8;
   const Cum<double>& cm = c.cm;
   const Tok& tk = c.tk;
-  const Chunk& ch = c.ch;
-  const Shape& sh = c.sh;
   const bf16* cs = c.cs;
   const uint32_t ux = c.ux, ug = c.ug, ub = c.ub, uc = c.uc;
   const float2 ka = ra < len ? tk.c2[ra] : make_float2(0.f, 0.f);
@@ -522,8 +811,6 @@ __device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
   const uint32_t uhh = c.uhh, uhl = c.uhl;
   const bool has_h = c.has_h;
   float pair = 0.f;
-  float acc[SP / 2];
-  zero(acc);
   if (has_h) {
     // gy H: A gy (rows i, K-major over p), B H ([p][s]: MN-major)
     fence_regs(acc);
@@ -536,6 +823,7 @@ __device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
+    warp_done_with(c.ready_c);          // H is read
     float va = 0.f, vb = 0.f;
 #pragma unroll
     for (int n = 0; n < SP / 8; ++n) {
@@ -556,6 +844,8 @@ __device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
     const float eb = rb < len ? tk.ev[rb] : 0.f;
 #pragma unroll
     for (int i = 0; i < SP / 2; ++i) acc[i] *= (i & 2) ? eb : ea;
+  } else {
+    warp_done_with(c.ready_c);
   }
   float rfa = 0.f, rfb = 0.f;
   for (int jb = 0; jb <= wg; ++jb) {    // the j blocks up to the rows
@@ -588,6 +878,7 @@ __device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
       const int j = 64 * jb + 8 * (e >> 2) + 2 * tq + (e & 1);
       const bool keep = j <= i && i < len;
       const int jk = keep ? j : 0;
+      dd += keep && j == i ? s2[e] : 0.f;     // gy_i . x_i
       const float sg = keep ? cum_diff(lower ? kb : ka, tk.c2[jk]) : 0.f;
       const float wv = keep ? s2[e] * __expf(sg) * cm.dtv[jk] : 0.f;
       const float fv = s1[e] * wv;
@@ -615,25 +906,27 @@ __device__ __forceinline__ float rows_i(const WgCtx& c, int wg) {
     if (ra < len) tk.rowf[ra] = rfa;
     if (rb < len) tk.rowf[rb] = rfb;
   }
-  store_rows<SP>(c.dc_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
-                                * sh.nh + ch.h) * ds,
-                 static_cast<int64_t>(sh.nh) * ds, ra, len, ds, tq, acc);
   return pair;
 }
 
 // Warpgroup wg's tokens as rows j: dx = M^T gy + d_skip gy + w (b dS^T),
-// db = W^T c + w (x dS), sum_i T_ij, u (the layout of rows_i).
+// db = W^T c + w (x dS) into adb (zero on entry), sum_i T_ij, u (the
+// layout of rows_i); says on kBarReadyB when the warp has read the tiles
+// for the last time, before its dx stores.
 template <int HP, int SP>
-__device__ __forceinline__ void rows_j(const WgCtx& c, int wg) {
-  if (64 * wg >= c.len) return;
+__device__ __forceinline__ void rows_j(const WgCtx& c, int wg,
+                                       float (&adb)[SP / 2]) {
+  if (64 * wg >= c.len) {
+    warp_done_with(c.ready_b);
+    return;
+  }
   const int tw = threadIdx.x & 127, tq = tw & 3;
   const int r0 = 64 * wg;
-  const int len = c.len, hd = c.hd, ds = c.ds;
+  const int len = c.len, hd = c.hd;
   const int ra = r0 + 16 * (tw >> 5) + ((tw & 31) >> 2), rb = ra + 8;
   const Cum<double>& cm = c.cm;
   const Tok& tk = c.tk;
   const Chunk& ch = c.ch;
-  const Shape& sh = c.sh;
   const bf16 *xs = c.xs, *gs = c.gs;
   const uint32_t ux = c.ux, ug = c.ug, ub = c.ub, uc = c.uc;
   const float2 ka = ra < len ? tk.c2[ra] : make_float2(0.f, 0.f);
@@ -642,13 +935,11 @@ __device__ __forceinline__ void rows_j(const WgCtx& c, int wg) {
   const int nblk = (len + 63) / 64;       // 64-token blocks that hold tokens
   const float* d_skip = c.d_skip;
   bf16* dx = c.dx;
-  float* db_part = c.db_part;
   const int64_t xo = c.xo, x_row = c.x_row;
   // b dS^T: A b (rows j, K-major over s), B dS^T (dS [p][s]: K-major);
   // x dS: A x (K-major over p), B dS (MN-major)
-  float adx[HP / 2], adb[SP / 2];
+  float adx[HP / 2];
   zero(adx);
-  zero(adb);
   fence_regs(adx);
   fence_regs(adb);
   wgmma_fence();
@@ -769,6 +1060,7 @@ __device__ __forceinline__ void rows_j(const WgCtx& c, int wg) {
                     fmaf(dsk, g2.y, adx[4 * n + 2 * half + 1]));
     }
   fence_u32(dxo);
+  warp_done_with(c.ready_b);          // x, gy, b and c are read
 #pragma unroll
   for (int n = 0; n < HP / 8; ++n) {
     if (8 * n >= hd) continue;
@@ -780,12 +1072,14 @@ __device__ __forceinline__ void rows_j(const WgCtx& c, int wg) {
             dxo[2 * n + half];
     }
   }
-  store_rows<SP>(db_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
-                                * sh.nh + ch.h) * ds,
-                 static_cast<int64_t>(sh.nh) * ds, ra, len, ds, tq, adb);
 }
 
-// HP = hd and SP = ds padded to 64 or 128.
+// HP = hd and SP = ds padded to 64 or 128; launched in clusters of C
+// blocks (C consecutive heads of one group, C dividing nh / ng; always
+// with a cluster dimension, 1 too: it runs cluster instructions), shares
+// (B, S, nh / C, ds).  With `tma`, b and c come by tm_b and tm_c (boxes
+// of 64 columns x 16 rows), each box loaded by one rank for the cluster;
+// else each block stages them itself.
 template <int HP, int SP>
 __global__ void __launch_bounds__(kThreads, 1)
 chunk_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
@@ -795,14 +1089,18 @@ chunk_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ dst, bf16* __restrict__ dx,
              float* __restrict__ ddt, float* __restrict__ db_part,
              float* __restrict__ dc_part, float* __restrict__ dalog_part,
-             float* __restrict__ dd_part, Shape sh) {
+             float* __restrict__ dd_part, Shape sh,
+             const __grid_constant__ CUtensorMap tm_b,
+             const __grid_constant__ CUtensorMap tm_c, int32_t tma) {
   using L = WgLayout<HP, SP>;
   extern __shared__ __align__(16) float smem[];
   const Chunk ch = chunk_of(sh);
   const int q = sh.q, hd = sh.hd, ds = sh.ds, len = ch.len;
   const Cum<double> cm = cum_at<double>(smem, q);
   const Tok tk = tok_at(past_cum<double>(smem, q), q);
-  char* const head_end = past_cum<double>(smem, q) + tok_bytes(q);
+  char* const bars_at = past_cum<double>(smem, q) + tok_bytes(q);
+  const uint32_t bars = smem_addr(bars_at);
+  char* const head_end = bars_at + kBarBytes;
   const uint32_t base = (smem_addr(head_end) + 1023u) & ~1023u;
   char* const tiles = head_end + (base - smem_addr(head_end));
   bf16* xs = reinterpret_cast<bf16*>(tiles + L::kX);
@@ -818,16 +1116,50 @@ chunk_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
                  uhl = uhh + L::kStBytes, udh = base + L::kDs,
                  udl = udh + L::kStBytes;
 
+  // rank r owns rows r P .. r P + P - 1 of the shares
+  const int nrank = cluster_blocks(), rank = cluster_rank();
+  const int per = (kTok + nrank - 1) / nrank;
+  const int own = min(kTok, (rank + 1) * per) - rank * per;
+  if (threadIdx.x == 0) {
+    mbar_init(bars + 8 * kBarBc, 1);
+    mbar_init(bars + 8 * kBarReadyC, kWarps * nrank);
+    mbar_init(bars + 8 * kBarFullC, 1);
+    mbar_init(bars + 8 * kBarReadyB, kWarps * nrank);
+    mbar_init(bars + 8 * kBarFullB, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // what comes: the boxes of b and c of the chunk's q rows (every rank's
+    // loads reach every block), and every block's share of this block's
+    // rows of dc (its first ds columns) and of db (whole padded rows)
+    mbar_expect_tx(bars + 8 * kBarBc, tma ? q * SP * 4 : 0);
+    mbar_expect_tx(bars + 8 * kBarFullC, own * ds * 4 * nrank);
+    mbar_expect_tx(bars + 8 * kBarFullB, own * L::kShareRow * 4 * nrank);
+  }
+  cluster_arrive_relaxed();
+
   const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
-  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
   const int64_t xo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
                      + static_cast<int64_t>(ch.h) * hd;
-  const int64_t bo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
-                     + static_cast<int64_t>(ch.g) * ds;
-  stage_sw<HP>(xs, x + xo, x_row, len, hd);
-  stage_sw<HP>(gs, gy + xo, x_row, len, hd);
-  stage_sw<SP>(bs, bm + bo, b_row, len, ds);
-  stage_sw<SP>(cs, cmat + bo, b_row, len, ds);
+  stage_sw<kTok, HP>(xs, x + xo, x_row, len, hd, 0, kTok, threadIdx.x,
+                     kThreads);
+  stage_sw<kTok, HP>(gs, gy + xo, x_row, len, hd, 0, kTok, threadIdx.x,
+                     kThreads);
+  if (tma) {
+    // rows q .. kTok - 1 of b and c, which no box covers: zeros
+    for (int i = q * (SP / 8) + threadIdx.x; i < kTok * (SP / 8);
+         i += kThreads) {
+      const int at = sw<kTok>(i / (SP / 8), 8 * (i % (SP / 8)));
+      *reinterpret_cast<uint4*>(bs + at) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(cs + at) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+    const int64_t bo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+                       + static_cast<int64_t>(ch.g) * ds;
+    stage_sw<kTok, SP>(bs, bm + bo, b_row, len, ds, 0, kTok, threadIdx.x,
+                       kThreads);
+    stage_sw<kTok, SP>(cs, cmat + bo, b_row, len, ds, 0, kTok, threadIdx.x,
+                       kThreads);
+  }
   // the states: dS and H together where both fit, else H now and dS once
   // the rows i are done (H_0 = 0)
   const bool has_h = ch.k > 0;
@@ -839,39 +1171,90 @@ chunk_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
                               has_h ? hh : nullptr, hl, hd, ds);
   else if (has_h)
     split_state<HP, SP>(hk, nullptr, hh, hl, nullptr, nullptr, hd, ds);
+  cluster_wait();                 // every peer's mbarriers are set up
+  if (tma && threadIdx.x == 0) {
+    // this rank's boxes of the cluster's: every nrank-th of 2 (b, c) x
+    // SP / 64 column boxes x q / 16 row boxes, to every rank
+    const int cols = SP / 64, boxes = 2 * cols * (q / 16);
+    const uint16_t all = static_cast<uint16_t>((1u << nrank) - 1u);
+    for (int i = rank; i < boxes; i += nrank) {
+      const int t = i & 1, cb = (i >> 1) % cols, rb = (i >> 1) / cols;
+      tma_multicast_4d((t ? uc : ub) + cb * kTok * kRowBytes
+                           + rb * 16 * kRowBytes,
+                       t ? &tm_c : &tm_b, bars + 8 * kBarBc, 64 * cb, ch.g,
+                       ch.t0 + 16 * rb, ch.bi, all);
+    }
+  }
   const float a_neg = -expf(a_log[ch.h]);
   chunk_cum(dt, sh, ch, a_neg, cm);
   chunk_tokens(cm, tk, q);
   cp_async_wait_all();
-  fence_async_smem();                     // the tiles, for wgmma's reads
+  fence_async_smem();                     // the staged tiles, for wgmma
   __syncthreads();
+  mbar_wait_cluster(bars + 8 * kBarBc);   // the cluster's loads of b and c
 
-  const WgCtx wc{cm, tk, ch, sh, xs, gs, cs, ux, ug, ub, uc, uhh, uhl, udh,
-                 udl, d_skip, dx, db_part, dc_part, xo, x_row, len, hd, ds,
-                 has_h};
+  const WgCtx wc{cm, tk, ch, xs, gs, cs, ux, ug, ub, uc, uhh, uhl, udh,
+                 udl, bars + 8 * kBarReadyC, bars + 8 * kBarReadyB, d_skip,
+                 dx, xo, x_row, len, hd, ds, has_h};
   // the warpgroup, broadcast from lane 0 so that the compiler sees it
   // uniform across the warp
   const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x >> 7), 0);
-  // sum F_ij (cum_i - cum_j), a share
-  const float pair = rows_i<HP, SP>(wc, wg);
+  float acc[SP / 2];
+  zero(acc);
+  float dd = 0.f;                         // a share of sum gy . x
+  // sum F_ij (cum_i - cum_j), a share.  The warpgroups take the halves of
+  // the Q x Q products in other orders (rows i: 1 block, then 2; rows j:
+  // 2, then 1), so they meet at no barrier between the two.
+  const float pair = rows_i<HP, SP>(wc, wg, acc, dd);
+  // dc's shares: from registers into the buffers of their rows' owners,
+  // once every block of the cluster has read its H (rows_i says so, warp
+  // by warp); they travel while rows j run
+  mbar_wait_cluster(bars + 8 * kBarReadyC);
+  push_share<SP>(base + L::kRecvC, bars + 8 * kBarFullC, share_row0(wg), ds,
+                 acc);
+  float* const recv_c = reinterpret_cast<float*>(tiles + L::kRecvC);
   if (!L::kBoth) {
-    __syncthreads();                      // H's tiles are consumed
+    // dS goes where dc's buffer is: sum the shares first
+    mbar_wait_cluster(bars + 8 * kBarFullC);
+    sum_shares<SP>(recv_c, share_out(dc_part, sh, ch), sh, len,
+                   L::kShareRow);
+    __syncthreads();                      // the buffer is read
     dsh = split_state<HP, SP>(sk, has_h ? hk : nullptr, dh, dl, nullptr,
                               nullptr, hd, ds);
     fence_async_smem();
     __syncthreads();
   }
 
-  rows_j<HP, SP>(wc, wg);
-  __syncthreads();                        // the per-token sums are written
-
-  float dd = 0.f;
-  for (int e = threadIdx.x; e < len * hd; e += kThreads) {
-    const int j = e / hd, p = e % hd;
-    dd = fmaf(__bfloat162float(gs[sw<kTok>(j, p)]),
-              __bfloat162float(xs[sw<kTok>(j, p)]), dd);
+  zero(acc);
+  rows_j<HP, SP>(wc, wg, acc);
+  if (L::kBoth) {
+    mbar_wait_cluster(bars + 8 * kBarFullC);
+    sum_shares<SP>(recv_c, share_out(dc_part, sh, ch), sh, len,
+                   L::kShareRow);
+  }
+  __syncthreads();                        // dc's buffer (or dS's tiles) read
+  // db's share: into this block's shared memory where dc's buffer was,
+  // then by bulk copies into the owners' buffers over x, gy, b and c,
+  // while chunk_finish runs
+  local_share<SP>(recv_c, share_row0(wg), acc);
+  fence_async_smem();
+  __syncthreads();
+  mbar_wait_cluster(bars + 8 * kBarReadyB);
+  if (threadIdx.x == 0) {
+    for (int o = 0; o < nrank; ++o) {
+      const uint32_t rows = min(kTok, (o + 1) * per) - o * per;
+      bulk_to_peer(
+          peer_addr(base + L::kRecvB + rank * per * L::kShareRow * 4, o),
+          base + L::kRecvC + o * per * L::kShareRow * 4,
+          rows * L::kShareRow * 4, peer_addr(bars + 8 * kBarFullB, o));
+    }
+    bulk_commit();
   }
   chunk_finish(cm, tk, ch, sh, a_neg, pair, dsh, dd, ddt, dalog_part, dd_part);
+  mbar_wait_cluster(bars + 8 * kBarFullB);
+  sum_shares<SP>(reinterpret_cast<const float*>(tiles + L::kRecvB),
+                 share_out(db_part, sh, ch), sh, len, L::kShareRow);
+  if (threadIdx.x == 0) bulk_wait_read();  // the copies have read the share
 }
 
 // ---- chunk pass, CUDA cores -----------------------------------------------
@@ -1142,7 +1525,139 @@ chunk_bwd_cc(const T* __restrict__ x, const float* __restrict__ dt,
   chunk_finish(cm, tk, ch, sh, a_neg, pair, dsh, dd, ddt, dalog_part, dd_part);
 }
 
-// ---- pass 3: the state pass in reverse ------------------------------------
+// ---- pass 1: the chunk states, tensor cores (wgmma) -----------------------
+
+constexpr int kStep = 64;        // tokens a step of the states pass
+
+// Byte offsets of a warpgroup's tiles (A hi, A lo: [kStep][HP]; B:
+// [kStep][SP]) from a 1024-byte-aligned base; warpgroup 1's follow
+// warpgroup 0's.
+template <int HP, int SP> struct StLayout {
+  static constexpr int kA = kStep * HP * 2;
+  static constexpr int kWg = 2 * kA + kStep * SP * 2;
+  static constexpr int kBytes = 2 * kWg;
+};
+
+template <int HP, int SP> inline size_t states_wg_smem(int q) {
+  return cum_bytes<double>(q) + 8 * static_cast<size_t>(q) + 1024
+         + StLayout<HP, SP>::kBytes;
+}
+
+// S = sum_j w_j x_j b_j^T (warpgroup 0) and R = sum_i e_i gy_i c_i^T
+// (warpgroup 1) of the chunk, both (hd, ds) f32, and the chunk's decay
+// exp(L): each warpgroup stages its operands kStep tokens at a time (rows
+// past the chunk zero), splits the weighted one in place into hi and lo,
+// and runs D (64 x SP) += A^T B for each 64 rows of hd, A read transposed
+// (MN-major) from its [token][hd] tile and B MN-major from its [token][ds]
+// tile.  HP = hd and SP = ds padded to 64 or 128.
+template <int HP, int SP>
+__global__ void __launch_bounds__(kThreads, HP == 64 ? 2 : 1)
+states_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ a_log, const bf16* __restrict__ bm,
+              const bf16* __restrict__ cmat, const bf16* __restrict__ gy,
+              float* __restrict__ states, float* __restrict__ decay,
+              float* __restrict__ dstates, Shape sh) {
+  using L = StLayout<HP, SP>;
+  constexpr int kM = HP / 64;             // 64-row blocks of hd
+  extern __shared__ __align__(16) float smem[];
+  const Chunk ch = chunk_of(sh);
+  const int q = sh.q, hd = sh.hd, ds = sh.ds, len = ch.len;
+  const Cum<double> cm = cum_at<double>(smem, q);
+  float* const wv = reinterpret_cast<float*>(past_cum<double>(smem, q));
+  float* const ev = wv + q;
+  char* const head_end = reinterpret_cast<char*>(ev + q);
+  const uint32_t base = (smem_addr(head_end) + 1023u) & ~1023u;
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x >> 7), 0);
+  const int tw = threadIdx.x & 127;
+  char* const mine = head_end + (base - smem_addr(head_end)) + wg * L::kWg;
+  bf16* ah = reinterpret_cast<bf16*>(mine);
+  bf16* al = reinterpret_cast<bf16*>(mine + L::kA);
+  bf16* bt = reinterpret_cast<bf16*>(mine + 2 * L::kA);
+  const uint32_t uah = base + wg * L::kWg, ual = uah + L::kA,
+                 ubt = uah + 2 * L::kA;
+  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+  const bf16* asrc = (wg == 0 ? x : gy)
+                     + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
+                     + static_cast<int64_t>(ch.h) * hd;
+  const bf16* bsrc = (wg == 0 ? bm : cmat)
+                     + (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+                     + static_cast<int64_t>(ch.g) * ds;
+  stage_sw<kStep, HP>(ah, asrc, x_row, len, hd, 0, kStep, tw, 128);
+  stage_sw<kStep, SP>(bt, bsrc, b_row, len, ds, 0, kStep, tw, 128);
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), cm);
+  const double last = cm.cum[q - 1];
+  for (int t = threadIdx.x; t < q; t += kThreads) {
+    wv[t] = cm.dtv[t] * exp_diff(last, cm.cum[t]);
+    ev[t] = expf(static_cast<float>(cm.cum[t]));
+  }
+  if (threadIdx.x == 0) decay[ch.idx] = expf(static_cast<float>(last));
+  __syncthreads();
+  const float* wt = wg == 0 ? wv : ev;
+
+  float acc[kM][SP / 2];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) zero(acc[m]);
+#pragma unroll
+  for (int step = 0; step < kTok / kStep; ++step) {
+    const int t0 = step * kStep;
+    if (step > 0) {                       // the last step's products waited
+      stage_sw<kStep, HP>(ah, asrc + t0 * x_row, x_row, len - t0, hd, 0,
+                          kStep, tw, 128);
+      stage_sw<kStep, SP>(bt, bsrc + t0 * b_row, b_row, len - t0, ds, 0,
+                          kStep, tw, 128);
+    }
+    cp_async_wait_all();
+    wg_sync(wg);
+    // the weighted operand into hi (in place) and lo
+    for (int i = tw; i < kStep * HP / 8; i += 128) {
+      const int j = i / (HP / 8), at = sw<kStep>(j, 8 * (i % (HP / 8)));
+      const float wj = t0 + j < len ? wt[t0 + j] : 0.f;
+      uint4 v = *reinterpret_cast<const uint4*>(ah + at), h, l;
+      const uint32_t* vi = reinterpret_cast<const uint32_t*>(&v);
+      uint32_t* hi = reinterpret_cast<uint32_t*>(&h);
+      uint32_t* lo = reinterpret_cast<uint32_t*>(&l);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vi + k));
+        split2(f.x * wj, f.y * wj, hi[k], lo[k]);
+      }
+      *reinterpret_cast<uint4*>(ah + at) = h;
+      *reinterpret_cast<uint4*>(al + at) = l;
+    }
+    fence_async_smem();
+    wg_sync(wg);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) fence_regs(acc[m]);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk) {
+        const uint64_t db = mdesc<kStep>(ubt, 16 * kk);
+        wg_ss<SP, 1, 1>(acc[m],
+                        mdesc<kStep>(uah + m * kStep * kRowBytes, 16 * kk),
+                        db);
+        wg_ss<SP, 1, 1>(acc[m],
+                        mdesc<kStep>(ual + m * kStep * kRowBytes, 16 * kk),
+                        db);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int m = 0; m < kM; ++m) fence_regs(acc[m]);
+    wg_sync(wg);                          // the tiles are consumed
+  }
+  float* out = (wg == 0 ? states : dstates) + ch.idx * hd * ds;
+  const int ra = 16 * (tw >> 5) + ((tw & 31) >> 2);
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+    store_rows<SP>(out + 64 * m * ds, ds, ra, hd - 64 * m, ds, tw & 3,
+                   acc[m]);
+}
+
+// ---- pass 2: the state pass in reverse ------------------------------------
 
 // Thread i of a head owns its state entries 4 i .. 4 i + 3, as the
 // forward's pass 2 does, walking the chunks from the last: G = gh (or 0),
@@ -1187,7 +1702,7 @@ state_pass_bwd(float* __restrict__ st, const float* __restrict__ decay,
   }
 }
 
-// ---- pass 5: the fixed-order sums -----------------------------------------
+// ---- pass 4: the fixed-order sums -----------------------------------------
 
 // out (rows, ng, ds) = the sum over the heads of each group of part (rows,
 // nh, ds), in head order.
@@ -1251,6 +1766,58 @@ Pass chunk_pass(int mode, int q, int hd, int ds) {
               chunk_cc_smem(q)};
 }
 
+// The tensor-core route's pass 1 (the CUDA-core route's is the forward's
+// pass 1, launched twice: states_pass).
+Pass states_wg_pass(int q, int hd, int ds) {
+  const bool wide_d = hd > 64, wide_s = ds > 64;
+  return wide_d ? (wide_s ? Pass{reinterpret_cast<const void*>(
+                                     &states_bwd_wg<128, 128>),
+                                 states_wg_smem<128, 128>(q)}
+                          : Pass{reinterpret_cast<const void*>(
+                                     &states_bwd_wg<128, 64>),
+                                 states_wg_smem<128, 64>(q)})
+                : (wide_s ? Pass{reinterpret_cast<const void*>(
+                                     &states_bwd_wg<64, 128>),
+                                 states_wg_smem<64, 128>(q)}
+                          : Pass{reinterpret_cast<const void*>(
+                                     &states_bwd_wg<64, 64>),
+                                 states_wg_smem<64, 64>(q)});
+}
+
+// The launch of the chunk pass in clusters of `cluster` blocks.
+cudaLaunchConfig_t cluster_config(const Pass& p, unsigned grid, int cluster,
+                                  cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t launch_cluster(const Pass& p, unsigned grid, int cluster,
+                           void** args, cudaStream_t st) {
+  const cudaError_t err = allow_smem(p);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, grid, cluster, st, &attr);
+  return cudaLaunchKernelExC(&cfg, p.fn, args);
+}
+
+// A cluster of `cluster` heads: 1 to kMaxCluster, dividing the heads of a
+// group, above 1 on the tensor-core route only.
+inline bool valid_cluster(int mode, int nh, int ng, int cluster) {
+  return cluster >= 1 && cluster <= kMaxCluster && (nh / ng) % cluster == 0
+         && (cluster == 1 || mode == kTensorCores);
+}
+
 }  // namespace ssd_grad
 
 using namespace ssd_grad;
@@ -1258,13 +1825,15 @@ using namespace ssd_grad;
 // The gradients of ssd_fwd's (y, h_out) at (x, dt, a_log, b, c, d_skip)
 // against gy (like x) and gh ((bsz, nh, hd, ds) f32, or null: zero).
 // Scratch, all f32: states, dstates (bsz, nh, nc, hd, ds), decay (bsz, nh,
-// nc), db_part, dc_part (bsz, seq, nh, ds), dalog_part, dd_part
+// nc), db_part, dc_part (bsz, seq, nh / cluster, ds), dalog_part, dd_part
 // (bsz, nh, nc).  Out: dx like x, ddt like dt, da_log and dd_skip (nh,)
 // f32, db and dc like b.  All contiguous; the modes and limits are
-// ssd_fwd's.  `passes` is a mask of the passes to launch, in this order (31 is the
-// whole gradient): 1 rebuilds the entering states into `states` (and
-// decay), 2 writes R into dstates, 4 turns dstates into dS in place, 8 the
-// chunk pass (dx, ddt and the shares), 16 the sums (db, dc, da_log,
+// ssd_fwd's; `cluster` heads share a chunk pass's cluster (1 on the
+// CUDA-core route; see valid_cluster).  `passes` is a mask of the passes to
+// launch, in this order (15 is the whole gradient): 1 writes the chunks'
+// own states into `states`, their decays, and R into dstates, 2 turns
+// states into the entering states H and dstates into dS in place, 4 the
+// chunk pass (dx, ddt and the shares), 8 the sums (db, dc, da_log,
 // dd_skip).  Returns the first CUDA error, else cudaGetLastError().
 extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
                        const void* b, const void* c, const void* d_skip,
@@ -1274,8 +1843,10 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
                        void* dx, void* ddt, void* da_log, void* db, void* dc,
                        void* dd_skip, int32_t bsz, int32_t seq, int32_t nh,
                        int32_t hd, int32_t ng, int32_t ds, int32_t chunk,
-                       int32_t mode, int32_t passes, void* stream) {
-  if (!valid(mode, hd, ds, chunk) || ng <= 0 || nh % ng || seq < 0)
+                       int32_t cluster, int32_t mode, int32_t passes,
+                       void* stream) {
+  if (!valid(mode, hd, ds, chunk) || ng <= 0 || nh % ng || seq < 0
+      || !valid_cluster(mode, nh, ng, cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bsz <= 0 || nh <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1286,21 +1857,27 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
   void* null = nullptr;
   cudaError_t err = cudaSuccess;
   if ((passes & 1) && sh.nc > 0) {
-    void* args[] = {&x, &dt, &a_log, &b, &states, &decay, &sh};
-    err = launch(states_pass<false, Tag>(mode, chunk, hd, ds), blocks, args,
-                 st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    void* pargs[] = {&states, &decay, &null, &sh.nc, &n, &tiles};
-    err = launch(state_pass_pass<Tag>(hd, ds), state_blocks, pargs, st);
+    if (mode == kTensorCores) {
+      void* args[] = {&x, &dt, &a_log, &b, &c, &gy, &states, &decay, &dstates,
+                      &sh};
+      err = launch(states_wg_pass(chunk, hd, ds), blocks, args, st);
+    } else {
+      void* args[] = {&x, &dt, &a_log, &b, &states, &decay, &sh};
+      err = launch(states_pass<false, Tag>(mode, chunk, hd, ds), blocks, args,
+                   st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      void* rargs[] = {&gy, &dt, &a_log, &c, &dstates, &null, &sh};
+      err = launch(states_pass<true, Tag>(mode, chunk, hd, ds), blocks, rargs,
+                   st);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if ((passes & 2) && sh.nc > 0) {
-    void* args[] = {&gy, &dt, &a_log, &c, &dstates, &null, &sh};
-    err = launch(states_pass<true, Tag>(mode, chunk, hd, ds), blocks, args,
-                 st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (passes & 4) {
+  if (passes & 2) {
+    if (sh.nc > 0) {
+      void* args[] = {&states, &decay, &null, &sh.nc, &n, &tiles};
+      err = launch(state_pass_pass<Tag>(hd, ds), state_blocks, args, st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     void* args[] = {&dstates, &decay, &gh, &sh.nc, &n, &tiles};
     const Pass p{n % 4 == 0
                      ? reinterpret_cast<const void*>(&state_pass_bwd<true>)
@@ -1309,15 +1886,41 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
     err = launch(p, state_blocks, args, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if ((passes & 8) && sh.nc > 0) {
+  if ((passes & 4) && sh.nc > 0) {
     void* args[] = {&x,  &dt,  &a_log,   &b,       &c,          &d_skip,
                     &gy, &states, &dstates, &dx,   &ddt,        &db_part,
-                    &dc_part, &dalog_part, &dd_part, &sh};
-    err = launch(chunk_pass(mode, chunk, hd, ds), blocks, args, st);
+                    &dc_part, &dalog_part, &dd_part, &sh, nullptr, nullptr,
+                    nullptr};
+    const Pass p = chunk_pass(mode, chunk, hd, ds);
+    if (mode == kTensorCores) {
+      // b and c by TMA where a map takes them (16-byte aligned, whole
+      // boxes of 64 columns), else staged by each block
+      CUtensorMap tm_b = {}, tm_c = {};
+      int32_t tma = 0;
+      if (ds % 64 == 0
+          && ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(c))
+              & 15) == 0) {
+        err = bind_device(b);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const EncodeTiled fn = encode_tiled();
+        if (fn == nullptr
+            || !make_map(fn, &tm_b, b, true, ds, ng, seq, bsz, 16)
+            || !make_map(fn, &tm_c, c, true, ds, ng, seq, bsz, 16))
+          return static_cast<int>(cudaErrorInvalidValue);
+        tma = 1;
+      }
+      args[16] = &tm_b;
+      args[17] = &tm_c;
+      args[18] = &tma;
+      err = launch_cluster(p, blocks, cluster, args, st);
+    } else {
+      err = launch(p, blocks, args, st);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (passes & 16) {
+  if (passes & 8) {
     int64_t rows = static_cast<int64_t>(bsz) * seq;
+    int32_t shares = nh / cluster;        // the shares of a row
     const int64_t outs = rows * ng * ds;
     if (outs > 0) {
       const unsigned g =
@@ -1326,10 +1929,10 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
                        ? reinterpret_cast<const void*>(&group_sum<float>)
                        : reinterpret_cast<const void*>(&group_sum<bf16>),
                    0};
-      void* bargs[] = {&db_part, &db, &rows, &nh, &ng, &ds};
+      void* bargs[] = {&db_part, &db, &rows, &shares, &ng, &ds};
       err = launch(p, g, bargs, st);
       if (err != cudaSuccess) return static_cast<int>(err);
-      void* cargs[] = {&dc_part, &dc, &rows, &nh, &ng, &ds};
+      void* cargs[] = {&dc_part, &dc, &rows, &shares, &ng, &ds};
       err = launch(p, g, cargs, st);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
@@ -1343,19 +1946,23 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
   return static_cast<int>(cudaGetLastError());
 }
 
-// For each pass at (mode, hd, ds, chunk) with shared memory of its own
-// (the states, out states and chunk passes): the blocks of kThreads
-// threads that fit on one SM into blocks[0..2], and the shared bytes a
-// block takes into smem[0..2].
+// For the passes with shared memory of their own at (mode, hd, ds, chunk)
+// (1, the states; 3, the chunk pass): the blocks of kThreads threads that
+// fit on one SM into blocks[0..1] and the shared bytes a block takes into
+// smem[0..1], and the chunk pass's clusters of `cluster` blocks that can
+// be resident on the card at once into *clusters.
 extern "C" int ssd_bwd_occupancy(int32_t mode, int32_t hd, int32_t ds,
-                                 int32_t chunk, int32_t* blocks,
-                                 int32_t* smem) {
-  if (!valid(mode, hd, ds, chunk))
+                                 int32_t chunk, int32_t cluster,
+                                 int32_t* blocks, int32_t* smem,
+                                 int32_t* clusters) {
+  if (!valid(mode, hd, ds, chunk) || cluster < 1 || cluster > kMaxCluster
+      || (cluster > 1 && mode != kTensorCores))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Pass ps[3] = {states_pass<false, Tag>(mode, chunk, hd, ds),
-                      states_pass<true, Tag>(mode, chunk, hd, ds),
+  const Pass ps[2] = {mode == kTensorCores
+                          ? states_wg_pass(chunk, hd, ds)
+                          : states_pass<false, Tag>(mode, chunk, hd, ds),
                       chunk_pass(mode, chunk, hd, ds)};
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 2; ++i) {
     cudaError_t err = allow_smem(ps[i]);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1363,5 +1970,10 @@ extern "C" int ssd_bwd_occupancy(int32_t mode, int32_t hd, int32_t ds,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem[i] = static_cast<int32_t>(ps[i].smem);
   }
-  return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(ps[1], static_cast<unsigned>(cluster), cluster, nullptr,
+                     &attr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, ps[1].fn, &cfg));
 }

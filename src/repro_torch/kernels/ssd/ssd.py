@@ -26,14 +26,18 @@ launch.  The wrapper allocates the scratch (``scratch``) with
 Training differentiates through ``SSDScanFn``: its forward is
 ``_scan`` (the kernels' launch, the one seam a CPU test may swap for the
 plain version), its backward ``_scan_backward``, one call of the backward
-kernels (``kernels/csrc/ssd_bwd.cu``: one ``ssd_bwd`` call of five
-passes, counted once on ``BACKWARD_COUNTER``, under the profiler label
-``BACKWARD``): the entering states rebuilt by the forward's passes 1 and
-2, what each chunk's y sends back to its entering state, the state
-passing in reverse, a chunk pass for dx, dt, the heads' shares of db and
-dc and the blocks' shares of da_log and d_skip (on the tensor-core route
-a block of two warpgroups whose products are wgmma), and fixed-order
-sums of the shares.  The reference has no backward kernel: it trains
+kernels (``kernels/csrc/ssd_bwd.cu``: one ``ssd_bwd`` call of four
+passes, ``BACKWARD_PASSES``, counted once on ``BACKWARD_COUNTER``, under
+the profiler label ``BACKWARD``): each chunk's own state and what its y
+sends back to its entering state, the two state passings (the states in
+order into the entering states, the latter in reverse into their
+gradients), a chunk pass for dx, dt, the shares of db and dc and the
+blocks' shares of da_log and d_skip, and fixed-order sums of the shares.
+On the tensor-core route the products of the first and third are wgmma,
+and the chunk pass runs in thread-block clusters of ``backward_cluster``
+heads of one group that sum their db and dc shares on the chip, one share
+a cluster (``cluster_heads``; the CUDA-core route writes one a head).
+The reference has no backward kernel: it trains
 through ``ssd_chunked``, which XLA differentiates.  On a CUDA tensor the backward
 launches or raises; on a CPU tensor (a test's) it takes
 ``plain_backward``, autograd of the plain version in its chunk-parallel
@@ -71,7 +75,8 @@ TC_STEP = 16                    # the tensor-core route's width step
 PASSES = ("chunk_states", "state_pass", "chunk_scan")
 COUNTER = {"tc": "ssd_tc", "cuda_core": "ssd"}
 BACKWARD_COUNTER = {"tc": "ssd_bwd_tc", "cuda_core": "ssd_bwd"}
-BACKWARD_PASSES = ("states", "out_states", "state_pass", "chunk", "reduce")
+BACKWARD_PASSES = ("states", "state_pass", "chunk", "reduce")
+MAX_CLUSTER = 8                 # heads a cluster of the backward's chunk pass
 BACKWARD_OUTPUTS = ("dx", "ddt", "da_log", "db", "dc", "dd_skip")
 BACKWARD = "ssd.backward"
 # what the names of the backward's kernels share (a ctypes launch runs
@@ -235,13 +240,47 @@ def _scan(x, dt, a_log, b, c, d_skip, chunk):
     return y, h
 
 
-def _backward_layout(x: torch.Tensor, b: torch.Tensor, chunk: int
+def cluster_heads(rep: int) -> int:
+    """The heads of a cluster of the tensor-core chunk pass for ``rep``
+    heads a group: the largest divisor of ``rep`` up to ``MAX_CLUSTER``."""
+    return max(c for c in range(1, min(rep, MAX_CLUSTER) + 1) if rep % c == 0)
+
+
+def backward_cluster(dtype: torch.dtype, hd: int, ds: int, nh: int,
+                     ng: int) -> int:
+    """The heads that share a cluster of the backward's chunk pass, and so
+    one share of db and dc: ``cluster_heads(nh // ng)`` on the tensor-core
+    route, 1 on the CUDA-core route."""
+    return cluster_heads(nh // ng) if route(dtype, hd, ds) == "tc" else 1
+
+
+def cluster_share_sum(part: torch.Tensor, ng: int, cluster: int
+                      ) -> torch.Tensor:
+    """The plain version of the backward's two-level sum of the heads'
+    shares (B, S, nh, ds) into (B, S, ng, ds), in the kernel's order: each
+    cluster's ``cluster`` heads in order (the chunk pass, into one share a
+    cluster), then a group's clusters in order (the reduce pass)."""
+    bsz, s, nh, ds = part.shape
+    heads = part.reshape(bsz, s, nh // cluster, cluster, ds)
+    shares = heads[:, :, :, 0]
+    for r in range(1, cluster):
+        shares = shares + heads[:, :, :, r]
+    groups = shares.reshape(bsz, s, ng, nh // cluster // ng, ds)
+    out = groups[:, :, :, 0]
+    for k in range(1, groups.shape[3]):
+        out = out + groups[:, :, :, k]
+    return out
+
+
+def _backward_layout(x: torch.Tensor, b: torch.Tensor, chunk: int,
+                     cluster: int = 1
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, type) of each of the backward's buffers: the scratch (f32:
-    the entering states and their gradients (B, nh, nc, hd, ds), the chunk
-    decays and the blocks' shares of da_log and d_skip (B, nh, nc), the
-    heads' shares of db and dc (B, S, nh, ds)) and the outputs (dx like x,
-    ddt (B, S, nh) f32, da_log and dd_skip (nh,) f32, db and dc like b)
+    the chunk states, then the entering states, and their gradients (B,
+    nh, nc, hd, ds), the chunk decays and the blocks' shares of da_log and
+    d_skip (B, nh, nc), the shares of db and dc, one a cluster of
+    ``cluster`` heads (B, S, nh / cluster, ds)) and the outputs (dx like
+    x, ddt (B, S, nh) f32, da_log and dd_skip (nh,) f32, db and dc like b)
     for x (B, S, nh, hd) and b (B, S, ng, ds)."""
     bsz, s, nh, hd = x.shape
     ds = b.shape[3]
@@ -250,24 +289,46 @@ def _backward_layout(x: torch.Tensor, b: torch.Tensor, chunk: int
     return {"states": ((bsz, nh, nc, hd, ds), f32),
             "decay": ((bsz, nh, nc), f32),
             "dstates": ((bsz, nh, nc, hd, ds), f32),
-            "db_part": ((bsz, s, nh, ds), f32),
-            "dc_part": ((bsz, s, nh, ds), f32),
+            "db_part": ((bsz, s, nh // cluster, ds), f32),
+            "dc_part": ((bsz, s, nh // cluster, ds), f32),
             "dalog_part": ((bsz, nh, nc), f32), "dd_part": ((bsz, nh, nc), f32),
             "dx": (tuple(x.shape), x.dtype), "ddt": ((bsz, s, nh), f32),
             "da_log": ((nh,), f32), "db": (tuple(b.shape), b.dtype),
             "dc": (tuple(b.shape), b.dtype), "dd_skip": ((nh,), f32)}
 
 
-def backward_buffers(x: torch.Tensor, b: torch.Tensor, chunk: int
+def _cluster_of(x: torch.Tensor, b: torch.Tensor,
+                cluster: Optional[int]) -> int:
+    """``cluster``, or the route's (``backward_cluster``) where None; a
+    cluster the chunk pass does not take raises."""
+    _, _, nh, hd = x.shape
+    ng, ds = b.shape[2], b.shape[3]
+    if cluster is None:
+        return backward_cluster(x.dtype, hd, ds, nh, ng)
+    rep = nh // ng
+    if not 1 <= cluster <= MAX_CLUSTER or rep % cluster or (
+            cluster > 1 and route(x.dtype, hd, ds) != "tc"):
+        raise ValueError(f"cluster {cluster}: the chunk pass takes a "
+                         f"divisor of the {rep} heads of a group up to "
+                         f"{MAX_CLUSTER}, above 1 on the tensor-core route "
+                         "only")
+    return cluster
+
+
+def backward_buffers(x: torch.Tensor, b: torch.Tensor, chunk: int,
+                     cluster: Optional[int] = None
                      ) -> Dict[str, torch.Tensor]:
-    """The backward's buffers (``_backward_layout``), uninitialised, on
-    x's device."""
+    """The backward's buffers (``_backward_layout``) for clusters of
+    ``cluster`` heads (None: the route's), uninitialised, on x's
+    device."""
+    cluster = _cluster_of(x, b, cluster)
     return {k: torch.empty(shape, dtype=dtype, device=x.device)
-            for k, (shape, dtype) in _backward_layout(x, b, chunk).items()}
+            for k, (shape, dtype) in
+            _backward_layout(x, b, chunk, cluster).items()}
 
 
 def _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
-                     passes: int) -> None:
+                     cluster: int, passes: int) -> None:
     bsz, s, nh, hd = x.shape
     ng, ds = b.shape[2], b.shape[3]
     fn = _build.function("ssd_bwd")
@@ -277,7 +338,7 @@ def _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
     rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
             c.data_ptr(), d_skip.data_ptr(), gy.data_ptr(),
             None if gh is None else gh.data_ptr(), *ptr, bsz, s, nh, hd, ng,
-            ds, chunk, _mode(x.dtype, hd, ds), passes,
+            ds, chunk, cluster, _mode(x.dtype, hd, ds), passes,
             _build.stream_handle(x.device))
     _build.check(rc, "ssd_bwd")
 
@@ -305,7 +366,7 @@ def _backward_operands(x, b, gy, gh):
 def _scan_backward(x, dt, a_log, b, c, d_skip, gy, gh, chunk):
     """The gradients (dx, ddt, da_log, db, dc, dd_skip) of ``_scan`` at its
     inputs against gy and gh (either may be None: zero): one ``ssd_bwd``
-    call (its five passes) on checked CUDA tensors, counted once;
+    call (its four passes) on checked CUDA tensors, counted once;
     ``plain_backward``'s on CPU tensors."""
     if x.device.type == "cpu":
         return plain_backward(x, dt, a_log, b, c, d_skip, gy, gh,
@@ -315,24 +376,28 @@ def _scan_backward(x, dt, a_log, b, c, d_skip, gy, gh, chunk):
     gy, gh = _backward_operands(x, b, gy, gh)
     bsz, _, nh, hd = x.shape
     ds = b.shape[3]
-    bufs = backward_buffers(x, b, chunk)
+    cluster = backward_cluster(x.dtype, hd, ds, nh, b.shape[2])
+    bufs = backward_buffers(x, b, chunk, cluster)
     if bsz * nh == 0:                   # nothing to launch
         return tuple(bufs[k].zero_() for k in BACKWARD_OUTPUTS)
     _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
-                     2 ** len(BACKWARD_PASSES) - 1)
+                     cluster, 2 ** len(BACKWARD_PASSES) - 1)
     _build.LAUNCHES[BACKWARD_COUNTER[route(x.dtype, hd, ds)]] += 1
     return tuple(bufs[k] for k in BACKWARD_OUTPUTS)
 
 
 def run_backward_passes(x, dt, a_log, b, c, d_skip, gy, gh, *,
                         bufs: Dict[str, torch.Tensor], chunk: int = 128,
-                        passes: Sequence[str] = BACKWARD_PASSES) -> None:
+                        passes: Sequence[str] = BACKWARD_PASSES,
+                        cluster: Optional[int] = None) -> None:
     """Launch the named passes of the backward's route, in their order, on
-    the caller's ``backward_buffers``: ``states`` rebuilds the entering
-    states (and the decays), ``out_states`` writes R into dstates,
-    ``state_pass`` turns that into dS in place, ``chunk`` writes dx, ddt
-    and the shares, ``reduce`` sums the shares into db, dc, da_log and
-    dd_skip.  CUDA tensors only; counts no launch."""
+    the caller's ``backward_buffers`` (for the same ``cluster``; None: the
+    route's): ``states`` writes each chunk's own state into ``states``, its
+    decay, and R (what its y sends back to its entering state) into
+    ``dstates``, ``state_pass`` turns those in place into the entering
+    states and their gradients dS, ``chunk`` writes dx, ddt and the
+    shares, ``reduce`` sums the shares into db, dc, da_log and dd_skip.
+    CUDA tensors only; counts no launch."""
     _check(x, dt, a_log, b, c, d_skip, chunk)
     if x.device.type != "cuda":
         raise ValueError("run_backward_passes launches the kernels: it takes "
@@ -343,7 +408,8 @@ def run_backward_passes(x, dt, a_log, b, c, d_skip, gy, gh, *,
     if unknown:
         raise ValueError(f"unknown passes {sorted(unknown)}; the passes are "
                          f"{BACKWARD_PASSES}")
-    for k, (shape, dtype) in _backward_layout(x, b, chunk).items():
+    cluster = _cluster_of(x, b, cluster)
+    for k, (shape, dtype) in _backward_layout(x, b, chunk, cluster).items():
         t = bufs[k]
         if tuple(t.shape) != shape or t.dtype != dtype \
                 or not t.is_contiguous() or t.device != x.device:
@@ -352,8 +418,9 @@ def run_backward_passes(x, dt, a_log, b, c, d_skip, gy, gh, *,
                              f"{t.dtype} on {t.device}")
     if x.shape[0] * x.shape[2]:
         _launch_backward(x, dt, a_log, b, c, d_skip, gy, gh, bufs, chunk,
-                         sum(1 << i for i, p in enumerate(BACKWARD_PASSES)
-                             if p in passes))
+                         cluster, sum(1 << i for i, p in
+                                      enumerate(BACKWARD_PASSES)
+                                      if p in passes))
 
 
 def run_passes(x, dt, a_log, b, c, d_skip, *, states: torch.Tensor,
@@ -404,18 +471,32 @@ def occupancy(dtype: torch.dtype, hd: int, ds: int, chunk: int
     return {p: (blocks[i], smem[i]) for i, p in enumerate(PASSES)}
 
 
+def _backward_occupancy(dtype, hd, ds, chunk, cluster):
+    blocks, smem = (ctypes.c_int32 * 2)(), (ctypes.c_int32 * 2)()
+    clusters = (ctypes.c_int32 * 1)()
+    fn = _build.function("ssd_bwd_occupancy")
+    _build.check(fn(_mode(dtype, hd, ds), hd, ds, chunk, cluster, blocks,
+                    smem, clusters), "ssd_bwd_occupancy")
+    return blocks, smem, clusters[0]
+
+
 def backward_occupancy(dtype: torch.dtype, hd: int, ds: int, chunk: int
                        ) -> Dict[str, Tuple[int, int]]:
     """For the backward's passes with shared memory of their own
-    (``states``, ``out_states``, ``chunk``) at (dtype, hd, ds, chunk)'s
-    route on the current card: (blocks that fit on one SM, shared bytes a
-    block takes)."""
-    blocks, smem = (ctypes.c_int32 * 3)(), (ctypes.c_int32 * 3)()
-    fn = _build.function("ssd_bwd_occupancy")
-    _build.check(fn(_mode(dtype, hd, ds), hd, ds, chunk, blocks, smem),
-                 "ssd_bwd_occupancy")
+    (``states``, ``chunk``) at (dtype, hd, ds, chunk)'s route on the
+    current card: (blocks that fit on one SM, shared bytes a block
+    takes)."""
+    blocks, smem, _ = _backward_occupancy(dtype, hd, ds, chunk, 1)
     return {p: (blocks[i], smem[i]) for i, p in
-            enumerate(("states", "out_states", "chunk"))}
+            enumerate(("states", "chunk"))}
+
+
+def backward_clusters(dtype: torch.dtype, hd: int, ds: int, chunk: int,
+                      cluster: int) -> int:
+    """The clusters of ``cluster`` blocks of the backward's chunk pass at
+    (dtype, hd, ds, chunk)'s route that the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    return _backward_occupancy(dtype, hd, ds, chunk, cluster)[2]
 
 
 # --------------------------------------------------------------------------- #

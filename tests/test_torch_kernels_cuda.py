@@ -2520,23 +2520,98 @@ def test_ssd_backward_of_no_rows_launches_nothing(cuda, dtype):
 def test_ssd_backward_fits_the_card(cuda):
     """The passes with shared memory of their own fit at the widest shape
     the kernel takes (the chunk pass one block an SM); at mamba2-780m's
-    widths the two state passes fit more than one."""
+    widths the states pass fits more than one; the tensor-core chunk pass's
+    clusters of up to 8 heads fit at every padding, at least one at once."""
     for dtype in (torch.float32, torch.bfloat16):
         for p, (blocks, _) in ssd_kernels.backward_occupancy(
                 dtype, 128, 128, 128).items():
             assert blocks >= 1, (dtype, p)
         occ = ssd_kernels.backward_occupancy(dtype, 64, 128, 128)
-        assert occ["states"][0] >= 2 and occ["out_states"][0] >= 2, occ
+        assert occ["states"][0] >= 2, occ
+    for hd, ds in ((64, 128), (64, 16), (128, 64), (128, 128)):
+        for cluster in range(1, ssd_kernels.MAX_CLUSTER + 1):
+            assert ssd_kernels.backward_clusters(
+                torch.bfloat16, hd, ds, 128, cluster) >= 1, (hd, ds, cluster)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("hd,ds", [(64, 128), (64, 16), (128, 128)])
+@pytest.mark.parametrize("rep", [1, 2, 3, 6, 8, 16])
+def test_ssd_backward_sums_shares_across_a_cluster_of_heads(
+        cuda, rep, hd, ds, with_gh, strong):
+    """The tensor-core chunk pass in clusters of C heads (C the largest
+    divisor of the ``rep`` heads of a group up to 8: 1, 2, 3, 6, 8, 8),
+    two groups, over a ragged last chunk, with and without the final
+    state's gradient, under Mamba-2's decays and strong ones: the shares
+    are (B, S, nh / C, ds), the gradients finite and within the bf16
+    ``GRAD_TOL`` of the plain version in f64, two calls bit-identical, one
+    counted call; the cluster launch fits (one block an SM, at least one
+    cluster at once)."""
+    ng = 2
+    nh = ng * rep
+    cluster = ssd_kernels.backward_cluster(torch.bfloat16, hd, ds, nh, ng)
+    assert cluster == {1: 1, 2: 2, 3: 3, 6: 6, 8: 8, 16: 8}[rep]
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, nh, hd, ng, ds,
+                                    torch.bfloat16, seed=rep + hd + ds,
+                                    strong=strong)
+    gh = gh if with_gh else None
+    bufs = ssd_kernels.backward_buffers(args[0], args[3], 128)
+    assert tuple(bufs["db_part"].shape) == (2, 300, nh // cluster, ds)
+    before = dict(_build.LAUNCHES)
+    got = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    assert _ssd_counts(before) == {k: int(k == "ssd_bwd_tc") for k in before}
+    again = ssd_kernels._scan_backward(*args, gy, gh, 128)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grads_close(got, _plain_grads64(args, gy, gh), torch.bfloat16)
+    assert ssd_kernels.backward_occupancy(torch.bfloat16, hd, ds,
+                                          128)["chunk"][0] == 1
+    assert ssd_kernels.backward_clusters(torch.bfloat16, hd, ds, 128,
+                                         cluster) >= 1
+
+
+@pytest.mark.parametrize("rep", [3, 6, 8, 16])
+def test_ssd_backward_cluster_share_is_its_heads_summed_in_order(cuda, rep):
+    """A cluster's share of db and dc is its heads' shares (the chunk pass
+    at C = 1) summed in rank order, bit for bit, at every cluster the
+    group's heads take; db and dc are then ``cluster_share_sum``'s of the
+    heads' shares, bit for bit."""
+    ng, hd, ds, chunk = 1, 64, 128, 128
+    nh = ng * rep
+    args, gy, gh = _ssd_grad_inputs(cuda, 1, 300, nh, hd, ng, ds,
+                                    torch.bfloat16, seed=rep)
+    heads = ssd_kernels.backward_buffers(args[0], args[3], chunk, cluster=1)
+    ssd_kernels.run_backward_passes(*args, gy, gh, bufs=heads, chunk=chunk,
+                                    cluster=1)
+    for cluster in (c for c in range(2, ssd_kernels.MAX_CLUSTER + 1)
+                    if rep % c == 0):
+        bufs = ssd_kernels.backward_buffers(args[0], args[3], chunk,
+                                            cluster=cluster)
+        ssd_kernels.run_backward_passes(*args, gy, gh, bufs=bufs,
+                                        chunk=chunk, cluster=cluster)
+        torch.cuda.synchronize()
+        for part, out in (("db_part", "db"), ("dc_part", "dc")):
+            p = heads[part].reshape(1, 300, nh // cluster, cluster, ds)
+            want = p[:, :, :, 0]
+            for r in range(1, cluster):
+                want = want + p[:, :, :, r]
+            assert torch.equal(bufs[part], want), (cluster, part)
+            assert torch.equal(bufs[out], ssd_kernels.cluster_share_sum(
+                heads[part], ng, cluster).to(bufs[out].dtype)), (cluster,
+                                                                 out)
 
 
 @pytest.mark.parametrize("dtype,hd,ds", [(torch.float32, 64, 128),
                                          (torch.bfloat16, 64, 128),
                                          (torch.bfloat16, 33, 97)])
 def test_ssd_backward_passes_match_their_plain_passes(cuda, dtype, hd, ds):
-    """Each pass alone against its plain version: the rebuilt entering
-    states (the forward's passes 1 and 2), R (pass 3's gradient of the
-    entering states), dS and the decays' share (pass 2's gradient), then
-    the chunk pass and the sums against the composition."""
+    """Each pass alone against its plain version: the chunks' own states
+    and decays (the forward's pass 1) and R (pass 3's gradient of the
+    entering states) from the states pass, then the entering states (the
+    forward's pass 2) and dS (pass 2's gradient) from the state pass,
+    then the chunk pass and the sums against the composition."""
     chunk = 64
     args, gy, gh = _ssd_grad_inputs(cuda, 2, 200, 4, hd, 2, ds, dtype,
                                     seed=7)
@@ -2551,15 +2626,15 @@ def test_ssd_backward_passes_match_their_plain_passes(cuda, dtype, hd, ds):
     states, decay = ssd_ref.ssd_chunk_states_plain(x, dt, a_log, b,
                                                    chunk=chunk)
     h_in, _ = ssd_ref.ssd_state_pass_plain(states, decay)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(bufs["states"], h_in, **SSD_TOL)
-    torch.testing.assert_close(bufs["decay"], decay, **SSD_TOL)
-    run("out_states")
     *_, dh_in = ssd_ref.ssd_chunk_scan_bwd_plain(*args, h_in, gy,
                                                  chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(bufs["states"], states, **SSD_TOL)
+    torch.testing.assert_close(bufs["decay"], decay, **SSD_TOL)
     torch.testing.assert_close(bufs["dstates"], dh_in, **SSD_TOL)
     run("state_pass")
     dstates, _ = ssd_ref.ssd_state_pass_bwd_plain(h_in, decay, dh_in, gh)
+    torch.testing.assert_close(bufs["states"], h_in, **SSD_TOL)
     torch.testing.assert_close(bufs["dstates"], dstates, **SSD_TOL)
     run("chunk", "reduce")
     got = [bufs[k] for k in ssd_kernels.BACKWARD_OUTPUTS]

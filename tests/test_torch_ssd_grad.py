@@ -306,3 +306,69 @@ def test_function_on_cpu_tensors_takes_plain_backward(monkeypatch):
     want = torch.autograd.grad(ref.ssd_chunked_plain(*ins, chunk=32)[0], ins,
                                torch.from_numpy(gy))
     _close(got, want, F32_REL)
+
+
+# ---- the chunk pass's cluster of heads (the card's backward) ------------- #
+
+@pytest.mark.parametrize("rep,want", [(1, 1), (2, 2), (3, 3), (6, 6), (8, 8),
+                                      (16, 8), (12, 6), (7, 7), (48, 8),
+                                      (128, 8)])
+def test_cluster_heads_is_the_largest_divisor_up_to_eight(rep, want):
+    """The heads of a cluster of the tensor-core chunk pass: the largest
+    divisor of a group's heads up to ``MAX_CLUSTER`` (8), so mamba2-780m's
+    48 and jamba's 128 take 8 and a group of one head takes 1."""
+    assert ssd_mod.cluster_heads(rep) == want
+    assert rep % want == 0 and want <= ssd_mod.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("dtype,hd,ds,nh,ng,want", [
+    (torch.bfloat16, 64, 128, 48, 1, 8), (torch.bfloat16, 64, 16, 128, 1, 8),
+    (torch.bfloat16, 64, 128, 12, 2, 6), (torch.bfloat16, 128, 128, 3, 1, 3),
+    (torch.float32, 64, 128, 48, 1, 1), (torch.bfloat16, 33, 97, 48, 1, 1)])
+def test_backward_shares_one_a_cluster(dtype, hd, ds, nh, ng, want):
+    """The tensor-core route clusters ``cluster_heads(nh / ng)`` heads and
+    writes one share of db and dc a cluster, (B, S, nh / C, ds); the
+    CUDA-core route one a head; a cluster the chunk pass does not take is
+    refused."""
+    x = torch.zeros(2, 5, nh, hd, dtype=dtype)
+    b = torch.zeros(2, 5, ng, ds, dtype=dtype)
+    assert ssd_mod.backward_cluster(dtype, hd, ds, nh, ng) == want
+    bufs = ssd_mod.backward_buffers(x, b, 32)
+    for k in ("db_part", "dc_part"):
+        assert tuple(bufs[k].shape) == (2, 5, nh // want, ds)
+    assert tuple(bufs["states"].shape) == (2, nh, 1, hd, ds)
+    assert tuple(ssd_mod.backward_buffers(x, b, 32, cluster=1)["db_part"]
+                 .shape) == (2, 5, nh, ds)
+    bad = [9, 0] + [c for c in range(2, 9) if (nh // ng) % c
+                    or ssd_mod.route(dtype, hd, ds) != "tc"]
+    for cluster in bad:
+        with pytest.raises(ValueError, match="cluster"):
+            ssd_mod.backward_buffers(x, b, 32, cluster=cluster)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8])
+def test_cluster_share_sum_equals_the_head_order_sum(cluster):
+    """The kernel's two-level sum of the heads' db / dc shares (each
+    cluster's heads in rank order on the chip, then a group's clusters in
+    order: ``cluster_share_sum``, its plain version) and the one-level sum
+    of a group's heads (``ref._group_sum``) are the same sum in f32: each
+    within n 2**-24 of the sum of the terms' magnitudes (n = 24 terms) of
+    the f64 sum, as f32 rounding allows; at C = 1 the shares are the
+    heads' own and the two levels are one head-order sum."""
+    ng, rep = 2, 24
+    rng = np.random.default_rng(cluster)
+    part = torch.from_numpy(rng.normal(size=(2, 37, ng * rep, 16))
+                            .astype(np.float32))
+    got = ssd_mod.cluster_share_sum(part, ng, cluster)
+    want = ref._group_sum(part, ng)
+    exact = ref._group_sum(part.double(), ng)
+    bound = rep * 2.0 ** -24 * ref._group_sum(part.double().abs(), ng)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((want.double() - exact).abs() <= bound).all())
+    if cluster == 1:
+        heads = part.reshape(2, 37, ng, rep, 16)
+        seq = heads[:, :, :, 0]
+        for h in range(1, rep):
+            seq = seq + heads[:, :, :, h]
+        assert torch.equal(got, seq)

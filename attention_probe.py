@@ -3,7 +3,7 @@ gradient) on the card for one checkout of the port, to compare commits.
 
     python3 attention_probe.py [--src DIR] [--tag NAME]
         [--backward [--dtype TYPE] [--split auto|loop|split] [--errors]]
-        [--ssd]
+        [--ssd [--dtype TYPE]]
 
 One line, ``[NAME]`` and then, for each shape of ``chip_smoke.py``'s
 served prefills (llama3-8b: 4 x 2,000 x 32 x 128, GQA 4; qwen2-vl: 28
@@ -44,9 +44,12 @@ buffers (``run_backward_passes``), and the chunk pass's blocks an SM and
 shared bytes a block (``backward_occupancy``); where the checkout's
 chunk pass runs in clusters of heads, also its cluster, the clusters the
 card holds at once (``backward_clusters``) and the whole backward with
-clusters of 8, 4, 2 and 1 heads in turns (8, 4, 2, 1, 1, 2, 4, 8).  Its
-inputs are drawn in Mamba-2's init ranges (dt in [0.001, 0.1], A in [1,
-16]).
+clusters of 8, 4, 2 and 1 heads in turns (8, 4, 2, 1, 1, 2, 4, 8), those
+the checkout's route takes.  Its inputs are drawn in Mamba-2's init
+ranges (dt in [0.001, 0.1], A in [1, 16]).  With ``--dtype float32`` it
+times the CUDA-core route instead, in f32 at ``SSD_F32_SHAPES``: the f32
+training check's step (x 1 x 256 x 48 x 64, b and c 1 x 256 x 1 x 128)
+and mamba2-780m's and jamba's widths at 1 x 4,096.
 """
 from __future__ import annotations
 
@@ -77,6 +80,10 @@ BACKWARD_SHAPES = (
 SSD_SHAPES = (("mamba2-780m train", 4, 48, 64, 1, 128),
               ("jamba widths", 4, 128, 64, 1, 16))
 SSD_SEQ, SSD_CHUNK = 4_096, 128
+# (name, batch, length, heads, hd, groups, ds) of the f32 rows
+SSD_F32_SHAPES = (("f32 check", 1, 256, 48, 64, 1, 128),
+                  ("mamba2-780m f32", 1, SSD_SEQ, 48, 64, 1, 128),
+                  ("jamba f32", 1, SSD_SEQ, 128, 64, 1, 16))
 
 
 def attention_f64(q, k, v, causal, q_pos, k_pos):
@@ -129,7 +136,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backward", action="store_true",
                     help="time the backward kernel at the training shapes")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
-                    help="with --backward: the shapes of this type only")
+                    help="with --backward: the shapes of this type only;"
+                    " with --ssd: float32 times the f32 rows")
     ap.add_argument("--split", choices=("auto", "loop", "split"),
                     default="auto",
                     help="with --backward: force the GQA path of dK / dV")
@@ -162,7 +170,7 @@ def main(argv=None) -> int:
         return start.elapsed_time(stop) / reps
 
     if args.ssd:
-        return ssd_backward(args.tag, dev, g, ms)
+        return ssd_backward(args.tag, dev, g, ms, args.dtype or "bfloat16")
     from repro_torch.kernels.flash_attention import flash_attention as fa
     if args.split != "auto":
         forced = args.split == "split"
@@ -243,25 +251,30 @@ def main(argv=None) -> int:
     return 0
 
 
-def ssd_backward(tag, dev, g, ms) -> int:
-    """B8's backward at ``SSD_SHAPES``: the whole, each pass, occupancy."""
+def ssd_backward(tag, dev, g, ms, dtype) -> int:
+    """B8's backward at ``SSD_SHAPES`` (bf16) or ``SSD_F32_SHAPES``
+    (float32): the whole, each pass, occupancy, clusters."""
     import torch
     from repro_torch.kernels.ssd import ssd as ssd_kernels
+    dtype = getattr(torch, dtype)
 
-    def randn(*shape, dtype=torch.bfloat16):
+    def randn(*shape, dtype=dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     def uniform(lo, hi, *shape):
         return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
 
+    shapes = SSD_F32_SHAPES if dtype == torch.float32 else tuple(
+        (name, bsz, SSD_SEQ, nh, hd, ng, ds)
+        for name, bsz, nh, hd, ng, ds in SSD_SHAPES)
     out = []
-    for name, bsz, nh, hd, ng, ds in SSD_SHAPES:
-        ins = (randn(bsz, SSD_SEQ, nh, hd),
-               uniform(0.001, 0.1, bsz, SSD_SEQ, nh),
+    for name, bsz, seq, nh, hd, ng, ds in shapes:
+        ins = (randn(bsz, seq, nh, hd),
+               uniform(0.001, 0.1, bsz, seq, nh),
                torch.log(uniform(1.0, 16.0, nh)),
-               randn(bsz, SSD_SEQ, ng, ds), randn(bsz, SSD_SEQ, ng, ds),
+               randn(bsz, seq, ng, ds), randn(bsz, seq, ng, ds),
                randn(nh, dtype=torch.float32))
-        gy = randn(bsz, SSD_SEQ, nh, hd)
+        gy = randn(bsz, seq, nh, hd)
         whole = ms(lambda: ssd_kernels._scan_backward(*ins, gy, None,
                                                       SSD_CHUNK))
         bufs = ssd_kernels.backward_buffers(ins[0], ins[3], SSD_CHUNK)
@@ -271,35 +284,41 @@ def ssd_backward(tag, dev, g, ms) -> int:
                 *ins, gy, None, bufs=bufs, chunk=SSD_CHUNK, passes=(p,)))
         passes = ", ".join(f"{p} {one(p):.4f}"
                            for p in ssd_kernels.BACKWARD_PASSES)
-        blocks, smem = ssd_kernels.backward_occupancy(
-            torch.bfloat16, hd, ds, SSD_CHUNK)["chunk"]
+        occ = ssd_kernels.backward_occupancy(dtype, hd, ds, SSD_CHUNK)
         extra = ""
         if hasattr(ssd_kernels, "backward_cluster"):
-            cl = ssd_kernels.backward_cluster(torch.bfloat16, hd, ds, nh, ng)
-            sizes = [c for c in (8, 4, 2, 1) if (nh // ng) % c == 0]
-            cbufs = {c: ssd_kernels.backward_buffers(ins[0], ins[3],
-                                                     SSD_CHUNK, cluster=c)
-                     for c in sizes}
+            cl = ssd_kernels.backward_cluster(dtype, hd, ds, nh, ng)
+            cbufs = {}
+            for c in (8, 4, 2, 1):
+                if (nh // ng) % c == 0:
+                    try:
+                        cbufs[c] = ssd_kernels.backward_buffers(
+                            ins[0], ins[3], SSD_CHUNK, cluster=c)
+                    except ValueError:      # not on this checkout's route
+                        pass
+            sizes = list(cbufs)
             turns = {c: [] for c in sizes}
             for c in sizes + sizes[::-1]:
                 turns[c].append(ms(
                     lambda c=c: ssd_kernels.run_backward_passes(
                         *ins, gy, None, bufs=cbufs[c], chunk=SSD_CHUNK,
                         cluster=c)))
-            resident = [ssd_kernels.backward_clusters(
-                torch.bfloat16, hd, ds, SSD_CHUNK, c)
-                for c in range(1, ssd_kernels.MAX_CLUSTER + 1)]
+            resident = [ssd_kernels.backward_clusters(dtype, hd, ds,
+                                                      SSD_CHUNK, c)
+                        for c in sizes]
             at_once = ", ".join(f"{n} of {c}"
-                                for c, n in enumerate(resident, start=1))
+                                for c, n in zip(sizes, resident))
             extra = (f", clusters of {cl}, {at_once} at once; in turns "
                 + ", ".join(f"C={c} " + " / ".join(f"{t:.4f}" for t in v)
                             for c, v in turns.items()))
             del cbufs
-        out.append(f"{name} {whole:.4f} ({passes}; chunk pass {blocks} "
-                   f"block(s) an SM, {smem} shared bytes{extra})")
+        out.append(f"{name} {whole:.4f} ({passes}; states pass "
+                   f"{occ['states'][0]} block(s) an SM, {occ['states'][1]} "
+                   f"shared bytes; chunk pass {occ['chunk'][0]} block(s) an "
+                   f"SM, {occ['chunk'][1]} shared bytes{extra})")
         del ins, gy, bufs
         torch.cuda.empty_cache()
-    print(f"[{tag}] ssd backward: " + "; ".join(out), flush=True)
+    print(f"[{tag}] ssd backward {dtype}: " + "; ".join(out), flush=True)
     return 0
 
 

@@ -1035,8 +1035,7 @@ def spread(warm) -> str:
 def _kernel_name(key: str) -> str:
     """A kernel's function name from its profiler key, with its first
     template argument where that is true or false (the SSD's shared
-    passes, which the backward runs for the entering states, and on its
-    CUDA-core route for the chunks' states and R)."""
+    passes, which the backward runs for the entering states)."""
     head = key.replace("(anonymous namespace)", "").split("(")[0]
     name = head.split("<")[0].split("::")[-1].split()[-1]
     first = head.split("<", 1)[1].split(",")[0].strip(" >") \
@@ -3045,7 +3044,8 @@ def phase_lm_kernels(dev):
     versions, timed (B8 also pass by pass); then B7's backward kernel at
     the training shapes (``b7_bwd_row``) and B8's (``b8_bwd_row``: bf16
     at mamba2-780m's training step and, logged only, at jamba's widths;
-    f32 at the f32 check's step).  Returns the 38 JSON rows; a
+    f32 at the f32 check's step and, logged only, at both models' widths,
+    1 x ``TRAIN_SEQ``).  Returns the 38 JSON rows; a
     row's ``counted_in`` names the run of ``phase_lm`` or ``phase_train``
     whose launches it reports, and its ``counter`` the counter of the
     route its inputs take."""
@@ -3404,10 +3404,11 @@ def phase_lm_kernels(dev):
         magnitude and finite, two calls bit-identical; timed by CUDA
         events, pass by pass too, beside its bound (x, gy, dt, b and c read
         once, dx, ddt, db and dc written once; ``ssd_flops(backward=True)``
-        operations) and the plain version.  On the tensor-core route also
-        the chunk pass's cluster of heads C and the clusters the card holds
-        at once, and the whole backward at C, at C = 4 and at C = 1 (a
-        share a head) in turns.  Mamba-2's init ranges, the final state's
+        operations, in bf16 on the tensor-core route, three times over in
+        TF32 on the CUDA-core route's split) and the plain version; the
+        chunk pass's cluster of heads C and the clusters the card holds at
+        once, and the whole backward at C, at C = 4 and at C = 1 (a share a
+        head) in turns.  Mamba-2's init ranges, the final state's
         gradient absent (the model reads y only).  With ``counted_in``
         None (widths that no card path trains at) the row is checked,
         timed and logged, but not listed."""
@@ -3465,15 +3466,16 @@ def phase_lm_kernels(dev):
             # ddt (and da_log, dd_skip) written once
             bytes=size * (3 * x.numel() + 4 * b.numel())
             + 4 * (2 * dt.numel() + 4 * nh),
-            ops=ssd_kernels.ssd_flops(tuple(x.shape), tuple(b.shape), 128,
-                                      backward=True),
-            ops_type="bf16" if rt == "tc" else "f32",
+            ops=(1 if rt == "tc" else 3) * ssd_kernels.ssd_flops(
+                tuple(x.shape), tuple(b.shape), 128, backward=True),
+            ops_type="bf16" if rt == "tc" else "tf32",
             counted_in=counted_in,
             counter=ssd_kernels.BACKWARD_COUNTER[rt],
             shape=f"{arch}: x=({bsz}, {s_len}, {nh}, {hd}) {tname}, dt f32, "
                   f"b, c=({bsz}, {s_len}, {ng}, {ds}) {tname}, chunk 128, "
                   f"gh absent, backward on the {rt} route"
-                  + (", chunk pass on wgmma" if rt == "tc" else ""))
+                  + (", chunk pass on wgmma" if rt == "tc" else
+                     ", split TF32 on mma.sync"))
         blocks, smem = ssd_kernels.backward_occupancy(dtype, hd, ds,
                                                       128)["chunk"]
         cluster = ssd_kernels.backward_cluster(dtype, hd, ds, nh, ng)
@@ -3483,17 +3485,17 @@ def phase_lm_kernels(dev):
             + f" (sum {sum(pass_ms.values()):.4f}); chunk pass "
             f"{blocks} block(s) an SM, {smem} shared bytes a block, "
             f"clusters of {cluster} head(s), {clusters} at once")
-        if rt == "tc":
-            log(f"  {name} " + b8_cluster_turns(args, gy, cluster))
+        log(f"  {name} " + b8_cluster_turns(args, gy, cluster))
         finish_row(row, agree=f"{tname} max abs err {err:.3e}, worst "
                    f"{worst:.2e} of a gradient's largest magnitude (bound "
                    f"{SSD_GRAD_TOL[tname]}"
                    + (", against f64" if exact else "")
                    + "); two calls bit-identical")
         if counted_in is None:
-            log(f"  {name}: no card path trains at these widths (jamba "
-                "trains on the CPU only), so it has no launches to report: "
-                "logged, not listed")
+            log(f"  {name}: no card path trains at this shape (jamba "
+                "trains on the CPU only; the f32 check trains mamba2-780m at "
+                f"{TRAIN_CHECK_LEN} tokens), so it has no launches to "
+                "report: logged, not listed")
         else:
             rows.append(row)
 
@@ -3606,13 +3608,18 @@ def phase_lm_kernels(dev):
 
     # B8's backward: the tensor-core route at mamba2-780m's training step
     # and at jamba's widths, the CUDA-core route at the f32 check's step
+    # and, logged, at both models' widths in f32 at a training length
     for name, arch, bsz, s_len, dtype, counted_in in (
             ("ssd_bwd_tc_train", "mamba2-780m", TRAIN_FULL["mamba2-780m"],
              TRAIN_SEQ, torch.bfloat16, "mamba2-780m train"),
             ("ssd_bwd_tc_jamba", "jamba-v0.1-52b", LM_BATCH, TRAIN_SEQ,
              torch.bfloat16, None),
             ("ssd_bwd", "mamba2-780m", 1, TRAIN_CHECK_LEN, torch.float32,
-             "mamba2-780m f32 train check")):
+             "mamba2-780m f32 train check"),
+            ("ssd_bwd_f32_train", "mamba2-780m", 1, TRAIN_SEQ, torch.float32,
+             None),
+            ("ssd_bwd_f32_jamba", "jamba-v0.1-52b", 1, TRAIN_SEQ,
+             torch.float32, None)):
         b8_bwd_row(name, arch, bsz, s_len, dtype, counted_in)
         torch.cuda.empty_cache()
     return rows

@@ -521,58 +521,12 @@ __device__ __forceinline__ float4 ld_chunk(const uint8_t* tile, int box,
       tile + box * (kRows * kRowBytes) + r * kRowBytes + ((c ^ (r & 7)) << 4));
 }
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero): half of the dropped unit added to the magnitude bits, then
-// the low 13 of the 23 mantissa bits cleared, in two integer operations.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo: hi = tf32(x), lo = the remainder, which x - hi holds
-// exactly, rounded to TF32 too (kRoundLo) or left whole: the tensor cores
-// then read its 19 high bits, dropping under 2^-11 of lo (|lo| <= 2^-12
-// |x|), two integer operations fewer.
-template <bool kRoundLo = true>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  const float rest = x - __uint_as_float(hi);
-  lo = kRoundLo ? tf32_rna(rest) : __float_as_uint(rest);
-}
-
-// The A operand (16 x 8, row) of one k step from its four elements: rows
-// g and g + 8 at k index t (x0, x1) and t + 4 (x2, x3), split.
-template <bool kRoundLo = true>
-__device__ __forceinline__ void split_a(float x0, float x1, float x2,
-                                        float x3, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  split<kRoundLo>(x0, hi[0], lo[0]);
-  split<kRoundLo>(x1, hi[1], lo[1]);
-  split<kRoundLo>(x2, hi[2], lo[2]);
-  split<kRoundLo>(x3, hi[3], lo[3]);
-}
-
-// D (16 x 8, f32) += A (16 x 8, tf32, row) . B (8 x 8, tf32, col).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b with a and b split (b's k indices t and t + 4 in b0, b1):
-// the small terms first, then hi . hi.
-template <bool kRoundLo = true>
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split<kRoundLo>(b0, bh0, bl0);
-  split<kRoundLo>(b1, bh1, bl1);
-  mma(d, al, bh0, bh1);
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
-}
+// The split-TF32 arithmetic (tf32_rna, split, split_a, mma, mma3) is
+// common.cuh's, shared with B8's f32 backward.
+using repro_torch::tf32::mma;
+using repro_torch::tf32::mma3;
+using repro_torch::tf32::split;
+using repro_torch::tf32::split_a;
 
 template <int D, bool kByPos>
 __global__ void __launch_bounds__(kBlock, 1)

@@ -35,8 +35,8 @@
 //          (the reverse cumsum's form takes differences of sums some
 //          thousand times larger under strong decays, which loses a_log's
 //          gradient to f32 rounding); and of dd_skip = sum gy . x;
-//     4. reduce: db and dc summed over the shares of a group, da_log and
-//        dd_skip over the blocks, in a fixed order.
+//     4. reduce, one launch: db and dc summed over the shares of a group,
+//        da_log and dd_skip over the blocks, in a fixed order.
 // Bound: at mamba2-780m's training shape (x 4 x 4,096 x 48 x 64 bf16, b
 //   and c 4 x 4,096 x 1 x 128, chunk 128, gh absent) the function reads x,
 //   gy, dt, b, c once and writes dx, ddt, db, dc once: 325.1 MB, 0.0970 ms
@@ -49,7 +49,11 @@
 //   402.7 MB each a head, C = 1), written once and read once: some 2.3 GB
 //   of device memory a call on the tensor-core route, and some 0.7 GB
 //   between the shared memories of a cluster's blocks (7 / 8 of each
-//   block's two f32 shares at C = 8).  PERF.md keeps the measured times.
+//   block's two f32 shares at C = 8).  In f32 (the CUDA-core route) at
+//   mamba2-780m's widths, 1 x 4,096, the function is 22.62 GFLOP and 161.0
+//   MB: 0.1371 ms at 495 TFLOP/s of TF32 times the three products of the
+//   split (0.3377 ms at the CUDA cores' 67 TFLOP/s), against 0.0480 ms for
+//   the bytes: bound by operations.  PERF.md keeps the measured times.
 // Design: every pass but 2 and 4 runs the chunks of a head in parallel.
 //   On the tensor-core route (bf16, hd and ds multiples of 16) passes 1
 //   and 3 multiply on wgmma (m64nNk16 bf16 -> f32).  bf16 operands are
@@ -106,14 +110,45 @@
 //   = ds = 128) dc's shares are summed before dS is split into H's tiles.
 //   Every width the route takes fits C up to 8 (211,936 bytes at hd 64 or
 //   128, ds 128), so no width falls back to C = 1.
-//   The CUDA-core route (f32, bf16 at other widths) launches the forward's
-//   pass 1 twice for pass 1 (S, then R with gy, c and exp(cum) for x, b
-//   and the weight), keeps C B^T (then M) and GY X^T (then W) as f32 Q x Q
-//   tiles in shared memory, runs every product as a register-tiled FMA
-//   product over k-slices staged in shared memory, and writes a share a
-//   head (C = 1).  No atomics: every sum has a fixed order, so two calls
-//   give the same bits.  The launcher binds the device before it encodes
-//   b's and c's tensor maps (bind_device, common.cuh).
+//   The CUDA-core route (f32, and bf16 at widths that are not multiples
+//   of 16) runs every product on the tensor cores as split TF32: mma.sync
+//   m16n8k8, each f32 operand x = hi + lo (hi rounded as cvt.rna rounds,
+//   lo left whole), three products summed in f32 (tf32::, common.cuh; B7's
+//   f32 backward does the same).  mma.sync rather than wgmma: wgmma reads
+//   TF32 operands from shared memory only, K-major only, so every split
+//   operand would need tiles of its own (flash_attention.cu's note); a
+//   bf16 operand is TF32 exactly, and its lo's products are dropped.  Its
+//   operands stage by cp.async into two buffers in turn (k slices of 64
+//   columns of a width, or of 64 tokens: half the barriers of 32, 5-7%
+//   faster), zero past the chunk's tokens and past hd and ds, which the k
+//   steps pad to multiples of 8, so every width up to 128 goes.  Pass 1
+//   (states_bwd_tf) is one launch, one chunk cum a block: S and R cut into
+//   16 x 64 warp tiles, two a warp at a time, over the chunk's tokens 16
+//   at a time; two blocks an SM.  Pass 3 (chunk_bwd_tf) gives warp w 16 of
+//   the chunk's rows, first as rows i (C B^T and GY X^T over j <= i, then
+//   T's row and column sums, W, dc = e (gy H) + W b and v), then as rows j
+//   (B C^T into M^T, dx = w (b dS^T) + M^T gy + d_skip gy and u; X GY^T
+//   into W^T, db = w (x dS) + W^T c).  The M, W products take their A
+//   operand straight from the accumulator fragments (the `ab` form); the
+//   Q x Q products are computed once per orientation rather than kept in
+//   shared memory; T's column sums cross the warps through shared memory,
+//   in warp order.  Warps w and w + 4 share a scheduler, so they take row
+//   tiles r and 7 - r (w < 4 ? w : 11 - w), whose causal halves sum to the
+//   same work in either orientation.  A thread holds at most a 16 x Q
+//   fragment (64 registers) and a 16 x 64 accumulator (32): every product
+//   of a width runs 64 output columns at a time, and C B^T waits in shared
+//   memory (the park), thread by thread, while GY X^T is summed (with two
+//   16 x Q fragments and a 16 x 128 accumulator ptxas put the arrays in
+//   local memory: 255 registers and 2.6 KB of stack a thread, a chunk pass
+//   2.4-2.9x slower than the FMA one).  The registers still hold it to one
+//   block an SM.  It runs in clusters of C heads of one group, C as on the
+//   tensor-core route: each block writes its share of dc, later of db,
+//   into the park, and after a cluster barrier each sums its rows of the C
+//   shares in rank order from the blocks' shared memory
+//   (ld.shared::cluster) into one share a cluster; a second barrier frees
+//   the park.  No atomics: every sum has a fixed order, so two calls give
+//   the same bits.  The launcher binds the device before it encodes b's
+//   and c's tensor maps (bind_device, common.cuh).
 #include "ssd_common.cuh"
 
 // Every kernel of the backward is named in this namespace (the shared
@@ -1257,63 +1292,335 @@ chunk_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
   if (threadIdx.x == 0) bulk_wait_read();  // the copies have read the share
 }
 
-// ---- chunk pass, CUDA cores -----------------------------------------------
+// ---- the CUDA-core route: split TF32 on mma.sync --------------------------
+//
+// (The design is in the note at the top.)  Every product is mma.sync
+// m16n8k8 TF32 with each f32 operand split, x = hi + lo, hi rounded as
+// cvt.rna rounds and lo left whole (the tensor cores read its 19 high
+// bits), and a . b = lo.hi + hi.lo + hi.hi summed in f32, as B7's f32
+// backward does (tf32::, common.cuh).  A bf16 operand is TF32 exactly: its
+// lo is zero and the products with it are dropped.  Warp w owns rows 16 w
+// .. 16 w + 15 of every product (tokens in the chunk pass); thread (g, t)
+// = (lane / 4, lane % 4) holds rows g and g + 8 at columns 2t and 2t + 1
+// of each n tile of 8 columns.  Operands stage by cp.async into two
+// buffers in turn, zero past the chunk's tokens and past each width, and
+// every k step runs on the padded width, a multiple of 8.
 
-constexpr int kT = 128 + 4;   // row stride of a staged k-slice (floats)
+namespace tf = repro_torch::tf32;
 
-// acc (8 x 8 a thread) += A . B over k < kk for an (mm, nn) product, mm
-// and nn <= 128: thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16
-// r and columns tx + 16 c.  A (m, k) and B (k, n) come through the
-// accessors a k-slice of kSlice at a time, staged in as and bs ([kSlice][kT]
-// floats each), zero past mm, nn and kk.
-template <typename FA, typename FB>
-__device__ __forceinline__ void gemm_cc(float (&acc)[8][8], const FA& fa,
-                                        const FB& fb, int mm, int nn, int kk,
-                                        float* as, float* bs) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int k0 = 0; k0 < kk; k0 += kSlice) {
-    __syncthreads();                      // the last slice is consumed
-    for (int e = threadIdx.x; e < kSlice * 128; e += kThreads) {
-      const int kq = e >> 7, m = e & 127, k = k0 + kq;
-      as[kq * kT + m] = m < mm && k < kk ? fa(m, k) : 0.f;
-      bs[kq * kT + m] = m < nn && k < kk ? fb(k, m) : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(kSlice, kk - k0);
-    for (int kq = 0; kq < kn; ++kq) {
-      float av[8], bv[8];
+constexpr bool kRoundLo = false;   // lo left whole (B7's bwd::kRoundLo)
+constexpr int kKs = 64;            // k columns of a slice of a width
+constexpr int kKt = kKs / 8;       // its k tiles
+constexpr int kLdK = kKs + 4;      // its row stride: 4 (mod 32) words
+constexpr int kTiles = kTok / 8;   // n tiles of the widest product
+
+template <typename T> constexpr bool kExact = false;   // TF32 exactly
+template <> constexpr bool kExact<bf16> = true;
+
+__host__ __device__ inline int pad8(int w) { return (w + 7) / 8 * 8; }
+// The row stride (elements) of a tile of width w read as B (k, n) with k
+// the row: 8 (mod 32), so that a k step's reads at rows t and t + 4
+// (`warp_ss`) of f32 fall in 32 banks; 4 (mod 32) where a step reads rows
+// 2t and 2t + 1 (`warp_ab`: the chunk pass's kHalf + 4).
+__host__ __device__ inline int ld_kn(int w) { return (w + 31) / 32 * 32 + 8; }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N> __device__ __forceinline__ void zero(float (&a)[N][4]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        av[i] = as[kq * kT + ty + 16 * i];
-        bv[i] = bs[kq * kT + tx + 16 * i];
-      }
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+
+// rows x cols of a row-major source (`stride` elements a row) into a
+// shared tile of `ld` elements a row, rows at or past `vrows` and columns
+// at or past `vcols` zero.  Every thread calls it; the copies are
+// cp.async (`stage`), which the caller commits and waits on.
+template <typename T>
+__device__ __forceinline__ void stage_win(T* dst, int ld, const T* src,
+                                          int64_t stride, int rows,
+                                          int vrows, int cols, int vcols) {
+  stage(dst, ld, src, stride, rows, vrows, vcols);
+  const int pad = cols - vcols;
+  for (int i = threadIdx.x; i < rows * pad; i += kThreads)
+    dst[(i / pad) * ld + vcols + i % pad] = from_f32<T>(0.f);
+}
+
+// Step s of a product's k loop over `n` staged slices, the block's:
+// load(s, buf) issues slice s's copies into buffer buf (0 or 1).  At s = 0
+// it issues slice 0's; it issues slice s + 1's, waits for slice s's and
+// meets the block at a barrier; false past the last slice.  The caller
+// multiplies slice s (buffer s & 1) while slice s + 1 is in flight and
+// ends each step at a barrier, so the buffers are free after the loop:
+//   for (int s = 0; k_step(s, n, load); ++s) { ...; __syncthreads(); }
+// (the products stay in the loop's body: an accumulator taken by reference
+// into a lambda that is not inlined would live in local memory).
+template <typename Load>
+__device__ __forceinline__ bool k_step(int s, int n, const Load& load) {
+  if (s >= n) return false;
+  if (s == 0) {
+    load(0, 0);
+    cp_async_commit();
+  }
+  if (s + 1 < n) {
+    load(s + 1, (s + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  return true;
+}
+
+// Readers of a shared tile of `ld` elements a row, as f32: at (row, col),
+// and transposed (at (k, n), row n, column k).
+template <typename T>
+__device__ __forceinline__ auto at_rc(const T* p, int ld) {
+  return [=](int r, int c) { return to_f32(p[r * ld + c]); };
+}
+template <typename T>
+__device__ __forceinline__ auto at_cr(const T* p, int ld) {
+  return [=](int k, int n) { return to_f32(p[n * ld + k]); };
+}
+
+// x as the split pair (hi, lo); lo zero where x is TF32 already.
+template <bool kEx>
+__device__ __forceinline__ void tsplit(float x, uint32_t& hi, uint32_t& lo) {
+  if (kEx) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    tf::split<kRoundLo>(x, hi, lo);
+  }
+}
+
+// d += a . b of split operands (b's k indices t and t + 4 in bh[0], bh[1]):
+// the small terms first, then hi . hi; a term with an exact factor's lo
+// is dropped.
+template <bool kExA, bool kExB>
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  if (!kExA) tf::mma(d, al, bh[0], bh[1]);
+  if (!kExB) tf::mma(d, ah, bl[0], bl[1]);
+  tf::mma(d, ah, bh[0], bh[1]);
+}
+
+// The `ss` form: acc (the warp's 16 rows x kN n tiles) += A . B over `ks`
+// k steps of 8, A (16 x 8 ks) through fa(r, k) (r the warp's row) and B
+// (8 ks x 8 kN) through fb(k, n), both in shared memory; n tiles [n0, n1)
+// only.  kExA, kExB: the operand is TF32 exactly.
+template <bool kExA, bool kExB, int kN, typename FA, typename FB>
+__device__ __forceinline__ void warp_ss(float (&acc)[kN][4], const FA& fa,
+                                        const FB& fb, int ks, int n0,
+                                        int n1) {
+  if (n0 >= n1) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < 8 * ks; k += 8) {
+    uint32_t ah[4], al[4];
+    tsplit<kExA>(fa(g, k + t), ah[0], al[0]);
+    tsplit<kExA>(fa(g + 8, k + t), ah[1], al[1]);
+    tsplit<kExA>(fa(g, k + t + 4), ah[2], al[2]);
+    tsplit<kExA>(fa(g + 8, k + t + 4), ah[3], al[3]);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+    for (int n = 0; n < kN; ++n) {
+      if (n < n0 || n >= n1) continue;
+      uint32_t bh[2], bl[2];
+      tsplit<kExB>(fb(k + t, 8 * n + g), bh[0], bl[0]);
+      tsplit<kExB>(fb(k + t + 4, 8 * n + g), bh[1], bl[1]);
+      mma_split<kExA, kExB>(acc[n], ah, al, bh, bl);
     }
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+// The `ab` form: c (16 x 8 kN) += P . B, P the warp's f32 accumulator
+// fragments of an earlier product (16 x 8 kK) fed straight from registers
+// as A, k tiles [k0, k1); B through fb(k, n), n tiles below n1.  Tile kk
+// holds P's columns 2t and 2t + 1 where A wants k indices t and t + 4, so
+// the k step is permuted and B's rows 8 kk + 2t and 8 kk + 2t + 1 are read
+// in their place (flash_attention.cu's `ab`).
+template <bool kExB, int kK, int kN, typename FB>
+__device__ __forceinline__ void warp_ab(float (&c)[kN][4],
+                                        const float (&p)[kK][4],
+                                        const FB& fb, int k0, int k1,
+                                        int n1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int kk = 0; kk < kK; ++kk) {
+    if (kk < k0 || kk >= k1) continue;
+    uint32_t ah[4], al[4];
+    tf::split_a<kRoundLo>(p[kk][0], p[kk][2], p[kk][1], p[kk][3], ah, al);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int n = 0; n < kN; ++n) {
+      if (n >= n1) continue;
+      uint32_t bh[2], bl[2];
+      tsplit<kExB>(fb(8 * kk + 2 * t, 8 * n + g), bh[0], bl[0]);
+      tsplit<kExB>(fb(8 * kk + 2 * t + 1, 8 * n + g), bh[1], bl[1]);
+      mma_split<false, kExB>(c[n], ah, al, bh, bl);
+    }
+  }
 }
 
-// Shared: the cum head, the per-token scratch, the k-slices, C B^T (then
-// M) and GY X^T (then W) as [q][q + 1] f32, and per-thread row and column
-// shares [16][q] twice.
-inline size_t chunk_cc_smem(int q) {
-  return cum_bytes<double>(q) + tok_bytes(q)
-         + 4 * (2 * static_cast<size_t>(kSlice) * kT
-                + 2 * static_cast<size_t>(q) * (q + 1) + 2 * 16 * q);
+// ---- chunk pass, split TF32 ------------------------------------------------
+
+constexpr int kHalf = 64;                  // output columns a pass of a width
+constexpr int kHalfTiles = kHalf / 8;
+// One buffer: a slice pair, [kTok][kLdK] f32 each (A, then B).
+constexpr size_t kTileF = static_cast<size_t>(kTok) * kLdK;
+constexpr size_t kBufBytes = 2 * kTileF * 4;
+// C B^T's fragments, parked thread by thread while GY X^T is summed; then
+// a share of db or dc, [q][ld_share(ds)] f32, while it is summed across a
+// cluster.
+constexpr size_t kParkBytes = static_cast<size_t>(kTok) * (kTok + 8) * 4;
+
+// The row stride (floats) of a share of db or dc in shared memory.
+__host__ __device__ inline int ld_share(int ds) { return pad8(ds) + 8; }
+
+// Shared: the cum head, the per-token scratch, T's column shares
+// [kWarps][q] f32, the two buffers, then the park.
+__host__ __device__ inline size_t chunk_tf_head(int q) {
+  return (cum_bytes<double>(q) + tok_bytes(q)
+          + 4 * static_cast<size_t>(kWarps) * q + 15) / 16 * 16;
+}
+inline size_t chunk_tf_smem(int q) {
+  return chunk_tf_head(q) + 2 * kBufBytes + kParkBytes;
 }
 
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// Columns c0 .. c0 + 8 kN - 1 of this block's share of db or dc (the
+// warps' fragments of rows below len, columns below ds): into `out`
+// (share_out's) in a cluster of one, else into `shr` (rows of
+// ld_share(ds) floats) for `sum_cluster`.
+template <int kN>
+__device__ __forceinline__ void put_rows(const float (&acc)[kN][4],
+                                         float* out, float* shr,
+                                         const Shape& sh, int len, int r0,
+                                         int c0) {
+  const int nrank = cluster_blocks(), ds = sh.ds;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* dst = nrank == 1 ? out : shr;
+  const int64_t stride =
+      nrank == 1 ? static_cast<int64_t>(sh.nh / nrank) * ds : ld_share(ds);
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e >> 1), s = c0 + 8 * n + 2 * t + (e & 1);
+      if (i < len && s < ds) dst[i * stride + s] = acc[n][e];
+    }
+}
+
+// In a cluster of C > 1 blocks, after `put_rows`: each block sums its rows
+// of the C shares, P = ceil(len / C) rows a rank, in rank order, from the
+// blocks' shared memory into `out`; barriers before (the shares are in
+// place) and after (the peers have read them).  Every thread calls it.
+__device__ __forceinline__ void sum_cluster(float* out, float* shr,
+                                            const Shape& sh, int len) {
+  const int nrank = cluster_blocks(), ds = sh.ds;
+  if (nrank == 1) return;
+  const int64_t orow = static_cast<int64_t>(sh.nh / nrank) * ds;
+  const int ls = ld_share(ds);
+  cluster_sync();
+  const int rank = cluster_rank(), per = (len + nrank - 1) / nrank;
+  const int row0 = rank * per, rows = max(0, min(len, row0 + per) - row0);
+  const uint32_t base = smem_addr(shr);
+  if (ds % 4 == 0) {
+    const int n4 = ds / 4;
+    for (int e = threadIdx.x; e < rows * n4; e += kThreads) {
+      const int r = row0 + e / n4, c = 4 * (e % n4);
+      const uint32_t at = base + 4u * (r * ls + c);
+      float4 v = ld_cluster4(peer_addr(at, 0));
+      for (int k = 1; k < nrank; ++k) {
+        const float4 u = ld_cluster4(peer_addr(at, k));
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(out + r * orow + c) = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * ds; e += kThreads) {
+      const int r = row0 + e / ds, c = e % ds;
+      const uint32_t at = base + 4u * (r * ls + c);
+      float v = ld_cluster(peer_addr(at, 0));
+      for (int k = 1; k < nrank; ++k) v += ld_cluster(peer_addr(at, k));
+      out[r * orow + c] = v;
+    }
+  }
+  cluster_sync();
+}
+
+// The warp's rows r (r0 + g and r0 + 8 + g) of acc times v[r] (zero where
+// the warp holds no tokens).
+template <int kN>
+__device__ __forceinline__ void scale_rows(float (&acc)[kN][4],
+                                           const float* v, int r0,
+                                           bool rows) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m = rows ? v[r0 + g + 8 * h] : 0.f;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      acc[n][2 * h] *= m;
+      acc[n][2 * h + 1] *= m;
+    }
+  }
+}
+
+// p (rows j, columns i, n tiles [n0, n1)) into p_ji E_ij dt_j for i >= j,
+// zero above: B C^T into M^T, X GY^T into W^T.
+__device__ __forceinline__ void to_upper(float (&p)[kTiles][4], const Tok& tk,
+                                         const Cum<double>& cm, int r0,
+                                         int n0, int n1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    if (n < n0 || n >= n1) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = r0 + g + 8 * (e >> 1), i = 8 * n + 2 * t + (e & 1);
+      p[n][e] = i >= j ? p[n][e] * expf(cum_diff(tk.c2[i], tk.c2[j]))
+                             * cm.dtv[j]
+                       : 0.f;
+    }
+  }
+}
+
+// The chunk pass of the CUDA-core route (the design is in the note at the
+// top): a block per (batch row, chunk, head) in clusters of C heads, warp
+// w rows 16 w .. 16 w + 15 of the chunk, first as rows i, then as rows j;
+// every product of a width runs 64 output columns at a time.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-chunk_bwd_cc(const T* __restrict__ x, const float* __restrict__ dt,
+chunk_bwd_tf(const T* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ a_log, const T* __restrict__ bm,
              const T* __restrict__ cmat, const float* __restrict__ d_skip,
              const T* __restrict__ gy, const float* __restrict__ hin,
@@ -1321,18 +1628,23 @@ chunk_bwd_cc(const T* __restrict__ x, const float* __restrict__ dt,
              float* __restrict__ ddt, float* __restrict__ db_part,
              float* __restrict__ dc_part, float* __restrict__ dalog_part,
              float* __restrict__ dd_part, Shape sh) {
+  constexpr bool kEx = kExact<T>;
   extern __shared__ __align__(16) float smem[];
   const Chunk ch = chunk_of(sh);
-  const int q = sh.q, hd = sh.hd, ds = sh.ds, len = ch.len, qs = q + 1;
+  const int q = sh.q, hd = sh.hd, ds = sh.ds, len = ch.len;
   const Cum<double> cm = cum_at<double>(smem, q);
   const Tok tk = tok_at(past_cum<double>(smem, q), q);
-  float* as =
+  float* const colpart =
       reinterpret_cast<float*>(past_cum<double>(smem, q) + tok_bytes(q));
-  float* bs = as + kSlice * kT;
-  float* pm = bs + kSlice * kT;           // [q][qs]: C B^T, then M
-  float* wm = pm + q * qs;                // [q][qs]: GY X^T, then W
-  float* rpart = wm + q * qs;             // [16][q]
-  float* cpart = rpart + 16 * q;          // [16][q]
+  char* const bufs = reinterpret_cast<char*>(smem) + chunk_tf_head(q);
+  float* const park = reinterpret_cast<float*>(bufs + 2 * kBufBytes);
+  auto tile_a = [=](int b) {
+    return reinterpret_cast<T*>(bufs + b * kBufBytes);
+  };
+  auto tile_b = [=](int b) {
+    return reinterpret_cast<float*>(bufs + b * kBufBytes) + kTileF;
+  };
+  auto tile_bt = [=](int b) { return reinterpret_cast<T*>(tile_b(b)); };
 
   const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
   const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
@@ -1350,178 +1662,289 @@ chunk_bwd_cc(const T* __restrict__ x, const float* __restrict__ dt,
   const float a_neg = -expf(a_log[ch.h]);
   chunk_cum(dt, sh, ch, a_neg, cm);
   chunk_tokens(cm, tk, q);
+  for (int i = threadIdx.x; i < kWarps * q; i += kThreads) colpart[i] = 0.f;
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  auto xa = [&](int m, int k) { return to_f32(xg[m * x_row + k]); };
-  auto ga = [&](int m, int k) { return to_f32(gg[m * x_row + k]); };
-  auto ba = [&](int m, int k) { return to_f32(bg[m * b_row + k]); };
-  auto ca = [&](int m, int k) { return to_f32(cg[m * b_row + k]); };
-  float acc[8][8];
-  float pair = 0.f;
-
-  // C B^T, kept; then GY X^T, turned with it into M, W and the sums of F
-  zero(acc);
-  gemm_cc(acc, ca, [&](int k, int n) { return ba(n, k); }, len, len, ds, as,
-          bs);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (ty + 16 * i < q && tx + 16 * c < q)
-        pm[(ty + 16 * i) * qs + tx + 16 * c] = acc[i][c];
-  zero(acc);
-  gemm_cc(acc, ga, [&](int k, int n) { return xa(n, k); }, len, len, hd, as,
-          bs);
-  float cp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int ri = 0; ri < 8; ++ri) {
-    const int i = ty + 16 * ri;
-    if (i >= q) continue;
-    float rp = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = tx + 16 * c;
-      if (j >= q) continue;
-      float mv = 0.f, wv = 0.f;
-      if (j <= i) {
-        const double sg = cm.cum[i] - cm.cum[j];
-        const float e = expf(static_cast<float>(sg));
-        const float cbv = pm[i * qs + j] * e, dtj = cm.dtv[j];
-        const float tv = cbv * acc[ri][c];
-        mv = cbv * dtj;
-        wv = acc[ri][c] * e * dtj;
-        rp += tv * dtj;
-        cp[c] += tv;
-        pair = fmaf(tv * dtj, static_cast<float>(sg), pair);
-      }
-      pm[i * qs + j] = mv;
-      wm[i * qs + j] = wv;
-    }
-    rpart[tx * q + i] = rp;
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    if (tx + 16 * c < q) cpart[ty * q + tx + 16 * c] = cp[c];
-  __syncthreads();
-  for (int t = threadIdx.x; t < q; t += kThreads) {
-    float rs = 0.f, cs = 0.f;
-    for (int i = 0; i < 16; ++i) {
-      rs += rpart[i * q + t];
-      cs += cpart[i * q + t];
-    }
-    tk.rowf[t] = rs;
-    tk.colt[t] = cs;
-  }
-  // (gemm_cc's first barrier orders these reads before the shares' reuse)
-
-  // dx = w (b dS^T) + M^T gy + d_skip gy; u = x . (dS b)
-  zero(acc);
-  gemm_cc(acc, ba, [&](int k, int n) { return sk[n * ds + k]; }, len, hd, ds,
-          as, bs);
-#pragma unroll
-  for (int ri = 0; ri < 8; ++ri) {
-    const int j = ty + 16 * ri;
-    float up = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int p = tx + 16 * c;
-      if (j < len && p < hd) up = fmaf(acc[ri][c], xa(j, p), up);
-    }
-    if (j < q) rpart[tx * q + j] = up;
-    const float wj = j < q ? tk.wv[j] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[ri][c] *= wj;
-  }
-  gemm_cc(acc, [&](int m, int k) { return pm[k * qs + m]; }, ga, len, hd, len,
-          as, bs);
+  // warp w's row tile: w and 11 - w, so that the two warps of a
+  // scheduler (w and w + 4) hold tiles r and 7 - r, whose causal halves
+  // sum to the same work in either orientation
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rt = w < 4 ? w : 11 - w;
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * rt;
+  const bool rows = r0 < len;             // the warp holds tokens
+  const int nt = (len + 7) / 8;           // token tiles
+  const int hdp = pad8(hd), dsp = pad8(ds);
+  const int nhs = (hd + kKs - 1) / kKs, nds = (ds + kKs - 1) / kKs;
+  const int nts = (len + kKs - 1) / kKs;  // token slices
+  constexpr int kLh = kHalf + 8;          // ld_kn(kHalf)
+  constexpr int kLa = kHalf + 4;          // an `ab` B tile's stride
+  // k steps of slice s of a padded width
+  auto steps = [](int wp, int s) { return min(kKs, wp - kKs * s) / 8; };
+  // the chunk's tokens (zero past len) x columns kKs s .. of a width
+  auto tok_cols = [=](T* tile, const T* src, int64_t stride, int width,
+                      int s) {
+    const int c0 = kKs * s;
+    stage_win(tile, kLdK, src + c0, stride, q, len, kKs,
+              min(kKs, width - c0));
+  };
+  // tokens kKs s .. (zero past len) x cw columns, an `ab` B operand
+  auto tok_rows = [=](T* tile, const T* src, int64_t stride, int cw,
+                      int s) {
+    const int t0 = kKs * s;
+    stage_win(tile, kLa, src + t0 * stride, stride, kKs, len - t0, pad8(cw),
+              cw);
+  };
+  // the Q x Q products' loads: token rows x a width's slice, twice
+  auto ld_cb = [=](int s, int b) {
+    tok_cols(tile_a(b), cg, b_row, ds, s);
+    tok_cols(tile_bt(b), bg, b_row, ds, s);
+  };
+  auto ld_bc = [=](int s, int b) {
+    tok_cols(tile_a(b), bg, b_row, ds, s);
+    tok_cols(tile_bt(b), cg, b_row, ds, s);
+  };
+  auto ld_gx = [=](int s, int b) {
+    tok_cols(tile_a(b), gg, x_row, hd, s);
+    tok_cols(tile_bt(b), xg, x_row, hd, s);
+  };
+  auto ld_xg = [=](int s, int b) {
+    tok_cols(tile_a(b), xg, x_row, hd, s);
+    tok_cols(tile_bt(b), gg, x_row, hd, s);
+  };
   const float dsk = d_skip[ch.h];
-#pragma unroll
-  for (int ri = 0; ri < 8; ++ri)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = ty + 16 * ri, p = tx + 16 * c;
-      if (j < len && p < hd)
-        dx[xo + j * x_row + p] = from_f32<T>(fmaf(dsk, ga(j, p), acc[ri][c]));
-    }
-  __syncthreads();
-  for (int t = threadIdx.x; t < q; t += kThreads) {
-    float us = 0.f;
-    for (int i = 0; i < 16; ++i) us += rpart[i * q + t];
-    tk.uu[t] = us;
-  }
+  float pair = 0.f, dd = 0.f;
+  float* const dc_out = share_out(dc_part, sh, ch);
+  float* const db_out = share_out(db_part, sh, ch);
 
-  // db = w (x dS) + W^T c
-  zero(acc);
-  gemm_cc(acc, xa, [&](int k, int n) { return sk[k * ds + n]; }, len, ds, hd,
-          as, bs);
-#pragma unroll
-  for (int ri = 0; ri < 8; ++ri) {
-    const int j = ty + 16 * ri;
-    const float wj = j < q ? tk.wv[j] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[ri][c] *= wj;
-  }
-  gemm_cc(acc, [&](int m, int k) { return wm[k * qs + m]; }, ca, len, ds, len,
-          as, bs);
-  const int64_t drow = static_cast<int64_t>(sh.nh) * ds;
-  float* dbo = db_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
-                              * sh.nh + ch.h) * ds;
-  float* dco = dc_part + ((static_cast<int64_t>(ch.bi) * sh.seq + ch.t0)
-                              * sh.nh + ch.h) * ds;
-#pragma unroll
-  for (int ri = 0; ri < 8; ++ri)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = ty + 16 * ri, s = tx + 16 * c;
-      if (j < len && s < ds) dbo[j * drow + s] = acc[ri][c];
+  // -- rows i: C B^T (parked) and GY X^T, then T's sums and W
+  const int n1i = rows ? min(2 * rt + 2, nt) : 0;  // tiles j <= i
+  float wi[kTiles][4];
+  {
+    float cb[kTiles][4];
+    zero(cb);
+    for (int s = 0; k_step(s, nds, ld_cb); ++s) {
+      warp_ss<kEx, kEx>(cb, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                        at_cr(tile_bt(s & 1), kLdK), steps(dsp, s), 0, n1i);
+      __syncthreads();
     }
-
-  // dc = e (gy H) + W b; v = c . (H^T gy)
-  zero(acc);
-  if (has_h) {
-    gemm_cc(acc, ga, [&](int k, int n) { return hk[k * ds + n]; }, len, ds, hd,
-            as, bs);
 #pragma unroll
-    for (int ri = 0; ri < 8; ++ri) {
-      const int i = ty + 16 * ri;
-      float vp = 0.f;
+    for (int n = 0; n < kTiles; ++n) {
+      if (n >= n1i) continue;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int s = tx + 16 * c;
-        if (i < len && s < ds) vp = fmaf(acc[ri][c], ca(i, s), vp);
+      for (int e = 0; e < 4; ++e)
+        park[(4 * n + e) * kThreads + threadIdx.x] = cb[n][e];
+    }
+  }
+  zero(wi);
+  for (int s = 0; k_step(s, nhs, ld_gx); ++s) {
+    warp_ss<kEx, kEx>(wi, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                      at_cr(tile_bt(s & 1), kLdK), steps(hdp, s), 0, n1i);
+    __syncthreads();
+  }
+  {
+    // T_ij = (C B^T)_ij E_ij (GY X^T)_ij, F = T dt_j, W = (GY X^T) E dt_j
+    float rowp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < kTiles; ++n) {
+      if (n >= n1i) continue;
+      float colp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = r0 + g + 8 * (e >> 1), j = 8 * n + 2 * t + (e & 1);
+        float wv = 0.f;
+        if (j <= i) {
+          const float sg = cum_diff(tk.c2[i], tk.c2[j]);
+          const float ex = expf(sg), dtj = cm.dtv[j];
+          const float tv =
+              park[(4 * n + e) * kThreads + threadIdx.x] * ex * wi[n][e];
+          const float fv = tv * dtj;
+          rowp[e >> 1] += fv;
+          colp[e & 1] += tv;
+          pair = fmaf(fv, sg, pair);
+          wv = wi[n][e] * ex * dtj;
+          if (i == j) dd += wi[n][e];        // gy_i . x_i
+        }
+        wi[n][e] = wv;
       }
-      if (i < q) cpart[tx * q + i] = vp;
-      const float ei = i < q ? tk.ev[i] : 0.f;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[ri][c] *= ei;
+      for (int c = 0; c < 2; ++c) {         // over the warp's 16 rows
+        colp[c] += __shfl_xor_sync(kFull, colp[c], 4);
+        colp[c] += __shfl_xor_sync(kFull, colp[c], 8);
+        colp[c] += __shfl_xor_sync(kFull, colp[c], 16);
+      }
+      if (g == 0) {
+        colpart[w * q + 8 * n + 2 * t] = colp[0];
+        colpart[w * q + 8 * n + 2 * t + 1] = colp[1];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = quad_sum(rowp[h]);
+      if (rows && t == 0) tk.rowf[r0 + g + 8 * h] = v;
     }
   }
-  gemm_cc(acc, [&](int m, int k) { return wm[m * qs + k]; }, ba, len, ds, len,
-          as, bs);
-#pragma unroll
-  for (int ri = 0; ri < 8; ++ri)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = ty + 16 * ri, s = tx + 16 * c;
-      if (i < len && s < ds) dco[i * drow + s] = acc[ri][c];
-    }
   __syncthreads();
-  float dsh = 0.f;
-  if (has_h) {
-    for (int t = threadIdx.x; t < q; t += kThreads) {
-      float vs = 0.f;
-      for (int i = 0; i < 16; ++i) vs += cpart[i * q + t];
-      tk.vv[t] = vs;
+  for (int j = threadIdx.x; j < q; j += kThreads) {
+    float s = 0.f;
+    for (int k = 0; k < kWarps; ++k) s += colpart[k * q + j];
+    tk.colt[j] = s;
+  }
+
+  // -- dc = e (gy H) + W b, and v = c . (H^T gy), 64 columns at a time
+  {
+    float vp[2] = {0.f, 0.f};
+    for (int c0 = 0; c0 < ds; c0 += kHalf) {
+      const int cw = min(kHalf, ds - c0), nn = rows ? pad8(cw) / 8 : 0;
+      float acc[kHalfTiles][4];
+      zero(acc);
+      if (has_h) {
+        auto ld = [=](int s, int b) {       // gy, H's rows kKs s ..
+          const int p0 = kKs * s;
+          tok_cols(tile_a(b), gg, x_row, hd, s);
+          stage_win(tile_b(b), kLh, hk + p0 * ds + c0, ds, kKs, hd - p0,
+                    pad8(cw), cw);
+        };
+        for (int s = 0; k_step(s, nhs, ld); ++s) {
+          warp_ss<kEx, false>(acc, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                              at_rc(tile_b(s & 1), kLh), steps(hdp, s), 0,
+                              nn);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int n = 0; n < kHalfTiles; ++n) {
+          if (n >= nn) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = r0 + g + 8 * (e >> 1);
+            const int s = c0 + 8 * n + 2 * t + (e & 1);
+            if (i < len && s < ds)
+              vp[e >> 1] = fmaf(acc[n][e], to_f32(cg[i * b_row + s]),
+                                vp[e >> 1]);
+          }
+        }
+        scale_rows(acc, tk.ev, r0, rows);
+      }
+      auto ld = [=](int s, int b) { tok_rows(tile_a(b), bg + c0, b_row, cw, s); };
+      for (int s = 0; k_step(s, nts, ld); ++s) {
+        warp_ab<kEx>(acc, wi, at_rc(tile_a(s & 1) - kKs * s * kLa, kLa),
+                     kKt * s, min(kKt * s + kKt, n1i), nn);
+        __syncthreads();
+      }
+      put_rows(acc, dc_out, park, sh, len, r0, c0);
     }
+    if (has_h) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = quad_sum(vp[h]);
+        if (rows && t == 0) tk.vv[r0 + g + 8 * h] = v;
+      }
+    }
+  }
+  sum_cluster(dc_out, park, sh, len);
+
+  // -- rows j: B C^T into M^T, then dx = w (b dS^T) + M^T gy + d_skip gy
+  // and u = x . (dS b), 64 columns at a time
+  const int n0j = 2 * rt;                 // tiles i >= j
+  float pj[kTiles][4];
+  zero(pj);
+  for (int s = 0; k_step(s, nds, ld_bc); ++s) {
+    warp_ss<kEx, kEx>(pj, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                      at_cr(tile_bt(s & 1), kLdK), steps(dsp, s), n0j, nt);
+    __syncthreads();
+  }
+  to_upper(pj, tk, cm, r0, n0j, nt);
+  {
+    float up[2] = {0.f, 0.f};
+    for (int c0 = 0; c0 < hd; c0 += kHalf) {
+      const int cw = min(kHalf, hd - c0), nn = rows ? pad8(cw) / 8 : 0;
+      float acc[kHalfTiles][4];
+      zero(acc);
+      auto ld = [=](int s, int b) {         // b, dS's rows c0 .., columns
+        const int k0 = kKs * s;             // kKs s ..
+        tok_cols(tile_a(b), bg, b_row, ds, s);
+        stage_win(tile_b(b), kLdK, sk + c0 * ds + k0, ds, pad8(cw), cw, kKs,
+                  min(kKs, ds - k0));
+      };
+      for (int s = 0; k_step(s, nds, ld); ++s) {
+        warp_ss<kEx, false>(acc, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                            at_cr(tile_b(s & 1), kLdK), steps(dsp, s), 0, nn);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int n = 0; n < kHalfTiles; ++n) {
+        if (n >= nn) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = r0 + g + 8 * (e >> 1);
+          const int p = c0 + 8 * n + 2 * t + (e & 1);
+          if (j < len && p < hd)
+            up[e >> 1] = fmaf(acc[n][e], to_f32(xg[j * x_row + p]),
+                              up[e >> 1]);
+        }
+      }
+      scale_rows(acc, tk.wv, r0, rows);
+      auto lg = [=](int s, int b) { tok_rows(tile_a(b), gg + c0, x_row, cw, s); };
+      for (int s = 0; k_step(s, nts, lg); ++s) {
+        warp_ab<kEx>(acc, pj, at_rc(tile_a(s & 1) - kKs * s * kLa, kLa),
+                     max(kKt * s, n0j), min(kKt * s + kKt, nt), nn);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int n = 0; n < kHalfTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = r0 + g + 8 * (e >> 1);
+          const int p = c0 + 8 * n + 2 * t + (e & 1);
+          if (j < len && p < hd)
+            dx[xo + j * x_row + p] =
+                from_f32<T>(fmaf(dsk, to_f32(gg[j * x_row + p]), acc[n][e]));
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = quad_sum(up[h]);
+      if (rows && t == 0) tk.uu[r0 + g + 8 * h] = v;
+    }
+  }
+
+  // -- rows j: X GY^T into W^T, then db = w (x dS) + W^T c, 64 columns at
+  // a time
+  zero(pj);
+  for (int s = 0; k_step(s, nhs, ld_xg); ++s) {
+    warp_ss<kEx, kEx>(pj, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                      at_cr(tile_bt(s & 1), kLdK), steps(hdp, s), n0j, nt);
+    __syncthreads();
+  }
+  to_upper(pj, tk, cm, r0, n0j, nt);
+  for (int c0 = 0; c0 < ds; c0 += kHalf) {
+    const int cw = min(kHalf, ds - c0), nn = rows ? pad8(cw) / 8 : 0;
+    float acc[kHalfTiles][4];
+    zero(acc);
+    auto ld = [=](int s, int b) {           // x, dS's rows kKs s ..
+      const int p0 = kKs * s;
+      tok_cols(tile_a(b), xg, x_row, hd, s);
+      stage_win(tile_b(b), kLh, sk + p0 * ds + c0, ds, kKs, hd - p0,
+                pad8(cw), cw);
+    };
+    for (int s = 0; k_step(s, nhs, ld); ++s) {
+      warp_ss<kEx, false>(acc, at_rc(tile_a(s & 1) + r0 * kLdK, kLdK),
+                          at_rc(tile_b(s & 1), kLh), steps(hdp, s), 0, nn);
+      __syncthreads();
+    }
+    scale_rows(acc, tk.wv, r0, rows);
+    auto lc = [=](int s, int b) { tok_rows(tile_a(b), cg + c0, b_row, cw, s); };
+    for (int s = 0; k_step(s, nts, lc); ++s) {
+      warp_ab<kEx>(acc, pj, at_rc(tile_a(s & 1) - kKs * s * kLa, kLa),
+                   max(kKt * s, n0j), min(kKt * s + kKt, nt), nn);
+      __syncthreads();
+    }
+    put_rows(acc, db_out, park, sh, len, r0, c0);
+  }
+  sum_cluster(db_out, park, sh, len);
+
+  float dsh = 0.f;
+  if (has_h)
     for (int e = threadIdx.x; e < hd * ds; e += kThreads)
       dsh = fmaf(sk[e], hk[e], dsh);
-  }
-  float dd = 0.f;
-  for (int e = threadIdx.x; e < len * hd; e += kThreads) {
-    const int j = e / hd, p = e % hd;
-    dd = fmaf(ga(j, p), xa(j, p), dd);
-  }
-  __syncthreads();
   chunk_finish(cm, tk, ch, sh, a_neg, pair, dsh, dd, ddt, dalog_part, dd_part);
 }
 
@@ -1657,6 +2080,112 @@ states_bwd_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
                    acc[m]);
 }
 
+// ---- pass 1: the chunk states, split TF32 ---------------------------------
+
+constexpr int kStTok = 16;       // tokens a slice of the states pass
+
+// Shared: the cum head, w and exp(cum) (q floats each), then two buffers
+// of x's and gy's slices ([kStTok][ld_kn(hd)] each) and b's and c's
+// ([kStTok][ld_kn(ds)] each), in x's type.
+inline size_t states_tf_smem(int q, int hd, int ds, int size) {
+  return cum_bytes<double>(q) + 8 * static_cast<size_t>(q)
+         + 4 * static_cast<size_t>(kStTok) * (ld_kn(hd) + ld_kn(ds)) * size;
+}
+
+// S = sum_j w_j x_j b_j^T and R = sum_i e_i gy_i c_i^T of the chunk, both
+// (hd, ds) f32, and the chunk's decay exp(L), from one chunk cum.  The
+// products are A (d, j) = x_j[d] w_j (gy e, split) times B (j, s) = b_j[s]
+// (c), over the chunk's tokens kStTok at a time; their outputs are cut
+// into 16-row x 64-column warp tiles, S's then R's, and warp w takes tiles
+// w and w + 8 of each 16 in turn (rounds: 2 at hd = ds = 128, else 1).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+states_bwd_tf(const T* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ a_log, const T* __restrict__ bm,
+              const T* __restrict__ cmat, const T* __restrict__ gy,
+              float* __restrict__ states, float* __restrict__ decay,
+              float* __restrict__ dstates, Shape sh) {
+  constexpr bool kEx = kExact<T>;
+  extern __shared__ __align__(16) float smem[];
+  const Chunk ch = chunk_of(sh);
+  const int q = sh.q, hd = sh.hd, ds = sh.ds, len = ch.len;
+  const Cum<double> cm = cum_at<double>(smem, q);
+  float* const wv = reinterpret_cast<float*>(past_cum<double>(smem, q));
+  float* const ev = wv + q;
+  T* const tiles = reinterpret_cast<T*>(ev + q);
+  const int lx = ld_kn(hd), lb = ld_kn(ds);
+  const int buf = 2 * kStTok * (lx + lb);   // elements a buffer
+  const int64_t x_row = static_cast<int64_t>(sh.nh) * hd;
+  const int64_t b_row = static_cast<int64_t>(sh.ng) * ds;
+  const int64_t xo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * x_row
+                     + static_cast<int64_t>(ch.h) * hd;
+  const int64_t bo = (static_cast<int64_t>(ch.bi) * sh.seq + ch.t0) * b_row
+                     + static_cast<int64_t>(ch.g) * ds;
+  chunk_cum(dt, sh, ch, -expf(a_log[ch.h]), cm);
+  const double last = cm.cum[q - 1];
+  for (int t = threadIdx.x; t < q; t += kThreads) {
+    wv[t] = cm.dtv[t] * exp_diff(last, cm.cum[t]);
+    ev[t] = expf(static_cast<float>(cm.cum[t]));
+  }
+  if (threadIdx.x == 0) decay[ch.idx] = expf(static_cast<float>(last));
+  __syncthreads();
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = (hd + 15) / 16, nb = (ds + 63) / 64, per = mt * nb;
+  const int ndt = pad8(ds) / 8, hw = (hd + 31) / 32 * 32;
+  const int slices = (len + kStTok - 1) / kStTok;
+  for (int base = 0; base < 2 * per; base += 2 * kWarps) {
+    float acc[2][8][4];
+    zero(acc[0]);
+    zero(acc[1]);
+    auto load = [=](int s, int b) {
+      T* p = tiles + b * buf;
+      const int t0 = kStTok * s;
+      stage_win(p, lx, x + xo + t0 * x_row, x_row, kStTok, len - t0, hw, hd);
+      stage_win(p + kStTok * lx, lx, gy + xo + t0 * x_row, x_row, kStTok,
+                len - t0, hw, hd);
+      stage_win(p + 2 * kStTok * lx, lb, bm + bo + t0 * b_row, b_row, kStTok,
+                len - t0, pad8(ds), ds);
+      stage_win(p + 2 * kStTok * lx + kStTok * lb, lb, cmat + bo + t0 * b_row,
+                b_row, kStTok, len - t0, pad8(ds), ds);
+    };
+    for (int s = 0; k_step(s, slices, load); ++s) {
+      const T* p = tiles + (s & 1) * buf;
+      const int t0 = kStTok * s;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int id = base + w + kWarps * u;
+        if (id >= 2 * per) continue;
+        const int r = id >= per, m = (id % per) / nb, c0 = 64 * (id % nb);
+        const T* a = p + r * kStTok * lx + 16 * m;
+        const float* wt = (r ? ev : wv) + t0;
+        warp_ss<false, kEx>(
+            acc[u],
+            [=](int rr, int k) { return to_f32(a[k * lx + rr]) * wt[k]; },
+            at_rc(p + 2 * kStTok * lx + r * kStTok * lb + c0, lb),
+            kStTok / 8, 0, min(8, ndt - c0 / 8));
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int id = base + w + kWarps * u;
+      if (id >= 2 * per) continue;
+      const int r = id >= per, m = (id % per) / nb, c0 = 64 * (id % nb);
+      float* out = (r ? dstates : states) + ch.idx * hd * ds;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 16 * m + g + 8 * (e >> 1);
+          const int s = c0 + 8 * n + 2 * t + (e & 1);
+          if (d < hd && s < ds) out[d * ds + s] = acc[u][n][e];
+        }
+    }
+  }
+}
+
 // ---- pass 2: the state pass in reverse ------------------------------------
 
 // Thread i of a head owns its state entries 4 i .. 4 i + 3, as the
@@ -1702,44 +2231,47 @@ state_pass_bwd(float* __restrict__ st, const float* __restrict__ decay,
   }
 }
 
-// ---- pass 4: the fixed-order sums -----------------------------------------
+// ---- pass 4: the fixed-order sums, one launch -----------------------------
 
-// out (rows, ng, ds) = the sum over the heads of each group of part (rows,
-// nh, ds), in head order.
+// db and dc (rows, ng, ds) = the sums over each group's shares of db_part
+// and dc_part (rows, shares, ds), in share order; and, in the grid's first
+// nh threads, da_log and dd_skip (nh,) = the sums of the blocks' shares
+// (B, nh, nc), batch row by batch row and chunk by chunk.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-group_sum(const float* __restrict__ part, T* __restrict__ out, int64_t rows,
-          int32_t nh, int32_t ng, int32_t ds) {
+reduce_bwd(const float* __restrict__ db_part,
+           const float* __restrict__ dc_part, T* __restrict__ db,
+           T* __restrict__ dc, int64_t rows, int32_t shares, int32_t ng,
+           int32_t ds, const float* __restrict__ dalog_part,
+           const float* __restrict__ dd_part, float* __restrict__ da_log,
+           float* __restrict__ dd_skip, int32_t bsz, int32_t nh,
+           int32_t nc) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < nh) {
+    float a = 0.f, d = 0.f;
+    for (int bi = 0; bi < bsz; ++bi)
+      for (int k = 0; k < nc; ++k) {
+        const int64_t at = (static_cast<int64_t>(bi) * nh + i) * nc + k;
+        a += dalog_part[at];
+        d += dd_part[at];
+      }
+    da_log[i] = a;
+    dd_skip[i] = d;
+  }
   if (i >= rows * ng * ds) return;
   const int s = static_cast<int>(i % ds);
   const int64_t rg = i / ds;
-  const int g = static_cast<int>(rg % ng);
+  const int grp = static_cast<int>(rg % ng);
   const int64_t row = rg / ng;
-  const int rep = nh / ng;
-  const float* p = part + (row * nh + static_cast<int64_t>(g) * rep) * ds + s;
-  float v = 0.f;
-  for (int hh = 0; hh < rep; ++hh) v += p[static_cast<int64_t>(hh) * ds];
-  out[i] = from_f32<T>(v);
-}
-
-// da_log and dd_skip (nh,) = the sums of the blocks' shares (B, nh, nc),
-// batch row by batch row and chunk by chunk.
-__global__ void __launch_bounds__(kThreads)
-head_sum(const float* __restrict__ dalog_part, const float* __restrict__ dd_part,
-         float* __restrict__ da_log, float* __restrict__ dd_skip, int32_t bsz,
-         int32_t nh, int32_t nc) {
-  const int h = blockIdx.x * kThreads + threadIdx.x;
-  if (h >= nh) return;
-  float a = 0.f, d = 0.f;
-  for (int bi = 0; bi < bsz; ++bi)
-    for (int k = 0; k < nc; ++k) {
-      const int64_t i = (static_cast<int64_t>(bi) * nh + h) * nc + k;
-      a += dalog_part[i];
-      d += dd_part[i];
-    }
-  da_log[h] = a;
-  dd_skip[h] = d;
+  const int per = shares / ng;
+  const int64_t at = (row * shares + static_cast<int64_t>(grp) * per) * ds + s;
+  float vb = 0.f, vc = 0.f;
+  for (int k = 0; k < per; ++k) {
+    vb += db_part[at + static_cast<int64_t>(k) * ds];
+    vc += dc_part[at + static_cast<int64_t>(k) * ds];
+  }
+  db[i] = from_f32<T>(vb);
+  dc[i] = from_f32<T>(vc);
 }
 
 // ---- plans ------------------------------------------------------------------
@@ -1761,13 +2293,11 @@ Pass chunk_pass(int mode, int q, int hd, int ds) {
                                    chunk_wg_smem<64, 64>(q)});
   }
   return Pass{mode == kBf16
-                  ? reinterpret_cast<const void*>(&chunk_bwd_cc<bf16>)
-                  : reinterpret_cast<const void*>(&chunk_bwd_cc<float>),
-              chunk_cc_smem(q)};
+                  ? reinterpret_cast<const void*>(&chunk_bwd_tf<bf16>)
+                  : reinterpret_cast<const void*>(&chunk_bwd_tf<float>),
+              chunk_tf_smem(q)};
 }
 
-// The tensor-core route's pass 1 (the CUDA-core route's is the forward's
-// pass 1, launched twice: states_pass).
 Pass states_wg_pass(int q, int hd, int ds) {
   const bool wide_d = hd > 64, wide_s = ds > 64;
   return wide_d ? (wide_s ? Pass{reinterpret_cast<const void*>(
@@ -1782,6 +2312,16 @@ Pass states_wg_pass(int q, int hd, int ds) {
                           : Pass{reinterpret_cast<const void*>(
                                      &states_bwd_wg<64, 64>),
                                  states_wg_smem<64, 64>(q)});
+}
+
+// Pass 1 of `mode`'s route: S and R in one launch.
+Pass states_bwd_pass(int mode, int q, int hd, int ds) {
+  if (mode == kTensorCores) return states_wg_pass(q, hd, ds);
+  return mode == kBf16
+             ? Pass{reinterpret_cast<const void*>(&states_bwd_tf<bf16>),
+                    states_tf_smem(q, hd, ds, 2)}
+             : Pass{reinterpret_cast<const void*>(&states_bwd_tf<float>),
+                    states_tf_smem(q, hd, ds, 4)};
 }
 
 // The launch of the chunk pass in clusters of `cluster` blocks.
@@ -1812,10 +2352,9 @@ cudaError_t launch_cluster(const Pass& p, unsigned grid, int cluster,
 }
 
 // A cluster of `cluster` heads: 1 to kMaxCluster, dividing the heads of a
-// group, above 1 on the tensor-core route only.
-inline bool valid_cluster(int mode, int nh, int ng, int cluster) {
-  return cluster >= 1 && cluster <= kMaxCluster && (nh / ng) % cluster == 0
-         && (cluster == 1 || mode == kTensorCores);
+// group.
+inline bool valid_cluster(int nh, int ng, int cluster) {
+  return cluster >= 1 && cluster <= kMaxCluster && (nh / ng) % cluster == 0;
 }
 
 }  // namespace ssd_grad
@@ -1828,8 +2367,8 @@ using namespace ssd_grad;
 // nc), db_part, dc_part (bsz, seq, nh / cluster, ds), dalog_part, dd_part
 // (bsz, nh, nc).  Out: dx like x, ddt like dt, da_log and dd_skip (nh,)
 // f32, db and dc like b.  All contiguous; the modes and limits are
-// ssd_fwd's; `cluster` heads share a chunk pass's cluster (1 on the
-// CUDA-core route; see valid_cluster).  `passes` is a mask of the passes to
+// ssd_fwd's; `cluster` heads share a chunk pass's cluster (see
+// valid_cluster).  `passes` is a mask of the passes to
 // launch, in this order (15 is the whole gradient): 1 writes the chunks'
 // own states into `states`, their decays, and R into dstates, 2 turns
 // states into the entering states H and dstates into dS in place, 4 the
@@ -1846,7 +2385,7 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
                        int32_t cluster, int32_t mode, int32_t passes,
                        void* stream) {
   if (!valid(mode, hd, ds, chunk) || ng <= 0 || nh % ng || seq < 0
-      || !valid_cluster(mode, nh, ng, cluster))
+      || !valid_cluster(nh, ng, cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bsz <= 0 || nh <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1857,19 +2396,9 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
   void* null = nullptr;
   cudaError_t err = cudaSuccess;
   if ((passes & 1) && sh.nc > 0) {
-    if (mode == kTensorCores) {
-      void* args[] = {&x, &dt, &a_log, &b, &c, &gy, &states, &decay, &dstates,
-                      &sh};
-      err = launch(states_wg_pass(chunk, hd, ds), blocks, args, st);
-    } else {
-      void* args[] = {&x, &dt, &a_log, &b, &states, &decay, &sh};
-      err = launch(states_pass<false, Tag>(mode, chunk, hd, ds), blocks, args,
-                   st);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      void* rargs[] = {&gy, &dt, &a_log, &c, &dstates, &null, &sh};
-      err = launch(states_pass<true, Tag>(mode, chunk, hd, ds), blocks, rargs,
-                   st);
-    }
+    void* args[] = {&x, &dt, &a_log, &b, &c, &gy, &states, &decay, &dstates,
+                    &sh};
+    err = launch(states_bwd_pass(mode, chunk, hd, ds), blocks, args, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (passes & 2) {
@@ -1912,35 +2441,23 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a_log,
       args[16] = &tm_b;
       args[17] = &tm_c;
       args[18] = &tma;
-      err = launch_cluster(p, blocks, cluster, args, st);
-    } else {
-      err = launch(p, blocks, args, st);
     }
+    err = launch_cluster(p, blocks, cluster, args, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (passes & 8) {
     int64_t rows = static_cast<int64_t>(bsz) * seq;
     int32_t shares = nh / cluster;        // the shares of a row
-    const int64_t outs = rows * ng * ds;
-    if (outs > 0) {
-      const unsigned g =
-          static_cast<unsigned>((outs + kThreads - 1) / kThreads);
-      const Pass p{mode == kF32
-                       ? reinterpret_cast<const void*>(&group_sum<float>)
-                       : reinterpret_cast<const void*>(&group_sum<bf16>),
-                   0};
-      void* bargs[] = {&db_part, &db, &rows, &shares, &ng, &ds};
-      err = launch(p, g, bargs, st);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      void* cargs[] = {&dc_part, &dc, &rows, &shares, &ng, &ds};
-      err = launch(p, g, cargs, st);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    void* hargs[] = {&dalog_part, &dd_part, &da_log, &dd_skip, &bsz, &nh,
-                     &sh.nc};
-    err = launch(Pass{reinterpret_cast<const void*>(&head_sum), 0},
-                 static_cast<unsigned>((nh + kThreads - 1) / kThreads), hargs,
-                 st);
+    const int64_t outs = rows * ng * ds, threads = outs > nh ? outs : nh;
+    const Pass p{mode == kF32
+                     ? reinterpret_cast<const void*>(&reduce_bwd<float>)
+                     : reinterpret_cast<const void*>(&reduce_bwd<bf16>),
+                 0};
+    void* args[] = {&db_part, &dc_part, &db, &dc, &rows, &shares, &ng, &ds,
+                    &dalog_part, &dd_part, &da_log, &dd_skip, &bsz, &nh,
+                    &sh.nc};
+    err = launch(p, static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+                 args, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1955,12 +2472,9 @@ extern "C" int ssd_bwd_occupancy(int32_t mode, int32_t hd, int32_t ds,
                                  int32_t chunk, int32_t cluster,
                                  int32_t* blocks, int32_t* smem,
                                  int32_t* clusters) {
-  if (!valid(mode, hd, ds, chunk) || cluster < 1 || cluster > kMaxCluster
-      || (cluster > 1 && mode != kTensorCores))
+  if (!valid(mode, hd, ds, chunk) || cluster < 1 || cluster > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Pass ps[2] = {mode == kTensorCores
-                          ? states_wg_pass(chunk, hd, ds)
-                          : states_pass<false, Tag>(mode, chunk, hd, ds),
+  const Pass ps[2] = {states_bwd_pass(mode, chunk, hd, ds),
                       chunk_pass(mode, chunk, hd, ds)};
   for (int i = 0; i < 2; ++i) {
     cudaError_t err = allow_smem(ps[i]);

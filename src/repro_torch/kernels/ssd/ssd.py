@@ -34,9 +34,11 @@ order into the entering states, the latter in reverse into their
 gradients), a chunk pass for dx, dt, the shares of db and dc and the
 blocks' shares of da_log and d_skip, and fixed-order sums of the shares.
 On the tensor-core route the products of the first and third are wgmma,
-and the chunk pass runs in thread-block clusters of ``backward_cluster``
-heads of one group that sum their db and dc shares on the chip, one share
-a cluster (``cluster_heads``; the CUDA-core route writes one a head).
+on the CUDA-core route split TF32 on ``mma.sync`` (each f32 operand hi +
+lo, three products summed in f32); on both the chunk pass runs in
+thread-block clusters of ``backward_cluster`` heads of one group that sum
+their db and dc shares on the chip, one share a cluster
+(``cluster_heads``), and the sums are one launch.
 The reference has no backward kernel: it trains
 through ``ssd_chunked``, which XLA differentiates.  On a CUDA tensor the backward
 launches or raises; on a CPU tensor (a test's) it takes
@@ -249,9 +251,9 @@ def cluster_heads(rep: int) -> int:
 def backward_cluster(dtype: torch.dtype, hd: int, ds: int, nh: int,
                      ng: int) -> int:
     """The heads that share a cluster of the backward's chunk pass, and so
-    one share of db and dc: ``cluster_heads(nh // ng)`` on the tensor-core
-    route, 1 on the CUDA-core route."""
-    return cluster_heads(nh // ng) if route(dtype, hd, ds) == "tc" else 1
+    one share of db and dc: ``cluster_heads(nh // ng)`` on either route
+    (the type and widths pick the route, not the cluster)."""
+    return cluster_heads(nh // ng)
 
 
 def cluster_share_sum(part: torch.Tensor, ng: int, cluster: int
@@ -300,18 +302,17 @@ def _backward_layout(x: torch.Tensor, b: torch.Tensor, chunk: int,
 def _cluster_of(x: torch.Tensor, b: torch.Tensor,
                 cluster: Optional[int]) -> int:
     """``cluster``, or the route's (``backward_cluster``) where None; a
-    cluster the chunk pass does not take raises."""
+    cluster the chunk pass does not take (not a divisor of a group's heads
+    up to ``MAX_CLUSTER``) raises."""
     _, _, nh, hd = x.shape
     ng, ds = b.shape[2], b.shape[3]
     if cluster is None:
         return backward_cluster(x.dtype, hd, ds, nh, ng)
     rep = nh // ng
-    if not 1 <= cluster <= MAX_CLUSTER or rep % cluster or (
-            cluster > 1 and route(x.dtype, hd, ds) != "tc"):
+    if not 1 <= cluster <= MAX_CLUSTER or rep % cluster:
         raise ValueError(f"cluster {cluster}: the chunk pass takes a "
                          f"divisor of the {rep} heads of a group up to "
-                         f"{MAX_CLUSTER}, above 1 on the tensor-core route "
-                         "only")
+                         f"{MAX_CLUSTER}")
     return cluster
 
 

@@ -2364,15 +2364,17 @@ def _plain_grads64(args, gy, gh, chunk=128):
 @pytest.mark.parametrize("chunk", [32, 64, 96, 128])
 @pytest.mark.parametrize("hd,ds,ng", [(64, 128, 1), (64, 16, 1), (64, 128, 2),
                                       (16, 16, 2), (128, 128, 2), (80, 48, 1),
-                                      (33, 97, 2), (1, 1, 1)])
+                                      (33, 97, 2), (40, 24, 1), (1, 1, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_matches_plain(cuda, dtype, hd, ds, ng, chunk, with_gh):
     """Both routes of the backward kernel (tensor cores for bf16 at widths
     that are multiples of 16: mamba2-780m's 64 / 128, jamba's 64 / 16; the
-    CUDA cores for f32 and bf16 at odd widths) against ``plain_backward``
-    within ``GRAD_TOL`` of each gradient's largest magnitude, over a
-    ragged last chunk, with and without the final state's gradient; one
-    counted call on its route's counter."""
+    CUDA-core route, split TF32 on mma.sync, for f32 and for bf16 at other
+    widths: 33 x 97, 40 x 24, 1 x 1, each padded to a multiple of 8)
+    against ``plain_backward`` in f64 within ``GRAD_TOL`` of each
+    gradient's largest magnitude (1e-5 in f32), over a ragged last chunk,
+    with and without the final state's gradient; one counted call on its
+    route's counter."""
     args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, 4, hd, ng, ds, dtype,
                                     seed=hd + ds + chunk)
     gh = gh if with_gh else None
@@ -2413,23 +2415,27 @@ def test_ssd_backward_chunk_pass_on_wgmma(cuda, hd, ds, ng, strong):
     assert blocks == 1
 
 
+@pytest.mark.parametrize("hd,ds", [(64, 128), (64, 16), (33, 97)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_backward_stays_finite_under_strong_decays(cuda, dtype):
-    """dt up to 2 and A up to 16 over whole 128-token chunks: every
-    gradient finite and within ``GRAD_TOL`` of the plain version's in
-    f64."""
-    args, gy, gh = _ssd_grad_inputs(cuda, 2, 512, 8, 64, 1, 128, dtype,
+def test_ssd_backward_stays_finite_under_strong_decays(cuda, dtype, hd, ds):
+    """dt up to 2 and A up to 16 over whole 128-token chunks, at
+    mamba2-780m's widths, jamba's and odd ones (both routes in bf16, the
+    split-TF32 route in f32): every gradient finite and within
+    ``GRAD_TOL`` of the plain version's in f64."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 512, 8, hd, 1, ds, dtype,
                                     seed=3, strong=True)
     got = ssd_kernels._scan_backward(*args, gy, gh, 128)
     assert all(bool(torch.isfinite(t).all()) for t in got)
     _grads_close(got, _plain_grads64(args, gy, gh), dtype)
 
 
+@pytest.mark.parametrize("hd,ds", [(64, 128), (40, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_backward_two_calls_are_bit_identical(cuda, dtype):
-    """No atomics: the heads' shares of db and dc and the blocks' shares of
-    da_log and d_skip are summed in a fixed order."""
-    args, gy, gh = _ssd_grad_inputs(cuda, 2, 2000, 8, 64, 1, 128, dtype,
+def test_ssd_backward_two_calls_are_bit_identical(cuda, dtype, hd, ds):
+    """No atomics: the heads' shares of db and dc (across a cluster of 8
+    heads, then the clusters) and the blocks' shares of da_log and d_skip
+    are summed in a fixed order, on both routes."""
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 2000, 8, hd, 1, ds, dtype,
                                     seed=5)
     first = ssd_kernels._scan_backward(*args, gy, gh, 128)
     second = ssd_kernels._scan_backward(*args, gy, gh, 128)
@@ -2461,12 +2467,13 @@ def test_ssd_autograd_launches_the_backward_kernel(cuda, monkeypatch, dtype,
     _grads_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("hd,ds", [(64, 128), (33, 97)])
 @pytest.mark.parametrize("which", ["x", "dt", "b", "c", "gy"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_backward_takes_misaligned_views(cuda, which, dtype):
+def test_ssd_backward_takes_misaligned_views(cuda, which, dtype, hd, ds):
     """A contiguous view that starts off a 16-byte mark is staged by
     narrower copies, to the same bits, as the forward takes it."""
-    args, gy, gh = _ssd_grad_inputs(cuda, 2, 200, 4, 64, 1, 128, dtype,
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 200, 4, hd, 1, ds, dtype,
                                     seed=3)
     args = list(args)
     want = ssd_kernels._scan_backward(*args, gy, gh, 128)
@@ -2520,68 +2527,81 @@ def test_ssd_backward_of_no_rows_launches_nothing(cuda, dtype):
 def test_ssd_backward_fits_the_card(cuda):
     """The passes with shared memory of their own fit at the widest shape
     the kernel takes (the chunk pass one block an SM); at mamba2-780m's
-    widths the states pass fits more than one; the tensor-core chunk pass's
-    clusters of up to 8 heads fit at every padding, at least one at once."""
+    widths the states pass fits more than one; the chunk pass's clusters
+    of up to 8 heads fit on both routes at every padding, at least one at
+    once."""
     for dtype in (torch.float32, torch.bfloat16):
         for p, (blocks, _) in ssd_kernels.backward_occupancy(
                 dtype, 128, 128, 128).items():
             assert blocks >= 1, (dtype, p)
         occ = ssd_kernels.backward_occupancy(dtype, 64, 128, 128)
         assert occ["states"][0] >= 2, occ
-    for hd, ds in ((64, 128), (64, 16), (128, 64), (128, 128)):
+    for dtype, hd, ds in ((torch.bfloat16, 64, 128), (torch.bfloat16, 64, 16),
+                          (torch.bfloat16, 128, 64),
+                          (torch.bfloat16, 128, 128),
+                          (torch.float32, 64, 128), (torch.float32, 64, 16),
+                          (torch.float32, 128, 128),
+                          (torch.float32, 33, 97)):
         for cluster in range(1, ssd_kernels.MAX_CLUSTER + 1):
             assert ssd_kernels.backward_clusters(
-                torch.bfloat16, hd, ds, 128, cluster) >= 1, (hd, ds, cluster)
+                dtype, hd, ds, 128, cluster) >= 1, (dtype, hd, ds, cluster)
 
 
 @pytest.mark.parametrize("strong", [False, True])
 @pytest.mark.parametrize("with_gh", [True, False])
-@pytest.mark.parametrize("hd,ds", [(64, 128), (64, 16), (128, 128)])
+@pytest.mark.parametrize("dtype,hd,ds", [
+    (torch.bfloat16, 64, 128), (torch.bfloat16, 64, 16),
+    (torch.bfloat16, 128, 128), (torch.float32, 64, 128),
+    (torch.float32, 64, 16), (torch.float32, 33, 97)])
 @pytest.mark.parametrize("rep", [1, 2, 3, 6, 8, 16])
 def test_ssd_backward_sums_shares_across_a_cluster_of_heads(
-        cuda, rep, hd, ds, with_gh, strong):
-    """The tensor-core chunk pass in clusters of C heads (C the largest
-    divisor of the ``rep`` heads of a group up to 8: 1, 2, 3, 6, 8, 8),
-    two groups, over a ragged last chunk, with and without the final
-    state's gradient, under Mamba-2's decays and strong ones: the shares
-    are (B, S, nh / C, ds), the gradients finite and within the bf16
-    ``GRAD_TOL`` of the plain version in f64, two calls bit-identical, one
-    counted call; the cluster launch fits (one block an SM, at least one
-    cluster at once)."""
+        cuda, rep, dtype, hd, ds, with_gh, strong):
+    """The chunk pass of either route (wgmma for bf16 at multiples of 16,
+    split TF32 for f32 and other widths) in clusters of C heads (C the
+    largest divisor of the ``rep`` heads of a group up to 8: 1, 2, 3, 6,
+    8, 8), two groups, over a ragged last chunk, with and without the
+    final state's gradient, under Mamba-2's decays and strong ones: the
+    shares are (B, S, nh / C, ds), the gradients finite and within the
+    type's ``GRAD_TOL`` of the plain version in f64, two calls
+    bit-identical, one counted call; the cluster launch fits (one block an
+    SM, at least one cluster at once)."""
     ng = 2
     nh = ng * rep
-    cluster = ssd_kernels.backward_cluster(torch.bfloat16, hd, ds, nh, ng)
+    cluster = ssd_kernels.backward_cluster(dtype, hd, ds, nh, ng)
     assert cluster == {1: 1, 2: 2, 3: 3, 6: 6, 8: 8, 16: 8}[rep]
-    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, nh, hd, ng, ds,
-                                    torch.bfloat16, seed=rep + hd + ds,
-                                    strong=strong)
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, nh, hd, ng, ds, dtype,
+                                    seed=rep + hd + ds, strong=strong)
     gh = gh if with_gh else None
     bufs = ssd_kernels.backward_buffers(args[0], args[3], 128)
     assert tuple(bufs["db_part"].shape) == (2, 300, nh // cluster, ds)
+    counter = ssd_kernels.BACKWARD_COUNTER[ssd_kernels.route(dtype, hd, ds)]
     before = dict(_build.LAUNCHES)
     got = ssd_kernels._scan_backward(*args, gy, gh, 128)
-    assert _ssd_counts(before) == {k: int(k == "ssd_bwd_tc") for k in before}
+    assert _ssd_counts(before) == {k: int(k == counter) for k in before}
     again = ssd_kernels._scan_backward(*args, gy, gh, 128)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(t).all()) for t in got)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    _grads_close(got, _plain_grads64(args, gy, gh), torch.bfloat16)
-    assert ssd_kernels.backward_occupancy(torch.bfloat16, hd, ds,
-                                          128)["chunk"][0] == 1
-    assert ssd_kernels.backward_clusters(torch.bfloat16, hd, ds, 128,
-                                         cluster) >= 1
+    _grads_close(got, _plain_grads64(args, gy, gh), dtype)
+    assert ssd_kernels.backward_occupancy(dtype, hd, ds, 128)["chunk"][0] == 1
+    assert ssd_kernels.backward_clusters(dtype, hd, ds, 128, cluster) >= 1
 
 
+@pytest.mark.parametrize("dtype,hd,ds", [(torch.bfloat16, 64, 128),
+                                         (torch.float32, 64, 128),
+                                         (torch.float32, 33, 97)])
 @pytest.mark.parametrize("rep", [3, 6, 8, 16])
-def test_ssd_backward_cluster_share_is_its_heads_summed_in_order(cuda, rep):
+def test_ssd_backward_cluster_share_is_its_heads_summed_in_order(
+        cuda, rep, dtype, hd, ds):
     """A cluster's share of db and dc is its heads' shares (the chunk pass
     at C = 1) summed in rank order, bit for bit, at every cluster the
-    group's heads take; db and dc are then ``cluster_share_sum``'s of the
-    heads' shares, bit for bit."""
-    ng, hd, ds, chunk = 1, 64, 128, 128
+    group's heads take, on both routes (in f32 at a width the sum takes
+    4 floats at a time and at one it takes one at a time); db and dc are
+    then ``cluster_share_sum``'s of the heads' shares, bit for bit."""
+    ng, chunk = 1, 128
     nh = ng * rep
-    args, gy, gh = _ssd_grad_inputs(cuda, 1, 300, nh, hd, ng, ds,
-                                    torch.bfloat16, seed=rep)
+    args, gy, gh = _ssd_grad_inputs(cuda, 1, 300, nh, hd, ng, ds, dtype,
+                                    seed=rep)
     heads = ssd_kernels.backward_buffers(args[0], args[3], chunk, cluster=1)
     ssd_kernels.run_backward_passes(*args, gy, gh, bufs=heads, chunk=chunk,
                                     cluster=1)
@@ -2605,7 +2625,10 @@ def test_ssd_backward_cluster_share_is_its_heads_summed_in_order(cuda, rep):
 
 @pytest.mark.parametrize("dtype,hd,ds", [(torch.float32, 64, 128),
                                          (torch.bfloat16, 64, 128),
-                                         (torch.bfloat16, 33, 97)])
+                                         (torch.bfloat16, 33, 97),
+                                         (torch.float32, 33, 97),
+                                         (torch.float32, 64, 16),
+                                         (torch.float32, 40, 24)])
 def test_ssd_backward_passes_match_their_plain_passes(cuda, dtype, hd, ds):
     """Each pass alone against its plain version: the chunks' own states
     and decays (the forward's pass 1) and R (pass 3's gradient of the
@@ -2641,3 +2664,49 @@ def test_ssd_backward_passes_match_their_plain_passes(cuda, dtype, hd, ds):
     _grads_close(got, _plain_grads64(args, gy, gh, chunk), dtype)
     assert _build.LAUNCHES == before
 
+
+@pytest.mark.parametrize("dtype,hd,ds", [(torch.float32, 64, 128),
+                                         (torch.float32, 128, 128),
+                                         (torch.float32, 64, 16),
+                                         (torch.float32, 33, 97),
+                                         (torch.bfloat16, 40, 24)])
+def test_ssd_backward_states_pass_is_one_kernel_for_s_and_r(cuda, dtype, hd,
+                                                            ds):
+    """On the CUDA-core route pass 1 alone (``passes=("states",)``) is one
+    kernel, ``states_bwd_tf``, that writes both each chunk's own state S
+    (and its decay) and R, what its y sends back to its entering state,
+    over scratch filled with NaN, within ``SSD_TOL`` of the plain passes,
+    over a ragged last chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    chunk = 128
+    args, gy, gh = _ssd_grad_inputs(cuda, 2, 300, 4, hd, 2, ds, dtype,
+                                    seed=hd + ds)
+    x, dt, a_log, b, c, d_skip = args
+    assert ssd_kernels.route(dtype, hd, ds) == "cuda_core"
+    bufs = ssd_kernels.backward_buffers(x, b, chunk)
+    for k in ("states", "decay", "dstates"):
+        bufs[k].fill_(float("nan"))
+    ssd_kernels.run_backward_passes(*args, gy, gh, bufs=bufs, chunk=chunk,
+                                    passes=("states",))    # the build
+    torch.cuda.synchronize()
+    for k in ("states", "decay", "dstates"):
+        bufs[k].fill_(float("nan"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ssd_kernels.run_backward_passes(*args, gy, gh, bufs=bufs,
+                                        chunk=chunk, passes=("states",))
+        torch.cuda.synchronize()
+    launched = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and ssd_kernels.BACKWARD_KERNELS in e.key}
+    assert list(launched.values()) == [1] \
+        and "states_bwd_tf" in next(iter(launched)), launched
+    states, decay = ssd_ref.ssd_chunk_states_plain(x, dt, a_log, b,
+                                                   chunk=chunk)
+    h_in, _ = ssd_ref.ssd_state_pass_plain(states, decay)
+    *_, dh_in = ssd_ref.ssd_chunk_scan_bwd_plain(*args, h_in, gy,
+                                                 chunk=chunk)
+    torch.testing.assert_close(bufs["states"], states, **SSD_TOL)
+    torch.testing.assert_close(bufs["decay"], decay, **SSD_TOL)
+    torch.testing.assert_close(bufs["dstates"], dh_in, **SSD_TOL)

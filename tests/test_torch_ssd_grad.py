@@ -314,7 +314,7 @@ def test_function_on_cpu_tensors_takes_plain_backward(monkeypatch):
                                       (16, 8), (12, 6), (7, 7), (48, 8),
                                       (128, 8)])
 def test_cluster_heads_is_the_largest_divisor_up_to_eight(rep, want):
-    """The heads of a cluster of the tensor-core chunk pass: the largest
+    """The heads of a cluster of the backward's chunk pass: the largest
     divisor of a group's heads up to ``MAX_CLUSTER`` (8), so mamba2-780m's
     48 and jamba's 128 take 8 and a group of one head takes 1."""
     assert ssd_mod.cluster_heads(rep) == want
@@ -324,11 +324,12 @@ def test_cluster_heads_is_the_largest_divisor_up_to_eight(rep, want):
 @pytest.mark.parametrize("dtype,hd,ds,nh,ng,want", [
     (torch.bfloat16, 64, 128, 48, 1, 8), (torch.bfloat16, 64, 16, 128, 1, 8),
     (torch.bfloat16, 64, 128, 12, 2, 6), (torch.bfloat16, 128, 128, 3, 1, 3),
-    (torch.float32, 64, 128, 48, 1, 1), (torch.bfloat16, 33, 97, 48, 1, 1)])
+    (torch.float32, 64, 128, 48, 1, 8), (torch.bfloat16, 33, 97, 48, 1, 8),
+    (torch.float32, 64, 16, 12, 2, 6), (torch.float32, 33, 97, 3, 1, 3)])
 def test_backward_shares_one_a_cluster(dtype, hd, ds, nh, ng, want):
-    """The tensor-core route clusters ``cluster_heads(nh / ng)`` heads and
-    writes one share of db and dc a cluster, (B, S, nh / C, ds); the
-    CUDA-core route one a head; a cluster the chunk pass does not take is
+    """Both routes cluster ``cluster_heads(nh / ng)`` heads and write one
+    share of db and dc a cluster, (B, S, nh / C, ds); a cluster the chunk
+    pass does not take (not a divisor of a group's heads up to 8) is
     refused."""
     x = torch.zeros(2, 5, nh, hd, dtype=dtype)
     b = torch.zeros(2, 5, ng, ds, dtype=dtype)
@@ -339,8 +340,7 @@ def test_backward_shares_one_a_cluster(dtype, hd, ds, nh, ng, want):
     assert tuple(bufs["states"].shape) == (2, nh, 1, hd, ds)
     assert tuple(ssd_mod.backward_buffers(x, b, 32, cluster=1)["db_part"]
                  .shape) == (2, 5, nh, ds)
-    bad = [9, 0] + [c for c in range(2, 9) if (nh // ng) % c
-                    or ssd_mod.route(dtype, hd, ds) != "tc"]
+    bad = [9, 0] + [c for c in range(2, 9) if (nh // ng) % c]
     for cluster in bad:
         with pytest.raises(ValueError, match="cluster"):
             ssd_mod.backward_buffers(x, b, 32, cluster=cluster)
@@ -372,3 +372,93 @@ def test_cluster_share_sum_equals_the_head_order_sum(cluster):
         for h in range(1, rep):
             seq = seq + heads[:, :, :, h]
         assert torch.equal(got, seq)
+
+
+# ---- the CUDA-core route's split TF32 (the card's f32 backward) ----------- #
+
+def _tf32_read(x, rna):
+    """x (f32) as the tensor cores read it: rounded as ``cvt.rna.tf32.f32``
+    rounds (to nearest, ties away from zero) where ``rna``, else cut: the
+    low 13 of the 23 mantissa bits dropped."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000 if rna else bits) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b, split=True):
+    """a @ b as the route multiplies: f32 operands, each split, x = hi +
+    lo, hi rounded as ``cvt.rna`` rounds and lo = x - hi kept whole, then
+    read through TF32's 10 mantissa bits; lo.hi + hi.lo + hi.hi, each
+    product summed in f64 and rounded to f32, the three summed in f32, the
+    small terms first.  Without ``split``: hi.hi alone."""
+    ah, bh = _tf32_read(a, True), _tf32_read(b, True)
+
+    def prod(u, v):
+        return (u.double() @ v.double()).float()
+    if not split:
+        return prod(ah, bh)
+    al, bl = _tf32_read(a - ah, False), _tf32_read(b - bh, False)
+    return (prod(al, bh) + prod(ah, bl)) + prod(ah, bh)
+
+
+class _SplitProducts(torch.overrides.TorchFunctionMode):
+    """Every matrix product taken as ``_split_mm`` takes it (its operands
+    rounded to f32, the result returned in their type): the plain backward
+    under this mode is the kernel's arithmetic for its products, and f64
+    for the rest."""
+
+    def __init__(self, split=True):
+        super().__init__()
+        self.split = split
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.matmul, torch.Tensor.matmul,
+                    torch.Tensor.__matmul__):
+            a, b = args
+            return _split_mm(a.float(), b.float(), self.split).to(a.dtype)
+        return func(*args, **(kwargs or {}))
+
+
+def test_tf32_read_rounds_hi_and_cuts_lo():
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 2 ** -11),
+                      1 + 2 ** -10 + 2 ** -11, 1 + 2 ** -11 + 2 ** -20])
+    assert _tf32_read(x, True).tolist() == [1 + 2 ** -10, 1.0,
+                                            -(1 + 2 ** -10), 1 + 2 ** -9,
+                                            1 + 2 ** -10]
+    assert _tf32_read(x, False).tolist() == [1.0, 1.0, -1.0, 1 + 2 ** -10,
+                                             1.0]
+
+
+@pytest.mark.parametrize("with_gh", [True, False])
+@pytest.mark.parametrize("s", [256, 300])
+def test_split_tf32_backward_meets_the_f32_tolerance(s, with_gh):
+    """The CUDA-core backward's products (the chunk states S and R, C B^T,
+    GY X^T, M^T gy, W c, W b, gy H, b dS^T, x dS) in split TF32 at
+    mamba2-780m's widths (hd 64, ds 128, one group) under strong decays
+    (dt up to 2: a chunk's log-decays sum to thousands), over whole
+    128-token chunks and a ragged last one, keep every gradient within
+    the f32 tolerance (1e-5 of its largest magnitude) of the plain
+    backward in f64; one TF32 product without the split leaves some
+    gradient outside it."""
+    r = np.random.default_rng(s)
+    nh, hd, ds = 2, 64, 128
+    ins = [r.normal(size=(1, s, nh, hd)), r.uniform(0.0, 2.0, (1, s, nh)),
+           np.log(r.uniform(1.0, 16.0, nh)), r.normal(size=(1, s, 1, ds)),
+           r.normal(size=(1, s, 1, ds)), r.normal(size=nh)]
+    ins = [torch.from_numpy(a) for a in ins]
+    gy = torch.from_numpy(r.normal(size=(1, s, nh, hd)))
+    gh = torch.from_numpy(r.normal(size=(1, nh, hd, ds))) if with_gh \
+        else None
+    # the inputs as the card holds them: f32
+    ins = [t.float().double() for t in ins]
+    gy = gy.float().double()
+    gh = None if gh is None else gh.float().double()
+    want = ref.ssd_backward_plain(*ins, gy, gh, chunk=128)
+    worst = {}
+    for split in (True, False):
+        with _SplitProducts(split):
+            got = ref.ssd_backward_plain(*ins, gy, gh, chunk=128)
+        worst[split] = max(
+            float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want))
+    assert worst[True] <= 1e-5, worst
+    assert worst[False] > 1e-5, worst
